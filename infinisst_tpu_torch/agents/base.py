@@ -1,0 +1,64 @@
+"""Agent infrastructure: read/write actions and streaming states (a copy of
+``infinisst_tpu/agents/base.py`` without the optional SimulEval adapter).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+
+@dataclass
+class ReadAction:
+    def is_read(self) -> bool:
+        return True
+
+
+@dataclass
+class WriteAction:
+    content: str
+    finished: bool = False
+
+    def is_read(self) -> bool:
+        return False
+
+
+@dataclass
+class AgentStates:
+    """Host-side stream state; device caches live on the agent."""
+
+    source: List[float] = field(default_factory=list)
+    source_sample_rate: int = 0
+    source_finished: bool = False
+    target: List[str] = field(default_factory=list)
+    target_ids: List[int] = field(default_factory=list)
+    src_len: int = 0  # samples already consumed
+    segment_idx: int = 0
+    translations_list: List[str] = field(default_factory=list)
+
+    def reset(self):
+        self.__init__()
+
+
+class SpeechToTextAgent:
+    """Base class: subclasses implement policy(states) -> Action."""
+
+    def __init__(self):
+        self.states = self.build_states()
+
+    def build_states(self) -> AgentStates:
+        return AgentStates()
+
+    def reset(self):
+        self.states.reset()
+
+    def policy(self, states: Optional[AgentStates] = None):
+        raise NotImplementedError
+
+    def push(self, samples, sample_rate: int = 16000, finished: bool = False):
+        """Feed a segment of audio and run the policy once."""
+        ext = samples.tolist() if hasattr(samples, "tolist") else list(samples)
+        self.states.source.extend(ext)
+        self.states.source_sample_rate = sample_rate
+        self.states.source_finished = finished
+        return self.policy(self.states)

@@ -1,0 +1,181 @@
+"""Llama-3/3.1 chat template for the streaming transcript (a copy of the
+prompt-building parts of ``infinisst_tpu/data/template.py``).
+
+The template is built once per (multiplier, first/later) as a fixed token
+layout, so the chunk step sees a closed set of shapes and the speech patch
+offset is a constant.
+
+  first chunk:
+    <|begin_of_text|><|start_header_id|>system<|end_header_id|>\\n\\n
+    {system text, incl. <latency_m>}<|eot_id|>
+    <|start_header_id|>user<|end_header_id|>\\n\\n {12m x <sp_patch>} <|eot_id|>
+    <|start_header_id|>assistant<|end_header_id|>\\n\\n
+  later chunks: the user + assistant part only.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from infinisst_tpu_torch.core.config import SpecialTokens
+
+DEFAULT_SPEECH_PATCH_TOKEN = "<sp_patch>"
+DEFAULT_LATENCY_TOKEN = "<latency_{}>"
+
+
+class StubTokenizer:
+    """Deterministic hash tokenizer for tests: one id per word."""
+
+    def __init__(self, vocab_size: int = 128263, lo: int = 1000,
+                 hi: int = 60000):
+        self.vocab_size = vocab_size
+        self.lo, self.hi = lo, hi
+
+    def encode(self, text: str) -> List[int]:
+        words = text.split()
+        if not words and text:
+            # pure-whitespace strings (the template's "\n\n") still occupy
+            # one token, as in the real Llama tokenizer
+            words = [repr(text)]
+        out = []
+        for w in words:
+            h = int(hashlib.md5(w.encode()).hexdigest(), 16)
+            out.append(self.lo + h % (self.hi - self.lo))
+        return out
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
+        return " ".join(f"tok{i}" for i in ids)
+
+
+@dataclass
+class ChunkPrompt:
+    ids: np.ndarray  # (S,) int32
+    patch_start: int  # index of the first <sp_patch>
+    n_patches: int
+
+
+class PromptBuilder:
+    def __init__(
+        self,
+        tokenizer,
+        tokens: SpecialTokens,
+        source_lang: str = "English",
+        target_lang: str = "German",
+        llama31: bool = True,
+        use_hf_template: Optional[bool] = None,
+    ):
+        self.tokenizer = tokenizer
+        self.t = tokens
+        self.source_lang = source_lang
+        self.target_lang = target_lang
+        self.llama31 = llama31
+        if use_hf_template is None:
+            use_hf_template = hasattr(tokenizer, "apply_chat_template")
+        self.use_hf_template = use_hf_template
+
+    def system_text(self, multiplier: int) -> str:
+        lat = DEFAULT_LATENCY_TOKEN.format(multiplier)
+        return (
+            f"Translate the following speech from {self.source_lang} to "
+            f"{self.target_lang} with latency {lat}."
+        )
+
+    def _sys_text_ids(self, text: str) -> List[int]:
+        """Tokenize the system text whole; if the tokenizer does not know
+        the latency token, encode each side of it whole and splice its id."""
+        t = self.t
+        ids = list(self.tokenizer.encode(text))
+        m_all = re.findall(r"<latency_(\d+)>", text)
+        valid = [g for g in m_all if 1 <= int(g) <= len(t.latency)]
+        knows_latency = valid and all(
+            list(self.tokenizer.encode(f"<latency_{g}>"))
+            == [t.latency[int(g) - 1]]
+            for g in valid
+        )
+        if knows_latency or not valid:
+            return ids
+        out: List[int] = []
+        for part in re.split(r"(<latency_\d+>)", text):
+            m = re.fullmatch(r"<latency_(\d+)>", part)
+            if m and 1 <= int(m.group(1)) <= len(t.latency):
+                out.append(t.latency[int(m.group(1)) - 1])
+            elif part:
+                out.extend(self.tokenizer.encode(part))
+        return out
+
+    def system_ids(self, text: str) -> np.ndarray:
+        """<|begin_of_text|> + system block."""
+        if self.use_hf_template:
+            ids = self.tokenizer.apply_chat_template(
+                [{"role": "system", "content": text}]
+            )
+            return np.asarray(ids, np.int32)
+        t = self.t
+        ids = (
+            [t.bos, t.start_header]
+            + self.tokenizer.encode("system")
+            + [t.end_header]
+            + self.tokenizer.encode("\n\n")
+            + self._sys_text_ids(text)
+            + [t.eot]
+        )
+        return np.asarray(ids, np.int32)
+
+    def _turn_ids(self, n_patches: int) -> List[int]:
+        """user turn with n speech patches + open assistant header."""
+        t = self.t
+        nl2 = self.tokenizer.encode("\n\n")
+        return (
+            [t.start_header, t.user, t.end_header]
+            + nl2
+            + [t.sp_patch] * n_patches
+            + [t.eot, t.start_header, t.assistant, t.end_header]
+            + nl2
+        )
+
+    def chunk_prompt(self, multiplier: int, first: bool,
+                     n_patches: Optional[int] = None) -> ChunkPrompt:
+        """Prompt ids for one streaming chunk; n_patches defaults to 12*m."""
+        if n_patches is None:
+            n_patches = 12 * multiplier
+        t = self.t
+        if self.use_hf_template:
+            sys_text = self.system_text(multiplier)
+            messages = [
+                {"role": "system", "content": sys_text},
+                {"role": "user",
+                 "content": DEFAULT_SPEECH_PATCH_TOKEN * n_patches},
+                {"role": "assistant", "content": ""},
+            ]
+            ids = self.tokenizer.apply_chat_template(messages)[:-1]
+            if not first:
+                sys_len = len(self.system_ids(sys_text))
+                ids = ids[sys_len:] if self.llama31 else [t.eos] + ids[sys_len:]
+            ids = np.asarray(ids, np.int32)
+            patch_pos = np.where(ids == t.sp_patch)[0]
+            assert len(patch_pos) == n_patches, (len(patch_pos), n_patches)
+            return ChunkPrompt(ids=ids, patch_start=int(patch_pos[0]),
+                               n_patches=n_patches)
+        nl2 = self.tokenizer.encode("\n\n")
+        header = [t.start_header, t.user, t.end_header] + nl2
+        if first:
+            sys_ids = list(self.system_ids(self.system_text(multiplier)))
+            ids = sys_ids + self._turn_ids(n_patches)
+            patch_start = len(sys_ids) + len(header)
+        else:
+            ids = self._turn_ids(n_patches)
+            patch_start = len(header)
+            if not self.llama31:
+                # llama-3-8B-instruct: a leading eos in place of bos
+                ids = [t.eos] + ids
+                patch_start += 1
+        return ChunkPrompt(ids=np.asarray(ids, np.int32),
+                           patch_start=patch_start, n_patches=n_patches)
+
+    def system_prompt_size(self, multiplier: int) -> int:
+        return len(self.system_ids(self.system_text(multiplier)))

@@ -1,0 +1,87 @@
+"""Logit processors over fixed-size token buffers; port of the beam-path
+processors in ``infinisst_tpu/decode/logits.py`` (HF semantics, applied to
+log-softmax scores in HF order).
+
+All take (B, V) scores and (B, T) token buffers with explicit valid
+lengths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e9
+
+
+def _presence(V: int, tokens: torch.Tensor, flags: torch.Tensor):
+    """(B, V) bool: True where some token with a True flag has that id."""
+    out = torch.zeros((tokens.shape[0], V), dtype=torch.float32,
+                      device=tokens.device)
+    out.scatter_reduce_(1, tokens.to(torch.int64), flags.to(torch.float32),
+                        reduce="amax")
+    return out > 0
+
+
+def repetition_penalty(scores, tokens, valid, penalty: float):
+    """score > 0 -> score / penalty, else score * penalty, for every token
+    present (valid) in the sequence."""
+    if penalty == 1.0:
+        return scores
+    present = _presence(scores.shape[-1], tokens, valid)
+    penalized = torch.where(scores > 0, scores / penalty, scores * penalty)
+    return torch.where(present, penalized, scores)
+
+
+def _ngram_bans(V: int, source, source_valid_len, suffix, have_suffix):
+    """(B, V) bool, True = banned: token source[i + n - 1] whenever
+    source[i : i + n - 1] == suffix and the window lies in the valid span."""
+    B, Ts = source.shape
+    nm1 = suffix.shape[1]
+    n_windows = Ts - nm1
+    if n_windows <= 0:
+        return torch.zeros((B, V), dtype=torch.bool, device=source.device)
+    dev = source.device
+    idx = (torch.arange(n_windows, device=dev)[:, None]
+           + torch.arange(nm1, device=dev)[None, :])
+    windows = source[:, idx]  # (B, W, n-1)
+    match = (windows == suffix[:, None, :]).all(dim=-1)
+    win_end = torch.arange(n_windows, device=dev) + nm1
+    in_valid = win_end[None, :] <= source_valid_len[:, None] - 1
+    match = match & in_valid & have_suffix[:, None]
+    banned_tok = source[:, torch.clamp(win_end, max=Ts - 1)]  # (B, W)
+    return _presence(V, banned_tok, match)
+
+
+def _tail(tokens, valid_len, nm1):
+    """Last nm1 tokens before valid_len (dynamic_slice start clamping)."""
+    T = tokens.shape[1]
+    start = torch.clamp(valid_len - nm1, min=0, max=T - nm1)
+    idx = start[:, None] + torch.arange(nm1, device=tokens.device)[None]
+    return torch.gather(tokens, 1, idx)
+
+
+def no_repeat_ngram(scores, tokens, valid_len, ngram_size: int):
+    if ngram_size <= 0:
+        return scores
+    nm1 = ngram_size - 1
+    suffix = _tail(tokens, valid_len, nm1)
+    have = valid_len >= nm1 + 1
+    bans = _ngram_bans(scores.shape[-1], tokens, valid_len, suffix, have)
+    return torch.where(bans, torch.full_like(scores, NEG_INF), scores)
+
+
+def encoder_no_repeat_ngram(scores, history, history_len, tokens,
+                            valid_len, ngram_size: int):
+    """Ban continuations of (n-1)-grams of the cross-chunk target history."""
+    if ngram_size <= 0:
+        return scores
+    nm1 = ngram_size - 1
+    suffix = _tail(tokens, valid_len, nm1)
+    have = valid_len >= nm1
+    bans = _ngram_bans(scores.shape[-1], history, history_len, suffix, have)
+    return torch.where(bans, torch.full_like(scores, NEG_INF), scores)
+
+
+def suppress_tokens(scores, mask):
+    """mask: (V,) bool, True = suppress."""
+    return torch.where(mask[None, :], torch.full_like(scores, NEG_INF), scores)

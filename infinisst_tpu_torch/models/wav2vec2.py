@@ -1,0 +1,256 @@
+"""wav2vec2-style chunked-causal speech encoder; port of the streaming path
+of ``infinisst_tpu/models/wav2vec2.py``.
+
+- conv feature extractor (7 layers, stride 320), 'layer_norm' mode (per
+  layer LayerNorm, vox/large) or 'default' (GroupNorm on layer 0), with
+  the conv biases of the LV-60 checkpoints;
+- pre-LN transformer with block-causal streaming attention and
+  interleaved RoPE over cache-relative positions, a Python loop over
+  stacked layer parameters.
+
+Parameters (dense weights stored (in, out), as in the JAX package):
+  conv: [{w: (k, in, out), b, ln_scale, ln_bias}] * 7; post_ln {scale,
+  bias}; post_proj {w, b}; layers (stacked, L first): ln1/ln2 scale+bias,
+  wq/wk/wv/wo (L, D, D), bq/bk/bv/bo, fc1_w (L, D, F), fc1_b, fc2_w
+  (L, F, D), fc2_b; final_ln {scale, bias}.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from infinisst_tpu_torch.core import masks as M
+from infinisst_tpu_torch.core import rope as R
+from infinisst_tpu_torch.core.config import W2V2Config
+from infinisst_tpu_torch.streaming.state import EncoderState
+
+Params = Dict[str, Any]
+
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+def _gelu(x):
+    # fairseq/torch default GELU is the exact (erf) variant
+    return F.gelu(x, approximate="none")
+
+
+def _group_norm_per_channel(h, scale, bias, eps=1e-5):
+    """GroupNorm(dim, dim) on (B, C, T): each channel over its own time."""
+    hf = h.to(torch.float32)
+    mu = hf.mean(dim=-1, keepdim=True)
+    var = ((hf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (hf - mu) * torch.rsqrt(var + eps)
+    return (
+        y * scale.to(torch.float32)[None, :, None]
+        + bias.to(torch.float32)[None, :, None]
+    ).to(h.dtype)
+
+
+def conv_extractor(params: Params, cfg: W2V2Config, x: torch.Tensor):
+    """(B, T) raw samples -> (B, frames, conv_dim); valid convolutions."""
+    h = x[:, None, :]  # (B, 1, T)
+    for i, (lc, p) in enumerate(zip(cfg.conv_layers, params["conv"])):
+        h = F.conv1d(h.to(p["w"].dtype), p["w"].permute(2, 1, 0),
+                     stride=lc.stride)
+        if "b" in p:
+            h = h + p["b"].to(h.dtype)[None, :, None]
+        if cfg.extractor_mode == "layer_norm":
+            h = _gelu(_layer_norm(h.transpose(1, 2), p["ln_scale"],
+                                  p["ln_bias"])).transpose(1, 2)
+        else:
+            if i == 0:
+                h = _group_norm_per_channel(h, p["gn_scale"], p["gn_bias"])
+            h = _gelu(h)
+    return h.transpose(1, 2)
+
+
+def sinusoidal_positions(offset, length: int, d_model: int, device=None):
+    """Absolute sinusoidal embeddings [sin | cos] (the abs-pos fallback
+    when RoPE is off), computed in f32."""
+    half = d_model // 2
+    freq = torch.exp(
+        torch.arange(half, dtype=torch.float32, device=device)
+        * -(math.log(10000.0) / (half - 1))
+    )
+    pos = torch.as_tensor(offset, dtype=torch.float32, device=device) + \
+        torch.arange(length, dtype=torch.float32, device=device)
+    ang = pos[:, None] * freq[None, :]
+    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+    if d_model % 2 == 1:
+        emb = torch.cat(
+            [emb, torch.zeros((length, 1), dtype=torch.float32, device=device)],
+            dim=1,
+        )
+    return emb
+
+
+def _attention(q, k, v, bias, q_pos, k_pos, cfg: W2V2Config, inv_freq):
+    """q (B, S, H, Dh), k/v (B, K, H, Dh) unrotated; bias (B, 1, S, K)."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if cfg.use_rope:
+        xb = cfg.xpos_scale_base if cfg.use_xpos else None
+        q = R.apply_encoder_rope(q, q_pos, inv_freq, xb, xpos_downscale=False)
+        k = R.apply_encoder_rope(k, k_pos, inv_freq, xb, xpos_downscale=True)
+    logits = torch.einsum(
+        "bhsd,bhkd->bhsk", q.to(torch.float32), k.to(torch.float32)
+    )
+    logits = logits * scale + bias.to(torch.float32)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhsk,bhkd->bhsd", w, v)
+    return out.transpose(1, 2)  # (B, S, H, Dh)
+
+
+def _split_heads(x, n_heads):
+    b, s, d = x.shape
+    return x.reshape(b, s, n_heads, d // n_heads)
+
+
+def _encoder_stack(params, cfg: W2V2Config, x, bias, q_pos, k_pos,
+                   cache_kv, inv_freq):
+    """Run the transformer layers over x (B, S, D) attending to
+    [cache | chunk]; returns (output, (new_k, new_v)) with the chunk's
+    per-layer K/V stacked as (L, B, S, H, Dh)."""
+    H = cfg.encoder_attention_heads
+    layers = params["layers"]
+    L = layers["wq"].shape[0]
+    h = x
+    new_k, new_v = [], []
+    for li in range(L):
+        lp = {k: v[li] for k, v in layers.items()}
+        y = _layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
+        q = _split_heads(y @ lp["wq"] + lp["bq"], H)
+        k_n = _split_heads(y @ lp["wk"] + lp["bk"], H)
+        v_n = _split_heads(y @ lp["wv"] + lp["bv"], H)
+        if cache_kv is not None:
+            k = torch.cat([cache_kv[0][li], k_n.to(cache_kv[0].dtype)], dim=1)
+            v = torch.cat([cache_kv[1][li], v_n.to(cache_kv[1].dtype)], dim=1)
+        else:
+            k, v = k_n, v_n
+        attn = _attention(q, k, v, bias, q_pos, k_pos, cfg, inv_freq)
+        attn = attn.reshape(*attn.shape[:2], -1) @ lp["wo"] + lp["bo"]
+        h = h + attn
+        y = _layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
+        y = _gelu(y @ lp["fc1_w"] + lp["fc1_b"])
+        h = h + (y @ lp["fc2_w"] + lp["fc2_b"])
+        new_k.append(k_n)
+        new_v.append(v_n)
+    h = _layer_norm(h, params["final_ln"]["scale"], params["final_ln"]["bias"])
+    return h, (torch.stack(new_k), torch.stack(new_v))
+
+
+def _prep_frames(params: Params, cfg: W2V2Config, samples: torch.Tensor):
+    """Conv extractor + post LayerNorm + projection to the encoder dim."""
+    feats = conv_extractor(params, cfg, samples)
+    feats = _layer_norm(feats, params["post_ln"]["scale"],
+                        params["post_ln"]["bias"])
+    return feats @ params["post_proj"]["w"] + params["post_proj"]["b"]
+
+
+def chunk_step(
+    params: Params,
+    cfg: W2V2Config,
+    state: EncoderState,
+    window: torch.Tensor,  # (B, CONV_LEFT_CONTEXT + 2 * chunk_samples)
+    chunk_frames: int,
+    max_cache_frames: int,
+) -> Tuple[torch.Tensor, EncoderState]:
+    """Encode one chunk against the right-aligned sliding-window cache
+    (uniform chunk sizes).  The conv runs over the whole window and the
+    first ``chunk_frames`` outputs (the previous chunk's) are dropped.
+    Returns (frames (B, chunk_frames, D), new state)."""
+    x = _prep_frames(params, cfg, window)[:, -chunk_frames:]
+    B, S, D = x.shape
+    C = state.k.shape[2]
+    dev = x.device
+    n = state.n_frames.to(dev)  # (B,)
+    if not cfg.use_rope:
+        # abs-pos fallback at the ABSOLUTE stream offset
+        emb = torch.stack(
+            [sinusoidal_positions(o, S, D, dev) for o in n.tolist()]
+        )
+        x = x + emb.to(x.dtype)
+    mask = M.streaming_chunk_mask(S, n, max_cache_frames, chunk_frames, C + S)
+    bias = M.additive(mask)[:, None]  # (B, 1, S, C+S)
+    valid = torch.clamp(n, max=C)[:, None]
+    k_pos = torch.arange(C + S, device=dev)[None] - (C - valid)
+    q_pos = valid + torch.arange(S, device=dev)[None]
+    inv_freq = torch.tensor(R.encoder_rope_freqs(cfg.head_dim),
+                            dtype=torch.float32, device=dev)
+    out, (nk, nv) = _encoder_stack(
+        params, cfg, x, bias, q_pos, k_pos, (state.k, state.v), inv_freq
+    )
+    # right-aligned sliding append: drop the oldest S slots, add the chunk
+    new_k = torch.cat([state.k[:, :, S:], nk.to(state.k.dtype)], dim=2)
+    new_v = torch.cat([state.v[:, :, S:], nv.to(state.v.dtype)], dim=2)
+    return out, EncoderState(k=new_k, v=new_v, n_frames=n + S)
+
+
+def init_params(cfg: W2V2Config, generator: torch.Generator, device="cuda",
+                dtype=torch.float32) -> Params:
+    """Random parameters in the JAX package's layout, made on device."""
+    D, F_, L = cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, \
+        cfg.encoder_layers
+    conv_dim = cfg.conv_layers[-1].dim
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    conv = []
+    in_d = 1
+    for i, lc in enumerate(cfg.conv_layers):
+        w = normal((lc.kernel, in_d, lc.dim)) * math.sqrt(
+            2.0 / (lc.kernel * in_d)
+        )
+        entry = {"w": w.to(dtype)}
+        if cfg.conv_bias:
+            entry["b"] = zeros((lc.dim,))
+        if cfg.extractor_mode == "layer_norm":
+            entry["ln_scale"] = ones((lc.dim,))
+            entry["ln_bias"] = zeros((lc.dim,))
+        elif i == 0:
+            entry["gn_scale"] = ones((lc.dim,))
+            entry["gn_bias"] = zeros((lc.dim,))
+        conv.append(entry)
+        in_d = lc.dim
+
+    def stacked(shape):
+        return (normal((L,) + shape) / math.sqrt(shape[0])).to(dtype)
+
+    layers = {
+        "ln1_scale": ones((L, D)), "ln1_bias": zeros((L, D)),
+        "ln2_scale": ones((L, D)), "ln2_bias": zeros((L, D)),
+        "wq": stacked((D, D)), "wk": stacked((D, D)),
+        "wv": stacked((D, D)), "wo": stacked((D, D)),
+        "bq": zeros((L, D)), "bk": zeros((L, D)),
+        "bv": zeros((L, D)), "bo": zeros((L, D)),
+        "fc1_w": stacked((D, F_)), "fc1_b": zeros((L, F_)),
+        "fc2_w": stacked((F_, D)), "fc2_b": zeros((L, D)),
+    }
+    return {
+        "conv": conv,
+        "post_ln": {"scale": ones((conv_dim,)), "bias": zeros((conv_dim,))},
+        "post_proj": {
+            "w": (normal((conv_dim, D)) / math.sqrt(conv_dim)).to(dtype),
+            "b": zeros((D,)),
+        },
+        "layers": layers,
+        "final_ln": {"scale": ones((D,)), "bias": zeros((D,))},
+    }

@@ -1,0 +1,104 @@
+"""Guards for the PyTorch port.
+
+1. No module of ``infinisst_tpu_torch`` and not ``chip_smoke.py`` imports
+   ``jax`` or anything of the JAX package ``infinisst_tpu``: the machine
+   with the card has no JAX, and the port keeps its own copies.
+2. Asking for CUDA without a card raises; nothing quietly runs on the CPU.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "infinisst_tpu_torch")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "infinisst_tpu")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _sources()
+    assert len(files) > 20, files
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and \
+                    node.level == 0:
+                names = [node.module]
+            elif isinstance(node, ast.Call) and getattr(
+                    node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                    isinstance(node.args[0], ast.Constant):
+                names = [str(node.args[0].value)]
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card path")
+
+
+def test_cuda_without_a_card_raises(no_card):
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core import config as TC
+    from infinisst_tpu_torch.core.device import resolve_device
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.models.quant import init_quantized_llama
+
+    cfg = TC.tiny_model_config(vocab_size=512)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InfiniSSTAgent(None, cfg, TC.StreamConfig(),
+                       PromptBuilder(StubTokenizer(512), cfg.tokens),
+                       InfiniSSTOptions())  # device defaults to cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_quantized_llama(cfg.llama, torch.Generator(), device="cuda")
+
+
+def test_kernel_wrappers_never_fall_back(no_card):
+    """The plain versions run only for CPU tensors: any other device goes
+    to the kernel (or raises), never to the plain version."""
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+
+    K.reset_launch_counts()
+    y = torch.empty((4, 64), device="meta")
+    w = torch.empty((64, 32), dtype=torch.int8, device="meta")
+    s = torch.empty((32,), device="meta")
+    ys = torch.empty((4, 1), device="meta")
+    yq = torch.empty((4, 64), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.row_quant_int8(y)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.w8a8_gemm(yq, ys, w, s, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.w8_bf16_gemm(y, w, s)
+    assert sum(K.launch_counts.values()) == 0
+    # a CPU tensor takes the plain version
+    out = K.quantized_matmul_w8a8(torch.ones((2, 8)),
+                                  torch.ones((8, 4), dtype=torch.int8),
+                                  torch.ones((4,)))
+    np.testing.assert_array_equal(out.numpy(), np.full((2, 4), 8.0))

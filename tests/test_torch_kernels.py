@@ -1,0 +1,145 @@
+"""The port's int8 matmul kernels (plain versions, on the CPU) against the
+JAX package: ``mm`` on both quantized layouts, the Pallas kernels in
+interpret mode, and ``quantize_activation``.
+
+W8A8 and the row quantization must be BITWISE equal: both sides compute an
+exact integer product and the same float32 epilogue in the same order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from infinisst_tpu.kernels import quant_matmul as JK
+from infinisst_tpu.models import quant as JQ
+from infinisst_tpu_torch.kernels import quant_matmul as TK
+from infinisst_tpu_torch.models import quant as TQ
+
+torch.set_num_threads(1)
+
+DTYPES = {
+    "float32": (jnp.float32, torch.float32),
+    "bfloat16": (jnp.bfloat16, torch.bfloat16),
+}
+
+
+def _inputs(M, D, O, seed):
+    rng = np.random.RandomState(seed)
+    y = (rng.randn(M, D) * rng.uniform(0.5, 3.0, (M, 1))).astype(np.float32)
+    w = rng.randint(-127, 128, (D, O)).astype(np.int8)
+    s = (rng.rand(O) * 1e-2 + 1e-4).astype(np.float32)
+    return y, w, s
+
+
+def _as_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _port(y, dtype):
+    return torch.from_numpy(y).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize(
+    "M,D,O", [(1, 256, 512), (3, 128, 256), (61, 256, 384), (4, 512, 128)]
+)
+def test_w8a8_mm_bitwise_vs_jax_and_pallas(dtype, M, D, O):
+    jd, td = DTYPES[dtype]
+    y, w, s = _inputs(M, D, O, seed=M * 7 + D)
+    yj = jnp.asarray(y).astype(jd)
+    want = JQ.mm(yj, {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)})
+    pallas = JK.quantized_matmul_w8a8(
+        yj, jnp.asarray(w), jnp.asarray(s), tile_o=128, interpret=True
+    )
+    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
+                               "scale_a8": torch.from_numpy(s)})
+    assert got.dtype == td and tuple(got.shape) == (M, O)
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(pallas))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 3, 128, 100), (1, 61, 64, 36)])
+def test_w8a8_mm_ragged_o_and_batched_rows(dtype, shape):
+    """O not a multiple of 128 (the Pallas call asserts O % tile_o == 0,
+    so only JAX ``mm`` is the reference) and a leading batch axis."""
+    jd, td = DTYPES[dtype]
+    B, S, D, O = shape
+    y, w, s = _inputs(B * S, D, O, seed=O)
+    y = y.reshape(B, S, D)
+    want = JQ.mm(jnp.asarray(y).astype(jd),
+                 {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)})
+    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
+                               "scale_a8": torch.from_numpy(s)})
+    assert tuple(got.shape) == (B, S, O)
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D", [(1, 64), (3, 4096), (61, 1024)])
+def test_row_quant_int8_bitwise_vs_quantize_activation(dtype, M, D):
+    jd, td = DTYPES[dtype]
+    y, _, _ = _inputs(M, D, 4, seed=D + M)
+    y[0, :3] = [0.5, -1.5, 2.5]  # exact .5 quotients need round-half-even
+    y[-1] = 0.0  # an all-zero row takes the 1e-8 floor scale
+    jq, js = JK.quantize_activation(jnp.asarray(y).astype(jd))
+    tq, ts = TK.row_quant_int8(_port(y, td))
+    assert tq.dtype == torch.int8 and tuple(ts.shape) == (M, 1)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D,O", [(4, 256, 512), (61, 128, 256)])
+def test_weight_only_mm_vs_pallas_interpret(dtype, M, D, O):
+    """``{'q','scale'}``: bf16 activation x dequantized int8 weight, f32
+    sums.  Each product is exact on both sides; only the f32 summation
+    order differs, so float32 outputs agree to 1e-6 relative to the
+    largest output and bfloat16 outputs to one bf16 rounding step (2**-8
+    relative)."""
+    jd, td = DTYPES[dtype]
+    y, w, s = _inputs(M, D, O, seed=3 * M + O)
+    want = JK.quantized_matmul(jnp.asarray(y).astype(jd), jnp.asarray(w),
+                               jnp.asarray(s), tile_o=128, interpret=True)
+    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
+                               "scale": torch.from_numpy(s)})
+    assert got.dtype == td
+    g, r = _as_f32(got), _as_f32(want)
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -8
+    assert np.abs(g - r).max() <= rel * np.abs(r).max(), np.abs(g - r).max()
+
+
+def test_lowrank_and_plain_leaves():
+    rng = np.random.RandomState(0)
+    y = rng.randn(2, 5, 16).astype(np.float32)
+    a = rng.randn(16, 4).astype(np.float32)
+    b = rng.randn(4, 24).astype(np.float32)
+    want = JQ.mm(jnp.asarray(y), {"a": jnp.asarray(a), "b": jnp.asarray(b)})
+    got = TQ.mm(torch.from_numpy(y), {"a": torch.from_numpy(a),
+                                      "b": torch.from_numpy(b)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_grouped_w8a8_is_not_ported_and_raises():
+    """The grouped layout (2-D scale_a8) has no port yet: ``mm`` raises
+    instead of computing something else."""
+    leaf = {"q": torch.zeros((256, 128), dtype=torch.int8),
+            "scale_a8": torch.ones((4, 128))}
+    with pytest.raises(NotImplementedError):
+        TQ.mm(torch.ones((5, 256)), leaf)
+
+
+def test_launch_counters_stay_zero_on_cpu():
+    TK.reset_launch_counts()
+    y, w, s = _inputs(4, 64, 32, seed=0)
+    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
+                                "scale_a8": torch.from_numpy(s)})
+    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
+                                "scale": torch.from_numpy(s)})
+    assert TK.launch_counts == {
+        "row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0
+    }
