@@ -6,22 +6,29 @@ NVIDIA H100.
 
 Phases (any failure exits non-zero; no phase carries on past its own):
   1. device   -- require CUDA; print the card's name and power limit.
-  2. build    -- build every kernel source (csrc/*.cu) for sm_90a.
+  2. build    -- build every kernel source (csrc/*.cu) for sm_90a, one
+                 nvcc per source, all started together.
   3. kernels  -- each kernel against its plain PyTorch version on the card
-                 at every main-path shape: row_quant_int8 and w8a8_gemm
-                 bitwise, w8_bf16_gemm within 1e-2 * max|plain|; kernel,
-                 plain and library times (median of 5 timed replays, with
-                 the kernel's min-max) and the bound.  The library
-                 yardsticks, timed here and never called by the port:
-                 torch._int_mm (the int32 product alone, M > 16 only)
-                 beside w8a8_gemm, torch._weight_int8pack_mm (on the
-                 weight transposed to its (O, D) layout) beside
-                 w8_bf16_gemm.
-  4. tiny     -- a tiny speech-LLM on the card against the same model on
+                 at every main-path shape: row_quant_int8, w8a8_gemm,
+                 group_quant_int8 and w8a8_grouped_gemm bitwise,
+                 w8_bf16_gemm within 1e-2 * max|plain|; kernel, plain and
+                 library times (median of 5 timed replays, with the
+                 kernel's min-max) and the bound.  The library yardsticks,
+                 timed here and never called by the port: torch._int_mm
+                 (the int32 product alone, M > 16 only) beside w8a8_gemm,
+                 torch._weight_int8pack_mm (on the weight transposed to its
+                 (O, D) layout) beside w8_bf16_gemm; none for the grouped
+                 pair (no single PyTorch call computes it).
+  4. attention -- decode_attention against its plain version at the beam
+                 step's two blocks and at decode_attention_batched's pooled
+                 shapes, within ATT_RTOL; times as in phase 3, with
+                 F.scaled_dot_product_attention (enable_gqa) over keys
+                 rotated beforehand as the library yardstick.
+  5. tiny     -- a tiny speech-LLM on the card against the same model on
                  the CPU (plain versions): float32 and W8A8 prefill logits
                  within 1e-4 * max|logits|, and the W8A8 agent's tokens
                  equal in every chunk.
-  5. flagship -- wav2vec2-large + Llama-3.1-8B, W8A8 projections and
+  6. flagship -- wav2vec2-large + Llama-3.1-8B, W8A8 projections and
                  lm_head, m=1, beam 4: streams until the encoder ring has
                  wrapped and the LLM cache was evicted; per-chunk wall
                  time, RTF and valid_len; launch counts checked per
@@ -29,15 +36,19 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  each stage (wall ms per stage) and one under
                  torch.profiler (device time by kernel and by stage, idle
                  share).
-  6. weight-only -- three chunks of the 8B model with {'q','scale'}
+  7. weight-only -- three chunks of the 8B model with {'q','scale'}
                  projections through w8_bf16_gemm.
-  7. one JSON ``kernels`` line, then the card line, then the result line.
+  8. group128 -- three chunks of the 8B model as ``bench.py --group128``
+                 makes it: grouped (128-wide) W8A8 projections through
+                 w8a8_grouped_gemm, per-channel W8A8 lm_head.
+  9. one JSON ``kernels`` line, then the card line, then the result line.
 
 Weights are random, made on the card from seeded torch.Generators.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import importlib
 import json
@@ -58,7 +69,14 @@ TABLE_DO = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
             (4096, 128512)]
 TABLE_M = [1, 4, 61, 79]
 REPORT_SHAPE = (4, 4096, 14336)  # the kernels line: a beam-step gate/up
+GROUP = 128  # bench.py --group128
 W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
+# decode attention, of max|plain|: the kernel sums in f32 in another order
+# (key splits merged by their lse, other cos/sin and FMA contractions), so
+# a bf16 output may round one bf16 step (<= 2**-7 of its value) apart;
+# float32 outputs and the f32 lse agree to 1e-5
+ATT_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
+SOURCES = ("quant_matmul", "decode_attention")
 # tiny prefill logits, card against CPU, as a share of max|logits|: the
 # card sums float32 in another order (readings on the H100: 2.6e-6 with
 # float32 weights, 1.3e-6 with W8A8); TF32 is off (see main)
@@ -126,32 +144,61 @@ def bound_ms(nbytes: float, ops: float, rate: float):
                                        else "operations")
 
 
+def _kernel_modules():
+    from infinisst_tpu_torch.kernels import decode_attention as A
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+
+    return K, A
+
+
+def reset_counts():
+    for m in _kernel_modules():
+        m.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.launch_counts)
+    return out
+
+
+class Notes:
+    """Per kernel: the largest error against the plain version, and the
+    timings and bound of each shape."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def note(self, name, shape, err, ms, plain_ms, lib_ms, bms, by,
+             label=None):
+        """``ms``, ``plain_ms`` and ``lib_ms`` are cuda_time_ms lists (or
+        None for no library call); the medians are kept."""
+        med = statistics.median
+        lib = None if lib_ms is None else med(lib_ms)
+        r = self.rows.setdefault(name, {"err": 0.0, "shapes": {}})
+        r["err"] = max(r["err"], err)
+        r["shapes"][shape] = dict(ms=med(ms), plain_ms=med(plain_ms),
+                                  library_ms=lib, bound_ms=bms, bound_by=by)
+        lib = "null" if lib is None else f"{lib:.5f}"
+        label = label or (f"M={shape[0]:3d} D={shape[1]:5d} "
+                          f"O={shape[2]:6d}")
+        print(f"  {name:17s} {label} max_abs_err={err:.3e} ms={med(ms):.5f} "
+              f"[{ms[0]:.5f}-{ms[-1]:.5f}] plain_ms={med(plain_ms):.5f} "
+              f"library_ms={lib} bound_ms={bms:.5f} ({by})", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 
 
-def check_kernels(dev):
+def check_kernels(dev, notes):
     import torch
 
     from infinisst_tpu_torch.kernels import quant_matmul as K
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = {}  # kernel -> {"err": max, shape -> timings}
-
-    def note(name, shape, err, ms, plain_ms, lib_ms, bms, by):
-        """``ms``, ``plain_ms`` and ``lib_ms`` are cuda_time_ms lists (or
-        None for no library call); the medians are kept."""
-        med = statistics.median
-        lib = None if lib_ms is None else med(lib_ms)
-        r = rows.setdefault(name, {"err": 0.0, "shapes": {}})
-        r["err"] = max(r["err"], err)
-        r["shapes"][shape] = dict(ms=med(ms), plain_ms=med(plain_ms),
-                                  library_ms=lib, bound_ms=bms, bound_by=by)
-        lib = "null" if lib is None else f"{lib:.5f}"
-        print(f"  {name:15s} M={shape[0]:3d} D={shape[1]:5d} O={shape[2]:6d} "
-              f"max_abs_err={err:.3e} ms={med(ms):.5f} "
-              f"[{ms[0]:.5f}-{ms[-1]:.5f}] plain_ms={med(plain_ms):.5f} "
-              f"library_ms={lib} bound_ms={bms:.5f} ({by})", flush=True)
+    note = notes.note
 
     for D, O in TABLE_DO:
         wbytes = D * O
@@ -163,6 +210,8 @@ def check_kernels(dev):
         # the library's weight-only int8 matmul takes the weight as (O, D)
         wts = [w.t().contiguous() for w in ws]
         s = torch.rand((O,), generator=gen, device=dev) * 1e-3 + 1e-4
+        G = D // GROUP
+        sg = torch.rand((G, O), generator=gen, device=dev) * 1e-3 + 1e-4
         for M in TABLE_M:
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
                  ).to(torch.bfloat16)
@@ -223,6 +272,40 @@ def check_kernels(dev):
             bms, by = bound_ms(M * D * 2 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, BF16_FLOPS_PER_S)
             note("w8_bf16_gemm", (M, D, O), err, ms, pms, lib, bms, by)
+
+            # the grouped pair (the lm_head only under --group-head)
+            gq, gs_ = K.group_quant_int8(y, GROUP)
+            pq, ps = K.group_quant_int8_plain(y, GROUP)
+            if not (torch.equal(gq, pq) and torch.equal(gs_, ps)):
+                fail(f"group_quant_int8 differs from its plain version at "
+                     f"M={M} D={D}")
+            out = K.w8a8_grouped_gemm(gq, gs_, w, sg, torch.bfloat16)
+            ref = K.w8a8_grouped_gemm_plain(gq, gs_, w, sg, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                err = (out.float() - ref.float()).abs().max().item()
+                fail(f"w8a8_grouped_gemm differs from its plain version at "
+                     f"M={M} D={D} O={O} G={G}: max_abs_err={err}")
+            if M not in (4, 61):
+                continue
+            if O == TABLE_DO[0][1] or D == 14336:
+                ms = cuda_time_ms(lambda i: K.group_quant_int8(y, GROUP), 50)
+                pms = cuda_time_ms(
+                    lambda i: K.group_quant_int8_plain(y, GROUP), 20)
+                bms, by = bound_ms(M * D * 2 + M * D + M * G * 4, 0, 1.0)
+                note("group_quant_int8", (M, D, 0), 0.0, ms, pms, None, bms,
+                     by)
+            ms = cuda_time_ms(
+                lambda i: K.w8a8_grouped_gemm(gq, gs_, ws[i % n_w], sg,
+                                              torch.bfloat16), 20)
+            pms = cuda_time_ms(
+                lambda i: K.w8a8_grouped_gemm_plain(gq, gs_, ws[i % n_w], sg,
+                                                    torch.bfloat16), 1,
+                warmup=1,
+            )
+            bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4
+                               + M * O * 2, 2.0 * M * D * O, INT8_OPS_PER_S)
+            note("w8a8_grouped_gemm", (M, D, O), 0.0, ms, pms, None, bms, by)
         del ws, wts
         torch.cuda.empty_cache()
 
@@ -242,9 +325,130 @@ def check_kernels(dev):
     err = (out - ref).abs().max().item()
     if err > 1e-5 * ref.abs().max().item():  # f32 out: summation order only
         fail(f"w8_bf16_gemm float32 max_abs_err {err}")
-    print("  float32 inputs: all three kernels agree with their plain "
+    sg = torch.rand((4096 // GROUP, 1024), generator=gen, device=dev) * 1e-3
+    gq, gs_ = K.group_quant_int8(y, GROUP)
+    pq, ps = K.group_quant_int8_plain(y, GROUP)
+    if not (torch.equal(gq, pq) and torch.equal(gs_, ps)):
+        fail("group_quant_int8 differs from its plain version in float32")
+    if not torch.equal(K.w8a8_grouped_gemm(gq, gs_, w, sg, torch.float32),
+                       K.w8a8_grouped_gemm_plain(gq, gs_, w, sg,
+                                                 torch.float32)):
+        fail("w8a8_grouped_gemm differs from its plain version in float32")
+    print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions", flush=True)
-    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: decode attention
+
+# (label, B, Bc, C, valid (Bc,), key offset (Bc,) or None, lse): the beam
+# step's two blocks at the flagship geometry (a chunk's prefix of valid_len
+# 1000 in a 1280-slot cache; the per-beam block of 10 slots at gen_len 3,
+# keys at plen + j), then decode_attention_batched at the pooled shapes of
+# tools_ab_attention.py (valid_len spread over [C/2, C)).
+ATT_HEADS = (32, 8, 128)  # H, KV, Dh
+
+
+def _att_cases():
+    cases = [("beam prefix", 4, 1, 1280, [1000], None, True),
+             ("beam per-beam block", 4, 4, 10, [4] * 4, [1000] * 4, True)]
+    for B in (4, 16):
+        for C in (1280, 4096):
+            valid = [C // 2 + (C // 2) * i // B for i in range(B)]
+            cases.append((f"batched B={B} C={C}", B, B, C, valid, None,
+                          False))
+    return cases
+
+
+def check_attention(dev, notes):
+    import torch
+    import torch.nn.functional as F
+
+    from infinisst_tpu_torch.core import rope as R
+    from infinisst_tpu_torch.kernels import decode_attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, KV, Dh = ATT_HEADS
+    inv = torch.tensor(R.llama_rope_freqs(Dh), dtype=torch.float32,
+                       device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def run(label, B, Bc, C, valid, off, lse, dtype, timed):
+        q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+        kv_bytes = 2 * Bc * C * KV * Dh * q.element_size()
+        # enough cache copies to exceed the 50 MB L2: each layer's cache
+        # is read cold on the main path
+        n_c = max(1, math.ceil(120e6 / kv_bytes)) if timed else 1
+        ks = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev
+                          ).to(dtype) for _ in range(n_c)]
+        vs = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev
+                          ).to(dtype) for _ in range(n_c)]
+        vl = torch.tensor(valid, **i32)
+        base = 0 if off is None else off[0]
+        qp = torch.tensor([base + max(valid) + 3] * B, **i32)
+        ko = None if off is None else torch.tensor(off, **i32)
+
+        def kernel(i):
+            return A.decode_attention(q, ks[i % n_c], vs[i % n_c], vl, qp,
+                                      inv, key_offset=ko, return_lse=lse)
+
+        def plain(i):
+            return A.decode_attention_plain(q, ks[i % n_c], vs[i % n_c], vl,
+                                            qp, inv, ko, lse)
+
+        got, ref = kernel(0), plain(0)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, ref)) if lse else [(got, ref)]
+        rtol = ATT_RTOL["bf16" if dtype == torch.bfloat16 else "f32"]
+        err = 0.0
+        for n, (g, r) in enumerate(pairs):
+            e = (g.float() - r.float()).abs().max().item()
+            lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
+                r.float().abs().max().item()
+            if not (e <= lim and torch.isfinite(g).all()):
+                fail(f"decode_attention {label} {dtype}: "
+                     f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
+            err = max(err, e)
+        if not timed:
+            print(f"  decode_attention  {label} {dtype}: max_abs_err "
+                  f"{err:.3e} (within {rtol} x max|plain|)", flush=True)
+            return
+        ms = cuda_time_ms(kernel, 20)
+        pms = cuda_time_ms(plain, 3, warmup=1)
+        # library yardstick: SDPA over keys rotated beforehand (not timed:
+        # SDPA has no rotate-on-read), the valid_len mask as a boolean
+        # mask; the shared prefix folds the beams into its query length
+        kpos = torch.arange(C, device=dev)[None] + (
+            0 if ko is None else ko[:, None])
+        krs = [R.apply_llama_rope(k.transpose(1, 2), kpos[:, None], inv)
+               for k in ks]
+        vts = [v.transpose(1, 2).contiguous() for v in vs]
+        qr = R.apply_llama_rope(q[:, :, None], qp[:, None, None], inv)
+        if Bc == 1 and B > 1:
+            qr = qr.permute(2, 1, 0, 3).contiguous()  # (1, H, B, Dh)
+        mask = (torch.arange(C, device=dev)[None] < vl[:, None])[
+            :, None, None, :]
+        lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+            qr, krs[i % n_c], vts[i % n_c], attn_mask=mask,
+            enable_gqa=True), 20)
+        c_eff = [min(v, C) if v > 0 else C for v in valid]
+        nbytes = (sum(c_eff) * 2 * KV * Dh * q.element_size()
+                  + 2 * q.numel() * q.element_size() + Bc * 8
+                  + (B * H * 4 if lse else 0))
+        rows_per_cache = B // Bc
+        ops = sum(4.0 * rows_per_cache * H * c * Dh for c in c_eff)
+        bms, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+        notes.note("decode_attention", (label, B, C), err, ms, pms, lib, bms,
+                   by, label=f"{label:21s} B={B:2d} Bc={Bc:2d} C={C:5d}")
+
+    for case in _att_cases():
+        run(*case, dtype=torch.bfloat16, timed=True)
+    # float32 (the tiny model's and the tests' dtype), beam step's blocks
+    for case in _att_cases()[:2]:
+        run(*case, dtype=torch.float32, timed=False)
+    print("  library_ms: F.scaled_dot_product_attention(enable_gqa=True) over "
+          "keys rotated beforehand -- it leaves out the rotation the kernel "
+          "does", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +576,7 @@ def check_tiny(dev):
 # phases 5 / 6: the 8B streams
 
 
-def flagship_params(dev, act_int8: bool, speech=None):
+def flagship_params(dev, act_int8: bool, speech=None, group_size=0):
     import torch
 
     from infinisst_tpu_torch.core.presets import flagship_config
@@ -389,7 +593,7 @@ def flagship_params(dev, act_int8: bool, speech=None):
         }
     llama = init_quantized_llama(
         cfg.llama, gen, dev, embed_dtype=torch.bfloat16,
-        act_int8=act_int8, lm_head_int8=True,
+        act_int8=act_int8, lm_head_int8=True, group_size=group_size,
     )
     return cfg, dict(speech, llama=llama)
 
@@ -403,7 +607,6 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
     )
     from infinisst_tpu_torch.core.config import StreamConfig
     from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
-    from infinisst_tpu_torch.kernels import quant_matmul as K
 
     stream = StreamConfig()
     builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
@@ -416,10 +619,10 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
     times, forwards = [], 0
     evicted_at = None
     i = 0
-    K.reset_launch_counts()
+    reset_counts()
     while True:
         audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
-        before = dict(K.launch_counts)
+        before = launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
         agent.push(audio, finished=False)
@@ -428,7 +631,8 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
         res = agent.last_result
         n_fwd = res.steps  # 1 prefill + (steps - 1) beam forwards
         forwards += n_fwd
-        delta = {k: K.launch_counts[k] - before[k] for k in before}
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in before if after[k] > before[k]}
         times.append(dt)
         vlen = int(agent.dec_state.valid_len[0])
         print(f"  [{label}] chunk {i:2d}: {dt * 1e3:9.2f} ms  RTF "
@@ -448,7 +652,7 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
             and (not need_evict or evict_applied)
         ):
             break
-    counts = dict(K.launch_counts)
+    counts = launch_counts()
     agent.flush_pending_evict()
     if agent.llm_cache_len != int(agent.dec_state.valid_len[0]) + \
             agent.pend_n_host:
@@ -595,8 +799,9 @@ def profile_chunk(dev, r):
         print(f"[profile]   stage {name:16s} ranges {len(ss):2d}  device span "
               f"{span_ms:9.2f} ms  device kernels {dev_ms:9.2f} ms",
               flush=True)
-    groups = {"w8a8_gemm": 0.0, "row_quant_int8": 0.0, "w8_bf16_gemm": 0.0,
-              "other": 0.0}
+    groups = {"w8a8_grouped_gemm": 0.0, "group_quant_int8": 0.0,
+              "w8a8_gemm": 0.0, "row_quant_int8": 0.0, "w8_bf16_gemm": 0.0,
+              "decode_attention": 0.0, "other": 0.0}
     for k, t in by_name.items():
         g = next((g for g in groups if g in k), "other")
         groups[g] += t
@@ -631,15 +836,21 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from infinisst_tpu_torch.kernels import _build
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _build.load_library("quant_matmul")
-    print(f"[build] quant_matmul built for sm_90a in "
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        for f in [pool.submit(_build.load_library, n) for n in SOURCES]:
+            f.result()
+    print(f"[build] {', '.join(SOURCES)} built for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
 
+    notes = Notes()
     print("[kernels] against their plain versions on the card", flush=True)
-    kernels = check_kernels(dev)
+    check_kernels(dev, notes)
+    print("[attention] decode_attention against its plain version on the "
+          "card", flush=True)
+    check_attention(dev, notes)
     print("[tiny] tiny speech-LLM: card against CPU", flush=True)
     check_tiny(dev)
 
@@ -649,29 +860,40 @@ def main():
     speech = {k: params[k] for k in ("w2v2", "adapter")}
     r = stream_8b(dev, cfg, params, min_chunks=13, max_chunks=60,
                   need_evict=True, label="w8a8")
-    per_fwd = 7 * r["n_layers"] + 1
+    L = r["n_layers"]
+    per_fwd = 7 * L + 1
     want = r["forwards"] * per_fwd
     for name in ("w8a8_gemm", "row_quant_int8"):
         if r["counts"][name] != want:
             fail(f"[flagship] {name} launched {r['counts'][name]} times, "
                  f"expected {r['forwards']} forwards x {per_fwd}")
-    if r["counts"]["w8_bf16_gemm"] != 0:
-        fail("[flagship] w8_bf16_gemm ran on the W8A8 path")
+    # each beam forward launches decode_attention twice per layer: the
+    # shared prefix block and the per-beam block, merged by their lse
+    beam_fwd = r["forwards"] - r["chunks"]
+    if r["counts"]["decode_attention"] != beam_fwd * L * 2:
+        fail(f"[flagship] decode_attention launched "
+             f"{r['counts']['decode_attention']} times, expected "
+             f"{beam_fwd} beam forwards x {L} layers x 2 blocks")
+    unused = ("w8_bf16_gemm", "group_quant_int8", "w8a8_grouped_gemm")
+    if any(r["counts"][k] for k in unused):
+        fail(f"[flagship] {unused} ran on the per-channel W8A8 path")
     # chunk 0 carries one-time set-up (cuBLAS handles, allocator)
     rtf = sorted(t / r["chunk_sec"] for t in r["times"][1:])
     n = len(rtf)
     print(f"[flagship] chunks {r['chunks']} (ring wrap after 12, first "
           f"eviction decided after chunk {r['evicted_at']}); forwards "
-          f"{r['forwards']}; launches {r['counts']} = forwards x "
-          f"{per_fwd}", flush=True)
+          f"{r['forwards']} ({beam_fwd} beam forwards); launches "
+          f"{r['counts']} = forwards x {per_fwd} matmuls and beam forwards "
+          f"x {L} layers x 2 decode_attention launches (the prefix block "
+          f"and the per-beam block, two launches per layer)", flush=True)
     print(f"[flagship] RTF over chunks 1..{n} (bring-up reading, not a "
           f"benchmark): median {rtf[n // 2]:.4f}, "
           f"{100 * (n - 10) // n}th percentile {rtf[n - 11]:.4f} "
           f"(10 chunks above it), mean {sum(rtf) / n:.4f}, min "
           f"{rtf[0]:.4f}, max {rtf[-1]:.4f}; chunk 0 "
           f"{r['times'][0] / r['chunk_sec']:.4f}", flush=True)
-    paths["w8a8_gemm"] = paths["row_quant_int8"] = (
-        "flagship W8A8 stream", r["counts"])
+    for name in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+        paths[name] = ("flagship W8A8 stream", r["counts"])
     stage_chunk(dev, r)
     profile_chunk(dev, r)
     del params, r
@@ -694,30 +916,62 @@ def main():
     del params
     torch.cuda.empty_cache()
 
-    # 7. the kernels line
-    replaces = {
-        "row_quant_int8": "infinisst_tpu/kernels/quant_matmul.py:106",
-        "w8a8_gemm": "infinisst_tpu/kernels/quant_matmul.py:94",
-        "w8_bf16_gemm": "infinisst_tpu/kernels/quant_matmul.py:26",
+    print(f"[group128] 8B grouped W8A8 projections (groups of {GROUP}), "
+          "per-channel W8A8 lm_head", flush=True)
+    cfg, params = flagship_params(dev, act_int8=True, speech=speech,
+                                  group_size=GROUP)
+    r = stream_8b(dev, cfg, params, min_chunks=3, max_chunks=3,
+                  need_evict=False, label="g128")
+    want = r["forwards"] * 7 * r["n_layers"]
+    c = r["counts"]
+    if not (c["w8a8_grouped_gemm"] == c["group_quant_int8"] == want
+            and c["w8a8_gemm"] == c["row_quant_int8"] == r["forwards"]
+            and c["w8_bf16_gemm"] == 0):
+        fail(f"[group128] launches {c}, expected w8a8_grouped_gemm and "
+             f"group_quant_int8 {want} (forwards x {7 * r['n_layers']}) "
+             f"and the per-channel head {r['forwards']}")
+    rtf = [t / r["chunk_sec"] for t in r["times"][1:]]
+    print(f"[group128] chunks {r['chunks']}; forwards {r['forwards']}; "
+          f"launches {c}; RTF chunks 1..: {[round(x, 4) for x in rtf]} "
+          "(bring-up reading)", flush=True)
+    for name in ("w8a8_grouped_gemm", "group_quant_int8"):
+        paths[name] = ("group128 stream", c)
+    del params
+    torch.cuda.empty_cache()
+
+    # 9. the kernels line
+    q_src = "infinisst_tpu_torch/csrc/quant_matmul.cu"
+    kernels = {  # name -> (source, TPU kernel replaced, reported shape)
+        "row_quant_int8": (q_src, "infinisst_tpu/kernels/quant_matmul.py:106",
+                           (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
+        "w8a8_gemm": (q_src, "infinisst_tpu/kernels/quant_matmul.py:94",
+                      REPORT_SHAPE),
+        "w8_bf16_gemm": (q_src, "infinisst_tpu/kernels/quant_matmul.py:26",
+                         REPORT_SHAPE),
+        "group_quant_int8": (
+            q_src, "infinisst_tpu/kernels/quant_matmul.py:226",
+            (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
+        "w8a8_grouped_gemm": (
+            q_src, "infinisst_tpu/kernels/quant_matmul.py:191", REPORT_SHAPE),
+        "decode_attention": (
+            "infinisst_tpu_torch/csrc/decode_attention.cu",
+            "infinisst_tpu/kernels/decode_attention.py:57",
+            ("beam prefix", 4, 1280)),
     }
     entries = []
-    for name in ("row_quant_int8", "w8a8_gemm", "w8_bf16_gemm"):
-        shape = ((REPORT_SHAPE[0], REPORT_SHAPE[1], 0)
-                 if name == "row_quant_int8" else REPORT_SHAPE)
-        t = kernels[name]["shapes"][shape]
+    for name, (source, replaces, shape) in kernels.items():
+        t = notes.rows[name]["shapes"][shape]
         path, counts = paths[name]
         launches = counts[name]
         if launches <= 0:
             fail(f"{name} was not launched on its path")
         entries.append({
-            "name": name, "route": "cuda",
-            "source": "infinisst_tpu_torch/csrc/quant_matmul.cu",
-            "replaces": replaces[name], "launches": launches,
-            "max_abs_err": kernels[name]["err"], "ms": t["ms"],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": notes.rows[name]["err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": list(shape[:2] if name == "row_quant_int8" else shape),
-            "path": path,
+            "shape": [x for x in shape if x != 0], "path": path,
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

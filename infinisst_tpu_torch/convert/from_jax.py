@@ -4,8 +4,9 @@
 The layout is kept: (in, out) matrices stay (in, out), layer stacks stay
 stacked, ``{'q','scale'}`` / ``{'q','scale_a8'}`` leaves become int8 plus
 float32 scales, ``{'a','b'}`` low-rank leaves stay factor pairs.  A W8A8
-lm_head narrower than a multiple of 512 columns is padded with zero
-weights and zero scales, as ``quant.py`` pads it.
+lm_head (per-channel or grouped scales) narrower than a multiple of 512
+columns is padded with zero weights and zero scales, as ``quant.py`` pads
+it.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ def _pad_head(head):
     Vp = ((V + 511) // 512) * 512
     if Vp == V:
         return head
+    # the last axis is the vocabulary for (V,) and grouped (G, V) scales
     q = torch.nn.functional.pad(q, (0, Vp - V))
     s = torch.nn.functional.pad(s, (0, Vp - V))
     return {"q": q, "scale_a8": s}
@@ -62,7 +64,6 @@ def from_jax(tree, device="cuda", dtype=None):
     for llama in (out.get("llama"), out) if isinstance(out, dict) else ():
         if isinstance(llama, dict):
             head = llama.get("lm_head")
-            if isinstance(head, dict) and "scale_a8" in head and \
-                    head["scale_a8"].ndim == 1:
+            if isinstance(head, dict) and "scale_a8" in head:
                 llama["lm_head"] = _pad_head(head)
     return out

@@ -5,8 +5,10 @@ Keys are stored unrotated and rotated after retrieval with cache-relative
 positions.  The layer stack is a Python loop over stacked parameters; the
 KV cache is updated in place where the JAX package donates its buffers.
 
-Attention is written out as matmul, additive mask and f32 softmax, as the
-JAX einsums are.  Projections and the lm_head go through ``quant.mm``.
+Prefill attention (``decode_step``) is written out as matmul, additive
+mask and f32 softmax, as the JAX einsums are; the beam step's two-block
+attention goes through the rotate-on-read ``decode_attention`` kernel.
+Projections and the lm_head go through ``quant.mm``.
 
 Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
   embed (V, D); layers: input_ln, post_ln (L, D), wq (L, D, H*Dh),
@@ -24,6 +26,10 @@ import torch
 from infinisst_tpu_torch.core import masks as M
 from infinisst_tpu_torch.core import rope as R
 from infinisst_tpu_torch.core.config import LlamaConfig
+from infinisst_tpu_torch.kernels.decode_attention import (
+    decode_attention,
+    merge_blocks,
+)
 from infinisst_tpu_torch.models.quant import mm
 from infinisst_tpu_torch.streaming.state import DecoderState
 
@@ -156,58 +162,45 @@ def beam_token_step(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for all beams over two attention blocks: the shared
     prefix (batch 1, never copied per beam) and the per-beam generation
-    buffer.  This step's K/V are written IN PLACE into ``gen_k`` /
-    ``gen_v`` at slot ``gen_len``.  Returns (logits (beam, V), gen_k,
-    gen_v, attn_idx (beam,) = -1: the attention probe is not ported)."""
+    buffer, each through ``decode_attention`` and merged by their
+    log-sum-exp into the one softmax of the JAX step.  This step's K/V are
+    written IN PLACE into ``gen_k`` / ``gen_v`` at slot ``gen_len`` (on the
+    stream the kernel then reads them from).  Returns (logits (beam, V),
+    gen_k, gen_v, attn_idx (beam,) = -1: the attention probe is not
+    ported)."""
     beam, S, D = x_embed.shape
     assert S == 1
-    C = prefix.k.shape[2]
-    G = gen_k.shape[2]
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = x_embed.device
     inv_freq = rope_inv_freq(cfg, dev)
-    plen = prefix.valid_len[0].to(dev)
-
-    kj_p = torch.arange(C, device=dev)
-    neg = torch.tensor(M.NEG_INF, dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    bias_p = torch.where(kj_p < plen, zero, neg)
-    kj_g = torch.arange(G, device=dev)
-    bias_g = torch.where(kj_g < gen_len + 1, zero, neg)
-    g_pos = (plen + kj_g)[None, None]  # (1, 1, G)
-    q_pos = (plen + gen_len).reshape(1, 1)
-    scale = 1.0 / math.sqrt(Dh)
+    i32 = torch.int32
+    plen = prefix.valid_len.to(device=dev, dtype=i32)  # (1,)
+    # per-beam block: keys 0..gen_len valid, key j at position plen + j
+    g_valid = torch.full((beam,), gen_len + 1, dtype=i32, device=dev)
+    g_off = plen.expand(beam).contiguous()
+    q_pos = (plen + gen_len).expand(beam).contiguous()
 
     h = x_embed
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        pk, pv = prefix.k[li], prefix.v[li]  # (1, C, KV, Dh)
         y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
-        q = mm(y, lp["wq"]).reshape(beam, 1, H, Dh)
+        q = mm(y, lp["wq"]).reshape(beam, H, Dh)
         k_new = mm(y, lp["wk"]).reshape(beam, KV, Dh)
         v_new = mm(y, lp["wv"]).reshape(beam, KV, Dh)
         # in-place write of this step's K/V (the JAX step returns a copy)
         gen_k[li, :, gen_len] = k_new.to(gen_k.dtype)
         gen_v[li, :, gen_len] = v_new.to(gen_v.dtype)
-        gk, gv = gen_k[li], gen_v[li]  # (beam, G, KV, Dh)
 
-        qr = R.apply_llama_rope(q.transpose(1, 2), q_pos, inv_freq)
-        kr_p = R.apply_llama_rope(
-            pk.transpose(1, 2), kj_p[None, None], inv_freq
-        )[0]  # (KV, C, Dh)
-        kr_g = R.apply_llama_rope(gk.transpose(1, 2), g_pos, inv_freq)
-        qg = qr.reshape(beam, KV, H // KV, 1, Dh).to(torch.float32)
-        logits_p = torch.einsum("bkgsd,ktd->bkgst", qg, kr_p.to(torch.float32))
-        logits_g = torch.einsum("bkgsd,bktd->bkgst", qg, kr_g.to(torch.float32))
-        logits = torch.cat(
-            [logits_p * scale + bias_p, logits_g * scale + bias_g], dim=-1
+        o_p, lse_p = decode_attention(
+            q, prefix.k[li], prefix.v[li], plen, q_pos, inv_freq,
+            return_lse=True,
         )
-        w = torch.softmax(logits, dim=-1).to(pv.dtype)
-        attn = torch.einsum("bkgst,tkd->bkgsd", w[..., :C], pv[0]) + torch.einsum(
-            "bkgst,btkd->bkgsd", w[..., C:], gv
+        o_g, lse_g = decode_attention(
+            q, gen_k[li], gen_v[li], g_valid, q_pos, inv_freq,
+            key_offset=g_off, return_lse=True,
         )
-        attn = attn.reshape(beam, H, 1, Dh).transpose(1, 2).reshape(beam, 1, H * Dh)
-        h = h + mm(attn, lp["wo"])
+        attn = merge_blocks(o_p, lse_p, o_g, lse_g)
+        h = h + mm(attn.reshape(beam, 1, H * Dh), lp["wo"])
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
     h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)

@@ -4,11 +4,12 @@
    parameters from the JAX ``init_params`` through ``from_jax``)
    reproduces ``tests/golden_agent_outputs.json`` token for token over the
    5 chunks of ``tests/test_golden_agent.py:_run_tiny_agent``.
-2. A W8A8 tiny variant: one chunk of JAX ``prefill_chunk`` +
-   ``beam_search`` against the port: equal tokens, and prefill logits
-   within 2e-3 of max|logits| (an activation on a rounding boundary may
-   quantize one int8 step apart between the frameworks; the kernels
-   themselves are bitwise equal).
+2. W8A8 tiny variants (per-channel, and grouped with and without a
+   grouped lm_head): one chunk of JAX ``prefill_chunk`` + ``beam_search``
+   against the port: equal tokens, and prefill logits within 2e-3 of
+   max|logits| (an activation on a rounding boundary may quantize one int8
+   step apart between the frameworks; the kernels themselves are bitwise
+   equal).
 3. The agent's bookkeeping over a longer stream with evictions.
 """
 
@@ -114,14 +115,16 @@ def test_policy_reads_and_finishes_without_the_model():
     assert not act.is_read() and act.finished and act.content == ""
 
 
-def test_w8a8_chunk_matches_jax():
+def _check_w8a8_chunk(**quant_kw):
+    """One chunk of JAX prefill + beam search against the port with W8A8
+    weights made by JAX ``init_quantized_llama(**quant_kw)``."""
     k = jax.random.PRNGKey(0)
     jp = {
         "w2v2": JW.init_params(jax.random.fold_in(k, 0), CFG.w2v2),
         "adapter": JA.init_params(jax.random.fold_in(k, 1), CFG.adapter),
         "llama": JQ.init_quantized_llama(
             jax.random.fold_in(k, 2), CFG.llama, act_int8=True,
-            lm_head_int8=True, embed_dtype=jnp.float32,
+            lm_head_int8=True, embed_dtype=jnp.float32, **quant_kw,
         ),
     }
     tp = from_jax(jax.device_get(jp), device="cpu")
@@ -173,6 +176,18 @@ def test_w8a8_chunk_matches_jax():
     )
     assert got.tokens == np.asarray(want.tokens).tolist()
     assert got.n_tokens == int(want.n_tokens)
+
+
+def test_w8a8_chunk_matches_jax():
+    _check_w8a8_chunk()
+
+
+@pytest.mark.parametrize("head_group_size", [None, 32])
+def test_grouped_w8a8_chunk_matches_jax(head_group_size):
+    """The ``--group128`` layout at tiny widths: groups of 32 on every
+    projection (G = 2, and 4 on the down projection), with the per-channel
+    or a grouped lm_head; JAX runs it through its XLA path."""
+    _check_w8a8_chunk(group_size=32, head_group_size=head_group_size)
 
 
 def test_agent_long_stream_bookkeeping():

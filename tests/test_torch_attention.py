@@ -1,0 +1,147 @@
+"""The port's rotate-on-read decode attention (plain version, on the CPU)
+against ``infinisst_tpu.kernels.decode_attention``: the jnp reference, the
+Pallas kernel in interpret mode, and a direct float64 softmax for the beam
+step's generalisations (shared cache, key offset, log-sum-exp, the merge of
+two blocks).
+
+Tolerance: float32 throughout, the same rotations and softmax with sums
+taken in another order, so 1e-5 of the largest |reference| value."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from infinisst_tpu.kernels import decode_attention as JA
+from infinisst_tpu_torch.core.rope import llama_rope_freqs
+from infinisst_tpu_torch.kernels import decode_attention as TA
+
+torch.set_num_threads(1)
+
+RTOL = 1e-5
+
+
+def _inputs(B, Bc, C, H, KV, Dh, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, Dh).astype(np.float32)
+    k = rng.randn(Bc, C, KV, Dh).astype(np.float32)
+    v = rng.randn(Bc, C, KV, Dh).astype(np.float32)
+    inv = llama_rope_freqs(Dh, 500000.0, scaling=False).astype(np.float32)
+    return q, k, v, inv
+
+
+def _close(got, want, rtol=RTOL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= rtol * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("fn", ["decode_attention", "decode_attention_batched"])
+@pytest.mark.parametrize("B,H,KV,valid", [(1, 4, 4, [9]), (2, 8, 2, [5, 40]),
+                                          (2, 4, 1, [0, 17])])
+def test_plain_vs_jax_reference(fn, B, H, KV, valid):
+    """GQA, ragged valid_len, a valid_len past C and a fully masked
+    cache (valid_len 0: uniform weights, as the reference gives)."""
+    C, Dh = 32, 16
+    q, k, v, inv = _inputs(B, B, C, H, KV, Dh, seed=B * H + KV)
+    vl = np.asarray(valid, np.int32)
+    qp = vl + np.arange(B, dtype=np.int32) * 3
+    want = JA.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vl),
+        jnp.asarray(qp), jnp.asarray(inv))
+    got = getattr(TA, fn)(*_t(q, k, v, vl, qp, inv))
+    _close(got.numpy(), want)
+
+
+def test_plain_vs_pallas_interpret():
+    B, C, H, KV, Dh = 2, 16, 4, 2, 16
+    q, k, v, inv = _inputs(B, B, C, H, KV, Dh, seed=7)
+    vl = np.asarray([11, 16], np.int32)
+    qp = np.asarray([11, 20], np.int32)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(vl),
+            jnp.asarray(qp), jnp.asarray(inv))
+    got = TA.decode_attention(*_t(q, k, v, vl, qp, inv)).numpy()
+    _close(got, JA.decode_attention(*args, tile=8, interpret=True))
+    _close(got, JA.decode_attention_batched(*args, tile=8, interpret=True))
+
+
+def _rope64(x, pos, inv):
+    """Half-split RoPE in float64; x (..., Dh), pos broadcastable to x's
+    leading axes."""
+    f = np.asarray(pos, np.float64)[..., None] * inv.astype(np.float64)
+    c, s = np.cos(f), np.sin(f)
+    h = x.shape[-1] // 2
+    x1, x2 = x[..., :h].astype(np.float64), x[..., h:].astype(np.float64)
+    return np.concatenate([x1 * c - x2 * s, x2 * c + x1 * s], axis=-1)
+
+
+def _direct(q, blocks, q_pos, inv):
+    """Attention of q (B, H, Dh) over the concatenation of ``blocks``
+    [(k (B or 1, C, KV, Dh), v, valid (B or 1,), offset (B or 1,))] in
+    float64: one softmax over all scores, -1e9 on masked keys.  Returns
+    (out (B, H, Dh), lse (B, H))."""
+    B, H, Dh = q.shape
+    KV = blocks[0][0].shape[2]
+    qr = _rope64(q, q_pos[:, None], inv).reshape(B, KV, H // KV, Dh)
+    scores, values = [], []
+    for k, v, valid, off in blocks:
+        C = k.shape[1]
+        j = np.arange(C)
+        kr = _rope64(k, (off[:, None] + j)[:, :, None], inv)  # (Bc, C, KV, Dh)
+        kr = np.broadcast_to(kr, (B,) + kr.shape[1:])
+        s = np.einsum("bkgd,bckd->bkgc", qr, kr) / np.sqrt(Dh)
+        ok = np.broadcast_to(j[None] < valid[:, None], (B, C))
+        scores.append(np.where(ok[:, None, None], s, -1e9))
+        values.append(np.broadcast_to(v.astype(np.float64),
+                                      (B,) + v.shape[1:]))
+    s = np.concatenate(scores, -1)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    lse = (m + np.log(p.sum(-1, keepdims=True)))[..., 0].reshape(B, H)
+    out = np.einsum("bkgc,bckd->bkgd", p / p.sum(-1, keepdims=True),
+                    np.concatenate(values, 1))
+    return out.reshape(B, H, Dh), lse
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_shared_cache_offset_and_lse_vs_direct_softmax(shared):
+    B, C, H, KV, Dh = 3, 24, 8, 2, 16
+    Bc = 1 if shared else B
+    q, k, v, inv = _inputs(B, Bc, C, H, KV, Dh, seed=11)
+    vl = np.asarray([19] if shared else [3, 24, 10], np.int32)
+    off = np.asarray([40] if shared else [7, 0, 1000], np.int32)
+    qp = np.asarray([70, 71, 1200], np.int32)
+    want, want_lse = _direct(q, [(k, v, vl, off)], qp, inv)
+    got, lse = TA.decode_attention(*_t(q, k, v, vl, qp, inv),
+                                   key_offset=torch.from_numpy(off),
+                                   return_lse=True)
+    _close(got.numpy(), want)
+    _close(lse.numpy(), want_lse)
+
+
+@pytest.mark.parametrize("gen_valid", [1, 4, 0])
+def test_merge_blocks_is_one_softmax(gen_valid):
+    """The beam step's two blocks: a shared prefix and a per-beam block
+    whose key j sits at plen + j, merged by their lse, against one softmax
+    over the concatenated keys.  gen_valid 0 masks the whole second block,
+    which then gets weight 0."""
+    beam, C, G, H, KV, Dh = 4, 20, 6, 8, 2, 16
+    q, pk, pv, inv = _inputs(beam, 1, C, H, KV, Dh, seed=12)
+    _, gk, gv, _ = _inputs(beam, beam, G, H, KV, Dh, seed=13)
+    plen = np.asarray([13], np.int32)
+    g_valid = np.full((beam,), gen_valid, np.int32)
+    g_off = np.full((beam,), 13, np.int32)
+    qp = np.full((beam,), 13 + max(gen_valid - 1, 0), np.int32)
+    want, _ = _direct(q, [(pk, pv, plen, np.zeros(1, np.int32)),
+                          (gk, gv, g_valid, g_off)], qp, inv)
+    o_p, lse_p = TA.decode_attention(*_t(q, pk, pv, plen, qp, inv),
+                                     return_lse=True)
+    o_g, lse_g = TA.decode_attention(*_t(q, gk, gv, g_valid, qp, inv),
+                                     key_offset=torch.from_numpy(g_off),
+                                     return_lse=True)
+    _close(TA.merge_blocks(o_p, lse_p, o_g, lse_g).numpy(), want)

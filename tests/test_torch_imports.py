@@ -82,13 +82,17 @@ def test_cuda_without_a_card_raises(no_card):
 def test_kernel_wrappers_never_fall_back(no_card):
     """The plain versions run only for CPU tensors: any other device goes
     to the kernel (or raises), never to the plain version."""
+    from infinisst_tpu_torch.kernels import decode_attention as A
     from infinisst_tpu_torch.kernels import quant_matmul as K
 
     K.reset_launch_counts()
+    A.reset_launch_counts()
     y = torch.empty((4, 64), device="meta")
     w = torch.empty((64, 32), dtype=torch.int8, device="meta")
     s = torch.empty((32,), device="meta")
+    sg = torch.empty((2, 32), device="meta")
     ys = torch.empty((4, 1), device="meta")
+    ysg = torch.empty((4, 2), device="meta")
     yq = torch.empty((4, 64), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.row_quant_int8(y)
@@ -96,7 +100,18 @@ def test_kernel_wrappers_never_fall_back(no_card):
         K.w8a8_gemm(yq, ys, w, s, torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported device"):
         K.w8_bf16_gemm(y, w, s)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.group_quant_int8(y, 32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.w8a8_grouped_gemm(yq, ysg, w, sg, torch.bfloat16)
+    q = torch.empty((2, 4, 16), device="meta")
+    cache = torch.empty((1, 8, 2, 16), device="meta")
+    ints = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        A.decode_attention(q, cache, cache, ints[:1], ints,
+                           torch.empty((8,), device="meta"))
     assert sum(K.launch_counts.values()) == 0
+    assert sum(A.launch_counts.values()) == 0
     # a CPU tensor takes the plain version
     out = K.quantized_matmul_w8a8(torch.ones((2, 8)),
                                   torch.ones((8, 4), dtype=torch.int8),

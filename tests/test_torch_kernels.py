@@ -1,9 +1,10 @@
 """The port's int8 matmul kernels (plain versions, on the CPU) against the
-JAX package: ``mm`` on both quantized layouts, the Pallas kernels in
-interpret mode, and ``quantize_activation``.
+JAX package: ``mm`` on every quantized layout, the Pallas kernels in
+interpret mode, ``quantize_activation`` and ``quantize_activation_grouped``.
 
-W8A8 and the row quantization must be BITWISE equal: both sides compute an
-exact integer product and the same float32 epilogue in the same order.
+W8A8 (per-channel and grouped) and the row and group quantizations must be
+BITWISE equal: both sides compute exact integer products and the same
+float32 epilogue in the same order.
 """
 
 import jax.numpy as jnp
@@ -124,22 +125,111 @@ def test_lowrank_and_plain_leaves():
                                atol=1e-5)
 
 
-def test_grouped_w8a8_is_not_ported_and_raises():
-    """The grouped layout (2-D scale_a8) has no port yet: ``mm`` raises
-    instead of computing something else."""
-    leaf = {"q": torch.zeros((256, 128), dtype=torch.int8),
-            "scale_a8": torch.ones((4, 128))}
-    with pytest.raises(NotImplementedError):
-        TQ.mm(torch.ones((5, 256)), leaf)
+def _grouped_inputs(M, D, O, gs, seed):
+    y, w, _ = _inputs(M, D, O, seed)
+    s = (np.random.RandomState(seed + 1).rand(D // gs, O) * 1e-2 + 1e-4
+         ).astype(np.float32)
+    return y, w, s
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D,gs", [(1, 64, 32), (5, 256, 64), (4, 512, 128),
+                                    (61, 1792, 128)])
+def test_group_quant_int8_bitwise_vs_quantize_activation_grouped(dtype, M, D,
+                                                                 gs):
+    jd, td = DTYPES[dtype]
+    y, _, _ = _inputs(M, D, 4, seed=D + 3 * M)
+    # amax 127 makes the group's scale 1.0: exact .5 quotients need
+    # round-half-even
+    y[0, :4] = [127.0, 0.5, -1.5, 2.5]
+    y[-1, -gs:] = 0.0  # an all-zero group takes the 1e-8 floor scale
+    jq, js = JK.quantize_activation_grouped(jnp.asarray(y).astype(jd), gs)
+    tq, ts = TK.group_quant_int8(_port(y, td), gs)
+    assert tq.dtype == torch.int8 and tuple(ts.shape) == (M, D // gs)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D,O,gs", [(5, 256, 384, 64), (4, 512, 256, 128),
+                                      (61, 256, 128, 32)])
+def test_grouped_mm_bitwise_vs_pallas_interpret(dtype, M, D, O, gs):
+    """Grouped W8A8 (2-D scale_a8): the same int8 dots and the same f32
+    rescale-accumulate, one fused multiply-add per group in group order,
+    as XLA compiles the Pallas kernel body."""
+    jd, td = DTYPES[dtype]
+    y, w, s = _grouped_inputs(M, D, O, gs, seed=M + D + O)
+    want = JK.quantized_matmul_w8a8_grouped(
+        jnp.asarray(y).astype(jd), jnp.asarray(w), jnp.asarray(s),
+        tile_o=128, interpret=True,
+    )
+    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
+                               "scale_a8": torch.from_numpy(s)})
+    assert got.dtype == td and tuple(got.shape) == (M, O)
+    np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 5, 256, 384, 64), (2, 3, 128, 100, 32),
+                                   (1, 61, 1792, 128, 128)])
+def test_grouped_mm_vs_jax_xla_path(dtype, shape):
+    """JAX ``mm`` sums the G rescaled group products in one reduction,
+    without the fused multiply-add, so float32 outputs agree to 1e-6 of the
+    largest output and bfloat16 outputs to one bf16 rounding step (2**-8
+    relative).  Also covers O not a multiple of 128 and a batch axis."""
+    jd, td = DTYPES[dtype]
+    B, S, D, O, gs = shape
+    y, w, s = _grouped_inputs(B * S, D, O, gs, seed=O + gs)
+    y = y.reshape(B, S, D)
+    want = _as_f32(JQ.mm(jnp.asarray(y).astype(jd),
+                         {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)}))
+    got = _as_f32(TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
+                                       "scale_a8": torch.from_numpy(s)}))
+    assert got.shape == (B, S, O)
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -8
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def test_fma_f32_is_correctly_rounded():
+    """The plain grouped GEMM's fused multiply-add against exact rational
+    arithmetic, on products that nearly cancel the addend."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(0)
+    n = 3000
+    a = (rng.randn(n) * 2.0 ** rng.randint(-20, 20, n)).astype(np.float32)
+    b = (rng.randn(n) * 2.0 ** rng.randint(-20, 20, n)).astype(np.float32)
+    c = (-(a.astype(np.float64) * b) * (1 + rng.randn(n) * 1e-7)).astype(
+        np.float32)
+    got = TK.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                     torch.from_numpy(c)).numpy()
+    for i in range(n):
+        x = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        f = got[i]
+        for nb in (np.nextafter(f, np.float32(-np.inf)),
+                   np.nextafter(f, np.float32(np.inf))):
+            d_f, d_n = abs(Fraction(float(f)) - x), abs(Fraction(float(nb)) - x)
+            assert d_f < d_n or (d_f == d_n and not f.view(np.int32) & 1), i
 
 
 def test_launch_counters_stay_zero_on_cpu():
+    from infinisst_tpu_torch.kernels import decode_attention as TA
+
     TK.reset_launch_counts()
+    TA.reset_launch_counts()
     y, w, s = _inputs(4, 64, 32, seed=0)
     TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
                                 "scale_a8": torch.from_numpy(s)})
     TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
                                 "scale": torch.from_numpy(s)})
+    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
+                                "scale_a8": torch.ones((2, 32))})
+    q = torch.ones((2, 4, 16))
+    cache = torch.ones((1, 8, 2, 16))
+    TA.decode_attention(q, cache, cache, torch.tensor([3]),
+                        torch.tensor([3, 3]), torch.ones((8,)))
     assert TK.launch_counts == {
-        "row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0
+        "row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
+        "group_quant_int8": 0, "w8a8_grouped_gemm": 0,
     }
+    assert TA.launch_counts == {"decode_attention": 0}
