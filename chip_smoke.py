@@ -9,16 +9,19 @@ Phases (any failure exits non-zero; no phase carries on past its own):
   2. build    -- build every kernel source (csrc/*.cu) for sm_90a, one
                  nvcc per source, all started together.
   3. kernels  -- each kernel against its plain PyTorch version on the card
-                 at every main-path shape: row_quant_int8, w8a8_gemm,
+                 at every main-path shape: row_quant_int8, w8a8_gemm (on
+                 its K-major (O, D) weight, in bf16 and float32),
                  group_quant_int8 and w8a8_grouped_gemm bitwise,
                  w8_bf16_gemm within 1e-2 * max|plain|; kernel, plain and
                  library times (median of 5 timed replays, with the
-                 kernel's min-max) and the bound.  The library yardsticks,
-                 timed here and never called by the port: torch._int_mm
-                 (the int32 product alone, M > 16 only) beside w8a8_gemm,
-                 torch._weight_int8pack_mm (on the weight transposed to its
-                 (O, D) layout) beside w8_bf16_gemm; none for the grouped
-                 pair (no single PyTorch call computes it).
+                 kernel's min-max) and the bound; w8a8_gemm's split-K plan
+                 beside its time.  The library yardsticks, timed here and
+                 never called by the port: torch._int_mm (the int32
+                 product alone, M > 16 only, with the kernel / _int_mm
+                 ratio) beside w8a8_gemm, torch._weight_int8pack_mm (on
+                 the weight transposed to its (O, D) layout) beside
+                 w8_bf16_gemm; none for the grouped pair (no single
+                 PyTorch call computes it).
   4. attention -- decode_attention against its plain version at the beam
                  step's two blocks and at decode_attention_batched's pooled
                  shapes, within ATT_RTOL; times as in phase 3, with
@@ -32,7 +35,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  lm_head, m=1, beam 4: streams until the encoder ring has
                  wrapped and the LLM cache was evicted; per-chunk wall
                  time, RTF and valid_len; launch counts checked per
-                 forward pass; then one chunk with a synchronise around
+                 forward pass, printed beside what the wrappers did
+                 besides launching (w8a8_gemm's split-K calls, fills of
+                 the kernels' tile counters); then one chunk with a
+                 synchronise around
                  each stage (wall ms per stage) and one under
                  torch.profiler (device time by kernel and by stage, idle
                  share).
@@ -163,6 +169,13 @@ def launch_counts() -> dict:
     return out
 
 
+def internal_counts() -> dict:
+    """What the wrappers did besides their one launch a call: split-K
+    calls of w8a8_gemm and fills of the kernels' tile counters."""
+    K, _ = _kernel_modules()
+    return dict(K.internal_counts)
+
+
 class Notes:
     """Per kernel: the largest error against the plain version, and the
     timings and bound of each shape."""
@@ -199,6 +212,7 @@ def check_kernels(dev, notes):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     note = notes.note
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     for D, O in TABLE_DO:
         wbytes = D * O
@@ -207,7 +221,8 @@ def check_kernels(dev, notes):
         n_w = max(1, math.ceil(120e6 / wbytes))
         ws = [torch.randint(-127, 128, (D, O), generator=gen, device=dev,
                             dtype=torch.int8) for _ in range(n_w)]
-        # the library's weight-only int8 matmul takes the weight as (O, D)
+        # K-major (O, D) copies, packed once: w8a8_gemm's layout, and the
+        # one the library's weight-only int8 matmul takes
         wts = [w.t().contiguous() for w in ws]
         s = torch.rand((O,), generator=gen, device=dev) * 1e-3 + 1e-4
         G = D // GROUP
@@ -228,20 +243,25 @@ def check_kernels(dev, notes):
                 bms, by = bound_ms(M * D * 2 + M * D + M * 4, 0, 1.0)
                 note("row_quant_int8", (M, D, 0), 0.0, ms, pms, None, bms, by)
 
-            # w8a8_gemm: bitwise against the plain version
-            out = K.w8a8_gemm(yq, ys, w, s, torch.bfloat16)
-            ref = K.w8a8_gemm_plain(yq, ys, w, s, torch.bfloat16)
+            # w8a8_gemm on the K-major weight: bitwise against the plain
+            # version
+            out = K.w8a8_gemm(yq, ys, wts[0], s, torch.bfloat16)
+            ref = K.w8a8_gemm_plain(yq, ys, wts[0], s, torch.bfloat16)
+            out32 = K.w8a8_gemm(yq, ys, wts[0], s, torch.float32)
+            ref32 = K.w8a8_gemm_plain(yq, ys, wts[0], s, torch.float32)
             torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                err = (out.float() - ref.float()).abs().max().item()
+            if not (torch.equal(out, ref) and torch.equal(out32, ref32)):
+                err = max((out.float() - ref.float()).abs().max().item(),
+                          (out32 - ref32).abs().max().item())
                 fail(f"w8a8_gemm differs from its plain version at "
                      f"M={M} D={D} O={O}: max_abs_err={err}")
+            del out32, ref32
             ms = cuda_time_ms(
-                lambda i: K.w8a8_gemm(yq, ys, ws[i % n_w], s, torch.bfloat16),
-                20,
+                lambda i: K.w8a8_gemm(yq, ys, wts[i % n_w], s,
+                                      torch.bfloat16), 20,
             )
             pms = cuda_time_ms(
-                lambda i: K.w8a8_gemm_plain(yq, ys, ws[i % n_w], s,
+                lambda i: K.w8a8_gemm_plain(yq, ys, wts[i % n_w], s,
                                             torch.bfloat16), 3, warmup=1,
             )
             lib = None
@@ -252,6 +272,14 @@ def check_kernels(dev, notes):
             bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by)
+            plan = K.w8a8_plan(M, D, O, sms)
+            print(f"  {'':17s} plan: {plan.rows} rows a tile, {plan.n_split} "
+                  f"split(s) of {plan.k_split} bytes, "
+                  f"{plan.n_mtiles * plan.n_otiles * plan.n_split} blocks"
+                  + ("" if lib is None else
+                     f"; kernel / torch._int_mm "
+                     f"{statistics.median(ms) / statistics.median(lib):.3f}"),
+                  flush=True)
 
             # w8_bf16_gemm: within W8_BF16_RTOL of the plain version
             out = K.w8_bf16_gemm(y, w, s)
@@ -318,8 +346,9 @@ def check_kernels(dev, notes):
     pq, ps = K.row_quant_int8_plain(y)
     if not (torch.equal(yq, pq) and torch.equal(ys, ps)):
         fail("row_quant_int8 differs from its plain version in float32")
-    if not torch.equal(K.w8a8_gemm(yq, ys, w, s, torch.float32),
-                       K.w8a8_gemm_plain(yq, ys, w, s, torch.float32)):
+    wt = w.t().contiguous()
+    if not torch.equal(K.w8a8_gemm(yq, ys, wt, s, torch.float32),
+                       K.w8a8_gemm_plain(yq, ys, wt, s, torch.float32)):
         fail("w8a8_gemm differs from its plain version in float32")
     out, ref = K.w8_bf16_gemm(y, w, s), K.w8_bf16_gemm_plain(y, w, s)
     err = (out - ref).abs().max().item()
@@ -623,6 +652,7 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
     while True:
         audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
         before = launch_counts()
+        before_int = internal_counts()
         _sync(dev)
         t0 = time.perf_counter()
         agent.push(audio, finished=False)
@@ -633,13 +663,16 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
         forwards += n_fwd
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in before if after[k] > before[k]}
+        after_int = internal_counts()
+        delta_int = {k: after_int[k] - before_int[k] for k in after_int}
         times.append(dt)
         vlen = int(agent.dec_state.valid_len[0])
         print(f"  [{label}] chunk {i:2d}: {dt * 1e3:9.2f} ms  RTF "
               f"{dt / chunk_sec:.4f}  valid_len {vlen:4d}  enc_frames "
               f"{int(agent.enc_state.n_frames[0]):5d}  emitted "
               f"{agent.pend_n_host}  forwards {n_fwd}  evictions "
-              f"{agent.evictions}  launches {delta}", flush=True)
+              f"{agent.evictions}  launches {delta}  besides the launches "
+              f"{delta_int}", flush=True)
         if evicted_at is None and agent.evictions:
             evicted_at = i
         if not all(0 <= t < cfg.llama.vocab_size for t in res.tokens):
@@ -653,6 +686,9 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
         ):
             break
     counts = launch_counts()
+    print(f"  [{label}] besides the launches, over the stream: "
+          f"{internal_counts()} (split-K calls are one launch each)",
+          flush=True)
     agent.flush_pending_evict()
     if agent.llm_cache_len != int(agent.dec_state.valid_len[0]) + \
             agent.pend_n_host:

@@ -2,11 +2,14 @@
 ``jax.device_get``), into the port's tensors.
 
 The layout is kept: (in, out) matrices stay (in, out), layer stacks stay
-stacked, ``{'q','scale'}`` / ``{'q','scale_a8'}`` leaves become int8 plus
-float32 scales, ``{'a','b'}`` low-rank leaves stay factor pairs.  A W8A8
-lm_head (per-channel or grouped scales) narrower than a multiple of 512
-columns is padded with zero weights and zero scales, as ``quant.py`` pads
-it.
+stacked, ``{'q','scale'}`` and grouped ``{'q','scale_a8'}`` leaves become
+int8 plus float32 scales, ``{'a','b'}`` low-rank leaves stay factor pairs.
+One exception: a per-out-channel W8A8 leaf ``{'q' (..., in, out),
+'scale_a8' (..., out)}`` is packed K-major into ``{'q_kmajor' (..., out,
+in), 'scale_a8'}`` (``models/quant.pack_w8a8``), on the host, before it
+reaches the device.  A W8A8 lm_head (per-channel or grouped scales)
+narrower than a multiple of 512 columns is first padded with zero weights
+and zero scales, as ``quant.py`` pads it.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from infinisst_tpu_torch.core.device import resolve_device
+from infinisst_tpu_torch.models.quant import KMAJOR
 
 
 def _tensor(a, device, dtype):
@@ -29,6 +33,15 @@ def _tensor(a, device, dtype):
 
 
 def _convert(tree, device, dtype):
+    if isinstance(tree, dict) and "q" in tree and "scale_a8" in tree and \
+            np.ndim(tree["scale_a8"]) == np.ndim(tree["q"]) - 1:
+        q = np.asarray(tree["q"]).astype(np.int8)
+        return {
+            KMAJOR: _tensor(np.ascontiguousarray(np.swapaxes(q, -1, -2)),
+                            device, None),
+            "scale_a8": _tensor(np.asarray(tree["scale_a8"], np.float32),
+                                device, None),
+        }
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
@@ -45,25 +58,37 @@ def _convert(tree, device, dtype):
 
 
 def _pad_head(head):
-    q, s = head["q"], head["scale_a8"]
+    """Pad a W8A8 head's vocabulary axis (the last one, for the (V,) and
+    grouped (G, V) scales too) to a multiple of 512 with zeros."""
+    q = np.asarray(head["q"])
+    s = np.asarray(head["scale_a8"], np.float32)
     V = q.shape[-1]
     Vp = ((V + 511) // 512) * 512
     if Vp == V:
         return head
-    # the last axis is the vocabulary for (V,) and grouped (G, V) scales
-    q = torch.nn.functional.pad(q, (0, Vp - V))
-    s = torch.nn.functional.pad(s, (0, Vp - V))
-    return {"q": q, "scale_a8": s}
+
+    def pad(a):
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, Vp - V)])
+
+    return {"q": pad(q), "scale_a8": pad(s)}
+
+
+def _padded_heads(tree):
+    """The tree with its W8A8 lm_head padded (new dicts on the way down;
+    the caller's tree is left as it is)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = dict(tree)
+    if isinstance(out.get("llama"), dict):
+        out["llama"] = _padded_heads(out["llama"])
+    head = out.get("lm_head")
+    if isinstance(head, dict) and "scale_a8" in head:
+        out["lm_head"] = _pad_head(head)
+    return out
 
 
 def from_jax(tree, device="cuda", dtype=None):
     """Numpy parameter tree -> tensors on ``device``; float leaves are cast
     to ``dtype`` when it is given.  Works on a whole speech-LLM tree
     ({'w2v2', 'adapter', 'llama'}) or on any subtree."""
-    out = _convert(tree, resolve_device(device), dtype)
-    for llama in (out.get("llama"), out) if isinstance(out, dict) else ():
-        if isinstance(llama, dict):
-            head = llama.get("lm_head")
-            if isinstance(head, dict) and "scale_a8" in head:
-                llama["lm_head"] = _pad_head(head)
-    return out
+    return _convert(_padded_heads(tree), resolve_device(device), dtype)

@@ -20,13 +20,17 @@ Beyond the JAX signature, for the beam step (``models/llama.py``):
 The defaults (no offset, Bc == B, no lse) are the JAX function.  The
 wrapper takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; each launch adds one to
-``launch_counts['decode_attention']``.
+``launch_counts['decode_attention']``.  The grid comes from ``plan`` (a
+pure function of the shapes); the kernel cuts a cache's valid keys into
+its splits as ``split_range`` does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,13 +39,21 @@ from infinisst_tpu_torch.kernels.quant_matmul import (
     _check,
     _raise_on,
     _stream,
+    sm_count,
+    zeroed_counters,
 )
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
-# a block holds 4 warps and its steps depend on each other; many blocks per
-# SM hide that latency (measured on the H100: see PERF.md)
-BLOCKS_PER_SM = 16
+# csrc/decode_attention.cu: query rows per block (one m16 tile), the
+# fewest keys of a split, and the granule of a split's length
+ROWS = 16
+MIN_SPLIT = 64
+SPLIT_ALIGN = 16
+MAX_SPLIT = 64
+# the split target: blocks of 8 warps whose steps depend on each other;
+# two per SM ran the beam prefix faster than one (measured on the H100)
+BLOCKS_PER_SM = 2
 
 launch_counts = {"decode_attention": 0}
 
@@ -54,21 +66,34 @@ def reset_launch_counts():
 _lib = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``decode_attention`` library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention.argtypes = (
+        [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+        + [ci] * 7 + [ctypes.c_float, vp]
+    )
+    for fn in (lib.decode_attention, lib.decode_attention_rows_per_block,
+               lib.decode_attention_min_split,
+               lib.decode_attention_split_align,
+               lib.decode_attention_max_split):
+        fn.restype = ci
+    if (lib.decode_attention_rows_per_block(),
+            lib.decode_attention_min_split(),
+            lib.decode_attention_split_align(),
+            lib.decode_attention_max_split()) != (
+                ROWS, MIN_SPLIT, SPLIT_ALIGN, MAX_SPLIT):
+        raise RuntimeError("decode_attention: the plan's constants differ "
+                           "from the kernel's")
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
         from infinisst_tpu_torch.kernels._build import load_library
 
-        lib = load_library("decode_attention")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention.argtypes = (
-            [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-            + [ci] * 8 + [ctypes.c_float, vp]
-        )
-        lib.decode_attention.restype = ci
-        lib.decode_attention_rows_per_block.restype = ci
-        lib.decode_attention_keys_per_tile.restype = ci
-        _lib = lib
+        _lib = _bind(load_library("decode_attention"))
     return _lib
 
 
@@ -113,18 +138,37 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _split(lib, dev, B, Bc, C, KV, Gq):
-    """Contiguous key splits per (cache batch, KV head, row tile): about
-    BLOCKS_PER_SM blocks per SM, whole 32-key tiles per split.  Returns
-    (n_split, split_len, number of (cache batch, KV head, row tile))."""
+class AttentionPlan(NamedTuple):
+    n_split: int  # key splits per (cache batch, KV head, row tile)
+    n_rtiles: int  # row tiles of ROWS query rows per KV head
+    groups: int  # (cache batch, KV head, row tile) triples
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B, Bc, C, KV, Gq, sms) -> AttentionPlan:
+    """The grid of ``decode_attention`` on a card with ``sms`` SMs: every
+    query row of a KV head in one row tile of ROWS (more rows take more
+    tiles), and at most BLOCKS_PER_SM blocks per SM over (cache batch, KV
+    head, split), so that they run in one wave; no more splits than the
+    capacity C holds MIN_SPLIT-key splits, and at most MAX_SPLIT.  The
+    kernel folds only the splits that hold a key."""
     r_total = (B if Bc == 1 and B > 1 else 1) * Gq
-    rows = lib.decode_attention_rows_per_block()
-    tk = lib.decode_attention_keys_per_tile()
-    groups = Bc * KV * _cdiv(r_total, rows)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(_cdiv(BLOCKS_PER_SM * sms, groups), _cdiv(C, tk)))
-    split_len = _cdiv(_cdiv(C, n_split), tk) * tk
-    return _cdiv(C, split_len), split_len, groups
+    n_rtiles = _cdiv(r_total, ROWS)
+    groups = Bc * KV * n_rtiles
+    n_split = max(1, min(BLOCKS_PER_SM * sms // groups,
+                         _cdiv(C, MIN_SPLIT), MAX_SPLIT))
+    return AttentionPlan(n_split, n_rtiles, groups)
+
+
+def split_range(c_eff, n_split, s):
+    """Keys [begin, end) of split ``s`` over a cache's c_eff keys (the
+    kernel reads valid_len on the card and cuts the same way): splits of
+    equal length, at least MIN_SPLIT keys, a multiple of SPLIT_ALIGN; the
+    last ones may be short or empty."""
+    per = max(MIN_SPLIT, _cdiv(_cdiv(c_eff, n_split), SPLIT_ALIGN)
+              * SPLIT_ALIGN)
+    begin = s * per
+    return begin, max(begin, min(begin + per, c_eff))
 
 
 def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
@@ -162,8 +206,12 @@ def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
             f"{tuple(valid_len.shape)} q_pos {tuple(q_pos.shape)} inv_freq "
             f"{tuple(inv_freq.shape)} (Dh one of {HEAD_DIMS})"
         )
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be 16-byte "
+                             "aligned")
     lib = _library()
-    n_split, split_len, groups = _split(lib, dev, B, Bc, C, KV, H // KV)
+    n_split, _, groups = plan(B, Bc, C, KV, H // KV, sm_count(dev))
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -173,7 +221,7 @@ def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
                          device=dev)
         n = B * H * n_split
         ws_m, ws_l, ws_acc = ws[:n], ws[n:2 * n], ws[2 * n:]
-        counters = torch.zeros((groups,), dtype=torch.int32, device=dev)
+        counters = zeroed_counters("decode_attention", dev, groups)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -183,8 +231,8 @@ def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
         int(q.dtype == torch.bfloat16), valid_len.data_ptr(),
         q_pos.data_ptr(), ptr(key_offset), inv_freq.data_ptr(),
         out.data_ptr(), ptr(lse), ptr(ws_m), ptr(ws_l), ptr(ws_acc),
-        ptr(counters), B, H, KV, Dh, Bc, C, n_split, split_len,
-        1.0 / math.sqrt(Dh), _stream(q),
+        ptr(counters), B, H, KV, Dh, Bc, C, n_split, 1.0 / math.sqrt(Dh),
+        _stream(q),
     )
     _raise_on(err, "decode_attention")
     launch_counts["decode_attention"] += 1

@@ -8,7 +8,10 @@ the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
 - ``w8a8_gemm`` replaces ``_qmm_i8_kernel`` (:94) in
   ``quantized_matmul_w8a8`` (:117): int8 x int8 -> int32, epilogue
   ``(f32(acc) * y_s) * s``.  At the main path's M it is bound by reading
-  the int8 weight once (D*O bytes).
+  the int8 weight once (D*O bytes).  It takes the weight K-major, (O, D)
+  (``models/quant.pack_w8a8`` packs it once, where leaves are made), and
+  runs on the tensor cores with split-K across blocks planned by
+  ``w8a8_plan``.
 - ``w8_bf16_gemm`` replaces ``_qmm_kernel`` (:26) in ``quantized_matmul``
   (:34): bf16 activation times the int8 weight dequantized in registers,
   f32 accumulation, per-out-channel scale.  Bound by the weight bytes too.
@@ -19,29 +22,58 @@ the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
   rescaled by the (row, group) and (group, out) scales and accumulated in
   f32 in group order (one fused multiply-add per group).  Bound by the int8 weight and its (G, O) scales.
 
-The kernels are the simple first version (see the note in the .cu file).
+``w8a8_gemm`` is the Hopper redesign; the other kernels are the simple
+first version (see the note in the .cu file).
 
 Every wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
-adds one to ``launch_counts[name]``.
+adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
+wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``, the
+calls that split D across blocks (still one launch each), and
+``counter_zeroing``, the fills of the split-K tile counters (one per
+device and size; the kernel leaves them zero).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 launch_counts = {"row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
                  "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
+internal_counts = {"w8a8_gemm_split_k": 0, "counter_zeroing": 0}
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, internal_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 _lib = None
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``quant_matmul`` library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.row_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, vp]
+    lib.w8a8_gemm.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 3
+    lib.w8_bf16_gemm.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp]
+    lib.group_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.w8a8_grouped_gemm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                      vp]
+    for fn in (lib.row_quant_int8, lib.w8a8_gemm, lib.w8_bf16_gemm,
+               lib.group_quant_int8, lib.w8a8_grouped_gemm,
+               lib.w8a8_gemm_tile_o, lib.w8a8_gemm_tile_k):
+        fn.restype = ci
+    if (lib.w8a8_gemm_tile_o(), lib.w8a8_gemm_tile_k()) != (
+            W8A8_TILE_O, W8A8_TILE_K):
+        raise RuntimeError("w8a8_gemm: the plan's tiles differ from the "
+                           "kernel's")
+    return lib
 
 
 def _library():
@@ -49,18 +81,7 @@ def _library():
     if _lib is None:
         from infinisst_tpu_torch.kernels._build import load_library
 
-        lib = load_library("quant_matmul")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.row_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, vp]
-        lib.w8a8_gemm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.w8_bf16_gemm.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp]
-        lib.group_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
-        lib.w8a8_grouped_gemm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                          ci, vp]
-        for fn in (lib.row_quant_int8, lib.w8a8_gemm, lib.w8_bf16_gemm,
-                   lib.group_quant_int8, lib.w8a8_grouped_gemm):
-            fn.restype = ci
-        _lib = lib
+        _lib = _bind(load_library("quant_matmul"))
     return _lib
 
 
@@ -82,6 +103,34 @@ def _check(name, t, dtypes, ndim, device):
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+_sms = {}
+
+
+def sm_count(device) -> int:
+    """The device's SM count, read once per device (the plans take it)."""
+    n = _sms.get(device)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sms[device] = n
+    return n
+
+
+_counters = {}
+
+
+def zeroed_counters(owner: str, device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device``, zero between launches:
+    the kernel that uses them resets each one it counts on, so the buffer
+    is filled with zeros only when it is made or grown, not per call."""
+    key = (owner, device)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _counters[key] = buf
+        internal_counts["counter_zeroing"] += 1
+    return buf
 
 
 _FLOATS = (torch.bfloat16, torch.float32)
@@ -125,51 +174,120 @@ def row_quant_int8(y: torch.Tensor):
 # w8a8_gemm
 
 
-def w8a8_gemm_plain(y_q, y_s, w_q, scale, out_dtype):
-    """Exact int8 product (float64 holds |acc| < 2**53 exactly, on the CPU
-    and on CUDA, where no integer matmul exists), then the epilogue of
-    ``_qmm_i8_kernel``: ``(f32(acc) * y_s) * s`` -> out_dtype."""
-    acc = (y_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.float32)
+# Tiles of the tensor-core kernel (csrc/quant_matmul.cu, namespace tc):
+# output channels per block, bytes of D per pipeline stage, and the
+# activation row tiles it is compiled for (NT n8 tiles of 8 rows)
+W8A8_TILE_O = 128
+W8A8_TILE_K = 128
+W8A8_ROW_TILES = (8, 16, 32, 64, 80)
+W8A8_BLOCKS_PER_SM = 2  # split-K target: about two blocks per SM
+
+
+class W8A8Plan(NamedTuple):
+    rows: int  # activation rows per block (one of W8A8_ROW_TILES)
+    n_mtiles: int
+    n_otiles: int
+    k_split: int  # bytes of D per split, a multiple of W8A8_TILE_K
+    n_split: int  # ceil(D / k_split); split s takes [s*k_split, ...) of D
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(M: int, D: int, O: int, sms: int) -> W8A8Plan:
+    """The grid of ``w8a8_gemm`` for an (M, D) x (D, O) product on a card
+    with ``sms`` SMs (a pure function of the shapes).  One row tile holds
+    all M <= 80 rows, so the weight is read once; D is split across blocks
+    until there are about W8A8_BLOCKS_PER_SM blocks per SM, no finer than
+    one stage per split and, so that the partial sums (rows x 4 bytes per
+    channel and split) stay well below the weight bytes they save, at most
+    D / (8 * rows) splits."""
+    rows = next(r for r in W8A8_ROW_TILES if r >= min(M, W8A8_ROW_TILES[-1]))
+    n_mtiles = _cdiv(M, rows)
+    n_otiles = _cdiv(O, W8A8_TILE_O)
+    n_k = _cdiv(D, W8A8_TILE_K)
+    want = _cdiv(W8A8_BLOCKS_PER_SM * sms, n_otiles * n_mtiles)
+    split = max(1, min(want, n_k, D // (8 * rows)))
+    # whole stages per split: of rounding the stages up or down, the one
+    # whose split count comes closer to the target
+    per = min((_cdiv(n_k, split), max(1, n_k // split)),
+              key=lambda p: (abs(_cdiv(n_k, p) - split), -p))
+    k_split = per * W8A8_TILE_K
+    return W8A8Plan(rows, n_mtiles, n_otiles, k_split, _cdiv(D, k_split))
+
+
+def w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
+    """Exact int8 product against the K-major weight w_t (O, D) (float64
+    holds |acc| < 2**53 exactly, on the CPU and on CUDA, where no integer
+    matmul exists), then the epilogue of ``_qmm_i8_kernel``:
+    ``(f32(acc) * y_s) * s`` -> out_dtype."""
+    acc = (y_q.to(torch.float64) @ w_t.to(torch.float64).T).to(torch.float32)
     return (acc * y_s * scale[None, :]).to(out_dtype)
 
 
-def w8a8_gemm(y_q, y_s, w_q, scale, out_dtype):
+def w8a8_gemm(y_q, y_s, w_t, scale, out_dtype):
+    """y_q (M, D) int8, y_s (M, 1) f32, w_t (O, D) int8 K-major, scale (O,)
+    f32 -> (M, O) out_dtype."""
     if y_q.device.type == "cpu":
-        return w8a8_gemm_plain(y_q, y_s, w_q, scale, out_dtype)
+        return w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype)
     if y_q.device.type != "cuda":
         raise ValueError(f"w8a8_gemm: unsupported device {y_q.device}")
     dev = y_q.device
     _check("y_q", y_q, (torch.int8,), 2, dev)
     _check("y_s", y_s, (torch.float32,), 2, dev)
-    _check("w_q", w_q, (torch.int8,), 2, dev)
+    _check("w_t", w_t, (torch.int8,), 2, dev)
     _check("scale", scale, (torch.float32,), 1, dev)
     if out_dtype not in _FLOATS:
         raise TypeError(f"w8a8_gemm: out_dtype {out_dtype}")
     M, D = y_q.shape
-    D2, O = w_q.shape
+    O, D2 = w_t.shape
     if D2 != D or scale.shape[0] != O or y_s.shape != (M, 1):
         raise ValueError(
             f"w8a8_gemm: shapes y_q {tuple(y_q.shape)} y_s "
-            f"{tuple(y_s.shape)} w_q {tuple(w_q.shape)} s {tuple(scale.shape)}"
+            f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
         )
-    if D % 4 or O % 4:
-        raise ValueError(f"w8a8_gemm: D={D} and O={O} must be multiples of 4")
+    if D % 16 or y_q.data_ptr() % 16 or w_t.data_ptr() % 16:
+        raise ValueError(f"w8a8_gemm: D={D} must be a multiple of 16 and the "
+                         "int8 operands 16-byte aligned")
     out = torch.empty((M, O), dtype=out_dtype, device=dev)
+    if M == 0 or O == 0:
+        return out
+    plan = w8a8_plan(M, D, O, sm_count(dev))
+    ws = counters = None
+    if plan.n_split > 1:
+        n_tiles = plan.n_mtiles * plan.n_otiles
+        # one int32 per (tile, split, output): the block's accumulators
+        ws = torch.empty((n_tiles * plan.n_split * plan.rows, W8A8_TILE_O),
+                         dtype=torch.int32, device=dev)
+        counters = zeroed_counters("w8a8_gemm", dev, n_tiles)
+        internal_counts["w8a8_gemm_split_k"] += 1
     err = _library().w8a8_gemm(
-        y_q.data_ptr(), y_s.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O,
-        _stream(y_q),
+        y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, plan.rows,
+        plan.k_split, plan.n_split, None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), _stream(y_q),
     )
     _raise_on(err, "w8a8_gemm")
     launch_counts["w8a8_gemm"] += 1
     return out
 
 
-def quantized_matmul_w8a8(y, w_q, scale, out_dtype=None):
-    """W8A8 matmul: per-row activation quant + per-out-channel weight
-    quant, int32 accumulation, rescale to ``out_dtype`` (default y's)."""
+def quantized_matmul_w8a8_packed(y, w_t, scale, out_dtype=None):
+    """W8A8 matmul on a K-major weight w_t (O, D): per-row activation
+    quant + per-out-channel weight quant, int32 accumulation, rescale to
+    ``out_dtype`` (default y's).  The main path's form."""
     y_q, y_s = row_quant_int8(y)
-    return w8a8_gemm(y_q, y_s, w_q, scale, out_dtype or y.dtype)
+    return w8a8_gemm(y_q, y_s, w_t, scale, out_dtype or y.dtype)
+
+
+def quantized_matmul_w8a8(y, w_q, scale, out_dtype=None):
+    """The JAX signature, w_q (D, O): transposes the weight on every call,
+    so it serves parity checks; the model packs its weights once
+    (``models/quant.pack_w8a8``) and calls the packed form."""
+    return quantized_matmul_w8a8_packed(
+        y, w_q.transpose(0, 1).contiguous(), scale, out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,21 @@
 """Quantized weights and the dispatching matmul; port of
 ``infinisst_tpu/models/quant.py``.
 
-Leaf layouts (told apart by key and scale rank, as in the JAX package):
-  {'q', 'scale'}     weight-only int8 -> ``w8_bf16_gemm``;
-  {'q', 'scale_a8'}  W8A8; a 1-D per-out-channel scale -> row quant +
-                     ``w8a8_gemm``; a 2-D per-(input group, out-channel)
-                     scale (the ``--group128`` belt) -> group quant +
-                     ``w8a8_grouped_gemm``;
-  {'a', 'b'}         low-rank factors, two chained ``mm`` calls.
+Leaf layouts (told apart by key, as in the JAX package, plus one key of
+the port's own):
+  {'q', 'scale'}         weight-only int8 (in, out) -> ``w8_bf16_gemm``;
+  {'q_kmajor', 'scale_a8'}
+                         per-out-channel W8A8, the weight K-major
+                         (..., out, in) -> row quant + ``w8a8_gemm``.  The
+                         JAX package's {'q' (in, out), 'scale_a8' (out,)}
+                         leaf is packed into it once, where leaves are made
+                         (``pack_w8a8``: ``from_jax``,
+                         ``quantize_llama_params``; ``init_quantized_llama``
+                         makes it directly), never per call;
+  {'q', 'scale_a8'}      with a per-(input group, out-channel) scale (the
+                         ``--group128`` belt), (in, out) -> group quant +
+                         ``w8a8_grouped_gemm``;
+  {'a', 'b'}             low-rank factors, two chained ``mm`` calls.
 
 ``quantize_llama_params`` turns float parameters into any of the int8
 layouts; ``init_quantized_llama`` makes random ones directly in int8.
@@ -20,16 +28,40 @@ import math
 import torch
 
 from infinisst_tpu_torch.kernels.quant_matmul import (
-    quantized_matmul_w8a8,
     quantized_matmul_w8a8_grouped,
+    quantized_matmul_w8a8_packed,
     w8_bf16_gemm,
 )
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+KMAJOR = "q_kmajor"  # the packed per-channel W8A8 weight, (..., out, in)
 
 
 def is_quantized(w) -> bool:
-    return isinstance(w, dict) and "q" in w
+    return isinstance(w, dict) and ("q" in w or KMAJOR in w)
+
+
+def is_unpacked_w8a8(w) -> bool:
+    """A per-out-channel W8A8 leaf in the JAX layout: {'q' (..., in, out),
+    'scale_a8' (..., out)} (a grouped scale has the rank of ``q``)."""
+    return (isinstance(w, dict) and "q" in w and "scale_a8" in w
+            and w["scale_a8"].ndim == w["q"].ndim - 1)
+
+
+def pack_w8a8(w):
+    """{'q' (..., in, out), 'scale_a8' (..., out)} -> {'q_kmajor' (..., out,
+    in), 'scale_a8'}: the layout ``w8a8_gemm`` reads.  One copy, made where
+    the leaf is made; the input leaf can be dropped afterwards."""
+    if not is_unpacked_w8a8(w):
+        raise ValueError("pack_w8a8: not a per-channel {'q','scale_a8'} leaf")
+    return {KMAJOR: w["q"].transpose(-1, -2).contiguous(),
+            "scale_a8": w["scale_a8"]}
+
+
+def unpack_w8a8(w):
+    """The inverse of ``pack_w8a8``: back to the JAX layout."""
+    return {"q": w[KMAJOR].transpose(-1, -2).contiguous(),
+            "scale_a8": w["scale_a8"]}
 
 
 def mm(y: torch.Tensor, w) -> torch.Tensor:
@@ -40,11 +72,13 @@ def mm(y: torch.Tensor, w) -> torch.Tensor:
         return y @ w
     shape = y.shape
     y2 = y.reshape(-1, shape[-1]).contiguous()
-    if "scale_a8" in w:
-        if w["scale_a8"].ndim == 2:
-            out = quantized_matmul_w8a8_grouped(y2, w["q"], w["scale_a8"])
-        else:
-            out = quantized_matmul_w8a8(y2, w["q"], w["scale_a8"])
+    if KMAJOR in w:
+        out = quantized_matmul_w8a8_packed(y2, w[KMAJOR], w["scale_a8"])
+    elif is_unpacked_w8a8(w):
+        raise ValueError("mm: a per-channel W8A8 leaf in the (in, out) "
+                         "layout; pack it once with pack_w8a8")
+    elif "scale_a8" in w:
+        out = quantized_matmul_w8a8_grouped(y2, w["q"], w["scale_a8"])
     else:
         out = w8_bf16_gemm(y2, w["q"], w["scale"])
     return out.reshape(*shape[:-1], out.shape[-1])
@@ -58,7 +92,10 @@ def init_quantized_llama(
     int8 projections with constant scales 1 / (127 sqrt(in)) (as
     ``quant.py:150-230``), ones for the norms, a normal embedding, and
     either an int8 W8A8 lm_head padded to a multiple of 512 columns (pad
-    scales zero) or a float one.  ``group_size`` gives the projections
+    scales zero) or a float one.  Per-channel W8A8 leaves are drawn in the
+    JAX (in, out) layout and packed K-major at once (``pack_w8a8``), one
+    leaf at a time (a transient copy of one leaf).  ``group_size`` gives
+    the projections
     per-(input group, out-channel) scales (L, in // group_size, out), W8A8
     only; ``head_group_size`` (default 0: per-channel) groups the head.
     ``generator`` must live on ``device``."""
@@ -81,11 +118,11 @@ def init_quantized_llama(
         sval = 1.0 / (127 * math.sqrt(shape[0]))
         sshape = ((L, shape[0] // group_size, shape[-1]) if group_size
                   else (L, shape[-1]))
-        return {
-            "q": randint8((L,) + shape),
-            skey: torch.full(sshape, sval, dtype=torch.float32,
-                             device=device),
-        }
+        scale = torch.full(sshape, sval, dtype=torch.float32, device=device)
+        leaf = {"q": randint8((L,) + shape), skey: scale}
+        if act_int8 and not group_size:  # per-channel W8A8: packed K-major
+            return pack_w8a8(leaf)
+        return leaf
 
     layers = {
         "input_ln": torch.ones((L, D), dtype=embed_dtype, device=device),
@@ -105,6 +142,9 @@ def init_quantized_llama(
                            dtype=torch.float32, device=device)
         scale[..., V:] = 0.0
         lm_head = {"q": randint8((D, Vp)), "scale_a8": scale}
+        if not head_group_size:  # per-channel: packed K-major, pad rows 0
+            lm_head = pack_w8a8(lm_head)
+            lm_head[KMAJOR][V:] = 0
     else:
         lm_head = torch.randn(
             (D, V), generator=generator, device=device, dtype=torch.float32
@@ -168,6 +208,7 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
     (W8A8 only); ``act_int8`` selects W8A8 for the projections, and the
     quantized head is always W8A8, padded to a multiple of 512 columns
     with zero scales on the pad (grouped by ``head_group_size``).
+    Per-channel W8A8 leaves come out packed K-major (``pack_w8a8``).
     Projection output widths must be multiples of 128."""
     if group_size and not act_int8:
         raise ValueError("group_size requires act_int8 (W8A8)")
@@ -179,6 +220,8 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
             raise ValueError(f"{k}: shape {tuple(w.shape)} does not tile "
                              f"by 128 columns and groups of {group_size}")
         layers[k] = _quantize_stacked(w, a8=act_int8, group_size=group_size)
+        if act_int8 and not group_size:
+            layers[k] = pack_w8a8(layers[k])
     out["layers"] = layers
     if quantize_lm_head:
         w = params["lm_head"]
@@ -190,5 +233,6 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
         else:
             q, s = quantize_weight(w, axis=0)
         s[..., V:] = 0.0
-        out["lm_head"] = {"q": q, "scale_a8": s.to(torch.float32)}
+        head = {"q": q, "scale_a8": s.to(torch.float32)}
+        out["lm_head"] = head if head_group_size else pack_w8a8(head)
     return out

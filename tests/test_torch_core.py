@@ -103,23 +103,32 @@ def test_from_jax_layouts():
     p = JQ.init_quantized_llama(jax.random.PRNGKey(0), cfg, act_int8=True,
                                 lm_head_int8=True)
     t = from_jax(jax.device_get(p), device="cpu")
-    assert t["layers"]["wq"]["q"].dtype == torch.int8
-    assert tuple(t["layers"]["wq"]["q"].shape) == (2, 64, 64)  # stacked, (in, out)
+    # per-channel W8A8 leaves are packed K-major: stacked, (out, in)
+    wq = t["layers"]["wq"]
+    assert set(wq) == {"q_kmajor", "scale_a8"}
+    assert wq["q_kmajor"].dtype == torch.int8
+    assert tuple(t["layers"]["w_down"]["q_kmajor"].shape) == (2, 64, 96)
+    np.testing.assert_array_equal(
+        wq["q_kmajor"].numpy(), np.swapaxes(np.asarray(p["layers"]["wq"]["q"]),
+                                            -1, -2))
     assert t["layers"]["w_down"]["scale_a8"].dtype == torch.float32
     assert t["embed"].dtype == torch.bfloat16  # bf16 leaves survive
     np.testing.assert_array_equal(
         t["embed"].float().numpy(), np.asarray(p["embed"], np.float32)
     )
     head = t["lm_head"]
-    assert tuple(head["q"].shape) == (64, 512)  # padded to a 512 multiple
+    # padded to a 512 multiple, then packed K-major (vocabulary rows)
+    assert tuple(head["q_kmajor"].shape) == (512, 64)
     assert float(head["scale_a8"][300:].abs().sum()) == 0.0
     # an unpadded W8A8 head is padded with zero columns and zero scales
     raw = {"lm_head": {"q": np.ones((64, 300), np.int8),
                        "scale_a8": np.ones((300,), np.float32)}}
     pad = from_jax(raw, device="cpu")["lm_head"]
-    assert tuple(pad["q"].shape) == (64, 512)
-    assert float(pad["q"][:, 300:].abs().sum()) == 0.0
+    assert tuple(pad["q_kmajor"].shape) == (512, 64)
+    assert float(pad["q_kmajor"][300:].abs().sum()) == 0.0
+    assert float(pad["q_kmajor"][:300].abs().sum()) == 300 * 64
     assert float(pad["scale_a8"][300:].abs().sum()) == 0.0
+    assert raw["lm_head"]["q"].shape == (64, 300)  # the input is kept
     # float leaves may be cast on the way
     f = from_jax({"w": np.ones((2, 2), np.float32)}, device="cpu",
                  dtype=torch.bfloat16)

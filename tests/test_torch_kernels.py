@@ -43,11 +43,21 @@ def _port(y, dtype):
     return torch.from_numpy(y).to(dtype)
 
 
+def _packed(w, s):
+    """The port's per-channel W8A8 leaf: the (D, O) weight packed K-major."""
+    return TQ.pack_w8a8({"q": torch.from_numpy(w),
+                         "scale_a8": torch.from_numpy(s)})
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize(
-    "M,D,O", [(1, 256, 512), (3, 128, 256), (61, 256, 384), (4, 512, 128)]
+    "M,D,O", [(1, 256, 512), (3, 128, 256), (61, 256, 384), (4, 512, 128),
+              (79, 128, 256)]
 )
 def test_w8a8_mm_bitwise_vs_jax_and_pallas(dtype, M, D, O):
+    """``mm`` on the packed K-major leaf, and the JAX-signature
+    ``quantized_matmul_w8a8`` on the (D, O) weight, against JAX ``mm`` and
+    the Pallas kernel in interpret mode."""
     jd, td = DTYPES[dtype]
     y, w, s = _inputs(M, D, O, seed=M * 7 + D)
     yj = jnp.asarray(y).astype(jd)
@@ -55,11 +65,66 @@ def test_w8a8_mm_bitwise_vs_jax_and_pallas(dtype, M, D, O):
     pallas = JK.quantized_matmul_w8a8(
         yj, jnp.asarray(w), jnp.asarray(s), tile_o=128, interpret=True
     )
-    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
-                               "scale_a8": torch.from_numpy(s)})
+    got = TQ.mm(_port(y, td), _packed(w, s))
     assert got.dtype == td and tuple(got.shape) == (M, O)
     np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
     np.testing.assert_array_equal(_as_f32(got), _as_f32(pallas))
+    sig = TK.quantized_matmul_w8a8(_port(y, td), torch.from_numpy(w),
+                                   torch.from_numpy(s))
+    np.testing.assert_array_equal(_as_f32(sig), _as_f32(pallas))
+
+
+def test_pack_w8a8_round_trips_and_mm_refuses_the_unpacked_leaf():
+    rng = np.random.RandomState(1)
+    w = rng.randint(-127, 128, (3, 96, 40)).astype(np.int8)  # stacked
+    s = rng.rand(3, 40).astype(np.float32)
+    leaf = {"q": torch.from_numpy(w), "scale_a8": torch.from_numpy(s)}
+    packed = TQ.pack_w8a8(leaf)
+    assert set(packed) == {TQ.KMAJOR, "scale_a8"}
+    assert tuple(packed[TQ.KMAJOR].shape) == (3, 40, 96)
+    assert packed[TQ.KMAJOR].is_contiguous()
+    back = TQ.unpack_w8a8(packed)
+    np.testing.assert_array_equal(back["q"].numpy(), w)
+    np.testing.assert_array_equal(back["scale_a8"].numpy(), s)
+    # a grouped or weight-only leaf is not packed
+    for other in ({"q": leaf["q"][0], "scale_a8": torch.ones((3, 40))},
+                  {"q": leaf["q"][0], "scale": torch.ones((40,))}):
+        with pytest.raises(ValueError):
+            TQ.pack_w8a8(other)
+    y = torch.from_numpy(rng.randn(2, 96).astype(np.float32))
+    with pytest.raises(ValueError):
+        TQ.mm(y, {"q": leaf["q"][0], "scale_a8": leaf["scale_a8"][0]})
+    want = TK.quantized_matmul_w8a8(y, leaf["q"][0], leaf["scale_a8"][0])
+    got = TQ.mm(y, {k: v[0] for k, v in packed.items()})
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# the flagship projections and padded head, and the tiny model's
+FLAGSHIP_DO = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+               (4096, 128512)]
+TINY_DO = [(64, 64), (64, 32), (64, 128), (128, 64), (64, 512)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_w8a8_plan_covers_every_row_of_d_once(sms):
+    """The host plan of the split-K GEMM: every D byte in exactly one split,
+    whole stages per split but the last, every row and channel in one tile;
+    at M <= 16 the flagship shapes launch about two blocks per SM."""
+    for D, O in FLAGSHIP_DO + TINY_DO:
+        for M in (1, 4, 16, 61, 79, 200):
+            p = TK.w8a8_plan(M, D, O, sms)
+            assert p.rows in TK.W8A8_ROW_TILES and p.rows >= min(M, 80)
+            assert p.n_mtiles * p.rows >= M > (p.n_mtiles - 1) * p.rows
+            assert p.n_otiles * TK.W8A8_TILE_O >= O
+            assert p.k_split % TK.W8A8_TILE_K == 0
+            cover = np.zeros(D, np.int64)
+            for sp in range(p.n_split):
+                cover[sp * p.k_split:min(D, (sp + 1) * p.k_split)] += 1
+            assert (cover == 1).all(), (M, D, O, p)
+            assert (p.n_split - 1) * p.k_split < D
+            blocks = p.n_mtiles * p.n_otiles * p.n_split
+            if M <= 16 and (D, O) in FLAGSHIP_DO:
+                assert blocks >= 1.9 * sms, (M, D, O, p)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -73,8 +138,7 @@ def test_w8a8_mm_ragged_o_and_batched_rows(dtype, shape):
     y = y.reshape(B, S, D)
     want = JQ.mm(jnp.asarray(y).astype(jd),
                  {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)})
-    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
-                               "scale_a8": torch.from_numpy(s)})
+    got = TQ.mm(_port(y, td), _packed(w, s))
     assert tuple(got.shape) == (B, S, O)
     np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
 
@@ -218,8 +282,7 @@ def test_launch_counters_stay_zero_on_cpu():
     TK.reset_launch_counts()
     TA.reset_launch_counts()
     y, w, s = _inputs(4, 64, 32, seed=0)
-    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
-                                "scale_a8": torch.from_numpy(s)})
+    TQ.mm(torch.from_numpy(y), _packed(w, s))
     TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
                                 "scale": torch.from_numpy(s)})
     TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
@@ -233,3 +296,5 @@ def test_launch_counters_stay_zero_on_cpu():
         "group_quant_int8": 0, "w8a8_grouped_gemm": 0,
     }
     assert TA.launch_counts == {"decode_attention": 0}
+    assert TK.internal_counts == {"w8a8_gemm_split_k": 0,
+                                  "counter_zeroing": 0}

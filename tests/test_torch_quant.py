@@ -59,14 +59,27 @@ def test_quantize_llama_params_bitwise(kw):
     tp = from_jax(jax.device_get(jp), device="cpu")
     want = JQ.quantize_llama_params(jp, **kw)
     got = TQ.quantize_llama_params(tp, **kw)
+    # per-channel W8A8 leaves come out packed K-major; compared unpacked
+    packed = kw.get("act_int8") and not kw.get("group_size")
     for k in TQ.QUANT_KEYS:
-        assert set(got["layers"][k]) == set(want["layers"][k]), k
-        for leaf, t in got["layers"][k].items():
+        g = got["layers"][k]
+        if packed:
+            assert set(g) == {TQ.KMAJOR, "scale_a8"}, k
+            assert tuple(g[TQ.KMAJOR].shape) == tuple(
+                np.swapaxes(want["layers"][k]["q"], -1, -2).shape)
+            g = TQ.unpack_w8a8(g)
+        assert set(g) == set(want["layers"][k]), k
+        for leaf, t in g.items():
             _eq(t, want["layers"][k][leaf])
     if kw.get("quantize_lm_head"):
+        head = got["lm_head"]
+        if not kw.get("head_group_size"):
+            assert set(head) == {TQ.KMAJOR, "scale_a8"}
+            assert not head[TQ.KMAJOR][500:].any()  # the padding is zero
+            head = TQ.unpack_w8a8(head)
         for leaf in ("q", "scale_a8"):
-            _eq(got["lm_head"][leaf], want["lm_head"][leaf])
-        assert got["lm_head"]["q"].shape[-1] == 512
+            _eq(head[leaf], want["lm_head"][leaf])
+        assert head["q"].shape[-1] == 512
     else:
         _eq(got["lm_head"], want["lm_head"])
 
