@@ -2,14 +2,15 @@
 ``jax.device_get``), into the port's tensors.
 
 The layout is kept: (in, out) matrices stay (in, out), layer stacks stay
-stacked, ``{'q','scale'}`` and grouped ``{'q','scale_a8'}`` leaves become
-int8 plus float32 scales, ``{'a','b'}`` low-rank leaves stay factor pairs.
-One exception: a per-out-channel W8A8 leaf ``{'q' (..., in, out),
-'scale_a8' (..., out)}`` is packed K-major into ``{'q_kmajor' (..., out,
-in), 'scale_a8'}`` (``models/quant.pack_w8a8``), on the host, before it
-reaches the device.  A W8A8 lm_head (per-channel or grouped scales)
-narrower than a multiple of 512 columns is first padded with zero weights
-and zero scales, as ``quant.py`` pads it.
+stacked, grouped ``{'q','scale_a8'}`` leaves become int8 plus float32
+scales, ``{'a','b'}`` low-rank leaves stay factor pairs.  One exception:
+a per-out-channel leaf, weight-only ``{'q' (..., in, out), 'scale' (...,
+out)}`` or W8A8 ``{'q', 'scale_a8' (..., out)}``, is packed K-major into
+``{'q_kmajor' (..., out, in), same scale}`` (as ``models/quant.
+pack_kmajor`` packs it), on the host, before it reaches the device.  A
+W8A8 lm_head (per-channel or grouped scales) narrower than a multiple of
+512 columns is first padded with zero weights and zero scales, as
+``quant.py`` pads it.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from infinisst_tpu_torch.core.device import resolve_device
-from infinisst_tpu_torch.models.quant import KMAJOR
+from infinisst_tpu_torch.models.quant import KMAJOR, is_unpacked
 
 
 def _tensor(a, device, dtype):
@@ -33,15 +34,15 @@ def _tensor(a, device, dtype):
 
 
 def _convert(tree, device, dtype):
-    if isinstance(tree, dict) and "q" in tree and "scale_a8" in tree and \
-            np.ndim(tree["scale_a8"]) == np.ndim(tree["q"]) - 1:
+    if is_unpacked(tree):
         q = np.asarray(tree["q"]).astype(np.int8)
-        return {
-            KMAJOR: _tensor(np.ascontiguousarray(np.swapaxes(q, -1, -2)),
-                            device, None),
-            "scale_a8": _tensor(np.asarray(tree["scale_a8"], np.float32),
-                                device, None),
-        }
+        out = {KMAJOR: _tensor(np.ascontiguousarray(np.swapaxes(q, -1, -2)),
+                               device, None)}
+        for k in ("scale", "scale_a8"):
+            if k in tree:
+                out[k] = _tensor(np.asarray(tree[k], np.float32), device,
+                                 None)
+        return out
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():

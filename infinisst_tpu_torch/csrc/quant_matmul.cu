@@ -13,35 +13,41 @@
 //                         body of quantized_matmul_w8a8_grouped (:239)
 //
 // What bounds them on the H100: at the main path's M (4 beam rows, 61/79
-// prefill rows) both GEMMs are bound by streaming the int8 weight from
+// prefill rows) the GEMMs are bound by streaming the int8 weight from
 // device memory (D*O bytes against 2*M*D*O operations, far below the
-// ~590 int8 operations per byte where the tensor cores would bind).
-// row_quant_int8 reads M*D activations and writes M*D bytes.  The grouped
-// pair is bound the same way; its weight scales are (G, O) float32, G =
-// D / 128, 3 % of the int8 weight bytes.
+// ~590 int8 or ~295 bf16 operations per byte where the tensor cores would
+// bind).  row_quant_int8 reads M*D activations and writes M*D bytes, a
+// few microseconds of work: at M = 4 a launch costs more than the bytes,
+// so it is bound by latency (the launch, one round trip to memory, one
+// reduction).  The grouped pair is bound by bytes too; its weight scales
+// are (G, O) float32, G = D / 128, 3 % of the int8 weight bytes.
 //
-// w8a8_gemm (redesigned for Hopper) reads its weight K-major, (O, D) int8,
-// packed once where the leaves are made (models/quant.py:pack_w8a8), so
-// that each output channel's D bytes are contiguous: int8 tensor-core
-// operands are K-major only.  Swap AB: the weight is the 16-row A operand
-// of mma.sync m16n8k32 (s8 x s8 -> s32) and the activation rows are its
-// 8-wide N side, so one block tile holds all M <= 80 rows of a call and
-// the weight crosses device memory once per call at M in {1, 4, 61, 79}.
+// w8a8_gemm and w8_bf16_gemm (both redesigned for Hopper) read their
+// weight K-major, (O, D) int8, packed once where the leaves are made
+// (models/quant.py:pack_kmajor), so that each output channel's D bytes
+// are contiguous: tensor-core A operands are K-major.  Swap AB: the
+// weight is the 16-row A operand of mma.sync (m16n8k32 s8 x s8 -> s32,
+// or m16n8k16 bf16 x bf16 -> f32 on weight bytes widened to bf16 in
+// registers, which is exact) and the activation rows are its 8-wide N
+// side, so one block tile holds all M <= 80 rows of a call and the
+// weight crosses device memory once per call at M in {1, 4, 61, 79}.
 // A block owns 128 output channels (4 warps x two m16 tiles) and one
 // contiguous K range; a 4-stage cp.async ring (16 bytes a thread) streams
-// 128-byte-deep weight and activation tiles (whole L2 lines) through
-// shared memory.  In each 64 bytes of a stage each thread reads 16
-// contiguous bytes of a row and feeds them to two MMAs; A and B take the
-// same byte-to-k assignment, and an integer sum does not depend on the
-// order of its terms.  Narrow O gets
-// split-K across blocks (host plan: about two blocks per SM at M <= 16);
-// each block stores its int32 partial (plain stores, no zeroed workspace)
-// and the last block of an output tile, found with an atomic counter that
-// it resets, sums the partials in split order and applies the unchanged
-// epilogue (f32(acc) * ys[m]) * s[o].  The result is bitwise that of the
-// plain version.
+// 128-byte-deep weight tiles (whole L2 lines) and the matching activation
+// tiles through shared memory.  In each 64 bytes of a weight stage each
+// thread reads 16 contiguous bytes of a row and feeds them to two int8
+// MMAs or four bf16 MMAs; A and B take the same byte-to-k assignment (a
+// permutation of k inside each MMA, which an integer sum does not see
+// and an f32 sum sees only as another order).  Narrow O gets split-K
+// across blocks (host plans: about two blocks per SM at M <= 16); each
+// block stores its partial (plain stores, no zeroed workspace) and the
+// last block of an output tile, found with an atomic counter that it
+// resets, sums the partials in split order and applies the epilogue:
+// (f32(acc) * ys[m]) * s[o], bitwise that of the plain version, or
+// acc * s[o], which differs from the plain version only by the order of
+// the f32 sums (and is the same from run to run).
 //
-// The other GEMMs keep the simple first design: each block computes a
+// The grouped GEMM keeps the simple first design: each block computes a
 // TM x 128 output tile; lane l of every warp owns 4 consecutive output
 // columns, so a warp's weight load is 128 contiguous bytes of one weight
 // row (coalesced, JAX (D, O) layout read as is); the block's warps split
@@ -79,43 +85,105 @@ __device__ __forceinline__ void store_out(void* p, int is_bf16, int64_t i,
 }
 
 // ---------------------------------------------------------------------------
-// row_quant_int8: one block per row.  s = max(amax / 127, 1e-8);
+// row_quant_int8 (one pass): s = max(amax / 127, 1e-8);
 // q = clamp(rint(y / s), -127, 127).  Divides (no reciprocal) and rounds
-// half to even, as jnp.round does.
+// half to even, as jnp.round does, so the result is bitwise that of the
+// plain version.  Each thread loads VPT 16-byte vectors of the row (8 bf16
+// or 4 f32 values each; vector i of thread t is i * blockDim + t) into
+// registers, all loads in flight at once, and the row never crosses memory
+// again.  The row's max: |y| as bit patterns, whose unsigned order is that
+// of non-negative floats (one AND and one integer max per word), a warp
+// shuffle, then one exchange through shared memory after which every
+// thread folds the warps' maxima itself (one barrier).  The quantization,
+// one IEEE division per value, is the kernel's largest cost after the
+// latency, so a row is shared by VPT blocks at every M: each loads the
+// whole row for the max (from L2 but for the first), and block c
+// quantizes vector c of each thread.  No block waits for another.  Each
+// thread stores 8 (bf16) or 4 (f32) int8 values at a time.  Requires
+// D % (16 / sizeof(elem)) == 0 and 16-byte aligned rows (checked by the
+// wrapper).
 
-__global__ void row_quant_int8_kernel(const void* __restrict__ y, int y_bf16,
+__device__ __forceinline__ int pack_int8x4(float a, float b, float c,
+                                           float d) {
+  auto q = [](float v) {
+    return static_cast<unsigned>(
+               __float2int_rn(fminf(fmaxf(rintf(v), -127.f), 127.f))) &
+           0xffu;
+  };
+  return static_cast<int>(q(a) | (q(b) << 8) | (q(c) << 16) | (q(d) << 24));
+}
+
+// value e of a 16-byte vector held as 4 words: a bf16 is the upper half of
+// the f32 with the same value
+template <bool BF16>
+__device__ __forceinline__ float vec_value(const int4& r, int e) {
+  const unsigned w[4] = {static_cast<unsigned>(r.x), static_cast<unsigned>(r.y),
+                         static_cast<unsigned>(r.z), static_cast<unsigned>(r.w)};
+  if constexpr (BF16) {
+    return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+  } else {
+    return __uint_as_float(w[e]);
+  }
+}
+
+// Grid (VPT, M): block (c, row).
+template <int VPT, bool BF16>
+__global__ void row_quant_int8_kernel(const void* __restrict__ y,
                                       int8_t* __restrict__ yq,
                                       float* __restrict__ ys, int D) {
-  const int64_t row = blockIdx.x;
-  const int64_t base = row * D;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    amax = fmaxf(amax, fabsf(load_f32(y, y_bf16, base + i)));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  __shared__ float warp_max[32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) warp_max[warp] = amax;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    amax = lane < nw ? warp_max[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  constexpr int kElems = BF16 ? 8 : 4;  // values per 16-byte vector
+  const int n_vec = D / kElems;
+  const int c = blockIdx.x;
+  const int64_t row = blockIdx.y;
+  const int4* src = reinterpret_cast<const int4*>(
+      static_cast<const char*>(y) + row * D * (BF16 ? 2 : 4));
+  int4 raw[VPT];
+  unsigned m = 0;  // max |y| as a bit pattern (bf16: one per half word)
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int idx = i * blockDim.x + threadIdx.x;
+    raw[i] = idx < n_vec ? __ldg(src + idx) : make_int4(0, 0, 0, 0);
+    const unsigned w[4] = {
+        static_cast<unsigned>(raw[i].x), static_cast<unsigned>(raw[i].y),
+        static_cast<unsigned>(raw[i].z), static_cast<unsigned>(raw[i].w)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m = BF16 ? __vmaxu2(m, w[j] & 0x7fff7fffu)
+               : max(m, w[j] & 0x7fffffffu);
     }
-    if (lane == 0) warp_max[0] = fmaxf(amax / 127.0f, 1e-8f);
   }
+  if (BF16) m = max(m & 0xffffu, m >> 16) << 16;  // as the f32's pattern
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  __shared__ unsigned warp_max[32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
-  const float s = warp_max[0];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    float q = rintf(load_f32(y, y_bf16, base + i) / s);
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    yq[base + i] = static_cast<int8_t>(q);
+  for (int w = 0; w < (blockDim.x + 31) >> 5; ++w) m = max(m, warp_max[w]);
+  const float s = fmaxf(__uint_as_float(m) / 127.0f, 1e-8f);
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {  // unrolled: raw[] stays in registers
+    const int idx = i * blockDim.x + threadIdx.x;
+    if (i != c || idx >= n_vec) continue;
+    int8_t* dst = yq + row * D + (int64_t)idx * kElems;
+    float v[kElems];
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) v[e] = vec_value<BF16>(raw[i], e) / s;
+    if constexpr (BF16) {
+      *reinterpret_cast<int2*>(dst) =
+          make_int2(pack_int8x4(v[0], v[1], v[2], v[3]),
+                    pack_int8x4(v[4], v[5], v[6], v[7]));
+    } else {
+      *reinterpret_cast<int*>(dst) = pack_int8x4(v[0], v[1], v[2], v[3]);
+    }
   }
-  if (threadIdx.x == 0) ys[row] = s;
+  if (c == 0 && threadIdx.x == 0) ys[row] = s;
 }
+
+// The launch floor: a kernel that does nothing, timed with the same
+// launch geometry as the kernel it is held against.
+__global__ void empty_kernel() {}
 
 // Gather byte j of each of r0..r3 into one word: the 4 consecutive-k int8
 // weights of output column j, in the byte order __dp4a pairs with y.
@@ -191,6 +259,58 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
   return r * tc::kTK + ((c ^ ((r & 1) << 2)) << 4);
 }
 
+// Split-K across blocks.  Every block stores its partial sums (plain
+// stores into ws: one T per (tile, split, register, thread)); the last
+// block of an output tile, found with an atomic counter that it resets to
+// zero, loads every split's partial of the registers each thread owns and
+// sums them in split order, so the result does not depend on which block
+// finished last.  Returns true in that block (acc then holds the sums),
+// false in the others, which are done.
+template <typename T, int MT, int NT>
+__device__ __forceinline__ bool reduce_splits(T (&acc)[MT][NT][4],
+                                              T* __restrict__ ws,
+                                              int* __restrict__ counters,
+                                              int tile, int split,
+                                              int n_split) {
+  constexpr int kRegs = MT * NT * 4;
+  __shared__ int is_last;
+  const int tid = threadIdx.x;
+  T* part = ws + ((int64_t)tile * n_split + split) * kRegs * tc::kThreads;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        part[((i * NT + j) * 4 + e) * tc::kThreads + tid] = acc[i][j][e];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == n_split - 1;
+  __syncthreads();
+  if (!is_last) return false;
+  __threadfence();
+  const T* base = ws + (int64_t)tile * n_split * kRegs * tc::kThreads;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int sp = 0; sp < n_split; ++sp) {
+    const T* p = base + (int64_t)sp * kRegs * tc::kThreads;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] += __ldcg(p + ((i * NT + j) * 4 + e) * tc::kThreads +
+                                 tid);
+  }
+  if (tid == 0) counters[tile] = 0;
+  return true;
+}
+
 // Grid: x = output tile of kTO channels, y = split of D (k_split bytes
 // each, the last one short), z = tile of NT * 8 activation rows.
 // ws (split-K only): one int32 partial per (tile, split, register, thread);
@@ -207,10 +327,8 @@ w8a8_gemm_tc_kernel(const int8_t* __restrict__ yq,
   constexpr int kRows = NT * 8;
   constexpr int kWBytes = tc::kTO * tc::kTK;
   constexpr int kStageBytes = kWBytes + kRows * tc::kTK;
-  constexpr int kRegs = tc::kMTiles * NT * 4;  // accumulators per thread
   constexpr int kChunks = tc::kTK / 16;          // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int is_last;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -295,43 +413,11 @@ w8a8_gemm_tc_kernel(const int8_t* __restrict__ yq,
   }
   cp_async_wait<0>();
 
-  if (n_split > 1) {
-    const int tile = blockIdx.z * gridDim.x + ot;
-    int* part = ws + ((int64_t)tile * n_split + split) * kRegs * tc::kThreads;
-#pragma unroll
-    for (int i = 0; i < tc::kMTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          part[((i * NT + j) * 4 + e) * tc::kThreads + tid] = acc[i][j][e];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == n_split - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    // the last block sums every split's partial of the registers this
-    // thread owns, in split order (int32: the same bits in any order)
-    const int* base = ws + (int64_t)tile * n_split * kRegs * tc::kThreads;
-#pragma unroll
-    for (int i = 0; i < tc::kMTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const int* p = base + (int64_t)sp * kRegs * tc::kThreads;
-#pragma unroll
-      for (int i = 0; i < tc::kMTiles; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][j][e] +=
-                __ldcg(p + ((i * NT + j) * 4 + e) * tc::kThreads + tid);
-    }
-    if (tid == 0) counters[tile] = 0;
+  // int32 partials: the same bits in any order
+  if (n_split > 1 && !reduce_splits(acc, ws, counters,
+                                    blockIdx.z * gridDim.x + ot, split,
+                                    n_split)) {
+    return;
   }
 
   // epilogue: c0, c1 -> channel g, rows 2t, 2t + 1; c2, c3 -> channel g + 8
@@ -354,67 +440,185 @@ w8a8_gemm_tc_kernel(const int8_t* __restrict__ yq,
 }
 
 // ---------------------------------------------------------------------------
-// w8_bf16_gemm: out[m, o] = (sum_k bf16(y[m,k]) * float(w[k,o])) * s[o],
-// f32 accumulation, cast to y's dtype.  The activation is rounded to bf16
-// first, as _qmm_kernel does; int8 -> float is exact, and so is each
-// bf16 x int8 product, so only the f32 summation order differs from the
-// plain version.  Requires O % 4 == 0.
+// w8_bf16_gemm: out[m, o] = (sum_k bf16(y[m,k]) * bf16(wt[o,k])) * s[o],
+// f32 accumulation, cast to the output dtype, with the weight K-major
+// (O, D).  The activation comes in rounded to bf16, as _qmm_kernel rounds
+// it; an int8 weight is exact in bf16 (|w| <= 128 < 2^8), and each
+// bf16 x bf16 product is exact in the tensor cores' f32 sums, so only the
+// order of the f32 sums differs from the plain version.  Tensor cores:
+// mma.sync m16n8k16 (bf16 x bf16 -> f32), the weight as the 16-row A side
+// (widened in registers), the activation rows as the 8-wide N side.  The
+// tiles, the ring and split-K are w8a8_gemm's; a stage holds 128 bytes of
+// each weight row and the matching 128 bf16 (256 bytes) of each
+// activation row.  Requires D % 16 == 0 (checked by the wrapper).
 
-__global__ void __launch_bounds__(kThreads)
-w8_bf16_gemm_kernel(const void* __restrict__ y, int y_bf16,
-                    const int8_t* __restrict__ w, const float* __restrict__ s,
-                    void* __restrict__ out, int M, int D, int O) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ysh = reinterpret_cast<__nv_bfloat16*>(smem);  // (kTM, D)
-  float* red = reinterpret_cast<float*>(
-      smem + ((kTM * D * 2 + 15) / 16) * 16);
+// Byte offset of 16-byte chunk c of activation row r in a stage of
+// 256-byte rows.  Odd rows swap neighbouring chunks, so the 8 lanes of a
+// quarter warp (rows g, g + 1, chunks 2t or 2t + 1) read 8 distinct bank
+// groups.
+__device__ __forceinline__ int ychunk_at(int r, int c) {
+  return r * 2 * tc::kTK + ((c ^ (r & 1)) << 4);
+}
 
-  const int m0 = blockIdx.y * kTM;
-  const int o0 = blockIdx.x * kTO;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kTM * D; i += kThreads) {
-    const int m = i / D, k = i % D;
-    float v = 0.f;
-    if (m0 + m < M) v = load_f32(y, y_bf16, (int64_t)(m0 + m) * D + k);
-    ysh[i] = __float2bfloat16_rn(v);
+// The 4 int8 of w (bytes 0..3) as two bf16 pairs, exactly: lo = (b0, b1),
+// hi = (b2, b3), the first of each pair in the low half.  Each byte,
+// biased by 128, becomes the low mantissa byte of 2^23 + u; subtracting
+// 2^23 + 128 leaves the integer in f32, whose upper half is its bf16.
+__device__ __forceinline__ void int8x4_to_bf16x2(int w, unsigned& lo,
+                                                 unsigned& hi) {
+  const unsigned u = static_cast<unsigned>(w) ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | i)) -
+           8388736.f;
   }
-  __syncthreads();
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
 
-  const int o = o0 + lane * kCols;
-  const bool col_ok = o < O;
-  float acc[kTM][kCols];
-#pragma unroll
-  for (int m = 0; m < kTM; ++m)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = 0.f;
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  if (col_ok) {
-    const int8_t* wp = w + o;
-    for (int k = warp; k < D; k += kWarps) {
-      const char4 r = *reinterpret_cast<const char4*>(wp + (int64_t)k * O);
-      const float wf[4] = {static_cast<float>(r.x), static_cast<float>(r.y),
-                           static_cast<float>(r.z), static_cast<float>(r.w)};
+// Grid and workspace as w8a8_gemm_tc_kernel's (ws holds f32 partials).
+template <int NT>
+__global__ void __launch_bounds__(tc::kThreads)
+w8_bf16_gemm_tc_kernel(const __nv_bfloat16* __restrict__ y,
+                       const int8_t* __restrict__ wt,
+                       const float* __restrict__ s, void* __restrict__ out,
+                       int out_bf16, int M, int D, int O, int k_split,
+                       int prefetch, float* __restrict__ ws,
+                       int* __restrict__ counters) {
+  constexpr int kRows = NT * 8;
+  constexpr int kWBytes = tc::kTO * tc::kTK;
+  constexpr int kYRow = 2 * tc::kTK;  // activation bytes per row and stage
+  constexpr int kStageBytes = kWBytes + kRows * kYRow;
+  constexpr int kChunks = tc::kTK / 16;
+  constexpr int kYChunks = kYRow / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ot = blockIdx.x, split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int o0 = ot * tc::kTO, m0 = blockIdx.z * kRows;
+  const int k0 = split * k_split;
+  const int k1 = min(D, k0 + k_split);
+  const int n_k = (k1 - k0 + tc::kTK - 1) / tc::kTK;
+
+  // one stage: kTO weight rows of kTK bytes and kRows activation rows of
+  // kTK bf16, in 16-byte chunks; chunks past O, M or the split's end are
+  // zero-filled
+  auto load_stage = [&](int slot, int kt) {
+    unsigned char* st = smem + slot * kStageBytes;
+    const int kb = k0 + kt * tc::kTK;
 #pragma unroll
-      for (int m = 0; m < kTM; ++m) {
-        const float a = __bfloat162float(ysh[m * D + k]);
+    for (int i = tid; i < tc::kTO * kChunks; i += tc::kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int o = o0 + r, k = kb + c * 16;
+      const bool ok = o < O && k < k1;
+      cp_async16(st + chunk_at(r, c), ok ? wt + (int64_t)o * D + k : wt, ok,
+                 prefetch);
+    }
+    unsigned char* at = st + kWBytes;
+    for (int i = tid; i < kRows * kYChunks; i += tc::kThreads) {
+      const int r = i / kYChunks, c = i % kYChunks;
+      const int m = m0 + r, k = kb + c * 8;
+      const bool ok = m < M && k < k1;
+      cp_async16(at + ychunk_at(r, c), ok ? y + (int64_t)m * D + k : y, ok);
+    }
+  };
+
+  float acc[tc::kMTiles][NT][4];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[m][j] = fmaf(a, wf[j], acc[m][j]);
+  for (int i = 0; i < tc::kMTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int p = 0; p < tc::kStages - 1; ++p) {
+    if (p < n_k) load_stage(p, p);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<tc::kStages - 2>();
+    __syncthreads();  // stage kt landed; slot (kt - 1) % kStages is free
+    if (kt + tc::kStages - 1 < n_k) {
+      load_stage((kt + tc::kStages - 1) % tc::kStages, kt + tc::kStages - 1);
+    }
+    cp_async_commit();
+    const unsigned char* st = smem + (kt % tc::kStages) * kStageBytes;
+    const unsigned char* at = st + kWBytes;
+    // in each 64-byte half of the weight rows, thread (g, t) takes bytes
+    // [16t, 16t + 16) of its rows and elements [16t, 16t + 16) of its
+    // activation row: word j of each (4 k values) feeds MMA j, its k
+    // slots 2t, 2t + 1, 2t + 8, 2t + 9 in byte order
+#pragma unroll
+    for (int h = 0; h < tc::kTK / 64; ++h) {
+      unsigned a[tc::kMTiles][4][4];  // [m16 tile][MMA][register]
+#pragma unroll
+      for (int i = 0; i < tc::kMTiles; ++i) {
+        const int r = warp * tc::kWarpO + i * 16 + g;
+        const int4 lo = *reinterpret_cast<const int4*>(
+            st + chunk_at(r, h * 4 + t));
+        const int4 hi = *reinterpret_cast<const int4*>(
+            st + chunk_at(r + 8, h * 4 + t));
+        const int wl[4] = {lo.x, lo.y, lo.z, lo.w};
+        const int wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int8x4_to_bf16x2(wl[j], a[i][j][0], a[i][j][2]);
+          int8x4_to_bf16x2(wh[j], a[i][j][1], a[i][j][3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int r = n * 8 + g;
+        const uint4 b0 = *reinterpret_cast<const uint4*>(
+            at + ychunk_at(r, h * 8 + 2 * t));
+        const uint4 b1 = *reinterpret_cast<const uint4*>(
+            at + ychunk_at(r, h * 8 + 2 * t + 1));
+        const unsigned bw[8] = {b0.x, b0.y, b0.z, b0.w,
+                                b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < tc::kMTiles; ++i)
+            mma_bf16(acc[i][n], a[i][j], bw[2 * j], bw[2 * j + 1]);
       }
     }
   }
+  cp_async_wait<0>();
+
+  if (n_split > 1 && !reduce_splits(acc, ws, counters,
+                                    blockIdx.z * gridDim.x + ot, split,
+                                    n_split)) {
+    return;
+  }
+
+  // epilogue: c0, c1 -> channel g, rows 2t, 2t + 1; c2, c3 -> channel g + 8
 #pragma unroll
-  for (int m = 0; m < kTM; ++m)
+  for (int i = 0; i < tc::kMTiles; ++i) {
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      red[(warp * kTM + m) * kTO + lane * kCols + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTM * kTO; i += kThreads) {
-    const int m = i / kTO, col = i % kTO;
-    if (m0 + m >= M || o0 + col >= O) continue;
-    float sum = 0.f;
-    for (int wi = 0; wi < kWarps; ++wi) sum += red[(wi * kTM + m) * kTO + col];
-    store_out(out, y_bf16, (int64_t)(m0 + m) * O + o0 + col, sum * s[o0 + col]);
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = o0 + warp * tc::kWarpO + i * 16 + g + (e >> 1) * 8;
+        const int m = m0 + n * 8 + 2 * t + (e & 1);
+        if (o < O && m < M) {
+          store_out(out, out_bf16, (int64_t)m * O + o,
+                    __fmul_rn(acc[i][n][e], s[o]));
+        }
+      }
+    }
   }
 }
 
@@ -566,33 +770,87 @@ int set_smem(const void* fn, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
+// Set a tensor-core GEMM instance's dynamic shared memory limit, once per
+// instance whatever the size: the kernel's static shared memory counts
+// against the 48 KB default too.
+template <typename Kernel>
+int set_smem_once(Kernel kernel, size_t smem, bool& done) {
+  if (done) return 0;
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  done = err == 0;
+  return err;
+}
+
+// The launch geometry both tensor-core GEMMs share.  A block that streams
+// long weight rows past few activation rows gains from fetching the next
+// 128 bytes of each row into L2 early; with more rows, or short splits,
+// the extra traffic cost more than it gave (measured on the H100 with
+// w8a8_gemm).
+struct TcGrid {
+  dim3 grid;
+  int prefetch;
+  TcGrid(int NT, int M, int O, int k_split, int n_split)
+      : grid((O + tc::kTO - 1) / tc::kTO, n_split,
+             (M + NT * 8 - 1) / (NT * 8)),
+        prefetch(NT <= 2 && k_split >= 1024) {}
+};
+
 template <int NT>
 int launch_w8a8(const void* yq, const void* ys, const void* wt,
                 const void* s, void* out, int out_bf16, int M, int D, int O,
                 int k_split, int n_split, void* ws, void* counters,
                 cudaStream_t stream) {
   const size_t smem = (size_t)tc::kStages * (tc::kTO + NT * 8) * tc::kTK;
-  // set once per instance, whatever the size: the kernel's static shared
-  // memory counts against the 48 KB default too
   static bool smem_set = false;
-  if (!smem_set) {
-    int err = static_cast<int>(cudaFuncSetAttribute(
-        w8a8_gemm_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem)));
-    if (err) return err;
-    smem_set = true;
-  }
-  dim3 grid((O + tc::kTO - 1) / tc::kTO, n_split, (M + NT * 8 - 1) / (NT * 8));
-  // a block that streams long weight rows past few activation rows gains
-  // from fetching the next 128 bytes of each row into L2 early; with more
-  // rows, or short splits, the extra traffic cost more than it gave
-  // (measured on the H100)
-  const int prefetch = NT <= 2 && k_split >= 1024;
-  w8a8_gemm_tc_kernel<NT><<<grid, tc::kThreads, smem, stream>>>(
+  int err = set_smem_once(w8a8_gemm_tc_kernel<NT>, smem, smem_set);
+  if (err) return err;
+  const TcGrid g(NT, M, O, k_split, n_split);
+  w8a8_gemm_tc_kernel<NT><<<g.grid, tc::kThreads, smem, stream>>>(
       static_cast<const int8_t*>(yq), static_cast<const float*>(ys),
       static_cast<const int8_t*>(wt), static_cast<const float*>(s), out,
-      out_bf16, M, D, O, k_split, prefetch, static_cast<int*>(ws),
+      out_bf16, M, D, O, k_split, g.prefetch, static_cast<int*>(ws),
       static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int launch_w8_bf16(const void* y, const void* wt, const void* s, void* out,
+                   int out_bf16, int M, int D, int O, int k_split,
+                   int n_split, void* ws, void* counters,
+                   cudaStream_t stream) {
+  const size_t smem =
+      (size_t)tc::kStages * (tc::kTO + NT * 8 * 2) * tc::kTK;
+  static bool smem_set = false;
+  int err = set_smem_once(w8_bf16_gemm_tc_kernel<NT>, smem, smem_set);
+  if (err) return err;
+  const TcGrid g(NT, M, O, k_split, n_split);
+  w8_bf16_gemm_tc_kernel<NT><<<g.grid, tc::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const int8_t*>(wt),
+      static_cast<const float*>(s), out, out_bf16, M, D, O, k_split,
+      g.prefetch, static_cast<float*>(ws), static_cast<int*>(counters));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A split-K plan the kernels take: whole stages per split, n_split of
+// them covering D.
+bool bad_plan(int D, int k_split, int n_split) {
+  return k_split <= 0 || k_split % tc::kTK ||
+         n_split != (D + k_split - 1) / k_split;
+}
+
+template <int VPT>
+int launch_row_quant(const void* y, int y_bf16, void* yq, void* ys, int M,
+                     int D, int threads, cudaStream_t stream) {
+  const dim3 grid(VPT, M);
+  if (y_bf16) {
+    row_quant_int8_kernel<VPT, true><<<grid, threads, 0, stream>>>(
+        y, static_cast<int8_t*>(yq), static_cast<float*>(ys), D);
+  } else {
+    row_quant_int8_kernel<VPT, false><<<grid, threads, 0, stream>>>(
+        y, static_cast<int8_t*>(yq), static_cast<float*>(ys), D);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -602,64 +860,90 @@ extern "C" {
 
 // Each launcher returns the cudaError_t of its launch (0 = success).
 
+// vpt (16-byte vectors a thread holds, and blocks per row: 1, 2, 4, 8 or
+// 16) and threads come from the wrapper's plan
+// (kernels/quant_matmul.py:row_quant_plan); threads * vpt vectors must
+// cover the row.
 int row_quant_int8(const void* y, int y_bf16, void* yq, void* ys, int M,
-                   int D, void* stream) {
+                   int D, int vpt, int threads, void* stream) {
   if (M == 0) return 0;
-  row_quant_int8_kernel<<<M, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      y, y_bf16, static_cast<int8_t*>(yq), static_cast<float*>(ys), D);
+  const int64_t n_vec = D / (y_bf16 ? 8 : 4);
+  if (threads < 1 || threads > 1024 || (int64_t)threads * vpt < n_vec) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ROW_QUANT_LAUNCH(VPT_)                                              \
+  launch_row_quant<VPT_>(y, y_bf16, yq, ys, M, D, threads, st)
+  switch (vpt) {
+    case 1: return ROW_QUANT_LAUNCH(1);
+    case 2: return ROW_QUANT_LAUNCH(2);
+    case 4: return ROW_QUANT_LAUNCH(4);
+    case 8: return ROW_QUANT_LAUNCH(8);
+    case 16: return ROW_QUANT_LAUNCH(16);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ROW_QUANT_LAUNCH
+}
+
+// An empty kernel with the given geometry: the launch floor that the
+// small kernels' times are read against.
+int empty_kernel_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 
-int w8a8_gemm_tile_o() { return tc::kTO; }
+int gemm_tile_o() { return tc::kTO; }
 
-int w8a8_gemm_tile_k() { return tc::kTK; }
+int gemm_tile_k() { return tc::kTK; }
 
 // wt is K-major (O, D).  rows (activation rows per block: 8, 16, 32, 64 or
 // 80), k_split and n_split come from the wrapper's plan
-// (kernels/quant_matmul.py:w8a8_plan); ws and counters are used only when
+// (kernels/quant_matmul.py:gemm_plan); ws and counters are used only when
 // n_split > 1.
+#define TC_GEMM_DISPATCH(LAUNCH)                                            \
+  switch (rows) {                                                           \
+    case 8: return LAUNCH(1);                                               \
+    case 16: return LAUNCH(2);                                              \
+    case 32: return LAUNCH(4);                                              \
+    case 64: return LAUNCH(8);                                              \
+    case 80: return LAUNCH(10);                                             \
+    default: return static_cast<int>(cudaErrorInvalidValue);                \
+  }
+
 int w8a8_gemm(const void* yq, const void* ys, const void* wt, const void* s,
               void* out, int out_bf16, int M, int D, int O, int rows,
               int k_split, int n_split, void* ws, void* counters,
               void* stream) {
   if (M == 0 || O == 0) return 0;
-  if (k_split <= 0 || k_split % tc::kTK ||
-      n_split != (D + k_split - 1) / k_split) {
+  if (bad_plan(D, k_split, n_split)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define W8A8_LAUNCH(NT_)                                                   \
-  return launch_w8a8<NT_>(yq, ys, wt, s, out, out_bf16, M, D, O, k_split,  \
-                          n_split, ws, counters, st)
-  switch (rows) {
-    case 8: W8A8_LAUNCH(1);
-    case 16: W8A8_LAUNCH(2);
-    case 32: W8A8_LAUNCH(4);
-    case 64: W8A8_LAUNCH(8);
-    case 80: W8A8_LAUNCH(10);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  launch_w8a8<NT_>(yq, ys, wt, s, out, out_bf16, M, D, O, k_split,         \
+                   n_split, ws, counters, st)
+  TC_GEMM_DISPATCH(W8A8_LAUNCH)
 #undef W8A8_LAUNCH
 }
 
-size_t w8_bf16_gemm_smem(int D) {
-  return ((kTM * (size_t)D * 2 + 15) / 16) * 16 +
-         sizeof(float) * kWarps * kTM * kTO;
+// y is bf16 (M, D); the output is bf16 or float32.  The rest as w8a8_gemm
+// (ws holds float32 partials).
+int w8_bf16_gemm(const void* y, const void* wt, const void* s, void* out,
+                 int out_bf16, int M, int D, int O, int rows, int k_split,
+                 int n_split, void* ws, void* counters, void* stream) {
+  if (M == 0 || O == 0) return 0;
+  if (bad_plan(D, k_split, n_split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define W8_BF16_LAUNCH(NT_)                                                \
+  launch_w8_bf16<NT_>(y, wt, s, out, out_bf16, M, D, O, k_split, n_split,  \
+                      ws, counters, st)
+  TC_GEMM_DISPATCH(W8_BF16_LAUNCH)
+#undef W8_BF16_LAUNCH
 }
 
-int w8_bf16_gemm(const void* y, int y_bf16, const void* w, const void* s,
-                 void* out, int M, int D, int O, void* stream) {
-  if (M == 0 || O == 0) return 0;
-  const size_t smem = w8_bf16_gemm_smem(D);
-  int err = set_smem(reinterpret_cast<const void*>(w8_bf16_gemm_kernel), smem);
-  if (err) return err;
-  dim3 grid((O + kTO - 1) / kTO, (M + kTM - 1) / kTM);
-  w8_bf16_gemm_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      y, y_bf16, static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      out, M, D, O);
-  return static_cast<int>(cudaGetLastError());
-}
+#undef TC_GEMM_DISPATCH
 
 int group_quant_int8(const void* y, int y_bf16, void* yq, void* ys, int M,
                      int D, int G, void* stream) {

@@ -4,17 +4,18 @@ Ports of the Pallas kernels in ``infinisst_tpu/kernels/quant_matmul.py``;
 the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
 
 - ``row_quant_int8`` replaces ``quantize_activation`` (:106): per-row
-  symmetric int8 quantization.  Bound by bytes (M*D read, M*D written).
+  symmetric int8 quantization in one pass, the row held in registers
+  and its divisions shared by several blocks (``row_quant_plan``).  M*D
+  bytes read and written: at the beam step's M it is bound by the launch
+  and one round trip to memory.
 - ``w8a8_gemm`` replaces ``_qmm_i8_kernel`` (:94) in
   ``quantized_matmul_w8a8`` (:117): int8 x int8 -> int32, epilogue
   ``(f32(acc) * y_s) * s``.  At the main path's M it is bound by reading
-  the int8 weight once (D*O bytes).  It takes the weight K-major, (O, D)
-  (``models/quant.pack_w8a8`` packs it once, where leaves are made), and
-  runs on the tensor cores with split-K across blocks planned by
-  ``w8a8_plan``.
+  the int8 weight once (D*O bytes).
 - ``w8_bf16_gemm`` replaces ``_qmm_kernel`` (:26) in ``quantized_matmul``
-  (:34): bf16 activation times the int8 weight dequantized in registers,
-  f32 accumulation, per-out-channel scale.  Bound by the weight bytes too.
+  (:34): bf16 activation times the int8 weight widened to bf16 in
+  registers, f32 accumulation, per-out-channel scale.  Bound by the
+  weight bytes too.
 - ``group_quant_int8`` replaces ``quantize_activation_grouped`` (:226):
   per-(row, group) symmetric int8 quantization.  Bound by bytes.
 - ``w8a8_grouped_gemm`` replaces ``_qmm_i8_grouped_kernel`` (:191) in
@@ -22,16 +23,22 @@ the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
   rescaled by the (row, group) and (group, out) scales and accumulated in
   f32 in group order (one fused multiply-add per group).  Bound by the int8 weight and its (G, O) scales.
 
-``w8a8_gemm`` is the Hopper redesign; the other kernels are the simple
-first version (see the note in the .cu file).
+``w8a8_gemm``, ``w8_bf16_gemm`` and ``row_quant_int8`` are the Hopper
+redesigns: the two GEMMs take their weight K-major, (O, D)
+(``models/quant.pack_kmajor`` packs it once, where leaves are made), and
+run on the tensor cores with split-K across blocks planned by
+``gemm_plan``.  The grouped pair is the simple first version (see the
+note in the .cu file).
 
 Every wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
 adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
-wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``, the
-calls that split D across blocks (still one launch each), and
-``counter_zeroing``, the fills of the split-K tile counters (one per
-device and size; the kernel leaves them zero).
+wrapper does besides its one kernel launch: ``w8a8_gemm_split_k`` and
+``w8_bf16_gemm_split_k``, the calls that split D across blocks (still one
+launch each), ``counter_zeroing``, the fills of the split-K tile counters
+(one per kernel, device and size; the kernels leave them zero), and
+``w8_bf16_gemm_f32_cast``, the float32 activations rounded to bf16 by
+PyTorch before the launch (the bf16 main path has none).
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 
 launch_counts = {"row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
                  "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
-internal_counts = {"w8a8_gemm_split_k": 0, "counter_zeroing": 0}
+internal_counts = {"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
+                   "counter_zeroing": 0, "w8_bf16_gemm_f32_cast": 0}
 
 
 def reset_launch_counts():
@@ -59,20 +67,19 @@ _lib = None
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a built ``quant_matmul`` library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.row_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, vp]
+    lib.row_quant_int8.argtypes = [vp, ci, vp, vp] + [ci] * 4 + [vp]
+    lib.empty_kernel_launch.argtypes = [ci, ci, vp]
     lib.w8a8_gemm.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 3
-    lib.w8_bf16_gemm.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp]
+    lib.w8_bf16_gemm.argtypes = [vp] * 4 + [ci] * 7 + [vp] * 3
     lib.group_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
     lib.w8a8_grouped_gemm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                       vp]
-    for fn in (lib.row_quant_int8, lib.w8a8_gemm, lib.w8_bf16_gemm,
-               lib.group_quant_int8, lib.w8a8_grouped_gemm,
-               lib.w8a8_gemm_tile_o, lib.w8a8_gemm_tile_k):
+    for fn in (lib.row_quant_int8, lib.empty_kernel_launch, lib.w8a8_gemm,
+               lib.w8_bf16_gemm, lib.group_quant_int8, lib.w8a8_grouped_gemm,
+               lib.gemm_tile_o, lib.gemm_tile_k):
         fn.restype = ci
-    if (lib.w8a8_gemm_tile_o(), lib.w8a8_gemm_tile_k()) != (
-            W8A8_TILE_O, W8A8_TILE_K):
-        raise RuntimeError("w8a8_gemm: the plan's tiles differ from the "
-                           "kernel's")
+    if (lib.gemm_tile_o(), lib.gemm_tile_k()) != (GEMM_TILE_O, GEMM_TILE_K):
+        raise RuntimeError("gemm_plan's tiles differ from the kernels'")
     return lib
 
 
@@ -117,6 +124,14 @@ def sm_count(device) -> int:
     return n
 
 
+def launch_empty(device, blocks: int, threads: int):
+    """Launch an empty kernel (not counted): the launch floor that
+    ``chip_smoke.py`` times beside the small kernels."""
+    _raise_on(_library().empty_kernel_launch(
+        blocks, threads, torch.cuda.current_stream(device).cuda_stream),
+        "empty_kernel")
+
+
 _counters = {}
 
 
@@ -152,18 +167,56 @@ def row_quant_int8_plain(y: torch.Tensor):
     return y_q, scale
 
 
+# threads a block aims for, the first unless the launch would then exceed
+# ROW_QUANT_MAX_BLOCKS blocks (the best of the launches timed on the H100
+# at M = 4, 61 and D = 4096, 14336: PERF.md, row_quant_int8)
+ROW_QUANT_THREADS = (256, 512)
+ROW_QUANT_MAX_BLOCKS = 256
+ROW_QUANT_VPT = (1, 2, 4, 8, 16)  # vectors a thread holds, compiled for
+
+
+class RowQuantPlan(NamedTuple):
+    """Each of a row's ``vpt`` blocks loads the whole row, ``vpt``
+    16-byte vectors a thread, and block c quantizes vector c of each
+    thread."""
+    vpt: int  # one of ROW_QUANT_VPT; also the blocks per row
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def row_quant_plan(M: int, D: int, elem_bytes: int) -> RowQuantPlan:
+    """The launch of ``row_quant_int8`` for M rows of D values of
+    ``elem_bytes`` each: the fewest 16-byte vectors per thread that cover
+    a row with at most the threads a block aims for, then as few whole
+    warps as cover it, and one block per row for each vector a thread
+    holds."""
+    n_vec = _cdiv(D * elem_bytes, 16)
+    for threads in ROW_QUANT_THREADS:
+        vpt = next((v for v in ROW_QUANT_VPT if v * threads >= n_vec), None)
+        if vpt is not None and M * vpt <= ROW_QUANT_MAX_BLOCKS:
+            break
+    if vpt is None:
+        raise ValueError(f"row_quant_int8: D={D} is too long")
+    return RowQuantPlan(vpt, 32 * _cdiv(_cdiv(n_vec, vpt), 32))
+
+
 def row_quant_int8(y: torch.Tensor):
+    """y (M, D) bf16 or f32 -> (y_q int8 (M, D), y_s f32 (M, 1))."""
     if y.device.type == "cpu":
         return row_quant_int8_plain(y)
     if y.device.type != "cuda":
         raise ValueError(f"row_quant_int8: unsupported device {y.device}")
     _check("y", y, _FLOATS, 2, y.device)
     M, D = y.shape
+    if (D * y.element_size()) % 16 or y.data_ptr() % 16:
+        raise ValueError(f"row_quant_int8: rows of D={D} {y.dtype} values "
+                         "must be whole 16-byte vectors, 16-byte aligned")
+    plan = row_quant_plan(M, D, y.element_size())
     y_q = torch.empty((M, D), dtype=torch.int8, device=y.device)
     y_s = torch.empty((M, 1), dtype=torch.float32, device=y.device)
     err = _library().row_quant_int8(
         y.data_ptr(), int(y.dtype == torch.bfloat16), y_q.data_ptr(),
-        y_s.data_ptr(), M, D, _stream(y),
+        y_s.data_ptr(), M, D, plan.vpt, plan.threads, _stream(y),
     )
     _raise_on(err, "row_quant_int8")
     launch_counts["row_quant_int8"] += 1
@@ -171,23 +224,24 @@ def row_quant_int8(y: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# w8a8_gemm
+# the tensor-core GEMMs' plan
 
 
-# Tiles of the tensor-core kernel (csrc/quant_matmul.cu, namespace tc):
-# output channels per block, bytes of D per pipeline stage, and the
-# activation row tiles it is compiled for (NT n8 tiles of 8 rows)
-W8A8_TILE_O = 128
-W8A8_TILE_K = 128
-W8A8_ROW_TILES = (8, 16, 32, 64, 80)
-W8A8_BLOCKS_PER_SM = 2  # split-K target: about two blocks per SM
+# Tiles of the tensor-core kernels (csrc/quant_matmul.cu, namespace tc):
+# output channels per block, weight bytes (values of D) per pipeline
+# stage, and the activation row tiles they are compiled for (NT n8 tiles
+# of 8 rows)
+GEMM_TILE_O = 128
+GEMM_TILE_K = 128
+GEMM_ROW_TILES = (8, 16, 32, 64, 80)
+GEMM_BLOCKS_PER_SM = 2  # split-K target: about two blocks per SM
 
 
-class W8A8Plan(NamedTuple):
-    rows: int  # activation rows per block (one of W8A8_ROW_TILES)
+class GemmPlan(NamedTuple):
+    rows: int  # activation rows per block (one of GEMM_ROW_TILES)
     n_mtiles: int
     n_otiles: int
-    k_split: int  # bytes of D per split, a multiple of W8A8_TILE_K
+    k_split: int  # values of D per split, a multiple of GEMM_TILE_K
     n_split: int  # ceil(D / k_split); split s takes [s*k_split, ...) of D
 
 
@@ -196,26 +250,47 @@ def _cdiv(a, b):
 
 
 @functools.lru_cache(maxsize=None)
-def w8a8_plan(M: int, D: int, O: int, sms: int) -> W8A8Plan:
-    """The grid of ``w8a8_gemm`` for an (M, D) x (D, O) product on a card
-    with ``sms`` SMs (a pure function of the shapes).  One row tile holds
-    all M <= 80 rows, so the weight is read once; D is split across blocks
-    until there are about W8A8_BLOCKS_PER_SM blocks per SM, no finer than
-    one stage per split and, so that the partial sums (rows x 4 bytes per
-    channel and split) stay well below the weight bytes they save, at most
-    D / (8 * rows) splits."""
-    rows = next(r for r in W8A8_ROW_TILES if r >= min(M, W8A8_ROW_TILES[-1]))
+def gemm_plan(M: int, D: int, O: int, sms: int) -> GemmPlan:
+    """The grid of ``w8a8_gemm`` and ``w8_bf16_gemm`` for an (M, D) x
+    (D, O) product on a card with ``sms`` SMs (a pure function of the
+    shapes).  One row tile holds all M <= 80 rows, so the weight is read
+    once; D is split across blocks until there are about
+    GEMM_BLOCKS_PER_SM blocks per SM, no finer than one stage per split
+    and, so that the partial sums (rows x 4 bytes per channel and split)
+    stay well below the weight bytes they save, at most D / (8 * rows)
+    splits."""
+    rows = next(r for r in GEMM_ROW_TILES if r >= min(M, GEMM_ROW_TILES[-1]))
     n_mtiles = _cdiv(M, rows)
-    n_otiles = _cdiv(O, W8A8_TILE_O)
-    n_k = _cdiv(D, W8A8_TILE_K)
-    want = _cdiv(W8A8_BLOCKS_PER_SM * sms, n_otiles * n_mtiles)
+    n_otiles = _cdiv(O, GEMM_TILE_O)
+    n_k = _cdiv(D, GEMM_TILE_K)
+    want = _cdiv(GEMM_BLOCKS_PER_SM * sms, n_otiles * n_mtiles)
     split = max(1, min(want, n_k, D // (8 * rows)))
     # whole stages per split: of rounding the stages up or down, the one
     # whose split count comes closer to the target
     per = min((_cdiv(n_k, split), max(1, n_k // split)),
               key=lambda p: (abs(_cdiv(n_k, p) - split), -p))
-    k_split = per * W8A8_TILE_K
-    return W8A8Plan(rows, n_mtiles, n_otiles, k_split, _cdiv(D, k_split))
+    k_split = per * GEMM_TILE_K
+    return GemmPlan(rows, n_mtiles, n_otiles, k_split, _cdiv(D, k_split))
+
+
+def _split_k_buffers(name, plan, dtype, dev):
+    """The workspace (one partial per tile, split, row and channel) and
+    the tile counters of a split-K launch; (None, None) without a split."""
+    if plan.n_split == 1:
+        return None, None
+    n_tiles = plan.n_mtiles * plan.n_otiles
+    ws = torch.empty((n_tiles * plan.n_split * plan.rows, GEMM_TILE_O),
+                     dtype=dtype, device=dev)
+    internal_counts[f"{name}_split_k"] += 1
+    return ws, zeroed_counters(name, dev, n_tiles)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# w8a8_gemm
 
 
 def w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
@@ -254,77 +329,79 @@ def w8a8_gemm(y_q, y_s, w_t, scale, out_dtype):
     out = torch.empty((M, O), dtype=out_dtype, device=dev)
     if M == 0 or O == 0:
         return out
-    plan = w8a8_plan(M, D, O, sm_count(dev))
-    ws = counters = None
-    if plan.n_split > 1:
-        n_tiles = plan.n_mtiles * plan.n_otiles
-        # one int32 per (tile, split, output): the block's accumulators
-        ws = torch.empty((n_tiles * plan.n_split * plan.rows, W8A8_TILE_O),
-                         dtype=torch.int32, device=dev)
-        counters = zeroed_counters("w8a8_gemm", dev, n_tiles)
-        internal_counts["w8a8_gemm_split_k"] += 1
+    plan = gemm_plan(M, D, O, sm_count(dev))
+    ws, counters = _split_k_buffers("w8a8_gemm", plan, torch.int32, dev)
     err = _library().w8a8_gemm(
         y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
         out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, plan.rows,
-        plan.k_split, plan.n_split, None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), _stream(y_q),
+        plan.k_split, plan.n_split, _ptr(ws), _ptr(counters), _stream(y_q),
     )
     _raise_on(err, "w8a8_gemm")
     launch_counts["w8a8_gemm"] += 1
     return out
 
 
-def quantized_matmul_w8a8_packed(y, w_t, scale, out_dtype=None):
-    """W8A8 matmul on a K-major weight w_t (O, D): per-row activation
-    quant + per-out-channel weight quant, int32 accumulation, rescale to
-    ``out_dtype`` (default y's).  The main path's form."""
-    y_q, y_s = row_quant_int8(y)
-    return w8a8_gemm(y_q, y_s, w_t, scale, out_dtype or y.dtype)
-
-
 def quantized_matmul_w8a8(y, w_q, scale, out_dtype=None):
-    """The JAX signature, w_q (D, O): transposes the weight on every call,
-    so it serves parity checks; the model packs its weights once
-    (``models/quant.pack_w8a8``) and calls the packed form."""
-    return quantized_matmul_w8a8_packed(
-        y, w_q.transpose(0, 1).contiguous(), scale, out_dtype)
+    """The JAX signature, w_q (D, O): per-row activation quant +
+    per-out-channel weight quant, int32 accumulation, rescale to
+    ``out_dtype`` (default y's).  Transposes the weight on every call, so
+    it serves parity checks; the model packs its weights once
+    (``models/quant.pack_kmajor``) and calls the kernels on them."""
+    y_q, y_s = row_quant_int8(y)
+    return w8a8_gemm(y_q, y_s, w_q.transpose(0, 1).contiguous(), scale,
+                     out_dtype or y.dtype)
 
 
 # ---------------------------------------------------------------------------
 # w8_bf16_gemm
 
 
-def w8_bf16_gemm_plain(y, w_q, scale):
-    """bf16(y) @ float(w_q) in f32, times the per-out-channel scale, cast
+def w8_bf16_gemm_plain(y, w_t, scale):
+    """bf16(y) @ float(w_t).T in f32, times the per-out-channel scale, cast
     to y's dtype -- the arithmetic of ``_qmm_kernel`` (which, unlike
-    ``quantized_matmul_reference``, rounds y to bf16 first)."""
+    ``quantized_matmul_reference``, rounds y to bf16 first), on the
+    K-major weight w_t (O, D)."""
     yb = y.to(torch.bfloat16).to(torch.float32)
-    acc = yb @ w_q.to(torch.float32)
+    acc = yb @ w_t.to(torch.float32).T
     return (acc * scale[None, :].to(torch.float32)).to(y.dtype)
 
 
-def w8_bf16_gemm(y, w_q, scale):
+def w8_bf16_gemm(y, w_t, scale):
+    """y (M, D) bf16 or f32, w_t (O, D) int8 K-major, scale (O,) f32 ->
+    (M, O) in y's dtype.  A float32 y is rounded to bf16 by PyTorch before
+    the launch (what the kernel would do first; the bf16 main path skips
+    it)."""
     if y.device.type == "cpu":
-        return w8_bf16_gemm_plain(y, w_q, scale)
+        return w8_bf16_gemm_plain(y, w_t, scale)
     if y.device.type != "cuda":
         raise ValueError(f"w8_bf16_gemm: unsupported device {y.device}")
     dev = y.device
     _check("y", y, _FLOATS, 2, dev)
-    _check("w_q", w_q, (torch.int8,), 2, dev)
+    _check("w_t", w_t, (torch.int8,), 2, dev)
     _check("scale", scale, (torch.float32,), 1, dev)
     M, D = y.shape
-    D2, O = w_q.shape
+    O, D2 = w_t.shape
     if D2 != D or scale.shape[0] != O:
         raise ValueError(
-            f"w8_bf16_gemm: shapes y {tuple(y.shape)} w_q {tuple(w_q.shape)} "
+            f"w8_bf16_gemm: shapes y {tuple(y.shape)} w_t {tuple(w_t.shape)} "
             f"s {tuple(scale.shape)}"
         )
-    if O % 4:
-        raise ValueError(f"w8_bf16_gemm: O={O} must be a multiple of 4")
+    yb = y
+    if y.dtype != torch.bfloat16:
+        yb = y.to(torch.bfloat16)
+        internal_counts["w8_bf16_gemm_f32_cast"] += 1
+    if D % 16 or yb.data_ptr() % 16 or w_t.data_ptr() % 16:
+        raise ValueError(f"w8_bf16_gemm: D={D} must be a multiple of 16 and "
+                         "the operands 16-byte aligned")
     out = torch.empty((M, O), dtype=y.dtype, device=dev)
+    if M == 0 or O == 0:
+        return out
+    plan = gemm_plan(M, D, O, sm_count(dev))
+    ws, counters = _split_k_buffers("w8_bf16_gemm", plan, torch.float32, dev)
     err = _library().w8_bf16_gemm(
-        y.data_ptr(), int(y.dtype == torch.bfloat16), w_q.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), M, D, O, _stream(y),
+        yb.data_ptr(), w_t.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        int(y.dtype == torch.bfloat16), M, D, O, plan.rows, plan.k_split,
+        plan.n_split, _ptr(ws), _ptr(counters), _stream(y),
     )
     _raise_on(err, "w8_bf16_gemm")
     launch_counts["w8_bf16_gemm"] += 1
@@ -440,12 +517,3 @@ def w8a8_grouped_gemm(y_q, y_s, w_q, scale, out_dtype):
     _raise_on(err, "w8a8_grouped_gemm")
     launch_counts["w8a8_grouped_gemm"] += 1
     return out
-
-
-def quantized_matmul_w8a8_grouped(y, w_q, scale, out_dtype=None):
-    """Grouped W8A8 matmul: per-(row, group) activation quant, (G, O)
-    weight scales (G = scale.shape[0], group size D // G), int32 dot per
-    group, f32 rescale-accumulate in group order, cast to ``out_dtype``
-    (default y's)."""
-    y_q, y_s = group_quant_int8(y, y.shape[1] // scale.shape[0])
-    return w8a8_grouped_gemm(y_q, y_s, w_q, scale, out_dtype or y.dtype)

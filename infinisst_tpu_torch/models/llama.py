@@ -8,7 +8,9 @@ KV cache is updated in place where the JAX package donates its buffers.
 Prefill attention (``decode_step``) is written out as matmul, additive
 mask and f32 softmax, as the JAX einsums are; the beam step's two-block
 attention goes through the rotate-on-read ``decode_attention`` kernel.
-Projections and the lm_head go through ``quant.mm``.
+Projections and the lm_head go through ``quant.mm``; q/k/v and gate/up,
+which share their input, through ``quant.mm_many``, which quantizes that
+input once (4 activation quantizations per layer, not 7).
 
 Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
   embed (V, D); layers: input_ln, post_ln (L, D), wq (L, D, H*Dh),
@@ -30,7 +32,7 @@ from infinisst_tpu_torch.kernels.decode_attention import (
     decode_attention,
     merge_blocks,
 )
-from infinisst_tpu_torch.models.quant import mm
+from infinisst_tpu_torch.models.quant import mm, mm_many
 from infinisst_tpu_torch.streaming.state import DecoderState
 
 Params = Dict[str, Any]
@@ -62,8 +64,8 @@ def layer_params(layers: Params, i: int) -> Params:
 
 def _mlp(h, lp, eps):
     y = _rms_norm(h, lp["post_ln"], eps)
-    y = torch.nn.functional.silu(mm(y, lp["w_gate"])) * mm(y, lp["w_up"])
-    return h + mm(y, lp["w_down"])
+    gate, up = mm_many(y, (lp["w_gate"], lp["w_up"]))
+    return h + mm(torch.nn.functional.silu(gate) * up, lp["w_down"])
 
 
 def decode_step(
@@ -112,9 +114,10 @@ def decode_step(
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
         y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
-        q = mm(y, lp["wq"]).reshape(B, S, H, Dh)
-        k_new = mm(y, lp["wk"]).reshape(B, S, KV, Dh)
-        v_new = mm(y, lp["wv"]).reshape(B, S, KV, Dh)
+        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        q = q.reshape(B, S, H, Dh)
+        k_new = k_new.reshape(B, S, KV, Dh)
+        v_new = v_new.reshape(B, S, KV, Dh)
         ck, cv = state.k[li], state.v[li]
         k_all = torch.cat([ck, k_new.to(ck.dtype)], dim=1)  # (B, C+S, KV, Dh)
         v_all = torch.cat([cv, v_new.to(cv.dtype)], dim=1)
@@ -184,9 +187,10 @@ def beam_token_step(
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
         y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
-        q = mm(y, lp["wq"]).reshape(beam, H, Dh)
-        k_new = mm(y, lp["wk"]).reshape(beam, KV, Dh)
-        v_new = mm(y, lp["wv"]).reshape(beam, KV, Dh)
+        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        q = q.reshape(beam, H, Dh)
+        k_new = k_new.reshape(beam, KV, Dh)
+        v_new = v_new.reshape(beam, KV, Dh)
         # in-place write of this step's K/V (the JAX step returns a copy)
         gen_k[li, :, gen_len] = k_new.to(gen_k.dtype)
         gen_v[li, :, gen_len] = v_new.to(gen_v.dtype)

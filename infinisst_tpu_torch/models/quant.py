@@ -3,22 +3,26 @@
 
 Leaf layouts (told apart by key, as in the JAX package, plus one key of
 the port's own):
-  {'q', 'scale'}         weight-only int8 (in, out) -> ``w8_bf16_gemm``;
+  {'q_kmajor', 'scale'}  weight-only int8, the weight K-major
+                         (..., out, in) -> ``w8_bf16_gemm``;
   {'q_kmajor', 'scale_a8'}
                          per-out-channel W8A8, the weight K-major
-                         (..., out, in) -> row quant + ``w8a8_gemm``.  The
-                         JAX package's {'q' (in, out), 'scale_a8' (out,)}
-                         leaf is packed into it once, where leaves are made
-                         (``pack_w8a8``: ``from_jax``,
-                         ``quantize_llama_params``; ``init_quantized_llama``
-                         makes it directly), never per call;
+                         (..., out, in) -> row quant + ``w8a8_gemm``;
   {'q', 'scale_a8'}      with a per-(input group, out-channel) scale (the
                          ``--group128`` belt), (in, out) -> group quant +
                          ``w8a8_grouped_gemm``;
   {'a', 'b'}             low-rank factors, two chained ``mm`` calls.
+The JAX package's weight-only {'q' (in, out), 'scale' (out,)} and
+per-channel W8A8 {'q' (in, out), 'scale_a8' (out,)} leaves are packed
+K-major once, where leaves are made (``pack_kmajor``: ``from_jax``,
+``quantize_llama_params``, ``init_quantized_llama``), never per call; a
+shape cannot tell a square weight from its transpose, hence the key.
 
-``quantize_llama_params`` turns float parameters into any of the int8
-layouts; ``init_quantized_llama`` makes random ones directly in int8.
+``mm_many`` multiplies one activation by several weights and quantizes
+it once per activation layout (q/k/v and gate/up share their input);
+``mm`` is its one-weight case.  ``quantize_llama_params`` turns float
+parameters into any of the int8 layouts; ``init_quantized_llama`` makes
+random ones directly in int8.
 """
 
 from __future__ import annotations
@@ -28,60 +32,90 @@ import math
 import torch
 
 from infinisst_tpu_torch.kernels.quant_matmul import (
-    quantized_matmul_w8a8_grouped,
-    quantized_matmul_w8a8_packed,
+    group_quant_int8,
+    row_quant_int8,
     w8_bf16_gemm,
+    w8a8_gemm,
+    w8a8_grouped_gemm,
 )
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-KMAJOR = "q_kmajor"  # the packed per-channel W8A8 weight, (..., out, in)
+KMAJOR = "q_kmajor"  # a packed per-channel weight, (..., out, in)
 
 
 def is_quantized(w) -> bool:
     return isinstance(w, dict) and ("q" in w or KMAJOR in w)
 
 
-def is_unpacked_w8a8(w) -> bool:
-    """A per-out-channel W8A8 leaf in the JAX layout: {'q' (..., in, out),
-    'scale_a8' (..., out)} (a grouped scale has the rank of ``q``)."""
-    return (isinstance(w, dict) and "q" in w and "scale_a8" in w
-            and w["scale_a8"].ndim == w["q"].ndim - 1)
+def is_unpacked(w) -> bool:
+    """A per-out-channel leaf in the JAX layout, weight-only {'q' (..., in,
+    out), 'scale' (..., out)} or W8A8 {'q', 'scale_a8' (..., out)} (a
+    grouped scale has the rank of ``q``)."""
+    if not (isinstance(w, dict) and "q" in w):
+        return False
+    return "scale" in w or ("scale_a8" in w
+                            and w["scale_a8"].ndim == w["q"].ndim - 1)
 
 
-def pack_w8a8(w):
-    """{'q' (..., in, out), 'scale_a8' (..., out)} -> {'q_kmajor' (..., out,
-    in), 'scale_a8'}: the layout ``w8a8_gemm`` reads.  One copy, made where
-    the leaf is made; the input leaf can be dropped afterwards."""
-    if not is_unpacked_w8a8(w):
-        raise ValueError("pack_w8a8: not a per-channel {'q','scale_a8'} leaf")
-    return {KMAJOR: w["q"].transpose(-1, -2).contiguous(),
-            "scale_a8": w["scale_a8"]}
+def pack_kmajor(w):
+    """{'q' (..., in, out), 'scale' or 'scale_a8' (..., out)} ->
+    {'q_kmajor' (..., out, in), same scale}: the layout ``w8_bf16_gemm``
+    and ``w8a8_gemm`` read.  One copy, made where the leaf is made; the
+    input leaf can be dropped afterwards."""
+    if not is_unpacked(w):
+        raise ValueError("pack_kmajor: not a per-channel {'q','scale'} or "
+                         "{'q','scale_a8'} leaf")
+    out = {KMAJOR: w["q"].transpose(-1, -2).contiguous()}
+    out.update((k, v) for k, v in w.items() if k != "q")
+    return out
 
 
-def unpack_w8a8(w):
-    """The inverse of ``pack_w8a8``: back to the JAX layout."""
-    return {"q": w[KMAJOR].transpose(-1, -2).contiguous(),
-            "scale_a8": w["scale_a8"]}
+def unpack_kmajor(w):
+    """The inverse of ``pack_kmajor``: back to the JAX layout."""
+    out = {"q": w[KMAJOR].transpose(-1, -2).contiguous()}
+    out.update((k, v) for k, v in w.items() if k != KMAJOR)
+    return out
 
 
 def mm(y: torch.Tensor, w) -> torch.Tensor:
     """y @ w for plain, low-rank or quantized weights; y (..., D)."""
-    if isinstance(w, dict) and "a" in w:
-        return mm(mm(y, w["a"]), w["b"])
-    if not is_quantized(w):
-        return y @ w
+    return mm_many(y, (w,))[0]
+
+
+def mm_many(y: torch.Tensor, ws) -> tuple:
+    """(y @ w for w in ws), each as ``mm`` computes it, with y quantized
+    once per activation layout: one ``row_quant_int8`` for all
+    per-channel W8A8 leaves, one ``group_quant_int8`` per group size.  The
+    quantization is a pure function of y, so the results are bitwise
+    those of separate ``mm`` calls."""
     shape = y.shape
-    y2 = y.reshape(-1, shape[-1]).contiguous()
-    if KMAJOR in w:
-        out = quantized_matmul_w8a8_packed(y2, w[KMAJOR], w["scale_a8"])
-    elif is_unpacked_w8a8(w):
-        raise ValueError("mm: a per-channel W8A8 leaf in the (in, out) "
-                         "layout; pack it once with pack_w8a8")
-    elif "scale_a8" in w:
-        out = quantized_matmul_w8a8_grouped(y2, w["q"], w["scale_a8"])
-    else:
-        out = w8_bf16_gemm(y2, w["q"], w["scale"])
-    return out.reshape(*shape[:-1], out.shape[-1])
+    y2, row_q, group_q, outs = None, None, {}, []
+    for w in ws:
+        if isinstance(w, dict) and "a" in w:
+            outs.append(mm(mm(y, w["a"]), w["b"]))
+            continue
+        if not is_quantized(w):
+            outs.append(y @ w)
+            continue
+        if is_unpacked(w):
+            raise ValueError("mm: a per-channel int8 leaf in the (in, out) "
+                             "layout; pack it once with pack_kmajor")
+        if y2 is None:
+            y2 = y.reshape(-1, shape[-1]).contiguous()
+        if KMAJOR in w and "scale_a8" in w:
+            if row_q is None:
+                row_q = row_quant_int8(y2)
+            out = w8a8_gemm(*row_q, w[KMAJOR], w["scale_a8"], y.dtype)
+        elif KMAJOR in w:
+            out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
+        else:  # grouped W8A8: scale_a8 (G, out)
+            gs = shape[-1] // w["scale_a8"].shape[0]
+            if gs not in group_q:
+                group_q[gs] = group_quant_int8(y2, gs)
+            out = w8a8_grouped_gemm(*group_q[gs], w["q"], w["scale_a8"],
+                                    y.dtype)
+        outs.append(out.reshape(*shape[:-1], out.shape[-1]))
+    return tuple(outs)
 
 
 def init_quantized_llama(
@@ -92,9 +126,10 @@ def init_quantized_llama(
     int8 projections with constant scales 1 / (127 sqrt(in)) (as
     ``quant.py:150-230``), ones for the norms, a normal embedding, and
     either an int8 W8A8 lm_head padded to a multiple of 512 columns (pad
-    scales zero) or a float one.  Per-channel W8A8 leaves are drawn in the
-    JAX (in, out) layout and packed K-major at once (``pack_w8a8``), one
-    leaf at a time (a transient copy of one leaf).  ``group_size`` gives
+    scales zero) or a float one.  Per-channel leaves (weight-only and
+    W8A8) are drawn in the JAX (in, out) layout and packed K-major at once
+    (``pack_kmajor``), one leaf at a time (a transient copy of one leaf);
+    the draw order is that of the unpacked layout.  ``group_size`` gives
     the projections
     per-(input group, out-channel) scales (L, in // group_size, out), W8A8
     only; ``head_group_size`` (default 0: per-channel) groups the head.
@@ -120,9 +155,8 @@ def init_quantized_llama(
                   else (L, shape[-1]))
         scale = torch.full(sshape, sval, dtype=torch.float32, device=device)
         leaf = {"q": randint8((L,) + shape), skey: scale}
-        if act_int8 and not group_size:  # per-channel W8A8: packed K-major
-            return pack_w8a8(leaf)
-        return leaf
+        # per-channel (weight-only or W8A8): packed K-major
+        return leaf if group_size else pack_kmajor(leaf)
 
     layers = {
         "input_ln": torch.ones((L, D), dtype=embed_dtype, device=device),
@@ -143,7 +177,7 @@ def init_quantized_llama(
         scale[..., V:] = 0.0
         lm_head = {"q": randint8((D, Vp)), "scale_a8": scale}
         if not head_group_size:  # per-channel: packed K-major, pad rows 0
-            lm_head = pack_w8a8(lm_head)
+            lm_head = pack_kmajor(lm_head)
             lm_head[KMAJOR][V:] = 0
     else:
         lm_head = torch.randn(
@@ -208,8 +242,9 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
     (W8A8 only); ``act_int8`` selects W8A8 for the projections, and the
     quantized head is always W8A8, padded to a multiple of 512 columns
     with zero scales on the pad (grouped by ``head_group_size``).
-    Per-channel W8A8 leaves come out packed K-major (``pack_w8a8``).
-    Projection output widths must be multiples of 128."""
+    Per-channel leaves (weight-only and W8A8) come out packed K-major
+    (``pack_kmajor``).  Projection output widths must be multiples of
+    128."""
     if group_size and not act_int8:
         raise ValueError("group_size requires act_int8 (W8A8)")
     out = dict(params)
@@ -220,8 +255,8 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
             raise ValueError(f"{k}: shape {tuple(w.shape)} does not tile "
                              f"by 128 columns and groups of {group_size}")
         layers[k] = _quantize_stacked(w, a8=act_int8, group_size=group_size)
-        if act_int8 and not group_size:
-            layers[k] = pack_w8a8(layers[k])
+        if not group_size:
+            layers[k] = pack_kmajor(layers[k])
     out["layers"] = layers
     if quantize_lm_head:
         w = params["lm_head"]
@@ -234,5 +269,5 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
             q, s = quantize_weight(w, axis=0)
         s[..., V:] = 0.0
         head = {"q": q, "scale_a8": s.to(torch.float32)}
-        out["lm_head"] = head if head_group_size else pack_w8a8(head)
+        out["lm_head"] = head if head_group_size else pack_kmajor(head)
     return out

@@ -129,6 +129,14 @@ def test_from_jax_layouts():
     assert float(pad["q_kmajor"][:300].abs().sum()) == 300 * 64
     assert float(pad["scale_a8"][300:].abs().sum()) == 0.0
     assert raw["lm_head"]["q"].shape == (64, 300)  # the input is kept
+    # weight-only leaves are packed K-major too, under their own scale key
+    w8 = from_jax(jax.device_get(JQ.init_quantized_llama(
+        jax.random.PRNGKey(1), cfg, act_int8=False)), device="cpu")
+    wd = w8["layers"]["w_down"]
+    assert set(wd) == {"q_kmajor", "scale"}
+    assert tuple(wd["q_kmajor"].shape) == (2, 64, 96)
+    assert tuple(wd["scale"].shape) == (2, 64)
+    assert wd["scale"].dtype == torch.float32
     # float leaves may be cast on the way
     f = from_jax({"w": np.ones((2, 2), np.float32)}, device="cpu",
                  dtype=torch.bfloat16)

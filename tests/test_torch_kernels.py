@@ -43,10 +43,11 @@ def _port(y, dtype):
     return torch.from_numpy(y).to(dtype)
 
 
-def _packed(w, s):
-    """The port's per-channel W8A8 leaf: the (D, O) weight packed K-major."""
-    return TQ.pack_w8a8({"q": torch.from_numpy(w),
-                         "scale_a8": torch.from_numpy(s)})
+def _packed(w, s, key="scale_a8"):
+    """The port's per-channel leaf, W8A8 (``scale_a8``) or weight-only
+    (``scale``): the (D, O) weight packed K-major."""
+    return TQ.pack_kmajor({"q": torch.from_numpy(w),
+                           key: torch.from_numpy(s)})
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -79,18 +80,16 @@ def test_pack_w8a8_round_trips_and_mm_refuses_the_unpacked_leaf():
     w = rng.randint(-127, 128, (3, 96, 40)).astype(np.int8)  # stacked
     s = rng.rand(3, 40).astype(np.float32)
     leaf = {"q": torch.from_numpy(w), "scale_a8": torch.from_numpy(s)}
-    packed = TQ.pack_w8a8(leaf)
+    packed = TQ.pack_kmajor(leaf)
     assert set(packed) == {TQ.KMAJOR, "scale_a8"}
     assert tuple(packed[TQ.KMAJOR].shape) == (3, 40, 96)
     assert packed[TQ.KMAJOR].is_contiguous()
-    back = TQ.unpack_w8a8(packed)
+    back = TQ.unpack_kmajor(packed)
     np.testing.assert_array_equal(back["q"].numpy(), w)
     np.testing.assert_array_equal(back["scale_a8"].numpy(), s)
-    # a grouped or weight-only leaf is not packed
-    for other in ({"q": leaf["q"][0], "scale_a8": torch.ones((3, 40))},
-                  {"q": leaf["q"][0], "scale": torch.ones((40,))}):
-        with pytest.raises(ValueError):
-            TQ.pack_w8a8(other)
+    # a grouped leaf is not packed
+    with pytest.raises(ValueError):
+        TQ.pack_kmajor({"q": leaf["q"][0], "scale_a8": torch.ones((3, 40))})
     y = torch.from_numpy(rng.randn(2, 96).astype(np.float32))
     with pytest.raises(ValueError):
         TQ.mm(y, {"q": leaf["q"][0], "scale_a8": leaf["scale_a8"][0]})
@@ -107,16 +106,17 @@ TINY_DO = [(64, 64), (64, 32), (64, 128), (128, 64), (64, 512)]
 
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_w8a8_plan_covers_every_row_of_d_once(sms):
-    """The host plan of the split-K GEMM: every D byte in exactly one split,
-    whole stages per split but the last, every row and channel in one tile;
-    at M <= 16 the flagship shapes launch about two blocks per SM."""
+    """The host plan of the split-K GEMMs (``w8a8_gemm`` and
+    ``w8_bf16_gemm``): every D byte in exactly one split, whole stages per
+    split but the last, every row and channel in one tile; at M <= 16 the
+    flagship shapes launch about two blocks per SM."""
     for D, O in FLAGSHIP_DO + TINY_DO:
         for M in (1, 4, 16, 61, 79, 200):
-            p = TK.w8a8_plan(M, D, O, sms)
-            assert p.rows in TK.W8A8_ROW_TILES and p.rows >= min(M, 80)
+            p = TK.gemm_plan(M, D, O, sms)
+            assert p.rows in TK.GEMM_ROW_TILES and p.rows >= min(M, 80)
             assert p.n_mtiles * p.rows >= M > (p.n_mtiles - 1) * p.rows
-            assert p.n_otiles * TK.W8A8_TILE_O >= O
-            assert p.k_split % TK.W8A8_TILE_K == 0
+            assert p.n_otiles * TK.GEMM_TILE_O >= O
+            assert p.k_split % TK.GEMM_TILE_K == 0
             cover = np.zeros(D, np.int64)
             for sp in range(p.n_split):
                 cover[sp * p.k_split:min(D, (sp + 1) * p.k_split)] += 1
@@ -157,24 +157,155 @@ def test_row_quant_int8_bitwise_vs_quantize_activation(dtype, M, D):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+@pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bfloat16", "float32"])
+def test_row_quant_plan_covers_each_row_once(elem_bytes):
+    """``row_quant_int8``'s launch: a row's 16-byte vectors held in one
+    block's registers, whole warps of at most max(ROW_QUANT_THREADS)
+    threads and no warp without a vector; one block per vector a thread
+    holds, so each vector is quantized by exactly one block; the first
+    thread target unless that exceeds ROW_QUANT_MAX_BLOCKS blocks."""
+    for D in (64, 128, 1024, 4096, 14336, 65536 // elem_bytes):
+        n_vec = D * elem_bytes // 16
+        for M in (1, 4, 61, 79):
+            p = TK.row_quant_plan(M, D, elem_bytes)
+            assert p.vpt in TK.ROW_QUANT_VPT and p.threads % 32 == 0
+            assert p.threads <= max(TK.ROW_QUANT_THREADS)
+            assert p.vpt * p.threads >= n_vec > p.vpt * (p.threads - 32)
+            if p.threads > TK.ROW_QUANT_THREADS[0]:
+                first = next((v for v in TK.ROW_QUANT_VPT
+                              if v * TK.ROW_QUANT_THREADS[0] >= n_vec), None)
+                assert first is None or M * first > TK.ROW_QUANT_MAX_BLOCKS
+    # the H100's best launches (blocks per row, threads) where timed
+    for (M, D), want in {(4, 4096): (2, 256), (4, 14336): (8, 224),
+                         (61, 4096): (2, 256), (61, 14336): (4, 448)}.items():
+        assert tuple(TK.row_quant_plan(M, D, 2)) == want
+    with pytest.raises(ValueError):  # longer than 16 vectors a thread
+        TK.row_quant_plan(61, 16 * 512 * 8 + 8, 2)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("M,D,O", [(4, 256, 512), (61, 128, 256)])
+@pytest.mark.parametrize("M,D,O", [(4, 256, 512), (61, 128, 256),
+                                   (79, 256, 128), (1, 512, 384)])
 def test_weight_only_mm_vs_pallas_interpret(dtype, M, D, O):
-    """``{'q','scale'}``: bf16 activation x dequantized int8 weight, f32
-    sums.  Each product is exact on both sides; only the f32 summation
-    order differs, so float32 outputs agree to 1e-6 relative to the
-    largest output and bfloat16 outputs to one bf16 rounding step (2**-8
-    relative)."""
+    """The weight-only leaf, packed K-major ``{'q_kmajor','scale'}``: bf16
+    activation x dequantized int8 weight, f32 sums, against the Pallas
+    kernel on the JAX (D, O) weight.  Each product is exact on both sides;
+    only the f32 summation order differs, so float32 outputs agree to 1e-6
+    relative to the largest output and bfloat16 outputs to one bf16
+    rounding step (2**-8 relative)."""
     jd, td = DTYPES[dtype]
     y, w, s = _inputs(M, D, O, seed=3 * M + O)
     want = JK.quantized_matmul(jnp.asarray(y).astype(jd), jnp.asarray(w),
                                jnp.asarray(s), tile_o=128, interpret=True)
-    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
-                               "scale": torch.from_numpy(s)})
+    got = TQ.mm(_port(y, td), _packed(w, s, "scale"))
     assert got.dtype == td
     g, r = _as_f32(got), _as_f32(want)
     rel = 1e-6 if dtype == "float32" else 2.0 ** -8
     assert np.abs(g - r).max() <= rel * np.abs(r).max(), np.abs(g - r).max()
+
+
+def test_weight_only_leaf_packs_k_major_and_mm_refuses_it_unpacked():
+    rng = np.random.RandomState(2)
+    w = rng.randint(-127, 128, (2, 64, 48)).astype(np.int8)  # stacked
+    s = rng.rand(2, 48).astype(np.float32)
+    leaf = {"q": torch.from_numpy(w), "scale": torch.from_numpy(s)}
+    packed = TQ.pack_kmajor(leaf)
+    assert set(packed) == {TQ.KMAJOR, "scale"}
+    assert tuple(packed[TQ.KMAJOR].shape) == (2, 48, 64)
+    assert packed[TQ.KMAJOR].is_contiguous()
+    back = TQ.unpack_kmajor(packed)
+    assert set(back) == {"q", "scale"}
+    np.testing.assert_array_equal(back["q"].numpy(), w)
+    np.testing.assert_array_equal(back["scale"].numpy(), s)
+    y = torch.from_numpy(rng.randn(3, 64).astype(np.float32))
+    with pytest.raises(ValueError, match="pack_kmajor"):
+        TQ.mm(y, {k: v[0] for k, v in leaf.items()})
+    got = TQ.mm(y, {k: v[0] for k, v in packed.items()})
+    want = TK.w8_bf16_gemm_plain(y, leaf["q"][0].T.contiguous(),
+                                 leaf["scale"][0])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_gemm_plan_holds_a_weight_only_call_in_one_row_tile(sms):
+    """``w8_bf16_gemm`` takes ``gemm_plan``'s grid: at the beam step's and
+    the prefill's M (1, 4, 61, 79) one row tile holds every row, so the
+    weight crosses memory once, and the splits cover D once."""
+    for D, O in FLAGSHIP_DO[:4] + TINY_DO:
+        for M in (1, 4, 61, 79):
+            p = TK.gemm_plan(M, D, O, sms)
+            assert p.n_mtiles == 1 and p.rows >= M, (M, D, O, p)
+            bounds = [min(D, i * p.k_split) for i in range(p.n_split + 1)]
+            assert bounds[0] == 0 and bounds[-1] == D
+            assert all(a < b for a, b in zip(bounds, bounds[1:]))
+
+
+def _mixed_leaves(D, O, seed, dtype=torch.float32):
+    """One leaf of each layout ``mm`` takes, all (D, O)-shaped; the float
+    leaves in ``dtype``."""
+    rng = np.random.RandomState(seed)
+    w = rng.randint(-127, 128, (D, O)).astype(np.int8)
+    s = (rng.rand(O) * 1e-2 + 1e-4).astype(np.float32)
+    sg = (rng.rand(D // 32, O) * 1e-2 + 1e-4).astype(np.float32)
+    sg64 = (rng.rand(D // 64, O) * 1e-2 + 1e-4).astype(np.float32)
+    f = (rng.randn(D, O) / np.sqrt(D)).astype(np.float32)
+    a = rng.randn(D, 8).astype(np.float32)
+    b = rng.randn(8, O).astype(np.float32)
+    t = torch.from_numpy
+    return {
+        "w8a8": _packed(w, s),
+        "w8a8_other": _packed(w[:, ::-1].copy(), s[::-1].copy()),
+        "grouped32": {"q": t(w), "scale_a8": t(sg)},
+        "grouped64": {"q": t(w), "scale_a8": t(sg64)},
+        "weight_only": _packed(w, s, "scale"),
+        "float": t(f).to(dtype),
+        "lowrank": {"a": t(a).to(dtype), "b": t(b).to(dtype)},
+    }
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("kinds", [
+    ("w8a8", "w8a8_other", "w8a8"),
+    ("grouped32", "grouped32"),
+    ("weight_only", "weight_only"),
+    ("float", "float"),
+    ("w8a8", "grouped32", "weight_only", "float", "lowrank", "grouped64",
+     "w8a8_other", "grouped32"),
+], ids=["per_channel", "grouped", "weight_only", "float", "mixed"])
+def test_mm_many_bitwise_equals_separate_mm(dtype, kinds):
+    _, td = DTYPES[dtype]
+    leaves = _mixed_leaves(128, 96, seed=len(kinds), dtype=td)
+    y = _port(np.random.RandomState(9).randn(2, 3, 128).astype(np.float32)
+              * 2.0, td)
+    ws = [leaves[k] for k in kinds]
+    got = TQ.mm_many(y, ws)
+    assert isinstance(got, tuple) and len(got) == len(ws)
+    for g, w in zip(got, ws):
+        want = TQ.mm(y, w)
+        assert g.dtype == want.dtype and tuple(g.shape) == (2, 3, 96)
+        np.testing.assert_array_equal(_as_f32(g), _as_f32(want))
+
+
+def test_mm_many_quantizes_each_layout_once(monkeypatch):
+    calls = {"row": 0, "group": []}
+
+    def row(y):
+        calls["row"] += 1
+        return TK.row_quant_int8(y)
+
+    def group(y, gs):
+        calls["group"].append(gs)
+        return TK.group_quant_int8(y, gs)
+
+    monkeypatch.setattr(TQ, "row_quant_int8", row)
+    monkeypatch.setattr(TQ, "group_quant_int8", group)
+    leaves = _mixed_leaves(128, 96, seed=0)
+    y = torch.from_numpy(np.random.RandomState(1).randn(4, 128).astype(
+        np.float32))
+    TQ.mm_many(y, [leaves[k] for k in ("w8a8", "grouped32", "w8a8_other",
+                                       "weight_only", "grouped64",
+                                       "grouped32")])
+    assert calls == {"row": 1, "group": [32, 64]}
 
 
 def test_lowrank_and_plain_leaves():
@@ -283,8 +414,7 @@ def test_launch_counters_stay_zero_on_cpu():
     TA.reset_launch_counts()
     y, w, s = _inputs(4, 64, 32, seed=0)
     TQ.mm(torch.from_numpy(y), _packed(w, s))
-    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
-                                "scale": torch.from_numpy(s)})
+    TQ.mm(torch.from_numpy(y), _packed(w, s, "scale"))
     TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
                                 "scale_a8": torch.ones((2, 32))})
     q = torch.ones((2, 4, 16))
@@ -297,4 +427,6 @@ def test_launch_counters_stay_zero_on_cpu():
     }
     assert TA.launch_counts == {"decode_attention": 0}
     assert TK.internal_counts == {"w8a8_gemm_split_k": 0,
-                                  "counter_zeroing": 0}
+                                  "w8_bf16_gemm_split_k": 0,
+                                  "counter_zeroing": 0,
+                                  "w8_bf16_gemm_f32_cast": 0}

@@ -17,6 +17,7 @@ from infinisst_tpu.models import llama as JL
 from infinisst_tpu.streaming.state import DecoderState as JDS
 from infinisst_tpu_torch.convert.from_jax import from_jax
 from infinisst_tpu_torch.models import llama as TL
+from infinisst_tpu_torch.models import quant as TQ
 from infinisst_tpu_torch.streaming.state import DecoderState as TDS
 
 torch.set_num_threads(1)
@@ -135,6 +136,46 @@ def test_beam_token_step(kind, gen_len):
     _close(gkt.numpy(), gkj, TOL[kind])
     _close(gvt.numpy(), gvj, TOL[kind])
     assert idx.tolist() == [-1] * beam
+
+
+@pytest.mark.parametrize("group_size", [0, 32], ids=["w8a8", "grouped"])
+def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
+    """q/k/v and gate/up share their input, so a forward quantizes 4
+    activations per layer and the lm_head's: ``row_quant_int8`` 4L + 1
+    times with per-channel W8A8 leaves; ``group_quant_int8`` 4L times
+    (and ``row_quant_int8`` once, for the per-channel head) with grouped
+    projections.  The GEMMs still run once per projection."""
+    calls = {"row_quant_int8": 0, "group_quant_int8": 0, "w8a8_gemm": 0,
+             "w8a8_grouped_gemm": 0}
+    for name in calls:
+        fn = getattr(TQ, name)
+
+        def counted(*args, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(TQ, name, counted)
+    p = TQ.init_quantized_llama(
+        CFG, torch.Generator().manual_seed(0), device="cpu",
+        embed_dtype=torch.float32, act_int8=True, lm_head_int8=True,
+        group_size=group_size)
+    L = CFG.num_layers
+    want = ({"row_quant_int8": 1, "group_quant_int8": 4 * L, "w8a8_gemm": 1,
+             "w8a8_grouped_gemm": 7 * L} if group_size else
+            {"row_quant_int8": 4 * L + 1, "group_quant_int8": 0,
+             "w8a8_gemm": 7 * L + 1, "w8a8_grouped_gemm": 0})
+    rng = np.random.RandomState(8)
+    _, ts = _state(2, [7, 3])
+    TL.decode_step(p, CFG, ts, torch.from_numpy(
+        rng.randn(2, 5, CFG.hidden_size).astype(np.float32)))
+    assert calls == want
+    calls.update((k, 0) for k in calls)
+    _, ts = _state(1, [11], seed=3)
+    gshape = (L, 3, 4, CFG.num_kv_heads, CFG.head_dim)
+    TL.beam_token_step(
+        p, CFG, ts, torch.zeros(gshape), torch.zeros(gshape), 2,
+        torch.from_numpy(rng.randn(3, 1, CFG.hidden_size).astype(np.float32)))
+    assert calls == want
 
 
 @pytest.mark.parametrize("sys_len", [0, 4])

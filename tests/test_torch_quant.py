@@ -59,15 +59,17 @@ def test_quantize_llama_params_bitwise(kw):
     tp = from_jax(jax.device_get(jp), device="cpu")
     want = JQ.quantize_llama_params(jp, **kw)
     got = TQ.quantize_llama_params(tp, **kw)
-    # per-channel W8A8 leaves come out packed K-major; compared unpacked
-    packed = kw.get("act_int8") and not kw.get("group_size")
+    # per-channel leaves (weight-only and W8A8) come out packed K-major;
+    # compared unpacked
+    packed = not kw.get("group_size")
     for k in TQ.QUANT_KEYS:
         g = got["layers"][k]
         if packed:
-            assert set(g) == {TQ.KMAJOR, "scale_a8"}, k
+            scale = "scale_a8" if kw["act_int8"] else "scale"
+            assert set(g) == {TQ.KMAJOR, scale}, k
             assert tuple(g[TQ.KMAJOR].shape) == tuple(
                 np.swapaxes(want["layers"][k]["q"], -1, -2).shape)
-            g = TQ.unpack_w8a8(g)
+            g = TQ.unpack_kmajor(g)
         assert set(g) == set(want["layers"][k]), k
         for leaf, t in g.items():
             _eq(t, want["layers"][k][leaf])
@@ -76,7 +78,7 @@ def test_quantize_llama_params_bitwise(kw):
         if not kw.get("head_group_size"):
             assert set(head) == {TQ.KMAJOR, "scale_a8"}
             assert not head[TQ.KMAJOR][500:].any()  # the padding is zero
-            head = TQ.unpack_w8a8(head)
+            head = TQ.unpack_kmajor(head)
         for leaf in ("q", "scale_a8"):
             _eq(head[leaf], want["lm_head"][leaf])
         assert head["q"].shape[-1] == 512
@@ -113,6 +115,32 @@ def test_init_quantized_llama_grouped_layout_matches_jax(hgs):
     with pytest.raises(ValueError):
         TQ.init_quantized_llama(LlamaConfig(**WIDE), torch.Generator(),
                                 device="cpu", group_size=128)
+
+
+@pytest.mark.parametrize("act_int8", [False, True], ids=["w8", "w8a8"])
+def test_init_quantized_llama_packs_per_channel_leaves_after_the_draw(
+        act_int8):
+    """Per-channel leaves come out K-major {'q_kmajor', scale}, the
+    transpose of JAX's (in, out) shapes, drawn in the (in, out) layout
+    first: wq, the first draw, is the transpose of the same generator's
+    first (L, in, out) draw."""
+    cfg = LlamaConfig(**WIDE)
+    want = JQ.init_quantized_llama(jax.random.PRNGKey(0), cfg,
+                                   act_int8=act_int8)
+    got = TQ.init_quantized_llama(cfg, torch.Generator().manual_seed(5),
+                                  device="cpu", act_int8=act_int8)
+    scale = "scale_a8" if act_int8 else "scale"
+    for k in TQ.QUANT_KEYS:
+        g, w = got["layers"][k], want["layers"][k]
+        assert set(g) == {TQ.KMAJOR, scale} and set(w) == {"q", scale}, k
+        assert tuple(g[TQ.KMAJOR].shape) == np.swapaxes(w["q"], -1, -2).shape
+        assert g[TQ.KMAJOR].dtype == torch.int8
+        assert g[TQ.KMAJOR].is_contiguous()
+        _eq(g[scale], w[scale])
+    first = torch.randint(-127, 128, (2, 256, 256),
+                          generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int8)
+    _eq(got["layers"]["wq"][TQ.KMAJOR], first.transpose(-1, -2).numpy())
 
 
 def test_from_jax_pads_a_grouped_w8a8_head():
