@@ -11,14 +11,18 @@ Phases (any failure exits non-zero; no phase carries on past its own):
   3. kernels  -- each kernel against its plain PyTorch version on the card
                  at every main-path shape: row_quant_int8, w8a8_gemm (on
                  its K-major (O, D) weight, in bf16 and float32),
-                 group_quant_int8 and w8a8_grouped_gemm bitwise,
-                 w8_bf16_gemm (on the same K-major weight) within
+                 group_quant_int8 and w8a8_grouped_gemm (on the same
+                 K-major weight; also at other group sizes, split and
+                 not, GROUPED_EXTRA) bitwise, w8_bf16_gemm (on the same
+                 K-major weight) within
                  W8_BF16_RTOL * max|plain| in bf16 and 1e-5 * max|plain|
                  in float32; kernel, plain and library times (median of 5
                  timed replays, with the kernel's min-max) and the bound;
                  the split-K plan both tensor-core GEMMs take beside their
-                 times (one row tile at every M); row_quant_int8 beside an
-                 empty kernel of its launch geometry (the launch floor).
+                 times (one row tile at every M), the grouped GEMM's plan
+                 and w8a8_gemm's time on the same bytes beside its own;
+                 row_quant_int8 and group_quant_int8 beside an empty
+                 kernel of their launch geometry (the launch floor).
                  The library yardsticks,
                  timed here and never called by the port: torch._int_mm
                  (the int32 product alone, M > 16 only, with the kernel /
@@ -50,9 +54,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  projections through w8_bf16_gemm, then one chunk under
                  torch.profiler.
   8. group128 -- three chunks of the 8B model as ``bench.py --group128``
-                 makes it: grouped (128-wide) W8A8 projections through
-                 w8a8_grouped_gemm (group_quant_int8 4L per forward),
-                 per-channel W8A8 lm_head.
+                 makes it: grouped (128-wide) W8A8 projections, packed
+                 K-major, through w8a8_grouped_gemm (group_quant_int8 4L
+                 per forward), per-channel W8A8 lm_head; then one chunk
+                 under torch.profiler.
   9. one JSON ``kernels`` line, then the card line, then the result line.
 
 Weights are random, made on the card from seeded torch.Generators.
@@ -88,7 +93,7 @@ W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
 # a bf16 output may round one bf16 step (<= 2**-7 of its value) apart;
 # float32 outputs and the f32 lse agree to 1e-5
 ATT_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
-SOURCES = ("quant_matmul", "decode_attention")
+SOURCES = ("quant_matmul", "grouped_matmul", "decode_attention")
 # tiny prefill logits, card against CPU, as a share of max|logits|: the
 # card sums float32 in another order (readings on the H100: 2.6e-6 with
 # float32 weights, 1.3e-6 with W8A8); TF32 is off (see main)
@@ -202,13 +207,15 @@ class Notes:
     def note(self, name, shape, err, ms, plain_ms, lib_ms, bms, by,
              label=None, floor_ms=None):
         """``ms``, ``plain_ms``, ``lib_ms`` and ``floor_ms`` (an empty
-        kernel's launch, where given) are cuda_time_ms lists (or None for
-        no library call); the medians are kept."""
+        kernel's launch, where given) are cuda_time_ms lists (or None: no
+        library call, or the plain version not timed at this shape); the
+        medians are kept."""
         med = statistics.median
         lib = None if lib_ms is None else med(lib_ms)
+        plain = None if plain_ms is None else med(plain_ms)
         r = self.rows.setdefault(name, {"err": 0.0, "shapes": {}})
         r["err"] = max(r["err"], err)
-        r["shapes"][shape] = dict(ms=med(ms), plain_ms=med(plain_ms),
+        r["shapes"][shape] = dict(ms=med(ms), plain_ms=plain,
                                   library_ms=lib, bound_ms=bms, bound_by=by)
         floor = ""
         if floor_ms is not None:
@@ -216,16 +223,42 @@ class Notes:
             floor = (f" launch_floor_ms={med(floor_ms):.5f} (kernel / floor "
                      f"{med(ms) / med(floor_ms):.3f})")
         lib = "null" if lib is None else f"{lib:.5f}"
+        plain = "not_timed" if plain is None else f"{plain:.5f}"
         label = label or (f"M={shape[0]:3d} D={shape[1]:5d} "
                           f"O={shape[2]:6d}")
         print(f"  {name:17s} {label} max_abs_err={err:.3e} ms={med(ms):.5f} "
-              f"[{ms[0]:.5f}-{ms[-1]:.5f}] plain_ms={med(plain_ms):.5f} "
+              f"[{ms[0]:.5f}-{ms[-1]:.5f}] plain_ms={plain} "
               f"library_ms={lib} bound_ms={bms:.5f} ({by}){floor}",
               flush=True)
 
 
 # ---------------------------------------------------------------------------
 # phase 3
+
+# (M, D, O, gs) checked besides the main-path shapes, in bf16 and float32:
+# split-K (M <= gs / 32) and not, gs 32, 64 and 96, O not a multiple of 128
+GROUPED_EXTRA = [(3, 256, 200, 32), (1, 4096, 1024, 32), (2, 4096, 4096, 64),
+                 (79, 4096, 1024, 64), (1, 3072, 512, 96), (61, 768, 256, 96)]
+
+
+def check_grouped(K, y, w_t, sg, gs, label, out_dtypes):
+    """group_quant_int8 and w8a8_grouped_gemm (on the K-major weight w_t,
+    with each of ``out_dtypes`` out) bitwise against their plain
+    versions."""
+    import torch
+
+    gq, gs_ = K.group_quant_int8(y, gs)
+    pq, ps = K.group_quant_int8_plain(y, gs)
+    if not (torch.equal(gq, pq) and torch.equal(gs_, ps)):
+        fail(f"group_quant_int8 differs from its plain version at {label}")
+    for dt in out_dtypes:
+        out = K.w8a8_grouped_gemm(gq, gs_, w_t, sg, dt)
+        ref = K.w8a8_grouped_gemm_plain(gq, gs_, w_t, sg, dt)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            err = (out.float() - ref.float()).abs().max().item()
+            fail(f"w8a8_grouped_gemm differs from its plain version at "
+                 f"{label} {dt}: max_abs_err={err}")
 
 
 def check_kernels(dev, notes):
@@ -253,7 +286,6 @@ def check_kernels(dev, notes):
         for M in TABLE_M:
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
                  ).to(torch.bfloat16)
-            w = ws[0]
             # row_quant_int8 (one D per row count; time at O's first visit)
             yq, ys = K.row_quant_int8(y)
             pq, ps = K.row_quant_int8_plain(y)
@@ -341,39 +373,45 @@ def check_kernels(dev, notes):
                 fail(f"w8_bf16_gemm at M={M} takes {plan.n_mtiles} row "
                      "tiles: the weight would cross memory more than once")
 
-            # the grouped pair (the lm_head only under --group-head)
+            # the grouped pair on the same K-major weight (the lm_head
+            # shape only under --group-head)
+            w8_ms = notes.rows["w8a8_gemm"]["shapes"][(M, D, O)]["ms"]
+            check_grouped(K, y, wts[0], sg, GROUP, f"M={M} D={D} O={O}",
+                          (torch.bfloat16,))
             gq, gs_ = K.group_quant_int8(y, GROUP)
-            pq, ps = K.group_quant_int8_plain(y, GROUP)
-            if not (torch.equal(gq, pq) and torch.equal(gs_, ps)):
-                fail(f"group_quant_int8 differs from its plain version at "
-                     f"M={M} D={D}")
-            out = K.w8a8_grouped_gemm(gq, gs_, w, sg, torch.bfloat16)
-            ref = K.w8a8_grouped_gemm_plain(gq, gs_, w, sg, torch.bfloat16)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                err = (out.float() - ref.float()).abs().max().item()
-                fail(f"w8a8_grouped_gemm differs from its plain version at "
-                     f"M={M} D={D} O={O} G={G}: max_abs_err={err}")
-            if M not in (4, 61):
-                continue
             if O == TABLE_DO[0][1] or D == 14336:
                 ms = cuda_time_ms(lambda i: K.group_quant_int8(y, GROUP), 50)
                 pms = cuda_time_ms(
                     lambda i: K.group_quant_int8_plain(y, GROUP), 20)
+                # the launch floor: an empty kernel of the same geometry
+                qp = K.group_quant_plan(M, D, G, 2)
+                fms = cuda_time_ms(
+                    lambda i: K.launch_empty(dev, qp.blocks, qp.threads), 50)
                 bms, by = bound_ms(M * D * 2 + M * D + M * G * 4, 0, 1.0)
                 note("group_quant_int8", (M, D, 0), 0.0, ms, pms, None, bms,
-                     by)
+                     by, floor_ms=fms)
+                print(f"  {'':17s} plan: {qp.lanes} lanes a group, "
+                      f"{qp.blocks} blocks of {qp.threads} threads",
+                      flush=True)
             ms = cuda_time_ms(
-                lambda i: K.w8a8_grouped_gemm(gq, gs_, ws[i % n_w], sg,
+                lambda i: K.w8a8_grouped_gemm(gq, gs_, wts[i % n_w], sg,
                                               torch.bfloat16), 20)
-            pms = cuda_time_ms(
-                lambda i: K.w8a8_grouped_gemm_plain(gq, gs_, ws[i % n_w], sg,
-                                                    torch.bfloat16), 1,
-                warmup=1,
-            )
+            pms = None  # the plain version is slow: timed at M = 4, 61
+            if M in (4, 61):
+                pms = cuda_time_ms(
+                    lambda i: K.w8a8_grouped_gemm_plain(
+                        gq, gs_, wts[i % n_w], sg, torch.bfloat16), 1,
+                    warmup=1)
             bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4
                                + M * O * 2, 2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_grouped_gemm", (M, D, O), 0.0, ms, pms, None, bms, by)
+            gp = K.grouped_gemm_plan(M, D, O, G, sms)
+            print(f"  {'':17s} plan: {gp.rows} rows x {gp.tile_o} channels "
+                  f"a tile, {gp.n_split} split(s) of {gp.k_split // GROUP} "
+                  f"groups, {gp.n_mtiles * gp.n_otiles * gp.n_split} blocks; "
+                  f"w8a8_gemm on the same bytes {w8_ms:.5f} ms (grouped / "
+                  f"w8a8_gemm {statistics.median(ms) / w8_ms:.3f})",
+                  flush=True)
         del ws, wts
         torch.cuda.empty_cache()
 
@@ -391,14 +429,17 @@ def check_kernels(dev, notes):
                        K.w8a8_gemm_plain(yq, ys, wt, s, torch.float32)):
         fail("w8a8_gemm differs from its plain version in float32")
     sg = torch.rand((4096 // GROUP, 1024), generator=gen, device=dev) * 1e-3
-    gq, gs_ = K.group_quant_int8(y, GROUP)
-    pq, ps = K.group_quant_int8_plain(y, GROUP)
-    if not (torch.equal(gq, pq) and torch.equal(gs_, ps)):
-        fail("group_quant_int8 differs from its plain version in float32")
-    if not torch.equal(K.w8a8_grouped_gemm(gq, gs_, w, sg, torch.float32),
-                       K.w8a8_grouped_gemm_plain(gq, gs_, w, sg,
-                                                 torch.float32)):
-        fail("w8a8_grouped_gemm differs from its plain version in float32")
+    check_grouped(K, y, wt, sg, GROUP, "float32", (torch.float32,))
+    # other group sizes (whole 32-byte MMA runs: 32, 64, and 96, whose
+    # groups straddle the 128-byte stages), ragged O and M, split and not
+    for M, D, O, gs in GROUPED_EXTRA:
+        w = torch.randint(-127, 128, (O, D), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sg = torch.rand((D // gs, O), generator=gen, device=dev) * 1e-3
+        for dt in (torch.bfloat16, torch.float32):
+            y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(dt)
+            check_grouped(K, y, w, sg, gs, f"M={M} D={D} O={O} gs={gs} {dt}",
+                          {dt, torch.float32})
     print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions (w8_bf16_gemm at every shape above)", flush=True)
 
@@ -1016,11 +1057,13 @@ def main():
           "(bring-up reading)", flush=True)
     for name in ("w8a8_grouped_gemm", "group_quant_int8"):
         paths[name] = ("group128 stream", c)
-    del params
+    profile_chunk(dev, r, label="g128 profile")
+    del params, r
     torch.cuda.empty_cache()
 
     # 9. the kernels line
     q_src = "infinisst_tpu_torch/csrc/quant_matmul.cu"
+    g_src = "infinisst_tpu_torch/csrc/grouped_matmul.cu"
     kernels = {  # name -> (source, TPU kernel replaced, reported shape)
         "row_quant_int8": (q_src, "infinisst_tpu/kernels/quant_matmul.py:106",
                            (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
@@ -1029,10 +1072,10 @@ def main():
         "w8_bf16_gemm": (q_src, "infinisst_tpu/kernels/quant_matmul.py:26",
                          REPORT_SHAPE),
         "group_quant_int8": (
-            q_src, "infinisst_tpu/kernels/quant_matmul.py:226",
+            g_src, "infinisst_tpu/kernels/quant_matmul.py:226",
             (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
         "w8a8_grouped_gemm": (
-            q_src, "infinisst_tpu/kernels/quant_matmul.py:191", REPORT_SHAPE),
+            g_src, "infinisst_tpu/kernels/quant_matmul.py:191", REPORT_SHAPE),
         "decode_attention": (
             "infinisst_tpu_torch/csrc/decode_attention.cu",
             "infinisst_tpu/kernels/decode_attention.py:57",

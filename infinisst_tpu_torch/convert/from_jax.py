@@ -2,15 +2,14 @@
 ``jax.device_get``), into the port's tensors.
 
 The layout is kept: (in, out) matrices stay (in, out), layer stacks stay
-stacked, grouped ``{'q','scale_a8'}`` leaves become int8 plus float32
-scales, ``{'a','b'}`` low-rank leaves stay factor pairs.  One exception:
-a per-out-channel leaf, weight-only ``{'q' (..., in, out), 'scale' (...,
-out)}`` or W8A8 ``{'q', 'scale_a8' (..., out)}``, is packed K-major into
-``{'q_kmajor' (..., out, in), same scale}`` (as ``models/quant.
-pack_kmajor`` packs it), on the host, before it reaches the device.  A
-W8A8 lm_head (per-channel or grouped scales) narrower than a multiple of
-512 columns is first padded with zero weights and zero scales, as
-``quant.py`` pads it.
+stacked, ``{'a','b'}`` low-rank leaves stay factor pairs.  One exception:
+an int8 leaf, weight-only ``{'q' (..., in, out), 'scale' (..., out)}`` or
+W8A8 ``{'q', 'scale_a8'}`` with per-channel (..., out) or grouped (...,
+G, out) scales, is packed K-major into ``{'q_kmajor' (..., out, in), the
+same float32 scale}`` (as ``models/quant.pack_kmajor`` packs it), on the
+host, before it reaches the device.  A W8A8 lm_head (per-channel or
+grouped scales) narrower than a multiple of 512 columns is first padded
+with zero weights and zero scales, as ``quant.py`` pads it.
 """
 
 from __future__ import annotations
@@ -46,9 +45,7 @@ def _convert(tree, device, dtype):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k == "q":
-                out[k] = _tensor(np.asarray(v).astype(np.int8), device, None)
-            elif k in ("scale", "scale_a8"):
+            if k in ("scale", "scale_a8"):
                 out[k] = _tensor(np.asarray(v, np.float32), device, None)
             else:
                 out[k] = _convert(v, device, dtype)

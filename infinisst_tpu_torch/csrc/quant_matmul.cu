@@ -8,9 +8,9 @@
 //                      quantized_matmul_w8a8 (:117)
 //   w8_bf16_gemm    <- _qmm_kernel (quant_matmul.py:26), the body of
 //                      quantized_matmul (:34)
-//   group_quant_int8   <- quantize_activation_grouped (quant_matmul.py:226)
-//   w8a8_grouped_gemm  <- _qmm_i8_grouped_kernel (quant_matmul.py:191), the
-//                         body of quantized_matmul_w8a8_grouped (:239)
+//
+// The grouped pair (group_quant_int8, w8a8_grouped_gemm) is in
+// grouped_matmul.cu; the helpers both files use, in quant_common.cuh.
 //
 // What bounds them on the H100: at the main path's M (4 beam rows, 61/79
 // prefill rows) the GEMMs are bound by streaming the int8 weight from
@@ -19,8 +19,7 @@
 // bind).  row_quant_int8 reads M*D activations and writes M*D bytes, a
 // few microseconds of work: at M = 4 a launch costs more than the bytes,
 // so it is bound by latency (the launch, one round trip to memory, one
-// reduction).  The grouped pair is bound by bytes too; its weight scales
-// are (G, O) float32, G = D / 128, 3 % of the int8 weight bytes.
+// reduction).
 //
 // w8a8_gemm and w8_bf16_gemm (both redesigned for Hopper) read their
 // weight K-major, (O, D) int8, packed once where the leaves are made
@@ -46,43 +45,10 @@
 // (f32(acc) * ys[m]) * s[o], bitwise that of the plain version, or
 // acc * s[o], which differs from the plain version only by the order of
 // the f32 sums (and is the same from run to run).
-//
-// The grouped GEMM keeps the simple first design: each block computes a
-// TM x 128 output tile; lane l of every warp owns 4 consecutive output
-// columns, so a warp's weight load is 128 contiguous bytes of one weight
-// row (coalesced, JAX (D, O) layout read as is); the block's warps split
-// the reduction axis and meet in shared memory; the TM activation rows are
-// staged in shared memory.  The ragged M and O edges are masked in the
-// kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "quant_common.cuh"
 
 namespace {
-
-constexpr int kTM = 4;          // output rows per block
-constexpr int kCols = 4;        // output columns per lane
-constexpr int kWarps = 8;       // warps per block, split along D
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTO = 32 * kCols;  // output columns per block
-
-__device__ __forceinline__ float load_f32(const void* p, int is_bf16,
-                                          int64_t i) {
-  if (is_bf16) {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
-  }
-  return reinterpret_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_out(void* p, int is_bf16, int64_t i,
-                                          float v) {
-  if (is_bf16) {
-    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  } else {
-    reinterpret_cast<float*>(p)[i] = v;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // row_quant_int8 (one pass): s = max(amax / 127, 1e-8);
@@ -102,29 +68,6 @@ __device__ __forceinline__ void store_out(void* p, int is_bf16, int64_t i,
 // thread stores 8 (bf16) or 4 (f32) int8 values at a time.  Requires
 // D % (16 / sizeof(elem)) == 0 and 16-byte aligned rows (checked by the
 // wrapper).
-
-__device__ __forceinline__ int pack_int8x4(float a, float b, float c,
-                                           float d) {
-  auto q = [](float v) {
-    return static_cast<unsigned>(
-               __float2int_rn(fminf(fmaxf(rintf(v), -127.f), 127.f))) &
-           0xffu;
-  };
-  return static_cast<int>(q(a) | (q(b) << 8) | (q(c) << 16) | (q(d) << 24));
-}
-
-// value e of a 16-byte vector held as 4 words: a bf16 is the upper half of
-// the f32 with the same value
-template <bool BF16>
-__device__ __forceinline__ float vec_value(const int4& r, int e) {
-  const unsigned w[4] = {static_cast<unsigned>(r.x), static_cast<unsigned>(r.y),
-                         static_cast<unsigned>(r.z), static_cast<unsigned>(r.w)};
-  if constexpr (BF16) {
-    return __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
-  } else {
-    return __uint_as_float(w[e]);
-  }
-}
 
 // Grid (VPT, M): block (c, row).
 template <int VPT, bool BF16>
@@ -185,79 +128,11 @@ __global__ void row_quant_int8_kernel(const void* __restrict__ y,
 // launch geometry as the kernel it is held against.
 __global__ void empty_kernel() {}
 
-// Gather byte j of each of r0..r3 into one word: the 4 consecutive-k int8
-// weights of output column j, in the byte order __dp4a pairs with y.
-__device__ __forceinline__ void transpose4(int r0, int r1, int r2, int r3,
-                                           int c[4]) {
-  const int lo01 = __byte_perm(r0, r1, 0x5140);
-  const int hi01 = __byte_perm(r0, r1, 0x7362);
-  const int lo23 = __byte_perm(r2, r3, 0x5140);
-  const int hi23 = __byte_perm(r2, r3, 0x7362);
-  c[0] = __byte_perm(lo01, lo23, 0x5410);
-  c[1] = __byte_perm(lo01, lo23, 0x7632);
-  c[2] = __byte_perm(hi01, hi23, 0x5410);
-  c[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // ---------------------------------------------------------------------------
 // w8a8_gemm: out[m, o] = (f32(sum_k yq[m,k] * wt[o,k]) * ys[m]) * s[o], with
 // the weight K-major (O, D).  int8 x int8 products accumulate exactly in
 // int32 on the tensor cores (mma.sync m16n8k32).  Requires D % 16 == 0
 // (checked by the wrapper); ragged M and O edges are zero-filled and masked.
-
-namespace tc {
-
-constexpr int kTK = 128;       // bytes of D per pipeline stage
-constexpr int kStages = 4;     // depth of the cp.async ring
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMTiles = 2;     // m16 tiles of output channels per warp
-constexpr int kWarpO = 16 * kMTiles;
-constexpr int kTO = kWarps * kWarpO;  // output channels per block
-
-}  // namespace tc
-
-// ``prefetch``: also bring the rest of the source's 256-byte L2 block in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid, bool prefetch = false) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  if (prefetch) {
-    asm volatile(
-        "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(d),
-        "l"(src), "r"(n)
-        : "memory");
-  } else {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
-                                       int a3, int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Byte offset of 16-byte chunk c of row r in a stage of 128-byte rows.
-// Odd rows swap their 64-byte halves, so the 8 lanes of a quarter warp
-// (rows g, g + 1, chunks t) read 8 distinct bank groups.
-__device__ __forceinline__ int chunk_at(int r, int c) {
-  return r * tc::kTK + ((c ^ ((r & 1) << 2)) << 4);
-}
 
 // Split-K across blocks.  Every block stores its partial sums (plain
 // stores into ws: one T per (tile, split, register, thread)); the last
@@ -622,181 +497,6 @@ w8_bf16_gemm_tc_kernel(const __nv_bfloat16* __restrict__ y,
   }
 }
 
-// ---------------------------------------------------------------------------
-// group_quant_int8: one warp per (row, group) of gs = D / G elements.
-// s = max(amax / 127, 1e-8); q = clamp(rint(y / s), -127, 127), as
-// quantize_activation_grouped computes it (IEEE division, half to even).
-
-__global__ void group_quant_int8_kernel(const void* __restrict__ y, int y_bf16,
-                                        int8_t* __restrict__ yq,
-                                        float* __restrict__ ys, int M, int D,
-                                        int G) {
-  const int64_t gw = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (gw >= (int64_t)M * G) return;  // whole warps leave together
-  const int gs = D / G;
-  const int64_t m = gw / G, g = gw % G;
-  const int64_t base = m * D + g * gs;
-  float amax = 0.f;
-  for (int i = lane; i < gs; i += 32) {
-    amax = fmaxf(amax, fabsf(load_f32(y, y_bf16, base + i)));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  const float s = fmaxf(amax / 127.0f, 1e-8f);
-  for (int i = lane; i < gs; i += 32) {
-    float q = rintf(load_f32(y, y_bf16, base + i) / s);
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    yq[base + i] = static_cast<int8_t>(q);
-  }
-  if (lane == 0) ys[gw] = s;
-}
-
-// ---------------------------------------------------------------------------
-// w8a8_grouped_gemm: for g in order, o = fma(f32(acc_g[m, o]) * ys[m, g],
-// s[g, o], o) in f32 from 0, then cast, with acc_g the exact int32 dot of
-// group g (|acc_g| <= 128 * 127^2 < 2^24 at gs = 128, so f32(acc_g) is
-// exact): the arithmetic of _qmm_i8_grouped_kernel's o += acc * ys * s as
-// XLA compiles it (one fused multiply-add).  The tile and weight reads are
-// those of w8a8_gemm; the warps take whole groups, kWarps groups at a
-// time, and park f32(acc_g) * ys_g in shared memory, where each output's
-// owner thread folds them in g order.  __fmul_rn / __fmaf_rn pin the
-// roundings.  Requires gs % 4 == 0 and O % 4 == 0 (checked by the
-// wrapper).
-
-constexpr int kOutPerThread = kTM * kTO / kThreads;
-
-__global__ void __launch_bounds__(kThreads)
-w8a8_grouped_gemm_kernel(const int8_t* __restrict__ yq,
-                         const float* __restrict__ ys,
-                         const int8_t* __restrict__ w,
-                         const float* __restrict__ s, void* __restrict__ out,
-                         int out_bf16, int M, int D, int O, int G) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* ysh = reinterpret_cast<int8_t*>(smem);  // (kTM, D)
-  float* part = reinterpret_cast<float*>(
-      smem + ((kTM * D + 15) / 16) * 16);  // (kWarps, kTM, kTO)
-
-  const int gs = D / G;
-  const int m0 = blockIdx.y * kTM;
-  const int o0 = blockIdx.x * kTO;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kTM * D / 4; i += kThreads) {
-    const int m = (i * 4) / D, k = (i * 4) % D;
-    int v = 0;
-    if (m0 + m < M) {
-      v = *reinterpret_cast<const int*>(yq + (int64_t)(m0 + m) * D + k);
-    }
-    *reinterpret_cast<int*>(ysh + m * D + k) = v;
-  }
-  __syncthreads();
-
-  const int o = o0 + lane * kCols;
-  const bool col_ok = o < O;
-  float res[kOutPerThread];
-#pragma unroll
-  for (int t = 0; t < kOutPerThread; ++t) res[t] = 0.f;
-
-  for (int gb = 0; gb < G; gb += kWarps) {
-    const int g = gb + warp;
-    if (g < G) {
-      int acc[kTM][kCols];
-#pragma unroll
-      for (int m = 0; m < kTM; ++m)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[m][j] = 0;
-      if (col_ok) {
-        const int8_t* wp = w + o;
-        for (int k = g * gs; k < (g + 1) * gs; k += 4) {
-          const int r0 = *reinterpret_cast<const int*>(wp + (int64_t)k * O);
-          const int r1 =
-              *reinterpret_cast<const int*>(wp + (int64_t)(k + 1) * O);
-          const int r2 =
-              *reinterpret_cast<const int*>(wp + (int64_t)(k + 2) * O);
-          const int r3 =
-              *reinterpret_cast<const int*>(wp + (int64_t)(k + 3) * O);
-          int c[4];
-          transpose4(r0, r1, r2, r3, c);
-#pragma unroll
-          for (int m = 0; m < kTM; ++m) {
-            const int a = *reinterpret_cast<const int*>(ysh + m * D + k);
-#pragma unroll
-            for (int j = 0; j < kCols; ++j)
-              acc[m][j] = __dp4a(c[j], a, acc[m][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kTM; ++m) {
-        const float ysv = m0 + m < M ? ys[(int64_t)(m0 + m) * G + g] : 0.f;
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          part[(warp * kTM + m) * kTO + lane * kCols + j] =
-              __fmul_rn(static_cast<float>(acc[m][j]), ysv);
-        }
-      }
-    }
-    __syncthreads();
-    const int nb = min(kWarps, G - gb);
-#pragma unroll
-    for (int t = 0; t < kOutPerThread; ++t) {
-      const int i = threadIdx.x + t * kThreads;
-      const int col = o0 + i % kTO;
-      if (col < O) {
-        for (int wi = 0; wi < nb; ++wi) {
-          res[t] = __fmaf_rn(part[wi * kTM * kTO + i],
-                             s[(int64_t)(gb + wi) * O + col], res[t]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int t = 0; t < kOutPerThread; ++t) {
-    const int i = threadIdx.x + t * kThreads;
-    const int m = i / kTO, col = i % kTO;
-    if (m0 + m < M && o0 + col < O) {
-      store_out(out, out_bf16, (int64_t)(m0 + m) * O + o0 + col, res[t]);
-    }
-  }
-}
-
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
-}
-
-// Set a tensor-core GEMM instance's dynamic shared memory limit, once per
-// instance whatever the size: the kernel's static shared memory counts
-// against the 48 KB default too.
-template <typename Kernel>
-int set_smem_once(Kernel kernel, size_t smem, bool& done) {
-  if (done) return 0;
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-  done = err == 0;
-  return err;
-}
-
-// The launch geometry both tensor-core GEMMs share.  A block that streams
-// long weight rows past few activation rows gains from fetching the next
-// 128 bytes of each row into L2 early; with more rows, or short splits,
-// the extra traffic cost more than it gave (measured on the H100 with
-// w8a8_gemm).
-struct TcGrid {
-  dim3 grid;
-  int prefetch;
-  TcGrid(int NT, int M, int O, int k_split, int n_split)
-      : grid((O + tc::kTO - 1) / tc::kTO, n_split,
-             (M + NT * 8 - 1) / (NT * 8)),
-        prefetch(NT <= 2 && k_split >= 1024) {}
-};
-
 template <int NT>
 int launch_w8a8(const void* yq, const void* ys, const void* wt,
                 const void* s, void* out, int out_bf16, int M, int D, int O,
@@ -944,38 +644,5 @@ int w8_bf16_gemm(const void* y, const void* wt, const void* s, void* out,
 }
 
 #undef TC_GEMM_DISPATCH
-
-int group_quant_int8(const void* y, int y_bf16, void* yq, void* ys, int M,
-                     int D, int G, void* stream) {
-  if (M == 0) return 0;
-  const int64_t warps = (int64_t)M * G;
-  const int blocks = static_cast<int>((warps + kWarps - 1) / kWarps);
-  group_quant_int8_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      y, y_bf16, static_cast<int8_t*>(yq), static_cast<float*>(ys), M, D, G);
-  return static_cast<int>(cudaGetLastError());
-}
-
-size_t w8a8_grouped_gemm_smem(int D) {
-  return ((kTM * (size_t)D + 15) / 16) * 16 +
-         sizeof(float) * kWarps * kTM * kTO;
-}
-
-int w8a8_grouped_gemm(const void* yq, const void* ys, const void* w,
-                      const void* s, void* out, int out_bf16, int M, int D,
-                      int O, int G, void* stream) {
-  if (M == 0 || O == 0) return 0;
-  const size_t smem = w8a8_grouped_gemm_smem(D);
-  int err = set_smem(reinterpret_cast<const void*>(w8a8_grouped_gemm_kernel),
-                     smem);
-  if (err) return err;
-  dim3 grid((O + kTO - 1) / kTO, (M + kTM - 1) / kTM);
-  w8a8_grouped_gemm_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(yq), static_cast<const float*>(ys),
-      static_cast<const int8_t*>(w), static_cast<const float*>(s), out,
-      out_bf16, M, D, O, G);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // extern "C"

@@ -33,6 +33,7 @@ def load_library(name: str) -> ctypes.CDLL:
         sources=[os.path.join(CSRC_DIR, f"{name}.cu")],
         build_directory=build_dir,
         extra_cuda_cflags=CUDA_FLAGS,
+        extra_include_paths=[CSRC_DIR],
         is_python_module=False,
     )
     lib = ctypes.CDLL(os.path.join(build_dir, f"infinisst_{name}.so"))

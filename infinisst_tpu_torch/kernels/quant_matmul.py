@@ -1,7 +1,9 @@
 """Int8 matmul kernels for Hopper, with their plain PyTorch versions.
 
 Ports of the Pallas kernels in ``infinisst_tpu/kernels/quant_matmul.py``;
-the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
+the CUDA sources are ``infinisst_tpu_torch/csrc/quant_matmul.cu`` and,
+for the grouped pair, ``csrc/grouped_matmul.cu`` (built apart, in
+parallel), with ``csrc/quant_common.cuh`` between them:
 
 - ``row_quant_int8`` replaces ``quantize_activation`` (:106): per-row
   symmetric int8 quantization in one pass, the row held in registers
@@ -17,26 +19,30 @@ the CUDA sources are in ``infinisst_tpu_torch/csrc/quant_matmul.cu``:
   registers, f32 accumulation, per-out-channel scale.  Bound by the
   weight bytes too.
 - ``group_quant_int8`` replaces ``quantize_activation_grouped`` (:226):
-  per-(row, group) symmetric int8 quantization.  Bound by bytes.
+  per-(row, group) symmetric int8 quantization in one pass, each group
+  held in the registers of a few lanes (``group_quant_plan``).  Bound,
+  like ``row_quant_int8``, by the launch and one round trip to memory.
 - ``w8a8_grouped_gemm`` replaces ``_qmm_i8_grouped_kernel`` (:191) in
   ``quantized_matmul_w8a8_grouped`` (:239): one int8 dot per input group,
   rescaled by the (row, group) and (group, out) scales and accumulated in
-  f32 in group order (one fused multiply-add per group).  Bound by the int8 weight and its (G, O) scales.
+  f32 in group order (one fused multiply-add per group).  Bound by the
+  int8 weight and its (G, O) scales.
 
-``w8a8_gemm``, ``w8_bf16_gemm`` and ``row_quant_int8`` are the Hopper
-redesigns: the two GEMMs take their weight K-major, (O, D)
-(``models/quant.pack_kmajor`` packs it once, where leaves are made), and
-run on the tensor cores with split-K across blocks planned by
-``gemm_plan``.  The grouped pair is the simple first version (see the
-note in the .cu file).
+All five are Hopper redesigns.  The three GEMMs take their weight K-major,
+(O, D) (``models/quant.pack_kmajor`` packs it once, where leaves are
+made), and run on the int8 or bf16 tensor cores with split-K across
+blocks, planned by ``gemm_plan`` and, for the grouped GEMM, whose splits
+must keep the one fused multiply-add chain over the groups,
+``grouped_gemm_plan``.
 
 Every wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
 adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
-wrapper does besides its one kernel launch: ``w8a8_gemm_split_k`` and
-``w8_bf16_gemm_split_k``, the calls that split D across blocks (still one
-launch each), ``counter_zeroing``, the fills of the split-K tile counters
-(one per kernel, device and size; the kernels leave them zero), and
+wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``,
+``w8_bf16_gemm_split_k`` and ``w8a8_grouped_gemm_split_k``, the calls
+that split D across blocks (still one launch each), ``counter_zeroing``,
+the fills of the split-K tile counters (one per kernel, device and size;
+the kernels leave them zero), and
 ``w8_bf16_gemm_f32_cast``, the float32 activations rounded to bf16 by
 PyTorch before the launch (the bf16 main path has none).
 """
@@ -52,7 +58,8 @@ import torch
 launch_counts = {"row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
                  "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
 internal_counts = {"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
-                   "counter_zeroing": 0, "w8_bf16_gemm_f32_cast": 0}
+                   "w8a8_grouped_gemm_split_k": 0, "counter_zeroing": 0,
+                   "w8_bf16_gemm_f32_cast": 0}
 
 
 def reset_launch_counts():
@@ -62,6 +69,7 @@ def reset_launch_counts():
 
 
 _lib = None
+_glib = None
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -71,15 +79,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.empty_kernel_launch.argtypes = [ci, ci, vp]
     lib.w8a8_gemm.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 3
     lib.w8_bf16_gemm.argtypes = [vp] * 4 + [ci] * 7 + [vp] * 3
-    lib.group_quant_int8.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
-    lib.w8a8_grouped_gemm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      vp]
     for fn in (lib.row_quant_int8, lib.empty_kernel_launch, lib.w8a8_gemm,
-               lib.w8_bf16_gemm, lib.group_quant_int8, lib.w8a8_grouped_gemm,
-               lib.gemm_tile_o, lib.gemm_tile_k):
+               lib.w8_bf16_gemm, lib.gemm_tile_o, lib.gemm_tile_k):
         fn.restype = ci
     if (lib.gemm_tile_o(), lib.gemm_tile_k()) != (GEMM_TILE_O, GEMM_TILE_K):
         raise RuntimeError("gemm_plan's tiles differ from the kernels'")
+    return lib
+
+
+def _bind_grouped(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``grouped_matmul`` library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.group_quant_int8.argtypes = [vp, ci, vp, vp] + [ci] * 7 + [vp]
+    lib.w8a8_grouped_gemm.argtypes = [vp] * 5 + [ci] * 9 + [vp] * 3
+    for fn in (lib.group_quant_int8, lib.w8a8_grouped_gemm):
+        fn.restype = ci
     return lib
 
 
@@ -90,6 +104,15 @@ def _library():
 
         _lib = _bind(load_library("quant_matmul"))
     return _lib
+
+
+def _grouped_library():
+    global _glib
+    if _glib is None:
+        from infinisst_tpu_torch.kernels._build import load_library
+
+        _glib = _bind_grouped(load_library("grouped_matmul"))
+    return _glib
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -273,14 +296,16 @@ def gemm_plan(M: int, D: int, O: int, sms: int) -> GemmPlan:
     return GemmPlan(rows, n_mtiles, n_otiles, k_split, _cdiv(D, k_split))
 
 
-def _split_k_buffers(name, plan, dtype, dev):
-    """The workspace (one partial per tile, split, row and channel) and
-    the tile counters of a split-K launch; (None, None) without a split."""
+def _split_k_buffers(name, plan, dtype, dev, slabs=None,
+                     tile_o=GEMM_TILE_O):
+    """The workspace (one (rows, tile_o) slab per tile and split, or per
+    tile and each of ``slabs``) and the tile counters of a split-K
+    launch; (None, None) without a split."""
     if plan.n_split == 1:
         return None, None
     n_tiles = plan.n_mtiles * plan.n_otiles
-    ws = torch.empty((n_tiles * plan.n_split * plan.rows, GEMM_TILE_O),
-                     dtype=dtype, device=dev)
+    ws = torch.empty((n_tiles * (slabs or plan.n_split) * plan.rows,
+                      tile_o), dtype=dtype, device=dev)
     internal_counts[f"{name}_split_k"] += 1
     return ws, zeroed_counters(name, dev, n_tiles)
 
@@ -423,7 +448,41 @@ def group_quant_int8_plain(y: torch.Tensor, gs: int):
     return y_q.to(torch.int8).reshape(M, D), scale
 
 
+# threads a block (whole warps; each group takes ``lanes`` of them) and
+# the vectors a lane may hold, compiled for
+GROUP_QUANT_THREADS = 128
+GROUP_QUANT_VPL = (1, 2, 4, 8)
+
+
+class GroupQuantPlan(NamedTuple):
+    """Group i of the M * G is held by lanes [i * lanes, (i + 1) * lanes)
+    of the launch, lane l taking the group's 16-byte vectors l, l + lanes,
+    ..."""
+    lanes: int  # a power of two <= 32 that divides the group's vectors
+    vpl: int  # one of GROUP_QUANT_VPL, at least the vectors a lane holds
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def group_quant_plan(M: int, D: int, G: int, elem_bytes: int
+                     ) -> GroupQuantPlan:
+    """The launch of ``group_quant_int8`` for M rows of G groups of D / G
+    values of ``elem_bytes`` each: as many lanes a group as divide its
+    16-byte vectors, up to a warp (a 128-value bf16 group: 16 lanes, one
+    vector each), and GROUP_QUANT_THREADS threads a block."""
+    n_vec = (D // G) * elem_bytes // 16
+    lanes = min(32, n_vec & -n_vec)
+    vpl = next((v for v in GROUP_QUANT_VPL if v * lanes >= n_vec), None)
+    if vpl is None:
+        raise ValueError(f"group_quant_int8: groups of {D // G} are too long")
+    threads = GROUP_QUANT_THREADS
+    return GroupQuantPlan(lanes, vpl, threads,
+                          _cdiv(M * G * lanes, threads))
+
+
 def group_quant_int8(y: torch.Tensor, gs: int):
+    """y (M, D) bf16 or f32 -> (y_q int8 (M, D), y_s f32 (M, D // gs))."""
     if y.device.type == "cpu":
         return group_quant_int8_plain(y, gs)
     if y.device.type != "cuda":
@@ -432,12 +491,19 @@ def group_quant_int8(y: torch.Tensor, gs: int):
     M, D = y.shape
     if gs < 1 or D % gs:
         raise ValueError(f"group_quant_int8: D={D} is not a multiple of {gs}")
+    if (gs * y.element_size()) % 16 or y.data_ptr() % 16:
+        raise ValueError(f"group_quant_int8: groups of {gs} {y.dtype} values "
+                         "must be whole 16-byte vectors, 16-byte aligned")
     G = D // gs
     y_q = torch.empty((M, D), dtype=torch.int8, device=y.device)
     y_s = torch.empty((M, G), dtype=torch.float32, device=y.device)
-    err = _library().group_quant_int8(
+    if M == 0:
+        return y_q, y_s
+    plan = group_quant_plan(M, D, G, y.element_size())
+    err = _grouped_library().group_quant_int8(
         y.data_ptr(), int(y.dtype == torch.bfloat16), y_q.data_ptr(),
-        y_s.data_ptr(), M, D, G, _stream(y),
+        y_s.data_ptr(), M, D, G, plan.lanes, plan.vpl, plan.threads,
+        plan.blocks, _stream(y),
     )
     _raise_on(err, "group_quant_int8")
     launch_counts["group_quant_int8"] += 1
@@ -465,10 +531,10 @@ def fma_f32(a, b, c):
     return s.to(torch.float32)
 
 
-def w8a8_grouped_gemm_plain(y_q, y_s, w_q, scale, out_dtype):
-    """The arithmetic of ``_qmm_i8_grouped_kernel``: for each group g in
-    order, the exact int8 dot of the group (in float64, exact for
-    |acc| < 2**53, on the CPU and on CUDA), then
+def w8a8_grouped_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
+    """The arithmetic of ``_qmm_i8_grouped_kernel`` on the K-major weight
+    w_t (O, D): for each group g in order, the exact int8 dot of the group
+    (in float64, exact for |acc| < 2**53, on the CPU and on CUDA), then
     ``o = fma(f32(acc_g) * ys_g, s_g, o)`` in float32 from 0; cast last.
     XLA compiles the kernel's ``o += acc * ys * s`` into that fused
     multiply-add (interpret mode on the CPU), so the port does too."""
@@ -478,41 +544,108 @@ def w8a8_grouped_gemm_plain(y_q, y_s, w_q, scale, out_dtype):
     out = torch.zeros((M, O), dtype=torch.float32, device=y_q.device)
     for g in range(G):
         k = slice(g * gs, (g + 1) * gs)
-        acc = (y_q[:, k].to(torch.float64) @ w_q[k].to(torch.float64)).to(
-            torch.float32)
+        acc = (y_q[:, k].to(torch.float64) @ w_t[:, k].to(torch.float64).T
+               ).to(torch.float32)
         out = fma_f32(acc * y_s[:, g : g + 1], scale[g][None, :], out)
     return out.to(out_dtype)
 
 
-def w8a8_grouped_gemm(y_q, y_s, w_q, scale, out_dtype):
+# output channels a block (csrc/grouped_matmul.cu: four warps of one or
+# two m16 tiles): the narrow tile, but for weights wide enough that the wide
+# one alone gives GROUPED_WIDE_WAVES blocks per SM (the lm_head shape)
+GROUPED_TILE_OS = (64, 128)
+GROUPED_WIDE_WAVES = 4
+# split-K's workspace (one f32 product per valid row, group and channel)
+# at most the weight bytes over this
+GROUPED_WS_CAP = 8
+# without a split, a grid of less than half a wave takes narrower row
+# tiles (the weight then crosses L2, not device memory, once more per row
+# tile), down to GROUPED_MIN_ROWS rows
+GROUPED_MIN_ROWS = 16
+
+
+class GroupedGemmPlan(NamedTuple):
+    rows: int  # activation rows per block (one of GEMM_ROW_TILES)
+    tile_o: int  # output channels per block (one of GROUPED_TILE_OS)
+    n_mtiles: int
+    n_otiles: int
+    k_split: int  # values of D per split: whole groups
+    n_split: int  # ceil(D / k_split)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_gemm_plan(M: int, D: int, O: int, G: int, sms: int
+                      ) -> GroupedGemmPlan:
+    """The grid of ``w8a8_grouped_gemm`` for an (M, D) x (D, O) product in
+    G groups on a card with ``sms`` SMs (a pure function of the shapes;
+    the rules and constants are the best of the launches timed on the H100
+    at the main path's shapes, PERF.md).  One row tile holds all M <= 80
+    rows, so the weight is read once.  A grid short of one wave (a block
+    per SM) splits D, in whole groups, toward GEMM_BLOCKS_PER_SM blocks
+    per SM as ``gemm_plan`` does, but only where the products the splits
+    hand to the last block of each tile (M x G x O f32) stay within
+    1 / GROUPED_WS_CAP of the weight bytes (at gs = 128: M <= 4); without
+    a split, a grid short of half a wave takes narrower row tiles."""
+    gs = D // G
+    rows = next(r for r in GEMM_ROW_TILES if r >= min(M, GEMM_ROW_TILES[-1]))
+    tile_o, wide = GROUPED_TILE_OS
+    if _cdiv(O, wide) * _cdiv(M, rows) >= GROUPED_WIDE_WAVES * sms:
+        tile_o = wide
+    n_otiles = _cdiv(O, tile_o)
+    tiles = n_otiles * _cdiv(M, rows)
+    per = G
+    if tiles < sms and GROUPED_WS_CAP * 4 * M * G <= D:
+        split = max(1, min(_cdiv(GEMM_BLOCKS_PER_SM * sms, tiles), G))
+        per = min((_cdiv(G, split), max(1, G // split)),
+                  key=lambda p: (abs(_cdiv(G, p) - split), -p))
+    if per == G:
+        while 2 * n_otiles * _cdiv(M, rows) < sms and rows > GROUPED_MIN_ROWS:
+            rows = GEMM_ROW_TILES[GEMM_ROW_TILES.index(rows) - 1]
+    return GroupedGemmPlan(rows, tile_o, _cdiv(M, rows), n_otiles, per * gs,
+                           _cdiv(G, per))
+
+
+def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
+    """y_q (M, D) int8, y_s (M, G) f32, w_t (O, D) int8 K-major, scale
+    (G, O) f32 -> (M, O) out_dtype."""
     if y_q.device.type == "cpu":
-        return w8a8_grouped_gemm_plain(y_q, y_s, w_q, scale, out_dtype)
+        return w8a8_grouped_gemm_plain(y_q, y_s, w_t, scale, out_dtype)
     if y_q.device.type != "cuda":
         raise ValueError(f"w8a8_grouped_gemm: unsupported device {y_q.device}")
     dev = y_q.device
     _check("y_q", y_q, (torch.int8,), 2, dev)
     _check("y_s", y_s, (torch.float32,), 2, dev)
-    _check("w_q", w_q, (torch.int8,), 2, dev)
+    _check("w_t", w_t, (torch.int8,), 2, dev)
     _check("scale", scale, (torch.float32,), 2, dev)
     if out_dtype not in _FLOATS:
         raise TypeError(f"w8a8_grouped_gemm: out_dtype {out_dtype}")
     M, D = y_q.shape
-    D2, O = w_q.shape
+    O, D2 = w_t.shape
     G = scale.shape[0]
     if (D2 != D or scale.shape[1] != O or G < 1 or D % G
             or y_s.shape != (M, G)):
         raise ValueError(
             f"w8a8_grouped_gemm: shapes y_q {tuple(y_q.shape)} y_s "
-            f"{tuple(y_s.shape)} w_q {tuple(w_q.shape)} s {tuple(scale.shape)}"
+            f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
         )
-    if (D // G) % 4 or O % 4:
-        raise ValueError(f"w8a8_grouped_gemm: group size {D // G} and O={O} "
-                         "must be multiples of 4")
+    if (D // G) % 32 or O % 4:
+        raise ValueError(f"w8a8_grouped_gemm: group size {D // G} must be a "
+                         f"multiple of 32 and O={O} of 4")
+    if y_q.data_ptr() % 16 or w_t.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("w8a8_grouped_gemm: y_q, w_t and scale must be "
+                         "16-byte aligned")
     out = torch.empty((M, O), dtype=out_dtype, device=dev)
-    err = _library().w8a8_grouped_gemm(
-        y_q.data_ptr(), y_s.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+    if M == 0 or O == 0:
+        return out
+    plan = grouped_gemm_plan(M, D, O, G, sm_count(dev))
+    # one slab of products per group
+    ws, counters = _split_k_buffers("w8a8_grouped_gemm", plan, torch.float32,
+                                    dev, slabs=G, tile_o=plan.tile_o)
+    err = _grouped_library().w8a8_grouped_gemm(
+        y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
         out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, G,
-        _stream(y_q),
+        plan.rows, plan.tile_o, plan.k_split, plan.n_split, _ptr(ws),
+        _ptr(counters), _stream(y_q),
     )
     _raise_on(err, "w8a8_grouped_gemm")
     launch_counts["w8a8_grouped_gemm"] += 1

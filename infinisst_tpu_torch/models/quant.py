@@ -1,20 +1,21 @@
 """Quantized weights and the dispatching matmul; port of
 ``infinisst_tpu/models/quant.py``.
 
-Leaf layouts (told apart by key, as in the JAX package, plus one key of
-the port's own):
+Leaf layouts (told apart by key and by the scale's rank, as in the JAX
+package, plus one key of the port's own):
   {'q_kmajor', 'scale'}  weight-only int8, the weight K-major
                          (..., out, in) -> ``w8_bf16_gemm``;
-  {'q_kmajor', 'scale_a8'}
+  {'q_kmajor', 'scale_a8' (..., out)}
                          per-out-channel W8A8, the weight K-major
                          (..., out, in) -> row quant + ``w8a8_gemm``;
-  {'q', 'scale_a8'}      with a per-(input group, out-channel) scale (the
-                         ``--group128`` belt), (in, out) -> group quant +
+  {'q_kmajor', 'scale_a8' (..., G, out)}
+                         W8A8 with a per-(input group, out-channel) scale
+                         (the ``--group128`` belt), the weight K-major
+                         (..., out, in) -> group quant +
                          ``w8a8_grouped_gemm``;
   {'a', 'b'}             low-rank factors, two chained ``mm`` calls.
-The JAX package's weight-only {'q' (in, out), 'scale' (out,)} and
-per-channel W8A8 {'q' (in, out), 'scale_a8' (out,)} leaves are packed
-K-major once, where leaves are made (``pack_kmajor``: ``from_jax``,
+The JAX package's {'q' (..., in, out), 'scale' or 'scale_a8'} leaves are
+packed K-major once, where leaves are made (``pack_kmajor``: ``from_jax``,
 ``quantize_llama_params``, ``init_quantized_llama``), never per call; a
 shape cannot tell a square weight from its transpose, hence the key.
 
@@ -40,7 +41,7 @@ from infinisst_tpu_torch.kernels.quant_matmul import (
 )
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-KMAJOR = "q_kmajor"  # a packed per-channel weight, (..., out, in)
+KMAJOR = "q_kmajor"  # a packed int8 weight, (..., out, in)
 
 
 def is_quantized(w) -> bool:
@@ -48,22 +49,19 @@ def is_quantized(w) -> bool:
 
 
 def is_unpacked(w) -> bool:
-    """A per-out-channel leaf in the JAX layout, weight-only {'q' (..., in,
-    out), 'scale' (..., out)} or W8A8 {'q', 'scale_a8' (..., out)} (a
-    grouped scale has the rank of ``q``)."""
-    if not (isinstance(w, dict) and "q" in w):
-        return False
-    return "scale" in w or ("scale_a8" in w
-                            and w["scale_a8"].ndim == w["q"].ndim - 1)
+    """An int8 leaf in the JAX layout: weight-only {'q' (..., in, out),
+    'scale'} or W8A8 {'q', 'scale_a8'}, per-channel or grouped."""
+    return (isinstance(w, dict) and "q" in w
+            and ("scale" in w or "scale_a8" in w))
 
 
 def pack_kmajor(w):
-    """{'q' (..., in, out), 'scale' or 'scale_a8' (..., out)} ->
-    {'q_kmajor' (..., out, in), same scale}: the layout ``w8_bf16_gemm``
-    and ``w8a8_gemm`` read.  One copy, made where the leaf is made; the
-    input leaf can be dropped afterwards."""
+    """{'q' (..., in, out), 'scale' or 'scale_a8'} -> {'q_kmajor' (...,
+    out, in), same scale}: the layout ``w8_bf16_gemm``, ``w8a8_gemm`` and
+    ``w8a8_grouped_gemm`` read.  One copy, made where the leaf is made;
+    the input leaf can be dropped afterwards."""
     if not is_unpacked(w):
-        raise ValueError("pack_kmajor: not a per-channel {'q','scale'} or "
+        raise ValueError("pack_kmajor: not an int8 {'q','scale'} or "
                          "{'q','scale_a8'} leaf")
     out = {KMAJOR: w["q"].transpose(-1, -2).contiguous()}
     out.update((k, v) for k, v in w.items() if k != "q")
@@ -75,6 +73,13 @@ def unpack_kmajor(w):
     out = {"q": w[KMAJOR].transpose(-1, -2).contiguous()}
     out.update((k, v) for k, v in w.items() if k != KMAJOR)
     return out
+
+
+def is_grouped(w) -> bool:
+    """A packed W8A8 leaf with per-(input group, out-channel) scales: its
+    ``scale_a8`` has the rank of ``q_kmajor`` ((G, out) against (out, in)
+    per layer), a per-channel one a rank less."""
+    return "scale_a8" in w and w["scale_a8"].ndim == w[KMAJOR].ndim
 
 
 def mm(y: torch.Tensor, w) -> torch.Tensor:
@@ -98,22 +103,22 @@ def mm_many(y: torch.Tensor, ws) -> tuple:
             outs.append(y @ w)
             continue
         if is_unpacked(w):
-            raise ValueError("mm: a per-channel int8 leaf in the (in, out) "
-                             "layout; pack it once with pack_kmajor")
+            raise ValueError("mm: an int8 leaf in the (in, out) layout; "
+                             "pack it once with pack_kmajor")
         if y2 is None:
             y2 = y.reshape(-1, shape[-1]).contiguous()
-        if KMAJOR in w and "scale_a8" in w:
-            if row_q is None:
-                row_q = row_quant_int8(y2)
-            out = w8a8_gemm(*row_q, w[KMAJOR], w["scale_a8"], y.dtype)
-        elif KMAJOR in w:
-            out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
-        else:  # grouped W8A8: scale_a8 (G, out)
+        if is_grouped(w):  # scale_a8 (G, out)
             gs = shape[-1] // w["scale_a8"].shape[0]
             if gs not in group_q:
                 group_q[gs] = group_quant_int8(y2, gs)
-            out = w8a8_grouped_gemm(*group_q[gs], w["q"], w["scale_a8"],
+            out = w8a8_grouped_gemm(*group_q[gs], w[KMAJOR], w["scale_a8"],
                                     y.dtype)
+        elif "scale_a8" in w:
+            if row_q is None:
+                row_q = row_quant_int8(y2)
+            out = w8a8_gemm(*row_q, w[KMAJOR], w["scale_a8"], y.dtype)
+        else:
+            out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
         outs.append(out.reshape(*shape[:-1], out.shape[-1]))
     return tuple(outs)
 
@@ -126,13 +131,12 @@ def init_quantized_llama(
     int8 projections with constant scales 1 / (127 sqrt(in)) (as
     ``quant.py:150-230``), ones for the norms, a normal embedding, and
     either an int8 W8A8 lm_head padded to a multiple of 512 columns (pad
-    scales zero) or a float one.  Per-channel leaves (weight-only and
-    W8A8) are drawn in the JAX (in, out) layout and packed K-major at once
-    (``pack_kmajor``), one leaf at a time (a transient copy of one leaf);
-    the draw order is that of the unpacked layout.  ``group_size`` gives
-    the projections
-    per-(input group, out-channel) scales (L, in // group_size, out), W8A8
-    only; ``head_group_size`` (default 0: per-channel) groups the head.
+    scales zero) or a float one.  Every int8 leaf is drawn in the JAX (in,
+    out) layout and packed K-major at once (``pack_kmajor``), one leaf at
+    a time (a transient copy of one leaf); the draw order is that of the
+    unpacked layout.  ``group_size`` gives the projections per-(input
+    group, out-channel) scales (L, in // group_size, out), W8A8 only;
+    ``head_group_size`` (default 0: per-channel) groups the head.
     ``generator`` must live on ``device``."""
     if group_size and not act_int8:
         raise ValueError("group_size requires act_int8 (W8A8)")
@@ -154,9 +158,7 @@ def init_quantized_llama(
         sshape = ((L, shape[0] // group_size, shape[-1]) if group_size
                   else (L, shape[-1]))
         scale = torch.full(sshape, sval, dtype=torch.float32, device=device)
-        leaf = {"q": randint8((L,) + shape), skey: scale}
-        # per-channel (weight-only or W8A8): packed K-major
-        return leaf if group_size else pack_kmajor(leaf)
+        return pack_kmajor({"q": randint8((L,) + shape), skey: scale})
 
     layers = {
         "input_ln": torch.ones((L, D), dtype=embed_dtype, device=device),
@@ -175,10 +177,8 @@ def init_quantized_llama(
         scale = torch.full(sshape, 1.0 / (127 * math.sqrt(D)),
                            dtype=torch.float32, device=device)
         scale[..., V:] = 0.0
-        lm_head = {"q": randint8((D, Vp)), "scale_a8": scale}
-        if not head_group_size:  # per-channel: packed K-major, pad rows 0
-            lm_head = pack_kmajor(lm_head)
-            lm_head[KMAJOR][V:] = 0
+        lm_head = pack_kmajor({"q": randint8((D, Vp)), "scale_a8": scale})
+        lm_head[KMAJOR][V:] = 0  # the pad rows
     else:
         lm_head = torch.randn(
             (D, V), generator=generator, device=device, dtype=torch.float32
@@ -241,10 +241,9 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
     scales, or per-(input group, out-channel) scales with ``group_size``
     (W8A8 only); ``act_int8`` selects W8A8 for the projections, and the
     quantized head is always W8A8, padded to a multiple of 512 columns
-    with zero scales on the pad (grouped by ``head_group_size``).
-    Per-channel leaves (weight-only and W8A8) come out packed K-major
-    (``pack_kmajor``).  Projection output widths must be multiples of
-    128."""
+    with zero scales on the pad (grouped by ``head_group_size``).  Every
+    int8 leaf comes out packed K-major (``pack_kmajor``).  Projection
+    output widths must be multiples of 128."""
     if group_size and not act_int8:
         raise ValueError("group_size requires act_int8 (W8A8)")
     out = dict(params)
@@ -254,9 +253,8 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
         if w.shape[-1] % 128 or (group_size and w.shape[1] % group_size):
             raise ValueError(f"{k}: shape {tuple(w.shape)} does not tile "
                              f"by 128 columns and groups of {group_size}")
-        layers[k] = _quantize_stacked(w, a8=act_int8, group_size=group_size)
-        if not group_size:
-            layers[k] = pack_kmajor(layers[k])
+        layers[k] = pack_kmajor(
+            _quantize_stacked(w, a8=act_int8, group_size=group_size))
     out["layers"] = layers
     if quantize_lm_head:
         w = params["lm_head"]
@@ -268,6 +266,6 @@ def quantize_llama_params(params, quantize_lm_head=False, act_int8=False,
         else:
             q, s = quantize_weight(w, axis=0)
         s[..., V:] = 0.0
-        head = {"q": q, "scale_a8": s.to(torch.float32)}
-        out["lm_head"] = head if head_group_size else pack_kmajor(head)
+        out["lm_head"] = pack_kmajor({"q": q,
+                                      "scale_a8": s.to(torch.float32)})
     return out

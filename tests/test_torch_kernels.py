@@ -44,8 +44,9 @@ def _port(y, dtype):
 
 
 def _packed(w, s, key="scale_a8"):
-    """The port's per-channel leaf, W8A8 (``scale_a8``) or weight-only
-    (``scale``): the (D, O) weight packed K-major."""
+    """The port's int8 leaf, W8A8 (``scale_a8``: per-channel (O,) or
+    grouped (G, O)) or weight-only (``scale``): the (D, O) weight packed
+    K-major."""
     return TQ.pack_kmajor({"q": torch.from_numpy(w),
                            key: torch.from_numpy(s)})
 
@@ -87,9 +88,18 @@ def test_pack_w8a8_round_trips_and_mm_refuses_the_unpacked_leaf():
     back = TQ.unpack_kmajor(packed)
     np.testing.assert_array_equal(back["q"].numpy(), w)
     np.testing.assert_array_equal(back["scale_a8"].numpy(), s)
-    # a grouped leaf is not packed
+    # a grouped leaf packs and unpacks the same way, its (G, out) scale
+    # kept as it is
+    grouped = TQ.pack_kmajor({"q": leaf["q"][0],
+                              "scale_a8": torch.ones((3, 40))})
+    assert tuple(grouped[TQ.KMAJOR].shape) == (40, 96)
+    assert TQ.is_grouped(grouped) and not TQ.is_grouped(
+        {k: v[0] for k, v in packed.items()})
+    back = TQ.unpack_kmajor(grouped)
+    np.testing.assert_array_equal(back["q"].numpy(), w[0])
+    assert tuple(back["scale_a8"].shape) == (3, 40)
     with pytest.raises(ValueError):
-        TQ.pack_kmajor({"q": leaf["q"][0], "scale_a8": torch.ones((3, 40))})
+        TQ.pack_kmajor({"a": leaf["q"][0], "b": leaf["q"][0]})
     y = torch.from_numpy(rng.randn(2, 96).astype(np.float32))
     with pytest.raises(ValueError):
         TQ.mm(y, {"q": leaf["q"][0], "scale_a8": leaf["scale_a8"][0]})
@@ -255,8 +265,8 @@ def _mixed_leaves(D, O, seed, dtype=torch.float32):
     return {
         "w8a8": _packed(w, s),
         "w8a8_other": _packed(w[:, ::-1].copy(), s[::-1].copy()),
-        "grouped32": {"q": t(w), "scale_a8": t(sg)},
-        "grouped64": {"q": t(w), "scale_a8": t(sg64)},
+        "grouped32": _packed(w, sg),
+        "grouped64": _packed(w, sg64),
         "weight_only": _packed(w, s, "scale"),
         "float": t(f).to(dtype),
         "lowrank": {"a": t(a).to(dtype), "b": t(b).to(dtype)},
@@ -358,8 +368,7 @@ def test_grouped_mm_bitwise_vs_pallas_interpret(dtype, M, D, O, gs):
         jnp.asarray(y).astype(jd), jnp.asarray(w), jnp.asarray(s),
         tile_o=128, interpret=True,
     )
-    got = TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
-                               "scale_a8": torch.from_numpy(s)})
+    got = TQ.mm(_port(y, td), _packed(w, s))
     assert got.dtype == td and tuple(got.shape) == (M, O)
     np.testing.assert_array_equal(_as_f32(got), _as_f32(want))
 
@@ -378,11 +387,96 @@ def test_grouped_mm_vs_jax_xla_path(dtype, shape):
     y = y.reshape(B, S, D)
     want = _as_f32(JQ.mm(jnp.asarray(y).astype(jd),
                          {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)}))
-    got = _as_f32(TQ.mm(_port(y, td), {"q": torch.from_numpy(w),
-                                       "scale_a8": torch.from_numpy(s)}))
+    got = _as_f32(TQ.mm(_port(y, td), _packed(w, s)))
     assert got.shape == (B, S, O)
     rel = 1e-6 if dtype == "float32" else 2.0 ** -8
     assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def test_mm_refuses_the_unpacked_grouped_leaf():
+    y, w, s = _grouped_inputs(3, 128, 64, 32, seed=4)
+    leaf = {"q": torch.from_numpy(w), "scale_a8": torch.from_numpy(s)}
+    with pytest.raises(ValueError, match="pack_kmajor"):
+        TQ.mm(torch.from_numpy(y), leaf)
+    got = TQ.mm(torch.from_numpy(y), TQ.pack_kmajor(leaf))
+    want = TK.w8a8_grouped_gemm(*TK.group_quant_int8(torch.from_numpy(y), 32),
+                                torch.from_numpy(w.T.copy()), leaf["scale_a8"],
+                                torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_grouped_gemm_plan_covers_every_group_once(sms, gs):
+    """``w8a8_grouped_gemm``'s plan: every group of D in exactly one split,
+    whole groups per split, every row and channel in one tile; a split
+    only for a grid short of a wave and where the products handed to the
+    last block (M x G x O f32) stay within 1 / GROUPED_WS_CAP of the
+    weight bytes; more than one row tile only without a split, for a grid
+    that one row tile would leave short of half a wave; the wide output
+    tile only where it alone fills GROUPED_WIDE_WAVES waves."""
+    cdiv = TK._cdiv
+    for D, O in FLAGSHIP_DO + TINY_DO + [(4032, 4096)]:
+        if D % gs:
+            continue
+        G = D // gs
+        for M in (1, 4, 61, 79):
+            p = TK.grouped_gemm_plan(M, D, O, G, sms)
+            assert p.rows in TK.GEMM_ROW_TILES
+            assert p.tile_o in TK.GROUPED_TILE_OS
+            assert p.n_mtiles * p.rows >= M > (p.n_mtiles - 1) * p.rows
+            assert p.n_otiles * p.tile_o >= O > (p.n_otiles - 1) * p.tile_o
+            assert p.k_split % gs == 0 and p.n_split == cdiv(D, p.k_split)
+            cover = np.zeros(G, np.int64)
+            for sp in range(p.n_split):
+                cover[sp * p.k_split // gs:
+                      min(D, (sp + 1) * p.k_split) // gs] += 1
+            assert (cover == 1).all(), (M, D, O, p)
+            if p.n_split > 1:
+                assert TK.GROUPED_WS_CAP * M * G * O * 4 <= D * O, (M, p)
+                assert p.n_otiles * p.n_mtiles < sms and p.n_mtiles == 1
+            if p.n_mtiles > 1:
+                assert p.n_split == 1 and p.rows >= TK.GROUPED_MIN_ROWS
+                wider = TK.GEMM_ROW_TILES[TK.GEMM_ROW_TILES.index(p.rows) + 1]
+                assert 2 * p.n_otiles * cdiv(M, wider) < sms, (M, D, O, p)
+            if p.tile_o != TK.GROUPED_TILE_OS[0]:  # M <= 80: one row tile
+                assert cdiv(O, p.tile_o) >= TK.GROUPED_WIDE_WAVES * sms
+    # the --group128 beam step splits its narrow projections (M = 4 at
+    # gs = 128 is the workspace cap), not gate/up (a wave of tiles); its
+    # prefill splits none
+    if sms > 100 and gs == 128:
+        assert TK.grouped_gemm_plan(4, 4096, 4096, 32, sms).n_split > 1
+        assert TK.grouped_gemm_plan(4, 14336, 4096, 112, sms).n_split > 1
+        assert TK.grouped_gemm_plan(4, 4096, 14336, 32, sms).n_split == 1
+    assert TK.grouped_gemm_plan(61, 4096, 4096, 32, sms).n_split == 1
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bfloat16", "float32"])
+def test_group_quant_plan_covers_each_group_once(elem_bytes):
+    """``group_quant_int8``'s launch: each of the M * G groups gets its own
+    ``lanes`` lanes (a power of two up to a warp, whole groups a warp),
+    and lane l takes the group's 16-byte vectors l, l + lanes, ...: every
+    vector once, at most ``vpl`` a lane."""
+    for gs in (32, 64, 96, 128, 256, 1024):
+        n_vec = gs * elem_bytes // 16
+        for M in (1, 4, 61, 79):
+            for G in (1, 3, 32, 112):
+                p = TK.group_quant_plan(M, G * gs, G, elem_bytes)
+                assert p.lanes & (p.lanes - 1) == 0 and 32 % p.lanes == 0
+                assert n_vec % p.lanes == 0 and p.vpl in TK.GROUP_QUANT_VPL
+                assert p.vpl * p.lanes >= n_vec and p.threads % 32 == 0
+                assert p.blocks * p.threads >= M * G * p.lanes
+                assert (p.blocks - 1) * p.threads < M * G * p.lanes
+                seen = np.zeros(n_vec, np.int64)
+                for lane in range(p.lanes):
+                    seen[lane::p.lanes] += 1
+                assert (seen == 1).all()
+                assert -(-n_vec // p.lanes) <= p.vpl
+    # a 128-value bf16 group is one vector on each of 16 lanes
+    assert TK.group_quant_plan(4, 4096, 32, 2)[:2] == (16, 1)
+    assert TK.group_quant_plan(4, 4096, 32, 4)[:2] == (32, 1)
+    with pytest.raises(ValueError):
+        TK.group_quant_plan(1, 8192, 1, 2)  # 1024 vectors: 32 lanes x 32
 
 
 def test_fma_f32_is_correctly_rounded():
@@ -415,8 +509,7 @@ def test_launch_counters_stay_zero_on_cpu():
     y, w, s = _inputs(4, 64, 32, seed=0)
     TQ.mm(torch.from_numpy(y), _packed(w, s))
     TQ.mm(torch.from_numpy(y), _packed(w, s, "scale"))
-    TQ.mm(torch.from_numpy(y), {"q": torch.from_numpy(w),
-                                "scale_a8": torch.ones((2, 32))})
+    TQ.mm(torch.from_numpy(y), _packed(w, np.ones((2, 32), np.float32)))
     q = torch.ones((2, 4, 16))
     cache = torch.ones((1, 8, 2, 16))
     TA.decode_attention(q, cache, cache, torch.tensor([3]),
@@ -428,5 +521,6 @@ def test_launch_counters_stay_zero_on_cpu():
     assert TA.launch_counts == {"decode_attention": 0}
     assert TK.internal_counts == {"w8a8_gemm_split_k": 0,
                                   "w8_bf16_gemm_split_k": 0,
+                                  "w8a8_grouped_gemm_split_k": 0,
                                   "counter_zeroing": 0,
                                   "w8_bf16_gemm_f32_cast": 0}

@@ -2,7 +2,8 @@
 ``infinisst_tpu.models.quant``: ``quantize_weight``, ``_quantize_grouped``
 and ``quantize_llama_params`` bitwise (the same float32 divisions and
 round-half-even), ``init_quantized_llama``'s grouped layouts, and
-``from_jax`` padding a grouped W8A8 lm_head."""
+``from_jax`` padding a grouped W8A8 lm_head; every int8 leaf comes out
+packed K-major."""
 
 import jax
 import jax.numpy as jnp
@@ -59,26 +60,25 @@ def test_quantize_llama_params_bitwise(kw):
     tp = from_jax(jax.device_get(jp), device="cpu")
     want = JQ.quantize_llama_params(jp, **kw)
     got = TQ.quantize_llama_params(tp, **kw)
-    # per-channel leaves (weight-only and W8A8) come out packed K-major;
-    # compared unpacked
-    packed = not kw.get("group_size")
+    # every int8 leaf (weight-only, W8A8, grouped) comes out packed
+    # K-major; compared unpacked
     for k in TQ.QUANT_KEYS:
         g = got["layers"][k]
-        if packed:
-            scale = "scale_a8" if kw["act_int8"] else "scale"
-            assert set(g) == {TQ.KMAJOR, scale}, k
-            assert tuple(g[TQ.KMAJOR].shape) == tuple(
-                np.swapaxes(want["layers"][k]["q"], -1, -2).shape)
-            g = TQ.unpack_kmajor(g)
+        scale = "scale_a8" if kw["act_int8"] else "scale"
+        assert set(g) == {TQ.KMAJOR, scale}, k
+        assert tuple(g[TQ.KMAJOR].shape) == tuple(
+            np.swapaxes(want["layers"][k]["q"], -1, -2).shape)
+        assert TQ.is_grouped(g) == bool(kw.get("group_size")), k
+        g = TQ.unpack_kmajor(g)
         assert set(g) == set(want["layers"][k]), k
         for leaf, t in g.items():
             _eq(t, want["layers"][k][leaf])
     if kw.get("quantize_lm_head"):
         head = got["lm_head"]
-        if not kw.get("head_group_size"):
-            assert set(head) == {TQ.KMAJOR, "scale_a8"}
-            assert not head[TQ.KMAJOR][500:].any()  # the padding is zero
-            head = TQ.unpack_kmajor(head)
+        assert set(head) == {TQ.KMAJOR, "scale_a8"}
+        assert not head[TQ.KMAJOR][500:].any()  # the padding is zero
+        assert TQ.is_grouped(head) == bool(kw.get("head_group_size"))
+        head = TQ.unpack_kmajor(head)
         for leaf in ("q", "scale_a8"):
             _eq(head[leaf], want["lm_head"][leaf])
         assert head["q"].shape[-1] == 512
@@ -105,13 +105,27 @@ def test_init_quantized_llama_grouped_layout_matches_jax(hgs):
         LlamaConfig(**WIDE), torch.Generator().manual_seed(0), device="cpu",
         act_int8=True, lm_head_int8=True, group_size=128,
         head_group_size=hgs)
+    # packed K-major: the JAX (in, out) shapes transposed, drawn in (in,
+    # out) first (the first draw, wq, is the transpose of the generator's
+    # first (L, in, out) draw); the grouped head's pad rows are zero
     for k in TQ.QUANT_KEYS:
-        for leaf in ("q", "scale_a8"):
-            g, w = got["layers"][k][leaf], want["layers"][k][leaf]
-            assert tuple(g.shape) == w.shape and g.dtype == getattr(
-                torch, str(w.dtype)), (k, leaf)
-        _eq(got["layers"][k]["scale_a8"], want["layers"][k]["scale_a8"])
-    _eq(got["lm_head"]["scale_a8"], want["lm_head"]["scale_a8"])
+        g, w = got["layers"][k], want["layers"][k]
+        assert set(g) == {TQ.KMAJOR, "scale_a8"} and TQ.is_grouped(g), k
+        assert tuple(g[TQ.KMAJOR].shape) == np.swapaxes(w["q"], -1, -2).shape
+        assert g[TQ.KMAJOR].dtype == torch.int8 and g[TQ.KMAJOR].is_contiguous()
+        assert tuple(g["scale_a8"].shape) == w["scale_a8"].shape
+        _eq(g["scale_a8"], w["scale_a8"])
+    first = torch.randint(-127, 128, (2, 256, 256),
+                          generator=torch.Generator().manual_seed(0),
+                          dtype=torch.int8)
+    _eq(got["layers"]["wq"][TQ.KMAJOR], first.transpose(-1, -2).numpy())
+    head = got["lm_head"]
+    assert set(head) == {TQ.KMAJOR, "scale_a8"}
+    assert TQ.is_grouped(head) == bool(hgs)
+    assert tuple(head[TQ.KMAJOR].shape) == np.swapaxes(
+        want["lm_head"]["q"], -1, -2).shape
+    assert not head[TQ.KMAJOR][WIDE["vocab_size"]:].any()
+    _eq(head["scale_a8"], want["lm_head"]["scale_a8"])
     with pytest.raises(ValueError):
         TQ.init_quantized_llama(LlamaConfig(**WIDE), torch.Generator(),
                                 device="cpu", group_size=128)
@@ -149,13 +163,15 @@ def test_from_jax_pads_a_grouped_w8a8_head():
     head = {"q": rng.randint(-127, 128, (D, V)).astype(np.int8),
             "scale_a8": (rng.rand(D // gs, V) * 1e-2).astype(np.float32)}
     got = from_jax({"lm_head": head}, device="cpu")["lm_head"]
-    assert tuple(got["q"].shape) == (D, 512)
+    assert set(got) == {TQ.KMAJOR, "scale_a8"}  # packed K-major
+    assert tuple(got[TQ.KMAJOR].shape) == (512, D)
     assert tuple(got["scale_a8"].shape) == (D // gs, 512)
-    _eq(got["q"][:, :V], head["q"])
+    _eq(got[TQ.KMAJOR][:V], head["q"].T)
     _eq(got["scale_a8"][:, :V], head["scale_a8"])
-    assert not got["q"][:, V:].any() and not got["scale_a8"][:, V:].any()
+    assert not got[TQ.KMAJOR][V:].any() and not got["scale_a8"][:, V:].any()
     y = torch.from_numpy(rng.randn(3, D).astype(np.float32))
     out = TQ.mm(y, got)
-    want = TQ.mm(y, {k: torch.from_numpy(a) for k, a in head.items()})
+    want = TQ.mm(y, TQ.pack_kmajor(
+        {k: torch.from_numpy(a) for k, a in head.items()}))
     np.testing.assert_array_equal(out[:, :V].numpy(), want.numpy())
     assert not out[:, V:].any()
