@@ -25,8 +25,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  kernel of their launch geometry (the launch floor).
                  The library yardsticks,
                  timed here and never called by the port: torch._int_mm
-                 (the int32 product alone, M > 16 only, with the kernel /
-                 _int_mm ratio) beside w8a8_gemm,
+                 and the scale epilogue in PyTorch ops (M > 16 only, with
+                 the kernel / library ratio) beside w8a8_gemm,
                  torch._weight_int8pack_mm (on the same (O, D) weight)
                  beside w8_bf16_gemm; none for the grouped pair (no single
                  PyTorch call computes it).
@@ -50,6 +50,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  chunk with a synchronise around each stage (wall ms per
                  stage) and one under torch.profiler (device time by
                  kernel and by stage, idle share).
+                 Then [multiplier]: update_multiplier(2) and (4) on the
+                 same stream, one chunk at each (encoder frames +96, +192;
+                 decode_attention launches = beam forwards x L x 2).
   7. weight-only -- three chunks of the 8B model with {'q_kmajor','scale'}
                  projections through w8_bf16_gemm, then one chunk under
                  torch.profiler.
@@ -58,22 +61,37 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  K-major, through w8a8_grouped_gemm (group_quant_int8 4L
                  per forward), per-channel W8A8 lm_head; then one chunk
                  under torch.profiler.
-  9. one JSON ``kernels`` line, then the card line, then the result line.
+  9. bench    -- ``python -m infinisst_tpu_torch.bench`` (flagship W8A8,
+                 m=1, beam 4, 12 chunks, 3 untimed) in a subprocess, while
+                 this process holds no 8B weights: exit 0 and its JSON line
+                 with metric streaming_rtf_m1_beam4_8b_int8, re-printed.
+ 10. cli ckpt -- a synthetic reference pytorch_model.bin at the dryrun
+                 preset, loaded by ``agents.cli.main`` through
+                 convert/from_torch.py and streamed over two wav files, on
+                 the card and on the CPU: equal predictions and delays.
+ 11. cli flagship -- ``agents.cli.main`` at the flagship preset, m=2, with
+                 no paths (random bf16 weights on the card, plain
+                 torch.matmul projections, decode_attention in the beam
+                 step) and the stub tokenizer over the same two files:
+                 finite RTF and StreamLAAL, the scores printed.
+ 12. one JSON ``kernels`` line, then the card line, then the result line.
 
-Weights are random, made on the card from seeded torch.Generators.
+Each phase prints its wall seconds.  Weights are random, made on the card
+from seeded torch.Generators.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import importlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -93,7 +111,6 @@ W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
 # a bf16 output may round one bf16 step (<= 2**-7 of its value) apart;
 # float32 outputs and the f32 lse agree to 1e-5
 ATT_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
-SOURCES = ("quant_matmul", "grouped_matmul", "decode_attention")
 # tiny prefill logits, card against CPU, as a share of max|logits|: the
 # card sums float32 in another order (readings on the H100: 2.6e-6 with
 # float32 weights, 1.3e-6 with W8A8); TF32 is off (see main)
@@ -101,9 +118,28 @@ TINY_RTOL = 1e-4
 TIMED_TRIALS = 5
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BENCH_METRIC = "streaming_rtf_m1_beam4_8b_int8"
+# the keys of bench.py's single-stream JSON line (bench.py:492-502)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "outliers_dropped",
+              "dropped_s", "rtf_untrimmed_mean", "rtf_median", "rtf_p95")
+# the CLI phases' two talks: seconds of 16 kHz audio, and their references
+CLI_TALKS = ((4.8, "ein kleiner test satz\tnoch einer"),
+             (7.7, "zweiter talk text"))
+
+
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    """Print the wall seconds of a phase when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def card_line() -> str:
@@ -326,16 +362,17 @@ def check_kernels(dev, notes):
                                             torch.bfloat16), 3, warmup=1,
             )
             lib = None
-            if M > 16:  # torch._int_mm's shape rule: the int product only
+            if M > 16:  # torch._int_mm's shape rule; then the scale epilogue
                 lib = cuda_time_ms(
-                    lambda i: torch._int_mm(yq, ws[i % n_w]), 20
+                    lambda i: (torch._int_mm(yq, ws[i % n_w]).float() * ys
+                               * s).to(torch.bfloat16), 20
                 )
             bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by)
             plan = plan_line(K, M, D, O, sms)
             if lib is not None:
-                print(f"  {'':17s} kernel / torch._int_mm "
+                print(f"  {'':17s} kernel / (torch._int_mm + epilogue) "
                       f"{statistics.median(ms) / statistics.median(lib):.3f}",
                       flush=True)
 
@@ -682,28 +719,6 @@ def check_tiny(dev):
 # phases 5 / 6: the 8B streams
 
 
-def flagship_params(dev, act_int8: bool, speech=None, group_size=0):
-    import torch
-
-    from infinisst_tpu_torch.core.presets import flagship_config
-    from infinisst_tpu_torch.models import adapter as A
-    from infinisst_tpu_torch.models import wav2vec2 as W
-    from infinisst_tpu_torch.models.quant import init_quantized_llama
-
-    cfg = flagship_config()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    if speech is None:
-        speech = {
-            "w2v2": W.init_params(cfg.w2v2, gen, dev, torch.bfloat16),
-            "adapter": A.init_params(cfg.adapter, gen, dev, torch.bfloat16),
-        }
-    llama = init_quantized_llama(
-        cfg.llama, gen, dev, embed_dtype=torch.bfloat16,
-        act_int8=act_int8, lm_head_int8=True, group_size=group_size,
-    )
-    return cfg, dict(speech, llama=llama)
-
-
 def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
     import numpy as np
     import torch
@@ -926,49 +941,14 @@ def profile_chunk(dev, r, label="profile"):
         print(f"[{label}]   {t:9.3f} ms  {k[:90]}", flush=True)
 
 
-def main():
-    t_start = time.perf_counter()
-
-    # 1. device
+def check_flagship(dev, paths):
+    """The flagship W8A8 stream (ring wrap + an applied eviction), a chunk
+    stage by stage, a profiled chunk and the multiplier switch; returns the
+    encoder and adapter for the later 8B paths."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("FAIL: no CUDA device is available; this check needs one "
-              "H100", file=sys.stderr, flush=True)
-        sys.exit(2)
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    print(f"[device] {card}", flush=True)
-    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"count {torch.cuda.device_count()}", flush=True)
-    # state the float32 semantics: no TF32 in matmuls or convolutions
-    # (cuDNN's default would run the tiny model's float32 convolutions in
-    # TF32, and the card would then disagree with the CPU)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from infinisst_tpu_torch.bench import flagship_params
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from infinisst_tpu_torch.kernels import _build
-
-    # 2. build: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        for f in [pool.submit(_build.load_library, n) for n in SOURCES]:
-            f.result()
-    print(f"[build] {', '.join(SOURCES)} built for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
-          flush=True)
-
-    notes = Notes()
-    print("[kernels] against their plain versions on the card", flush=True)
-    check_kernels(dev, notes)
-    print("[attention] decode_attention against its plain version on the "
-          "card", flush=True)
-    check_attention(dev, notes)
-    print("[tiny] tiny speech-LLM: card against CPU", flush=True)
-    check_tiny(dev)
-
-    paths = {}
     print("[flagship] 8B W8A8, m=1, beam 4", flush=True)
     cfg, params = flagship_params(dev, act_int8=True)
     speech = {k: params[k] for k in ("w2v2", "adapter")}
@@ -1013,8 +993,16 @@ def main():
         paths[name] = ("flagship W8A8 stream", r["counts"])
     stage_chunk(dev, r)
     profile_chunk(dev, r)
+    check_multiplier(dev, r)
     del params, r
     torch.cuda.empty_cache()
+    return speech
+
+
+def check_weight_only(dev, paths, speech):
+    import torch
+
+    from infinisst_tpu_torch.bench import flagship_params
 
     print("[weight_only] 8B {'q_kmajor','scale'} projections", flush=True)
     cfg, params = flagship_params(dev, act_int8=False, speech=speech)
@@ -1036,6 +1024,12 @@ def main():
     profile_chunk(dev, r, label="w8 profile")
     del params, r
     torch.cuda.empty_cache()
+
+
+def check_group128(dev, paths, speech):
+    import torch
+
+    from infinisst_tpu_torch.bench import flagship_params
 
     print(f"[group128] 8B grouped W8A8 projections (groups of {GROUP}), "
           "per-channel W8A8 lm_head", flush=True)
@@ -1060,6 +1054,309 @@ def main():
     profile_chunk(dev, r, label="g128 profile")
     del params, r
     torch.cuda.empty_cache()
+
+
+def check_multiplier(dev, r):
+    """On the flagship stream: update_multiplier(2), then (4), one chunk
+    at each.  The encoder takes 96, then 192 frames; decode_attention is
+    launched twice per layer per beam forward, the GEMMs 7L + 1 times a
+    forward."""
+    import numpy as np
+
+    agent = r["agent"]
+    L = r["n_layers"]
+    for m in (2, 4):
+        agent.update_multiplier(m)
+        frames = int(agent.enc_state.n_frames[0])
+        audio = r["rng"].randn(agent.chunk_samples).astype(np.float32) * 0.1
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        agent.push(audio, finished=False)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = agent.last_result.steps  # 1 prefill + steps - 1 beam forwards
+        got = int(agent.enc_state.n_frames[0]) - frames
+        rtf = dt / (agent.chunk_samples / 16000)
+        print(f"[multiplier] m={m}: chunk {agent.chunk_samples} samples, "
+              f"{dt * 1e3:.2f} ms, RTF {rtf:.4f}; encoder frames +{got}; "
+              f"max_new {agent.max_new}; forwards "
+              f"{steps}; emitted {agent.pend_n_host}; launches {counts}",
+              flush=True)
+        if got != 48 * m:
+            fail(f"[multiplier] m={m}: the encoder took {got} frames, "
+                 f"expected {48 * m}")
+        if counts["decode_attention"] != (steps - 1) * L * 2:
+            fail(f"[multiplier] m={m}: decode_attention launched "
+                 f"{counts['decode_attention']} times, expected "
+                 f"{steps - 1} beam forwards x {L} layers x 2")
+        if counts["w8a8_gemm"] != steps * (7 * L + 1):
+            fail(f"[multiplier] m={m}: w8a8_gemm launched "
+                 f"{counts['w8a8_gemm']} times, expected {steps} forwards "
+                 f"x {7 * L + 1}")
+
+
+def check_bench():
+    """``python -m infinisst_tpu_torch.bench`` with its defaults, in a
+    subprocess: exit 0, and its last stdout line is the JSON line of
+    bench.py with metric streaming_rtf_m1_beam4_8b_int8 over 9 timed
+    chunks."""
+    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    for line in out.stderr.strip().splitlines()[-16:]:
+        print(f"[bench]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[bench] {' '.join(cmd[1:])} exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"[bench] its last stdout line is not JSON: {lines[-1:]}")
+    missing = [k for k in BENCH_KEYS if k not in result]
+    if result.get("metric") != BENCH_METRIC or missing:
+        fail(f"[bench] metric {result.get('metric')!r} (expected "
+             f"{BENCH_METRIC!r}), missing keys {missing}")
+    if "chunks=9 " not in out.stderr:
+        fail("[bench] the bench did not time 9 chunks")
+    launches = [json.loads(line[len("kernel launches "):]) for line in
+                out.stderr.splitlines() if line.startswith("kernel launches ")]
+    if not launches or not all(launches[-1].get(k, 0) > 0 for k in (
+            "w8a8_gemm", "row_quant_int8", "decode_attention")):
+        fail(f"[bench] the flagship kernels were not launched: {launches}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0):
+        fail(f"[bench] RTF {result['value']}")
+    print(f"[bench] {json.dumps(result)}", flush=True)
+
+
+def write_talks(d):
+    """Two seeded 16 kHz wav files (CLI_TALKS) and their source / target
+    lists in ``d``; returns the source and target paths."""
+    import numpy as np
+
+    from infinisst_tpu_torch.data.audio import write_wav
+
+    rng = np.random.RandomState(6)
+    paths = []
+    for i, (sec, _) in enumerate(CLI_TALKS):
+        n = int(sec * 16000)
+        wav = (np.sin(np.linspace(0, 700 + 100 * i, n)) * 0.3
+               + rng.randn(n) * 0.05).astype(np.float32)
+        paths.append(os.path.join(d, f"talk{i}.wav"))
+        write_wav(paths[-1], wav)
+    src, tgt = os.path.join(d, "talks.source"), os.path.join(d, "talks.target")
+    with open(src, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    with open(tgt, "w") as f:
+        f.write("\n".join(ref for _, ref in CLI_TALKS) + "\n")
+    return src, tgt
+
+
+def reference_bin_state(cfg, seed):
+    """A pruned stage-2 ``pytorch_model.bin`` state dict (the layout of
+    ``tests/test_convert.py:610``) for ``cfg``, as torch tensors: the
+    fairseq wav2vec2 body under ``model.speech_encoder.speech_encoder.``,
+    the adapter under ``model.speech_encoder.``, the Llama under HF
+    names."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.convert.from_torch import export_llama
+    from infinisst_tpu_torch.models import llama as L
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def put(key, shape, scale=None, fill=None):
+        sd[key] = (np.full(shape, fill, np.float32) if fill is not None
+                   else (rng.randn(*shape) * scale).astype(np.float32))
+
+    w = "model.speech_encoder.speech_encoder."
+    in_d = 1
+    for i, lc in enumerate(cfg.w2v2.conv_layers):
+        base = f"{w}feature_extractor.conv_layers.{i}"
+        put(f"{base}.0.weight", (lc.dim, in_d, lc.kernel), 0.3)
+        sd[f"{base}.2.1.weight"] = rng.rand(lc.dim).astype(np.float32)
+        put(f"{base}.2.1.bias", (lc.dim,), 0.1)
+        in_d = lc.dim
+    D, F = cfg.w2v2.encoder_embed_dim, cfg.w2v2.encoder_ffn_embed_dim
+    put(f"{w}layer_norm.weight", (in_d,), fill=1.0)
+    put(f"{w}layer_norm.bias", (in_d,), fill=0.0)
+    put(f"{w}post_extract_proj.weight", (D, in_d), 0.1)
+    put(f"{w}post_extract_proj.bias", (D,), fill=0.0)
+    for li in range(cfg.w2v2.encoder_layers):
+        e = f"{w}encoder.layers.{li}"
+        for nm in ("self_attn_layer_norm", "final_layer_norm"):
+            put(f"{e}.{nm}.weight", (D,), fill=1.0)
+            put(f"{e}.{nm}.bias", (D,), fill=0.0)
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(f"{e}.self_attn.{nm}.weight", (D, D), 0.1)
+            put(f"{e}.self_attn.{nm}.bias", (D,), fill=0.0)
+        put(f"{e}.fc1.weight", (F, D), 0.1)
+        put(f"{e}.fc1.bias", (F,), fill=0.0)
+        put(f"{e}.fc2.weight", (D, F), 0.1)
+        put(f"{e}.fc2.bias", (D,), fill=0.0)
+    put(f"{w}encoder.layer_norm.weight", (D,), fill=1.0)
+    put(f"{w}encoder.layer_norm.bias", (D,), fill=0.0)
+    in_d = cfg.adapter.in_dim
+    for i, lc in enumerate(cfg.adapter.conv_layers):
+        base = f"model.speech_encoder.length_shrink.conv_layers.{i}"
+        put(f"{base}.0.weight", (lc.dim, in_d, lc.kernel), 0.3)
+        sd[f"{base}.2.1.weight"] = rng.rand(lc.dim).astype(np.float32)
+        put(f"{base}.2.1.bias", (lc.dim,), fill=0.0)
+        in_d = lc.dim
+    put("model.speech_encoder.proj.weight", (cfg.adapter.out_dim, in_d), 0.2)
+    put("model.speech_encoder.proj.bias", (cfg.adapter.out_dim,), fill=0.0)
+    llama = L.init_params(cfg.llama, torch.Generator().manual_seed(seed),
+                          "cpu")
+    sd.update(export_llama(llama, cfg.llama))
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def _instances(out_dir):
+    with open(os.path.join(out_dir, "instances.log")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_cli_ckpt(d, talks):
+    """``agents.cli.main`` at the dryrun preset from a synthetic reference
+    .bin (loaded through convert/from_torch.py), float32, on the card and
+    on the CPU (TF32 off, as set in main): equal predictions and
+    delays."""
+    import torch
+
+    from infinisst_tpu_torch.agents import cli
+    from infinisst_tpu_torch.core.presets import dryrun_config
+
+    ckpt = os.path.join(d, "pytorch_model.bin")
+    torch.save(reference_bin_state(dryrun_config(), seed=42), ckpt)
+    logs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"ckpt_{device}")
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = cli.main([
+            "--source", talks[0], "--target", talks[1], "--output", out,
+            "--model-preset", "dryrun", "--state-dict-path", ckpt,
+            "--dtype", "float32", "--device", device,
+        ])
+        counts = launch_counts()
+        logs[device] = _instances(out)
+        print(f"[cli ckpt] {device}: {time.perf_counter() - t0:.1f} s, "
+              f"scores {json.dumps(scores)}, launches {counts}", flush=True)
+        if device == "cuda" and counts["decode_attention"] <= 0:
+            fail("[cli ckpt] the beam step did not launch decode_attention")
+    for g, c in zip(logs["cuda"], logs["cpu"]):
+        print(f"[cli ckpt] talk {g['index']}: cuda {g['prediction'][:96]!r}"
+              f" ({len(g['delays'])} writes)", flush=True)
+        print(f"[cli ckpt]         cpu  {c['prediction'][:96]!r}", flush=True)
+        if (g["prediction"], g["delays"]) != (c["prediction"], c["delays"]):
+            fail(f"[cli ckpt] talk {g['index']}: the card's predictions or "
+                 "delays differ from the CPU's")
+    if len(logs["cuda"]) != len(CLI_TALKS) or not all(
+            r["prediction"] for r in logs["cuda"]):
+        fail("[cli ckpt] a talk has no prediction")
+
+
+def check_cli_flagship(d, talks):
+    """``agents.cli.main`` at the flagship preset, m=2, no checkpoint
+    (random bf16 weights drawn on the card), the stub tokenizer: both
+    talks finish with a finite RTF and StreamLAAL."""
+    from infinisst_tpu_torch.agents import cli
+
+    out = os.path.join(d, "flagship")
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = cli.main([
+        "--source", talks[0], "--target", talks[1], "--output", out,
+        "--model-preset", "flagship", "--latency-multiplier", "2",
+    ])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    logs = _instances(out)
+    print(f"[cli flagship] {wall:.1f} s (random bf16 init included); scores "
+          f"{json.dumps(scores)}; launches {counts}", flush=True)
+    for rec in logs:
+        print(f"[cli flagship] talk {rec['index']}: "
+              f"{rec['source_length'] / 1000:.2f} s of audio, RTF "
+              f"{rec['rtf']:.4f}, {len(rec['delays'])} writes", flush=True)
+    if len(logs) != len(CLI_TALKS) or scores["n_instances"] != len(CLI_TALKS):
+        fail(f"[cli flagship] {len(logs)} talks finished")
+    for key in ("rtf", "stream_laal"):
+        if not math.isfinite(scores[key]):
+            fail(f"[cli flagship] {key} is {scores[key]}")
+    if counts["decode_attention"] <= 0:
+        fail("[cli flagship] the beam step did not launch decode_attention")
+
+
+def main():
+    t_start = time.perf_counter()
+
+    # 1. device
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device is available; this check needs one "
+              "H100", file=sys.stderr, flush=True)
+        sys.exit(2)
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"[device] {card}", flush=True)
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"count {torch.cuda.device_count()}", flush=True)
+    # state the float32 semantics: no TF32 in matmuls or convolutions
+    # (cuDNN's default would run the tiny model's float32 convolutions in
+    # TF32, and the card would then disagree with the CPU)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from infinisst_tpu_torch.kernels import _build
+
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    _build.load_all()
+    print(f"[build] {', '.join(_build.SOURCES)} built for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
+          flush=True)
+
+    notes = Notes()
+    with phase("kernels"):
+        print("[kernels] against their plain versions on the card",
+              flush=True)
+        check_kernels(dev, notes)
+    with phase("attention"):
+        print("[attention] decode_attention against its plain version on "
+              "the card", flush=True)
+        check_attention(dev, notes)
+    with phase("tiny"):
+        print("[tiny] tiny speech-LLM: card against CPU", flush=True)
+        check_tiny(dev)
+
+    paths = {}
+    with phase("flagship"):
+        speech = check_flagship(dev, paths)
+    with phase("weight_only"):
+        check_weight_only(dev, paths, speech)
+    with phase("group128"):
+        check_group128(dev, paths, speech)
+    del speech
+    torch.cuda.empty_cache()
+    with phase("bench"):
+        check_bench()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cli_dir = tempfile.mkdtemp(prefix="cli_smoke_",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        wavs = write_talks(cli_dir)
+        with phase("cli ckpt"):
+            check_cli_ckpt(cli_dir, wavs)
+        with phase("cli flagship"):
+            check_cli_flagship(cli_dir, wavs)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
 
     # 9. the kernels line
     q_src = "infinisst_tpu_torch/csrc/quant_matmul.cu"

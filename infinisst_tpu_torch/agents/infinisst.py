@@ -7,6 +7,9 @@ step + adapter -> splice the speech into the chunk prompt -> one prefill
 over [previous chunk's emitted tokens | prompt] -> beam search -> drop the
 last token when the cap was hit -> history ring update.
 
+``update_multiplier`` changes the latency multiplier mid-stream, and
+``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
+int8 (``quant.quantize_llama_params``, served by ``w8_bf16_gemm``).
 Speculative decoding, sampling, AlignAtt and the fallback warm are not
 ported; asking for them raises ``NotImplementedError``.
 """
@@ -62,14 +65,14 @@ class InfiniSSTOptions:
     rtf_timing: bool = False  # print per-policy-call wall time
     dpo_sampling: bool = False  # dump per-chunk translations
     output_file: str = "translations.json"
+    quantize: bool = False  # weight-only int8 projections
     # not ported yet: each raises NotImplementedError when set
-    quantize: bool = False
     do_sample: bool = False
     speculative: bool = False
     spec_beam: bool = False
 
 
-_UNPORTED = ("quantize", "do_sample", "speculative", "spec_beam")
+_UNPORTED = ("do_sample", "speculative", "spec_beam")
 
 
 class InfiniSSTAgent(SpeechToTextAgent):
@@ -89,6 +92,11 @@ class InfiniSSTAgent(SpeechToTextAgent):
                     f"InfiniSSTOptions.{name} is not ported to PyTorch yet"
                 )
         self.device = resolve_device(device)
+        if opts.quantize:
+            from infinisst_tpu_torch.models.quant import quantize_llama_params
+
+            params = dict(params)
+            params["llama"] = quantize_llama_params(params["llama"])
         self.params = params
         self.cfg = model_cfg
         self.stream = stream_cfg
@@ -101,8 +109,7 @@ class InfiniSSTAgent(SpeechToTextAgent):
         self.window_samples = CONV_LEFT_CONTEXT + 2 * stream_cfg.chunk_samples(
             opts.max_latency_multiplier
         )
-        self.chunk_samples = stream_cfg.chunk_samples(opts.latency_multiplier)
-        self.max_new = stream_cfg.max_new_tokens(opts.latency_multiplier)
+        self._set_multiplier_geometry(opts.latency_multiplier)
         V = model_cfg.llama.vocab_size
         sup = torch.zeros((V,), dtype=torch.bool)
         if opts.suppress_tokens is not None:
@@ -111,6 +118,23 @@ class InfiniSSTAgent(SpeechToTextAgent):
         self._prompts: Dict = {}
         super().__init__()
         self._init_device_state()
+
+    def _set_multiplier_geometry(self, m: int):
+        self.opts.latency_multiplier = m
+        self.chunk_samples = self.stream.chunk_samples(m)
+        self.chunk_frames = self.stream.chunk_frames(m)
+        self.max_new = self.stream.max_new_tokens(m)
+
+    def update_multiplier(self, multiplier: int):
+        """Change the latency multiplier mid-stream.  The device state is
+        sized for the largest multiplier, so only the chunk geometry and
+        the prompts follow the new one."""
+        if not 1 <= multiplier <= self.opts.max_latency_multiplier:
+            raise ValueError(
+                f"latency multiplier {multiplier} is outside 1.."
+                f"{self.opts.max_latency_multiplier}"
+            )
+        self._set_multiplier_geometry(multiplier)
 
     # -- state -------------------------------------------------------------
     def _init_device_state(self):
@@ -188,11 +212,13 @@ class InfiniSSTAgent(SpeechToTextAgent):
 
         # deferred eviction: the previous chunk's trim.  With no trim
         # pending (keep = valid_len, sys = 0) the gather is the identity,
-        # so it is skipped.
+        # so it is skipped.  The trim is cleared only once it is applied:
+        # a step that fails before this point keeps it for the next one.
         if ev_sys != 0 or ev_keep != int(self.dec_state.valid_len[0]):
             self.dec_state = llama_mod.evict_cache(
                 self.dec_state, torch.tensor([ev_keep], device=dev), ev_sys
             )
+        self._pending_evict = None
         # roll the device window
         new = torch.as_tensor(chunk_i16, device=dev).to(torch.float32)[None]
         new = new / 32768.0
@@ -303,9 +329,14 @@ class InfiniSSTAgent(SpeechToTextAgent):
                 f"'{translation}'" if translation else "''"
             )
             if states.source_finished:
-                with open(opts.output_file, "a", encoding="utf-8") as f:
-                    f.write("[" + ", ".join(states.translations_list) + "]\n")
-                states.translations_list = []
+                try:
+                    with open(opts.output_file, "a", encoding="utf-8") as f:
+                        f.write(
+                            "[" + ", ".join(states.translations_list) + "]\n"
+                        )
+                    states.translations_list = []
+                except OSError as e:
+                    print(f"Error writing translations to file: {e}")
         states.segment_idx += 1
         if translation != "" or states.source_finished:
             return WriteAction(content=translation,
@@ -323,8 +354,7 @@ class InfiniSSTAgent(SpeechToTextAgent):
         # 16-bit PCM, as the JAX agent uploads it
         chunk_i16 = np.clip(seg * 32768.0, -32768, 32767).astype(np.int16)
         if self._pending_evict is not None:
-            ev_keep, ev_sys = self._pending_evict
-            self._pending_evict = None
+            ev_keep, ev_sys = self._pending_evict  # cleared once applied
         else:
             ev_keep = self.llm_cache_len - self.pend_n_host
             ev_sys = 0

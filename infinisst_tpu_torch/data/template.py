@@ -1,5 +1,5 @@
 """Llama-3/3.1 chat template for the streaming transcript (a copy of the
-prompt-building parts of ``infinisst_tpu/data/template.py``).
+prompt-building and tokenizer parts of ``infinisst_tpu/data/template.py``).
 
 The template is built once per (multiplier, first/later) as a fixed token
 layout, so the chunk step sees a closed set of shapes and the speech patch
@@ -25,6 +25,8 @@ import numpy as np
 from infinisst_tpu_torch.core.config import SpecialTokens
 
 DEFAULT_SPEECH_PATCH_TOKEN = "<sp_patch>"
+DEFAULT_SPEECH_START_TOKEN = "<sp_start>"
+DEFAULT_SPEECH_END_TOKEN = "<sp_end>"
 DEFAULT_LATENCY_TOKEN = "<latency_{}>"
 
 
@@ -50,6 +52,62 @@ class StubTokenizer:
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
         return " ".join(f"tok{i}" for i in ids)
+
+
+class HFTokenizerAdapter:
+    """Wraps a HF tokenizer (with the 7 extra tokens registered, ref:
+    model/llm.py:149-190) behind the minimal interface the agents use."""
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.vocab_size = len(tok)
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return self.tok.decode(ids, skip_special_tokens=skip_special_tokens)
+
+    def apply_chat_template(self, messages) -> List[int]:
+        return list(
+            self.tok.apply_chat_template(
+                messages, add_special_tokens=False
+            )
+        )
+
+
+def register_special_tokens(tok, model_cfg, max_multiplier: int = 4):
+    """Register the 7 extra tokens on a HF tokenizer and check that their
+    ids line up with the model config (the reference's preprocess(),
+    model/llm.py:149-190; the ids follow the base vocabulary: sp_patch ==
+    128256)."""
+    tok.add_tokens(
+        [
+            DEFAULT_SPEECH_PATCH_TOKEN,
+            DEFAULT_SPEECH_START_TOKEN,
+            DEFAULT_SPEECH_END_TOKEN,
+        ]
+        + [DEFAULT_LATENCY_TOKEN.format(i) for i in range(1, max_multiplier + 1)],
+        special_tokens=True,
+    )
+    tok.pad_token = "<|finetune_right_pad_id|>"
+    t = model_cfg.tokens
+    got = tok.convert_tokens_to_ids(
+        [
+            DEFAULT_SPEECH_PATCH_TOKEN,
+            DEFAULT_SPEECH_START_TOKEN,
+            DEFAULT_SPEECH_END_TOKEN,
+        ]
+    )
+    expect = [t.sp_patch, t.sp_start, t.sp_end]
+    assert got == expect, (
+        f"added-token ids {got} do not match the model config {expect}; "
+        "check the tokenizer matches the released checkpoints"
+    )
+    assert len(tok) <= model_cfg.llama.vocab_size, (
+        len(tok), model_cfg.llama.vocab_size,
+    )
+    return tok
 
 
 @dataclass

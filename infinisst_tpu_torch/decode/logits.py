@@ -14,10 +14,14 @@ NEG_INF = -1e9
 
 
 def _presence(V: int, tokens: torch.Tensor, flags: torch.Tensor):
-    """(B, V) bool: True where some token with a True flag has that id."""
+    """(B, V) bool: True where some token with a True flag has that id.
+    Ids past the vocabulary mark nothing, as the JAX package's scatter
+    drops them."""
     out = torch.zeros((tokens.shape[0], V), dtype=torch.float32,
                       device=tokens.device)
-    out.scatter_reduce_(1, tokens.to(torch.int64), flags.to(torch.float32),
+    tokens = tokens.to(torch.int64)
+    flags = flags & (tokens < V)
+    out.scatter_reduce_(1, tokens.clamp(max=V - 1), flags.to(torch.float32),
                         reduce="amax")
     return out > 0
 

@@ -16,6 +16,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+# every kernel source of the package
+SOURCES = ("quant_matmul", "grouped_matmul", "decode_attention")
 
 _libs = {}
 
@@ -39,3 +41,12 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(os.path.join(build_dir, f"infinisst_{name}.so"))
     _libs[name] = lib
     return lib
+
+
+def load_all(names=SOURCES):
+    """Build every source at once, one nvcc per source, in parallel."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(load_library, n) for n in names]:
+            f.result()

@@ -151,7 +151,9 @@ def decode_step(
 
 
 def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][token_ids]
+    # an id past the vocabulary takes the last row, as the JAX package's
+    # gather clamps it (a stub tokenizer's ids over a small preset's vocab)
+    return params["embed"][token_ids.clamp(max=params["embed"].shape[0] - 1)]
 
 
 def beam_token_step(

@@ -11,6 +11,9 @@
    step apart between the frameworks; the kernels themselves are bitwise
    equal).
 3. The agent's bookkeeping over a longer stream with evictions.
+4. ``update_multiplier`` and ``InfiniSSTOptions.quantize`` against the JAX
+   agent (equal tokens); a failed step keeps the deferred trim; an
+   unwritable ``dpo_sampling`` file does not fail the stream.
 """
 
 import json
@@ -41,7 +44,13 @@ from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
 from infinisst_tpu_torch.decode import beam as TB
 from infinisst_tpu_torch.models import speech_llm as TSL
 from infinisst_tpu_torch.streaming import state as TS
-from tests.test_agent import CFG, VOCAB, small_special_tokens, tiny_params
+from tests.test_agent import (
+    CFG,
+    VOCAB,
+    make_agent,
+    small_special_tokens,
+    tiny_params,
+)
 
 torch.set_num_threads(1)
 
@@ -216,8 +225,173 @@ def test_agent_long_stream_bookkeeping():
     )
 
 
-def test_unported_options_raise():
-    for kw in ({"speculative": True}, {"do_sample": True}, {"quantize": True},
-               {"spec_beam": True}):
-        with pytest.raises(NotImplementedError):
-            make_port_agent(None, **kw)
+@pytest.mark.parametrize("option", ["speculative", "do_sample", "spec_beam"])
+def test_unported_options_raise(option):
+    with pytest.raises(NotImplementedError):
+        make_port_agent(None, **{option: True})
+
+
+def _push_chunks(agent, rng, sizes):
+    out = []
+    for n in sizes:
+        before = len(agent.states.target_ids)
+        agent.push(rng.randn(n).astype(np.float32) * 0.1)
+        out.append([int(t) for t in agent.states.target_ids[before:]])
+    return out
+
+
+def test_update_multiplier_matches_jax():
+    """One chunk at m=1, then ``update_multiplier(2)`` and one chunk at
+    m=2 (JAX ``tests/test_agent.py:test_update_multiplier_mid_stream``):
+    the geometry follows m, the encoder consumed 48 + 96 frames, and each
+    chunk's tokens equal the JAX agent's over the same audio."""
+    port = make_port_agent(from_jax(jax.device_get(tiny_params()),
+                                    device="cpu"))
+    jax_agent = make_agent(multiplier=1)
+    got, want = [], []
+    for agent, out in ((port, got), (jax_agent, want)):
+        rng = np.random.RandomState(7)
+        out += _push_chunks(agent, rng, [15360])
+        assert agent.chunk_samples == 15360
+        agent.update_multiplier(2)
+        assert (agent.chunk_samples, agent.chunk_frames, agent.max_new) == \
+            (30720, 96, 20)
+        out += _push_chunks(agent, rng, [30720])
+        assert int(agent.enc_state.n_frames[0]) == 48 + 96
+    assert got == want and any(got[1]), (got, want)
+    with pytest.raises(ValueError, match="outside 1..4"):
+        port.update_multiplier(5)
+
+
+# widths that tile by 128 columns, as quantize_llama_params requires
+WIDE_CFG = CFG.replace(
+    adapter=CFG.adapter.__class__(conv_layers=CFG.adapter.conv_layers,
+                                  in_dim=64, out_dim=256),
+    llama=CFG.llama.__class__(vocab_size=VOCAB, hidden_size=256,
+                              intermediate_size=384, num_layers=2,
+                              num_heads=2, num_kv_heads=1, head_dim=128,
+                              rope_scaling=False),
+)
+
+
+def test_quantize_option_matches_jax(monkeypatch):
+    """``InfiniSSTOptions.quantize``: the agent's Llama leaves equal JAX
+    ``quantize_llama_params`` (packed K-major), and one chunk gives the
+    JAX agent's tokens (its weight-only Pallas kernel in interpret
+    mode)."""
+    from infinisst_tpu.agents.infinisst import InfiniSSTAgent as JAgent
+    from infinisst_tpu.agents.infinisst import InfiniSSTOptions as JOptions
+    from infinisst_tpu.core.config import StreamConfig as JStream
+    from infinisst_tpu.kernels.quant_matmul import quantized_matmul
+    from infinisst_tpu.models import llama as JL
+
+    monkeypatch.setattr(
+        JQ, "quantized_matmul",
+        lambda y, w, s, interpret=False: quantized_matmul(
+            y, w, s, tile_o=128, interpret=True),
+    )
+    k = jax.random.PRNGKey(0)
+    jp = {
+        "w2v2": JW.init_params(jax.random.fold_in(k, 0), WIDE_CFG.w2v2),
+        "adapter": JA.init_params(jax.random.fold_in(k, 1),
+                                  WIDE_CFG.adapter),
+        "llama": JL.init_params(jax.random.fold_in(k, 2), WIDE_CFG.llama),
+    }
+    port_cfg = TC.ModelConfig(
+        w2v2=TC.W2V2Config(**WIDE_CFG.w2v2.__dict__),
+        adapter=TC.AdapterConfig(**WIDE_CFG.adapter.__dict__),
+        llama=TC.LlamaConfig(**WIDE_CFG.llama.__dict__),
+        tokens=_tokens(),
+    )
+    stream = TC.StreamConfig(max_cache_frames=96, max_llm_cache_tokens=120,
+                             llm_cache_capacity=256)
+    builder = PromptBuilder(StubTokenizer(vocab_size=VOCAB, lo=10, hi=400),
+                            port_cfg.tokens)
+    port = InfiniSSTAgent(
+        from_jax(jax.device_get(jp), device="cpu"), port_cfg, stream,
+        builder, InfiniSSTOptions(beam=2, max_llm_cache_size=120,
+                                  no_repeat_ngram_lookback=32,
+                                  quantize=True),
+        param_dtype=torch.float32, device="cpu",
+    )
+    want_llama = from_jax(jax.device_get(JQ.quantize_llama_params(
+        jp["llama"])), device="cpu")
+    got_layers = port.params["llama"]["layers"]
+    for name in JQ.QUANT_KEYS:
+        assert set(got_layers[name]) == {"q_kmajor", "scale"}
+        for key in ("q_kmajor", "scale"):
+            assert torch.equal(got_layers[name][key],
+                               want_llama["layers"][name][key]), name
+    assert torch.equal(port.params["llama"]["lm_head"],
+                       want_llama["lm_head"])
+
+    jax_agent = JAgent(
+        jp, WIDE_CFG.replace(tokens=small_special_tokens()),
+        JStream(max_cache_frames=96, max_llm_cache_tokens=120,
+                llm_cache_capacity=256),
+        JPromptBuilder(JStub(vocab_size=VOCAB, lo=10, hi=400),
+                       small_special_tokens()),
+        JOptions(beam=2, max_llm_cache_size=120, no_repeat_ngram_lookback=32,
+                 quantize=True),
+        param_dtype=jnp.float32,
+    )
+    got = _push_chunks(port, np.random.RandomState(3), [15360])
+    want = _push_chunks(jax_agent, np.random.RandomState(3), [15360])
+    assert got == want and any(got[0]), (got, want)
+
+
+def test_failed_step_keeps_the_deferred_trim(monkeypatch):
+    """A chunk step that raises before its eviction has run keeps the
+    trim for the next step; the next step applies it with the system
+    prompt pinned, and on the success path nothing else changes."""
+    from infinisst_tpu_torch.models import llama as TL
+
+    agent = make_port_agent(
+        from_jax(jax.device_get(tiny_params()), device="cpu"),
+        max_llm_cache_size=64, capacity=160,
+    )
+    rng = np.random.RandomState(11)
+    while agent._pending_evict is None:
+        agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1)
+    pending = agent._pending_evict
+    sys_len = agent.system_prompt_size
+    assert pending[1] == sys_len > 0
+    sys_k = agent.dec_state.k[:, :, :sys_len].clone()
+    evict = TL.evict_cache
+
+    def fail(*a, **k):
+        raise RuntimeError("step failed before its eviction")
+
+    monkeypatch.setattr(TL, "evict_cache", fail)
+    with pytest.raises(RuntimeError, match="before its eviction"):
+        agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1)
+    assert agent._pending_evict == pending
+    monkeypatch.setattr(TL, "evict_cache", evict)
+    seen = []
+
+    def spy(state, keep, sys):
+        seen.append((int(keep[0]), int(sys)))
+        return evict(state, keep, sys)
+
+    monkeypatch.setattr(TL, "evict_cache", spy)
+    agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1)
+    assert seen[0] == pending
+    assert torch.equal(agent.dec_state.k[:, :, :sys_len], sys_k)
+    agent.flush_pending_evict()
+    assert agent.llm_cache_len == (
+        int(agent.dec_state.valid_len[0]) + agent.pend_n_host
+    )
+
+
+def test_unwritable_translation_file_still_writes(tmp_path, capsys):
+    """``dpo_sampling`` appends the stream's translations at its end; an
+    unwritable file is reported and the ``WriteAction`` is returned, as
+    in the JAX agent."""
+    agent = make_port_agent(
+        from_jax(jax.device_get(tiny_params()), device="cpu"),
+        dpo_sampling=True, output_file=str(tmp_path / "no_dir" / "t.json"),
+    )
+    act = agent.push(np.random.RandomState(2).randn(15360).astype(
+        np.float32) * 0.1, finished=True)
+    assert not act.is_read() and act.finished
+    assert "Error writing translations to file" in capsys.readouterr().out

@@ -1,0 +1,291 @@
+"""The port's entry-point plumbing against the JAX package's: presets,
+``agents/cli.py`` (its flags, the suppress list, ``build_agent`` from a
+checkpoint, ``main`` end to end), the HF tokenizer adapter and
+``train/main.build_params``.  All on the CPU at the dryrun preset.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from infinisst_tpu.agents import cli as JCLI
+from infinisst_tpu.core import presets as JP
+from infinisst_tpu.data import audio as JAudio
+from infinisst_tpu.data import template as JT
+from infinisst_tpu.train import main as JMain
+from infinisst_tpu_torch.agents import cli as TCLI
+from infinisst_tpu_torch.convert.from_jax import from_jax
+from infinisst_tpu_torch.core import presets as TP
+from infinisst_tpu_torch.data import template as TT
+from infinisst_tpu_torch.train import main as TMain
+from tests.test_cli_utils import FakeHFTok
+from tests.test_e2e_files import _build_reference_bin
+from tests.test_torch_convert import assert_trees_equal
+
+torch.set_num_threads(1)
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "llama31_tokenizer")
+
+
+@pytest.mark.parametrize("name", ["flagship", "bench", "dryrun"])
+def test_presets_match_jax(name):
+    fn = {"flagship": "flagship_config", "bench": "bench_1chip_config",
+          "dryrun": "dryrun_config"}[name]
+    got = dataclasses.asdict(TP.PRESETS[name]())
+    assert got == dataclasses.asdict(getattr(TP, fn)())
+    assert got == dataclasses.asdict(getattr(JP, fn)())
+
+
+def _parse(mod, argv):
+    p = argparse.ArgumentParser()
+    mod.add_args(p)
+    return vars(p.parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--latency-multiplier", "2", "--beam", "2", "--dtype", "float32",
+     "--model-preset", "dryrun", "--always-cache-system-prompt"],
+    ["--state-dict-path", "x.bin", "--w2v2-path", "w.pt", "--w2v2-type",
+     "hubert", "--rope", "0", "--xpos", "1", "--max-cache-size", "96",
+     "--max-llm-cache-size", "500", "--suppress-non-language",
+     "--timing", "t.timing", "--source-segment-size", "1920",
+     "--eval-latency-unit", "char", "--sacrebleu-tokenizer", "zh",
+     "--max-instances", "3", "--target-lang", "Chinese",
+     "--min-start-sec", "0.5", "--repetition-penalty", "1.1"],
+    ["--agent", "alignatt", "--speculative", "--spec-k", "2", "--do-sample",
+     "--top-k", "5", "--temperature", "0.7"],
+])
+def test_add_args_parse_as_jax(argv):
+    argv = ["--source", "a.source", "--target", "a.target"] + argv
+    got, want = _parse(TCLI, argv), _parse(JCLI, argv)
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+def test_suppress_list_scans_added_tokens_and_skips_specials():
+    """Mirrors tests/test_cli_utils.py: len(tokenizer) is scanned (added
+    tokens included), decoded with skip_special_tokens=True."""
+    got = TCLI.build_suppress_list(FakeHFTok())
+    np.testing.assert_array_equal(got, [1, 3, 5])
+    np.testing.assert_array_equal(got, JCLI.build_suppress_list(FakeHFTok()))
+
+
+def test_suppress_list_vocab_size_fallback():
+    class NoLen:
+        vocab_size = 4
+
+        def decode(self, ids, skip_special_tokens=True):
+            return "(x" if ids[0] == 2 else "ok"
+
+    np.testing.assert_array_equal(TCLI.build_suppress_list(NoLen()), [2])
+
+
+def test_hf_tokenizer_adapter_matches_jax():
+    """The fixture tokenizer with the 7 extra tokens registered by each
+    package: equal ids, decodes, chat-template renders and chunk
+    prompts."""
+    pytest.importorskip("tokenizers")
+    from transformers import AutoTokenizer
+
+    def load(T):
+        tok = AutoTokenizer.from_pretrained(FIXTURE)
+        base = len(tok)
+        toks = T.SpecialTokens(
+            bos=tok.convert_tokens_to_ids("<|begin_of_text|>"),
+            end_of_text=tok.convert_tokens_to_ids("<|end_of_text|>"),
+            eot=tok.convert_tokens_to_ids("<|eot_id|>"),
+            eos=tok.convert_tokens_to_ids("<|eot_id|>"),
+            start_header=tok.convert_tokens_to_ids("<|start_header_id|>"),
+            end_header=tok.convert_tokens_to_ids("<|end_header_id|>"),
+            pad=tok.convert_tokens_to_ids("<|finetune_right_pad_id|>"),
+            user=tok.convert_tokens_to_ids("user"),
+            assistant=tok.convert_tokens_to_ids("assistant"),
+            newline2=tok.encode("\n\n", add_special_tokens=False)[0],
+            sp_patch=base, sp_start=base + 1, sp_end=base + 2,
+            latency=(base + 3, base + 4, base + 5, base + 6),
+        )
+        cfg = SimpleNamespace(tokens=toks,
+                              llama=SimpleNamespace(vocab_size=base + 16))
+        return tok, toks, cfg
+
+    from infinisst_tpu.core import config as JC
+    from infinisst_tpu_torch.core import config as TCfg
+
+    ttok, ttoks, tcfg = load(TCfg)
+    jtok, jtoks, jcfg = load(JC)
+    TT.register_special_tokens(ttok, tcfg)
+    JT.register_special_tokens(jtok, jcfg)
+    assert len(ttok) == len(jtok)
+    ta, ja = TT.HFTokenizerAdapter(ttok), JT.HFTokenizerAdapter(jtok)
+    assert ta.vocab_size == ja.vocab_size
+    text = "Translate the following speech from English to German <latency_2>."
+    assert ta.encode(text) == ja.encode(text)
+    ids = ta.encode(text) + [ttoks.sp_patch, ttoks.eot]
+    for skip in (True, False):
+        assert ta.decode(ids, skip) == ja.decode(ids, skip)
+    msgs = [{"role": "system", "content": text}]
+    assert ta.apply_chat_template(msgs) == ja.apply_chat_template(msgs)
+    tb = TT.PromptBuilder(ta, ttoks)
+    jb = JT.PromptBuilder(ja, jtoks)
+    for m in (1, 2):
+        for first in (True, False):
+            tp, jp = tb.chunk_prompt(m, first), jb.chunk_prompt(m, first)
+            np.testing.assert_array_equal(tp.ids, jp.ids)
+            assert tp.patch_start == jp.patch_start
+        assert tb.system_prompt_size(m) == jb.system_prompt_size(m)
+    with pytest.raises(AssertionError, match="do not match"):
+        bad = SimpleNamespace(tokens=dataclasses.replace(ttoks, sp_patch=7),
+                              llama=tcfg.llama)
+        TT.register_special_tokens(AutoTokenizer.from_pretrained(FIXTURE),
+                                   bad)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """A synthetic reference .bin at the dryrun preset, two wav files
+    (2.1 s and 1.3 s) and their source / target lists."""
+    d = tmp_path_factory.mktemp("cli")
+    rng = np.random.RandomState(42)
+    bin_sd, _ = _build_reference_bin(rng, JP.dryrun_config())
+    bin_path = d / "pytorch_model.bin"
+    torch.save({k: torch.from_numpy(v) for k, v in bin_sd.items()}, bin_path)
+    wavs = []
+    for i, n in enumerate((34000, 20800)):
+        wav = (np.sin(np.linspace(0, 700 + 100 * i, n)) * 0.3
+               + rng.randn(n) * 0.02).astype(np.float32)
+        p = d / f"talk{i}.wav"
+        JAudio.write_wav(str(p), wav)
+        wavs.append(str(p))
+    (d / "tst.source").write_text("\n".join(wavs) + "\n")
+    (d / "tst.target").write_text("ein kleiner test satz\tnoch einer\n"
+                                  "zweiter talk text\n")
+    return d
+
+
+def _argv(files, out, *extra):
+    return ["--agent", "infinisst", "--source", str(files / "tst.source"),
+            "--target", str(files / "tst.target"), "--output", str(out),
+            "--state-dict-path", str(files / "pytorch_model.bin"),
+            "--model-preset", "dryrun", "--beam", "2",
+            "--max-llm-cache-size", "120", "--always-cache-system-prompt",
+            "--dtype", "float32", *extra]
+
+
+def test_build_agent_from_checkpoint(files):
+    """``build_agent`` on the CPU: its parameters equal ``from_jax`` of
+    JAX ``build_params`` on the same .bin, bitwise, and over 2 chunks it
+    emits the tokens of the port agent built directly from them."""
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core.config import StreamConfig
+
+    args = argparse.ArgumentParser()
+    TCLI.add_args(args)
+    args = args.parse_args(_argv(files, files / "unused", "--device", "cpu"))
+    agent = TCLI.build_agent(args)
+
+    class _A:
+        llm_path = w2v2_path = None
+        sllm_weight_path = str(files / "pytorch_model.bin")
+
+    want = from_jax(jax.device_get(
+        JMain.build_params(_A, JP.dryrun_config())), device="cpu")
+    assert_trees_equal(agent.params, want)
+
+    cfg = TP.dryrun_config()
+    direct = InfiniSSTAgent(
+        want, cfg,
+        StreamConfig(max_cache_frames=576, max_llm_cache_tokens=120,
+                     llm_cache_capacity=1280),
+        TT.PromptBuilder(TT.StubTokenizer(cfg.llama.vocab_size), cfg.tokens),
+        InfiniSSTOptions(beam=2, max_llm_cache_size=120,
+                         always_cache_system_prompt=True),
+        param_dtype=torch.float32, device="cpu",
+    )
+    out = []
+    for a in (agent, direct):
+        rng = np.random.RandomState(5)
+        a.push(rng.randn(2 * a.chunk_samples).astype(np.float32) * 0.1)
+        out.append(list(a.states.target_ids))
+    assert out[0] == out[1] and out[0]
+
+
+def test_main_matches_jax_cli(files, tmp_path, monkeypatch):
+    """``main`` end to end on the CPU (checkpoint -> agent -> wav files ->
+    eval runner -> scores) against the JAX CLI on the same files: equal
+    predictions and delays in ``instances.log``, equal BLEU and
+    StreamLAAL.  The stub tokenizer's ids lie past the dryrun vocabulary,
+    so this also holds the port's gathers and scatters of such ids to
+    JAX's (clamped and dropped)."""
+    got = TCLI.main(_argv(files, tmp_path / "port", "--device", "cpu"))
+    monkeypatch.setattr(sys, "argv", ["cli"] + _argv(files, tmp_path / "jax"))
+    JCLI.main()
+    want = json.loads((tmp_path / "jax" / "scores.json").read_text())
+    for key in ("stream_laal", "n_instances"):
+        assert got[key] == want[key], key
+    assert np.isnan(got["bleu"]) == np.isnan(want["bleu"])
+    if not np.isnan(want["bleu"]):
+        assert got["bleu"] == want["bleu"]
+    logs = [[json.loads(line) for line in
+             (tmp_path / d / "instances.log").read_text().splitlines()]
+            for d in ("port", "jax")]
+    assert len(logs[0]) == len(logs[1]) == 2
+    for g, w in zip(*logs):
+        for key in ("prediction", "reference", "delays", "source_length"):
+            assert g[key] == w[key], key
+    assert any(r["prediction"] for r in logs[0])
+
+
+@pytest.mark.parametrize("extra, item", [
+    (["--agent", "alignatt"], "item 10"),
+    (["--agent", "streamatt"], "item 10"),
+    (["--speculative"], "item 12"),
+    (["--spec-k", "2"], "item 12"),
+    (["--do-sample"], "item 11"),
+])
+def test_unported_paths_exit(files, tmp_path, extra, item):
+    argv = _argv(files, tmp_path, "--device", "cpu")
+    argv[argv.index("--agent"):argv.index("--agent") + 2] = []
+    with pytest.raises(SystemExit, match=item):
+        TCLI.main(argv + extra)
+
+
+def test_random_init_is_seeded():
+    """No paths: every component is drawn from its seeded generator, so
+    two builds are equal; a loaded component replaces its draw."""
+    class _A:
+        llm_path = w2v2_path = sllm_weight_path = None
+
+    cfg = TP.dryrun_config()
+    a = TMain.build_params(_A, cfg, device="cpu")
+    b = TMain.build_params(_A, cfg, device="cpu", dtype=torch.bfloat16)
+    assert_trees_equal(a, TMain.random_params(cfg, "cpu"))
+    assert_trees_equal(b, TMain.random_params(cfg, "cpu", torch.bfloat16))
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card path")
+
+
+def test_cli_defaults_to_cuda(files, tmp_path, no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TCLI.main(_argv(files, tmp_path))
+
+    class _A:
+        llm_path = w2v2_path = sllm_weight_path = None
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMain.build_params(_A, TP.dryrun_config())

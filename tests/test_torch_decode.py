@@ -135,3 +135,29 @@ def test_beam_search_matches_jax(kind, beam):
     assert got.steps == int(want.steps)
     assert got.hit_eos == bool(want.hit_eos)
     np.testing.assert_allclose(got.score, float(want.score), rtol=1e-5)
+
+
+def test_ids_past_the_vocabulary_match_jax():
+    """A stub tokenizer over a small vocabulary gives prompt ids past it:
+    the JAX gather clamps them to the last row and its scatters drop them;
+    the port's ``embed`` and processors do the same."""
+    from infinisst_tpu_torch.models import llama as TL
+
+    s, toks, vlen = _scores_and_buffers(3)
+    toks[:, ::3] = V + np.arange(toks[:, ::3].size).reshape(3, -1) * 97
+    toks[1, 4:7] = toks[1, 0:3]  # an n-gram whose banned token is past V
+    valid = np.arange(toks.shape[1])[None] < vlen[:, None]
+    pairs = [
+        (JLP.repetition_penalty(jnp.asarray(s), jnp.asarray(toks),
+                                jnp.asarray(valid), 1.2),
+         TLP.repetition_penalty(_t(s), _t(toks), torch.from_numpy(valid),
+                                1.2)),
+        (JLP.no_repeat_ngram(jnp.asarray(s), jnp.asarray(toks),
+                             jnp.asarray(vlen), 2),
+         TLP.no_repeat_ngram(_t(s), _t(toks), _t(vlen), 2)),
+    ]
+    emb = np.random.RandomState(4).randn(V, 8).astype(np.float32)
+    pairs.append((JL.embed({"embed": jnp.asarray(emb)}, jnp.asarray(toks)),
+                  TL.embed({"embed": torch.from_numpy(emb)}, _t(toks))))
+    for want, got in pairs:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
