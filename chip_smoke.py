@@ -30,9 +30,16 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  torch._weight_int8pack_mm (on the same (O, D) weight)
                  beside w8_bf16_gemm; none for the grouped pair (no single
                  PyTorch call computes it).
+                 The serving pool's shapes, M = 32 (a beam step of 8
+                 slots x 4 beams) and M = 384 / 512 / 640 (its prefill at
+                 m = 1, mixed (1, 2) and (1, 2, 4)) and 768, take
+                 row_quant_int8 and w8a8_gemm only, with the _int_mm
+                 yardstick.
   4. attention -- decode_attention against its plain version at the beam
-                 step's two blocks and at decode_attention_batched's pooled
-                 shapes, within ATT_RTOL; times as in phase 3, with
+                 step's two blocks, at decode_attention_batched's pooled
+                 shapes and at the serving pool's two blocks (its prefix:
+                 8 caches, each read by its slot's 4 beams), within
+                 ATT_RTOL; times as in phase 3, with
                  F.scaled_dot_product_attention (enable_gqa) over keys
                  rotated beforehand as the library yardstick.
   5. tiny     -- a tiny speech-LLM on the card against the same model on
@@ -53,6 +60,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  Then [multiplier]: update_multiplier(2) and (4) on the
                  same stream, one chunk at each (encoder frames +96, +192;
                  decode_attention launches = beam forwards x L x 2).
+                 Then [serve profile]: the same weights in a ServingEngine
+                 (pool 8, beam 4, m=1): tick walls, one tick with a
+                 synchronise around each stage and one under
+                 torch.profiler.
   7. weight-only -- three chunks of the 8B model with {'q_kmajor','scale'}
                  projections through w8_bf16_gemm, then one chunk under
                  torch.profiler.
@@ -65,6 +76,12 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  m=1, beam 4, 12 chunks, 3 untimed) in a subprocess, while
                  this process holds no 8B weights: exit 0 and its JSON line
                  with metric streaming_rtf_m1_beam4_8b_int8, re-printed.
+     serve    -- ``python -m infinisst_tpu_torch.bench --mode serve``
+                 (pool 8, beam 4, m=1, 12 timed ticks) in a subprocess:
+                 exit 0, metric serve_decode_tok_per_s_pool8_beam4_m1_8b_int8,
+                 launches decode_attention = token forwards x L x 2 (half
+                 at B=32 Bc=8, the pool prefix), w8a8_gemm = forwards x
+                 (7L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
  10. cli ckpt -- a synthetic reference pytorch_model.bin at the dryrun
                  preset, loaded by ``agents.cli.main`` through
                  convert/from_torch.py and streamed over two wav files, on
@@ -74,6 +91,18 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  torch.matmul projections, decode_attention in the beam
                  step) and the stub tokenizer over the same two files:
                  finite RTF and StreamLAAL, the scores printed.
+     serve tiny -- (after tiny) a tiny float32 ServingEngine on the card
+                 against the CPU: pool 2, beam 2, multipliers (1, 2), a
+                 multiplier switch and a trim; every slot's tokens equal
+                 every tick.  Then the same pool with W8A8 weights,
+                 reported, not held: the first tick whose tokens differ
+                 and the gap of its prefill logits (an activation within
+                 float32 noise of an int8 rounding boundary quantizes one
+                 step apart; the int8 kernels are bitwise in [kernels]).
+     server   -- ``python -m infinisst_tpu_torch.serve.server`` at the dryrun
+                 preset on the card and two ``serve.client`` processes (m=1
+                 and m=2) over localhost streaming the CLI's two talks:
+                 both streams finish.
  12. one JSON ``kernels`` line, then the card line, then the result line.
 
 Each phase prints its wall seconds.  Weights are random, made on the card
@@ -103,6 +132,10 @@ BF16_FLOPS_PER_S = 989e12
 TABLE_DO = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
             (4096, 128512)]
 TABLE_M = [1, 4, 61, 79]
+# the serving pool's rows: a beam step of 8 slots x 4 beams; the prefill of
+# 8 prompts padded to 48 tokens at m=1, 64 in a mixed (1, 2) pool and 80
+# in a (1, 2, 4) pool (the stub tokenizer's prompts); and 8 x 96
+SERVE_M = [32, 384, 512, 640, 768]
 REPORT_SHAPE = (4, 4096, 14336)  # the kernels line: a beam-step gate/up
 GROUP = 128  # bench.py --group128
 W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
@@ -120,6 +153,11 @@ TIMED_TRIALS = 5
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_METRIC = "streaming_rtf_m1_beam4_8b_int8"
+SERVE_METRIC = "serve_decode_tok_per_s_pool8_beam4_m1_8b_int8"
+SERVE_MIXED_METRIC = "serve_decode_tok_per_s_pool8_beam4_mixedm1x2_8b_int8"
+# the keys of bench.py's serve JSON line (bench.py:761-787)
+SERVE_KEYS = ("metric", "value", "unit", "vs_baseline", "slot_chunk_p50_ms",
+              "slot_chunk_p95_ms", "slot_chunk_p99_ms", "slot_chunks_timed")
 # the keys of bench.py's single-stream JSON line (bench.py:492-502)
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "outliers_dropped",
               "dropped_s", "rtf_untrimmed_mean", "rtf_median", "rtf_p95")
@@ -319,7 +357,7 @@ def check_kernels(dev, notes):
         s = torch.rand((O,), generator=gen, device=dev) * 1e-3 + 1e-4
         G = D // GROUP
         sg = torch.rand((G, O), generator=gen, device=dev) * 1e-3 + 1e-4
-        for M in TABLE_M:
+        for M in TABLE_M + SERVE_M:
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
                  ).to(torch.bfloat16)
             # row_quant_int8 (one D per row count; time at O's first visit)
@@ -375,6 +413,8 @@ def check_kernels(dev, notes):
                 print(f"  {'':17s} kernel / (torch._int_mm + epilogue) "
                       f"{statistics.median(ms) / statistics.median(lib):.3f}",
                       flush=True)
+            if M in SERVE_M:
+                continue  # the pool runs only the W8A8 pair
 
             # w8_bf16_gemm on the K-major weight: within W8_BF16_RTOL of
             # the plain version in bf16, 1e-5 in float32 (f32 summation
@@ -487,14 +527,20 @@ def check_kernels(dev, notes):
 # (label, B, Bc, C, valid (Bc,), key offset (Bc,) or None, lse): the beam
 # step's two blocks at the flagship geometry (a chunk's prefix of valid_len
 # 1000 in a 1280-slot cache; the per-beam block of 10 slots at gen_len 3,
-# keys at plen + j), then decode_attention_batched at the pooled shapes of
-# tools_ab_attention.py (valid_len spread over [C/2, C)).
+# keys at plen + j), the serving pool's two blocks (8 slots of 4 beams: 8
+# prefix caches of valid_len 1000, each read by its slot's beams; the
+# per-beam block of 32 rows), then decode_attention_batched at the pooled
+# shapes of tools_ab_attention.py (valid_len spread over [C/2, C)).
 ATT_HEADS = (32, 8, 128)  # H, KV, Dh
+POOL_PREFIX = ("pool prefix", 32, 1280)  # its Notes shape key
 
 
 def _att_cases():
     cases = [("beam prefix", 4, 1, 1280, [1000], None, True),
-             ("beam per-beam block", 4, 4, 10, [4] * 4, [1000] * 4, True)]
+             ("beam per-beam block", 4, 4, 10, [4] * 4, [1000] * 4, True),
+             ("pool prefix", 32, 8, 1280, [1000] * 8, None, True),
+             ("pool per-beam block", 32, 32, 10, [4] * 32, [1000] * 32,
+              True)]
     for B in (4, 16):
         for C in (1280, 4096):
             valid = [C // 2 + (C // 2) * i // B for i in range(B)]
@@ -567,8 +613,9 @@ def check_attention(dev, notes):
                for k in ks]
         vts = [v.transpose(1, 2).contiguous() for v in vs]
         qr = R.apply_llama_rope(q[:, :, None], qp[:, None, None], inv)
-        if Bc == 1 and B > 1:
-            qr = qr.permute(2, 1, 0, 3).contiguous()  # (1, H, B, Dh)
+        if B > Bc:  # a cache's rows as its query length: (Bc, H, B/Bc, Dh)
+            qr = qr.reshape(Bc, B // Bc, H, Dh).permute(0, 2, 1, 3)
+            qr = qr.contiguous()
         mask = (torch.arange(C, device=dev)[None] < vl[:, None])[
             :, None, None, :]
         lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
@@ -586,8 +633,9 @@ def check_attention(dev, notes):
 
     for case in _att_cases():
         run(*case, dtype=torch.bfloat16, timed=True)
-    # float32 (the tiny model's and the tests' dtype), beam step's blocks
-    for case in _att_cases()[:2]:
+    # float32 (the tiny model's and the tests' dtype), the beam step's and
+    # the pool's blocks
+    for case in _att_cases()[:4]:
         run(*case, dtype=torch.float32, timed=False)
     print("  library_ms: F.scaled_dot_product_attention(enable_gqa=True) over "
           "keys rotated beforehand -- it leaves out the rotation the kernel "
@@ -713,6 +761,107 @@ def check_tiny(dev):
     if a != b or not any(a):
         fail("tiny W8A8 agent's tokens on the card disagree with the CPU "
              "run")
+    return f32_params, params
+
+
+def tiny_engine(device, params):
+    """The tiny serving pool of tests/test_torch_serve.py: pool 2, beam 2,
+    multipliers (1, 2), a 120-token LLM cache of 256 slots."""
+    import torch
+
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    agent, cfg = tiny_agent("cpu", None)
+    stream = StreamConfig(max_cache_frames=96, max_llm_cache_tokens=120,
+                          llm_cache_capacity=256)
+    return ServingEngine(
+        _to(params, device), cfg, stream,
+        {("English", "German"): agent.builder}, pool_size=2, multiplier=1,
+        dtype=torch.float32, beam=2, multipliers=(1, 2), device=device,
+    )
+
+
+def _tiny_pool(dev, params):
+    """The tiny pool on the CPU and on the card: an m=1 and an m=2 slot,
+    slot 0 switched to m=2 at tick 3, six ticks of one 960 ms unit each
+    (the last finishes both streams).  Returns one record a tick, (the
+    slots that ticked, {device: (tokens, valid_len, evictions)}, {device:
+    the prefill's last logits}), and the two engines."""
+    import numpy as np
+
+    from infinisst_tpu_torch.decode import beam as beam_mod
+
+    engines = {d: tiny_engine(d, params) for d in ("cpu", dev)}
+    for e in engines.values():
+        e.open_stream("a", multiplier=1)
+        e.open_stream("b", multiplier=2)
+    rng = np.random.RandomState(7)
+    unit = engines["cpu"].stream.chunk_samples(1)
+    search = beam_mod.batched_beam_search
+    records = []
+    for t in range(6):
+        audio = [rng.randn(unit).astype(np.float32) * 0.1 for _ in range(2)]
+        state, last = {}, {}
+        for d, e in engines.items():
+            if t == 3:
+                e.update_multiplier(0, 2)
+            for slot in (0, 1):
+                e.push_audio(slot, audio[slot], finished=(t == 5))
+
+            def recorded(p, c, dec, logits, *a, _d=d, **kw):
+                last[_d] = logits.float().cpu()
+                return search(p, c, dec, logits, *a, **kw)
+
+            beam_mod.batched_beam_search = recorded
+            try:
+                e.tick()
+            finally:
+                beam_mod.batched_beam_search = search
+            state[d] = ([list(s.target_ids) for s in e.slots],
+                        e.valid_len_host.tolist(), e.evictions)
+        records.append((engines[dev].last_ticked, state, last))
+    return records, engines
+
+
+def check_serve_tiny(dev, f32_params, w8a8_params):
+    """The tiny float32 pool (the weights of check_tiny) on the card
+    against the CPU through a trim: every slot's tokens and the host
+    mirrors equal after every tick.  Then the W8A8 pool the same way,
+    reported: the first tick whose tokens differ, with its largest
+    relative gap of the last prefill logits."""
+    reset_counts()
+    records, engines = _tiny_pool(dev, f32_params)
+    for t, (ticked, state, _) in enumerate(records):
+        print(f"  [serve tiny] tick {t}: slots {ticked}, tokens "
+              f"{[len(x) for x in state[dev][0]]}, valid_len "
+              f"{state[dev][1]}, evictions {state[dev][2]}", flush=True)
+        if state["cpu"] != state[dev]:
+            fail(f"[serve tiny] tick {t}: the card's pool differs from the "
+                 f"CPU's: {state[dev]} != {state['cpu']}")
+    card = engines[dev]
+    counts = launch_counts()
+    print(f"  [serve tiny] tokens {card.slots[0].target_ids[:12]}..., "
+          f"evictions {card.evictions}, forwards {card.forwards}; launches "
+          f"{counts}, decode_attention by shape "
+          f"{dict(_kernel_modules()[1].launch_shapes)}", flush=True)
+    if not (card.evictions and all(s.done for s in card.slots)):
+        fail("[serve tiny] the streams did not trim and finish")
+    if _kernel_modules()[1].launch_shapes.get("B=4 Bc=2", 0) <= 0:
+        fail("[serve tiny] the pool prefix did not launch decode_attention")
+    differ = None
+    for t, (_, state, last) in enumerate(_tiny_pool(dev, w8a8_params)[0]):
+        if state["cpu"] != state[dev] and differ is None:
+            a, b = last["cpu"], last[dev]
+            gap = ((a - b).abs().amax(-1) / a.abs().amax(-1)).tolist()
+            differ = (t, gap)
+    print(f"  [serve tiny] the W8A8 pool, card against CPU: "
+          + ("tokens equal every tick" if differ is None else
+             f"tokens first differ at tick {differ[0]}, where the last "
+             f"prefill logits of each row differ by "
+             f"{[f'{x:.3e}' for x in differ[1]]} of their max (float32 "
+             "noise across an int8 rounding boundary; ROADMAP §3)"),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -809,12 +958,23 @@ STAGES = (
 )
 
 
+# the serving engine's tick (serve/engine.py); beam_token_step runs inside
+# batched_beam_search
+SERVE_STAGES = (
+    ("infinisst_tpu_torch.models.llama", "evict_cache"),
+    ("infinisst_tpu_torch.models.speech_llm", "encode_chunk"),
+    ("infinisst_tpu_torch.models.llama", "decode_step"),
+    ("infinisst_tpu_torch.decode.beam", "batched_beam_search"),
+    ("infinisst_tpu_torch.models.llama", "beam_token_step"),
+)
+
+
 @contextlib.contextmanager
-def wrapped_stages(wrap):
+def wrapped_stages(wrap, stages=STAGES):
     """Replace each stage function by ``wrap(name, fn)`` for the duration
     (the port calls them through their modules), then restore them."""
     saved = []
-    for mod_name, name in STAGES:
+    for mod_name, name in stages:
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
@@ -832,9 +992,9 @@ def _next_audio(r):
     return r["rng"].randn(r["agent"].chunk_samples).astype(np.float32) * 0.1
 
 
-def stage_chunk(dev, r):
-    """One more chunk with a synchronise before and after each stage: the
-    wall time of each stage, host and device together."""
+def timed_stages(dev, step, stages):
+    """``step()`` with a synchronise before and after each stage: returns
+    ({stage: (calls, seconds)}, wall seconds), host and device together."""
     spent = {}
 
     def wrap(name, fn):
@@ -848,13 +1008,21 @@ def stage_chunk(dev, r):
             return out
         return timed
 
-    audio = _next_audio(r)
-    with wrapped_stages(wrap):
+    with wrapped_stages(wrap, stages):
         _sync(dev)
         t0 = time.perf_counter()
-        r["agent"].push(audio, finished=False)
+        step()
         _sync(dev)
         wall = time.perf_counter() - t0
+    return spent, wall
+
+
+def stage_chunk(dev, r):
+    """One more chunk with a synchronise before and after each stage: the
+    wall time of each stage, host and device together."""
+    audio = _next_audio(r)
+    spent, wall = timed_stages(
+        dev, lambda: r["agent"].push(audio, finished=False), STAGES)
     print(f"[stages] one chunk with a synchronise around each stage: wall "
           f"{wall * 1e3:.2f} ms", flush=True)
     for _, name in STAGES:
@@ -874,7 +1042,15 @@ def profile_chunk(dev, r, label="profile"):
     by kernel name and by stage, and the device's idle share, both against
     the profiled wall and against the median unprofiled chunk wall; each
     line starts with ``[label]``."""
-    import torch
+    audio = _next_audio(r)
+    med = sorted(r["times"][1:])[(len(r["times"]) - 1) // 2] * 1e3
+    profile_run(dev, lambda: r["agent"].push(audio, finished=False), STAGES,
+                label, med, "chunk")
+
+
+def profile_run(dev, step, stages, label, med, what):
+    """``step()`` under torch.profiler, as ``profile_chunk`` describes;
+    ``med`` is the median unprofiled wall (ms) of such a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -884,12 +1060,11 @@ def profile_chunk(dev, r, label="profile"):
                 return fn(*args, **kw)
         return ranged
 
-    audio = _next_audio(r)
     _sync(dev)
-    with wrapped_stages(wrap), profile(
+    with wrapped_stages(wrap, stages), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r["agent"].push(audio, finished=False)
+        step()
         _sync(dev)
         wall = time.perf_counter() - t0
     by_name = {}
@@ -903,11 +1078,10 @@ def profile_chunk(dev, r, label="profile"):
         if t > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3  # ms
     busy = sum(by_name.values())
-    med = sorted(r["times"][1:])[(len(r["times"]) - 1) // 2] * 1e3
-    print(f"[{label}] one chunk under the profiler: wall {wall * 1e3:.2f} ms,"
-          f" device kernels {busy:.2f} ms, device idle share "
+    print(f"[{label}] one {what} under the profiler: wall {wall * 1e3:.2f} "
+          f"ms, device kernels {busy:.2f} ms, device idle share "
           f"{1.0 - busy / (wall * 1e3):.4f}; against the median unprofiled "
-          f"chunk wall {med:.2f} ms: {1.0 - busy / med:.4f}", flush=True)
+          f"{what} wall {med:.2f} ms: {1.0 - busy / med:.4f}", flush=True)
     # kernel time by stage: the device events that start inside the device
     # span of a stage's range.  A range's own device total would miss the
     # kernels launched through ctypes, which belong to no PyTorch op.
@@ -920,7 +1094,7 @@ def profile_chunk(dev, r, label="profile"):
                 (e.time_range.start, e.time_range.end))
         else:
             events.append((e.time_range.start, e.time_range.elapsed_us()))
-    for _, name in STAGES:
+    for _, name in stages:
         ss = spans.get(name, [])
         span_ms = sum(b - a for a, b in ss) / 1e3
         dev_ms = sum(d for s, d in events
@@ -994,9 +1168,91 @@ def check_flagship(dev, paths):
     stage_chunk(dev, r)
     profile_chunk(dev, r)
     check_multiplier(dev, r)
-    del params, r
+    del r
+    torch.cuda.empty_cache()
+    check_serve_profile(dev, cfg, params)
+    del params
     torch.cuda.empty_cache()
     return speech
+
+
+def check_serve_profile(dev, cfg, params):
+    """The flagship W8A8 weights in a ServingEngine (pool 8, beam 4, m=1,
+    the bench's serve defaults): five ticks of one chunk of seeded noise
+    per slot (tick wall, forwards, tokens), one tick with a synchronise
+    around each stage, one under torch.profiler, and the trim alone: one
+    evict_cache over the whole pool cache, timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.models import llama as L
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    eng = ServingEngine(params, cfg, StreamConfig(),
+                        {("English", "German"): builder}, pool_size=8,
+                        beam=4, dtype=torch.bfloat16, device=dev)
+    slots = [eng.open_stream(f"c{i}") for i in range(eng.pool)]
+    rng = np.random.RandomState(1)
+
+    def tick():
+        for s in slots:
+            eng.push_audio(s, rng.randn(eng.chunk_samples).astype(
+                np.float32) * 0.1)
+        eng.tick()
+
+    walls = []
+    for i in range(5):
+        fwd, toks = eng.forwards["token"], sum(len(eng.slots[s].target_ids)
+                                               for s in slots)
+        _sync(dev)
+        t0 = time.perf_counter()
+        tick()
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        new = sum(len(eng.slots[s].target_ids) for s in slots) - toks
+        print(f"  [serve profile] tick {i}: {walls[-1] * 1e3:.2f} ms, "
+              f"{eng.forwards['token'] - fwd} token forwards, {new} tokens "
+              f"({new / walls[-1]:.1f} tok/s), valid_len "
+              f"{eng.valid_len_host.tolist()}", flush=True)
+    med = statistics.median(walls[1:]) * 1e3
+    spent, wall = timed_stages(dev, tick, SERVE_STAGES)
+    print(f"[serve stages] one tick with a synchronise around each stage: "
+          f"wall {wall * 1e3:.2f} ms (median unsynchronised tick {med:.2f} "
+          f"ms)", flush=True)
+    for _, name in SERVE_STAGES:
+        n, t = spent.get(name, (0, 0.0))
+        print(f"[serve stages]   {name:19s} calls {n:2d}  {t * 1e3:9.2f} ms",
+              flush=True)
+    beam = spent.get("batched_beam_search", (0, 0.0))[1]
+    steps = spent.get("beam_token_step", (0, 0.0))[1]
+    print(f"[serve stages]   batched_beam_search outside beam_token_step "
+          f"(log-softmax, processors, top-2B, bookkeeping): "
+          f"{(beam - steps) * 1e3:.2f} ms", flush=True)
+    profile_run(dev, tick, SERVE_STAGES, "serve profile", med, "tick")
+    # the trim: keep the last 500 of each slot's cache, the system prompt
+    # pinned (the gather costs the same whatever it keeps)
+    keep = torch.full((eng.pool,), 500, dtype=torch.int64)
+    sys_len = torch.full((eng.pool,), 40, dtype=torch.int64)
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trimmed = L.evict_cache(eng.dec_state, keep, sys_len)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del trimmed
+    nbytes = 2 * 2 * eng.dec_state.k.numel() * eng.dec_state.k.element_size()
+    print(f"[serve profile] evict_cache over the pool cache "
+          f"{tuple(eng.dec_state.k.shape)} x 2: {sorted(times)} ms "
+          f"(bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms: K and V "
+          "read and written once)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
 
 
 def check_weight_only(dev, paths, speech):
@@ -1128,6 +1384,142 @@ def check_bench():
     if not (math.isfinite(result["value"]) and result["value"] > 0):
         fail(f"[bench] RTF {result['value']}")
     print(f"[bench] {json.dumps(result)}", flush=True)
+
+
+def _stderr_json(stderr, prefix):
+    """The JSON object after ``prefix`` on the last stderr line that
+    starts with it, or None."""
+    lines = [ln for ln in stderr.splitlines() if ln.startswith(prefix)]
+    return json.loads(lines[-1][len(prefix):]) if lines else None
+
+
+def run_serve_bench(extra, metric, n_layers=32):
+    """``python -m infinisst_tpu_torch.bench --mode serve`` + ``extra`` in
+    a subprocess: exit 0, its last stdout line the serve JSON line with
+    ``metric``, and its launches on stderr those of the forwards it ran:
+    decode_attention token forwards x L x 2 (the prefix at B=32 Bc=8 and
+    the per-beam block at B=32 Bc=32, L each), w8a8_gemm and
+    row_quant_int8 (7L + 1) and (4L + 1) a forward, no other kernel.
+    Returns (result, launches, launches by shape, forwards)."""
+    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench", "--mode",
+           "serve"] + extra
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    for line in out.stderr.strip().splitlines()[-24:]:
+        print(f"[serve]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[serve] {' '.join(cmd[1:])} exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"[serve] its last stdout line is not JSON: {lines[-1:]}")
+    missing = [k for k in SERVE_KEYS if k not in result]
+    if result.get("metric") != metric or missing:
+        fail(f"[serve] metric {result.get('metric')!r} (expected "
+             f"{metric!r}), missing keys {missing}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0):
+        fail(f"[serve] {result['value']} tok/s")
+    counts = _stderr_json(out.stderr, "kernel launches ")
+    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
+    fwd = _stderr_json(out.stderr, "engine forwards ")
+    if counts is None or shapes is None or fwd is None:
+        fail("[serve] the bench did not report its launches and forwards")
+    tok, total = fwd["token"], fwd["prefill"] + fwd["token"]
+    L = n_layers
+    want = {"decode_attention": tok * L * 2, "w8a8_gemm": total * (7 * L + 1),
+            "row_quant_int8": total * (4 * L + 1), "w8_bf16_gemm": 0,
+            "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    want_shapes = {"B=32 Bc=8": tok * L, "B=32 Bc=32": tok * L}
+    if got != want or shapes != want_shapes or tok <= 0:
+        fail(f"[serve] launches {got} by shape {shapes} for forwards {fwd}; "
+             f"expected {want} and {want_shapes}")
+    print(f"[serve] {json.dumps(result)}", flush=True)
+    print(f"[serve] forwards {fwd}: launches {got}, decode_attention by "
+          f"shape {shapes} (the pool prefix at B=32 Bc=8: 8 caches, each "
+          "read by its slot's 4 beams)", flush=True)
+    return result, counts, shapes, fwd
+
+
+def check_serve(paths):
+    """The port bench's serve mode at its defaults (pool 8, beam 4, m=1,
+    12 timed ticks), then a mixed (1, 2) pool of 2 chunks; row 5's path
+    is the first run's pool prefix."""
+    _, counts, shapes, _ = run_serve_bench([], SERVE_METRIC)
+    paths["decode_attention_pool"] = ("serve bench (pool 8, beam 4)", {
+        "decode_attention": shapes["B=32 Bc=8"]})
+    run_serve_bench(["--multipliers", "1,2", "--chunks", "2"],
+                    SERVE_MIXED_METRIC)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_server(d, talks):
+    """The port's server at the dryrun preset (pool 2, beam 4,
+    multipliers 1 and 2) on the card and two ``serve.client`` processes,
+    at m=1 and m=2, streaming the CLI's two talks over localhost: both
+    print their FINAL line and exit 0; the server is stopped after."""
+    import socket
+
+    port = _free_port()
+    log_path = os.path.join(d, "server.log")
+    with open(talks[0]) as f:
+        wavs = f.read().split()
+    with open(log_path, "w") as log:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "infinisst_tpu_torch.serve.server",
+             "--model-preset", "dryrun", "--port", str(port),
+             "--pool-size", "2", "--multipliers", "1,2"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    clients = []
+    try:
+        deadline = time.perf_counter() + 300
+        while True:  # the server is up once it accepts a connection
+            if server.poll() is not None:
+                fail(f"[server] the server exited {server.returncode}")
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    fail("[server] the server did not start in 300 s")
+                time.sleep(0.5)
+        t0 = time.perf_counter()
+        clients = [subprocess.Popen(
+            [sys.executable, "-m", "infinisst_tpu_torch.serve.client",
+             "--port", str(port), "--wav", wav, "--multiplier", str(m)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for wav, m in zip(wavs, (1, 2))]
+        outs = [c.communicate(timeout=300)[0] for c in clients]
+        wall = time.perf_counter() - t0
+    finally:
+        for proc in clients + [server]:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        with open(log_path) as f:
+            for line in f.read().strip().splitlines()[-6:]:
+                print(f"[server]   server: {line}", flush=True)
+    for i, (c, text) in enumerate(zip(clients, outs)):
+        final = [ln for ln in text.splitlines() if ln.startswith("FINAL:")]
+        print(f"[server] client {i} (m={i + 1}): exit {c.returncode}, "
+              f"{len(text.splitlines()) - 1} text messages, "
+              f"{final[-1][:100] if final else 'no FINAL line'!r}",
+              flush=True)
+        if c.returncode != 0 or not final:
+            fail(f"[server] client {i} did not finish its stream")
+    print(f"[server] both streams finished in {wall:.1f} s", flush=True)
 
 
 def write_talks(d):
@@ -1333,7 +1725,10 @@ def main():
         check_attention(dev, notes)
     with phase("tiny"):
         print("[tiny] tiny speech-LLM: card against CPU", flush=True)
-        check_tiny(dev)
+        tiny_params = check_tiny(dev)
+    with phase("serve tiny"):
+        print("[serve tiny] tiny serving pool: card against CPU", flush=True)
+        check_serve_tiny(dev, *tiny_params)
 
     paths = {}
     with phase("flagship"):
@@ -1346,6 +1741,8 @@ def main():
     torch.cuda.empty_cache()
     with phase("bench"):
         check_bench()
+    with phase("serve"):
+        check_serve(paths)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     cli_dir = tempfile.mkdtemp(prefix="cli_smoke_",
                                dir=os.path.join(ROOT, "build"))
@@ -1355,6 +1752,8 @@ def main():
             check_cli_ckpt(cli_dir, wavs)
         with phase("cli flagship"):
             check_cli_flagship(cli_dir, wavs)
+        with phase("server"):
+            check_server(cli_dir, wavs)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
 
@@ -1395,6 +1794,19 @@ def main():
         })
         if "launch_floor_ms" in t:  # the yardstick of a latency-bound kernel
             entries[-1]["launch_floor_ms"] = t["launch_floor_ms"]
+    # decode_attention_batched (decode_attention.py:287), the same kernel:
+    # the serving pool's prefix, 8 caches each read by its slot's 4 beams
+    t = notes.rows["decode_attention"]["shapes"][POOL_PREFIX]
+    path, counts = paths["decode_attention_pool"]
+    entry = next(e for e in entries if e["name"] == "decode_attention")
+    entry["pool_prefix"] = {
+        "replaces": "infinisst_tpu/kernels/decode_attention.py:228",
+        "launches": counts["decode_attention"], "path": path,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shape": {"B": POOL_PREFIX[1], "Bc": 8, "C": POOL_PREFIX[2]}}
+    if counts["decode_attention"] <= 0:
+        fail("decode_attention was not launched at the pool prefix")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

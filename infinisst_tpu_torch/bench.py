@@ -1,9 +1,11 @@
-"""Streaming RTF bench of the port: the streaming modes of the JAX
-package's ``bench.py``, on the card.
+"""Streaming RTF and pooled serving bench of the port: the streaming and
+serve modes of the JAX package's ``bench.py``, on the card.
 
     python -m infinisst_tpu_torch.bench                 # flagship W8A8, m=1
     python -m infinisst_tpu_torch.bench --group128      # per-group scales
     python -m infinisst_tpu_torch.bench --schedule 1,1,1,2,2,4,4
+    python -m infinisst_tpu_torch.bench --mode serve    # pool 8, beam 4
+    python -m infinisst_tpu_torch.bench --mode serve --multipliers 1,2
 
 Prints ONE JSON line on stdout, as ``bench.py`` does:
   {"metric": ..., "value": RTF, "unit": "rtf", "vs_baseline": ..., ...}
@@ -23,8 +25,21 @@ weight-only projections; ``--bf16-head``: a bf16 head; ``--group128`` or
 ``--model bench`` is the ~1.5B decoder in bf16 (``--quantize``:
 weight-only int8 projections through ``InfiniSSTOptions.quantize``).
 Weights are random, made on the card from seeded ``torch.Generator``s; RTF
-does not depend on their values.  The serving, training and offline-agent
-modes and the speculative decoders are not ported yet.
+does not depend on their values.
+
+``--mode serve`` (``bench.py:547-779``) drives ``serve/engine.py``'s
+``ServingEngine``: ``--pool`` streams (8) at ``--beam`` (4), one untimed
+tick, then ``--chunks`` ticks of one chunk of seeded noise per stream;
+the value is decoded tokens per second of wall over the timed ticks, in
+``tok/s/chip``, ``vs_baseline`` that over 30 tok/s, beside the p50 / p95 /
+p99 of the tick wall each slot saw for its chunks; the per-stream RTF
+goes to stderr.  ``--multipliers 1,2`` runs a mixed pool (slots
+round-robin over the set, audio in 960 ms units, one untimed chunk per
+slot, then ``--chunks`` x m_max ticks); ``--churn`` closes and reopens
+two slots halfway.  Its ``--model 8b`` is the flagship W8A8 (per-channel
+scales only), ``--model bench`` the bf16 ~1.5B decoder.  The training
+and offline-agent modes, the speculative decoders and pooled sampling
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,14 +56,15 @@ import torch
 # (BASELINE.md, plots/plot.ipynb cell 9)
 BASELINE_RTF = {1: 0.382, 2: 0.286, 3: 0.250, 4: 0.235}
 WARMUP = 3
-UNPORTED_MODES = ("serve", "train", "train-io", "streamatt", "alignatt")
+UNPORTED_MODES = ("train", "train-io", "streamatt", "alignatt")
+SERVE_TARGET_TOK_S = 30.0  # bench.py's serving vs_baseline denominator
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("8b", "bench"), default="8b")
     p.add_argument("--mode", default="stream",
-                   choices=("stream",) + UNPORTED_MODES)
+                   choices=("stream", "serve") + UNPORTED_MODES)
     p.add_argument("--chunks", type=int, default=12)
     p.add_argument("--multiplier", type=int, default=1, choices=(1, 2, 3, 4))
     p.add_argument("--no-act-int8", action="store_true")
@@ -62,6 +78,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--multi-stream", type=int, nargs="?", const=3,
                    default=None, metavar="S",
                    help="S streams of >= 30 chunks through one agent")
+    # --mode serve
+    p.add_argument("--pool", type=int, default=8)
+    p.add_argument("--beam", type=int, default=4)
+    p.add_argument("--multipliers", type=str, default=None,
+                   help="a mixed serving pool, e.g. 1,2")
+    p.add_argument("--churn", action="store_true")
     p.add_argument("--speculative", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -82,7 +104,22 @@ def model_tag(args) -> str:
     return "1chip" + ("_int8" if args.quantize else "")
 
 
+def serve_multipliers(args):
+    if args.multipliers is None:
+        return None
+    return tuple(int(x) for x in args.multipliers.split(","))
+
+
 def metric_name(args) -> str:
+    if args.mode == "serve":
+        # bench.py:701-706 (mixed pool) and :761-763
+        tag = "8b_int8" if args.model == "8b" else "1chip"
+        head = f"serve_decode_tok_per_s_pool{args.pool}_beam{args.beam}_"
+        mults = serve_multipliers(args)
+        if mults:
+            return head + f"mixedm{'x'.join(map(str, mults))}_{tag}"
+        return (head + f"m{args.multiplier}"
+                + ("_churn" if args.churn else "") + f"_{tag}")
     tag = model_tag(args)
     if args.multi_stream is not None:
         return f"streaming_rtf_m{args.multiplier}_beam4_{tag}_multistream"
@@ -263,21 +300,187 @@ def summarize_multistream(pooled, stream_means, multiplier: int,
     }
 
 
+def build_engine(args):
+    """The serve mode's engine (``bench.py:572-628``): its model, the
+    default stream, one English-German builder, bf16."""
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.core.device import resolve_device
+    from infinisst_tpu_torch.core.presets import bench_1chip_config
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+    from infinisst_tpu_torch.train.main import random_params
+
+    dev = resolve_device(args.device)
+    if args.model == "8b":
+        cfg, params = flagship_params(dev, act_int8=True)
+    else:
+        cfg = bench_1chip_config()
+        params = random_params(cfg, dev, torch.bfloat16)
+    builders = {("English", "German"): PromptBuilder(
+        StubTokenizer(cfg.llama.vocab_size), cfg.tokens)}
+    return ServingEngine(
+        params, cfg, StreamConfig(), builders, pool_size=args.pool,
+        multiplier=args.multiplier, dtype=torch.bfloat16, beam=args.beam,
+        multipliers=serve_multipliers(args), device=dev,
+    )
+
+
+def run_serve(eng, n_chunks: int, multipliers=None, churn=False, rng=None,
+              log=None) -> dict:
+    """Open every slot, warm up, then time ``n_chunks`` ticks of one chunk
+    of seeded noise per slot (``bench.py:640-779``).  A mixed pool
+    (``multipliers``) gets 960 ms units, one per slot a tick, m_max warm-up
+    ticks and n_chunks x m_max timed ones; ``churn`` closes and reopens
+    the first two slots halfway (uniform pool only).  Returns the wall,
+    the tokens decoded over the timed ticks, each slot's chunk latency
+    (the wall of the tick its chunk prefilled in), and the tick walls."""
+    rng = np.random.RandomState(0) if rng is None else rng
+    pool = eng.pool
+
+    def noise(n):
+        return rng.randn(n).astype(np.float32) * 0.1
+
+    if multipliers:
+        ms = [multipliers[i % len(multipliers)] for i in range(pool)]
+        slots = [eng.open_stream(f"c{i}", multiplier=ms[i])
+                 for i in range(pool)]
+        push = eng.stream.chunk_samples(1)
+        warm = max(multipliers)
+        n_ticks = n_chunks * warm
+    else:
+        slots = [eng.open_stream(f"c{i}") for i in range(pool)]
+        push, warm, n_ticks = eng.chunk_samples, 1, n_chunks
+    for _ in range(warm):
+        for s in slots:
+            eng.push_audio(s, noise(push))
+        eng.tick()
+    base = {s: len(eng.slots[s].target_ids) for s in slots}
+    churn_tick = n_ticks // 2 if churn and not multipliers else None
+    tok_closed = 0
+    slot_lat, tick_walls = [], []
+    t0 = time.perf_counter()
+    for i in range(n_ticks):
+        if i == churn_tick:
+            for s in slots[:2]:
+                tok_closed += len(eng.slots[s].target_ids) - base[s]
+                eng.close_stream(s)
+                if eng.open_stream(f"c{s}_reopened") != s:
+                    raise RuntimeError("a reopened stream took another slot")
+                base[s] = 0
+        for s in slots:
+            eng.push_audio(s, noise(push))
+        fwd = eng.forwards["token"]
+        tt = time.perf_counter()
+        eng.tick()
+        dt = time.perf_counter() - tt
+        tick_walls.append(dt)
+        slot_lat.extend(dt for s in slots if s in eng.last_ticked)
+        if log is not None:
+            print(f"tick {i}: {dt * 1e3:.1f} ms, {len(eng.last_ticked)} "
+                  f"slots, {eng.forwards['token'] - fwd} token forwards",
+                  file=log, flush=True)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    n_tok = tok_closed + sum(len(eng.slots[s].target_ids) - base[s]
+                             for s in slots)
+    return dict(wall=wall, tokens=n_tok, slot_lat=slot_lat,
+                tick_walls=tick_walls, n_ticks=n_ticks,
+                audio_s=n_ticks * push / 16000.0, churn_tick=churn_tick,
+                evictions=eng.evictions)
+
+
+def tail_fields(slot_lat) -> dict:
+    """Per-slot per-chunk latency percentiles in ms (``bench.py:533-545``)."""
+    if not slot_lat:
+        return {}
+    a = np.asarray(slot_lat) * 1e3
+    return {
+        "slot_chunk_p50_ms": round(float(np.percentile(a, 50)), 1),
+        "slot_chunk_p95_ms": round(float(np.percentile(a, 95)), 1),
+        "slot_chunk_p99_ms": round(float(np.percentile(a, 99)), 1),
+        "slot_chunks_timed": len(slot_lat),
+    }
+
+
+def summarize_serve(run: dict, metric: str, mixed: bool) -> dict:
+    """The serve mode's JSON line (``bench.py:707-724``, ``:760-787``)."""
+    rate = run["tokens"] / run["wall"]
+    result = {
+        "metric": metric,
+        "value": round(rate, 2),
+        "unit": "tok/s/chip",
+        "vs_baseline": round(rate / SERVE_TARGET_TOK_S, 3),
+    }
+    if mixed:
+        result["evictions"] = run["evictions"]
+    elif run["churn_tick"] is not None:
+        lat = run["slot_lat"]
+        half = len(lat) // 2
+        result["churn_tick"] = run["churn_tick"]
+        result["evictions"] = run["evictions"]
+        result["slot_chunk_p99_ms_first_half"] = round(
+            float(np.percentile(np.asarray(lat[:half]) * 1e3, 99)), 1)
+        result["slot_chunk_p99_ms_second_half"] = round(
+            float(np.percentile(np.asarray(lat[half:]) * 1e3, 99)), 1)
+    result.update(tail_fields(run["slot_lat"]))
+    return result
+
+
+def launch_report(log):
+    """The kernel launches of the run so far, on ``log``."""
+    from infinisst_tpu_torch.kernels import decode_attention, quant_matmul
+
+    counts = dict(quant_matmul.launch_counts)
+    counts.update(decode_attention.launch_counts)
+    print("kernel launches " + json.dumps(counts), file=log, flush=True)
+    print("decode_attention launches by shape "
+          + json.dumps(decode_attention.launch_shapes), file=log, flush=True)
+
+
+def main_serve(args) -> dict:
+    metric = metric_name(args)
+    eng = build_engine(args)
+    mults = serve_multipliers(args)
+    print(f"engine ready on {eng.device}: pool {eng.pool}, beam {eng.beam}, "
+          f"multipliers {eng.multipliers}, prompt width {eng._S}",
+          file=sys.stderr, flush=True)
+    run = run_serve(eng, args.chunks, multipliers=mults, churn=args.churn,
+                    log=sys.stderr)
+    result = summarize_serve(run, metric, mixed=bool(mults))
+    w = np.asarray(run["tick_walls"]) * 1e3
+    print(f"{'MIXED ' if mults else ''}pool={eng.pool} ticks={run['n_ticks']} "
+          f"wall={run['wall']:.2f}s tokens={run['tokens']} per-stream "
+          f"RTF={run['wall'] / run['audio_s']:.3f} tick p50={np.median(w):.1f}"
+          f"ms max={w.max():.1f}ms evictions={eng.evictions} "
+          f"device={eng.device}", file=sys.stderr)
+    print("engine forwards " + json.dumps(eng.forwards), file=sys.stderr)
+    launch_report(sys.stderr)
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mode != "stream" or args.speculative:
-        what = (f"--mode {args.mode}" if args.mode != "stream"
+    if args.mode not in ("stream", "serve") or args.speculative:
+        what = (f"--mode {args.mode}" if not args.speculative
                 else "--speculative")
-        print(f"{what} is not ported yet: the port's bench runs the "
-              "plain streaming mode only", file=sys.stderr)
+        item = {"train": 13, "train-io": 13}.get(args.mode, 10)
+        if args.speculative:
+            item = 12
+        print(f"{what} is not ported yet (ROADMAP item {item}): the port's "
+              "bench runs the plain streaming and serve modes",
+              file=sys.stderr)
         sys.exit(2)
-    metric = metric_name(args)
     from infinisst_tpu_torch.core.device import resolve_device
 
     if resolve_device(args.device).type == "cuda":
         from infinisst_tpu_torch.kernels import _build
 
         _build.load_all()  # one nvcc per source, all at once
+    if args.mode == "serve":
+        return main_serve(args)
+    metric = metric_name(args)
     agent = build_agent(args)
     print(f"agent ready on {agent.device}", file=sys.stderr, flush=True)
     log = sys.stderr
@@ -319,11 +522,7 @@ def main(argv=None) -> dict:
                   f"p50={np.percentile(t, 50) * 1e3:.1f}ms "
                   f"p90={np.percentile(t, 90) * 1e3:.1f}ms "
                   f"tokens={run['tokens']} device={agent.device}", file=log)
-    from infinisst_tpu_torch.kernels import decode_attention, quant_matmul
-
-    counts = dict(quant_matmul.launch_counts)
-    counts.update(decode_attention.launch_counts)
-    print("kernel launches " + json.dumps(counts), file=log, flush=True)
+    launch_report(log)
     print(json.dumps(result), flush=True)
     return result
 

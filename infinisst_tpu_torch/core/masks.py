@@ -22,7 +22,7 @@ def streaming_chunk_mask(
     seq_len: int,
     prefix_len,
     max_cache_size: int,
-    blocksize: int,
+    blocksize,
     kv_len: int,
     device=None,
 ) -> torch.Tensor:
@@ -35,12 +35,18 @@ def streaming_chunk_mask(
     iff p < block_end(prefix_len + i), p > prefix_len + i - max_cache_size
     - 1, and the key slot holds a real frame.
 
-    ``prefix_len`` is an int or a (B,) int tensor; the result is
-    bool[seq_len, kv_len] or bool[B, seq_len, kv_len]."""
+    ``prefix_len`` is an int or a (B,) int tensor, and so is ``blocksize``
+    (one block size per row: the mixed-multiplier serving pool, where a
+    row's chunk of 48 * m frames is one block; a size below 1 counts as
+    1); the result is bool[seq_len, kv_len] or bool[B, seq_len, kv_len]."""
     prefix = torch.as_tensor(prefix_len, dtype=torch.int64, device=device)
     if prefix.ndim:
         prefix = prefix.reshape(prefix.shape + (1, 1))
     dev = prefix.device
+    blocksize = torch.as_tensor(blocksize, dtype=torch.int64, device=dev)
+    if blocksize.ndim:
+        blocksize = torch.clamp(blocksize, min=1).reshape(
+            blocksize.shape + (1, 1))
     cache_cap = kv_len - seq_len
     valid_cached = torch.clamp(prefix, max=max_cache_size)
     qi = torch.arange(seq_len, device=dev)[:, None]

@@ -15,26 +15,28 @@
 // 1/sqrt(Dh); keys j >= valid_len masked with -1e9 (not -inf: a fully
 // masked cache averages V uniformly, as the JAX reference does); softmax;
 // weighted sum of V.  GQA: the H/KV query heads of a KV head are rows of
-// one block.  Generalisations the beam step needs: a cache batch of 1
-// shared by every query batch row (the beam prefix, read once for all
-// beams), a per-cache key-position offset (the per-beam block's key j sits
-// at plen + j), and a per-row log-sum-exp output so that two blocks can be
+// one block.  Generalisations the beam step needs: a cache shared by a
+// group of B / Bc query batch rows, row b reading cache b / (B / Bc) (the
+// single-stream beam prefix, Bc = 1, read once for all beams; the serving
+// pool's prefix, one cache a slot, read once for that slot's beams), a
+// per-cache key-position offset (the per-beam block's key j sits at
+// plen + j), and a per-row log-sum-exp output so that two blocks can be
 // merged.
 //
 // Bound on the H100: the K and V bytes of the cache it reads
 // (2 * C * KV * Dh * bytes per cache batch) against ~4 * R * C * Dh flops
-// for R query rows per KV head.  Keys past valid_len get weight exactly 0
-// once one key is valid (exp(-1e9 - m) == 0 in f32), so the kernel reads
-// only min(valid_len, C) keys (all C when valid_len is 0), and the bound
-// counts those bytes.
+// for R = B / Bc * H / KV query rows per (cache, KV head).  Keys past
+// valid_len get weight exactly 0 once one key is valid (exp(-1e9 - m) == 0
+// in f32), so the kernel reads only min(valid_len, C) keys (all C when
+// valid_len is 0), and the bound counts those bytes.
 //
 // Design (the Hopper redesign).  The TPU kernel walks key tiles in order
 // with its running max/denominator in VMEM scratch; here blocks run in
 // parallel.  One block per (cache batch, KV head, split) holds every query
-// row of that KV head, 16 rows, one m16 tensor-core tile (the beam
-// prefix's 4 beams x 4 heads exactly; fewer rows are padded, more take
-// further row tiles), so each key is read and rotated once per call and
-// KV head.  The keys [0, c_eff) of a cache are cut on the card into
+// row that reads that cache and KV head, 16 rows, one m16 tensor-core tile
+// (the beam prefix's 4 beams x 4 heads exactly, and so a pool slot's;
+// fewer rows are padded, more take further row tiles), so each key is read
+// and rotated once per call and KV head.  The keys [0, c_eff) of a cache are cut on the card into
 // n_split contiguous splits of at least 64 keys (the host asks for about
 // one block per SM); a block walks its split in tiles of 64 keys (32 in
 // float32) that cp.async fetches 16 bytes a thread, double buffered.  Each
@@ -197,7 +199,8 @@ struct Layout {
 };
 
 // Grid: x = split, y = KV head * n_rtiles + row tile, z = cache batch.
-// q (B, H, DH); k, v (Bc, C, KV, DH) with Bc == B or Bc == 1 (shared);
+// q (B, H, DH); k, v (Bc, C, KV, DH) with Bc dividing B: query row b
+// reads cache b / (B / Bc);
 // valid, koff (Bc,) int32 (koff may be null); qpos (B,) int32;
 // out (B, H, DH); lse (B, H) f32 or null.  Workspace (n_split > 1 only):
 // ws_m, ws_l (B*H*n_split), ws_acc (B*H*n_split*DH); counters, one per
@@ -237,8 +240,8 @@ decode_attention_kernel(const void* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int Gq = H / KV;
-  const int shared_cache = (Bc == 1 && B > 1);
-  const int R_total = (shared_cache ? B : 1) * Gq;
+  const int rows_per_cache = B / Bc;  // query batch rows of one cache
+  const int R_total = rows_per_cache * Gq;
   const int bc = blockIdx.z;
   const int kvh = blockIdx.y % KV;
   const int r0 = (blockIdx.y / KV) * kRows;
@@ -248,7 +251,7 @@ decode_attention_kernel(const void* __restrict__ q,
   // query row (b * H + head) and batch of local row i
   auto row_of = [&](int i, int* b_out) {
     const int rr = r0 + i;
-    const int b = shared_cache ? rr / Gq : bc;
+    const int b = bc * rows_per_cache + rr / Gq;
     *b_out = b;
     return b * H + kvh * Gq + rr % Gq;
   };
@@ -633,7 +636,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
     if (err) return err;
     smem_set = true;
   }
-  const int R_total = ((Bc == 1 && B > 1) ? B : 1) * (H / KV);
+  const int R_total = (B / Bc) * (H / KV);
   dim3 grid(n_split, KV * ((R_total + kRows - 1) / kRows), Bc);
   decode_attention_kernel<DH, TC><<<grid, kThreads, smem, stream>>>(
       q, k, v, static_cast<const int*>(valid), static_cast<const int*>(qpos),
@@ -666,6 +669,7 @@ int decode_attention(const void* q, const void* k, const void* v, int is_bf16,
                      int KV, int Dh, int Bc, int C, int n_split, float scale,
                      void* stream) {
   if (B == 0 || C == 0) return 0;
+  if (Bc < 1 || B % Bc) return static_cast<int>(cudaErrorInvalidValue);
   if (n_split < 1 || n_split > kMaxSplit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 """Beam search for one chunk; port of the plain path of
-``infinisst_tpu/decode/beam.py:beam_search``.
+``infinisst_tpu/decode/beam.py``: ``beam_search`` (one stream) and
+``batched_beam_search`` (a pool of streams, one prefix cache each).
 
 HF semantics, as in the JAX package:
 - processors run on log-softmax scores in HF order (repetition penalty,
@@ -14,7 +15,12 @@ HF semantics, as in the JAX package:
 The ``while_loop`` becomes a Python loop.  Scores stay float32 tensors;
 the small per-step bookkeeping (2*beam candidates, the finished-hypothesis
 slots) runs on the host with those float32 values, so comparisons match.
-The attention probe and the ``return_kv`` variant are not ported.
+One pooled loop serves both entry points: every step forwards all
+P * beam rows through one ``beam_token_step`` (the weight stream shared by
+every slot and beam, as JAX's vmap forwards every lane), while a slot that
+is done keeps its state frozen.  The loop ends when every slot is done,
+without the forward of that last step (its logits would be unused).  The
+attention probe is not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +55,12 @@ class BeamResult(NamedTuple):
     steps: int  # loop steps executed
     hit_eos: bool  # the winner ended with EOS
     attn_idx: List[int]  # (max_new,) -1: the attention probe is not ported
+    # return_kv: the winner's generated-token K/V (L, max_new, KV, Dh),
+    # unrotated; the first n_emit slots are valid (n_emit = n_tokens with
+    # EOS, else n_tokens - 1: the EOS and a cap-dropped final token are
+    # never forwarded)
+    kv_k: Optional[torch.Tensor] = None
+    kv_v: Optional[torch.Tensor] = None
 
 
 def _f32(x) -> torch.Tensor:
@@ -60,20 +72,21 @@ def _len_norm(length: int, length_penalty: float) -> torch.Tensor:
 
 
 def select_candidates(step_scores: torch.Tensor, beam_scores: torch.Tensor):
-    """Exact top-2B candidates over (B, V) processed log-probs by repeated
-    argmax + mask (first index wins a tie, as ``jnp.argmax``).  Returns
-    (total (B, V), top_vals (2B,), cand_beam (2B,), cand_tok (2B,))."""
-    B, V = step_scores.shape
-    total = step_scores + beam_scores[:, None]
-    flat = total.reshape(-1).clone()
+    """Exact top-2B candidates over (..., B, V) processed log-probs, per
+    leading index (one slot of a pool), by repeated argmax + mask (first
+    index wins a tie, as ``jnp.argmax``).  Returns (total (..., B, V),
+    top_vals (..., 2B), cand_beam (..., 2B), cand_tok (..., 2B))."""
+    B, V = step_scores.shape[-2:]
+    total = step_scores + beam_scores[..., None]
+    flat = total.reshape(total.shape[:-2] + (B * V,)).clone()
     vals, idxs = [], []
     for _ in range(2 * B):
-        i = torch.argmax(flat)
-        vals.append(flat[i].clone())
+        i = torch.argmax(flat, dim=-1, keepdim=True)
+        vals.append(flat.gather(-1, i))
         idxs.append(i)
-        flat[i] = NEG_INF
-    top_vals = torch.stack(vals)
-    top_idx = torch.stack(idxs)
+        flat.scatter_(-1, i, NEG_INF)
+    top_vals = torch.cat(vals, dim=-1)
+    top_idx = torch.cat(idxs, dim=-1)
     return total, top_vals, top_idx // V, top_idx % V
 
 
@@ -104,120 +117,186 @@ def beam_search(
     encoder_ngram_size: int = 0,
     suppress_mask: Optional[torch.Tensor] = None,  # (V,) bool
     max_steps: Optional[int] = None,
+    return_kv: bool = False,
 ) -> BeamResult:
+    """Beam search for one stream: ``batched_beam_search`` over a pool of
+    one."""
+    return batched_beam_search(
+        params, cfg, prefix, first_logits[None], prompt_buf[None],
+        [prompt_len], history[None], [history_len], spec,
+        encoder_ngram_size=encoder_ngram_size, suppress_mask=suppress_mask,
+        max_steps=None if max_steps is None else [max_steps],
+        return_kv=return_kv,
+    )[0]
+
+
+def _ints(x) -> List[int]:
+    return [int(v) for v in torch.as_tensor(x).tolist()]
+
+
+def batched_beam_search(
+    params,
+    cfg: LlamaConfig,
+    dec: DecoderState,  # P per-slot prefix caches after the prefill
+    last_logits: torch.Tensor,  # (P, V)
+    prompt_bufs: torch.Tensor,  # (P, Tp)
+    prompt_lens,  # (P,) ints
+    hists: torch.Tensor,  # (P, Lh)
+    hist_lens,  # (P,) ints
+    spec: BeamSpec,
+    encoder_ngram_size: int = 0,
+    suppress_mask: Optional[torch.Tensor] = None,  # (V,) bool
+    max_steps=None,  # (P,) per-slot step caps <= max_new_tokens
+    return_kv: bool = False,
+) -> List[BeamResult]:
+    """Beam search for a pool of independent streams (pooled serving):
+    each slot keeps its own prefix cache and (beam, G) generation buffer,
+    and the per-token forward runs at P * beam rows.  Inactive slots
+    should pass max_steps 1 so that they cannot keep the loop alive.
+    Returns one BeamResult per slot."""
     B, G = spec.beam, spec.max_new_tokens
-    dev = first_logits.device
-    V = first_logits.shape[-1]
+    P, V = last_logits.shape
+    rows = P * B
+    dev = last_logits.device
     KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
-    Tp = prompt_buf.shape[0]
-    Tbuf = Tp + G
-    max_steps = G if max_steps is None else int(max_steps)
+    caps = [G] * P if max_steps is None else _ints(max_steps)
 
     seq_buf = torch.cat([
-        prompt_buf.to(torch.int64).to(dev),
-        torch.full((G,), spec.pad_id, dtype=torch.int64, device=dev),
-    ])[None].repeat(B, 1)
-    seq_len = [int(prompt_len)] * B
-    gen_tokens = [[spec.pad_id] * G for _ in range(B)]
-    beam_scores = torch.full((B,), NEG_INF, dtype=torch.float32, device=dev)
-    beam_scores[0] = 0.0
-    gen_k = torch.zeros((L, B, G, KV, Dh), dtype=prefix.k.dtype, device=dev)
+        prompt_bufs.to(device=dev, dtype=torch.int64),
+        torch.full((P, G), spec.pad_id, dtype=torch.int64, device=dev),
+    ], dim=1).repeat_interleave(B, dim=0)  # (rows, Tbuf)
+    seq_len = [n for n in _ints(prompt_lens) for _ in range(B)]
+    gen_tokens = [[spec.pad_id] * G for _ in range(rows)]
+    beam_scores = torch.full((P, B), NEG_INF, dtype=torch.float32,
+                             device=dev)
+    beam_scores[:, 0] = 0.0
+    beam_scores = beam_scores.reshape(rows)
+    gen_k = torch.zeros((L, rows, G, KV, Dh), dtype=dec.k.dtype, device=dev)
     gen_v = torch.zeros_like(gen_k)
-    fin_tokens = [[spec.pad_id] * G for _ in range(B)]
-    fin_len = [0] * B
-    fin_scores = [float(_f32(NEG_INF))] * B
-    hist = history.to(torch.int64).to(dev)[None].repeat(B, 1)
-    hist_len = torch.full((B,), int(history_len), dtype=torch.int64,
-                          device=dev)
-    ar_buf = torch.arange(Tbuf, device=dev)[None]
-
-    def process(scores, seq_len_t):
-        scores = lp.repetition_penalty(
-            scores, seq_buf, ar_buf < seq_len_t[:, None],
-            spec.repetition_penalty,
-        )
-        scores = lp.no_repeat_ngram(
-            scores, seq_buf, seq_len_t, spec.no_repeat_ngram_size
-        )
-        if encoder_ngram_size > 0:
-            scores = lp.encoder_no_repeat_ngram(
-                scores, hist, hist_len, seq_buf, seq_len_t,
-                encoder_ngram_size,
-            )
-        if suppress_mask is not None:
-            scores = lp.suppress_tokens(scores, suppress_mask)
-        return scores
-
+    neg = float(_f32(NEG_INF))
+    fin_tokens = [[[spec.pad_id] * G for _ in range(B)] for _ in range(P)]
+    fin_len = [[0] * B for _ in range(P)]
+    fin_scores = [[neg] * B for _ in range(P)]
+    if return_kv:  # per-hypothesis snapshots of the source beam's K/V
+        fin_k = torch.zeros((P, B) + gen_k.shape[:1] + gen_k.shape[2:],
+                            dtype=gen_k.dtype, device=dev)
+        fin_v = torch.zeros_like(fin_k)
+    hist = hists.to(device=dev, dtype=torch.int64).repeat_interleave(B, 0)
+    hist_len = torch.tensor(_ints(hist_lens), dtype=torch.int64,
+                            device=dev).repeat_interleave(B)
+    # every live slot has generated t tokens; a done slot keeps its own
     t = 0
-    done = False
-    logits_cur = first_logits[None].expand(B, V)
-    while not done and t < G:
+    steps = [0] * P
+    live = [True] * P
+    logits_cur = last_logits.repeat_interleave(B, dim=0)  # (rows, V)
+    while any(live):
         seq_len_t = torch.tensor(seq_len, dtype=torch.int64, device=dev)
         scores = torch.log_softmax(logits_cur.to(torch.float32), dim=-1)
-        scores = process(scores, seq_len_t)
+        scores = lp.process_scores(
+            scores, seq_buf, seq_len_t, spec.repetition_penalty,
+            spec.no_repeat_ngram_size, hist, hist_len, encoder_ngram_size,
+            suppress_mask,
+        )
+        # exact top-2B candidates of each slot, all slots at once
         _, cand_vals, cand_beam, cand_tok = select_candidates(
-            scores, beam_scores
-        )
+            scores.reshape(P, B, V), beam_scores.reshape(P, B))
         hyp_score = cand_vals / _len_norm(t + 1, spec.length_penalty).to(dev)
-        vals = cand_vals.tolist()
-        cb = cand_beam.tolist()
-        ct = cand_tok.tolist()
-        hs = hyp_score.tolist()
-        is_eos = [tok == spec.eos_id for tok in ct]
+        vals_h = cand_vals.tolist()  # (P, 2B)
+        cb_h, ct_h = cand_beam.tolist(), cand_tok.tolist()
+        hs_h = hyp_score.tolist()
 
-        # finished hypotheses: EOS candidates among the top-B ranks only
-        for i in range(2 * B):
-            worst = min(range(B), key=lambda j: (fin_scores[j], j))
-            if is_eos[i] and i < B and hs[i] > fin_scores[worst]:
-                fin_tokens[worst] = list(gen_tokens[cb[i]])
-                fin_len[worst] = t
-                fin_scores[worst] = hs[i]
-
-        # next live beams: the first B non-EOS candidates
-        slots = [i for i in range(2 * B) if not is_eos[i]][:B]
-        src = [cb[i] for i in slots]
-        new_tok = [ct[i] for i in slots]
-        beam_scores = cand_vals[torch.tensor(slots, device=dev)]
-        src_t = torch.tensor(src, dtype=torch.int64, device=dev)
-        seq_buf = seq_buf[src_t]
-        seq_len = [seq_len[b] for b in src]
-        gen_tokens = [list(gen_tokens[b]) for b in src]
-        gen_k = gen_k[:, src_t]
-        gen_v = gen_v[:, src_t]
-        new_tok_t = torch.tensor(new_tok, dtype=torch.int64, device=dev)
-        for b in range(B):
-            gen_tokens[b][t] = new_tok[b]
-        seq_buf[torch.arange(B, device=dev),
-                torch.tensor(seq_len, device=dev)] = new_tok_t
-        seq_len = [s + 1 for s in seq_len]
-
-        t_next = t + 1
-        n_fin = sum(s > NEG_INF / 2 for s in fin_scores)
-        best_possible = float(
-            _f32(max(vals[i] for i in slots))
-            / _len_norm(t_next + 1, spec.length_penalty)
-        )
-        done_now = (
-            t_next >= G or t_next >= max_steps
-            or (n_fin >= B and min(fin_scores) >= best_possible)
-        )
-        if not done_now:
-            x = llama_mod.embed(params, new_tok_t[:, None])
-            logits_cur, gen_k, gen_v, _ = llama_mod.beam_token_step(
-                params, cfg, prefix, gen_k, gen_v, t, x
+        perm = list(range(rows))  # source row of each row after the step
+        new_tok = [spec.pad_id] * rows
+        new_scores = []  # (row, candidate) of each live beam's new score
+        for p in range(P):
+            if not live[p]:
+                continue
+            cb, ct = cb_h[p], ct_h[p]
+            is_eos = [tok == spec.eos_id for tok in ct]
+            fs = fin_scores[p]
+            # finished hypotheses: EOS candidates among the top-B ranks
+            for i in range(2 * B):
+                worst = min(range(B), key=lambda j: (fs[j], j))
+                if is_eos[i] and i < B and hs_h[p][i] > fs[worst]:
+                    src = p * B + cb[i]
+                    fin_tokens[p][worst] = list(gen_tokens[src])
+                    fin_len[p][worst] = t
+                    fs[worst] = hs_h[p][i]
+                    if return_kv:  # the pre-reorder source beam
+                        fin_k[p, worst] = gen_k[:, src]
+                        fin_v[p, worst] = gen_v[:, src]
+            # next live beams: the first B non-EOS candidates
+            slots = [i for i in range(2 * B) if not is_eos[i]][:B]
+            for b, i in enumerate(slots):
+                perm[p * B + b] = p * B + cb[i]
+                new_tok[p * B + b] = ct[i]
+                new_scores.append((p * B + b, p * 2 * B + i))
+            t_next = t + 1
+            n_fin = sum(s > NEG_INF / 2 for s in fs)
+            best_possible = float(
+                _f32(max(vals_h[p][i] for i in slots))
+                / _len_norm(t_next + 1, spec.length_penalty)
             )
-        t, done = t_next, done_now
+            steps[p] = t_next
+            live[p] = not (
+                t_next >= G or t_next >= caps[p]
+                or (n_fin >= B and min(fs) >= best_possible)
+            )
 
-    best_live, best_fin, use_fin, live_score = finalize_winner(
-        spec, t, beam_scores, fin_scores
-    )
-    if use_fin:
-        tokens, n_tokens, score = (fin_tokens[best_fin], fin_len[best_fin],
-                                   fin_scores[best_fin])
-    else:
-        tokens, n_tokens, score = (gen_tokens[best_live], t,
-                                   float(live_score[best_live]))
-    return BeamResult(
-        tokens=list(tokens), n_tokens=int(n_tokens), score=score, steps=t,
-        hit_eos=bool(use_fin), attn_idx=[-1] * G,
-    )
+        # reorder the per-beam state (a done slot's rows map to themselves)
+        dst = torch.tensor([r for r, _ in new_scores], device=dev)
+        src_c = torch.tensor([c for _, c in new_scores], device=dev)
+        beam_scores = beam_scores.clone()
+        beam_scores[dst] = cand_vals.reshape(-1)[src_c]
+        perm_t = torch.tensor(perm, dtype=torch.int64, device=dev)
+        seq_buf = seq_buf[perm_t]
+        gen_k = gen_k[:, perm_t]
+        gen_v = gen_v[:, perm_t]
+        new_seq_len = list(seq_len)
+        new_gen = list(gen_tokens)
+        for r, _ in new_scores:
+            new_seq_len[r] = seq_len[perm[r]]
+            new_gen[r] = list(gen_tokens[perm[r]])
+            new_gen[r][t] = new_tok[r]
+        seq_len, gen_tokens = new_seq_len, new_gen
+        moved = [r for r, _ in new_scores]
+        moved_t = torch.tensor(moved, dtype=torch.int64, device=dev)
+        seq_buf[moved_t, torch.tensor([seq_len[r] for r in moved],
+                                      device=dev)] = torch.tensor(
+            [new_tok[r] for r in moved], dtype=torch.int64, device=dev)
+        for r in moved:
+            seq_len[r] += 1
+
+        if any(live):
+            x = llama_mod.embed(params, torch.tensor(
+                new_tok, dtype=torch.int64, device=dev)[:, None])
+            logits_cur, gen_k, gen_v, _ = llama_mod.beam_token_step(
+                params, cfg, dec, gen_k, gen_v, t, x
+            )
+        t += 1
+
+    out = []
+    for p in range(P):
+        best_live, best_fin, use_fin, live_score = finalize_winner(
+            spec, steps[p], beam_scores[p * B:(p + 1) * B], fin_scores[p]
+        )
+        if use_fin:
+            tokens, n_tokens, score = (fin_tokens[p][best_fin],
+                                       fin_len[p][best_fin],
+                                       fin_scores[p][best_fin])
+        else:
+            tokens, n_tokens, score = (gen_tokens[p * B + best_live],
+                                       steps[p], float(live_score[best_live]))
+        kv_k = kv_v = None
+        if return_kv:
+            if use_fin:
+                kv_k, kv_v = fin_k[p, best_fin], fin_v[p, best_fin]
+            else:
+                kv_k = gen_k[:, p * B + best_live]
+                kv_v = gen_v[:, p * B + best_live]
+        out.append(BeamResult(
+            tokens=list(tokens), n_tokens=int(n_tokens), score=score,
+            steps=steps[p], hit_eos=bool(use_fin), attn_idx=[-1] * G,
+            kv_k=kv_k, kv_v=kv_v,
+        ))
+    return out

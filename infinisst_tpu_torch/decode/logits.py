@@ -89,3 +89,21 @@ def encoder_no_repeat_ngram(scores, history, history_len, tokens,
 def suppress_tokens(scores, mask):
     """mask: (V,) bool, True = suppress."""
     return torch.where(mask[None, :], torch.full_like(scores, NEG_INF), scores)
+
+
+def process_scores(scores, seq_buf, seq_len, penalty: float,
+                   ngram_size: int, history, history_len,
+                   encoder_ngram_size: int, suppress_mask=None):
+    """The decoders' processors on (B, V) log-softmax scores, in HF order:
+    repetition penalty and no-repeat-ngram over each row's sequence
+    buffer (B, T) up to seq_len, encoder-no-repeat-ngram over its
+    cross-chunk history, then the suppressed ids."""
+    valid = torch.arange(seq_buf.shape[1], device=scores.device)[None] < \
+        seq_len[:, None]
+    scores = repetition_penalty(scores, seq_buf, valid, penalty)
+    scores = no_repeat_ngram(scores, seq_buf, seq_len, ngram_size)
+    scores = encoder_no_repeat_ngram(scores, history, history_len, seq_buf,
+                                     seq_len, encoder_ngram_size)
+    if suppress_mask is not None:
+        scores = suppress_tokens(scores, suppress_mask)
+    return scores

@@ -12,7 +12,10 @@ Llama RoPE in float32 on q at ``q_pos`` and on key j at ``key_offset + j``,
 keys ``j >= valid_len`` masked with -1e9, softmax, weighted sum of V.
 Beyond the JAX signature, for the beam step (``models/llama.py``):
 
-- a cache batch of 1 is shared by every query batch row (Bc == 1 < B);
+- a cache is shared by a group of query rows: Bc divides B and query
+  row b reads cache b // (B / Bc) (the single-stream beam prefix is
+  Bc == 1, read by every beam; the serving pool's prefix is one cache a
+  slot, read by that slot's beams);
 - ``key_offset`` (Bc,) shifts the key positions;
 - ``return_lse`` also returns the per-row log-sum-exp of the scores, so
   that ``merge_blocks`` can join two blocks into one softmax.
@@ -20,7 +23,8 @@ Beyond the JAX signature, for the beam step (``models/llama.py``):
 The defaults (no offset, Bc == B, no lse) are the JAX function.  The
 wrapper takes the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises; each launch adds one to
-``launch_counts['decode_attention']``.  The grid comes from ``plan`` (a
+``launch_counts['decode_attention']`` (and to ``launch_shapes`` under its
+query and cache batch).  The grid comes from ``plan`` (a
 pure function of the shapes); the kernel cuts a cache's valid keys into
 its splits as ``split_range`` does.
 """
@@ -56,11 +60,16 @@ MAX_SPLIT = 64
 BLOCKS_PER_SM = 2
 
 launch_counts = {"decode_attention": 0}
+# the same launches by query rows and caches, "B=32 Bc=8": the serving
+# pool's prefix (a batch of caches, each read by its slot's beams) apart
+# from the beam step's other blocks
+launch_shapes = {}
 
 
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_shapes.clear()
 
 
 _lib = None
@@ -120,14 +129,15 @@ def decode_attention_plain(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
         q.to(torch.float32).reshape(B, H, 1, Dh), q_pos.to(dev)[:, None, None],
         inv_freq,
     )[:, :, 0]
-    qg = qr.reshape(B, KV, H // KV, Dh)
-    # a shared cache (Bc == 1) broadcasts over the query batch
-    s = (qg @ kr.transpose(-1, -2)) * (1.0 / math.sqrt(Dh))  # (B, KV, G, C)
+    # query rows grouped by the cache they read, (Bc, B / Bc, KV, G, Dh):
+    # a cache broadcasts over its group's rows
+    qg = qr.reshape(Bc, B // Bc, KV, H // KV, Dh)
+    s = (qg @ kr[:, None].transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
     mask = j[None] < valid_len.to(dev)[:, None]  # (Bc, C)
-    s = torch.where(mask[:, None, None, :], s,
+    s = torch.where(mask[:, None, None, None, :], s,
                     torch.full((), NEG_INF, dtype=s.dtype, device=dev))
-    w = torch.softmax(s, dim=-1)
-    out = w @ cache_v.transpose(1, 2).to(torch.float32)  # (B, KV, G, Dh)
+    w = torch.softmax(s, dim=-1)  # (Bc, B / Bc, KV, G, C)
+    out = w @ cache_v.transpose(1, 2).to(torch.float32)[:, None]
     out = out.reshape(B, H, Dh).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1).reshape(B, H)
@@ -140,19 +150,20 @@ def _cdiv(a, b):
 
 class AttentionPlan(NamedTuple):
     n_split: int  # key splits per (cache batch, KV head, row tile)
-    n_rtiles: int  # row tiles of ROWS query rows per KV head
+    n_rtiles: int  # row tiles of ROWS query rows per (cache, KV head)
     groups: int  # (cache batch, KV head, row tile) triples
 
 
 @functools.lru_cache(maxsize=None)
 def plan(B, Bc, C, KV, Gq, sms) -> AttentionPlan:
-    """The grid of ``decode_attention`` on a card with ``sms`` SMs: every
-    query row of a KV head in one row tile of ROWS (more rows take more
-    tiles), and at most BLOCKS_PER_SM blocks per SM over (cache batch, KV
-    head, split), so that they run in one wave; no more splits than the
-    capacity C holds MIN_SPLIT-key splits, and at most MAX_SPLIT.  The
-    kernel folds only the splits that hold a key."""
-    r_total = (B if Bc == 1 and B > 1 else 1) * Gq
+    """The grid of ``decode_attention`` on a card with ``sms`` SMs: the
+    B / Bc * Gq query rows that read one (cache, KV head) in one row tile
+    of ROWS (more rows take more tiles), and at most BLOCKS_PER_SM blocks
+    per SM over (cache batch, KV head, split), so that they run in one
+    wave; no more splits than the capacity C holds MIN_SPLIT-key splits,
+    and at most MAX_SPLIT.  The kernel folds only the splits that hold a
+    key."""
+    r_total = (B // Bc) * Gq
     n_rtiles = _cdiv(r_total, ROWS)
     groups = Bc * KV * n_rtiles
     n_split = max(1, min(BLOCKS_PER_SM * sms // groups,
@@ -174,10 +185,10 @@ def split_range(c_eff, n_split, s):
 def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
                      key_offset=None, return_lse=False):
     """Fused rotate-on-read decode attention.  q (B, H, Dh) unrotated;
-    cache_k / cache_v (Bc, C, KV, Dh) unrotated, Bc == B or Bc == 1
-    (shared); valid_len (Bc,); q_pos (B,); inv_freq (Dh/2,) float32;
-    key_offset (Bc,) or None.  Returns (B, H, Dh) in q's dtype, and the
-    (B, H) float32 log-sum-exp when ``return_lse``."""
+    cache_k / cache_v (Bc, C, KV, Dh) unrotated, Bc dividing B (query row
+    b reads cache b // (B / Bc)); valid_len (Bc,); q_pos (B,); inv_freq
+    (Dh/2,) float32; key_offset (Bc,) or None.  Returns (B, H, Dh) in q's
+    dtype, and the (B, H) float32 log-sum-exp when ``return_lse``."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k, cache_v, valid_len, q_pos,
                                       inv_freq, key_offset, return_lse)
@@ -195,7 +206,7 @@ def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
         _check("key_offset", key_offset, (torch.int32,), 1, dev)
     B, H, Dh, Bc, C, KV = _shapes(q, cache_k)
     if (cache_v.shape != cache_k.shape or cache_k.shape[3] != Dh
-            or Bc not in (1, B) or H % KV or Dh not in HEAD_DIMS
+            or Bc < 1 or B % Bc or H % KV or Dh not in HEAD_DIMS
             or B < 1 or C < 1
             or valid_len.shape[0] != Bc or q_pos.shape[0] != B
             or inv_freq.shape[0] != Dh // 2
@@ -236,6 +247,8 @@ def decode_attention(q, cache_k, cache_v, valid_len, q_pos, inv_freq,
     )
     _raise_on(err, "decode_attention")
     launch_counts["decode_attention"] += 1
+    key = f"B={B} Bc={Bc}"
+    launch_shapes[key] = launch_shapes.get(key, 0) + 1
     return (out, lse) if return_lse else out
 
 

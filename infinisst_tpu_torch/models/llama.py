@@ -159,40 +159,44 @@ def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
 def beam_token_step(
     params: Params,
     cfg: LlamaConfig,
-    prefix: DecoderState,  # batch 1, valid_len (1,)
-    gen_k: torch.Tensor,  # (L, beam, G, KV, Dh) generated-token keys
+    prefix: DecoderState,  # P prefix caches (L, P, C, KV, Dh), valid_len (P,)
+    gen_k: torch.Tensor,  # (L, P * beam, G, KV, Dh) generated-token keys
     gen_v: torch.Tensor,
-    gen_len: int,  # tokens generated so far (same for all beams)
-    x_embed: torch.Tensor,  # (beam, 1, D)
+    gen_len: int,  # tokens generated so far (the same for every row)
+    x_embed: torch.Tensor,  # (P * beam, 1, D), the rows of slot p first
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One decode step for all beams over two attention blocks: the shared
-    prefix (batch 1, never copied per beam) and the per-beam generation
-    buffer, each through ``decode_attention`` and merged by their
-    log-sum-exp into the one softmax of the JAX step.  This step's K/V are
-    written IN PLACE into ``gen_k`` / ``gen_v`` at slot ``gen_len`` (on the
-    stream the kernel then reads them from).  Returns (logits (beam, V),
-    gen_k, gen_v, attn_idx (beam,) = -1: the attention probe is not
-    ported)."""
-    beam, S, D = x_embed.shape
+    """One decode step for all beams of P slots (the single stream is
+    P = 1; pooled serving vmaps the JAX step over slots) over two
+    attention blocks: the slot's prefix (one cache a slot, shared by its
+    beams, never copied per beam) and the per-beam generation buffer,
+    each through ``decode_attention`` and merged by their log-sum-exp
+    into the one softmax of the JAX step.  A row's query sits at its
+    slot's prefix length + gen_len and its per-beam key j at that prefix
+    length + j.  This step's K/V are written IN PLACE into ``gen_k`` /
+    ``gen_v`` at slot ``gen_len`` (on the stream the kernel then reads
+    them from).  Returns (logits (P * beam, V), gen_k, gen_v, attn_idx
+    (P * beam,) = -1: the attention probe is not ported)."""
+    rows, S, D = x_embed.shape
     assert S == 1
+    beam = rows // prefix.k.shape[1]
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = x_embed.device
     inv_freq = rope_inv_freq(cfg, dev)
     i32 = torch.int32
-    plen = prefix.valid_len.to(device=dev, dtype=i32)  # (1,)
+    plen = prefix.valid_len.to(device=dev, dtype=i32)  # (P,)
     # per-beam block: keys 0..gen_len valid, key j at position plen + j
-    g_valid = torch.full((beam,), gen_len + 1, dtype=i32, device=dev)
-    g_off = plen.expand(beam).contiguous()
-    q_pos = (plen + gen_len).expand(beam).contiguous()
+    g_valid = torch.full((rows,), gen_len + 1, dtype=i32, device=dev)
+    g_off = plen.repeat_interleave(beam)
+    q_pos = g_off + gen_len
 
     h = x_embed
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
         y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
         q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
-        q = q.reshape(beam, H, Dh)
-        k_new = k_new.reshape(beam, KV, Dh)
-        v_new = v_new.reshape(beam, KV, Dh)
+        q = q.reshape(rows, H, Dh)
+        k_new = k_new.reshape(rows, KV, Dh)
+        v_new = v_new.reshape(rows, KV, Dh)
         # in-place write of this step's K/V (the JAX step returns a copy)
         gen_k[li, :, gen_len] = k_new.to(gen_k.dtype)
         gen_v[li, :, gen_len] = v_new.to(gen_v.dtype)
@@ -206,12 +210,12 @@ def beam_token_step(
             key_offset=g_off, return_lse=True,
         )
         attn = merge_blocks(o_p, lse_p, o_g, lse_g)
-        h = h + mm(attn.reshape(beam, 1, H * Dh), lp["wo"])
+        h = h + mm(attn.reshape(rows, 1, H * Dh), lp["wo"])
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
     h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
     logits = mm(h, params["lm_head"])[:, 0, : cfg.vocab_size]
-    attn_idx = torch.full((beam,), -1, dtype=torch.int64, device=dev)
+    attn_idx = torch.full((rows,), -1, dtype=torch.int64, device=dev)
     return logits, gen_k, gen_v, attn_idx
 
 

@@ -26,11 +26,17 @@ class StreamState(NamedTuple):
 def encode_chunk(
     params: Params, cfg: ModelConfig, enc_state: EncoderState,
     window: torch.Tensor, chunk_frames: int, max_cache_frames: int,
+    row_frames=None,
 ) -> Tuple[torch.Tensor, EncoderState]:
-    """Raw-sample window -> (B, chunk_frames / 4, llm_dim) speech tokens."""
+    """Raw-sample window -> (B, chunk_frames / 4, llm_dim) speech tokens.
+
+    With ``row_frames`` (B,), rows carry different real chunk sizes (see
+    ``wav2vec2.chunk_step``); the adapter is chunk-local with valid
+    padding, so a row's first row_frames / 4 tokens do not see the padded
+    tail."""
     frames, enc_state = w2v2_mod.chunk_step(
         params["w2v2"], cfg.w2v2, enc_state, window, chunk_frames,
-        max_cache_frames,
+        max_cache_frames, row_frames=row_frames,
     )
     return adapter_mod.forward(params["adapter"], cfg.adapter, frames), enc_state
 

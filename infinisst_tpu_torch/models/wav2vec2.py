@@ -18,7 +18,7 @@ Parameters (dense weights stored (in, out), as in the JAX package):
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,23 +164,44 @@ def chunk_step(
     window: torch.Tensor,  # (B, CONV_LEFT_CONTEXT + 2 * chunk_samples)
     chunk_frames: int,
     max_cache_frames: int,
+    row_frames: Optional[torch.Tensor] = None,  # (B,) real new frames
 ) -> Tuple[torch.Tensor, EncoderState]:
-    """Encode one chunk against the right-aligned sliding-window cache
-    (uniform chunk sizes).  The conv runs over the whole window and the
-    first ``chunk_frames`` outputs (the previous chunk's) are dropped.
-    Returns (frames (B, chunk_frames, D), new state)."""
+    """Encode one chunk against the right-aligned sliding-window cache.
+    The conv runs over the whole window and the first ``chunk_frames``
+    outputs (the previous chunk's) are dropped.
+
+    ``row_frames`` mixes chunk sizes in one call (the mixed-multiplier
+    serving pool): ``chunk_frames`` is then the padded maximum and row i
+    carries ``row_frames[i]`` real new frames, right-aligned in its
+    window.  Its conv outputs are left-aligned, its chunk is one
+    attention block, only its real new keys are attended, and its ring
+    slides by exactly ``row_frames[i]``: a row with 0 frames passes
+    through unchanged.  Returns (frames (B, chunk_frames, D), real rows
+    left-aligned; new state)."""
     x = _prep_frames(params, cfg, window)[:, -chunk_frames:]
     B, S, D = x.shape
     C = state.k.shape[2]
     dev = x.device
     n = state.n_frames.to(dev)  # (B,)
+    rf = None
+    if row_frames is not None:
+        rf = torch.as_tensor(row_frames, dtype=torch.int64, device=dev)
+        # left-align each row's (right-aligned) real conv outputs
+        src = torch.clamp(S - rf[:, None] + torch.arange(S, device=dev)[None],
+                          0, S - 1)
+        x = torch.gather(x, 1, src[:, :, None].expand(B, S, D))
     if not cfg.use_rope:
         # abs-pos fallback at the ABSOLUTE stream offset
         emb = torch.stack(
             [sinusoidal_positions(o, S, D, dev) for o in n.tolist()]
         )
         x = x + emb.to(x.dtype)
-    mask = M.streaming_chunk_mask(S, n, max_cache_frames, chunk_frames, C + S)
+    mask = M.streaming_chunk_mask(S, n, max_cache_frames,
+                                  chunk_frames if rf is None else rf, C + S)
+    if rf is not None:
+        # only the first row_frames[i] new keys are real
+        kj = torch.arange(C + S, device=dev)[None, None]
+        mask = mask & ((kj < C) | (kj - C < rf[:, None, None]))
     bias = M.additive(mask)[:, None]  # (B, 1, S, C+S)
     valid = torch.clamp(n, max=C)[:, None]
     k_pos = torch.arange(C + S, device=dev)[None] - (C - valid)
@@ -190,10 +211,23 @@ def chunk_step(
     out, (nk, nv) = _encoder_stack(
         params, cfg, x, bias, q_pos, k_pos, (state.k, state.v), inv_freq
     )
-    # right-aligned sliding append: drop the oldest S slots, add the chunk
-    new_k = torch.cat([state.k[:, :, S:], nk.to(state.k.dtype)], dim=2)
-    new_v = torch.cat([state.v[:, :, S:], nv.to(state.v.dtype)], dim=2)
-    return out, EncoderState(k=new_k, v=new_v, n_frames=n + S)
+    if rf is None:
+        # right-aligned sliding append: drop the oldest S slots, add the
+        # chunk
+        new_k = torch.cat([state.k[:, :, S:], nk.to(state.k.dtype)], dim=2)
+        new_v = torch.cat([state.v[:, :, S:], nv.to(state.v.dtype)], dim=2)
+        return out, EncoderState(k=new_k, v=new_v, n_frames=n + S)
+    # per-row shift append: row i's ring slides by row_frames[i]
+    idx = (rf[:, None] + torch.arange(C, device=dev)[None])[None, :, :, None,
+                                                             None]
+
+    def shift(buf, new):
+        full = torch.cat([buf, new.to(buf.dtype)], dim=2)  # (L, B, C+S, H, Dh)
+        return torch.gather(full, 2, idx.expand(
+            full.shape[0], B, C, full.shape[3], full.shape[4]))
+
+    return out, EncoderState(k=shift(state.k, nk), v=shift(state.v, nv),
+                             n_frames=n + rf)
 
 
 def init_params(cfg: W2V2Config, generator: torch.Generator, device="cuda",

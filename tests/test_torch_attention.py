@@ -148,12 +148,14 @@ def test_merge_blocks_is_one_softmax(gen_valid):
 
 
 # (B, Bc, C, H, KV): the beam step's two blocks and the pooled shapes at
-# the flagship geometry, then the tiny model's (its cache capacity 256,
-# the per-beam block of a beam-2 step)
+# the flagship geometry, the serving pool's prefix and per-beam block
+# (8 slots x 4 beams), then the tiny model's (its cache capacity 256, the
+# per-beam block of a beam-2 step, a pool of 2 slots)
 PLAN_SHAPES = [(4, 1, 1280, 32, 8), (4, 4, 10, 32, 8), (4, 4, 1280, 32, 8),
                (4, 4, 4096, 32, 8), (16, 16, 1280, 32, 8),
-               (16, 16, 4096, 32, 8), (2, 1, 256, 4, 2), (2, 2, 10, 4, 2),
-               (9, 1, 300, 32, 8)]
+               (16, 16, 4096, 32, 8), (32, 8, 1280, 32, 8),
+               (32, 32, 10, 32, 8), (2, 1, 256, 4, 2), (2, 2, 10, 4, 2),
+               (4, 2, 256, 4, 2), (9, 1, 300, 32, 8)]
 
 
 @pytest.mark.parametrize("sms", [132, 8])
@@ -161,13 +163,16 @@ def test_plan_and_split_range_cover_every_key_once(sms):
     """The host plan and the key splits the kernel cuts from valid_len:
     every key of [0, c_eff) in exactly one split, split 0 never empty,
     splits of at least MIN_SPLIT keys that start on SPLIT_ALIGN, and
-    every query row of a KV head in one of the row tiles."""
+    every query row that reads a (cache, KV head) -- B / Bc of the query
+    batch times H / KV heads -- in one of the row tiles."""
     for B, Bc, C, H, KV in PLAN_SHAPES:
         Gq = H // KV
         p = TA.plan(B, Bc, C, KV, Gq, sms)
-        r_total = (B if Bc == 1 and B > 1 else 1) * Gq
+        r_total = (B // Bc) * Gq
         assert (p.n_rtiles - 1) * TA.ROWS < r_total <= p.n_rtiles * TA.ROWS
         assert p.groups == Bc * KV * p.n_rtiles
+        if B // Bc * Gq == 16:  # the beam prefix, and a pool slot's
+            assert p.n_rtiles == 1
         assert 1 <= p.n_split <= max(1, -(-C // TA.MIN_SPLIT))
         if sms >= 2 * p.groups and C >= 2 * TA.MIN_SPLIT:
             assert p.n_split > 1, (B, Bc, C, p)

@@ -1,6 +1,10 @@
 """The port's bench (``python -m infinisst_tpu_torch.bench``): its metric
-names and tags follow ``bench.py``'s rules for every flag combination, the
-outlier rules, and ``run_stream`` + the summary on the tiny CPU agent."""
+names and tags follow ``bench.py``'s rules for every flag combination
+(the stream and serve modes), the outlier rules, ``run_stream`` + the
+summary on the tiny CPU agent, and the serve mode's run, summary and
+JSON line on a tiny CPU engine."""
+
+import json
 
 import jax
 import numpy as np
@@ -40,6 +44,21 @@ NAMES = [
     (["--multi-stream"], "streaming_rtf_m1_beam4_8b_int8_multistream"),
     (["--multi-stream", "5", "--multiplier", "2", "--model", "bench"],
      "streaming_rtf_m2_beam4_1chip_multistream"),
+    # --mode serve: bench.py:701-706 (mixed pool), :761-763; the serve
+    # mode's tag is 8b_int8 or 1chip whatever the group flags say
+    (["--mode", "serve"], "serve_decode_tok_per_s_pool8_beam4_m1_8b_int8"),
+    (["--mode", "serve", "--pool", "4", "--beam", "1"],
+     "serve_decode_tok_per_s_pool4_beam1_m1_8b_int8"),
+    (["--mode", "serve", "--multiplier", "2", "--churn"],
+     "serve_decode_tok_per_s_pool8_beam4_m2_churn_8b_int8"),
+    (["--mode", "serve", "--multipliers", "1,2"],
+     "serve_decode_tok_per_s_pool8_beam4_mixedm1x2_8b_int8"),
+    (["--mode", "serve", "--multipliers", "1,2,4", "--churn", "--pool", "6"],
+     "serve_decode_tok_per_s_pool6_beam4_mixedm1x2x4_8b_int8"),
+    (["--mode", "serve", "--model", "bench"],
+     "serve_decode_tok_per_s_pool8_beam4_m1_1chip"),
+    (["--mode", "serve", "--group128"],
+     "serve_decode_tok_per_s_pool8_beam4_m1_8b_int8"),
 ]
 
 
@@ -113,7 +132,8 @@ def test_run_stream_on_the_tiny_agent():
     assert B.summarize_schedule(run, "s")["value"] > 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "serve"], ["--mode", "train"],
+@pytest.mark.parametrize("argv", [["--mode", "serve", "--speculative"],
+                                  ["--mode", "train"],
                                   ["--mode", "alignatt"], ["--speculative"]])
 def test_unported_modes_exit(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -127,3 +147,55 @@ def test_bench_defaults_to_cuda():
         pytest.skip("a CUDA device is present; this checks the no-card path")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         B.main(["--chunks", "4"])
+
+
+def _tiny_engine(beam=2, multipliers=None, pool=2):
+    from tests.test_torch_serve import port_engine
+
+    return port_engine(pool, beam, multipliers, cap=60)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_serve_run_and_line_on_the_tiny_engine(monkeypatch, capsys, mixed):
+    """``main`` in serve mode on a tiny CPU engine: one JSON line with
+    bench.py's keys, the tokens decoded over the timed ticks, and the
+    launches and forwards on stderr (a mixed (1, 2) pool: two warm-up
+    ticks, then chunks x 2 ticks; a uniform pool with churn halfway)."""
+    argv = ["--mode", "serve", "--device", "cpu", "--pool", "2", "--beam",
+            "2", "--chunks", "2"]
+    argv += ["--multipliers", "1,2"] if mixed else ["--churn"]
+    eng = _tiny_engine(multipliers=(1, 2) if mixed else None)
+    monkeypatch.setattr(B, "build_engine", lambda args: eng)
+    result = B.main(argv)
+    out, err = capsys.readouterr()
+    assert json.loads(out.strip().splitlines()[-1]) == result
+    metric = ("serve_decode_tok_per_s_pool2_beam2_mixedm1x2_8b_int8" if mixed
+              else "serve_decode_tok_per_s_pool2_beam2_m1_churn_8b_int8")
+    keys = {"metric", "value", "unit", "vs_baseline", "slot_chunk_p50_ms",
+            "slot_chunk_p95_ms", "slot_chunk_p99_ms", "slot_chunks_timed",
+            "evictions"}
+    if not mixed:
+        keys |= {"churn_tick", "slot_chunk_p99_ms_first_half",
+                 "slot_chunk_p99_ms_second_half"}
+    assert set(result) == keys and result["metric"] == metric
+    assert result["unit"] == "tok/s/chip" and result["value"] > 0
+    assert abs(result["vs_baseline"] - result["value"] / 30.0) < 1e-3
+    # every slot's chunk is timed once per tick it prefilled in
+    assert result["slot_chunks_timed"] == (4 + 2 if mixed else 2 * 2)
+    assert "per-stream RTF=" in err and "kernel launches " in err
+    forwards = json.loads(err.split("engine forwards ")[1].splitlines()[0])
+    assert forwards["prefill"] == (2 + 4 if mixed else 1 + 2)
+    assert forwards["token"] > 0
+
+
+def test_run_serve_counts_the_timed_ticks():
+    """Batched greedy, three slots: one untimed tick, then every slot's
+    chunk in each of the three timed ticks; the tokens counted are those
+    decoded after the warm-up tick."""
+    eng = _tiny_engine(beam=1, pool=3)
+    run = B.run_serve(eng, 3)
+    assert run["n_ticks"] == len(run["tick_walls"]) == 3
+    assert len(run["slot_lat"]) == 3 * 3 and run["audio_s"] == 3 * 0.96
+    total = sum(len(s.target_ids) for s in eng.slots)
+    assert 0 < run["tokens"] < total
+    assert eng.forwards["prefill"] == 4
