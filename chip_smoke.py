@@ -32,16 +32,28 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  PyTorch call computes it).
                  The serving pool's shapes, M = 32 (a beam step of 8
                  slots x 4 beams) and M = 384 / 512 / 640 (its prefill at
-                 m = 1, mixed (1, 2) and (1, 2, 4)) and 768, take
-                 row_quant_int8 and w8a8_gemm only, with the _int_mm
-                 yardstick.
+                 m = 1, mixed (1, 2) and (1, 2, 4)) and 768, and the
+                 offline agents' prefills, M = 192 / 320 (StreamAtt's
+                 prompt buckets; AlignAtt's is 384) and 448 (AlignAtt at
+                 the 28.8 s cap with 64 target ids, which the bench's
+                 random weights do not reach), take row_quant_int8 and
+                 w8a8_gemm only, with the _int_mm yardstick.  The offline
+                 phases fail if a call's prompt bucket is not held here.
   4. attention -- decode_attention against its plain version at the beam
                  step's two blocks, at decode_attention_batched's pooled
-                 shapes and at the serving pool's two blocks (its prefix:
-                 8 caches, each read by its slot's 4 beams), within
-                 ATT_RTOL; times as in phase 3, with
-                 F.scaled_dot_product_attention (enable_gqa) over keys
-                 rotated beforehand as the library yardstick.
+                 shapes, at the serving pool's two blocks (its prefix:
+                 8 caches, each read by its slot's 4 beams) and at an
+                 AlignAtt call with 64 target ids (a prefix of 447 valid
+                 in 512 slots; the per-beam block of 64 slots at key
+                 offset 447, valid 1-64), output and lse within ATT_RTOL;
+                 times as in phase 3, with F.scaled_dot_product_attention
+                 (enable_gqa) over keys rotated beforehand as the library
+                 yardstick.  Then the AlignAtt probe (llama.span_probe
+                 over the 360 speech keys) from the two launches' lse
+                 equal to the probe from the plain version's, at three
+                 gen_lens.  The shapes the offline benches' calls really
+                 run are held where those run (hold_offline_attention in
+                 streamatt, alignatt and streamatt bench).
   5. tiny     -- a tiny speech-LLM on the card against the same model on
                  the CPU (plain versions): float32 and W8A8 prefill logits
                  within 1e-4 * max|logits|, and the W8A8 agent's tokens
@@ -64,6 +76,24 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  (pool 8, beam 4, m=1): tick walls, one tick with a
                  synchronise around each stage and one under
                  torch.profiler.
+                 Then [alignatt profile]: the same weights in the bench's
+                 AlignAtt agent (every call at the 28.8 s audio shape):
+                 its first call (24 beam steps) timed and, on a fresh
+                 agent, profiled (device time by stage: encoder,
+                 adapter, prefill, beam steps); a call at 64 beam steps
+                 with a synchronise around each stage.
+     streamatt -- (after flagship, on its weights) the bench's StreamAtt
+                 agent driven directly for 16 chunks through the bench's
+                 run_offline: each chunk's wall, beam steps, prompt
+                 bucket, prompt length and kept source, a JSON line over
+                 chunks 2-15 under its own metric name
+                 (streamatt_direct16_...), launches checked per call as in
+                 [alignatt]; after every push the kept source equal to the
+                 attended-frame rule's (StreamAttRule), recomputed from the
+                 agent's target and most-attended samples, and a cut by
+                 that rule at least once; then decode_attention and the
+                 probe held at each (prompt length, cache slots) its calls
+                 ran (hold_offline_attention, untimed).
   7. weight-only -- three chunks of the 8B model with {'q_kmajor','scale'}
                  projections through w8_bf16_gemm, then one chunk under
                  torch.profiler.
@@ -82,15 +112,42 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  launches decode_attention = token forwards x L x 2 (half
                  at B=32 Bc=8, the pool prefix), w8a8_gemm = forwards x
                  (7L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
+     alignatt -- ``python -m infinisst_tpu_torch.bench --mode alignatt``
+                 (12 chunks, 3 untimed) and ``--early-stop``: exit 0, the
+                 JSON line, each chunk's wall, beam steps, prompt bucket
+                 and prompt length; launches w8a8_gemm = steps x (7L + 1),
+                 row_quant_int8 = steps x (4L + 1), decode_attention =
+                 (steps - calls) x 2L, summed over the calls, each > 0 in
+                 parity (the early stop may stop every call at its first
+                 step, with no beam forward; its RTF then times a prefill
+                 a call).  decode_attention (prefix of pbucket + 64 slots
+                 with the prompt length valid, per-beam block of 64 slots
+                 at that key offset) and the probe held at every shape the
+                 parity calls ran, timed at the one with the most beam
+                 forwards (the kernels line's alignatt entries).
+     streamatt bench -- ``python -m infinisst_tpu_torch.bench --mode
+                 streamatt`` (40 chunks, timed from 32): as alignatt, its
+                 shapes held and timed (the kernels line's streamatt
+                 entries).
  10. cli ckpt -- a synthetic reference pytorch_model.bin at the dryrun
                  preset, loaded by ``agents.cli.main`` through
                  convert/from_torch.py and streamed over two wav files, on
-                 the card and on the CPU: equal predictions and delays.
+                 the card and on the CPU: equal predictions and delays;
+                 then ``--agent streamatt`` on the card: both talks in a
+                 non-empty instances file.
  11. cli flagship -- ``agents.cli.main`` at the flagship preset, m=2, with
                  no paths (random bf16 weights on the card, plain
                  torch.matmul projections, decode_attention in the beam
                  step) and the stub tokenizer over the same two files:
                  finite RTF and StreamLAAL, the scores printed.
+     alignatt tiny -- (after serve tiny) the tiny AlignAtt (parity and
+                 early stop) and StreamAtt agents with float32 weights on
+                 the card against the CPU: target ids, most-attended
+                 indices and source lengths equal after every push, the
+                 StreamAtt source equal to the attended-frame rule's after
+                 every push and cut at an attended sample at least once;
+                 the same with W8A8 weights, reported (the first push
+                 that differs).
      serve tiny -- (after tiny) a tiny float32 ServingEngine on the card
                  against the CPU: pool 2, beam 2, multipliers (1, 2), a
                  multiplier switch and a trim; every slot's tokens equal
@@ -116,6 +173,7 @@ import importlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -136,6 +194,12 @@ TABLE_M = [1, 4, 61, 79]
 # 8 prompts padded to 48 tokens at m=1, 64 in a mixed (1, 2) pool and 80
 # in a (1, 2, 4) pool (the stub tokenizer's prompts); and 8 x 96
 SERVE_M = [32, 384, 512, 640, 768]
+# the offline agents' prefills: StreamAtt's prompt buckets 192 and 320
+# (the bench's calls; AlignAtt's 384 is the pool's), and AlignAtt at the
+# 28.8 s cap with 64 target ids (448), which the bench's random weights do
+# not reach; every bucket a bench call ran must be among the rows held
+OFFLINE_M = [192, 320, 448]
+DECODE_BUF_TOKENS = 64  # the offline agents' G (AlignAttOptions)
 REPORT_SHAPE = (4, 4096, 14336)  # the kernels line: a beam-step gate/up
 GROUP = 128  # bench.py --group128
 W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
@@ -357,7 +421,7 @@ def check_kernels(dev, notes):
         s = torch.rand((O,), generator=gen, device=dev) * 1e-3 + 1e-4
         G = D // GROUP
         sg = torch.rand((G, O), generator=gen, device=dev) * 1e-3 + 1e-4
-        for M in TABLE_M + SERVE_M:
+        for M in TABLE_M + SERVE_M + OFFLINE_M:
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
                  ).to(torch.bfloat16)
             # row_quant_int8 (one D per row count; time at O's first visit)
@@ -413,8 +477,8 @@ def check_kernels(dev, notes):
                 print(f"  {'':17s} kernel / (torch._int_mm + epilogue) "
                       f"{statistics.median(ms) / statistics.median(lib):.3f}",
                       flush=True)
-            if M in SERVE_M:
-                continue  # the pool runs only the W8A8 pair
+            if M in SERVE_M + OFFLINE_M:
+                continue  # the pool and AlignAtt run only the W8A8 pair
 
             # w8_bf16_gemm on the K-major weight: within W8_BF16_RTOL of
             # the plain version in bf16, 1e-5 in float32 (f32 summation
@@ -540,7 +604,14 @@ def _att_cases():
              ("beam per-beam block", 4, 4, 10, [4] * 4, [1000] * 4, True),
              ("pool prefix", 32, 8, 1280, [1000] * 8, None, True),
              ("pool per-beam block", 32, 32, 10, [4] * 32, [1000] * 32,
-              True)]
+              True),
+             # an AlignAtt call at the 28.8 s cap with 64 target ids in its
+             # prompt (447 valid in a 512-slot cache); the bench's random
+             # weights emit no target, so its calls run the shapes that
+             # hold_offline_attention takes from them
+             ("alignatt 64-target prefix", 4, 1, 512, [447], None, True),
+             ("alignatt 64-target per-beam", 4, 4, 64, [1, 22, 43, 64],
+              [447] * 4, True)]
     for B in (4, 16):
         for C in (1280, 4096):
             valid = [C // 2 + (C // 2) * i // B for i in range(B)]
@@ -549,97 +620,232 @@ def _att_cases():
     return cases
 
 
-def check_attention(dev, notes):
+def att_case(dev, gen, notes, label, B, Bc, C, valid, off, lse, dtype, timed,
+             q_pos=None):
+    """decode_attention at one shape against its plain version: output
+    (and lse) within ATT_RTOL; timed, with the SDPA yardstick and the
+    bound, into ``notes`` under (label, B, C).  The queries sit at
+    ``q_pos`` (default: 3 past the last valid key)."""
     import torch
     import torch.nn.functional as F
 
     from infinisst_tpu_torch.core import rope as R
     from infinisst_tpu_torch.kernels import decode_attention as A
 
-    gen = torch.Generator(device=dev).manual_seed(2)
     H, KV, Dh = ATT_HEADS
     inv = torch.tensor(R.llama_rope_freqs(Dh), dtype=torch.float32,
                        device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+    kv_bytes = 2 * Bc * C * KV * Dh * q.element_size()
+    # enough cache copies to exceed the 50 MB L2: each layer's cache is
+    # read cold on the main path
+    n_c = max(1, math.ceil(120e6 / kv_bytes)) if timed else 1
+    ks = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev).to(dtype)
+          for _ in range(n_c)]
+    vs = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev).to(dtype)
+          for _ in range(n_c)]
+    vl = torch.tensor(valid, **i32)
+    base = 0 if off is None else off[0]
+    qp = torch.tensor([base + max(valid) + 3 if q_pos is None else q_pos]
+                      * B, **i32)
+    ko = None if off is None else torch.tensor(off, **i32)
 
-    def run(label, B, Bc, C, valid, off, lse, dtype, timed):
-        q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
-        kv_bytes = 2 * Bc * C * KV * Dh * q.element_size()
-        # enough cache copies to exceed the 50 MB L2: each layer's cache
-        # is read cold on the main path
-        n_c = max(1, math.ceil(120e6 / kv_bytes)) if timed else 1
-        ks = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev
-                          ).to(dtype) for _ in range(n_c)]
-        vs = [torch.randn((Bc, C, KV, Dh), generator=gen, device=dev
-                          ).to(dtype) for _ in range(n_c)]
-        vl = torch.tensor(valid, **i32)
-        base = 0 if off is None else off[0]
-        qp = torch.tensor([base + max(valid) + 3] * B, **i32)
-        ko = None if off is None else torch.tensor(off, **i32)
+    def kernel(i):
+        return A.decode_attention(q, ks[i % n_c], vs[i % n_c], vl, qp, inv,
+                                  key_offset=ko, return_lse=lse)
 
-        def kernel(i):
-            return A.decode_attention(q, ks[i % n_c], vs[i % n_c], vl, qp,
-                                      inv, key_offset=ko, return_lse=lse)
+    def plain(i):
+        return A.decode_attention_plain(q, ks[i % n_c], vs[i % n_c], vl, qp,
+                                        inv, ko, lse)
 
-        def plain(i):
-            return A.decode_attention_plain(q, ks[i % n_c], vs[i % n_c], vl,
-                                            qp, inv, ko, lse)
+    got, ref = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, ref)) if lse else [(got, ref)]
+    rtol = ATT_RTOL["bf16" if dtype == torch.bfloat16 else "f32"]
+    err = 0.0
+    for n, (g, r) in enumerate(pairs):
+        e = (g.float() - r.float()).abs().max().item()
+        lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
+            r.float().abs().max().item()
+        if not (e <= lim and torch.isfinite(g).all()):
+            fail(f"decode_attention {label} {dtype}: "
+                 f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
+        err = max(err, e)
+    if not timed:
+        print(f"  decode_attention  {label} {dtype}: max_abs_err "
+              f"{err:.3e} (within {rtol} x max|plain|)", flush=True)
+        return
+    ms = cuda_time_ms(kernel, 20)
+    pms = cuda_time_ms(plain, 3, warmup=1)
+    # library yardstick: SDPA over keys rotated beforehand (not timed: SDPA
+    # has no rotate-on-read), the valid_len mask as a boolean mask; the
+    # shared prefix folds the beams into its query length
+    kpos = torch.arange(C, device=dev)[None] + (
+        0 if ko is None else ko[:, None])
+    krs = [R.apply_llama_rope(k.transpose(1, 2), kpos[:, None], inv)
+           for k in ks]
+    vts = [v.transpose(1, 2).contiguous() for v in vs]
+    qr = R.apply_llama_rope(q[:, :, None], qp[:, None, None], inv)
+    if B > Bc:  # a cache's rows as its query length: (Bc, H, B/Bc, Dh)
+        qr = qr.reshape(Bc, B // Bc, H, Dh).permute(0, 2, 1, 3)
+        qr = qr.contiguous()
+    mask = (torch.arange(C, device=dev)[None] < vl[:, None])[
+        :, None, None, :]
+    lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qr, krs[i % n_c], vts[i % n_c], attn_mask=mask, enable_gqa=True), 20)
+    c_eff = [min(v, C) if v > 0 else C for v in valid]
+    nbytes = (sum(c_eff) * 2 * KV * Dh * q.element_size()
+              + 2 * q.numel() * q.element_size() + Bc * 8
+              + (B * H * 4 if lse else 0))
+    rows_per_cache = B // Bc
+    ops = sum(4.0 * rows_per_cache * H * c * Dh for c in c_eff)
+    bms, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+    notes.note("decode_attention", (label, B, C), err, ms, pms, lib, bms, by,
+               label=f"{label:21s} B={B:2d} Bc={Bc:2d} C={C:5d}")
 
-        got, ref = kernel(0), plain(0)
-        torch.cuda.synchronize()
-        pairs = list(zip(got, ref)) if lse else [(got, ref)]
-        rtol = ATT_RTOL["bf16" if dtype == torch.bfloat16 else "f32"]
-        err = 0.0
-        for n, (g, r) in enumerate(pairs):
-            e = (g.float() - r.float()).abs().max().item()
-            lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
-                r.float().abs().max().item()
-            if not (e <= lim and torch.isfinite(g).all()):
-                fail(f"decode_attention {label} {dtype}: "
-                     f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
-            err = max(err, e)
-        if not timed:
-            print(f"  decode_attention  {label} {dtype}: max_abs_err "
-                  f"{err:.3e} (within {rtol} x max|plain|)", flush=True)
-            return
-        ms = cuda_time_ms(kernel, 20)
-        pms = cuda_time_ms(plain, 3, warmup=1)
-        # library yardstick: SDPA over keys rotated beforehand (not timed:
-        # SDPA has no rotate-on-read), the valid_len mask as a boolean
-        # mask; the shared prefix folds the beams into its query length
-        kpos = torch.arange(C, device=dev)[None] + (
-            0 if ko is None else ko[:, None])
-        krs = [R.apply_llama_rope(k.transpose(1, 2), kpos[:, None], inv)
-               for k in ks]
-        vts = [v.transpose(1, 2).contiguous() for v in vs]
-        qr = R.apply_llama_rope(q[:, :, None], qp[:, None, None], inv)
-        if B > Bc:  # a cache's rows as its query length: (Bc, H, B/Bc, Dh)
-            qr = qr.reshape(Bc, B // Bc, H, Dh).permute(0, 2, 1, 3)
-            qr = qr.contiguous()
-        mask = (torch.arange(C, device=dev)[None] < vl[:, None])[
-            :, None, None, :]
-        lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-            qr, krs[i % n_c], vts[i % n_c], attn_mask=mask,
-            enable_gqa=True), 20)
-        c_eff = [min(v, C) if v > 0 else C for v in valid]
-        nbytes = (sum(c_eff) * 2 * KV * Dh * q.element_size()
-                  + 2 * q.numel() * q.element_size() + Bc * 8
-                  + (B * H * 4 if lse else 0))
-        rows_per_cache = B // Bc
-        ops = sum(4.0 * rows_per_cache * H * c * Dh for c in c_eff)
-        bms, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
-        notes.note("decode_attention", (label, B, C), err, ms, pms, lib, bms,
-                   by, label=f"{label:21s} B={B:2d} Bc={Bc:2d} C={C:5d}")
 
+def check_attention(dev, notes):
+    import torch
+
+    from infinisst_tpu_torch.core.presets import flagship_config
+
+    gen = torch.Generator(device=dev).manual_seed(2)
     for case in _att_cases():
-        run(*case, dtype=torch.bfloat16, timed=True)
-    # float32 (the tiny model's and the tests' dtype), the beam step's and
-    # the pool's blocks
-    for case in _att_cases()[:4]:
-        run(*case, dtype=torch.float32, timed=False)
+        att_case(dev, gen, notes, *case, dtype=torch.bfloat16, timed=True)
+    # float32 (the tiny model's and the tests' dtype), the beam step's,
+    # the pool's and AlignAtt's blocks
+    for case in _att_cases()[:6]:
+        att_case(dev, gen, notes, *case, dtype=torch.float32, timed=False)
+    a0, a1 = alignatt_span(flagship_config(), 360)
+    check_probe(dev, "alignatt 64-target", 512, 447, a0, a1, (0, 20, 63))
     print("  library_ms: F.scaled_dot_product_attention(enable_gqa=True) over "
           "keys rotated beforehand -- it leaves out the rotation the kernel "
           "does", flush=True)
+
+
+def alignatt_span(cfg, n_speech):
+    """(a0, a1): the speech span of the flagship's offline prompt (the stub
+    tokenizer) over ``n_speech`` speech tokens, the probe's keys."""
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    b = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    start = b.offline_prompt(n_speech, []).patch_start
+    return start, start + n_speech
+
+
+def check_probe(dev, label, cap, plen, a0, a1, gen_lens):
+    """The AlignAtt probe of a beam step (bf16, the flagship's heads, 4
+    beams): ``span_probe`` over the speech keys a0..a1-1 from the kernels'
+    log-sum-exps (the prefix, ``plen`` valid of ``cap`` slots, and the
+    per-beam block of 64 slots at key offset ``plen``, two launches)
+    equals the probe from the plain version's, at each generation length
+    of ``gen_lens``."""
+    import torch
+
+    from infinisst_tpu_torch.core import rope as R
+    from infinisst_tpu_torch.kernels import decode_attention as A
+    from infinisst_tpu_torch.models import llama as L
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    H, KV, Dh = ATT_HEADS
+    G = DECODE_BUF_TOKENS
+    inv = torch.tensor(R.llama_rope_freqs(Dh), dtype=torch.float32,
+                       device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    pk, pv = rand(1, cap, KV, Dh), rand(1, cap, KV, Dh)
+    gk, gv = rand(4, G, KV, Dh), rand(4, G, KV, Dh)
+    seen = []
+    for g in gen_lens:
+        q = rand(4, H, Dh)
+        pl = torch.tensor([plen], **i32)
+        qp = torch.tensor([plen + g] * 4, **i32)
+        gvl = torch.tensor([g + 1] * 4, **i32)
+        off = torch.tensor([plen] * 4, **i32)
+        probes = {}
+        for kind, fn in (("kernel", A.decode_attention),
+                         ("plain", A.decode_attention_plain)):
+            _, lp = fn(q, pk, pv, pl, qp, inv, None, True)
+            _, lg = fn(q, gk, gv, gvl, qp, inv, off, True)
+            probes[kind] = L.span_probe(q, pk, a0, a1, qp, inv,
+                                        torch.logaddexp(lp, lg)).tolist()
+        if probes["kernel"] != probes["plain"]:
+            fail(f"the {label} probe (span {a0}..{a1}, {plen} valid of "
+                 f"{cap}) from decode_attention's lse differs from the "
+                 f"plain version's at gen_len {g}: {probes['kernel']} "
+                 f"against {probes['plain']}")
+        seen.append((g, probes["kernel"]))
+    print(f"  probe {label} (span {a0}..{a1}, {plen} valid of {cap}): "
+          f"kernel lse = plain lse at gen_len " + ", ".join(
+              f"{g} {p}" for g, p in seen), flush=True)
+
+
+def offline_shapes(calls):
+    """The decode_attention shapes of offline calls (bench.run_offline
+    records): per (prompt bucket, prompt length, audio units), the most
+    beam steps a call took and the beam forwards of all such calls."""
+    shapes = {}
+    for c in calls:
+        key = (c[3], c[6], c[7])
+        most, forwards = shapes.get(key, (0, 0))
+        shapes[key] = (max(most, c[1]), forwards + c[1] - 1)
+    return shapes
+
+
+def hold_offline_attention(dev, notes, label, calls, timed, where=None):
+    """decode_attention at the shapes the offline calls ``calls`` ran: for
+    each (prompt bucket, prompt length) with a beam forward, the prefix
+    (4 beams over one cache of pbucket + G slots, prompt length valid)
+    and the per-beam block (G slots at key offset prompt length, valid
+    1..steps - 1), output and lse within ATT_RTOL, and the probe over the
+    call's speech span at gen_len 0, the middle and the last; with
+    ``timed``, the shape with the most beam forwards timed into ``notes``.
+    Returns that shape's (prefix, per-beam) Notes keys, or None when no
+    call ran a beam forward.  ``where`` names the phase in the printout
+    (default ``label``)."""
+    import torch
+
+    from infinisst_tpu_torch.core.presets import flagship_config
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    G = DECODE_BUF_TOKENS
+    cfg = flagship_config()
+    shapes = offline_shapes(calls)
+    run = {k: v for k, v in shapes.items() if v[0] > 1}
+    where = where or label
+    if not run:
+        print(f"[{where}] no call ran a beam forward: no decode_attention "
+              f"shape to hold", flush=True)
+        return None
+    top = max(run, key=lambda k: run[k][1])
+    for key in sorted(run):
+        (pbucket, plen, units), (steps, _) = key, run[key]
+        last = steps - 2  # a call's beam forwards see gen_len 0..steps-2
+        cap = pbucket + G
+        spread = sorted({1 + last * i // 3 for i in range(4)})
+        spread += [last + 1] * (4 - len(spread))
+        tag = f"{label} {plen}/{cap}"  # valid / slots
+        is_top = timed and key == top
+        att_case(dev, gen, notes, f"{tag} prefix", 4, 1, cap, [plen], None,
+                 True, torch.bfloat16, is_top, q_pos=plen + last)
+        att_case(dev, gen, notes, f"{tag} per-beam", 4, 4, G, spread,
+                 [plen] * 4, True, torch.bfloat16, is_top,
+                 q_pos=plen + last)
+        a0, a1 = alignatt_span(cfg, 12 * units)
+        check_probe(dev, tag, cap, plen, a0, a1,
+                    sorted({0, last // 2, last}))
+    print(f"[{where}] decode_attention held at the {len(run)} (prompt "
+          f"length, cache slots) pairs its calls ran: "
+          f"{[(k[1], k[0] + G) for k in sorted(run)]}"
+          + (f"; timed at {top[1]} valid of {top[0] + G}" if timed else ""),
+          flush=True)
+    tag = f"{label} {top[1]}/{top[0] + G}"
+    return ((f"{tag} prefix", 4, top[0] + G), (f"{tag} per-beam", 4, G))
 
 
 # ---------------------------------------------------------------------------
@@ -864,6 +1070,108 @@ def check_serve_tiny(dev, f32_params, w8a8_params):
           flush=True)
 
 
+# the tiny AlignAtt / StreamAtt runs (tests/test_torch_alignatt.py's
+# config): label -> (agent, options)
+OFFLINE_TINY = {
+    "alignatt": ("alignatt", {}),
+    "alignatt early stop": ("alignatt", {"attn_early_stop": True}),
+    "streamatt": ("streamatt", {"text_preserve_num": 2,
+                                "min_speech_duration": 0.5,
+                                "max_speech_duration": 1.5,
+                                "target_lang": "Chinese"}),
+}
+
+
+def tiny_offline_agent(device, params, kind, **kw):
+    """The tiny AlignAtt or StreamAtt agent of tests/test_alignatt.py:_mk
+    (beam 2, layer 1, 2-unit audio buckets, a 16-token buffer)."""
+    import torch
+
+    from infinisst_tpu_torch.agents.alignatt import (
+        AlignAttAgent, AlignAttOptions,
+    )
+    from infinisst_tpu_torch.agents.streamatt import (
+        StreamAttAgent, StreamAttOptions,
+    )
+    from infinisst_tpu_torch.core.config import StreamConfig
+
+    base, cfg = tiny_agent("cpu", None)
+    cls, opts_cls = ((AlignAttAgent, AlignAttOptions) if kind == "alignatt"
+                     else (StreamAttAgent, StreamAttOptions))
+    opts = opts_cls(latency_multiplier=1, beam=2, attn_layer=1, frame_num=1,
+                    length_bucket_chunks=2, decode_buf_tokens=16,
+                    no_repeat_ngram_lookback=16, **kw)
+    return cls(_to(params, device), cfg,
+               StreamConfig(max_cache_frames=96, llm_cache_capacity=256),
+               base.builder, opts, param_dtype=torch.float32, device=device)
+
+
+def _offline_tiny_run(device, params, kind, kw, on_push=None):
+    """Four 960 ms pushes (the AlignAtt runs finish on the last): after
+    each, (target ids, most-attended indices, source samples);
+    ``on_push(agent, audio)`` after each push where given."""
+    import numpy as np
+
+    agent = tiny_offline_agent(device, params, kind, **kw)
+    rng = np.random.RandomState(13)
+    out = []
+    for i in range(4):
+        audio = rng.randn(agent.unit_samples).astype(np.float32) * 0.1
+        agent.push(audio, finished=(kind == "alignatt" and i == 3))
+        if on_push is not None:
+            on_push(agent, audio)
+        st = agent.states
+        out.append((list(st.target_ids), list(st.most_attended_indices),
+                    len(st.source)))
+    return out
+
+
+def check_alignatt_tiny(dev, f32_params, w8a8_params):
+    """The tiny AlignAtt (parity and early stop) and StreamAtt agents with
+    the float32 weights of check_tiny, on the card against the CPU: equal
+    target ids, most-attended indices and source lengths after every push.
+    Then with the W8A8 weights, reported: the first push that differs."""
+    from types import SimpleNamespace
+
+    reset_counts()
+    for label, (kind, kw) in OFFLINE_TINY.items():
+        rule = (StreamAttRule(SimpleNamespace(**kw), f"[alignatt tiny] {label}")
+                if kind == "streamatt" else None)
+        a = _offline_tiny_run("cpu", f32_params, kind, kw)
+        b = _offline_tiny_run(dev, f32_params, kind, kw, on_push=rule)
+        for i, (x, y) in enumerate(zip(a, b)):
+            print(f"  [alignatt tiny] {label} push {i}: target {y[0][:10]}"
+                  f"{'...' if len(y[0]) > 10 else ''} ({len(y[0])}), "
+                  f"attended {y[1][:6]}{'...' if len(y[1]) > 6 else ''} "
+                  f"({len(y[1])}), source {y[2]}", flush=True)
+            if x != y:
+                fail(f"[alignatt tiny] {label} push {i}: the card's agent "
+                     f"differs from the CPU's: {y} != {x}")
+        if not a[-1][0]:
+            fail(f"[alignatt tiny] {label} emitted nothing")
+        if rule is not None:
+            print(f"  [alignatt tiny] {label}: the kept source equal to the "
+                  f"rule's after every push; cut at the earliest attended "
+                  f"sample after pushes {rule.at_frame}, clamped to "
+                  f"min_speech_duration after {rule.clamped}", flush=True)
+            if not rule.at_frame:
+                fail("[alignatt tiny] StreamAtt never cut its source at "
+                     "an attended frame")
+    counts = launch_counts()
+    print(f"  [alignatt tiny] launches on the card {counts}", flush=True)
+    if counts["decode_attention"] <= 0:
+        fail("[alignatt tiny] the beam step did not launch decode_attention")
+    for label, (kind, kw) in OFFLINE_TINY.items():
+        a = _offline_tiny_run("cpu", w8a8_params, kind, kw)
+        b = _offline_tiny_run(dev, w8a8_params, kind, kw)
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        print(f"  [alignatt tiny] W8A8 {label}, card against CPU: "
+              + ("equal every push" if first is None else
+                 f"first differs at push {first} (float32 noise across an "
+                 "int8 rounding boundary, ROADMAP §3)"), flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phases 5 / 6: the 8B streams
 
@@ -969,16 +1277,33 @@ SERVE_STAGES = (
 )
 
 
+# the AlignAtt call (agents/alignatt.py); beam_token_step runs inside
+# beam_search.  A third element labels a stage whose function name is
+# another stage's.
+ALIGNATT_STAGES = (
+    ("infinisst_tpu_torch.models.wav2vec2", "forward", "encoder"),
+    ("infinisst_tpu_torch.models.adapter", "forward", "adapter"),
+    ("infinisst_tpu_torch.models.llama", "decode_step", "prefill"),
+    ("infinisst_tpu_torch.decode.beam", "beam_search"),
+    ("infinisst_tpu_torch.models.llama", "beam_token_step"),
+)
+
+
+def stage_label(stage) -> str:
+    return stage[2] if len(stage) > 2 else stage[1]
+
+
 @contextlib.contextmanager
 def wrapped_stages(wrap, stages=STAGES):
-    """Replace each stage function by ``wrap(name, fn)`` for the duration
+    """Replace each stage function by ``wrap(label, fn)`` for the duration
     (the port calls them through their modules), then restore them."""
     saved = []
-    for mod_name, name in stages:
+    for stage in stages:
+        mod_name, name = stage[:2]
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
-        setattr(mod, name, wrap(name, fn))
+        setattr(mod, name, wrap(stage_label(stage), fn))
     try:
         yield
     finally:
@@ -1025,7 +1350,8 @@ def stage_chunk(dev, r):
         dev, lambda: r["agent"].push(audio, finished=False), STAGES)
     print(f"[stages] one chunk with a synchronise around each stage: wall "
           f"{wall * 1e3:.2f} ms", flush=True)
-    for _, name in STAGES:
+    for stage in STAGES:
+        name = stage_label(stage)
         n, t = spent.get(name, (0, 0.0))
         print(f"[stages]   {name:16s} calls {n:2d}  {t * 1e3:9.2f} ms",
               flush=True)
@@ -1094,7 +1420,8 @@ def profile_run(dev, step, stages, label, med, what):
                 (e.time_range.start, e.time_range.end))
         else:
             events.append((e.time_range.start, e.time_range.elapsed_us()))
-    for _, name in stages:
+    for stage in stages:
+        name = stage_label(stage)
         ss = spans.get(name, [])
         span_ms = sum(b - a for a, b in ss) / 1e3
         dev_ms = sum(d for s, d in events
@@ -1117,15 +1444,15 @@ def profile_run(dev, step, stages, label, med, what):
 
 def check_flagship(dev, paths):
     """The flagship W8A8 stream (ring wrap + an applied eviction), a chunk
-    stage by stage, a profiled chunk and the multiplier switch; returns the
-    encoder and adapter for the later 8B paths."""
+    stage by stage, a profiled chunk, the multiplier switch, the serving
+    pool's and AlignAtt's profiles; returns (config, parameters) for the
+    later 8B paths."""
     import torch
 
     from infinisst_tpu_torch.bench import flagship_params
 
     print("[flagship] 8B W8A8, m=1, beam 4", flush=True)
     cfg, params = flagship_params(dev, act_int8=True)
-    speech = {k: params[k] for k in ("w2v2", "adapter")}
     r = stream_8b(dev, cfg, params, min_chunks=13, max_chunks=60,
                   need_evict=True, label="w8a8")
     L = r["n_layers"]
@@ -1171,9 +1498,70 @@ def check_flagship(dev, paths):
     del r
     torch.cuda.empty_cache()
     check_serve_profile(dev, cfg, params)
-    del params
+    check_alignatt_profile(dev, cfg, params)
+    return cfg, params
+
+
+def check_alignatt_profile(dev, cfg, params):
+    """The flagship W8A8 weights in the bench's AlignAtt agent: its first
+    call (one 960 ms chunk padded to the 28.8 s cap shape, 24 beam steps),
+    then the same call on a fresh agent under torch.profiler (device time
+    by stage: encoder, adapter, prefill, beam steps); then a call over
+    28.8 s of audio and one more chunk with a synchronise around each
+    stage (64 beam steps, the parity mode's steady state)."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch import bench
+
+    first = np.random.RandomState(3).randn(
+        15360).astype(np.float32) * 0.1
+
+    def describe(agent, wall, what):
+        c, res = agent.last_call, agent.last_result
+        print(f"[alignatt profile] {what} over {len(agent.states.source)} "
+              f"samples: {wall * 1e3:.2f} ms, {res.steps} beam steps "
+              f"(max_steps {c['max_steps']}), audio units {c['n_units']}, "
+              f"prompt {c['prompt_len']} in a bucket of "
+              f"{c['prompt_bucket']}", flush=True)
+
+    def timed_push(agent, audio):
+        _sync(dev)
+        t0 = time.perf_counter()
+        agent.push(audio, finished=False)
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    agent = bench.offline_agent("alignatt", False, cfg, params, dev)
+    wall = timed_push(agent, first)
+    describe(agent, wall, "first call")
+    fresh = bench.offline_agent("alignatt", False, cfg, params, dev)
+    profile_run(dev, lambda: fresh.push(first, finished=False),
+                ALIGNATT_STAGES, "alignatt profile", wall * 1e3,
+                "first call")
+    describe(fresh, wall, "the profiled call (its unprofiled twin's wall)")
+    del fresh
+    rng = np.random.RandomState(4)
+    wall = timed_push(agent, rng.randn(29 * 15360).astype(np.float32) * 0.1)
+    describe(agent, wall, "call")
+    spent, wall = timed_stages(
+        dev, lambda: agent.push(rng.randn(15360).astype(np.float32) * 0.1,
+                                finished=False), ALIGNATT_STAGES)
+    steps = agent.last_result.steps
+    print(f"[alignatt stages] one call with a synchronise around each "
+          f"stage: wall {wall * 1e3:.2f} ms, {steps} beam steps", flush=True)
+    for stage in ALIGNATT_STAGES:
+        name = stage_label(stage)
+        n, t = spent.get(name, (0, 0.0))
+        print(f"[alignatt stages]   {name:16s} calls {n:2d}  "
+              f"{t * 1e3:9.2f} ms", flush=True)
+    beam = spent.get("beam_search", (0, 0.0))[1]
+    tok = spent.get("beam_token_step", (0, 0.0))
+    print(f"[alignatt stages]   beam_search outside beam_token_step "
+          f"{(beam - tok[1]) * 1e3:.2f} ms; "
+          f"{tok[1] / max(tok[0], 1) * 1e3:.2f} ms a beam step", flush=True)
+    del agent
     torch.cuda.empty_cache()
-    return speech
 
 
 def check_serve_profile(dev, cfg, params):
@@ -1453,6 +1841,242 @@ def check_serve(paths):
                     SERVE_MIXED_METRIC)
 
 
+STREAMATT_CHUNKS, STREAMATT_TIMED_FROM = 16, 2
+ALIGNATT_METRICS = {False: "alignatt_rtf_beam4_parity_8b_int8",
+                    True: "alignatt_rtf_beam4_es_8b_int8"}
+STREAMATT_METRIC = "streamatt_rtf_beam4_8b_int8"
+# the direct StreamAtt drive: its own window (chunks 2-15), not the bench's
+STREAMATT_DIRECT_METRIC = "streamatt_direct16_rtf_beam4_8b_int8"
+OFFLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "rtf_median",
+                "rtf_p95")
+# the bench's chunk line (bench.run_offline): its fields in the order of
+# run_offline's records (wall, steps, max_steps, prompt bucket, target
+# ids, source samples, prompt length, audio units)
+CHUNK_LINE = re.compile(
+    r"chunk (\d+): ([\d.]+)s steps=(\d+) max_steps=(\d+) "
+    r"prompt_bucket=(\d+) tgt=(\d+) source=(\d+) prompt_len=(\d+) "
+    r"units=(\d+)")
+
+
+def check_offline_launches(label, counts, calls, n_layers=32,
+                           beam_forwards=True):
+    """The launches of offline calls (bench.run_offline records): a call
+    runs one prefill and steps - 1 beam forwards, so w8a8_gemm (7L + 1)
+    and row_quant_int8 (4L + 1) a forward, decode_attention 2L a beam
+    forward, and no other kernel; each of the three launched unless
+    ``beam_forwards`` is false (calls may then all stop at their first
+    step).  Every prompt bucket (the prefill's rows) must be among the
+    rows [kernels] held.  Returns the launches."""
+    L = n_layers
+    steps = sum(c[1] for c in calls)
+    want = {"w8a8_gemm": steps * (7 * L + 1),
+            "row_quant_int8": steps * (4 * L + 1),
+            "decode_attention": (steps - len(calls)) * L * 2,
+            "w8_bf16_gemm": 0, "group_quant_int8": 0,
+            "w8a8_grouped_gemm": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    launched = ("w8a8_gemm", "row_quant_int8") + (
+        ("decode_attention",) if beam_forwards else ())
+    if got != want or not all(got[k] > 0 for k in launched):
+        fail(f"[{label}] launches {got} for {len(calls)} calls of {steps} "
+             f"beam steps in all; expected {want}")
+    buckets = sorted({c[3] for c in calls})
+    unheld = [m for m in buckets if m not in TABLE_M + SERVE_M + OFFLINE_M]
+    if unheld:
+        fail(f"[{label}] prefills of {unheld} rows, which [kernels] did not "
+             "hold against the plain versions")
+    print(f"[{label}] {len(calls)} calls, {steps} beam steps "
+          f"({steps / len(calls):.1f} a call), prompt buckets {buckets} "
+          f"(prefill rows held in [kernels]); launches {got} = steps x "
+          f"{7 * L + 1}, steps x {4 * L + 1} and (steps - calls) x {2 * L}",
+          flush=True)
+    return got
+
+
+def run_offline_bench(extra, metric, label, beam_forwards=True):
+    """``python -m infinisst_tpu_torch.bench`` + ``extra`` (an offline
+    mode) in a subprocess: exit 0, its last stdout line the JSON line with
+    ``metric``, each chunk's wall, beam steps and prompt bucket re-printed,
+    and its launches those of the forwards its calls ran
+    (``check_offline_launches``).  Returns (result, launches, chunks:
+    bench.run_offline's records)."""
+    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"] + extra
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    chunks = []
+    for line in out.stderr.splitlines():
+        m = CHUNK_LINE.match(line)
+        if m:
+            chunks.append((float(m[2]),) + tuple(int(m[k]) for k in
+                                                 range(3, 10)))
+        if m or line.startswith(("chunks=", "kernel launches",
+                                 "decode_attention launches", "alignatt",
+                                 "streamatt")):
+            print(f"[{label}]   {line}", flush=True)
+    if out.returncode != 0:
+        for line in out.stderr.strip().splitlines()[-12:]:
+            print(f"[{label}]   {line}", flush=True)
+        fail(f"[{label}] {' '.join(cmd[1:])} exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"[{label}] its last stdout line is not JSON: {lines[-1:]}")
+    missing = [k for k in OFFLINE_KEYS if k not in result]
+    if result.get("metric") != metric or missing:
+        fail(f"[{label}] metric {result.get('metric')!r} (expected "
+             f"{metric!r}), missing keys {missing}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0):
+        fail(f"[{label}] RTF {result['value']}")
+    counts = _stderr_json(out.stderr, "kernel launches ")
+    if counts is None or not chunks:
+        fail(f"[{label}] the bench did not report its chunks and launches")
+    got = check_offline_launches(label, counts, chunks,
+                                 beam_forwards=beam_forwards)
+    print(f"[{label}] {json.dumps(result)}", flush=True)
+    return result, got, chunks
+
+
+def offline_path(paths, mode, counts, chunks, keys):
+    """Record the bench's offline mode as the path of the three kernels
+    it launches, with the shapes to report: the modal prompt bucket's
+    prefill and the decode_attention shapes ``keys`` times."""
+    bucket = statistics.mode(c[3] for c in chunks)
+    shapes = {"w8a8_gemm": (bucket, REPORT_SHAPE[1], REPORT_SHAPE[2]),
+              "row_quant_int8": (bucket, REPORT_SHAPE[1], 0),
+              "decode_attention": keys}
+    for name, shape in shapes.items():
+        paths[f"{mode} {name}"] = (f"bench --mode {mode}", counts, shape)
+
+
+def check_alignatt(dev, notes, paths):
+    """The port bench's AlignAtt mode (12 chunks, 3 untimed), in parity
+    and with --early-stop; decode_attention and the probe held at the
+    shapes the parity calls ran (hold_offline_attention), timed at the
+    one with the most beam forwards.  The early stop may end every call at
+    its first step (the prefill's probe already in the stop zone), with no
+    beam forward: its decode_attention launches may then be 0, and its
+    RTF times one prefill a call."""
+    for early in (False, True):
+        extra = ["--mode", "alignatt"] + (["--early-stop"] if early else [])
+        _, counts, chunks = run_offline_bench(
+            extra, ALIGNATT_METRICS[early], "alignatt",
+            beam_forwards=not early)
+        if not early:
+            keys = hold_offline_attention(dev, notes, "alignatt", chunks,
+                                          timed=True)
+            offline_path(paths, "alignatt", counts, chunks, keys)
+        elif all(c[1] == 1 for c in chunks):
+            print("[alignatt] --early-stop: every call stopped at its first "
+                  "step (the prefill's probe already in the stop zone): no "
+                  "beam forward, so its RTF times a prefill a call, a "
+                  "degenerate reading on random weights (ROADMAP §3)",
+                  flush=True)
+
+
+def check_streamatt_bench(dev, notes, paths):
+    """The port bench's StreamAtt mode (40 chunks, timed from 32) in a
+    subprocess; decode_attention and the probe held at the shapes its
+    calls ran, timed at the one with the most beam forwards."""
+    _, counts, chunks = run_offline_bench(["--mode", "streamatt"],
+                                          STREAMATT_METRIC, "streamatt bench")
+    keys = hold_offline_attention(dev, notes, "streamatt", chunks,
+                                  timed=True, where="streamatt bench")
+    if keys is None:
+        fail("[streamatt bench] no call ran a beam forward")
+    offline_path(paths, "streamatt", counts, chunks, keys)
+
+
+class StreamAttRule:
+    """Called after each push of a StreamAtt agent (``run_offline``'s
+    ``on_push``): the kept source must equal the rule's, the source before
+    the cut (the kept source of the previous push and this push's audio)
+    from min(the earliest attended sample of the kept target, its length
+    less min_speech_duration) on, then its last max_speech_duration.
+    Records the pushes cut at the attended sample itself (``at_frame``)
+    and those clamped to min_speech_duration (``clamped``)."""
+
+    def __init__(self, opts, label):
+        import numpy as np
+
+        self.min_s = int(opts.min_speech_duration * 16000)
+        self.max_s = int(opts.max_speech_duration * 16000)
+        self.label = label
+        self.source = np.zeros(0, np.float32)
+        self.at_frame, self.clamped, self.n = [], [], 0
+
+    def __call__(self, agent, audio):
+        import numpy as np
+
+        st, i = agent.states, self.n
+        before = np.concatenate([self.source, audio])
+        src_idx = 0
+        if st.target_ids and st.most_attended_indices:
+            attended = int(min(st.most_attended_indices[
+                -len(st.target_ids):]))
+            clamp = max(0, len(before) - self.min_s)
+            src_idx = min(attended, clamp)
+            if src_idx > 0:
+                (self.at_frame if attended <= clamp else
+                 self.clamped).append(i)
+        want = before[src_idx:][-self.max_s:]
+        got = np.asarray(st.source, np.float32)
+        if not np.array_equal(got, want):
+            fail(f"{self.label} push {i}: {len(got)} source samples kept; "
+                 f"the rule keeps {len(want)} (cut at {src_idx} of "
+                 f"{len(before)}, then the last {self.max_s})")
+        self.source, self.n = got, i + 1
+
+
+def check_streamatt(dev, cfg, params):
+    """The bench's StreamAtt agent (``bench.offline_agent``: Chinese
+    target, 10-unit audio buckets, the early stop) on the flagship
+    weights, driven directly for STREAMATT_CHUNKS chunks through the
+    bench's ``run_offline`` and ``summarize_offline`` (its own metric
+    name: the bench times chunks 32-39, [streamatt bench]): each chunk's
+    wall, beam steps, prompt bucket and kept source; the launches per
+    call; after every push, the kept source equal to the rule's: the
+    source before the cut, from min(the earliest attended sample of the
+    kept target, its length less min_speech_duration) on, then its last
+    max_speech_duration; a cut by that rule at least once; decode_attention
+    and the probe held at the shapes the calls ran."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch import bench
+
+    agent = bench.offline_agent("streamatt", True, cfg, params, dev)
+    rule = StreamAttRule(agent.opts, "[streamatt]")
+    reset_counts()
+    run = bench.run_offline(agent, STREAMATT_CHUNKS, STREAMATT_TIMED_FROM,
+                            on_push=rule)
+    counts = launch_counts()
+    calls = run["calls"]
+    for i, c in enumerate(calls):
+        print(f"[streamatt]   chunk {i}: {c[0]:.3f}s steps={c[1]} "
+              f"max_steps={c[2]} prompt_bucket={c[3]} tgt={c[4]} "
+              f"source={c[5]} prompt_len={c[6]} units={c[7]}", flush=True)
+    check_offline_launches("streamatt", counts, calls)
+    result = dict(bench.summarize_offline(run["times"],
+                                          STREAMATT_DIRECT_METRIC),
+                  chunks=len(calls), timed_from=STREAMATT_TIMED_FROM)
+    print(f"[streamatt] {json.dumps(result)} (the bench's agent driven "
+          f"directly: {len(calls)} chunks timed from "
+          f"{STREAMATT_TIMED_FROM}; not the bench's metric, which times "
+          "chunks 32-39)", flush=True)
+    print(f"[streamatt] source samples after each call: "
+          f"{[c[5] for c in calls]}, each equal to the rule's; cut by the "
+          f"attended-frame rule at calls {rule.at_frame} (at the earliest "
+          f"attended sample) and {rule.clamped} (clamped to "
+          f"min_speech_duration)", flush=True)
+    if not (rule.at_frame or rule.clamped):
+        fail("[streamatt] the source was never cut by the attended-frame "
+             "rule")
+    del agent
+    torch.cuda.empty_cache()
+    hold_offline_attention(dev, None, "streamatt", calls, timed=False)
+
+
 def _free_port():
     import socket
 
@@ -1650,6 +2274,29 @@ def check_cli_ckpt(d, talks):
     if len(logs["cuda"]) != len(CLI_TALKS) or not all(
             r["prediction"] for r in logs["cuda"]):
         fail("[cli ckpt] a talk has no prediction")
+    # the StreamAtt baseline over the same checkpoint and talks
+    out = os.path.join(d, "ckpt_streamatt")
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = cli.main([
+        "--source", talks[0], "--target", talks[1], "--output", out,
+        "--model-preset", "dryrun", "--state-dict-path", ckpt,
+        "--dtype", "float32", "--agent", "streamatt",
+    ])
+    counts = launch_counts()
+    recs = _instances(out)
+    print(f"[cli ckpt] --agent streamatt on the card: "
+          f"{time.perf_counter() - t0:.1f} s, scores {json.dumps(scores)}, "
+          f"launches {counts}", flush=True)
+    for r in recs:
+        print(f"[cli ckpt] streamatt talk {r['index']}: "
+              f"{r['prediction'][:96]!r} ({len(r['delays'])} writes)",
+              flush=True)
+    if len(recs) != len(CLI_TALKS) or not any(r["prediction"] for r in recs):
+        fail("[cli ckpt] --agent streamatt left an empty instances file")
+    if counts["decode_attention"] <= 0:
+        fail("[cli ckpt] the StreamAtt beam step did not launch "
+             "decode_attention")
 
 
 def check_cli_flagship(d, talks):
@@ -1729,10 +2376,19 @@ def main():
     with phase("serve tiny"):
         print("[serve tiny] tiny serving pool: card against CPU", flush=True)
         check_serve_tiny(dev, *tiny_params)
+    with phase("alignatt tiny"):
+        print("[alignatt tiny] tiny AlignAtt and StreamAtt agents: card "
+              "against CPU", flush=True)
+        check_alignatt_tiny(dev, *tiny_params)
 
     paths = {}
     with phase("flagship"):
-        speech = check_flagship(dev, paths)
+        cfg, params = check_flagship(dev, paths)
+    with phase("streamatt"):
+        check_streamatt(dev, cfg, params)
+    speech = {k: params[k] for k in ("w2v2", "adapter")}
+    del params
+    torch.cuda.empty_cache()
     with phase("weight_only"):
         check_weight_only(dev, paths, speech)
     with phase("group128"):
@@ -1743,6 +2399,10 @@ def main():
         check_bench()
     with phase("serve"):
         check_serve(paths)
+    with phase("alignatt"):
+        check_alignatt(dev, notes, paths)
+    with phase("streamatt bench"):
+        check_streamatt_bench(dev, notes, paths)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     cli_dir = tempfile.mkdtemp(prefix="cli_smoke_",
                                dir=os.path.join(ROOT, "build"))
@@ -1807,6 +2467,30 @@ def main():
         "shape": {"B": POOL_PREFIX[1], "Bc": 8, "C": POOL_PREFIX[2]}}
     if counts["decode_attention"] <= 0:
         fail("decode_attention was not launched at the pool prefix")
+    # the offline paths (bench --mode alignatt and streamatt): their
+    # launches, and the kernels' times at their shapes (the modal prompt
+    # bucket's prefill; decode_attention's prefix and per-beam block at the
+    # (prompt length, cache slots) with the most beam forwards)
+    for mode in ("alignatt", "streamatt"):
+        for e in entries:
+            key = f"{mode} {e['name']}"
+            if key not in paths:
+                continue
+            path, counts, shape = paths[key]
+            if e["name"] == "decode_attention":
+                shape, beam_key = shape
+            t = notes.rows[e["name"]]["shapes"][shape]
+            e[mode] = {
+                "launches": counts[e["name"]], "path": path,
+                "shape": [x for x in shape if x != 0],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
+            if e["name"] == "decode_attention":
+                t = notes.rows[e["name"]]["shapes"][beam_key]
+                e[mode]["per_beam_block"] = {
+                    "shape": list(beam_key), **{k: t[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}}
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

@@ -11,10 +11,10 @@ Usage (mirrors scripts/infer/infinisst.sh):
       --always-cache-system-prompt --target-lang German
 
 The flags and their defaults are the JAX CLI's, plus ``--device`` (default
-``cuda``; ``cpu`` runs every kernel's plain version).  Only ``--agent
-infinisst`` with beam search is ported: AlignAtt and StreamAtt (ROADMAP
-item 10), sampling (item 11) and the speculative flags (item 12) exit with
-a message.
+``cuda``; ``cpu`` runs every kernel's plain version).  ``--agent
+infinisst`` (beam search), ``alignatt`` and ``streamatt`` (the offline
+baselines, mirroring scripts/infer/streamatt.sh) are ported; sampling
+(ROADMAP item 11) and the speculative flags (item 12) exit with a message.
 """
 
 from __future__ import annotations
@@ -157,11 +157,13 @@ def add_args(p: argparse.ArgumentParser):
 
 
 def check_ported(args):
-    """Exit with a message for the options whose paths are not ported."""
-    if args.agent != "infinisst":
+    """Exit with a message for the options whose paths are not ported, and
+    for sampling with an offline agent, as the JAX CLI does."""
+    if args.do_sample and args.agent != "infinisst":
         raise SystemExit(
-            f"--agent {args.agent} is not ported to PyTorch yet (ROADMAP "
-            "item 10: AlignAtt and StreamAtt); use --agent infinisst"
+            "--do-sample is only implemented for --agent infinisst (the "
+            "reference's DPO collection path); the alignatt/streamatt "
+            "policies are beam-only"
         )
     defaults = argparse.ArgumentParser()
     add_args(defaults)
@@ -186,9 +188,17 @@ def build_agent(args):
 
     import torch
 
+    from infinisst_tpu_torch.agents.alignatt import (
+        AlignAttAgent,
+        AlignAttOptions,
+    )
     from infinisst_tpu_torch.agents.infinisst import (
         InfiniSSTAgent,
         InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.agents.streamatt import (
+        StreamAttAgent,
+        StreamAttOptions,
     )
     from infinisst_tpu_torch.core.config import StreamConfig
     from infinisst_tpu_torch.core.device import resolve_device
@@ -250,7 +260,7 @@ def build_agent(args):
 
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
     params = build_params(_A, cfg, device=device, dtype=dtype)
-    opts = InfiniSSTOptions(
+    common = dict(
         latency_multiplier=args.latency_multiplier,
         max_latency_multiplier=args.max_latency_multiplier,
         beam=args.beam,
@@ -265,8 +275,32 @@ def build_agent(args):
         target_lang=args.target_lang,
         suppress_tokens=suppress,
     )
-    return InfiniSSTAgent(params, cfg, stream, builder, opts,
-                          param_dtype=dtype, device=device)
+    if args.agent == "infinisst":
+        return InfiniSSTAgent(params, cfg, stream, builder,
+                              InfiniSSTOptions(**common), param_dtype=dtype,
+                              device=device)
+    aa = dict(
+        common,
+        frame_num=args.frame_num,
+        attn_layer=args.attn_layer,
+        max_len_a=args.max_len_a,
+        max_len_b=args.max_len_b,
+        min_start_sec=max(args.min_start_sec, 0.32),
+    )
+    if args.agent == "alignatt":
+        return AlignAttAgent(params, cfg, stream, builder,
+                             AlignAttOptions(**aa), param_dtype=dtype,
+                             device=device)
+    return StreamAttAgent(
+        params, cfg, stream, builder,
+        StreamAttOptions(
+            **aa,
+            text_preserve_num=args.text_preserve_num,
+            min_speech_duration=args.min_speech_duration,
+            max_speech_duration=args.max_speech_duration,
+        ),
+        param_dtype=dtype, device=device,
+    )
 
 
 def main(argv=None):

@@ -10,8 +10,10 @@ last token when the cap was hit -> history ring update.
 ``update_multiplier`` changes the latency multiplier mid-stream, and
 ``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
 int8 (``quant.quantize_llama_params``, served by ``w8_bf16_gemm``).
-Speculative decoding, sampling, AlignAtt and the fallback warm are not
-ported; asking for them raises ``NotImplementedError``.
+Speculative decoding, sampling and the fallback warm are not ported;
+asking for them raises ``NotImplementedError``.  The AlignAtt and
+StreamAtt agents (``agents/alignatt.py``, ``agents/streamatt.py``)
+subclass this one for its model bundle.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""Streaming RTF and pooled serving bench of the port: the streaming and
-serve modes of the JAX package's ``bench.py``, on the card.
+"""Streaming RTF, pooled serving and offline-agent bench of the port: the
+streaming, serve, AlignAtt and StreamAtt modes of the JAX package's
+``bench.py``, on the card.
 
     python -m infinisst_tpu_torch.bench                 # flagship W8A8, m=1
     python -m infinisst_tpu_torch.bench --group128      # per-group scales
     python -m infinisst_tpu_torch.bench --schedule 1,1,1,2,2,4,4
     python -m infinisst_tpu_torch.bench --mode serve    # pool 8, beam 4
     python -m infinisst_tpu_torch.bench --mode serve --multipliers 1,2
+    python -m infinisst_tpu_torch.bench --mode alignatt [--early-stop]
+    python -m infinisst_tpu_torch.bench --mode streamatt
 
 Prints ONE JSON line on stdout, as ``bench.py`` does:
   {"metric": ..., "value": RTF, "unit": "rtf", "vs_baseline": ..., ...}
@@ -37,9 +40,23 @@ goes to stderr.  ``--multipliers 1,2`` runs a mixed pool (slots
 round-robin over the set, audio in 960 ms units, one untimed chunk per
 slot, then ``--chunks`` x m_max ticks); ``--churn`` closes and reopens
 two slots halfway.  Its ``--model 8b`` is the flagship W8A8 (per-channel
-scales only), ``--model bench`` the bf16 ~1.5B decoder.  The training
-and offline-agent modes, the speculative decoders and pooled sampling
-are not ported yet.
+scales only), ``--model bench`` the bf16 ~1.5B decoder.
+
+``--mode alignatt`` and ``--mode streamatt`` (``bench.py:782-931``) push
+960 ms chunks of seeded noise through the baseline agents on the flagship
+W8A8 model with the bf16 encoder (whatever ``--model`` says), beam 4,
+``frame_num`` 2: AlignAtt recomputes the whole (28.8 s-capped) audio and
+the target prefix every call, one audio bucket (every call at the 28.8 s
+shape) and the last 64 target ids, max(``--chunks``, 12) chunks of which
+the first 3 are untimed (``--early-stop``: the in-loop attention stop);
+StreamAtt runs a Chinese target (every token a word, so the stub
+tokenizer's text is pruned as a real stream's), 10-unit audio buckets and
+the early stop over max(``--chunks``, 40) chunks, timed from chunk 32 on
+(the 28.8 s steady state).  The value is the mean chunk wall over 0.96 s,
+``vs_baseline`` the best reference StreamAtt RTF on an L40S (0.67) over
+it, with the median and p95; each chunk's wall, beam steps and prompt
+bucket go to stderr.  The training modes, the speculative decoders and
+pooled sampling are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,15 +73,22 @@ import torch
 # (BASELINE.md, plots/plot.ipynb cell 9)
 BASELINE_RTF = {1: 0.382, 2: 0.286, 3: 0.250, 4: 0.235}
 WARMUP = 3
-UNPORTED_MODES = ("train", "train-io", "streamatt", "alignatt")
+UNPORTED_MODES = ("train", "train-io")
+OFFLINE_MODES = ("alignatt", "streamatt")
 SERVE_TARGET_TOK_S = 30.0  # bench.py's serving vs_baseline denominator
+# the offline agents' vs_baseline numerator: the best reference StreamAtt+
+# RTF on an L40S (BASELINE.md, plots cell 9)
+OFFLINE_BASELINE_RTF = 0.67
+ALIGNATT_MIN_CHUNKS, ALIGNATT_WARMUP = 12, 3
+STREAMATT_MIN_CHUNKS, STREAMATT_TIMED_FROM = 40, 32
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("8b", "bench"), default="8b")
     p.add_argument("--mode", default="stream",
-                   choices=("stream", "serve") + UNPORTED_MODES)
+                   choices=("stream", "serve") + OFFLINE_MODES
+                   + UNPORTED_MODES)
     p.add_argument("--chunks", type=int, default=12)
     p.add_argument("--multiplier", type=int, default=1, choices=(1, 2, 3, 4))
     p.add_argument("--no-act-int8", action="store_true")
@@ -84,6 +108,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--multipliers", type=str, default=None,
                    help="a mixed serving pool, e.g. 1,2")
     p.add_argument("--churn", action="store_true")
+    # --mode alignatt
+    p.add_argument("--early-stop", action="store_true")
     p.add_argument("--speculative", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -111,6 +137,11 @@ def serve_multipliers(args):
 
 
 def metric_name(args) -> str:
+    if args.mode == "alignatt":  # bench.py:918-920
+        return ("alignatt_rtf_beam4_"
+                f"{'es' if args.early_stop else 'parity'}_8b_int8")
+    if args.mode == "streamatt":  # bench.py:843
+        return "streamatt_rtf_beam4_8b_int8"
     if args.mode == "serve":
         # bench.py:701-706 (mixed pool) and :761-763
         tag = "8b_int8" if args.model == "8b" else "1chip"
@@ -460,17 +491,128 @@ def main_serve(args) -> dict:
     return result
 
 
+def offline_agent(mode: str, early_stop: bool, cfg, params, device):
+    """The offline modes' agent (``bench.py:800-830``, ``:877-906``) on
+    ``params``: the default stream, the stub tokenizer, beam 4,
+    ``frame_num`` 2, bf16."""
+    from infinisst_tpu_torch.agents.alignatt import (
+        AlignAttAgent,
+        AlignAttOptions,
+    )
+    from infinisst_tpu_torch.agents.streamatt import (
+        StreamAttAgent,
+        StreamAttOptions,
+    )
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    if mode == "alignatt":
+        cls, opts = AlignAttAgent, AlignAttOptions(
+            beam=4, frame_num=2, length_bucket_chunks=30, max_audio_chunks=30,
+            max_prompt_target_tokens=64, attn_early_stop=early_stop,
+        )
+    else:
+        cls, opts = StreamAttAgent, StreamAttOptions(
+            beam=4, target_lang="Chinese", frame_num=2,
+            length_bucket_chunks=10, max_audio_chunks=30,
+            attn_early_stop=True,
+        )
+    return cls(params, cfg, StreamConfig(), builder, opts,
+               param_dtype=torch.bfloat16, device=device)
+
+
+def build_offline_agent(args):
+    """``offline_agent`` on the flagship W8A8 with the bf16 encoder."""
+    from infinisst_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg, params = flagship_params(dev, act_int8=True)
+    return offline_agent(args.mode, args.early_stop, cfg, params, dev)
+
+
+def run_offline(agent, n_chunks: int, timed_from: int, log=None,
+                on_push=None) -> dict:
+    """Push ``n_chunks`` 960 ms chunks of seeded noise (``randn * 0.1``)
+    and time each ``push`` (it returns once the call's tokens are on the
+    host); chunks from ``timed_from`` on are timed.  ``on_push(agent,
+    audio)``, where given, runs after each push, untimed.
+    Returns the timed walls and, for every chunk, (wall, beam steps,
+    max_steps, prompt bucket, target ids kept, source samples kept, prompt
+    length, audio units)."""
+    rng = np.random.RandomState(0)
+    chunk = agent.unit_samples
+    times, calls = [], []
+    for i in range(n_chunks):
+        audio = rng.randn(chunk).astype(np.float32) * 0.1
+        t0 = time.perf_counter()
+        agent.push(audio, finished=False)
+        dt = time.perf_counter() - t0
+        info = agent.last_call
+        calls.append((dt, agent.last_result.steps, info["max_steps"],
+                      info["prompt_bucket"], len(agent.states.target_ids),
+                      len(agent.states.source), info["prompt_len"],
+                      info["n_units"]))
+        if on_push is not None:
+            on_push(agent, audio)
+        if log is not None:
+            c = calls[-1]
+            print(f"chunk {i}: {dt:.3f}s steps={c[1]} max_steps={c[2]} "
+                  f"prompt_bucket={c[3]} tgt={c[4]} source={c[5]} "
+                  f"prompt_len={c[6]} units={c[7]}", file=log, flush=True)
+        if i >= timed_from:
+            times.append(dt)
+    return dict(times=times, calls=calls)
+
+
+def summarize_offline(times, metric: str, chunk_sec: float = 0.96) -> dict:
+    """The offline modes' JSON line (``bench.py:843-848``, ``:918-925``)
+    with the port bench's median and p95."""
+    rtf = float(np.mean(times)) / chunk_sec
+    return {
+        "metric": metric,
+        "value": round(rtf, 4),
+        "unit": "rtf",
+        "vs_baseline": round(OFFLINE_BASELINE_RTF / rtf, 3),
+        "rtf_median": round(float(np.median(times)) / chunk_sec, 4),
+        "rtf_p95": round(float(np.percentile(times, 95)) / chunk_sec, 4),
+    }
+
+
+def main_offline(args) -> dict:
+    metric = metric_name(args)
+    agent = build_offline_agent(args)
+    if args.mode == "alignatt":
+        n_chunks = max(args.chunks, ALIGNATT_MIN_CHUNKS)
+        timed_from = ALIGNATT_WARMUP
+    else:
+        n_chunks = max(args.chunks, STREAMATT_MIN_CHUNKS)
+        timed_from = STREAMATT_TIMED_FROM
+    print(f"{args.mode} agent ready on {agent.device}: {n_chunks} chunks, "
+          f"timed from {timed_from}, early stop {agent.opts.attn_early_stop}",
+          file=sys.stderr, flush=True)
+    run = run_offline(agent, n_chunks, timed_from, log=sys.stderr)
+    result = summarize_offline(run["times"], metric)
+    t = run["times"]
+    steps = [c[1] for c in run["calls"][timed_from:]]
+    print(f"chunks={len(t)} mean={np.mean(t) * 1e3:.1f}ms "
+          f"p90={np.percentile(t, 90) * 1e3:.1f}ms steps a timed call "
+          f"{np.mean(steps):.1f} early_stop={agent.opts.attn_early_stop} "
+          f"device={agent.device}", file=sys.stderr)
+    launch_report(sys.stderr)
+    print(json.dumps(result), flush=True)
+    return result
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mode not in ("stream", "serve") or args.speculative:
+    if args.mode in UNPORTED_MODES or args.speculative:
         what = (f"--mode {args.mode}" if not args.speculative
                 else "--speculative")
-        item = {"train": 13, "train-io": 13}.get(args.mode, 10)
-        if args.speculative:
-            item = 12
+        item = 12 if args.speculative else 13
         print(f"{what} is not ported yet (ROADMAP item {item}): the port's "
-              "bench runs the plain streaming and serve modes",
-              file=sys.stderr)
+              "bench runs the plain streaming, serve, alignatt and "
+              "streamatt modes", file=sys.stderr)
         sys.exit(2)
     from infinisst_tpu_torch.core.device import resolve_device
 
@@ -480,6 +622,8 @@ def main(argv=None) -> dict:
         _build.load_all()  # one nvcc per source, all at once
     if args.mode == "serve":
         return main_serve(args)
+    if args.mode in OFFLINE_MODES:
+        return main_offline(args)
     metric = metric_name(args)
     agent = build_agent(args)
     print(f"agent ready on {agent.device}", file=sys.stderr, flush=True)

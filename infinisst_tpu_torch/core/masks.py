@@ -18,6 +18,21 @@ def additive(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return torch.where(mask, zero, neg)
 
 
+def block_causal_mask(seq_len: int, max_cache_size=None, blocksize: int = 1,
+                      device=None) -> torch.Tensor:
+    """Offline block-causal mask with a sliding window, bool[seq_len,
+    seq_len]: query i may attend key j iff j lies before the end of i's
+    block of ``blocksize`` and, with ``max_cache_size``, j >= i -
+    max_cache_size."""
+    q = torch.arange(seq_len, device=device)[:, None]
+    k = torch.arange(seq_len, device=device)[None, :]
+    allowed = k < (torch.div(q, blocksize, rounding_mode="floor") + 1) \
+        * blocksize
+    if max_cache_size is not None:
+        allowed = allowed & (k >= q - max_cache_size)
+    return allowed
+
+
 def streaming_chunk_mask(
     seq_len: int,
     prefix_len,

@@ -11,6 +11,10 @@ offset is a constant.
     <|start_header_id|>user<|end_header_id|>\\n\\n {12m x <sp_patch>} <|eot_id|>
     <|start_header_id|>assistant<|end_header_id|>\\n\\n
   later chunks: the user + assistant part only.
+
+The offline prompt (the AlignAtt agents) is one turn: the system block
+without a latency token, the user turn with the speech patches, and the
+open assistant turn followed by the target so far.
 """
 
 from __future__ import annotations
@@ -143,6 +147,13 @@ class PromptBuilder:
             f"{self.target_lang} with latency {lat}."
         )
 
+    def offline_system_text(self) -> str:
+        """The offline (AlignAtt) system text: no latency token."""
+        return (
+            f"Translate the following speech from {self.source_lang} to "
+            f"{self.target_lang}."
+        )
+
     def _sys_text_ids(self, text: str) -> List[int]:
         """Tokenize the system text whole; if the tokenizer does not know
         the latency token, encode each side of it whole and splice its id."""
@@ -232,6 +243,16 @@ class PromptBuilder:
                 # llama-3-8B-instruct: a leading eos in place of bos
                 ids = [t.eos] + ids
                 patch_start += 1
+        return ChunkPrompt(ids=np.asarray(ids, np.int32),
+                           patch_start=patch_start, n_patches=n_patches)
+
+    def offline_prompt(self, n_patches: int,
+                       target_ids: Sequence[int]) -> ChunkPrompt:
+        """Single-turn offline prompt with the target so far as the
+        assistant's prefix."""
+        sys_ids = list(self.system_ids(self.offline_system_text()))
+        ids = sys_ids + self._turn_ids(n_patches) + list(target_ids)
+        patch_start = len(sys_ids) + 3 + len(self.tokenizer.encode("\n\n"))
         return ChunkPrompt(ids=np.asarray(ids, np.int32),
                            patch_start=patch_start, n_patches=n_patches)
 

@@ -19,8 +19,14 @@ One pooled loop serves both entry points: every step forwards all
 P * beam rows through one ``beam_token_step`` (the weight stream shared by
 every slot and beam, as JAX's vmap forwards every lane), while a slot that
 is done keeps its state frozen.  The loop ends when every slot is done,
-without the forward of that last step (its logits would be unused).  The
-attention probe is not ported.
+without the forward of that last step (its logits would be unused).
+
+The AlignAtt attention probe (``attn_probe``, ``first_attn_idx``,
+``attn_stop_idx``) keeps each beam's trace of probed indices, reordered
+with the beams and snapshotted with a finished hypothesis; the winner's
+trace is ``BeamResult.attn_idx``.  The early stop ("every live beam has
+an in-zone token") is a host check on that trace.  Without a probe the
+trace is not kept and ``attn_idx`` is -1.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ class BeamResult(NamedTuple):
     score: float
     steps: int  # loop steps executed
     hit_eos: bool  # the winner ended with EOS
-    attn_idx: List[int]  # (max_new,) -1: the attention probe is not ported
+    attn_idx: List[int]  # (max_new,) the winner's probe trace (-1: none)
     # return_kv: the winner's generated-token K/V (L, max_new, KV, Dh),
     # unrotated; the first n_emit slots are valid (n_emit = n_tokens with
     # EOS, else n_tokens - 1: the EOS and a cap-dropped final token are
@@ -118,15 +124,22 @@ def beam_search(
     suppress_mask: Optional[torch.Tensor] = None,  # (V,) bool
     max_steps: Optional[int] = None,
     return_kv: bool = False,
+    attn_probe: Optional[tuple] = None,  # (layer, span_start, span_end)
+    first_attn_idx: Optional[int] = None,  # the probe at the prefill
+    attn_stop_idx: Optional[int] = None,  # the early-stop zone's start
 ) -> BeamResult:
     """Beam search for one stream: ``batched_beam_search`` over a pool of
     one."""
+    def one(x):
+        return None if x is None else [x]
+
     return batched_beam_search(
         params, cfg, prefix, first_logits[None], prompt_buf[None],
         [prompt_len], history[None], [history_len], spec,
         encoder_ngram_size=encoder_ngram_size, suppress_mask=suppress_mask,
-        max_steps=None if max_steps is None else [max_steps],
-        return_kv=return_kv,
+        max_steps=one(max_steps), return_kv=return_kv,
+        attn_probe=attn_probe, first_attn_idx=one(first_attn_idx),
+        attn_stop_idx=one(attn_stop_idx),
     )[0]
 
 
@@ -148,12 +161,20 @@ def batched_beam_search(
     suppress_mask: Optional[torch.Tensor] = None,  # (V,) bool
     max_steps=None,  # (P,) per-slot step caps <= max_new_tokens
     return_kv: bool = False,
+    attn_probe: Optional[tuple] = None,  # (layer, span_start, span_end)
+    first_attn_idx=None,  # (P,) the probe at each slot's prefill
+    attn_stop_idx=None,  # (P,) each slot's early-stop zone (needs a probe)
 ) -> List[BeamResult]:
     """Beam search for a pool of independent streams (pooled serving):
     each slot keeps its own prefix cache and (beam, G) generation buffer,
     and the per-token forward runs at P * beam rows.  Inactive slots
     should pass max_steps 1 so that they cannot keep the loop alive.
-    Returns one BeamResult per slot."""
+
+    ``attn_probe`` records, for every generated token, the probed index
+    that produced it (the first token's is ``first_attn_idx``, -1 if
+    None); with ``attn_stop_idx`` a slot is done once every one of its
+    live beams holds an index >= its stop index.  Returns one BeamResult
+    per slot."""
     B, G = spec.beam, spec.max_new_tokens
     P, V = last_logits.shape
     rows = P * B
@@ -184,6 +205,13 @@ def batched_beam_search(
     hist = hists.to(device=dev, dtype=torch.int64).repeat_interleave(B, 0)
     hist_len = torch.tensor(_ints(hist_lens), dtype=torch.int64,
                             device=dev).repeat_interleave(B)
+    probing = attn_probe is not None
+    if probing:  # each row's trace, and each finished hypothesis'
+        first = [-1] * P if first_attn_idx is None else _ints(first_attn_idx)
+        attn_cur = [first[r // B] for r in range(rows)]
+        attn_hist = [[-1] * G for _ in range(rows)]
+        fin_attn = [[[-1] * G for _ in range(B)] for _ in range(P)]
+        stops = None if attn_stop_idx is None else _ints(attn_stop_idx)
     # every live slot has generated t tokens; a done slot keeps its own
     t = 0
     steps = [0] * P
@@ -204,6 +232,8 @@ def batched_beam_search(
         vals_h = cand_vals.tolist()  # (P, 2B)
         cb_h, ct_h = cand_beam.tolist(), cand_tok.tolist()
         hs_h = hyp_score.tolist()
+        if probing and torch.is_tensor(attn_cur):
+            attn_cur = attn_cur.tolist()  # the last forward's probes
 
         perm = list(range(rows))  # source row of each row after the step
         new_tok = [spec.pad_id] * rows
@@ -222,6 +252,8 @@ def batched_beam_search(
                     fin_tokens[p][worst] = list(gen_tokens[src])
                     fin_len[p][worst] = t
                     fs[worst] = hs_h[p][i]
+                    if probing:
+                        fin_attn[p][worst] = list(attn_hist[src])
                     if return_kv:  # the pre-reorder source beam
                         fin_k[p, worst] = gen_k[:, src]
                         fin_v[p, worst] = gen_v[:, src]
@@ -259,6 +291,18 @@ def batched_beam_search(
             new_gen[r] = list(gen_tokens[perm[r]])
             new_gen[r][t] = new_tok[r]
         seq_len, gen_tokens = new_seq_len, new_gen
+        if probing:
+            new_hist = list(attn_hist)
+            for r, _ in new_scores:
+                new_hist[r] = list(attn_hist[perm[r]])
+                new_hist[r][t] = attn_cur[perm[r]]
+            attn_hist = new_hist
+            if stops is not None:
+                # the early stop: every live beam has an in-zone token
+                for p in {r // B for r, _ in new_scores}:
+                    if all(any(a >= stops[p] for a in attn_hist[r])
+                           for r in range(p * B, (p + 1) * B)):
+                        live[p] = False
         moved = [r for r, _ in new_scores]
         moved_t = torch.tensor(moved, dtype=torch.int64, device=dev)
         seq_buf[moved_t, torch.tensor([seq_len[r] for r in moved],
@@ -270,9 +314,11 @@ def batched_beam_search(
         if any(live):
             x = llama_mod.embed(params, torch.tensor(
                 new_tok, dtype=torch.int64, device=dev)[:, None])
-            logits_cur, gen_k, gen_v, _ = llama_mod.beam_token_step(
-                params, cfg, dec, gen_k, gen_v, t, x
+            logits_cur, gen_k, gen_v, attn_cur_t = llama_mod.beam_token_step(
+                params, cfg, dec, gen_k, gen_v, t, x, attn_probe=attn_probe
             )
+            if probing:
+                attn_cur = attn_cur_t
         t += 1
 
     out = []
@@ -287,6 +333,10 @@ def batched_beam_search(
         else:
             tokens, n_tokens, score = (gen_tokens[p * B + best_live],
                                        steps[p], float(live_score[best_live]))
+        attn_idx = [-1] * G
+        if probing:
+            attn_idx = list(fin_attn[p][best_fin] if use_fin
+                            else attn_hist[p * B + best_live])
         kv_k = kv_v = None
         if return_kv:
             if use_fin:
@@ -296,7 +346,7 @@ def batched_beam_search(
                 kv_v = gen_v[:, p * B + best_live]
         out.append(BeamResult(
             tokens=list(tokens), n_tokens=int(n_tokens), score=score,
-            steps=steps[p], hit_eos=bool(use_fin), attn_idx=[-1] * G,
+            steps=steps[p], hit_eos=bool(use_fin), attn_idx=attn_idx,
             kv_k=kv_k, kv_v=kv_v,
         ))
     return out

@@ -8,6 +8,9 @@ KV cache is updated in place where the JAX package donates its buffers.
 Prefill attention (``decode_step``) is written out as matmul, additive
 mask and f32 softmax, as the JAX einsums are; the beam step's two-block
 attention goes through the rotate-on-read ``decode_attention`` kernel.
+Both take the AlignAtt attention probe ``attn_probe = (layer, a0, a1)``:
+the argmax over keys a0..a1-1 of the head-averaged softmax weights at one
+layer (``span_probe`` for the beam step, whose kernel keeps no weights).
 Projections and the lm_head go through ``quant.mm``; q/k/v and gate/up,
 which share their input, through ``quant.mm_many``, which quantizes that
 input once (4 activation quantizations per layer, not 7).
@@ -74,14 +77,23 @@ def decode_step(
     state: DecoderState,
     x_embed: torch.Tensor,  # (B, S, D) input embeddings
     valid_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = real token
-) -> Tuple[torch.Tensor, DecoderState]:
+    attn_probe: Optional[Tuple[int, int, int]] = None,
+):
     """Forward S new positions against the cache and append their K/V.
 
     Cached entry j has RoPE position j; new query i has valid_len + i.
     The S new K/V rows are written IN PLACE into ``state.k`` / ``state.v``
     at valid_len (where the JAX step donates the cache), so the returned
     state shares its buffers with ``state``.  Returns (logits (B, S, V),
-    new state)."""
+    new state), and with ``attn_probe = (layer, a0, a1)`` also the (B, S)
+    probe: at layer ``layer % L``, the argmax over the new block's keys
+    a0..a1-1 of the softmax weights (in the cache dtype, as the JAX step
+    casts them) averaged over the heads.
+
+    The JAX step slices the weights at a0:a1 of [cache (C) | new (S)], so
+    on a fresh cache it reads the masked cache block and returns 0 on
+    every row; the port slices C + a0 : C + a1, the prompt's own span
+    (ROADMAP §3)."""
     B, S, D = x_embed.shape
     C = state.k.shape[2]
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -109,6 +121,8 @@ def decode_step(
     scale = 1.0 / math.sqrt(Dh)
     # dynamic_update_slice semantics: the start is clamped so S rows fit
     starts = torch.clamp(vlen, max=C - S).tolist()
+    probe_layer = None if attn_probe is None else \
+        attn_probe[0] % cfg.num_layers
 
     h = x_embed
     for li in range(cfg.num_layers):
@@ -131,6 +145,10 @@ def decode_step(
         )
         logits = logits * scale + bias
         w = torch.softmax(logits, dim=-1).to(vt.dtype)
+        if li == probe_layer:
+            span = w.to(torch.float32).mean(dim=(1, 2))[
+                :, :, C + attn_probe[1]:C + attn_probe[2]]
+            probe = torch.argmax(span, dim=-1)  # (B, S), first maximum
         attn = torch.einsum("bkgst,bktd->bkgsd", w, vt)
         attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
         h = h + mm(attn, lp["wo"])
@@ -147,13 +165,43 @@ def decode_step(
         valid_mask.sum(-1).to(torch.int64) if valid_mask is not None
         else torch.full((B,), S, dtype=torch.int64, device=dev)
     )
-    return logits, DecoderState(k=state.k, v=state.v, valid_len=vlen + n_append)
+    new_state = DecoderState(k=state.k, v=state.v, valid_len=vlen + n_append)
+    if attn_probe is not None:
+        return logits, new_state, probe
+    return logits, new_state
 
 
 def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     # an id past the vocabulary takes the last row, as the JAX package's
     # gather clamps it (a stub tokenizer's ids over a small preset's vocab)
     return params["embed"][token_ids.clamp(max=params["embed"].shape[0] - 1)]
+
+
+def span_probe(q, prefix_k, a0: int, a1: int, q_pos, inv_freq, lse):
+    """The AlignAtt probe of one beam step, from the log-sum-exp of the
+    whole softmax: rows' queries q (rows, H, Dh), unrotated, at q_pos
+    (rows,); the prefix caches prefix_k (P, C, KV, Dh), unrotated, slot p
+    read by rows p * rows / P onwards; lse (rows, H), float32.  Scores
+    over the prefix keys a0..a1-1 (rotated at their positions, scaled by
+    1/sqrt(Dh), in float32, as ``decode_attention_plain`` computes them),
+    exponentiated less lse, averaged over the heads; returns the (rows,)
+    argmax (the first maximum), an index into the span."""
+    rows, H, Dh = q.shape
+    P, _, KV, _ = prefix_k.shape
+    dev = q.device
+    qr = R.apply_llama_rope(
+        q.to(torch.float32).reshape(rows, H, 1, Dh),
+        q_pos.to(dev)[:, None, None], inv_freq,
+    )[:, :, 0]
+    pos = torch.arange(a0, a1, device=dev)
+    kr = R.apply_llama_rope(
+        prefix_k[:, a0:a1].transpose(1, 2).to(torch.float32),
+        pos[None, None], inv_freq,
+    )  # (P, KV, n, Dh)
+    qg = qr.reshape(P, rows // P, KV, H // KV, Dh)
+    s = (qg @ kr[:, None].transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
+    w = torch.exp(s.reshape(rows, H, a1 - a0) - lse[..., None])
+    return torch.argmax(w.mean(dim=1), dim=-1)
 
 
 def beam_token_step(
@@ -164,6 +212,7 @@ def beam_token_step(
     gen_v: torch.Tensor,
     gen_len: int,  # tokens generated so far (the same for every row)
     x_embed: torch.Tensor,  # (P * beam, 1, D), the rows of slot p first
+    attn_probe: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for all beams of P slots (the single stream is
     P = 1; pooled serving vmaps the JAX step over slots) over two
@@ -175,7 +224,9 @@ def beam_token_step(
     length + j.  This step's K/V are written IN PLACE into ``gen_k`` /
     ``gen_v`` at slot ``gen_len`` (on the stream the kernel then reads
     them from).  Returns (logits (P * beam, V), gen_k, gen_v, attn_idx
-    (P * beam,) = -1: the attention probe is not ported)."""
+    (P * beam,)): with ``attn_probe = (layer, a0, a1)`` (keys a0..a1-1 of
+    the prefix) ``span_probe`` at that layer, from the two launches'
+    log-sum-exps, without a second pass over the keys; -1 without."""
     rows, S, D = x_embed.shape
     assert S == 1
     beam = rows // prefix.k.shape[1]
@@ -188,6 +239,9 @@ def beam_token_step(
     g_valid = torch.full((rows,), gen_len + 1, dtype=i32, device=dev)
     g_off = plen.repeat_interleave(beam)
     q_pos = g_off + gen_len
+    probe_layer = None if attn_probe is None else \
+        attn_probe[0] % cfg.num_layers
+    attn_idx = None
 
     h = x_embed
     for li in range(cfg.num_layers):
@@ -209,13 +263,18 @@ def beam_token_step(
             q, gen_k[li], gen_v[li], g_valid, q_pos, inv_freq,
             key_offset=g_off, return_lse=True,
         )
+        if li == probe_layer:
+            attn_idx = span_probe(q, prefix.k[li], attn_probe[1],
+                                  attn_probe[2], q_pos, inv_freq,
+                                  torch.logaddexp(lse_p, lse_g))
         attn = merge_blocks(o_p, lse_p, o_g, lse_g)
         h = h + mm(attn.reshape(rows, 1, H * Dh), lp["wo"])
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
     h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
     logits = mm(h, params["lm_head"])[:, 0, : cfg.vocab_size]
-    attn_idx = torch.full((rows,), -1, dtype=torch.int64, device=dev)
+    if attn_idx is None:
+        attn_idx = torch.full((rows,), -1, dtype=torch.int64, device=dev)
     return logits, gen_k, gen_v, attn_idx
 
 

@@ -1,5 +1,6 @@
 """wav2vec2-style chunked-causal speech encoder; port of the streaming path
-of ``infinisst_tpu/models/wav2vec2.py``.
+and the offline ``forward`` of ``infinisst_tpu/models/wav2vec2.py`` (the
+training options, dropout and remat, are not ported).
 
 - conv feature extractor (7 layers, stride 320), 'layer_norm' mode (per
   layer LayerNorm, vox/large) or 'default' (GroupNorm on layer 0), with
@@ -155,6 +156,39 @@ def _prep_frames(params: Params, cfg: W2V2Config, samples: torch.Tensor):
     feats = _layer_norm(feats, params["post_ln"]["scale"],
                         params["post_ln"]["bias"])
     return feats @ params["post_proj"]["w"] + params["post_proj"]["b"]
+
+
+def forward(
+    params: Params,
+    cfg: W2V2Config,
+    samples: torch.Tensor,  # (B, T) raw audio, the 399-sample offset included
+    block_frames: int,
+    max_cache_frames: int,
+    frame_lengths: Optional[torch.Tensor] = None,  # (B,) valid frames
+) -> torch.Tensor:
+    """Offline forward over a fresh cache with the block-causal mask
+    (``block_frames = max_cache_frames = 10**7`` makes it bidirectional,
+    as the AlignAtt agent runs it).  With ``frame_lengths`` the frames at
+    and past a row's length are zeroed and never attended.  Returns (B,
+    frames, encoder_dim)."""
+    x = _prep_frames(params, cfg, samples)
+    B, F_, D = x.shape
+    dev = x.device
+    mask = M.block_causal_mask(F_, max_cache_frames, block_frames,
+                               device=dev)[None, None]  # (1, 1, F, F)
+    if frame_lengths is not None:
+        fl = torch.as_tensor(frame_lengths, device=dev)
+        j = torch.arange(F_, device=dev)
+        mask = mask & (j[None, None, None, :] < fl[:, None, None, None])
+        x = x * (j[None, :, None] < fl[:, None, None]).to(x.dtype)
+    bias = M.additive(mask)
+    pos = torch.arange(F_, device=dev)[None].expand(B, F_)
+    inv_freq = torch.tensor(R.encoder_rope_freqs(cfg.head_dim),
+                            dtype=torch.float32, device=dev)
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(0, F_, D, dev)[None].to(x.dtype)
+    out, _ = _encoder_stack(params, cfg, x, bias, pos, pos, None, inv_freq)
+    return out
 
 
 def chunk_step(

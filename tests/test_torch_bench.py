@@ -59,6 +59,15 @@ NAMES = [
      "serve_decode_tok_per_s_pool8_beam4_m1_1chip"),
     (["--mode", "serve", "--group128"],
      "serve_decode_tok_per_s_pool8_beam4_m1_8b_int8"),
+    # the offline agents: bench.py:843 and :918-920, always the 8B W8A8
+    (["--mode", "alignatt"], "alignatt_rtf_beam4_parity_8b_int8"),
+    (["--mode", "alignatt", "--early-stop"],
+     "alignatt_rtf_beam4_es_8b_int8"),
+    (["--mode", "alignatt", "--model", "bench", "--group128"],
+     "alignatt_rtf_beam4_parity_8b_int8"),
+    (["--mode", "streamatt"], "streamatt_rtf_beam4_8b_int8"),
+    (["--mode", "streamatt", "--early-stop", "--chunks", "50"],
+     "streamatt_rtf_beam4_8b_int8"),
 ]
 
 
@@ -134,7 +143,7 @@ def test_run_stream_on_the_tiny_agent():
 
 @pytest.mark.parametrize("argv", [["--mode", "serve", "--speculative"],
                                   ["--mode", "train"],
-                                  ["--mode", "alignatt"], ["--speculative"]])
+                                  ["--mode", "train-io"], ["--speculative"]])
 def test_unported_modes_exit(argv, capsys):
     with pytest.raises(SystemExit) as e:
         B.main(argv)
@@ -199,3 +208,69 @@ def test_run_serve_counts_the_timed_ticks():
     total = sum(len(s.target_ids) for s in eng.slots)
     assert 0 < run["tokens"] < total
     assert eng.forwards["prefill"] == 4
+
+
+def test_offline_summary():
+    """The offline modes' line: the mean wall over 0.96 s, vs_baseline
+    0.67 over it (bench.py:843-848), the median and p95."""
+    times = [1.2, 1.0, 1.4, 0.9, 3.0]
+    r = B.summarize_offline(times, "alignatt_rtf_beam4_parity_8b_int8")
+    rtf = float(np.mean(times)) / 0.96
+    assert r == {
+        "metric": "alignatt_rtf_beam4_parity_8b_int8",
+        "value": round(rtf, 4), "unit": "rtf",
+        "vs_baseline": round(0.67 / rtf, 3),
+        "rtf_median": round(1.2 / 0.96, 4),
+        "rtf_p95": round(float(np.percentile(times, 95)) / 0.96, 4),
+    }
+
+
+def _tiny_offline_agent(mode, early_stop):
+    from infinisst_tpu_torch.agents.alignatt import (
+        AlignAttAgent, AlignAttOptions,
+    )
+    from infinisst_tpu_torch.agents.streamatt import (
+        StreamAttAgent, StreamAttOptions,
+    )
+    from tests.test_torch_alignatt import _port_agent
+
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    if mode == "alignatt":
+        return _port_agent(tp, AlignAttAgent, AlignAttOptions,
+                           attn_early_stop=early_stop)
+    return _port_agent(tp, StreamAttAgent, StreamAttOptions,
+                       target_lang="Chinese", attn_early_stop=True,
+                       max_speech_duration=1.5, min_speech_duration=0.5,
+                       text_preserve_num=3)
+
+
+@pytest.mark.parametrize("mode,early_stop", [("alignatt", False),
+                                             ("alignatt", True),
+                                             ("streamatt", False)])
+def test_offline_modes_on_the_tiny_agent(monkeypatch, capsys, mode,
+                                         early_stop):
+    """``main --mode alignatt|streamatt`` on a tiny CPU agent, with the
+    chunk counts cut (3 chunks, 1 untimed): one JSON line, each chunk's
+    wall, steps and prompt bucket and the launches on stderr."""
+    agent = _tiny_offline_agent(mode, early_stop)
+    monkeypatch.setattr(B, "build_offline_agent", lambda args: agent)
+    monkeypatch.setattr(B, "ALIGNATT_MIN_CHUNKS", 3)
+    monkeypatch.setattr(B, "ALIGNATT_WARMUP", 1)
+    monkeypatch.setattr(B, "STREAMATT_MIN_CHUNKS", 3)
+    monkeypatch.setattr(B, "STREAMATT_TIMED_FROM", 1)
+    argv = ["--mode", mode, "--device", "cpu", "--chunks", "2"]
+    result = B.main(argv + (["--early-stop"] if early_stop else []))
+    out, err = capsys.readouterr()
+    assert json.loads(out.strip().splitlines()[-1]) == result
+    metric = {("alignatt", False): "alignatt_rtf_beam4_parity_8b_int8",
+              ("alignatt", True): "alignatt_rtf_beam4_es_8b_int8",
+              ("streamatt", False): "streamatt_rtf_beam4_8b_int8"}
+    assert result["metric"] == metric[(mode, early_stop)]
+    assert set(result) == {"metric", "value", "unit", "vs_baseline",
+                           "rtf_median", "rtf_p95"}
+    assert result["value"] > 0 and result["unit"] == "rtf"
+    chunks = [ln for ln in err.splitlines() if ln.startswith("chunk ")]
+    assert len(chunks) == 3 and all("prompt_bucket=64" in ln or
+                                    "prompt_bucket=128" in ln
+                                    for ln in chunks)
+    assert "chunks=2 " in err and "kernel launches " in err

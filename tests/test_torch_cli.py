@@ -248,8 +248,8 @@ def test_main_matches_jax_cli(files, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (["--agent", "alignatt"], "item 10"),
-    (["--agent", "streamatt"], "item 10"),
+    (["--agent", "alignatt", "--do-sample"], "beam-only"),
+    (["--agent", "streamatt", "--spec-k", "2"], "item 12"),
     (["--speculative"], "item 12"),
     (["--spec-k", "2"], "item 12"),
     (["--do-sample"], "item 11"),
@@ -259,6 +259,87 @@ def test_unported_paths_exit(files, tmp_path, extra, item):
     argv[argv.index("--agent"):argv.index("--agent") + 2] = []
     with pytest.raises(SystemExit, match=item):
         TCLI.main(argv + extra)
+
+
+@pytest.mark.parametrize("agent", ["alignatt", "streamatt"])
+def test_build_offline_agent(files, agent):
+    """``--agent alignatt|streamatt``: the JAX CLI's options (the minimum
+    start raised to 0.32 s, the AlignAtt and StreamAtt flags), on the
+    CPU."""
+    from infinisst_tpu_torch.agents.alignatt import AlignAttAgent
+    from infinisst_tpu_torch.agents.streamatt import StreamAttAgent
+
+    args = argparse.ArgumentParser()
+    TCLI.add_args(args)
+    argv = _argv(files, files / "unused", "--device", "cpu",
+                 "--frame-num", "2", "--attn-layer", "1", "--max-len-a",
+                 "4", "--min-start-sec", "0.1", "--text-preserve-num", "7",
+                 "--min-speech-duration", "3.5", "--target-lang", "Chinese")
+    argv[argv.index("--agent") + 1] = agent
+    a = TCLI.build_agent(args.parse_args(argv))
+    cls = AlignAttAgent if agent == "alignatt" else StreamAttAgent
+    assert type(a) is cls and a.device.type == "cpu"
+    o = a.opts
+    assert (o.frame_num, o.attn_layer, o.max_len_a, o.max_len_b,
+            o.min_start_sec, o.beam, o.target_lang) == (
+                2, 1, 4, 20, 0.32, 2, "Chinese")
+    if agent == "streamatt":
+        assert (o.text_preserve_num, o.min_speech_duration,
+                o.max_speech_duration) == (7, 3.5, 28.8)
+    else:
+        assert not hasattr(o, "text_preserve_num")
+
+
+def test_main_streamatt_matches_jax_cli(files, tmp_path, monkeypatch):
+    """``main --agent streamatt`` end to end on the CPU against the JAX
+    CLI on the same checkpoint and talks, the JAX prefill probe read over
+    the prompt's speech span as the port reads it
+    (tests/test_torch_alignatt.py): equal predictions, delays and
+    StreamLAAL."""
+    from tests.test_torch_alignatt import shift_jax_probe
+
+    shift_jax_probe(monkeypatch)
+    argv = _argv(files, tmp_path / "port", "--device", "cpu",
+                 "--target-lang", "Chinese")
+    argv[argv.index("--agent") + 1] = "streamatt"
+    got = TCLI.main(argv)
+    argv = _argv(files, tmp_path / "jax", "--target-lang", "Chinese")
+    argv[argv.index("--agent") + 1] = "streamatt"
+    monkeypatch.setattr(sys, "argv", ["cli"] + argv)
+    JCLI.main()
+    want = json.loads((tmp_path / "jax" / "scores.json").read_text())
+    for key in ("stream_laal", "n_instances"):
+        assert got[key] == want[key], key
+    logs = [[json.loads(line) for line in
+             (tmp_path / d / "instances.log").read_text().splitlines()]
+            for d in ("port", "jax")]
+    assert len(logs[0]) == len(logs[1]) == 2
+    for g, w in zip(*logs):
+        for key in ("prediction", "delays", "source_length"):
+            assert g[key] == w[key], key
+    assert any(r["prediction"] for r in logs[0])
+
+
+def test_translate_main_matches_jax(files, monkeypatch, capsys):
+    """``tools/translate.py``'s ``main`` (an AlignAtt agent through the
+    CLI's parser, each wav pushed whole and finished) on the CPU against
+    the JAX tool's output on the same checkpoint and wav, the JAX prefill
+    probe read over the prompt's speech span as the port reads it."""
+    from infinisst_tpu.tools import translate as JTR
+    from infinisst_tpu_torch.tools import translate as TTR
+    from tests.test_torch_alignatt import shift_jax_probe
+
+    shift_jax_probe(monkeypatch)
+    wav = str(files / "talk1.wav")
+    argv = ["--wav", wav, "--state-dict-path",
+            str(files / "pytorch_model.bin"), "--model-preset", "dryrun",
+            "--beam", "2", "--dtype", "float32"]
+    got = TTR.main(argv + ["--device", "cpu"])
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["translate"] + argv)
+    JTR.main()
+    jax_out = capsys.readouterr().out
+    assert port_out == jax_out and got[0] and port_out.startswith(wav)
 
 
 def test_random_init_is_seeded():
