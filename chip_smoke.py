@@ -54,6 +54,16 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  gen_lens.  The shapes the offline benches' calls really
                  run are held where those run (hold_offline_attention in
                  streamatt, alignatt and streamatt bench).
+     spec kernels -- the speculative stack's shapes: row_quant_int8 and
+                 w8a8_gemm bitwise at M = 1 (a stream's draft and
+                 sampling steps), 5 (its verify at k = 4), 8 and 40 (the
+                 pool's draft and verify) and 20 (spec beam's tree of 5
+                 levels x 4 beams) on every projection, the lm_head and a
+                 16384-column shortlist head, timed, the plain version and
+                 torch._int_mm + epilogue at M = 20 and 40;
+                 decode_attention at beam 1's two blocks and at the tree
+                 verify's prefix (20 rows against one cache, with lse),
+                 within ATT_RTOL.
   5. tiny     -- a tiny speech-LLM on the card against the same model on
                  the CPU (plain versions): float32 and W8A8 prefill logits
                  within 1e-4 * max|logits|, and the W8A8 agent's tokens
@@ -148,6 +158,25 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  every push and cut at an attended sample at least once;
                  the same with W8A8 weights, reported (the first push
                  that differs).
+     spec tiny -- (after tiny) the tiny float32 agent in every
+                 speculative and sampling mode, on the card and on the CPU:
+                 speculative greedy and top_k 1 sampling (plain and
+                 speculative) equal to beam 1 greedy, speculative beam 4
+                 equal to plain beam 4, chunk by chunk on each device, and
+                 card = CPU; a seeded sampling run (plain and speculative)
+                 equal to its repeat on each device.
+     spec bench -- (after serve) the bench's --speculative (the guard
+                 trips on the random draft), --speculative
+                 --spec-resid-scale 0 --spec-no-guard (accept_rate > 0),
+                 --speculative --spec-beam, --do-sample and --speculative
+                 --do-sample at the flagship W8A8, 8 chunks each, in
+                 subprocesses; each run's launches held to its model
+                 forwards (w8a8_gemm 7n + 1, row_quant_int8 4n + 1 a
+                 forward of n layers, decode_attention 2n a beam step and
+                 n a tree verify, none in a decode_step).
+     spec serve -- the bench's --mode serve --speculative and
+                 --speculative --do-sample (pool 8, beam 1), launches held
+                 to the forwards as in spec bench.
      serve tiny -- (after tiny) a tiny float32 ServingEngine on the card
                  against the CPU: pool 2, beam 2, multipliers (1, 2), a
                  multiplier switch and a trim; every slot's tokens equal
@@ -160,7 +189,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  preset on the card and two ``serve.client`` processes (m=1
                  and m=2) over localhost streaming the CLI's two talks:
                  both streams finish.
- 12. one JSON ``kernels`` line, then the card line, then the result line.
+ 12. one JSON ``kernels`` line (the speculative paths' launches and times
+     under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
+     decode_attention), then the card line, then the result line.
 
 Each phase prints its wall seconds.  Weights are random, made on the card
 from seeded torch.Generators.
@@ -200,6 +231,13 @@ SERVE_M = [32, 384, 512, 640, 768]
 # not reach; every bucket a bench call ran must be among the rows held
 OFFLINE_M = [192, 320, 448]
 DECODE_BUF_TOKENS = 64  # the offline agents' G (AlignAttOptions)
+# the speculative stack's rows at the bench's d = 8, k = 4: a stream's
+# draft and plain-sampling steps (1), its verify (k + 1 = 5), the pool's
+# draft (8) and verify (40), and spec beam's tree ((k + 1) x 4 beams = 20)
+SPEC_M = [1, 5, 8, 20, 40]
+SHORTLIST_DO = (4096, 16384)  # a --spec-head-vocab 16384 draft head
+SPEC_SHAPE = (5, 4096, 14336)  # the kernels line: a verify's gate/up
+SPEC_BENCH_CHUNKS = 8  # 3 untimed: the guard trips after chunk 2
 REPORT_SHAPE = (4, 4096, 14336)  # the kernels line: a beam-step gate/up
 GROUP = 128  # bench.py --group128
 W8_BF16_RTOL = 1e-2  # of max|plain|: f32 summation order, then bf16 rounding
@@ -586,6 +624,290 @@ def check_kernels(dev, notes):
 
 
 # ---------------------------------------------------------------------------
+# the speculative stack and sampling
+
+
+def check_spec_kernels(dev, notes):
+    """row_quant_int8 and w8a8_gemm bitwise against their plain versions
+    at the speculative stack's rows (SPEC_M) on every projection, the
+    padded lm_head and a 16384-column shortlist head; kernel times and
+    bounds, the plain version and torch._int_mm + epilogue at M = 20 and
+    40.  decode_attention at beam 1 (the sampler's and the greedy
+    fallback's two blocks) and at the tree verify's prefix (20 node rows
+    against one cache, with lse)."""
+    import torch
+
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    note = notes.note
+    for D, O in TABLE_DO + [SHORTLIST_DO]:
+        n_w = max(1, math.ceil(120e6 / (D * O)))
+        ws = [torch.randint(-127, 128, (D, O), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(n_w)]
+        wts = [w.t().contiguous() for w in ws]
+        s = torch.rand((O,), generator=gen, device=dev) * 1e-3 + 1e-4
+        for M in SPEC_M:
+            y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
+                 ).to(torch.bfloat16)
+            yq, ys = K.row_quant_int8(y)
+            pq, ps = K.row_quant_int8_plain(y)
+            if not (torch.equal(yq, pq) and torch.equal(ys, ps)):
+                fail(f"row_quant_int8 differs from its plain version at "
+                     f"M={M} D={D}")
+            if O == TABLE_DO[0][1] or D == 14336:
+                ms = cuda_time_ms(lambda i: K.row_quant_int8(y), 50)
+                pms = cuda_time_ms(lambda i: K.row_quant_int8_plain(y), 20)
+                bms, by = bound_ms(M * D * 2 + M * D + M * 4, 0, 1.0)
+                note("row_quant_int8", (M, D, 0), 0.0, ms, pms, None, bms,
+                     by)
+            out = K.w8a8_gemm(yq, ys, wts[0], s, torch.bfloat16)
+            ref = K.w8a8_gemm_plain(yq, ys, wts[0], s, torch.bfloat16)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                err = (out.float() - ref.float()).abs().max().item()
+                fail(f"w8a8_gemm differs from its plain version at M={M} "
+                     f"D={D} O={O}: max_abs_err={err}")
+            ms = cuda_time_ms(lambda i: K.w8a8_gemm(
+                yq, ys, wts[i % n_w], s, torch.bfloat16), 20)
+            pms = lib = None
+            if M > 16 or (M, D, O) == SPEC_SHAPE:
+                pms = cuda_time_ms(lambda i: K.w8a8_gemm_plain(
+                    yq, ys, wts[i % n_w], s, torch.bfloat16), 3, warmup=1)
+            if M > 16:  # torch._int_mm's shape rule, then the epilogue
+                lib = cuda_time_ms(
+                    lambda i: (torch._int_mm(yq, ws[i % n_w]).float() * ys
+                               * s).to(torch.bfloat16), 20)
+            bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
+                               2.0 * M * D * O, INT8_OPS_PER_S)
+            note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by)
+            if lib is not None:
+                print(f"  {'':17s} kernel / (torch._int_mm + epilogue) "
+                      f"{statistics.median(ms) / statistics.median(lib):.3f}",
+                      flush=True)
+        del ws, wts
+        torch.cuda.empty_cache()
+    for case in SPEC_ATT_CASES:
+        att_case(dev, gen, notes, *case, dtype=torch.bfloat16, timed=True)
+        att_case(dev, gen, notes, *case, dtype=torch.float32, timed=False)
+
+
+# (label, B, Bc, C, valid, key offset, lse) as in _att_cases: beam 1's two
+# blocks, and the tree verify's prefix (spec beam, k = 4, 4 beams)
+SPEC_ATT_CASES = [
+    ("beam1 prefix", 1, 1, 1280, [1000], None, True),
+    ("beam1 per-beam block", 1, 1, 10, [4], [1000], True),
+    ("tree prefix", 20, 1, 1280, [1000], None, True),
+]
+SPEC_ATT_SHAPE = ("tree prefix", 20, 1280)  # the kernels line's spec entry
+
+
+def _tokens_by_chunk(agent, n=3, seed=5):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        before = len(agent.states.target_ids)
+        agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1,
+                   finished=(i == n - 1))
+        out.append(list(agent.states.target_ids[before:]))
+    return out
+
+
+# the [spec tiny] agents (float32, the tiny model of check_tiny): each
+# speculative or sampling mode beside the plain decoder it must equal
+SPEC_TINY = {
+    "greedy": dict(beam=1),
+    "spec greedy": dict(beam=1, speculative=True, spec_draft_layers=1,
+                        spec_k=3, spec_guard=False),
+    "beam 4": dict(beam=4),
+    "spec beam 4": dict(beam=4, speculative=True, spec_beam=True,
+                        spec_draft_layers=1, spec_k=3, spec_guard=False),
+    "sample top_k 1": dict(beam=1, do_sample=True, top_k=1),
+    "spec sample top_k 1": dict(beam=1, do_sample=True, top_k=1,
+                                speculative=True, spec_draft_layers=1,
+                                spec_k=3, spec_guard=False),
+    "sample": dict(do_sample=True, temperature=1.2, top_k=8, sample_seed=4),
+    "spec sample": dict(do_sample=True, temperature=1.2, top_k=8,
+                        sample_seed=4, speculative=True,
+                        spec_draft_layers=1, spec_k=3, spec_guard=False),
+}
+SPEC_TINY_EQUAL = (("spec greedy", "greedy"), ("spec beam 4", "beam 4"),
+                   ("sample top_k 1", "greedy"),
+                   ("spec sample top_k 1", "greedy"))
+SPEC_TINY_SEEDED = ("sample", "spec sample")
+
+
+def check_spec_tiny(dev, f32_params):
+    """The tiny float32 agent on the card and on the CPU in every
+    speculative and sampling mode: speculative greedy, top_k 1 sampling
+    (plain and speculative) equal to beam 1 greedy and speculative beam
+    4 to plain beam 4, chunk by chunk, on each device; every such mode's
+    tokens equal card against CPU; a seeded sampling run (plain and
+    speculative) equal to its repeat on each device (the card's draws
+    come from a CUDA generator, the CPU's from a CPU one, so the seeded
+    runs are not compared across devices)."""
+    outs = {}
+    for device in ("cpu", dev):
+        for name, kw in SPEC_TINY.items():
+            agent, _ = tiny_agent(device, f32_params, **kw)
+            outs[(str(device), name)] = _tokens_by_chunk(agent)
+            if name in SPEC_TINY_SEEDED:
+                again, _ = tiny_agent(device, f32_params, **kw)
+                if _tokens_by_chunk(again) != outs[(str(device), name)]:
+                    fail(f"[spec tiny] {name} on {device}: a seeded run "
+                         "differs from its repeat")
+        for a, b in SPEC_TINY_EQUAL:
+            if outs[(str(device), a)] != outs[(str(device), b)]:
+                fail(f"[spec tiny] {a} differs from {b} on {device}: "
+                     f"{outs[(str(device), a)]} vs {outs[(str(device), b)]}")
+    for name in SPEC_TINY:
+        got, want = outs[(str(dev), name)], outs[("cpu", name)]
+        print(f"  {name:20s} {dev}={got}", flush=True)
+        if name not in SPEC_TINY_SEEDED and got != want:
+            fail(f"[spec tiny] {name}: the card's tokens {got} differ from "
+                 f"the CPU's {want}")
+    if not any(outs[(str(dev), "greedy")]):
+        fail("[spec tiny] the tiny agent emitted nothing")
+    print("  equal on both devices: " + ", ".join(
+        f"{a} = {b}" for a, b in SPEC_TINY_EQUAL) + "; card = CPU in every "
+          "unseeded mode; seeded sampling = its repeat", flush=True)
+
+
+# per forward by function: decode_attention launches a layer (the beam
+# step's two blocks, the tree verify's prefix; a decode_step attends in
+# plain torch)
+ATT_PER_LAYER = {"decode_step": 0, "beam_token_step": 2, "beam_tree_step": 1}
+
+
+def expected_launches(forwards) -> dict:
+    """The kernel launches the bench's model forwards ({"fn L=n": count})
+    must make at the flagship W8A8 with an int8 (full or shortlist) head:
+    7n + 1 w8a8_gemm and 4n + 1 row_quant_int8 a forward of n layers,
+    decode_attention by ATT_PER_LAYER, no other kernel."""
+    want = dict.fromkeys(("w8a8_gemm", "row_quant_int8", "decode_attention",
+                          "w8_bf16_gemm", "group_quant_int8",
+                          "w8a8_grouped_gemm"), 0)
+    for key, n in forwards.items():
+        fn, L = key.split(" L=")
+        L = int(L)
+        want["w8a8_gemm"] += n * (7 * L + 1)
+        want["row_quant_int8"] += n * (4 * L + 1)
+        want["decode_attention"] += n * L * ATT_PER_LAYER[fn]
+    return want
+
+
+def run_bench_line(extra, label, metric, keys):
+    """``python -m infinisst_tpu_torch.bench`` + ``extra`` in a subprocess:
+    exit 0, its last stdout line a JSON line with ``metric`` and
+    ``keys``, its launches those its model forwards make
+    (expected_launches).  Returns (result, launches, forwards)."""
+    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"] + extra
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=900)
+    for line in out.stderr.strip().splitlines()[-8:]:
+        print(f"[{label}]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[{label}] {' '.join(cmd[1:])} exited {out.returncode}")
+    lines = out.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"[{label}] its last stdout line is not JSON: {lines[-1:]}")
+    missing = [k for k in keys if k not in result]
+    if result.get("metric") != metric or missing:
+        fail(f"[{label}] metric {result.get('metric')!r} (expected "
+             f"{metric!r}), missing keys {missing}")
+    if not (math.isfinite(result["value"]) and result["value"] > 0):
+        fail(f"[{label}] value {result['value']}")
+    counts = _stderr_json(out.stderr, "kernel launches ")
+    fwd = _stderr_json(out.stderr, "model forwards ")
+    if counts is None or fwd is None:
+        fail(f"[{label}] the bench did not report its launches and "
+             "forwards")
+    want = expected_launches(fwd)
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        fail(f"[{label}] launches {got} for forwards {fwd}; expected {want}")
+    print(f"[{label}] {json.dumps(result)}", flush=True)
+    print(f"[{label}] forwards {fwd}: launches {got} (7n + 1 w8a8_gemm, "
+          "4n + 1 row_quant_int8 a forward of n layers)", flush=True)
+    return result, got, fwd
+
+
+SPEC_KEYS = BENCH_KEYS + ("accept_rate", "rounds", "emitted",
+                          "guard_fallback", "fallback_warmed",
+                          "breakeven_tokens_per_round")
+SAMPLE_METRIC = "streaming_rtf_m1_sample_8b_int8"
+SPEC_SERVE_KEYS = SERVE_KEYS + ("accept_rate", "guard_fallback",
+                                "fallback_warmed")
+
+
+def check_spec_bench(paths):
+    """The bench's speculative and sampling streams at the flagship W8A8
+    (m = 1, d = 8, k = 4, SPEC_BENCH_CHUNKS chunks): --speculative (the
+    random draft accepts ~nothing, so the guard trips and the stream
+    runs beam 1 greedy), --spec-resid-scale 0 --spec-no-guard (the
+    layers above the draft are identities: accept_rate > 0 through the
+    real verify), --spec-beam, --do-sample and --speculative
+    --do-sample.  Each holds its launches to its forwards."""
+    n = ["--chunks", str(SPEC_BENCH_CHUNKS)]
+    runs = [
+        ("spec", ["--speculative"], "streaming_rtf_m1_spec_d8k4_8b_int8"),
+        ("spec resid 0", ["--speculative", "--spec-resid-scale", "0",
+                          "--spec-no-guard"],
+         "streaming_rtf_m1_spec_d8k4_ra0_8b_int8"),
+        ("spec beam", ["--speculative", "--spec-beam"],
+         "streaming_rtf_m1_spec_beam4_d8k4_8b_int8"),
+        ("sample", ["--do-sample"], SAMPLE_METRIC),
+        ("spec sample", ["--speculative", "--do-sample"],
+         "streaming_rtf_m1_spec_sample_d8k4_8b_int8"),
+    ]
+    total = {}
+    for name, extra, metric in runs:
+        keys = BENCH_KEYS if name == "sample" else SPEC_KEYS
+        result, got, fwd = run_bench_line(extra + n, f"spec bench {name}",
+                                          metric, keys)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        if name == "spec" and not result["guard_fallback"]:
+            fail("[spec bench] --speculative: the guard did not trip on the "
+                 f"random draft (accept_rate {result['accept_rate']})")
+        if name == "spec resid 0" and not result["accept_rate"] > 0:
+            fail("[spec bench] --spec-resid-scale 0: accept_rate "
+                 f"{result['accept_rate']}")
+        if name == "spec beam" and not fwd.get("beam_tree_step L=32"):
+            fail("[spec bench] --spec-beam ran no tree verify")
+        if name == "sample" and not fwd.get("beam_token_step L=32"):
+            fail("[spec bench] --do-sample ran no sampling step")
+        drafts = (fwd.get("decode_step L=8", 0)
+                  + fwd.get("beam_token_step L=8", 0))
+        if name.startswith("spec") and not drafts:
+            fail(f"[spec bench] {name} ran no draft forward")
+    paths["spec"] = ("bench --speculative, --spec-beam, --do-sample "
+                     f"(5 runs of {SPEC_BENCH_CHUNKS} chunks)", total)
+
+
+def check_spec_serve(paths):
+    """The bench's serve mode with --speculative and with --speculative
+    --do-sample at pool 8 (beam 1), 12 timed ticks; launches held to the
+    forwards."""
+    total = {}
+    for extra, metric in (
+            (["--speculative"],
+             "serve_decode_tok_per_s_pool8_specd8k4_m1_8b_int8"),
+            (["--speculative", "--do-sample"],
+             "serve_decode_tok_per_s_pool8_specSd8k4_m1_8b_int8")):
+        _, got, _ = run_bench_line(["--mode", "serve"] + extra,
+                                   "spec serve", metric, SPEC_SERVE_KEYS)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    paths["spec serve"] = ("bench --mode serve --speculative [--do-sample]",
+                           total)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: decode attention
 
 # (label, B, Bc, C, valid (Bc,), key offset (Bc,) or None, lse): the beam
@@ -852,7 +1174,7 @@ def hold_offline_attention(dev, notes, label, calls, timed, where=None):
 # phase 4: tiny W8A8 agent, card against CPU
 
 
-def tiny_agent(device, params):
+def tiny_agent(device, params, **opt_kw):
     import torch
 
     from infinisst_tpu_torch.agents.infinisst import (
@@ -874,8 +1196,9 @@ def tiny_agent(device, params):
                           llm_cache_capacity=256)
     builder = PromptBuilder(StubTokenizer(vocab_size=vocab, lo=10, hi=400),
                             cfg.tokens)
-    opts = InfiniSSTOptions(beam=2, max_llm_cache_size=120,
-                            no_repeat_ngram_lookback=32)
+    opts = InfiniSSTOptions(**dict(dict(beam=2, max_llm_cache_size=120,
+                                        no_repeat_ngram_lookback=32),
+                                   **opt_kw))
     p = None if params is None else _to(params, device)
     return InfiniSSTAgent(p, cfg, stream, builder, opts,
                           param_dtype=torch.float32, device=device), cfg
@@ -2370,9 +2693,17 @@ def main():
         print("[attention] decode_attention against its plain version on "
               "the card", flush=True)
         check_attention(dev, notes)
+    with phase("spec kernels"):
+        print("[spec kernels] the speculative stack's shapes: against the "
+              "plain versions on the card", flush=True)
+        check_spec_kernels(dev, notes)
     with phase("tiny"):
         print("[tiny] tiny speech-LLM: card against CPU", flush=True)
         tiny_params = check_tiny(dev)
+    with phase("spec tiny"):
+        print("[spec tiny] tiny agent, speculative and sampling modes: card "
+              "against CPU", flush=True)
+        check_spec_tiny(dev, tiny_params[0])
     with phase("serve tiny"):
         print("[serve tiny] tiny serving pool: card against CPU", flush=True)
         check_serve_tiny(dev, *tiny_params)
@@ -2399,6 +2730,10 @@ def main():
         check_bench()
     with phase("serve"):
         check_serve(paths)
+    with phase("spec bench"):
+        check_spec_bench(paths)
+    with phase("spec serve"):
+        check_spec_serve(paths)
     with phase("alignatt"):
         check_alignatt(dev, notes, paths)
     with phase("streamatt bench"):
@@ -2491,6 +2826,26 @@ def main():
                     "shape": list(beam_key), **{k: t[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}}
+    # the speculative stack (bench --speculative, --spec-beam, --do-sample
+    # and the speculative pool): its launches, and the times at its shapes
+    # (a verify's gate/up, its row quantization, the tree verify's prefix)
+    spec_shapes = {"w8a8_gemm": SPEC_SHAPE,
+                   "row_quant_int8": (SPEC_SHAPE[0], SPEC_SHAPE[1], 0),
+                   "decode_attention": SPEC_ATT_SHAPE}
+    for e in entries:
+        shape = spec_shapes.get(e["name"])
+        if shape is None:
+            continue
+        t = notes.rows[e["name"]]["shapes"][shape]
+        for key in ("spec", "spec serve"):
+            path, counts = paths[key]
+            e[key.replace(" ", "_")] = {
+                "launches": counts[e["name"]], "path": path,
+                "shape": [x for x in shape if x != 0],
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
+        if paths["spec"][1][e["name"]] <= 0:
+            fail(f"{e['name']} was not launched on the speculative paths")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

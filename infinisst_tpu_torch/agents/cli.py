@@ -12,9 +12,11 @@ Usage (mirrors scripts/infer/infinisst.sh):
 
 The flags and their defaults are the JAX CLI's, plus ``--device`` (default
 ``cuda``; ``cpu`` runs every kernel's plain version).  ``--agent
-infinisst`` (beam search), ``alignatt`` and ``streamatt`` (the offline
-baselines, mirroring scripts/infer/streamatt.sh) are ported; sampling
-(ROADMAP item 11) and the speculative flags (item 12) exit with a message.
+infinisst`` (beam search, ``--do-sample`` and its filters,
+``--speculative`` with ``--spec-*`` and ``--spec-beam``), ``alignatt``
+and ``streamatt`` (the offline baselines, mirroring
+scripts/infer/streamatt.sh).  As in the JAX CLI, ``--do-sample`` and
+``--speculative`` exit with a message for the offline agents.
 """
 
 from __future__ import annotations
@@ -156,31 +158,98 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--device", type=str, default="cuda")
 
 
-def check_ported(args):
-    """Exit with a message for the options whose paths are not ported, and
-    for sampling with an offline agent, as the JAX CLI does."""
+def check_agent_options(args):
+    """Exit with a message for sampling or speculation with an offline
+    agent, as the JAX CLI does."""
     if args.do_sample and args.agent != "infinisst":
         raise SystemExit(
             "--do-sample is only implemented for --agent infinisst (the "
             "reference's DPO collection path); the alignatt/streamatt "
             "policies are beam-only"
         )
-    defaults = argparse.ArgumentParser()
-    add_args(defaults)
-    spec = [k for k, v in vars(args).items()
-            if (k == "speculative" or k.startswith("spec_"))
-            and v != defaults.get_default(k)]
-    if spec:
-        flags = ", ".join("--" + k.replace("_", "-") for k in spec)
+    if args.speculative and args.agent != "infinisst":
         raise SystemExit(
-            f"{flags}: the speculative stack is not ported to PyTorch yet "
-            "(ROADMAP item 12)"
+            "--speculative is only implemented for --agent infinisst"
         )
-    if args.do_sample:
+
+
+def _load_head_ids(path, head_vocab):
+    """A --spec-head-ids ``.npy`` checked against --spec-head-vocab: its
+    first head_vocab ids, or None."""
+    import numpy as np
+
+    if not path:
+        return None
+    if not head_vocab:
         raise SystemExit(
-            "--do-sample: sampling is not ported to PyTorch yet (ROADMAP "
-            "item 11)"
+            "--spec-head-ids requires --spec-head-vocab N (the first N "
+            "ids of the file form the shortlist); without it the file "
+            "would be silently ignored"
         )
+    ids = np.load(path)
+    if ids.ndim != 1 or len(ids) < head_vocab:
+        raise SystemExit(
+            f"--spec-head-ids {path}: need a 1-D array with >= "
+            f"{head_vocab} ids, got shape {ids.shape}"
+        )
+    return ids[:head_vocab]
+
+
+def _load_lowrank_head(args):
+    """--spec-lowrank-head ``.npz`` -> {'a', 'b'} factors (numpy), or
+    None."""
+    import numpy as np
+
+    path = getattr(args, "spec_lowrank_head", None)
+    if not path:
+        return None
+    if not args.speculative:
+        raise SystemExit("--spec-lowrank-head requires --speculative")
+    z = np.load(path)
+    if "a" not in z or "b" not in z:
+        raise SystemExit(
+            f"{path} must contain arrays 'a' (D, r) and 'b' (r, V)"
+        )
+    return {"a": z["a"], "b": z["b"]}
+
+
+def _load_adapter(args):
+    """--spec-adapter ``.npz``, its depth checked against
+    --spec-draft-layers, or None."""
+    if not getattr(args, "spec_adapter", None):
+        return None
+    if not args.speculative:
+        raise SystemExit("--spec-adapter requires --speculative")
+    from infinisst_tpu_torch.train.draft import load_adapter
+
+    return load_adapter(args.spec_adapter, expect_d=args.spec_draft_layers)
+
+
+def spec_options(args) -> dict:
+    """The sampling and speculative options of ``InfiniSSTOptions`` from
+    the flags (the loaders validate their files)."""
+    return dict(
+        speculative=args.speculative,
+        spec_draft_layers=args.spec_draft_layers,
+        spec_k=args.spec_k,
+        spec_head_vocab=args.spec_head_vocab,
+        spec_head_ids=_load_head_ids(args.spec_head_ids,
+                                     args.spec_head_vocab),
+        spec_adapter=_load_adapter(args),
+        spec_lowrank_rank=args.spec_lowrank_rank,
+        spec_lowrank_head=_load_lowrank_head(args),
+        spec_beam=args.spec_beam,
+        spec_guard=not args.spec_no_guard,
+        spec_guard_patience=args.spec_guard_patience,
+        spec_warm_fallback=not args.spec_no_warm_fallback,
+        do_sample=args.do_sample,
+        temperature=args.temperature,
+        top_k=args.top_k,
+        top_p=args.top_p,
+        epsilon_cutoff=args.epsilon_cutoff,
+        sample_seed=args.sample_seed,
+        dpo_sampling=args.do_sample,
+    )
 
 
 def build_agent(args):
@@ -210,7 +279,7 @@ def build_agent(args):
     )
     from infinisst_tpu_torch.train.main import build_params
 
-    check_ported(args)
+    check_agent_options(args)
     device = resolve_device(args.device)
     cfg = PRESETS[args.model_preset]()
     if args.w2v2_type == "hubert":
@@ -277,8 +346,8 @@ def build_agent(args):
     )
     if args.agent == "infinisst":
         return InfiniSSTAgent(params, cfg, stream, builder,
-                              InfiniSSTOptions(**common), param_dtype=dtype,
-                              device=device)
+                              InfiniSSTOptions(**common, **spec_options(args)),
+                              param_dtype=dtype, device=device)
     aa = dict(
         common,
         frame_num=args.frame_num,

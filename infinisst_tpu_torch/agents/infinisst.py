@@ -1,23 +1,32 @@
 """InfiniSST streaming agent: host-side policy loop driving the chunk step;
-port of the plain beam path of ``infinisst_tpu/agents/infinisst.py``.
+port of ``infinisst_tpu/agents/infinisst.py``.
 
 One chunk step (``_generate_chunk``), in the JAX package's order:
 deferred LLM cache eviction -> roll the raw-audio window -> encoder chunk
 step + adapter -> splice the speech into the chunk prompt -> one prefill
-over [previous chunk's emitted tokens | prompt] -> beam search -> drop the
+over [previous chunk's emitted tokens | prompt] -> decode -> drop the
 last token when the cap was hit -> history ring update.
+
+The decode is beam search, or by the options (``_decode``): ancestral
+sampling (``do_sample``), speculative greedy or sampling
+(``speculative``; the verify commits the emitted tokens' K/V, so nothing
+is pending), or speculative beam search (``spec_beam``, deferred like
+plain beam).  The acceptance guard drops a speculative stream whose
+tokens per verify round stay below the weight-stream break-even to the
+true plain decoder of its mode: beam 1 greedy, plain beam, or the plain
+sampler.  A sampled chunk draws from a generator seeded from
+(``sample_seed``, chunk index).
 
 ``update_multiplier`` changes the latency multiplier mid-stream, and
 ``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
-int8 (``quant.quantize_llama_params``, served by ``w8_bf16_gemm``).
-Speculative decoding, sampling and the fallback warm are not ported;
-asking for them raises ``NotImplementedError``.  The AlignAtt and
-StreamAtt agents (``agents/alignatt.py``, ``agents/streamatt.py``)
-subclass this one for its model bundle.
+int8 (``quant.quantize_llama_params``, served by ``w8_bf16_gemm``).  The
+AlignAtt and StreamAtt agents (``agents/alignatt.py``,
+``agents/streamatt.py``) subclass this one for its model bundle.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from time import perf_counter
 from typing import Dict, Optional
@@ -39,9 +48,13 @@ from infinisst_tpu_torch.core.config import (
 from infinisst_tpu_torch.core.device import resolve_device
 from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
+from infinisst_tpu_torch.decode import logits as lp
+from infinisst_tpu_torch.decode import speculative as spec_mod
+from infinisst_tpu_torch.decode.spec_beam import spec_beam_search
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
 from infinisst_tpu_torch.streaming.state import (
+    DecoderState,
     init_decoder_state,
     init_encoder_state,
 )
@@ -68,13 +81,45 @@ class InfiniSSTOptions:
     dpo_sampling: bool = False  # dump per-chunk translations
     output_file: str = "translations.json"
     quantize: bool = False  # weight-only int8 projections
-    # not ported yet: each raises NotImplementedError when set
+    # sampling decode (the DPO collection path): ancestral sampling
+    # through the beam path's processors and the HF filter stack
     do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    epsilon_cutoff: float = 0.0
+    sample_seed: int = 0
+    # speculative decode (decode/speculative.py): a draft of the first
+    # spec_draft_layers layers and a verify of spec_k + 1 tokens; greedy
+    # (beam is ignored) unless spec_beam; exact either way
     speculative: bool = False
+    spec_draft_layers: int = 8
+    spec_k: int = 4
+    spec_accept_all: bool = False  # bench only: the machinery ceiling
+    # the draft's head: a shortlist of spec_head_vocab ids (the id prefix,
+    # or spec_head_ids), or low-rank factors (built by SVD at init with
+    # spec_lowrank_rank, or given as spec_lowrank_head {'a', 'b'})
+    spec_head_vocab: int = 0
+    spec_head_ids: Optional[np.ndarray] = None
+    spec_lowrank_rank: int = 0
+    spec_lowrank_head: Optional[dict] = None
+    # a distilled exit adapter {'ln', 'w1', 'w2'} (train/draft.py), draft
+    # only
+    spec_adapter: Optional[dict] = None
+    # speculative beam search (decode/spec_beam.py): needs speculative and
+    # beam > 1; deferred commit like plain beam
     spec_beam: bool = False
-
-
-_UNPORTED = ("do_sample", "speculative", "spec_beam")
+    # the acceptance guard: an EMA of tokens per verify round below the
+    # break-even (x margin) for patience chunks drops the stream to its
+    # plain decoder for good; off under spec_accept_all
+    spec_guard: bool = True
+    spec_guard_decay: float = 0.7
+    spec_guard_patience: int = 3
+    spec_guard_margin: float = 1.0
+    # accepted and ignored: the JAX agent compiles its fallback graph
+    # ahead in a thread; eager PyTorch has nothing to compile, so the
+    # fallback swap costs nothing here
+    spec_warm_fallback: bool = True
 
 
 class InfiniSSTAgent(SpeechToTextAgent):
@@ -88,17 +133,39 @@ class InfiniSSTAgent(SpeechToTextAgent):
         param_dtype=torch.float32,
         device="cuda",
     ):
-        for name in _UNPORTED:
-            if getattr(opts, name):
-                raise NotImplementedError(
-                    f"InfiniSSTOptions.{name} is not ported to PyTorch yet"
-                )
         self.device = resolve_device(device)
+        dev = self.device
         if opts.quantize:
             from infinisst_tpu_torch.models.quant import quantize_llama_params
 
             params = dict(params)
             params["llama"] = quantize_llama_params(params["llama"])
+        if opts.speculative:
+            params = spec_mod.with_draft_params(
+                params, model_cfg, param_dtype, dev,
+                head_vocab=opts.spec_head_vocab, head_ids=opts.spec_head_ids,
+                lowrank_rank=opts.spec_lowrank_rank,
+                lowrank_head=opts.spec_lowrank_head,
+                adapter=opts.spec_adapter,
+            )
+        if opts.spec_beam and opts.speculative:
+            if opts.do_sample:
+                raise ValueError("spec_beam is beam-search-exact; it cannot "
+                                 "be combined with --do-sample")
+            if opts.beam <= 1:
+                raise ValueError("spec_beam requires beam > 1")
+        if opts.speculative and opts.do_sample and opts.spec_accept_all:
+            raise ValueError("--spec-accept-all is a greedy bench mode; it "
+                             "has no sampling counterpart")
+        # the guard's break-even (tokens a verify round must emit)
+        self._spec_breakeven = None
+        if opts.speculative and opts.spec_guard and not opts.spec_accept_all:
+            self._spec_breakeven = spec_mod.breakeven_tokens_per_round(
+                params["llama"], model_cfg.llama.num_layers,
+                opts.spec_draft_layers, opts.spec_k,
+                draft_head=params.get("spec_draft_head"),
+                exit_adapter=params.get("spec_adapter"),
+            )
         self.params = params
         self.cfg = model_cfg
         self.stream = stream_cfg
@@ -171,6 +238,23 @@ class InfiniSSTAgent(SpeechToTextAgent):
         self._pending_evict = None
         self.system_prompt_size = 0
         self.first_chunk = True
+        self._chunk_counter = 0  # the sampling draws' chunk index
+        # cumulative speculative statistics
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        # the acceptance guard: the EMA of tokens per verify round, the
+        # chunks in a row below the break-even, the sticky fallback
+        self._spec_tpr_ema = None
+        self._spec_below = 0
+        self._spec_fallback = False
+
+    @property
+    def spec_fallback_active(self) -> bool:
+        """True once the acceptance guard dropped this stream to its plain
+        decoder."""
+        return self._spec_fallback
 
     def reset(self):
         super().reset()
@@ -202,7 +286,7 @@ class InfiniSSTAgent(SpeechToTextAgent):
 
     def _generate_chunk(self, prompt, prompt_ids, n_units: int,
                         chunk_i16: np.ndarray, ev_keep: int, ev_sys: int):
-        """One chunk step.  Returns (beam result, n_emit)."""
+        """One chunk step.  Returns (the decode's result, n_emit)."""
         cfg, stream, opts, dev = self.cfg, self.stream, self.opts, self.device
         pad = cfg.tokens.pad
         chunk_samples = n_units * self.unit_samples
@@ -250,24 +334,23 @@ class InfiniSSTAgent(SpeechToTextAgent):
             valid_mask=valid,
         )
         last_logits = logits[0, self.pend_n + S - 1]
-        spec = beam_mod.BeamSpec(
-            beam=opts.beam, max_new_tokens=G, eos_id=cfg.tokens.eos,
-            pad_id=pad, no_repeat_ngram_size=opts.no_repeat_ngram_size,
-            repetition_penalty=opts.repetition_penalty,
-        )
-        res = beam_mod.beam_search(
-            self.params["llama"], cfg.llama, self.dec_state, last_logits,
-            prompt_ids, prompt_ids.shape[0],
-            torch.as_tensor(self.hist, device=dev), self.hist_len, spec,
-            encoder_ngram_size=opts.no_repeat_ngram_size,
-            suppress_mask=self._suppress,
-        )
+        res = self._decode(last_logits, prompt_ids)
         # drop the final token when the cap was hit without EOS
         n_emit = res.n_tokens if res.hit_eos else max(res.n_tokens - 1, 0)
-        # new pending = this chunk's emitted tokens, committed next chunk
         pend_out = np.full((P,), pad, np.int64)
-        pend_out[:n_emit] = res.tokens[:n_emit]
-        self.pend_tokens, self.pend_n = pend_out, n_emit
+        if isinstance(res, spec_mod.SpecResult):
+            # the verify committed the tokens' K/V: roll back to the
+            # emitted prefix (a cap-dropped token must not condition later
+            # chunks), nothing pending
+            self.dec_state = DecoderState(
+                k=res.dec.k, v=res.dec.v,
+                valid_len=res.dec.valid_len - (res.n_tokens - n_emit))
+            self.pend_tokens, self.pend_n = pend_out, 0
+        else:
+            # new pending = this chunk's emitted tokens, committed next
+            # chunk
+            pend_out[:n_emit] = res.tokens[:n_emit]
+            self.pend_tokens, self.pend_n = pend_out, n_emit
         # history ring: append at hist_len, keep the trailing Lh window
         cat = np.concatenate([self.hist, np.full((G,), pad, np.int64)])
         cat[self.hist_len : self.hist_len + G] = res.tokens
@@ -277,6 +360,90 @@ class InfiniSSTAgent(SpeechToTextAgent):
         new_hist[new_len:] = pad
         self.hist, self.hist_len = new_hist, new_len
         return res, n_emit
+
+    def _decode(self, last_logits, prompt_ids):
+        """The chunk's decode by the options: speculative beam, greedy or
+        sampling, plain sampling, or beam search.  Once the guard has
+        tripped, the plain decoder of the mode: beam search at beam 1 for
+        speculative greedy, at the options' beam for speculative beam,
+        the plain sampler for speculative sampling."""
+        opts, cfg, dev = self.opts, self.cfg, self.device
+        fallback = self._spec_fallback
+        speculative = opts.speculative and not fallback
+        G, pad, eos = self.max_new, cfg.tokens.pad, cfg.tokens.eos
+        args = (self.params["llama"], cfg.llama, self.dec_state, last_logits,
+                prompt_ids, prompt_ids.shape[0],
+                torch.as_tensor(self.hist, device=dev), self.hist_len)
+        kw = dict(encoder_ngram_size=opts.no_repeat_ngram_size,
+                  suppress_mask=self._suppress)
+        draft = dict(draft_head=self.params.get("spec_draft_head"),
+                     exit_adapter=self.params.get("spec_adapter"))
+        gen = None
+        if opts.do_sample:
+            gen = lp.chunk_generator(opts.sample_seed, self._chunk_counter,
+                                     dev)
+        ngram, rep = opts.no_repeat_ngram_size, opts.repetition_penalty
+        filters = dict(temperature=opts.temperature, top_k=opts.top_k,
+                       top_p=opts.top_p, epsilon_cutoff=opts.epsilon_cutoff,
+                       no_repeat_ngram_size=ngram, repetition_penalty=rep)
+        if speculative and opts.spec_beam:
+            spec = beam_mod.BeamSpec(
+                beam=opts.beam, max_new_tokens=G, eos_id=eos, pad_id=pad,
+                no_repeat_ngram_size=ngram, repetition_penalty=rep)
+            return spec_beam_search(
+                *args, spec, draft_layers=opts.spec_draft_layers,
+                draft_k=opts.spec_k, accept_all=opts.spec_accept_all,
+                **kw, **draft)
+        if speculative and opts.do_sample:
+            spec = spec_mod.SpecSampleSpec(
+                max_new_tokens=G, eos_id=eos, pad_id=pad,
+                draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
+                **filters)
+            return spec_mod.speculative_sample(*args, spec, gen, **kw,
+                                               **draft)
+        if speculative:
+            spec = spec_mod.SpecSpec(
+                max_new_tokens=G, eos_id=eos, pad_id=pad,
+                draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
+                no_repeat_ngram_size=ngram, repetition_penalty=rep,
+                accept_all=opts.spec_accept_all)
+            return spec_mod.speculative_greedy(*args, spec, **kw, **draft)
+        if opts.do_sample:
+            spec = beam_mod.SampleSpec(max_new_tokens=G, eos_id=eos,
+                                       pad_id=pad, **filters)
+            return beam_mod.sample_decode(*args, spec, gen, **kw)
+        greedy_fallback = fallback and not opts.spec_beam
+        spec = beam_mod.BeamSpec(
+            beam=1 if greedy_fallback else opts.beam, max_new_tokens=G,
+            eos_id=eos, pad_id=pad, no_repeat_ngram_size=ngram,
+            repetition_penalty=rep)
+        return beam_mod.beam_search(*args, spec, **kw)
+
+    def _guard(self, res, n_emit: int):
+        """After a speculative chunk: the statistics, and the acceptance
+        guard's EMA of tokens per verify round against the break-even."""
+        opts = self.opts
+        r, ac = res.rounds, res.accepted
+        self.spec_rounds += r
+        self.spec_drafted += res.drafted
+        self.spec_accepted += ac
+        self.spec_emitted += n_emit  # what the user saw
+        if self._spec_breakeven is None or r <= 0:
+            return
+        tpr = (ac + r) / r  # the accepted prefix and the anchor
+        dc = opts.spec_guard_decay
+        self._spec_tpr_ema = (tpr if self._spec_tpr_ema is None
+                              else dc * self._spec_tpr_ema + (1.0 - dc) * tpr)
+        if self._spec_tpr_ema < self._spec_breakeven * opts.spec_guard_margin:
+            self._spec_below += 1
+        else:
+            self._spec_below = 0
+        if self._spec_below >= opts.spec_guard_patience:
+            self._spec_fallback = True
+            print(f"[spec-guard] tokens/round EMA {self._spec_tpr_ema:.2f} "
+                  f"< break-even {self._spec_breakeven:.2f} for "
+                  f"{self._spec_below} chunks: dropping this stream to "
+                  "plain decode", file=sys.stderr, flush=True)
 
     # -- policy ------------------------------------------------------------
     def policy(self, states: Optional[AgentStates] = None):
@@ -360,12 +527,21 @@ class InfiniSSTAgent(SpeechToTextAgent):
         else:
             ev_keep = self.llm_cache_len - self.pend_n_host
             ev_sys = 0
+        # the decode this chunk runs (the guard trips only after it)
+        spec_path = opts.speculative and not self._spec_fallback
         res, n_emit = self._generate_chunk(
             prompt, prompt_ids, n_units, chunk_i16, ev_keep, ev_sys
         )
+        self._chunk_counter += 1
         self.last_result = res  # observability: steps, hit_eos, tokens
         out_ids = [int(t) for t in res.tokens[:n_emit]]
-        self.pend_n_host = n_emit
+        if spec_path:
+            # greedy and sampling speculation committed in the verify;
+            # spec beam defers like plain beam
+            self.pend_n_host = n_emit if opts.spec_beam else 0
+            self._guard(res, n_emit)
+        else:
+            self.pend_n_host = n_emit
         self.first_chunk = False
         states.target_ids.extend(out_ids)
 

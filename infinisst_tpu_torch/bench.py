@@ -1,8 +1,11 @@
 """Streaming RTF, pooled serving and offline-agent bench of the port: the
-streaming, serve, AlignAtt and StreamAtt modes of the JAX package's
-``bench.py``, on the card.
+streaming (plain, sampling and speculative), serve, AlignAtt and
+StreamAtt modes of the JAX package's ``bench.py``, on the card.
 
     python -m infinisst_tpu_torch.bench                 # flagship W8A8, m=1
+    python -m infinisst_tpu_torch.bench --speculative [--spec-beam]
+    python -m infinisst_tpu_torch.bench --do-sample [--speculative]
+    python -m infinisst_tpu_torch.bench --mode serve --speculative
     python -m infinisst_tpu_torch.bench --group128      # per-group scales
     python -m infinisst_tpu_torch.bench --schedule 1,1,1,2,2,4,4
     python -m infinisst_tpu_torch.bench --mode serve    # pool 8, beam 4
@@ -55,8 +58,27 @@ the early stop over max(``--chunks``, 40) chunks, timed from chunk 32 on
 (the 28.8 s steady state).  The value is the mean chunk wall over 0.96 s,
 ``vs_baseline`` the best reference StreamAtt RTF on an L40S (0.67) over
 it, with the median and p95; each chunk's wall, beam steps and prompt
-bucket go to stderr.  The training modes, the speculative decoders and
-pooled sampling are not ported yet.
+bucket go to stderr.
+
+``--speculative`` (``bench.py:163-262``, ``:438-490``) runs the stream by
+speculative greedy (``--spec-beam``: speculative beam 4; ``--do-sample``:
+speculative sampling) with a draft of ``--spec-draft-layers`` (8) layers
+and ``--spec-k`` (4) tokens a round, the acceptance guard on unless
+``--spec-no-guard``; ``--spec-accept-all`` accepts every draft token (the
+machinery's ceiling), ``--spec-head-vocab N`` gives the draft a shortlist
+head, ``--spec-lowrank-rank r`` and ``--spec-adapter-rank r`` random
+low-rank head factors and a random exit adapter (made on the card), and
+``--spec-resid-scale a`` scales the output projections (``wo``,
+``w_down``) of the layers above the draft by a (0 makes them identities,
+so the draft agrees with the target through the real verify).  The JSON
+line adds ``accept_rate``, ``rounds``, ``emitted``, ``guard_fallback``,
+``fallback_warmed`` (always false: eager PyTorch has no fallback graph to
+compile ahead) and ``breakeven_tokens_per_round``.  ``--do-sample`` alone
+runs the plain sampler (``--temperature``, ``--top-k``).  In serve mode
+``--speculative`` runs the pool by speculative greedy at beam 1
+(``--do-sample``: speculative sampling).  Every mode also prints the
+model's forward passes by function and depth (``model forwards``) beside
+the kernel launches.  The training modes are not ported.
 """
 
 from __future__ import annotations
@@ -110,7 +132,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--churn", action="store_true")
     # --mode alignatt
     p.add_argument("--early-stop", action="store_true")
+    # the speculative stack and sampling (stream and serve modes)
     p.add_argument("--speculative", action="store_true")
+    p.add_argument("--spec-draft-layers", type=int, default=8)
+    p.add_argument("--spec-k", type=int, default=4)
+    p.add_argument("--spec-accept-all", action="store_true")
+    p.add_argument("--spec-head-vocab", type=int, default=0)
+    p.add_argument("--spec-beam", action="store_true")
+    p.add_argument("--spec-no-guard", action="store_true")
+    p.add_argument("--spec-lowrank-rank", type=int, default=0)
+    p.add_argument("--spec-resid-scale", type=float, default=None)
+    p.add_argument("--spec-adapter-rank", type=int, default=0)
+    p.add_argument("--do-sample", action="store_true")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -136,6 +171,37 @@ def serve_multipliers(args):
     return tuple(int(x) for x in args.multipliers.split(","))
 
 
+def spec_tag(args) -> str:
+    """The decode part of a speculative stream's metric
+    (``bench.py:459-477``)."""
+    return ("spec" + ("_beam4" if args.spec_beam else "")
+            + ("_sample" if args.do_sample else "")
+            + ("_acceptall" if args.spec_accept_all else "")
+            + f"_d{args.spec_draft_layers}k{args.spec_k}"
+            + (f"_hv{args.spec_head_vocab // 1000}k"
+               if args.spec_head_vocab else "")
+            + (f"_lr{args.spec_lowrank_rank}" if args.spec_lowrank_rank
+               else "")
+            + (f"_ada{args.spec_adapter_rank}" if args.spec_adapter_rank
+               else "")
+            + (f"_ra{args.spec_resid_scale:g}"
+               if args.spec_resid_scale is not None else ""))
+
+
+def serve_decode_tag(args, mixed: bool) -> str:
+    """The decode part of a serve metric (``bench.py:662-670``,
+    ``:732-738``)."""
+    if not args.speculative:
+        return f"beam{args.beam}"
+    return (f"spec{'S' if args.do_sample else ''}"
+            f"{'AA' if args.spec_accept_all else ''}"
+            f"d{args.spec_draft_layers}k{args.spec_k}"
+            + (f"hv{args.spec_head_vocab // 1000}k" if args.spec_head_vocab
+               else "")
+            + (f"ra{args.spec_resid_scale:g}"
+               if mixed and args.spec_resid_scale is not None else ""))
+
+
 def metric_name(args) -> str:
     if args.mode == "alignatt":  # bench.py:918-920
         return ("alignatt_rtf_beam4_"
@@ -145,8 +211,9 @@ def metric_name(args) -> str:
     if args.mode == "serve":
         # bench.py:701-706 (mixed pool) and :761-763
         tag = "8b_int8" if args.model == "8b" else "1chip"
-        head = f"serve_decode_tok_per_s_pool{args.pool}_beam{args.beam}_"
         mults = serve_multipliers(args)
+        head = (f"serve_decode_tok_per_s_pool{args.pool}_"
+                f"{serve_decode_tag(args, bool(mults))}_")
         if mults:
             return head + f"mixedm{'x'.join(map(str, mults))}_{tag}"
         return (head + f"m{args.multiplier}"
@@ -156,7 +223,10 @@ def metric_name(args) -> str:
         return f"streaming_rtf_m{args.multiplier}_beam4_{tag}_multistream"
     if args.schedule is not None:
         return "streaming_rtf_mswitch_beam4_" + tag
-    return f"streaming_rtf_m{args.multiplier}_beam4_{tag}"
+    if args.speculative:
+        return f"streaming_rtf_m{args.multiplier}_{spec_tag(args)}_{tag}"
+    dec = "sample" if args.do_sample else "beam4"
+    return f"streaming_rtf_m{args.multiplier}_{dec}_{tag}"
 
 
 def flagship_params(device, act_int8=True, speech=None, group_size=0,
@@ -214,12 +284,73 @@ def build_agent(args):
         quantize = args.quantize
     stream = StreamConfig()
     builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    spec_kw = {}
+    if args.speculative:
+        spec_kw, params = spec_options(args, cfg, params, dev)
+    if args.do_sample:
+        spec_kw.update(do_sample=True, temperature=args.temperature,
+                       top_k=args.top_k)
     opts = InfiniSSTOptions(
         latency_multiplier=args.multiplier, beam=4,
         max_llm_cache_size=stream.max_llm_cache_tokens, quantize=quantize,
+        **spec_kw,
     )
     return InfiniSSTAgent(params, cfg, stream, builder, opts,
                           param_dtype=torch.bfloat16, device=dev)
+
+
+def scale_residuals(params, d_cut: int, alpha: float):
+    """``--spec-resid-scale``: the output projections (``wo``,
+    ``w_down``) of every layer from ``d_cut`` on scaled by ``alpha`` (on
+    the int8 leaves, their scales), so at 0 those layers add nothing."""
+    lyr = dict(params["llama"]["layers"])
+    for key in ("wo", "w_down"):
+        w = lyr[key]
+        if isinstance(w, dict):
+            w = dict(w)
+            skey = "scale_a8" if "scale_a8" in w else "scale"
+            w[skey] = w[skey].clone()
+            w[skey][d_cut:] *= alpha
+        else:
+            w = w.clone()
+            w[d_cut:] *= alpha
+        lyr[key] = w
+    return dict(params, llama=dict(params["llama"], layers=lyr))
+
+
+def spec_options(args, cfg, params, dev):
+    """The stream's speculative options (``bench.py:170-262``) and its
+    parameters (scaled by ``--spec-resid-scale``): random low-rank head
+    factors and a random exit adapter, made on the card from seeded
+    generators (their values move only the acceptance, near 0 with
+    random weights either way)."""
+    kw = dict(speculative=True, spec_draft_layers=args.spec_draft_layers,
+              spec_k=args.spec_k, spec_accept_all=args.spec_accept_all,
+              spec_head_vocab=args.spec_head_vocab, spec_beam=args.spec_beam,
+              spec_guard=not args.spec_no_guard)
+    D, V = cfg.llama.hidden_size, cfg.llama.vocab_size
+    bf16 = torch.bfloat16
+    if args.spec_lowrank_rank:
+        r = args.spec_lowrank_rank
+        g = torch.Generator(device=dev).manual_seed(11)
+        kw["spec_lowrank_head"] = {
+            "a": (torch.randn((D, r), generator=g, device=dev)
+                  / D ** 0.5).to(bf16),
+            "b": (torch.randn((r, V), generator=g, device=dev)
+                  / r ** 0.5).to(bf16)}
+    if args.spec_resid_scale is not None:
+        params = scale_residuals(params, args.spec_draft_layers,
+                                 args.spec_resid_scale)
+    if args.spec_adapter_rank:
+        r = args.spec_adapter_rank
+        g = torch.Generator(device=dev).manual_seed(7)
+        kw["spec_adapter"] = {
+            "ln": torch.ones((D,), dtype=bf16, device=dev),
+            "w1": (torch.randn((D, r), generator=g, device=dev)
+                   * 0.02).to(bf16),
+            "w2": (torch.randn((r, D), generator=g, device=dev)
+                   * 0.02).to(bf16)}
+    return kw, params
 
 
 def _sync(agent):
@@ -304,6 +435,22 @@ def summarize(run: dict, multiplier: int, metric: str,
     return result
 
 
+def spec_fields(agent) -> dict:
+    """A speculative stream's fields of the JSON line
+    (``bench.py:479-495``)."""
+    acc = (agent.spec_accepted / agent.spec_drafted if agent.spec_drafted
+           else 0.0)
+    be = agent._spec_breakeven
+    return {
+        "accept_rate": round(acc, 4),
+        "rounds": agent.spec_rounds,
+        "emitted": agent.spec_emitted,
+        "guard_fallback": bool(agent.spec_fallback_active),
+        "fallback_warmed": False,  # eager PyTorch: nothing compiled ahead
+        "breakeven_tokens_per_round": None if be is None else round(be, 3),
+    }
+
+
 def summarize_schedule(run: dict, metric: str) -> dict:
     """The ``--schedule`` line: the median of the per-chunk RTFs (the first
     chunk at a new multiplier is reported on stderr, not trimmed)."""
@@ -349,10 +496,24 @@ def build_engine(args):
         params = random_params(cfg, dev, torch.bfloat16)
     builders = {("English", "German"): PromptBuilder(
         StubTokenizer(cfg.llama.vocab_size), cfg.tokens)}
+    spec = dict(do_sample=args.do_sample)  # pooled sampling needs
+    # --speculative: the engine refuses it alone, as the JAX engine does
+    if args.speculative:
+        if args.spec_resid_scale is not None:
+            params = scale_residuals(params, args.spec_draft_layers,
+                                     args.spec_resid_scale)
+        spec = dict(speculative=True,
+                    spec_draft_layers=args.spec_draft_layers,
+                    spec_k=args.spec_k, spec_guard=not args.spec_no_guard,
+                    spec_accept_all=args.spec_accept_all,
+                    spec_head_vocab=args.spec_head_vocab,
+                    do_sample=args.do_sample, temperature=args.temperature,
+                    top_k=args.top_k)
     return ServingEngine(
         params, cfg, StreamConfig(), builders, pool_size=args.pool,
-        multiplier=args.multiplier, dtype=torch.bfloat16, beam=args.beam,
-        multipliers=serve_multipliers(args), device=dev,
+        multiplier=args.multiplier, dtype=torch.bfloat16,
+        beam=1 if args.speculative else args.beam,
+        multipliers=serve_multipliers(args), device=dev, **spec,
     )
 
 
@@ -434,8 +595,10 @@ def tail_fields(slot_lat) -> dict:
     }
 
 
-def summarize_serve(run: dict, metric: str, mixed: bool) -> dict:
-    """The serve mode's JSON line (``bench.py:707-724``, ``:760-787``)."""
+def summarize_serve(run: dict, metric: str, mixed: bool,
+                    eng=None) -> dict:
+    """The serve mode's JSON line (``bench.py:707-724``, ``:760-787``),
+    with a speculative ``eng``'s acceptance and guard fields."""
     rate = run["tokens"] / run["wall"]
     result = {
         "metric": metric,
@@ -443,6 +606,12 @@ def summarize_serve(run: dict, metric: str, mixed: bool) -> dict:
         "unit": "tok/s/chip",
         "vs_baseline": round(rate / SERVE_TARGET_TOK_S, 3),
     }
+    if eng is not None and eng.speculative:
+        st = eng.spec_stats
+        result["accept_rate"] = round(
+            st["accepted"] / max(st["drafted"], 1), 4)
+        result["guard_fallback"] = bool(eng.spec_fallback_active)
+        result["fallback_warmed"] = False
     if mixed:
         result["evictions"] = run["evictions"]
     elif run["churn_tick"] is not None:
@@ -459,9 +628,13 @@ def summarize_serve(run: dict, metric: str, mixed: bool) -> dict:
 
 
 def launch_report(log):
-    """The kernel launches of the run so far, on ``log``."""
+    """The kernel launches of the run so far, on ``log``, and the model's
+    forward passes by function and depth."""
     from infinisst_tpu_torch.kernels import decode_attention, quant_matmul
+    from infinisst_tpu_torch.models import llama
 
+    print("model forwards " + json.dumps(llama.forward_counts), file=log,
+          flush=True)
     counts = dict(quant_matmul.launch_counts)
     counts.update(decode_attention.launch_counts)
     print("kernel launches " + json.dumps(counts), file=log, flush=True)
@@ -478,7 +651,7 @@ def main_serve(args) -> dict:
           file=sys.stderr, flush=True)
     run = run_serve(eng, args.chunks, multipliers=mults, churn=args.churn,
                     log=sys.stderr)
-    result = summarize_serve(run, metric, mixed=bool(mults))
+    result = summarize_serve(run, metric, mixed=bool(mults), eng=eng)
     w = np.asarray(run["tick_walls"]) * 1e3
     print(f"{'MIXED ' if mults else ''}pool={eng.pool} ticks={run['n_ticks']} "
           f"wall={run['wall']:.2f}s tokens={run['tokens']} per-stream "
@@ -486,6 +659,8 @@ def main_serve(args) -> dict:
           f"ms max={w.max():.1f}ms evictions={eng.evictions} "
           f"device={eng.device}", file=sys.stderr)
     print("engine forwards " + json.dumps(eng.forwards), file=sys.stderr)
+    if eng.speculative:
+        print(f"spec: {json.dumps(eng.spec_stats)}", file=sys.stderr)
     launch_report(sys.stderr)
     print(json.dumps(result), flush=True)
     return result
@@ -606,12 +781,9 @@ def main_offline(args) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mode in UNPORTED_MODES or args.speculative:
-        what = (f"--mode {args.mode}" if not args.speculative
-                else "--speculative")
-        item = 12 if args.speculative else 13
-        print(f"{what} is not ported yet (ROADMAP item {item}): the port's "
-              "bench runs the plain streaming, serve, alignatt and "
+    if args.mode in UNPORTED_MODES:
+        print(f"--mode {args.mode} is not ported yet (ROADMAP item 13): the "
+              "port's bench runs the streaming, serve, alignatt and "
               "streamatt modes", file=sys.stderr)
         sys.exit(2)
     from infinisst_tpu_torch.core.device import resolve_device
@@ -661,6 +833,11 @@ def main(argv=None) -> dict:
                   f"RTFs={[round(r, 3) for r in run['rtfs']]}", file=log)
         else:
             result = summarize(run, args.multiplier, metric, chunk_sec)
+            if args.speculative:
+                result.update(spec_fields(agent))
+                print(f"spec: rounds={agent.spec_rounds} drafted="
+                      f"{agent.spec_drafted} accepted={agent.spec_accepted} "
+                      f"emitted={agent.spec_emitted}", file=log)
             t = run["times"]
             print(f"chunks={len(t)} mean={np.mean(t) * 1e3:.1f}ms "
                   f"p50={np.percentile(t, 50) * 1e3:.1f}ms "

@@ -350,3 +350,79 @@ def batched_beam_search(
             kv_k=kv_k, kv_v=kv_v,
         ))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sampling decode (the do_sample path)
+
+
+class SampleSpec(NamedTuple):
+    max_new_tokens: int
+    eos_id: int
+    pad_id: int
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0
+    epsilon_cutoff: float = 0.0
+    no_repeat_ngram_size: int = 0
+    repetition_penalty: float = 1.0
+
+
+def sample_decode(
+    params,
+    cfg: LlamaConfig,
+    prefix: DecoderState,  # batch 1: the cache after the chunk prefill
+    first_logits: torch.Tensor,  # (V,)
+    prompt_buf: torch.Tensor,  # (Tp,)
+    prompt_len: int,
+    history: torch.Tensor,  # (Lh,)
+    history_len: int,
+    spec: SampleSpec,
+    generator: torch.Generator,
+    encoder_ngram_size: int = 0,
+    suppress_mask: Optional[torch.Tensor] = None,
+) -> BeamResult:
+    """Single-sequence ancestral sampling (port of the JAX
+    ``sample_decode``): each step draws from the processed scores
+    (``logits.sample_scores``: temperature, the beam path's processors,
+    top-k, top-p, epsilon) with ``generator``, and forwards the drawn
+    token through ``beam_token_step`` at beam 1 over the shared prefix.
+    Stops at EOS (not emitted) or after max_new_tokens draws; the last
+    draw is not forwarded."""
+    G = spec.max_new_tokens
+    dev = first_logits.device
+    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    i64 = dict(dtype=torch.int64, device=dev)
+    seq_buf = torch.cat([prompt_buf.to(**i64),
+                         torch.full((G,), spec.pad_id, **i64)])[None]
+    seq_len = int(prompt_len)
+    hist = history.to(**i64)[None]
+    hist_len = torch.tensor([int(history_len)], **i64)
+    gen_k = torch.zeros((L, 1, G, KV, Dh), dtype=prefix.k.dtype, device=dev)
+    gen_v = torch.zeros_like(gen_k)
+    tokens = [spec.pad_id] * G
+    n_tok, hit_eos, t = 0, False, 0
+    logits_cur = first_logits[None]
+    while t < G:
+        scores = lp.sample_scores(
+            logits_cur, seq_buf, torch.tensor([seq_len], **i64), spec, hist,
+            hist_len, encoder_ngram_size, suppress_mask,
+        )
+        nxt = lp.categorical(scores, generator)  # (1,)
+        tok = int(nxt[0])
+        if tok == spec.eos_id:
+            hit_eos = True
+            t += 1
+            break
+        tokens[t] = tok
+        seq_buf[0, seq_len] = tok
+        seq_len += 1
+        n_tok += 1
+        if t + 1 < G:
+            logits_cur, gen_k, gen_v, _ = llama_mod.beam_token_step(
+                params, cfg, prefix, gen_k, gen_v, t,
+                llama_mod.embed(params, nxt[:, None]),
+            )
+        t += 1
+    return BeamResult(tokens=tokens, n_tokens=n_tok, score=0.0, steps=t,
+                      hit_eos=hit_eos, attn_idx=[-1] * G)

@@ -107,3 +107,86 @@ def process_scores(scores, seq_buf, seq_len, penalty: float,
     if suppress_mask is not None:
         scores = suppress_tokens(scores, suppress_mask)
     return scores
+
+
+# ---------------------------------------------------------------------------
+# The sampling filters (HF order: temperature -> top-k -> top-p -> epsilon)
+
+
+def temperature_scale(logits, temperature: float):
+    return logits / max(temperature, 1e-6)
+
+
+def top_k_filter(logits, k: int):
+    """Keep every score >= the k-th largest (ties at the k-th all stay)."""
+    if k <= 0:
+        return logits
+    k = min(k, logits.shape[-1])  # HF clamps k to the vocabulary
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+
+
+def top_p_filter(logits, p: float):
+    """Keep the smallest prefix of the descending scores whose mass
+    reaches p, the token that crosses p included (and always the top
+    one); ties at the threshold all stay."""
+    if p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    cutoff = cum - probs > p
+    inf = torch.full_like(sorted_logits, float("inf"))
+    threshold = torch.where(cutoff, inf, sorted_logits).amin(
+        dim=-1, keepdim=True)
+    return torch.where(logits < threshold, torch.full_like(logits, NEG_INF),
+                       logits)
+
+
+def epsilon_filter(logits, eps: float):
+    """Drop tokens whose probability is below eps; the top-1 token (the
+    first maximum) always stays."""
+    if eps <= 0.0:
+        return logits
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.arange(logits.shape[-1], device=logits.device) == \
+        torch.argmax(logits, dim=-1, keepdim=True)
+    return torch.where((probs < eps) & ~top1,
+                       torch.full_like(logits, NEG_INF), logits)
+
+
+def sample_scores(logits, seq_buf, seq_len, spec, history, history_len,
+                  encoder_ngram_size: int, suppress_mask=None):
+    """The sampling decoders' processors on (B, V) raw logits, in the
+    order of the JAX ``sample_decode``: temperature, log-softmax, the
+    beam path's processors (``process_scores``), then top-k, top-p and
+    epsilon.  ``spec`` carries temperature, top_k, top_p,
+    epsilon_cutoff, repetition_penalty and no_repeat_ngram_size."""
+    scores = torch.log_softmax(
+        temperature_scale(logits.to(torch.float32), spec.temperature), -1)
+    scores = process_scores(
+        scores, seq_buf, seq_len, spec.repetition_penalty,
+        spec.no_repeat_ngram_size, history, history_len, encoder_ngram_size,
+        suppress_mask,
+    )
+    scores = top_k_filter(scores, spec.top_k)
+    scores = top_p_filter(scores, spec.top_p)
+    return epsilon_filter(scores, spec.epsilon_cutoff)
+
+
+def categorical(scores, generator):
+    """One draw per row from softmax(scores) (B, V) by the Gumbel-max
+    trick, with noise from ``generator`` (on the scores' device);
+    -inf and NEG_INF scores are never drawn next to a finite one."""
+    u = torch.rand(scores.shape, generator=generator, device=scores.device,
+                   dtype=torch.float32)
+    return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
+
+
+def chunk_generator(seed: int, index: int, device) -> torch.Generator:
+    """The draws of chunk (or tick) ``index`` of a stream seeded with
+    ``seed``: a generator on ``device`` seeded from the pair, fresh for
+    every index and the same for the same pair."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 1_000_003 + int(index)) % (2 ** 63))
+    return g

@@ -15,6 +15,11 @@ Projections and the lm_head go through ``quant.mm``; q/k/v and gate/up,
 which share their input, through ``quant.mm_many``, which quantizes that
 input once (4 activation quantizations per layer, not 7).
 
+For the speculative decoders: a draft's parameters may carry an
+``exit_adapter`` (``apply_exit_adapter``, before ``final_ln``), and
+``beam_tree_step`` verifies a drafted beam tree in one forward (its
+prefix block through ``decode_attention``).
+
 Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
   embed (V, D); layers: input_ln, post_ln (L, D), wq (L, D, H*Dh),
   wk/wv (L, D, KV*Dh), wo (L, H*Dh, D), w_gate/w_up (L, D, I),
@@ -40,11 +45,41 @@ from infinisst_tpu_torch.streaming.state import DecoderState
 
 Params = Dict[str, Any]
 
+# forward passes by function and depth, e.g. "decode_step L=32": the bench
+# reports them, so that each kernel's launches can be held to the forwards
+# that made them
+forward_counts: Dict[str, int] = {}
+
+
+def _count_forward(fn: str, num_layers: int):
+    key = f"{fn} L={num_layers}"
+    forward_counts[key] = forward_counts.get(key, 0) + 1
+
 
 def _rms_norm(x, scale, eps):
     xf = x.to(torch.float32)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def apply_exit_adapter(adapter: Params, h: torch.Tensor, eps: float):
+    """The distilled early-exit adapter of the speculative draft (port of
+    the JAX ``apply_exit_adapter``): h + w2 silu(w1 rmsnorm(h)), on the
+    hidden state before ``final_ln``.  Its ``w2`` starts at zero, so an
+    untrained adapter is the identity.  {'ln': (D,), 'w1': (D, r),
+    'w2': (r, D)}."""
+    y = _rms_norm(h, adapter["ln"], eps)
+    y = torch.nn.functional.silu(mm(y, adapter["w1"]))
+    return h + mm(y, adapter["w2"]).to(h.dtype)
+
+
+def _final_logits(params: Params, cfg: LlamaConfig, h):
+    """The exit adapter (only on a draft's parameters, which carry
+    ``exit_adapter``), ``final_ln`` and the lm_head."""
+    if "exit_adapter" in params:
+        h = apply_exit_adapter(params["exit_adapter"], h, cfg.rms_norm_eps)
+    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
+    return mm(h, params["lm_head"])
 
 
 def rope_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
@@ -123,6 +158,7 @@ def decode_step(
     starts = torch.clamp(vlen, max=C - S).tolist()
     probe_layer = None if attn_probe is None else \
         attn_probe[0] % cfg.num_layers
+    _count_forward("decode_step", cfg.num_layers)
 
     h = x_embed
     for li in range(cfg.num_layers):
@@ -159,8 +195,7 @@ def decode_step(
             state.k[li, b, st : st + S] = k_new[b].to(state.k.dtype)
             state.v[li, b, st : st + S] = v_new[b].to(state.v.dtype)
 
-    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    logits = mm(h, params["lm_head"])[..., : cfg.vocab_size]
+    logits = _final_logits(params, cfg, h)[..., : cfg.vocab_size]
     n_append = (
         valid_mask.sum(-1).to(torch.int64) if valid_mask is not None
         else torch.full((B,), S, dtype=torch.int64, device=dev)
@@ -242,6 +277,7 @@ def beam_token_step(
     probe_layer = None if attn_probe is None else \
         attn_probe[0] % cfg.num_layers
     attn_idx = None
+    _count_forward("beam_token_step", cfg.num_layers)
 
     h = x_embed
     for li in range(cfg.num_layers):
@@ -271,11 +307,94 @@ def beam_token_step(
         h = h + mm(attn.reshape(rows, 1, H * Dh), lp["wo"])
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
-    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    logits = mm(h, params["lm_head"])[:, 0, : cfg.vocab_size]
+    logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]
     if attn_idx is None:
         attn_idx = torch.full((rows,), -1, dtype=torch.int64, device=dev)
     return logits, gen_k, gen_v, attn_idx
+
+
+def beam_tree_step(
+    params: Params,
+    cfg: LlamaConfig,
+    prefix: DecoderState,  # one cache (L, 1, C, KV, Dh), valid_len (1,)
+    gen_k: torch.Tensor,  # (L, B, Gb, KV, Dh) committed per-beam keys
+    gen_v: torch.Tensor,
+    gen_len: int,  # committed tokens per beam
+    x_embed: torch.Tensor,  # (N, D) tree-node embeddings
+    node_pos: torch.Tensor,  # (N,) gen_len + level of each node
+    tree_bias: torch.Tensor,  # (N, N) additive: 0 on a node's ancestors
+    root: torch.Tensor,  # (N,) committed beam each node extends
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward over a drafted beam tree of N (beam, level) nodes in
+    one weight stream (the speculative beam decoder's verify; port of the
+    JAX ``beam_tree_step``).  A node attends over three blocks, merged
+    into one softmax: the shared prefix through ``decode_attention`` (N
+    query rows against the one cache, with its log-sum-exp), and, as
+    plain float32 with their own log-sum-exp, the committed per-beam
+    buffer of the node's root (keys j < gen_len at prefix length + j)
+    and the tree itself under ``tree_bias`` (each node's key at its own
+    position).  Keys are unrotated, so a node's K/V can be committed by
+    copy.  Returns (logits (N, V), k_tree (L, N, KV, Dh), v_tree)."""
+    N, D = x_embed.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Gq = H // KV
+    dev = x_embed.device
+    f32 = torch.float32
+    inv_freq = rope_inv_freq(cfg, dev)
+    plen = prefix.valid_len.to(device=dev, dtype=torch.int32)  # (1,)
+    Gb = gen_k.shape[2]
+    q_pos = (plen.to(torch.int64) + node_pos.to(dev)).to(torch.int32)
+    root = root.to(device=dev, dtype=torch.int64)
+    g_pos = plen.to(torch.int64) + torch.arange(Gb, device=dev)
+    bias_g = torch.where(torch.arange(Gb, device=dev) < gen_len, 0.0,
+                         M.NEG_INF).to(f32)
+    bias_t = tree_bias.to(device=dev, dtype=f32)
+    scale = 1.0 / math.sqrt(Dh)
+    ks, vs = [], []
+    _count_forward("beam_tree_step", cfg.num_layers)
+
+    h = x_embed[:, None]
+    for li in range(cfg.num_layers):
+        lp = layer_params(params["layers"], li)
+        y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        q = q.reshape(N, H, Dh)
+        k_new = k_new.reshape(N, KV, Dh)
+        v_new = v_new.reshape(N, KV, Dh)
+        ks.append(k_new)
+        vs.append(v_new)
+        o_p, lse_p = decode_attention(
+            q, prefix.k[li], prefix.v[li], plen, q_pos, inv_freq,
+            return_lse=True,
+        )
+        # the per-beam block by root and the tree block, in float32
+        qr = R.apply_llama_rope(
+            q.to(f32)[:, :, None], q_pos.to(torch.int64)[:, None, None],
+            inv_freq,
+        )[:, :, 0].reshape(N, KV, Gq, Dh)
+        gk = gen_k[li][root].transpose(1, 2).to(f32)  # (N, KV, Gb, Dh)
+        gv = gen_v[li][root].transpose(1, 2).to(f32)
+        kr_g = R.apply_llama_rope(gk, g_pos[None, None], inv_freq)
+        kr_t = R.apply_llama_rope(
+            k_new.to(f32).transpose(0, 1),
+            q_pos.to(torch.int64)[None], inv_freq,
+        )  # (KV, N, Dh)
+        s_g = torch.einsum("nkgd,nktd->nkgt", qr, kr_g) * scale + bias_g
+        s_t = torch.einsum("nkgd,kmd->nkgm", qr, kr_t) * scale + \
+            bias_t[:, None, None, :]
+        s = torch.cat([s_g, s_t], dim=-1)
+        lse = torch.logsumexp(s, dim=-1)
+        w = torch.softmax(s, dim=-1)
+        o = (torch.einsum("nkgt,nktd->nkgd", w[..., :Gb], gv)
+             + torch.einsum("nkgm,kmd->nkgd", w[..., Gb:],
+                            v_new.to(f32).transpose(0, 1)))
+        attn = merge_blocks(o_p, lse_p, o.reshape(N, H, Dh),
+                            lse.reshape(N, H))
+        h = h + mm(attn.reshape(N, 1, H * Dh), lp["wo"])
+        h = _mlp(h, lp, cfg.rms_norm_eps)
+
+    logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]
+    return logits, torch.stack(ks), torch.stack(vs)
 
 
 def evict_cache(

@@ -1,5 +1,5 @@
-"""Batched multi-client streaming engine; port of the plain (beam and
-greedy) paths of ``infinisst_tpu/serve/engine.py``.
+"""Batched multi-client streaming engine; port of
+``infinisst_tpu/serve/engine.py``.
 
 A fixed pool of stream slots shares one batched step per tick:
 
@@ -11,6 +11,16 @@ A fixed pool of stream slots shares one batched step per tick:
   pool * beam rows, so one weight stream serves every slot and beam, and
   the winners are committed by copying their K/V, computed inside the
   beam loop, into the cache;
+- or, with ``speculative``, pooled speculative greedy (greedy-exact, beam
+  1) or, with ``do_sample`` too, speculative sampling (exact in
+  distribution per row; pooled sampling exists only so): one draft stream
+  and one verify stream a round for every slot
+  (``decode/speculative.py``), the emitted tokens' K/V committed in the
+  verify.  The pool-wide acceptance guard drops a greedy pool whose
+  tokens per verify round stay below the break-even to the plain
+  batched greedy (token-exact), a sampling pool to the d = L self-draft
+  (no draft head or adapter), as the JAX engine does.  A sampled tick
+  draws from a generator seeded from (``sample_seed``, tick index);
 - each slot's cache is trimmed as the single-stream agent trims it, with
   one gather over the whole pool, deferred to the next tick's step.
 
@@ -36,14 +46,15 @@ changes a slot (in the JAX engine a push during a tick could lose the
 samples it appended, and a close during a tick had its reset undone when
 the tick took its state).
 
-The speculative, pooled-sampling and acceptance-guard options of the JAX
-constructor are not ported (ROADMAP items 11 and 12): passing any of them
-raises ``NotImplementedError``.
+``spec_warm_fallback`` is accepted and does nothing: the JAX engine
+compiles its fallback step ahead in a thread, and eager PyTorch has
+nothing to compile.
 """
 
 from __future__ import annotations
 
 import functools
+import sys
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -61,6 +72,7 @@ from infinisst_tpu_torch.core.device import resolve_device
 from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
 from infinisst_tpu_torch.decode import logits as lp
+from infinisst_tpu_torch.decode import speculative as spec_mod
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
 from infinisst_tpu_torch.streaming.state import (
@@ -68,21 +80,6 @@ from infinisst_tpu_torch.streaming.state import (
     init_decoder_state,
     init_encoder_state,
 )
-
-# the JAX constructor's options that are not ported: name -> (the JAX
-# default, the ROADMAP item that ports it)
-UNPORTED_OPTIONS = {
-    "speculative": (False, 12), "spec_draft_layers": (8, 12),
-    "spec_k": (4, 12), "spec_accept_all": (False, 12),
-    "spec_head_vocab": (0, 12), "spec_head_ids": (None, 12),
-    "spec_adapter": (None, 12), "spec_lowrank_rank": (0, 12),
-    "spec_lowrank_head": (None, 12), "spec_guard": (True, 12),
-    "spec_guard_decay": (0.7, 12), "spec_guard_patience": (3, 12),
-    "spec_guard_margin": (1.0, 12), "spec_warm_fallback": (True, 12),
-    "do_sample": (False, 11), "temperature": (1.0, 11), "top_k": (0, 11),
-    "top_p": (1.0, 11), "epsilon_cutoff": (0.0, 11), "sample_seed": (0, 11),
-}
-
 
 def _locked(fn):
     @functools.wraps(fn)
@@ -126,18 +123,44 @@ class ServingEngine:
         suppress_tokens=None,  # ids to ban (--suppress-non-language)
         multipliers: Optional[tuple] = None,  # allowed per-slot multipliers
         device="cuda",
-        **unported,
+        speculative: bool = False,  # pooled speculative greedy (beam 1)
+        spec_draft_layers: int = 8,
+        spec_k: int = 4,
+        spec_accept_all: bool = False,  # bench only: the ceiling
+        spec_head_vocab: int = 0,  # a shortlist draft head (0: full)
+        spec_head_ids=None,  # its ids (None: the id prefix)
+        spec_adapter: Optional[dict] = None,  # an exit adapter, draft only
+        spec_lowrank_rank: int = 0,  # low-rank draft head by SVD
+        spec_lowrank_head: Optional[dict] = None,  # or given {'a', 'b'}
+        do_sample: bool = False,  # pooled speculative sampling
+        temperature: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        epsilon_cutoff: float = 0.0,
+        sample_seed: int = 0,
+        spec_guard: bool = True,  # the pool-wide acceptance guard
+        spec_guard_decay: float = 0.7,
+        spec_guard_patience: int = 3,
+        spec_guard_margin: float = 1.0,
+        spec_warm_fallback: bool = True,  # accepted, nothing to warm
     ):
-        for name, value in unported.items():
-            if name not in UNPORTED_OPTIONS:
-                raise TypeError(f"ServingEngine: unknown option {name!r}")
-            default, item = UNPORTED_OPTIONS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported to PyTorch yet "
-                    f"(ROADMAP item {item})"
-                )
+        if do_sample and not speculative:
+            raise ValueError(
+                "pooled sampling is implemented as speculative sampling: "
+                "pass speculative=True (the rejection scheme makes it "
+                "exact in distribution at any draft quality)")
+        if do_sample and spec_accept_all:
+            raise ValueError("--spec-accept-all is a greedy bench mode; it "
+                             "has no sampling counterpart")
+        if speculative and beam != 1:
+            raise ValueError("speculative serving is greedy-exact; it "
+                             "requires beam=1")
         self.device = resolve_device(device)
+        if speculative:
+            params = spec_mod.with_draft_params(
+                params, cfg, dtype, self.device, head_vocab=spec_head_vocab,
+                head_ids=spec_head_ids, lowrank_rank=spec_lowrank_rank,
+                lowrank_head=spec_lowrank_head, adapter=spec_adapter)
         self._lock = threading.RLock()
         self.params = params
         self.cfg = cfg
@@ -154,6 +177,31 @@ class ServingEngine:
         self.m_max = m_max
         self.max_new = max_new_tokens or stream_cfg.max_new_tokens(m_max)
         self.beam = beam
+        self.speculative = speculative
+        self.spec_draft_layers = spec_draft_layers
+        self.spec_k = spec_k
+        self.spec_accept_all = spec_accept_all
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0,
+                           "emitted": 0}
+        self.spec_guard_decay = spec_guard_decay
+        self.spec_guard_patience = spec_guard_patience
+        self.spec_guard_margin = spec_guard_margin
+        self._spec_breakeven = None
+        if speculative and spec_guard and not spec_accept_all:
+            self._spec_breakeven = spec_mod.breakeven_tokens_per_round(
+                params["llama"], cfg.llama.num_layers, spec_draft_layers,
+                spec_k, draft_head=params.get("spec_draft_head"),
+                exit_adapter=params.get("spec_adapter"))
+        self._spec_tpr_ema = None
+        self._spec_below = 0
+        self._spec_fallback = False
+        self.do_sample = do_sample
+        self.sample = dict(temperature=temperature, top_k=top_k,
+                           top_p=top_p, epsilon_cutoff=epsilon_cutoff)
+        self.sample_seed = sample_seed
+        self._tick_counter = 0
+        self._step_stats = None  # a speculative step's (rounds, drafted,
+        # accepted, emitted)
 
         # padded per-tick geometry (a row at m < m_max carries fewer real
         # frames; a row sitting the tick out carries none)
@@ -182,8 +230,9 @@ class ServingEngine:
         # cumulative count of per-slot cache trims
         self.evictions = 0
         # decoder forwards over the pool: one prefill a tick, then one a
-        # generated token (beam_token_step, or a greedy decode_step)
-        self.forwards = {"prefill": 0, "token": 0}
+        # generated token (beam_token_step, or a greedy decode_step), or
+        # the speculative rounds' draft and verify forwards
+        self.forwards = {"prefill": 0, "token": 0, "draft": 0, "verify": 0}
         # deferred batched trim (keep (P,), sys (P,)), applied at the start
         # of the next tick's step
         self._pending_evict = None
@@ -254,11 +303,19 @@ class ServingEngine:
         s.finished_input = s.finished_input or finished
 
     # -- batched step ------------------------------------------------------
+    @property
+    def spec_fallback_active(self) -> bool:
+        """True once the acceptance guard swapped the pool to its
+        plain-cost step."""
+        return self._spec_fallback
+
     def _step(self, chunks, ids, valid, patch_starts, row_active, hist,
-              hist_len, row_frames, row_patches, row_max_new, ev):
+              hist_len, row_frames, row_patches, row_max_new, ev,
+              generator=None):
         """One tick on the device.  Works on its own copies of the state
         and returns (enc, dec, windows, tokens (P, max_new) np, n (P,) np,
-        token forwards) for the caller to take."""
+        token forwards) for the caller to take; a speculative step leaves
+        its statistics in ``_step_stats``."""
         cfg, stream, dev = self.cfg, self.stream, self.device
         params = self.params
         B, S = ids.shape
@@ -308,6 +365,11 @@ class ServingEngine:
         G, pad = self.max_new, cfg.tokens.pad
         toks = np.full((B, G), pad, np.int64)
 
+        if self.speculative and not (self._spec_fallback
+                                     and not self.do_sample):
+            return self._spec_step(enc, dec, windows, last, ids_t,
+                                   prompt_lens, hist_t, hist_len, row_active,
+                                   row_max_new, generator)
         if self.beam > 1:
             spec = beam_mod.BeamSpec(
                 beam=self.beam, max_new_tokens=G, eos_id=cfg.tokens.eos,
@@ -384,6 +446,75 @@ class ServingEngine:
             cur = lg[:, 0]
         return enc, dec, windows, toks, n_tok, n_fwd
 
+    def _spec_step(self, enc, dec, windows, last, ids_t, prompt_lens, hist_t,
+                   hist_len, row_active, row_max_new, generator):
+        """The pooled speculative decode of a tick: greedy, or sampling
+        (after a guard trip, the d = L self-draft with no draft head or
+        adapter)."""
+        cfg, stream = self.cfg, self.stream
+        fallback = self._spec_fallback
+        params = self.params
+        common = dict(
+            max_new_tokens=self.max_new, eos_id=cfg.tokens.eos,
+            pad_id=cfg.tokens.pad,
+            draft_layers=(cfg.llama.num_layers if fallback
+                          else self.spec_draft_layers),
+            draft_k=self.spec_k,
+            no_repeat_ngram_size=stream.no_repeat_ngram_size,
+            repetition_penalty=stream.repetition_penalty)
+        kw = dict(
+            row_active=row_active, row_max_new=row_max_new,
+            encoder_ngram_size=stream.no_repeat_ngram_size,
+            suppress_mask=self._suppress,
+            draft_head=None if fallback else params.get("spec_draft_head"),
+            exit_adapter=None if fallback else params.get("spec_adapter"))
+        args = (params["llama"], cfg.llama, dec, last, ids_t, prompt_lens,
+                hist_t, hist_len)
+        if self.do_sample:
+            sp = spec_mod.SpecSampleSpec(**common, **self.sample)
+            out = spec_mod.batched_speculative_sample(*args, sp, generator,
+                                                      **kw)
+        else:
+            sp = spec_mod.SpecSpec(**common,
+                                   accept_all=self.spec_accept_all)
+            out = spec_mod.batched_speculative_greedy(*args, sp, **kw)
+        toks, n_tok, _, dec, rounds, drafted, accepted = out
+        n_tok = n_tok.cpu().numpy()
+        self._step_stats = (rounds, int(drafted.sum()), int(accepted.sum()),
+                            int(n_tok.sum()))
+        return enc, dec, windows, toks.cpu().numpy(), n_tok, 0
+
+    def _guard(self, stats):
+        """The speculative statistics of a tick and the pool-wide guard."""
+        rounds, drafted, accepted, emitted = stats
+        self.forwards["verify"] += rounds
+        self.forwards["draft"] += rounds * self.spec_k
+        if self._spec_fallback:
+            # the sampling pool's d = L self-draft: its machinery
+            # statistics describe the self-draft, only the emission counts
+            self.spec_stats["emitted"] += emitted
+            return
+        for key, v in zip(("rounds", "drafted", "accepted", "emitted"),
+                          stats):
+            self.spec_stats[key] += v
+        if self._spec_breakeven is None or rounds <= 0:
+            return
+        tpr = (accepted + rounds) / rounds
+        dc = self.spec_guard_decay
+        self._spec_tpr_ema = (tpr if self._spec_tpr_ema is None
+                              else dc * self._spec_tpr_ema + (1.0 - dc) * tpr)
+        if self._spec_tpr_ema < self._spec_breakeven * self.spec_guard_margin:
+            self._spec_below += 1
+        else:
+            self._spec_below = 0
+        if self._spec_below >= self.spec_guard_patience:
+            self._spec_fallback = True
+            print(f"[spec-guard] pool tokens/round EMA "
+                  f"{self._spec_tpr_ema:.2f} < break-even "
+                  f"{self._spec_breakeven:.2f} for {self._spec_below} "
+                  "ticks: swapping the pool to the plain-cost step",
+                  file=sys.stderr, flush=True)
+
     @_locked
     def tick(self) -> Dict[int, str]:
         """Process one chunk for every slot with enough pending audio.
@@ -450,15 +581,23 @@ class ServingEngine:
             patch_starts[i] = pr.patch_start
 
         self.last_ticked = tuple(i for i, _ in prompts)
+        gen = None
+        if self.do_sample:  # fresh draws a tick, the same per (seed, tick)
+            gen = lp.chunk_generator(self.sample_seed, self._tick_counter,
+                                     self.device)
+        self._tick_counter += 1
+        self._step_stats = None
         enc, dec, windows, toks, n_tok, n_fwd = self._step(
             chunks, ids, valid, patch_starts, row_active, hist, hist_len,
-            row_frames, row_patches, row_max_new, self._pending_evict,
+            row_frames, row_patches, row_max_new, self._pending_evict, gen,
         )
         # the step returned: take its state, and with it the trim it applied
         self.enc_state, self.dec_state, self.windows = enc, dec, windows
         self._pending_evict = None
         self.forwards["prefill"] += 1
         self.forwards["token"] += n_fwd
+        if self._step_stats is not None:
+            self._guard(self._step_stats)
 
         out: Dict[int, str] = {}
         for i, pr in prompts:

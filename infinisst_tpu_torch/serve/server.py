@@ -21,8 +21,10 @@ Run:  python -m infinisst_tpu_torch.serve.server --port 8765 \
           [--model-preset dryrun|bench|flagship] [--device cuda|cpu]
 Test client: python -m infinisst_tpu_torch.serve.client --wav x.wav
 
-The speculative and sampling flags of the JAX server are accepted and
-exit with the ROADMAP item that ports them.
+``--speculative`` (with ``--spec-*``) serves the pool by speculative
+greedy at beam 1, and with ``--do-sample`` (and its filters) by
+speculative sampling, as the JAX server does; the shortlist ids, the
+low-rank factors and the exit adapter go through the CLI's loaders.
 """
 
 from __future__ import annotations
@@ -140,7 +142,9 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--int8", action="store_true",
                    help="W8A8 int8 decode weights and lm_head")
     p.add_argument("--suppress-non-language", action="store_true")
-    # not ported: each exits with the ROADMAP item that ports it
+    # pooled speculative serving (greedy-exact, beam 1): a layer-skip
+    # draft and a k-token verify shared by the pool; --spec-head-vocab
+    # slices a shortlist draft head (--spec-head-ids: .npy of ranked ids)
     p.add_argument("--speculative", action="store_true")
     p.add_argument("--spec-draft-layers", type=int, default=8)
     p.add_argument("--spec-k", type=int, default=4)
@@ -152,6 +156,7 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--spec-no-guard", action="store_true")
     p.add_argument("--spec-guard-patience", type=int, default=3)
     p.add_argument("--spec-no-warm-fallback", action="store_true")
+    # pooled speculative sampling (needs --speculative)
     p.add_argument("--do-sample", action="store_true")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=0)
@@ -172,27 +177,6 @@ def add_args(p: argparse.ArgumentParser):
                    choices=("bfloat16", "float32"))
 
 
-# the JAX server's sampling flags (ROADMAP item 11)
-_SAMPLING = ("do_sample", "temperature", "top_k", "top_p", "epsilon_cutoff",
-             "sample_seed")
-
-
-def check_ported(args):
-    """Exit with a message for the flags whose paths are not ported."""
-    defaults = argparse.ArgumentParser()
-    add_args(defaults)
-    changed = [k for k, v in vars(args).items()
-               if v != defaults.get_default(k)]
-    spec = [k for k in changed if k == "speculative" or k.startswith("spec_")]
-    sample = [k for k in changed if k in _SAMPLING]
-    for names, what, item in ((spec, "the speculative stack", 12),
-                              (sample, "pooled sampling", 11)):
-        if names:
-            flags = ", ".join("--" + k.replace("_", "-") for k in names)
-            raise SystemExit(f"{flags}: {what} is not ported to PyTorch yet "
-                             f"(ROADMAP item {item})")
-
-
 def build_engine(args):
     """The engine ``main`` serves: the preset's model (loaded, or random
     from seeded generators), bf16 unless --dtype float32, W8A8 under
@@ -210,7 +194,12 @@ def build_engine(args):
     from infinisst_tpu_torch.serve.engine import ServingEngine
     from infinisst_tpu_torch.train.main import build_params
 
-    check_ported(args)
+    from infinisst_tpu_torch.agents.cli import (
+        _load_adapter,
+        _load_head_ids,
+        _load_lowrank_head,
+    )
+
     device = resolve_device(args.device)
     if device.type == "cuda":
         from infinisst_tpu_torch.kernels import _build
@@ -268,13 +257,32 @@ def build_engine(args):
             suppress = build_suppress_list(tokenizer)
     return ServingEngine(
         params, cfg, StreamConfig(), builders, pool_size=args.pool_size,
-        multiplier=args.multiplier, beam=args.beam, dtype=dtype,
+        multiplier=args.multiplier,
+        beam=1 if args.speculative else args.beam, dtype=dtype,
         suppress_tokens=suppress,
         multipliers=(
             tuple(int(x) for x in args.multipliers.split(","))
             if args.multipliers else None
         ),
         device=device,
+        speculative=args.speculative,
+        spec_draft_layers=args.spec_draft_layers,
+        spec_k=args.spec_k,
+        spec_head_vocab=args.spec_head_vocab,
+        spec_head_ids=_load_head_ids(args.spec_head_ids,
+                                     args.spec_head_vocab),
+        spec_adapter=_load_adapter(args),
+        spec_lowrank_rank=args.spec_lowrank_rank,
+        spec_lowrank_head=_load_lowrank_head(args),
+        spec_guard=not args.spec_no_guard,
+        spec_guard_patience=args.spec_guard_patience,
+        spec_warm_fallback=not args.spec_no_warm_fallback,
+        do_sample=args.do_sample,
+        temperature=args.temperature,
+        top_k=args.top_k,
+        top_p=args.top_p,
+        epsilon_cutoff=args.epsilon_cutoff,
+        sample_seed=args.sample_seed,
     )
 
 

@@ -227,8 +227,21 @@ def test_agent_long_stream_bookkeeping():
 
 @pytest.mark.parametrize("option", ["speculative", "do_sample", "spec_beam"])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        make_port_agent(None, **{option: True})
+    """The options that raised before the speculative stack was ported
+    now run a chunk (spec_beam together with speculative, as the JAX
+    agent needs); what the JAX agent refuses still raises ValueError."""
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    kw = dict(spec_draft_layers=1, spec_k=2, **{option: True})
+    if option == "spec_beam":
+        kw["speculative"] = True
+    agent = make_port_agent(tp, **kw)
+    rng = np.random.RandomState(0)
+    agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1)
+    assert agent.states.target_ids
+    assert (agent.spec_rounds > 0) == (option != "do_sample")
+    with pytest.raises(ValueError):
+        make_port_agent(tp, speculative=True, spec_beam=True,
+                        do_sample=True)
 
 
 def _push_chunks(agent, rng, sizes):

@@ -1,8 +1,9 @@
 """The port's bench (``python -m infinisst_tpu_torch.bench``): its metric
 names and tags follow ``bench.py``'s rules for every flag combination
-(the stream and serve modes), the outlier rules, ``run_stream`` + the
-summary on the tiny CPU agent, and the serve mode's run, summary and
-JSON line on a tiny CPU engine."""
+(the stream and serve modes, speculative and sampling too), the outlier
+rules, ``run_stream`` + the summary on the tiny CPU agent, the
+speculative options and fields, and the serve mode's run, summary and
+JSON line on a tiny CPU engine (speculative too)."""
 
 import json
 
@@ -68,6 +69,37 @@ NAMES = [
     (["--mode", "streamatt"], "streamatt_rtf_beam4_8b_int8"),
     (["--mode", "streamatt", "--early-stop", "--chunks", "50"],
      "streamatt_rtf_beam4_8b_int8"),
+    # the speculative stream (bench.py:459-477) and sampling (:496)
+    (["--speculative"], "streaming_rtf_m1_spec_d8k4_8b_int8"),
+    (["--speculative", "--spec-beam"],
+     "streaming_rtf_m1_spec_beam4_d8k4_8b_int8"),
+    (["--speculative", "--do-sample"],
+     "streaming_rtf_m1_spec_sample_d8k4_8b_int8"),
+    (["--speculative", "--spec-accept-all", "--spec-draft-layers", "4",
+      "--spec-k", "6"], "streaming_rtf_m1_spec_acceptall_d4k6_8b_int8"),
+    (["--speculative", "--spec-head-vocab", "16384"],
+     "streaming_rtf_m1_spec_d8k4_hv16k_8b_int8"),
+    (["--speculative", "--spec-lowrank-rank", "512"],
+     "streaming_rtf_m1_spec_d8k4_lr512_8b_int8"),
+    (["--speculative", "--spec-adapter-rank", "2048"],
+     "streaming_rtf_m1_spec_d8k4_ada2048_8b_int8"),
+    (["--speculative", "--spec-resid-scale", "0"],
+     "streaming_rtf_m1_spec_d8k4_ra0_8b_int8"),
+    (["--speculative", "--spec-resid-scale", "0.5", "--multiplier", "2"],
+     "streaming_rtf_m2_spec_d8k4_ra0.5_8b_int8"),
+    (["--do-sample"], "streaming_rtf_m1_sample_8b_int8"),
+    (["--do-sample", "--model", "bench"], "streaming_rtf_m1_sample_1chip"),
+    # the speculative pool (bench.py:662-670 mixed, :732-738 uniform)
+    (["--mode", "serve", "--speculative"],
+     "serve_decode_tok_per_s_pool8_specd8k4_m1_8b_int8"),
+    (["--mode", "serve", "--speculative", "--do-sample"],
+     "serve_decode_tok_per_s_pool8_specSd8k4_m1_8b_int8"),
+    (["--mode", "serve", "--speculative", "--spec-accept-all",
+      "--spec-head-vocab", "16384", "--spec-resid-scale", "0"],
+     "serve_decode_tok_per_s_pool8_specAAd8k4hv16k_m1_8b_int8"),
+    (["--mode", "serve", "--speculative", "--spec-resid-scale", "0",
+      "--multipliers", "1,2"],
+     "serve_decode_tok_per_s_pool8_specd8k4ra0_mixedm1x2_8b_int8"),
 ]
 
 
@@ -141,14 +173,97 @@ def test_run_stream_on_the_tiny_agent():
     assert B.summarize_schedule(run, "s")["value"] > 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "serve", "--speculative"],
+@pytest.mark.parametrize("argv", [["--mode", "train", "--speculative"],
                                   ["--mode", "train"],
-                                  ["--mode", "train-io"], ["--speculative"]])
+                                  ["--mode", "train-io"],
+                                  ["--mode", "train-io", "--do-sample"]])
 def test_unported_modes_exit(argv, capsys):
+    """The training modes exit, whatever the decode flags; the
+    speculative and sampling flags themselves run
+    (test_spec_flags_reach_the_card)."""
     with pytest.raises(SystemExit) as e:
         B.main(argv)
     assert e.value.code != 0
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--speculative"],
+                                  ["--mode", "serve", "--speculative"],
+                                  ["--do-sample", "--chunks", "4"]])
+def test_spec_flags_reach_the_card(argv):
+    """The flags the bench refused before its speculative port now get
+    as far as the card (and raise without one, as every mode does)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card path")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        B.main(argv)
+
+
+def test_spec_stream_on_the_tiny_agent():
+    """The speculative options of ``spec_options`` on the tiny agent: the
+    draft head factors and the adapter made from seeded generators (the
+    same twice), ``--spec-resid-scale 0`` zeroing the output
+    projections above the draft (the draft's argmax is then the
+    target's: every draft token accepted), and the spec fields of the
+    line."""
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    cfg = make_port_agent(tp).cfg
+    args = B.parse_args(["--speculative", "--spec-draft-layers", "1",
+                         "--spec-k", "3", "--spec-lowrank-rank", "8",
+                         "--spec-adapter-rank", "4", "--spec-resid-scale",
+                         "0", "--device", "cpu"])
+    kw, params = B.spec_options(args, cfg, tp, torch.device("cpu"))
+    kw2, _ = B.spec_options(args, cfg, tp, torch.device("cpu"))
+    assert torch.equal(kw["spec_lowrank_head"]["b"],
+                       kw2["spec_lowrank_head"]["b"])
+    assert kw["spec_adapter"]["w1"].shape == (cfg.llama.hidden_size, 4)
+    wo = params["llama"]["layers"]["wo"]
+    assert not wo[1:].any() and torch.equal(wo[:1], tp["llama"]["layers"]
+                                            ["wo"][:1])
+    assert not params["llama"]["layers"]["w_down"][1:].any()
+    # the resid-scaled stream, full draft head: the draft is the target,
+    # so the real verify accepts what --spec-accept-all forces (the same
+    # rounds and tokens; a round cut by the cap accepts fewer than k)
+    out = {}
+    for extra in ([], ["--spec-accept-all"]):
+        args = B.parse_args(["--speculative", "--spec-draft-layers", "1",
+                             "--spec-k", "3", "--spec-resid-scale", "0",
+                             "--spec-no-guard", "--device", "cpu"] + extra)
+        kw, params = B.spec_options(args, cfg, tp, torch.device("cpu"))
+        agent = make_port_agent(params, **kw)
+        run = B.run_stream(agent, 4, warmup=2)
+        out[bool(extra)] = (B.spec_fields(agent), agent.states.target_ids)
+    fields, ids = out[False]
+    assert (fields, ids) == out[True]
+    assert fields["accept_rate"] > 0.5 and fields["rounds"] > 0
+    assert fields["guard_fallback"] is False
+    assert fields["fallback_warmed"] is False
+    assert fields["breakeven_tokens_per_round"] is None
+    assert fields["emitted"] == run["tokens"] > 0
+
+
+def test_speculative_serve_line_on_the_tiny_engine(monkeypatch, capsys):
+    """``main --mode serve --speculative --do-sample`` on a tiny CPU
+    engine: the speculative serve metric with its acceptance and guard
+    fields, and the rounds' draft and verify forwards on stderr."""
+    from tests.test_torch_serve import port_engine
+
+    eng = port_engine(2, 1, None, cap=60, speculative=True,
+                      spec_draft_layers=1, spec_k=2, do_sample=True,
+                      sample_seed=1)
+    monkeypatch.setattr(B, "build_engine", lambda args: eng)
+    argv = ["--mode", "serve", "--device", "cpu", "--pool", "2",
+            "--chunks", "2", "--speculative", "--do-sample",
+            "--spec-draft-layers", "1", "--spec-k", "2"]
+    result = B.main(argv)
+    out, err = capsys.readouterr()
+    assert json.loads(out.strip().splitlines()[-1]) == result
+    assert result["metric"] == "serve_decode_tok_per_s_pool2_specSd1k2_m1_8b_int8"
+    assert {"accept_rate", "guard_fallback", "fallback_warmed"} <= set(result)
+    forwards = json.loads(err.split("engine forwards ")[1].splitlines()[0])
+    assert forwards["verify"] == eng.spec_stats["rounds"] > 0
+    assert forwards["draft"] == 2 * forwards["verify"]
+    assert "model forwards " in err
 
 
 def test_bench_defaults_to_cuda():

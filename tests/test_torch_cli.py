@@ -249,16 +249,98 @@ def test_main_matches_jax_cli(files, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra, item", [
     (["--agent", "alignatt", "--do-sample"], "beam-only"),
-    (["--agent", "streamatt", "--spec-k", "2"], "item 12"),
-    (["--speculative"], "item 12"),
-    (["--spec-k", "2"], "item 12"),
-    (["--do-sample"], "item 11"),
+    (["--agent", "streamatt", "--speculative"], "--agent infinisst"),
+    (["--agent", "alignatt", "--speculative"], "--agent infinisst"),
+    (["--spec-head-ids", "ids.npy"], "--spec-head-vocab"),
+    (["--spec-adapter", "a.npz"], "requires --speculative"),
 ])
 def test_unported_paths_exit(files, tmp_path, extra, item):
+    """The exits the JAX CLI has too: sampling or speculation with an
+    offline agent, a shortlist file without its width, a draft file
+    without --speculative (the speculative and sampling paths themselves
+    run: test_main_speculative_and_sampling)."""
     argv = _argv(files, tmp_path, "--device", "cpu")
     argv[argv.index("--agent"):argv.index("--agent") + 2] = []
     with pytest.raises(SystemExit, match=item):
         TCLI.main(argv + extra)
+
+
+def _predictions(out):
+    return [json.loads(line)["prediction"] for line in
+            (out / "instances.log").read_text().splitlines()]
+
+
+def test_main_speculative_and_sampling(files, tmp_path):
+    """``main`` with the lifted flags on the CPU: --do-sample --top-k 1
+    predicts what --beam 1 does, --speculative --do-sample --top-k 1
+    what --speculative does (both greedy chains), and --speculative
+    --spec-beam what the plain beam 2 does (the winner is beam search's),
+    each over the two talks."""
+    runs = {
+        "greedy": ["--beam", "1"],
+        "sample": ["--beam", "1", "--do-sample", "--top-k", "1",
+                   "--translation-output-file", str(tmp_path / "s.json")],
+        "spec": ["--speculative", "--spec-draft-layers", "1", "--spec-k",
+                 "2", "--spec-no-guard"],
+        "spec_sample": ["--speculative", "--spec-draft-layers", "1",
+                        "--spec-k", "2", "--spec-no-guard", "--do-sample",
+                        "--top-k", "1", "--translation-output-file",
+                        str(tmp_path / "dpo.json")],
+        "beam": [],
+        "spec_beam": ["--speculative", "--spec-beam", "--spec-draft-layers",
+                      "1", "--spec-k", "2"],
+    }
+    got = {}
+    for name, extra in runs.items():
+        TCLI.main(_argv(files, tmp_path / name, "--device", "cpu", *extra))
+        got[name] = _predictions(tmp_path / name)
+    assert got["sample"] == got["greedy"]
+    assert got["spec_sample"] == got["spec"]
+    assert got["spec_beam"] == got["beam"]
+    assert any(got["spec"]) and len(got["spec"]) == 2
+    # --do-sample dumps the per-chunk translations, as the JAX CLI does
+    assert (tmp_path / "dpo.json").read_text().count("[") == 2
+
+
+def test_spec_loaders_match_jax(tmp_path):
+    """The shortlist, low-rank and adapter loaders take the JAX CLI's
+    files and refuse what it refuses; an adapter saved by the JAX
+    package loads here, depth-checked."""
+    from infinisst_tpu.train import draft as JD
+    from infinisst_tpu_torch.train import draft as TD
+
+    ids = np.arange(40)[::-1].copy()
+    np.save(tmp_path / "ids.npy", ids)
+    np.testing.assert_array_equal(
+        TCLI._load_head_ids(str(tmp_path / "ids.npy"), 16),
+        JCLI._load_head_ids(str(tmp_path / "ids.npy"), 16, np))
+    with pytest.raises(SystemExit, match="1-D array"):
+        TCLI._load_head_ids(str(tmp_path / "ids.npy"), 64)
+    np.savez(tmp_path / "f.npz", a=np.ones((4, 2)), b=np.ones((2, 6)))
+    np.savez(tmp_path / "bad.npz", a=np.ones((4, 2)))
+    ns = SimpleNamespace(spec_lowrank_head=str(tmp_path / "f.npz"),
+                         speculative=True)
+    got = TCLI._load_lowrank_head(ns)
+    assert got["a"].shape == (4, 2) and got["b"].shape == (2, 6)
+    with pytest.raises(SystemExit, match="must contain"):
+        TCLI._load_lowrank_head(SimpleNamespace(
+            spec_lowrank_head=str(tmp_path / "bad.npz"), speculative=True))
+    cfg = TP.dryrun_config().llama
+    ada = JD.init_exit_adapter(jax.random.PRNGKey(0), cfg, rank=8)
+    JD.save_adapter(str(tmp_path / "a.npz"), ada, d=2)
+    ns = SimpleNamespace(spec_adapter=str(tmp_path / "a.npz"),
+                         speculative=True, spec_draft_layers=2)
+    back = TCLI._load_adapter(ns)
+    for k in ("ln", "w1", "w2"):
+        np.testing.assert_array_equal(back[k].numpy(), np.asarray(ada[k]))
+    ns.spec_draft_layers = 4
+    with pytest.raises(ValueError, match="draft_layers=2"):
+        TCLI._load_adapter(ns)
+    # and the port's save round-trips through the JAX loader
+    TD.save_adapter(str(tmp_path / "b.npz"), back, d=3)
+    again = JD.load_adapter(str(tmp_path / "b.npz"), expect_d=3)
+    np.testing.assert_array_equal(np.asarray(again["w1"]),
+                                  np.asarray(ada["w1"]))
 
 
 @pytest.mark.parametrize("agent", ["alignatt", "streamatt"])

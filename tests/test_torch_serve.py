@@ -410,10 +410,22 @@ def test_failed_step_keeps_the_deferred_trim(monkeypatch):
                                     dict(do_sample=True),
                                     dict(spec_guard=False)])
 def test_unported_engine_options_raise(option):
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[12]"):
-        TE.ServingEngine(tp, TCFG, TC.StreamConfig(), {}, device="cpu",
-                         **option)
+    """The JAX constructor's speculative, sampling and guard options are
+    taken, and its refusals kept: pooled sampling without speculation,
+    speculation above beam 1, an unknown option."""
+    def make(beam=1, **kw):
+        return port_engine(1, beam, None, **kw)
+
+    if "do_sample" in option:
+        with pytest.raises(ValueError, match="speculative"):
+            make(**option)
+        eng = make(speculative=True, **option)
+        assert eng.do_sample and eng.speculative
+    else:
+        eng = make(**option)
+        assert eng.speculative == option.get("speculative", False)
+        assert (eng._spec_breakeven is not None) == eng.speculative
+    with pytest.raises(ValueError, match="beam=1"):
+        make(speculative=True, beam=2)
     with pytest.raises(TypeError):
-        TE.ServingEngine(tp, TCFG, TC.StreamConfig(), {}, device="cpu",
-                         no_such_option=1)
+        make(no_such_option=1)

@@ -5,9 +5,10 @@ tests of ``tests/test_server.py`` on the CPU: asyncio clients on
 message, and the texts equal those of the same engine driven directly
 with the same audio (a slot's tokens depend only on its own audio and
 chunking, whatever the tick timing); a multiplier outside the server's
-set gets ``error``.  Then the server's flags: the unported ones exit with
-their ROADMAP item, and ``build_engine`` makes the engine ``main``
-serves.
+set gets ``error``; a speculative greedy and a speculative sampling pool
+serve as they run directly.  Then the server's flags: the JAX server's
+refusals (pooled sampling without speculation, the loaders' checks), and
+``build_engine`` makes the engine ``main`` serves, speculative too.
 """
 
 import asyncio
@@ -110,13 +111,40 @@ def test_server_mixed_multiplier_clients():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--speculative"], 12), (["--spec-k", "2"], 12),
-    (["--do-sample"], 11), (["--temperature", "0.7"], 11)])
+    (["--do-sample"], "speculative=True"),
+    (["--spec-head-ids", "ids.npy"], "--spec-head-vocab"),
+    (["--spec-adapter", "a.npz"], "requires --speculative"),
+    (["--spec-lowrank-head", "f.npz"], "requires --speculative")])
 def test_unported_server_flags_exit(flags, item):
+    """The flags the port refused before now build their engine, and the
+    JAX server's own refusals hold: pooled sampling needs --speculative,
+    a shortlist file needs its width, the draft files need
+    --speculative."""
     p = TSV.argparse.ArgumentParser()
     TSV.add_args(p)
-    with pytest.raises(SystemExit, match=f"ROADMAP item {item}"):
-        TSV.build_engine(p.parse_args(flags + ["--device", "cpu"]))
+    args = p.parse_args(flags + ["--device", "cpu", "--model-preset",
+                                 "dryrun", "--dtype", "float32"])
+    with pytest.raises((SystemExit, ValueError), match=item):
+        TSV.build_engine(args)
+
+
+@pytest.mark.parametrize("sample", [False, True])
+def test_server_speculative_pool(sample):
+    """A speculative greedy (and a speculative sampling, top-k 1) pool
+    of two behind the server: each stream's texts equal the same engine's
+    driven directly."""
+    kw = dict(speculative=True, spec_draft_layers=1, spec_k=2,
+              max_new_tokens=6)
+    if sample:
+        kw.update(do_sample=True, top_k=1, sample_seed=3)
+    wavs = _wavs(2, 2)
+    eng = port_engine(2, 1, None, **kw)
+    got = _serve(eng, [
+        lambda h, p, w=w: TCL.stream_file(h, p, w) for w in wavs])
+    want = _direct(port_engine(2, 1, None, **kw), wavs, (1, 1))
+    assert got == want
+    assert any(any(t) for t in got)
+    assert eng.spec_stats["rounds"] > 0
 
 
 def test_build_engine_serves_the_dryrun_preset():
@@ -138,6 +166,21 @@ def test_build_engine_serves_the_dryrun_preset():
     with pytest.raises(SystemExit, match="multiples of 128"):
         TSV.build_engine(p.parse_args(["--model-preset", "dryrun",
                                        "--device", "cpu", "--int8"]))
+    # --speculative serves at beam 1 with the flags' draft and sampler
+    eng = TSV.build_engine(p.parse_args([
+        "--model-preset", "dryrun", "--device", "cpu", "--dtype",
+        "float32", "--pool-size", "2", "--speculative",
+        "--spec-draft-layers", "1", "--spec-k", "3", "--spec-head-vocab",
+        "64", "--do-sample", "--top-k", "5", "--temperature", "0.7",
+        "--spec-no-guard"]))
+    assert (eng.beam, eng.speculative, eng.do_sample, eng.spec_k,
+            eng.spec_draft_layers, eng._spec_breakeven) == (
+                1, True, True, 3, 1, None)
+    assert eng.sample["top_k"] == 5 and eng.sample["temperature"] == 0.7
+    assert eng.params["spec_draft_head"]["prefix"].shape == (64,)
+    s = eng.open_stream("c")
+    eng.push_audio(s, np.zeros(UNIT, np.float32), finished=True)
+    assert s in eng.tick() and eng.slots[s].done
 
 
 def test_pushes_during_ticks_lose_no_samples(monkeypatch):
