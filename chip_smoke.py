@@ -189,9 +189,35 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  preset on the card and two ``serve.client`` processes (m=1
                  and m=2) over localhost streaming the CLI's two talks:
                  both streams finish.
- 12. one JSON ``kernels`` line (the speculative paths' launches and times
+ 12. the training path (plain torch: JAX's training forward calls no
+     Pallas kernel, so every kernel's launches there are 0):
+     train tiny -- the dryrun preset in float32: stage 1, stage 2 with
+                 grad_acc_steps 2 and stage 0 with cpo_beta 0.5, 4 steps
+                 each of make_train_step on the same batches on the card
+                 and on the CPU: per-step loss and grad norm within
+                 TINY_RTOL, the parameters after the last step within the
+                 CPU test's tolerance, frozen leaves bitwise unchanged.
+     train flagship -- Trainer.fit on the flagship preset in bfloat16,
+                 stage 1, remat, encoder dropout 0.1, over synthetic TSV
+                 + wav rows of 28.8 s under build/ (two rows a batch,
+                 collator 4 at m = 1), 3 steps: finite losses, every LLM
+                 leaf bitwise unchanged, w2v2 and adapter moved, no kernel
+                 launched; step walls, peak memory, the final save's size
+                 and wall (after checking the free space); then a second
+                 Trainer with max_steps=4 restores step 3 and takes one
+                 step.  The run directory is removed.
+     train main -- ``python -m infinisst_tpu_torch.train.main
+                 --model_preset dryrun --max_steps 3`` on the card in a
+                 subprocess: metrics.jsonl and the checkpoint.
+     train bench -- ``python -m infinisst_tpu_torch.bench --mode train``
+                 and ``--mode train-io`` in subprocesses: their JSON lines
+                 (bench.py's keys), values finite and positive; then the
+                 bench's step in this process: synced walls, the host's
+                 dispatch time, one step under the profiler.
+ 13. one JSON ``kernels`` line (the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
-     decode_attention), then the card line, then the result line.
+     decode_attention; the training path's launches, 0, under
+     ``train``), then the card line, then the result line.
 
 Each phase prints its wall seconds.  Weights are random, made on the card
 from seeded torch.Generators.
@@ -2653,6 +2679,428 @@ def check_cli_flagship(d, talks):
         fail("[cli flagship] the beam step did not launch decode_attention")
 
 
+# ---------------------------------------------------------------------------
+# the training path: plain torch (JAX's training forward calls no Pallas
+# kernel), so every kernel's launches there must be 0
+
+TRAIN_LR = 1e-3
+TRAIN_TINY_CASES = (  # label, freeze, grad_acc_steps, cpo_beta, schedule
+    ("stage 1", "stage1", 1, 0.0, "cosine"),
+    ("stage 2, grad_acc_steps 2", "stage2", 2, 0.0, "constant"),
+    ("stage 0, cpo_beta 0.5", "stage0", 1, 0.5, "cosine"),
+)
+TRAIN_METRIC = "train_stage1_speech_s_per_s_1chip_1.5b"
+TRAIN_IO_METRIC = "train_stage1_speech_s_per_s_realio_1chip_1.5b"
+TRAIN_KEYS = ("metric", "value", "unit", "vs_baseline")
+TRAIN_IO_KEYS = TRAIN_KEYS + ("pipeline", "steps_pipelined",
+                              "sec_per_step_pipelined",
+                              "sec_per_step_synced", "speech_s_per_s_synced",
+                              "final_loss")
+
+
+def _freeze(name):
+    from infinisst_tpu_torch.train import step as tstep
+
+    return {"stage0": tstep.FreezeConfig(),
+            "stage1": tstep.FreezeConfig.stage1(),
+            "stage2": tstep.FreezeConfig.stage2()}[name]
+
+
+def train_tiny_batches(cfg, n=4):
+    """``n`` padded trajectory-4 batches (m = 1) of three rows of seeded
+    noise, 1920, 940 and 920 ms (ragged patches and frame lengths),
+    padded to four rows: host numpy dicts."""
+    import numpy as np
+
+    from infinisst_tpu_torch.data.collators import COLLATORS
+    from infinisst_tpu_torch.data.dataset import SpeechToTextItem
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.train.trainer import pad_to_buckets
+
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size, lo=10,
+                                          hi=900), cfg.tokens)
+    coll = COLLATORS[4](builder, cfg, block_size=48, max_multiplier=1,
+                        seed=0)
+    rng = np.random.RandomState(11)
+    out = []
+    for b in range(n):
+        items = []
+        for i, units in enumerate((2, 1, 1)):
+            traj = [f"b{b} r{i} w{j}" for j in range(units)]
+            src = rng.randn(15360 * units - 320 * i) * 0.1
+            items.append(SpeechToTextItem(
+                id=f"{b}-{i}", index=i, source=src.astype(np.float32),
+                target=" ".join(traj), src_text="", trajectory=traj))
+        raw = coll(items)
+        out.append(pad_to_buckets(raw, raw["multiplier"], cfg.tokens.pad))
+    return out
+
+
+def _train_run(d, cfg, base, host, freeze_name, acc, cpo, sched):
+    """4 steps of make_train_step on device ``d`` from a copy of ``base``:
+    per-step (loss, grad norm), the leaves before and after."""
+    import torch
+
+    from infinisst_tpu_torch.train import step as tstep
+    from infinisst_tpu_torch.train.trainer import BATCH_KEYS
+
+    params = tstep.tree_map(lambda t: t.clone().to(d), base)
+    before = [p.clone() for p in tstep.tree_leaves(params)]
+    freeze = _freeze(freeze_name)
+    tx = tstep.make_optimizer(tstep.OptimConfig(
+        learning_rate=TRAIN_LR, warmup_steps=2, total_steps=6,
+        scheduler=sched), params, freeze)
+    if acc > 1:
+        tx = tstep.MultiSteps(tx, acc)
+    state = tstep.init_train_state(params, tx)
+    step = tstep.make_train_step(cfg, tx, 48, 96, cpo_beta=cpo,
+                                 freeze=freeze, remat=True)
+    metrics = []
+    for b in host:
+        batch = tstep.Batch(**{k: torch.from_numpy(b[k]).to(d)
+                               for k in BATCH_KEYS})
+        state, m = step(state, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, before, tstep.tree_leaves(state.params)
+
+
+def check_train_tiny(dev):
+    """The dryrun preset in float32 (TF32 off): stage 1, stage 2 with
+    grad_acc_steps 2 and stage 0 with cpo_beta 0.5, 4 steps each on the
+    same batches on the card and on the CPU: per-step loss and grad norm
+    within TINY_RTOL relative, the parameters after the last step within
+    the CPU test's tolerance (10 x lr x 1e-2, and all but 1e-3 of the
+    entries within lr x 1e-2), frozen leaves bitwise unchanged on the
+    card, no kernel launched."""
+    import torch
+
+    from infinisst_tpu_torch.core.presets import dryrun_config
+    from infinisst_tpu_torch.train import step as tstep
+    from infinisst_tpu_torch.train.main import random_params
+
+    cfg = dryrun_config()
+    host = train_tiny_batches(cfg)
+    base = random_params(cfg, "cpu", torch.float32)
+    reset_counts()
+    for label, fz, acc, cpo, sched in TRAIN_TINY_CASES:
+        t0 = time.perf_counter()
+        cpu = _train_run("cpu", cfg, base, host, fz, acc, cpo, sched)
+        t1 = time.perf_counter()
+        card = _train_run(dev, cfg, base, host, fz, acc, cpo, sched)
+        t2 = time.perf_counter()
+        for i, ((lc, gc), (lg, gg)) in enumerate(zip(cpu[0], card[0])):
+            for what, a, b in (("loss", lc, lg), ("grad_norm", gc, gg)):
+                if not (math.isfinite(b) and
+                        abs(b - a) <= TINY_RTOL * abs(a)):
+                    fail(f"[train tiny] {label} step {i} {what}: card {b} "
+                         f"cpu {a}")
+        mask = tstep.tree_leaves(tstep.trainable_mask(base, _freeze(fz)))
+        worst, n_far, n_all = 0.0, 0, 0
+        for m, b0, pc, pg in zip(mask, card[1], cpu[2], card[2]):
+            if not m:
+                if not torch.equal(pg, b0):
+                    fail(f"[train tiny] {label}: a frozen leaf moved")
+                continue
+            d = (pg.cpu() - pc).abs()
+            worst = max(worst, float(d.max()))
+            n_far += int((d > TRAIN_LR * 1e-2).sum())
+            n_all += d.numel()
+        if worst > 10 * TRAIN_LR * 1e-2 or n_far > 1e-3 * n_all:
+            fail(f"[train tiny] {label}: parameters after step 4 differ by "
+                 f"up to {worst:.3e}, {n_far} of {n_all} entries past "
+                 f"lr x 1e-2")
+        print(f"[train tiny] {label}: losses card "
+              f"{[round(x[0], 6) for x in card[0]]} grad norms "
+              f"{[float(f'{x[1]:.6g}') for x in card[0]]}; parameters "
+              f"within {worst:.3e} of the CPU's ({n_far} of {n_all} "
+              f"entries past lr x 1e-2); frozen leaves bitwise; cpu "
+              f"{t1 - t0:.1f} s, card {t2 - t1:.1f} s", flush=True)
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"[train tiny] kernels launched on the training path: {counts}")
+
+
+# the training step's forward stages (the backward pass, with the layers'
+# replay under remat, and the optimizer are the rest of the step)
+TRAIN_STAGES = (
+    ("infinisst_tpu_torch.models.speech_llm", "offline_spliced_embeddings"),
+    ("infinisst_tpu_torch.models.llama", "offline_forward"),
+)
+
+
+def _tree_bytes(tree) -> int:
+    import torch
+
+    from infinisst_tpu_torch.train.step import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def _flagship_trainer(dev, d, max_steps):
+    """A Trainer on the flagship preset (random bfloat16 weights, as
+    bench.py's bench_train builds them), stage 1, remat, encoder dropout
+    0.1, over the TSV in ``d``: collator 4 at m = 1, two 28.8 s rows a
+    batch, log_step 1, save_step 0.  Its steps and saves are timed (the
+    step synchronised)."""
+    import torch
+
+    from infinisst_tpu_torch.core.presets import flagship_config
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.train.main import random_params
+    from infinisst_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    cfg = flagship_config()
+    args = TrainerArgs(
+        data_path=d, data_split_train="tr", data_split_eval="none",
+        trajectory=4, trajectory_max_multiplier=1, stage=1, train_bsz=1900,
+        bsz_sent=2, learning_rate=TRAIN_LR, warmup_steps=1,
+        max_steps=max_steps, grad_acc_steps=1, log_step=1, eval_step=0,
+        save_step=0, save_dir=os.path.join(d, "run"), remat=True,
+        encoder_dropout=0.1)
+    t = Trainer(args, cfg, PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
+                                         cfg.tokens),
+                random_params(cfg, dev, torch.bfloat16), device=dev)
+    step_fn, save_fn = t._get_step_fn(1), t._save
+    t.walls, t.save_walls = [], []
+
+    def timed_step(state, batch):
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        t.walls.append(time.perf_counter() - t0)
+        return out
+
+    def timed_save(step):
+        t0 = time.perf_counter()
+        save_fn(step)
+        t.save_walls.append(time.perf_counter() - t0)
+
+    t._step_fns[1], t._save = timed_step, timed_save
+    return t
+
+
+def check_train_flagship(dev, paths):
+    """Trainer.fit on the flagship (Llama-3.1-8B + wav2vec2-large) in
+    bfloat16, stage 1, 3 steps over synthetic TSV + wav rows of 28.8 s
+    under build/: finite losses, every LLM leaf bitwise unchanged, the
+    encoder and adapter moved, no kernel launched; the step walls, the
+    peak memory, the final save's size and wall.  Then a second Trainer
+    with max_steps=4 restores step 3 and takes one step.  The run
+    directory is removed afterwards."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.bench import write_train_tsv
+    from infinisst_tpu_torch.train import checkpoint as ckpt
+    from infinisst_tpu_torch.train.step import tree_leaves
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_flagship_", dir=build)
+    try:
+        write_train_tsv(d, 6, 30, np.random.RandomState(0))
+        t = _flagship_trainer(dev, d, 3)
+        state_bytes = _tree_bytes(t.state.params) + _tree_bytes(
+            t.state.opt_state)
+        free = shutil.disk_usage(build).free
+        df = subprocess.run(["df", "-h", build], capture_output=True,
+                            text=True).stdout.strip().splitlines()
+        print(f"[train flagship] state {state_bytes / 1e9:.2f} GB a "
+              f"checkpoint (max_to_keep 2); free under build/ "
+              f"{free / 1e9:.1f} GB: {df[-1] if df else '?'}", flush=True)
+        if free < 2.2 * state_bytes:
+            fail(f"[train flagship] build/ has {free / 1e9:.1f} GB free, "
+                 f"two checkpoints need {2 * state_bytes / 1e9:.1f} GB")
+        snap = {c: [p.clone() for p in tree_leaves(t.state.params[c])]
+                for c in ("w2v2", "adapter", "llama")}
+        snap_bytes = _tree_bytes(snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        if t.fit() != 3:
+            fail("[train flagship] fit did not stop at step 3")
+        fit_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = launch_counts()
+        paths["train"] = ("[train flagship] Trainer.fit, flagship stage 1 "
+                          "bf16, 3 steps", counts)
+        if any(counts.values()):
+            fail(f"[train flagship] kernels launched: {counts}")
+        with open(os.path.join(d, "run", "metrics.jsonl")) as f:
+            logs = [json.loads(x) for x in f.read().splitlines()]
+        losses = [x["train_loss"] for x in logs if "train_loss" in x]
+        if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+            fail(f"[train flagship] losses {losses}")
+        for c, before in snap.items():
+            same = [torch.equal(a, b) for a, b in
+                    zip(tree_leaves(t.state.params[c]), before)]
+            if c == "llama" and not all(same):
+                fail("[train flagship] a frozen LLM leaf moved")
+            if c != "llama" and all(same):
+                fail(f"[train flagship] no {c} leaf moved")
+        ck = os.path.join(d, "run", "ckpt", "3", "state.pt")
+        size = os.path.getsize(ck)
+        norms = [float("%.4g" % x["grad_norm"]) for x in logs]
+        print(f"[train flagship] losses {[round(x, 4) for x in losses]}; "
+              f"grad norms {norms}; "
+              f"step walls {[round(x, 3) for x in t.walls]} s (the first "
+              f"includes warm-up); fit {fit_wall:.1f} s; peak "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated), of which "
+              f"{snap_bytes / 2**30:.2f} GiB this check's copy of the "
+              f"weights: {(peak - snap_bytes) / 2**30:.2f} GiB for the "
+              f"training; final save "
+              f"{size / 1e9:.2f} GB in {t.save_walls[-1]:.1f} s; every LLM "
+              f"leaf bitwise unchanged, w2v2 and adapter moved; launches "
+              f"{counts}", flush=True)
+        # one more step under the profiler (after the checks: it moves the
+        # state on); forward stages by range, the rest is the backward
+        # pass (with the layers' replay) and the optimizer
+        ds, sampler, coll = t._make_loader("tr", 1900, shuffle=False)
+        batch = t._to_batch(coll([ds[i] for i in next(iter(sampler))]), 1)
+        step_fn = t._get_step_fn(1)
+        profile_run(dev, lambda: step_fn(t.state, batch), TRAIN_STAGES,
+                    "train profile", statistics.median(t.walls[1:]) * 1e3,
+                    "step")
+        del t, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t2 = _flagship_trainer(dev, d, 4)
+        t0 = time.perf_counter()
+        final = t2.fit()
+        wall = time.perf_counter() - t0
+        if final != 4 or len(t2.walls) != 1 or t2.state.step != 4:
+            fail(f"[train flagship] the resumed fit ended at {final} after "
+                 f"{len(t2.walls)} steps")
+        if ckpt.latest_step(os.path.join(d, "run", "ckpt")) != 4:
+            fail("[train flagship] the resumed fit saved no step 4")
+        print(f"[train flagship] resumed from step 3, one step "
+              f"{t2.walls[0]:.3f} s, save {t2.save_walls[-1]:.1f} s, fit "
+              f"(restore + step + save) {wall:.1f} s", flush=True)
+        del t2
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_train_main(d):
+    """``python -m infinisst_tpu_torch.train.main --model_preset dryrun
+    --max_steps 3`` on the card in a subprocess over a dryrun TSV (rows
+    of 1920 ms; the trajectories carry no text, so that the stub
+    tokenizer's ids, past the dryrun vocabulary, are no target):
+    metrics.jsonl with three finite train losses and an eval loss, and
+    the checkpoint of step 3."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.bench import write_train_tsv
+
+    data = os.path.join(d, "train_main")
+    os.makedirs(data)
+    write_train_tsv(data, 6, 2, np.random.RandomState(1), words_per_unit=0)
+    run = os.path.join(data, "run")
+    cmd = [sys.executable, "-m", "infinisst_tpu_torch.train.main",
+           "--model_preset", "dryrun", "--max_steps", "3",
+           "--data_path", data, "--data_split_train", "tr",
+           "--data_split_eval", "tr", "--eval_step", "3", "--log_step", "1",
+           "--save_step", "0", "--grad_acc_steps", "1", "--train_bsz", "300",
+           "--max_cache_size", "96", "--save_dir", run]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
+        print(f"[train main]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[train main] exited {out.returncode}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        logs = [json.loads(x) for x in f.read().splitlines()]
+    losses = [x["train_loss"] for x in logs if "train_loss" in x]
+    evals = [x["eval_loss"] for x in logs if "eval_loss" in x]
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses + evals) \
+            or len(evals) != 1:
+        fail(f"[train main] train losses {losses}, eval losses {evals}")
+    saved = torch.load(os.path.join(run, "ckpt", "3", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    if saved["step"] != 3:
+        fail(f"[train main] the checkpoint holds step {saved['step']}")
+    print(f"[train main] train losses {[round(x, 4) for x in losses]}, eval "
+          f"loss {evals[0]:.4f}, checkpoint of step 3", flush=True)
+
+
+def check_train_bench():
+    """``python -m infinisst_tpu_torch.bench --mode train`` and ``--mode
+    train-io`` in subprocesses: exit 0, the JSON line of bench.py's row
+    (its metric and keys), the value finite and positive; returns the two
+    lines."""
+    out_lines = {}
+    for mode, metric, keys in (("train", TRAIN_METRIC, TRAIN_KEYS),
+                               ("train-io", TRAIN_IO_METRIC, TRAIN_IO_KEYS)):
+        label = f"train bench {mode}"
+        cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench", "--mode",
+               mode]
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        for line in out.stderr.strip().splitlines()[-20:]:
+            print(f"[{label}]   {line}", flush=True)
+        if out.returncode != 0:
+            fail(f"[{label}] exited {out.returncode}")
+        lines = out.stdout.strip().splitlines()
+        try:
+            result = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            fail(f"[{label}] its last stdout line is not JSON: {lines[-1:]}")
+        if result.get("metric") != metric or tuple(result) != keys:
+            fail(f"[{label}] line {result}; expected metric {metric} with "
+                 f"keys {keys}")
+        if not (math.isfinite(result["value"]) and result["value"] > 0):
+            fail(f"[{label}] value {result['value']}")
+        print(f"[{label}] {json.dumps(result)}", flush=True)
+        out_lines[mode] = result
+    return out_lines
+
+
+def profile_train_bench(dev):
+    """The bench's stage-1 step (the 1.5B preset, bf16, B = 2 x 28.8 s,
+    remat) in this process: the synced walls of 4 steps after a warm-up,
+    the host's time to return from a step without a synchronise (its
+    dispatch), and one step under the profiler."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.bench import train_batch, train_params
+    from infinisst_tpu_torch.core.presets import bench_1chip_config
+    from infinisst_tpu_torch.train import step as tstep
+
+    cfg = bench_1chip_config()
+    params, freeze, tx = train_params(cfg, dev)
+    state = tstep.init_train_state(params, tx)
+    batch = train_batch(2, 30, dev, np.random.RandomState(0))
+    step = tstep.make_train_step(cfg, tx, 48, 576, freeze=freeze, remat=True)
+    walls = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    dispatch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    med = statistics.median(walls[1:])
+    print(f"[train bench profile] 1.5B stage-1 step: synced walls "
+          f"{[round(w, 3) for w in walls]} s (the first warms up); the "
+          f"host returns from a step after {dispatch:.3f} s without a "
+          f"synchronise ({dispatch / med:.2f} of the median wall)",
+          flush=True)
+    profile_run(dev, lambda: step(state, batch), TRAIN_STAGES,
+                "train bench profile", med * 1e3, "step")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2749,6 +3197,18 @@ def main():
             check_cli_flagship(cli_dir, wavs)
         with phase("server"):
             check_server(cli_dir, wavs)
+        torch.cuda.empty_cache()
+        with phase("train tiny"):
+            print("[train tiny] dryrun float32 train steps: card against "
+                  "CPU", flush=True)
+            check_train_tiny(dev)
+        with phase("train flagship"):
+            check_train_flagship(dev, paths)
+        with phase("train main"):
+            check_train_main(cli_dir)
+        with phase("train bench"):
+            check_train_bench()
+            profile_train_bench(dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
 
@@ -2789,6 +3249,11 @@ def main():
         })
         if "launch_floor_ms" in t:  # the yardstick of a latency-bound kernel
             entries[-1]["launch_floor_ms"] = t["launch_floor_ms"]
+        # the training path runs no kernel (JAX's offline forward calls no
+        # Pallas kernel): its launches, 0, checked in [train flagship]
+        train_path, train_counts = paths["train"]
+        entries[-1]["train"] = {"launches": train_counts.get(name, 0),
+                                "path": train_path}
     # decode_attention_batched (decode_attention.py:287), the same kernel:
     # the serving pool's prefix, 8 caches each read by its slot's 4 beams
     t = notes.rows["decode_attention"]["shapes"][POOL_PREFIX]

@@ -1,6 +1,7 @@
-"""Streaming RTF, pooled serving and offline-agent bench of the port: the
-streaming (plain, sampling and speculative), serve, AlignAtt and
-StreamAtt modes of the JAX package's ``bench.py``, on the card.
+"""Streaming RTF, pooled serving, offline-agent and training bench of the
+port: the streaming (plain, sampling and speculative), serve, AlignAtt,
+StreamAtt and training modes of the JAX package's ``bench.py``, on the
+card.
 
     python -m infinisst_tpu_torch.bench                 # flagship W8A8, m=1
     python -m infinisst_tpu_torch.bench --speculative [--spec-beam]
@@ -12,6 +13,8 @@ StreamAtt modes of the JAX package's ``bench.py``, on the card.
     python -m infinisst_tpu_torch.bench --mode serve --multipliers 1,2
     python -m infinisst_tpu_torch.bench --mode alignatt [--early-stop]
     python -m infinisst_tpu_torch.bench --mode streamatt
+    python -m infinisst_tpu_torch.bench --mode train [--batch 2]
+    python -m infinisst_tpu_torch.bench --mode train-io
 
 Prints ONE JSON line on stdout, as ``bench.py`` does:
   {"metric": ..., "value": RTF, "unit": "rtf", "vs_baseline": ..., ...}
@@ -78,7 +81,22 @@ runs the plain sampler (``--temperature``, ``--top-k``).  In serve mode
 ``--speculative`` runs the pool by speculative greedy at beam 1
 (``--do-sample``: speculative sampling).  Every mode also prints the
 model's forward passes by function and depth (``model forwards``) beside
-the kernel launches.  The training modes are not ported.
+the kernel launches.
+
+``--mode train`` and ``--mode train-io`` (``bench.py:939-1215``) run
+stage 1 (the LLM frozen, the encoder and adapter trained; remat on,
+encoder dropout 0) on the ~1.5B ``bench`` preset in bfloat16 with 28.8 s
+windows (1440 frames, 360 speech tokens + 240 target tokens a row).
+``train`` times 12 steps of ``train.step.make_train_step`` (2 untimed) at
+``--batch`` rows (2), each batch uploaded before its step and the step
+synchronised: metric train_stage1_speech_s_per_s_1chip_1.5b, speech
+seconds trained per second.  ``train-io`` runs the real input pipeline
+(TSV + wav files written under a temporary directory -> SpeechSampler ->
+collator 4 at m = 1 -> ``Trainer._prefetch(depth=2)`` -> steps): 2 synced
+warmup steps, 2 synced probe steps, then 12 steps dispatched back to back
+with one final sync (``Trainer.fit``'s regime between log points):
+metric train_stage1_speech_s_per_s_realio_1chip_1.5b.  Step times,
+losses and the peak of ``torch.cuda.max_memory_allocated`` go to stderr.
 """
 
 from __future__ import annotations
@@ -95,7 +113,7 @@ import torch
 # (BASELINE.md, plots/plot.ipynb cell 9)
 BASELINE_RTF = {1: 0.382, 2: 0.286, 3: 0.250, 4: 0.235}
 WARMUP = 3
-UNPORTED_MODES = ("train", "train-io")
+TRAIN_MODES = ("train", "train-io")
 OFFLINE_MODES = ("alignatt", "streamatt")
 SERVE_TARGET_TOK_S = 30.0  # bench.py's serving vs_baseline denominator
 # the offline agents' vs_baseline numerator: the best reference StreamAtt+
@@ -110,7 +128,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--model", choices=("8b", "bench"), default="8b")
     p.add_argument("--mode", default="stream",
                    choices=("stream", "serve") + OFFLINE_MODES
-                   + UNPORTED_MODES)
+                   + TRAIN_MODES)
     p.add_argument("--chunks", type=int, default=12)
     p.add_argument("--multiplier", type=int, default=1, choices=(1, 2, 3, 4))
     p.add_argument("--no-act-int8", action="store_true")
@@ -146,6 +164,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--do-sample", action="store_true")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top-k", type=int, default=0)
+    # --mode train
+    p.add_argument("--batch", type=int, default=2)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -779,13 +799,253 @@ def main_offline(args) -> dict:
     return result
 
 
+# -- training (bench.py:939-1215) ---------------------------------------------
+
+TRAIN_METRIC = "train_stage1_speech_s_per_s_1chip_1.5b"
+TRAIN_IO_METRIC = "train_stage1_speech_s_per_s_realio_1chip_1.5b"
+TRAIN_UNITS = 30  # 28.8 s windows: 30 x 960 ms, 1440 frames
+TRAIN_TARGET_TOKENS = 240
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PROBE = 12, 2, 2
+
+
+def _train_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_line(dev) -> str:
+    if dev.type != "cuda":
+        return "peak memory: not measured (cpu)"
+    return (f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+            "GiB (torch.cuda.max_memory_allocated)")
+
+
+def train_params(cfg, dev):
+    """Random bfloat16 parameters (``train.main.random_params``), stage
+    1's freeze and its optimizer (lr 2e-4, warmup 1000)."""
+    from infinisst_tpu_torch.train import step as tstep
+    from infinisst_tpu_torch.train.main import random_params
+
+    params = random_params(cfg, dev, torch.bfloat16)
+    freeze = tstep.FreezeConfig.stage1()
+    tx = tstep.make_optimizer(
+        tstep.OptimConfig(learning_rate=2e-4, warmup_steps=1000,
+                          total_steps=100_000), params, freeze)
+    return params, freeze, tx
+
+
+def train_batch(B, units, dev, rng):
+    """bench.py's synthetic stage-1 batch: B rows of ``units`` x 960 ms of
+    seeded noise, 12 patch tokens a unit (id 1008, as bench.py) and
+    TRAIN_TARGET_TOKENS target tokens a row."""
+    from infinisst_tpu_torch.train import step as tstep
+
+    n_frames = 48 * units
+    sp = n_frames // 4
+    S = sp + TRAIN_TARGET_TOKENS
+    ids = np.full((B, S), 7, np.int64)
+    ids[:, 2: 2 + sp] = 1008
+    labels = np.where(np.arange(S)[None] >= sp + 4, ids, -100)
+    speech = rng.randn(B, 399 + n_frames * 320).astype(np.float32) * 0.1
+    return tstep.Batch(
+        speech=torch.from_numpy(speech).to(dev),
+        frame_lengths=torch.full((B,), n_frames, dtype=torch.int64,
+                                 device=dev),
+        input_ids=torch.from_numpy(ids).to(dev),
+        labels=torch.from_numpy(labels).to(dev),
+        attention_mask=torch.ones((B, S), dtype=torch.int64, device=dev),
+        patch_mask=torch.from_numpy(ids == 1008).to(dev),
+    )
+
+
+def main_train(args, cfg=None, units=TRAIN_UNITS, n_steps=TRAIN_STEPS):
+    """The stage-1 step on synthetic batches (bench.py's bench_train):
+    ``--batch`` rows of ``units`` x 960 ms, 360 patch tokens (id 1008, as
+    bench.py) and 240 target tokens a row at 28.8 s."""
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.core.device import resolve_device
+    from infinisst_tpu_torch.core.presets import bench_1chip_config
+    from infinisst_tpu_torch.train import step as tstep
+
+    dev = resolve_device(args.device)
+    cfg = cfg or bench_1chip_config()
+    params, freeze, tx = train_params(cfg, dev)
+    state = tstep.init_train_state(params, tx)
+    B = args.batch
+    n_frames = 48 * units
+    rng = np.random.RandomState(0)
+    step_fn = tstep.make_train_step(
+        cfg, tx, 48, StreamConfig().max_cache_frames,
+        multiplier=args.multiplier, freeze=freeze, remat=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(n_steps):
+        # the upload completes before the timer starts, as in bench.py
+        batch = train_batch(B, units, dev, rng)
+        _train_sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        _train_sync(dev)
+        dt = time.perf_counter() - t0
+        print(f"step {i}: {dt:.3f}s loss={float(metrics['loss']):.3f} "
+              f"grad_norm={float(metrics['grad_norm']):.3e}",
+              file=sys.stderr, flush=True)
+        if i >= TRAIN_WARMUP:
+            times.append(dt)
+    speech_s = B * n_frames * 0.02  # 20 ms a frame
+    sps = speech_s / float(np.mean(times))
+    result = {
+        "metric": TRAIN_METRIC,
+        "value": round(sps, 2),
+        "unit": "speech_s/s/chip",
+        "vs_baseline": round(sps / 1.0, 2),  # x realtime per chip
+    }
+    print(f"B={B} window={units * 0.96:.1f}s steps={len(times)} "
+          f"mean={np.mean(times) * 1e3:.0f}ms device={dev}", file=sys.stderr)
+    print(_peak_line(dev), file=sys.stderr, flush=True)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def write_train_tsv(d, n_rows, units, rng, split="tr", words_per_unit=8):
+    """``n_rows`` rows of ``units`` x 960 ms of seeded noise as wav files
+    under ``d`` and their TSV manifest ``d/<split>.tsv``, each 960 ms
+    unit one trajectory segment of ``words_per_unit`` words."""
+    import csv
+    import os
+
+    from infinisst_tpu_torch.data.audio import write_wav
+
+    rows = []
+    for i in range(n_rows):
+        wav_path = os.path.join(d, f"r{i}.wav")
+        n_samples = units * 15360
+        write_wav(wav_path, (rng.randn(n_samples) * 0.1).astype(np.float32))
+        steps = [" ".join(f"w{rng.randint(400)}"
+                          for _ in range(words_per_unit))
+                 for _ in range(units)]
+        rows.append({"id": f"r{i}", "audio": wav_path,
+                     "n_frames": str(n_samples), "src_text": " ".join(steps),
+                     "tgt_text": " ".join(steps), "trajectory": repr(steps)})
+    with open(os.path.join(d, f"{split}.tsv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]), delimiter="\t",
+                           quotechar=None, doublequote=False,
+                           lineterminator="\n", quoting=csv.QUOTE_NONE)
+        w.writeheader()
+        w.writerows(rows)
+
+
+def main_train_io(args, cfg=None, units=TRAIN_UNITS, n_steps=TRAIN_STEPS):
+    """The stage-1 steps behind the real input pipeline (bench.py's
+    bench_train_io), on data written under a temporary directory that is
+    removed afterwards."""
+    import os
+    import shutil
+    import tempfile
+
+    from infinisst_tpu_torch.core.device import resolve_device
+    from infinisst_tpu_torch.core.presets import bench_1chip_config
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.train.main import random_params
+    from infinisst_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    dev = resolve_device(args.device)
+    cfg = cfg or bench_1chip_config()
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    d = tempfile.mkdtemp(prefix="bench_train_io_")
+    try:
+        rng = np.random.RandomState(0)
+        # n_steps timed + 2 warmup + 2 probe, and a spare batch
+        write_train_tsv(d, 2 * (n_steps + TRAIN_WARMUP + TRAIN_PROBE + 1),
+                        units, rng)
+        targs = TrainerArgs(
+            data_path=d, data_split_train="tr", data_split_eval="none",
+            trajectory=4, trajectory_max_multiplier=1, stage=1,
+            # the sampler's size of a row is 30 a unit + 39 (939 at
+            # 28.8 s): a budget of 1900 there packs 2 rows a batch
+            train_bsz=2 * (30 * units + 39) + 22, bsz_sent=2,
+            warmup_steps=100, max_steps=n_steps, grad_acc_steps=1,
+            log_step=10**9, eval_step=0, save_step=0,
+            save_dir=os.path.join(d, "run"), block_size=48,
+            max_cache_size=576, encoder_dropout=0.0,
+        )
+        params = random_params(cfg, dev, torch.bfloat16)
+        t = Trainer(targs, cfg, builder, params, device=dev)
+        ds, sampler, collator = t._make_loader("tr", targs.train_bsz, True)
+        sampler.set_epoch(0)
+        return _run_train_io(t, ds, sampler, collator, n_steps, dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _run_train_io(t, ds, sampler, collator, n_steps, dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = t.state
+    synced, synced_speech, losses = [], [], []
+    timed_frames = []  # device tensors: summed after the final sync
+    t_start = None
+    n_timed = 0
+    t_prev = time.perf_counter()
+    for i, (m, batch) in enumerate(t._prefetch(sampler, ds, collator,
+                                               depth=2)):
+        state, metrics = t._get_step_fn(m)(state, batch)
+        if i < TRAIN_WARMUP + TRAIN_PROBE:
+            _train_sync(dev)
+            now = time.perf_counter()
+            dt, t_prev = now - t_prev, now
+            sec = float(batch.frame_lengths.sum()) * 0.02
+            print(f"step {i} (synced): {dt:.3f}s speech="
+                  f"{tuple(batch.speech.shape)} S="
+                  f"{tuple(batch.input_ids.shape)} audio_s={sec:.1f} "
+                  f"loss={float(metrics['loss']):.3f}", file=sys.stderr,
+                  flush=True)
+            if i >= TRAIN_WARMUP:
+                synced.append(dt)
+                synced_speech.append(sec)
+            if i == TRAIN_WARMUP + TRAIN_PROBE - 1:
+                t_start = time.perf_counter()
+        else:
+            losses.append(metrics["loss"])
+            timed_frames.append(batch.frame_lengths.sum())
+            n_timed += 1
+            if n_timed >= n_steps:
+                break
+    _train_sync(dev)
+    total = time.perf_counter() - t_start
+    if n_timed < n_steps:
+        raise RuntimeError(f"the data gave {n_timed} timed steps of "
+                           f"{n_steps}")
+    timed_speech = float(torch.stack(timed_frames).sum()) * 0.02
+    final_loss = float(losses[-1])
+    print(f"pipelined: {n_timed} steps in {total:.2f}s "
+          f"({timed_speech:.1f} audio_s) final_loss={final_loss:.3f}",
+          file=sys.stderr, flush=True)
+    print(_peak_line(dev), file=sys.stderr, flush=True)
+    sps = timed_speech / total
+    sync_sps = float(np.sum(synced_speech)) / float(np.sum(synced))
+    result = {
+        "metric": TRAIN_IO_METRIC,
+        "value": round(sps, 2),
+        "unit": "speech_s/s/chip",
+        "vs_baseline": round(sps / 1.0, 2),
+        "pipeline": "disk TSV+wav -> sampler -> collator -> prefetch(2) "
+                    "-> upload -> steps dispatched back-to-back, one "
+                    "final sync (Trainer.fit's regime between log points)",
+        "steps_pipelined": n_timed,
+        "sec_per_step_pipelined": round(total / n_timed, 4),
+        "sec_per_step_synced": round(float(np.mean(synced)), 4),
+        "speech_s_per_s_synced": round(sync_sps, 2),
+        "final_loss": round(final_loss, 3),
+    }
+    print(json.dumps(result), flush=True)
+    return result
+
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mode in UNPORTED_MODES:
-        print(f"--mode {args.mode} is not ported yet (ROADMAP item 13): the "
-              "port's bench runs the streaming, serve, alignatt and "
-              "streamatt modes", file=sys.stderr)
-        sys.exit(2)
     from infinisst_tpu_torch.core.device import resolve_device
 
     if resolve_device(args.device).type == "cuda":
@@ -794,6 +1054,10 @@ def main(argv=None) -> dict:
         _build.load_all()  # one nvcc per source, all at once
     if args.mode == "serve":
         return main_serve(args)
+    if args.mode == "train":
+        return main_train(args)
+    if args.mode == "train-io":
+        return main_train_io(args)
     if args.mode in OFFLINE_MODES:
         return main_offline(args)
     metric = metric_name(args)

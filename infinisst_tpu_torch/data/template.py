@@ -1,5 +1,5 @@
-"""Llama-3/3.1 chat template for the streaming transcript (a copy of the
-prompt-building and tokenizer parts of ``infinisst_tpu/data/template.py``).
+"""Llama-3/3.1 chat template for the streaming transcript and the training
+transcript (a copy of ``infinisst_tpu/data/template.py``).
 
 The template is built once per (multiplier, first/later) as a fixed token
 layout, so the chunk step sees a closed set of shapes and the speech patch
@@ -15,6 +15,10 @@ offset is a constant.
 The offline prompt (the AlignAtt agents) is one turn: the system block
 without a latency token, the user turn with the speech patches, and the
 open assistant turn followed by the target so far.
+
+The training transcript (``build_trajectory_prompt``, the collators'
+layout) is the system block and one (user patches, assistant text) turn
+pair per trajectory segment, supervised on the assistant text only.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ DEFAULT_SPEECH_PATCH_TOKEN = "<sp_patch>"
 DEFAULT_SPEECH_START_TOKEN = "<sp_start>"
 DEFAULT_SPEECH_END_TOKEN = "<sp_end>"
 DEFAULT_LATENCY_TOKEN = "<latency_{}>"
+IGNORE_INDEX = -100
 
 
 class StubTokenizer:
@@ -258,3 +263,53 @@ class PromptBuilder:
 
     def system_prompt_size(self, multiplier: int) -> int:
         return len(self.system_ids(self.system_text(multiplier)))
+
+
+def build_trajectory_prompt(
+    builder: PromptBuilder,
+    trajectory: List,
+    n_speech_tokens: int,
+    multiplier: int,
+    latency_token: bool = True,
+):
+    """Training-side multi-turn transcript of one sample: the system block,
+    then one (user patches, assistant text) turn pair per trajectory
+    segment.  Returns (ids, labels), int32, with labels IGNORE_INDEX
+    outside the assistant spans.
+
+    A ``trajectory`` entry may be a (text, keep) pair; a segment with
+    keep=False has its labels masked (the perturbation modes)."""
+    t = builder.t
+    seg = 12 * multiplier
+    ids: List[int] = list(
+        builder.system_ids(
+            builder.system_text(multiplier)
+            if latency_token
+            else builder.offline_system_text()
+        )
+    )
+    labels: List[int] = [IGNORE_INDEX] * len(ids)
+    nl2 = builder.tokenizer.encode("\n\n")
+    for j, entry in enumerate(trajectory):
+        if isinstance(entry, (list, tuple)):
+            text, keep = entry[0], entry[1]
+        else:
+            text, keep = entry, True
+        n_sp = min(seg, n_speech_tokens - j * seg)
+        assert n_sp > 0, "trajectory longer than speech"
+        turn = (
+            [t.start_header, t.user, t.end_header]
+            + nl2
+            + [t.sp_patch] * n_sp
+            + [t.eot, t.start_header, t.assistant, t.end_header]
+            + nl2
+        )
+        ids.extend(turn)
+        labels.extend([IGNORE_INDEX] * len(turn))
+        text_ids = builder.tokenizer.encode(text) if text else []
+        ids.extend(text_ids + [t.eot])
+        if keep:
+            labels.extend(text_ids + [t.eot])
+        else:
+            labels.extend([IGNORE_INDEX] * (len(text_ids) + 1))
+    return np.asarray(ids, np.int32), np.asarray(labels, np.int32)

@@ -33,6 +33,13 @@ def forward(params: Params, cfg: AdapterConfig, x: torch.Tensor):
     return h @ params["proj"]["w"] + params["proj"]["b"]
 
 
+def out_length(cfg: AdapterConfig, length):
+    """Speech tokens the adapter makes of ``length`` frames."""
+    for lc in cfg.conv_layers:
+        length = (length - lc.kernel) // lc.stride + 1
+    return length
+
+
 def init_params(cfg: AdapterConfig, generator: torch.Generator,
                 device="cuda", dtype=torch.float32) -> Params:
     def normal(shape):

@@ -1,5 +1,5 @@
 """Llama-3/3.1 decoder with GQA and a streaming unrotated-key KV cache;
-port of ``infinisst_tpu/models/llama.py`` (decode path).
+port of ``infinisst_tpu/models/llama.py``.
 
 Keys are stored unrotated and rotated after retrieval with cache-relative
 positions.  The layer stack is a Python loop over stacked parameters; the
@@ -15,6 +15,11 @@ Projections and the lm_head go through ``quant.mm``; q/k/v and gate/up,
 which share their input, through ``quant.mm_many``, which quantizes that
 input once (4 activation quantizations per layer, not 7).
 
+The training forward (``offline_forward``, ``offline_hidden``) is plain
+causal attention over the whole sequence, no cache, with plain matrix
+products on float leaves (no kernel, as in the JAX package), and
+``remat`` checkpoints each layer.
+
 For the speculative decoders: a draft's parameters may carry an
 ``exit_adapter`` (``apply_exit_adapter``, before ``final_ln``), and
 ``beam_tree_step`` verifies a drafted beam tree in one forward (its
@@ -28,10 +33,12 @@ Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from infinisst_tpu_torch.core import masks as M
 from infinisst_tpu_torch.core import rope as R
@@ -82,7 +89,11 @@ def _final_logits(params: Params, cfg: LlamaConfig, h):
     return mm(h, params["lm_head"])
 
 
+@functools.lru_cache(maxsize=None)
 def rope_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+    """The inverse frequencies on ``device``, uploaded once per (config,
+    device): a blocking copy from host memory in every forward would make
+    the host wait for the work queued before it."""
     f = R.llama_rope_freqs(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
         cfg.rope_scaling_factor, cfg.rope_low_freq_factor,
@@ -210,6 +221,84 @@ def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     # an id past the vocabulary takes the last row, as the JAX package's
     # gather clamps it (a stub tokenizer's ids over a small preset's vocab)
     return params["embed"][token_ids.clamp(max=params["embed"].shape[0] - 1)]
+
+
+def offline_hidden(
+    params: Params,
+    cfg: LlamaConfig,
+    x_embed: torch.Tensor,  # (B, S, D)
+    attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = real
+    remat: bool = False,
+    num_layers: Optional[int] = None,
+) -> torch.Tensor:
+    """The hidden state before ``final_ln`` after the first ``num_layers``
+    layers (default: all), plain causal attention, no cache: the hidden
+    the layer-skip draft sees at depth d.  Returns h (B, S, D)."""
+    layers = params["layers"]
+    if num_layers is not None:
+        layers = {k: v[:num_layers] for k, v in layers.items()}
+    return _offline_scan(layers, cfg, x_embed, attention_mask, remat)
+
+
+def offline_forward(
+    params: Params,
+    cfg: LlamaConfig,
+    x_embed: torch.Tensor,  # (B, S, D)
+    attention_mask: Optional[torch.Tensor] = None,  # (B, S) 1 = real
+    remat: bool = False,
+) -> torch.Tensor:
+    """Training forward: plain causal attention, no cache; ``remat``
+    checkpoints each layer.  Returns logits (B, S, V)."""
+    h = _offline_scan(params["layers"], cfg, x_embed, attention_mask, remat)
+    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
+    return h @ params["lm_head"]
+
+
+def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
+    B, S, _ = h.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+    q = (y @ lp["wq"]).reshape(B, S, H, Dh)
+    k = (y @ lp["wk"]).reshape(B, S, KV, Dh)
+    v = (y @ lp["wv"]).reshape(B, S, KV, Dh)
+    qr = R.apply_llama_rope(q.transpose(1, 2), pos[:, None], inv_freq)
+    kr = R.apply_llama_rope(k.transpose(1, 2), pos[:, None], inv_freq)
+    vt = v.transpose(1, 2)  # (B, KV, S, Dh)
+    qg = qr.reshape(B, KV, H // KV, S, Dh)
+    logits = torch.einsum(
+        "bkgsd,bktd->bkgst", qg.to(torch.float32), kr.to(torch.float32)
+    )
+    logits = logits * (1.0 / math.sqrt(Dh)) + bias
+    w = torch.softmax(logits, dim=-1).to(vt.dtype)
+    attn = torch.einsum("bkgst,bktd->bkgsd", w, vt)
+    attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
+    h = h + attn @ lp["wo"]
+    y = _rms_norm(h, lp["post_ln"], cfg.rms_norm_eps)
+    y = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
+    return h + y @ lp["w_down"]
+
+
+def _offline_scan(layers: Params, cfg: LlamaConfig, x_embed, attention_mask,
+                  remat: bool):
+    B, S, _ = x_embed.shape
+    dev = x_embed.device
+    i = torch.arange(S, device=dev)
+    mask = (i[None, :] <= i[:, None])[None]  # (1, S, S) causal
+    if attention_mask is not None:
+        mask = mask & attention_mask.to(torch.bool)[:, None, :]
+    # a row with no attended key (a padding row) stays finite: NEG_INF is
+    # finite, so its softmax is uniform, never NaN
+    bias = M.additive(mask)[:, None, None]  # (B, 1, 1, S, S)
+    pos = i[None]
+    inv_freq = rope_inv_freq(cfg, dev)
+    h = x_embed
+    for li in range(layers["wq"].shape[0]):
+        lp = layer_params(layers, li)
+        args = (lp, cfg, h, bias, pos, inv_freq)
+        h = (checkpoint(_offline_layer, *args, use_reentrant=False,
+                        preserve_rng_state=False) if remat
+             else _offline_layer(*args))
+    return h
 
 
 def span_probe(q, prefix_k, a0: int, a1: int, q_pos, inv_freq, lse):

@@ -1,11 +1,12 @@
 """Combined speech-LLM: chunked speech encoder -> adapter -> Llama
 decoder, with speech embeddings spliced into the chat transcript; port of
-the streaming functions of ``infinisst_tpu/models/speech_llm.py``.
+``infinisst_tpu/models/speech_llm.py`` (the streaming functions and the
+training forward).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -86,3 +87,61 @@ def commit_tokens(
         params["llama"], cfg.llama, dec_state, emb, valid_mask=valid
     )
     return dec_state
+
+
+def offline_forward(
+    params: Params,
+    cfg: ModelConfig,
+    samples: torch.Tensor,  # (B, T) raw audio, the zero offset included
+    ids: torch.Tensor,  # (B, S)
+    patch_mask: torch.Tensor,  # (B, S) bool: True where ids == sp_patch
+    block_frames: int,
+    max_cache_frames: int,
+    frame_lengths: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    dropout_gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.1,
+) -> torch.Tensor:
+    """Training / offline forward: the whole-utterance encoder with the
+    training block mask, the speech spliced at the patch positions (ragged
+    per row), the causal LLM forward.  Returns logits (B, S, V)."""
+    emb = offline_spliced_embeddings(
+        params, cfg, samples, ids, patch_mask, block_frames,
+        max_cache_frames, frame_lengths, remat=remat,
+        dropout_gen=dropout_gen, dropout_rate=dropout_rate,
+    )
+    return llama_mod.offline_forward(
+        params["llama"], cfg.llama, emb, attention_mask, remat=remat
+    )
+
+
+def offline_spliced_embeddings(
+    params: Params,
+    cfg: ModelConfig,
+    samples: torch.Tensor,
+    ids: torch.Tensor,
+    patch_mask: torch.Tensor,
+    block_frames: int,
+    max_cache_frames: int,
+    frame_lengths: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    dropout_gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.1,
+) -> torch.Tensor:
+    """The embedding stage of :func:`offline_forward`: encoder frames ->
+    adapter -> the token embeddings with the j-th patch position of row b
+    replaced by speech[b, j] (j clipped to P - 1, as in JAX)."""
+    frames = w2v2_mod.forward(
+        params["w2v2"], cfg.w2v2, samples, block_frames, max_cache_frames,
+        frame_lengths, remat=remat, dropout_gen=dropout_gen,
+        dropout_rate=dropout_rate,
+    )
+    speech = adapter_mod.forward(params["adapter"], cfg.adapter, frames)
+    emb = llama_mod.embed(params["llama"], ids)
+    B, P, D = speech.shape
+    patch_mask = patch_mask.to(torch.bool)
+    rank = torch.cumsum(patch_mask.to(torch.int64), dim=1) - 1
+    idx = torch.clamp(rank, 0, P - 1)
+    at = torch.gather(speech, 1, idx[:, :, None].expand(B, idx.shape[1], D))
+    return torch.where(patch_mask[:, :, None], at.to(emb.dtype), emb)

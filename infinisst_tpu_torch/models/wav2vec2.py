@@ -1,6 +1,7 @@
-"""wav2vec2-style chunked-causal speech encoder; port of the streaming path
-and the offline ``forward`` of ``infinisst_tpu/models/wav2vec2.py`` (the
-training options, dropout and remat, are not ported).
+"""wav2vec2-style chunked-causal speech encoder; port of
+``infinisst_tpu/models/wav2vec2.py``: the streaming ``chunk_step`` and the
+offline / training ``forward`` (with gradient checkpointing and the
+fairseq training dropout).
 
 - conv feature extractor (7 layers, stride 320), 'layer_norm' mode (per
   layer LayerNorm, vox/large) or 'default' (GroupNorm on layer 0), with
@@ -18,11 +19,14 @@ Parameters (dense weights stored (in, out), as in the JAX package):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from infinisst_tpu_torch.core import masks as M
 from infinisst_tpu_torch.core import rope as R
@@ -95,6 +99,44 @@ def sinusoidal_positions(offset, length: int, d_model: int, device=None):
     return emb
 
 
+def conv_out_length(cfg: W2V2Config, length):
+    """Frames the extractor makes of ``length`` samples (valid convs)."""
+    for lc in cfg.conv_layers:
+        length = (length - lc.kernel) // lc.stride + 1
+    return length
+
+
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one training step's dropout masks: seeded from
+    (seed, step) as the JAX step folds ``step`` into ``PRNGKey(seed)``, so
+    every step draws new masks and a (seed, step) pair always the same
+    ones (the draws themselves are not JAX's)."""
+    s = np.random.SeedSequence([seed % 2**64, step % 2**64])
+    return torch.Generator(device=device).manual_seed(
+        int(s.generate_state(1, np.uint64)[0]) >> 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, device) -> torch.Tensor:
+    """The encoder's RoPE frequencies on ``device``, uploaded once (a
+    blocking host copy per forward would make the host wait for the work
+    queued before it)."""
+    return torch.tensor(R.encoder_rope_freqs(head_dim), dtype=torch.float32,
+                        device=device)
+
+
+def _keep_mask(gen, shape, rate, device):
+    """Bernoulli(1 - rate) keep mask, bool."""
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def _drop(t, keep, rate):
+    """Inverted dropout: kept entries scaled by 1 / (1 - rate)."""
+    if keep is None:
+        return t
+    return torch.where(keep, t / (1.0 - rate), 0.0)
+
+
 def _attention(q, k, v, bias, q_pos, k_pos, cfg: W2V2Config, inv_freq):
     """q (B, S, H, Dh), k/v (B, K, H, Dh) unrotated; bias (B, 1, S, K)."""
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -117,33 +159,47 @@ def _split_heads(x, n_heads):
     return x.reshape(b, s, n_heads, d // n_heads)
 
 
+def _layer(lp, cfg: W2V2Config, h, bias, q_pos, k_pos, inv_freq,
+           cache=None, keep=(None, None), rate=0.0):
+    """One pre-LN transformer layer over h (B, S, D) attending to [cache |
+    h]; ``keep`` holds the dropout masks of its attention and FFN outputs.
+    Returns (h, k_new, v_new), the chunk's own unrotated K/V."""
+    H = cfg.encoder_attention_heads
+    y = _layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
+    q = _split_heads(y @ lp["wq"] + lp["bq"], H)
+    k_n = _split_heads(y @ lp["wk"] + lp["bk"], H)
+    v_n = _split_heads(y @ lp["wv"] + lp["bv"], H)
+    if cache is not None:
+        k = torch.cat([cache[0], k_n.to(cache[0].dtype)], dim=1)
+        v = torch.cat([cache[1], v_n.to(cache[1].dtype)], dim=1)
+    else:
+        k, v = k_n, v_n
+    attn = _attention(q, k, v, bias, q_pos, k_pos, cfg, inv_freq)
+    attn = attn.reshape(*attn.shape[:2], -1) @ lp["wo"] + lp["bo"]
+    h = h + _drop(attn, keep[0], rate)
+    y = _layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
+    y = _gelu(y @ lp["fc1_w"] + lp["fc1_b"])
+    h = h + _drop(y @ lp["fc2_w"] + lp["fc2_b"], keep[1], rate)
+    return h, k_n, v_n
+
+
+def _offline_layer(lp, cfg, h, bias, pos, inv_freq, keep, rate):
+    return _layer(lp, cfg, h, bias, pos, pos, inv_freq, keep=keep,
+                  rate=rate)[0]
+
+
 def _encoder_stack(params, cfg: W2V2Config, x, bias, q_pos, k_pos,
                    cache_kv, inv_freq):
     """Run the transformer layers over x (B, S, D) attending to
     [cache | chunk]; returns (output, (new_k, new_v)) with the chunk's
     per-layer K/V stacked as (L, B, S, H, Dh)."""
-    H = cfg.encoder_attention_heads
     layers = params["layers"]
-    L = layers["wq"].shape[0]
     h = x
     new_k, new_v = [], []
-    for li in range(L):
+    for li in range(layers["wq"].shape[0]):
         lp = {k: v[li] for k, v in layers.items()}
-        y = _layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
-        q = _split_heads(y @ lp["wq"] + lp["bq"], H)
-        k_n = _split_heads(y @ lp["wk"] + lp["bk"], H)
-        v_n = _split_heads(y @ lp["wv"] + lp["bv"], H)
-        if cache_kv is not None:
-            k = torch.cat([cache_kv[0][li], k_n.to(cache_kv[0].dtype)], dim=1)
-            v = torch.cat([cache_kv[1][li], v_n.to(cache_kv[1].dtype)], dim=1)
-        else:
-            k, v = k_n, v_n
-        attn = _attention(q, k, v, bias, q_pos, k_pos, cfg, inv_freq)
-        attn = attn.reshape(*attn.shape[:2], -1) @ lp["wo"] + lp["bo"]
-        h = h + attn
-        y = _layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
-        y = _gelu(y @ lp["fc1_w"] + lp["fc1_b"])
-        h = h + (y @ lp["fc2_w"] + lp["fc2_b"])
+        h, k_n, v_n = _layer(lp, cfg, h, bias, q_pos, k_pos, inv_freq,
+                             cache=(cache_kv[0][li], cache_kv[1][li]))
         new_k.append(k_n)
         new_v.append(v_n)
     h = _layer_norm(h, params["final_ln"]["scale"], params["final_ln"]["bias"])
@@ -165,12 +221,22 @@ def forward(
     block_frames: int,
     max_cache_frames: int,
     frame_lengths: Optional[torch.Tensor] = None,  # (B,) valid frames
+    remat: bool = False,
+    dropout_gen: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.1,
 ) -> torch.Tensor:
-    """Offline forward over a fresh cache with the block-causal mask
-    (``block_frames = max_cache_frames = 10**7`` makes it bidirectional,
-    as the AlignAtt agent runs it).  With ``frame_lengths`` the frames at
-    and past a row's length are zeroed and never attended.  Returns (B,
-    frames, encoder_dim)."""
+    """Offline / training forward over a fresh cache with the block-causal
+    mask (``block_frames = max_cache_frames = 10**7`` makes it
+    bidirectional, as the AlignAtt agent runs it).  With ``frame_lengths``
+    the frames at and past a row's length are zeroed and never attended.
+    Returns (B, frames, encoder_dim).
+
+    With ``dropout_gen`` (``dropout_generator``) the fairseq training
+    dropout at ``dropout_rate`` hits the input and each layer's attention
+    and FFN outputs.  ``remat`` checkpoints each layer; its masks are drawn
+    before the layer runs and passed in, so the backward pass's replay
+    applies the same ones.  No per-layer K/V is kept (there is no cache to
+    append it to)."""
     x = _prep_frames(params, cfg, samples)
     B, F_, D = x.shape
     dev = x.device
@@ -183,12 +249,28 @@ def forward(
         x = x * (j[None, :, None] < fl[:, None, None]).to(x.dtype)
     bias = M.additive(mask)
     pos = torch.arange(F_, device=dev)[None].expand(B, F_)
-    inv_freq = torch.tensor(R.encoder_rope_freqs(cfg.head_dim),
-                            dtype=torch.float32, device=dev)
+    inv_freq = _inv_freq(cfg.head_dim, dev)
     if not cfg.use_rope:
         x = x + sinusoidal_positions(0, F_, D, dev)[None].to(x.dtype)
-    out, _ = _encoder_stack(params, cfg, x, bias, pos, pos, None, inv_freq)
-    return out
+
+    def keep():
+        if dropout_gen is None:
+            return None
+        return _keep_mask(dropout_gen, x.shape, dropout_rate, dev)
+
+    h = _drop(x, keep(), dropout_rate)
+    layers = params["layers"]
+    for li in range(layers["wq"].shape[0]):
+        lp = {k: v[li] for k, v in layers.items()}
+        args = (lp, cfg, h, bias, pos, inv_freq, (keep(), keep()),
+                dropout_rate)
+        # the layer draws no random numbers (its masks are arguments), so
+        # the replay needs no saved RNG state
+        h = (checkpoint(_offline_layer, *args, use_reentrant=False,
+                        preserve_rng_state=False) if remat
+             else _offline_layer(*args))
+    return _layer_norm(h, params["final_ln"]["scale"],
+                       params["final_ln"]["bias"])
 
 
 def chunk_step(
@@ -240,8 +322,7 @@ def chunk_step(
     valid = torch.clamp(n, max=C)[:, None]
     k_pos = torch.arange(C + S, device=dev)[None] - (C - valid)
     q_pos = valid + torch.arange(S, device=dev)[None]
-    inv_freq = torch.tensor(R.encoder_rope_freqs(cfg.head_dim),
-                            dtype=torch.float32, device=dev)
+    inv_freq = _inv_freq(cfg.head_dim, dev)
     out, (nk, nv) = _encoder_stack(
         params, cfg, x, bias, q_pos, k_pos, (state.k, state.v), inv_freq
     )

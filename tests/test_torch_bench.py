@@ -177,14 +177,47 @@ def test_run_stream_on_the_tiny_agent():
                                   ["--mode", "train"],
                                   ["--mode", "train-io"],
                                   ["--mode", "train-io", "--do-sample"]])
-def test_unported_modes_exit(argv, capsys):
-    """The training modes exit, whatever the decode flags; the
-    speculative and sampling flags themselves run
-    (test_spec_flags_reach_the_card)."""
-    with pytest.raises(SystemExit) as e:
+def test_unported_modes_exit(argv):
+    """The training modes, ported now, get as far as the card whatever the
+    decode flags (and raise without one, as every mode does); they run on
+    the CPU in test_train_modes_print_the_jax_line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card path")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         B.main(argv)
-    assert e.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+
+
+# bench.py's JSON keys of its two training rows (:1021-1026, :1199-1213)
+TRAIN_KEYS = ("metric", "value", "unit", "vs_baseline")
+TRAIN_IO_KEYS = TRAIN_KEYS + ("pipeline", "steps_pipelined",
+                              "sec_per_step_pipelined",
+                              "sec_per_step_synced",
+                              "speech_s_per_s_synced", "final_loss")
+
+
+@pytest.mark.parametrize("mode", ["train", "train-io"])
+def test_train_modes_print_the_jax_line(mode, capsys):
+    """--mode train and train-io on the CPU at a cut size (the dryrun
+    preset, 960 ms windows, 3 timed steps): the JSON line of bench.py's
+    row, finite and positive, and the steps on stderr."""
+    from infinisst_tpu_torch.core.presets import dryrun_config
+
+    args = B.parse_args(["--mode", mode, "--device", "cpu"])
+    run = B.main_train if mode == "train" else B.main_train_io
+    result = run(args, cfg=dryrun_config(), units=1, n_steps=3)
+    out, err = capsys.readouterr()
+    line = json.loads(out.strip().splitlines()[-1])
+    # (train-io's final_loss is NaN here: the stub tokenizer's ids lie past
+    # the dryrun vocabulary, and a target past it reads NaN, as in JAX)
+    assert json.dumps(line) == json.dumps(result)
+    keys = TRAIN_KEYS if mode == "train" else TRAIN_IO_KEYS
+    assert tuple(line) == keys
+    assert line["metric"] == (B.TRAIN_METRIC if mode == "train"
+                              else B.TRAIN_IO_METRIC)
+    assert np.isfinite(line["value"]) and line["value"] > 0
+    assert "step 2" in err and "peak memory" in err
+    if mode == "train-io":
+        assert line["steps_pipelined"] == 3
 
 
 @pytest.mark.parametrize("argv", [["--speculative"],
