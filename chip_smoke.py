@@ -214,10 +214,41 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  (bench.py's keys), values finite and positive; then the
                  bench's step in this process: synced walls, the host's
                  dispatch time, one step under the profiler.
- 13. one JSON ``kernels`` line (the speculative paths' launches and times
+ 13. the tools:
+     fidelity -- ``tools.quant_fidelity.main --steps 600`` in this process:
+                 the probe's Llama (D=256, L=4, V=512) trained on the card,
+                 every variant's flip rates, greedy divergence and beam-4
+                 winner changes beside docs/quant_fidelity.json (the JAX
+                 tool's); each variant's kernels launched (w8:
+                 w8_bf16_gemm; w8a8: row_quant_int8 + w8a8_gemm; grouped:
+                 group_quant_int8 + w8a8_grouped_gemm; decode_attention in
+                 every beam step), the two groups-of-8 variants refused by
+                 w8a8_grouped_gemm and not run; then every int8 kernel
+                 bitwise against its plain version on the trained weights
+                 at the prefill's 512 rows and a beam step's 4
+                 (w8_bf16_gemm within 1e-5), timed at the prefill's shape,
+                 and decode_attention at the beam step's two blocks.
+     distill tiny -- the probe's Llama trained 150 steps on the 64 x 64
+                 corpus, 8 prompts rolled out, an adapter distilled at
+                 d = 1; speculative greedy with and without it in float32
+                 and W8A8: KL and agreement, tokens unchanged, float32
+                 acceptance doubled, w8a8_gemm launched.
+     distill flagship -- ``python -m infinisst_tpu_torch.tools.
+                 distill_adapter --model-preset flagship`` (8B float32,
+                 rank 2048, d = 8, 20 steps) in a subprocess: the KL falls,
+                 the .npz loads at d = 8 only; then the flagship W8A8
+                 agent, speculative d = 8 with the guard off, 4 chunks with
+                 and without the adapter: the same tokens, the int8
+                 kernels launched, both acceptance rates.
+     profiling -- ``core.profiling``: timed and StepTimer around w8a8_gemm
+                 with ``sync_on``, device_trace over one W8A8 prefill of
+                 the probe's model (the Chrome trace names the kernels).
+ 14. one JSON ``kernels`` line (the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
      decode_attention; the training path's launches, 0, under
-     ``train``), then the card line, then the result line.
+     ``train``; the tools' launches by phase and the times at the
+     probe's shapes under ``tools``), then the card line, then the
+     result line.
 
 Each phase prints its wall seconds.  Weights are random, made on the card
 from seeded torch.Generators.
@@ -969,18 +1000,19 @@ def _att_cases():
 
 
 def att_case(dev, gen, notes, label, B, Bc, C, valid, off, lse, dtype, timed,
-             q_pos=None):
+             q_pos=None, heads=ATT_HEADS):
     """decode_attention at one shape against its plain version: output
     (and lse) within ATT_RTOL; timed, with the SDPA yardstick and the
     bound, into ``notes`` under (label, B, C).  The queries sit at
-    ``q_pos`` (default: 3 past the last valid key)."""
+    ``q_pos`` (default: 3 past the last valid key); ``heads`` is (H, KV,
+    Dh)."""
     import torch
     import torch.nn.functional as F
 
     from infinisst_tpu_torch.core import rope as R
     from infinisst_tpu_torch.kernels import decode_attention as A
 
-    H, KV, Dh = ATT_HEADS
+    H, KV, Dh = heads
     inv = torch.tensor(R.llama_rope_freqs(Dh), dtype=torch.float32,
                        device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -3101,6 +3133,517 @@ def profile_train_bench(dev):
                 "train bench profile", med * 1e3, "step")
 
 
+# ---------------------------------------------------------------------------
+# the tools: the int8 fidelity probe, draft distillation, profiling
+
+FIDELITY_STEPS = 600  # the JAX tool's default
+FIDELITY_DOC = "docs/quant_fidelity.json"  # the JAX tool's table
+# the kernels each variant's probe must launch (the float32 reference and
+# every variant run decode_attention in their beam steps)
+FIDELITY_KERNELS = {
+    "bf16": ("decode_attention",),
+    "w8": ("w8_bf16_gemm", "decode_attention"),
+    "w8a8": ("row_quant_int8", "w8a8_gemm", "decode_attention"),
+    "w8a8_g128": ("group_quant_int8", "w8a8_grouped_gemm",
+                  "decode_attention"),
+    "w8a8_g128_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
+                           "row_quant_int8", "w8a8_gemm",
+                           "decode_attention"),
+    "w8a8_8groups_like_g512": ("group_quant_int8", "w8a8_grouped_gemm",
+                               "decode_attention"),
+}
+# groups of 8: w8a8_grouped_gemm takes whole runs of 32 int8 values
+FIDELITY_NOT_RUN = {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
+FIDELITY_COLS = ("train_flip_rate", "held_flip_rate", "held_dlogit_p99",
+                 "greedy_match_32", "beam4_winner_changed")
+# the probe's prefill (8 x 64 rows into wq): the kernels line's tools shape
+TOOL_SHAPE = (512, 256, 256)
+# its beam step's decode_attention: 4 beams over the 8-token prompt's cache
+# (32 slots) and their own block of 24 slots, 12 tokens in
+TOOL_ATT_CASES = (("fidelity beam prefix", 4, 1, 32, [20], None, True),
+                  ("fidelity per-beam block", 4, 4, 24, [12] * 4, [20] * 4,
+                   True))
+TOOL_ATT_SHAPE = ("fidelity beam prefix", 4, 32)
+DISTILL_TINY_TRAIN = 150  # tests/test_draft_adapter.py's lift test
+DISTILL_CHUNKS = 4
+
+
+def _leaf(tree, key, layer=0):
+    """A (K-major) weight leaf of layer ``layer`` (the lm_head as it is)."""
+    if key == "lm_head":
+        return tree["lm_head"]
+    w = tree["layers"][key]
+    return {k: v[layer] for k, v in w.items()} if isinstance(w, dict) \
+        else w[layer]
+
+
+def hold_tool_kernels(dev, params):
+    """Every int8 kernel bitwise against its plain version (w8_bf16_gemm
+    within 1e-5 x max|plain|: float32 summation order) at the probe's
+    shapes on its trained weights: the prefill's 512 rows and a beam
+    step's 4, into wq (D=256), w_down (D=512) and the lm_head (O=512),
+    W8A8 per-channel, weight-only and grouped by 128 and by 32; the
+    activations are the trained model's layer-0 inputs."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+    from infinisst_tpu_torch.models import llama as L
+    from infinisst_tpu_torch.tools import quant_fidelity as QF
+
+    cfg = QF.CFG
+    ids = torch.as_tensor(QF.make_corpus(np.random.RandomState(0), 8, 64),
+                          device=dev)
+    lp = L.layer_params(params["layers"], 0)
+    with torch.no_grad():
+        y = L._rms_norm(L.embed(params, ids), lp["input_ln"],
+                        cfg.rms_norm_eps).reshape(-1, cfg.hidden_size)
+        y2 = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
+    var = QF.quant_variants(params)
+    grouped = (("w8a8_g128", 128), ("w8a8_8groups_like_g512", 32))
+    n = 0
+    for M in (512, 4):
+        for x, key in ((y, "wq"), (y2, "w_down"), (y, "lm_head")):
+            xm = x[:M].contiguous()
+            label = f"M={M} {key}"
+            yq, ys = K.row_quant_int8(xm)
+            pq, ps = K.row_quant_int8_plain(xm)
+            if not (torch.equal(yq, pq) and torch.equal(ys, ps)):
+                fail(f"[fidelity] row_quant_int8 differs at {label}")
+            w = _leaf(var["w8a8"], key)
+            if not torch.equal(
+                    K.w8a8_gemm(yq, ys, w["q_kmajor"], w["scale_a8"],
+                                torch.float32),
+                    K.w8a8_gemm_plain(yq, ys, w["q_kmajor"], w["scale_a8"],
+                                      torch.float32)):
+                fail(f"[fidelity] w8a8_gemm differs at {label}")
+            n += 2
+            if key != "lm_head":  # the w8 variant keeps a float head
+                w = _leaf(var["w8"], key)
+                out = K.w8_bf16_gemm(xm, w["q_kmajor"], w["scale"])
+                ref = K.w8_bf16_gemm_plain(xm, w["q_kmajor"], w["scale"])
+                e = (out - ref).abs().max().item()
+                if not e <= 1e-5 * ref.abs().max().item():
+                    fail(f"[fidelity] w8_bf16_gemm at {label}: "
+                         f"max_abs_err {e}")
+                n += 1
+            for name, gs in grouped:
+                w = _leaf(var[name], key)
+                if w["scale_a8"].ndim != 2:
+                    continue
+                check_grouped(K, xm, w["q_kmajor"], w["scale_a8"], gs,
+                              f"[fidelity] {label} gs={gs}",
+                              (torch.float32,))
+                n += 2
+    torch.cuda.synchronize()
+    print(f"  {n} kernel calls at the probe's shapes agree with their "
+          "plain versions (bitwise but w8_bf16_gemm)", flush=True)
+    return var, y
+
+
+def time_tool_kernels(dev, notes, var, y):
+    """Each kernel's time at the probe's prefill (TOOL_SHAPE, float32, as
+    the tool runs them), beside its plain version, the library call and
+    the bound; decode_attention at the probe's beam step (within
+    ATT_RTOL)."""
+    import torch
+
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+
+    M, D, O = TOOL_SHAPE
+    x = y[:M].contiguous()
+    lbl = f"tools M={M} D={D} O={O}"
+    key = ("tools",) + TOOL_SHAPE
+    qkey = ("tools", M, D, 0)
+    # row_quant_int8 and its launch floor
+    rp = K.row_quant_plan(M, D, 4)
+    bms, by = bound_ms(M * D * 4 + M * D + M * 4, 0, 1.0)
+    notes.note("row_quant_int8", qkey, 0.0,
+               cuda_time_ms(lambda i: K.row_quant_int8(x), 50),
+               cuda_time_ms(lambda i: K.row_quant_int8_plain(x), 20), None,
+               bms, by, label=f"tools M={M} D={D}",
+               floor_ms=cuda_time_ms(
+                   lambda i: K.launch_empty(dev, rp.vpt * M, rp.threads), 50))
+    yq, ys = K.row_quant_int8(x)
+    w = _leaf(var["w8a8"], "wq")
+    wt, s = w["q_kmajor"], w["scale_a8"]
+    wk = wt.t().contiguous()  # (D, O): torch._int_mm's layout
+    bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 4,
+                       2.0 * M * D * O, INT8_OPS_PER_S)
+    notes.note("w8a8_gemm", key, 0.0,
+               cuda_time_ms(lambda i: K.w8a8_gemm(yq, ys, wt, s,
+                                                  torch.float32), 20),
+               cuda_time_ms(lambda i: K.w8a8_gemm_plain(
+                   yq, ys, wt, s, torch.float32), 3, warmup=1),
+               cuda_time_ms(lambda i: torch._int_mm(yq, wk).float() * ys * s,
+                            20),
+               bms, by, label=lbl)
+    w = _leaf(var["w8"], "wq")
+    wt, s = w["q_kmajor"], w["scale"]
+    out, ref = K.w8_bf16_gemm(x, wt, s), K.w8_bf16_gemm_plain(x, wt, s)
+    err = (out - ref).abs().max().item()
+    xb = x.to(torch.bfloat16)
+    bms, by = bound_ms(M * D * 4 + D * O + O * 4 + M * O * 4,
+                       2.0 * M * D * O, BF16_FLOPS_PER_S)
+    notes.note("w8_bf16_gemm", key, err,
+               cuda_time_ms(lambda i: K.w8_bf16_gemm(x, wt, s), 20),
+               cuda_time_ms(lambda i: K.w8_bf16_gemm_plain(x, wt, s), 3,
+                            warmup=1),
+               cuda_time_ms(lambda i: torch._weight_int8pack_mm(xb, wt, s),
+                            20),
+               bms, by, label=lbl)
+    gs = 128
+    G = D // gs
+    qp = K.group_quant_plan(M, D, G, 4)
+    bms, by = bound_ms(M * D * 4 + M * D + M * G * 4, 0, 1.0)
+    notes.note("group_quant_int8", qkey, 0.0,
+               cuda_time_ms(lambda i: K.group_quant_int8(x, gs), 50),
+               cuda_time_ms(lambda i: K.group_quant_int8_plain(x, gs), 20),
+               None, bms, by, label=f"tools M={M} D={D} gs={gs}",
+               floor_ms=cuda_time_ms(
+                   lambda i: K.launch_empty(dev, qp.blocks, qp.threads), 50))
+    gq, gsc = K.group_quant_int8(x, gs)
+    w = _leaf(var["w8a8_g128"], "wq")
+    wt, s = w["q_kmajor"], w["scale_a8"]
+    bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4 + M * O * 4,
+                       2.0 * M * D * O, INT8_OPS_PER_S)
+    notes.note("w8a8_grouped_gemm", key, 0.0,
+               cuda_time_ms(lambda i: K.w8a8_grouped_gemm(
+                   gq, gsc, wt, s, torch.float32), 20),
+               cuda_time_ms(lambda i: K.w8a8_grouped_gemm_plain(
+                   gq, gsc, wt, s, torch.float32), 1, warmup=1),
+               None, bms, by, label=f"{lbl} gs={gs}")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    H, KV, Dh = 4, 4, 64  # the probe's Llama
+    for case in TOOL_ATT_CASES:
+        att_case(dev, gen, notes, *case, dtype=torch.float32, timed=True,
+                 heads=(H, KV, Dh))
+
+
+def check_fidelity(dev, notes, paths):
+    """``tools.quant_fidelity.main`` on the card in this process at 600
+    training steps: each variant's kernels launched, the groups-of-8
+    variants refused by the grouped GEMM (not routed to the plain
+    versions), the card's rates beside the JAX tool's table; then the
+    kernels held and timed at the probe's shapes.  Returns the trained
+    float parameters."""
+    import torch
+
+    from infinisst_tpu_torch.tools import quant_fidelity as QF
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results, params = QF.main(["--steps", str(FIDELITY_STEPS),
+                               "--device", "cuda"])
+    counts = launch_counts()
+    print(f"[fidelity] tool wall {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(counts)}", flush=True)
+    paths["fidelity"] = (
+        f"tools.quant_fidelity.main --steps {FIDELITY_STEPS}", counts)
+    if set(results["not_run"]) != FIDELITY_NOT_RUN:
+        fail(f"[fidelity] variants not run: {results['not_run']}")
+    for name, why in results["not_run"].items():
+        print(f"  {name}: not run on the card: {why}", flush=True)
+    for name, kernels in FIDELITY_KERNELS.items():
+        n = results["launches"].get(name)
+        if n is None:
+            fail(f"[fidelity] variant {name} did not run")
+        missing = [k for k in kernels if n[k] <= 0]
+        if missing:
+            fail(f"[fidelity] {name} launched no {', '.join(missing)}")
+        print(f"  {name:24s} launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+    for m in ("train_margins", "held_margins"):
+        if not all(math.isfinite(v) for v in results[m].values()):
+            fail(f"[fidelity] {m} not finite: {results[m]}")
+    with open(os.path.join(ROOT, FIDELITY_DOC)) as f:
+        ref = json.load(f)
+    print(f"[fidelity] the card's table beside {FIDELITY_DOC} (JAX, CPU); "
+          "the float32 training ran on other hardware, so the rates differ "
+          "as the trained models do", flush=True)
+    print(f"  margins: card train {results['train_margins']} held "
+          f"{results['held_margins']}; JAX train {ref['train_margins']} "
+          f"held {ref['held_margins']}", flush=True)
+    print(f"  {'variant':24s} " + " ".join(f"{c:>22s}" for c in
+                                            FIDELITY_COLS), flush=True)
+    for name in ref["variants"]:
+        for who, rows in (("card", results["variants"]),
+                          ("JAX", ref["variants"])):
+            row = rows.get(name)
+            if row is None:
+                cells = ["not run"] * len(FIDELITY_COLS)
+            else:
+                cells = [str(row[c]) for c in FIDELITY_COLS]
+                if who == "card" and not (0 <= row["held_flip_rate"] <= 1):
+                    fail(f"[fidelity] {name}: {row}")
+            print(f"  {name + ' ' + who:24s} "
+                  + " ".join(f"{c:>22s}" for c in cells), flush=True)
+    var, y = hold_tool_kernels(dev, params)
+    time_tool_kernels(dev, notes, var, y)
+    del var
+    torch.cuda.empty_cache()
+    return params
+
+
+def check_distill_tiny(dev, paths):
+    """The lift of ``tests/test_draft_adapter.py`` on the card: the probe's
+    Llama trained 150 steps on the 64 x 64 corpus, 8 prompts rolled out,
+    an adapter distilled at d = 1 (300 steps, lr 2e-3); then speculative
+    greedy with and without it in float32 and with W8A8 weights: the KL
+    below 0.2 x its start, the agreement above 0.9, the tokens unchanged
+    by the adapter, the float32 acceptance at least doubled with fewer
+    rounds, w8a8_gemm launched by the W8A8 runs."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.decode.speculative import (
+        SpecSpec,
+        speculative_greedy,
+    )
+    from infinisst_tpu_torch.models import llama as L
+    from infinisst_tpu_torch.models.quant import quantize_llama_params
+    from infinisst_tpu_torch.streaming.state import init_decoder_state
+    from infinisst_tpu_torch.tools import quant_fidelity as QF
+    from infinisst_tpu_torch.train import draft as DR
+
+    cfg = QF.CFG
+    reset_counts()
+    corpus = QF.make_corpus(np.random.RandomState(0), 64, 64)
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, torch.float32)
+    params = QF.train(params, corpus, DISTILL_TINY_TRAIN)
+    prompts = torch.as_tensor(QF.make_corpus(np.random.RandomState(50), 8, 8),
+                              device=dev)
+    rollouts = DR.rollout_corpus(params, cfg, prompts, 32)
+    adapter, hist = DR.distill(
+        params, cfg, 1, [rollouts], steps=300, lr=2e-3,
+        key=torch.Generator(device=dev).manual_seed(5), log_every=150)
+    print(f"[distill tiny] history (step, kl, agreement): {hist}",
+          flush=True)
+    if not hist[-1][1] < 0.2 * hist[0][1]:
+        fail(f"[distill tiny] the KL did not collapse: {hist}")
+    if not hist[-1][2] > 0.9:
+        fail(f"[distill tiny] final agreement {hist[-1][2]} <= 0.9")
+    spec = SpecSpec(max_new_tokens=24, eos_id=-1, pad_id=0, draft_layers=1,
+                    draft_k=4, no_repeat_ngram_size=0, repetition_penalty=1.0)
+    hist_buf = torch.zeros((8,), dtype=torch.int64, device=dev)
+
+    def run(p, exit_adapter, prompt):
+        st = init_decoder_state(cfg.num_layers, 1, len(prompt) + 24 + 5,
+                                cfg.num_kv_heads, cfg.head_dim,
+                                torch.float32, dev)
+        with torch.no_grad():
+            lg, st = L.decode_step(p, cfg, st, L.embed(p, prompt[None]))
+        return speculative_greedy(p, cfg, st, lg[0, -1, :cfg.vocab_size],
+                                  prompt, len(prompt), hist_buf, 0, spec,
+                                  exit_adapter=exit_adapter)
+
+    w8a8 = quantize_llama_params(params, quantize_lm_head=True,
+                                 act_int8=True)
+    for label, p in (("float32", params), ("w8a8", w8a8)):
+        before = launch_counts()
+        tot = {"raw": [0, 0, 0], "adapter": [0, 0, 0]}
+        for i in range(prompts.shape[0]):
+            a = run(p, None, prompts[i])
+            b = run(p, adapter, prompts[i])
+            if a.tokens[:a.n_tokens] != b.tokens[:b.n_tokens]:
+                fail(f"[distill tiny] {label}: the adapter changed the "
+                     f"tokens of prompt {i}")
+            for k, r in (("raw", a), ("adapter", b)):
+                tot[k] = [tot[k][0] + r.accepted, tot[k][1] + r.drafted,
+                          tot[k][2] + r.rounds]
+        launched = launch_counts()["w8a8_gemm"] - before["w8a8_gemm"]
+        print(f"[distill tiny] {label}: tokens equal with and without the "
+              "adapter; acceptance raw "
+              f"{tot['raw'][0]}/{tot['raw'][1]} "
+              f"({tot['raw'][0] / max(tot['raw'][1], 1):.4f}, "
+              f"{tot['raw'][2]} rounds), adapter "
+              f"{tot['adapter'][0]}/{tot['adapter'][1]} "
+              f"({tot['adapter'][0] / max(tot['adapter'][1], 1):.4f}, "
+              f"{tot['adapter'][2]} rounds); w8a8_gemm launches {launched}",
+              flush=True)
+        if label == "float32":
+            if not tot["adapter"][0] >= 2 * max(tot["raw"][0], 1):
+                fail(f"[distill tiny] acceptance not doubled: {tot}")
+            if not tot["adapter"][2] < tot["raw"][2]:
+                fail(f"[distill tiny] rounds did not drop: {tot}")
+        elif launched <= 0:
+            fail("[distill tiny] the W8A8 runs launched no w8a8_gemm")
+    paths["distill tiny"] = (
+        "quant_fidelity.train, draft.rollout_corpus and distill, "
+        "speculative_greedy float32 and W8A8", launch_counts())
+
+
+def check_distill_flagship(dev, paths):
+    """``tools.distill_adapter`` at the flagship's full width (8B float32,
+    V = 128256, rank 2048, d = 8) in a subprocess: the logged KL falls,
+    the .npz loads at d = 8 and is refused at 4.  Then the flagship W8A8
+    agent, speculative at d = 8 with the guard off, DISTILL_CHUNKS chunks
+    with and without the adapter: the same tokens, w8a8_gemm and
+    row_quant_int8 launched.  The weights are random (the tool's and the
+    agent's are not even the same draw), so the acceptance is a reading
+    of the machinery, not of the adapter."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch import bench
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent,
+        InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.train import draft as DR
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="distill_", dir=os.path.join(ROOT, "build"))
+    try:
+        prompts = os.path.join(d, "prompts.txt")
+        rng = np.random.RandomState(0)
+        with open(prompts, "w") as f:
+            for _ in range(4):
+                f.write(" ".join(str(x) for x in rng.randint(5, 128000, 16))
+                        + "\n")
+        out = os.path.join(d, "adapter_d8.npz")
+        cmd = [sys.executable, "-m", "infinisst_tpu_torch.tools.distill_adapter",
+               "--model-preset", "flagship", "--prompts", prompts,
+               "--prompt-tokens", "16", "--gen-len", "16", "--batch-size", "2",
+               "--draft-layers", "8", "--rank", "2048", "--steps", "20",
+               "--out", out]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        print(r.stderr[-3000:], flush=True)
+        if r.returncode != 0:
+            fail(f"[distill flagship] the tool exited {r.returncode}")
+        kls = [float(m.group(1)) for m in re.finditer(
+            r"^step \d+: kl (\S+) top1-agree", r.stderr, re.M)]
+        peak = re.search(r"^peak memory (\S+) GiB", r.stderr, re.M)
+        print(f"[distill flagship] tool wall {wall:.1f} s, peak memory "
+              f"{peak.group(1) if peak else '?'} GiB, kl {kls}; "
+              f"{r.stdout.strip()}", flush=True)
+        if len(kls) < 2 or not kls[-1] < kls[0]:
+            fail(f"[distill flagship] the logged KL did not fall: {kls}")
+        adapter = DR.load_adapter(out, expect_d=8)
+        if tuple(adapter["w1"].shape) != (4096, 2048):
+            fail(f"[distill flagship] w1 {tuple(adapter['w1'].shape)}")
+        try:
+            DR.load_adapter(out, expect_d=4)
+        except ValueError as e:
+            print(f"  refused at d=4: {e}", flush=True)
+        else:
+            fail("[distill flagship] the d=8 adapter loaded at d=4")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    cfg, params = bench.flagship_params(dev)
+    stream = StreamConfig()
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    runs = {}
+    reset_counts()
+    for label, ad in (("no adapter", None), ("adapter", adapter)):
+        opts = InfiniSSTOptions(
+            latency_multiplier=1, beam=4,
+            max_llm_cache_size=stream.max_llm_cache_tokens, speculative=True,
+            spec_draft_layers=8, spec_guard=False, spec_adapter=ad)
+        agent = InfiniSSTAgent(params, cfg, stream, builder, opts,
+                               param_dtype=torch.bfloat16, device=dev)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        bench.run_stream(agent, DISTILL_CHUNKS, warmup=0)
+        after = launch_counts()
+        n = {k: after[k] - before[k] for k in after}
+        fields = bench.spec_fields(agent)
+        runs[label] = list(agent.states.target_ids)
+        print(f"[distill flagship] agent {label}: {DISTILL_CHUNKS} chunks in "
+              f"{time.perf_counter() - t0:.1f} s, {len(runs[label])} target "
+              f"ids, accept_rate {fields['accept_rate']}, rounds "
+              f"{fields['rounds']}; launches "
+              f"{json.dumps({k: v for k, v in n.items() if v})}", flush=True)
+        if n["w8a8_gemm"] <= 0 or n["row_quant_int8"] <= 0:
+            fail(f"[distill flagship] {label}: no int8 launches {n}")
+        del agent
+    paths["distill flagship"] = (
+        "tools.distill_adapter --model-preset flagship (float32, plain "
+        "torch) and the W8A8 speculative agent d=8, with and without the "
+        "adapter", launch_counts())
+    if runs["adapter"] != runs["no adapter"]:
+        fail("[distill flagship] the adapter changed the agent's tokens")
+    print("[distill flagship] tokens equal with and without the adapter; "
+          "random weights: the acceptance rates read the machinery, not "
+          "the adapter", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_tc_kernel",
+                     "w8_bf16_gemm_tc_kernel", "group_quant_int8_kernel",
+                     "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel")
+
+
+def check_profiling(dev, params):
+    """``core.profiling`` on the card: ``timed`` and ``StepTimer`` around
+    w8a8_gemm launches with ``sync_on=``, and ``device_trace`` over one
+    prefill of the probe's W8A8 model: the Chrome trace names the port's
+    kernels."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.core import profiling as P
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+    from infinisst_tpu_torch.models.quant import quantize_llama_params
+    from infinisst_tpu_torch.tools import quant_fidelity as QF
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    M, D, O = REPORT_SHAPE
+    y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(
+        torch.bfloat16)
+    wt = torch.randint(-127, 128, (O, D), generator=gen, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand((O,), generator=gen, device=dev) * 1e-3
+    yq, ys = K.row_quant_int8(y)
+    torch.cuda.synchronize()
+    before = K.launch_counts["w8a8_gemm"]
+    with P.timed(f"[profiling] timed w8a8_gemm M={M} D={D} O={O}",
+                 sync_on=yq):
+        K.w8a8_gemm(yq, ys, wt, s, torch.bfloat16)
+    timer = P.StepTimer()
+    for _ in range(5):
+        with timer.phase("w8a8_gemm", sync_on={"y": [yq, ys]}):
+            K.w8a8_gemm(yq, ys, wt, s, torch.bfloat16)
+    print(timer.report(), flush=True)
+    if timer.counts["w8a8_gemm"] != 5 or \
+            K.launch_counts["w8a8_gemm"] - before != 6:
+        fail("[profiling] the timed launches were not counted")
+    vp = quantize_llama_params(params, quantize_lm_head=True, act_int8=True)
+    ids = torch.as_tensor(QF.make_corpus(np.random.RandomState(0), 8, 64),
+                          device=dev)
+    QF.prefill_logits(vp, ids)  # warm
+    d = tempfile.mkdtemp(prefix="profile_", dir=os.path.join(ROOT, "build"))
+    try:
+        with P.device_trace(d) as prof:
+            QF.prefill_logits(vp, ids)
+        with open(os.path.join(d, "trace.json")) as f:
+            trace = json.load(f)
+        names = {e.get("name", "") for e in trace.get("traceEvents", [])}
+        seen = sorted({k for k in PORT_KERNEL_NAMES
+                       if any(k in n for n in names)})
+        dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+                  if any(k in e.key for k in PORT_KERNEL_NAMES)}
+        print(f"[profiling] device_trace of one W8A8 prefill of the probe's "
+              f"model: {len(names)} event names, port kernels {seen}, "
+              f"device us {json.dumps(dev_us)}", flush=True)
+        if not {"row_quant_int8_kernel", "w8a8_gemm_tc_kernel"} <= set(seen):
+            fail("[profiling] the trace names no port kernel")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3211,6 +3754,18 @@ def main():
             profile_train_bench(dev)
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with phase("fidelity"):
+        print("[fidelity] tools.quant_fidelity on the card: int8 token "
+              "flips on a trained model", flush=True)
+        fidelity_params = check_fidelity(dev, notes, paths)
+    with phase("distill tiny"):
+        check_distill_tiny(dev, paths)
+    with phase("distill flagship"):
+        check_distill_flagship(dev, paths)
+    with phase("profiling"):
+        check_profiling(dev, fidelity_params)
+    del fidelity_params
 
     # 9. the kernels line
     q_src = "infinisst_tpu_torch/csrc/quant_matmul.cu"
@@ -3311,6 +3866,28 @@ def main():
                                      "bound_by", "library_ms")}}
         if paths["spec"][1][e["name"]] <= 0:
             fail(f"{e['name']} was not launched on the speculative paths")
+    # the tools: launches on the fidelity probe and the two distillation
+    # phases, and the times at the probe's shapes (its prefill into wq,
+    # float32; decode_attention at its beam step's prefix)
+    tool_shapes = {"row_quant_int8": ("tools", TOOL_SHAPE[0], TOOL_SHAPE[1],
+                                      0),
+                   "group_quant_int8": ("tools", TOOL_SHAPE[0],
+                                        TOOL_SHAPE[1], 0),
+                   "decode_attention": TOOL_ATT_SHAPE}
+    for e in entries:
+        shape = tool_shapes.get(e["name"], ("tools",) + TOOL_SHAPE)
+        t = notes.rows[e["name"]]["shapes"][shape]
+        e["tools"] = {
+            "launches": {k.replace(" ", "_"): paths[k][1][e["name"]]
+                         for k in ("fidelity", "distill tiny",
+                                   "distill flagship")},
+            "path": "; ".join(paths[k][0] for k in (
+                "fidelity", "distill tiny", "distill flagship")),
+            "shape": [x for x in shape[1:] if x != 0],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
+        if paths["fidelity"][1][e["name"]] <= 0:
+            fail(f"{e['name']} was not launched on the fidelity probe")
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

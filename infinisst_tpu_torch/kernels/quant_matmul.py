@@ -605,6 +605,15 @@ def grouped_gemm_plan(M: int, D: int, O: int, G: int, sms: int
                            _cdiv(G, per))
 
 
+def grouped_gemm_refusal(D: int, G: int, O: int):
+    """Why ``w8a8_grouped_gemm`` refuses a (D, O) weight in G groups (its
+    MMA takes whole runs of 32 int8 values a group), or None."""
+    if (D // G) % 32 or O % 4:
+        return (f"w8a8_grouped_gemm: group size {D // G} must be a "
+                f"multiple of 32 and O={O} of 4")
+    return None
+
+
 def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
     """y_q (M, D) int8, y_s (M, G) f32, w_t (O, D) int8 K-major, scale
     (G, O) f32 -> (M, O) out_dtype."""
@@ -628,9 +637,9 @@ def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
             f"w8a8_grouped_gemm: shapes y_q {tuple(y_q.shape)} y_s "
             f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
         )
-    if (D // G) % 32 or O % 4:
-        raise ValueError(f"w8a8_grouped_gemm: group size {D // G} must be a "
-                         f"multiple of 32 and O={O} of 4")
+    why = grouped_gemm_refusal(D, G, O)
+    if why:
+        raise ValueError(why)
     if y_q.data_ptr() % 16 or w_t.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("w8a8_grouped_gemm: y_q, w_t and scale must be "
                          "16-byte aligned")

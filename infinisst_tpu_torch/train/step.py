@@ -186,6 +186,15 @@ class AdamW:
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
+def adam(lr: float, n_leaves: int) -> AdamW:
+    """optax.adam(lr) over ``n_leaves`` leaves, all trained: b1 0.9, b2
+    0.999, eps 1e-8 after the square root, a constant rate, no clip, no
+    decay."""
+    return AdamW(OptimConfig(learning_rate=lr, warmup_steps=0,
+                             scheduler="constant", clip_norm=math.inf),
+                 [True] * n_leaves)
+
+
 class MultiSteps:
     """optax.MultiSteps(inner, every_k) with the gradient mean: the running
     mean of the mini-steps' gradients goes to ``inner`` on every k-th one;
