@@ -92,6 +92,21 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  agent, profiled (device time by stage: encoder,
                  adapter, prefill, beam steps); a call at 64 beam steps
                  with a synchronise around each stage.
+     mesh     -- (after streamatt, on the flagship's weights) the mesh path
+                 at world size 1 (one card; the multi-rank paths are held
+                 on the CPU under gloo, tests/test_torch_parallel.py): in
+                 this process a world-1 NCCL group, the flagship W8A8
+                 agent through shard_params and tensor_parallel at (1, 1),
+                 4 chunks, its target ids those of the agent without a
+                 mesh after every chunk, w8a8_gemm, row_quant_int8 and
+                 decode_attention launched; the sharded train step at
+                 (1, 1) on the dryrun preset bitwise make_train_step's
+                 (deterministic algorithms on); then under ``torchrun
+                 --standalone --nproc_per_node 1`` the dryrun
+                 (``parallel.dryrun``: the stage 2 step, the TP prefill,
+                 the pooled, speculative and sampling pool ticks) with its
+                 summary line and launches, and ``train.main --n_data 1
+                 --max_steps 3`` (metrics.jsonl, the checkpoint).
      streamatt -- (after flagship, on its weights) the bench's StreamAtt
                  agent driven directly for 16 chunks through the bench's
                  run_offline: each chunk's wall, beam steps, prompt
@@ -206,6 +221,13 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  and wall (after checking the free space); then a second
                  Trainer with max_steps=4 restores step 3 and takes one
                  step.  The run directory is removed.
+     train flagship stage 2 -- Trainer.fit on the same rows at stage 2
+                 (the adapter and the 8B LLM trained, the encoder frozen),
+                 bfloat16, remat, 3 steps, no checkpoint: finite losses,
+                 every w2v2 leaf bitwise unchanged, the adapter and every
+                 LLM matrix moved, no kernel launched; the step walls, the
+                 peak memory and the bytes of the parameters, gradients
+                 and AdamW moments, counted from the leaves.
      train main -- ``python -m infinisst_tpu_torch.train.main
                  --model_preset dryrun --max_steps 3`` on the card in a
                  subprocess: metrics.jsonl and the checkpoint.
@@ -246,7 +268,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
  14. one JSON ``kernels`` line (the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
      decode_attention; the training path's launches, 0, under
-     ``train``; the tools' launches by phase and the times at the
+     ``train``; the mesh path's, by the agent and the dryrun, under
+     ``mesh``; the tools' launches by phase and the times at the
      probe's shapes under ``tools``), then the card line, then the
      result line.
 
@@ -2869,12 +2892,13 @@ def _tree_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
-def _flagship_trainer(dev, d, max_steps):
+def _flagship_trainer(dev, d, max_steps, stage=1, run="run"):
     """A Trainer on the flagship preset (random bfloat16 weights, as
-    bench.py's bench_train builds them), stage 1, remat, encoder dropout
-    0.1, over the TSV in ``d``: collator 4 at m = 1, two 28.8 s rows a
-    batch, log_step 1, save_step 0.  Its steps and saves are timed (the
-    step synchronised)."""
+    bench.py's bench_train builds them), ``stage`` (1 by default), remat,
+    encoder dropout 0.1 (applied at stage 1 only), over the TSV in ``d``:
+    collator 4 at m = 1, two 28.8 s rows a batch, log_step 1, save_step
+    0, under ``d/run``.  Its steps and saves are timed (the step
+    synchronised)."""
     import torch
 
     from infinisst_tpu_torch.core.presets import flagship_config
@@ -2885,10 +2909,10 @@ def _flagship_trainer(dev, d, max_steps):
     cfg = flagship_config()
     args = TrainerArgs(
         data_path=d, data_split_train="tr", data_split_eval="none",
-        trajectory=4, trajectory_max_multiplier=1, stage=1, train_bsz=1900,
-        bsz_sent=2, learning_rate=TRAIN_LR, warmup_steps=1,
+        trajectory=4, trajectory_max_multiplier=1, stage=stage,
+        train_bsz=1900, bsz_sent=2, learning_rate=TRAIN_LR, warmup_steps=1,
         max_steps=max_steps, grad_acc_steps=1, log_step=1, eval_step=0,
-        save_step=0, save_dir=os.path.join(d, "run"), remat=True,
+        save_step=0, save_dir=os.path.join(d, run), remat=True,
         encoder_dropout=0.1)
     t = Trainer(args, cfg, PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
                                          cfg.tokens),
@@ -2912,28 +2936,25 @@ def _flagship_trainer(dev, d, max_steps):
     return t
 
 
-def check_train_flagship(dev, paths):
+def check_train_flagship(dev, paths, d):
     """Trainer.fit on the flagship (Llama-3.1-8B + wav2vec2-large) in
     bfloat16, stage 1, 3 steps over synthetic TSV + wav rows of 28.8 s
     under build/: finite losses, every LLM leaf bitwise unchanged, the
     encoder and adapter moved, no kernel launched; the step walls, the
     peak memory, the final save's size and wall.  Then a second Trainer
     with max_steps=4 restores step 3 and takes one step.  The run
-    directory is removed afterwards."""
+    directory is removed afterwards.  ``d`` holds the TSV and wav rows
+    (``write_train_tsv(d, 6, 30, ...)``, shared with ``[train flagship
+    stage 2]``)."""
     import gc
 
-    import numpy as np
     import torch
 
-    from infinisst_tpu_torch.bench import write_train_tsv
     from infinisst_tpu_torch.train import checkpoint as ckpt
     from infinisst_tpu_torch.train.step import tree_leaves
 
     build = os.path.join(ROOT, "build")
-    os.makedirs(build, exist_ok=True)
-    d = tempfile.mkdtemp(prefix="train_flagship_", dir=build)
     try:
-        write_train_tsv(d, 6, 30, np.random.RandomState(0))
         t = _flagship_trainer(dev, d, 3)
         state_bytes = _tree_bytes(t.state.params) + _tree_bytes(
             t.state.opt_state)
@@ -2997,7 +3018,9 @@ def check_train_flagship(dev, paths):
         profile_run(dev, lambda: step_fn(t.state, batch), TRAIN_STAGES,
                     "train profile", statistics.median(t.walls[1:]) * 1e3,
                     "step")
-        del t, snap
+        # step_fn (the timed step) refers to t: drop both, and collect
+        # their reference cycle, before the next Trainer's weights
+        del t, snap, step_fn, batch
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3015,9 +3038,322 @@ def check_train_flagship(dev, paths):
               f"(restore + step + save) {wall:.1f} s", flush=True)
         del t2
     finally:
-        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(os.path.join(d, "run"), ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def check_train_flagship_stage2(dev, d):
+    """Trainer.fit on the flagship in bfloat16 at stage 2 (the adapter and
+    the whole 8B LLM trained, the encoder frozen), remat, 3 steps over
+    the TSV rows of 28.8 s in ``d`` (``[train flagship]``'s): finite
+    losses, every w2v2 leaf bitwise unchanged, the adapter and the LLM
+    moved (read at each leaf's first 4096 entries: some adapter leaf,
+    and every LLM matrix but the embedding, whose rows outside the batch
+    get no gradient), no kernel launched; the step walls, the peak
+    memory, and the bytes of the parameters, the gradients (one a
+    trainable leaf) and the moments (mu, nu), counted from the leaves.
+    Nothing is saved, and the run directory is removed afterwards."""
+    import gc
+
+    import torch
+
+    from infinisst_tpu_torch.train import step as tstep
+
+    run = os.path.join(d, "run2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    try:
+        t = _flagship_trainer(dev, d, 3, stage=2, run="run2")
+        # no checkpoint (~50 GB at stage 2): [train flagship] holds saving
+        # and resuming
+        t._save = lambda step: None
+        params = t.state.params
+        mask = tstep.tree_leaves(tstep.trainable_mask(params, t.freeze))
+        leaves = tstep.tree_leaves(params)
+        p_bytes = _tree_bytes(params)
+        g_bytes = sum(p.numel() * p.element_size()
+                      for p, m in zip(leaves, mask) if m)
+        opt = t.state.opt_state
+        m_bytes = _tree_bytes(opt["mu"]) + _tree_bytes(opt["nu"])
+        # the check's own copies: the encoder whole, 4096 entries of each
+        # adapter and LLM leaf
+        enc = [p.clone() for p in tstep.tree_leaves(params["w2v2"])]
+        sample = {c: [p.reshape(-1)[:4096].clone()
+                      for p in tstep.tree_leaves(params[c])]
+                  for c in ("adapter", "llama")}
+        copy_bytes = _tree_bytes(enc) + _tree_bytes(sample)
+        gib = 2**30
+        print(f"[train flagship stage 2] parameters {p_bytes / gib:.2f} "
+              f"GiB, gradients {g_bytes / gib:.2f} GiB, moments "
+              f"{m_bytes / gib:.2f} GiB (from the leaves; "
+              f"{sum(mask)} of {len(mask)} leaves trained); two rows of "
+              f"28.8 s a batch; {before / gib:.2f} GiB allocated before "
+              f"the Trainer", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        if t.fit() != 3:
+            fail("[train flagship stage 2] fit did not stop at step 3")
+        fit_wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = launch_counts()
+        if any(counts.values()):
+            fail(f"[train flagship stage 2] kernels launched: {counts}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            logs = [json.loads(x) for x in f.read().splitlines()]
+        losses = [x["train_loss"] for x in logs if "train_loss" in x]
+        if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+            fail(f"[train flagship stage 2] losses {losses}")
+        params = t.state.params
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tstep.tree_leaves(params["w2v2"]), enc)):
+            fail("[train flagship stage 2] a frozen w2v2 leaf moved")
+        # an update of about lr (1e-3) rounds away in bfloat16 on an entry
+        # near 1 (the norm scales, spacing 2^-7): the matrices must move
+        still = []
+        for c, before in sample.items():
+            names = tstep.tree_leaves(_leaf_names(params[c]))
+            moved = [not torch.equal(p.reshape(-1)[:4096], b) for p, b in
+                     zip(tstep.tree_leaves(params[c]), before)]
+            still += [f"{c}/{n}" for n, m in zip(names, moved) if not m]
+            if not any(moved):
+                fail(f"[train flagship stage 2] no {c} leaf moved")
+        if any(n.startswith("llama/layers/w") or n == "llama/lm_head"
+               for n in still):
+            fail(f"[train flagship stage 2] LLM matrices did not move: "
+                 f"{still}")
+        norms = [float("%.4g" % x["grad_norm"]) for x in logs]
+        print(f"[train flagship stage 2] losses "
+              f"{[round(x, 4) for x in losses]}; grad norms {norms}; step "
+              f"walls {[round(x, 3) for x in t.walls]} s (the first "
+              f"includes warm-up); fit {fit_wall:.1f} s; peak "
+              f"{peak / gib:.2f} GiB (max_memory_allocated), of which "
+              f"{copy_bytes / gib:.2f} GiB this check's copies: "
+              f"{(peak - copy_bytes) / gib:.2f} GiB for the training; "
+              f"every w2v2 leaf bitwise unchanged, the adapter and the LLM "
+              f"moved (unmoved at their first 4096 entries: {still}); "
+              f"launches {counts}", flush=True)
+        del t, params, enc, sample
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _leaf_names(tree, prefix=""):
+    """The tree with each leaf replaced by its key path, 'a/b'."""
+    if isinstance(tree, dict):
+        return {k: _leaf_names(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_leaf_names(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return prefix[:-1]
+
+
+def _agent_tokens(dev, cfg, params, n_chunks, mesh=None):
+    """The flagship agent (m = 1, beam 4, the default stream) on
+    ``n_chunks`` chunks of seeded noise, under ``tensor_parallel(mesh)``;
+    its target ids after each chunk and the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.parallel.collectives import tensor_parallel
+
+    rng = np.random.RandomState(12)
+    out = []
+    reset_counts()
+    with tensor_parallel(mesh):
+        agent = InfiniSSTAgent(
+            params, cfg, StreamConfig(),
+            PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens),
+            InfiniSSTOptions(latency_multiplier=1, beam=4),
+            param_dtype=torch.bfloat16, device=dev)
+        for _ in range(n_chunks):
+            agent.push(rng.randn(agent.chunk_samples).astype(np.float32)
+                       * 0.1, finished=False)
+            out.append(list(agent.states.target_ids))
+    _sync(dev)
+    return out, launch_counts()
+
+
+def check_mesh_step(dev, mesh):
+    """The sharded train step at mesh (1, 1) on the dryrun preset (float32,
+    stage 2, remat, 3 of [train tiny]'s batches) against
+    ``make_train_step`` without a mesh: losses, grad norms and every
+    parameter bitwise equal (at world size 1 no reduction is reordered).
+    Deterministic algorithms are on for the check (the embedding's and
+    the convolutions' backward passes otherwise accumulate in any
+    order); a second run without the mesh shows the card repeats
+    itself."""
+    import torch
+
+    from infinisst_tpu_torch.core.presets import dryrun_config
+    from infinisst_tpu_torch.parallel import mesh as pmesh
+    from infinisst_tpu_torch.train import step as tstep
+    from infinisst_tpu_torch.train.main import random_params
+    from infinisst_tpu_torch.train.trainer import BATCH_KEYS
+
+    cfg = dryrun_config()
+    host = train_tiny_batches(cfg, n=3)
+    base = random_params(cfg, "cpu", torch.float32)
+    freeze = tstep.FreezeConfig.stage2()
+
+    def run(with_mesh):
+        params = tstep.tree_map(lambda t: t.clone().to(dev), base)
+        plan = None
+        if with_mesh:
+            params, lay = pmesh.shard_params(
+                params, mesh, pmesh.model_param_specs(cfg), cfg=cfg)
+            plan = tstep.MeshPlan(mesh, lay, False, tstep.tree_leaves(
+                tstep.trainable_mask(params, freeze)))
+        tx = tstep.make_optimizer(tstep.OptimConfig(
+            learning_rate=TRAIN_LR, warmup_steps=1, total_steps=6),
+            params, freeze)
+        state = tstep.init_train_state(params, tx, plan)
+        step = tstep.make_train_step(cfg, tx, 48, 96, freeze=freeze,
+                                     remat=True, plan=plan)
+        metrics = []
+        for b in host:
+            state, m = step(state, tstep.Batch(**{
+                k: torch.from_numpy(b[k]).to(dev) for k in BATCH_KEYS}))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return metrics, tstep.tree_leaves(state.params)
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_cudnn = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run(False)
+        sharded = run(True)
+        again = run(False)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        torch.backends.cudnn.deterministic = prev_cudnn
+    for label, other in (("the plain step run again", again),
+                         ("the sharded step at (1, 1)", sharded)):
+        if other[0] != plain[0] or not all(
+                torch.equal(a, b) for a, b in zip(other[1], plain[1])):
+            fail(f"[mesh] {label} is not bitwise the plain step: metrics "
+                 f"{other[0]} against {plain[0]}")
+    print(f"[mesh] sharded train step at (1, 1), dryrun float32 stage 2, 3 "
+          f"steps: losses and grad norms {plain[0]} and every parameter "
+          f"bitwise those of make_train_step without a mesh", flush=True)
+
+
+def check_mesh(dev, cfg, params, d, paths):
+    """The mesh path on the card at world size 1 (one H100: NCCL refuses
+    two ranks on one card, so the multi-rank checks run on the CPU under
+    gloo, tests/test_torch_parallel.py):
+
+    1. in this process, a world-1 NCCL group: the flagship W8A8 agent
+       (``[flagship]``'s weights) through the mesh path (``shard_params``
+       at (1, 1), ``tensor_parallel``), 4 chunks: the target ids of the
+       agent without a mesh after every chunk, and w8a8_gemm,
+       row_quant_int8 and decode_attention launched;
+    2. in the same group, ``check_mesh_step``;
+    3. ``torchrun --standalone --nproc_per_node 1 -m
+       infinisst_tpu_torch.parallel.dryrun``: the five parts at mesh (1, 1)
+       under NCCL, exit 0 and the summary line, its launches;
+    4. ``torchrun ... -m infinisst_tpu_torch.train.main --model_preset
+       dryrun --n_data 1 --max_steps 3``: metrics.jsonl with three finite
+       losses and the checkpoint of step 3."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from infinisst_tpu_torch.bench import write_train_tsv
+    from infinisst_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = pmesh.make_mesh(1, 1, dev)
+        local, _ = pmesh.shard_params(params, mesh,
+                                      pmesh.model_param_specs(cfg), cfg=cfg)
+        want, _ = _agent_tokens(dev, cfg, params, 4)
+        got, counts = _agent_tokens(dev, cfg, local, 4, mesh=mesh)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                fail(f"[mesh] chunk {i}: target ids {g} through the mesh "
+                     f"path, {w} without it")
+        for k in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+            if counts[k] <= 0:
+                fail(f"[mesh] {k} was not launched on the mesh path")
+        print(f"[mesh] flagship W8A8 agent through the mesh path at (1, 1): "
+              f"4 chunks, {len(got[-1])} target ids, equal to the agent "
+              f"without a mesh after every chunk; launches {counts} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del local
+        torch.cuda.empty_cache()
+        check_mesh_step(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    t1 = time.perf_counter()
+    out = subprocess.run(torchrun + ["-m", "infinisst_tpu_torch.parallel.dryrun"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    lines = (out.stdout + out.stderr).strip().splitlines()
+    for line in lines[-3:]:
+        print(f"[mesh]   {line}", flush=True)
+    summary = [x for x in out.stdout.splitlines()
+               if x.startswith("dryrun_multichip OK: mesh=(1x1) devices=1")]
+    if out.returncode != 0 or not summary:
+        fail(f"[mesh] the dryrun exited {out.returncode} without its summary")
+    dry = _stderr_json(out.stderr, "kernel launches ")
+    if dry.get("decode_attention", 0) <= 0:
+        fail(f"[mesh] the dryrun's pool ticks launched no decode_attention: "
+             f"{dry}")
+    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
+    print(f"[mesh] dryrun under torchrun (NCCL, world 1): exit 0, launches "
+          f"{dry}, decode_attention by shape {shapes} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    t2 = time.perf_counter()
+    data = os.path.join(d, "mesh_main")
+    os.makedirs(data)
+    write_train_tsv(data, 6, 2, np.random.RandomState(1), words_per_unit=0)
+    run = os.path.join(data, "run")
+    out = subprocess.run(
+        torchrun + ["-m", "infinisst_tpu_torch.train.main",
+                    "--model_preset", "dryrun", "--n_data", "1",
+                    "--max_steps", "3", "--data_path", data,
+                    "--data_split_train", "tr", "--data_split_eval", "tr",
+                    "--eval_step", "0", "--log_step", "1", "--save_step", "0",
+                    "--grad_acc_steps", "1", "--train_bsz", "300",
+                    "--max_cache_size", "96", "--save_dir", run],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in (out.stdout + out.stderr).strip().splitlines()[-2:]:
+        print(f"[mesh]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[mesh] train.main under torchrun exited {out.returncode}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        logs = [json.loads(x) for x in f.read().splitlines()]
+    losses = [x["train_loss"] for x in logs if "train_loss" in x]
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        fail(f"[mesh] train.main under torchrun: losses {losses}")
+    saved = torch.load(os.path.join(run, "ckpt", "3", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    if saved["step"] != 3:
+        fail(f"[mesh] the torchrun checkpoint holds step {saved['step']}")
+    print(f"[mesh] train.main under torchrun (NCCL, n_data 1): losses "
+          f"{[round(x, 4) for x in losses]}, checkpoint of step 3 "
+          f"({time.perf_counter() - t2:.1f} s)", flush=True)
+    paths["mesh"] = (
+        "[mesh] the flagship W8A8 agent at mesh (1, 1), 4 chunks; the "
+        "dryrun under torchrun at (1, 1)", {"agent": counts, "dryrun": dry})
 
 
 def check_train_main(d):
@@ -3708,6 +4044,13 @@ def main():
         cfg, params = check_flagship(dev, paths)
     with phase("streamatt"):
         check_streamatt(dev, cfg, params)
+    mesh_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        with phase("mesh"):
+            check_mesh(dev, cfg, params, mesh_dir, paths)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
     speech = {k: params[k] for k in ("w2v2", "adapter")}
     del params
     torch.cuda.empty_cache()
@@ -3745,8 +4088,20 @@ def main():
             print("[train tiny] dryrun float32 train steps: card against "
                   "CPU", flush=True)
             check_train_tiny(dev)
-        with phase("train flagship"):
-            check_train_flagship(dev, paths)
+        import numpy as np
+
+        from infinisst_tpu_torch.bench import write_train_tsv
+
+        train_dir = tempfile.mkdtemp(prefix="train_flagship_",
+                                     dir=os.path.join(ROOT, "build"))
+        try:
+            write_train_tsv(train_dir, 6, 30, np.random.RandomState(0))
+            with phase("train flagship"):
+                check_train_flagship(dev, paths, train_dir)
+            with phase("train flagship stage 2"):
+                check_train_flagship_stage2(dev, train_dir)
+        finally:
+            shutil.rmtree(train_dir, ignore_errors=True)
         with phase("train main"):
             check_train_main(cli_dir)
         with phase("train bench"):
@@ -3809,6 +4164,12 @@ def main():
         train_path, train_counts = paths["train"]
         entries[-1]["train"] = {"launches": train_counts.get(name, 0),
                                 "path": train_path}
+        # the mesh path at world size 1: the flagship agent in this
+        # process, the dryrun under torchrun
+        mesh_path, mesh_counts = paths["mesh"]
+        entries[-1]["mesh"] = {
+            "launches": {k: c.get(name, 0) for k, c in mesh_counts.items()},
+            "path": mesh_path}
     # decode_attention_batched (decode_attention.py:287), the same kernel:
     # the serving pool's prefix, 8 caches each read by its slot's 4 beams
     t = notes.rows["decode_attention"]["shapes"][POOL_PREFIX]

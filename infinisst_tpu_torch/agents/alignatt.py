@@ -107,8 +107,10 @@ class AlignAttAgent(InfiniSSTAgent):
         start = min(patch_start, pbucket - speech.shape[1])
         emb[:, start:start + speech.shape[1]] = speech.to(emb.dtype)
         ll = cfg.llama
-        dec = init_decoder_state(ll.num_layers, 1, pbucket + G,
-                                 ll.num_kv_heads, ll.head_dim, emb.dtype, dev)
+        dec = init_decoder_state(
+            ll.num_layers, 1, pbucket + G,
+            llama_mod.local_heads(self.params["llama"]["layers"], ll)[1],
+            ll.head_dim, emb.dtype, dev)
         valid = (torch.arange(pbucket, device=dev)[None] < plen).to(
             torch.int64)
         logits, dec, probes = llama_mod.decode_step(

@@ -53,6 +53,7 @@ from infinisst_tpu_torch.decode import speculative as spec_mod
 from infinisst_tpu_torch.decode.spec_beam import spec_beam_search
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
+from infinisst_tpu_torch.models import wav2vec2 as w2v2_mod
 from infinisst_tpu_torch.streaming.state import (
     DecoderState,
     init_decoder_state,
@@ -137,6 +138,12 @@ class InfiniSSTAgent(SpeechToTextAgent):
         dev = self.device
         if opts.quantize:
             from infinisst_tpu_torch.models.quant import quantize_llama_params
+            from infinisst_tpu_torch.parallel import collectives as par
+
+            if par.model_size() > 1:
+                raise ValueError(
+                    "quantize under tensor parallelism: the int8 layouts "
+                    "are not split over 'model' (ROADMAP §3)")
 
             params = dict(params)
             params["llama"] = quantize_llama_params(params["llama"])
@@ -208,13 +215,20 @@ class InfiniSSTAgent(SpeechToTextAgent):
     # -- state -------------------------------------------------------------
     def _init_device_state(self):
         w, ll, dev = self.cfg.w2v2, self.cfg.llama, self.device
+        # the heads this rank holds (a block of them under tensor
+        # parallelism; a policy-only agent has no parameters)
+        p = self.params
+        enc_heads, kv_heads = w.encoder_attention_heads, ll.num_kv_heads
+        if p is not None:
+            enc_heads = w2v2_mod.local_heads(p["w2v2"], w)
+            kv_heads = llama_mod.local_heads(p["llama"]["layers"], ll)[1]
         self.enc_state = init_encoder_state(
-            w.encoder_layers, 1, self.stream.max_cache_frames,
-            w.encoder_attention_heads, w.head_dim, self.dtype, dev,
+            w.encoder_layers, 1, self.stream.max_cache_frames, enc_heads,
+            w.head_dim, self.dtype, dev,
         )
         self.dec_state = init_decoder_state(
-            ll.num_layers, 1, self.stream.llm_cache_capacity,
-            ll.num_kv_heads, ll.head_dim, self.dtype, dev,
+            ll.num_layers, 1, self.stream.llm_cache_capacity, kv_heads,
+            ll.head_dim, self.dtype, dev,
         )
         self.window = torch.zeros((1, self.window_samples),
                                   dtype=torch.float32, device=dev)

@@ -179,7 +179,8 @@ def batched_beam_search(
     P, V = last_logits.shape
     rows = P * B
     dev = last_logits.device
-    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    # the KV heads the cache holds (KV / n_model under tensor parallelism)
+    KV, Dh, L = dec.k.shape[3], cfg.head_dim, cfg.num_layers
     caps = [G] * P if max_steps is None else _ints(max_steps)
 
     seq_buf = torch.cat([
@@ -391,7 +392,7 @@ def sample_decode(
     draw is not forwarded."""
     G = spec.max_new_tokens
     dev = first_logits.device
-    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    KV, Dh, L = prefix.k.shape[3], cfg.head_dim, cfg.num_layers
     i64 = dict(dtype=torch.int64, device=dev)
     seq_buf = torch.cat([prompt_buf.to(**i64),
                          torch.full((G,), spec.pad_id, **i64)])[None]

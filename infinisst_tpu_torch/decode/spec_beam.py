@@ -90,7 +90,7 @@ def spec_beam_search(
     V = first_logits.shape[-1]
     dev = first_logits.device
     i64 = dict(dtype=torch.int64, device=dev)
-    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    KV, Dh, L = prefix.k.shape[3], cfg.head_dim, cfg.num_layers
     Gb = G + k  # the draft stages up to k levels past the cap
     params_d, cfg_d, head_ids, head_prefix = _draft_setup(
         params, cfg, d, draft_head, exit_adapter)

@@ -590,8 +590,20 @@ def with_draft_params(params, cfg, dtype, device, head_vocab: int = 0,
     ``lowrank_head`` {'a', 'b'}) and ``spec_adapter`` (an exit adapter
     {'ln', 'w1', 'w2'}), cast to ``dtype`` on ``device``.  Raises on the
     JAX package's misconfigurations."""
+    from infinisst_tpu_torch.parallel import collectives as par
+
     D, V = cfg.llama.hidden_size, cfg.llama.vocab_size
     params = dict(params)
+    head = params["llama"]["lm_head"]
+    if par.model_size() > 1:
+        if lowrank_rank or lowrank_head is not None:
+            raise ValueError(
+                "a low-rank draft head under tensor parallelism is not "
+                "ported: its factors come from an SVD of the whole head "
+                "(ROADMAP §3)")
+        if not isinstance(head, dict) and head.shape[-1] < V:
+            # split on the vocabulary: the shortlist selects whole columns
+            head = par.gather_from_model(head, -1)
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
@@ -615,13 +627,13 @@ def with_draft_params(params, cfg, dtype, device, head_vocab: int = 0,
                                                "b": tensor(b)}}
         else:
             params["spec_draft_head"] = make_lowrank_draft_head(
-                params["llama"]["lm_head"], lowrank_rank, dtype=dtype)
+                head, lowrank_rank, dtype=dtype)
     if head_vocab:
         if not 0 < head_vocab < V:
             raise ValueError(f"spec_head_vocab={head_vocab} must be in "
                              f"(0, vocab_size={V})")
         params["spec_draft_head"] = make_draft_head(
-            params["llama"]["lm_head"], head_vocab, ids=head_ids)
+            head, head_vocab, ids=head_ids)
     if adapter is not None:
         if tuple(adapter["ln"].shape) != (D,):
             raise ValueError(

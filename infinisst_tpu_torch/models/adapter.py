@@ -5,6 +5,10 @@ Two conv blocks (conv -> LayerNorm -> GELU), kernel = stride = 2, give a
 4x temporal downsample (20 ms frames -> 80 ms speech tokens), then a
 linear projection.  Because kernel == stride the adapter is chunk-local
 and needs no streaming state.
+
+Under tensor parallelism the projection's weight and bias are split on
+their output (``parallel/mesh.py``): each rank adds its bias block to its
+columns and the output is gathered over 'model'.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch.nn.functional as F
 
 from infinisst_tpu_torch.core.config import AdapterConfig
 from infinisst_tpu_torch.models.wav2vec2 import _gelu, _layer_norm
+from infinisst_tpu_torch.parallel import collectives as par
 
 Params = Dict[str, Any]
 
@@ -30,7 +35,11 @@ def forward(params: Params, cfg: AdapterConfig, x: torch.Tensor):
         h = _gelu(_layer_norm(h.transpose(1, 2), p["ln_scale"],
                               p["ln_bias"])).transpose(1, 2)
     h = h.transpose(1, 2)
-    return h @ params["proj"]["w"] + params["proj"]["b"]
+    w, b = params["proj"]["w"], params["proj"]["b"]
+    if w.shape[-1] < cfg.out_dim:  # split over 'model'
+        par.split_width(w.shape[-1], cfg.out_dim, "adapter proj columns")
+        return par.gather_from_model(par.copy_to_model(h) @ w + b, -1)
+    return h @ w + b
 
 
 def out_length(cfg: AdapterConfig, length):

@@ -25,6 +25,16 @@ For the speculative decoders: a draft's parameters may carry an
 ``beam_tree_step`` verifies a drafted beam tree in one forward (its
 prefix block through ``decode_attention``).
 
+Under tensor parallelism (``parallel.collectives.tensor_parallel``) each
+rank holds a block of the query and KV heads and of the FFN columns
+(``parallel/mesh.py``): the functions read the local head counts from
+the leaves' shapes, put f (``copy_to_model``) before the q/k/v and
+gate/up products and g (``reduce_from_model``) after wo and w_down, and
+keep the residual stream whole on every rank; the caches hold the
+rank's KV heads.  The embedding, split on D, is gathered; the lm_head is
+column- or row-parallel as its sanitised layout says
+(``collectives.head_logits``).
+
 Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
   embed (V, D); layers: input_ln, post_ln (L, D), wq (L, D, H*Dh),
   wk/wv (L, D, KV*Dh), wo (L, H*Dh, D), w_gate/w_up (L, D, I),
@@ -47,7 +57,8 @@ from infinisst_tpu_torch.kernels.decode_attention import (
     decode_attention,
     merge_blocks,
 )
-from infinisst_tpu_torch.models.quant import mm, mm_many
+from infinisst_tpu_torch.models.quant import mm, mm_many, out_features
+from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import DecoderState
 
 Params = Dict[str, Any]
@@ -86,7 +97,26 @@ def _final_logits(params: Params, cfg: LlamaConfig, h):
     if "exit_adapter" in params:
         h = apply_exit_adapter(params["exit_adapter"], h, cfg.rms_norm_eps)
     h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    return mm(h, params["lm_head"])
+    return par.head_logits(h, params["lm_head"], cfg.vocab_size, mm)
+
+
+def local_heads(layers: Params, cfg: LlamaConfig) -> Tuple[int, int]:
+    """(query heads, KV heads) of the stacked ``layers`` as this rank
+    holds them (all of them on one card; H/n and KV/n under tensor
+    parallelism), read from the projections' shapes."""
+    return (par.split_width(out_features(layers["wq"]) // cfg.head_dim,
+                            cfg.num_heads, "llama query heads"),
+            par.split_width(out_features(layers["wk"]) // cfg.head_dim,
+                            cfg.num_kv_heads, "llama KV heads"))
+
+
+def _head_mean(w: torch.Tensor, dims, n_local: int) -> torch.Tensor:
+    """The mean of the attention weights over every head; under tensor
+    parallelism the local heads' sum is summed over 'model'."""
+    if par.model_size() == 1:
+        return w.mean(dim=dims)
+    n = n_local * par.model_size()
+    return par.reduce_from_model(w.sum(dim=dims)) / n
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,9 +142,10 @@ def layer_params(layers: Params, i: int) -> Params:
 
 
 def _mlp(h, lp, eps):
-    y = _rms_norm(h, lp["post_ln"], eps)
+    y = par.copy_to_model(_rms_norm(h, lp["post_ln"], eps))
     gate, up = mm_many(y, (lp["w_gate"], lp["w_up"]))
-    return h + mm(torch.nn.functional.silu(gate) * up, lp["w_down"])
+    return h + par.reduce_from_model(
+        mm(torch.nn.functional.silu(gate) * up, lp["w_down"]))
 
 
 def decode_step(
@@ -142,7 +173,8 @@ def decode_step(
     (ROADMAP §3)."""
     B, S, D = x_embed.shape
     C = state.k.shape[2]
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV = local_heads(params["layers"], cfg)
+    Dh = cfg.head_dim
     dev = x_embed.device
     inv_freq = rope_inv_freq(cfg, dev)
     vlen = state.valid_len.to(dev)  # (B,)
@@ -174,7 +206,7 @@ def decode_step(
     h = x_embed
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
         q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(B, S, H, Dh)
         k_new = k_new.reshape(B, S, KV, Dh)
@@ -193,12 +225,12 @@ def decode_step(
         logits = logits * scale + bias
         w = torch.softmax(logits, dim=-1).to(vt.dtype)
         if li == probe_layer:
-            span = w.to(torch.float32).mean(dim=(1, 2))[
+            span = _head_mean(w.to(torch.float32), (1, 2), H)[
                 :, :, C + attn_probe[1]:C + attn_probe[2]]
             probe = torch.argmax(span, dim=-1)  # (B, S), first maximum
         attn = torch.einsum("bkgst,bktd->bkgsd", w, vt)
         attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
-        h = h + mm(attn, lp["wo"])
+        h = h + par.reduce_from_model(mm(attn, lp["wo"]))
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
         # in-place append of this layer's new K/V (the donated cache)
@@ -219,8 +251,12 @@ def decode_step(
 
 def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     # an id past the vocabulary takes the last row, as the JAX package's
-    # gather clamps it (a stub tokenizer's ids over a small preset's vocab)
-    return params["embed"][token_ids.clamp(max=params["embed"].shape[0] - 1)]
+    # gather clamps it (a stub tokenizer's ids over a small preset's vocab);
+    # under tensor parallelism the table is split on D (n_model divides
+    # the hidden size, mesh.check_tensor_parallel) and gathered
+    table = params["embed"]
+    return par.gather_from_model(
+        table[token_ids.clamp(max=table.shape[0] - 1)], -1)
 
 
 def offline_hidden(
@@ -251,13 +287,15 @@ def offline_forward(
     checkpoints each layer.  Returns logits (B, S, V)."""
     h = _offline_scan(params["layers"], cfg, x_embed, attention_mask, remat)
     h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    return h @ params["lm_head"]
+    return par.head_logits(h, params["lm_head"], cfg.vocab_size,
+                           torch.matmul)
 
 
 def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
     B, S, _ = h.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+    H, KV = local_heads(lp, cfg)
+    Dh = cfg.head_dim
+    y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
     q = (y @ lp["wq"]).reshape(B, S, H, Dh)
     k = (y @ lp["wk"]).reshape(B, S, KV, Dh)
     v = (y @ lp["wv"]).reshape(B, S, KV, Dh)
@@ -272,10 +310,10 @@ def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
     w = torch.softmax(logits, dim=-1).to(vt.dtype)
     attn = torch.einsum("bkgst,bktd->bkgsd", w, vt)
     attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
-    h = h + attn @ lp["wo"]
-    y = _rms_norm(h, lp["post_ln"], cfg.rms_norm_eps)
+    h = h + par.reduce_from_model(attn @ lp["wo"])
+    y = par.copy_to_model(_rms_norm(h, lp["post_ln"], cfg.rms_norm_eps))
     y = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
-    return h + y @ lp["w_down"]
+    return h + par.reduce_from_model(y @ lp["w_down"])
 
 
 def _offline_scan(layers: Params, cfg: LlamaConfig, x_embed, attention_mask,
@@ -325,7 +363,7 @@ def span_probe(q, prefix_k, a0: int, a1: int, q_pos, inv_freq, lse):
     qg = qr.reshape(P, rows // P, KV, H // KV, Dh)
     s = (qg @ kr[:, None].transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
     w = torch.exp(s.reshape(rows, H, a1 - a0) - lse[..., None])
-    return torch.argmax(w.mean(dim=1), dim=-1)
+    return torch.argmax(_head_mean(w, 1, H), dim=-1)
 
 
 def beam_token_step(
@@ -354,7 +392,8 @@ def beam_token_step(
     rows, S, D = x_embed.shape
     assert S == 1
     beam = rows // prefix.k.shape[1]
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV = local_heads(params["layers"], cfg)
+    Dh = cfg.head_dim
     dev = x_embed.device
     inv_freq = rope_inv_freq(cfg, dev)
     i32 = torch.int32
@@ -371,7 +410,7 @@ def beam_token_step(
     h = x_embed
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
         q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(rows, H, Dh)
         k_new = k_new.reshape(rows, KV, Dh)
@@ -393,7 +432,8 @@ def beam_token_step(
                                   attn_probe[2], q_pos, inv_freq,
                                   torch.logaddexp(lse_p, lse_g))
         attn = merge_blocks(o_p, lse_p, o_g, lse_g)
-        h = h + mm(attn.reshape(rows, 1, H * Dh), lp["wo"])
+        h = h + par.reduce_from_model(
+            mm(attn.reshape(rows, 1, H * Dh), lp["wo"]))
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
     logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]
@@ -425,7 +465,8 @@ def beam_tree_step(
     position).  Keys are unrotated, so a node's K/V can be committed by
     copy.  Returns (logits (N, V), k_tree (L, N, KV, Dh), v_tree)."""
     N, D = x_embed.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV = local_heads(params["layers"], cfg)
+    Dh = cfg.head_dim
     Gq = H // KV
     dev = x_embed.device
     f32 = torch.float32
@@ -445,7 +486,7 @@ def beam_tree_step(
     h = x_embed[:, None]
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = _rms_norm(h, lp["input_ln"], cfg.rms_norm_eps)
+        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
         q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(N, H, Dh)
         k_new = k_new.reshape(N, KV, Dh)
@@ -479,7 +520,8 @@ def beam_tree_step(
                             v_new.to(f32).transpose(0, 1)))
         attn = merge_blocks(o_p, lse_p, o.reshape(N, H, Dh),
                             lse.reshape(N, H))
-        h = h + mm(attn.reshape(N, 1, H * Dh), lp["wo"])
+        h = h + par.reduce_from_model(
+            mm(attn.reshape(N, 1, H * Dh), lp["wo"]))
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
     logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]

@@ -82,6 +82,17 @@ def is_grouped(w) -> bool:
     return "scale_a8" in w and w["scale_a8"].ndim == w[KMAJOR].ndim
 
 
+def out_features(w) -> int:
+    """The output width of a weight in any layout: a float (..., in,
+    out), a packed int8 {'q_kmajor' (..., out, in)}, a JAX-layout int8
+    {'q' (..., in, out)} or low-rank factors {'a', 'b' (..., r, out)}."""
+    if not isinstance(w, dict):
+        return w.shape[-1]
+    if KMAJOR in w:
+        return w[KMAJOR].shape[-2]
+    return (w["b"] if "b" in w else w["q"]).shape[-1]
+
+
 def mm(y: torch.Tensor, w) -> torch.Tensor:
     """y @ w for plain, low-rank or quantized weights; y (..., D)."""
     return mm_many(y, (w,))[0]

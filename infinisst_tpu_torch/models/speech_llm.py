@@ -102,6 +102,7 @@ def offline_forward(
     remat: bool = False,
     dropout_gen: Optional[torch.Generator] = None,
     dropout_rate: float = 0.1,
+    dropout_rows=None,
 ) -> torch.Tensor:
     """Training / offline forward: the whole-utterance encoder with the
     training block mask, the speech spliced at the patch positions (ragged
@@ -110,6 +111,7 @@ def offline_forward(
         params, cfg, samples, ids, patch_mask, block_frames,
         max_cache_frames, frame_lengths, remat=remat,
         dropout_gen=dropout_gen, dropout_rate=dropout_rate,
+        dropout_rows=dropout_rows,
     )
     return llama_mod.offline_forward(
         params["llama"], cfg.llama, emb, attention_mask, remat=remat
@@ -128,6 +130,7 @@ def offline_spliced_embeddings(
     remat: bool = False,
     dropout_gen: Optional[torch.Generator] = None,
     dropout_rate: float = 0.1,
+    dropout_rows=None,
 ) -> torch.Tensor:
     """The embedding stage of :func:`offline_forward`: encoder frames ->
     adapter -> the token embeddings with the j-th patch position of row b
@@ -135,7 +138,7 @@ def offline_spliced_embeddings(
     frames = w2v2_mod.forward(
         params["w2v2"], cfg.w2v2, samples, block_frames, max_cache_frames,
         frame_lengths, remat=remat, dropout_gen=dropout_gen,
-        dropout_rate=dropout_rate,
+        dropout_rate=dropout_rate, dropout_rows=dropout_rows,
     )
     speech = adapter_mod.forward(params["adapter"], cfg.adapter, frames)
     emb = llama_mod.embed(params["llama"], ids)

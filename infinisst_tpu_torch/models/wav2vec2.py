@@ -15,6 +15,15 @@ Parameters (dense weights stored (in, out), as in the JAX package):
   bias}; post_proj {w, b}; layers (stacked, L first): ln1/ln2 scale+bias,
   wq/wk/wv/wo (L, D, D), bq/bk/bv/bo, fc1_w (L, D, F), fc1_b, fc2_w
   (L, F, D), fc2_b; final_ln {scale, bias}.
+
+Under tensor parallelism (``parallel/mesh.py``) a rank holds a block of
+the heads (wq/wk/wv's output columns with bq/bk/bv, wo's rows), of
+fc1's columns and fc2's rows, and of post_proj's output columns: f
+(``copy_to_model``) goes before the column-parallel products, g
+(``reduce_from_model``) after wo and fc2, then their replicated biases
+bo and fc2_b are added once, and the training dropout after them;
+post_proj's output is gathered before its replicated bias.  The local
+head count is read from wq's shape; the cache holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from infinisst_tpu_torch.core import masks as M
 from infinisst_tpu_torch.core import rope as R
 from infinisst_tpu_torch.core.config import W2V2Config
+from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import EncoderState
 
 Params = Dict[str, Any]
@@ -164,8 +174,8 @@ def _layer(lp, cfg: W2V2Config, h, bias, q_pos, k_pos, inv_freq,
     """One pre-LN transformer layer over h (B, S, D) attending to [cache |
     h]; ``keep`` holds the dropout masks of its attention and FFN outputs.
     Returns (h, k_new, v_new), the chunk's own unrotated K/V."""
-    H = cfg.encoder_attention_heads
-    y = _layer_norm(h, lp["ln1_scale"], lp["ln1_bias"])
+    H = _local_heads(lp["wq"], cfg)
+    y = par.copy_to_model(_layer_norm(h, lp["ln1_scale"], lp["ln1_bias"]))
     q = _split_heads(y @ lp["wq"] + lp["bq"], H)
     k_n = _split_heads(y @ lp["wk"] + lp["bk"], H)
     v_n = _split_heads(y @ lp["wv"] + lp["bv"], H)
@@ -175,11 +185,13 @@ def _layer(lp, cfg: W2V2Config, h, bias, q_pos, k_pos, inv_freq,
     else:
         k, v = k_n, v_n
     attn = _attention(q, k, v, bias, q_pos, k_pos, cfg, inv_freq)
-    attn = attn.reshape(*attn.shape[:2], -1) @ lp["wo"] + lp["bo"]
+    attn = par.reduce_from_model(
+        attn.reshape(*attn.shape[:2], -1) @ lp["wo"]) + lp["bo"]
     h = h + _drop(attn, keep[0], rate)
-    y = _layer_norm(h, lp["ln2_scale"], lp["ln2_bias"])
+    y = par.copy_to_model(_layer_norm(h, lp["ln2_scale"], lp["ln2_bias"]))
     y = _gelu(y @ lp["fc1_w"] + lp["fc1_b"])
-    h = h + _drop(y @ lp["fc2_w"] + lp["fc2_b"], keep[1], rate)
+    h = h + _drop(par.reduce_from_model(y @ lp["fc2_w"]) + lp["fc2_b"],
+                  keep[1], rate)
     return h, k_n, v_n
 
 
@@ -211,7 +223,22 @@ def _prep_frames(params: Params, cfg: W2V2Config, samples: torch.Tensor):
     feats = conv_extractor(params, cfg, samples)
     feats = _layer_norm(feats, params["post_ln"]["scale"],
                         params["post_ln"]["bias"])
-    return feats @ params["post_proj"]["w"] + params["post_proj"]["b"]
+    w, b = params["post_proj"]["w"], params["post_proj"]["b"]
+    if w.shape[-1] < b.shape[-1]:  # split over 'model': gather, then b
+        par.split_width(w.shape[-1], b.shape[-1], "w2v2 post_proj columns")
+        return par.gather_from_model(par.copy_to_model(feats) @ w, -1) + b
+    return feats @ w + b
+
+
+def local_heads(params: Params, cfg: W2V2Config) -> int:
+    """The encoder heads this rank holds (all on one card, H/n under
+    tensor parallelism), from wq's shape."""
+    return _local_heads(params["layers"]["wq"], cfg)
+
+
+def _local_heads(wq, cfg: W2V2Config) -> int:
+    return par.split_width(wq.shape[-1] // cfg.head_dim,
+                           cfg.encoder_attention_heads, "w2v2 heads")
 
 
 def forward(
@@ -224,6 +251,7 @@ def forward(
     remat: bool = False,
     dropout_gen: Optional[torch.Generator] = None,
     dropout_rate: float = 0.1,
+    dropout_rows: Optional[Tuple[int, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Offline / training forward over a fresh cache with the block-causal
     mask (``block_frames = max_cache_frames = 10**7`` makes it
@@ -233,7 +261,11 @@ def forward(
 
     With ``dropout_gen`` (``dropout_generator``) the fairseq training
     dropout at ``dropout_rate`` hits the input and each layer's attention
-    and FFN outputs.  ``remat`` checkpoints each layer; its masks are drawn
+    and FFN outputs; with ``dropout_rows = (B, rows)`` each mask is drawn
+    over a batch of B rows and the given rows of it are kept (a data rank
+    of the sharded step draws the whole batch's masks, so that its rows
+    get the one-card step's).  ``remat`` checkpoints each layer; its
+    masks are drawn
     before the layer runs and passed in, so the backward pass's replay
     applies the same ones.  No per-layer K/V is kept (there is no cache to
     append it to)."""
@@ -256,6 +288,10 @@ def forward(
     def keep():
         if dropout_gen is None:
             return None
+        if dropout_rows is not None:
+            full = (dropout_rows[0],) + tuple(x.shape[1:])
+            return _keep_mask(dropout_gen, full, dropout_rate,
+                              dev)[dropout_rows[1]]
         return _keep_mask(dropout_gen, x.shape, dropout_rate, dev)
 
     h = _drop(x, keep(), dropout_rate)

@@ -75,6 +75,7 @@ from infinisst_tpu_torch.decode import logits as lp
 from infinisst_tpu_torch.decode import speculative as spec_mod
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
+from infinisst_tpu_torch.models import wav2vec2 as w2v2_mod
 from infinisst_tpu_torch.streaming.state import (
     DecoderState,
     init_decoder_state,
@@ -144,6 +145,15 @@ class ServingEngine:
         spec_guard_margin: float = 1.0,
         spec_warm_fallback: bool = True,  # accepted, nothing to warm
     ):
+        from infinisst_tpu_torch.parallel import collectives as par
+
+        if par.data_size() > 1:
+            raise ValueError(
+                f"a serving pool on a mesh of {par.data_size()} 'data' "
+                "ranks: splitting the pool's rows over 'data', as the JAX "
+                "engine's batch sharding does, is not ported (ROADMAP §3); "
+                "build the engine under tensor_parallel(mesh['model']), one "
+                "pool a data rank")
         if do_sample and not speculative:
             raise ValueError(
                 "pooled sampling is implemented as speculative sampling: "
@@ -218,13 +228,17 @@ class ServingEngine:
         self.windows = torch.zeros((pool_size, self.window_samples),
                                    dtype=torch.float32, device=dev)
         self.valid_len_host = np.zeros((pool_size,), np.int64)
+        # the heads this rank holds (a block of them under tensor
+        # parallelism)
         self.enc_state = init_encoder_state(
             w.encoder_layers, pool_size, stream_cfg.max_cache_frames,
-            w.encoder_attention_heads, w.head_dim, dtype, dev,
+            w2v2_mod.local_heads(self.params["w2v2"], w), w.head_dim,
+            dtype, dev,
         )
         self.dec_state = init_decoder_state(
             ll.num_layers, pool_size, stream_cfg.llm_cache_capacity,
-            ll.num_kv_heads, ll.head_dim, dtype, dev,
+            llama_mod.local_heads(self.params["llama"]["layers"], ll)[1],
+            ll.head_dim, dtype, dev,
         )
         self.slots = [StreamSlot() for _ in range(pool_size)]
         # cumulative count of per-slot cache trims

@@ -52,15 +52,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like: TrainState) -> TrainState:
+def restore(directory: str, like: TrainState, shard=None) -> TrainState:
     """Read the newest checkpoint into the tensors of ``like`` (a state of
     the same structure, e.g. a freshly initialised one), in place, so the
-    card never holds two copies.  Returns the restored state."""
+    card never holds two copies.  ``shard`` maps the saved whole state
+    ({'params', 'opt_state', 'step'}) to this rank's slices of it (a
+    mesh's ``MeshPlan.local_state``).  Returns the restored state."""
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     saved = torch.load(os.path.join(directory, str(step), STATE_FILE),
                        map_location="cpu", mmap=True, weights_only=True)
+    if shard is not None:
+        saved = shard(saved)
     for key in ("params", "opt_state"):
         dst, src = tree_leaves(getattr(like, key)), tree_leaves(saved[key])
         if len(dst) != len(src):

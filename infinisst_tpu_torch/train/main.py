@@ -14,6 +14,14 @@ path, ``--model_preset`` (flagship | bench | dryrun) and ``--device``
 in the JAX package.  Stage 2 starts from stage 1's consolidated bin
 (``--sllm_weight_path``, ref: model/model.py:142-145).
 
+Data, ZeRO and tensor parallelism run under ``torchrun``, one process a
+card (NCCL; gloo with ``--device cpu``), the mesh given by ``--n_data``
+and ``--n_model`` (their product the world size; ``--zero`` on by
+default):
+
+  torchrun --standalone --nproc_per_node 8 -m infinisst_tpu_torch.train.main \
+      ... --n_data 8
+
 ``build_params`` reads a reference ``pytorch_model.bin`` (the whole
 speech-LLM), a fairseq wav2vec2 ``.pt`` and an HF Llama checkpoint (a
 ``.bin`` file, or a directory of ``pytorch_model*.bin`` or, failing
@@ -141,6 +149,11 @@ def main(argv=None):
     from infinisst_tpu_torch.train.trainer import Trainer, TrainerArgs
 
     dev = resolve_device(args.device)
+    distributed = "WORLD_SIZE" in os.environ  # under torchrun
+    if distributed:
+        from infinisst_tpu_torch.parallel.mesh import init_distributed
+
+        dev = init_distributed(dev)
     cfg = PRESETS[args.model_preset]()
     ta_fields = {f.name for f in dataclasses.fields(TrainerArgs)}
     kw = {k: v for k, v in vars(args).items() if k in ta_fields}
@@ -170,6 +183,8 @@ def main(argv=None):
     final_step = trainer.fit()
     print(f"training done at step {final_step}; checkpoints in "
           f"{os.path.join(targs.save_dir, 'ckpt')}")
+    if distributed:
+        torch.distributed.destroy_process_group()
     return final_step
 
 

@@ -42,19 +42,31 @@ def lm_loss(
     logits: torch.Tensor,
     labels: torch.Tensor,
     cpo_beta: float = 0.0,
+    total_count=None,
+    total_pairs=None,
 ) -> torch.Tensor:
     """Mean NLL over target tokens; with cpo_beta > 0 the batch is read as
     [winners; losers] halves and the CPO sigmoid loss is added to the
-    winners' NLL (ref: model/llm.py:248-256)."""
+    winners' NLL (ref: model/llm.py:248-256).
+
+    A data rank of the sharded step passes the whole batch's target-token
+    count (of the winners, with CPO) as ``total_count`` and its number of
+    pairs as ``total_pairs``: the rank's loss is then its share of the
+    whole batch's, and the ranks' losses (and gradients) sum to the one
+    card's."""
     seq_nll, seq_cnt = shifted_ce(logits, labels)
     if cpo_beta > 0:
         bsz = labels.shape[0] // 2
         logp_w = -seq_nll[:bsz]
         logp_l = -seq_nll[bsz:]
-        cpo = -F.logsigmoid(cpo_beta * (logp_w - logp_l)).mean()
-        nll = seq_nll[:bsz].sum() / torch.clamp(seq_cnt[:bsz].sum(), min=1)
+        terms = -F.logsigmoid(cpo_beta * (logp_w - logp_l))
+        cpo = terms.mean() if total_pairs is None else \
+            terms.sum() / total_pairs
+        cnt = seq_cnt[:bsz].sum() if total_count is None else total_count
+        nll = seq_nll[:bsz].sum() / torch.clamp(cnt, min=1)
         return nll + cpo
-    return seq_nll.sum() / torch.clamp(seq_cnt.sum(), min=1)
+    cnt = seq_cnt.sum() if total_count is None else total_count
+    return seq_nll.sum() / torch.clamp(cnt, min=1)
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:

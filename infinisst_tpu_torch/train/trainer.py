@@ -1,5 +1,4 @@
-"""Training driver on one card; port of ``infinisst_tpu/train/trainer.py``
-with ``n_data = n_model = 1``.
+"""Training driver; port of ``infinisst_tpu/train/trainer.py``.
 
 - the two-stage recipe via FreezeConfig (stage 0 trains everything, 1 the
   encoder and adapter, 2 the adapter and LLM; ref: model/model.py:106-145);
@@ -9,7 +8,15 @@ with ``n_data = n_model = 1``.
   samples m per batch), shapes rounded up to buckets (``pad_to_buckets``);
 - gradient accumulation as optax.MultiSteps (ref grad_acc, main.py:185);
 - metrics to JSONL (+ wandb when WANDB_PROJECT is set and it imports);
-- checkpoints with auto-resume (ref: main.py:199-203).
+- checkpoints with auto-resume (ref: main.py:199-203);
+- a (data, model) mesh (``parallel/mesh.py``) when a process group is
+  initialised (``torchrun``, or one the caller made) or ``n_data *
+  n_model > 1``: the parameters are split over 'model', every rank builds
+  the same whole batch from the same seeded sampler and the sharded step
+  keeps its rows, ``zero`` splits the gradients and the optimizer state
+  over 'data' (ZeRO-2); rank 0 alone writes the metrics and the
+  checkpoints, which hold whole leaves (gathered first) and are cut to
+  this rank's slices on restore, so a checkpoint crosses world sizes.
 
 The batches are read, collated and padded in a worker thread
 (``_prefetch``), into pinned host memory on a card; the consuming thread
@@ -34,6 +41,7 @@ from infinisst_tpu_torch.data.collators import COLLATORS
 from infinisst_tpu_torch.data.dataset import SpeechToTextDataset
 from infinisst_tpu_torch.data.sampler import SpeechSampler
 from infinisst_tpu_torch.data.template import IGNORE_INDEX, PromptBuilder
+from infinisst_tpu_torch.parallel.collectives import tensor_parallel
 from infinisst_tpu_torch.train import checkpoint as ckpt
 from infinisst_tpu_torch.train import step as tstep
 
@@ -118,10 +126,12 @@ class MetricsLogger:
             self.wandb.log(metrics, step=step)
 
 
-def pad_to_buckets(batch: Dict, m: int, pad_id: int) -> Dict:
-    """Round (B, S, T) up to bucket sizes (B to a power of two, S to 128,
-    the samples past the offset to 960 ms x m units).  Dummy rows and
-    columns are fully masked."""
+def pad_to_buckets(batch: Dict, m: int, pad_id: int,
+                   row_multiple: int = 1) -> Dict:
+    """Round (B, S, T) up to bucket sizes (B to a power of two, then to a
+    multiple of ``row_multiple``, the mesh's n_data; S to 128, the
+    samples past the offset to 960 ms x m units).  Dummy rows and columns
+    are fully masked."""
     B, S = batch["input_ids"].shape
     T = batch["speech"].shape[1]
 
@@ -129,6 +139,7 @@ def pad_to_buckets(batch: Dict, m: int, pad_id: int) -> Dict:
         return ((x + mult - 1) // mult) * mult
 
     nB = max(1, 1 << (B - 1).bit_length())  # next pow2
+    nB = round_up(nB, row_multiple)
     nS = round_up(S, 128)
     unit = 15360 * m
     nT = round_up(max(T - 399, 1), unit) + 399
@@ -164,17 +175,15 @@ class Trainer:
         params,
         device="cuda",
     ):
-        if args.n_data > 1 or args.n_model > 1:
-            raise NotImplementedError(
-                f"n_data={args.n_data}, n_model={args.n_model}: the port "
-                "trains on one card; data and model parallelism are "
-                "ROADMAP item 14")
+        import torch.distributed as dist
+
+        from infinisst_tpu_torch.parallel import mesh as pmesh
+
         self.args = args
         self.cfg = model_cfg
         self.builder = builder
         self.device = resolve_device(device)
         params = tstep.tree_map(lambda t: t.to(self.device), params)
-
         # stage 0 = full fine-tune (nothing frozen), for from-scratch
         # proxies; the reference's staged recipes assume a pretrained LLM
         freeze = {
@@ -182,6 +191,18 @@ class Trainer:
             1: tstep.FreezeConfig.stage1(),
         }.get(args.stage, tstep.FreezeConfig.stage2())
         self.freeze = freeze
+        self.mesh, self.plan = None, None
+        if dist.is_initialized() or args.n_data * args.n_model > 1:
+            zero = args.zero and args.n_data > 1
+            self.mesh = pmesh.make_mesh(args.n_data, args.n_model,
+                                        self.device)
+            params, layouts = pmesh.shard_params(
+                params, self.mesh, pmesh.model_param_specs(model_cfg, zero),
+                cfg=model_cfg)
+            self.plan = tstep.MeshPlan(
+                self.mesh, layouts, zero,
+                tstep.tree_leaves(tstep.trainable_mask(params, freeze)))
+        self.rank0 = self.mesh is None or dist.get_rank() == 0
         opt_cfg = tstep.OptimConfig(
             learning_rate=args.learning_rate,
             warmup_steps=args.warmup_steps,
@@ -193,8 +214,9 @@ class Trainer:
         base_tx = tstep.make_optimizer(opt_cfg, params, freeze)
         self.tx = (tstep.MultiSteps(base_tx, args.grad_acc_steps)
                    if args.grad_acc_steps > 1 else base_tx)
-        self.state = tstep.init_train_state(params, self.tx)
-        self.logger = MetricsLogger(args.save_dir)
+        self._train_idx = [i for i, m in enumerate(self.tx.mask) if m]
+        self.state = tstep.init_train_state(params, self.tx, self.plan)
+        self.logger = MetricsLogger(args.save_dir) if self.rank0 else None
 
         self._step_fns: Dict[int, callable] = {}
         self._eval_fns: Dict[int, callable] = {}
@@ -241,13 +263,15 @@ class Trainer:
                     self.args.encoder_dropout if self.args.stage == 1 else 0.0
                 ),
                 dropout_seed=self.args.seed,
+                plan=self.plan,
             )
         return self._step_fns[m]
 
     def _host_batch(self, raw: Dict, m: int) -> Dict[str, torch.Tensor]:
         """The padded batch as host tensors, pinned when the card will
         read them."""
-        padded = pad_to_buckets(raw, m, self.cfg.tokens.pad)
+        padded = pad_to_buckets(raw, m, self.cfg.tokens.pad,
+                                row_multiple=self.args.n_data)
         out = {k: torch.from_numpy(padded[k]) for k in BATCH_KEYS}
         if self.device.type == "cuda":
             out = {k: v.pin_memory() for k, v in out.items()}
@@ -315,7 +339,20 @@ class Trainer:
             t.join(timeout=5.0)
 
     def _save(self, step: int):
-        ckpt.save(os.path.join(self.args.save_dir, "ckpt"), self.state, step)
+        """Write the whole state (gathered over the mesh; rank 0 writes)."""
+        state = self.state
+        if self.plan is not None:
+            import torch.distributed as dist
+
+            state = self.plan.whole_state(state, self._train_idx)
+        if self.rank0:
+            ckpt.save(os.path.join(self.args.save_dir, "ckpt"), state, step)
+        if self.plan is not None:
+            dist.barrier()
+
+    def _log(self, metrics: Dict, step: int):
+        if self.logger is not None:
+            self.logger.log(metrics, step)
 
     def fit(self):
         args = self.args
@@ -327,7 +364,11 @@ class Trainer:
         # tensors, so the card holds one copy
         ckpt_dir = os.path.join(args.save_dir, "ckpt")
         if ckpt.latest_step(ckpt_dir) is not None:
-            self.state = ckpt.restore(ckpt_dir, self.state)
+            shard = None
+            if self.plan is not None:
+                def shard(saved):
+                    return self.plan.local_state(saved, self._train_idx)
+            self.state = ckpt.restore(ckpt_dir, self.state, shard=shard)
             step = self.state.step
             print(f"resumed from step {step}")
 
@@ -339,7 +380,7 @@ class Trainer:
                 step += 1
                 if step % args.log_step == 0:
                     loss = float(metrics["loss"])
-                    self.logger.log(
+                    self._log(
                         {
                             "train_loss": loss,
                             f"train_loss_m{m}": loss,
@@ -381,9 +422,12 @@ class Trainer:
                     self.cfg, args.block_size, args.max_cache_size, m
                 )
             batch = self._to_batch(raw, m)
-            losses.append(float(self._eval_fns[m](self.state.params, batch)))
+            # every rank evaluates the whole batch (its model slice)
+            with tensor_parallel(self.mesh):
+                losses.append(float(self._eval_fns[m](self.state.params,
+                                                      batch)))
             if args.debug_mode:
                 break
         if losses:
-            self.logger.log({"eval_loss": float(np.mean(losses))}, step)
+            self._log({"eval_loss": float(np.mean(losses))}, step)
         return float(np.mean(losses)) if losses else None

@@ -5,8 +5,8 @@ dryrun preset (float32): ``fit`` for 3 steps then resume to 5 (as
 moving every component, ``evaluate`` against JAX's ``eval_step_fn``
 (rtol 1e-5), ``export_torch_bin`` against JAX's key by key (bitwise), the
 NaN of a target id past the vocabulary (as JAX's gather fills it),
-``train.main`` for 2 steps, and the refusals (a mesh; CUDA without a
-card)."""
+``train.main`` for 2 steps, and the refusals (a mesh without a process
+group of its size; CUDA without a card)."""
 
 import csv
 import json
@@ -261,7 +261,10 @@ def test_main_runs_two_steps(tmp_path):
 
 
 def test_trainer_refuses_a_mesh(tmp_path, npp):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    """A mesh of more than one rank needs a process group of its size
+    (torchrun's, or the caller's): without one the Trainer raises; it
+    never trains on one process instead."""
+    with pytest.raises(ValueError, match="process group of world size 2"):
         _trainer(tmp_path, npp, n_data=2)
 
 
@@ -277,3 +280,59 @@ def test_cuda_without_a_card_raises(tmp_path, npp, no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_main.main(["--model_preset", "dryrun",
                          "--data_path", str(tmp_path)])
+
+
+def _recording_step(trainer, ids):
+    """Replace the trainer's step functions by one that records each
+    batch's input ids and advances the step count, so that ``fit``'s
+    loop, its epochs, its save and its resume run without training."""
+    def step(state, batch):
+        ids.append(np.asarray(batch.input_ids).copy())
+        return (state._replace(step=state.step + 1),
+                {"loss": 0.0, "grad_norm": 0.0})
+
+    trainer._get_step_fn = lambda m: step
+
+
+def test_resumed_fit_restarts_its_epoch_as_jax(tmp_path, npp):
+    """A resumed ``fit`` runs ``range(max_epochs)`` from epoch 0 again
+    (the JAX package's ``fit``, ``trainer.py:338-339``): past one epoch,
+    then resumed, the port's batches and logged epochs equal JAX's, and
+    the resumed run's first epoch is 0."""
+    from infinisst_tpu.train.trainer import Trainer as JTrainer
+    from infinisst_tpu.train.trainer import TrainerArgs as JArgs
+
+    _make_data(tmp_path)
+    probe = _trainer(tmp_path, npp)
+    ds, sampler, _ = probe._make_loader("tr", 300, shuffle=True)
+    sampler.set_epoch(0)
+    per_epoch = len(list(sampler))
+    first, total = per_epoch + 1, per_epoch + 3
+    got = {}
+    for side in ("jax", "port"):
+        run = tmp_path / f"run_{side}"
+        ids, epochs = [], []
+        for max_steps in (first, total):
+            kw = dict(max_steps=max_steps, log_step=1, eval_step=0,
+                      save_step=0, save_dir=str(run))
+            if side == "jax":
+                a = _args(tmp_path, **kw)
+                t = JTrainer(JArgs(**a.__dict__), JCFG, JBuilder(
+                    JStub(JCFG.llama.vocab_size, lo=10, hi=900),
+                    JCFG.tokens), npp)
+            else:
+                t = _trainer(tmp_path, npp, **kw)
+            _recording_step(t, ids)
+            assert t.fit() == max_steps
+        with open(run / "metrics.jsonl") as f:
+            epochs = [json.loads(x)["epoch"] for x in f.read().splitlines()]
+        got[side] = (ids, epochs)
+    (jids, jep), (pids, pep) = got["jax"], got["port"]
+    assert len(pids) == len(jids) == total
+    for a, b in zip(pids, jids):
+        np.testing.assert_array_equal(a, b)
+    assert pep == jep
+    assert pep[:first] == [0] * per_epoch + [1]
+    assert pep[first:] == [0, 0]  # the resumed fit starts at epoch 0
+    # so the resumed run's batches are epoch 0's first ones again
+    np.testing.assert_array_equal(pids[first], pids[0])
