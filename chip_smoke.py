@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  its K-major (O, D) weight, in bf16 and float32),
                  group_quant_int8 and w8a8_grouped_gemm (on the same
                  K-major weight; also at other group sizes, split and
-                 not, GROUPED_EXTRA) bitwise, w8_bf16_gemm (on the same
+                 not, GROUPED_EXTRA, and on their simple route at groups
+                 of 4-16 and O not a multiple of 4, GROUPED_SIMPLE)
+                 bitwise, w8_bf16_gemm (on the same
                  K-major weight) within
                  W8_BF16_RTOL * max|plain| in bf16 and 1e-5 * max|plain|
                  in float32; kernel, plain and library times (median of 5
@@ -244,8 +246,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  tool's); each variant's kernels launched (w8:
                  w8_bf16_gemm; w8a8: row_quant_int8 + w8a8_gemm; grouped:
                  group_quant_int8 + w8a8_grouped_gemm; decode_attention in
-                 every beam step), the two groups-of-8 variants refused by
-                 w8a8_grouped_gemm and not run; then every int8 kernel
+                 every beam step; the two groups-of-8 variants through
+                 the grouped pair's simple route); then every int8 kernel
                  bitwise against its plain version on the trained weights
                  at the prefill's 512 rows and a beam step's 4
                  (w8_bf16_gemm within 1e-5), timed at the prefill's shape,
@@ -265,13 +267,31 @@ Phases (any failure exits non-zero; no phase carries on past its own):
      profiling -- ``core.profiling``: timed and StepTimer around w8a8_gemm
                  with ``sync_on``, device_trace over one W8A8 prefill of
                  the probe's model (the Chrome trace names the kernels).
+     trained tools -- ``tools.alignatt_quality``, ``trained_e2e``,
+                 ``spec_trained_teacher`` and ``phrase_e2e`` through their
+                 ``main``s at TRAINED_STEPS on 4 held-out utterances: each
+                 trained model's TER below its random twin's; the trained
+                 weights (read back from the tools' pickles) through the
+                 AlignAtt agent (both modes), the beam-4 InfiniSST agent
+                 and the speculative agent on the card and on the CPU,
+                 tokens equal; the AlignAtt probe's share in the
+                 zero-padded audio bucket, push by push; spec_acceptance's
+                 ``run_spec``/``run_beam`` rows card against CPU on the
+                 fidelity probe's trained Llama; decode_attention held at
+                 every shape these paths launched, on their own inputs.
+     demos    -- ``examples.stream_demo`` (3 chunks) and
+                 ``examples.serve_demo`` (3 ticks, a pool of 4 caches at
+                 beam 2: decode_attention over Bc > 1, kernel row 5) on
+                 the card; decode_attention held at their shapes.
  14. one JSON ``kernels`` line (the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
      decode_attention; the training path's launches, 0, under
      ``train``; the mesh path's, by the agent and the dryrun, under
      ``mesh``; the tools' launches by phase and the times at the
-     probe's shapes under ``tools``), then the card line, then the
-     result line.
+     probe's shapes under ``tools``, the grouped GEMM's simple route at
+     groups of 8 under ``tools.simple_route_gs8``; the trained tools' and
+     the demos' launches under ``trained_tools`` and ``demos``), then the
+     card line, then the result line.
 
 Each phase prints its wall seconds.  Weights are random, made on the card
 from seeded torch.Generators.
@@ -495,6 +515,12 @@ class Notes:
 # split-K (M <= gs / 32) and not, gs 32, 64 and 96, O not a multiple of 128
 GROUPED_EXTRA = [(3, 256, 200, 32), (1, 4096, 1024, 32), (2, 4096, 4096, 64),
                  (79, 4096, 1024, 64), (1, 3072, 512, 96), (61, 768, 256, 96)]
+# the simple route's shapes: groups of 8 and 16 (the fidelity probe's 32
+# groups of its 256- and 512-wide inputs), 12 (__dp4a) and 6 (scalar), bf16
+# groups of 4 and 12 (not whole 16-byte vectors), O not a multiple of 4
+GROUPED_SIMPLE = [(5, 256, 100, 8), (512, 256, 256, 8), (4, 512, 256, 16),
+                  (3, 256, 30, 8), (7, 96, 129, 12), (3, 96, 40, 6),
+                  (2, 64, 64, 4)]
 
 
 def check_grouped(K, y, w_t, sg, gs, label, out_dtypes):
@@ -699,8 +725,36 @@ def check_kernels(dev, notes):
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(dt)
             check_grouped(K, y, w, sg, gs, f"M={M} D={D} O={O} gs={gs} {dt}",
                           {dt, torch.float32})
+    check_grouped_simple(dev, gen)
     print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions (w8_bf16_gemm at every shape above)", flush=True)
+
+
+def check_grouped_simple(dev, gen):
+    """The grouped pair's simple route (every group size that divides D,
+    any O) bitwise against the plain versions at GROUPED_SIMPLE, in bf16
+    and float32, and taken by both wrappers."""
+    import torch
+
+    K, _ = _kernel_modules()
+    before = internal_counts()
+    for M, D, O, gs in GROUPED_SIMPLE:
+        w = torch.randint(-127, 128, (O, D), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sg = torch.rand((D // gs, O), generator=gen, device=dev) * 1e-3
+        if K.grouped_gemm_on_mma(D, D // gs, O):
+            fail(f"gs={gs} O={O} is on the tensor-core route")
+        for dt in (torch.bfloat16, torch.float32):
+            y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(dt)
+            check_grouped(K, y, w, sg, gs, f"M={M} D={D} O={O} gs={gs} {dt}",
+                          {dt, torch.float32})
+    after = internal_counts()
+    took = {k: after[k] - before[k] for k in ("group_quant_int8_simple",
+                                              "w8a8_grouped_gemm_simple")}
+    if not all(took.values()):
+        fail(f"the grouped pair's simple route was not taken: {took}")
+    print(f"  the grouped pair's simple route bitwise at {GROUPED_SIMPLE} "
+          f"(M, D, O, gs): {json.dumps(took)} calls", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3487,9 +3541,13 @@ FIDELITY_KERNELS = {
                            "decode_attention"),
     "w8a8_8groups_like_g512": ("group_quant_int8", "w8a8_grouped_gemm",
                                "decode_attention"),
+    # groups of 8: the grouped GEMM's simple route
+    "w8a8_32groups_like_g128": ("group_quant_int8", "w8a8_grouped_gemm",
+                                "decode_attention"),
+    "w8a8_32groups_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
+                               "row_quant_int8", "w8a8_gemm",
+                               "decode_attention"),
 }
-# groups of 8: w8a8_grouped_gemm takes whole runs of 32 int8 values
-FIDELITY_NOT_RUN = {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
 FIDELITY_COLS = ("train_flip_rate", "held_flip_rate", "held_dlogit_p99",
                  "greedy_match_32", "beam4_winner_changed")
 # the probe's prefill (8 x 64 rows into wq): the kernels line's tools shape
@@ -3518,8 +3576,9 @@ def hold_tool_kernels(dev, params):
     within 1e-5 x max|plain|: float32 summation order) at the probe's
     shapes on its trained weights: the prefill's 512 rows and a beam
     step's 4, into wq (D=256), w_down (D=512) and the lm_head (O=512),
-    W8A8 per-channel, weight-only and grouped by 128 and by 32; the
-    activations are the trained model's layer-0 inputs."""
+    W8A8 per-channel, weight-only and grouped by 128, 32 and 8 (the
+    grouped pair's simple route); the activations are the trained model's
+    layer-0 inputs."""
     import numpy as np
     import torch
 
@@ -3536,7 +3595,8 @@ def hold_tool_kernels(dev, params):
                         cfg.rms_norm_eps).reshape(-1, cfg.hidden_size)
         y2 = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
     var = QF.quant_variants(params)
-    grouped = (("w8a8_g128", 128), ("w8a8_8groups_like_g512", 32))
+    grouped = (("w8a8_g128", 128), ("w8a8_8groups_like_g512", 32),
+               ("w8a8_32groups_like_g128", 8))
     n = 0
     for M in (512, 4):
         for x, key in ((y, "wq"), (y2, "w_down"), (y, "lm_head")):
@@ -3649,6 +3709,20 @@ def time_tool_kernels(dev, notes, var, y):
                cuda_time_ms(lambda i: K.w8a8_grouped_gemm_plain(
                    gq, gsc, wt, s, torch.float32), 1, warmup=1),
                None, bms, by, label=f"{lbl} gs={gs}")
+    # the simple route at the 32-group variants' groups of 8
+    gs = 8
+    G = D // gs
+    gq, gsc = K.group_quant_int8(x, gs)
+    w = _leaf(var["w8a8_32groups_like_g128"], "wq")
+    wt, s = w["q_kmajor"], w["scale_a8"]
+    bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4 + M * O * 4,
+                       2.0 * M * D * O, INT8_OPS_PER_S)
+    notes.note("w8a8_grouped_gemm", ("tools gs8",) + TOOL_SHAPE, 0.0,
+               cuda_time_ms(lambda i: K.w8a8_grouped_gemm(
+                   gq, gsc, wt, s, torch.float32), 20),
+               cuda_time_ms(lambda i: K.w8a8_grouped_gemm_plain(
+                   gq, gsc, wt, s, torch.float32), 1, warmup=1),
+               None, bms, by, label=f"{lbl} gs={gs} (simple route)")
     gen = torch.Generator(device=dev).manual_seed(17)
     H, KV, Dh = 4, 4, 64  # the probe's Llama
     for case in TOOL_ATT_CASES:
@@ -3658,9 +3732,9 @@ def time_tool_kernels(dev, notes, var, y):
 
 def check_fidelity(dev, notes, paths):
     """``tools.quant_fidelity.main`` on the card in this process at 600
-    training steps: each variant's kernels launched, the groups-of-8
-    variants refused by the grouped GEMM (not routed to the plain
-    versions), the card's rates beside the JAX tool's table; then the
+    training steps: all eight variants run, each variant's kernels
+    launched (the groups-of-8 variants through the grouped GEMM's simple
+    route), the card's rates beside the JAX tool's table; then the
     kernels held and timed at the probe's shapes.  Returns the trained
     float parameters."""
     import torch
@@ -3676,10 +3750,8 @@ def check_fidelity(dev, notes, paths):
           f"launches {json.dumps(counts)}", flush=True)
     paths["fidelity"] = (
         f"tools.quant_fidelity.main --steps {FIDELITY_STEPS}", counts)
-    if set(results["not_run"]) != FIDELITY_NOT_RUN:
-        fail(f"[fidelity] variants not run: {results['not_run']}")
-    for name, why in results["not_run"].items():
-        print(f"  {name}: not run on the card: {why}", flush=True)
+    if set(results["variants"]) != set(FIDELITY_KERNELS):
+        fail(f"[fidelity] variants run: {sorted(results['variants'])}")
     for name, kernels in FIDELITY_KERNELS.items():
         n = results["launches"].get(name)
         if n is None:
@@ -3980,6 +4052,312 @@ def check_profiling(dev, params):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the trained-model tools and the demos
+
+# training steps of each tool's model here (JAX's defaults: 2000 for the
+# copy task's offline model, 3000 for its trajectory model, 1000 + 400 of
+# distillation for the phrase teacher; PERF.md §6 has the tools at those)
+TRAINED_STEPS = {"alignatt_quality": 400, "trained_e2e": 200,
+                 "spec_trained_teacher": 200}
+TRAINED_DISTILL = 100
+TRAINED_UTTS = 4  # held-out utterances (JAX's tools: 24)
+# spec_acceptance's rows card against CPU on [fidelity]'s trained Llama
+# (the tool trains it with the same function and steps): (d, k, head
+# vocabulary, shortlist mode, low rank)
+SPEC_ACCEPT_ROWS = ((1, 4, 0, "full", 0), (2, 9, 128, "ranked", 0),
+                    (1, 4, 0, "lowrank64", 64))
+SPEC_ACCEPT_BEAM = (1, 2)  # (d, k) of one spec_beam_search row
+
+
+def record_attention():
+    """Wrap ``models.llama``'s decode_attention so that the first inputs
+    of every (B, Bc, C, H, KV, Dh, dtype, lse) it launches at are kept.
+    Returns (the record, a function that unwraps it)."""
+    from infinisst_tpu_torch.models import llama as L
+
+    orig = L.decode_attention
+    seen = {}
+
+    def rec(q, k, v, valid_len, q_pos, inv_freq, key_offset=None,
+            return_lse=False):
+        key = (q.shape[0], k.shape[0], k.shape[1], q.shape[1], k.shape[2],
+               q.shape[2], str(q.dtype).split(".")[-1], bool(return_lse))
+        if key not in seen and q.is_cuda:
+            seen[key] = [None if t is None else t.clone() for t in (
+                q, k, v, valid_len, q_pos, inv_freq, key_offset)] + [
+                return_lse]
+        return orig(q, k, v, valid_len, q_pos, inv_freq,
+                    key_offset=key_offset, return_lse=return_lse)
+
+    L.decode_attention = rec
+    return seen, lambda: setattr(L, "decode_attention", orig)
+
+
+def hold_recorded_attention(seen, label):
+    """decode_attention at every recorded shape, on the inputs the path
+    gave it, against its plain version: output and lse within ATT_RTOL."""
+    import torch
+
+    _, A = _kernel_modules()
+    for key, args in seen.items():
+        got = A.decode_attention(*args[:6], key_offset=args[6],
+                                 return_lse=args[7])
+        ref = A.decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, ref)) if args[7] else [(got, ref)]
+        rtol = ATT_RTOL["bf16" if key[6] == "bfloat16" else "f32"]
+        for n, (g, r) in enumerate(pairs):
+            e = (g.float() - r.float()).abs().max().item()
+            lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
+                r.float().abs().max().item()
+            if not (e <= lim and torch.isfinite(g).all()):
+                fail(f"[{label}] decode_attention at {key}: "
+                     f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
+    shapes = [dict(zip(("B", "Bc", "C", "H", "KV", "Dh", "dtype", "lse"), k))
+              for k in sorted(seen)]
+    print(f"[{label}] decode_attention within ATT_RTOL of its plain version "
+          f"at the {len(seen)} shapes the path launched: "
+          f"{json.dumps(shapes)}", flush=True)
+
+
+def padded_share(agent, utts):
+    """Push each utterance through an AlignAtt agent; after each push,
+    the share of its most-attended frames (the history trace) and of its
+    winner's attended speech tokens that lie in the zero-padded audio
+    bucket, past the real speech.  Returns (per-push texts, trace share,
+    winner share)."""
+    from infinisst_tpu_torch.tools import alignatt_quality as AQ
+
+    texts, n_t, n_w = [], [0, 0], [0, 0]
+    for ws, wav in utts:
+        agent.reset()
+        for j in range(len(ws)):
+            prev = getattr(agent, "last_result", None)
+            act = agent.push(wav[j * AQ.UNIT:(j + 1) * AQ.UNIT],
+                             finished=(j == len(ws) - 1))
+            texts.append(None if act is None or act.is_read()
+                         else act.content)
+            if getattr(agent, "last_result", None) is prev:
+                continue  # no policy call on this push
+            st, call = agent.states, agent.last_call
+            real = len(st.source)
+            n_t[0] += sum(i >= real for i in st.most_attended_indices)
+            n_t[1] += len(st.most_attended_indices)
+            res = agent.last_result
+            real_tok = -(-(real - call["tail_start"]) // AQ.UNIT) * 12
+            idx = list(res.attn_idx[: res.n_tokens])
+            n_w[0] += sum(a >= real_tok for a in idx)
+            n_w[1] += len(idx)
+    return (texts, n_t[0] / max(n_t[1], 1), n_w[0] / max(n_w[1], 1),
+            n_t, n_w)
+
+
+def check_trained_tools(dev, paths, fidelity_params):
+    """The trained-model tools on the card through their own ``main``s and
+    flags at TRAINED_STEPS (their models trained by ``Trainer``, the
+    pickles written by ``--save-params``/``--params`` read back): each
+    trained model's held-out TER below its random twin's; the held-out
+    utterances through each tool's agent on the card (the kernels) and on
+    the CPU (the plain versions) from the same trained weights, tokens
+    equal; the AlignAtt probe's share in the zero-padded bucket, push by
+    push; spec_acceptance's ``run_spec``/``run_beam`` rows card against
+    CPU on [fidelity]'s trained Llama; decode_attention held at every
+    shape these paths launched."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.tools import alignatt_quality as AQ
+    from infinisst_tpu_torch.tools import phrase_e2e as PE
+    from infinisst_tpu_torch.tools import spec_acceptance as SA
+    from infinisst_tpu_torch.tools import spec_trained_teacher as ST
+    from infinisst_tpu_torch.tools import trained_e2e as TE
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="trained_tools_",
+                         dir=os.path.join(ROOT, "build"))
+    aq_pkl, traj_pkl, ph_pkl = (os.path.join(d, f"{n}.pkl") for n in
+                                ("aq", "traj", "phrase"))
+    n_eval = str(TRAINED_UTTS)
+    common = ["--device", dev.type, "--eval-utts", n_eval]
+    try:
+        seen, unwrap = record_attention()
+        reset_counts()
+        walls = {}
+        try:
+            t0 = time.perf_counter()
+            r1 = AQ.main(common + [
+                "--steps", str(TRAINED_STEPS["alignatt_quality"]),
+                "--workdir", os.path.join(d, "aq"), "--save-params", aq_pkl])
+            walls["alignatt_quality"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r2 = TE.main(common + [
+                "--steps", str(TRAINED_STEPS["trained_e2e"]),
+                "--workdir", os.path.join(d, "te"),
+                "--offline-params", aq_pkl, "--traj-params", traj_pkl])
+            walls["trained_e2e"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r3 = ST.main(common + [
+                "--steps", str(TRAINED_STEPS["spec_trained_teacher"]),
+                "--distill-steps", str(TRAINED_DISTILL),
+                "--corpus-utts", "8", "--workdir", os.path.join(d, "st"),
+                "--params", ph_pkl])
+            walls["spec_trained_teacher"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            r4 = PE.main(common + ["--workdir", os.path.join(d, "pe"),
+                                   "--params", ph_pkl])
+            walls["phrase_e2e"] = time.perf_counter() - t0
+        finally:
+            unwrap()
+        counts = launch_counts()
+        paths["trained tools"] = (
+            "tools.alignatt_quality, trained_e2e, spec_trained_teacher, "
+            "phrase_e2e mains at " + json.dumps(TRAINED_STEPS), counts)
+        walls = {k: round(v, 1) for k, v in walls.items()}
+        print(f"[trained tools] walls {json.dumps(walls)} s; launches "
+              f"{json.dumps(counts)}", flush=True)
+        if counts["decode_attention"] <= 0:
+            fail("[trained tools] decode_attention was not launched")
+
+        # each trained model beats its random twin on held-out TER
+        ter = {
+            "alignatt_quality parity": (
+                r1["trained"]["parity"]["ter_vs_ref"],
+                r1["random_control"]["parity"]["ter_vs_ref"]),
+            "alignatt_quality early_stop": (
+                r1["trained"]["early_stop"]["ter_vs_ref"],
+                r1["random_control"]["early_stop"]["ter_vs_ref"]),
+            "trained_e2e alignatt": (
+                r2["alignatt"]["trained_parity"]["ter"],
+                r2["alignatt"]["random_parity"]["ter"]),
+            "trained_e2e infinisst": (r2["infinisst"]["trained"]["ter"],
+                                      r2["infinisst"]["random"]["ter"]),
+            "phrase_e2e": (r4["phrase_task"]["trained"]["ter"],
+                           r4["phrase_task"]["random"]["ter"]),
+        }
+        for name, (t, r) in ter.items():
+            print(f"  {name:28s} held-out TER trained {t} random {r}",
+                  flush=True)
+            if not t < r:
+                fail(f"[trained tools] {name}: trained TER {t} is not below "
+                     f"the random twin's {r}")
+        print(f"  alignatt_quality delta {json.dumps(r1['trained']['delta'])}"
+              f"; tf acc {r1['tf_content_acc_heldout']}; monotonic "
+              f"{r1['trained']['parity']['attn_monotonic_frac']}", flush=True)
+        for k in ("trained", "random"):
+            print(f"  trained_e2e infinisst {k}: "
+                  f"{json.dumps(r2['infinisst'][k])}", flush=True)
+        for row in r3["rows"]:
+            print(f"  spec_trained_teacher k={row['k']} adapter="
+                  f"{row['adapter']} guard={row['guard']}: accept "
+                  f"{row['accept_rate']}, tokens/round "
+                  f"{row['tokens_per_round']} (break-even "
+                  f"{row['breakeven_tokens_per_round']}), fallbacks "
+                  f"{row['guard_fallback_streams']}, exact vs plain "
+                  f"{row['exact_match_vs_plain_greedy']}", flush=True)
+
+        # card (kernels) against CPU (plain versions), same trained weights
+        cfg, tok, builder, words, _, eval_utts = AQ.task(0, TRAINED_UTTS)
+        erng = np.random.RandomState(4321)
+        ph_utts = [ST.make_phrase_utt(tok, words, erng, k=4)
+                   for _ in range(TRAINED_UTTS)]
+        corpus = SA.make_corpus(np.random.RandomState(0), 8, 64)
+        ranked = np.argsort(-np.bincount(
+            corpus.ravel(), minlength=SA.CFG.vocab_size)).astype(np.int32)
+        seen2, unwrap = record_attention()
+        out = {}
+        try:
+            for device in ("cpu", dev):
+                aqp = AQ.load_params(aq_pkl, device)
+                trp = AQ.load_params(traj_pkl, device)
+                php = AQ.load_params(ph_pkl, device)
+                o = {}
+                for early in (False, True):
+                    o[f"alignatt early={early}"] = padded_share(
+                        AQ.make_alignatt(aqp, cfg, builder, early, 4,
+                                         device),
+                        eval_utts)
+                agent = TE.make_infinisst(trp, cfg, builder, 4, device)
+                o["infinisst beam 4"] = [ST.stream_utt(agent, wav, len(ws))
+                                         for ws, wav in eval_utts]
+                spec = TE.make_infinisst(
+                    php, cfg, builder, 1, device, speculative=True,
+                    spec_draft_layers=1, spec_k=4, spec_guard=False)
+                o["speculative d=1 k=4"] = [
+                    (ST.stream_utt(spec, wav, len(steps)), spec.spec_rounds,
+                     spec.spec_drafted, spec.spec_accepted)
+                    for steps, wav in ph_utts]
+                fp = _to(fidelity_params, device)
+                rows = []
+                for dd, k, hv, mode, lr in SPEC_ACCEPT_ROWS:
+                    ids = ranked[:hv] if mode == "ranked" else None
+                    for i in range(2):
+                        p = torch.as_tensor(SA.make_corpus(
+                            np.random.RandomState(100 + i), 1, 8)[0],
+                            device=device)
+                        rows.append(SA.run_spec(fp, p, dd, k, hv,
+                                                head_ids=ids, lowrank=lr))
+                p = torch.as_tensor(SA.make_corpus(
+                    np.random.RandomState(100), 1, 8)[0], device=device)
+                rows.append(SA.run_beam(fp, *SPEC_ACCEPT_BEAM, p))
+                o["spec_acceptance rows"] = rows
+                out[str(device)] = o
+        finally:
+            unwrap()
+        for name in out["cpu"]:
+            a, b = out["cpu"][name], out[str(dev)][name]
+            if name.startswith("alignatt"):  # the texts; the shares: card's
+                print(f"  {name}: probe in the zero-padded bucket: history "
+                      f"trace {b[1]:.4f} ({b[3][0]}/{b[3][1]}), winner "
+                      f"tokens {b[2]:.4f} ({b[4][0]}/{b[4][1]}); CPU "
+                      f"{a[1]:.4f} / {a[2]:.4f}", flush=True)
+                a, b = a[0], b[0]
+            if a != b:
+                fail(f"[trained tools] {name}: the card's tokens differ from "
+                     f"the CPU's: cpu={a} card={b}")
+            print(f"  {name}: card and CPU equal", flush=True)
+        print("  spec_acceptance rows (tokens, rounds, drafted, accepted): "
+              + json.dumps([r[1:] for r in out[str(dev)]
+                            ["spec_acceptance rows"]]), flush=True)
+        seen.update(seen2)
+        hold_recorded_attention(seen, "trained tools")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def check_demos(dev, paths):
+    """``examples.stream_demo`` and ``examples.serve_demo`` on the card
+    for a few chunks and ticks: the final action finishes, the pool's
+    decode_attention launches include a cache per slot (Bc > 1, kernel
+    row 5); decode_attention held at every shape they launched."""
+    from infinisst_tpu_torch.examples import serve_demo, stream_demo
+
+    seen, unwrap = record_attention()
+    reset_counts()
+    try:
+        if stream_demo.main(["--chunks", "3", "--device", dev.type]) != 0:
+            fail("[demos] stream_demo did not finish")
+        stream_counts = launch_counts()
+        _, A = _kernel_modules()
+        A.reset_launch_counts()
+        outs = serve_demo.main(["--ticks", "3", "--device", dev.type])
+        serve_shapes = dict(A.launch_shapes)
+    finally:
+        unwrap()
+    counts = launch_counts()
+    counts["decode_attention"] += stream_counts["decode_attention"]
+    paths["demos"] = ("examples.stream_demo --chunks 3, examples.serve_demo "
+                      "--ticks 3", counts)
+    print(f"[demos] launches {json.dumps(counts)}; the pool's "
+          f"decode_attention by shape {json.dumps(serve_shapes)}", flush=True)
+    if stream_counts["decode_attention"] <= 0 or not any(outs):
+        fail("[demos] the stream demo launched no decode_attention or the "
+             "pool emitted nothing")
+    if not any(int(k.split("Bc=")[1]) > 1 for k in serve_shapes):
+        fail("[demos] the pool launched no decode_attention over Bc > 1 "
+             "caches")
+    hold_recorded_attention(seen, "demos")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -4120,7 +4498,13 @@ def main():
         check_distill_flagship(dev, paths)
     with phase("profiling"):
         check_profiling(dev, fidelity_params)
+    with phase("trained tools"):
+        print("[trained tools] the trained-model tools on the card: train, "
+              "export, agent, eval; card against CPU", flush=True)
+        check_trained_tools(dev, paths, fidelity_params)
     del fidelity_params
+    with phase("demos"):
+        check_demos(dev, paths)
 
     # 9. the kernels line
     q_src = "infinisst_tpu_torch/csrc/quant_matmul.cu"
@@ -4247,8 +4631,18 @@ def main():
             "shape": [x for x in shape[1:] if x != 0],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}}
+        if e["name"] == "w8a8_grouped_gemm":  # groups of 8: simple route
+            t = notes.rows[e["name"]]["shapes"][("tools gs8",) + TOOL_SHAPE]
+            e["tools"]["simple_route_gs8"] = {
+                k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
         if paths["fidelity"][1][e["name"]] <= 0:
             fail(f"{e['name']} was not launched on the fidelity probe")
+        # the trained-model tools (float32 agents) and the demos
+        for key in ("trained tools", "demos"):
+            path, counts = paths[key]
+            e[key.replace(" ", "_")] = {"launches": counts[e["name"]],
+                                        "path": path}
     print(json.dumps({"kernels": entries}), flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card_line(), flush=True)

@@ -34,6 +34,10 @@
 // granularity: a group is held in the registers of a few lanes (a
 // 128-value bf16 group is 16 lanes x 16 bytes), its max is shuffled
 // among them, and it is read once.
+// Both take a simple route (one thread a group, or a (row, channel)
+// output) for the shapes those designs do not: groups that are not whole
+// 16-byte vectors, group sizes not a multiple of 32, O not a multiple of
+// 4.  The wrapper picks the route from the shapes.
 
 #include "quant_common.cuh"
 
@@ -592,6 +596,85 @@ int launch_group_quant(const void* y, int y_bf16, void* yq, void* ys,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The simple route, for the shapes the routes above do not take: groups
+// that are not whole 16-byte vectors (group_quant_int8: bf16 groups of 4,
+// say) and group sizes that are not a multiple of 32 or an O that is not
+// a multiple of 4 (w8a8_grouped_gemm).  JAX's grouped path needs only
+// D % G == 0.  The arithmetic is the plain versions', step for step, so
+// both are bitwise those; speed is not the point (no deployed mode uses
+// groups under 128).
+
+// One thread a (row, group): the max of |y| as an integer max of bit
+// patterns, as group_quant_int8_kernel takes it, then the same scale and
+// IEEE division.
+template <bool BF16>
+__global__ void group_quant_int8_simple_kernel(const void* __restrict__ y,
+                                               int8_t* __restrict__ yq,
+                                               float* __restrict__ ys,
+                                               int64_t n_groups, int gs) {
+  const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_groups) return;
+  const int64_t base = gid * gs;
+  auto value = [&](int i) {
+    if constexpr (BF16) {
+      const unsigned short h =
+          reinterpret_cast<const unsigned short*>(y)[base + i];
+      return __uint_as_float(static_cast<unsigned>(h) << 16);
+    } else {
+      return reinterpret_cast<const float*>(y)[base + i];
+    }
+  };
+  unsigned m = 0;
+  for (int i = 0; i < gs; ++i) {
+    m = max(m, __float_as_uint(value(i)) & 0x7fffffffu);
+  }
+  const float s = fmaxf(__uint_as_float(m) / 127.0f, 1e-8f);
+  for (int i = 0; i < gs; ++i) {
+    yq[base + i] = static_cast<int8_t>(
+        __float2int_rn(fminf(fmaxf(rintf(value(i) / s), -127.f), 127.f)));
+  }
+  ys[gid] = s;
+}
+
+// One thread a (row, output channel): for g in order the exact int32 dot
+// of group g (__dp4a on 4-byte words where gs % 4 == 0, which keeps every
+// group's start 4-byte aligned in 16-byte aligned rows; scalar otherwise),
+// then o = fma(f32(acc) * ys[m, g], s[g, o], o), as the plain version and
+// w8a8_grouped_gemm_tc_kernel fold it.
+template <bool DP4A>
+__global__ void w8a8_grouped_gemm_simple_kernel(
+    const int8_t* __restrict__ yq, const float* __restrict__ ys,
+    const int8_t* __restrict__ wt, const float* __restrict__ s, void* out,
+    int out_bf16, int M, int D, int O, int G) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= O) return;
+  const int gs = D / G;
+  const int8_t* w = wt + (int64_t)o * D;
+  for (int m = blockIdx.y; m < M; m += gridDim.y) {
+    const int8_t* x = yq + (int64_t)m * D;
+    float res = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const int k0 = g * gs;
+      int acc = 0;
+      if constexpr (DP4A) {
+        const int* x4 = reinterpret_cast<const int*>(x + k0);
+        const int* w4 = reinterpret_cast<const int*>(w + k0);
+        for (int i = 0; i < gs / 4; ++i) acc = __dp4a(x4[i], w4[i], acc);
+      } else {
+        for (int i = 0; i < gs; ++i) {
+          acc += static_cast<int>(x[k0 + i]) * static_cast<int>(w[k0 + i]);
+        }
+      }
+      res = __fmaf_rn(__fmul_rn(__int2float_rn(acc), ys[(int64_t)m * G + g]),
+                      s[(int64_t)g * O + o], res);
+    }
+    store_out(out, out_bf16, (int64_t)m * O + o, res);
+  }
+}
+
+constexpr int kSimpleThreads = 128;
+
 }  // namespace
 
 extern "C" {
@@ -665,6 +748,49 @@ int w8a8_grouped_gemm(const void* yq, const void* ys, const void* wt,
   }
 #undef GROUPED_ROWS
 #undef GROUPED_LAUNCH
+}
+
+// The simple route of group_quant_int8: any gs that divides D.
+int group_quant_int8_simple(const void* y, int y_bf16, void* yq, void* ys,
+                            int M, int D, int G, void* stream) {
+  if (M == 0) return 0;
+  if (G < 1 || D % G) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_groups = (int64_t)M * G;
+  const int blocks =
+      static_cast<int>((n_groups + kSimpleThreads - 1) / kSimpleThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (y_bf16) {
+    group_quant_int8_simple_kernel<true><<<blocks, kSimpleThreads, 0, st>>>(
+        y, static_cast<int8_t*>(yq), static_cast<float*>(ys), n_groups, D / G);
+  } else {
+    group_quant_int8_simple_kernel<false><<<blocks, kSimpleThreads, 0, st>>>(
+        y, static_cast<int8_t*>(yq), static_cast<float*>(ys), n_groups, D / G);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The simple route of w8a8_grouped_gemm: any G that divides D, any O.
+// yq, wt and s 16-byte aligned (checked by the wrapper).
+int w8a8_grouped_gemm_simple(const void* yq, const void* ys, const void* wt,
+                             const void* s, void* out, int out_bf16, int M,
+                             int D, int O, int G, void* stream) {
+  if (M == 0 || O == 0) return 0;
+  if (G < 1 || D % G) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((O + kSimpleThreads - 1) / kSimpleThreads,
+                  M < 65535 ? M : 65535);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* q = static_cast<const int8_t*>(yq);
+  const auto* w = static_cast<const int8_t*>(wt);
+  const auto* xs = static_cast<const float*>(ys);
+  const auto* ws = static_cast<const float*>(s);
+  if ((D / G) % 4 == 0) {
+    w8a8_grouped_gemm_simple_kernel<true><<<grid, kSimpleThreads, 0, st>>>(
+        q, xs, w, ws, out, out_bf16, M, D, O, G);
+  } else {
+    w8a8_grouped_gemm_simple_kernel<false><<<grid, kSimpleThreads, 0, st>>>(
+        q, xs, w, ws, out, out_bf16, M, D, O, G);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

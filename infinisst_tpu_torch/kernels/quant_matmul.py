@@ -28,6 +28,12 @@ parallel), with ``csrc/quant_common.cuh`` between them:
   f32 in group order (one fused multiply-add per group).  Bound by the
   int8 weight and its (G, O) scales.
 
+The grouped pair takes every group size that divides D, as JAX's grouped
+path does: groups that the vector and tensor-core routes cannot hold
+(not whole 16-byte vectors, not a multiple of ``GROUPED_MMA_GROUP``, or
+O not a multiple of 4) take a simple route in the same source, bitwise
+the same arithmetic.
+
 All five are Hopper redesigns.  The three GEMMs take their weight K-major,
 (O, D) (``models/quant.pack_kmajor`` packs it once, where leaves are
 made), and run on the int8 or bf16 tensor cores with split-K across
@@ -40,9 +46,11 @@ its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
 adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
 wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``,
 ``w8_bf16_gemm_split_k`` and ``w8a8_grouped_gemm_split_k``, the calls
-that split D across blocks (still one launch each), ``counter_zeroing``,
-the fills of the split-K tile counters (one per kernel, device and size;
-the kernels leave them zero), and
+that split D across blocks (still one launch each),
+``group_quant_int8_simple`` and ``w8a8_grouped_gemm_simple``, the calls
+that took the grouped pair's simple route (still one launch each),
+``counter_zeroing``, the fills of the split-K tile counters (one per
+kernel, device and size; the kernels leave them zero), and
 ``w8_bf16_gemm_f32_cast``, the float32 activations rounded to bf16 by
 PyTorch before the launch (the bf16 main path has none).
 """
@@ -58,7 +66,9 @@ import torch
 launch_counts = {"row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
                  "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
 internal_counts = {"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
-                   "w8a8_grouped_gemm_split_k": 0, "counter_zeroing": 0,
+                   "w8a8_grouped_gemm_split_k": 0,
+                   "group_quant_int8_simple": 0,
+                   "w8a8_grouped_gemm_simple": 0, "counter_zeroing": 0,
                    "w8_bf16_gemm_f32_cast": 0}
 
 
@@ -92,7 +102,10 @@ def _bind_grouped(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.group_quant_int8.argtypes = [vp, ci, vp, vp] + [ci] * 7 + [vp]
     lib.w8a8_grouped_gemm.argtypes = [vp] * 5 + [ci] * 9 + [vp] * 3
-    for fn in (lib.group_quant_int8, lib.w8a8_grouped_gemm):
+    lib.group_quant_int8_simple.argtypes = [vp, ci, vp, vp] + [ci] * 3 + [vp]
+    lib.w8a8_grouped_gemm_simple.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    for fn in (lib.group_quant_int8, lib.w8a8_grouped_gemm,
+               lib.group_quant_int8_simple, lib.w8a8_grouped_gemm_simple):
         fn.restype = ci
     return lib
 
@@ -491,20 +504,24 @@ def group_quant_int8(y: torch.Tensor, gs: int):
     M, D = y.shape
     if gs < 1 or D % gs:
         raise ValueError(f"group_quant_int8: D={D} is not a multiple of {gs}")
-    if (gs * y.element_size()) % 16 or y.data_ptr() % 16:
-        raise ValueError(f"group_quant_int8: groups of {gs} {y.dtype} values "
-                         "must be whole 16-byte vectors, 16-byte aligned")
     G = D // gs
     y_q = torch.empty((M, D), dtype=torch.int8, device=y.device)
     y_s = torch.empty((M, G), dtype=torch.float32, device=y.device)
     if M == 0:
         return y_q, y_s
-    plan = group_quant_plan(M, D, G, y.element_size())
-    err = _grouped_library().group_quant_int8(
-        y.data_ptr(), int(y.dtype == torch.bfloat16), y_q.data_ptr(),
-        y_s.data_ptr(), M, D, G, plan.lanes, plan.vpl, plan.threads,
-        plan.blocks, _stream(y),
-    )
+    bf16 = int(y.dtype == torch.bfloat16)
+    if (gs * y.element_size()) % 16 or y.data_ptr() % 16:
+        # groups that are not whole 16-byte vectors: one thread a group
+        err = _grouped_library().group_quant_int8_simple(
+            y.data_ptr(), bf16, y_q.data_ptr(), y_s.data_ptr(), M, D, G,
+            _stream(y))
+        internal_counts["group_quant_int8_simple"] += 1
+    else:
+        plan = group_quant_plan(M, D, G, y.element_size())
+        err = _grouped_library().group_quant_int8(
+            y.data_ptr(), bf16, y_q.data_ptr(), y_s.data_ptr(), M, D, G,
+            plan.lanes, plan.vpl, plan.threads, plan.blocks, _stream(y),
+        )
     _raise_on(err, "group_quant_int8")
     launch_counts["group_quant_int8"] += 1
     return y_q, y_s
@@ -605,13 +622,16 @@ def grouped_gemm_plan(M: int, D: int, O: int, G: int, sms: int
                            _cdiv(G, per))
 
 
-def grouped_gemm_refusal(D: int, G: int, O: int):
-    """Why ``w8a8_grouped_gemm`` refuses a (D, O) weight in G groups (its
-    MMA takes whole runs of 32 int8 values a group), or None."""
-    if (D // G) % 32 or O % 4:
-        return (f"w8a8_grouped_gemm: group size {D // G} must be a "
-                f"multiple of 32 and O={O} of 4")
-    return None
+# the tensor-core route's MMA takes whole runs of this many int8 values of
+# a group, and its scale loads 4 channels at a time; other shapes take
+# the simple route
+GROUPED_MMA_GROUP = 32
+
+
+def grouped_gemm_on_mma(D: int, G: int, O: int) -> bool:
+    """Whether ``w8a8_grouped_gemm`` runs a (D, O) weight in G groups on
+    its tensor-core route (else on its simple route)."""
+    return (D // G) % GROUPED_MMA_GROUP == 0 and O % 4 == 0
 
 
 def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
@@ -637,14 +657,20 @@ def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
             f"w8a8_grouped_gemm: shapes y_q {tuple(y_q.shape)} y_s "
             f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
         )
-    why = grouped_gemm_refusal(D, G, O)
-    if why:
-        raise ValueError(why)
     if y_q.data_ptr() % 16 or w_t.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("w8a8_grouped_gemm: y_q, w_t and scale must be "
                          "16-byte aligned")
     out = torch.empty((M, O), dtype=out_dtype, device=dev)
     if M == 0 or O == 0:
+        return out
+    if not grouped_gemm_on_mma(D, G, O):
+        err = _grouped_library().w8a8_grouped_gemm_simple(
+            y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, G,
+            _stream(y_q))
+        _raise_on(err, "w8a8_grouped_gemm")
+        internal_counts["w8a8_grouped_gemm_simple"] += 1
+        launch_counts["w8a8_grouped_gemm"] += 1
         return out
     plan = grouped_gemm_plan(M, D, O, G, sm_count(dev))
     # one slab of products per group

@@ -19,10 +19,8 @@ Variants: ``bf16`` (a cast), ``w8`` (weight-only int8, ``w8_bf16_gemm``),
 grouped W8A8 variants (``group_quant_int8`` + ``w8a8_grouped_gemm``):
 ``w8a8_g128`` (groups of 128, grouped head), ``w8a8_g128_projonly``
 (per-channel head), ``w8a8_8groups_like_g512`` (groups of 32) and the
-two 32-group variants, groups of 8.  The grouped GEMM takes groups of a
-multiple of 32 only: on a card the groups-of-8 variants are not run and
-the kernel's reason is printed; on the CPU every variant runs its plain
-versions.
+two 32-group variants, groups of 8 (the grouped pair's simple route on a
+card).  On the CPU every variant runs the kernels' plain versions.
 
 Usage (``--device`` defaults to ``cuda``; ~1 min on an H100):
   python -m infinisst_tpu_torch.tools.quant_fidelity [--steps 600]
@@ -141,22 +139,8 @@ def beam_winner(params, prompt: torch.Tensor, n: int) -> list:
     return list(res.tokens[: res.n_tokens])
 
 
-def _refusal(vp):
-    """Why a variant's grouped leaves cannot run ``w8a8_grouped_gemm``, or
-    None."""
-    leaves = [vp["lm_head"]] + [vp["layers"][k] for k in Q.QUANT_KEYS]
-    for w in leaves:
-        if Q.is_quantized(w) and Q.is_grouped(w):
-            O, D = w[Q.KMAJOR].shape[-2:]
-            why = K.grouped_gemm_refusal(D, w["scale_a8"].shape[-2], O)
-            if why:
-                return why
-    return None
-
-
 def quant_variants(params):
-    """name -> parameters of each variant (all of them: ``probe`` leaves
-    out, on a card, those the grouped GEMM refuses)."""
+    """name -> parameters of each variant."""
     n = CFG.hidden_size
     qlp = Q.quantize_llama_params
     out = {
@@ -199,7 +183,7 @@ def margin_stats(logits) -> dict:
 def probe(params, corpus: np.ndarray, steps: int) -> dict:
     """The variant table of float ``params`` trained ``steps`` steps on
     ``corpus`` (the JAX tool's results dict; on a card also each variant's
-    kernel launches and the variants not run)."""
+    kernel launches)."""
     dev = params["embed"].device
     V = CFG.vocab_size
     ids_train = torch.as_tensor(corpus, device=dev)
@@ -228,13 +212,7 @@ def probe(params, corpus: np.ndarray, steps: int) -> dict:
     on_card = dev.type == "cuda"
     if on_card:
         results["launches"] = {}
-        results["not_run"] = {}
     for name, vp in quant_variants(params).items():
-        why = _refusal(vp) if on_card else None
-        if why:  # never routed to the plain versions
-            results["not_run"][name] = why
-            print(f"{name}: not run on the card ({why})", file=sys.stderr)
-            continue
         before = _launches()
         row = {}
         for tag, ids, ref in (("train", ids_train, ref_logits_train),

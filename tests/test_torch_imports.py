@@ -1,8 +1,9 @@
 """Guards for the PyTorch port.
 
 1. No module of ``infinisst_tpu_torch`` and not ``chip_smoke.py`` imports
-   ``jax`` or anything of the JAX package ``infinisst_tpu``: the machine
-   with the card has no JAX, and the port keeps its own copies.
+   ``jax``, anything of the JAX package ``infinisst_tpu`` or a root
+   ``tools_*`` script: the machine with the card has no JAX, and the port
+   keeps its own copies.
 2. Asking for CUDA without a card raises; nothing quietly runs on the CPU.
 """
 
@@ -24,6 +25,14 @@ def _sources():
     return sorted(out)
 
 
+# the entry points ported from the root scripts and examples, which the
+# scan below must cover
+ENTRY_POINTS = ("tools/alignatt_quality.py", "tools/trained_e2e.py",
+                "tools/spec_trained_teacher.py", "tools/phrase_e2e.py",
+                "tools/spec_acceptance.py", "tools/quant_fidelity.py",
+                "examples/stream_demo.py", "examples/serve_demo.py")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "flax", "infinisst_tpu")
@@ -32,6 +41,8 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_no_jax_package():
     files = _sources()
     assert len(files) > 20, files
+    for e in ENTRY_POINTS:
+        assert os.path.join(PKG, e) in files, e
     bad = []
     for path in files:
         with open(path) as f:
@@ -49,7 +60,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                     isinstance(node.args[0], ast.Constant):
                 names = [str(node.args[0].value)]
             bad += [(os.path.relpath(path, ROOT), n) for n in names
-                    if _forbidden(n)]
+                    if _forbidden(n) or n.split(".")[0].startswith("tools_")]
     assert not bad, bad
 
 
@@ -117,3 +128,16 @@ def test_kernel_wrappers_never_fall_back(no_card):
                                   torch.ones((8, 4), dtype=torch.int8),
                                   torch.ones((4,)))
     np.testing.assert_array_equal(out.numpy(), np.full((2, 4), 8.0))
+
+
+@pytest.mark.parametrize("tool", ["alignatt_quality", "trained_e2e",
+                                  "spec_trained_teacher", "phrase_e2e",
+                                  "spec_acceptance"])
+def test_tools_default_to_the_card(no_card, tool):
+    """Each trained-model tool runs on ``cuda`` unless given ``--device``:
+    without a card it raises before any work."""
+    import importlib
+
+    mod = importlib.import_module(f"infinisst_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])

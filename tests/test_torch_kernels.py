@@ -339,7 +339,7 @@ def _grouped_inputs(M, D, O, gs, seed):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("M,D,gs", [(1, 64, 32), (5, 256, 64), (4, 512, 128),
-                                    (61, 1792, 128)])
+                                    (61, 1792, 128), (3, 64, 4), (6, 96, 8)])
 def test_group_quant_int8_bitwise_vs_quantize_activation_grouped(dtype, M, D,
                                                                  gs):
     jd, td = DTYPES[dtype]
@@ -389,6 +389,30 @@ def test_grouped_mm_vs_jax_xla_path(dtype, shape):
                          {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)}))
     got = _as_f32(TQ.mm(_port(y, td), _packed(w, s)))
     assert got.shape == (B, S, O)
+    rel = 1e-6 if dtype == "float32" else 2.0 ** -8
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M,D,O,gs", [(5, 256, 100, 8), (3, 256, 30, 8),
+                                      (4, 512, 64, 16), (7, 96, 129, 16)])
+def test_grouped_plain_at_small_groups_vs_jax_reference(dtype, M, D, O, gs):
+    """Groups of 8 and 16, and O not a multiple of 4 (the shapes the
+    grouped pair's simple route takes on a card): the plain quantizer and
+    GEMM on the K-major weight against JAX's
+    ``quantized_matmul_w8a8_grouped_reference``, which sums the G rescaled
+    group products in one reduction, without the fused multiply-add:
+    float32 to 1e-6 of the largest output, bfloat16 to one bf16 rounding
+    step (2**-8 relative)."""
+    jd, td = DTYPES[dtype]
+    y, w, s = _grouped_inputs(M, D, O, gs, seed=D + O + gs)
+    want = _as_f32(JK.quantized_matmul_w8a8_grouped_reference(
+        jnp.asarray(y).astype(jd), jnp.asarray(w), jnp.asarray(s)))
+    yq, ys = TK.group_quant_int8_plain(_port(y, td), gs)
+    got = _as_f32(TK.w8a8_grouped_gemm_plain(
+        yq, ys, torch.from_numpy(np.ascontiguousarray(w.T)),
+        torch.from_numpy(s), td))
+    assert got.shape == (M, O)
     rel = 1e-6 if dtype == "float32" else 2.0 ** -8
     assert np.abs(got - want).max() <= rel * np.abs(want).max()
 
@@ -522,5 +546,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert TK.internal_counts == {"w8a8_gemm_split_k": 0,
                                   "w8_bf16_gemm_split_k": 0,
                                   "w8a8_grouped_gemm_split_k": 0,
+                                  "group_quant_int8_simple": 0,
+                                  "w8a8_grouped_gemm_simple": 0,
                                   "counter_zeroing": 0,
                                   "w8_bf16_gemm_f32_cast": 0}

@@ -258,12 +258,26 @@ def test_rollouts_and_beam_winners_match_jax(fidelity_models, name):
             JQF.beam_winner(jparams, jnp.asarray(prompt), 24)
 
 
-def test_fidelity_tool_groups_of_8_on_the_card_are_refused():
-    """The grouped GEMM's refusal of groups of 8, which the tool prints
-    on a card for the two 32-group variants (none other)."""
+def test_fidelity_tool_runs_every_variant():
+    """``quant_variants`` keeps JAX's eight variants (bf16 and the seven
+    int8 ones), none left out: every grouped leaf's shape is one the
+    grouped pair takes, the two 32-group variants' groups of 8 on its
+    simple route, the others on its tensor-core route."""
     tp = TQF.L.init_params(TQF.CFG, torch.Generator().manual_seed(0), "cpu")
-    refused = {n for n, vp in TQF.quant_variants(tp).items()
-               if TQF._refusal(vp)}
-    assert refused == {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
-    why = TQF._refusal(TQF.quant_variants(tp)["w8a8_32groups_projonly"])
-    assert re.search(r"group size 8 must be a multiple of 32", why)
+    var = TQF.quant_variants(tp)
+    assert list(var) == ["bf16", "w8", "w8a8", "w8a8_g128",
+                         "w8a8_g128_projonly", "w8a8_8groups_like_g512",
+                         "w8a8_32groups_like_g128", "w8a8_32groups_projonly"]
+    assert not hasattr(TQF, "_refusal")
+    simple = set()
+    for name, vp in var.items():
+        leaves = [vp["lm_head"]] + [vp["layers"][k] for k in
+                                    TQF.Q.QUANT_KEYS]
+        for w in leaves:
+            if TQF.Q.is_quantized(w) and TQF.Q.is_grouped(w):
+                O, D = w[TQF.Q.KMAJOR].shape[-2:]
+                G = w["scale_a8"].shape[-2]
+                assert D % G == 0
+                if not TQF.K.grouped_gemm_on_mma(D, G, O):
+                    simple.add(name)
+    assert simple == {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
