@@ -27,8 +27,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  kernel of their launch geometry (the launch floor).
                  The library yardsticks,
                  timed here and never called by the port: torch._int_mm
-                 and the scale epilogue in PyTorch ops (M > 16 only, with
-                 the kernel / library ratio) beside w8a8_gemm,
+                 and the scale epilogue in PyTorch ops (with the kernel /
+                 library ratio; at M <= 16, which _int_mm refuses, on
+                 the activations zero-padded to 17 rows, the epilogue on
+                 the M real rows) beside w8a8_gemm,
                  torch._weight_int8pack_mm (on the same (O, D) weight)
                  beside w8_bf16_gemm; none for the grouped pair (no single
                  PyTorch call computes it).
@@ -98,12 +100,18 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  at world size 1 (one card; the multi-rank paths are held
                  on the CPU under gloo, tests/test_torch_parallel.py): in
                  this process a world-1 NCCL group, the flagship W8A8
-                 agent through shard_params and tensor_parallel at (1, 1),
-                 4 chunks, its target ids those of the agent without a
-                 mesh after every chunk, w8a8_gemm, row_quant_int8 and
-                 decode_attention launched; the sharded train step at
-                 (1, 1) on the dryrun preset bitwise make_train_step's
-                 (deterministic algorithms on); then under ``torchrun
+                 agent through shard_params (zero's spec tree, FSDP's
+                 code path) and tensor_parallel at (1, 1), 4 chunks, its
+                 target ids those of the agent without a mesh after every
+                 chunk, w8a8_gemm, row_quant_int8 and decode_attention
+                 launched; the flagship W8A8 pool of 8 at beam 4 through
+                 the split engine's path at (1, 1), 2 ticks, every slot's
+                 tokens those of the pool without a mesh (one data rank:
+                 NCCL refuses two ranks on one card, so the split itself
+                 runs on four cards, parallel.mesh_check); the sharded
+                 train step at (1, 1) on the dryrun preset, zero's spec
+                 tree, bitwise make_train_step's (deterministic
+                 algorithms on); then under ``torchrun
                  --standalone --nproc_per_node 1`` the dryrun
                  (``parallel.dryrun``: the stage 2 step, the TP prefill,
                  the pooled, speculative and sampling pool ticks) with its
@@ -423,6 +431,24 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> list:
     return sorted(times)
 
 
+def int_mm_ms(yq, ys, ws, s) -> list:
+    """The library yardstick of ``w8a8_gemm``: ``torch._int_mm`` over the
+    (D, O) weights ``ws`` (cycled) and the scale epilogue in
+    PyTorch ops.  ``_int_mm`` refuses M <= 16, so there it takes the
+    activations zero-padded to 17 rows (padded once, outside the timing)
+    and the epilogue keeps the M real rows."""
+    import torch
+
+    M = yq.shape[0]
+    n_w = len(ws)
+    if M > 16:
+        return cuda_time_ms(lambda i: (torch._int_mm(yq, ws[i % n_w]).float()
+                                       * ys * s).to(torch.bfloat16), 20)
+    yp = torch.nn.functional.pad(yq, (0, 0, 0, 17 - M))
+    return cuda_time_ms(lambda i: (torch._int_mm(yp, ws[i % n_w])[:M].float()
+                                   * ys * s).to(torch.bfloat16), 20)
+
+
 def _sync(dev):
     import torch
 
@@ -607,20 +633,15 @@ def check_kernels(dev, notes):
                 lambda i: K.w8a8_gemm_plain(yq, ys, wts[i % n_w], s,
                                             torch.bfloat16), 3, warmup=1,
             )
-            lib = None
-            if M > 16:  # torch._int_mm's shape rule; then the scale epilogue
-                lib = cuda_time_ms(
-                    lambda i: (torch._int_mm(yq, ws[i % n_w]).float() * ys
-                               * s).to(torch.bfloat16), 20
-                )
+            lib = int_mm_ms(yq, ys, ws, s)
             bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by)
             plan = plan_line(K, M, D, O, sms)
-            if lib is not None:
-                print(f"  {'':17s} kernel / (torch._int_mm + epilogue) "
-                      f"{statistics.median(ms) / statistics.median(lib):.3f}",
-                      flush=True)
+            print(f"  {'':17s} kernel / (torch._int_mm + epilogue"
+                  f"{'' if M > 16 else ', 17 padded rows'}) "
+                  f"{statistics.median(ms) / statistics.median(lib):.3f}",
+                  flush=True)
             if M in SERVE_M + OFFLINE_M:
                 continue  # the pool and AlignAtt run only the W8A8 pair
 
@@ -3237,6 +3258,40 @@ def _agent_tokens(dev, cfg, params, n_chunks, mesh=None):
     return out, launch_counts()
 
 
+def _pool_tokens(dev, cfg, params, n_ticks, mesh=None):
+    """The flagship W8A8 pool of 8 slots at beam 4 (``[serve]``'s
+    geometry), every slot streaming seeded noise, ``n_ticks`` ticks,
+    built and ticked under ``tensor_parallel(mesh)`` (with a mesh: one
+    pool split over its 'data' axis); each tick's slot tokens and the
+    kernels' launches."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.parallel.collectives import tensor_parallel
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    rng = np.random.RandomState(13)
+    stream = StreamConfig()
+    out = []
+    reset_counts()
+    with torch.no_grad(), tensor_parallel(mesh):
+        eng = ServingEngine(
+            params, cfg, stream, {("English", "German"): PromptBuilder(
+                StubTokenizer(cfg.llama.vocab_size), cfg.tokens)},
+            pool_size=8, beam=4, dtype=torch.bfloat16, device=dev)
+        slots = [eng.open_stream(f"s{i}") for i in range(8)]
+        for _ in range(n_ticks):
+            for s in slots:
+                eng.push_audio(s, (rng.randn(stream.chunk_samples(1))
+                                   * 0.1).astype(np.float32))
+            eng.tick()
+            out.append([list(eng.slots[s].target_ids) for s in slots])
+    _sync(dev)
+    return out, launch_counts()
+
+
 def check_mesh_step(dev, mesh):
     """The sharded train step at mesh (1, 1) on the dryrun preset (float32,
     stage 2, remat, 3 of [train tiny]'s batches) against
@@ -3262,15 +3317,15 @@ def check_mesh_step(dev, mesh):
     def run(with_mesh):
         params = tstep.tree_map(lambda t: t.clone().to(dev), base)
         plan = None
-        if with_mesh:
+        if with_mesh:  # zero's (FSDP's) spec tree, as Trainer's default
             params, lay = pmesh.shard_params(
-                params, mesh, pmesh.model_param_specs(cfg), cfg=cfg)
-            plan = tstep.MeshPlan(mesh, lay, False, tstep.tree_leaves(
-                tstep.trainable_mask(params, freeze)))
+                params, mesh, pmesh.model_param_specs(cfg, zero=True),
+                cfg=cfg)
+            plan = tstep.MeshPlan(mesh, lay)
         tx = tstep.make_optimizer(tstep.OptimConfig(
             learning_rate=TRAIN_LR, warmup_steps=1, total_steps=6),
             params, freeze)
-        state = tstep.init_train_state(params, tx, plan)
+        state = tstep.init_train_state(params, tx)
         step = tstep.make_train_step(cfg, tx, 48, 96, freeze=freeze,
                                      remat=True, plan=plan)
         metrics = []
@@ -3297,7 +3352,8 @@ def check_mesh_step(dev, mesh):
                 torch.equal(a, b) for a, b in zip(other[1], plain[1])):
             fail(f"[mesh] {label} is not bitwise the plain step: metrics "
                  f"{other[0]} against {plain[0]}")
-    print(f"[mesh] sharded train step at (1, 1), dryrun float32 stage 2, 3 "
+    print(f"[mesh] sharded train step at (1, 1) (zero's spec tree, FSDP's "
+          f"code path; one rank splits nothing), dryrun float32 stage 2, 3 "
           f"steps: losses and grad norms {plain[0]} and every parameter "
           f"bitwise those of make_train_step without a mesh", flush=True)
 
@@ -3309,14 +3365,19 @@ def check_mesh(dev, cfg, params, d, paths):
 
     1. in this process, a world-1 NCCL group: the flagship W8A8 agent
        (``[flagship]``'s weights) through the mesh path (``shard_params``
-       at (1, 1), ``tensor_parallel``), 4 chunks: the target ids of the
-       agent without a mesh after every chunk, and w8a8_gemm,
-       row_quant_int8 and decode_attention launched;
-    2. in the same group, ``check_mesh_step``;
-    3. ``torchrun --standalone --nproc_per_node 1 -m
+       at (1, 1) with zero's spec tree, ``tensor_parallel``), 4 chunks:
+       the target ids of the agent without a mesh after every chunk, and
+       w8a8_gemm, row_quant_int8 and decode_attention launched;
+    2. the split-pool engine's code path: the flagship W8A8 pool of 8 at
+       beam 4 built and ticked under ``tensor_parallel`` of the (1, 1)
+       mesh, 2 ticks, every slot's tokens those of the pool without a
+       mesh (one data rank holds every row: the split itself runs on
+       four cards, ``parallel.mesh_check``, and on the CPU under gloo);
+    3. in the same group, ``check_mesh_step``;
+    4. ``torchrun --standalone --nproc_per_node 1 -m
        infinisst_tpu_torch.parallel.dryrun``: the five parts at mesh (1, 1)
        under NCCL, exit 0 and the summary line, its launches;
-    4. ``torchrun ... -m infinisst_tpu_torch.train.main --model_preset
+    5. ``torchrun ... -m infinisst_tpu_torch.train.main --model_preset
        dryrun --n_data 1 --max_steps 3``: metrics.jsonl with three finite
        losses and the checkpoint of step 3."""
     import numpy as np
@@ -3332,8 +3393,8 @@ def check_mesh(dev, cfg, params, d, paths):
                             rank=0, world_size=1, device_id=dev)
     try:
         mesh = pmesh.make_mesh(1, 1, dev)
-        local, _ = pmesh.shard_params(params, mesh,
-                                      pmesh.model_param_specs(cfg), cfg=cfg)
+        local, _ = pmesh.shard_params(
+            params, mesh, pmesh.model_param_specs(cfg, zero=True), cfg=cfg)
         want, _ = _agent_tokens(dev, cfg, params, 4)
         got, counts = _agent_tokens(dev, cfg, local, 4, mesh=mesh)
         for i, (g, w) in enumerate(zip(got, want)):
@@ -3347,6 +3408,22 @@ def check_mesh(dev, cfg, params, d, paths):
               f"4 chunks, {len(got[-1])} target ids, equal to the agent "
               f"without a mesh after every chunk; launches {counts} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        t1 = time.perf_counter()
+        want, _ = _pool_tokens(dev, cfg, params, 2)
+        got, pool_counts = _pool_tokens(dev, cfg, local, 2, mesh=mesh)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                fail(f"[mesh] pool tick {i}: slot tokens {g} through the "
+                     f"split engine's path, {w} without a mesh")
+        for k in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+            if pool_counts[k] <= 0:
+                fail(f"[mesh] {k} was not launched by the split engine")
+        print(f"[mesh] flagship W8A8 pool of 8 at beam 4 through the split "
+              f"engine's path at (1, 1) (one data rank: no split on one "
+              f"card): 2 ticks, {sum(map(len, got[-1]))} tokens, every "
+              f"slot's equal to the pool's without a mesh; launches "
+              f"{pool_counts} ({time.perf_counter() - t1:.1f} s)",
+              flush=True)
         del local
         torch.cuda.empty_cache()
         check_mesh_step(dev, mesh)
@@ -3407,7 +3484,9 @@ def check_mesh(dev, cfg, params, d, paths):
           f"({time.perf_counter() - t2:.1f} s)", flush=True)
     paths["mesh"] = (
         "[mesh] the flagship W8A8 agent at mesh (1, 1), 4 chunks; the "
-        "dryrun under torchrun at (1, 1)", {"agent": counts, "dryrun": dry})
+        "flagship W8A8 pool through the split engine at (1, 1), 2 ticks; "
+        "the dryrun under torchrun at (1, 1)",
+        {"agent": counts, "split_pool": pool_counts, "dryrun": dry})
 
 
 def check_train_main(d):

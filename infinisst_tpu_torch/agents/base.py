@@ -62,3 +62,36 @@ class SpeechToTextAgent:
         self.states.source_sample_rate = sample_rate
         self.states.source_finished = finished
         return self.policy(self.states)
+
+
+def make_simuleval_agent(agent_cls, args):
+    """Wrap one of the port's agents as a SimulEval ``SpeechToTextAgent``
+    if ``simuleval`` imports (an optional dependency): its policy copies
+    SimulEval's source into the agent's states and maps the agent's Read
+    and Write to SimulEval's actions."""
+    try:
+        from simuleval.agents import SpeechToTextAgent as SimulAgent
+        from simuleval.agents.actions import (
+            ReadAction as SimulRead,
+            WriteAction as SimulWrite,
+        )
+    except ImportError as e:
+        raise RuntimeError(
+            "simuleval is not installed; use the built-in eval harness "
+            "(infinisst_tpu_torch.eval.runner) instead"
+        ) from e
+
+    inner = agent_cls(args)
+
+    class Wrapped(SimulAgent):
+        def policy(self, states=None):
+            st = states if states is not None else self.states
+            inner.states.source = list(st.source)
+            inner.states.source_sample_rate = st.source_sample_rate
+            inner.states.source_finished = st.source_finished
+            act = inner.policy(inner.states)
+            if act.is_read():
+                return SimulRead()
+            return SimulWrite(content=act.content, finished=act.finished)
+
+    return Wrapped

@@ -156,6 +156,19 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout.  data: the data-parallel axis (FSDP under
+    ``zero``); model: the tensor-parallel axis."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Top-level bundle for the speech-LLM."""
 

@@ -74,3 +74,19 @@ def streaming_chunk_mask(
     q_block_end = (torch.div(q_abs, blocksize, rounding_mode="floor") + 1) * blocksize
     allowed = (k_abs < q_block_end) & (k_abs > q_abs - max_cache_size - 1)
     return allowed & slot_valid
+
+
+def left_aligned_decode_mask(q_len: int, cache_len: int, valid_len,
+                             device=None) -> torch.Tensor:
+    """Mask for the LLM's incremental decode over a left-aligned KV cache:
+    ``valid_len`` real entries in slots [0, valid_len), the ``q_len`` new
+    queries stored at [valid_len, valid_len + q_len).  Query i may attend
+    every valid cached slot and the new slots up to its own (causal
+    within the new block).  ``valid_len`` is an int (bool[q_len,
+    cache_len]) or a (B,) tensor (bool[B, q_len, cache_len])."""
+    valid = torch.as_tensor(valid_len, dtype=torch.int64, device=device)
+    if valid.ndim:
+        valid = valid.reshape(valid.shape + (1, 1))
+    qi = torch.arange(q_len, device=valid.device)[:, None]
+    kj = torch.arange(cache_len, device=valid.device)[None, :]
+    return kj < valid + qi + 1

@@ -38,6 +38,7 @@ import torch
 from infinisst_tpu_torch.core.config import LlamaConfig
 from infinisst_tpu_torch.decode import logits as lp
 from infinisst_tpu_torch.models import llama as llama_mod
+from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import DecoderState
 
 NEG_INF = -1e9
@@ -218,7 +219,11 @@ def batched_beam_search(
     steps = [0] * P
     live = [True] * P
     logits_cur = last_logits.repeat_interleave(B, dim=0)  # (rows, V)
-    while any(live):
+    # under a pool split over 'data' every rank steps while any slot of
+    # the whole pool is live (its own done slots step as the one-rank
+    # pool's do)
+    go = par.any_over_data(any(live))
+    while go:
         seq_len_t = torch.tensor(seq_len, dtype=torch.int64, device=dev)
         scores = torch.log_softmax(logits_cur.to(torch.float32), dim=-1)
         scores = lp.process_scores(
@@ -277,8 +282,10 @@ def batched_beam_search(
             )
 
         # reorder the per-beam state (a done slot's rows map to themselves)
-        dst = torch.tensor([r for r, _ in new_scores], device=dev)
-        src_c = torch.tensor([c for _, c in new_scores], device=dev)
+        dst = torch.tensor([r for r, _ in new_scores], dtype=torch.int64,
+                           device=dev)
+        src_c = torch.tensor([c for _, c in new_scores], dtype=torch.int64,
+                             device=dev)
         beam_scores = beam_scores.clone()
         beam_scores[dst] = cand_vals.reshape(-1)[src_c]
         perm_t = torch.tensor(perm, dtype=torch.int64, device=dev)
@@ -307,12 +314,14 @@ def batched_beam_search(
         moved = [r for r, _ in new_scores]
         moved_t = torch.tensor(moved, dtype=torch.int64, device=dev)
         seq_buf[moved_t, torch.tensor([seq_len[r] for r in moved],
+                                      dtype=torch.int64,
                                       device=dev)] = torch.tensor(
             [new_tok[r] for r in moved], dtype=torch.int64, device=dev)
         for r in moved:
             seq_len[r] += 1
 
-        if any(live):
+        go = par.any_over_data(any(live))
+        if go:
             x = llama_mod.embed(params, torch.tensor(
                 new_tok, dtype=torch.int64, device=dev)[:, None])
             logits_cur, gen_k, gen_v, attn_cur_t = llama_mod.beam_token_step(

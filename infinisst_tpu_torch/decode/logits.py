@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from infinisst_tpu_torch.parallel import collectives as par
+
 NEG_INF = -1e9
 
 
@@ -178,8 +180,7 @@ def categorical(scores, generator):
     """One draw per row from softmax(scores) (B, V) by the Gumbel-max
     trick, with noise from ``generator`` (on the scores' device);
     -inf and NEG_INF scores are never drawn next to a finite one."""
-    u = torch.rand(scores.shape, generator=generator, device=scores.device,
-                   dtype=torch.float32)
+    u = par.pool_rand(scores.shape, generator, scores.device)
     return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
 
 

@@ -37,6 +37,7 @@ from infinisst_tpu_torch.core.config import LlamaConfig
 from infinisst_tpu_torch.decode import logits as lp
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models.quant import KMAJOR
+from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import DecoderState
 
 
@@ -77,8 +78,10 @@ class SpecResult(NamedTuple):
 
 
 def _nbytes(tree) -> float:
+    """The bytes of the leaves, a 'data' shard counted whole."""
     if torch.is_tensor(tree):
-        return float(tree.numel() * tree.element_size())
+        n = par.data_size() if par.data_dim(tree) is not None else 1
+        return float(tree.numel() * tree.element_size() * n)
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return 0.0
@@ -147,7 +150,8 @@ def _draft_setup(params, cfg: LlamaConfig, d: int, draft_head, exit_adapter):
     params_d = {
         "embed": params["embed"],
         "layers": {k: ({kk: vv[:d] for kk, vv in v.items()}
-                       if isinstance(v, dict) else v[:d])
+                       if isinstance(v, dict)
+                       else par.layer_slice(v, slice(None, d)))
                    for k, v in params["layers"].items()},
         "final_ln": params["final_ln"],
         "lm_head": params["lm_head"],
@@ -424,7 +428,7 @@ def batched_speculative_greedy(
         return torch.argmax(scores, dim=-1)
 
     last = first_logits.to(torch.float32)
-    while not bool(r.done.all()):
+    while par.any_over_data(not bool(r.done.all())):
         t1 = argmax(last, r.seq_buf, r.seq_len)  # the round's anchor
         drafts = r.draft(t1, argmax)
         toks_v = torch.cat([t1[:, None], drafts], dim=1)  # (B, k+1)
@@ -487,7 +491,7 @@ def batched_speculative_sample(
     c_lg = first_logits.to(torch.float32)
     c_q = torch.zeros((B, V), dtype=torch.float32, device=r.dev)
     c_rej = torch.zeros((B,), dtype=torch.bool, device=r.dev)
-    while not bool(r.done.all()):
+    while par.any_over_data(not bool(r.done.all())):
         live = ~r.done & r.act
         # the anchor: a draw from the correct conditional law
         p0 = torch.softmax(scores_of(c_lg, r.seq_buf, r.seq_len), dim=-1)
@@ -517,7 +521,7 @@ def batched_speculative_sample(
         dt = drafts.t()[:, :, None]  # (k, B, 1)
         q_d = q_probs.gather(2, dt)[..., 0]
         p_d = p_probs.gather(2, dt)[..., 0]
-        u = torch.rand((k, B), generator=generator, device=r.dev)
+        u = par.pool_rand((k, B), generator, r.dev, dim=1)
         a = _first_false((u * q_d < p_d).t())
         r.emit(toks_v, a, live, dec_v)
         # the carry: raw verify logits at the last emitted position (all
@@ -590,11 +594,12 @@ def with_draft_params(params, cfg, dtype, device, head_vocab: int = 0,
     ``lowrank_head`` {'a', 'b'}) and ``spec_adapter`` (an exit adapter
     {'ln', 'w1', 'w2'}), cast to ``dtype`` on ``device``.  Raises on the
     JAX package's misconfigurations."""
-    from infinisst_tpu_torch.parallel import collectives as par
-
     D, V = cfg.llama.hidden_size, cfg.llama.vocab_size
     params = dict(params)
     head = params["llama"]["lm_head"]
+    if head_vocab or lowrank_rank:  # both read whole columns of the head
+        with torch.no_grad():
+            head = par.unshard(head)
     if par.model_size() > 1:
         if lowrank_rank or lowrank_head is not None:
             raise ValueError(

@@ -8,7 +8,8 @@ and needs no streaming state.
 
 Under tensor parallelism the projection's weight and bias are split on
 their output (``parallel/mesh.py``): each rank adds its bias block to its
-columns and the output is gathered over 'model'.
+columns and the output is gathered over 'model'.  Under FSDP its
+leaves are gathered over 'data' once a forward.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ Params = Dict[str, Any]
 
 def forward(params: Params, cfg: AdapterConfig, x: torch.Tensor):
     """(B, frames, in_dim) -> (B, frames // 4, out_dim)."""
+    params = par.unshard_tree(params)
     h = x.transpose(1, 2)  # (B, C, T)
     for lc, p in zip(cfg.conv_layers, params["conv"]):
         h = F.conv1d(h.to(p["w"].dtype), p["w"].permute(2, 1, 0),

@@ -35,6 +35,12 @@ rank's KV heads.  The embedding, split on D, is gathered; the lm_head is
 column- or row-parallel as its sanitised layout says
 (``collectives.head_logits``).
 
+Under FSDP (the 'data' axis with ``zero``) a leaf is a shard of its
+'data' dim: each layer is gathered where the loop slices it
+(``layer_params``; inside the checkpointed function under remat, so
+that only the shards are kept for the backward and the replay gathers
+again), the embedding, final norm and lm_head where they are used.
+
 Parameters (dict of tensors, (in, out) matrices, layers stacked on dim 0):
   embed (V, D); layers: input_ln, post_ln (L, D), wq (L, D, H*Dh),
   wk/wv (L, D, KV*Dh), wo (L, H*Dh, D), w_gate/w_up (L, D, I),
@@ -96,8 +102,9 @@ def _final_logits(params: Params, cfg: LlamaConfig, h):
     ``exit_adapter``), ``final_ln`` and the lm_head."""
     if "exit_adapter" in params:
         h = apply_exit_adapter(params["exit_adapter"], h, cfg.rms_norm_eps)
-    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    return par.head_logits(h, params["lm_head"], cfg.vocab_size, mm)
+    h = _rms_norm(h, par.unshard(params["final_ln"]), cfg.rms_norm_eps)
+    return par.head_logits(h, par.unshard(params["lm_head"]),
+                           cfg.vocab_size, mm)
 
 
 def local_heads(layers: Params, cfg: LlamaConfig) -> Tuple[int, int]:
@@ -132,11 +139,17 @@ def rope_inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
     return torch.tensor(f, dtype=torch.float32, device=device)
 
 
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked parameters (quantized leaves included)."""
+def layer_params(layers: Params, i: int, gather: bool = True) -> Params:
+    """Layer ``i`` of the stacked parameters (quantized leaves included),
+    its 'data' shards gathered (``gather``; else marked shards, for a
+    checkpointed layer to gather)."""
+    def one(v):
+        s = par.layer_slice(v, i)
+        return par.unshard(s) if gather else s
+
     return {
         k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-            else v[i])
+            else one(v))
         for k, v in layers.items()
     }
 
@@ -254,7 +267,7 @@ def embed(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
     # gather clamps it (a stub tokenizer's ids over a small preset's vocab);
     # under tensor parallelism the table is split on D (n_model divides
     # the hidden size, mesh.check_tensor_parallel) and gathered
-    table = params["embed"]
+    table = par.unshard(params["embed"])
     return par.gather_from_model(
         table[token_ids.clamp(max=table.shape[0] - 1)], -1)
 
@@ -272,7 +285,8 @@ def offline_hidden(
     the layer-skip draft sees at depth d.  Returns h (B, S, D)."""
     layers = params["layers"]
     if num_layers is not None:
-        layers = {k: v[:num_layers] for k, v in layers.items()}
+        layers = {k: par.layer_slice(v, slice(None, num_layers))
+                  for k, v in layers.items()}
     return _offline_scan(layers, cfg, x_embed, attention_mask, remat)
 
 
@@ -286,12 +300,13 @@ def offline_forward(
     """Training forward: plain causal attention, no cache; ``remat``
     checkpoints each layer.  Returns logits (B, S, V)."""
     h = _offline_scan(params["layers"], cfg, x_embed, attention_mask, remat)
-    h = _rms_norm(h, params["final_ln"], cfg.rms_norm_eps)
-    return par.head_logits(h, params["lm_head"], cfg.vocab_size,
-                           torch.matmul)
+    h = _rms_norm(h, par.unshard(params["final_ln"]), cfg.rms_norm_eps)
+    return par.head_logits(h, par.unshard(params["lm_head"]),
+                           cfg.vocab_size, torch.matmul)
 
 
 def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
+    lp = par.unshard_tree(lp)
     B, S, _ = h.shape
     H, KV = local_heads(lp, cfg)
     Dh = cfg.head_dim
@@ -331,7 +346,7 @@ def _offline_scan(layers: Params, cfg: LlamaConfig, x_embed, attention_mask,
     inv_freq = rope_inv_freq(cfg, dev)
     h = x_embed
     for li in range(layers["wq"].shape[0]):
-        lp = layer_params(layers, li)
+        lp = layer_params(layers, li, gather=False)
         args = (lp, cfg, h, bias, pos, inv_freq)
         h = (checkpoint(_offline_layer, *args, use_reentrant=False,
                         preserve_rng_state=False) if remat

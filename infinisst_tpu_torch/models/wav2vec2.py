@@ -24,6 +24,10 @@ fc1's columns and fc2's rows, and of post_proj's output columns: f
 bo and fc2_b are added once, and the training dropout after them;
 post_proj's output is gathered before its replicated bias.  The local
 head count is read from wq's shape; the cache holds the rank's heads.
+
+Under FSDP (the 'data' axis with ``zero``) the extractor, norms and
+post_proj are gathered once a forward, each layer where the loop slices
+it (inside the checkpointed function under remat).
 """
 
 from __future__ import annotations
@@ -173,7 +177,9 @@ def _layer(lp, cfg: W2V2Config, h, bias, q_pos, k_pos, inv_freq,
            cache=None, keep=(None, None), rate=0.0):
     """One pre-LN transformer layer over h (B, S, D) attending to [cache |
     h]; ``keep`` holds the dropout masks of its attention and FFN outputs.
-    Returns (h, k_new, v_new), the chunk's own unrotated K/V."""
+    Its 'data' shards are gathered first.  Returns (h, k_new, v_new), the
+    chunk's own unrotated K/V."""
+    lp = par.unshard_tree(lp)
     H = _local_heads(lp["wq"], cfg)
     y = par.copy_to_model(_layer_norm(h, lp["ln1_scale"], lp["ln1_bias"]))
     q = _split_heads(y @ lp["wq"] + lp["bq"], H)
@@ -209,17 +215,20 @@ def _encoder_stack(params, cfg: W2V2Config, x, bias, q_pos, k_pos,
     h = x
     new_k, new_v = [], []
     for li in range(layers["wq"].shape[0]):
-        lp = {k: v[li] for k, v in layers.items()}
+        lp = {k: par.layer_slice(v, li) for k, v in layers.items()}
         h, k_n, v_n = _layer(lp, cfg, h, bias, q_pos, k_pos, inv_freq,
                              cache=(cache_kv[0][li], cache_kv[1][li]))
         new_k.append(k_n)
         new_v.append(v_n)
-    h = _layer_norm(h, params["final_ln"]["scale"], params["final_ln"]["bias"])
+    fl = par.unshard_tree(params["final_ln"])
+    h = _layer_norm(h, fl["scale"], fl["bias"])
     return h, (torch.stack(new_k), torch.stack(new_v))
 
 
 def _prep_frames(params: Params, cfg: W2V2Config, samples: torch.Tensor):
     """Conv extractor + post LayerNorm + projection to the encoder dim."""
+    params = par.unshard_tree({k: params[k]
+                               for k in ("conv", "post_ln", "post_proj")})
     feats = conv_extractor(params, cfg, samples)
     feats = _layer_norm(feats, params["post_ln"]["scale"],
                         params["post_ln"]["bias"])
@@ -297,7 +306,7 @@ def forward(
     h = _drop(x, keep(), dropout_rate)
     layers = params["layers"]
     for li in range(layers["wq"].shape[0]):
-        lp = {k: v[li] for k, v in layers.items()}
+        lp = {k: par.layer_slice(v, li) for k, v in layers.items()}
         args = (lp, cfg, h, bias, pos, inv_freq, (keep(), keep()),
                 dropout_rate)
         # the layer draws no random numbers (its masks are arguments), so
@@ -305,8 +314,8 @@ def forward(
         h = (checkpoint(_offline_layer, *args, use_reentrant=False,
                         preserve_rng_state=False) if remat
              else _offline_layer(*args))
-    return _layer_norm(h, params["final_ln"]["scale"],
-                       params["final_ln"]["bias"])
+    fl = par.unshard_tree(params["final_ln"])
+    return _layer_norm(h, fl["scale"], fl["bias"])
 
 
 def chunk_step(

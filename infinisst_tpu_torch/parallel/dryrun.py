@@ -3,11 +3,13 @@
 
 On one (data x model) mesh over every rank of the process group
 (``model_ax`` 4, else 2, else 1, whichever divides the world size), on
-the dryrun preset in float32, it runs:
+the dryrun preset in float32, with the parameters sharded as JAX's
+dryrun shards them (``zero`` where data_ax > 1: every leaf split over
+'data' as well, FSDP), it runs:
 
 1. the full stage 2 training step (``make_train_step`` with no freeze,
    so every leaf's gradient is taken, under a stage 2 optimizer) with
-   TP + DP/ZeRO shardings, on a tiny batch of B = 2 * data_ax rows;
+   TP + DP/FSDP shardings, on a tiny batch of B = 2 * data_ax rows;
 2. a TP-sharded streaming prefill (``speech_llm.prefill_chunk``), one row
    per data rank;
 3. a pooled ``ServingEngine`` tick (pool max(2, data_ax), beam 2,
@@ -16,12 +18,9 @@ the dryrun preset in float32, it runs:
 5. a speculative sampling pool tick;
 
 and prints the JAX package's summary line (and, on stderr, the kernels'
-launch counts).  The JAX dryrun splits the pools' rows and caches over
-'data'; the port does not (ROADMAP §3), and ``ServingEngine`` refuses a
-mesh whose 'data' size is above 1.  So parts 3-5 run on the mesh's
-'model' slice, ``mesh["model"]``: each data rank serves a whole pool of
-its own, tensor-parallel over its model ranks (said on stderr where
-data_ax > 1).
+launch counts).  Parts 3-5 serve one pool split over 'data' (its rows,
+windows and caches; ``serve/engine.py``) on the whole mesh, from the
+trained, FSDP-sharded parameters, as the JAX dryrun does.
 
     torchrun --standalone --nproc_per_node 8 \
         -m infinisst_tpu_torch.parallel.dryrun [--data D --model M] \
@@ -90,12 +89,11 @@ def dryrun_multichip(device="cuda", data_ax=None, model_ax=None) -> str:
     specs = pmesh.model_param_specs(cfg, zero=zero)
     params, layouts = pmesh.shard_params(params, mesh, specs, cfg=cfg)
     freeze = tstep.FreezeConfig.stage2()
-    plan = tstep.MeshPlan(mesh, layouts, zero, tstep.tree_leaves(
-        tstep.trainable_mask(params, freeze)))
+    plan = tstep.MeshPlan(mesh, layouts)
 
     tx = tstep.make_optimizer(
         tstep.OptimConfig(total_steps=100, warmup_steps=10), params, freeze)
-    state = tstep.init_train_state(params, tx, plan)
+    state = tstep.init_train_state(params, tx)
 
     # tiny batch: B = data_ax * 2 rows, ~1.9 s of audio, a short transcript
     B = data_ax * 2
@@ -154,20 +152,13 @@ def dryrun_multichip(device="cuda", data_ax=None, model_ax=None) -> str:
         raise RuntimeError("the TP prefill's logits are not finite")
     logits_shape = (data_ax,) + tuple(logits.shape[1:])
 
-    # -- the pooled serving tick (mixed multipliers, beam 2), on the
-    # 'model' slice: a pool's rows are not split over 'data'
-    serve_mesh = mesh["model"]
-    if data_ax > 1 and dist.get_rank() == 0:
-        import sys
-
-        print(f"dryrun: the serving pools are not split over 'data' "
-              f"(ROADMAP §3): each of the {data_ax} data ranks serves its "
-              "own pool", file=sys.stderr, flush=True)
+    # -- the pooled serving tick (mixed multipliers, beam 2): one pool,
+    # its rows split over 'data'
     pool = max(2, data_ax)
     builders = {("English", "German"): builder}
     rng2 = np.random.RandomState(1)
     unit = stream.chunk_samples(1)
-    with tensor_parallel(serve_mesh):
+    with tensor_parallel(mesh):
         eng = ServingEngine(p, cfg, stream, builders, pool_size=pool,
                             multiplier=1, dtype=torch.float32, beam=2,
                             multipliers=(1, 2), device=dev)
@@ -182,7 +173,7 @@ def dryrun_multichip(device="cuda", data_ax=None, model_ax=None) -> str:
         raise RuntimeError("the serve tick made no m=1 prefill")
 
     # -- the speculative pool tick (layer-skip draft, shortlist head)
-    with tensor_parallel(serve_mesh):
+    with tensor_parallel(mesh):
         eng_s = ServingEngine(
             p, cfg, stream, builders, pool_size=pool, multiplier=1,
             dtype=torch.float32, beam=1, device=dev, speculative=True,
@@ -197,7 +188,7 @@ def dryrun_multichip(device="cuda", data_ax=None, model_ax=None) -> str:
     n_spec = len(eng_s.slots[t0].target_ids)
 
     # -- the speculative sampling pool tick
-    with tensor_parallel(serve_mesh):
+    with tensor_parallel(mesh):
         eng_ss = ServingEngine(
             p, cfg, stream, builders, pool_size=pool, multiplier=1,
             dtype=torch.float32, beam=1, device=dev, speculative=True,

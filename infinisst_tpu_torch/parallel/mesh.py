@@ -2,24 +2,26 @@
 ``infinisst_tpu/parallel/mesh.py`` over ``torch.distributed``.
 
 The reference trains with NCCL all-reduce under DeepSpeed ZeRO-2
-(train/main.py:170-174, SURVEY.md §5.8).  The mesh has two axes:
+(train/main.py:170-174, SURVEY.md §5.8); the JAX package goes further,
+and so does the port.  The mesh has two axes:
 
-- 'data'  -- the batch is split over it; with ``zero`` the gradients and
-  the optimizer state of a leaf are split along the dim its sanitised
-  spec gives 'data' (ZeRO-2: the parameters stay whole on every data
-  rank; the JAX package's further sharding of the parameters themselves
-  is not ported, ROADMAP §3);
+- 'data'  -- the batch (a training batch, a serving pool) is split over
+  it; with ``zero`` every leaf is also split along the dim its sanitised
+  spec gives 'data' (FSDP, the JAX package's ``zero``: the parameters
+  themselves, frozen ones too, and with them their gradients and
+  optimizer state); a forward gathers a leaf where it uses it
+  (``parallel/collectives.py``);
 - 'model' -- tensor parallelism over attention heads and FFN columns.
 
 The spec trees are the JAX package's, with the port's own partition spec
 ``P`` (a tuple: per dim ``None``, an axis name or a tuple of names).  A
 spec is made legal for a leaf's shape by ``sanitize_spec`` (the JAX
 rules, over a ``{axis: size}`` mapping, so that it runs with no process
-group); ``shard_params`` then keeps this rank's 'model' slice of every
-leaf and returns a ``Layout`` per leaf: the dim split over 'model' and
-the dim split over 'data'.  Where an axis sits on a dim beside another
+group); ``shard_params`` then keeps this rank's slice of every leaf over
+both axes and returns a ``Layout`` per leaf: the dim split over 'model'
+and the dim split over 'data'.  Where both axes sit on one dim
 (``('data', 'model')``), the port's slice is the contiguous 'model'
-chunk, split further over 'data' for the optimizer state.
+chunk, split further over 'data'.  Quantized leaves stay whole.
 
 Every weight is stored (in, out); under tensor parallelism a rank holds
 a contiguous block of each column-parallel leaf's output columns (query
@@ -99,7 +101,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
 # -- parameter partition specs (the JAX package's rules) ---------------------
 # Dense weights are stored (in, out).  Column-parallel layers (qkv,
 # gate/up) are split on their output, row-parallel ones (o_proj, down) on
-# their input, over 'model'.  ZeRO: the non-TP dim on 'data'.
+# their input, over 'model'.  zero (FSDP): the non-TP dim on 'data'.
 
 
 def _spec(tp_dim: Optional[int], ndim: int, zero: bool,
@@ -291,8 +293,7 @@ def sanitize_specs(shapes_tree, spec_tree, mesh):
 class Layout(NamedTuple):
     """Where a leaf is split after sanitising: its spec, the dim split
     over 'model' (None: whole on every model rank) and the dim split over
-    'data' (None: not split; only the gradient and the optimizer state
-    are split there, ZeRO-2)."""
+    'data' (None: whole on every data rank)."""
 
     spec: P
     model_dim: Optional[int]
@@ -356,17 +357,30 @@ def _has_quantized(tree) -> bool:
     return False
 
 
-def _chunk(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
-    return t.chunk(n, dim)[r]
+def local_slice(t, lt: Layout, sizes, ranks):
+    """Rank ``ranks`` ({axis: rank}) 's slice of a whole leaf ``t`` of
+    layout ``lt`` on a mesh of ``sizes`` ({axis: size}): the contiguous
+    'model' chunk, then the 'data' chunk of it (a view)."""
+    for axis, d in (("model", lt.model_dim), ("data", lt.data_dim)):
+        if d is not None and sizes[axis] > 1:
+            k = t.shape[d] // sizes[axis]
+            t = t.narrow(d, ranks[axis] * k, k)
+    return t
 
 
-def shard_params(params, mesh, spec_tree, cfg=None):
-    """This rank's slice of every leaf over 'model' (the parameters stay
-    whole over 'data'), after ``sanitize_spec``; returns (local params,
-    layout tree).  With ``cfg`` an ``n_model`` that splits a head is
-    refused (``check_tensor_parallel``); quantized parameters are refused
-    under ``n_model > 1`` (the spec trees cover the float layout only, as
-    the JAX package's do) and stay whole at ``n_model = 1``."""
+def shard_params(params, mesh, spec_tree, cfg=None, ranks=None):
+    """This rank's slice of every leaf over 'model' and 'data', after
+    ``sanitize_spec``; returns (local params, layout tree).  A leaf split
+    over 'data' (a spec tree made with ``zero``, n_data > 1) is marked
+    (``collectives.mark_data_shard``), so that the forwards gather it
+    where they use it.  ``mesh`` is a DeviceMesh, or a ``{axis: size}``
+    mapping with this rank's ``ranks`` ({axis: rank}; no process group,
+    e.g. on the meta device).  With ``cfg`` an ``n_model`` that splits a
+    head is refused (``check_tensor_parallel``); quantized parameters
+    are refused under ``n_model > 1`` (the spec trees cover the float
+    layout only, as the JAX package's do) and stay whole otherwise."""
+    from infinisst_tpu_torch.parallel.collectives import mark_data_shard
+
     sizes = mesh_shape(mesh)
     n = sizes["model"]
     if n > 1 and _has_quantized(params):
@@ -378,12 +392,17 @@ def shard_params(params, mesh, spec_tree, cfg=None):
     if cfg is not None:
         check_tensor_parallel(cfg, n)
     lay = layouts(params, spec_tree, mesh)
-    r = mesh.get_local_rank("model") if n > 1 else 0
+    if ranks is None:
+        ranks = {a: (mesh.get_local_rank(a) if sizes[a] > 1 else 0)
+                 for a in AXES}
 
     def one(_, x, lt):
-        if lt.model_dim is None:
+        if lt.model_dim is None and lt.data_dim is None:
             return x
-        return _chunk(x, lt.model_dim, n, r).contiguous()
+        t = local_slice(x, lt, sizes, ranks).contiguous()
+        if lt.data_dim is not None:
+            mark_data_shard(t, lt.data_dim)
+        return t
 
     return _map(one, params, lay), lay
 
@@ -399,14 +418,19 @@ def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def gather_params(local, mesh, layout_tree):
-    """The inverse of ``shard_params``: every leaf whole, gathered over
-    'model' (a collective: every rank calls it)."""
-    n = mesh_shape(mesh)["model"]
+    """The inverse of ``shard_params``: every leaf whole (unmarked),
+    gathered over 'data', then over 'model' (a collective: every rank
+    calls it)."""
+    sizes = mesh_shape(mesh)
 
     def one(_, x, lt):
-        if lt.model_dim is None or n == 1:
+        if _is_quantized(x):
             return x
-        return gather_dim(x, lt.model_dim, mesh.get_group("model"))
+        x = x.detach()
+        for axis, d in (("data", lt.data_dim), ("model", lt.model_dim)):
+            if d is not None and sizes[axis] > 1:
+                x = gather_dim(x, d, mesh.get_group(axis))
+        return x
 
     return _map(one, local, layout_tree)
 

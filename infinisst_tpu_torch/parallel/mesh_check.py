@@ -1,6 +1,7 @@
 """Hold the mesh path on N ranks against one device: the sharded train
-step, the tensor-parallel prefill and the tensor-parallel agent, each
-against the same computation without a mesh on rank 0's device.
+step, the tensor-parallel prefill, the tensor-parallel agent and the
+serving pool split over 'data', each against the same computation
+without a mesh on rank 0's device.
 
     torchrun --standalone --nproc_per_node 4 \
         -m infinisst_tpu_torch.parallel.mesh_check [--data D --model M] \
@@ -9,7 +10,8 @@ against the same computation without a mesh on rank 0's device.
 On the dryrun preset in float32, on the mesh ``(--data, --model)``
 (default: ``dryrun.mesh_axes`` of the world size):
 
-- the sharded step (``zero`` on where n_data > 1), 3 steps, in four
+- the sharded step (``zero`` on where n_data > 1: the parameters split
+  over 'data' too, FSDP), 3 steps, in four
   cases: stage 2, stage 1 with encoder dropout 0.1, stage 0 with
   ``cpo_beta`` 0.5, stage 2 with ``grad_acc_steps`` 2, on a batch of
   max(4, 2 n_data) rows with ragged lengths: loss and grad norm within
@@ -19,11 +21,25 @@ On the dryrun preset in float32, on the mesh ``(--data, --model)``
   max|logits|, at the dryrun vocabulary and at 1023 (which divides by
   no axis: the lm_head is split on D);
 - the TP agent (beam 2, 4 chunks): its target ids after every chunk
-  equal the unsharded agent's.
+  equal the unsharded agent's;
+- the serving pool split over 'data' (``POOL_MODES``: beam 2 with mixed
+  multipliers and a trim, speculative greedy whose guard trips,
+  speculative sampling), served from FSDP-sharded parameters: every
+  tick's output, every slot's tokens, the guard's state and the
+  statistics equal the one-rank pool's.
 
 It prints ``mesh_check OK: ...`` (rank 0) and raises on a mismatch.  The
 functions are what ``tests/test_torch_parallel.py``'s ranks run on the
 CPU under gloo.
+
+``--flagship-pool`` (at n_model 1: the int8 leaves are not split over
+'model') adds the flagship W8A8 pool (``flagship_pool``): 8 streams a
+data rank at beam 4, split over 'data', against the same streams on
+rank 0's card in pools of the rows each data rank holds, token by token
+every tick; beside it the slots in which one card's pool of all the
+streams differs from those pools (its bf16 kernels run at another row
+count, and random weights leave near-ties), and the split pool's tokens
+a second against that pool's; it prints ``flagship pool OK: ...``.
 """
 
 from __future__ import annotations
@@ -60,7 +76,7 @@ def _to(tree, device):
 
 def train_run(cfg, params, batches, case, device, mesh=None, zero=False,
               n_steps=3):
-    """``n_steps`` of ``make_train_step`` (sharded with ``mesh``, ZeRO
+    """``n_steps`` of ``make_train_step`` (sharded with ``mesh``, FSDP
     with ``zero`` where n_data > 1) from ``params`` (whole) on
     ``batches`` (whole ``Batch``es, cycled); returns the per-step (loss,
     grad norm) and the whole parameters after the last step, on the
@@ -76,14 +92,13 @@ def train_run(cfg, params, batches, case, device, mesh=None, zero=False,
         zero = zero and pmesh.mesh_shape(mesh)["data"] > 1
         params, lay = pmesh.shard_params(
             params, mesh, pmesh.model_param_specs(cfg, zero), cfg=cfg)
-        plan = TT.MeshPlan(mesh, lay, zero, TT.tree_leaves(
-            TT.trainable_mask(params, freeze)))
+        plan = TT.MeshPlan(mesh, lay)
     tx = TT.make_optimizer(TT.OptimConfig(
         learning_rate=LR, warmup_steps=2, total_steps=6, scheduler=sched),
         params, freeze)
     if acc > 1:
         tx = TT.MultiSteps(tx, acc)
-    state = TT.init_train_state(params, tx, plan)
+    state = TT.init_train_state(params, tx)
     step = TT.make_train_step(cfg, tx, BLOCK, CACHE, cpo_beta=cpo,
                               freeze=freeze, remat=True,
                               encoder_dropout=rate, dropout_seed=7,
@@ -211,6 +226,138 @@ def agent_tokens(cfg, params, audio, device, mesh=None):
     return out, n_frames, bool(act.finished)
 
 
+POOL = 4  # rows: 2 a rank at (2, x), 1 at (4, 1)
+POOL_MODES = {
+    "beam2_mixed_m": dict(beam=2, multipliers=(1, 2)),
+    "spec_greedy": dict(speculative=True, spec_draft_layers=1, spec_k=3,
+                        spec_guard_patience=2),
+    "spec_sample": dict(speculative=True, spec_draft_layers=1, spec_k=3,
+                        do_sample=True, temperature=1.2, top_k=8,
+                        sample_seed=5),
+}
+
+
+def pool_ticks(cfg, params, mode, device, mesh=None, n_ticks=5):
+    """A ``ServingEngine`` of ``POOL`` rows (three streams, the second at
+    m = 2 where the mode allows it, one slot idle) fed seeded noise for
+    ``n_ticks`` ticks; with ``mesh`` the pool is split over its 'data'
+    axis and the parameters are sharded with ``zero`` (FSDP).  Returns
+    per tick (the tick's output, every slot's target ids, the guard's
+    state, the speculative statistics, the forwards)."""
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.parallel import mesh as pmesh
+    from infinisst_tpu_torch.parallel.collectives import tensor_parallel
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    p = _to(params, device)
+    if mesh is not None:
+        p, _ = pmesh.shard_params(p, mesh, pmesh.model_param_specs(
+            cfg, zero=True), cfg=cfg)
+    kw = POOL_MODES[mode]
+    stream = StreamConfig(max_cache_frames=96, max_llm_cache_tokens=80,
+                          llm_cache_capacity=192)
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size, lo=10,
+                                          hi=900), cfg.tokens)
+    rng = np.random.RandomState(11)
+    out = []
+    with torch.no_grad(), tensor_parallel(mesh):
+        eng = ServingEngine(p, cfg, stream, {("English", "German"):
+                                             builder},
+                            pool_size=POOL, dtype=torch.float32,
+                            device=device, **kw)
+        ms = (1, 2, 1) if 2 in kw.get("multipliers", ()) else (1, 1, 1)
+        slots = [eng.open_stream(f"c{i}", multiplier=m)
+                 for i, m in enumerate(ms)]
+        for _ in range(n_ticks):
+            for s, m in zip(slots, ms):
+                eng.push_audio(s, (rng.randn(stream.chunk_samples(1))
+                                   * 0.1).astype(np.float32))
+            text = eng.tick()
+            out.append((text, [list(eng.slots[s].target_ids)
+                               for s in slots],
+                        eng.spec_fallback_active, dict(eng.spec_stats),
+                        dict(eng.forwards)))
+    return out
+
+
+def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
+    """A W8A8 pool of ``len(rows)`` slots at ``beam``, slot i streaming
+    ``audio[:, rows[i]]`` (one 960 ms chunk a tick), built and ticked
+    under ``tensor_parallel(mesh)`` (with a mesh whose 'data' is above 1:
+    split over it).  Returns per tick every slot's tokens, and the
+    tokens a second after the first tick (host clock, synchronised)."""
+    import time
+
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.parallel.collectives import tensor_parallel
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ticks, n_tok, wall = [], 0, 0.0
+    with torch.no_grad(), tensor_parallel(mesh):
+        eng = ServingEngine(
+            params, cfg, StreamConfig(), {("English", "German"): PromptBuilder(
+                StubTokenizer(cfg.llama.vocab_size), cfg.tokens)},
+            pool_size=len(rows), beam=beam, dtype=torch.bfloat16,
+            device=device)
+        slots = [eng.open_stream(f"s{r}") for r in rows]
+        for t in range(audio.shape[0]):
+            for s, r in zip(slots, rows):
+                eng.push_audio(s, audio[t, r])
+            before = sum(len(eng.slots[s].target_ids) for s in slots)
+            sync()
+            t0 = time.perf_counter()
+            eng.tick()
+            sync()
+            if t:  # the first tick warms up
+                wall += time.perf_counter() - t0
+                n_tok += sum(len(eng.slots[s].target_ids)
+                             for s in slots) - before
+            ticks.append([list(eng.slots[s].target_ids) for s in slots])
+    return ticks, n_tok / wall
+
+
+def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
+    """The flagship W8A8 pool (seeded random weights, ``bench``'s) of
+    ``rows_per_rank`` x n_data slots at ``beam``, every slot streaming
+    seeded noise for ``n_ticks`` ticks, split over the mesh's 'data' axis
+    from FSDP-sharded float leaves (the int8 leaves whole).  Rank 0 then
+    runs the same streams on its card without a mesh: in pools of the
+    rows each data rank holds, and in one pool of them all.  Returns the
+    split pool's ``pool_run``, and on rank 0 (None elsewhere) the
+    blocks' ticks joined slot by slot and the whole pool's
+    ``pool_run``."""
+    import torch.distributed as dist
+
+    from infinisst_tpu_torch.bench import flagship_params
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.parallel import mesh as pmesh
+
+    cfg, whole = flagship_params(device)
+    n_data = pmesh.mesh_shape(mesh)["data"]
+    local, _ = pmesh.shard_params(whole, mesh, pmesh.model_param_specs(
+        cfg, zero=True))
+    pool = rows_per_rank * n_data
+    audio = (np.random.RandomState(21).randn(
+        n_ticks, pool, StreamConfig().chunk_samples(1)) * 0.1).astype(
+            np.float32)
+    split = pool_run(cfg, local, audio, range(pool), beam, device, mesh)
+    del local
+    if dist.get_rank() != 0:
+        return split, None, None
+    blocks = [pool_run(cfg, whole, audio, range(r * rows_per_rank,
+                                                (r + 1) * rows_per_rank),
+                       beam, device)[0] for r in range(n_data)]
+    joined = [sum((b[t] for b in blocks), []) for t in range(n_ticks)]
+    return split, joined, pool_run(cfg, whole, audio, range(pool), beam,
+                                   device)
+
+
 def vocab_config(vocab: int):
     from infinisst_tpu_torch.core.presets import dryrun_config
 
@@ -300,12 +447,23 @@ def check(device, data_ax=None, model_ax=None) -> str:
     want = agent_tokens(cfg, params, audio, dev) if rank0 else None
     if rank0 and got != want:
         raise AssertionError(f"TP agent tokens {got} against {want}")
+    n_pool = 0
+    for mode in POOL_MODES:
+        pg = pool_ticks(cfg, params, mode, dev, mesh)
+        if rank0:
+            pw = pool_ticks(cfg, params, mode, dev)
+            if pg != pw:
+                raise AssertionError(f"split pool {mode}: {pg} against "
+                                     f"{pw}")
+            n_pool += sum(map(len, pg[-1][1]))
     line = (f"mesh_check OK: mesh=({data_ax}x{model_ax}) on {dev.type}: the "
             f"sharded step equals one device's in {len(CASES)} cases "
-            f"(ZeRO {'on' if data_ax > 1 else 'off'}), the TP prefill "
+            f"(FSDP {'on' if data_ax > 1 else 'off'}), the TP prefill "
             f"within {worst:.2e} x max|logits| at vocabularies "
             f"{cfg.llama.vocab_size} and 1023, the TP agent's "
-            f"{len(got[0][-1])} target ids equal chunk by chunk")
+            f"{len(got[0][-1])} target ids equal chunk by chunk, the pool "
+            f"of {POOL} split over {data_ax} data rank(s) equal to one "
+            f"rank's in {len(POOL_MODES)} modes ({n_pool} tokens)")
     if rank0:
         print(line, flush=True)
     return line
@@ -316,6 +474,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--data", type=int, default=None)
     ap.add_argument("--model", type=int, default=None)
+    ap.add_argument("--flagship-pool", action="store_true")
     args = ap.parse_args(argv)
     if "WORLD_SIZE" not in os.environ:
         raise SystemExit("run under torchrun (--device cpu for gloo ranks)")
@@ -329,6 +488,32 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     try:
         check(dev, args.data, args.model)
+        if args.flagship_pool:
+            from infinisst_tpu_torch.parallel import mesh as pmesh
+            from infinisst_tpu_torch.parallel.dryrun import mesh_axes
+
+            d, m = ((args.data, args.model) if args.data and args.model
+                    else mesh_axes(dist.get_world_size()))
+            (split, split_tps), blocks, one = flagship_pool(
+                dev, pmesh.make_mesh(d, m, dev))
+            if dist.get_rank() == 0:
+                if split != blocks:
+                    raise AssertionError(
+                        f"flagship pool split over {d}: {split} against "
+                        f"one card's pools of the rows a card holds "
+                        f"{blocks}")
+                n = len(split[0])
+                flips = sum(a != b for a, b in zip(split[-1], one[0][-1]))
+                print(f"flagship pool OK: {n} W8A8 streams at beam 4 split "
+                      f"over data {d} ({n // d} rows a card), "
+                      f"{len(split)} ticks, token-equal every tick with "
+                      f"one card's pools of {n // d} holding the same "
+                      f"streams; {sum(map(len, split[-1]))} tokens; one "
+                      f"card's pool of all {n}: {flips} of {n} slots "
+                      f"differ from its pools of {n // d} (bf16 kernels "
+                      f"of another row count); {split_tps:.2f} tok/s "
+                      f"split against {one[1]:.2f} tok/s in one card's "
+                      f"pool of {n} (after the first tick)", flush=True)
     finally:
         dist.destroy_process_group()
 

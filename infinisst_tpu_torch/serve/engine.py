@@ -49,6 +49,22 @@ the tick took its state).
 ``spec_warm_fallback`` is accepted and does nothing: the JAX engine
 compiles its fallback step ahead in a thread, and eager PyTorch has
 nothing to compile.
+
+On a mesh whose 'data' axis is above 1 (built and ticked inside
+``parallel.collectives.tensor_parallel(mesh)``), one pool is split over
+'data', as the JAX engine's batch sharding splits it: every rank runs
+the same host program (the same ``open_stream``, ``push_audio`` and
+``tick`` calls, the same slot table), but holds the device state of
+its own block of rows, [r B / d, (r + 1) B / d): windows, encoder ring,
+decoder cache, and its part of a pending trim.  The decoders take every
+loop decision over the whole pool (``collectives.any_over_data``), the
+sampler draws the whole pool's numbers and keeps its rows
+(``collectives.pool_rand``), and after each step the per-row results
+(tokens, counts, the guard's statistics) are gathered over 'data'
+before the host reads them, so every rank's slot table stays the same
+and the pool-wide guard trips on the tick the one-rank pool's does.
+The parameters may be split over 'data' too (FSDP, ``shard_params``
+with a ``zero`` spec tree): every forward then gathers them.
 """
 
 from __future__ import annotations
@@ -76,6 +92,7 @@ from infinisst_tpu_torch.decode import speculative as spec_mod
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
 from infinisst_tpu_torch.models import wav2vec2 as w2v2_mod
+from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import (
     DecoderState,
     init_decoder_state,
@@ -145,15 +162,16 @@ class ServingEngine:
         spec_guard_margin: float = 1.0,
         spec_warm_fallback: bool = True,  # accepted, nothing to warm
     ):
-        from infinisst_tpu_torch.parallel import collectives as par
-
-        if par.data_size() > 1:
+        self.n_data, self.r_data = par.data_size(), par.data_rank()
+        if pool_size % self.n_data:
             raise ValueError(
-                f"a serving pool on a mesh of {par.data_size()} 'data' "
-                "ranks: splitting the pool's rows over 'data', as the JAX "
-                "engine's batch sharding does, is not ported (ROADMAP §3); "
-                "build the engine under tensor_parallel(mesh['model']), one "
-                "pool a data rank")
+                f"a pool of {pool_size} rows does not split over "
+                f"{self.n_data} 'data' ranks: each rank holds pool_size / "
+                "n_data of them, as the JAX engine's batch sharding needs "
+                "an even split")
+        self._B = pool_size // self.n_data  # the rows this rank holds
+        self._rows = slice(self.r_data * self._B,
+                           (self.r_data + 1) * self._B)
         if do_sample and not speculative:
             raise ValueError(
                 "pooled sampling is implemented as speculative sampling: "
@@ -225,18 +243,19 @@ class ServingEngine:
         self._suppress = sup.to(self.device) if sup.any() else None
 
         w, ll, dev = cfg.w2v2, cfg.llama, self.device
-        self.windows = torch.zeros((pool_size, self.window_samples),
+        # this rank's rows (all of them on one data rank)
+        self.windows = torch.zeros((self._B, self.window_samples),
                                    dtype=torch.float32, device=dev)
         self.valid_len_host = np.zeros((pool_size,), np.int64)
         # the heads this rank holds (a block of them under tensor
         # parallelism)
         self.enc_state = init_encoder_state(
-            w.encoder_layers, pool_size, stream_cfg.max_cache_frames,
+            w.encoder_layers, self._B, stream_cfg.max_cache_frames,
             w2v2_mod.local_heads(self.params["w2v2"], w), w.head_dim,
             dtype, dev,
         )
         self.dec_state = init_decoder_state(
-            ll.num_layers, pool_size, stream_cfg.llm_cache_capacity,
+            ll.num_layers, self._B, stream_cfg.llm_cache_capacity,
             llama_mod.local_heads(self.params["llama"]["layers"], ll)[1],
             ll.head_dim, dtype, dev,
         )
@@ -302,8 +321,11 @@ class ServingEngine:
             pk, ps = self._pending_evict
             pk[i] = 0
             ps[i] = 0
-        self.windows[i] = 0.0
         self.valid_len_host[i] = 0
+        if not self._rows.start <= i < self._rows.stop:
+            return  # another data rank holds the row
+        i -= self._rows.start
+        self.windows[i] = 0.0
         for t in (self.enc_state.k, self.enc_state.v, self.dec_state.k,
                   self.dec_state.v):
             t[:, i] = 0
@@ -323,15 +345,33 @@ class ServingEngine:
         plain-cost step."""
         return self._spec_fallback
 
+    def _whole(self, x) -> np.ndarray:
+        """A per-row result of this rank's rows (a tensor or an array)
+        joined over 'data' into the whole pool's, on the host."""
+        if self.n_data == 1:
+            return x.cpu().numpy() if torch.is_tensor(x) else x
+        t = torch.as_tensor(x).to(self.device)
+        return par.gather_rows(t).cpu().numpy()
+
     def _step(self, chunks, ids, valid, patch_starts, row_active, hist,
               hist_len, row_frames, row_patches, row_max_new, ev,
               generator=None):
-        """One tick on the device.  Works on its own copies of the state
+        """One tick on the device, over this rank's rows of the host
+        arrays (the whole pool's).  Works on its own copies of the state
         and returns (enc, dec, windows, tokens (P, max_new) np, n (P,) np,
-        token forwards) for the caller to take; a speculative step leaves
-        its statistics in ``_step_stats``."""
+        token forwards), the tokens and counts the whole pool's, for the
+        caller to take; a speculative step leaves the pool's statistics
+        in ``_step_stats``."""
         cfg, stream, dev = self.cfg, self.stream, self.device
         params = self.params
+        rs = self._rows
+        chunks, ids, valid, patch_starts, row_active, hist, hist_len, \
+            row_frames, row_patches, row_max_new = (
+                a[rs] for a in (chunks, ids, valid, patch_starts,
+                                row_active, hist, hist_len, row_frames,
+                                row_patches, row_max_new))
+        if ev is not None:
+            ev = (ev[0][rs], ev[1][rs])
         B, S = ids.shape
         i64 = dict(dtype=torch.int64, device=dev)
         dec = self.dec_state
@@ -409,15 +449,17 @@ class ServingEngine:
             # n_emit land past valid_len, where the next append overwrites
             # them
             C = dec.k.shape[2]
-            starts = np.minimum(self.valid_len_host + prompt_lens, C - G)
+            starts = np.minimum(self.valid_len_host[rs] + prompt_lens,
+                                C - G)
             for i, r in enumerate(res):
                 st = int(starts[i])
                 dec.k[:, i, st:st + G] = r.kv_k.to(dec.k.dtype)
                 dec.v[:, i, st:st + G] = r.kv_v.to(dec.v.dtype)
             dec = DecoderState(k=dec.k, v=dec.v, valid_len=dec.valid_len
                                + torch.as_tensor(n_emit, **i64))
-            return (enc, dec, windows, toks, n_emit,
-                    max(r.steps for r in res) - 1)
+            steps = self._whole(np.asarray([r.steps for r in res]))
+            return (enc, dec, windows, self._whole(toks),
+                    self._whole(n_emit), int(steps.max()) - 1)
 
         # batched greedy decode with a per-row EOS stop and cap
         seq_buf = torch.cat([ids_t, torch.full((B, G), pad, **i64)], dim=1)
@@ -440,9 +482,9 @@ class ServingEngine:
             is_eos = nxt_h == cfg.tokens.eos
             emit = ~done & ~is_eos & row_active & (n_tok < row_max_new)
             done |= is_eos | ~row_active
-            if not emit.any():
-                # no row can emit again (done or capped): the JAX scan's
-                # remaining steps append nothing
+            if not par.any_over_data(emit.any()):
+                # no row of the pool can emit again (done or capped): the
+                # JAX scan's remaining steps append nothing
                 break
             rows = np.nonzero(emit)[0]
             toks[rows, n_tok[rows]] = nxt_h[rows]
@@ -458,7 +500,8 @@ class ServingEngine:
             )
             n_fwd += 1
             cur = lg[:, 0]
-        return enc, dec, windows, toks, n_tok, n_fwd
+        return (enc, dec, windows, self._whole(toks), self._whole(n_tok),
+                n_fwd)
 
     def _spec_step(self, enc, dec, windows, last, ids_t, prompt_lens, hist_t,
                    hist_len, row_active, row_max_new, generator):
@@ -493,10 +536,11 @@ class ServingEngine:
                                    accept_all=self.spec_accept_all)
             out = spec_mod.batched_speculative_greedy(*args, sp, **kw)
         toks, n_tok, _, dec, rounds, drafted, accepted = out
-        n_tok = n_tok.cpu().numpy()
-        self._step_stats = (rounds, int(drafted.sum()), int(accepted.sum()),
+        n_tok = self._whole(n_tok)
+        self._step_stats = (rounds, int(self._whole(drafted).sum()),
+                            int(self._whole(accepted).sum()),
                             int(n_tok.sum()))
-        return enc, dec, windows, toks.cpu().numpy(), n_tok, 0
+        return enc, dec, windows, self._whole(toks), n_tok, 0
 
     def _guard(self, stats):
         """The speculative statistics of a tick and the pool-wide guard."""
@@ -533,6 +577,11 @@ class ServingEngine:
     def tick(self) -> Dict[int, str]:
         """Process one chunk for every slot with enough pending audio.
         Returns {slot: text} for slots that produced output."""
+        if par.data_size() != self.n_data:
+            raise RuntimeError(
+                f"a pool split over {self.n_data} 'data' rank(s) ticked "
+                f"inside a context of {par.data_size()}: tick it inside "
+                "tensor_parallel(mesh) of the mesh it was built on")
         ready = []
         for i, s in enumerate(self.slots):
             if not s.active or s.done:
@@ -682,6 +731,7 @@ class ServingEngine:
             return
         keep, sys_lens = self._pending_evict
         self.dec_state = llama_mod.evict_cache(
-            self.dec_state, torch.as_tensor(keep), torch.as_tensor(sys_lens)
+            self.dec_state, torch.as_tensor(keep[self._rows]),
+            torch.as_tensor(sys_lens[self._rows])
         )
         self._pending_evict = None

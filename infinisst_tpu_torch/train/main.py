@@ -14,10 +14,10 @@ path, ``--model_preset`` (flagship | bench | dryrun) and ``--device``
 in the JAX package.  Stage 2 starts from stage 1's consolidated bin
 (``--sllm_weight_path``, ref: model/model.py:142-145).
 
-Data, ZeRO and tensor parallelism run under ``torchrun``, one process a
+Data, FSDP and tensor parallelism run under ``torchrun``, one process a
 card (NCCL; gloo with ``--device cpu``), the mesh given by ``--n_data``
-and ``--n_model`` (their product the world size; ``--zero`` on by
-default):
+and ``--n_model`` (their product the world size; ``--zero``, on by
+default, splits the parameters over 'data', as the JAX package's does):
 
   torchrun --standalone --nproc_per_node 8 -m infinisst_tpu_torch.train.main \
       ... --n_data 8

@@ -290,14 +290,11 @@ class TrainState(NamedTuple):
     step: int
 
 
-def init_train_state(params, tx, plan: "Optional[MeshPlan]" = None
-                     ) -> TrainState:
-    """The state at step 0; with a mesh ``plan`` the optimizer state of
-    a ZeRO leaf is made for this data rank's shard."""
-    leaves = tree_leaves(params)
-    if plan is not None:
-        leaves = plan.views(leaves)
-    return TrainState(params=params, opt_state=tx.init(leaves), step=0)
+def init_train_state(params, tx) -> TrainState:
+    """The state at step 0 (on a mesh: of this rank's leaves, so the
+    optimizer state of a leaf split by ``shard_params`` is its shard's)."""
+    return TrainState(params=params, opt_state=tx.init(tree_leaves(params)),
+                      step=0)
 
 
 class Batch(NamedTuple):
@@ -354,20 +351,20 @@ class MeshPlan:
 
     - ``model_dims[i]``: the dim of leaf i split over 'model' (its
       gradient and optimizer state are split there too), or None;
-    - ``zero_dims[i]``: with ``zero`` and n_data > 1, for a leaf the
-      optimizer trains (``trainable[i]``), the dim over which its
-      gradient is reduce-scattered and its optimizer state split over
-      'data' (ZeRO-2; the parameter stays whole on every data rank), or
-      None (its gradient, if any, is all-reduced over 'data').  A frozen
-      leaf is never split: it is the same on every data rank already, so
-      nothing of it is gathered after an update.
+    - ``zero_dims[i]``: the dim of leaf i split over 'data' (FSDP, the
+      JAX package's ``zero``: the parameter itself, frozen or trained),
+      or None.  A split leaf is gathered where a forward uses it, and
+      the gather's backward reduce-scatters its gradient, which so
+      arrives summed over 'data' and shard-shaped: no whole gradient is
+      held, the optimizer updates the shard, and nothing is gathered
+      after the update.  The gradient of a leaf not split over 'data'
+      is all-reduced over it.
 
     The global norm counts each leaf's squares once: a model-split or
-    ZeRO-split piece on its own rank, a replicated one on rank 0 of the
+    data-split piece on its own rank, a replicated one on rank 0 of the
     axes it is replicated over, summed over the whole mesh."""
 
-    def __init__(self, mesh, layout_tree, zero: bool,
-                 trainable: List[bool]):
+    def __init__(self, mesh, layout_tree):
         from infinisst_tpu_torch.parallel import mesh as pmesh
 
         sizes = pmesh.mesh_shape(mesh)
@@ -380,12 +377,8 @@ class MeshPlan:
         lays = pmesh.layout_leaves(layout_tree)
         self.model_dims = [
             lt.model_dim if self.n_model > 1 else None for lt in lays]
-        if len(trainable) != len(lays):
-            raise ValueError(f"{len(trainable)} trainable flags for "
-                             f"{len(lays)} leaves")
         self.zero_dims = [
-            lt.data_dim if zero and self.n_data > 1 and t else None
-            for lt, t in zip(lays, trainable)]
+            lt.data_dim if self.n_data > 1 else None for lt in lays]
 
     def _group(self, axis):
         return self.mesh.get_group(axis)
@@ -394,29 +387,17 @@ class MeshPlan:
         k = t.shape[dim] // n
         return t.narrow(dim, r * k, k)
 
-    def views(self, leaves) -> list:
-        """This data rank's ZeRO shard of each leaf (a view; the leaf
-        itself where it is not split over 'data')."""
-        return [t if d is None else self._view(t, d, self.n_data,
-                                               self.r_data)
-                for t, d in zip(leaves, self.zero_dims)]
-
     def sync_grad(self, i: int, g: torch.Tensor) -> torch.Tensor:
-        """Leaf i's gradient summed over 'data': reduce-scattered to this
-        rank's shard for a ZeRO leaf, all-reduced otherwise."""
+        """Leaf i's gradient summed over 'data': a split leaf's arrives
+        summed (its gather's reduce-scatter), a whole one's is
+        all-reduced."""
         import torch.distributed as dist
 
-        if self.n_data == 1:
+        if self.n_data == 1 or self.zero_dims[i] is not None:
             return g
-        d = self.zero_dims[i]
-        if d is None:
-            g = g.contiguous()
-            dist.all_reduce(g, group=self._group("data"))
-            return g
-        parts = list(g.movedim(d, 0).contiguous().chunk(self.n_data))
-        out = torch.empty_like(parts[self.r_data])
-        dist.reduce_scatter(out, parts, group=self._group("data"))
-        return out.movedim(0, d)
+        g = g.contiguous()
+        dist.all_reduce(g, group=self._group("data"))
+        return g
 
     def _owned(self, i: int) -> bool:
         return ((self.model_dims[i] is not None or self.r_model == 0)
@@ -441,15 +422,6 @@ class MeshPlan:
             return torch.sqrt(sq)
 
         return norm
-
-    def gather_zero(self, leaves, views):
-        """After an update of the views: every ZeRO leaf whole again on
-        every data rank."""
-        from infinisst_tpu_torch.parallel.mesh import gather_dim
-
-        for t, v, d in zip(leaves, views, self.zero_dims):
-            if d is not None:
-                t.copy_(gather_dim(v, d, self._group("data")))
 
     def loss_sum(self, loss: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
@@ -496,18 +468,18 @@ class MeshPlan:
     def local_state(self, saved: Dict[str, Any], train_idx) -> Dict:
         """A whole saved state ({'params', 'opt_state', 'step'}) cut to
         this rank's slices (the inverse of ``whole_state``)."""
-        def local(t, i, zero=True):
+        def local(t, i):
             if self.model_dims[i] is not None:
                 t = self._view(t, self.model_dims[i], self.n_model,
                                self.r_model)
-            if zero and self.zero_dims[i] is not None:
+            if self.zero_dims[i] is not None:
                 t = self._view(t, self.zero_dims[i], self.n_data,
                                self.r_data)
             return t
 
         leaves = tree_leaves(saved["params"])
         params = tree_unflatten(saved["params"], [
-            local(t, i, zero=False) for i, t in enumerate(leaves)])
+            local(t, i) for i, t in enumerate(leaves)])
         return {"params": params,
                 "opt_state": self._moment_map(local, saved["opt_state"],
                                               train_idx),
@@ -536,13 +508,13 @@ def make_train_step(
     training dropout with masks drawn from (``dropout_seed``, step).
 
     With a mesh ``plan`` (``MeshPlan``; the state from
-    ``init_train_state(params, tx, plan)`` on this rank's parameters)
-    the step is the sharded one, run by every rank on the same whole
-    batch: the rank keeps its rows (``data_rows``), draws the whole
-    batch's dropout masks and keeps its rows', divides its loss by the
-    whole batch's target count (and CPO pairs), sums the gradients over
-    'data' (reduce-scatter for a ZeRO leaf), clips by the mesh-wide
-    norm, updates its shards and all-gathers the ZeRO leaves; the
+    ``init_train_state`` on this rank's parameters) the step is the
+    sharded one, run by every rank on the same whole batch: the rank
+    keeps its rows (``data_rows``), draws the whole batch's dropout
+    masks and keeps its rows', divides its loss by the whole batch's
+    target count (and CPO pairs), sums the gradients over 'data' (a
+    leaf split over 'data' by its gather's reduce-scatter in the
+    backward), clips by the mesh-wide norm and updates its shards; the
     forwards run under ``tensor_parallel``.  It computes what the
     one-card step computes (to the order of float32 sums; at world size
     1 the same operations)."""
@@ -591,16 +563,15 @@ def make_train_step(
         it = iter(got)
         grads = [next(it) if t else None for t in take]
         del got, it  # the optimizer releases each gradient once it is used
-        views, norm = leaves, global_norm
+        norm = global_norm
         if plan is not None:
             grads = [None if g is None else plan.sync_grad(i, g)
                      for i, g in enumerate(grads)]
-            views, norm = plan.views(leaves), plan.norm_fn(idx)
+            norm = plan.norm_fn(idx)
         gnorm = norm([grads[i] for i in idx]).detach()
-        opt_state = tx.update(views, grads, state.opt_state)
+        opt_state = tx.update(leaves, grads, state.opt_state)
         loss = loss.detach()
         if plan is not None:
-            plan.gather_zero(leaves, views)
             loss = plan.loss_sum(loss)
         return (TrainState(state.params, opt_state, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})

@@ -13,8 +13,9 @@
   initialised (``torchrun``, or one the caller made) or ``n_data *
   n_model > 1``: the parameters are split over 'model', every rank builds
   the same whole batch from the same seeded sampler and the sharded step
-  keeps its rows, ``zero`` splits the gradients and the optimizer state
-  over 'data' (ZeRO-2); rank 0 alone writes the metrics and the
+  keeps its rows, ``zero`` (the JAX package's, on by default) splits
+  every parameter, and with it its gradient and optimizer state, over
+  'data' as well (FSDP); rank 0 alone writes the metrics and the
   checkpoints, which hold whole leaves (gathered first) and are cut to
   this rank's slices on restore, so a checkpoint crosses world sizes.
 
@@ -199,9 +200,7 @@ class Trainer:
             params, layouts = pmesh.shard_params(
                 params, self.mesh, pmesh.model_param_specs(model_cfg, zero),
                 cfg=model_cfg)
-            self.plan = tstep.MeshPlan(
-                self.mesh, layouts, zero,
-                tstep.tree_leaves(tstep.trainable_mask(params, freeze)))
+            self.plan = tstep.MeshPlan(self.mesh, layouts)
         self.rank0 = self.mesh is None or dist.get_rank() == 0
         opt_cfg = tstep.OptimConfig(
             learning_rate=args.learning_rate,
@@ -215,7 +214,7 @@ class Trainer:
         self.tx = (tstep.MultiSteps(base_tx, args.grad_acc_steps)
                    if args.grad_acc_steps > 1 else base_tx)
         self._train_idx = [i for i, m in enumerate(self.tx.mask) if m]
-        self.state = tstep.init_train_state(params, self.tx, self.plan)
+        self.state = tstep.init_train_state(params, self.tx)
         self.logger = MetricsLogger(args.save_dir) if self.rank0 else None
 
         self._step_fns: Dict[int, callable] = {}

@@ -84,6 +84,40 @@ def test_streaming_chunk_mask_matches_jax(prefix):
     )
 
 
+@pytest.mark.parametrize("case", [(3, 10, 4), (1, 8, 0), (5, 16, 11),
+                                  (4, 12, [0, 3, 8])])
+def test_left_aligned_decode_mask_matches_jax(case):
+    """``tests/test_masks.py``'s case (query i sees slots < 4 + i + 1),
+    an empty cache, a valid length near the end and a batch of them."""
+    q_len, cache_len, valid = case
+    want = JM.left_aligned_decode_mask(q_len, cache_len,
+                                       jnp.asarray(valid))
+    got = TM.left_aligned_decode_mask(q_len, cache_len, valid)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_left_aligned_decode_mask_random_matches_jax():
+    rng = np.random.RandomState(0)
+    for _ in range(5):
+        q_len, cache_len = int(rng.randint(1, 9)), int(rng.randint(8, 40))
+        valid = rng.randint(0, cache_len - q_len + 1, size=3)
+        want = JM.left_aligned_decode_mask(q_len, cache_len,
+                                           jnp.asarray(valid))
+        got = TM.left_aligned_decode_mask(q_len, cache_len,
+                                          torch.from_numpy(valid))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_mesh_config_is_a_copy():
+    for d, m in ((1, 1), (4, 2)):
+        t, j = TC.MeshConfig(d, m), JC.MeshConfig(d, m)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.n_devices == j.n_devices == d * m
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        TC.MeshConfig().data = 2
+
+
 def test_state_initialisers():
     e = TS.init_encoder_state(2, 1, 96, 4, 16, torch.float32, "cpu")
     ej = JS.init_encoder_state(2, 1, 96, 4, 16, jnp.float32)

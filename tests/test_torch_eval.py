@@ -22,6 +22,86 @@ from tests.test_latency_golden import GOLD, _split_cost
 torch.set_num_threads(1)
 
 
+class _TwoStepAgent:
+    """Reads until it has 4 samples, then writes 'hi' (finished once the
+    source is)."""
+
+    def __init__(self, args):
+        from infinisst_tpu_torch.agents.base import AgentStates
+
+        self.args = args
+        self.states = AgentStates()
+
+    def policy(self, states):
+        if len(states.source) < 4:
+            return ReadAction()
+        return WriteAction(content="hi", finished=states.source_finished)
+
+
+def test_simuleval_agent_needs_simuleval(monkeypatch):
+    import builtins
+    import sys
+
+    from infinisst_tpu_torch.agents.base import make_simuleval_agent
+
+    for name in [n for n in sys.modules if n.split(".")[0] == "simuleval"]:
+        monkeypatch.delitem(sys.modules, name)
+    real_import = builtins.__import__
+
+    def no_simuleval(name, *a, **k):
+        if name.split(".")[0] == "simuleval":
+            raise ImportError(name)
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_simuleval)
+    with pytest.raises(RuntimeError,
+                       match="infinisst_tpu_torch.eval.runner"):
+        make_simuleval_agent(_TwoStepAgent, None)
+
+
+def test_simuleval_agent_maps_read_and_write(monkeypatch):
+    """With a stub ``simuleval`` in ``sys.modules`` the wrapper copies
+    SimulEval's source into the agent and maps its Read and Write to
+    SimulEval's actions."""
+    import sys
+    import types
+
+    from infinisst_tpu_torch.agents.base import (
+        AgentStates,
+        make_simuleval_agent,
+    )
+
+    class SimulRead:
+        pass
+
+    class SimulWrite:
+        def __init__(self, content, finished):
+            self.content, self.finished = content, finished
+
+    class SimulAgent:
+        def __init__(self):
+            self.states = AgentStates()
+
+    agents = types.ModuleType("simuleval.agents")
+    agents.SpeechToTextAgent = SimulAgent
+    actions = types.ModuleType("simuleval.agents.actions")
+    actions.ReadAction, actions.WriteAction = SimulRead, SimulWrite
+    monkeypatch.setitem(sys.modules, "simuleval",
+                        types.ModuleType("simuleval"))
+    monkeypatch.setitem(sys.modules, "simuleval.agents", agents)
+    monkeypatch.setitem(sys.modules, "simuleval.agents.actions", actions)
+    wrapped = make_simuleval_agent(_TwoStepAgent, "args")()
+    assert issubclass(type(wrapped), SimulAgent)
+    wrapped.states.source = [0.0, 0.1]
+    assert isinstance(wrapped.policy(), SimulRead)
+    st = AgentStates()
+    st.source, st.source_sample_rate = [0.0] * 5, 8000
+    st.source_finished = True
+    act = wrapped.policy(st)
+    assert isinstance(act, SimulWrite)
+    assert (act.content, act.finished) == ("hi", True)
+
+
 @pytest.mark.parametrize("case", GOLD["average_lagging"],
                          ids=lambda c: c["name"])
 def test_average_lagging_matches_jax(case):

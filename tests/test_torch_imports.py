@@ -30,6 +30,7 @@ def _sources():
 ENTRY_POINTS = ("tools/alignatt_quality.py", "tools/trained_e2e.py",
                 "tools/spec_trained_teacher.py", "tools/phrase_e2e.py",
                 "tools/spec_acceptance.py", "tools/quant_fidelity.py",
+                "tools/memplan.py",
                 "examples/stream_demo.py", "examples/serve_demo.py")
 
 

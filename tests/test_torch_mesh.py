@@ -8,13 +8,17 @@ process group:
   and on the shapes of ``tests/test_parallel.py``, over meshes (8, 1),
   (4, 2), (2, 4), (1, 8) and (2, 2) (JAX's on conftest's 8 virtual CPU
   devices, the port's as a ``{axis: size}`` mapping);
-- ``check_tensor_parallel`` and the layouts ``shard_params`` reads.
+- ``check_tensor_parallel`` and the layouts ``shard_params`` reads;
+- every rank's leaves from ``shard_params`` with ``zero`` (FSDP) have the
+  shard shapes of JAX's ``sanitize_specs`` at (2, 1), (2, 2) and (8, 1),
+  the port's mesh a mapping with the rank given (on the meta device).
 """
 
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as JP
 
 from infinisst_tpu.core.presets import dryrun_config as jdryrun
@@ -132,6 +136,39 @@ def test_layouts_and_tensor_parallel_check():
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(ValueError, match="world size 4; it has 0"):
         pmesh.make_mesh(2, 2, device="cpu")
+
+
+SHARD_MESHES = [(2, 1), (2, 2), (8, 1)]
+
+
+@pytest.mark.parametrize("mesh", SHARD_MESHES,
+                         ids=[f"{d}x{m}" for d, m in SHARD_MESHES])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_rank_shards_are_jax_shard_shapes(name, mesh):
+    """``shard_params`` with the ``zero`` spec tree (FSDP), at every
+    (data, model) rank, against the shard shape JAX's ``NamedSharding``
+    gives each leaf of its sanitised spec tree."""
+    from infinisst_tpu_torch.parallel import collectives as par
+
+    jcfg, pcfg = CONFIGS[name][0](), CONFIGS[name][1]()
+    d, m = mesh
+    shapes = abstract_params(jcfg, jnp.bfloat16)
+    jm = _jax_mesh(d, m)
+    jspecs = _jflat(jmesh.sanitize_specs(
+        shapes, jmesh.model_param_specs(jcfg, zero=True), jm))
+    want = [NamedSharding(jm, s).shard_shape(tuple(x.shape))
+            for s, x in zip(jspecs, jax.tree.leaves(shapes))]
+    sizes = {"data": d, "model": m}
+    for rd in range(d):
+        for rm in range(m):
+            local, lay = pmesh.shard_params(
+                _meta(shapes), sizes, pmesh.model_param_specs(pcfg, True),
+                ranks={"data": rd, "model": rm})
+            leaves = tree_leaves(local)
+            assert [tuple(t.shape) for t in leaves] == want, (rd, rm)
+            # a leaf split over 'data' is marked for the forwards' gathers
+            for t, lt in zip(leaves, pmesh.layout_leaves(lay)):
+                assert par.data_dim(t) == lt.data_dim
 
 
 def test_sanitize_specs_matches_jax_tree():

@@ -5,7 +5,8 @@ spawn per mesh shape running all of that shape's jobs (the rank
 functions of ``tests/torch_mesh_workers.py``):
 
 - the sharded train step at meshes (2, 1), (1, 2) and (2, 2), ``zero``
-  on and off, against the one-card port step, on the dryrun preset with
+  (FSDP: every leaf split over 'data' too) on and off, against the
+  one-card port step, on the dryrun preset with
   its conv extractor narrowed (``test_torch_train.py``'s weights and
   padded four-row batch), 3 steps each: stage 2, stage 1 with encoder
   dropout 0.1, stage 0 with ``cpo_beta`` 0.5 and stage 2 with
@@ -13,7 +14,7 @@ functions of ``tests/torch_mesh_workers.py``):
   parameters after the last step within rtol 1e-4 and atol 1e-5 x the
   leaf's largest value but for at most 1e-3 of the entries, all within
   10 x lr x 1e-2 (Adam's updates of float32 noise, ``_check_params``);
-  frozen leaves bitwise.  The (2, 2) ZeRO stage 2
+  frozen leaves bitwise.  The (2, 2) FSDP stage 2
   run is also held against JAX's one-device ``make_train_step``;
 - the TP prefill logits at (1, 2) and (1, 4), with a vocabulary that
   divides (the lm_head split on V) and one that does not (1023: moved
@@ -24,11 +25,18 @@ functions of ``tests/torch_mesh_workers.py``):
   way round; the next step equals the uninterrupted run's;
 - the dryrun's five parts at (2, 2) (the 8-rank (2, 4) dryrun is marked
   slow, as JAX's ``test_dryrun_multichip_8``);
+- the serving pool split over 'data' at (2, 1), from FSDP-sharded
+  parameters, tick by tick against the one-rank pool in three modes
+  (``mesh_check.POOL_MODES``): beam 2 with mixed multipliers, speculative
+  greedy whose guard trips, speculative sampling;
 - the refusals: an ``n_model`` that splits a head, quantized parameters
-  under ``n_model > 1``, a serving pool on a mesh whose 'data' is above 1,
-  and split parameters run outside ``tensor_parallel``;
-- a stage 1 ZeRO step at (2, 1) moves only the trained leaves over
-  'data' (the frozen LLM is neither reduce-scattered nor all-gathered).
+  under ``n_model > 1``, a pool that 'data' does not divide, and split
+  parameters run outside ``tensor_parallel``;
+- a stage 1 FSDP step at (2, 1) gathers every split leaf once where it is
+  used and reduce-scatters only the trained ones' gradients, and gathers
+  nothing after the update;
+- ``tools.memplan``'s reckoned parameter bytes at (2, 1) equal what a
+  rank holds.
 """
 
 import shutil
@@ -121,6 +129,11 @@ def runs(tmp_path_factory):
                   case=CASES["stage1_dropout"])),
             ("data-split pool", "refuse_data_split_pool",
              dict(cfg=cfg0, params_np=agent_params)),
+            ("memplan bytes", "memplan_bytes",
+             dict(cfg=cfg0, params_np=agent_params))] + [
+            (f"pool {mode}", "pool_ticks",
+             dict(cfg=cfg0, params_np=agent_params, mode=mode))
+            for mode in MC.POOL_MODES] + [
             ("fit w2 from scratch", "fit",
              dict(save_dir=str(d / "w2"), max_steps=2, **fkw)),
             ("fit w2 resuming w1", "fit",
@@ -142,6 +155,8 @@ def runs(tmp_path_factory):
                for c in CASES}
         pre = {v: W.prefill(**pre_kw[v]) for v in VOCABS}
         agent_ref = W.agent_tokens(**akw)
+        pool_ref = {mode: W.pool_ticks(cfg0, agent_params, mode)
+                    for mode in MC.POOL_MODES}
         resumed = W.fit(save_dir=str(d / "w1_again"), max_steps=3,
                         mesh_shape=(1, 1), **fkw)
         got = {mesh: f.result() for mesh, f in futures.items()}
@@ -150,7 +165,7 @@ def runs(tmp_path_factory):
     resumed_w1 = W.fit(save_dir=str(d / "w2"), max_steps=3,
                        mesh_shape=(1, 1), **fkw)
     return dict(jp=jp, jb=jb, params=params, ref=ref, pre=pre,
-                agent_ref=agent_ref, resumed=resumed,
+                agent_ref=agent_ref, pool_ref=pool_ref, resumed=resumed,
                 resumed_w1=resumed_w1, got=got)
 
 
@@ -185,7 +200,7 @@ def test_sharded_step_matches_one_card(runs, mesh, case, zero):
 
 
 def test_sharded_step_matches_jax(runs):
-    """The (2, 2) ZeRO stage 2 run against JAX's one-device step on the
+    """The (2, 2) FSDP stage 2 run against JAX's one-device step on the
     same weights (carried across by ``from_jax``) and batch."""
     freeze = JT.FreezeConfig.stage2()
     jtx = JT.make_optimizer(JT.OptimConfig(
@@ -245,14 +260,40 @@ def test_checkpoint_crosses_world_sizes(runs, direction):
 
 
 def test_zero_step_gathers_only_trained_leaves(runs):
-    """A stage 1 ZeRO step at (2, 1) reduce-scatters and all-gathers the
-    trained leaves that 'data' splits and nothing of the frozen LLM,
-    which is whole and the same on every data rank already."""
+    """A stage 1 FSDP step at (2, 1): every leaf 'data' splits, the frozen
+    LLM's too, is all-gathered once where the forward uses it; only the
+    trained ones' gradients are reduce-scattered, once; nothing is
+    gathered after the update (the counts are whole elements)."""
     for rank, out in enumerate(runs["got"][(2, 1)]):
         c = out["zero collectives"]
-        assert c["frozen"] > 0 and c["split_trainable"] > 0, c
-        assert c["gathered"] == c["split_trainable"], (rank, c)
+        assert c["split_frozen"] > 0 and c["split_trainable"] > 0, c
+        assert c["gathered"] == c["split_trainable"] + c["split_frozen"], (
+            rank, c)
         assert c["scattered"] == c["split_trainable"], (rank, c)
+
+
+@pytest.mark.parametrize("mode", list(MC.POOL_MODES))
+def test_split_pool_matches_one_rank(runs, mode):
+    """One pool of 4 rows split over 'data' at (2, 1), from FSDP-sharded
+    parameters: every tick's output, every slot's tokens, the guard's
+    state (the speculative greedy pool trips it on the same tick), the
+    statistics and the forwards equal the one-rank pool's, on every
+    rank."""
+    want = runs["pool_ref"][mode]
+    assert sum(map(len, want[-1][1])) > 0
+    if mode != "beam2_mixed_m":
+        assert want[-1][2]  # the guard tripped
+    for rank, out in enumerate(runs["got"][(2, 1)]):
+        got = out[f"pool {mode}"]
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g == w, (rank, i, g, w)
+        assert len(got) == len(want)
+
+
+def test_memplan_bytes_equal_what_a_rank_holds(runs):
+    for rank, out in enumerate(runs["got"][(2, 1)]):
+        reckoned, held = out["memplan bytes"]
+        assert reckoned == held, (rank, reckoned, held)
 
 
 def test_dryrun_2x2(runs):
@@ -283,9 +324,9 @@ def test_tp_refusals(runs):
                            pmesh.model_param_specs(CFG))
     msg = runs["got"][(1, 2)][0]["quantized agent"]
     assert msg and "tensor parallelism" in msg
-    # a serving pool is not split over 'data'
+    # a pool of 3 rows does not split over 2 data ranks
     msg = runs["got"][(2, 1)][0]["data-split pool"]
-    assert msg and "not ported" in msg and "'data'" in msg
+    assert msg and "does not split" in msg and "'data'" in msg
 
 
 @pytest.mark.parametrize("vocab", VOCABS)

@@ -66,10 +66,10 @@ def train_run(cfg, params_np, batches, case, mesh=None, zero=False):
 
 
 def zero_collectives(cfg, params_np, batches, case, mesh):
-    """One sharded ZeRO step of ``case`` on ``mesh``, counting the
-    elements it all-gathers and reduce-scatters; returns them beside the
-    elements of the trainable leaves that 'data' splits and of the frozen
-    leaves."""
+    """One sharded ``zero`` (FSDP) step of ``case`` on ``mesh``, counting
+    the elements it all-gathers and reduce-scatters; returns them beside
+    the whole elements of the leaves 'data' splits, trainable and
+    frozen."""
     import torch.distributed as dist
 
     from infinisst_tpu_torch.parallel import mesh as pmesh
@@ -80,9 +80,9 @@ def zero_collectives(cfg, params_np, batches, case, mesh):
         to_torch(params_np), mesh, pmesh.model_param_specs(cfg, True),
         cfg=cfg)
     mask = TT.tree_leaves(TT.trainable_mask(params, freeze))
-    plan = TT.MeshPlan(mesh, lay, True, mask)
+    plan = TT.MeshPlan(mesh, lay)
     tx = TT.make_optimizer(TT.OptimConfig(learning_rate=LR), params, freeze)
-    state = TT.init_train_state(params, tx, plan)
+    state = TT.init_train_state(params, tx)
     step = TT.make_train_step(cfg, tx, MC.BLOCK, MC.CACHE, freeze=freeze,
                               plan=plan)
     batch = TT.Batch(**{k: torch.from_numpy(batches[0][k]) for k in KEYS})
@@ -104,10 +104,35 @@ def zero_collectives(cfg, params_np, batches, case, mesh):
     finally:
         dist.all_gather, dist.reduce_scatter = all_gather, reduce_scatter
     leaves, lays = TT.tree_leaves(params), pmesh.layout_leaves(lay)
-    return dict(seen, split_trainable=sum(
-        t.numel() for t, lt, m in zip(leaves, lays, mask)
-        if m and lt.data_dim is not None),
-        frozen=sum(t.numel() for t, m in zip(leaves, mask) if not m))
+    n = pmesh.mesh_shape(mesh)["data"]
+
+    def split(trained):
+        return sum(t.numel() * n for t, lt, m in zip(leaves, lays, mask)
+                   if m == trained and lt.data_dim is not None)
+
+    return dict(seen, split_trainable=split(True), split_frozen=split(False))
+
+
+def pool_ticks(cfg, params_np, mode, mesh=None):
+    """``mesh_check.pool_ticks`` on the CPU from numpy weights."""
+    return MC.pool_ticks(cfg, to_torch(params_np), mode, "cpu", mesh)
+
+
+def memplan_bytes(cfg, params_np, mesh):
+    """The parameter bytes ``tools.memplan`` reckons for this rank at
+    ``mesh``'s shape, beside the bytes ``shard_params`` leaves it."""
+    from infinisst_tpu_torch.parallel import mesh as pmesh
+    from infinisst_tpu_torch.tools import memplan
+    from infinisst_tpu_torch.train.step import tree_leaves
+
+    sizes = pmesh.mesh_shape(mesh)
+    p, _ = pmesh.shard_params(to_torch(params_np), mesh,
+                              pmesh.model_param_specs(cfg, zero=True),
+                              cfg=cfg)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(p))
+    row = memplan.reckon(cfg, sizes["data"], sizes["model"], stage=2,
+                         dtype=torch.float32)
+    return row["param_bytes_per_rank"], held
 
 
 def prefill(cfg, params_np, window, ids, patch_start, mesh=None):
@@ -219,8 +244,9 @@ def split_outside_context(mesh, cfg, params_np, window, ids, patch_start):
 
 
 def refuse_data_split_pool(mesh, cfg, params_np):
-    """A ``ServingEngine`` built under a context whose mesh has 'data'
-    above 1 raises; returns the message."""
+    """A ``ServingEngine`` of 3 rows built under a context whose mesh has
+    'data' 2 (which does not divide the pool) raises; returns the
+    message."""
     from infinisst_tpu_torch.core.config import StreamConfig
     from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
     from infinisst_tpu_torch.parallel.collectives import tensor_parallel
@@ -232,7 +258,7 @@ def refuse_data_split_pool(mesh, cfg, params_np):
         try:
             ServingEngine(to_torch(params_np), cfg, StreamConfig(
                 max_cache_frames=96, llm_cache_capacity=192),
-                {("English", "German"): builder}, pool_size=2,
+                {("English", "German"): builder}, pool_size=3,
                 dtype=torch.float32, device="cpu")
         except ValueError as e:
             return str(e)
