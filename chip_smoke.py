@@ -77,12 +77,32 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  wrapped and the LLM cache was evicted; per-chunk wall
                  time, RTF and valid_len; launch counts checked per
                  forward pass (w8a8_gemm 7L + 1, row_quant_int8 4L + 1:
-                 q/k/v and gate/up share one quantized input), printed
-                 beside what the wrappers did besides launching (split-K
-                 calls, fills of the kernels' tile counters); then one
-                 chunk with a synchronise around each stage (wall ms per
-                 stage) and one under torch.profiler (device time by
-                 kernel and by stage, idle share).
+                 q/k/v and gate/up share one quantized input; a captured
+                 replay counts what its graph holds), printed beside what
+                 the wrappers did besides launching (split-K calls, fills
+                 of the kernels' tile counters); then one chunk with a
+                 synchronise around each replayed piece of the captured
+                 chunk program (A prologue, B beam select, C beam
+                 forward, F finish: wall ms per piece, a beam step's B +
+                 C) and one under torch.profiler (device time by kernel
+                 and by piece, idle share; the kernels of each row the
+                 profiler saw run, counted by name, equal the launches
+                 the replayed graphs recorded at capture).
+                 Then [graph], on the same weights: the chunk program
+                 captured as CUDA graphs against the same functions
+                 uncaptured on the card (the agent's private
+                 ``_graphs_on``), m=1, beam 4, GRAPH_CHUNKS chunks with an
+                 applied eviction (max_llm_cache_size GRAPH_CACHE), then
+                 m=2 with a tail chunk at GRAPH_M2_DEPTH layers: target ids
+                 equal every chunk, every chunk's launches equal the
+                 uncaptured chunk's and its forwards (llama's counters)
+                 those its beam steps ran, every replay under sync debug mode
+                 "error" (``graphs.strict_syncs``: lifted only around the
+                 reads of ``done`` and of the packed result), at most beam
+                 steps + 1 host reads a chunk; the captured chunk's wall
+                 (median, p95) beside the uncaptured one's, one chunk's
+                 device time by piece (CUDA events around each replay) and
+                 idle share, a beam step's wall against its device time.
                  Then [multiplier]: update_multiplier(2) and (4) on the
                  same stream, one chunk at each (encoder frames +96, +192;
                  decode_attention launches = beam forwards x L x 2).
@@ -129,10 +149,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  that rule at least once; then decode_attention and the
                  probe held at each (prompt length, cache slots) its calls
                  ran (hold_offline_attention, untimed).
-  7. weight-only -- three chunks of the 8B model with {'q_kmajor','scale'}
-                 projections through w8_bf16_gemm, then one chunk under
-                 torch.profiler.
-  8. group128 -- three chunks of the 8B model as ``bench.py --group128``
+  7. weight-only -- four chunks of the 8B model (the first and the
+                 steady key captured, two replays) with
+                 {'q_kmajor','scale'} projections through w8_bf16_gemm,
+                 then one chunk under torch.profiler.
+  8. group128 -- four chunks of the 8B model as ``bench.py --group128``
                  makes it: grouped (128-wide) W8A8 projections, packed
                  K-major, through w8a8_grouped_gemm (group_quant_int8 4L
                  per forward), per-channel W8A8 lm_head; then one chunk
@@ -291,7 +312,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  ``examples.serve_demo`` (3 ticks, a pool of 4 caches at
                  beam 2: decode_attention over Bc > 1, kernel row 5) on
                  the card; decode_attention held at their shapes.
- 14. one JSON ``kernels`` line (the speculative paths' launches and times
+ 14. one JSON ``kernels`` line (the launches of one replayed chunk of the
+     captured program under ``graph``; the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
      decode_attention; the training path's launches, 0, under
      ``train``; the mesh path's, by the agent and the dryrun, under
@@ -497,6 +519,34 @@ def internal_counts() -> dict:
     calls of w8a8_gemm and fills of the kernels' tile counters."""
     K, _ = _kernel_modules()
     return dict(K.internal_counts)
+
+
+def forward_counts() -> dict:
+    """llama's forward passes so far by function and depth (replays of a
+    captured program count what they hold)."""
+    from infinisst_tpu_torch.models import llama
+
+    return dict(llama.forward_counts)
+
+
+def forwards_since(before: dict) -> dict:
+    after = forward_counts()
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def check_forwards(before: dict, steps: int, n_layers: int, label: str):
+    """The forwards that llama's counters recorded since ``before`` (a
+    replay adds what its graph holds) against what the chunk's beam steps
+    say it ran, counted on the device by the decoder itself: one prefill
+    and steps - 1 beam forwards."""
+    want = {f"decode_step L={n_layers}": 1}
+    if steps > 1:
+        want[f"beam_token_step L={n_layers}"] = steps - 1
+    got = forwards_since(before)
+    if got != want:
+        fail(f"[{label}] the forward counters recorded {got}; {steps} beam "
+             f"steps ran {want}")
 
 
 class Notes:
@@ -1681,6 +1731,7 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
         audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
         before = launch_counts()
         before_int = internal_counts()
+        before_fwd = forward_counts()
         _sync(dev)
         t0 = time.perf_counter()
         agent.push(audio, finished=False)
@@ -1688,6 +1739,7 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
         dt = time.perf_counter() - t0
         res = agent.last_result
         n_fwd = res.steps  # 1 prefill + (steps - 1) beam forwards
+        check_forwards(before_fwd, n_fwd, n_layers, label)
         forwards += n_fwd
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in before if after[k] > before[k]}
@@ -1733,18 +1785,6 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
                 chunk_sec=chunk_sec, agent=agent, rng=rng)
 
 
-# (module, function) of each stage of the chunk step, in the order the
-# step runs them; beam_token_step runs inside beam_search
-STAGES = (
-    ("infinisst_tpu_torch.models.llama", "evict_cache"),
-    ("infinisst_tpu_torch.models.speech_llm", "encode_chunk"),
-    ("infinisst_tpu_torch.models.speech_llm", "splice_speech"),
-    ("infinisst_tpu_torch.models.llama", "decode_step"),
-    ("infinisst_tpu_torch.decode.beam", "beam_search"),
-    ("infinisst_tpu_torch.models.llama", "beam_token_step"),
-)
-
-
 # the serving engine's tick (serve/engine.py); beam_token_step runs inside
 # batched_beam_search
 SERVE_STAGES = (
@@ -1768,12 +1808,50 @@ ALIGNATT_STAGES = (
 )
 
 
+# the pieces of the stream's captured chunk program (agents/infinisst.py
+# _generate_chunk_fn), each a CUDA graph replayed as a whole: stages are
+# timed and profiled around their replays
+PIECES = (
+    ("graph", "A", "A prologue"),  # trim, window, encoder, splice, prefill
+    ("graph", "B", "B beam select"),  # one beam step's bookkeeping
+    ("graph", "C", "C beam forward"),  # one beam_token_step
+    ("graph", "F", "F finish"),  # finalize, pending, history, packed
+)
+
+
 def stage_label(stage) -> str:
     return stage[2] if len(stage) > 2 else stage[1]
 
 
 @contextlib.contextmanager
-def wrapped_stages(wrap, stages=STAGES):
+def wrapped_pieces(wrap, stages=PIECES):
+    """Route each piece's ``DeviceProgram.run`` through ``wrap(label,
+    fn)`` for the duration."""
+    from infinisst_tpu_torch.core import graphs
+
+    labels = {stage[1]: stage_label(stage) for stage in stages}
+    orig = graphs.DeviceProgram.run
+
+    def run(self, name):
+        return wrap(labels[name], lambda: orig(self, name))()
+
+    graphs.DeviceProgram.run = run
+    try:
+        yield
+    finally:
+        graphs.DeviceProgram.run = orig
+
+
+def _wrapper(stages):
+    """The context that wraps ``stages``: the captured program's pieces
+    or module functions."""
+    if stages and stages[0][0] == "graph":
+        return lambda wrap: wrapped_pieces(wrap, stages)
+    return lambda wrap: wrapped_stages(wrap, stages)
+
+
+@contextlib.contextmanager
+def wrapped_stages(wrap, stages):
     """Replace each stage function by ``wrap(label, fn)`` for the duration
     (the port calls them through their modules), then restore them."""
     saved = []
@@ -1812,7 +1890,7 @@ def timed_stages(dev, step, stages):
             return out
         return timed
 
-    with wrapped_stages(wrap, stages):
+    with _wrapper(stages)(wrap):
         _sync(dev)
         t0 = time.perf_counter()
         step()
@@ -1822,24 +1900,27 @@ def timed_stages(dev, step, stages):
 
 
 def stage_chunk(dev, r):
-    """One more chunk with a synchronise before and after each stage: the
-    wall time of each stage, host and device together."""
+    """One more chunk with a synchronise before and after each replay of
+    the captured program's pieces: the wall time of each piece, host and
+    device together, and a beam step's (B + C)."""
     audio = _next_audio(r)
     spent, wall = timed_stages(
-        dev, lambda: r["agent"].push(audio, finished=False), STAGES)
-    print(f"[stages] one chunk with a synchronise around each stage: wall "
-          f"{wall * 1e3:.2f} ms", flush=True)
-    for stage in STAGES:
+        dev, lambda: r["agent"].push(audio, finished=False), PIECES)
+    print(f"[stages] one chunk with a synchronise around each replayed "
+          f"piece: wall {wall * 1e3:.2f} ms", flush=True)
+    for stage in PIECES:
         name = stage_label(stage)
         n, t = spent.get(name, (0, 0.0))
-        print(f"[stages]   {name:16s} calls {n:2d}  {t * 1e3:9.2f} ms",
+        print(f"[stages]   {name:16s} replays {n:2d}  {t * 1e3:9.2f} ms",
               flush=True)
-    beam = spent.get("beam_search", (0, 0.0))[1]
-    steps = spent.get("beam_token_step", (0, 0.0))[1]
-    top = sum(t for name, (n, t) in spent.items() if name != "beam_token_step")
-    print(f"[stages]   beam_search outside beam_token_step (log-softmax, "
-          f"processors, top-2B, bookkeeping): {(beam - steps) * 1e3:.2f} ms; "
-          f"outside every stage: {(wall - top) * 1e3:.2f} ms", flush=True)
+    nb, tb = spent.get("B beam select", (0, 0.0))
+    nc, tc = spent.get("C beam forward", (0, 0.0))
+    top = sum(t for n, t in spent.values())
+    print(f"[stages]   a beam step (B + C) {(tb / max(nb, 1) + tc / max(nc, 1)) * 1e3:.3f} "
+          f"ms of wall ({nb} B, {nc} C); outside every piece (upload, "
+          f"reads, host bookkeeping): {(wall - top) * 1e3:.2f} ms",
+          flush=True)
+    return spent, wall
 
 
 def profile_chunk(dev, r, label="profile"):
@@ -1849,13 +1930,28 @@ def profile_chunk(dev, r, label="profile"):
     line starts with ``[label]``."""
     audio = _next_audio(r)
     med = sorted(r["times"][1:])[(len(r["times"]) - 1) // 2] * 1e3
-    profile_run(dev, lambda: r["agent"].push(audio, finished=False), STAGES,
-                label, med, "chunk")
+    programs = r["agent"]._programs.values()
+    replays = sum(p.replays for p in programs)
+    out = profile_run(dev, lambda: r["agent"].push(audio, finished=False),
+                      PIECES, label, med, "chunk", hold_launches=True)
+    if sum(p.replays for p in programs) != replays + 1:
+        fail(f"[{label}] the profiled chunk did not replay its program")
+    return out
 
 
-def profile_run(dev, step, stages, label, med, what):
+# the kernel groups of the profiler's device events, each matched by the
+# first name its kernel's contains (the grouped names before their
+# substrings); the same names as the wrappers' launch counts
+KERNEL_GROUPS = ("w8a8_grouped_gemm", "group_quant_int8", "w8a8_gemm",
+                 "row_quant_int8", "w8_bf16_gemm", "decode_attention")
+
+
+def profile_run(dev, step, stages, label, med, what, hold_launches=False):
     """``step()`` under torch.profiler, as ``profile_chunk`` describes;
-    ``med`` is the median unprofiled wall (ms) of such a step."""
+    ``med`` is the median unprofiled wall (ms) of such a step.  With
+    ``hold_launches``: fails unless the kernels the profiler saw run,
+    counted by name, equal the launches the wrappers' counters recorded
+    over the step (on a replay, what the graphs recorded at capture)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1866,12 +1962,27 @@ def profile_run(dev, step, stages, label, med, what):
         return ranged
 
     _sync(dev)
-    with wrapped_stages(wrap, stages), profile(
+    before = launch_counts()
+    with _wrapper(stages)(wrap), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         _sync(dev)
         wall = time.perf_counter() - t0
+    if hold_launches:
+        recorded = {k: n - before[k] for k, n in launch_counts().items()}
+        seen = dict.fromkeys(recorded, 0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                g = next((g for g in KERNEL_GROUPS if g in e.key), None)
+                if g is not None:
+                    seen[g] += e.count
+        if seen != recorded:
+            fail(f"[{label}] kernels run on the device by name {seen}; the "
+                 f"launch counters recorded {recorded}")
+        print(f"[{label}] kernels run on the device, counted by name, equal "
+              f"the launches recorded: "
+              f"{ {k: n for k, n in seen.items() if n} }", flush=True)
     by_name = {}
     for e in prof.key_averages():
         # device-side kernel events only: a CPU op also reports the device
@@ -1919,6 +2030,7 @@ def profile_run(dev, step, stages, label, med, what):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for k, t in top:
         print(f"[{label}]   {t:9.3f} ms  {k[:90]}", flush=True)
+    return busy, wall * 1e3
 
 
 def check_flagship(dev, paths):
@@ -1979,6 +2091,199 @@ def check_flagship(dev, paths):
     check_serve_profile(dev, cfg, params)
     check_alignatt_profile(dev, cfg, params)
     return cfg, params
+
+
+GRAPH_CHUNKS = 14  # m=1: the first key, the steady key, one eviction
+GRAPH_CACHE = 300  # max_llm_cache_size: an eviction within GRAPH_CHUNKS
+GRAPH_M2_DEPTH = (8, 8)  # Llama and encoder layers of the m=2 run
+GRAPH_M2_CHUNKS = 4  # then a tail of one unit
+
+
+def _cut_depth(cfg, params, n_llama, n_enc):
+    """The flagship config and parameters at the first n_llama Llama and
+    n_enc encoder layers (views of the stacked leaves, no copy)."""
+    def first(tree, n):
+        if isinstance(tree, dict):
+            return {k: first(v, n) for k, v in tree.items()}
+        return tree[:n]
+
+    ll = cfg.llama.__class__(**{**cfg.llama.__dict__, "num_layers": n_llama})
+    w = cfg.w2v2.__class__(**{**cfg.w2v2.__dict__, "encoder_layers": n_enc})
+    p = dict(params)
+    p["llama"] = dict(params["llama"], layers=first(
+        params["llama"]["layers"], n_llama))
+    p["w2v2"] = dict(params["w2v2"], layers=first(params["w2v2"]["layers"],
+                                                   n_enc))
+    return cfg.replace(llama=ll, w2v2=w), p
+
+
+def _graph_pair(dev, cfg, params, m, n_chunks, tail, max_cache, label):
+    """The same audio through two agents on ``params``: the chunk program
+    captured (every replay under sync debug mode "error", lifted only
+    around the reads of ``done`` and of the packed result) and the same
+    functions uncaptured on the card.  Fails unless the target ids are
+    equal every chunk and a replayed chunk launches what the uncaptured
+    chunk does.  Returns the captured run's per-chunk records."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core import graphs
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    runs = {}
+    for name, on in (("captured", True), ("uncaptured", False)):
+        builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
+                                cfg.tokens)
+        agent = InfiniSSTAgent(
+            params, cfg, StreamConfig(), builder,
+            InfiniSSTOptions(latency_multiplier=m, beam=4,
+                             max_llm_cache_size=max_cache),
+            param_dtype=torch.bfloat16, device=dev)
+        agent._graphs_on = on  # the private hook: uncaptured on the card
+        rng = np.random.RandomState(1)
+        sizes = [agent.chunk_samples] * n_chunks + ([tail] if tail else [])
+        recs = []
+        for i, n in enumerate(sizes):
+            audio = rng.randn(n).astype(np.float32) * 0.1
+            before = len(agent.states.target_ids)
+            replays = sum(p.replays for p in agent._programs.values())
+            reset_counts()
+            reads = graphs.host_reads
+            before_fwd = forward_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            with graphs.strict_syncs():
+                agent.push(audio, finished=bool(tail) and i == len(sizes) - 1)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            check_forwards(before_fwd, agent.last_result.steps,
+                           cfg.llama.num_layers, f"graph {label} {name}")
+            recs.append(dict(
+                ids=list(agent.states.target_ids[before:]), wall=dt,
+                counts=launch_counts(), reads=graphs.host_reads - reads,
+                steps=agent.last_result.steps, evictions=agent.evictions,
+                replayed=sum(p.replays for p in agent._programs.values())
+                > replays))
+        runs[name] = (agent, recs)
+    (cap, c), (_, u) = runs["captured"], runs["uncaptured"]
+    for i, (a, b) in enumerate(zip(c, u)):
+        if a["ids"] != b["ids"]:
+            fail(f"[graph] {label} chunk {i}: captured {a['ids']} != "
+                 f"uncaptured {b['ids']}")
+        if a["counts"] != b["counts"]:
+            fail(f"[graph] {label} chunk {i}: the captured chunk launched "
+                 f"{a['counts']}, the uncaptured chunk {b['counts']}")
+        if a["reads"] > a["steps"] + 1:
+            fail(f"[graph] {label} chunk {i}: {a['reads']} host reads for "
+                 f"{a['steps']} beam steps")
+    if not all(a["replayed"] for a in c[2:-1]):
+        fail(f"[graph] {label}: a steady chunk did not replay")
+    keys = sorted(cap._programs)
+    print(f"[graph] {label}: {len(c)} chunks, keys {keys}, evictions "
+          f"{cap.evictions}; target ids equal captured / uncaptured every "
+          f"chunk ({sum(len(a['ids']) for a in c)} ids); every chunk's "
+          f"launches equal the uncaptured chunk's, its forwards those of "
+          f"its beam steps; no synchronisation in a replay besides the "
+          f"reads of done and packed", flush=True)
+    for i, (a, b) in enumerate(zip(c, u)):
+        print(f"[graph]   {label} chunk {i:2d}: captured "
+              f"{a['wall'] * 1e3:8.2f} ms ({'replay' if a['replayed'] else 'warm-up + capture'}), "
+              f"uncaptured {b['wall'] * 1e3:8.2f} ms; beam steps "
+              f"{a['steps']}, host reads {a['reads']}, launches "
+              f"{ {k: v for k, v in a['counts'].items() if v} }",
+              flush=True)
+    return cap, c, u
+
+
+def check_graph(dev, cfg, params, paths):
+    """The plain beam chunk step as captured CUDA graphs (JAX's execution
+    model): the flagship W8A8 at m=1, beam 4, GRAPH_CHUNKS chunks with one
+    applied eviction, and at m=2 with a tail chunk at GRAPH_M2_DEPTH
+    layers, each against the same functions uncaptured on the card; the
+    captured chunk's wall (median, p95), host reads, beam steps, the
+    device time of each piece by CUDA events and its idle share."""
+    import numpy as np
+    import torch
+
+    cap, c, u = _graph_pair(dev, cfg, params, 1, GRAPH_CHUNKS, 0,
+                            GRAPH_CACHE, "m=1")
+    decided = next((i for i, a in enumerate(c) if a["evictions"]), None)
+    if decided is None or decided >= len(c) - 1:
+        fail("[graph] m=1: no eviction was applied")
+    steady = [a for a in c if a["replayed"]]
+    walls = sorted(a["wall"] * 1e3 for a in steady)
+    uwalls = sorted(b["wall"] * 1e3 for a, b in zip(c, u) if a["replayed"])
+    n = len(walls)
+    p95 = walls[min(n - 1, math.ceil(0.95 * n) - 1)]
+    chunk_sec = cap.chunk_samples / 16000.0
+    print(f"[graph] m=1 replayed chunks {n}: wall median "
+          f"{statistics.median(walls):.2f} ms, p95 {p95:.2f} ms, RTF median "
+          f"{statistics.median(walls) / 1e3 / chunk_sec:.4f}; the same "
+          f"chunks uncaptured: median {statistics.median(uwalls):.2f} ms; "
+          f"host reads a chunk {[a['reads'] for a in steady]} for beam steps "
+          f"{[a['steps'] for a in steady]}", flush=True)
+    # device time of the pieces by CUDA events around each replay (no
+    # synchronise inside the chunk), against the chunk's wall
+    spans = {}
+
+    def wrap(name, fn):
+        def timed():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            spans.setdefault(name, []).append((e0, e1))
+            return out
+        return timed
+
+    audio = np.random.RandomState(2).randn(cap.chunk_samples).astype(
+        np.float32) * 0.1
+    with wrapped_pieces(wrap):
+        _sync(dev)
+        t0 = time.perf_counter()
+        cap.push(audio, finished=False)
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in spans.items()}
+    busy = sum(dev_ms.values())
+    steps = cap.last_result.steps
+    step_dev = (dev_ms.get("B beam select", 0.0)
+                + dev_ms.get("C beam forward", 0.0)) / max(steps, 1)
+    print(f"[graph] one replayed chunk, CUDA events around each replay: "
+          f"wall {wall:.2f} ms, device {busy:.2f} ms, idle share "
+          f"{1.0 - busy / wall:.4f}; by piece "
+          f"{ {k: round(v, 3) for k, v in dev_ms.items()} }; a beam step "
+          f"{step_dev:.3f} ms of device time ({steps} steps)", flush=True)
+    spent, swall = stage_chunk(dev, dict(agent=cap, rng=np.random.RandomState(3)))
+    nb, tb = spent.get("B beam select", (0, 0.0))
+    nc, tc = spent.get("C beam forward", (0, 0.0))
+    print(f"[graph] a beam step: wall {(tb / max(nb, 1) + tc / max(nc, 1)) * 1e3:.3f} "
+          f"ms (synchronised per piece) against {step_dev:.3f} ms of device "
+          "time", flush=True)
+    # the split-K tile counters reset themselves: zero between replays
+    K, _ = _kernel_modules()
+    _sync(dev)
+    dirty = {str(k): int(torch.count_nonzero(b))
+             for k, b in K._counters.items() if int(torch.count_nonzero(b))}
+    if dirty:
+        fail(f"[graph] split-K counters left non-zero after the replays: "
+             f"{dirty}")
+    print(f"[graph] the split-K tile counters ({len(K._counters)} buffers) "
+          "are zero after the replays", flush=True)
+    paths["graph"] = ("flagship W8A8 captured stream, m=1, a replayed chunk",
+                      steady[-1]["counts"])
+    del cap
+    torch.cuda.empty_cache()
+    cfg2, p2 = _cut_depth(cfg, params, *GRAPH_M2_DEPTH)
+    _graph_pair(dev, cfg2, p2, 2, GRAPH_M2_CHUNKS, 12000, 1000,
+                f"m=2 L={GRAPH_M2_DEPTH[0]}")
+    torch.cuda.empty_cache()
 
 
 def check_alignatt_profile(dev, cfg, params):
@@ -2129,7 +2434,7 @@ def check_weight_only(dev, paths, speech):
 
     print("[weight_only] 8B {'q_kmajor','scale'} projections", flush=True)
     cfg, params = flagship_params(dev, act_int8=False, speech=speech)
-    r = stream_8b(dev, cfg, params, min_chunks=3, max_chunks=3,
+    r = stream_8b(dev, cfg, params, min_chunks=4, max_chunks=4,
                   need_evict=False, label="w8")
     want = r["forwards"] * 7 * r["n_layers"]
     c = r["counts"]
@@ -2158,7 +2463,7 @@ def check_group128(dev, paths, speech):
           "per-channel W8A8 lm_head", flush=True)
     cfg, params = flagship_params(dev, act_int8=True, speech=speech,
                                   group_size=GROUP)
-    r = stream_8b(dev, cfg, params, min_chunks=3, max_chunks=3,
+    r = stream_8b(dev, cfg, params, min_chunks=4, max_chunks=4,
                   need_evict=False, label="g128")
     L, c = r["n_layers"], r["counts"]
     if not (c["w8a8_grouped_gemm"] == r["forwards"] * 7 * L
@@ -2193,6 +2498,7 @@ def check_multiplier(dev, r):
         frames = int(agent.enc_state.n_frames[0])
         audio = r["rng"].randn(agent.chunk_samples).astype(np.float32) * 0.1
         reset_counts()
+        before_fwd = forward_counts()
         _sync(dev)
         t0 = time.perf_counter()
         agent.push(audio, finished=False)
@@ -2200,6 +2506,7 @@ def check_multiplier(dev, r):
         dt = time.perf_counter() - t0
         counts = launch_counts()
         steps = agent.last_result.steps  # 1 prefill + steps - 1 beam forwards
+        check_forwards(before_fwd, steps, L, "multiplier")
         got = int(agent.enc_state.n_frames[0]) - frames
         rtf = dt / (agent.chunk_samples / 16000)
         print(f"[multiplier] m={m}: chunk {agent.chunk_samples} samples, "
@@ -4499,6 +4806,8 @@ def main():
     paths = {}
     with phase("flagship"):
         cfg, params = check_flagship(dev, paths)
+    with phase("graph"):
+        check_graph(dev, cfg, params, paths)
     with phase("streamatt"):
         check_streamatt(dev, cfg, params)
     mesh_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,
@@ -4627,6 +4936,11 @@ def main():
         train_path, train_counts = paths["train"]
         entries[-1]["train"] = {"launches": train_counts.get(name, 0),
                                 "path": train_path}
+        # the captured chunk program: launches of one replayed chunk
+        if paths["graph"][1].get(name):
+            g_path, g_counts = paths["graph"]
+            entries[-1]["graph"] = {"launches_a_chunk": g_counts[name],
+                                    "path": g_path}
         # the mesh path at world size 1: the flagship agent in this
         # process, the dryrun under torchrun
         mesh_path, mesh_counts = paths["mesh"]

@@ -7,6 +7,21 @@ step + adapter -> splice the speech into the chunk prompt -> one prefill
 over [previous chunk's emitted tokens | prompt] -> decode -> drop the
 last token when the cap was hit -> history ring update.
 
+Every piece of the stream's state lives on the device in static buffers
+updated in place (``_init_device_state``): the encoder ring, the LLM
+cache, the audio window, the n-gram history ring and the pending tokens,
+with their lengths.  The plain beam step is one device program per key
+(m, n_units, first, beam), the counterpart of JAX's ``jax.jit`` of
+``generate_chunk`` with its donated state (``_generate_chunk_fn``): four
+pieces, (A) eviction -> window -> encoder -> splice at the device
+``pend_n`` -> prefill -> the beam loop's start, (B) one beam step's
+bookkeeping, (C) one ``beam_token_step``, (F) finalize -> pending tokens
+-> history ring -> one packed int32 vector.  The host uploads the chunk
+and the trim, runs A, then {B, read ``done``, C} until done, then F, and
+reads the packed vector: one host read a beam step and one a chunk.  On
+CUDA each piece is captured as a CUDA graph at the first chunk of its key
+(``core/graphs.py``); on the CPU the same functions run uncaptured.
+
 The decode is beam search, or by the options (``_decode``): ancestral
 sampling (``do_sample``), speculative greedy or sampling
 (``speculative``; the verify commits the emitted tokens' K/V, so nothing
@@ -16,6 +31,9 @@ tokens per verify round stay below the weight-stream break-even to the
 true plain decoder of its mode: beam 1 greedy, plain beam, or the plain
 sampler.  A sampled chunk draws from a generator seeded from
 (``sample_seed``, chunk index).
+
+Those other decoders, which keep their eager loops, run between the same
+prologue and epilogue on the same device state.
 
 ``update_multiplier`` changes the latency multiplier mid-stream, and
 ``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
@@ -27,9 +45,10 @@ AlignAtt and StreamAtt agents (``agents/alignatt.py``,
 from __future__ import annotations
 
 import sys
+import weakref
 from dataclasses import dataclass
 from time import perf_counter
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +64,7 @@ from infinisst_tpu_torch.core.config import (
     ModelConfig,
     StreamConfig,
 )
+from infinisst_tpu_torch.core import graphs
 from infinisst_tpu_torch.core.device import resolve_device
 from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
@@ -59,6 +79,24 @@ from infinisst_tpu_torch.streaming.state import (
     init_decoder_state,
     init_encoder_state,
 )
+
+
+class _Chunk(NamedTuple):
+    """The static geometry of one key's chunk step."""
+
+    chunk_samples: int
+    chunk_frames: int
+    conv_width: int  # the window's trailing samples the conv reads
+    prompt: object  # data.template.ChunkPrompt
+    prompt_ids: torch.Tensor  # (S,) int64 on the device
+
+
+def _put(dst, src):
+    """Write the tensors of state ``src`` into the static buffers of
+    ``dst`` (the same NamedTuple type), skipping those it already holds."""
+    for d, s in zip(dst, src):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)
 
 
 @dataclass
@@ -192,6 +230,13 @@ class InfiniSSTAgent(SpeechToTextAgent):
             sup[torch.as_tensor(np.asarray(opts.suppress_tokens, np.int64))] = True
         self._suppress = sup.to(self.device)
         self._prompts: Dict = {}
+        # the chunk programs by key, and on CUDA their graphs' memory pool
+        # (a private hook: ``_graphs_on = False`` runs the same programs
+        # uncaptured on the card, for checks)
+        self._programs: Dict = {}
+        self._graph_pool = None
+        self._graphs_on = self.device.type == "cuda"
+        self.enc_state = None
         super().__init__()
         self._init_device_state()
 
@@ -214,35 +259,58 @@ class InfiniSSTAgent(SpeechToTextAgent):
 
     # -- state -------------------------------------------------------------
     def _init_device_state(self):
+        """The stream's device state, made once and zeroed in place on a
+        reset (the chunk programs' graphs hold its addresses)."""
         w, ll, dev = self.cfg.w2v2, self.cfg.llama, self.device
-        # the heads this rank holds (a block of them under tensor
-        # parallelism; a policy-only agent has no parameters)
-        p = self.params
-        enc_heads, kv_heads = w.encoder_attention_heads, ll.num_kv_heads
-        if p is not None:
-            enc_heads = w2v2_mod.local_heads(p["w2v2"], w)
-            kv_heads = llama_mod.local_heads(p["llama"]["layers"], ll)[1]
-        self.enc_state = init_encoder_state(
-            w.encoder_layers, 1, self.stream.max_cache_frames, enc_heads,
-            w.head_dim, self.dtype, dev,
-        )
-        self.dec_state = init_decoder_state(
-            ll.num_layers, 1, self.stream.llm_cache_capacity, kv_heads,
-            ll.head_dim, self.dtype, dev,
-        )
-        self.window = torch.zeros((1, self.window_samples),
-                                  dtype=torch.float32, device=dev)
         pad = self.cfg.tokens.pad
         Lh = self.opts.no_repeat_ngram_lookback
-        # n-gram history ring and deferred-commit pending tokens (the
-        # previous chunk's emitted tokens, folded into the next prefill)
-        self.hist = np.full((Lh,), pad, np.int64)
-        self.hist_len = 0
         self.pend_cap = self.stream.max_new_tokens(
             self.opts.max_latency_multiplier
         )
-        self.pend_tokens = np.full((self.pend_cap,), pad, np.int64)
-        self.pend_n = 0
+        if self.enc_state is not None:
+            for t in (*self.enc_state, *self.dec_state, self.window,
+                      self.hist_len, self.pend_n, self._chunk_dev,
+                      self._ev_dev):
+                t.zero_()
+            self.hist.fill_(pad)
+            self.pend_tokens.fill_(pad)
+        else:
+            # the heads this rank holds (a block of them under tensor
+            # parallelism; a policy-only agent has no parameters)
+            p = self.params
+            enc_heads, kv_heads = w.encoder_attention_heads, ll.num_kv_heads
+            if p is not None:
+                enc_heads = w2v2_mod.local_heads(p["w2v2"], w)
+                kv_heads = llama_mod.local_heads(p["llama"]["layers"], ll)[1]
+            self.enc_state = init_encoder_state(
+                w.encoder_layers, 1, self.stream.max_cache_frames, enc_heads,
+                w.head_dim, self.dtype, dev,
+            )
+            self.dec_state = init_decoder_state(
+                ll.num_layers, 1, self.stream.llm_cache_capacity, kv_heads,
+                ll.head_dim, self.dtype, dev,
+            )
+            self.window = torch.zeros((1, self.window_samples),
+                                      dtype=torch.float32, device=dev)
+            i64 = dict(dtype=torch.int64, device=dev)
+            # n-gram history ring and deferred-commit pending tokens (the
+            # previous chunk's emitted tokens, folded into the next
+            # prefill), with their lengths
+            self.hist = torch.full((Lh,), pad, **i64)
+            self.hist_len = torch.zeros((), **i64)
+            self.pend_tokens = torch.full((self.pend_cap,), pad, **i64)
+            self.pend_n = torch.zeros((), **i64)
+            # the chunk's 16-bit PCM and the trim (keep, sys) the host
+            # uploads (from pinned staging buffers on CUDA)
+            n = self.stream.chunk_samples(self.opts.max_latency_multiplier)
+            self._chunk_dev = torch.zeros((n,), dtype=torch.int16,
+                                          device=dev)
+            self._ev_dev = torch.zeros((2,), **i64)
+            if dev.type == "cuda":
+                self._chunk_host = torch.zeros((n,), dtype=torch.int16,
+                                               pin_memory=True)
+                self._ev_host = torch.zeros((2,), dtype=torch.int64,
+                                            pin_memory=True)
         self.cache_checkpoints = []  # token counts at chunk ends
         self.llm_cache_len = 0  # logical: physical + pending
         self.pend_n_host = 0
@@ -281,9 +349,9 @@ class InfiniSSTAgent(SpeechToTextAgent):
             return
         keep, sys_len = self._pending_evict
         self._pending_evict = None
-        self.dec_state = llama_mod.evict_cache(
+        _put(self.dec_state, llama_mod.evict_cache(
             self.dec_state, torch.tensor([keep], device=self.device), sys_len
-        )
+        ))
 
     def build_states(self):
         return AgentStates()
@@ -298,96 +366,216 @@ class InfiniSSTAgent(SpeechToTextAgent):
             self._prompts[key] = (prompt, ids)
         return self._prompts[key]
 
-    def _generate_chunk(self, prompt, prompt_ids, n_units: int,
-                        chunk_i16: np.ndarray, ev_keep: int, ev_sys: int):
-        """One chunk step.  Returns (the decode's result, n_emit)."""
-        cfg, stream, opts, dev = self.cfg, self.stream, self.opts, self.device
-        pad = cfg.tokens.pad
-        chunk_samples = n_units * self.unit_samples
-        chunk_frames = 48 * n_units
-        is_tail = n_units != opts.latency_multiplier
-        P = self.pend_cap
-        G = self.max_new
-        Lh = opts.no_repeat_ngram_lookback
+    def _geometry(self, n_units: int, first: bool) -> _Chunk:
+        prompt, prompt_ids = self._prompt(n_units, first)
+        cs = n_units * self.unit_samples
+        # the conv reads the left context, the previous chunk and this
+        # one; a short tail reads one full-m chunk of history instead
+        prev = self.chunk_samples if n_units != self.opts.latency_multiplier \
+            else cs
+        return _Chunk(cs, 48 * n_units, CONV_LEFT_CONTEXT + prev + cs, prompt,
+                      prompt_ids)
 
-        # deferred eviction: the previous chunk's trim.  With no trim
-        # pending (keep = valid_len, sys = 0) the gather is the identity,
-        # so it is skipped.  The trim is cleared only once it is applied:
-        # a step that fails before this point keeps it for the next one.
-        if ev_sys != 0 or ev_keep != int(self.dec_state.valid_len[0]):
-            self.dec_state = llama_mod.evict_cache(
-                self.dec_state, torch.tensor([ev_keep], device=dev), ev_sys
-            )
-        self._pending_evict = None
-        # roll the device window
-        new = torch.as_tensor(chunk_i16, device=dev).to(torch.float32)[None]
+    def _upload(self, chunk_i16: np.ndarray, ev_keep: int, ev_sys: int):
+        """The chunk's PCM and the trim into their device buffers, without
+        a synchronisation (through pinned buffers on CUDA)."""
+        src = torch.from_numpy(chunk_i16)
+        ev = torch.tensor([ev_keep, ev_sys], dtype=torch.int64)
+        n = src.shape[0]
+        if self.device.type == "cuda":
+            self._chunk_host[:n].copy_(src)
+            self._ev_host.copy_(ev)
+            src, ev = self._chunk_host[:n], self._ev_host
+        self._chunk_dev[:n].copy_(src, non_blocking=True)
+        self._ev_dev.copy_(ev, non_blocking=True)
+
+    def _prologue(self, c: _Chunk) -> torch.Tensor:
+        """The chunk step up to the decode, on the device state in place:
+        the deferred trim (the identity with none pending: keep = the
+        valid length, sys = 0), the window roll, the encoder and adapter,
+        the splice at the device ``pend_n`` and one prefill over [pending
+        tokens | prompt].  Returns the last real position's logits (V,)."""
+        cfg, dev = self.cfg, self.device
+        ev = self._ev_dev
+        _put(self.dec_state, llama_mod.evict_cache(self.dec_state, ev[:1],
+                                                   ev[1]))
+        new = self._chunk_dev[:c.chunk_samples].to(torch.float32)[None]
         new = new / 32768.0
-        self.window = torch.cat([self.window[:, chunk_samples:], new], dim=1)
-        if not is_tail:
-            conv_in = self.window[:, -(CONV_LEFT_CONTEXT + 2 * chunk_samples):]
-        else:
-            conv_in = self.window[
-                :, -(CONV_LEFT_CONTEXT + self.chunk_samples + chunk_samples):
-            ]
-        speech, self.enc_state = speech_llm.encode_chunk(
-            self.params, cfg, self.enc_state, conv_in,
-            chunk_frames, stream.max_cache_frames,
+        self.window.copy_(torch.cat(
+            [self.window[:, c.chunk_samples:], new], dim=1))
+        speech, enc = speech_llm.encode_chunk(
+            self.params, cfg, self.enc_state,
+            self.window[:, -c.conv_width:], c.chunk_frames,
+            self.stream.max_cache_frames,
         )
+        _put(self.enc_state, enc)
         prompt_emb = speech_llm.splice_speech(
-            self.params, prompt_ids[None], speech, prompt.patch_start
+            self.params, c.prompt_ids[None], speech, c.prompt.patch_start
         )  # (1, S, D)
         S, D = prompt_emb.shape[1], prompt_emb.shape[2]
-        pend = torch.as_tensor(self.pend_tokens, device=dev)
+        P = self.pend_cap
         buf = torch.zeros((1, P + S, D), dtype=prompt_emb.dtype, device=dev)
-        buf[:, :P] = llama_mod.embed(self.params["llama"], pend[None])
-        buf[:, self.pend_n : self.pend_n + S] = prompt_emb
-        valid = (torch.arange(P + S, device=dev)[None]
-                 < self.pend_n + S).to(torch.int64)
-        logits, self.dec_state = llama_mod.decode_step(
+        buf[:, :P] = llama_mod.embed(self.params["llama"],
+                                     self.pend_tokens[None])
+        ar = torch.arange(P + S, device=dev)
+        buf[0].index_copy_(0, self.pend_n + ar[:S], prompt_emb[0])
+        valid = (ar[None] < self.pend_n + S).to(torch.int64)
+        logits, dec = llama_mod.decode_step(
             self.params["llama"], cfg.llama, self.dec_state, buf,
             valid_mask=valid,
         )
-        last_logits = logits[0, self.pend_n + S - 1]
-        res = self._decode(last_logits, prompt_ids)
+        _put(self.dec_state, dec)
+        return logits[0].index_select(0, (self.pend_n + S - 1).reshape(1))[0]
+
+    def _epilogue(self, tokens: torch.Tensor, n_emit: torch.Tensor,
+                  pending: bool):
+        """After the decode, in place: the new pending tokens (this
+        chunk's ``n_emit`` emitted ones, committed by the next prefill;
+        none when ``pending`` is False: the speculative verify committed
+        them) and the history ring (append at hist_len, keep the trailing
+        Lh window).  tokens (G,) int64, n_emit () int64."""
+        dev, pad = self.device, self.cfg.tokens.pad
+        P, Lh, G = self.pend_cap, self.hist.shape[0], tokens.shape[0]
+        if pending:
+            out = torch.full((P,), pad, dtype=torch.int64, device=dev)
+            out[:G] = tokens
+            keep = torch.arange(P, device=dev) < n_emit
+            self.pend_tokens.copy_(torch.where(keep, out, pad))
+            self.pend_n.copy_(n_emit)
+        else:
+            self.pend_tokens.fill_(pad)
+            self.pend_n.zero_()
+        ar_g = torch.arange(G, device=dev)
+        ar_h = torch.arange(Lh, device=dev)
+        cat = torch.cat([self.hist, torch.full((G,), pad, dtype=torch.int64,
+                                               device=dev)])
+        cat.index_copy_(0, self.hist_len + ar_g, tokens)
+        new_len = torch.clamp(self.hist_len + n_emit, max=Lh)
+        start = self.hist_len + n_emit - new_len
+        new_hist = cat.index_select(0, start + ar_h)
+        self.hist.copy_(torch.where(ar_h < new_len, new_hist, pad))
+        self.hist_len.copy_(new_len)
+
+    def _plain_beam(self) -> int:
+        """The beam of this chunk's plain beam step, or 0 when the chunk
+        runs another decoder (sampling, speculation).  The speculative
+        guard's fallback is plain beam search at beam 1 (at the options'
+        beam for speculative beam search)."""
+        opts = self.opts
+        if opts.do_sample or (opts.speculative and not self._spec_fallback):
+            return 0
+        greedy_fallback = self._spec_fallback and not opts.spec_beam
+        return 1 if greedy_fallback else opts.beam
+
+    def _generate_chunk_fn(self, n_units: int, first: bool
+                           ) -> graphs.DeviceProgram:
+        """The plain beam step of a chunk of ``n_units`` 960 ms units
+        (n_units == m except for the stream tail) as one device program,
+        made once per key (m, n_units, first, beam): pieces A, B, C and F
+        (see the module note), captured as CUDA graphs on the card."""
+        m, beam = self.opts.latency_multiplier, self._plain_beam()
+        key = (m, n_units, first, beam)
+        if key in self._programs:
+            return self._programs[key]
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        c = self._geometry(n_units, first)
+        spec = beam_mod.BeamSpec(
+            beam=beam, max_new_tokens=self.max_new, eos_id=cfg.tokens.eos,
+            pad_id=cfg.tokens.pad, no_repeat_ngram_size=opts.no_repeat_ngram_size,
+            repetition_penalty=opts.repetition_penalty)
+        Tp = c.prompt_ids.shape[0]
+        loop = beam_mod.alloc_loop(spec, cfg.llama, cfg.llama.vocab_size, Tp,
+                                   self.dec_state.k.shape[3], self.dtype,
+                                   dev)
+        packed = torch.zeros((5 + self.max_new,), dtype=torch.int32,
+                             device=dev)
+        # the pieces hold the agent weakly: the agent holds its programs,
+        # and a cycle would keep the weights alive past the agent
+        me = weakref.proxy(self)
+
+        def prefill():  # A
+            beam_mod.start_loop(loop, spec, me._prologue(c), c.prompt_ids,
+                                Tp)
+
+        def select():  # B
+            beam_mod.beam_select(loop, spec, me.hist, me.hist_len,
+                                 opts.no_repeat_ngram_size, me._suppress)
+
+        def forward():  # C
+            beam_mod.beam_forward(loop, me.params["llama"], cfg.llama,
+                                  me.dec_state)
+
+        def finish():  # F
+            res = beam_mod.beam_finish(loop, spec)
+            tokens, n_tokens, hit_eos = res[0], res[1], res[4]
+            # drop the final token when the cap was hit without EOS
+            n_emit = torch.where(hit_eos, n_tokens,
+                                 torch.clamp(n_tokens - 1, min=0))
+            me._epilogue(tokens, n_emit, pending=True)
+            packed.copy_(torch.cat([n_emit.to(torch.int32).reshape(1),
+                                    beam_mod.pack_result(*res)]))
+
+        pool = None
+        if self._graphs_on:
+            if self._graph_pool is None:
+                self._graph_pool = graphs.GraphPool(dev)
+            pool = self._graph_pool
+        prog = graphs.DeviceProgram(
+            dict(A=prefill, B=select, C=forward, F=finish), pool)
+        prog.loop, prog.packed = loop, packed
+        self._programs[key] = prog
+        return prog
+
+    def _generate_chunk(self, n_units: int, first: bool,
+                        chunk_i16: np.ndarray, ev_keep: int, ev_sys: int):
+        """One chunk step.  Returns (the decode's result, n_emit).  The
+        deferred trim is cleared only once it is applied: a step that
+        fails before then keeps it for the next one."""
+        if self._plain_beam():
+            prog = self._generate_chunk_fn(n_units, first)
+            with prog.step():
+                self._upload(chunk_i16, ev_keep, ev_sys)
+                prog.run("A")
+                self._pending_evict = None
+                prog.run("B")
+                while not beam_mod.read_done(prog.loop):
+                    prog.run("C")
+                    prog.run("B")
+                prog.run("F")
+                packed = graphs.read(prog.packed)
+            return beam_mod.unpack_result(packed, self.max_new, 1), packed[0]
+        # the eager decoders, between the same prologue and epilogue
+        self._upload(chunk_i16, ev_keep, ev_sys)
+        c = self._geometry(n_units, first)
+        last_logits = self._prologue(c)
+        self._pending_evict = None
+        res = self._decode(last_logits, c.prompt_ids)
         # drop the final token when the cap was hit without EOS
         n_emit = res.n_tokens if res.hit_eos else max(res.n_tokens - 1, 0)
-        pend_out = np.full((P,), pad, np.int64)
-        if isinstance(res, spec_mod.SpecResult):
+        verified = isinstance(res, spec_mod.SpecResult)
+        if verified:
             # the verify committed the tokens' K/V: roll back to the
             # emitted prefix (a cap-dropped token must not condition later
             # chunks), nothing pending
-            self.dec_state = DecoderState(
+            _put(self.dec_state, DecoderState(
                 k=res.dec.k, v=res.dec.v,
-                valid_len=res.dec.valid_len - (res.n_tokens - n_emit))
-            self.pend_tokens, self.pend_n = pend_out, 0
-        else:
-            # new pending = this chunk's emitted tokens, committed next
-            # chunk
-            pend_out[:n_emit] = res.tokens[:n_emit]
-            self.pend_tokens, self.pend_n = pend_out, n_emit
-        # history ring: append at hist_len, keep the trailing Lh window
-        cat = np.concatenate([self.hist, np.full((G,), pad, np.int64)])
-        cat[self.hist_len : self.hist_len + G] = res.tokens
-        new_len = min(self.hist_len + n_emit, Lh)
-        start = self.hist_len + n_emit - new_len
-        new_hist = cat[start : start + Lh].copy()
-        new_hist[new_len:] = pad
-        self.hist, self.hist_len = new_hist, new_len
+                valid_len=res.dec.valid_len - (res.n_tokens - n_emit)))
+        i64 = dict(dtype=torch.int64, device=self.device)
+        self._epilogue(torch.as_tensor(list(res.tokens), **i64),
+                       torch.tensor(n_emit, **i64), pending=not verified)
         return res, n_emit
 
     def _decode(self, last_logits, prompt_ids):
-        """The chunk's decode by the options: speculative beam, greedy or
-        sampling, plain sampling, or beam search.  Once the guard has
-        tripped, the plain decoder of the mode: beam search at beam 1 for
-        speculative greedy, at the options' beam for speculative beam,
-        the plain sampler for speculative sampling."""
+        """The chunk's decode when it is not plain beam search
+        (``_plain_beam``): speculative beam, greedy or sampling, or plain
+        sampling (also the fallback of speculative sampling once the guard
+        has tripped)."""
         opts, cfg, dev = self.opts, self.cfg, self.device
-        fallback = self._spec_fallback
-        speculative = opts.speculative and not fallback
+        speculative = opts.speculative and not self._spec_fallback
         G, pad, eos = self.max_new, cfg.tokens.pad, cfg.tokens.eos
         args = (self.params["llama"], cfg.llama, self.dec_state, last_logits,
-                prompt_ids, prompt_ids.shape[0],
-                torch.as_tensor(self.hist, device=dev), self.hist_len)
+                prompt_ids, prompt_ids.shape[0], self.hist,
+                int(self.hist_len))
         kw = dict(encoder_ngram_size=opts.no_repeat_ngram_size,
                   suppress_mask=self._suppress)
         draft = dict(draft_head=self.params.get("spec_draft_head"),
@@ -422,16 +610,9 @@ class InfiniSSTAgent(SpeechToTextAgent):
                 no_repeat_ngram_size=ngram, repetition_penalty=rep,
                 accept_all=opts.spec_accept_all)
             return spec_mod.speculative_greedy(*args, spec, **kw, **draft)
-        if opts.do_sample:
-            spec = beam_mod.SampleSpec(max_new_tokens=G, eos_id=eos,
-                                       pad_id=pad, **filters)
-            return beam_mod.sample_decode(*args, spec, gen, **kw)
-        greedy_fallback = fallback and not opts.spec_beam
-        spec = beam_mod.BeamSpec(
-            beam=1 if greedy_fallback else opts.beam, max_new_tokens=G,
-            eos_id=eos, pad_id=pad, no_repeat_ngram_size=ngram,
-            repetition_penalty=rep)
-        return beam_mod.beam_search(*args, spec, **kw)
+        spec = beam_mod.SampleSpec(max_new_tokens=G, eos_id=eos, pad_id=pad,
+                                   **filters)
+        return beam_mod.sample_decode(*args, spec, gen, **kw)
 
     def _guard(self, res, n_emit: int):
         """After a speculative chunk: the statistics, and the acceptance
@@ -533,7 +714,7 @@ class InfiniSSTAgent(SpeechToTextAgent):
         first = self.first_chunk
         if first:
             self.system_prompt_size = self.builder.system_prompt_size(m)
-        prompt, prompt_ids = self._prompt(n_units, first)
+        prompt, _ = self._prompt(n_units, first)
         # 16-bit PCM, as the JAX agent uploads it
         chunk_i16 = np.clip(seg * 32768.0, -32768, 32767).astype(np.int16)
         if self._pending_evict is not None:
@@ -543,9 +724,8 @@ class InfiniSSTAgent(SpeechToTextAgent):
             ev_sys = 0
         # the decode this chunk runs (the guard trips only after it)
         spec_path = opts.speculative and not self._spec_fallback
-        res, n_emit = self._generate_chunk(
-            prompt, prompt_ids, n_units, chunk_i16, ev_keep, ev_sys
-        )
+        res, n_emit = self._generate_chunk(n_units, first, chunk_i16,
+                                           ev_keep, ev_sys)
         self._chunk_counter += 1
         self.last_result = res  # observability: steps, hit_eos, tokens
         out_ids = [int(t) for t in res.tokens[:n_emit]]

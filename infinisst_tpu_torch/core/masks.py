@@ -58,8 +58,9 @@ def streaming_chunk_mask(
     if prefix.ndim:
         prefix = prefix.reshape(prefix.shape + (1, 1))
     dev = prefix.device
-    blocksize = torch.as_tensor(blocksize, dtype=torch.int64, device=dev)
-    if blocksize.ndim:
+    if not isinstance(blocksize, int):  # an int stays a kernel argument
+        blocksize = torch.as_tensor(blocksize, dtype=torch.int64, device=dev)
+    if torch.is_tensor(blocksize) and blocksize.ndim:
         blocksize = torch.clamp(blocksize, min=1).reshape(
             blocksize.shape + (1, 1))
     cache_cap = kv_len - seq_len

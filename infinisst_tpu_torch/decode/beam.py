@@ -12,10 +12,23 @@ HF semantics, as in the JAX package:
 - the loop stops early once the worst finished hypothesis cannot be
   beaten, and skips the forward of the final iteration.
 
-The ``while_loop`` becomes a Python loop.  Scores stay float32 tensors;
-the small per-step bookkeeping (2*beam candidates, the finished-hypothesis
-slots) runs on the host with those float32 values, so comparisons match.
-One pooled loop serves both entry points: every step forwards all
+``beam_search`` keeps JAX's structure on the device.  Its loop state
+(``BeamLoop``: t, done, the current logits, beam scores, sequence
+buffer, generated tokens and K/V, the finished hypotheses) is a set of
+static tensors updated in place by three functions: ``beam_select`` (one
+step's bookkeeping: processors, the top-2B candidates, ``add_hyp`` over
+them in tensor ops, the slot-to-candidate ``argmax``, the reorder and the
+early stop), ``beam_forward`` (one ``beam_token_step`` of the new tokens)
+and ``beam_finish`` (finalize by ``argmax``).  The host reads one bool a
+step, ``done``, and skips the forward of the final step, as JAX's
+``lax.cond`` does; the agent captures the three as CUDA graphs
+(``agents/infinisst.py``).
+
+``batched_beam_search`` (the serving pool, and the one-stream calls with
+the AlignAtt probe or the winner's K/V) runs the loop on the host: its
+small per-step bookkeeping (2*beam candidates, the finished-hypothesis
+slots) reads those float32 values back, so comparisons match.
+One pooled loop serves a whole pool: every step forwards all
 P * beam rows through one ``beam_token_step`` (the weight stream shared by
 every slot and beam, as JAX's vmap forwards every lane), while a slot that
 is done keeps its state frozen.  The loop ends when every slot is done,
@@ -31,9 +44,12 @@ trace is not kept and ``attn_idx`` is -1.
 
 from __future__ import annotations
 
+import struct
 from typing import List, NamedTuple, Optional
 
 import torch
+
+from infinisst_tpu_torch.core.graphs import read
 
 from infinisst_tpu_torch.core.config import LlamaConfig
 from infinisst_tpu_torch.decode import logits as lp
@@ -119,7 +135,7 @@ def beam_search(
     prompt_buf: torch.Tensor,  # (Tp,) this call's prompt ids
     prompt_len: int,
     history: torch.Tensor,  # (Lh,) cross-chunk target ids
-    history_len: int,
+    history_len,  # int or () tensor
     spec: BeamSpec,
     encoder_ngram_size: int = 0,
     suppress_mask: Optional[torch.Tensor] = None,  # (V,) bool
@@ -129,19 +145,258 @@ def beam_search(
     first_attn_idx: Optional[int] = None,  # the probe at the prefill
     attn_stop_idx: Optional[int] = None,  # the early-stop zone's start
 ) -> BeamResult:
-    """Beam search for one stream: ``batched_beam_search`` over a pool of
-    one."""
+    """Beam search for one stream, on the device (``BeamLoop``): one host
+    read a step (``done``) and one of the result.  With the AlignAtt
+    probe or ``return_kv``, ``batched_beam_search`` over a pool of one."""
     def one(x):
         return None if x is None else [x]
 
-    return batched_beam_search(
-        params, cfg, prefix, first_logits[None], prompt_buf[None],
-        [prompt_len], history[None], [history_len], spec,
-        encoder_ngram_size=encoder_ngram_size, suppress_mask=suppress_mask,
-        max_steps=one(max_steps), return_kv=return_kv,
-        attn_probe=attn_probe, first_attn_idx=one(first_attn_idx),
-        attn_stop_idx=one(attn_stop_idx),
-    )[0]
+    if attn_probe is not None or return_kv:
+        return batched_beam_search(
+            params, cfg, prefix, first_logits[None], prompt_buf[None],
+            [prompt_len], history[None], [history_len], spec,
+            encoder_ngram_size=encoder_ngram_size,
+            suppress_mask=suppress_mask, max_steps=one(max_steps),
+            return_kv=return_kv, attn_probe=attn_probe,
+            first_attn_idx=one(first_attn_idx),
+            attn_stop_idx=one(attn_stop_idx),
+        )[0]
+    dev = first_logits.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    loop = alloc_loop(spec, cfg, first_logits.shape[-1], prompt_buf.shape[0],
+                      prefix.k.shape[3], prefix.k.dtype, dev)
+    start_loop(loop, spec, first_logits, prompt_buf, prompt_len,
+               max_steps=max_steps)
+    hist = history.to(**i64)
+    hist_len = torch.as_tensor(history_len).to(**i64)
+    beam_select(loop, spec, hist, hist_len, encoder_ngram_size,
+                suppress_mask)
+    while not read_done(loop):
+        beam_forward(loop, params, cfg, prefix)
+        beam_select(loop, spec, hist, hist_len, encoder_ngram_size,
+                    suppress_mask)
+    return unpack_result(read(pack_result(*beam_finish(loop, spec))),
+                         spec.max_new_tokens)
+
+
+# ---------------------------------------------------------------------------
+# The device-resident loop of one stream (JAX's while_loop carry)
+
+
+class BeamLoop(NamedTuple):
+    """Static device buffers of one stream's beam loop, updated in place
+    (a CUDA graph replays on their addresses)."""
+
+    t: torch.Tensor  # () int64: steps taken
+    done: torch.Tensor  # () bool
+    max_steps: torch.Tensor  # () int64: the step cap (<= G)
+    logits: torch.Tensor  # (B, V) float32: each row's next-token logits
+    beam_scores: torch.Tensor  # (B,) float32
+    seq_buf: torch.Tensor  # (B, Tp + G) int64: prompt + generated ids
+    seq_len: torch.Tensor  # (B,) int64
+    gen_tokens: torch.Tensor  # (B, G) int64
+    new_tok: torch.Tensor  # (B,) int64: the tokens the next forward takes
+    gen_k: torch.Tensor  # (L, B, G, KV, Dh) generated-token keys
+    gen_v: torch.Tensor
+    fin_tokens: torch.Tensor  # (B, G) int64: finished hypotheses
+    fin_len: torch.Tensor  # (B,) int64
+    fin_scores: torch.Tensor  # (B,) float32
+
+
+def alloc_loop(spec: BeamSpec, cfg: LlamaConfig, V: int, Tp: int,
+               kv_heads: int, kv_dtype, device) -> BeamLoop:
+    """The loop's buffers for ``spec`` over prompts of Tp ids and a
+    vocabulary of V (``kv_heads``: the heads the cache holds)."""
+    B, G = spec.beam, spec.max_new_tokens
+    i64 = dict(dtype=torch.int64, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    kv = (cfg.num_layers, B, G, kv_heads, cfg.head_dim)
+    return BeamLoop(
+        t=torch.zeros((), **i64),
+        done=torch.zeros((), dtype=torch.bool, device=device),
+        max_steps=torch.zeros((), **i64),
+        logits=torch.zeros((B, V), **f32),
+        beam_scores=torch.zeros((B,), **f32),
+        seq_buf=torch.zeros((B, Tp + G), **i64),
+        seq_len=torch.zeros((B,), **i64),
+        gen_tokens=torch.zeros((B, G), **i64),
+        new_tok=torch.zeros((B,), **i64),
+        gen_k=torch.zeros(kv, dtype=kv_dtype, device=device),
+        gen_v=torch.zeros(kv, dtype=kv_dtype, device=device),
+        fin_tokens=torch.zeros((B, G), **i64),
+        fin_len=torch.zeros((B,), **i64),
+        fin_scores=torch.zeros((B,), **f32),
+    )
+
+
+def start_loop(loop: BeamLoop, spec: BeamSpec, first_logits: torch.Tensor,
+               prompt_buf: torch.Tensor, prompt_len, max_steps=None):
+    """JAX's ``init`` carry, written into ``loop``: every beam holds the
+    prompt, beam 0 scores 0 and the others -1e9.  ``prompt_len`` and
+    ``max_steps`` are ints or () tensors on the loop's device."""
+    Tp = prompt_buf.shape[0]
+    loop.t.zero_()
+    loop.done.zero_()
+    loop.max_steps.fill_(spec.max_new_tokens if max_steps is None
+                         else max_steps)
+    loop.logits.copy_(first_logits[None].expand_as(loop.logits))
+    loop.beam_scores.fill_(NEG_INF)
+    loop.beam_scores[:1].zero_()
+    loop.seq_buf[:, :Tp].copy_(prompt_buf[None].expand(loop.seq_buf.shape[0],
+                                                        Tp))
+    loop.seq_buf[:, Tp:].fill_(spec.pad_id)
+    loop.seq_len.fill_(prompt_len)
+    loop.gen_tokens.fill_(spec.pad_id)
+    loop.new_tok.fill_(spec.pad_id)
+    loop.gen_k.zero_()
+    loop.gen_v.zero_()
+    loop.fin_tokens.fill_(spec.pad_id)
+    loop.fin_len.zero_()
+    loop.fin_scores.fill_(NEG_INF)
+
+
+def _pow_len(n: torch.Tensor, length_penalty: float) -> torch.Tensor:
+    """max(n, 1) ** length_penalty in float32, n an int tensor."""
+    return torch.clamp(n.to(torch.float32), min=1.0) ** length_penalty
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] along dim 0 for a () index tensor, without a host read."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
+                history_len: torch.Tensor, encoder_ngram_size: int = 0,
+                suppress_mask: Optional[torch.Tensor] = None):
+    """One step of JAX's ``step_fn`` up to its forward, in place: the
+    processors on the log-softmax of the current logits, the exact top-2B
+    candidates, the EOS candidates among the top B ranks added to the
+    finished hypotheses (``add_hyp``: each replaces the worst slot, the
+    first of equal ones, when strictly better), the first B non-EOS
+    candidates as the new beams (slot to candidate by ``argmax``), the
+    reorder and append, t + 1 and ``done``.  history (Lh,), history_len
+    () int64."""
+    B, G = spec.beam, spec.max_new_tokens
+    dev = loop.logits.device
+    t = loop.t
+    scores = torch.log_softmax(loop.logits, dim=-1)
+    scores = lp.process_scores(
+        scores, loop.seq_buf, loop.seq_len, spec.repetition_penalty,
+        spec.no_repeat_ngram_size, history[None].expand(B, -1),
+        history_len.reshape(1).expand(B), encoder_ngram_size,
+        suppress_mask,
+    )
+    _, cand_vals, cand_beam, cand_tok = select_candidates(
+        scores, loop.beam_scores)
+    is_eos = cand_tok == spec.eos_id
+    rank = torch.arange(2 * B, device=dev)
+    eos_ok = is_eos & (rank < B)
+    hyp_score = cand_vals / _pow_len(t + 1, spec.length_penalty)
+
+    # add_hyp over the 2B candidates, in JAX's order
+    ft, fl, fs = loop.fin_tokens, loop.fin_len, loop.fin_scores
+    slots = torch.arange(B, device=dev)
+    for i in range(2 * B):
+        worst = torch.argmin(fs)
+        use = eos_ok[i] & (hyp_score[i] > _take(fs, worst))
+        at = (slots == worst) & use  # (B,)
+        toks = _take(loop.gen_tokens, cand_beam[i])  # the source beam's
+        ft = torch.where(at[:, None], toks[None], ft)
+        fl = torch.where(at, t, fl)
+        fs = torch.where(at, hyp_score[i], fs)
+
+    # the next live beams: the first B non-EOS candidates
+    live_rank = torch.cumsum((~is_eos).to(torch.int64), dim=0) - 1
+    cand_order = torch.where(~is_eos, live_rank, 2 * B)
+    slot_to_cand = torch.argmax(
+        (cand_order[None, :] == slots[:, None]).to(torch.int64), dim=1)
+    new_scores = cand_vals[slot_to_cand]
+    src = cand_beam[slot_to_cand]
+    new_tok = cand_tok[slot_to_cand]
+
+    # reorder the per-beam state, then append the new tokens
+    seq_buf = loop.seq_buf[src]
+    seq_len = loop.seq_len[src]
+    gen_tokens = loop.gen_tokens[src]
+    gen_tokens.scatter_(1, t.reshape(1, 1).expand(B, 1), new_tok[:, None])
+    seq_buf.scatter_(1, seq_len[:, None], new_tok[:, None])
+    loop.gen_k.copy_(loop.gen_k[:, src])
+    loop.gen_v.copy_(loop.gen_v[:, src])
+
+    # termination (before the forward of the next token)
+    t_next = t + 1
+    n_fin = torch.sum(fs > NEG_INF / 2)
+    best_possible = torch.max(new_scores) / _pow_len(t_next + 1,
+                                                     spec.length_penalty)
+    done = ((t_next >= G) | (t_next >= loop.max_steps)
+            | ((n_fin >= B) & (torch.min(fs) >= best_possible)))
+
+    loop.fin_tokens.copy_(ft)
+    loop.fin_len.copy_(fl)
+    loop.fin_scores.copy_(fs)
+    loop.beam_scores.copy_(new_scores)
+    loop.seq_buf.copy_(seq_buf)
+    loop.seq_len.copy_(seq_len + 1)
+    loop.gen_tokens.copy_(gen_tokens)
+    loop.new_tok.copy_(new_tok)
+    loop.done.copy_(done)
+    loop.t.copy_(t_next)
+
+
+def beam_forward(loop: BeamLoop, params, cfg: LlamaConfig,
+                 prefix: DecoderState):
+    """The forward of the step ``beam_select`` just took: the new tokens
+    through ``beam_token_step`` at gen_len t - 1, their K/V written into
+    the loop's buffers, the logits into ``loop.logits``."""
+    x = llama_mod.embed(params, loop.new_tok[:, None])
+    logits, _, _, _ = llama_mod.beam_token_step(
+        params, cfg, prefix, loop.gen_k, loop.gen_v, loop.t - 1, x)
+    loop.logits.copy_(logits)
+
+
+def read_done(loop: BeamLoop) -> bool:
+    """The loop's one host read a step (XLA's while_loop reads its
+    predicate too)."""
+    return bool(read(loop.done))
+
+
+def beam_finish(loop: BeamLoop, spec: BeamSpec):
+    """JAX's finalize: the best live beam (normalised by t) against the
+    best finished hypothesis, by ``argmax``.  Returns device tensors
+    (tokens (G,) int64, n_tokens (), score () float32, steps (),
+    hit_eos () bool)."""
+    fs = loop.fin_scores
+    live_score = loop.beam_scores / _pow_len(loop.t, spec.length_penalty)
+    best_live = torch.argmax(live_score)
+    best_fin = torch.argmax(fs)
+    have_fin = torch.sum(fs > NEG_INF / 2) > 0
+    fin_best = _take(fs, best_fin)
+    live_best = _take(live_score, best_live)
+    use_fin = have_fin & (fin_best >= live_best)
+    tokens = torch.where(use_fin, _take(loop.fin_tokens, best_fin),
+                         _take(loop.gen_tokens, best_live))
+    n_tokens = torch.where(use_fin, _take(loop.fin_len, best_fin), loop.t)
+    score = torch.where(use_fin, fin_best, live_best)
+    return tokens, n_tokens, score, loop.t, use_fin
+
+
+def pack_result(tokens, n_tokens, score, steps, hit_eos) -> torch.Tensor:
+    """One int32 vector for one host read: [n_tokens, hit_eos, steps,
+    score's float32 bits, tokens...]."""
+    head = torch.stack([n_tokens.to(torch.int32), hit_eos.to(torch.int32),
+                        steps.to(torch.int32),
+                        score.to(torch.float32).reshape(1).view(
+                            torch.int32)[0]])
+    return torch.cat([head, tokens.to(torch.int32)])
+
+
+def unpack_result(packed: list, G: int, offset: int = 0) -> BeamResult:
+    """The BeamResult of a ``pack_result`` vector read to the host (from
+    ``offset`` on)."""
+    p = packed[offset:]
+    score = struct.unpack("<f", struct.pack("<i", p[3]))[0]
+    return BeamResult(tokens=list(p[4:4 + G]), n_tokens=p[0], score=score,
+                      steps=p[2], hit_eos=bool(p[1]), attn_idx=[-1] * G)
 
 
 def _ints(x) -> List[int]:

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from infinisst_tpu_torch.core import rope as R
+from infinisst_tpu_torch.core.graphs import counter
 from infinisst_tpu_torch.kernels.quant_matmul import (
     _check,
     _raise_on,
@@ -59,11 +60,12 @@ MAX_SPLIT = 64
 # two per SM ran the beam prefix faster than one (measured on the H100)
 BLOCKS_PER_SM = 2
 
-launch_counts = {"decode_attention": 0}
+# both registered with ``core.graphs`` (replays count what they hold)
+launch_counts = counter({"decode_attention": 0})
 # the same launches by query rows and caches, "B=32 Bc=8": the serving
 # pool's prefix (a batch of caches, each read by its slot's beams) apart
 # from the beam step's other blocks
-launch_shapes = {}
+launch_shapes = counter({})
 
 
 def reset_launch_counts():

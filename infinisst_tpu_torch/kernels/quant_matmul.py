@@ -63,13 +63,19 @@ from typing import NamedTuple
 
 import torch
 
-launch_counts = {"row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
-                 "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
-internal_counts = {"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
-                   "w8a8_grouped_gemm_split_k": 0,
-                   "group_quant_int8_simple": 0,
-                   "w8a8_grouped_gemm_simple": 0, "counter_zeroing": 0,
-                   "w8_bf16_gemm_f32_cast": 0}
+from infinisst_tpu_torch.core.graphs import counter
+
+# registered with ``core.graphs``: a captured program's replays add to
+# them what its capture recorded
+launch_counts = counter({"row_quant_int8": 0, "w8a8_gemm": 0,
+                         "w8_bf16_gemm": 0, "group_quant_int8": 0,
+                         "w8a8_grouped_gemm": 0})
+internal_counts = counter({"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
+                           "w8a8_grouped_gemm_split_k": 0,
+                           "group_quant_int8_simple": 0,
+                           "w8a8_grouped_gemm_simple": 0,
+                           "counter_zeroing": 0,
+                           "w8_bf16_gemm_f32_cast": 0})
 
 
 def reset_launch_counts():

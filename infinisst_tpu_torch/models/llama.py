@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from infinisst_tpu_torch.core import masks as M
 from infinisst_tpu_torch.core import rope as R
 from infinisst_tpu_torch.core.config import LlamaConfig
+from infinisst_tpu_torch.core.graphs import counter
 from infinisst_tpu_torch.kernels.decode_attention import (
     decode_attention,
     merge_blocks,
@@ -71,8 +72,8 @@ Params = Dict[str, Any]
 
 # forward passes by function and depth, e.g. "decode_step L=32": the bench
 # reports them, so that each kernel's launches can be held to the forwards
-# that made them
-forward_counts: Dict[str, int] = {}
+# that made them (registered with ``core.graphs``: replays count too)
+forward_counts: Dict[str, int] = counter({})
 
 
 def _count_forward(fn: str, num_layers: int):
@@ -210,8 +211,12 @@ def decode_step(
     )  # (B, C+S)
     q_pos = vlen[:, None] + ar_s  # (B, S)
     scale = 1.0 / math.sqrt(Dh)
-    # dynamic_update_slice semantics: the start is clamped so S rows fit
-    starts = torch.clamp(vlen, max=C - S).tolist()
+    # dynamic_update_slice semantics: a negative start counts from the end,
+    # then it is clamped to [0, C - S] so S rows fit; the rows are indexed
+    # on the device (no host read)
+    start = torch.where(vlen < 0, vlen + C, vlen)
+    rows_at = (torch.clamp(start, min=0, max=C - S)[:, None] + ar_s,)
+    rows_at = (torch.arange(B, device=dev)[:, None],) + rows_at
     probe_layer = None if attn_probe is None else \
         attn_probe[0] % cfg.num_layers
     _count_forward("decode_step", cfg.num_layers)
@@ -247,9 +252,8 @@ def decode_step(
         h = _mlp(h, lp, cfg.rms_norm_eps)
 
         # in-place append of this layer's new K/V (the donated cache)
-        for b, st in enumerate(starts):
-            state.k[li, b, st : st + S] = k_new[b].to(state.k.dtype)
-            state.v[li, b, st : st + S] = v_new[b].to(state.v.dtype)
+        state.k[li].index_put_(rows_at, k_new.to(state.k.dtype))
+        state.v[li].index_put_(rows_at, v_new.to(state.v.dtype))
 
     logits = _final_logits(params, cfg, h)[..., : cfg.vocab_size]
     n_append = (
@@ -387,7 +391,8 @@ def beam_token_step(
     prefix: DecoderState,  # P prefix caches (L, P, C, KV, Dh), valid_len (P,)
     gen_k: torch.Tensor,  # (L, P * beam, G, KV, Dh) generated-token keys
     gen_v: torch.Tensor,
-    gen_len: int,  # tokens generated so far (the same for every row)
+    gen_len,  # tokens generated so far (the same for every row): an int
+    # or a () int tensor on the device (the captured beam loop's)
     x_embed: torch.Tensor,  # (P * beam, 1, D), the rows of slot p first
     attn_probe: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -414,9 +419,13 @@ def beam_token_step(
     i32 = torch.int32
     plen = prefix.valid_len.to(device=dev, dtype=i32)  # (P,)
     # per-beam block: keys 0..gen_len valid, key j at position plen + j
-    g_valid = torch.full((rows,), gen_len + 1, dtype=i32, device=dev)
-    g_off = plen.repeat_interleave(beam)
-    q_pos = g_off + gen_len
+    g_off = plen[:, None].expand(plen.shape[0], beam).reshape(rows) \
+        .contiguous()
+    at = gen_len.to(device=dev, dtype=torch.int64).reshape(1) \
+        if torch.is_tensor(gen_len) else \
+        torch.full((1,), gen_len, dtype=torch.int64, device=dev)
+    g_valid = (at + 1).to(i32).repeat(rows)
+    q_pos = g_off + at.to(i32)
     probe_layer = None if attn_probe is None else \
         attn_probe[0] % cfg.num_layers
     attn_idx = None
@@ -431,8 +440,8 @@ def beam_token_step(
         k_new = k_new.reshape(rows, KV, Dh)
         v_new = v_new.reshape(rows, KV, Dh)
         # in-place write of this step's K/V (the JAX step returns a copy)
-        gen_k[li, :, gen_len] = k_new.to(gen_k.dtype)
-        gen_v[li, :, gen_len] = v_new.to(gen_v.dtype)
+        gen_k[li].index_copy_(1, at, k_new.to(gen_k.dtype)[:, None])
+        gen_v[li].index_copy_(1, at, v_new.to(gen_v.dtype)[:, None])
 
         o_p, lse_p = decode_attention(
             q, prefix.k[li], prefix.v[li], plen, q_pos, inv_freq,

@@ -95,21 +95,22 @@ def conv_extractor(params: Params, cfg: W2V2Config, x: torch.Tensor):
 
 def sinusoidal_positions(offset, length: int, d_model: int, device=None):
     """Absolute sinusoidal embeddings [sin | cos] (the abs-pos fallback
-    when RoPE is off), computed in f32."""
+    when RoPE is off), computed in f32: (length, d_model) for an int
+    offset, (B, length, d_model) for a (B,) tensor of offsets (read on
+    the device)."""
     half = d_model // 2
+    pos = torch.as_tensor(offset, dtype=torch.float32, device=device)
+    device = pos.device
     freq = torch.exp(
         torch.arange(half, dtype=torch.float32, device=device)
         * -(math.log(10000.0) / (half - 1))
     )
-    pos = torch.as_tensor(offset, dtype=torch.float32, device=device) + \
-        torch.arange(length, dtype=torch.float32, device=device)
-    ang = pos[:, None] * freq[None, :]
-    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+    pos = pos[..., None] + torch.arange(length, dtype=torch.float32,
+                                        device=device)
+    ang = pos[..., None] * freq
+    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     if d_model % 2 == 1:
-        emb = torch.cat(
-            [emb, torch.zeros((length, 1), dtype=torch.float32, device=device)],
-            dim=1,
-        )
+        emb = torch.cat([emb, emb.new_zeros(emb.shape[:-1] + (1,))], dim=-1)
     return emb
 
 
@@ -353,10 +354,7 @@ def chunk_step(
         x = torch.gather(x, 1, src[:, :, None].expand(B, S, D))
     if not cfg.use_rope:
         # abs-pos fallback at the ABSOLUTE stream offset
-        emb = torch.stack(
-            [sinusoidal_positions(o, S, D, dev) for o in n.tolist()]
-        )
-        x = x + emb.to(x.dtype)
+        x = x + sinusoidal_positions(n, S, D, dev).to(x.dtype)
     mask = M.streaming_chunk_mask(S, n, max_cache_frames,
                                   chunk_frames if rf is None else rf, C + S)
     if rf is not None:

@@ -194,7 +194,9 @@ def prefill(cfg, params, window, ids, patch_start, device, mesh=None):
 def agent_tokens(cfg, params, audio, device, mesh=None):
     """The dryrun agent of ``tests/test_tp_agent.py`` (beam 2, 4 chunks,
     the last finished; TP with ``mesh``): its target ids after every
-    chunk, the encoder's frames and whether it finished."""
+    chunk, the encoder's frames and whether it finished.  On CUDA its
+    chunk program is captured (with the mesh's collectives in the graphs)
+    and the later chunks replay it; this raises if none did."""
     from infinisst_tpu_torch.agents.infinisst import (
         InfiniSSTAgent,
         InfiniSSTOptions,
@@ -223,6 +225,9 @@ def agent_tokens(cfg, params, audio, device, mesh=None):
             act = agent.push(chunk, finished=(i == len(audio) - 1))
             out.append(list(agent.states.target_ids))
         n_frames = int(agent.enc_state.n_frames[0])
+    if agent.device.type == "cuda" and not any(
+            p.replays for p in agent._programs.values()):
+        raise AssertionError("the agent's chunk program never replayed")
     return out, n_frames, bool(act.finished)
 
 
@@ -461,7 +466,9 @@ def check(device, data_ax=None, model_ax=None) -> str:
             f"(FSDP {'on' if data_ax > 1 else 'off'}), the TP prefill "
             f"within {worst:.2e} x max|logits| at vocabularies "
             f"{cfg.llama.vocab_size} and 1023, the TP agent's "
-            f"{len(got[0][-1])} target ids equal chunk by chunk, the pool "
+            f"{len(got[0][-1])} target ids equal chunk by chunk"
+            f"{' (captured as CUDA graphs)' if dev.type == 'cuda' else ''}"
+            f", the pool "
             f"of {POOL} split over {data_ax} data rank(s) equal to one "
             f"rank's in {len(POOL_MODES)} modes ({n_pool} tokens)")
     if rank0:
