@@ -1517,23 +1517,26 @@ def tiny_engine(device, params):
     )
 
 
-def _tiny_pool(dev, params):
-    """The tiny pool on the CPU and on the card: an m=1 and an m=2 slot,
-    slot 0 switched to m=2 at tick 3, six ticks of one 960 ms unit each
-    (the last finishes both streams).  Returns one record a tick, (the
-    slots that ticked, {device: (tokens, valid_len, evictions)}, {device:
-    the prefill's last logits}), and the two engines."""
+def _tiny_pool(dev, params, captured=True):
+    """The tiny pool on the CPU and on the card (its tick captured, or
+    the same functions uncaptured): an m=1 and an m=2 slot, slot 0
+    switched to m=2 at tick 3, six ticks of one 960 ms unit each (the
+    last finishes both streams).  Returns one record a tick, (the slots
+    that ticked, {device: (tokens, valid_len, evictions)}, {device: the
+    prefill's last logits, uncaptured engines only}), and the two
+    engines."""
     import numpy as np
 
     from infinisst_tpu_torch.decode import beam as beam_mod
 
     engines = {d: tiny_engine(d, params) for d in ("cpu", dev)}
+    engines[dev]._graphs_on = captured
     for e in engines.values():
         e.open_stream("a", multiplier=1)
         e.open_stream("b", multiplier=2)
     rng = np.random.RandomState(7)
     unit = engines["cpu"].stream.chunk_samples(1)
-    search = beam_mod.batched_beam_search
+    start = beam_mod.start_loop
     records = []
     for t in range(6):
         audio = [rng.randn(unit).astype(np.float32) * 0.1 for _ in range(2)]
@@ -1544,15 +1547,16 @@ def _tiny_pool(dev, params):
             for slot in (0, 1):
                 e.push_audio(slot, audio[slot], finished=(t == 5))
 
-            def recorded(p, c, dec, logits, *a, _d=d, **kw):
+            def recorded(loop, spec, logits, *a, _d=d, **kw):
                 last[_d] = logits.float().cpu()
-                return search(p, c, dec, logits, *a, **kw)
+                return start(loop, spec, logits, *a, **kw)
 
-            beam_mod.batched_beam_search = recorded
+            if not e._graphs_on:  # a captured piece holds no Python
+                beam_mod.start_loop = recorded
             try:
                 e.tick()
             finally:
-                beam_mod.batched_beam_search = search
+                beam_mod.start_loop = start
             state[d] = ([list(s.target_ids) for s in e.slots],
                         e.valid_len_host.tolist(), e.evictions)
         records.append((engines[dev].last_ticked, state, last))
@@ -1560,9 +1564,10 @@ def _tiny_pool(dev, params):
 
 
 def check_serve_tiny(dev, f32_params, w8a8_params):
-    """The tiny float32 pool (the weights of check_tiny) on the card
-    against the CPU through a trim: every slot's tokens and the host
-    mirrors equal after every tick.  Then the W8A8 pool the same way,
+    """The tiny float32 pool (the weights of check_tiny) on the card, its
+    tick captured, against the CPU through a trim: every slot's tokens
+    and the host mirrors equal after every tick.  Then the W8A8 pool the
+    same way (uncaptured on the card, to read its prefill logits),
     reported: the first tick whose tokens differ, with its largest
     relative gap of the last prefill logits."""
     reset_counts()
@@ -1582,10 +1587,13 @@ def check_serve_tiny(dev, f32_params, w8a8_params):
           f"{dict(_kernel_modules()[1].launch_shapes)}", flush=True)
     if not (card.evictions and all(s.done for s in card.slots)):
         fail("[serve tiny] the streams did not trim and finish")
+    if not card._programs["beam"].replays:
+        fail("[serve tiny] the card's pool did not replay its tick")
     if _kernel_modules()[1].launch_shapes.get("B=4 Bc=2", 0) <= 0:
         fail("[serve tiny] the pool prefix did not launch decode_attention")
     differ = None
-    for t, (_, state, last) in enumerate(_tiny_pool(dev, w8a8_params)[0]):
+    for t, (_, state, last) in enumerate(
+            _tiny_pool(dev, w8a8_params, captured=False)[0]):
         if state["cpu"] != state[dev] and differ is None:
             a, b = last["cpu"], last[dev]
             gap = ((a - b).abs().amax(-1) / a.abs().amax(-1)).tolist()
@@ -1787,15 +1795,6 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
 
 # the serving engine's tick (serve/engine.py); beam_token_step runs inside
 # batched_beam_search
-SERVE_STAGES = (
-    ("infinisst_tpu_torch.models.llama", "evict_cache"),
-    ("infinisst_tpu_torch.models.speech_llm", "encode_chunk"),
-    ("infinisst_tpu_torch.models.llama", "decode_step"),
-    ("infinisst_tpu_torch.decode.beam", "batched_beam_search"),
-    ("infinisst_tpu_torch.models.llama", "beam_token_step"),
-)
-
-
 # the AlignAtt call (agents/alignatt.py); beam_token_step runs inside
 # beam_search.  A third element labels a stage whose function name is
 # another stage's.
@@ -1815,7 +1814,8 @@ PIECES = (
     ("graph", "A", "A prologue"),  # trim, window, encoder, splice, prefill
     ("graph", "B", "B beam select"),  # one beam step's bookkeeping
     ("graph", "C", "C beam forward"),  # one beam_token_step
-    ("graph", "F", "F finish"),  # finalize, pending, history, packed
+    ("graph", "F", "F finish"),  # finalize, pending (history) or the
+    # winners' K/V committed (the pool), packed
 )
 
 
@@ -2350,10 +2350,11 @@ def check_alignatt_profile(dev, cfg, params):
 
 def check_serve_profile(dev, cfg, params):
     """The flagship W8A8 weights in a ServingEngine (pool 8, beam 4, m=1,
-    the bench's serve defaults): five ticks of one chunk of seeded noise
-    per slot (tick wall, forwards, tokens), one tick with a synchronise
-    around each stage, one under torch.profiler, and the trim alone: one
-    evict_cache over the whole pool cache, timed with CUDA events."""
+    the bench's serve defaults; its tick captured at tick 0): five ticks
+    of one chunk of seeded noise per slot (tick wall, forwards, tokens),
+    one tick with a synchronise around each replayed piece, one under
+    torch.profiler, and the trim alone: one evict_cache over the whole
+    pool cache, timed with CUDA events."""
     import numpy as np
     import torch
 
@@ -2390,20 +2391,20 @@ def check_serve_profile(dev, cfg, params):
               f"({new / walls[-1]:.1f} tok/s), valid_len "
               f"{eng.valid_len_host.tolist()}", flush=True)
     med = statistics.median(walls[1:]) * 1e3
-    spent, wall = timed_stages(dev, tick, SERVE_STAGES)
-    print(f"[serve stages] one tick with a synchronise around each stage: "
+    spent, wall = timed_stages(dev, tick, PIECES)
+    print(f"[serve stages] one tick with a synchronise around each piece: "
           f"wall {wall * 1e3:.2f} ms (median unsynchronised tick {med:.2f} "
           f"ms)", flush=True)
-    for _, name in SERVE_STAGES:
+    for stage in PIECES:  # the pool's tick is a program of these pieces
+        name = stage_label(stage)
         n, t = spent.get(name, (0, 0.0))
-        print(f"[serve stages]   {name:19s} calls {n:2d}  {t * 1e3:9.2f} ms",
-              flush=True)
-    beam = spent.get("batched_beam_search", (0, 0.0))[1]
-    steps = spent.get("beam_token_step", (0, 0.0))[1]
-    print(f"[serve stages]   batched_beam_search outside beam_token_step "
-          f"(log-softmax, processors, top-2B, bookkeeping): "
-          f"{(beam - steps) * 1e3:.2f} ms", flush=True)
-    profile_run(dev, tick, SERVE_STAGES, "serve profile", med, "tick")
+        print(f"[serve stages]   {name:19s} replays {n:2d}  {t * 1e3:9.2f} "
+              f"ms", flush=True)
+    n, t = spent.get("B beam select", (0, 0.0))
+    print(f"[serve stages]   a beam step's bookkeeping (log-softmax, "
+          f"processors, top-2B, add_hyp, reorder): {t / max(n, 1) * 1e3:.3f} "
+          f"ms of wall a replay", flush=True)
+    profile_run(dev, tick, PIECES, "serve profile", med, "tick")
     # the trim: keep the last 500 of each slot's cache, the system prompt
     # pinned (the gather costs the same whatever it keeps)
     keep = torch.full((eng.pool,), 500, dtype=torch.int64)
@@ -2424,6 +2425,186 @@ def check_serve_profile(dev, cfg, params):
           f"(bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms: K and V "
           "read and written once)", flush=True)
     del eng
+    torch.cuda.empty_cache()
+
+
+POOL_GRAPH_TICKS = 14  # the mixed (1, 2) pool: m=2 slots tick every other
+POOL_GRAPH_CACHE = 300  # max_llm_cache_tokens: trims within the ticks
+POOL_GRAPH_MS = (1, 2) * 4  # the 8 slots' multipliers
+GREEDY_TICKS = 4  # the beam-1 pool's greedy program
+
+
+def _pool_engine(dev, cfg, params, beam, captured, cache=None):
+    """The flagship pool of 8 at ``beam``, multipliers (1, 2): its tick
+    the captured program, or the same functions uncaptured."""
+    import torch
+
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.serve.engine import ServingEngine
+
+    stream = (StreamConfig() if cache is None
+              else StreamConfig(max_llm_cache_tokens=cache))
+    eng = ServingEngine(params, cfg, stream, {("English", "German"):
+                        PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
+                                      cfg.tokens)},
+                        pool_size=8, beam=beam, multipliers=(1, 2),
+                        dtype=torch.bfloat16, device=dev)
+    eng._graphs_on = captured  # the private hook: uncaptured on the card
+    return eng
+
+
+def _pool_run(dev, eng, ms, n_ticks, label):
+    """``n_ticks`` ticks of one 960 ms unit of seeded noise a slot (slot i
+    at multiplier ms[i]); a captured engine's ticks under
+    ``graphs.strict_syncs()``.  Each tick's forwards are held to its beam
+    steps.  Returns one record a tick."""
+    import contextlib
+
+    import numpy as np
+
+    from infinisst_tpu_torch.core import graphs
+
+    slots = [eng.open_stream(f"c{i}", multiplier=m)
+             for i, m in enumerate(ms)]
+    rng = np.random.RandomState(4)
+    push = eng.stream.chunk_samples(1)
+    _, A = _kernel_modules()
+    recs = []
+    for i in range(n_ticks):
+        for s in slots:
+            eng.push_audio(s, rng.randn(push).astype(np.float32) * 0.1)
+        replays = sum(p.replays for p in eng._programs.values())
+        reset_counts()
+        reads, fwd = graphs.host_reads, eng.forwards["token"]
+        before_fwd = forward_counts()
+        strict = graphs.strict_syncs() if eng._graphs_on else \
+            contextlib.nullcontext()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with strict:
+            eng.tick()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        n_fwd = eng.forwards["token"] - fwd
+        if eng.beam > 1:
+            check_forwards(before_fwd, n_fwd + 1, eng.cfg.llama.num_layers,
+                           f"pool graph {label}")
+        recs.append(dict(
+            ids=[list(eng.slots[s].target_ids) for s in slots], wall=dt,
+            counts=launch_counts(), shapes=dict(A.launch_shapes),
+            reads=graphs.host_reads - reads, steps=n_fwd + 1,
+            evictions=eng.evictions, ticked=len(eng.last_ticked),
+            replayed=sum(p.replays for p in eng._programs.values())
+            > replays))
+    return recs
+
+
+def _pool_pair(dev, cfg, params, beam, n_ticks, cache, label):
+    """The same audio through the pool captured and uncaptured: fails
+    unless every slot's tokens are equal after every tick, a replayed
+    tick launches what the uncaptured tick does, and a tick reads the
+    device at most steps + 1 times.  Returns (the captured engine, its
+    records, the uncaptured records)."""
+    import torch
+
+    runs = {}
+    for name, on in (("captured", True), ("uncaptured", False)):
+        eng = _pool_engine(dev, cfg, params, beam, on, cache)
+        runs[name] = (eng if on else None,
+                      _pool_run(dev, eng, POOL_GRAPH_MS, n_ticks,
+                                f"{label} {name}"))
+        del eng
+    torch.cuda.empty_cache()
+    (cap, c), (_, u) = runs["captured"], runs["uncaptured"]
+    for i, (a, b) in enumerate(zip(c, u)):
+        if a["ids"] != b["ids"]:
+            fail(f"[pool graph] {label} tick {i}: captured {a['ids']} != "
+                 f"uncaptured {b['ids']}")
+        if a["counts"] != b["counts"] or a["shapes"] != b["shapes"]:
+            fail(f"[pool graph] {label} tick {i}: the captured tick launched "
+                 f"{a['counts']} {a['shapes']}, the uncaptured tick "
+                 f"{b['counts']} {b['shapes']}")
+        if a["reads"] > a["steps"] + 1:
+            fail(f"[pool graph] {label} tick {i}: {a['reads']} host reads "
+                 f"for {a['steps']} steps")
+    if not all(a["replayed"] for a in c[1:]):
+        fail(f"[pool graph] {label}: a tick after the first did not replay")
+    print(f"[pool graph] {label}: {len(c)} ticks, programs "
+          f"{sorted(cap._programs)}, evictions {cap.evictions}; every "
+          f"slot's tokens equal captured / uncaptured every tick "
+          f"({sum(map(len, c[-1]['ids']))} tokens); every tick's launches "
+          f"equal the uncaptured tick's; replays under sync debug mode "
+          f"\"error\" synchronised only at the reads", flush=True)
+    for i, (a, b) in enumerate(zip(c, u)):
+        kind = "replay" if a["replayed"] else "warm-up + capture"
+        print(f"[pool graph]   {label} tick {i:2d}: {a['ticked']} slots, "
+              f"captured {a['wall'] * 1e3:8.2f} ms ({kind}), uncaptured "
+              f"{b['wall'] * 1e3:8.2f} ms; steps {a['steps']}, host reads "
+              f"{a['reads']}, launches "
+              f"{ {k: v for k, v in a['counts'].items() if v} } "
+              f"{a['shapes']}", flush=True)
+    return cap, c, u
+
+
+def check_pool_graph(dev, cfg, params, paths):
+    """The serving pool's tick as captured CUDA graphs (JAX's one-jit
+    step): the flagship W8A8 pool of 8 at beam 4, multipliers (1, 2),
+    POOL_GRAPH_TICKS ticks with trims, against the same functions
+    uncaptured; the tick walls (median, p95), the host reads against
+    steps + 1, a replayed tick under the profiler (its kernels counted
+    by name against the recorded launches, kernel ms, idle share); then
+    the greedy program on a beam-1 pool."""
+    import numpy as np
+    import torch
+
+    cap, c, u = _pool_pair(dev, cfg, params, 4, POOL_GRAPH_TICKS,
+                           POOL_GRAPH_CACHE, "beam 4")
+    if not any(a["evictions"] for a in c[:-1]):
+        fail("[pool graph] beam 4: no trim was applied")
+    steady = [i for i, a in enumerate(c) if a["replayed"]]
+    for name, recs in (("captured", c), ("uncaptured", u)):
+        w = sorted(recs[i]["wall"] * 1e3 for i in steady)
+        n = len(w)
+        p95 = w[min(n - 1, math.ceil(0.95 * n) - 1)]
+        print(f"[pool graph] beam 4 {name}: tick wall median "
+              f"{statistics.median(w):.2f} ms, p95 {p95:.2f} ms over {n} "
+              f"ticks", flush=True)
+    print(f"[pool graph] host reads a tick {[c[i]['reads'] for i in steady]}"
+          f" for steps {[c[i]['steps'] for i in steady]}", flush=True)
+    # one more replayed tick under the profiler, every slot ticking
+    slots = list(range(8))
+    rng = np.random.RandomState(9)
+
+    def tick():
+        for s in slots:
+            cap.push_audio(s, rng.randn(cap.stream.chunk_samples(2)).astype(
+                np.float32) * 0.1)
+        cap.tick()
+
+    med = statistics.median(c[i]["wall"] for i in steady) * 1e3
+    replays = cap._programs["beam"].replays
+    reset_counts()
+    busy, wall = profile_run(dev, tick, PIECES, "pool graph profile", med,
+                             "tick", hold_launches=True)
+    if cap._programs["beam"].replays != replays + 1:
+        fail("[pool graph] the profiled tick did not replay its program")
+    if len(cap.last_ticked) != 8:
+        fail(f"[pool graph] the profiled tick ticked {cap.last_ticked}")
+    _, A = _kernel_modules()
+    paths["pool_graph"] = (
+        "flagship W8A8 captured pool of 8, beam 4, a replayed tick of all "
+        "8 slots", launch_counts(), dict(A.launch_shapes))
+    print(f"[pool graph] the profiled tick: {paths['pool_graph'][1]} "
+          f"{paths['pool_graph'][2]}", flush=True)
+    del cap
+    torch.cuda.empty_cache()
+    # the greedy program: a beam-1 pool, captured against uncaptured
+    gcap, _, _ = _pool_pair(dev, cfg, params, 1, GREEDY_TICKS, None,
+                            "beam 1")
+    if list(gcap._programs) != ["greedy"]:
+        fail(f"[pool graph] beam 1 ran {sorted(gcap._programs)}")
+    del gcap
     torch.cuda.empty_cache()
 
 
@@ -2597,8 +2778,22 @@ def run_serve_bench(extra, metric, n_layers=32):
     counts = _stderr_json(out.stderr, "kernel launches ")
     shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
     fwd = _stderr_json(out.stderr, "engine forwards ")
+    progs = _stderr_json(out.stderr, "pool programs ")
     if counts is None or shapes is None or fwd is None:
         fail("[serve] the bench did not report its launches and forwards")
+    # the pool's tick is the captured program: captured in the untimed
+    # tick, replayed in every timed one
+    beam = (progs or {}).get("beam", {})
+    if not beam.get("captured") or beam.get("replays", 0) < 2:
+        fail(f"[serve] the pool's tick program did not replay: {progs}")
+    reads = [int(x) for x in re.findall(r"(\d+) host reads",
+                                        out.stderr)]
+    steps = [int(x) + 1 for x in re.findall(r"(\d+) token forwards",
+                                            out.stderr)]
+    if not reads or any(r > n + 1 for r, n in zip(reads, steps)):
+        fail(f"[serve] host reads a tick {reads} for steps {steps}")
+    print(f"[serve] the tick captured, {beam['replays']} replays; host "
+          f"reads a tick {reads} for steps {steps}", flush=True)
     tok, total = fwd["token"], fwd["prefill"] + fwd["token"]
     L = n_layers
     want = {"decode_attention": tok * L * 2, "w8a8_gemm": total * (7 * L + 1),
@@ -4808,6 +5003,8 @@ def main():
         cfg, params = check_flagship(dev, paths)
     with phase("graph"):
         check_graph(dev, cfg, params, paths)
+    with phase("pool graph"):
+        check_pool_graph(dev, cfg, params, paths)
     with phase("streamatt"):
         check_streamatt(dev, cfg, params)
     mesh_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,
@@ -4941,6 +5138,13 @@ def main():
             g_path, g_counts = paths["graph"]
             entries[-1]["graph"] = {"launches_a_chunk": g_counts[name],
                                     "path": g_path}
+        # the captured pool: launches of one replayed tick of 8 slots
+        pg_path, pg_counts, pg_shapes = paths["pool_graph"]
+        if pg_counts.get(name):
+            entries[-1]["pool_graph"] = {"launches_a_tick": pg_counts[name],
+                                         "path": pg_path}
+            if name == "decode_attention":
+                entries[-1]["pool_graph"]["by_shape"] = pg_shapes
         # the mesh path at world size 1: the flagship agent in this
         # process, the dryrun under torchrun
         mesh_path, mesh_counts = paths["mesh"]

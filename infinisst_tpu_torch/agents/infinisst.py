@@ -65,6 +65,7 @@ from infinisst_tpu_torch.core.config import (
     StreamConfig,
 )
 from infinisst_tpu_torch.core import graphs
+from infinisst_tpu_torch.core.graphs import put as _put
 from infinisst_tpu_torch.core.device import resolve_device
 from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
@@ -89,14 +90,6 @@ class _Chunk(NamedTuple):
     conv_width: int  # the window's trailing samples the conv reads
     prompt: object  # data.template.ChunkPrompt
     prompt_ids: torch.Tensor  # (S,) int64 on the device
-
-
-def _put(dst, src):
-    """Write the tensors of state ``src`` into the static buffers of
-    ``dst`` (the same NamedTuple type), skipping those it already holds."""
-    for d, s in zip(dst, src):
-        if d.data_ptr() != s.data_ptr():
-            d.copy_(s)
 
 
 @dataclass
@@ -487,18 +480,19 @@ class InfiniSSTAgent(SpeechToTextAgent):
         loop = beam_mod.alloc_loop(spec, cfg.llama, cfg.llama.vocab_size, Tp,
                                    self.dec_state.k.shape[3], self.dtype,
                                    dev)
-        packed = torch.zeros((5 + self.max_new,), dtype=torch.int32,
+        packed = torch.zeros((5 + 2 * self.max_new,), dtype=torch.int32,
                              device=dev)
         # the pieces hold the agent weakly: the agent holds its programs,
         # and a cycle would keep the weights alive past the agent
         me = weakref.proxy(self)
 
         def prefill():  # A
-            beam_mod.start_loop(loop, spec, me._prologue(c), c.prompt_ids,
-                                Tp)
+            beam_mod.start_loop(loop, spec, me._prologue(c)[None],
+                                c.prompt_ids[None], Tp)
 
         def select():  # B
-            beam_mod.beam_select(loop, spec, me.hist, me.hist_len,
+            beam_mod.beam_select(loop, spec, me.hist[None],
+                                 me.hist_len.reshape(1),
                                  opts.no_repeat_ngram_size, me._suppress)
 
         def forward():  # C
@@ -507,13 +501,13 @@ class InfiniSSTAgent(SpeechToTextAgent):
 
         def finish():  # F
             res = beam_mod.beam_finish(loop, spec)
-            tokens, n_tokens, hit_eos = res[0], res[1], res[4]
+            n_tokens, hit_eos = res.n_tokens[0], res.hit_eos[0]
             # drop the final token when the cap was hit without EOS
             n_emit = torch.where(hit_eos, n_tokens,
                                  torch.clamp(n_tokens - 1, min=0))
-            me._epilogue(tokens, n_emit, pending=True)
+            me._epilogue(res.tokens[0], n_emit, pending=True)
             packed.copy_(torch.cat([n_emit.to(torch.int32).reshape(1),
-                                    beam_mod.pack_result(*res)]))
+                                    beam_mod.pack_result(res)[0]]))
 
         pool = None
         if self._graphs_on:

@@ -46,7 +46,10 @@ goes to stderr.  ``--multipliers 1,2`` runs a mixed pool (slots
 round-robin over the set, audio in 960 ms units, one untimed chunk per
 slot, then ``--chunks`` x m_max ticks); ``--churn`` closes and reopens
 two slots halfway.  Its ``--model 8b`` is the flagship W8A8 (per-channel
-scales only), ``--model bench`` the bf16 ~1.5B decoder.
+scales only), ``--model bench`` the bf16 ~1.5B decoder.  The tick is a
+device program, captured as CUDA graphs in the untimed tick (the
+greedy one in the tick the speculative guard trips); stderr has each
+tick's host reads and ``pool programs {...}`` (captured, replays).
 
 ``--mode alignatt`` and ``--mode streamatt`` (``bench.py:782-931``) push
 960 ms chunks of seeded noise through the baseline agents on the flagship
@@ -108,6 +111,8 @@ import time
 
 import numpy as np
 import torch
+
+from infinisst_tpu_torch.core import graphs
 
 # En-De RTF per latency multiplier of the reference on an L40S
 # (BASELINE.md, plots/plot.ipynb cell 9)
@@ -581,7 +586,7 @@ def run_serve(eng, n_chunks: int, multipliers=None, churn=False, rng=None,
                 base[s] = 0
         for s in slots:
             eng.push_audio(s, noise(push))
-        fwd = eng.forwards["token"]
+        fwd, reads = eng.forwards["token"], graphs.host_reads
         tt = time.perf_counter()
         eng.tick()
         dt = time.perf_counter() - tt
@@ -589,8 +594,9 @@ def run_serve(eng, n_chunks: int, multipliers=None, churn=False, rng=None,
         slot_lat.extend(dt for s in slots if s in eng.last_ticked)
         if log is not None:
             print(f"tick {i}: {dt * 1e3:.1f} ms, {len(eng.last_ticked)} "
-                  f"slots, {eng.forwards['token'] - fwd} token forwards",
-                  file=log, flush=True)
+                  f"slots, {eng.forwards['token'] - fwd} token forwards, "
+                  f"{graphs.host_reads - reads} host reads", file=log,
+                  flush=True)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     wall = time.perf_counter() - t0
@@ -679,6 +685,10 @@ def main_serve(args) -> dict:
           f"ms max={w.max():.1f}ms evictions={eng.evictions} "
           f"device={eng.device}", file=sys.stderr)
     print("engine forwards " + json.dumps(eng.forwards), file=sys.stderr)
+    # the tick's device programs: captured as CUDA graphs, and replayed
+    print("pool programs " + json.dumps(
+        {k: {"captured": p.captured, "replays": p.replays}
+         for k, p in eng._programs.items()}), file=sys.stderr)
     if eng.speculative:
         print(f"spec: {json.dumps(eng.spec_stats)}", file=sys.stderr)
     launch_report(sys.stderr)

@@ -105,9 +105,17 @@ def read(t: torch.Tensor) -> list:
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def put(dst, src):
+    """Write the tensors of state ``src`` into the static buffers of
+    ``dst`` (the same NamedTuple type), skipping those it already holds."""
+    for d, s in zip(dst, src):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)
+
+
 class GraphPool:
     """One memory pool and one capture stream for the programs of one
-    owner (an agent) on one card."""
+    owner (an agent, a serving engine) on one card."""
 
     def __init__(self, device: torch.device):
         self.device = device

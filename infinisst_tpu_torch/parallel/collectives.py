@@ -41,9 +41,11 @@ The 'data' axis, as the JAX package's ``zero`` has it (FSDP):
 - Inside the context the rows a forward or a decoder sees are this
   data rank's block of the whole batch (the sharded step's rows, a
   serving pool's rows): ``rows_of`` cuts that block out of a
-  whole-batch tensor, ``gather_rows`` joins every rank's block,
+  whole-batch tensor, ``gather_rows`` joins every rank's block (a
+  device collective, which a captured piece can hold),
   ``any_over_data`` makes a host decision the same on every data rank
-  (a loop runs while any row of the whole batch is live) and
+  (a loop runs while any row of the whole batch is live;
+  ``any_over_data_tensor`` is its device form, for a piece) and
   ``pool_rand`` draws the whole batch's uniforms and keeps this rank's
   rows, so that a split pool draws the one-rank pool's numbers.
 """
@@ -334,6 +336,19 @@ def any_over_data(flag: bool) -> bool:
     t = torch.tensor([int(bool(flag))], dtype=torch.int64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_DATA.group)
     return bool(t.item())
+
+
+def any_over_data_tensor(flag: torch.Tensor) -> torch.Tensor:
+    """``any_over_data`` without a host read: a () bool tensor or'ed over
+    the data ranks on the device, which a CUDA graph can hold (an NCCL
+    all-reduce inside the capture; gloo runs it as it is)."""
+    if _DATA is None:
+        return flag
+    import torch.distributed as dist
+
+    t = flag.to(torch.int64).reshape(1)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_DATA.group)
+    return t[0] > 0
 
 
 def pool_rand(shape, generator, device, dim: int = 0) -> torch.Tensor:

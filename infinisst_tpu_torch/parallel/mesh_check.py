@@ -34,7 +34,9 @@ CPU under gloo.
 
 ``--flagship-pool`` (at n_model 1: the int8 leaves are not split over
 'model') adds the flagship W8A8 pool (``flagship_pool``): 8 streams a
-data rank at beam 4, split over 'data', against the same streams on
+data rank at beam 4, split over 'data' (its tick the captured program,
+the NCCL collectives of 'data' and of FSDP's gathers inside its CUDA
+graphs), against the same streams on
 rank 0's card in pools of the rows each data rank holds, token by token
 every tick; beside it the slots in which one card's pool of all the
 streams differs from those pools (its bf16 kernels run at another row
@@ -290,7 +292,8 @@ def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
     """A W8A8 pool of ``len(rows)`` slots at ``beam``, slot i streaming
     ``audio[:, rows[i]]`` (one 960 ms chunk a tick), built and ticked
     under ``tensor_parallel(mesh)`` (with a mesh whose 'data' is above 1:
-    split over it).  Returns per tick every slot's tokens, and the
+    split over it); on the card its tick is the captured program, which
+    must have replayed.  Returns per tick every slot's tokens, and the
     tokens a second after the first tick (host clock, synchronised)."""
     import time
 
@@ -324,6 +327,8 @@ def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
                 n_tok += sum(len(eng.slots[s].target_ids)
                              for s in slots) - before
             ticks.append([list(eng.slots[s].target_ids) for s in slots])
+    if device.type == "cuda" and not eng._programs["beam"].replays:
+        raise AssertionError("the pool's tick program never replayed")
     return ticks, n_tok / wall
 
 
@@ -334,7 +339,7 @@ def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
     from FSDP-sharded float leaves (the int8 leaves whole).  Rank 0 then
     runs the same streams on its card without a mesh: in pools of the
     rows each data rank holds, and in one pool of them all.  Returns the
-    split pool's ``pool_run``, and on rank 0 (None elsewhere) the
+    split pool's ``pool_run`` and its peak GiB on this card, and on rank 0 (None elsewhere) the
     blocks' ticks joined slot by slot and the whole pool's
     ``pool_run``."""
     import torch.distributed as dist
@@ -352,6 +357,10 @@ def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
         n_ticks, pool, StreamConfig().chunk_samples(1)) * 0.1).astype(
             np.float32)
     split = pool_run(cfg, local, audio, range(pool), beam, device, mesh)
+    # the split pool's peak on this card (its graphs' pool holds the
+    # parameters FSDP gathers inside the captured forwards)
+    split += (torch.cuda.max_memory_allocated(device) / 2**30
+              if device.type == "cuda" else 0.0,)
     del local
     if dist.get_rank() != 0:
         return split, None, None
@@ -501,7 +510,7 @@ def main(argv=None):
 
             d, m = ((args.data, args.model) if args.data and args.model
                     else mesh_axes(dist.get_world_size()))
-            (split, split_tps), blocks, one = flagship_pool(
+            (split, split_tps, split_peak), blocks, one = flagship_pool(
                 dev, pmesh.make_mesh(d, m, dev))
             if dist.get_rank() == 0:
                 if split != blocks:
@@ -513,14 +522,17 @@ def main(argv=None):
                 flips = sum(a != b for a, b in zip(split[-1], one[0][-1]))
                 print(f"flagship pool OK: {n} W8A8 streams at beam 4 split "
                       f"over data {d} ({n // d} rows a card), "
-                      f"{len(split)} ticks, token-equal every tick with "
+                      f"{len(split)} ticks, captured, token-equal every "
+                      f"tick with "
                       f"one card's pools of {n // d} holding the same "
                       f"streams; {sum(map(len, split[-1]))} tokens; one "
                       f"card's pool of all {n}: {flips} of {n} slots "
                       f"differ from its pools of {n // d} (bf16 kernels "
                       f"of another row count); {split_tps:.2f} tok/s "
                       f"split against {one[1]:.2f} tok/s in one card's "
-                      f"pool of {n} (after the first tick)", flush=True)
+                      f"pool of {n} (after the first tick); the split "
+                      f"pool's peak {split_peak:.2f} GiB on rank 0's card",
+                      flush=True)
     finally:
         dist.destroy_process_group()
 

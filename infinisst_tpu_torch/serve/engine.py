@@ -7,7 +7,7 @@ A fixed pool of stream slots shares one batched step per tick:
   call over all pool rows (a slot that sits the tick out is a row with no
   real frames and an empty prompt);
 - decode is batched greedy (beam 1) or batched beam search (beam > 1,
-  ``decode/beam.batched_beam_search``): per-token forwards run at
+  the device loop of ``decode/beam.py``): per-token forwards run at
   pool * beam rows, so one weight stream serves every slot and beam, and
   the winners are committed by copying their K/V, computed inside the
   beam loop, into the cache;
@@ -34,17 +34,40 @@ chunk on.  The language pair is per slot (the prompts are padded to one
 width).
 
 As in the JAX engine, the trim decided after a tick is applied at the
-start of the next tick's step.  Here the step works on its own copies of
-the state (the cache's in-place writes land past ``valid_len``, where no
-one reads) and the engine takes them only once the step has returned, so
-a step that raises leaves the state and the pending trim as they were
-(the JAX engine cleared the trim before its step ran).
+start of the next tick's step, on every row (the identity on the rows it
+leaves alone).
 
-The server calls the slot methods from its event loop while a tick runs
-in a worker thread, so one lock serialises ``tick`` and every method that
-changes a slot (in the JAX engine a push during a tick could lose the
-samples it appended, and a close during a tick had its reset undone when
-the tick took its state).
+The tick is JAX's one ``jax.jit`` step with its donated state, as a
+device program (``core/graphs.DeviceProgram``): the windows, the encoder
+ring and the decoder cache are static buffers allocated once and
+written in place, never rebound; the tick's host arrays reach the card
+in one copy into static buffers (``_upload``); the pieces follow JAX's
+step (``_beam_program``: A the trim, window roll, encoder, splice,
+prefill and the beam loop's start, B ``beam_select``, C
+``beam_forward``, F the winners' K/V committed by one scatter and the
+packed result; ``_greedy_program``: A, S one step of the greedy scan,
+D its forward, F), and the host reads the pool-wide ``done`` (beam) or
+"some row can still emit" (greedy) once a step and the packed result
+once: steps + 1 reads a tick.  The row geometry (frames, patches,
+``max_new``) is operands, so one program serves every mix of
+multipliers.  On CUDA each piece is captured as a CUDA graph at its
+program's first tick; on the CPU the same pieces run uncaptured.  The
+prologue writes the state only at its end, so a tick whose encoder or
+prefill raises leaves the state and the pending trim as they were, and
+the next tick is the one an engine that never saw the failed chunk
+would run (the JAX engine, which donates its buffers, cleared the trim
+first).  A tick that raises after the prologue's writes (in the beam
+loop, its capture, a collective) leaves the state a tick ahead of the
+slot table with no copy to go back to: the engine then refuses every
+later tick rather than run on a cache the host misreads.  The
+speculative pools run eagerly between the same prologue and the same
+buffers (ROADMAP item 17e).
+
+The server pushes audio from its event loop while a tick runs in its
+worker thread (which also opens and closes slots), so one lock
+serialises ``tick`` and every method that changes a slot (in the JAX
+engine a push during a tick could lose the samples it appended, and a
+close during a tick had its reset undone when the tick took its state).
 
 ``spec_warm_fallback`` is accepted and does nothing: the JAX engine
 compiles its fallback step ahead in a thread, and eager PyTorch has
@@ -72,6 +95,7 @@ from __future__ import annotations
 import functools
 import sys
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -84,7 +108,9 @@ from infinisst_tpu_torch.core.config import (
     ModelConfig,
     StreamConfig,
 )
+from infinisst_tpu_torch.core import graphs
 from infinisst_tpu_torch.core.device import resolve_device
+from infinisst_tpu_torch.core.graphs import put as _put
 from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
 from infinisst_tpu_torch.decode import logits as lp
@@ -94,7 +120,6 @@ from infinisst_tpu_torch.models import speech_llm
 from infinisst_tpu_torch.models import wav2vec2 as w2v2_mod
 from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import (
-    DecoderState,
     init_decoder_state,
     init_encoder_state,
 )
@@ -271,6 +296,10 @@ class ServingEngine:
         self._pending_evict = None
         # slots whose chunk prefilled in the most recent tick
         self.last_ticked: tuple = ()
+        # True from the moment a tick's prologue has written the pool's
+        # state in place until the host's slot table has followed it: a
+        # tick that raised in between left the two apart for good
+        self._mid_tick = False
 
         # one prompt width for the pool: the longest first-chunk prompt
         # over languages and allowed multipliers, rounded up to 16
@@ -280,6 +309,13 @@ class ServingEngine:
             for mi in set(self.multipliers + (multiplier,))
         )
         self._S = int(np.ceil(smax / 16) * 16)
+        self._alloc_tick_buffers()
+        # the tick's device programs ("beam", "greedy"), captured as CUDA
+        # graphs on the card at their first tick (``_graphs_on = False``,
+        # a private hook for checks: uncaptured on the card)
+        self._programs: Dict[str, graphs.DeviceProgram] = {}
+        self._graphs_on = self.device.type == "cuda"
+        self._graph_pool = None
 
     # -- slot management -------------------------------------------------
     @_locked
@@ -353,161 +389,297 @@ class ServingEngine:
         t = torch.as_tensor(x).to(self.device)
         return par.gather_rows(t).cpu().numpy()
 
-    def _step(self, chunks, ids, valid, patch_starts, row_active, hist,
-              hist_len, row_frames, row_patches, row_max_new, ev,
-              generator=None):
-        """One tick on the device, over this rank's rows of the host
-        arrays (the whole pool's).  Works on its own copies of the state
-        and returns (enc, dec, windows, tokens (P, max_new) np, n (P,) np,
-        token forwards), the tokens and counts the whole pool's, for the
-        caller to take; a speculative step leaves the pool's statistics
-        in ``_step_stats``."""
-        cfg, stream, dev = self.cfg, self.stream, self.device
-        params = self.params
+    # -- the tick as a device program ---------------------------------------
+    def _alloc_tick_buffers(self):
+        """The static buffers of a tick: one int64 vector for the tick's
+        host arrays (this rank's rows; the PCM packed four int16 samples
+        to an int64), its pinned staging copy on CUDA, the named views
+        the pieces read, and the packed result of the whole pool."""
+        B, S, G = self._B, self._S, self.max_new
+        Lh = self.stream.no_repeat_ngram_lookback
+        cs = self.chunk_samples
+        assert cs % 4 == 0, cs
+        shapes = dict(ids=(B, S), valid=(B, S), hist=(B, Lh),
+                      patch_starts=(B,), row_active=(B,), hist_len=(B,),
+                      row_frames=(B,), row_patches=(B,), row_max_new=(B,),
+                      ev_keep=(B,), ev_sys=(B,))
+        n = sum(int(np.prod(sh)) for sh in shapes.values()) + B * cs // 4
+        dev = self.device
+        self._up_dev = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self._up_host = torch.zeros((n,), dtype=torch.int64,
+                                    pin_memory=dev.type == "cuda")
+        self._in, self._in_host = {}, {}
+        host = self._up_host.numpy()
+        off = 0
+        for name, sh in shapes.items():
+            size = int(np.prod(sh))
+            self._in[name] = self._up_dev[off:off + size].view(sh)
+            self._in_host[name] = host[off:off + size].reshape(sh)
+            off += size
+        self._in["chunks"] = self._up_dev[off:].view(torch.int16).view(B, cs)
+        self._in_host["chunks"] = host[off:].view(np.int16).reshape(B, cs)
+        self._packed = torch.zeros((self.pool, 1 + G), dtype=torch.int32,
+                                   device=dev)
+
+    def _upload(self, arrays: Dict[str, np.ndarray]):
+        """This rank's rows of the tick's host arrays into the device
+        buffers: one copy, without a synchronisation (through the pinned
+        staging buffer on CUDA)."""
         rs = self._rows
-        chunks, ids, valid, patch_starts, row_active, hist, hist_len, \
-            row_frames, row_patches, row_max_new = (
-                a[rs] for a in (chunks, ids, valid, patch_starts,
-                                row_active, hist, hist_len, row_frames,
-                                row_patches, row_max_new))
-        if ev is not None:
-            ev = (ev[0][rs], ev[1][rs])
-        B, S = ids.shape
-        i64 = dict(dtype=torch.int64, device=dev)
-        dec = self.dec_state
-        if ev is not None:
-            # the previous tick's trim (rows it leaves alone pass keep =
-            # valid_len, sys = 0: the identity)
-            dec = llama_mod.evict_cache(dec, torch.as_tensor(ev[0]),
-                                        torch.as_tensor(ev[1]))
+        for name, a in arrays.items():
+            self._in_host[name][...] = a[rs]
+        self._up_dev.copy_(self._up_host, non_blocking=True)
+
+    def _prologue(self):
+        """The tick up to the decode, JAX's step in order, on this rank's
+        rows: the deferred trim on every row (the identity on rows it
+        leaves alone: keep = valid_len, sys = 0), the window roll by each
+        row's frames, ``encode_chunk`` with ``row_frames``, the splice of
+        each row's speech tokens at its patch start and the prefill.  The
+        state is written in place only at the end, so a piece that raises
+        before then leaves it as it was.  Returns (the last real
+        position's logits (B, V), prompt lengths (B,))."""
+        cfg, stream, dev = self.cfg, self.stream, self.device
+        params, x = self.params, self._in
+        B, S = x["ids"].shape
+        dec = llama_mod.evict_cache(self.dec_state, x["ev_keep"],
+                                    x["ev_sys"])
         # roll each window by its own chunk: row i's row_frames[i] * 320 new
         # samples (left-aligned in its chunk row) slide in, right-aligned; a
         # row with 0 frames keeps its window as it was
-        new = torch.from_numpy(chunks).to(dev).to(torch.float32) / 32768.0
+        new = x["chunks"].to(torch.float32) / 32768.0
         full = torch.cat([self.windows, new], dim=1)
-        shift = torch.as_tensor(row_frames * SAMPLES_PER_FRAME, **i64)
-        idx = shift[:, None] + torch.arange(self.window_samples,
-                                            device=dev)[None]
+        idx = (x["row_frames"] * SAMPLES_PER_FRAME)[:, None] + torch.arange(
+            self.window_samples, device=dev)[None]
         windows = torch.gather(full, 1, idx)
-        rf = torch.as_tensor(row_frames, **i64)
         speech, enc = speech_llm.encode_chunk(
             params, cfg, self.enc_state, windows, self.chunk_frames,
-            stream.max_cache_frames, row_frames=rf,
+            stream.max_cache_frames, row_frames=x["row_frames"],
         )
-        ids_t = torch.as_tensor(ids, **i64)
-        emb = llama_mod.embed(params["llama"], ids_t)
+        emb = llama_mod.embed(params["llama"], x["ids"])
         # splice each row's speech (12 * m_slot tokens, left-aligned in
         # speech) over its patch span
         n_sp = speech.shape[1]
         pos = torch.arange(S, device=dev)[None]
-        ps = torch.as_tensor(patch_starts, **i64)[:, None]
-        in_patch = (pos >= ps) & (pos < ps + torch.as_tensor(
-            row_patches, **i64)[:, None])
+        ps = x["patch_starts"][:, None]
+        in_patch = (pos >= ps) & (pos < ps + x["row_patches"][:, None])
         rank = torch.clamp(pos - ps, 0, n_sp - 1)
         sp = torch.gather(speech, 1, rank[:, :, None].expand(
             B, S, speech.shape[2]))
         emb = torch.where(in_patch[:, :, None], sp.to(emb.dtype), emb)
-
         logits, dec = llama_mod.decode_step(
-            params["llama"], cfg.llama, dec, emb,
-            valid_mask=torch.as_tensor(valid, **i64),
-        )
-        prompt_lens = valid.sum(-1).astype(np.int64)
-        last = logits[torch.arange(B, device=dev),
-                      torch.as_tensor(np.maximum(prompt_lens - 1, 0), **i64)]
-        hist_t = torch.as_tensor(hist, **i64)
-        G, pad = self.max_new, cfg.tokens.pad
-        toks = np.full((B, G), pad, np.int64)
+            params["llama"], cfg.llama, dec, emb, valid_mask=x["valid"])
+        self.windows.copy_(windows)
+        _put(self.enc_state, enc)
+        _put(self.dec_state, dec)
+        prompt_lens = x["valid"].sum(-1)
+        at = torch.clamp(prompt_lens - 1, min=0)[:, None, None]
+        last = torch.gather(logits, 1, at.expand(B, 1, logits.shape[-1]))
+        return last[:, 0], prompt_lens
 
+    def _pack(self, n: torch.Tensor, toks: torch.Tensor):
+        """[n, tokens (G)] int32 a row, gathered over 'data' into
+        ``_packed`` (the whole pool's, one host read)."""
+        row = torch.cat([n[:, None], toks], dim=1)
+        self._packed.copy_(par.gather_rows(row.to(torch.int32)))
+
+    def _beam_program(self) -> graphs.DeviceProgram:
+        """The beam tick: pieces A (prologue, the loop's start), B
+        (``beam_select``, the pool-wide ``done`` over 'data'), C
+        (``beam_forward`` at B * beam rows) and F (the winners' tokens
+        and K/V committed, the packed result)."""
+        cfg, stream, dev = self.cfg, self.stream, self.device
+        G, pad = self.max_new, cfg.tokens.pad
+        spec = beam_mod.BeamSpec(
+            beam=self.beam, max_new_tokens=G, eos_id=cfg.tokens.eos,
+            pad_id=pad, no_repeat_ngram_size=stream.no_repeat_ngram_size,
+            repetition_penalty=stream.repetition_penalty,
+        )
+        dec = self.dec_state
+        loop = beam_mod.alloc_loop(spec, cfg.llama, cfg.llama.vocab_size,
+                                   self._S, dec.k.shape[3], dec.k.dtype,
+                                   dev, pool=self._B, return_kv=True)
+        x, ngram = self._in, stream.no_repeat_ngram_size
+        me = weakref.proxy(self)  # the engine holds its programs
+
+        def prefill():  # A
+            last, prompt_lens = me._prologue()
+            beam_mod.start_loop(
+                loop, spec, last.to(torch.float32), x["ids"], prompt_lens,
+                max_steps=torch.where(x["row_active"] != 0,
+                                      x["row_max_new"], 1))
+
+        def select():  # B
+            beam_mod.beam_select(loop, spec, x["hist"], x["hist_len"], ngram,
+                                 me._suppress, over_data=True)
+
+        def forward():  # C
+            beam_mod.beam_forward(loop, me.params["llama"], cfg.llama,
+                                  me.dec_state)
+
+        def finish():  # F
+            out = beam_mod.beam_finish(loop, spec)
+            n_emit = torch.where(out.hit_eos, out.n_tokens,
+                                 torch.clamp(out.n_tokens - 1, min=0))
+            n_emit = n_emit * (x["row_active"] != 0)
+            # commit: the winner's K/V at valid_len, all G slots (the start
+            # as dynamic_update_slice takes it: a negative one counts from
+            # the end, then clamped so G slots fit); slots past n_emit land
+            # past valid_len, where the next append overwrites them
+            d = me.dec_state
+            L, P, C, KV, Dh = d.k.shape
+            vl = d.valid_len
+            start = torch.clamp(torch.where(vl < 0, vl + C, vl), 0, C - G)
+            at = (torch.arange(P, device=dev)[:, None] * C + start[:, None]
+                  + torch.arange(G, device=dev)[None]).reshape(-1)
+            for buf, kv in ((d.k, out.kv_k), (d.v, out.kv_v)):
+                buf.view(L, P * C, KV, Dh).index_copy_(
+                    1, at, kv.reshape(L, P * G, KV, Dh).to(buf.dtype))
+            d.valid_len.add_(n_emit)
+            toks = torch.where(torch.arange(G, device=dev)[None]
+                               < n_emit[:, None], out.tokens, pad)
+            me._pack(n_emit, toks)
+
+        prog = graphs.DeviceProgram(
+            dict(A=prefill, B=select, C=forward, F=finish), self._pool())
+        prog.loop = loop
+        return prog
+
+    def _greedy_program(self) -> graphs.DeviceProgram:
+        """The greedy tick (beam 1, and the speculative greedy pool after
+        its guard trips): pieces A (prologue, the scan's carry), S (one
+        step of JAX's scan body up to its forward: the processors, the
+        argmax, the per-row EOS stop and cap, the append; ``go``: some
+        row of the pool emits), D (its ``decode_step``) and F (the packed
+        result)."""
+        cfg, stream, dev = self.cfg, self.stream, self.device
+        B, S, G = self._B, self._S, self.max_new
+        pad, eos = cfg.tokens.pad, cfg.tokens.eos
+        V = cfg.llama.vocab_size
+        i64 = dict(dtype=torch.int64, device=dev)
+        seq_buf = torch.zeros((B, S + G), **i64)
+        seq_len = torch.zeros((B,), **i64)
+        n_tok = torch.zeros((B,), **i64)
+        toks = torch.zeros((B, G), **i64)
+        nxt = torch.zeros((B,), **i64)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        emit = torch.zeros((B,), dtype=torch.bool, device=dev)
+        go = torch.zeros((), dtype=torch.bool, device=dev)
+        cur = torch.zeros((B, V), dtype=torch.float32, device=dev)
+        x, ngram = self._in, stream.no_repeat_ngram_size
+        me = weakref.proxy(self)
+
+        def prefill():  # A
+            last, prompt_lens = me._prologue()
+            seq_buf[:, :S].copy_(x["ids"])
+            seq_buf[:, S:].fill_(pad)
+            seq_len.copy_(prompt_lens)
+            n_tok.zero_()
+            toks.fill_(pad)
+            done.zero_()
+            cur.copy_(last)
+
+        def select():  # S
+            scores = torch.log_softmax(cur, dim=-1)
+            scores = lp.process_scores(
+                scores, seq_buf, seq_len, stream.repetition_penalty, ngram,
+                x["hist"], x["hist_len"], ngram, me._suppress)
+            n = torch.argmax(scores, dim=-1)
+            is_eos = n == eos
+            active = x["row_active"] != 0
+            e = ~done & ~is_eos & active & (n_tok < x["row_max_new"])
+            done.copy_(done | is_eos | ~active)
+            for buf, i in ((toks, n_tok), (seq_buf, seq_len)):
+                at = torch.clamp(i, max=buf.shape[1] - 1)[:, None]
+                buf.scatter_(1, at, torch.where(e[:, None], n[:, None],
+                                                buf.gather(1, at)))
+            seq_len.add_(e)
+            n_tok.add_(e)
+            nxt.copy_(n)
+            emit.copy_(e)
+            # no row of the pool can emit again (done or capped): the JAX
+            # scan's remaining steps append nothing
+            go.copy_(par.any_over_data_tensor(torch.any(e)))
+
+        def forward():  # D
+            lg, d = llama_mod.decode_step(
+                me.params["llama"], cfg.llama, me.dec_state,
+                llama_mod.embed(me.params["llama"], nxt[:, None]),
+                valid_mask=emit[:, None].to(torch.int64))
+            _put(me.dec_state, d)
+            cur.copy_(lg[:, 0])
+
+        def finish():  # F
+            me._pack(n_tok, toks)
+
+        prog = graphs.DeviceProgram(
+            dict(A=prefill, S=select, D=forward, F=finish), self._pool())
+        prog.go = go
+        return prog
+
+    def _pool(self) -> Optional[graphs.GraphPool]:
+        """The graph pool of this engine's programs (None: uncaptured)."""
+        if not self._graphs_on:
+            return None
+        if self._graph_pool is None:
+            self._graph_pool = graphs.GraphPool(self.device)
+        return self._graph_pool
+
+    def _program(self, kind: str) -> graphs.DeviceProgram:
+        if kind not in self._programs:
+            self._programs[kind] = (self._beam_program() if kind == "beam"
+                                    else self._greedy_program())
+        return self._programs[kind]
+
+    def _step(self, arrays: Dict[str, np.ndarray], generator=None):
+        """One tick on the device over this rank's rows of ``arrays`` (the
+        whole pool's host arrays).  Returns (tokens (P, max_new) np, n
+        (P,) np, token forwards), the whole pool's; a speculative step
+        leaves the pool's statistics in ``_step_stats``.  The deferred
+        trim is cleared once it is applied."""
         if self.speculative and not (self._spec_fallback
                                      and not self.do_sample):
-            return self._spec_step(enc, dec, windows, last, ids_t,
-                                   prompt_lens, hist_t, hist_len, row_active,
-                                   row_max_new, generator)
-        if self.beam > 1:
-            spec = beam_mod.BeamSpec(
-                beam=self.beam, max_new_tokens=G, eos_id=cfg.tokens.eos,
-                pad_id=pad, no_repeat_ngram_size=stream.no_repeat_ngram_size,
-                repetition_penalty=stream.repetition_penalty,
-            )
-            res = beam_mod.batched_beam_search(
-                params["llama"], cfg.llama, dec, last, ids_t, prompt_lens,
-                hist_t, hist_len, spec,
-                encoder_ngram_size=stream.no_repeat_ngram_size,
-                suppress_mask=self._suppress,
-                max_steps=np.where(row_active, row_max_new, 1),
-                return_kv=True,
-            )
-            n_emit = np.asarray([
-                (r.n_tokens if r.hit_eos else max(r.n_tokens - 1, 0)) * int(a)
-                for r, a in zip(res, row_active)
-            ], np.int64)
-            for i, r in enumerate(res):
-                toks[i, :n_emit[i]] = r.tokens[:n_emit[i]]
-            # commit: copy the winner's K/V at valid_len, all G slots (the
-            # start clamped as dynamic_update_slice clamps it); slots past
-            # n_emit land past valid_len, where the next append overwrites
-            # them
-            C = dec.k.shape[2]
-            starts = np.minimum(self.valid_len_host[rs] + prompt_lens,
-                                C - G)
-            for i, r in enumerate(res):
-                st = int(starts[i])
-                dec.k[:, i, st:st + G] = r.kv_k.to(dec.k.dtype)
-                dec.v[:, i, st:st + G] = r.kv_v.to(dec.v.dtype)
-            dec = DecoderState(k=dec.k, v=dec.v, valid_len=dec.valid_len
-                               + torch.as_tensor(n_emit, **i64))
-            steps = self._whole(np.asarray([r.steps for r in res]))
-            return (enc, dec, windows, self._whole(toks),
-                    self._whole(n_emit), int(steps.max()) - 1)
-
-        # batched greedy decode with a per-row EOS stop and cap
-        seq_buf = torch.cat([ids_t, torch.full((B, G), pad, **i64)], dim=1)
-        seq_len = prompt_lens.copy()
-        n_tok = np.zeros((B,), np.int64)
-        done = np.zeros((B,), bool)
-        hist_len_t = torch.as_tensor(hist_len, **i64)
-        cur = last
+            self._upload(arrays)
+            last, _ = self._prologue()
+            self._pending_evict = None
+            self._mid_tick = True
+            rs = self._rows
+            prompt_lens = arrays["valid"][rs].sum(-1).astype(np.int64)
+            toks, n_tok = self._spec_step(
+                last, self._in["ids"], prompt_lens, self._in["hist"],
+                arrays["hist_len"][rs], arrays["row_active"][rs] != 0,
+                arrays["row_max_new"][rs], generator)
+            return toks, n_tok, 0
+        prog = self._program("beam" if self.beam > 1 else "greedy")
         n_fwd = 0
-        for _ in range(G):
-            scores = torch.log_softmax(cur.to(torch.float32), dim=-1)
-            scores = lp.process_scores(
-                scores, seq_buf, torch.as_tensor(seq_len, **i64),
-                stream.repetition_penalty, stream.no_repeat_ngram_size,
-                hist_t, hist_len_t, stream.no_repeat_ngram_size,
-                self._suppress,
-            )
-            nxt = torch.argmax(scores, dim=-1)
-            nxt_h = nxt.cpu().numpy()
-            is_eos = nxt_h == cfg.tokens.eos
-            emit = ~done & ~is_eos & row_active & (n_tok < row_max_new)
-            done |= is_eos | ~row_active
-            if not par.any_over_data(emit.any()):
-                # no row of the pool can emit again (done or capped): the
-                # JAX scan's remaining steps append nothing
-                break
-            rows = np.nonzero(emit)[0]
-            toks[rows, n_tok[rows]] = nxt_h[rows]
-            seq_buf[torch.as_tensor(rows, **i64),
-                    torch.as_tensor(seq_len[rows], **i64)] = nxt[
-                torch.as_tensor(rows, **i64)]
-            seq_len += emit
-            n_tok += emit
-            x = llama_mod.embed(params["llama"], nxt[:, None])
-            lg, dec = llama_mod.decode_step(
-                params["llama"], cfg.llama, dec, x,
-                valid_mask=torch.as_tensor(emit[:, None], **i64),
-            )
-            n_fwd += 1
-            cur = lg[:, 0]
-        return (enc, dec, windows, self._whole(toks), self._whole(n_tok),
-                n_fwd)
+        with prog.step():
+            self._upload(arrays)
+            prog.run("A")
+            self._pending_evict = None
+            self._mid_tick = True
+            if self.beam > 1:
+                prog.run("B")
+                while not beam_mod.read_done(prog.loop):
+                    prog.run("C")
+                    n_fwd += 1
+                    prog.run("B")
+            else:
+                for _ in range(self.max_new):
+                    prog.run("S")
+                    if not graphs.read(prog.go):
+                        break
+                    prog.run("D")
+                    n_fwd += 1
+            prog.run("F")
+            packed = np.asarray(graphs.read(self._packed), np.int64)
+        return packed[:, 1:], packed[:, 0], n_fwd
 
-    def _spec_step(self, enc, dec, windows, last, ids_t, prompt_lens, hist_t,
-                   hist_len, row_active, row_max_new, generator):
-        """The pooled speculative decode of a tick: greedy, or sampling
-        (after a guard trip, the d = L self-draft with no draft head or
-        adapter)."""
+    def _spec_step(self, last, ids_t, prompt_lens, hist_t, hist_len,
+                   row_active, row_max_new, generator):
+        """The pooled speculative decode of a tick, eager, on the state in
+        place: greedy, or sampling (after a guard trip, the d = L
+        self-draft with no draft head or adapter).  Returns the whole
+        pool's (tokens, counts) on the host."""
         cfg, stream = self.cfg, self.stream
         fallback = self._spec_fallback
         params = self.params
@@ -525,8 +697,8 @@ class ServingEngine:
             suppress_mask=self._suppress,
             draft_head=None if fallback else params.get("spec_draft_head"),
             exit_adapter=None if fallback else params.get("spec_adapter"))
-        args = (params["llama"], cfg.llama, dec, last, ids_t, prompt_lens,
-                hist_t, hist_len)
+        args = (params["llama"], cfg.llama, self.dec_state, last, ids_t,
+                prompt_lens, hist_t, hist_len)
         if self.do_sample:
             sp = spec_mod.SpecSampleSpec(**common, **self.sample)
             out = spec_mod.batched_speculative_sample(*args, sp, generator,
@@ -536,11 +708,12 @@ class ServingEngine:
                                    accept_all=self.spec_accept_all)
             out = spec_mod.batched_speculative_greedy(*args, sp, **kw)
         toks, n_tok, _, dec, rounds, drafted, accepted = out
+        _put(self.dec_state, dec)
         n_tok = self._whole(n_tok)
         self._step_stats = (rounds, int(self._whole(drafted).sum()),
                             int(self._whole(accepted).sum()),
                             int(n_tok.sum()))
-        return enc, dec, windows, self._whole(toks), n_tok, 0
+        return self._whole(toks), n_tok
 
     def _guard(self, stats):
         """The speculative statistics of a tick and the pool-wide guard."""
@@ -582,6 +755,12 @@ class ServingEngine:
                 f"a pool split over {self.n_data} 'data' rank(s) ticked "
                 f"inside a context of {par.data_size()}: tick it inside "
                 "tensor_parallel(mesh) of the mesh it was built on")
+        if self._mid_tick:
+            raise RuntimeError(
+                "an earlier tick raised after its prologue had written the "
+                "pool's state in place (windows, encoder ring, cache, the "
+                "trim applied): the slot table no longer describes that "
+                "state, so this engine cannot tick again; build a new one")
         ready = []
         for i, s in enumerate(self.slots):
             if not s.active or s.done:
@@ -650,13 +829,14 @@ class ServingEngine:
                                      self.device)
         self._tick_counter += 1
         self._step_stats = None
-        enc, dec, windows, toks, n_tok, n_fwd = self._step(
-            chunks, ids, valid, patch_starts, row_active, hist, hist_len,
-            row_frames, row_patches, row_max_new, self._pending_evict, gen,
-        )
-        # the step returned: take its state, and with it the trim it applied
-        self.enc_state, self.dec_state, self.windows = enc, dec, windows
-        self._pending_evict = None
+        # the deferred trim, or the identity on every row
+        ev_keep, ev_sys = self._pending_evict or (
+            self.valid_len_host.copy(), np.zeros_like(self.valid_len_host))
+        toks, n_tok, n_fwd = self._step(dict(
+            chunks=chunks, ids=ids, valid=valid, patch_starts=patch_starts,
+            row_active=row_active, hist=hist, hist_len=hist_len,
+            row_frames=row_frames, row_patches=row_patches,
+            row_max_new=row_max_new, ev_keep=ev_keep, ev_sys=ev_sys), gen)
         self.forwards["prefill"] += 1
         self.forwards["token"] += n_fwd
         if self._step_stats is not None:
@@ -681,6 +861,7 @@ class ServingEngine:
             if text or s.done:
                 out[i] = text
         self._evict_overflowing()
+        self._mid_tick = False
         return out
 
     def _evict_overflowing(self):
@@ -730,8 +911,7 @@ class ServingEngine:
         if self._pending_evict is None:
             return
         keep, sys_lens = self._pending_evict
-        self.dec_state = llama_mod.evict_cache(
+        _put(self.dec_state, llama_mod.evict_cache(
             self.dec_state, torch.as_tensor(keep[self._rows]),
-            torch.as_tensor(sys_lens[self._rows])
-        )
+            torch.as_tensor(sys_lens[self._rows])))
         self._pending_evict = None

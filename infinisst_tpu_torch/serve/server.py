@@ -15,7 +15,12 @@ Protocol (one JSON object per line):
     {"type": "error", "message": "..."}
 
 The engine's tick loop runs in a background task at the chunk cadence;
-all clients share one batched step (serve/engine.py).
+all clients share one batched step (serve/engine.py).  The ticks run in
+one worker thread that owns the card (its device set once; the tick's
+CUDA graphs are captured and replayed there, under the engine's lock),
+and so do the slot calls that write device state (open, close): the
+event loop makes no CUDA call.  Pushed audio stays on the host until a
+tick takes it.
 
 Run:  python -m infinisst_tpu_torch.serve.server --port 8765 \
           [--model-preset dryrun|bench|flagship] [--device cuda|cpu]
@@ -32,8 +37,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import functools
 import json
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -45,11 +52,27 @@ class StreamingServer:
         self.engine = engine
         self.tick_interval = tick_interval
         self.slot_writers = {}
+        # the one thread that makes the engine's CUDA calls, on the
+        # engine's card
+        init = None
+        if engine.device.type == "cuda":
+            import torch
+
+            idx = engine.device.index
+            init = functools.partial(
+                torch.cuda.set_device,
+                torch.cuda.current_device() if idx is None else idx)
+        self._worker = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tick", initializer=init)
+
+    async def _on_worker(self, fn, *args, **kw):
+        """``fn`` in the engine's worker thread."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._worker, functools.partial(fn, *args, **kw))
 
     async def tick_loop(self):
-        loop = asyncio.get_running_loop()
         while True:
-            out = await loop.run_in_executor(None, self.engine.tick)
+            out = await self._on_worker(self.engine.tick)
             for slot, text in out.items():
                 writer = self.slot_writers.get(slot)
                 s = self.engine.slots[slot]
@@ -61,7 +84,7 @@ class StreamingServer:
                     except ConnectionError:
                         pass
                 if s.done:
-                    self.engine.close_stream(slot)
+                    await self._on_worker(self.engine.close_stream, slot)
                     self.slot_writers.pop(slot, None)
             await asyncio.sleep(self.tick_interval)
 
@@ -79,7 +102,8 @@ class StreamingServer:
                         msg.get("target_lang", "German"),
                     )
                     try:
-                        slot = self.engine.open_stream(
+                        slot = await self._on_worker(
+                            self.engine.open_stream,
                             str(writer.get_extra_info("peername")), pair,
                             multiplier=msg.get("multiplier"),
                         )
@@ -110,7 +134,7 @@ class StreamingServer:
                 {"type": "error", "message": str(e)}) + "\n").encode())
         finally:
             if slot is not None and slot in self.slot_writers:
-                self.engine.close_stream(slot)
+                await self._on_worker(self.engine.close_stream, slot)
                 self.slot_writers.pop(slot, None)
             writer.close()
 

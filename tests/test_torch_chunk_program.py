@@ -11,8 +11,8 @@ against the JAX package, and the host reads of a chunk.
     ``beam_token_step``'s), so that finished hypotheses and the early stop
     happen; and once unbiased (the length cap).  Tokens, n_tokens,
     hit_eos and steps equal; the score to 1e-6 relative.
-(b) The same cases against the port's ``batched_beam_search`` at P = 1
-    (the host-side loop the pool keeps).
+(b) The same cases against the stream's row in a pool of three
+    (``batched_beam_search``): the pool is batch invariant.
 (c) The agent, whose plain beam step is the chunk program, against the
     JAX agent token for token, push by push: m = 1 at beam 4 and m = 2 at
     beam 1, over a stream with at least two evictions and a finishing
@@ -158,14 +158,23 @@ def test_device_beam_search_matches_jax(beam_case, monkeypatch, beam,
 @pytest.mark.parametrize("beam,length_penalty,bias", CASES)
 def test_device_beam_search_matches_batched(beam_case, monkeypatch, beam,
                                             length_penalty, bias):
+    """The stream alone equals its row (the middle one) in a pool of
+    three; the other rows hold the same cache cut to 9 and 12 keys, with
+    other first logits and histories."""
     c = beam_case
     _bias_steps(monkeypatch, bias)
     args = _port_args(c, bias)
     spec = TB.BeamSpec(**_spec(beam, length_penalty))
     got = TB.beam_search(*args, spec, encoder_ngram_size=3)
-    (want,) = TB.batched_beam_search(
-        args[0], LCFG, args[2], args[3][None], args[4][None], [15],
-        args[6][None], [9], spec, encoder_ngram_size=3)
+    pre = args[2]
+    dec = TDS(k=pre.k.repeat(1, 3, 1, 1, 1), v=pre.v.repeat(1, 3, 1, 1, 1),
+              valid_len=torch.tensor([9, 15, 12]))
+    first = torch.stack([args[3].roll(5), args[3], args[3].roll(-3)])
+    hist = args[6][None].repeat(3, 1)
+    _, want, _ = TB.batched_beam_search(
+        args[0], LCFG, dec, first, args[4][None].repeat(3, 1), [9, 15, 12],
+        torch.stack([hist[0].roll(1), hist[1], hist[2].roll(2)]), [4, 9, 16],
+        spec, encoder_ngram_size=3)
     _same(got, want.tokens, want.n_tokens, want.steps, want.hit_eos)
     np.testing.assert_allclose(got.score, want.score, rtol=1e-6)
 

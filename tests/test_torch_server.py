@@ -196,8 +196,7 @@ def test_pushes_during_ticks_lose_no_samples(monkeypatch):
     cs = eng.stream.chunk_samples(1)
 
     def fast_step(*args):
-        return (eng.enc_state, eng.dec_state, eng.windows,
-                np.zeros((eng.pool, eng.max_new), np.int64),
+        return (np.zeros((eng.pool, eng.max_new), np.int64),
                 np.zeros((eng.pool,), np.int64), 0)
 
     monkeypatch.setattr(eng, "_step", fast_step)

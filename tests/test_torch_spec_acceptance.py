@@ -7,6 +7,15 @@ frequency-ranked shortlist, a low-rank head) and ``run_beam``
 rounds, drafted and accepted counts equal JAX's.  The JAX side is kept to
 a handful of compiles (one a row): its conftest records XLA:CPU's arena
 failing after ~75 compiles in this tool.
+
+Run as a module, it compares the acceptance grids of the two tools at
+their own 600 training steps (the held-out prompts, k = 4, d = 1, 2,
+3): JAX's tool, the port trained from JAX's initial weights (carried
+over by ``from_jax`` in place of the port tool's ``L.init_params``), and
+the port from its own seeds 0-3 (the seed spread), one JSON line a
+model:
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_spec_acceptance [--steps 600]
 """
 
 import os
@@ -94,3 +103,61 @@ def test_run_beam_matches_jax(trained):
     for p in prompts:
         assert TSA.run_beam(tp, 1, 2, torch.from_numpy(p)) == \
             _jax_run_beam(jp, 1, 2, p)
+
+
+# ---------------------------------------------------------------------------
+# the acceptance grids (run as a module)
+
+GRID_ROWS = [(1, 4), (2, 4), (3, 4)]  # (draft layers, k): d/L 1/4-3/4
+
+
+def _held_prompts(n=6):
+    """The tools' held-out prompts: unseen random-rule prefixes."""
+    return [JQF.make_corpus(np.random.RandomState(100 + i), 1, 8)[0]
+            for i in range(n)]
+
+
+def _grid(run_spec, params, prompts, to):
+    """Each row's held-out acceptance: accepted / drafted over the
+    prompts."""
+    out = {}
+    for d, k in GRID_ROWS:
+        drafted = accepted = 0
+        for p in prompts:
+            _, _, dr, ac = run_spec(params, to(p), d, k, 0)
+            drafted += int(dr)
+            accepted += int(ac)
+        out[f"d={d} k={k}"] = round(accepted / drafted, 4)
+    return out
+
+
+def main(argv=None):
+    import argparse
+    import json
+
+    from infinisst_tpu_torch.models import llama as TL
+    from infinisst_tpu_torch.tools import quant_fidelity as TQF
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=600)
+    ap.add_argument("--seeds", type=int, default=4)
+    args = ap.parse_args(argv)
+    corpus = JQF.make_corpus(np.random.RandomState(0), 8, 64)
+    prompts = _held_prompts()
+    init = JL.init_params(jax.random.PRNGKey(0), JQF.CFG, jnp.float32)
+    jp = JQF.train(init, corpus, args.steps)
+    print(json.dumps({"jax": _grid(JSA.run_spec, jp, prompts,
+                                   jnp.asarray)}), flush=True)
+    starts = [("port_from_jax_init",
+               from_jax(jax.device_get(init), device="cpu"))]
+    starts += [(f"port_seed{seed}", TL.init_params(
+        TQF.CFG, TSA._gen("cpu", seed), "cpu", torch.float32))
+        for seed in range(args.seeds)]
+    for name, tp in starts:
+        tp = TQF.train(tp, corpus, args.steps)
+        print(json.dumps({name: _grid(TSA.run_spec, tp, prompts,
+                                      torch.from_numpy)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
