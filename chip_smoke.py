@@ -111,11 +111,38 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  synchronise around each stage and one under
                  torch.profiler.
                  Then [alignatt profile]: the same weights in the bench's
-                 AlignAtt agent (every call at the 28.8 s audio shape):
-                 its first call (24 beam steps) timed and, on a fresh
-                 agent, profiled (device time by stage: encoder,
-                 adapter, prefill, beam steps); a call at 64 beam steps
-                 with a synchronise around each stage.
+                 AlignAtt agent (every call at the 28.8 s audio shape,
+                 one captured program per (n_units, prompt bucket)): its
+                 first call (24 beam steps; the key's warm-up pass and
+                 capture) and its second (a replay) timed, a third,
+                 replayed, under torch.profiler (device time by piece,
+                 idle share, the kernels counted by name equal to the
+                 recorded launches); a call at 64 beam steps with a
+                 synchronise around each replayed piece.
+     alignatt graph -- (after graph and pool graph, on the flagship's
+                 weights at ALIGNATT_GRAPH_DEPTH layers) the bench's
+                 AlignAtt (parity, with a caller committing target ids
+                 so that a key replays at another prompt length, and
+                 --early-stop) and StreamAtt agents, their calls captured
+                 against the same programs uncaptured
+                 (``_graphs_on``): target ids, most-attended indices,
+                 attention traces and kept source equal every call,
+                 launches equal, forwards those the beam steps ran,
+                 replays under sync debug mode "error", at most beam
+                 steps + 1 host reads; a replayed call's and its
+                 uncaptured twin's kernels by name (the profiler) the
+                 launches both recorded (the libraries' kernels
+                 reported: cuDNN picks a convolution's algorithm by the
+                 workspace it gets); per key the capture's wall, the
+                 graph pool's bytes and the key's static bytes.
+     sample graph -- the flagship sampling stream (m = 1, top-k 50,
+                 top-p 0.9) at two seeds, its chunk program (pieces A,
+                 S, D, F, its generator registered with S's graph)
+                 captured against uncaptured: tokens and launches equal
+                 every chunk, at most draws + 1 host reads, replays under
+                 strict syncs; then a speculative sampling stream whose
+                 guard trips and whose later chunks replay the sampling
+                 program, token-equal to its uncaptured twin.
      mesh     -- (after streamatt, on the flagship's weights) the mesh path
                  at world size 1 (one card; the multi-rank paths are held
                  on the CPU under gloo, tests/test_torch_parallel.py): in
@@ -1793,22 +1820,9 @@ def stream_8b(dev, cfg, params, min_chunks, max_chunks, need_evict, label):
                 chunk_sec=chunk_sec, agent=agent, rng=rng)
 
 
-# the serving engine's tick (serve/engine.py); beam_token_step runs inside
-# batched_beam_search
-# the AlignAtt call (agents/alignatt.py); beam_token_step runs inside
-# beam_search.  A third element labels a stage whose function name is
-# another stage's.
-ALIGNATT_STAGES = (
-    ("infinisst_tpu_torch.models.wav2vec2", "forward", "encoder"),
-    ("infinisst_tpu_torch.models.adapter", "forward", "adapter"),
-    ("infinisst_tpu_torch.models.llama", "decode_step", "prefill"),
-    ("infinisst_tpu_torch.decode.beam", "beam_search"),
-    ("infinisst_tpu_torch.models.llama", "beam_token_step"),
-)
-
-
-# the pieces of the stream's captured chunk program (agents/infinisst.py
-# _generate_chunk_fn), each a CUDA graph replayed as a whole: stages are
+# the pieces of the captured chunk program (agents/infinisst.py
+# _generate_chunk_fn; the AlignAtt call's, agents/alignatt.py _offline_fn,
+# has the same four), each a CUDA graph replayed as a whole: stages are
 # timed and profiled around their replays
 PIECES = (
     ("graph", "A", "A prologue"),  # trim, window, encoder, splice, prefill
@@ -2286,28 +2300,377 @@ def check_graph(dev, cfg, params, paths):
     torch.cuda.empty_cache()
 
 
+# the offline agents' and the sampler's programs against their uncaptured
+# twins ([alignatt graph], [sample graph])
+ALIGNATT_GRAPH_DEPTH = (8, 8)  # Llama and encoder layers
+# (label, bench mode, early stop, pushes, {push: target ids a caller
+# commits before it}): the parity run's caller commits 2 ids before push
+# 3 and 3 more before push 4, so that key (30, 448) replays at another
+# prompt length (its first key, (30, 384), holds only the empty target's
+# 383 ids)
+ALIGNATT_GRAPH_RUNS = (
+    ("parity", "alignatt", False, 5, {3: [300, 301], 4: [302, 303, 304]}),
+    ("early stop", "alignatt", True, 5, {}),
+    ("streamatt", "streamatt", True, 14, {}),
+)
+SAMPLE_GRAPH_CHUNKS = 6
+SAMPLE_GRAPH_SEEDS = (0, 7)
+# top-k and top-p on (the bench's --do-sample takes temperature and top-k)
+SAMPLE_GRAPH_OPTS = dict(do_sample=True, temperature=1.0, top_k=50,
+                         top_p=0.9)
+SPEC_SAMPLE_GRAPH_CHUNKS = 7  # the guard trips after chunk 2
+
+
+def graph_pool_bytes(pool) -> int:
+    """The bytes the caching allocator holds in ``pool``'s segments (its
+    graphs' temporaries), from the memory snapshot's segment pool ids."""
+    import torch
+
+    if pool is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", (0, 0))) == tuple(pool.handle))
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _by_group(names: dict) -> dict:
+    """Kernel counts by name (``device_kernel_names``) summed into the
+    port's kernels (KERNEL_GROUPS, the launch counters' names)."""
+    out = dict.fromkeys(KERNEL_GROUPS, 0)
+    for key, n in names.items():
+        g = next((g for g in KERNEL_GROUPS if g in key), None)
+        if g is not None:
+            out[g] += n
+    return out
+
+
+def device_kernel_names(dev, step) -> dict:
+    """``step()`` under torch.profiler: the device kernels it ran, counted
+    by name (copies and memsets left out: the host's uploads and reads)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        _sync(dev)
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not e.key.startswith(
+                ("Memcpy", "Memset", "stage::")):
+            names[e.key] = names.get(e.key, 0) + e.count
+    return names
+
+
+def _offline_graph_run(dev, cfg, params, mode, early, pushes, commits,
+                       captured, label):
+    """One offline agent of the bench (``bench.offline_agent``) on
+    ``params``, its calls captured or the same programs uncaptured;
+    every call of the captured agent under ``graphs.strict_syncs``.  One
+    record a push, then the agent."""
+    import numpy as np
+
+    from infinisst_tpu_torch import bench
+    from infinisst_tpu_torch.core import graphs
+
+    agent = bench.offline_agent(mode, early, cfg, params, dev)
+    agent._graphs_on = captured
+    rng = np.random.RandomState(5)
+    recs = []
+    for i in range(pushes):
+        audio = rng.randn(agent.unit_samples).astype(np.float32) * 0.1
+        agent.states.target_ids.extend(commits.get(i, []))
+        reset_counts()
+        reads, before_fwd = graphs.host_reads, forward_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with graphs.strict_syncs():
+            agent.push(audio, finished=False)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        check_forwards(before_fwd, agent.last_result.steps,
+                       cfg.llama.num_layers, f"alignatt graph {label}")
+        c, st = agent.last_call, agent.states
+        key = (c["n_units"], c["prompt_bucket"])
+        rec = dict(
+            ids=list(st.target_ids), attended=list(st.most_attended_indices),
+            trace=list(agent.last_result.attn_idx), source=len(st.source),
+            counts=launch_counts(), reads=graphs.host_reads - reads,
+            steps=agent.last_result.steps, key=key,
+            plen=c["prompt_len"], graph=agent.last_graph, wall=dt)
+        if agent.last_graph == "capture":
+            prog = agent._programs[key]
+            rec["pool_bytes"] = graph_pool_bytes(agent._graph_pool)
+            rec["static_bytes"] = _nbytes(
+                (*prog.inputs, prog.probes, prog.packed))
+        recs.append(rec)
+    return recs, agent
+
+
+def check_alignatt_graph(dev, cfg, params):
+    """The AlignAtt / StreamAtt call as one captured program per (n_units,
+    prompt bucket): the bench's AlignAtt (parity and early stop) and
+    StreamAtt agents on the flagship W8A8 at ALIGNATT_GRAPH_DEPTH layers,
+    captured against the same programs uncaptured on the card, the same
+    pushes.  Fails unless the target ids, most-attended indices,
+    attention traces and kept source are equal at every call; a call's
+    launches equal the uncaptured call's and its forwards those its beam
+    steps ran; every replay runs under sync debug mode "error" with at
+    most beam steps + 1 host reads; a key is replayed at another prompt
+    length; and one more call, replayed and uncaptured, runs on the
+    device the port's kernels, counted by name (the profiler), that both
+    recorded (the libraries' kernels are reported).
+    Prints, per key, the capture's wall, the graph pool's bytes after it
+    and the key's static bytes."""
+    import numpy as np
+    import torch
+
+    cfg8, p8 = _cut_depth(cfg, params, *ALIGNATT_GRAPH_DEPTH)
+    other_plen = False
+    for label, mode, early, pushes, commits in ALIGNATT_GRAPH_RUNS:
+        c, cap = _offline_graph_run(dev, cfg8, p8, mode, early, pushes,
+                                    commits, True, label)
+        u, unc = _offline_graph_run(dev, cfg8, p8, mode, early, pushes,
+                                    commits, False, label)
+        seen = {}
+        for i, (a, b) in enumerate(zip(c, u)):
+            for k in ("ids", "attended", "trace", "source", "plen", "key"):
+                if a[k] != b[k]:
+                    fail(f"[alignatt graph] {label} call {i}: captured {k} "
+                         f"{a[k]} != uncaptured {b[k]}")
+            if a["counts"] != b["counts"]:
+                fail(f"[alignatt graph] {label} call {i}: the captured call "
+                     f"launched {a['counts']}, the uncaptured {b['counts']}")
+            if a["reads"] > a["steps"] + 1:
+                fail(f"[alignatt graph] {label} call {i}: {a['reads']} host "
+                     f"reads for {a['steps']} beam steps")
+            want = "replay" if a["key"] in seen else "capture"
+            if a["graph"] != want or b["graph"] != "eager":
+                fail(f"[alignatt graph] {label} call {i}: key {a['key']} "
+                     f"{a['graph']} (expected {want}), its twin "
+                     f"{b['graph']}")
+            if want == "replay" and a["plen"] != seen[a["key"]]:
+                other_plen = True
+            seen.setdefault(a["key"], a["plen"])
+            print(f"[alignatt graph]   {label} call {i:2d}: key {a['key']} "
+                  f"prompt {a['plen']} {a['graph']:7s} "
+                  f"{a['wall'] * 1e3:8.2f} ms, uncaptured "
+                  f"{b['wall'] * 1e3:8.2f} ms; beam steps {a['steps']}, "
+                  f"host reads {a['reads']}, target ids {len(a['ids'])}",
+                  flush=True)
+        for a in c:
+            if a["graph"] == "capture":
+                print(f"[alignatt graph]   {label} key {a['key']}: capture "
+                      f"call {a['wall'] * 1e3:.1f} ms (warm-up pass + "
+                      f"capture), the agent's graph pool "
+                      f"{a['pool_bytes'] / 2**20:.1f} MiB after it, the "
+                      f"key's static buffers {a['static_bytes'] / 2**20:.2f} "
+                      f"MiB", flush=True)
+        shared = cap._offline
+        print(f"[alignatt graph] {label}: {len(c)} calls, keys "
+              f"{sorted(cap._programs)}; equal captured / uncaptured every "
+              f"call; the keys share {_nbytes(shared[:3]) / 2**20:.1f} "
+              f"MiB of cache (prompt buckets up to {shared.pmax}) and "
+              f"{_nbytes(shared.loop) / 2**20:.1f} MiB of beam loop",
+              flush=True)
+        if label == "parity":
+            # one more call, replayed and uncaptured, under the profiler
+            audio = np.random.RandomState(6).randn(
+                cap.unit_samples).astype(np.float32) * 0.1
+            names, recorded = {}, {}
+            for name, agent in (("captured", cap), ("uncaptured", unc)):
+                replays = sum(p.replays for p in agent._programs.values())
+                reset_counts()
+                names[name] = device_kernel_names(
+                    dev, lambda: agent.push(audio, finished=False))
+                recorded[name] = launch_counts()
+                if name == "captured" and sum(
+                        p.replays for p in agent._programs.values()) \
+                        != replays + 1:
+                    fail("[alignatt graph] the profiled call did not replay")
+            # the port's kernels, counted by name, must be the launches
+            # both calls recorded; the libraries' kernels (cuDNN picks a
+            # convolution's algorithm by the workspace it can get at the
+            # time) are reported
+            ours = {k: _by_group(v) for k, v in names.items()}
+            if not (ours["captured"] == ours["uncaptured"]
+                    == recorded["captured"] == recorded["uncaptured"]):
+                fail(f"[alignatt graph] the port's kernels by name, captured "
+                     f"{ours['captured']}, uncaptured {ours['uncaptured']}; "
+                     f"recorded {recorded}")
+            c_n, u_n = names["captured"], names["uncaptured"]
+            diff = {k[:60]: (c_n.get(k, 0), u_n.get(k, 0))
+                    for k in set(c_n) | set(u_n)
+                    if c_n.get(k, 0) != u_n.get(k, 0)}
+            print(f"[alignatt graph] a replayed call and its uncaptured twin "
+                  f"ran the port's kernels the launches recorded, by name and "
+                  f"count (torch.profiler): "
+                  f"{ {k: n for k, n in ours['captured'].items() if n} }; all "
+                  f"device kernels {sum(c_n.values())} / {sum(u_n.values())} "
+                  f"({len(c_n)} / {len(u_n)} names), the names whose counts "
+                  f"differ (captured, uncaptured): {diff or 'none'}",
+                  flush=True)
+        del cap, unc
+        torch.cuda.empty_cache()
+    if not other_plen:
+        fail("[alignatt graph] no key was replayed at another prompt length")
+
+
+def _sample_graph_run(dev, cfg, params, opts, n_chunks, captured):
+    """The flagship sampling stream (m = 1) with ``opts``, its chunks
+    captured or uncaptured; the captured agent's under strict syncs.  One
+    record a chunk, then the agent."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core import graphs
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    agent = InfiniSSTAgent(params, cfg, StreamConfig(), builder,
+                           InfiniSSTOptions(**opts),
+                           param_dtype=torch.bfloat16, device=dev)
+    agent._graphs_on = captured
+    rng = np.random.RandomState(2)
+    recs = []
+    for _ in range(n_chunks):
+        audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
+        before = len(agent.states.target_ids)
+        sampled = agent._chunk_kind() == "sample"
+        replays = sum(p.replays for p in agent._programs.values())
+        reset_counts()
+        reads, before_fwd = graphs.host_reads, forward_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with graphs.strict_syncs():
+            agent.push(audio, finished=False)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        if sampled:
+            check_forwards(before_fwd, agent.last_result.steps,
+                           cfg.llama.num_layers, "sample graph")
+        recs.append(dict(
+            ids=list(agent.states.target_ids[before:]), wall=dt,
+            counts=launch_counts(), reads=graphs.host_reads - reads,
+            steps=agent.last_result.steps if sampled else None,
+            sampled=sampled,
+            replayed=sum(p.replays for p in agent._programs.values())
+            > replays))
+    return recs, agent
+
+
+def check_sample_graph(dev, cfg, params):
+    """The sampling chunk as one captured program per (m, n_units, first,
+    "sample"): the flagship W8A8 sampling stream (m = 1, top-k 50, top-p
+    0.9) at two seeds, captured against uncaptured on the card: tokens
+    equal every chunk, launches equal, forwards those the draws ran, at
+    most draws + 1 host reads a chunk, replays under strict syncs.  Then
+    a speculative sampling stream whose guard trips: its chunks after the
+    trip replay the captured sampling program, token for token its
+    uncaptured twin."""
+    import torch
+
+    for seed in SAMPLE_GRAPH_SEEDS:
+        opts = dict(SAMPLE_GRAPH_OPTS, sample_seed=seed)
+        c, cap = _sample_graph_run(dev, cfg, params, opts,
+                                   SAMPLE_GRAPH_CHUNKS, True)
+        u, _ = _sample_graph_run(dev, cfg, params, opts,
+                                 SAMPLE_GRAPH_CHUNKS, False)
+        for i, (a, b) in enumerate(zip(c, u)):
+            if a["ids"] != b["ids"] or a["counts"] != b["counts"]:
+                fail(f"[sample graph] seed {seed} chunk {i}: captured "
+                     f"{a['ids']} {a['counts']} != uncaptured {b['ids']} "
+                     f"{b['counts']}")
+            if a["reads"] > a["steps"] + 1:
+                fail(f"[sample graph] seed {seed} chunk {i}: {a['reads']} "
+                     f"host reads for {a['steps']} draws")
+            print(f"[sample graph]   seed {seed} chunk {i}: captured "
+                  f"{a['wall'] * 1e3:8.2f} ms "
+                  f"({'replay' if a['replayed'] else 'warm-up + capture'})"
+                  f", uncaptured {b['wall'] * 1e3:8.2f} ms; draws "
+                  f"{a['steps']}, host reads {a['reads']}, tokens {a['ids']}",
+                  flush=True)
+        if not all(a["replayed"] for a in c[2:]):
+            fail(f"[sample graph] seed {seed}: a steady chunk did not replay")
+        if not any(a["ids"] for a in c):
+            fail(f"[sample graph] seed {seed}: nothing was sampled")
+        walls = [a["wall"] * 1e3 for a in c[2:]]
+        print(f"[sample graph] seed {seed}: keys {sorted(cap._programs)}, "
+              f"equal captured / uncaptured every chunk; replayed chunk wall "
+              f"median {statistics.median(walls):.2f} ms (RTF "
+              f"{statistics.median(walls) / 1e3 / 0.96:.4f}), uncaptured "
+              f"{statistics.median(b['wall'] * 1e3 for b in u[2:]):.2f} ms",
+              flush=True)
+        del cap
+    opts = dict(SAMPLE_GRAPH_OPTS, sample_seed=SAMPLE_GRAPH_SEEDS[0],
+                speculative=True)
+    c, cap = _sample_graph_run(dev, cfg, params, opts,
+                               SPEC_SAMPLE_GRAPH_CHUNKS, True)
+    u, _ = _sample_graph_run(dev, cfg, params, opts,
+                             SPEC_SAMPLE_GRAPH_CHUNKS, False)
+    trip = next((i for i, a in enumerate(c) if a["sampled"]), None)
+    if trip is None or not cap.spec_fallback_active:
+        fail("[sample graph] the speculative sampling guard did not trip")
+    after = c[trip:]
+    if len(after) < 3 or not all(a["replayed"] for a in after[1:]):
+        fail(f"[sample graph] after the trip (chunk {trip}) the chunks did "
+             "not replay the captured sampling program")
+    for i, (a, b) in enumerate(zip(c, u)):
+        if a["ids"] != b["ids"] or a["sampled"] != b["sampled"]:
+            fail(f"[sample graph] speculative chunk {i}: captured "
+                 f"{a['ids']} != uncaptured {b['ids']}")
+        if a["sampled"] and a["reads"] > a["steps"] + 1:
+            fail(f"[sample graph] speculative chunk {i}: {a['reads']} host "
+                 f"reads for {a['steps']} draws")
+    print(f"[sample graph] speculative sampling: the guard tripped before "
+          f"chunk {trip}; chunks {trip}..{len(c) - 1} ran the sampling "
+          f"program {sorted(k for k in cap._programs)} (replayed from chunk "
+          f"{trip + 1}), tokens equal to the uncaptured twin every chunk; "
+          f"walls {[round(a['wall'] * 1e3, 1) for a in c]} ms", flush=True)
+    del cap
+    torch.cuda.empty_cache()
+
+
 def check_alignatt_profile(dev, cfg, params):
-    """The flagship W8A8 weights in the bench's AlignAtt agent: its first
-    call (one 960 ms chunk padded to the 28.8 s cap shape, 24 beam steps),
-    then the same call on a fresh agent under torch.profiler (device time
-    by stage: encoder, adapter, prefill, beam steps); then a call over
-    28.8 s of audio and one more chunk with a synchronise around each
-    stage (64 beam steps, the parity mode's steady state)."""
+    """The flagship W8A8 weights in the bench's AlignAtt agent, whose call
+    is one captured program per (n_units, prompt bucket), and a twin
+    agent: both take the same two calls (one 960 ms chunk padded to the
+    28.8 s cap shape, 24 beam steps: the key's warm-up pass and capture;
+    then a replay), timed; then the same third call, replayed, timed on
+    the agent and under torch.profiler on the twin (device time by
+    piece, idle share against the twin's wall and the agent's; the
+    kernels the profiler saw, counted by name, equal the launches the
+    graphs recorded at capture); then a call over 28.8 s of audio and the
+    first replayed call after it (the target may cross into the next
+    prompt bucket, whose first call captures its key) with CUDA events
+    around each piece (64 beam steps, the parity mode's steady state:
+    device ms by piece, idle share)."""
     import numpy as np
     import torch
 
     from infinisst_tpu_torch import bench
 
-    first = np.random.RandomState(3).randn(
-        15360).astype(np.float32) * 0.1
+    rng = np.random.RandomState(3)
+
+    def chunk(n=1):
+        return rng.randn(n * 15360).astype(np.float32) * 0.1
 
     def describe(agent, wall, what):
         c, res = agent.last_call, agent.last_result
         print(f"[alignatt profile] {what} over {len(agent.states.source)} "
-              f"samples: {wall * 1e3:.2f} ms, {res.steps} beam steps "
-              f"(max_steps {c['max_steps']}), audio units {c['n_units']}, "
-              f"prompt {c['prompt_len']} in a bucket of "
-              f"{c['prompt_bucket']}", flush=True)
+              f"samples: {wall * 1e3:.2f} ms ({agent.last_graph}), "
+              f"{res.steps} beam steps (max_steps {c['max_steps']}), audio "
+              f"units {c['n_units']}, prompt {c['prompt_len']} in a bucket "
+              f"of {c['prompt_bucket']}", flush=True)
 
     def timed_push(agent, audio):
         _sync(dev)
@@ -2317,33 +2680,63 @@ def check_alignatt_profile(dev, cfg, params):
         return time.perf_counter() - t0
 
     agent = bench.offline_agent("alignatt", False, cfg, params, dev)
-    wall = timed_push(agent, first)
-    describe(agent, wall, "first call")
-    fresh = bench.offline_agent("alignatt", False, cfg, params, dev)
-    profile_run(dev, lambda: fresh.push(first, finished=False),
-                ALIGNATT_STAGES, "alignatt profile", wall * 1e3,
-                "first call")
-    describe(fresh, wall, "the profiled call (its unprofiled twin's wall)")
-    del fresh
-    rng = np.random.RandomState(4)
-    wall = timed_push(agent, rng.randn(29 * 15360).astype(np.float32) * 0.1)
+    twin = bench.offline_agent("alignatt", False, cfg, params, dev)
+    for what in ("first call", "second call"):
+        audio = chunk()
+        describe(agent, timed_push(agent, audio), what)
+        describe(twin, timed_push(twin, audio), f"{what}, the twin")
+    audio = chunk()
+    wall = timed_push(agent, audio)
+    describe(agent, wall, "third call")
+    profile_run(dev, lambda: twin.push(audio, finished=False), PIECES,
+                "alignatt profile", wall * 1e3, "replayed call",
+                hold_launches=True)
+    if twin.last_graph != "replay" or agent.last_graph != "replay":
+        fail("[alignatt profile] the third call did not replay its program")
+    if twin.last_result != agent.last_result:
+        fail("[alignatt profile] the profiled twin's call differs from the "
+             "agent's")
+    describe(twin, wall, "the twin's third call, profiled")
+    del twin
+    wall = timed_push(agent, chunk(29))
     describe(agent, wall, "call")
-    spent, wall = timed_stages(
-        dev, lambda: agent.push(rng.randn(15360).astype(np.float32) * 0.1,
-                                finished=False), ALIGNATT_STAGES)
+    spans = {}
+
+    def wrap(name, fn):
+        def timed():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            spans.setdefault(name, []).append((e0, e1))
+            return out
+        return timed
+
+    # the target may cross into the next prompt bucket, whose first call
+    # is its key's warm-up pass and capture: time the first replay
+    for _ in range(3):
+        spans.clear()
+        with wrapped_pieces(wrap):
+            wall = timed_push(agent, chunk()) * 1e3
+        describe(agent, wall / 1e3, "call, CUDA events around each piece")
+        if agent.last_graph == "replay":
+            break
+    else:
+        fail("[alignatt stages] three calls in a row did not replay")
+    dev_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in spans.items()}
+    busy = sum(dev_ms.values())
     steps = agent.last_result.steps
-    print(f"[alignatt stages] one call with a synchronise around each "
-          f"stage: wall {wall * 1e3:.2f} ms, {steps} beam steps", flush=True)
-    for stage in ALIGNATT_STAGES:
-        name = stage_label(stage)
-        n, t = spent.get(name, (0, 0.0))
-        print(f"[alignatt stages]   {name:16s} calls {n:2d}  "
-              f"{t * 1e3:9.2f} ms", flush=True)
-    beam = spent.get("beam_search", (0, 0.0))[1]
-    tok = spent.get("beam_token_step", (0, 0.0))
-    print(f"[alignatt stages]   beam_search outside beam_token_step "
-          f"{(beam - tok[1]) * 1e3:.2f} ms; "
-          f"{tok[1] / max(tok[0], 1) * 1e3:.2f} ms a beam step", flush=True)
+    step_dev = (dev_ms.get("B beam select", 0.0)
+                + dev_ms.get("C beam forward", 0.0)) / max(steps, 1)
+    print(f"[alignatt stages] one replayed call, CUDA events around each "
+          f"replayed piece: wall {wall:.2f} ms, {steps} beam steps, device "
+          f"{busy:.2f} ms, idle share {1.0 - busy / wall:.4f}; by piece "
+          f"{ {k: round(v, 3) for k, v in dev_ms.items()} }; a beam step "
+          f"{step_dev:.3f} ms of device time and "
+          f"{(wall - dev_ms.get('A prologue', 0.0)) / max(steps, 1):.3f} "
+          f"ms of wall", flush=True)
     del agent
     torch.cuda.empty_cache()
 
@@ -5005,6 +5398,10 @@ def main():
         check_graph(dev, cfg, params, paths)
     with phase("pool graph"):
         check_pool_graph(dev, cfg, params, paths)
+    with phase("alignatt graph"):
+        check_alignatt_graph(dev, cfg, params)
+    with phase("sample graph"):
+        check_sample_graph(dev, cfg, params)
     with phase("streamatt"):
         check_streamatt(dev, cfg, params)
     mesh_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,

@@ -22,18 +22,23 @@ reads the packed vector: one host read a beam step and one a chunk.  On
 CUDA each piece is captured as a CUDA graph at the first chunk of its key
 (``core/graphs.py``); on the CPU the same functions run uncaptured.
 
-The decode is beam search, or by the options (``_decode``): ancestral
-sampling (``do_sample``), speculative greedy or sampling
-(``speculative``; the verify commits the emitted tokens' K/V, so nothing
-is pending), or speculative beam search (``spec_beam``, deferred like
-plain beam).  The acceptance guard drops a speculative stream whose
-tokens per verify round stay below the weight-stream break-even to the
-true plain decoder of its mode: beam 1 greedy, plain beam, or the plain
-sampler.  A sampled chunk draws from a generator seeded from
-(``sample_seed``, chunk index).
+The decode is beam search, or by the options: ancestral sampling
+(``do_sample``), speculative greedy or sampling (``speculative``; the
+verify commits the emitted tokens' K/V, so nothing is pending), or
+speculative beam search (``spec_beam``, deferred like plain beam).  The
+acceptance guard drops a speculative stream whose tokens per verify round
+stay below the weight-stream break-even to the true plain decoder of its
+mode: beam 1 greedy, plain beam, or the plain sampler.  A sampled chunk
+draws from a generator seeded from (``sample_seed``, chunk index).
 
-Those other decoders, which keep their eager loops, run between the same
-prologue and epilogue on the same device state.
+The plain sampler is a device program too, keyed (m, n_units, first,
+"sample") as JAX keys its jitted chunk step: (A) the prologue and the
+sampling loop's start, (S) one draw (``beam.sample_select``) from the
+program's own generator, registered with S's graph and reseeded each
+chunk, (D) its ``beam_token_step`` at beam 1, (F) as above; the host
+reads ``go`` once a draw.  The speculative decoders keep their eager
+loops (``_decode``) between the same prologue and epilogue on the same
+device state.
 
 ``update_multiplier`` changes the latency multiplier mid-stream, and
 ``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
@@ -449,29 +454,60 @@ class InfiniSSTAgent(SpeechToTextAgent):
         self.hist.copy_(torch.where(ar_h < new_len, new_hist, pad))
         self.hist_len.copy_(new_len)
 
-    def _plain_beam(self) -> int:
-        """The beam of this chunk's plain beam step, or 0 when the chunk
-        runs another decoder (sampling, speculation).  The speculative
-        guard's fallback is plain beam search at beam 1 (at the options'
-        beam for speculative beam search)."""
+    def _chunk_kind(self):
+        """The decode of this chunk's device program, the last element of
+        its key: the beam of the plain beam step, "sample" for the plain
+        sampler, or None when the chunk runs a speculative decoder (its
+        eager loop).  The speculative guard's fallback is plain beam
+        search at beam 1 (at the options' beam for speculative beam
+        search), or the plain sampler under sampling."""
         opts = self.opts
-        if opts.do_sample or (opts.speculative and not self._spec_fallback):
-            return 0
+        if opts.speculative and not self._spec_fallback:
+            return None
+        if opts.do_sample:
+            return "sample"
         greedy_fallback = self._spec_fallback and not opts.spec_beam
         return 1 if greedy_fallback else opts.beam
 
     def _generate_chunk_fn(self, n_units: int, first: bool
                            ) -> graphs.DeviceProgram:
-        """The plain beam step of a chunk of ``n_units`` 960 ms units
-        (n_units == m except for the stream tail) as one device program,
-        made once per key (m, n_units, first, beam): pieces A, B, C and F
-        (see the module note), captured as CUDA graphs on the card."""
-        m, beam = self.opts.latency_multiplier, self._plain_beam()
-        key = (m, n_units, first, beam)
+        """The chunk step of a chunk of ``n_units`` 960 ms units (n_units
+        == m except for the stream tail) as one device program, made once
+        per key (m, n_units, first, beam or "sample"): pieces A, B, C and
+        F of the plain beam step (see the module note), or A, S, D and F
+        of the sampler (``_sample_pieces``), captured as CUDA graphs on
+        the card."""
+        m, kind = self.opts.latency_multiplier, self._chunk_kind()
+        key = (m, n_units, first, kind)
         if key in self._programs:
             return self._programs[key]
-        cfg, opts, dev = self.cfg, self.opts, self.device
         c = self._geometry(n_units, first)
+        packed = torch.zeros((5 + 2 * self.max_new,), dtype=torch.int32,
+                             device=self.device)
+        # the pieces hold the agent weakly: the agent holds its programs,
+        # and a cycle would keep the weights alive past the agent
+        me = weakref.proxy(self)
+        if kind == "sample":
+            pieces, gens, loop = self._sample_pieces(me, c, packed)
+        else:
+            pieces, gens, loop = self._beam_pieces(me, c, packed, kind)
+        prog = graphs.DeviceProgram(pieces, self._pool(), gens)
+        prog.loop, prog.packed = loop, packed
+        prog.generator = gens["S"][0] if gens else None
+        self._programs[key] = prog
+        return prog
+
+    def _pool(self) -> Optional[graphs.GraphPool]:
+        """The graph pool of this agent's programs (None: uncaptured)."""
+        if not self._graphs_on:
+            return None
+        if self._graph_pool is None:
+            self._graph_pool = graphs.GraphPool(self.device)
+        return self._graph_pool
+
+    def _beam_pieces(self, me, c: _Chunk, packed: torch.Tensor, beam: int):
+        """The plain beam step's pieces A, B, C and F, its loop."""
+        cfg, opts, dev = self.cfg, self.opts, self.device
         spec = beam_mod.BeamSpec(
             beam=beam, max_new_tokens=self.max_new, eos_id=cfg.tokens.eos,
             pad_id=cfg.tokens.pad, no_repeat_ngram_size=opts.no_repeat_ngram_size,
@@ -480,11 +516,6 @@ class InfiniSSTAgent(SpeechToTextAgent):
         loop = beam_mod.alloc_loop(spec, cfg.llama, cfg.llama.vocab_size, Tp,
                                    self.dec_state.k.shape[3], self.dtype,
                                    dev)
-        packed = torch.zeros((5 + 2 * self.max_new,), dtype=torch.int32,
-                             device=dev)
-        # the pieces hold the agent weakly: the agent holds its programs,
-        # and a cycle would keep the weights alive past the agent
-        me = weakref.proxy(self)
 
         def prefill():  # A
             beam_mod.start_loop(loop, spec, me._prologue(c)[None],
@@ -500,45 +531,93 @@ class InfiniSSTAgent(SpeechToTextAgent):
                                   me.dec_state)
 
         def finish():  # F
-            res = beam_mod.beam_finish(loop, spec)
-            n_tokens, hit_eos = res.n_tokens[0], res.hit_eos[0]
-            # drop the final token when the cap was hit without EOS
-            n_emit = torch.where(hit_eos, n_tokens,
-                                 torch.clamp(n_tokens - 1, min=0))
-            me._epilogue(res.tokens[0], n_emit, pending=True)
-            packed.copy_(torch.cat([n_emit.to(torch.int32).reshape(1),
-                                    beam_mod.pack_result(res)[0]]))
+            me._finish(beam_mod.beam_finish(loop, spec), packed)
 
-        pool = None
-        if self._graphs_on:
-            if self._graph_pool is None:
-                self._graph_pool = graphs.GraphPool(dev)
-            pool = self._graph_pool
-        prog = graphs.DeviceProgram(
-            dict(A=prefill, B=select, C=forward, F=finish), pool)
-        prog.loop, prog.packed = loop, packed
-        self._programs[key] = prog
-        return prog
+        return dict(A=prefill, B=select, C=forward, F=finish), None, loop
+
+    def _sample_pieces(self, me, c: _Chunk, packed: torch.Tensor):
+        """The plain sampler's pieces: A (prologue, the loop's start), S
+        (``beam.sample_select``: the processed scores, one draw, the EOS
+        stop and the cap, the append, ``go``), D (``beam.sample_forward``:
+        ``beam_token_step`` at beam 1 over the stream's cache) and F;
+        its loop.  S draws from the program's own generator (registered
+        with S's graph), which the chunk reseeds with
+        ``logits.chunk_seed(sample_seed, chunk index)``."""
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        spec = beam_mod.SampleSpec(
+            max_new_tokens=self.max_new, eos_id=cfg.tokens.eos,
+            pad_id=cfg.tokens.pad, temperature=opts.temperature,
+            top_p=opts.top_p, top_k=opts.top_k,
+            epsilon_cutoff=opts.epsilon_cutoff,
+            no_repeat_ngram_size=opts.no_repeat_ngram_size,
+            repetition_penalty=opts.repetition_penalty)
+        Tp = c.prompt_ids.shape[0]
+        loop = beam_mod.alloc_sample_loop(
+            spec, cfg.llama, cfg.llama.vocab_size, Tp,
+            self.dec_state.k.shape[3], self.dtype, dev)
+        gen = torch.Generator(device=dev)
+
+        def prefill():  # A
+            beam_mod.start_sample(loop, spec, me._prologue(c), c.prompt_ids,
+                                  Tp)
+
+        def select():  # S
+            beam_mod.sample_select(loop, spec, me.hist[None],
+                                   me.hist_len.reshape(1), gen,
+                                   opts.no_repeat_ngram_size, me._suppress)
+
+        def forward():  # D
+            beam_mod.sample_forward(loop, me.params["llama"], cfg.llama,
+                                    me.dec_state)
+
+        def finish():  # F
+            me._finish(beam_mod.sample_out(loop), packed)
+
+        return (dict(A=prefill, S=select, D=forward, F=finish), {"S": [gen]},
+                loop)
+
+    def _finish(self, res: beam_mod.BeamOut, packed: torch.Tensor):
+        """Piece F: the final token dropped when the cap was hit without
+        EOS, the epilogue (pending tokens, history ring) and the packed
+        [n_emit, ``pack_result``] vector."""
+        n_tokens, hit_eos = res.n_tokens[0], res.hit_eos[0]
+        n_emit = torch.where(hit_eos, n_tokens,
+                             torch.clamp(n_tokens - 1, min=0))
+        self._epilogue(res.tokens[0], n_emit, pending=True)
+        packed.copy_(torch.cat([n_emit.to(torch.int32).reshape(1),
+                                beam_mod.pack_result(res)[0]]))
 
     def _generate_chunk(self, n_units: int, first: bool,
                         chunk_i16: np.ndarray, ev_keep: int, ev_sys: int):
         """One chunk step.  Returns (the decode's result, n_emit).  The
         deferred trim is cleared only once it is applied: a step that
         fails before then keeps it for the next one."""
-        if self._plain_beam():
+        kind = self._chunk_kind()
+        if kind is not None:
             prog = self._generate_chunk_fn(n_units, first)
             with prog.step():
                 self._upload(chunk_i16, ev_keep, ev_sys)
+                if kind == "sample":
+                    prog.generator.manual_seed(lp.chunk_seed(
+                        self.opts.sample_seed, self._chunk_counter))
                 prog.run("A")
                 self._pending_evict = None
-                prog.run("B")
-                while not beam_mod.read_done(prog.loop):
-                    prog.run("C")
+                if kind == "sample":
+                    for _ in range(self.max_new):
+                        prog.run("S")
+                        if not graphs.read(prog.loop.go):
+                            break
+                        prog.run("D")
+                else:
                     prog.run("B")
+                    while not beam_mod.read_done(prog.loop):
+                        prog.run("C")
+                        prog.run("B")
                 prog.run("F")
                 packed = graphs.read(prog.packed)
             return beam_mod.unpack_result(packed, self.max_new, 1), packed[0]
-        # the eager decoders, between the same prologue and epilogue
+        # the speculative decoders, eager, between the same prologue and
+        # epilogue
         self._upload(chunk_i16, ev_keep, ev_sys)
         c = self._geometry(n_units, first)
         last_logits = self._prologue(c)
@@ -560,12 +639,9 @@ class InfiniSSTAgent(SpeechToTextAgent):
         return res, n_emit
 
     def _decode(self, last_logits, prompt_ids):
-        """The chunk's decode when it is not plain beam search
-        (``_plain_beam``): speculative beam, greedy or sampling, or plain
-        sampling (also the fallback of speculative sampling once the guard
-        has tripped)."""
+        """The chunk's speculative decode (``_chunk_kind`` None):
+        speculative beam, greedy or sampling."""
         opts, cfg, dev = self.opts, self.cfg, self.device
-        speculative = opts.speculative and not self._spec_fallback
         G, pad, eos = self.max_new, cfg.tokens.pad, cfg.tokens.eos
         args = (self.params["llama"], cfg.llama, self.dec_state, last_logits,
                 prompt_ids, prompt_ids.shape[0], self.hist,
@@ -574,15 +650,8 @@ class InfiniSSTAgent(SpeechToTextAgent):
                   suppress_mask=self._suppress)
         draft = dict(draft_head=self.params.get("spec_draft_head"),
                      exit_adapter=self.params.get("spec_adapter"))
-        gen = None
-        if opts.do_sample:
-            gen = lp.chunk_generator(opts.sample_seed, self._chunk_counter,
-                                     dev)
         ngram, rep = opts.no_repeat_ngram_size, opts.repetition_penalty
-        filters = dict(temperature=opts.temperature, top_k=opts.top_k,
-                       top_p=opts.top_p, epsilon_cutoff=opts.epsilon_cutoff,
-                       no_repeat_ngram_size=ngram, repetition_penalty=rep)
-        if speculative and opts.spec_beam:
+        if opts.spec_beam:
             spec = beam_mod.BeamSpec(
                 beam=opts.beam, max_new_tokens=G, eos_id=eos, pad_id=pad,
                 no_repeat_ngram_size=ngram, repetition_penalty=rep)
@@ -590,23 +659,23 @@ class InfiniSSTAgent(SpeechToTextAgent):
                 *args, spec, draft_layers=opts.spec_draft_layers,
                 draft_k=opts.spec_k, accept_all=opts.spec_accept_all,
                 **kw, **draft)
-        if speculative and opts.do_sample:
+        if opts.do_sample:
             spec = spec_mod.SpecSampleSpec(
                 max_new_tokens=G, eos_id=eos, pad_id=pad,
                 draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
-                **filters)
+                temperature=opts.temperature, top_k=opts.top_k,
+                top_p=opts.top_p, epsilon_cutoff=opts.epsilon_cutoff,
+                no_repeat_ngram_size=ngram, repetition_penalty=rep)
+            gen = lp.chunk_generator(opts.sample_seed, self._chunk_counter,
+                                     dev)
             return spec_mod.speculative_sample(*args, spec, gen, **kw,
                                                **draft)
-        if speculative:
-            spec = spec_mod.SpecSpec(
-                max_new_tokens=G, eos_id=eos, pad_id=pad,
-                draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
-                no_repeat_ngram_size=ngram, repetition_penalty=rep,
-                accept_all=opts.spec_accept_all)
-            return spec_mod.speculative_greedy(*args, spec, **kw, **draft)
-        spec = beam_mod.SampleSpec(max_new_tokens=G, eos_id=eos, pad_id=pad,
-                                   **filters)
-        return beam_mod.sample_decode(*args, spec, gen, **kw)
+        spec = spec_mod.SpecSpec(
+            max_new_tokens=G, eos_id=eos, pad_id=pad,
+            draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
+            no_repeat_ngram_size=ngram, repetition_penalty=rep,
+            accept_all=opts.spec_accept_all)
+        return spec_mod.speculative_greedy(*args, spec, **kw, **draft)
 
     def _guard(self, res, n_emit: int):
         """After a speculative chunk: the statistics, and the acceptance

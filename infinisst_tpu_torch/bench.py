@@ -740,7 +740,10 @@ def run_offline(agent, n_chunks: int, timed_from: int, log=None,
                 on_push=None) -> dict:
     """Push ``n_chunks`` 960 ms chunks of seeded noise (``randn * 0.1``)
     and time each ``push`` (it returns once the call's tokens are on the
-    host); chunks from ``timed_from`` on are timed.  ``on_push(agent,
+    host); chunks from ``timed_from`` on are timed.  Each ``log`` line
+    says whether the call captured its key's program (``graph=capture``,
+    the key's first call: a warm-up pass and the capture), replayed it
+    or ran it uncaptured (``eager``, the CPU).  ``on_push(agent,
     audio)``, where given, runs after each push, untimed.
     Returns the timed walls and, for every chunk, (wall, beam steps,
     max_steps, prompt bucket, target ids kept, source samples kept, prompt
@@ -764,7 +767,8 @@ def run_offline(agent, n_chunks: int, timed_from: int, log=None,
             c = calls[-1]
             print(f"chunk {i}: {dt:.3f}s steps={c[1]} max_steps={c[2]} "
                   f"prompt_bucket={c[3]} tgt={c[4]} source={c[5]} "
-                  f"prompt_len={c[6]} units={c[7]}", file=log, flush=True)
+                  f"prompt_len={c[6]} units={c[7]} graph={agent.last_graph}",
+                  file=log, flush=True)
         if i >= timed_from:
             times.append(dt)
     return dict(times=times, calls=calls)

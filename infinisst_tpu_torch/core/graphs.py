@@ -16,6 +16,11 @@ CUDA graphs do not exist, the same pieces run as they are.
 
 A failed capture or replay raises; nothing runs eagerly in its place.
 
+A piece that draws random numbers names its generator (``generators``):
+the generator is registered with that piece's graph, so that a replay
+draws what a call from the generator's current state would (reseeding it
+between passes holds), and advances it as the call would.
+
 Launch counting survives replay: the dicts of counts that the kernel
 wrappers and the model keep (their launches, the forward passes) grow
 only where a wrapper runs, which a replay never does.  Their modules
@@ -32,7 +37,7 @@ with ``torch.cuda.set_sync_debug_mode("error")``, lifted only inside
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -135,9 +140,12 @@ class DeviceProgram:
     afresh; its counts are taken back), and all are captured."""
 
     def __init__(self, pieces: Dict[str, Callable[[], None]],
-                 pool: "GraphPool | None" = None):
+                 pool: "GraphPool | None" = None,
+                 generators: Optional[Dict[str, List[torch.Generator]]]
+                 = None):
         self.pieces = dict(pieces)
         self.pool = pool
+        self.generators = dict(generators or {})  # by piece (module note)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.deltas: Dict[str, Counts] = {}
         self.replays = 0  # passes that replayed the captured pieces
@@ -191,6 +199,8 @@ class DeviceProgram:
         for name, fn in self.pieces.items():
             snap = _snapshot()
             g = torch.cuda.CUDAGraph()
+            for gen in self.generators.get(name, ()):
+                g.register_generator_state(gen)
             try:
                 with torch.cuda.graph(g, pool=self.pool.handle,
                                       stream=self.pool.stream):

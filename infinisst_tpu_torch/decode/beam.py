@@ -29,6 +29,12 @@ CUDA graphs (``agents/infinisst.py``, ``serve/engine.py``);
 ``beam_search`` (one stream, P = 1) and ``batched_beam_search`` drive
 them eagerly.
 
+The sampling decode (``sample_decode``, the do_sample path) is the same
+kind of loop at beam 1 (``SampleLoop``): ``sample_select`` (the
+processed scores, one draw, the EOS stop and the cap, the append,
+``go``) and ``sample_forward`` (one ``beam_token_step``), one host read
+of ``go`` a draw; the agent captures them (``agents/infinisst.py``).
+
 The AlignAtt attention probe (``attn_probe``, ``first_attn_idx``,
 ``attn_stop_idx``) keeps each beam's trace of probed indices on the
 device, reordered with the beams and snapshotted with a finished
@@ -575,16 +581,26 @@ def beam_finish(loop: BeamLoop, spec: BeamSpec) -> BeamOut:
                    kv_k=kv_k, kv_v=kv_v)
 
 
-def pack_result(out: BeamOut) -> torch.Tensor:
+def pack_result(out: BeamOut, trace: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """One int32 row a slot, for one host read of the pool: [n_tokens,
-    hit_eos, steps, score's float32 bits, tokens (G), attn_idx (G)]."""
+    hit_eos, steps, score's float32 bits, tokens (G), attn_idx (G)],
+    then ``trace`` (P, N), where given (the AlignAtt prefill's probes),
+    which ``unpack_trace`` reads back."""
     head = torch.stack([out.n_tokens.to(torch.int32),
                         out.hit_eos.to(torch.int32),
                         out.steps.to(torch.int32),
                         out.score.to(torch.float32).view(torch.int32)],
                        dim=1)
+    tail = [] if trace is None else [trace.to(torch.int32)]
     return torch.cat([head, out.tokens.to(torch.int32),
-                      out.attn_idx.to(torch.int32)], dim=1)
+                      out.attn_idx.to(torch.int32)] + tail, dim=1)
+
+
+def unpack_trace(packed: list, G: int, offset: int = 0) -> List[int]:
+    """The ``trace`` columns of one ``pack_result`` row read to the host
+    (from ``offset`` on)."""
+    return list(packed[offset + 4 + 2 * G:])
 
 
 def unpack_result(packed: list, G: int, offset: int = 0) -> BeamResult:
@@ -613,6 +629,118 @@ class SampleSpec(NamedTuple):
     repetition_penalty: float = 1.0
 
 
+class SampleLoop(NamedTuple):
+    """Static device buffers of one stream's sampling loop (JAX's
+    ``while_loop`` carry in ``sample_decode``), updated in place."""
+
+    t: torch.Tensor  # () int64: draws made
+    go: torch.Tensor  # () bool: the last draw is forwarded and drawn on
+    n_tok: torch.Tensor  # () int64: tokens emitted
+    hit_eos: torch.Tensor  # () bool
+    logits: torch.Tensor  # (1, V) float32: the next draw's logits
+    seq_buf: torch.Tensor  # (1, Tp + G) int64: prompt + generated ids
+    seq_len: torch.Tensor  # (1,) int64
+    tokens: torch.Tensor  # (G,) int64: the emitted tokens (pad-filled)
+    nxt: torch.Tensor  # (1,) int64: the last draw
+    gen_k: torch.Tensor  # (L, 1, G, KV, Dh) generated-token keys
+    gen_v: torch.Tensor
+
+
+def alloc_sample_loop(spec: SampleSpec, cfg: LlamaConfig, V: int, Tp: int,
+                      kv_heads: int, kv_dtype, device) -> SampleLoop:
+    """The sampling loop's buffers for prompts of Tp ids and a vocabulary
+    of V (``kv_heads``: the heads the cache holds)."""
+    G = spec.max_new_tokens
+    i64 = dict(dtype=torch.int64, device=device)
+    kv = (cfg.num_layers, 1, G, kv_heads, cfg.head_dim)
+    return SampleLoop(
+        t=torch.zeros((), **i64),
+        go=torch.zeros((), dtype=torch.bool, device=device),
+        n_tok=torch.zeros((), **i64),
+        hit_eos=torch.zeros((), dtype=torch.bool, device=device),
+        logits=torch.zeros((1, V), dtype=torch.float32, device=device),
+        seq_buf=torch.zeros((1, Tp + G), **i64),
+        seq_len=torch.zeros((1,), **i64),
+        tokens=torch.zeros((G,), **i64),
+        nxt=torch.zeros((1,), **i64),
+        gen_k=torch.zeros(kv, dtype=kv_dtype, device=device),
+        gen_v=torch.zeros(kv, dtype=kv_dtype, device=device),
+    )
+
+
+def start_sample(loop: SampleLoop, spec: SampleSpec,
+                 first_logits: torch.Tensor, prompt_buf: torch.Tensor,
+                 prompt_len):
+    """JAX's ``init`` carry, written into ``loop``: first_logits (V,),
+    prompt_buf (Tp,) and ``prompt_len`` an int or a () tensor on the
+    loop's device."""
+    Tp = prompt_buf.shape[0]
+    loop.t.zero_()
+    loop.go.fill_(True)
+    loop.n_tok.zero_()
+    loop.hit_eos.zero_()
+    loop.logits.copy_(first_logits.reshape(loop.logits.shape))
+    loop.seq_buf[0, :Tp].copy_(prompt_buf)
+    loop.seq_buf[0, Tp:].fill_(spec.pad_id)
+    _fill(loop.seq_len, prompt_len.reshape(1) if torch.is_tensor(prompt_len)
+          else prompt_len, 0)
+    loop.tokens.fill_(spec.pad_id)
+    loop.nxt.fill_(spec.pad_id)
+    loop.gen_k.zero_()
+    loop.gen_v.zero_()
+
+
+def sample_select(loop: SampleLoop, spec: SampleSpec, history: torch.Tensor,
+                  history_len: torch.Tensor, generator: torch.Generator,
+                  encoder_ngram_size: int = 0,
+                  suppress_mask: Optional[torch.Tensor] = None):
+    """One step of JAX's ``step_fn`` up to its forward, in place (run
+    only while ``go``): the processed scores (``logits.sample_scores``),
+    one draw from ``generator``, the EOS stop, the append and t + 1;
+    ``go``: the draw is no EOS and the cap is not reached, so it is
+    forwarded and drawn on.  history (1, Lh), history_len (1,) int64."""
+    G = spec.max_new_tokens
+    scores = lp.sample_scores(loop.logits, loop.seq_buf, loop.seq_len, spec,
+                              history, history_len, encoder_ngram_size,
+                              suppress_mask)
+    nxt = lp.categorical(scores, generator)  # (1,)
+    is_eos = nxt == spec.eos_id
+    emit = ~is_eos
+    at = loop.t.reshape(1)
+    loop.tokens.index_copy_(0, at, torch.where(
+        emit, nxt, loop.tokens.index_select(0, at)))
+    loop.seq_buf.scatter_(1, loop.seq_len[:, None], torch.where(
+        emit, nxt, loop.seq_buf.gather(1, loop.seq_len[:, None])[:, 0]
+    )[:, None])
+    loop.seq_len.add_(emit)
+    loop.n_tok.add_(emit[0])
+    loop.hit_eos.copy_(is_eos[0])
+    loop.t.add_(1)
+    loop.nxt.copy_(nxt)
+    loop.go.copy_(emit[0] & (loop.t < G))
+
+
+def sample_forward(loop: SampleLoop, params, cfg: LlamaConfig,
+                   prefix: DecoderState):
+    """The forward of the draw ``sample_select`` just made: one
+    ``beam_token_step`` at beam 1 over the shared prefix at gen_len
+    t - 1, its K/V into the loop's buffers, its logits into the loop."""
+    logits, _, _, _ = llama_mod.beam_token_step(
+        params, cfg, prefix, loop.gen_k, loop.gen_v, loop.t - 1,
+        llama_mod.embed(params, loop.nxt[:, None]))
+    loop.logits.copy_(logits)
+
+
+def sample_out(loop: SampleLoop) -> BeamOut:
+    """The loop's result as ``beam_finish``'s one-row tensors (score 0,
+    no probe), for ``pack_result``."""
+    return BeamOut(tokens=loop.tokens[None], n_tokens=loop.n_tok.reshape(1),
+                   score=torch.zeros((1,), dtype=torch.float32,
+                                     device=loop.t.device),
+                   steps=loop.t.reshape(1), hit_eos=loop.hit_eos.reshape(1),
+                   attn_idx=torch.full_like(loop.tokens[None], -1))
+
+
 def sample_decode(
     params,
     cfg: LlamaConfig,
@@ -621,7 +749,7 @@ def sample_decode(
     prompt_buf: torch.Tensor,  # (Tp,)
     prompt_len: int,
     history: torch.Tensor,  # (Lh,)
-    history_len: int,
+    history_len,  # int or () tensor
     spec: SampleSpec,
     generator: torch.Generator,
     encoder_ngram_size: int = 0,
@@ -633,41 +761,23 @@ def sample_decode(
     top-k, top-p, epsilon) with ``generator``, and forwards the drawn
     token through ``beam_token_step`` at beam 1 over the shared prefix.
     Stops at EOS (not emitted) or after max_new_tokens draws; the last
-    draw is not forwarded."""
-    G = spec.max_new_tokens
+    draw is not forwarded.  It runs the device loop (``SampleLoop``)
+    eagerly: one host read of ``go`` a step and one of the packed
+    result."""
     dev = first_logits.device
-    KV, Dh, L = prefix.k.shape[3], cfg.head_dim, cfg.num_layers
     i64 = dict(dtype=torch.int64, device=dev)
-    seq_buf = torch.cat([prompt_buf.to(**i64),
-                         torch.full((G,), spec.pad_id, **i64)])[None]
-    seq_len = int(prompt_len)
+    loop = alloc_sample_loop(spec, cfg, first_logits.shape[-1],
+                             prompt_buf.shape[0], prefix.k.shape[3],
+                             prefix.k.dtype, dev)
+    start_sample(loop, spec, first_logits.to(torch.float32),
+                 prompt_buf.to(**i64), prompt_len)
     hist = history.to(**i64)[None]
-    hist_len = torch.tensor([int(history_len)], **i64)
-    gen_k = torch.zeros((L, 1, G, KV, Dh), dtype=prefix.k.dtype, device=dev)
-    gen_v = torch.zeros_like(gen_k)
-    tokens = [spec.pad_id] * G
-    n_tok, hit_eos, t = 0, False, 0
-    logits_cur = first_logits[None]
-    while t < G:
-        scores = lp.sample_scores(
-            logits_cur, seq_buf, torch.tensor([seq_len], **i64), spec, hist,
-            hist_len, encoder_ngram_size, suppress_mask,
-        )
-        nxt = lp.categorical(scores, generator)  # (1,)
-        tok = int(nxt[0])
-        if tok == spec.eos_id:
-            hit_eos = True
-            t += 1
+    hist_len = torch.as_tensor(history_len).to(**i64).reshape(1)
+    while True:
+        sample_select(loop, spec, hist, hist_len, generator,
+                      encoder_ngram_size, suppress_mask)
+        if not read(loop.go):
             break
-        tokens[t] = tok
-        seq_buf[0, seq_len] = tok
-        seq_len += 1
-        n_tok += 1
-        if t + 1 < G:
-            logits_cur, gen_k, gen_v, _ = llama_mod.beam_token_step(
-                params, cfg, prefix, gen_k, gen_v, t,
-                llama_mod.embed(params, nxt[:, None]),
-            )
-        t += 1
-    return BeamResult(tokens=tokens, n_tokens=n_tok, score=0.0, steps=t,
-                      hit_eos=hit_eos, attn_idx=[-1] * G)
+        sample_forward(loop, params, cfg, prefix)
+    return unpack_result(read(pack_result(sample_out(loop)))[0],
+                         spec.max_new_tokens)

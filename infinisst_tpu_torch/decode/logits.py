@@ -184,10 +184,17 @@ def categorical(scores, generator):
     return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
 
 
+def chunk_seed(seed: int, index: int) -> int:
+    """The seed of chunk (or tick) ``index``'s draws in a stream seeded
+    with ``seed``."""
+    return (int(seed) * 1_000_003 + int(index)) % (2 ** 63)
+
+
 def chunk_generator(seed: int, index: int, device) -> torch.Generator:
     """The draws of chunk (or tick) ``index`` of a stream seeded with
     ``seed``: a generator on ``device`` seeded from the pair, fresh for
-    every index and the same for the same pair."""
+    every index and the same for the same pair (a captured program
+    reseeds its own generator with ``chunk_seed`` instead)."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 1_000_003 + int(index)) % (2 ** 63))
+    g.manual_seed(chunk_seed(seed, index))
     return g

@@ -99,7 +99,11 @@ def sinusoidal_positions(offset, length: int, d_model: int, device=None):
     offset, (B, length, d_model) for a (B,) tensor of offsets (read on
     the device)."""
     half = d_model // 2
-    pos = torch.as_tensor(offset, dtype=torch.float32, device=device)
+    if torch.is_tensor(offset):
+        pos = offset.to(device=device, dtype=torch.float32)
+    else:  # a fill, not an upload: capture-safe
+        pos = torch.full((), float(offset), dtype=torch.float32,
+                         device=device)
     device = pos.device
     freq = torch.exp(
         torch.arange(half, dtype=torch.float32, device=device)

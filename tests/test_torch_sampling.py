@@ -240,3 +240,121 @@ def test_sampling_agent_is_seeded_and_topk1_is_jax_greedy():
     assert sum(map(len, first)) > 0
     kw = dict(do_sample=True, top_k=1, sample_seed=2)
     assert _run(make_port_agent(tp, **kw)) == _run(make_agent(**kw))
+
+
+# ---------------------------------------------------------------------------
+# the sampling chunk as a device program (pieces A, S, D, F per key (m,
+# n_units, first, "sample")): the draws of the host loop it replaced, kept
+
+
+# the tiny agent's sampled ids (temperature 1.2, top_k 8, top_p 0.9; four
+# chunks of ``_run``'s noise), recorded from the host loop of
+# ``sample_decode`` at commit 471733121f03a1cb782a04661ccdafa0725d55b2
+RECORDED_CHUNKS = {
+    0: [[383, 67, 266, 239, 208, 119, 504, 75, 55],
+        [263, 276, 504, 211, 75, 10, 105, 391, 472],
+        [394, 296, 312, 391, 10, 75, 75, 55, 305],
+        [394, 391, 64, 351, 75, 55, 266, 472, 238]],
+    4: [[171, 75, 383, 173, 10, 211, 313, 265, 51],
+        [456, 48, 305, 391, 10, 75, 105, 276, 379],
+        [217, 75, 296, 60, 494, 20, 93, 131, 50],
+        [263, 327, 174, 160, 494, 329, 239, 67, 10]],
+}
+# the speculative sampling stream of the same filters (draft d = 1, k = 3,
+# patience 2; ``run_stream``'s five chunks), whose guard trips after chunk
+# 1 and which samples with the plain sampler from chunk 2 on, recorded at
+# the same commit
+RECORDED_SPEC_CHUNKS = {
+    0: [[383, 50, 131, 10, 224, 484, 296, 256, 60],
+        [219, 239, 305, 238, 64, 391, 287, 279, 265],
+        [394, 436, 494, 371, 105, 75, 131, 55, 119],
+        [378, 12, 494, 287, 279, 379, 371, 161, 10],
+        [379, 67, 504, 10, 484, 14, 391, 119, 75]],
+    4: [[394, 75, 383, 211, 14, 296, 60, 378, 131],
+        [494, 329, 379, 276, 10, 119, 256, 371, 161],
+        [217, 75, 312, 265, 391, 78, 296, 10, 494],
+        [263, 327, 504, 239, 305, 67, 50, 227, 436],
+        [266, 504, 10, 171, 135, 67, 403, 105, 379]],
+}
+# ``sample_decode`` on ``both(0)``'s prefix (temperature 1.5, top_k 6,
+# top_p 0.95, EOS id 80) with generators seeded 0-3: (tokens, n_tokens,
+# steps), recorded at the same commit; every draw stream ends at EOS
+RECORDED_DECODE = {
+    0: ([111, 50], 2, 3),
+    1: ([111, 122, 100, 24, 115], 5, 6),
+    2: ([], 0, 1),
+    3: ([111, 84, 65, 122], 4, 5),
+}
+FILTERS = dict(do_sample=True, temperature=1.2, top_k=8, top_p=0.9)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_sampling_program_draws_the_recorded_ids(seed):
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    agent = make_port_agent(tp, sample_seed=seed, **FILTERS)
+    assert _run(agent, n=4) == RECORDED_CHUNKS[seed]
+    assert {k[3] for k in agent._programs} == {"sample"}
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_speculative_sampling_falls_back_to_the_program(seed):
+    from tests.test_torch_spec_guard import run_stream
+
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    agent = make_port_agent(tp, speculative=True, spec_draft_layers=1,
+                            spec_k=3, sample_seed=seed,
+                            spec_guard_patience=2, **FILTERS)
+    out, trip = run_stream(agent)
+    assert trip == 1 and out == RECORDED_SPEC_CHUNKS[seed]
+    # the chunks after the trip ran the sampling program, one key a
+    # (m, n_units, first) as the stream met them
+    prog = agent._programs[(1, 1, False, "sample")]
+    assert list(agent._programs) == [(1, 1, False, "sample")]
+    assert prog.loop.t.item() == agent.last_result.steps
+
+
+@pytest.mark.parametrize("seed", sorted(RECORDED_DECODE))
+def test_sample_decode_draws_the_recorded_tokens(seed):
+    _, t = both(0)
+    spec = TB.SampleSpec(max_new_tokens=G, eos_id=80, pad_id=PAD,
+                         temperature=1.5, top_k=6, top_p=0.95,
+                         no_repeat_ngram_size=NGRAM, repetition_penalty=REP)
+    res = _t_sample(t, spec, torch.Generator().manual_seed(seed))
+    tokens, n, steps = RECORDED_DECODE[seed]
+    assert (res.tokens, res.n_tokens, res.steps, res.hit_eos) == (
+        tokens + [PAD] * (G - n), n, steps, True)
+
+
+def test_sampling_chunk_reads_the_host_steps_plus_one_times():
+    """One ``go`` a draw and the packed result once, every chunk."""
+    from tests.test_torch_chunk_program import _HostReads
+
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    agent = make_port_agent(tp, sample_seed=3, **FILTERS)
+    rng = np.random.RandomState(8)
+    for _ in range(3):
+        audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
+        with _HostReads() as mode:
+            agent.push(audio)
+        steps = agent.last_result.steps
+        assert 0 < mode.n <= steps + 1, (mode.n, steps)
+
+
+def test_sampling_program_topk1_is_jax_sampling_agent():
+    """top_k = 1 at m = 2 with a finishing tail (three keys of the
+    program): the JAX sampling agent's tokens, chunk by chunk."""
+    tp = from_jax(jax.device_get(tiny_params()), device="cpu")
+    kw = dict(do_sample=True, top_k=1, sample_seed=6)
+    port = make_port_agent(tp, latency_multiplier=2, **kw)
+    jax_agent = make_agent(multiplier=2, **kw)
+    rng = np.random.RandomState(4)
+    for i, n in enumerate((2, 2, 1)):
+        audio = rng.randn(n * 15360).astype(np.float32) * 0.1
+        got = port.push(audio, finished=i == 2)
+        want = jax_agent.push(audio, finished=i == 2)
+        assert port.states.target_ids == list(jax_agent.states.target_ids)
+        assert (got.is_read(), getattr(got, "content", None)) == (
+            want.is_read(), getattr(want, "content", None))
+    assert port.states.target_ids
+    assert {k[1:] for k in port._programs} == {
+        (2, True, "sample"), (2, False, "sample"), (1, False, "sample")}
