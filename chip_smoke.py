@@ -7,7 +7,9 @@ NVIDIA H100.
 Phases (any failure exits non-zero; no phase carries on past its own):
   1. device   -- require CUDA; print the card's name and power limit.
   2. build    -- build every kernel source (csrc/*.cu) for sm_90a, one
-                 nvcc per source, all started together.
+                 nvcc per source, all started together, in a thread
+                 while the training phases (12. below: they launch no
+                 kernel of the port) run.
   3. kernels  -- each kernel against its plain PyTorch version on the card
                  at every main-path shape: row_quant_int8, w8a8_gemm (on
                  its K-major (O, D) weight, in bf16 and float32),
@@ -18,7 +20,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  bitwise, w8_bf16_gemm (on the same
                  K-major weight) within
                  W8_BF16_RTOL * max|plain| in bf16 and 1e-5 * max|plain|
-                 in float32; kernel, plain and library times (median of 5
+                 in float32; kernel, plain and library times (median of 3
                  timed replays, with the kernel's min-max) and the bound;
                  the split-K plan both tensor-core GEMMs take beside their
                  times (one row tile at every M), the grouped GEMM's plan
@@ -158,8 +160,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  runs on four cards, parallel.mesh_check); the sharded
                  train step at (1, 1) on the dryrun preset, zero's spec
                  tree, bitwise make_train_step's (deterministic
-                 algorithms on); then under ``torchrun
-                 --standalone --nproc_per_node 1`` the dryrun
+                 algorithms on); and under ``torchrun
+                 --standalone --nproc_per_node 1``, started in the
+                 background before [alignatt graph], the dryrun
                  (``parallel.dryrun``: the stage 2 step, the TP prefill,
                  the pooled, speculative and sampling pool ticks) with its
                  summary line and launches, and ``train.main --n_data 1
@@ -186,11 +189,13 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  per forward), per-channel W8A8 lm_head; then one chunk
                  under torch.profiler.
   9. bench    -- ``python -m infinisst_tpu_torch.bench`` (flagship W8A8,
-                 m=1, beam 4, 12 chunks, 3 untimed) in a subprocess, while
-                 this process holds no 8B weights: exit 0 and its JSON line
+                 m=1, beam 4, 12 chunks, 3 untimed) in this process
+                 (``run_main``), which holds no other 8B weights then:
+                 exit 0 and its JSON line
                  with metric streaming_rtf_m1_beam4_8b_int8, re-printed.
      serve    -- ``python -m infinisst_tpu_torch.bench --mode serve``
-                 (pool 8, beam 4, m=1, 12 timed ticks) in a subprocess:
+                 (pool 8, beam 4, m=1, 12 timed ticks) in this process
+                 (``run_main``: its ``main`` with its output captured):
                  exit 0, metric serve_decode_tok_per_s_pool8_beam4_m1_8b_int8,
                  launches decode_attention = token forwards x L x 2 (half
                  at B=32 Bc=8, the pool prefix), w8a8_gemm = forwards x
@@ -243,7 +248,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  --spec-resid-scale 0 --spec-no-guard (accept_rate > 0),
                  --speculative --spec-beam, --do-sample and --speculative
                  --do-sample at the flagship W8A8, 8 chunks each, in
-                 subprocesses; each run's launches held to its model
+                 this process; each run's launches held to its model
                  forwards (w8a8_gemm 7n + 1, row_quant_int8 4n + 1 a
                  forward of n layers, decode_attention 2n a beam step and
                  n a tree verify, none in a decode_step).
@@ -259,19 +264,24 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  float32 noise of an int8 rounding boundary quantizes one
                  step apart; the int8 kernels are bitwise in [kernels]).
      server   -- ``python -m infinisst_tpu_torch.serve.server`` at the dryrun
-                 preset on the card and two ``serve.client`` processes (m=1
+                 preset on the card (started in the background before cli
+                 ckpt) and two ``serve.client`` processes (m=1
                  and m=2) over localhost streaming the CLI's two talks:
                  both streams finish.
  12. the training path (plain torch: JAX's training forward calls no
-     Pallas kernel, so every kernel's launches there are 0):
+     Pallas kernel, so every kernel's launches there are 0); train
+     flagship, its stage 2 and train tiny run first, beside the build:
      train tiny -- the dryrun preset in float32: stage 1, stage 2 with
                  grad_acc_steps 2 and stage 0 with cpo_beta 0.5, 4 steps
                  each of make_train_step on the same batches on the card
                  and on the CPU: per-step loss and grad norm within
                  TINY_RTOL, the parameters after the last step within the
                  CPU test's tolerance, frozen leaves bitwise unchanged.
-     train flagship -- Trainer.fit on the flagship preset in bfloat16,
-                 stage 1, remat, encoder dropout 0.1, over synthetic TSV
+     train flagship -- Trainer.fit on the flagship preset in bfloat16
+                 (its Llama cut to TRAIN_FLAGSHIP_LAYERS layers: frozen at
+                 stage 1, it sets only the checkpoint's bytes and the
+                 frozen forward), stage 1, remat, encoder dropout 0.1, over
+                 synthetic TSV
                  + wav rows of 28.8 s under build/ (two rows a batch,
                  collator 4 at m = 1), 3 steps: finite losses, every LLM
                  leaf bitwise unchanged, w2v2 and adapter moved, no kernel
@@ -287,10 +297,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  peak memory and the bytes of the parameters, gradients
                  and AdamW moments, counted from the leaves.
      train main -- ``python -m infinisst_tpu_torch.train.main
-                 --model_preset dryrun --max_steps 3`` on the card in a
-                 subprocess: metrics.jsonl and the checkpoint.
+                 --model_preset dryrun --max_steps 3`` on the card in
+                 this process: metrics.jsonl and the checkpoint.
      train bench -- ``python -m infinisst_tpu_torch.bench --mode train``
-                 and ``--mode train-io`` in subprocesses: their JSON lines
+                 and ``--mode train-io`` in this process: their JSON lines
                  (bench.py's keys), values finite and positive; then the
                  bench's step in this process: synced walls, the host's
                  dispatch time, one step under the profiler.
@@ -315,7 +325,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  acceptance doubled, w8a8_gemm launched.
      distill flagship -- ``python -m infinisst_tpu_torch.tools.
                  distill_adapter --model-preset flagship`` (8B float32,
-                 rank 2048, d = 8, 20 steps) in a subprocess: the KL falls,
+                 rank 2048, d = 8, 20 steps) in this process: the KL falls,
                  the .npz loads at d = 8 only; then the flagship W8A8
                  agent, speculative d = 8 with the guard off, 4 chunks with
                  and without the adapter: the same tokens, the int8
@@ -407,7 +417,7 @@ ATT_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
 # card sums float32 in another order (readings on the H100: 2.6e-6 with
 # float32 weights, 1.3e-6 with W8A8); TF32 is off (see main)
 TINY_RTOL = 1e-4
-TIMED_TRIALS = 5
+TIMED_TRIALS = 3
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1030,18 +1040,60 @@ def expected_launches(forwards) -> dict:
     return want
 
 
+def run_main(module: str, argv) -> subprocess.CompletedProcess:
+    """``python -m module *argv`` in this process: ``module.main(argv)``
+    with its standard output and error captured, as a process of its own
+    would start it.  Before it, the kernels' launch counts, llama's forward
+    counts and the peak memory statistic are zeroed (the module's reports
+    count from its start); cuDNN's TF32 is at torch's default while it
+    runs; after it, what it left is collected and the cache emptied.  A
+    process of its own would spend ~10 s importing torch on the H100
+    machine before its first line; the checks read the same lines."""
+    import gc
+    import importlib
+    import io
+    import traceback
+
+    import torch
+
+    from infinisst_tpu_torch.models import llama
+
+    mod = importlib.import_module(module)
+    reset_counts()
+    llama.forward_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    rc = 0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                mod.main(list(argv))
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else int(
+                    e.code is not None)
+            except Exception:  # the traceback is the process's last words
+                traceback.print_exc()
+                rc = 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return subprocess.CompletedProcess([module] + list(argv), rc,
+                                       out.getvalue(), err.getvalue())
+
+
 def run_bench_line(extra, label, metric, keys):
-    """``python -m infinisst_tpu_torch.bench`` + ``extra`` in a subprocess:
+    """``python -m infinisst_tpu_torch.bench`` + ``extra`` (``run_main``):
     exit 0, its last stdout line a JSON line with ``metric`` and
     ``keys``, its launches those its model forwards make
     (expected_launches).  Returns (result, launches, forwards)."""
-    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"] + extra
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=900)
+    out = run_main("infinisst_tpu_torch.bench", extra)
     for line in out.stderr.strip().splitlines()[-8:]:
         print(f"[{label}]   {line}", flush=True)
     if out.returncode != 0:
-        fail(f"[{label}] {' '.join(cmd[1:])} exited {out.returncode}")
+        fail(f"[{label}] bench {' '.join(extra)} exited {out.returncode}")
     lines = out.stdout.strip().splitlines()
     try:
         result = json.loads(lines[-1])
@@ -1960,12 +2012,22 @@ KERNEL_GROUPS = ("w8a8_grouped_gemm", "group_quant_int8", "w8a8_gemm",
                  "row_quant_int8", "w8_bf16_gemm", "decode_attention")
 
 
-def profile_run(dev, step, stages, label, med, what, hold_launches=False):
+# idle host time inside a profiler's window before and after the step: the
+# device's records are placed on the host's clock, and the profiler keeps
+# only those inside its window (a [profile] run once saw 45 fewer of a
+# chunk's 4116 port kernels than its counters recorded, every other run
+# all of them)
+PROFILE_MARGIN_S = 0.05
+
+
+def profile_run(dev, step, stages, label, med, what, hold_launches=False,
+                keep=None):
     """``step()`` under torch.profiler, as ``profile_chunk`` describes;
     ``med`` is the median unprofiled wall (ms) of such a step.  With
     ``hold_launches``: fails unless the kernels the profiler saw run,
     counted by name, equal the launches the wrappers' counters recorded
-    over the step (on a replay, what the graphs recorded at capture)."""
+    over the step (on a replay, what the graphs recorded at capture).
+    ``keep`` (a dict) receives the profile under "prof"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1979,14 +2041,19 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False):
     before = launch_counts()
     with _wrapper(stages)(wrap), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         step()
         _sync(dev)
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    if keep is not None:
+        keep["prof"] = prof
+    averages = prof.key_averages()  # computed once: it walks every event
     if hold_launches:
         recorded = {k: n - before[k] for k, n in launch_counts().items()}
         seen = dict.fromkeys(recorded, 0)
-        for e in prof.key_averages():
+        for e in averages:
             if e.device_type == DeviceType.CUDA:
                 g = next((g for g in KERNEL_GROUPS if g in e.key), None)
                 if g is not None:
@@ -1998,7 +2065,7 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False):
               f"the launches recorded: "
               f"{ {k: n for k, n in seen.items() if n} }", flush=True)
     by_name = {}
-    for e in prof.key_averages():
+    for e in averages:
         # device-side kernel events only: a CPU op also reports the device
         # time of the kernels it launched, which would count them twice;
         # the device side of the stage ranges is read below
@@ -2313,7 +2380,7 @@ ALIGNATT_GRAPH_RUNS = (
     ("early stop", "alignatt", True, 5, {}),
     ("streamatt", "streamatt", True, 14, {}),
 )
-SAMPLE_GRAPH_CHUNKS = 6
+SAMPLE_GRAPH_CHUNKS = 4  # the first key, the steady key, two replays
 SAMPLE_GRAPH_SEEDS = (0, 7)
 # top-k and top-p on (the bench's --do-sample takes temperature and top-k)
 SAMPLE_GRAPH_OPTS = dict(do_sample=True, temperature=1.0, top_k=50,
@@ -2350,15 +2417,18 @@ def _by_group(names: dict) -> dict:
 
 def device_kernel_names(dev, step) -> dict:
     """``step()`` under torch.profiler: the device kernels it ran, counted
-    by name (copies and memsets left out: the host's uploads and reads)."""
+    by name (copies and memsets left out: the host's uploads and reads).
+    Only the device's activity is traced: the host's ops, which an
+    uncaptured call has by the thousand, would cost seconds to sort."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         step()
         _sync(dev)
+        time.sleep(PROFILE_MARGIN_S)
     names = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and not e.key.startswith(
@@ -2521,53 +2591,6 @@ def check_alignatt_graph(dev, cfg, params):
         fail("[alignatt graph] no key was replayed at another prompt length")
 
 
-def _sample_graph_run(dev, cfg, params, opts, n_chunks, captured):
-    """The flagship sampling stream (m = 1) with ``opts``, its chunks
-    captured or uncaptured; the captured agent's under strict syncs.  One
-    record a chunk, then the agent."""
-    import numpy as np
-    import torch
-
-    from infinisst_tpu_torch.agents.infinisst import (
-        InfiniSSTAgent, InfiniSSTOptions,
-    )
-    from infinisst_tpu_torch.core import graphs
-    from infinisst_tpu_torch.core.config import StreamConfig
-    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
-
-    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
-    agent = InfiniSSTAgent(params, cfg, StreamConfig(), builder,
-                           InfiniSSTOptions(**opts),
-                           param_dtype=torch.bfloat16, device=dev)
-    agent._graphs_on = captured
-    rng = np.random.RandomState(2)
-    recs = []
-    for _ in range(n_chunks):
-        audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
-        before = len(agent.states.target_ids)
-        sampled = agent._chunk_kind() == "sample"
-        replays = sum(p.replays for p in agent._programs.values())
-        reset_counts()
-        reads, before_fwd = graphs.host_reads, forward_counts()
-        _sync(dev)
-        t0 = time.perf_counter()
-        with graphs.strict_syncs():
-            agent.push(audio, finished=False)
-        _sync(dev)
-        dt = time.perf_counter() - t0
-        if sampled:
-            check_forwards(before_fwd, agent.last_result.steps,
-                           cfg.llama.num_layers, "sample graph")
-        recs.append(dict(
-            ids=list(agent.states.target_ids[before:]), wall=dt,
-            counts=launch_counts(), reads=graphs.host_reads - reads,
-            steps=agent.last_result.steps if sampled else None,
-            sampled=sampled,
-            replayed=sum(p.replays for p in agent._programs.values())
-            > replays))
-    return recs, agent
-
-
 def check_sample_graph(dev, cfg, params):
     """The sampling chunk as one captured program per (m, n_units, first,
     "sample"): the flagship W8A8 sampling stream (m = 1, top-k 50, top-p
@@ -2581,18 +2604,15 @@ def check_sample_graph(dev, cfg, params):
 
     for seed in SAMPLE_GRAPH_SEEDS:
         opts = dict(SAMPLE_GRAPH_OPTS, sample_seed=seed)
-        c, cap = _sample_graph_run(dev, cfg, params, opts,
-                                   SAMPLE_GRAPH_CHUNKS, True)
-        u, _ = _sample_graph_run(dev, cfg, params, opts,
-                                 SAMPLE_GRAPH_CHUNKS, False)
+        c, cap = _graph_run(dev, cfg, params, opts, SAMPLE_GRAPH_CHUNKS,
+                            True, "sample graph")
+        u, _ = _graph_run(dev, cfg, params, opts, SAMPLE_GRAPH_CHUNKS,
+                          False, "sample graph")
         for i, (a, b) in enumerate(zip(c, u)):
             if a["ids"] != b["ids"] or a["counts"] != b["counts"]:
                 fail(f"[sample graph] seed {seed} chunk {i}: captured "
                      f"{a['ids']} {a['counts']} != uncaptured {b['ids']} "
                      f"{b['counts']}")
-            if a["reads"] > a["steps"] + 1:
-                fail(f"[sample graph] seed {seed} chunk {i}: {a['reads']} "
-                     f"host reads for {a['steps']} draws")
             print(f"[sample graph]   seed {seed} chunk {i}: captured "
                   f"{a['wall'] * 1e3:8.2f} ms "
                   f"({'replay' if a['replayed'] else 'warm-up + capture'})"
@@ -2613,10 +2633,10 @@ def check_sample_graph(dev, cfg, params):
         del cap
     opts = dict(SAMPLE_GRAPH_OPTS, sample_seed=SAMPLE_GRAPH_SEEDS[0],
                 speculative=True)
-    c, cap = _sample_graph_run(dev, cfg, params, opts,
-                               SPEC_SAMPLE_GRAPH_CHUNKS, True)
-    u, _ = _sample_graph_run(dev, cfg, params, opts,
-                             SPEC_SAMPLE_GRAPH_CHUNKS, False)
+    c, cap = _graph_run(dev, cfg, params, opts, SPEC_SAMPLE_GRAPH_CHUNKS,
+                        True, "sample graph")
+    u, _ = _graph_run(dev, cfg, params, opts, SPEC_SAMPLE_GRAPH_CHUNKS,
+                      False, "sample graph")
     trip = next((i for i, a in enumerate(c) if a["sampled"]), None)
     if trip is None or not cap.spec_fallback_active:
         fail("[sample graph] the speculative sampling guard did not trip")
@@ -2628,15 +2648,336 @@ def check_sample_graph(dev, cfg, params):
         if a["ids"] != b["ids"] or a["sampled"] != b["sampled"]:
             fail(f"[sample graph] speculative chunk {i}: captured "
                  f"{a['ids']} != uncaptured {b['ids']}")
-        if a["sampled"] and a["reads"] > a["steps"] + 1:
-            fail(f"[sample graph] speculative chunk {i}: {a['reads']} host "
-                 f"reads for {a['steps']} draws")
     print(f"[sample graph] speculative sampling: the guard tripped before "
           f"chunk {trip}; chunks {trip}..{len(c) - 1} ran the sampling "
           f"program {sorted(k for k in cap._programs)} (replayed from chunk "
           f"{trip + 1}), tokens equal to the uncaptured twin every chunk; "
           f"walls {[round(a['wall'] * 1e3, 1) for a in c]} ms", flush=True)
     del cap
+    torch.cuda.empty_cache()
+
+
+# the speculative decoders' programs against their uncaptured twins ([spec
+# graph], [spec pool graph]) and a replayed round's split ([spec profile]):
+# the stream at m = 1, d = 8, k = 4 on the flagship W8A8 with the layers
+# above the draft made identities (``bench.scale_residuals(..., 0)``), so
+# that rounds accept, and no guard
+SPEC_GRAPH_D, SPEC_GRAPH_K = 8, 4
+SPEC_GRAPH_BASE = dict(speculative=True, spec_draft_layers=SPEC_GRAPH_D,
+                       spec_k=SPEC_GRAPH_K, spec_guard=False)
+SPEC_GRAPH_CHUNKS = 4  # the first key, the steady key, two replays
+# (label, the chunk program's kind, options)
+SPEC_GRAPH_RUNS = (
+    ("greedy", "spec", {}),
+    ("sample seed 0", "spec_sample", dict(SAMPLE_GRAPH_OPTS, sample_seed=0)),
+    ("sample seed 7", "spec_sample", dict(SAMPLE_GRAPH_OPTS, sample_seed=7)),
+    ("beam 4", "spec_beam", dict(spec_beam=True, beam=4)),
+)
+SPEC_GUARD_CHUNKS = 6  # the random draft: the guard trips after chunk 2
+SPEC_POOL_TICKS = 5
+SPEC_PIECES = (
+    ("graph", "A", "A prologue"),  # trim, window, encoder, splice,
+    # prefill, the loop's start
+    ("graph", "T", "T anchor"),  # spec beam: the anchor transition
+    ("graph", "R", "R round"),  # the draft, the verify, the commit
+    ("graph", "F", "F finish"),  # roll-back or finalize, epilogue, packed
+)
+
+
+def spec_forwards(kind, rounds: int, n_layers: int, d: int, k: int) -> dict:
+    """The forwards a speculative chunk (or tick) of ``rounds`` verify
+    rounds runs: one prefill; greedy and sampling k draft decode_steps
+    of d layers and one verify decode_step a round; spec beam k draft
+    beam_token_steps and one beam_tree_step a round."""
+    if kind == "spec_beam":
+        want = {f"decode_step L={n_layers}": 1,
+                f"beam_token_step L={d}": k * rounds,
+                f"beam_tree_step L={n_layers}": rounds}
+    else:
+        want = {f"decode_step L={n_layers}": 1 + rounds,
+                f"decode_step L={d}": k * rounds}
+    return {key: n for key, n in want.items() if n}
+
+
+def _graph_run(dev, cfg, params, opts, n_chunks, captured, label):
+    """The flagship stream (m = 1) with ``opts`` (sampling or speculative),
+    its chunks captured or uncaptured; the captured agent's under strict
+    syncs.  Each chunk's forwards are held to its rounds (a speculative
+    chunk) or its steps (the sampler, a guard's fallback), its host reads
+    to rounds + 2 (spec beam 2 x rounds + 2) or steps + 1.  One record a
+    chunk, then the agent."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.core import graphs
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    agent = InfiniSSTAgent(params, cfg, StreamConfig(), builder,
+                           InfiniSSTOptions(**opts),
+                           param_dtype=torch.bfloat16, device=dev)
+    agent._graphs_on = captured
+    L = cfg.llama.num_layers
+    rng = np.random.RandomState(2)
+    recs = []
+    for i in range(n_chunks):
+        audio = rng.randn(agent.chunk_samples).astype(np.float32) * 0.1
+        before = len(agent.states.target_ids)
+        kind = agent._chunk_kind()
+        replays = sum(p.replays for p in agent._programs.values())
+        reset_counts()
+        reads, before_fwd = graphs.host_reads, forward_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with graphs.strict_syncs():
+            agent.push(audio, finished=False)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        res = agent.last_result
+        rounds = getattr(res, "rounds", 0)
+        spec = kind in ("spec", "spec_sample", "spec_beam")
+        if spec:
+            want = spec_forwards(kind, rounds, L,
+                                 agent.opts.spec_draft_layers,
+                                 agent.opts.spec_k)
+            got = forwards_since(before_fwd)
+            if got != want:
+                fail(f"[{label}] chunk {i} ({kind}): the forward counters "
+                     f"recorded {got}; {rounds} rounds ran {want}")
+            bound = 2 * rounds + 2 if kind == "spec_beam" else rounds + 2
+        else:  # the sampler or a guard's fallback: one forward a step
+            check_forwards(before_fwd, res.steps, L, label)
+            bound = res.steps + 1
+        reads = graphs.host_reads - reads
+        if reads > bound:
+            fail(f"[{label}] chunk {i} ({kind}): {reads} host reads, "
+                 f"bound {bound}")
+        recs.append(dict(
+            ids=list(agent.states.target_ids[before:]), wall=dt,
+            counts=launch_counts(), fwd=forwards_since(before_fwd),
+            reads=reads, rounds=rounds, kind=kind, sampled=kind == "sample",
+            steps=None if spec else res.steps,
+            accepted=getattr(res, "accepted", 0),
+            drafted=getattr(res, "drafted", 0),
+            replayed=sum(p.replays for p in agent._programs.values())
+            > replays))
+    return recs, agent
+
+
+def _spec_graph_pair(dev, cfg, params, opts, n_chunks, label):
+    """The same audio through the speculative stream captured and
+    uncaptured: fails unless every chunk's tokens, launches and forwards
+    are equal.  Returns (the captured agent, its records, the uncaptured
+    records)."""
+    import torch
+
+    c, cap = _graph_run(dev, cfg, params, opts, n_chunks, True,
+                        "spec graph")
+    u, twin = _graph_run(dev, cfg, params, opts, n_chunks, False,
+                         "spec graph")
+    del twin
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(c, u)):
+        if (a["ids"], a["counts"], a["fwd"], a["kind"]) != (
+                b["ids"], b["counts"], b["fwd"], b["kind"]):
+            fail(f"[spec graph] {label} chunk {i}: captured {a['kind']} "
+                 f"{a['ids']} {a['counts']} {a['fwd']} != uncaptured "
+                 f"{b['kind']} {b['ids']} {b['counts']} {b['fwd']}")
+        kind = "replay" if a["replayed"] else "warm-up + capture"
+        print(f"[spec graph]   {label} chunk {i}: {a['kind']} captured "
+              f"{a['wall'] * 1e3:8.2f} ms ({kind}), uncaptured "
+              f"{b['wall'] * 1e3:8.2f} ms; rounds {a['rounds']}, accepted "
+              f"{a['accepted']} of {a['drafted']}, host reads {a['reads']}, "
+              f"forwards {a['fwd']}, tokens {a['ids']}", flush=True)
+    return cap, c, u
+
+
+def _replayed_walls(c, u):
+    walls = [a["wall"] * 1e3 for a in c if a["replayed"]]
+    uwalls = [b["wall"] * 1e3 for a, b in zip(c, u) if a["replayed"]]
+    return statistics.median(walls), statistics.median(uwalls)
+
+
+def check_spec_graph(dev, cfg, params, paths):
+    """The speculative chunk programs, (m, n_units, first, "spec" /
+    "spec_sample" / "spec_beam"), captured against uncaptured on the
+    card: the flagship W8A8 stream at m = 1, d = 8, k = 4 with the layers
+    above the draft made identities and no guard (greedy, sampling at
+    two seeds, speculative beam 4), SPEC_GRAPH_CHUNKS chunks each: tokens,
+    launches and forwards equal every chunk, forwards those the rounds
+    ran, host reads within rounds + 2 (spec beam: 2 x rounds + 2), replays
+    under strict syncs, the steady chunks replayed.  Then the random
+    draft with the guard on: it trips and the fallback's beam-1 program
+    replays."""
+    import torch
+
+    from infinisst_tpu_torch.bench import scale_residuals
+
+    ident = scale_residuals(params, SPEC_GRAPH_D, 0.0)
+    for label, kind, extra in SPEC_GRAPH_RUNS:
+        opts = dict(SPEC_GRAPH_BASE, **extra)
+        cap, c, u = _spec_graph_pair(dev, cfg, ident, opts,
+                                     SPEC_GRAPH_CHUNKS, label)
+        if {a["kind"] for a in c} != {kind}:
+            fail(f"[spec graph] {label}: chunks ran {[a['kind'] for a in c]}")
+        if not all(a["replayed"] for a in c[2:]):
+            fail(f"[spec graph] {label}: a steady chunk did not replay")
+        acc = sum(a["accepted"] for a in c) / max(sum(a["drafted"]
+                                                      for a in c), 1)
+        if not acc > 0 or not any(a["ids"] for a in c):
+            fail(f"[spec graph] {label}: acceptance {acc}, tokens "
+                 f"{[a['ids'] for a in c]}")
+        med, umed = _replayed_walls(c, u)
+        print(f"[spec graph] {label}: keys {sorted(cap._programs)}, equal "
+              f"captured / uncaptured every chunk; acceptance {acc:.4f}; "
+              f"replayed chunk wall median {med:.2f} ms (RTF "
+              f"{med / 1e3 / 0.96:.4f}), uncaptured {umed:.2f} ms; rounds "
+              f"{[a['rounds'] for a in c]}", flush=True)
+        paths[f"spec graph {kind}"] = (
+            f"flagship W8A8 captured speculative stream ({label}, d = "
+            f"{SPEC_GRAPH_D}, k = {SPEC_GRAPH_K}), a replayed chunk of "
+            f"{c[-1]['rounds']} rounds", c[-1]["counts"])
+        del cap
+        torch.cuda.empty_cache()
+    opts = dict(SPEC_GRAPH_BASE, spec_guard=True)
+    cap, c, u = _spec_graph_pair(dev, cfg, params, opts, SPEC_GUARD_CHUNKS,
+                                 "guard")
+    trip = next((i for i, a in enumerate(c) if a["kind"] == 1), None)
+    if trip is None or not cap.spec_fallback_active:
+        fail("[spec graph] the guard did not trip on the random draft")
+    after = c[trip:]
+    if len(after) < 2 or not all(a["replayed"] for a in after[1:]):
+        fail(f"[spec graph] after the trip (chunk {trip}) the fallback's "
+             "program did not replay")
+    print(f"[spec graph] guard: tripped before chunk {trip}; chunks "
+          f"{trip}..{len(c) - 1} ran the beam-1 program (replayed from "
+          f"chunk {trip + 1}); keys {list(cap._programs)}", flush=True)
+    del cap
+    torch.cuda.empty_cache()
+
+
+def check_spec_pool_graph(dev, cfg, params, paths):
+    """The speculative pool's tick programs ("spec", "spec_sample"):
+    the flagship W8A8 pool of 8 at d = 8, k = 4, multipliers (1, 2), the
+    layers above the draft made identities and no guard, captured against
+    uncaptured: every slot's tokens equal every tick, launches equal,
+    forwards those the rounds ran, host reads within rounds + 2."""
+    import torch
+
+    from infinisst_tpu_torch.bench import scale_residuals
+
+    ident = scale_residuals(params, SPEC_GRAPH_D, 0.0)
+    for label, kind, extra in (("greedy", "spec", {}),
+                               ("sampling", "spec_sample",
+                                dict(do_sample=True, top_k=50, top_p=0.9))):
+        kw = dict(speculative=True, spec_draft_layers=SPEC_GRAPH_D,
+                  spec_k=SPEC_GRAPH_K, spec_guard=False, **extra)
+        cap, c, u = _pool_pair(dev, cfg, ident, 1, SPEC_POOL_TICKS, None,
+                               f"spec {label}", tag="spec pool graph", **kw)
+        if list(cap._programs) != [kind]:
+            fail(f"[spec pool graph] {label} ran {sorted(cap._programs)}")
+        steady = [i for i, a in enumerate(c) if a["replayed"]]
+        w = [c[i]["wall"] * 1e3 for i in steady]
+        uw = [u[i]["wall"] * 1e3 for i in steady]
+        print(f"[spec pool graph] {label}: replayed tick wall median "
+              f"{statistics.median(w):.2f} ms, uncaptured "
+              f"{statistics.median(uw):.2f} ms; rounds a tick "
+              f"{[a['rounds'] for a in c]}; statistics {cap.spec_stats}",
+              flush=True)
+        paths[f"spec pool graph {kind}"] = (
+            f"flagship W8A8 captured speculative pool of 8 ({label}), a "
+            f"replayed tick of {c[-1]['rounds']} rounds", c[-1]["counts"])
+        del cap
+        torch.cuda.empty_cache()
+
+
+def check_spec_profile(dev, cfg, params):
+    """A replayed speculative greedy chunk of the flagship W8A8 stream
+    (d = 8, k = 4, the layers above the draft identities) under the
+    profiler: its kernels counted by name against the recorded launches,
+    the device ms by piece (A, R, F) and, within R, the draft (from the
+    round's start to the verify's first port kernel: the anchor, the k
+    draft forwards and their processors) against the verify (the rest:
+    the full forward, the acceptance, the commit); the torch counterpart
+    of ``tools_spec_decompose.py``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from infinisst_tpu_torch.agents.infinisst import (
+        InfiniSSTAgent, InfiniSSTOptions,
+    )
+    from infinisst_tpu_torch.bench import scale_residuals
+    from infinisst_tpu_torch.core.config import StreamConfig
+    from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+
+    ident = scale_residuals(params, SPEC_GRAPH_D, 0.0)
+    builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
+    agent = InfiniSSTAgent(ident, cfg, StreamConfig(), builder,
+                           InfiniSSTOptions(**SPEC_GRAPH_BASE),
+                           param_dtype=torch.bfloat16, device=dev)
+    rng = np.random.RandomState(5)
+
+    def push():
+        agent.push(rng.randn(agent.chunk_samples).astype(np.float32) * 0.1)
+
+    walls = []
+    for i in range(6):
+        _sync(dev)
+        t0 = time.perf_counter()
+        push()
+        _sync(dev)
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(walls)
+    replays = sum(p.replays for p in agent._programs.values())
+    keep = {}
+    profile_run(dev, push, SPEC_PIECES, "spec profile", med, "chunk",
+                hold_launches=True, keep=keep)
+    if sum(p.replays for p in agent._programs.values()) != replays + 1:
+        fail("[spec profile] the profiled chunk did not replay its program")
+    rounds = agent.last_result.rounds
+    # within R: the draft's port kernels come first (k forwards of d
+    # layers, 7d + 1 w8a8_gemm and 4d + 1 row_quant_int8 each), then the
+    # verify's
+    n_draft = SPEC_GRAPH_K * (11 * SPEC_GRAPH_D + 2)
+    spans, events = [], []
+    for e in keep["prof"].events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name == "stage::R round":
+            spans.append((e.time_range.start, e.time_range.end))
+        else:
+            port = any(g in e.name for g in KERNEL_GROUPS)
+            events.append((e.time_range.start, e.time_range.elapsed_us(),
+                           port))
+    events.sort()
+    draft = verify = 0.0
+    for a, b in spans:
+        inside = [ev for ev in events if a <= ev[0] < b]
+        port = [ev for ev in inside if ev[2]]
+        if len(port) <= n_draft:
+            fail(f"[spec profile] a round ran {len(port)} port kernels, "
+                 f"the draft alone {n_draft}")
+        cut = port[n_draft][0]
+        draft += sum(d for s, d, _ in inside if s < cut) / 1e3
+        verify += sum(d for s, d, _ in inside if s >= cut) / 1e3
+    if len(spans) != rounds:
+        fail(f"[spec profile] {len(spans)} R ranges for {rounds} rounds")
+    print(f"[spec profile] the replayed chunk's {rounds} rounds (programs "
+          f"{sorted(agent._programs)}, {replays + 1} replays): device "
+          f"kernels within R {draft + verify:.2f} ms, the draft (anchor, "
+          f"{SPEC_GRAPH_K} forwards of {SPEC_GRAPH_D} layers, processors) "
+          f"{draft:.2f} ms ({draft / rounds:.3f} a round), the verify (the "
+          f"32-layer forward over {SPEC_GRAPH_K + 1} tokens, acceptance, "
+          f"commit) {verify:.2f} ms ({verify / rounds:.3f} a round); "
+          f"{agent.last_result.n_tokens} tokens; replayed chunk wall median "
+          f"{med:.2f} ms (RTF {med / 1e3 / 0.96:.4f})", flush=True)
+    del agent
     torch.cuda.empty_cache()
 
 
@@ -2827,9 +3168,10 @@ POOL_GRAPH_MS = (1, 2) * 4  # the 8 slots' multipliers
 GREEDY_TICKS = 4  # the beam-1 pool's greedy program
 
 
-def _pool_engine(dev, cfg, params, beam, captured, cache=None):
-    """The flagship pool of 8 at ``beam``, multipliers (1, 2): its tick
-    the captured program, or the same functions uncaptured."""
+def _pool_engine(dev, cfg, params, beam, captured, cache=None, **kw):
+    """The flagship pool of 8 at ``beam``, multipliers (1, 2) (``kw``:
+    more of the engine's options): its tick the captured program, or the
+    same functions uncaptured."""
     import torch
 
     from infinisst_tpu_torch.core.config import StreamConfig
@@ -2842,7 +3184,7 @@ def _pool_engine(dev, cfg, params, beam, captured, cache=None):
                         PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
                                       cfg.tokens)},
                         pool_size=8, beam=beam, multipliers=(1, 2),
-                        dtype=torch.bfloat16, device=dev)
+                        dtype=torch.bfloat16, device=dev, **kw)
     eng._graphs_on = captured  # the private hook: uncaptured on the card
     return eng
 
@@ -2851,7 +3193,8 @@ def _pool_run(dev, eng, ms, n_ticks, label):
     """``n_ticks`` ticks of one 960 ms unit of seeded noise a slot (slot i
     at multiplier ms[i]); a captured engine's ticks under
     ``graphs.strict_syncs()``.  Each tick's forwards are held to its beam
-    steps.  Returns one record a tick."""
+    steps (a speculative tick's to its rounds).  Returns one record a
+    tick."""
     import contextlib
 
     import numpy as np
@@ -2870,6 +3213,7 @@ def _pool_run(dev, eng, ms, n_ticks, label):
         replays = sum(p.replays for p in eng._programs.values())
         reset_counts()
         reads, fwd = graphs.host_reads, eng.forwards["token"]
+        verify = eng.forwards["verify"]
         before_fwd = forward_counts()
         strict = graphs.strict_syncs() if eng._graphs_on else \
             contextlib.nullcontext()
@@ -2880,30 +3224,41 @@ def _pool_run(dev, eng, ms, n_ticks, label):
         _sync(dev)
         dt = time.perf_counter() - t0
         n_fwd = eng.forwards["token"] - fwd
+        rounds = eng.forwards["verify"] - verify
         if eng.beam > 1:
             check_forwards(before_fwd, n_fwd + 1, eng.cfg.llama.num_layers,
                            f"pool graph {label}")
+        if eng.speculative:
+            want = spec_forwards("spec", rounds, eng.cfg.llama.num_layers,
+                                 eng.spec_draft_layers, eng.spec_k)
+            if forwards_since(before_fwd) != want:
+                fail(f"[pool graph {label}] tick {i}: the forward counters "
+                     f"recorded {forwards_since(before_fwd)}; {rounds} "
+                     f"rounds ran {want}")
         recs.append(dict(
             ids=[list(eng.slots[s].target_ids) for s in slots], wall=dt,
             counts=launch_counts(), shapes=dict(A.launch_shapes),
             reads=graphs.host_reads - reads, steps=n_fwd + 1,
-            evictions=eng.evictions, ticked=len(eng.last_ticked),
+            rounds=rounds, evictions=eng.evictions,
+            ticked=len(eng.last_ticked),
             replayed=sum(p.replays for p in eng._programs.values())
             > replays))
     return recs
 
 
-def _pool_pair(dev, cfg, params, beam, n_ticks, cache, label):
-    """The same audio through the pool captured and uncaptured: fails
-    unless every slot's tokens are equal after every tick, a replayed
-    tick launches what the uncaptured tick does, and a tick reads the
-    device at most steps + 1 times.  Returns (the captured engine, its
-    records, the uncaptured records)."""
+def _pool_pair(dev, cfg, params, beam, n_ticks, cache, label,
+               tag="pool graph", **kw):
+    """The same audio through the pool (``kw``: more of the engine's
+    options) captured and uncaptured: fails unless every slot's tokens
+    are equal after every tick, a replayed tick launches what the
+    uncaptured tick does, and a tick reads the device at most steps + 1
+    times (a speculative tick rounds + 2).  Returns (the captured engine,
+    its records, the uncaptured records)."""
     import torch
 
     runs = {}
     for name, on in (("captured", True), ("uncaptured", False)):
-        eng = _pool_engine(dev, cfg, params, beam, on, cache)
+        eng = _pool_engine(dev, cfg, params, beam, on, cache, **kw)
         runs[name] = (eng if on else None,
                       _pool_run(dev, eng, POOL_GRAPH_MS, n_ticks,
                                 f"{label} {name}"))
@@ -2912,18 +3267,19 @@ def _pool_pair(dev, cfg, params, beam, n_ticks, cache, label):
     (cap, c), (_, u) = runs["captured"], runs["uncaptured"]
     for i, (a, b) in enumerate(zip(c, u)):
         if a["ids"] != b["ids"]:
-            fail(f"[pool graph] {label} tick {i}: captured {a['ids']} != "
+            fail(f"[{tag}] {label} tick {i}: captured {a['ids']} != "
                  f"uncaptured {b['ids']}")
         if a["counts"] != b["counts"] or a["shapes"] != b["shapes"]:
-            fail(f"[pool graph] {label} tick {i}: the captured tick launched "
+            fail(f"[{tag}] {label} tick {i}: the captured tick launched "
                  f"{a['counts']} {a['shapes']}, the uncaptured tick "
                  f"{b['counts']} {b['shapes']}")
-        if a["reads"] > a["steps"] + 1:
-            fail(f"[pool graph] {label} tick {i}: {a['reads']} host reads "
-                 f"for {a['steps']} steps")
+        bound = a["rounds"] + 2 if a["rounds"] else a["steps"] + 1
+        if a["reads"] > bound:
+            fail(f"[{tag}] {label} tick {i}: {a['reads']} host reads "
+                 f"for {a['steps']} steps, {a['rounds']} rounds")
     if not all(a["replayed"] for a in c[1:]):
-        fail(f"[pool graph] {label}: a tick after the first did not replay")
-    print(f"[pool graph] {label}: {len(c)} ticks, programs "
+        fail(f"[{tag}] {label}: a tick after the first did not replay")
+    print(f"[{tag}] {label}: {len(c)} ticks, programs "
           f"{sorted(cap._programs)}, evictions {cap.evictions}; every "
           f"slot's tokens equal captured / uncaptured every tick "
           f"({sum(map(len, c[-1]['ids']))} tokens); every tick's launches "
@@ -2931,9 +3287,10 @@ def _pool_pair(dev, cfg, params, beam, n_ticks, cache, label):
           f"\"error\" synchronised only at the reads", flush=True)
     for i, (a, b) in enumerate(zip(c, u)):
         kind = "replay" if a["replayed"] else "warm-up + capture"
-        print(f"[pool graph]   {label} tick {i:2d}: {a['ticked']} slots, "
+        print(f"[{tag}]   {label} tick {i:2d}: {a['ticked']} slots, "
               f"captured {a['wall'] * 1e3:8.2f} ms ({kind}), uncaptured "
-              f"{b['wall'] * 1e3:8.2f} ms; steps {a['steps']}, host reads "
+              f"{b['wall'] * 1e3:8.2f} ms; steps {a['steps']}, rounds "
+              f"{a['rounds']}, host reads "
               f"{a['reads']}, launches "
               f"{ {k: v for k, v in a['counts'].items() if v} } "
               f"{a['shapes']}", flush=True)
@@ -3102,17 +3459,15 @@ def check_multiplier(dev, r):
 
 
 def check_bench():
-    """``python -m infinisst_tpu_torch.bench`` with its defaults, in a
-    subprocess: exit 0, and its last stdout line is the JSON line of
+    """``python -m infinisst_tpu_torch.bench`` with its defaults
+    (``run_main``): exit 0, and its last stdout line is the JSON line of
     bench.py with metric streaming_rtf_m1_beam4_8b_int8 over 9 timed
     chunks."""
-    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=900)
+    out = run_main("infinisst_tpu_torch.bench", [])
     for line in out.stderr.strip().splitlines()[-16:]:
         print(f"[bench]   {line}", flush=True)
     if out.returncode != 0:
-        fail(f"[bench] {' '.join(cmd[1:])} exited {out.returncode}")
+        fail(f"[bench] bench exited {out.returncode}")
     lines = out.stdout.strip().splitlines()
     try:
         result = json.loads(lines[-1])
@@ -3142,21 +3497,19 @@ def _stderr_json(stderr, prefix):
 
 
 def run_serve_bench(extra, metric, n_layers=32):
-    """``python -m infinisst_tpu_torch.bench --mode serve`` + ``extra`` in
-    a subprocess: exit 0, its last stdout line the serve JSON line with
+    """``python -m infinisst_tpu_torch.bench --mode serve`` + ``extra``
+    (``run_main``): exit 0, its last stdout line the serve JSON line with
     ``metric``, and its launches on stderr those of the forwards it ran:
     decode_attention token forwards x L x 2 (the prefix at B=32 Bc=8 and
     the per-beam block at B=32 Bc=32, L each), w8a8_gemm and
     row_quant_int8 (7L + 1) and (4L + 1) a forward, no other kernel.
     Returns (result, launches, launches by shape, forwards)."""
-    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench", "--mode",
-           "serve"] + extra
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=900)
+    argv = ["--mode", "serve"] + extra
+    out = run_main("infinisst_tpu_torch.bench", argv)
     for line in out.stderr.strip().splitlines()[-24:]:
         print(f"[serve]   {line}", flush=True)
     if out.returncode != 0:
-        fail(f"[serve] {' '.join(cmd[1:])} exited {out.returncode}")
+        fail(f"[serve] bench {' '.join(argv)} exited {out.returncode}")
     lines = out.stdout.strip().splitlines()
     try:
         result = json.loads(lines[-1])
@@ -3269,14 +3622,12 @@ def check_offline_launches(label, counts, calls, n_layers=32,
 
 def run_offline_bench(extra, metric, label, beam_forwards=True):
     """``python -m infinisst_tpu_torch.bench`` + ``extra`` (an offline
-    mode) in a subprocess: exit 0, its last stdout line the JSON line with
+    mode; ``run_main``): exit 0, its last stdout line the JSON line with
     ``metric``, each chunk's wall, beam steps and prompt bucket re-printed,
     and its launches those of the forwards its calls ran
     (``check_offline_launches``).  Returns (result, launches, chunks:
     bench.run_offline's records)."""
-    cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench"] + extra
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=900)
+    out = run_main("infinisst_tpu_torch.bench", extra)
     chunks = []
     for line in out.stderr.splitlines():
         m = CHUNK_LINE.match(line)
@@ -3290,7 +3641,7 @@ def run_offline_bench(extra, metric, label, beam_forwards=True):
     if out.returncode != 0:
         for line in out.stderr.strip().splitlines()[-12:]:
             print(f"[{label}]   {line}", flush=True)
-        fail(f"[{label}] {' '.join(cmd[1:])} exited {out.returncode}")
+        fail(f"[{label}] bench {' '.join(extra)} exited {out.returncode}")
     lines = out.stdout.strip().splitlines()
     try:
         result = json.loads(lines[-1])
@@ -3349,8 +3700,8 @@ def check_alignatt(dev, notes, paths):
 
 
 def check_streamatt_bench(dev, notes, paths):
-    """The port bench's StreamAtt mode (40 chunks, timed from 32) in a
-    subprocess; decode_attention and the probe held at the shapes its
+    """The port bench's StreamAtt mode (40 chunks, timed from 32;
+    ``run_main``); decode_attention and the probe held at the shapes its
     calls ran, timed at the one with the most beam forwards."""
     _, counts, chunks = run_offline_bench(["--mode", "streamatt"],
                                           STREAMATT_METRIC, "streamatt bench")
@@ -3459,23 +3810,32 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def check_server(d, talks):
-    """The port's server at the dryrun preset (pool 2, beam 4,
-    multipliers 1 and 2) on the card and two ``serve.client`` processes,
-    at m=1 and m=2, streaming the CLI's two talks over localhost: both
-    print their FINAL line and exit 0; the server is stopped after."""
-    import socket
-
+def start_server(d):
+    """Start ``check_server``'s server in the background (its process
+    spends its first ~10 s importing torch; it idles once up): returns
+    (process, port, log path)."""
     port = _free_port()
     log_path = os.path.join(d, "server.log")
-    with open(talks[0]) as f:
-        wavs = f.read().split()
     with open(log_path, "w") as log:
         server = subprocess.Popen(
             [sys.executable, "-m", "infinisst_tpu_torch.serve.server",
              "--model-preset", "dryrun", "--port", str(port),
              "--pool-size", "2", "--multipliers", "1,2"],
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return server, port, log_path
+
+
+def check_server(d, talks, started):
+    """The port's server at the dryrun preset (pool 2, beam 4,
+    multipliers 1 and 2) on the card (``started``: ``start_server``'s,
+    started before [cli ckpt]) and two ``serve.client`` processes,
+    at m=1 and m=2, streaming the CLI's two talks over localhost: both
+    print their FINAL line and exit 0; the server is stopped after."""
+    import socket
+
+    server, port, log_path = started
+    with open(talks[0]) as f:
+        wavs = f.read().split()
     clients = []
     try:
         deadline = time.perf_counter() + 300
@@ -3862,9 +4222,16 @@ def _tree_bytes(tree) -> int:
                if isinstance(x, torch.Tensor))
 
 
-def _flagship_trainer(dev, d, max_steps, stage=1, run="run"):
+# [train flagship]'s Llama layers: the LLM is frozen at stage 1, so its
+# depth sets the frozen forward's cost and the checkpoint's bytes (18 GB
+# at 32 layers, written twice), nothing the stage trains
+TRAIN_FLAGSHIP_LAYERS = 8
+
+
+def _flagship_trainer(dev, d, max_steps, stage=1, run="run", n_layers=None):
     """A Trainer on the flagship preset (random bfloat16 weights, as
-    bench.py's bench_train builds them), ``stage`` (1 by default), remat,
+    bench.py's bench_train builds them; the first ``n_layers`` Llama
+    layers if given), ``stage`` (1 by default), remat,
     encoder dropout 0.1 (applied at stage 1 only), over the TSV in ``d``:
     collator 4 at m = 1, two 28.8 s rows a batch, log_step 1, save_step
     0, under ``d/run``.  Its steps and saves are timed (the step
@@ -3877,6 +4244,9 @@ def _flagship_trainer(dev, d, max_steps, stage=1, run="run"):
     from infinisst_tpu_torch.train.trainer import Trainer, TrainerArgs
 
     cfg = flagship_config()
+    if n_layers:
+        cfg = cfg.replace(llama=cfg.llama.__class__(
+            **{**cfg.llama.__dict__, "num_layers": n_layers}))
     args = TrainerArgs(
         data_path=d, data_split_train="tr", data_split_eval="none",
         trajectory=4, trajectory_max_multiplier=1, stage=stage,
@@ -3907,7 +4277,8 @@ def _flagship_trainer(dev, d, max_steps, stage=1, run="run"):
 
 
 def check_train_flagship(dev, paths, d):
-    """Trainer.fit on the flagship (Llama-3.1-8B + wav2vec2-large) in
+    """Trainer.fit on the flagship (Llama-3.1-8B + wav2vec2-large, the
+    Llama cut to its first TRAIN_FLAGSHIP_LAYERS layers) in
     bfloat16, stage 1, 3 steps over synthetic TSV + wav rows of 28.8 s
     under build/: finite losses, every LLM leaf bitwise unchanged, the
     encoder and adapter moved, no kernel launched; the step walls, the
@@ -3925,13 +4296,14 @@ def check_train_flagship(dev, paths, d):
 
     build = os.path.join(ROOT, "build")
     try:
-        t = _flagship_trainer(dev, d, 3)
+        t = _flagship_trainer(dev, d, 3, n_layers=TRAIN_FLAGSHIP_LAYERS)
         state_bytes = _tree_bytes(t.state.params) + _tree_bytes(
             t.state.opt_state)
         free = shutil.disk_usage(build).free
         df = subprocess.run(["df", "-h", build], capture_output=True,
                             text=True).stdout.strip().splitlines()
-        print(f"[train flagship] state {state_bytes / 1e9:.2f} GB a "
+        print(f"[train flagship] {TRAIN_FLAGSHIP_LAYERS} Llama layers: "
+              f"state {state_bytes / 1e9:.2f} GB a "
               f"checkpoint (max_to_keep 2); free under build/ "
               f"{free / 1e9:.1f} GB: {df[-1] if df else '?'}", flush=True)
         if free < 2.2 * state_bytes:
@@ -3950,7 +4322,8 @@ def check_train_flagship(dev, paths, d):
         peak = torch.cuda.max_memory_allocated(dev)
         counts = launch_counts()
         paths["train"] = ("[train flagship] Trainer.fit, flagship stage 1 "
-                          "bf16, 3 steps", counts)
+                          f"bf16 at {TRAIN_FLAGSHIP_LAYERS} Llama layers, 3 "
+                          "steps", counts)
         if any(counts.values()):
             fail(f"[train flagship] kernels launched: {counts}")
         with open(os.path.join(d, "run", "metrics.jsonl")) as f:
@@ -3994,7 +4367,7 @@ def check_train_flagship(dev, paths, d):
         gc.collect()
         torch.cuda.empty_cache()
 
-        t2 = _flagship_trainer(dev, d, 4)
+        t2 = _flagship_trainer(dev, d, 4, n_layers=TRAIN_FLAGSHIP_LAYERS)
         t0 = time.perf_counter()
         final = t2.fit()
         wall = time.perf_counter() - t0
@@ -4253,7 +4626,65 @@ def check_mesh_step(dev, mesh):
           f"bitwise those of make_train_step without a mesh", flush=True)
 
 
-def check_mesh(dev, cfg, params, d, paths):
+def start_mesh_runs(d) -> dict:
+    """Start ``check_mesh``'s two torchrun runs (items 4 and 5) in the
+    background, their output into files under ``d``; returns their
+    processes, files, the run directory and the start time."""
+    import numpy as np
+
+    from infinisst_tpu_torch.bench import write_train_tsv
+
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    data = os.path.join(d, "mesh_main")
+    os.makedirs(data)
+    write_train_tsv(data, 6, 2, np.random.RandomState(1), words_per_unit=0)
+    run = os.path.join(data, "run")
+    runs = {"run": run, "t0": time.perf_counter(), "procs": {}}
+    for name, argv in (
+            ("dryrun", ["infinisst_tpu_torch.parallel.dryrun"]),
+            ("train.main", [
+                "infinisst_tpu_torch.train.main", "--model_preset",
+                "dryrun", "--n_data", "1", "--max_steps", "3",
+                "--data_path", data, "--data_split_train", "tr",
+                "--data_split_eval", "tr", "--eval_step", "0", "--log_step",
+                "1", "--save_step", "0", "--grad_acc_steps", "1",
+                "--train_bsz", "300", "--max_cache_size", "96",
+                "--save_dir", run])):
+        files = [open(os.path.join(d, f"{name}.{x}"), "w+")
+                 for x in ("out", "err")]
+        proc = subprocess.Popen(torchrun + ["-m"] + argv, cwd=ROOT,
+                                stdout=files[0], stderr=files[1], text=True)
+        runs["procs"][name] = (proc, files)
+    return runs
+
+
+def stop_mesh_runs(runs):
+    """Kill what is left of ``start_mesh_runs``' processes."""
+    for proc, files in runs["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in files:
+            f.close()
+
+
+def finish_mesh_runs(runs) -> dict:
+    """Wait for ``start_mesh_runs``' processes; name -> CompletedProcess."""
+    outs = {}
+    for name, (proc, files) in runs["procs"].items():
+        proc.wait(timeout=600)
+        text = []
+        for f in files:
+            f.flush()
+            f.seek(0)
+            text.append(f.read())
+        outs[name] = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                                 *text)
+    return outs
+
+
+def check_mesh(dev, cfg, params, runs, paths):
     """The mesh path on the card at world size 1 (one H100: NCCL refuses
     two ranks on one card, so the multi-rank checks run on the CPU under
     gloo, tests/test_torch_parallel.py):
@@ -4274,12 +4705,66 @@ def check_mesh(dev, cfg, params, d, paths):
        under NCCL, exit 0 and the summary line, its launches;
     5. ``torchrun ... -m infinisst_tpu_torch.train.main --model_preset
        dryrun --n_data 1 --max_steps 3``: metrics.jsonl with three finite
-       losses and the checkpoint of step 3."""
-    import numpy as np
+       losses and the checkpoint of step 3.
+
+    4 and 5 run beside the phases from [alignatt graph] on and beside
+    1-3 (``start_mesh_runs``: each of their processes spends its first
+    ~10 s importing torch); ``runs`` are they, read here."""
+    import torch
+
+    counts, pool_counts = _mesh_in_process(dev, cfg, params)
+    outs = finish_mesh_runs(runs)
+    print(f"[mesh] the two torchrun runs, started before [alignatt graph], "
+          f"read {time.perf_counter() - runs['t0']:.1f} s after their start",
+          flush=True)
+    run = runs["run"]
+
+    out = outs["dryrun"]
+    lines = (out.stdout + out.stderr).strip().splitlines()
+    for line in lines[-3:]:
+        print(f"[mesh]   {line}", flush=True)
+    summary = [x for x in out.stdout.splitlines()
+               if x.startswith("dryrun_multichip OK: mesh=(1x1) devices=1")]
+    if out.returncode != 0 or not summary:
+        fail(f"[mesh] the dryrun exited {out.returncode} without its summary")
+    dry = _stderr_json(out.stderr, "kernel launches ")
+    if dry.get("decode_attention", 0) <= 0:
+        fail(f"[mesh] the dryrun's pool ticks launched no decode_attention: "
+             f"{dry}")
+    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
+    print(f"[mesh] dryrun under torchrun (NCCL, world 1): exit 0, launches "
+          f"{dry}, decode_attention by shape {shapes}", flush=True)
+
+    out = outs["train.main"]
+    for line in (out.stdout + out.stderr).strip().splitlines()[-2:]:
+        print(f"[mesh]   {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"[mesh] train.main under torchrun exited {out.returncode}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        logs = [json.loads(x) for x in f.read().splitlines()]
+    losses = [x["train_loss"] for x in logs if "train_loss" in x]
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        fail(f"[mesh] train.main under torchrun: losses {losses}")
+    saved = torch.load(os.path.join(run, "ckpt", "3", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    if saved["step"] != 3:
+        fail(f"[mesh] the torchrun checkpoint holds step {saved['step']}")
+    print(f"[mesh] train.main under torchrun (NCCL, n_data 1): losses "
+          f"{[round(x, 4) for x in losses]}, checkpoint of step 3",
+          flush=True)
+    paths["mesh"] = (
+        "[mesh] the flagship W8A8 agent at mesh (1, 1), 4 chunks; the "
+        "flagship W8A8 pool through the split engine at (1, 1), 2 ticks; "
+        "the dryrun under torchrun at (1, 1)",
+        {"agent": counts, "split_pool": pool_counts, "dryrun": dry})
+
+
+def _mesh_in_process(dev, cfg, params):
+    """``check_mesh``'s items 1-3, in a world-1 NCCL group of this
+    process; returns the launches of 1 and of 2."""
     import torch
     import torch.distributed as dist
 
-    from infinisst_tpu_torch.bench import write_train_tsv
     from infinisst_tpu_torch.parallel import mesh as pmesh
 
     t0 = time.perf_counter()
@@ -4324,69 +4809,12 @@ def check_mesh(dev, cfg, params, d, paths):
         check_mesh_step(dev, mesh)
     finally:
         dist.destroy_process_group()
-
-    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node", "1"]
-    t1 = time.perf_counter()
-    out = subprocess.run(torchrun + ["-m", "infinisst_tpu_torch.parallel.dryrun"],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    lines = (out.stdout + out.stderr).strip().splitlines()
-    for line in lines[-3:]:
-        print(f"[mesh]   {line}", flush=True)
-    summary = [x for x in out.stdout.splitlines()
-               if x.startswith("dryrun_multichip OK: mesh=(1x1) devices=1")]
-    if out.returncode != 0 or not summary:
-        fail(f"[mesh] the dryrun exited {out.returncode} without its summary")
-    dry = _stderr_json(out.stderr, "kernel launches ")
-    if dry.get("decode_attention", 0) <= 0:
-        fail(f"[mesh] the dryrun's pool ticks launched no decode_attention: "
-             f"{dry}")
-    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
-    print(f"[mesh] dryrun under torchrun (NCCL, world 1): exit 0, launches "
-          f"{dry}, decode_attention by shape {shapes} "
-          f"({time.perf_counter() - t1:.1f} s)", flush=True)
-
-    t2 = time.perf_counter()
-    data = os.path.join(d, "mesh_main")
-    os.makedirs(data)
-    write_train_tsv(data, 6, 2, np.random.RandomState(1), words_per_unit=0)
-    run = os.path.join(data, "run")
-    out = subprocess.run(
-        torchrun + ["-m", "infinisst_tpu_torch.train.main",
-                    "--model_preset", "dryrun", "--n_data", "1",
-                    "--max_steps", "3", "--data_path", data,
-                    "--data_split_train", "tr", "--data_split_eval", "tr",
-                    "--eval_step", "0", "--log_step", "1", "--save_step", "0",
-                    "--grad_acc_steps", "1", "--train_bsz", "300",
-                    "--max_cache_size", "96", "--save_dir", run],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    for line in (out.stdout + out.stderr).strip().splitlines()[-2:]:
-        print(f"[mesh]   {line}", flush=True)
-    if out.returncode != 0:
-        fail(f"[mesh] train.main under torchrun exited {out.returncode}")
-    with open(os.path.join(run, "metrics.jsonl")) as f:
-        logs = [json.loads(x) for x in f.read().splitlines()]
-    losses = [x["train_loss"] for x in logs if "train_loss" in x]
-    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
-        fail(f"[mesh] train.main under torchrun: losses {losses}")
-    saved = torch.load(os.path.join(run, "ckpt", "3", "state.pt"),
-                       map_location="cpu", weights_only=True)
-    if saved["step"] != 3:
-        fail(f"[mesh] the torchrun checkpoint holds step {saved['step']}")
-    print(f"[mesh] train.main under torchrun (NCCL, n_data 1): losses "
-          f"{[round(x, 4) for x in losses]}, checkpoint of step 3 "
-          f"({time.perf_counter() - t2:.1f} s)", flush=True)
-    paths["mesh"] = (
-        "[mesh] the flagship W8A8 agent at mesh (1, 1), 4 chunks; the "
-        "flagship W8A8 pool through the split engine at (1, 1), 2 ticks; "
-        "the dryrun under torchrun at (1, 1)",
-        {"agent": counts, "split_pool": pool_counts, "dryrun": dry})
+    return counts, pool_counts
 
 
 def check_train_main(d):
     """``python -m infinisst_tpu_torch.train.main --model_preset dryrun
-    --max_steps 3`` on the card in a subprocess over a dryrun TSV (rows
+    --max_steps 3`` on the card (``run_main``) over a dryrun TSV (rows
     of 1920 ms; the trajectories carry no text, so that the stub
     tokenizer's ids, past the dryrun vocabulary, are no target):
     metrics.jsonl with three finite train losses and an eval loss, and
@@ -4400,14 +4828,12 @@ def check_train_main(d):
     os.makedirs(data)
     write_train_tsv(data, 6, 2, np.random.RandomState(1), words_per_unit=0)
     run = os.path.join(data, "run")
-    cmd = [sys.executable, "-m", "infinisst_tpu_torch.train.main",
-           "--model_preset", "dryrun", "--max_steps", "3",
-           "--data_path", data, "--data_split_train", "tr",
-           "--data_split_eval", "tr", "--eval_step", "3", "--log_step", "1",
-           "--save_step", "0", "--grad_acc_steps", "1", "--train_bsz", "300",
-           "--max_cache_size", "96", "--save_dir", run]
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
+    argv = ["--model_preset", "dryrun", "--max_steps", "3",
+            "--data_path", data, "--data_split_train", "tr",
+            "--data_split_eval", "tr", "--eval_step", "3", "--log_step",
+            "1", "--save_step", "0", "--grad_acc_steps", "1", "--train_bsz",
+            "300", "--max_cache_size", "96", "--save_dir", run]
+    out = run_main("infinisst_tpu_torch.train.main", argv)
     for line in (out.stdout + out.stderr).strip().splitlines()[-4:]:
         print(f"[train main]   {line}", flush=True)
     if out.returncode != 0:
@@ -4429,17 +4855,14 @@ def check_train_main(d):
 
 def check_train_bench():
     """``python -m infinisst_tpu_torch.bench --mode train`` and ``--mode
-    train-io`` in subprocesses: exit 0, the JSON line of bench.py's row
+    train-io`` (``run_main``): exit 0, the JSON line of bench.py's row
     (its metric and keys), the value finite and positive; returns the two
     lines."""
     out_lines = {}
     for mode, metric, keys in (("train", TRAIN_METRIC, TRAIN_KEYS),
                                ("train-io", TRAIN_IO_METRIC, TRAIN_IO_KEYS)):
         label = f"train bench {mode}"
-        cmd = [sys.executable, "-m", "infinisst_tpu_torch.bench", "--mode",
-               mode]
-        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=900)
+        out = run_main("infinisst_tpu_torch.bench", ["--mode", mode])
         for line in out.stderr.strip().splitlines()[-20:]:
             print(f"[{label}]   {line}", flush=True)
         if out.returncode != 0:
@@ -4858,7 +5281,7 @@ def check_distill_tiny(dev, paths):
 
 def check_distill_flagship(dev, paths):
     """``tools.distill_adapter`` at the flagship's full width (8B float32,
-    V = 128256, rank 2048, d = 8) in a subprocess: the logged KL falls,
+    V = 128256, rank 2048, d = 8; ``run_main``): the logged KL falls,
     the .npz loads at d = 8 and is refused at 4.  Then the flagship W8A8
     agent, speculative at d = 8 with the guard off, DISTILL_CHUNKS chunks
     with and without the adapter: the same tokens, w8a8_gemm and
@@ -4891,14 +5314,12 @@ def check_distill_flagship(dev, paths):
                 f.write(" ".join(str(x) for x in rng.randint(5, 128000, 16))
                         + "\n")
         out = os.path.join(d, "adapter_d8.npz")
-        cmd = [sys.executable, "-m", "infinisst_tpu_torch.tools.distill_adapter",
-               "--model-preset", "flagship", "--prompts", prompts,
-               "--prompt-tokens", "16", "--gen-len", "16", "--batch-size", "2",
-               "--draft-layers", "8", "--rank", "2048", "--steps", "20",
-               "--out", out]
+        argv = ["--model-preset", "flagship", "--prompts", prompts,
+                "--prompt-tokens", "16", "--gen-len", "16", "--batch-size",
+                "2", "--draft-layers", "8", "--rank", "2048", "--steps",
+                "20", "--out", out]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                           timeout=900)
+        r = run_main("infinisst_tpu_torch.tools.distill_adapter", argv)
         wall = time.perf_counter() - t0
         print(r.stderr[-3000:], flush=True)
         if r.returncode != 0:
@@ -5332,6 +5753,32 @@ def check_demos(dev, paths):
     hold_recorded_attention(seen, "demos")
 
 
+def train_phases(dev, paths):
+    """[train flagship], [train flagship stage 2] and [train tiny]: the
+    training path, which runs no kernel of the port (run beside the
+    build; the flagship's first: the card's work, where the build's
+    compilers take the host's cores from [train tiny]'s CPU twin)."""
+    import numpy as np
+
+    from infinisst_tpu_torch.bench import write_train_tsv
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    train_dir = tempfile.mkdtemp(prefix="train_flagship_",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        write_train_tsv(train_dir, 6, 30, np.random.RandomState(0))
+        with phase("train flagship"):
+            check_train_flagship(dev, paths, train_dir)
+        with phase("train flagship stage 2"):
+            check_train_flagship_stage2(dev, train_dir)
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    with phase("train tiny"):
+        print("[train tiny] dryrun float32 train steps: card against CPU",
+              flush=True)
+        check_train_tiny(dev)
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -5356,12 +5803,24 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from infinisst_tpu_torch.kernels import _build
 
-    # 2. build: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    _build.load_all()
+    # 2. build: one nvcc per source, all started together, in a thread;
+    # the training phases, which launch no kernel of the port (JAX's
+    # training forward calls no Pallas kernel), run beside it
+    import concurrent.futures
+
+    def timed_build():
+        t0 = time.perf_counter()
+        _build.load_all()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        build = pool.submit(timed_build)
+        paths = {}
+        train_phases(dev, paths)
+        build_s = build.result()
     print(f"[build] {', '.join(_build.SOURCES)} built for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
-          flush=True)
+          f"{build_s:.1f} s into {_build.BUILD_DIR} (beside the training "
+          "phases)", flush=True)
 
     notes = Notes()
     with phase("kernels"):
@@ -5391,25 +5850,34 @@ def main():
               "against CPU", flush=True)
         check_alignatt_tiny(dev, *tiny_params)
 
-    paths = {}
     with phase("flagship"):
         cfg, params = check_flagship(dev, paths)
     with phase("graph"):
         check_graph(dev, cfg, params, paths)
     with phase("pool graph"):
         check_pool_graph(dev, cfg, params, paths)
-    with phase("alignatt graph"):
-        check_alignatt_graph(dev, cfg, params)
-    with phase("sample graph"):
-        check_sample_graph(dev, cfg, params)
-    with phase("streamatt"):
-        check_streamatt(dev, cfg, params)
+    # [mesh]'s torchrun runs, in the background from here on (their
+    # processes' imports take the time; their GPU work is the dryrun's)
     mesh_dir = tempfile.mkdtemp(prefix="mesh_", dir=os.path.join(ROOT,
                                                                 "build"))
+    mesh_runs = start_mesh_runs(mesh_dir)
     try:
+        with phase("alignatt graph"):
+            check_alignatt_graph(dev, cfg, params)
+        with phase("sample graph"):
+            check_sample_graph(dev, cfg, params)
+        with phase("spec graph"):
+            check_spec_graph(dev, cfg, params, paths)
+        with phase("spec pool graph"):
+            check_spec_pool_graph(dev, cfg, params, paths)
+        with phase("spec profile"):
+            check_spec_profile(dev, cfg, params)
+        with phase("streamatt"):
+            check_streamatt(dev, cfg, params)
         with phase("mesh"):
-            check_mesh(dev, cfg, params, mesh_dir, paths)
+            check_mesh(dev, cfg, params, mesh_runs, paths)
     finally:
+        stop_mesh_runs(mesh_runs)
         shutil.rmtree(mesh_dir, ignore_errors=True)
     speech = {k: params[k] for k in ("w2v2", "adapter")}
     del params
@@ -5435,6 +5903,7 @@ def main():
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     cli_dir = tempfile.mkdtemp(prefix="cli_smoke_",
                                dir=os.path.join(ROOT, "build"))
+    server = start_server(cli_dir)
     try:
         wavs = write_talks(cli_dir)
         with phase("cli ckpt"):
@@ -5442,32 +5911,17 @@ def main():
         with phase("cli flagship"):
             check_cli_flagship(cli_dir, wavs)
         with phase("server"):
-            check_server(cli_dir, wavs)
+            check_server(cli_dir, wavs, server)
         torch.cuda.empty_cache()
-        with phase("train tiny"):
-            print("[train tiny] dryrun float32 train steps: card against "
-                  "CPU", flush=True)
-            check_train_tiny(dev)
-        import numpy as np
-
-        from infinisst_tpu_torch.bench import write_train_tsv
-
-        train_dir = tempfile.mkdtemp(prefix="train_flagship_",
-                                     dir=os.path.join(ROOT, "build"))
-        try:
-            write_train_tsv(train_dir, 6, 30, np.random.RandomState(0))
-            with phase("train flagship"):
-                check_train_flagship(dev, paths, train_dir)
-            with phase("train flagship stage 2"):
-                check_train_flagship_stage2(dev, train_dir)
-        finally:
-            shutil.rmtree(train_dir, ignore_errors=True)
         with phase("train main"):
             check_train_main(cli_dir)
         with phase("train bench"):
             check_train_bench()
             profile_train_bench(dev)
     finally:
+        if server[0].poll() is None:  # a phase before [server] failed
+            server[0].kill()
+            server[0].wait()
         shutil.rmtree(cli_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     with phase("fidelity"):
@@ -5542,6 +5996,22 @@ def main():
                                          "path": pg_path}
             if name == "decode_attention":
                 entries[-1]["pool_graph"]["by_shape"] = pg_shapes
+        # the captured speculative programs: launches of a replayed chunk
+        # (greedy, sampling, spec beam) and of a replayed pool tick
+        spec_graph = {}
+        for what, keys in (("launches_a_chunk", ("spec", "spec_sample",
+                                                 "spec_beam")),
+                           ("launches_a_tick", ("spec", "spec_sample"))):
+            prefix = "spec graph" if what.endswith("chunk") \
+                else "spec pool graph"
+            got = {k: paths[f"{prefix} {k}"][1].get(name, 0) for k in keys}
+            if any(got.values()):
+                spec_graph[what] = got
+        if spec_graph:
+            spec_graph["path"] = "; ".join(
+                paths[k][0] for k in sorted(paths)
+                if k.startswith(("spec graph ", "spec pool graph ")))
+            entries[-1]["spec_graph"] = spec_graph
         # the mesh path at world size 1: the flagship agent in this
         # process, the dryrun under torchrun
         mesh_path, mesh_counts = paths["mesh"]

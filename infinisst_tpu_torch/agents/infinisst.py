@@ -36,9 +36,21 @@ The plain sampler is a device program too, keyed (m, n_units, first,
 sampling loop's start, (S) one draw (``beam.sample_select``) from the
 program's own generator, registered with S's graph and reseeded each
 chunk, (D) its ``beam_token_step`` at beam 1, (F) as above; the host
-reads ``go`` once a draw.  The speculative decoders keep their eager
-loops (``_decode``) between the same prologue and epilogue on the same
-device state.
+reads ``go`` once a draw.  So are the speculative decoders, keyed (m,
+n_units, first, "spec" / "spec_sample" / "spec_beam"): greedy and
+sampling are (A) the prologue and ``speculative.start_spec``, (R) one
+whole round (``spec_round``: the draft, the verify, the acceptance, the
+commit into the stream's cache; the sampler's draws from the program's
+generator, registered with R's graph and reseeded each chunk) and (F)
+the cap-dropped token rolled back out of the cache, the epilogue with
+nothing pending and the packed [n_emit, n_tokens, hit_eos, tokens,
+rounds, drafted, accepted] (``_finish_spec``), with one read of ``go``
+a round; speculative beam search is (A), (T) the anchor transition
+(``spec_beam.spec_beam_anchor``), (R) the draft, tree verify, replay and
+commit (``spec_beam_round``) and (F) the finalize and the deferred
+commit, with a read of ``go`` after T and after R (JAX's ``lax.cond``
+skips the round's draft and verify when T ends the search).  The guard
+reads its statistics from the packed vector.
 
 ``update_multiplier`` changes the latency multiplier mid-stream, and
 ``InfiniSSTOptions.quantize`` turns the Llama projections into weight-only
@@ -76,12 +88,11 @@ from infinisst_tpu_torch.data.template import PromptBuilder
 from infinisst_tpu_torch.decode import beam as beam_mod
 from infinisst_tpu_torch.decode import logits as lp
 from infinisst_tpu_torch.decode import speculative as spec_mod
-from infinisst_tpu_torch.decode.spec_beam import spec_beam_search
+from infinisst_tpu_torch.decode import spec_beam as sb_mod
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models import speech_llm
 from infinisst_tpu_torch.models import wav2vec2 as w2v2_mod
 from infinisst_tpu_torch.streaming.state import (
-    DecoderState,
     init_decoder_state,
     init_encoder_state,
 )
@@ -457,13 +468,15 @@ class InfiniSSTAgent(SpeechToTextAgent):
     def _chunk_kind(self):
         """The decode of this chunk's device program, the last element of
         its key: the beam of the plain beam step, "sample" for the plain
-        sampler, or None when the chunk runs a speculative decoder (its
-        eager loop).  The speculative guard's fallback is plain beam
-        search at beam 1 (at the options' beam for speculative beam
-        search), or the plain sampler under sampling."""
+        sampler, "spec", "spec_sample" or "spec_beam" for the speculative
+        decoders (JAX's non-fallback key).  The speculative guard's
+        fallback is plain beam search at beam 1 (at the options' beam for
+        speculative beam search), or the plain sampler under sampling."""
         opts = self.opts
         if opts.speculative and not self._spec_fallback:
-            return None
+            if opts.spec_beam:
+                return "spec_beam"
+            return "spec_sample" if opts.do_sample else "spec"
         if opts.do_sample:
             return "sample"
         greedy_fallback = self._spec_fallback and not opts.spec_beam
@@ -473,27 +486,36 @@ class InfiniSSTAgent(SpeechToTextAgent):
                            ) -> graphs.DeviceProgram:
         """The chunk step of a chunk of ``n_units`` 960 ms units (n_units
         == m except for the stream tail) as one device program, made once
-        per key (m, n_units, first, beam or "sample"): pieces A, B, C and
-        F of the plain beam step (see the module note), or A, S, D and F
-        of the sampler (``_sample_pieces``), captured as CUDA graphs on
-        the card."""
+        per key (m, n_units, first, kind): pieces A, B, C and F of the
+        plain beam step (see the module note), A, S, D and F of the
+        sampler (``_sample_pieces``), A, R and F of speculative greedy or
+        sampling (``_spec_pieces``), or A, T, R and F of speculative beam
+        search (``_spec_beam_pieces``), captured as CUDA graphs on the
+        card."""
         m, kind = self.opts.latency_multiplier, self._chunk_kind()
         key = (m, n_units, first, kind)
         if key in self._programs:
             return self._programs[key]
         c = self._geometry(n_units, first)
-        packed = torch.zeros((5 + 2 * self.max_new,), dtype=torch.int32,
-                             device=self.device)
+        G = self.max_new
+        # [n_emit, pack_result] or [n_emit, pack_spec (+ steps, score)]
+        size = {"spec": 6 + G, "spec_sample": 6 + G,
+                "spec_beam": 8 + G}.get(kind, 5 + 2 * G)
+        packed = torch.zeros((size,), dtype=torch.int32, device=self.device)
         # the pieces hold the agent weakly: the agent holds its programs,
         # and a cycle would keep the weights alive past the agent
         me = weakref.proxy(self)
         if kind == "sample":
             pieces, gens, loop = self._sample_pieces(me, c, packed)
+        elif kind in ("spec", "spec_sample"):
+            pieces, gens, loop = self._spec_pieces(me, c, packed, kind)
+        elif kind == "spec_beam":
+            pieces, gens, loop = self._spec_beam_pieces(me, c, packed)
         else:
             pieces, gens, loop = self._beam_pieces(me, c, packed, kind)
         prog = graphs.DeviceProgram(pieces, self._pool(), gens)
-        prog.loop, prog.packed = loop, packed
-        prog.generator = gens["S"][0] if gens else None
+        prog.loop, prog.packed, prog.kind = loop, packed, kind
+        prog.generator = next(iter(gens.values()))[0] if gens else None
         self._programs[key] = prog
         return prog
 
@@ -576,6 +598,123 @@ class InfiniSSTAgent(SpeechToTextAgent):
         return (dict(A=prefill, S=select, D=forward, F=finish), {"S": [gen]},
                 loop)
 
+    def _spec_pieces(self, me, c: _Chunk, packed: torch.Tensor,
+                     kind: str):
+        """Speculative greedy ("spec") or sampling ("spec_sample"): A
+        (prologue, ``speculative.start_spec``), R (``spec_round``: one
+        whole round, the draft, the verify, the acceptance and the
+        commit into the stream's cache) and F (``_finish_spec``); its
+        loop.  The sampler's R draws from the program's own generator
+        (registered with R's graph), reseeded each chunk with
+        ``logits.chunk_seed(sample_seed, chunk index)``."""
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        G, pad, eos = self.max_new, cfg.tokens.pad, cfg.tokens.eos
+        ngram, rep = opts.no_repeat_ngram_size, opts.repetition_penalty
+        common = dict(max_new_tokens=G, eos_id=eos, pad_id=pad,
+                      draft_layers=opts.spec_draft_layers,
+                      draft_k=opts.spec_k, no_repeat_ngram_size=ngram,
+                      repetition_penalty=rep)
+        if kind == "spec_sample":
+            spec = spec_mod.SpecSampleSpec(
+                **common, temperature=opts.temperature, top_k=opts.top_k,
+                top_p=opts.top_p, epsilon_cutoff=opts.epsilon_cutoff)
+            gen = torch.Generator(device=dev)
+        else:
+            spec = spec_mod.SpecSpec(**common,
+                                     accept_all=opts.spec_accept_all)
+            gen = None
+        Tp = c.prompt_ids.shape[0]
+        V = cfg.llama.vocab_size
+        loop = spec_mod.alloc_spec(spec, 1, V, Tp, dev)
+        draft = self._draft()
+
+        def prefill():  # A
+            spec_mod.start_spec(loop, spec, me._prologue(c)[None],
+                                c.prompt_ids[None], Tp)
+
+        def round_():  # R
+            spec_mod.spec_round(loop, spec, me.params["llama"], cfg.llama,
+                                me.dec_state, draft, me.hist[None],
+                                me.hist_len.reshape(1), gen, ngram,
+                                me._suppress)
+
+        def finish():  # F
+            me._finish_spec(spec_mod.pack_spec(
+                loop.tokens[0], loop.n_out[0], loop.hit_eos[0], loop.rounds,
+                loop.drafted[0], loop.accepted[0]), packed)
+
+        gens = {"R": [gen]} if gen is not None else None
+        return dict(A=prefill, R=round_, F=finish), gens, loop
+
+    def _spec_beam_pieces(self, me, c: _Chunk, packed: torch.Tensor):
+        """Speculative beam search: A (prologue, ``start_spec_beam``), T
+        (``spec_beam_anchor``: the anchor transition T0), R
+        (``spec_beam_round``: the draft, the tree verify, the replay and
+        the commit into the loop's buffers) and F (the finalize, the
+        deferred commit as plain beam's); its loop."""
+        cfg, opts, dev = self.cfg, self.opts, self.device
+        spec = beam_mod.BeamSpec(
+            beam=opts.beam, max_new_tokens=self.max_new,
+            eos_id=cfg.tokens.eos, pad_id=cfg.tokens.pad,
+            no_repeat_ngram_size=opts.no_repeat_ngram_size,
+            repetition_penalty=opts.repetition_penalty)
+        Tp = c.prompt_ids.shape[0]
+        loop = sb_mod.alloc_spec_beam(
+            spec, cfg.llama, opts.spec_k, cfg.llama.vocab_size, Tp,
+            self.dec_state.k.shape[3], self.dtype, dev)
+        draft = self._draft()
+        ngram = opts.no_repeat_ngram_size
+
+        def ctx():
+            return (me.hist[None], me.hist_len.reshape(1), ngram,
+                    me._suppress)
+
+        def prefill():  # A
+            sb_mod.start_spec_beam(loop, spec, me._prologue(c),
+                                   c.prompt_ids, Tp)
+
+        def anchor():  # T
+            sb_mod.spec_beam_anchor(loop, spec, *ctx())
+
+        def round_():  # R
+            sb_mod.spec_beam_round(loop, spec, me.params["llama"],
+                                   cfg.llama, me.dec_state, draft, *ctx(),
+                                   accept_all=opts.spec_accept_all)
+
+        def finish():  # F
+            me._finish_spec(sb_mod.spec_beam_finish(loop, spec), packed,
+                            pending=True)
+
+        return dict(A=prefill, T=anchor, R=round_, F=finish), None, loop
+
+    def _draft(self) -> spec_mod.Draft:
+        """The speculative draft: the first ``spec_draft_layers`` layers
+        with the draft head and the exit adapter."""
+        p = self.params
+        return spec_mod.draft_of(p["llama"], self.cfg.llama,
+                                 self.opts.spec_draft_layers,
+                                 p.get("spec_draft_head"),
+                                 p.get("spec_adapter"))
+
+    def _finish_spec(self, result: torch.Tensor, packed: torch.Tensor,
+                     pending: bool = False):
+        """Piece F of a speculative program, from its decode's
+        ``pack_spec`` vector: the final token dropped when the cap was hit
+        without EOS; greedy and sampling (``pending`` False) roll the
+        verify-committed cap-dropped token back out of the cache (it must
+        not condition later chunks) and leave nothing pending, speculative
+        beam defers its commit as plain beam does; the epilogue and the
+        packed [n_emit, ``result``] vector."""
+        G = self.max_new
+        n_tokens, hit_eos = result[0].to(torch.int64), result[1] != 0
+        n_emit = torch.where(hit_eos, n_tokens,
+                             torch.clamp(n_tokens - 1, min=0))
+        if not pending:
+            self.dec_state.valid_len.sub_(n_tokens - n_emit)
+        self._epilogue(result[2:2 + G].to(torch.int64), n_emit,
+                       pending=pending)
+        packed.copy_(torch.cat([n_emit.to(torch.int32).reshape(1), result]))
+
     def _finish(self, res: beam_mod.BeamOut, packed: torch.Tensor):
         """Piece F: the final token dropped when the cap was hit without
         EOS, the epilogue (pending tokens, history ring) and the packed
@@ -592,90 +731,46 @@ class InfiniSSTAgent(SpeechToTextAgent):
         """One chunk step.  Returns (the decode's result, n_emit).  The
         deferred trim is cleared only once it is applied: a step that
         fails before then keeps it for the next one."""
-        kind = self._chunk_kind()
-        if kind is not None:
-            prog = self._generate_chunk_fn(n_units, first)
-            with prog.step():
-                self._upload(chunk_i16, ev_keep, ev_sys)
-                if kind == "sample":
-                    prog.generator.manual_seed(lp.chunk_seed(
-                        self.opts.sample_seed, self._chunk_counter))
-                prog.run("A")
-                self._pending_evict = None
-                if kind == "sample":
-                    for _ in range(self.max_new):
-                        prog.run("S")
-                        if not graphs.read(prog.loop.go):
-                            break
-                        prog.run("D")
-                else:
+        prog = self._generate_chunk_fn(n_units, first)
+        kind, loop = prog.kind, prog.loop
+        with prog.step():
+            self._upload(chunk_i16, ev_keep, ev_sys)
+            if prog.generator is not None:
+                prog.generator.manual_seed(lp.chunk_seed(
+                    self.opts.sample_seed, self._chunk_counter))
+            prog.run("A")
+            self._pending_evict = None
+            if kind == "sample":
+                for _ in range(self.max_new):
+                    prog.run("S")
+                    if not graphs.read(loop.go):
+                        break
+                    prog.run("D")
+            elif kind in ("spec", "spec_sample"):
+                while graphs.read(loop.go):  # one round a read
+                    prog.run("R")
+            elif kind == "spec_beam":
+                # T ends the search, or R after it: JAX's lax.cond
+                while True:
+                    prog.run("T")
+                    if not graphs.read(loop.go):
+                        break
+                    prog.run("R")
+                    if not graphs.read(loop.go):
+                        break
+            else:
+                prog.run("B")
+                while not beam_mod.read_done(loop):
+                    prog.run("C")
                     prog.run("B")
-                    while not beam_mod.read_done(prog.loop):
-                        prog.run("C")
-                        prog.run("B")
-                prog.run("F")
-                packed = graphs.read(prog.packed)
-            return beam_mod.unpack_result(packed, self.max_new, 1), packed[0]
-        # the speculative decoders, eager, between the same prologue and
-        # epilogue
-        self._upload(chunk_i16, ev_keep, ev_sys)
-        c = self._geometry(n_units, first)
-        last_logits = self._prologue(c)
-        self._pending_evict = None
-        res = self._decode(last_logits, c.prompt_ids)
-        # drop the final token when the cap was hit without EOS
-        n_emit = res.n_tokens if res.hit_eos else max(res.n_tokens - 1, 0)
-        verified = isinstance(res, spec_mod.SpecResult)
-        if verified:
-            # the verify committed the tokens' K/V: roll back to the
-            # emitted prefix (a cap-dropped token must not condition later
-            # chunks), nothing pending
-            _put(self.dec_state, DecoderState(
-                k=res.dec.k, v=res.dec.v,
-                valid_len=res.dec.valid_len - (res.n_tokens - n_emit)))
-        i64 = dict(dtype=torch.int64, device=self.device)
-        self._epilogue(torch.as_tensor(list(res.tokens), **i64),
-                       torch.tensor(n_emit, **i64), pending=not verified)
-        return res, n_emit
-
-    def _decode(self, last_logits, prompt_ids):
-        """The chunk's speculative decode (``_chunk_kind`` None):
-        speculative beam, greedy or sampling."""
-        opts, cfg, dev = self.opts, self.cfg, self.device
-        G, pad, eos = self.max_new, cfg.tokens.pad, cfg.tokens.eos
-        args = (self.params["llama"], cfg.llama, self.dec_state, last_logits,
-                prompt_ids, prompt_ids.shape[0], self.hist,
-                int(self.hist_len))
-        kw = dict(encoder_ngram_size=opts.no_repeat_ngram_size,
-                  suppress_mask=self._suppress)
-        draft = dict(draft_head=self.params.get("spec_draft_head"),
-                     exit_adapter=self.params.get("spec_adapter"))
-        ngram, rep = opts.no_repeat_ngram_size, opts.repetition_penalty
-        if opts.spec_beam:
-            spec = beam_mod.BeamSpec(
-                beam=opts.beam, max_new_tokens=G, eos_id=eos, pad_id=pad,
-                no_repeat_ngram_size=ngram, repetition_penalty=rep)
-            return spec_beam_search(
-                *args, spec, draft_layers=opts.spec_draft_layers,
-                draft_k=opts.spec_k, accept_all=opts.spec_accept_all,
-                **kw, **draft)
-        if opts.do_sample:
-            spec = spec_mod.SpecSampleSpec(
-                max_new_tokens=G, eos_id=eos, pad_id=pad,
-                draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
-                temperature=opts.temperature, top_k=opts.top_k,
-                top_p=opts.top_p, epsilon_cutoff=opts.epsilon_cutoff,
-                no_repeat_ngram_size=ngram, repetition_penalty=rep)
-            gen = lp.chunk_generator(opts.sample_seed, self._chunk_counter,
-                                     dev)
-            return spec_mod.speculative_sample(*args, spec, gen, **kw,
-                                               **draft)
-        spec = spec_mod.SpecSpec(
-            max_new_tokens=G, eos_id=eos, pad_id=pad,
-            draft_layers=opts.spec_draft_layers, draft_k=opts.spec_k,
-            no_repeat_ngram_size=ngram, repetition_penalty=rep,
-            accept_all=opts.spec_accept_all)
-        return spec_mod.speculative_greedy(*args, spec, **kw, **draft)
+            prog.run("F")
+            packed = graphs.read(prog.packed)
+        G = self.max_new
+        if kind in ("spec", "spec_sample"):
+            return spec_mod.unpack_spec(packed, G, 1), packed[0]
+        if kind == "spec_beam":
+            return sb_mod.unpack_spec_beam(packed, G, 1), packed[0]
+        return beam_mod.unpack_result(packed, G, 1), packed[0]
 
     def _guard(self, res, n_emit: int):
         """After a speculative chunk: the statistics, and the acceptance

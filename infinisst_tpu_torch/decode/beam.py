@@ -89,14 +89,6 @@ class BeamResult(NamedTuple):
     kv_v: Optional[torch.Tensor] = None
 
 
-def _f32(x) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32)
-
-
-def _len_norm(length: int, length_penalty: float) -> torch.Tensor:
-    return _f32(float(max(length, 1))) ** length_penalty
-
-
 def select_candidates(step_scores: torch.Tensor, beam_scores: torch.Tensor):
     """Exact top-2B candidates over (..., B, V) processed log-probs, per
     leading index (one slot of a pool), by repeated argmax + mask (first
@@ -116,17 +108,24 @@ def select_candidates(step_scores: torch.Tensor, beam_scores: torch.Tensor):
     return total, top_vals, top_idx // V, top_idx % V
 
 
-def finalize_winner(spec: BeamSpec, t: int, beam_scores: torch.Tensor,
-                    fin_scores: List[float]):
-    """HF finalize: the best live beam (normalised by generated length)
-    against the best finished hypothesis.  Returns (best_live, best_fin,
-    use_fin, live_score (B,) f32)."""
-    live_score = beam_scores.cpu() / _len_norm(t, spec.length_penalty)
-    ls = live_score.tolist()
-    best_live = max(range(len(ls)), key=lambda i: (ls[i], -i))
-    have_fin = sum(s > NEG_INF / 2 for s in fin_scores) > 0
-    best_fin = max(range(len(fin_scores)), key=lambda i: (fin_scores[i], -i))
-    use_fin = have_fin and fin_scores[best_fin] >= ls[best_live]
+def finalize_winner(spec: BeamSpec, t, beam_scores: torch.Tensor,
+                    fin_scores):
+    """HF finalize, JAX's, on the device over leading rows: the best
+    live beam (normalised by its row's generated length ``t``, an int or
+    an int tensor of the leading shape) against the best finished
+    hypothesis, by ``argmax`` (the first of equal ones).  beam_scores and
+    fin_scores (..., B).  Returns (best_live (...), best_fin (...),
+    use_fin (...), live_score (..., B) float32)."""
+    fs = torch.as_tensor(fin_scores, dtype=torch.float32,
+                         device=beam_scores.device)
+    n = torch.as_tensor(t, device=beam_scores.device)
+    live_score = beam_scores / _pow_len(n, spec.length_penalty)[..., None]
+    best_live = torch.argmax(live_score, dim=-1)
+    best_fin = torch.argmax(fs, dim=-1)
+    have_fin = torch.sum(fs > NEG_INF / 2, dim=-1) > 0
+    use_fin = have_fin & (
+        fs.gather(-1, best_fin[..., None])[..., 0]
+        >= live_score.gather(-1, best_live[..., None])[..., 0])
     return best_live, best_fin, use_fin, live_score
 
 
@@ -376,46 +375,46 @@ def _flat_rows(beam_idx: torch.Tensor, B: int) -> torch.Tensor:
     return (base + beam_idx.reshape(P, -1)).reshape(-1)
 
 
-def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
-                history_len: torch.Tensor, encoder_ngram_size: int = 0,
-                suppress_mask: Optional[torch.Tensor] = None,
-                over_data: bool = False):
-    """One step of JAX's ``step_fn`` up to its forward, for every live
-    row, in place: the processors on the log-softmax of the current
-    logits, the exact top-2B candidates, the EOS candidates among the top
-    B ranks added to the finished hypotheses (``add_hyp``: each replaces
-    the worst slot, the first of equal ones, when strictly better), the
-    first B non-EOS candidates as the new beams (slot to candidate by
-    ``argmax``), the reorder and append, t + 1 and each row's ``done``.
-    A row that is done keeps its state frozen, as a vmapped
-    ``while_loop`` lane does; ``done`` is the whole pool's (over 'data'
-    with ``over_data``).  history (P, Lh), history_len (P,) int64."""
-    P, B = loop.beam_scores.shape
-    G, V = spec.max_new_tokens, loop.logits.shape[-1]
-    T = loop.seq_buf.shape[-1]
-    dev = loop.logits.device
-    t = loop.t
-    live = ~loop.row_done  # (P,)
-    scores = torch.log_softmax(loop.logits.reshape(P * B, V), dim=-1)
+def candidates(spec: BeamSpec, logits: torch.Tensor, seq_buf, seq_len,
+               beam_scores, history, history_len, encoder_ngram_size=0,
+               suppress_mask=None):
+    """A beam step's candidates for P rows: the processors on the
+    log-softmax of logits (P, B, V) in HF order over each beam's
+    seq_buf (P, B, T) / seq_len (P, B) and its row's history (P, Lh) /
+    history_len (P,), then the exact top 2B.  Returns (total (P, B, V),
+    cand_vals, cand_beam, cand_tok (P, 2B))."""
+    P, B, V = logits.shape
+    T = seq_buf.shape[-1]
+    scores = torch.log_softmax(
+        logits.reshape(P * B, V).to(torch.float32), dim=-1)
     scores = lp.process_scores(
-        scores, loop.seq_buf.reshape(P * B, T), loop.seq_len.reshape(P * B),
+        scores, seq_buf.reshape(P * B, T), seq_len.reshape(P * B),
         spec.repetition_penalty, spec.no_repeat_ngram_size,
         history[:, None].expand(P, B, history.shape[-1]).reshape(P * B, -1),
         history_len[:, None].expand(P, B).reshape(P * B),
         encoder_ngram_size, suppress_mask,
     )
-    _, cand_vals, cand_beam, cand_tok = select_candidates(
-        scores.reshape(P, B, V), loop.beam_scores)  # (P, 2B) each
+    return select_candidates(scores.reshape(P, B, V), beam_scores)
+
+
+def add_hyps(spec: BeamSpec, t, cand_vals, cand_beam, cand_tok, live,
+             fin_len, fin_scores, snap):
+    """JAX's ``add_hyp`` over the 2B candidates, in its order, as tensor
+    ops: each EOS candidate among the top B ranks of a live row (live
+    (P,)) replaces the worst finished slot (the first of equal ones) when
+    strictly better, scored sum_logprobs / (t + 1) ** length_penalty.
+    ``snap`` lists (per-beam buffer (P, B, ...), finished buffer (P, B,
+    ...)) pairs: the replaced slot takes the candidate's source beam's
+    row.  Returns (the finished buffers of ``snap``, fin_len, fin_scores,
+    fin_src (P, B): each slot's newest source beam this step, -1: none)."""
+    P, B = fin_scores.shape
+    dev = fin_scores.device
     is_eos = cand_tok == spec.eos_id
     rank = torch.arange(2 * B, device=dev)
     eos_ok = is_eos & (rank < B)[None] & live[:, None]
     hyp_score = cand_vals / _pow_len(t + 1, spec.length_penalty)
-
-    # add_hyp over the 2B candidates, in JAX's order; fin_src: the source
-    # beam of each slot's newest hypothesis this step (-1: none)
-    probing = loop.attn_hist is not None
-    ft, fl, fs = loop.fin_tokens, loop.fin_len, loop.fin_scores
-    fa = loop.fin_attn
+    fins = [f for _, f in snap]
+    fl, fs = fin_len, fin_scores
     fin_src = torch.full((P, B), -1, dtype=torch.int64, device=dev)
     slots = torch.arange(B, device=dev)
     for i in range(2 * B):
@@ -424,13 +423,88 @@ def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
                                     > torch.gather(fs, 1, worst))
         at = (slots[None] == worst) & use  # (P, B)
         src = cand_beam[:, i:i + 1]  # (P, 1)
-        ft = torch.where(at[..., None], _rows_of(loop.gen_tokens, src), ft)
+        fins = [torch.where(at[..., None], _rows_of(b, src), f)
+                for (b, _), f in zip(snap, fins)]
         fl = torch.where(at, t, fl)
         fs = torch.where(at, hyp_score[:, i:i + 1], fs)
         fin_src = torch.where(at, src, fin_src)
-        if probing:
-            fa = torch.where(at[..., None], _rows_of(loop.attn_hist, src),
-                             fa)
+    return fins, fl, fs, fin_src
+
+
+def next_beams(spec: BeamSpec, cand_vals, cand_beam, cand_tok):
+    """The next live beams: the first B non-EOS candidates, slot to
+    candidate by ``argmax``.  Returns (scores, source beams, tokens), (P,
+    B) each."""
+    B = cand_vals.shape[1] // 2
+    slots = torch.arange(B, device=cand_vals.device)
+    is_eos = cand_tok == spec.eos_id
+    live_rank = torch.cumsum((~is_eos).to(torch.int64), dim=1) - 1
+    cand_order = torch.where(~is_eos, live_rank, 2 * B)  # (P, 2B)
+    slot_to_cand = torch.argmax(
+        (cand_order[:, None, :] == slots[None, :, None]).to(torch.int64),
+        dim=2)  # (P, B)
+    return (torch.gather(cand_vals, 1, slot_to_cand),
+            torch.gather(cand_beam, 1, slot_to_cand),
+            torch.gather(cand_tok, 1, slot_to_cand))
+
+
+def reorder_append(seq_buf, seq_len, gen_tokens, src, tok, t):
+    """The per-beam buffers reordered by ``src`` (P, B), then ``tok`` (P,
+    B) appended at each beam's seq_len and at generated slot t: (seq_buf
+    (P, B, T), seq_len + 1 (P, B), gen_tokens (P, B, G)), new tensors."""
+    P, B, T = seq_buf.shape
+    G = gen_tokens.shape[-1]
+    srow = _flat_rows(src, B)
+    sb = seq_buf.reshape(P * B, T).index_select(0, srow)
+    sl = seq_len.reshape(P * B).index_select(0, srow)
+    gt = gen_tokens.reshape(P * B, G).index_select(0, srow)
+    tk = tok.reshape(P * B, 1)
+    gt.scatter_(1, torch.as_tensor(t).reshape(1, 1).expand(P * B, 1), tk)
+    sb.scatter_(1, sl[:, None], tk)
+    return sb.reshape(P, B, T), (sl + 1).reshape(P, B), gt.reshape(P, B, G)
+
+
+def step_done(spec: BeamSpec, t_next, new_scores, fin_scores, max_steps):
+    """Each row's termination before the forward of its next token: the
+    cap, its step cap, or B finished hypotheses that no live beam can
+    beat.  (P,) bool."""
+    B = fin_scores.shape[1]
+    n_fin = torch.sum(fin_scores > NEG_INF / 2, dim=1)
+    best_possible = torch.max(new_scores, dim=1).values / _pow_len(
+        t_next + 1, spec.length_penalty)
+    return ((t_next >= spec.max_new_tokens) | (t_next >= max_steps)
+            | ((n_fin >= B) & (torch.min(fin_scores, dim=1).values
+                               >= best_possible)))
+
+
+def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
+                history_len: torch.Tensor, encoder_ngram_size: int = 0,
+                suppress_mask: Optional[torch.Tensor] = None,
+                over_data: bool = False):
+    """One step of JAX's ``step_fn`` up to its forward, for every live
+    row, in place: ``candidates``, ``add_hyps`` (the finished hypotheses,
+    with the probe's traces and the K/V snapshots), ``next_beams``, the
+    reorder and append, t + 1 and each row's ``done`` (``step_done``, or
+    the AlignAtt early stop).  A row that is done keeps its state frozen,
+    as a vmapped ``while_loop`` lane does; ``done`` is the whole pool's
+    (over 'data' with ``over_data``).  history (P, Lh), history_len (P,)
+    int64."""
+    P, B = loop.beam_scores.shape
+    G = spec.max_new_tokens
+    T = loop.seq_buf.shape[-1]
+    dev = loop.logits.device
+    t = loop.t
+    live = ~loop.row_done  # (P,)
+    _, cand_vals, cand_beam, cand_tok = candidates(
+        spec, loop.logits, loop.seq_buf, loop.seq_len, loop.beam_scores,
+        history, history_len, encoder_ngram_size, suppress_mask)
+    probing = loop.attn_hist is not None
+    snap = [(loop.gen_tokens, loop.fin_tokens)]
+    if probing:
+        snap.append((loop.attn_hist, loop.fin_attn))
+    fins, fl, fs, fin_src = add_hyps(spec, t, cand_vals, cand_beam,
+                                     cand_tok, live, loop.fin_len,
+                                     loop.fin_scores, snap)
     if loop.fin_k is not None:  # the pre-reorder source beam's K/V
         took = (fin_src >= 0).reshape(-1)[None, :, None, None, None]
         srow = _flat_rows(fin_src.clamp(min=0), B)
@@ -438,34 +512,20 @@ def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
                                      loop.fin_k))
         loop.fin_v.copy_(torch.where(took, loop.gen_v.index_select(1, srow),
                                      loop.fin_v))
-
-    # the next live beams: the first B non-EOS candidates
-    live_rank = torch.cumsum((~is_eos).to(torch.int64), dim=1) - 1
-    cand_order = torch.where(~is_eos, live_rank, 2 * B)  # (P, 2B)
-    slot_to_cand = torch.argmax(
-        (cand_order[:, None, :] == slots[None, :, None]).to(torch.int64),
-        dim=2)  # (P, B)
-    new_scores = torch.gather(cand_vals, 1, slot_to_cand)
-    src = torch.gather(cand_beam, 1, slot_to_cand)
-    new_tok = torch.gather(cand_tok, 1, slot_to_cand)
+    new_scores, src, new_tok = next_beams(spec, cand_vals, cand_beam,
+                                          cand_tok)
 
     # reorder the per-beam state (a done row maps to itself), then append
     live_b = live[:, None].expand(P, B)
+    slots = torch.arange(B, device=dev)
     src = torch.where(live_b, src, slots[None])
+    seq_buf, seq_len, gen_tokens = reorder_append(
+        loop.seq_buf, loop.seq_len, loop.gen_tokens, src, new_tok, t)
+    keep = ~live_b[..., None]
+    loop.seq_buf.copy_(torch.where(keep, loop.seq_buf, seq_buf))
+    loop.gen_tokens.copy_(torch.where(keep, loop.gen_tokens, gen_tokens))
+    loop.seq_len.copy_(torch.where(live_b, seq_len, loop.seq_len))
     srow = _flat_rows(src, B)  # (P * B,)
-    seq_buf = loop.seq_buf.reshape(P * B, T).index_select(0, srow)
-    seq_len = loop.seq_len.reshape(P * B).index_select(0, srow)
-    gen_tokens = loop.gen_tokens.reshape(P * B, G).index_select(0, srow)
-    tok = new_tok.reshape(P * B, 1)
-    gen_tokens.scatter_(1, t.reshape(1, 1).expand(P * B, 1), tok)
-    seq_buf.scatter_(1, seq_len[:, None], tok)
-    keep = ~live_b.reshape(P * B, 1)
-    loop.seq_buf.copy_(torch.where(
-        keep, loop.seq_buf.reshape(P * B, T), seq_buf).reshape(P, B, T))
-    loop.gen_tokens.copy_(torch.where(
-        keep, loop.gen_tokens.reshape(P * B, G), gen_tokens).reshape(P, B, G))
-    loop.seq_len.copy_(torch.where(live_b, seq_len.reshape(P, B) + 1,
-                                   loop.seq_len))
     loop.gen_k.copy_(loop.gen_k.index_select(1, srow))
     loop.gen_v.copy_(loop.gen_v.index_select(1, srow))
     stop = torch.zeros((P,), dtype=torch.bool, device=dev)
@@ -473,27 +533,22 @@ def beam_select(loop: BeamLoop, spec: BeamSpec, history: torch.Tensor,
         hist = loop.attn_hist.reshape(P * B, G).index_select(0, srow)
         cur = loop.attn_cur.reshape(P * B, 1).index_select(0, srow)
         hist.scatter_(1, t.reshape(1, 1).expand(P * B, 1), cur)
-        hist = torch.where(keep, loop.attn_hist.reshape(P * B, G),
+        hist = torch.where(keep.reshape(P * B, 1),
+                           loop.attn_hist.reshape(P * B, G),
                            hist).reshape(P, B, G)
         loop.attn_hist.copy_(hist)
         # the AlignAtt early stop: every live beam has an in-zone token
         # (slots > t hold -1 and never match a non-negative stop index)
         stop = torch.all(torch.any(hist >= loop.stop_idx[:, None, None],
                                    dim=2), dim=1)
-        loop.fin_attn.copy_(fa)
+        loop.fin_attn.copy_(fins[1])
 
     # termination of each live row (before the forward of the next token)
     t_next = t + 1
-    n_fin = torch.sum(fs > NEG_INF / 2, dim=1)
-    best_possible = torch.max(new_scores, dim=1).values / _pow_len(
-        t_next + 1, spec.length_penalty)
-    done_now = ((t_next >= G) | (t_next >= loop.max_steps)
-                | ((n_fin >= B) & (torch.min(fs, dim=1).values
-                                   >= best_possible))
-                | stop)
+    done_now = step_done(spec, t_next, new_scores, fs, loop.max_steps) | stop
     row_done = loop.row_done | done_now
 
-    loop.fin_tokens.copy_(ft)
+    loop.fin_tokens.copy_(fins[0])
     loop.fin_len.copy_(fl)
     loop.fin_scores.copy_(fs)
     loop.beam_scores.copy_(torch.where(live_b, new_scores, loop.beam_scores))
@@ -546,16 +601,12 @@ def beam_finish(loop: BeamLoop, spec: BeamSpec) -> BeamOut:
     """JAX's finalize for every row: the best live beam (normalised by
     the row's steps) against the best finished hypothesis, by
     ``argmax``."""
-    P, B = loop.beam_scores.shape
-    fs = loop.fin_scores
-    live_score = loop.beam_scores / _pow_len(loop.steps,
-                                             spec.length_penalty)[:, None]
-    best_live = torch.argmax(live_score, dim=1, keepdim=True)  # (P, 1)
-    best_fin = torch.argmax(fs, dim=1, keepdim=True)
-    have_fin = torch.sum(fs > NEG_INF / 2, dim=1) > 0
-    fin_best = torch.gather(fs, 1, best_fin)[:, 0]
+    B = loop.beam_scores.shape[1]
+    best_live, best_fin, use_fin, live_score = finalize_winner(
+        spec, loop.steps, loop.beam_scores, loop.fin_scores)
+    best_live, best_fin = best_live[:, None], best_fin[:, None]  # (P, 1)
+    fin_best = torch.gather(loop.fin_scores, 1, best_fin)[:, 0]
     live_best = torch.gather(live_score, 1, best_live)[:, 0]
-    use_fin = have_fin & (fin_best >= live_best)  # (P,)
     uf = use_fin[:, None]
     tokens = torch.where(uf, _rows_of(loop.fin_tokens, best_fin)[:, 0],
                          _rows_of(loop.gen_tokens, best_live)[:, 0])

@@ -13,15 +13,24 @@ for any draft; sampling (the rejection scheme) is exact in distribution
 against ``beam.sample_decode``.  Accepted tokens' K/V commit during the
 verify.
 
-The JAX ``while_loop`` is a Python loop with one host read a round (its
-condition); every other per-round rule (the emission, the EOS and cap
-rules, the masked scatters) is the JAX one, on tensors.  The caches are
-written in place: the draft's appends land in the main cache's first d
-layers at valid_len onwards, where the verify overwrites them, except at
-a full cache, where a clamped draft write could land on the committed
-slot C - 1.  That slot of the first d layers is saved before the draft
-and restored after it, so the committed K/V equal the JAX decoder's,
-whose draft works on a copy.  Every random draw of the sampling decoders
+JAX's ``while_loop`` is a device loop with static state: its carry is
+``SpecLoop``, static tensors updated in place (never rebound), and a
+round is ``spec_round``, one function with no host decision inside (k is
+static), so the agent and the serving engine capture a whole round as
+one CUDA graph and the host reads ``go`` (some row of the pool, or'ed
+over 'data' on the device, is still live) once a round
+(``agents/infinisst.py``, ``serve/engine.py``);
+``batched_speculative_greedy`` and ``batched_speculative_sample`` drive
+the same functions eagerly.  Every per-round rule (the emission, the EOS
+and cap rules, the masked scatters) is the JAX one, on tensors.  The
+caches are written in place: the verify appends the k+1 tokens' K/V at
+valid_len and the round adds the emitted count to ``valid_len`` in
+place; the draft's appends land in the main cache's first d layers at
+valid_len onwards, where the verify overwrites them, except at a full
+cache, where a clamped draft write could land on the committed slot
+C - 1.  That slot of the first d layers is saved before the draft and
+restored after it, so the committed K/V equal the JAX decoder's, whose
+draft works on a copy.  Every random draw of the sampling decoders
 comes from the caller's ``torch.Generator``.
 """
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from infinisst_tpu_torch.core.config import LlamaConfig
+from infinisst_tpu_torch.core.graphs import read
 from infinisst_tpu_torch.decode import logits as lp
 from infinisst_tpu_torch.models import llama as llama_mod
 from infinisst_tpu_torch.models.quant import KMAJOR
@@ -74,7 +84,8 @@ class SpecResult(NamedTuple):
     rounds: int  # verify forwards
     drafted: int  # draft tokens proposed
     accepted: int  # draft tokens accepted
-    dec: DecoderState  # the cache with the emitted tokens committed
+    dec: Optional[DecoderState]  # the cache with the emitted tokens
+    # committed (None from a packed result)
 
 
 def _nbytes(tree) -> float:
@@ -143,9 +154,19 @@ def make_draft_head(lm_head, head_vocab: int, ids=None):
     return {"w": w, ("prefix" if prefix else "ids"): ids}
 
 
-def _draft_setup(params, cfg: LlamaConfig, d: int, draft_head, exit_adapter):
-    """The draft's (params, cfg, shortlist ids, prefix?): the first d
-    layers (views of the stacked leaves), the exit adapter, and the full,
+class Draft(NamedTuple):
+    """The draft's leaves and head (``draft_of``)."""
+
+    params: dict  # the first d layers (views), the head, the adapter
+    cfg: LlamaConfig  # num_layers d, the head's vocabulary
+    head_ids: Optional[torch.Tensor]  # a shortlist's ids (None: full)
+    head_prefix: bool  # the shortlist is the id prefix
+
+
+def draft_of(params, cfg: LlamaConfig, d: int, draft_head=None,
+             exit_adapter=None) -> Draft:
+    """The draft of the first d layers (views of the stacked leaves), the
+    exit adapter (None: none), and the full (``draft_head`` None),
     shortlist or low-rank head."""
     params_d = {
         "embed": params["embed"],
@@ -169,7 +190,7 @@ def _draft_setup(params, cfg: LlamaConfig, d: int, draft_head, exit_adapter):
             vocab = head_ids.shape[0]
         params_d["lm_head"] = draft_head["w"]
     cfg_d = dataclasses.replace(cfg, num_layers=d, vocab_size=vocab)
-    return params_d, cfg_d, head_ids, head_prefix
+    return Draft(params_d, cfg_d, head_ids, head_prefix)
 
 
 def _shortlist_reenter(lg_last, head_ids, head_prefix: bool, V: int):
@@ -226,7 +247,101 @@ def make_lowrank_draft_head(lm_head, rank: int, dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# The decoders
+# The decoders: JAX's while_loop carry of a pool of B rows as static device
+# tensors updated in place (one stream is B = 1)
+
+
+class SpecLoop(NamedTuple):
+    """Static device buffers of a pool's speculative loop (JAX's
+    ``while_loop`` carry), updated in place, never rebound (a CUDA graph
+    replays on their addresses).  The cache is the caller's: the verify
+    appends its K/V in place and each round adds the emitted count to
+    its ``valid_len`` in place."""
+
+    go: torch.Tensor  # () bool: some row of the pool (over 'data') is live
+    rounds: torch.Tensor  # () int64: verify forwards
+    logits: torch.Tensor  # (B, V) float32: the carried target logits
+    seq_buf: torch.Tensor  # (B, Tp + G + k) int64: prompt + emitted ids
+    seq_len: torch.Tensor  # (B,) int64
+    tokens: torch.Tensor  # (B, G) int64: emitted tokens (pad-filled)
+    n_out: torch.Tensor  # (B,) int64: EOS excluded
+    done: torch.Tensor  # (B,) bool
+    hit_eos: torch.Tensor  # (B,) bool
+    act: torch.Tensor  # (B,) bool: inactive rows emit nothing
+    row_max_new: torch.Tensor  # (B,) int64: each row's cap (<= G)
+    drafted: torch.Tensor  # (B,) int64: draft tokens proposed
+    accepted: torch.Tensor  # (B,) int64: draft tokens accepted
+    # the sampler's carry (None for greedy): the rejected draft's q and
+    # whether the last round rejected
+    c_q: Optional[torch.Tensor] = None  # (B, V) float32
+    c_rej: Optional[torch.Tensor] = None  # (B,) bool
+
+
+def alloc_spec(spec, B: int, V: int, Tp: int, device) -> SpecLoop:
+    """The loop's buffers for ``spec`` (a ``SpecSpec``, or a
+    ``SpecSampleSpec``: the sampler's carry too) over B rows, prompts of
+    Tp ids and a vocabulary of V."""
+    G, k = spec.max_new_tokens, spec.draft_k
+    i64 = dict(dtype=torch.int64, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    sample = isinstance(spec, SpecSampleSpec)
+    return SpecLoop(
+        go=torch.zeros((), **b),
+        rounds=torch.zeros((), **i64),
+        logits=torch.zeros((B, V), dtype=torch.float32, device=device),
+        # +k slack: near the cap a round stages k+1 tokens before the cap
+        # truncates the commit
+        seq_buf=torch.zeros((B, Tp + G + k), **i64),
+        seq_len=torch.zeros((B,), **i64),
+        tokens=torch.zeros((B, G), **i64),
+        n_out=torch.zeros((B,), **i64),
+        done=torch.zeros((B,), **b),
+        hit_eos=torch.zeros((B,), **b),
+        act=torch.zeros((B,), **b),
+        row_max_new=torch.zeros((B,), **i64),
+        drafted=torch.zeros((B,), **i64),
+        accepted=torch.zeros((B,), **i64),
+        c_q=(torch.zeros((B, V), dtype=torch.float32, device=device)
+             if sample else None),
+        c_rej=torch.zeros((B,), **b) if sample else None,
+    )
+
+
+def start_spec(loop: SpecLoop, spec, first_logits: torch.Tensor,
+               ids: torch.Tensor, prompt_lens, row_active=None,
+               row_max_new=None):
+    """JAX's ``state0``, written into ``loop``: first_logits (B, V), ids
+    (B, Tp) int64; ``prompt_lens`` an int or a (B,) int64 tensor,
+    ``row_active`` a (B,) bool tensor (None: every row), ``row_max_new``
+    a (B,) int64 tensor (None: G), bound to G; inactive rows start done.
+    ``go``: some row of the pool (over 'data') is live."""
+    Tp = ids.shape[1]
+    loop.logits.copy_(first_logits)
+    loop.seq_buf[:, :Tp].copy_(ids)
+    loop.seq_buf[:, Tp:].fill_(spec.pad_id)
+    if torch.is_tensor(prompt_lens):
+        loop.seq_len.copy_(prompt_lens)
+    else:
+        loop.seq_len.fill_(prompt_lens)
+    loop.tokens.fill_(spec.pad_id)
+    loop.n_out.zero_()
+    if row_active is None:
+        loop.act.fill_(True)
+    else:
+        loop.act.copy_(row_active)
+    if row_max_new is None:
+        loop.row_max_new.fill_(spec.max_new_tokens)
+    else:
+        loop.row_max_new.copy_(row_max_new.clamp(max=spec.max_new_tokens))
+    loop.done.copy_(~loop.act)
+    loop.hit_eos.zero_()
+    loop.rounds.zero_()
+    loop.drafted.zero_()
+    loop.accepted.zero_()
+    if loop.c_q is not None:
+        loop.c_q.zero_()
+        loop.c_rej.zero_()
+    loop.go.copy_(par.any_over_data_tensor(~torch.all(loop.done)))
 
 
 def _set_at(buf, pos, val):
@@ -244,148 +359,204 @@ def _first_false(ok):
                        (~ok).to(torch.int64).argmax(dim=1))
 
 
-class _Round:
-    """The state and the per-round rules the greedy and sampling decoders
-    share: seq buffers, the emission, the masked scatters, the commit."""
+def spec_round(loop: SpecLoop, spec, params, cfg: LlamaConfig,
+               dec: DecoderState, draft: Draft, history: torch.Tensor,
+               history_len: torch.Tensor, generator=None,
+               encoder_ngram_size: int = 0,
+               suppress_mask: Optional[torch.Tensor] = None):
+    """One round of JAX's ``round_fn``, in place, with no host decision:
+    the anchor (greedy: the processed argmax of the carried logits;
+    sampling: a draw from them, from the residual after a rejection), k
+    draft ``decode_step``s over the first d layers, the verify of the
+    k+1 tokens in one full ``decode_step``, the acceptance (greedy: the
+    longest agreeing prefix; sampling: draft j with probability
+    min(1, p_j / q_j)), the emission truncated at EOS and each row's cap,
+    the masked scatters, the commit (``dec.valid_len`` += the emitted
+    count), the carry, the counters and ``go`` over 'data'.
 
-    def __init__(self, params, cfg, dec0, first_logits, ids, prompt_lens,
-                 history, history_len, spec, row_active, row_max_new,
-                 encoder_ngram_size, suppress_mask, draft_head,
-                 exit_adapter):
-        self.G, self.k, self.d = (spec.max_new_tokens, spec.draft_k,
-                                  spec.draft_layers)
-        self.B, self.V = first_logits.shape
-        dev = self.dev = first_logits.device
-        self.i64 = dict(dtype=torch.int64, device=dev)
-        self.params, self.cfg, self.spec = params, cfg, spec
-        Tp = ids.shape[1]
-        # +k slack: near the cap a round stages k+1 tokens before the cap
-        # truncates the commit
-        self.Tbuf = Tp + self.G + self.k
-        cap = torch.full((self.B,), self.G, **self.i64) if row_max_new \
-            is None else torch.as_tensor(row_max_new).to(**self.i64)
-        self.row_max_new = cap.clamp(max=self.G)  # the <= G contract
-        self.params_d, self.cfg_d, self.head_ids, self.head_prefix = \
-            _draft_setup(params, cfg, self.d, draft_head, exit_adapter)
-        self.hist = history.to(**self.i64)
-        self.hist_len = torch.as_tensor(history_len).to(**self.i64)
-        self.enc_ng, self.suppress = encoder_ngram_size, suppress_mask
-        self.seq_buf = torch.cat([
-            ids.to(**self.i64),
-            torch.full((self.B, self.G + self.k), spec.pad_id, **self.i64),
-        ], dim=1)
-        self.seq_len = torch.as_tensor(prompt_lens).to(**self.i64)
-        self.act = torch.as_tensor(row_active).to(device=dev,
-                                                  dtype=torch.bool)
-        self.tokens = torch.full((self.B, self.G), spec.pad_id, **self.i64)
-        self.n_out = torch.zeros((self.B,), **self.i64)
-        self.done = ~self.act
-        self.hit_eos = torch.zeros((self.B,), dtype=torch.bool, device=dev)
-        self.rounds = 0
-        self.drafted = torch.zeros((self.B,), **self.i64)
-        self.accepted = torch.zeros((self.B,), **self.i64)
-        self.dec = dec0
-        self.rows = torch.arange(self.B, device=dev)
+    The draft's appends land in the cache's first d layers at valid_len
+    on, where the verify overwrites them, except at a full cache, where
+    a clamped draft write could land on the committed slot C - 1: that
+    slot of the first d layers is saved and restored around the draft.
+    The sampler draws, in order, the anchor, the k drafts and the k x B
+    uniforms, all from ``generator``.  history (B, Lh), history_len (B,)
+    int64."""
+    B, V = loop.logits.shape
+    k, d = spec.draft_k, spec.draft_layers
+    Tbuf = loop.seq_buf.shape[1]
+    dev = loop.logits.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    sample = loop.c_q is not None
+    rows = torch.arange(B, device=dev)
+    live = ~loop.done & loop.act
 
-    def hist_rows(self, n):
-        """The history repeated for n positions a row, (B * n, Lh)."""
-        return (self.hist.repeat_interleave(n, 0),
-                self.hist_len.repeat_interleave(n, 0))
+    def scores_of(raw, sbuf, slen):
+        n = raw.shape[0] // B
+        hist = history.repeat_interleave(n, 0)
+        hlen = history_len.repeat_interleave(n, 0)
+        if sample:
+            return lp.sample_scores(raw, sbuf, slen, spec, hist, hlen,
+                                    encoder_ngram_size, suppress_mask)
+        return lp.process_scores(
+            torch.log_softmax(raw.to(torch.float32), dim=-1), sbuf, slen,
+            spec.repetition_penalty, spec.no_repeat_ngram_size, hist, hlen,
+            encoder_ngram_size, suppress_mask)
 
-    def draft(self, t1, pick):
-        """k draft steps from the anchor t1 over the first d layers;
-        ``pick(raw (B, V), sbuf, slen)`` chooses each next token (and may
-        keep what it needs).  Returns the (B, k) drafts."""
-        d, C = self.d, self.dec.k.shape[2]
-        dec = self.dec
-        saved = (dec.k[:d, :, C - 1].clone(), dec.v[:d, :, C - 1].clone())
-        sbuf = self.seq_buf.clone()
-        _set_at(sbuf, self.seq_len, t1)
-        ddec = DecoderState(k=dec.k[:d], v=dec.v[:d],
-                            valid_len=dec.valid_len)
-        tok, slen, drafts = t1, self.seq_len, []
-        for _ in range(self.k):
-            lg, ddec = llama_mod.decode_step(
-                self.params_d, self.cfg_d, ddec,
-                llama_mod.embed(self.params_d, tok[:, None]),
-            )
-            raw = _shortlist_reenter(lg[:, -1], self.head_ids,
-                                     self.head_prefix, self.V)
-            nxt = pick(raw, sbuf, slen + 1)
-            _set_at(sbuf, slen + 1, nxt)
-            slen = slen + 1
-            tok = nxt
-            drafts.append(nxt)
-        dec.k[:d, :, C - 1] = saved[0]
-        dec.v[:d, :, C - 1] = saved[1]
-        return torch.stack(drafts, dim=1)
+    q_scores = []
 
-    def verify(self, toks_v, live):
-        """One full forward over (B, k+1) tokens (valid where ``live``).
-        Returns (logits (B, k+1, V), the seq buffer with the tokens staged
-        at seq_len (B, Tbuf), the new cache state)."""
-        k = self.k
-        start = self.seq_len.clamp(max=self.Tbuf - k - 1)
-        rel = torch.arange(self.Tbuf, device=self.dev)[None] - start[:, None]
-        sbuf_v = torch.where((rel >= 0) & (rel <= k),
-                             toks_v.gather(1, rel.clamp(0, k)), self.seq_buf)
-        vmask = live[:, None].expand(self.B, k + 1).to(torch.int64)
-        lg_v, dec_v = llama_mod.decode_step(
-            self.params, self.cfg, self.dec,
-            llama_mod.embed(self.params, toks_v), valid_mask=vmask,
-        )
-        return lg_v[:, :, : self.V], sbuf_v, dec_v
+    def pick(raw, sbuf, slen):
+        s = scores_of(raw, sbuf, slen)
+        if not sample:
+            return torch.argmax(s, dim=-1)
+        q_scores.append(s)
+        return lp.categorical(s, generator)
 
-    def positions(self, sbuf_v):
-        """Each row's staged buffer and seq length at every verified
-        position j (context: the prefix and toks_v[:j+1]), flattened to
-        (B * (k+1), ...)."""
-        n = self.k + 1
-        off = torch.arange(n, device=self.dev)
-        return (sbuf_v.repeat_interleave(n, 0),
-                (self.seq_len[:, None] + off[None] + 1).reshape(-1))
+    # the anchor: the target's own next token (sampling: a draw from the
+    # correct conditional law)
+    if sample:
+        p0 = torch.softmax(scores_of(loop.logits, loop.seq_buf,
+                                     loop.seq_len), dim=-1)
+        res = (p0 - loop.c_q).clamp(min=0.0)
+        rsum = res.sum(dim=-1, keepdim=True)
+        use_res = (loop.c_rej & (rsum[:, 0] > 1e-12))[:, None]
+        probs = torch.where(use_res, res / rsum.clamp(min=1e-12), p0)
+        t1 = lp.categorical(torch.where(
+            probs > 0, torch.log(probs),
+            torch.full_like(probs, float("-inf"))), generator)
+    else:
+        t1 = torch.argmax(scores_of(loop.logits, loop.seq_buf,
+                                    loop.seq_len), dim=-1)
 
-    def emit(self, toks_v, a, live, dec_v):
-        """Emit toks_v[:, :a+1] truncated at EOS and the cap, scatter it
-        into tokens and seq_buf, commit the emitted K/V.  Returns n_r."""
-        k, spec = self.k, self.spec
-        idx = torch.arange(k + 1, device=self.dev)[None]
-        eos_in = (toks_v == spec.eos_id) & (idx <= a[:, None])
-        any_eos = eos_in.any(dim=1)
-        first_eos = torch.where(any_eos, eos_in.to(torch.int64).argmax(1),
-                                torch.full_like(a, k + 1))
-        room = self.row_max_new - self.n_out
-        n_r = torch.minimum(torch.minimum(a + 1, first_eos), room)
-        n_r = torch.where(live, n_r, torch.zeros_like(n_r))
-        # EOS hits only strictly inside the remaining budget: at
-        # first_eos == room the cap ends the row first
-        hit = any_eos & (first_eos < room) & live
-        # masked scatters (a clamped slice would overwrite earlier tokens)
-        relt = torch.arange(self.G, device=self.dev)[None] - \
-            self.n_out[:, None]
-        put = toks_v.gather(1, relt.clamp(0, k))
-        self.tokens = torch.where((relt >= 0) & (relt < n_r[:, None]), put,
-                                  self.tokens)
-        rels = torch.arange(self.Tbuf, device=self.dev)[None] - \
-            self.seq_len[:, None]
-        puts = toks_v.gather(1, rels.clamp(0, k))
-        self.seq_buf = torch.where((rels >= 0) & (rels < n_r[:, None]),
-                                   puts, self.seq_buf)
-        self.dec = DecoderState(k=dec_v.k, v=dec_v.v,
-                                valid_len=self.dec.valid_len + n_r)
-        self.seq_len = self.seq_len + n_r
-        self.n_out = self.n_out + n_r
-        self.done = self.done | hit | (self.n_out >= self.row_max_new)
-        self.hit_eos = self.hit_eos | hit
-        self.rounds += 1
-        self.drafted = self.drafted + torch.where(
-            live, torch.full_like(n_r, k), torch.zeros_like(n_r))
-        self.accepted = self.accepted + (n_r - 1).clamp(min=0)
-        return n_r
+    # the draft: k steps over the first d layers, in the cache in place
+    C = dec.k.shape[2]
+    saved = (dec.k[:d, :, C - 1].clone(), dec.v[:d, :, C - 1].clone())
+    sbuf = loop.seq_buf.clone()
+    _set_at(sbuf, loop.seq_len, t1)
+    ddec = DecoderState(k=dec.k[:d], v=dec.v[:d], valid_len=dec.valid_len)
+    tok, slen, drafts = t1, loop.seq_len, []
+    for _ in range(k):
+        lg, ddec = llama_mod.decode_step(
+            draft.params, draft.cfg, ddec,
+            llama_mod.embed(draft.params, tok[:, None]))
+        raw = _shortlist_reenter(lg[:, -1], draft.head_ids,
+                                 draft.head_prefix, V)
+        nxt = pick(raw, sbuf, slen + 1)
+        _set_at(sbuf, slen + 1, nxt)
+        slen = slen + 1
+        tok = nxt
+        drafts.append(nxt)
+    dec.k[:d, :, C - 1] = saved[0]
+    dec.v[:d, :, C - 1] = saved[1]
+    drafts = torch.stack(drafts, dim=1)  # (B, k)
 
-    def result(self):
-        return (self.tokens, self.n_out, self.hit_eos, self.dec,
-                self.rounds, self.drafted, self.accepted)
+    # the verify: one full forward over (B, k+1) tokens, valid where live
+    toks_v = torch.cat([t1[:, None], drafts], dim=1)
+    start = loop.seq_len.clamp(max=Tbuf - k - 1)
+    rel = torch.arange(Tbuf, device=dev)[None] - start[:, None]
+    sbuf_v = torch.where((rel >= 0) & (rel <= k),
+                         toks_v.gather(1, rel.clamp(0, k)), loop.seq_buf)
+    vmask = live[:, None].expand(B, k + 1).to(torch.int64)
+    lg_v, _ = llama_mod.decode_step(
+        params, cfg, dec, llama_mod.embed(params, toks_v), valid_mask=vmask)
+    lg_v = lg_v[:, :, :V]
+    # each row's staged buffer and seq length at every verified position
+    # j (context: the prefix and toks_v[:j+1]), flattened to B * (k+1)
+    n = k + 1
+    sb = sbuf_v.repeat_interleave(n, 0)
+    sl = (loop.seq_len[:, None] + torch.arange(n, device=dev)[None]
+          + 1).reshape(-1)
+    p_scores = scores_of(lg_v.reshape(B * n, V), sb, sl)
+
+    # the acceptance
+    if sample:
+        # accept draft j with probability min(1, p_j(x) / q_j(x))
+        p_scores = p_scores.reshape(B, n, V)
+        q_probs = torch.softmax(torch.stack(q_scores), dim=-1)  # (k, B, V)
+        p_probs = torch.softmax(p_scores[:, :k], dim=-1).transpose(0, 1)
+        dt = drafts.t()[:, :, None]  # (k, B, 1)
+        q_d = q_probs.gather(2, dt)[..., 0]
+        p_d = p_probs.gather(2, dt)[..., 0]
+        u = par.pool_rand((k, B), generator, dev, dim=1)
+        a = _first_false((u * q_d < p_d).t())
+    elif getattr(spec, "accept_all", False):
+        a = torch.full((B,), k, **i64)
+    else:
+        true_next = torch.argmax(p_scores, dim=-1).reshape(B, n)
+        a = _first_false(true_next[:, :-1] == toks_v[:, 1:])
+
+    # the emission: toks_v[:, :a+1] truncated at EOS and the cap
+    idx = torch.arange(n, device=dev)[None]
+    eos_in = (toks_v == spec.eos_id) & (idx <= a[:, None])
+    any_eos = eos_in.any(dim=1)
+    first_eos = torch.where(any_eos, eos_in.to(torch.int64).argmax(1),
+                            torch.full_like(a, n))
+    room = loop.row_max_new - loop.n_out
+    n_r = torch.minimum(torch.minimum(a + 1, first_eos), room)
+    n_r = torch.where(live, n_r, torch.zeros_like(n_r))
+    # EOS hits only strictly inside the remaining budget: at first_eos ==
+    # room the cap ends the row first
+    hit = any_eos & (first_eos < room) & live
+    # masked scatters (a clamped slice would overwrite earlier tokens)
+    G = loop.tokens.shape[1]
+    relt = torch.arange(G, device=dev)[None] - loop.n_out[:, None]
+    put = toks_v.gather(1, relt.clamp(0, k))
+    loop.tokens.copy_(torch.where((relt >= 0) & (relt < n_r[:, None]), put,
+                                  loop.tokens))
+    rels = torch.arange(Tbuf, device=dev)[None] - loop.seq_len[:, None]
+    puts = toks_v.gather(1, rels.clamp(0, k))
+    loop.seq_buf.copy_(torch.where((rels >= 0) & (rels < n_r[:, None]),
+                                   puts, loop.seq_buf))
+    # the commit: exactly the emitted tokens' K/V (the verify's)
+    dec.valid_len.add_(n_r)
+    loop.seq_len.add_(n_r)
+    loop.n_out.add_(n_r)
+    done = loop.done | hit | (loop.n_out >= loop.row_max_new)
+    loop.done.copy_(done)
+    loop.hit_eos.copy_(loop.hit_eos | hit)
+    loop.rounds.add_(1)
+    loop.drafted.add_(torch.where(live, torch.full_like(n_r, k),
+                                  torch.zeros_like(n_r)))
+    loop.accepted.add_((n_r - 1).clamp(min=0))
+
+    # the carry
+    if sample:
+        # raw verify logits at the last emitted position (all accepted) or
+        # the rejected one, and the rejected draft's q
+        loop.logits.copy_(torch.where(
+            live[:, None], lg_v[rows, a].to(torch.float32), loop.logits))
+        rej_now = (a < k) & live
+        qa = q_probs[a.clamp(max=k - 1), rows]  # (B, V)
+        loop.c_q.copy_(torch.where(rej_now[:, None], qa, loop.c_q))
+        loop.c_rej.copy_(torch.where(live, a < k, loop.c_rej))
+    else:
+        nxt = lg_v[rows, (n_r - 1).clamp(min=0)].to(torch.float32)
+        loop.logits.copy_(torch.where(live[:, None], nxt, loop.logits))
+    loop.go.copy_(par.any_over_data_tensor(~torch.all(done)))
+
+
+def _decode(params, cfg, dec0, first_logits, ids, prompt_lens, history,
+            history_len, spec, row_active, row_max_new, encoder_ngram_size,
+            suppress_mask, draft_head, exit_adapter, generator=None):
+    """The loop driven eagerly: one host read of ``go`` a round."""
+    dev = first_logits.device
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    def rows(x):
+        return None if x is None else torch.as_tensor(x).to(**i64)
+
+    B, V = first_logits.shape
+    loop = alloc_spec(spec, B, V, ids.shape[1], dev)
+    start_spec(loop, spec, first_logits.to(torch.float32), ids.to(**i64),
+               rows(prompt_lens), rows(row_active).to(torch.bool),
+               rows(row_max_new))
+    draft = draft_of(params, cfg, spec.draft_layers, draft_head,
+                     exit_adapter)
+    hist, hist_len = history.to(**i64), rows(history_len)
+    while read(loop.go):
+        spec_round(loop, spec, params, cfg, dec0, draft, hist, hist_len,
+                   generator, encoder_ngram_size, suppress_mask)
+    return (loop.tokens, loop.n_out, loop.hit_eos, dec0, loop.rounds,
+            loop.drafted, loop.accepted)
 
 
 def batched_speculative_greedy(
@@ -409,42 +580,14 @@ def batched_speculative_greedy(
     lockstep, so one draft stream and one verify stream a round serve
     every row and every verified position.  Each row emits exactly the
     sequential processed-greedy output (EOS not emitted, per-row cap).
-    Returns (tokens (B, G), n_tokens (B,), hit_eos (B,), dec, rounds,
-    drafted (B,), accepted (B,)), tensors on the logits' device."""
-    r = _Round(params, cfg, dec0, first_logits, ids, prompt_lens, history,
-               history_len, spec, row_active, row_max_new,
-               encoder_ngram_size, suppress_mask, draft_head, exit_adapter)
-    k = r.k
-
-    def argmax(raw, sbuf, slen):
-        n = raw.shape[0] // r.B
-        hist, hlen = r.hist_rows(n)
-        scores = torch.log_softmax(raw.to(torch.float32), dim=-1)
-        scores = lp.process_scores(
-            scores, sbuf, slen, spec.repetition_penalty,
-            spec.no_repeat_ngram_size, hist, hlen, encoder_ngram_size,
-            suppress_mask,
-        )
-        return torch.argmax(scores, dim=-1)
-
-    last = first_logits.to(torch.float32)
-    while par.any_over_data(not bool(r.done.all())):
-        t1 = argmax(last, r.seq_buf, r.seq_len)  # the round's anchor
-        drafts = r.draft(t1, argmax)
-        toks_v = torch.cat([t1[:, None], drafts], dim=1)  # (B, k+1)
-        live = ~r.done & r.act
-        lg_v, sbuf_v, dec_v = r.verify(toks_v, live)
-        sb, sl = r.positions(sbuf_v)
-        true_next = argmax(lg_v.reshape(r.B * (k + 1), r.V), sb,
-                           sl).reshape(r.B, k + 1)
-        if spec.accept_all:
-            a = torch.full((r.B,), k, **r.i64)
-        else:
-            a = _first_false(true_next[:, :-1] == toks_v[:, 1:])
-        n_r = r.emit(toks_v, a, live, dec_v)
-        nxt = lg_v[r.rows, (n_r - 1).clamp(min=0)].to(torch.float32)
-        last = torch.where(live[:, None], nxt, last)
-    return r.result()
+    The device loop (``SpecLoop``, ``spec_round``) driven eagerly; the
+    cache ``dec0`` is updated in place.  Returns (tokens (B, G), n_tokens
+    (B,), hit_eos (B,), dec0, rounds (), drafted (B,), accepted (B,)),
+    tensors on the logits' device."""
+    return _decode(params, cfg, dec0, first_logits, ids, prompt_lens,
+                   history, history_len, spec, row_active, row_max_new,
+                   encoder_ngram_size, suppress_mask, draft_head,
+                   exit_adapter)
 
 
 def batched_speculative_sample(
@@ -477,62 +620,32 @@ def batched_speculative_sample(
     order a round: the anchor, the k drafts, the k x B uniforms, all
     from ``generator``.  Returns what ``batched_speculative_greedy``
     returns."""
-    r = _Round(params, cfg, dec0, first_logits, ids, prompt_lens, history,
-               history_len, spec, row_active, row_max_new,
-               encoder_ngram_size, suppress_mask, draft_head, exit_adapter)
-    k, B, V = r.k, r.B, r.V
+    return _decode(params, cfg, dec0, first_logits, ids, prompt_lens,
+                   history, history_len, spec, row_active, row_max_new,
+                   encoder_ngram_size, suppress_mask, draft_head,
+                   exit_adapter, generator)
 
-    def scores_of(raw, sbuf, slen):
-        n = raw.shape[0] // B
-        hist, hlen = r.hist_rows(n)
-        return lp.sample_scores(raw, sbuf, slen, spec, hist, hlen,
-                                encoder_ngram_size, suppress_mask)
 
-    c_lg = first_logits.to(torch.float32)
-    c_q = torch.zeros((B, V), dtype=torch.float32, device=r.dev)
-    c_rej = torch.zeros((B,), dtype=torch.bool, device=r.dev)
-    while par.any_over_data(not bool(r.done.all())):
-        live = ~r.done & r.act
-        # the anchor: a draw from the correct conditional law
-        p0 = torch.softmax(scores_of(c_lg, r.seq_buf, r.seq_len), dim=-1)
-        res = (p0 - c_q).clamp(min=0.0)
-        rsum = res.sum(dim=-1, keepdim=True)
-        use_res = (c_rej & (rsum[:, 0] > 1e-12))[:, None]
-        probs = torch.where(use_res, res / rsum.clamp(min=1e-12), p0)
-        t1 = lp.categorical(torch.where(
-            probs > 0, torch.log(probs),
-            torch.full_like(probs, float("-inf"))), generator)
-        q_scores = []
+def pack_spec(tokens, n_tokens, hit_eos, rounds, drafted, accepted,
+              extra=()) -> torch.Tensor:
+    """One stream's result as one int32 vector, for one host read (JAX's
+    packed chunk result): [n_tokens, hit_eos, tokens (G), rounds,
+    drafted, accepted, *extra], from () tensors and tokens (G,)."""
+    def one(x):
+        return x.to(torch.int32).reshape(1)
 
-        def draw(raw, sbuf, slen):
-            qs = scores_of(raw, sbuf, slen)
-            q_scores.append(qs)
-            return lp.categorical(qs, generator)
+    return torch.cat([one(n_tokens), one(hit_eos), tokens.to(torch.int32)]
+                     + [one(x) for x in (rounds, drafted, accepted)]
+                     + [one(x) for x in extra])
 
-        drafts = r.draft(t1, draw)  # (B, k)
-        toks_v = torch.cat([t1[:, None], drafts], dim=1)
-        lg_v, sbuf_v, dec_v = r.verify(toks_v, live)
-        sb, sl = r.positions(sbuf_v)
-        p_scores = scores_of(lg_v.reshape(B * (k + 1), V), sb,
-                             sl).reshape(B, k + 1, V)
-        # accept draft j with probability min(1, p_j(x) / q_j(x))
-        q_probs = torch.softmax(torch.stack(q_scores), dim=-1)  # (k, B, V)
-        p_probs = torch.softmax(p_scores[:, :k], dim=-1).transpose(0, 1)
-        dt = drafts.t()[:, :, None]  # (k, B, 1)
-        q_d = q_probs.gather(2, dt)[..., 0]
-        p_d = p_probs.gather(2, dt)[..., 0]
-        u = par.pool_rand((k, B), generator, r.dev, dim=1)
-        a = _first_false((u * q_d < p_d).t())
-        r.emit(toks_v, a, live, dec_v)
-        # the carry: raw verify logits at the last emitted position (all
-        # accepted) or the rejected one, and the rejected draft's q
-        c_lg = torch.where(live[:, None], lg_v[r.rows, a].to(torch.float32),
-                           c_lg)
-        rej_now = (a < k) & live
-        qa = q_probs[a.clamp(max=k - 1), r.rows]  # (B, V)
-        c_q = torch.where(rej_now[:, None], qa, c_q)
-        c_rej = torch.where(live, a < k, c_rej)
-    return r.result()
+
+def unpack_spec(packed: list, G: int, offset: int = 0) -> SpecResult:
+    """The SpecResult of a ``pack_spec`` vector read to the host (from
+    ``offset`` on); ``dec`` is None."""
+    p = packed[offset:]
+    return SpecResult(tokens=list(p[2:2 + G]), n_tokens=p[0],
+                      hit_eos=bool(p[1]), rounds=p[G + 2],
+                      drafted=p[G + 3], accepted=p[G + 4], dec=None)
 
 
 def _single(batched, params, cfg, prefix, first_logits, prompt_buf,

@@ -34,7 +34,9 @@ CPU under gloo.
 
 ``--flagship-pool`` (at n_model 1: the int8 leaves are not split over
 'model') adds the flagship W8A8 pool (``flagship_pool``): 8 streams a
-data rank at beam 4, split over 'data' (its tick the captured program,
+data rank at beam 4, then the speculative greedy pool (``SPEC_POOL``,
+its round's ``go`` or'ed over 'data' inside the captured round), split
+over 'data' (its tick the captured program,
 the NCCL collectives of 'data' and of FSDP's gathers inside its CUDA
 graphs), against the same streams on
 rank 0's card in pools of the rows each data rank holds, token by token
@@ -288,13 +290,14 @@ def pool_ticks(cfg, params, mode, device, mesh=None, n_ticks=5):
     return out
 
 
-def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
-    """A W8A8 pool of ``len(rows)`` slots at ``beam``, slot i streaming
-    ``audio[:, rows[i]]`` (one 960 ms chunk a tick), built and ticked
-    under ``tensor_parallel(mesh)`` (with a mesh whose 'data' is above 1:
-    split over it); on the card its tick is the captured program, which
-    must have replayed.  Returns per tick every slot's tokens, and the
-    tokens a second after the first tick (host clock, synchronised)."""
+def pool_run(cfg, params, audio, rows, beam, device, mesh=None, **kw):
+    """A W8A8 pool of ``len(rows)`` slots at ``beam`` (``kw``: more of
+    the engine's options), slot i streaming ``audio[:, rows[i]]`` (one
+    960 ms chunk a tick), built and ticked under ``tensor_parallel(mesh)``
+    (with a mesh whose 'data' is above 1: split over it); on the card its
+    tick is the captured program, which must have replayed.  Returns per
+    tick every slot's tokens, and the tokens a second after the first
+    tick (host clock, synchronised)."""
     import time
 
     from infinisst_tpu_torch.core.config import StreamConfig
@@ -312,7 +315,7 @@ def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
             params, cfg, StreamConfig(), {("English", "German"): PromptBuilder(
                 StubTokenizer(cfg.llama.vocab_size), cfg.tokens)},
             pool_size=len(rows), beam=beam, dtype=torch.bfloat16,
-            device=device)
+            device=device, **kw)
         slots = [eng.open_stream(f"s{r}") for r in rows]
         for t in range(audio.shape[0]):
             for s, r in zip(slots, rows):
@@ -327,14 +330,26 @@ def pool_run(cfg, params, audio, rows, beam, device, mesh=None):
                 n_tok += sum(len(eng.slots[s].target_ids)
                              for s in slots) - before
             ticks.append([list(eng.slots[s].target_ids) for s in slots])
-    if device.type == "cuda" and not eng._programs["beam"].replays:
+    if device.type == "cuda" and not any(p.replays
+                                         for p in eng._programs.values()):
         raise AssertionError("the pool's tick program never replayed")
     return ticks, n_tok / wall
 
 
-def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
-    """The flagship W8A8 pool (seeded random weights, ``bench``'s) of
-    ``rows_per_rank`` x n_data slots at ``beam``, every slot streaming
+# the speculative flagship pool (``--flagship-pool``): greedy at d = 8,
+# k = 4 on the flagship with the layers above the draft made identities
+# (``bench.scale_residuals(..., 0)``, so that rounds accept), no guard;
+# its round's ``go`` is or'ed over 'data' by an NCCL all-reduce inside
+# the captured round
+SPEC_POOL = dict(speculative=True, spec_draft_layers=8, spec_k=4,
+                 spec_guard=False)
+
+
+def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4,
+                  **kw):
+    """The flagship W8A8 pool (seeded random weights, ``bench``'s; with
+    ``kw`` the speculative one, ``SPEC_POOL``) of ``rows_per_rank`` x
+    n_data slots at ``beam``, every slot streaming
     seeded noise for ``n_ticks`` ticks, split over the mesh's 'data' axis
     from FSDP-sharded float leaves (the int8 leaves whole).  Rank 0 then
     runs the same streams on its card without a mesh: in pools of the
@@ -349,6 +364,10 @@ def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
     from infinisst_tpu_torch.parallel import mesh as pmesh
 
     cfg, whole = flagship_params(device)
+    if kw:
+        from infinisst_tpu_torch.bench import scale_residuals
+
+        whole = scale_residuals(whole, kw["spec_draft_layers"], 0.0)
     n_data = pmesh.mesh_shape(mesh)["data"]
     local, _ = pmesh.shard_params(whole, mesh, pmesh.model_param_specs(
         cfg, zero=True))
@@ -356,7 +375,8 @@ def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
     audio = (np.random.RandomState(21).randn(
         n_ticks, pool, StreamConfig().chunk_samples(1)) * 0.1).astype(
             np.float32)
-    split = pool_run(cfg, local, audio, range(pool), beam, device, mesh)
+    split = pool_run(cfg, local, audio, range(pool), beam, device, mesh,
+                     **kw)
     # the split pool's peak on this card (its graphs' pool holds the
     # parameters FSDP gathers inside the captured forwards)
     split += (torch.cuda.max_memory_allocated(device) / 2**30
@@ -366,10 +386,10 @@ def flagship_pool(device, mesh, rows_per_rank=8, beam=4, n_ticks=4):
         return split, None, None
     blocks = [pool_run(cfg, whole, audio, range(r * rows_per_rank,
                                                 (r + 1) * rows_per_rank),
-                       beam, device)[0] for r in range(n_data)]
+                       beam, device, **kw)[0] for r in range(n_data)]
     joined = [sum((b[t] for b in blocks), []) for t in range(n_ticks)]
     return split, joined, pool_run(cfg, whole, audio, range(pool), beam,
-                                   device)
+                                   device, **kw)
 
 
 def vocab_config(vocab: int):
@@ -510,17 +530,20 @@ def main(argv=None):
 
             d, m = ((args.data, args.model) if args.data and args.model
                     else mesh_axes(dist.get_world_size()))
-            (split, split_tps, split_peak), blocks, one = flagship_pool(
-                dev, pmesh.make_mesh(d, m, dev))
-            if dist.get_rank() == 0:
+            for label, beam, kw in (("beam 4", 4, {}),
+                                    ("speculative d8 k4", 1, SPEC_POOL)):
+                (split, split_tps, split_peak), blocks, one = flagship_pool(
+                    dev, pmesh.make_mesh(d, m, dev), beam=beam, **kw)
+                if dist.get_rank() != 0:
+                    continue
                 if split != blocks:
                     raise AssertionError(
-                        f"flagship pool split over {d}: {split} against "
-                        f"one card's pools of the rows a card holds "
-                        f"{blocks}")
+                        f"flagship pool ({label}) split over {d}: {split} "
+                        f"against one card's pools of the rows a card "
+                        f"holds {blocks}")
                 n = len(split[0])
                 flips = sum(a != b for a, b in zip(split[-1], one[0][-1]))
-                print(f"flagship pool OK: {n} W8A8 streams at beam 4 split "
+                print(f"flagship pool OK: {n} W8A8 streams ({label}) split "
                       f"over data {d} ({n // d} rows a card), "
                       f"{len(split)} ticks, captured, token-equal every "
                       f"tick with "

@@ -46,9 +46,12 @@ step (``_beam_program``: A the trim, window roll, encoder, splice,
 prefill and the beam loop's start, B ``beam_select``, C
 ``beam_forward``, F the winners' K/V committed by one scatter and the
 packed result; ``_greedy_program``: A, S one step of the greedy scan,
-D its forward, F), and the host reads the pool-wide ``done`` (beam) or
-"some row can still emit" (greedy) once a step and the packed result
-once: steps + 1 reads a tick.  The row geometry (frames, patches,
+D its forward, F; ``_spec_program``, keyed "spec", "spec_sample" and
+"spec_sample_self": A, R one whole speculative round of every row, F),
+and the host reads the pool-wide ``done`` (beam), "some row can still
+emit" (greedy) or "some row is live" (a speculative round) once a step
+or round and the packed result once: steps + 1 or rounds + 2 reads a
+tick.  The row geometry (frames, patches,
 ``max_new``) is operands, so one program serves every mix of
 multipliers.  On CUDA each piece is captured as a CUDA graph at its
 program's first tick; on the CPU the same pieces run uncaptured.  The
@@ -59,9 +62,9 @@ would run (the JAX engine, which donates its buffers, cleared the trim
 first).  A tick that raises after the prologue's writes (in the beam
 loop, its capture, a collective) leaves the state a tick ahead of the
 slot table with no copy to go back to: the engine then refuses every
-later tick rather than run on a cache the host misreads.  The
-speculative pools run eagerly between the same prologue and the same
-buffers (ROADMAP item 17e).
+later tick rather than run on a cache the host misreads.  A sampling
+tick's program owns a generator, registered with R's graph and reseeded
+from (``sample_seed``, tick index) before the tick.
 
 The server pushes audio from its event loop while a tick runs in its
 worker thread (which also opens and closes slots), so one lock
@@ -70,8 +73,8 @@ engine a push during a tick could lose the samples it appended, and a
 close during a tick had its reset undone when the tick took its state).
 
 ``spec_warm_fallback`` is accepted and does nothing: the JAX engine
-compiles its fallback step ahead in a thread, and eager PyTorch has
-nothing to compile.
+compiles its fallback step ahead in a thread; here the fallback's
+program is captured at its first tick, as every program is.
 
 On a mesh whose 'data' axis is above 1 (built and ticked inside
 ``parallel.collectives.tensor_parallel(mesh)``), one pool is split over
@@ -310,7 +313,7 @@ class ServingEngine:
         )
         self._S = int(np.ceil(smax / 16) * 16)
         self._alloc_tick_buffers()
-        # the tick's device programs ("beam", "greedy"), captured as CUDA
+        # the tick's device programs (``_tick_kind``), captured as CUDA
         # graphs on the card at their first tick (``_graphs_on = False``,
         # a private hook for checks: uncaptured on the card)
         self._programs: Dict[str, graphs.DeviceProgram] = {}
@@ -380,14 +383,6 @@ class ServingEngine:
         """True once the acceptance guard swapped the pool to its
         plain-cost step."""
         return self._spec_fallback
-
-    def _whole(self, x) -> np.ndarray:
-        """A per-row result of this rank's rows (a tensor or an array)
-        joined over 'data' into the whole pool's, on the host."""
-        if self.n_data == 1:
-            return x.cpu().numpy() if torch.is_tensor(x) else x
-        t = torch.as_tensor(x).to(self.device)
-        return par.gather_rows(t).cpu().numpy()
 
     # -- the tick as a device program ---------------------------------------
     def _alloc_tick_buffers(self):
@@ -542,7 +537,7 @@ class ServingEngine:
 
         prog = graphs.DeviceProgram(
             dict(A=prefill, B=select, C=forward, F=finish), self._pool())
-        prog.loop = loop
+        prog.loop, prog.packed = loop, self._packed
         return prog
 
     def _greedy_program(self) -> graphs.DeviceProgram:
@@ -614,7 +609,7 @@ class ServingEngine:
 
         prog = graphs.DeviceProgram(
             dict(A=prefill, S=select, D=forward, F=finish), self._pool())
-        prog.go = go
+        prog.go, prog.packed = go, self._packed
         return prog
 
     def _pool(self) -> Optional[graphs.GraphPool]:
@@ -625,95 +620,136 @@ class ServingEngine:
             self._graph_pool = graphs.GraphPool(self.device)
         return self._graph_pool
 
+    def _spec_program(self, kind: str) -> graphs.DeviceProgram:
+        """The speculative tick: "spec" (greedy), "spec_sample" (the
+        rejection sampler) or "spec_sample_self" (the sampling pool after
+        its guard trips: the d = L self-draft, no draft head or adapter,
+        as JAX's ``_build_step(fallback=True)``).  Pieces A (prologue,
+        ``speculative.start_spec`` over the pool's rows), R
+        (``spec_round``: one whole round for every row, ``go`` or'ed over
+        'data') and F (each row's count, draft counters and tokens
+        gathered over 'data', then the stats [rounds, drafted, accepted,
+        emitted] of the whole pool, one int32 vector).  The sampler's R
+        draws from the program's own generator, registered with R's graph
+        and reseeded each tick."""
+        cfg, stream, dev = self.cfg, self.stream, self.device
+        B, S, G = self._B, self._S, self.max_new
+        L = cfg.llama.num_layers
+        self_draft = kind == "spec_sample_self"
+        d = L if self_draft else self.spec_draft_layers
+        common = dict(
+            max_new_tokens=G, eos_id=cfg.tokens.eos, pad_id=cfg.tokens.pad,
+            draft_layers=d, draft_k=self.spec_k,
+            no_repeat_ngram_size=stream.no_repeat_ngram_size,
+            repetition_penalty=stream.repetition_penalty)
+        gen = None
+        if kind == "spec":
+            spec = spec_mod.SpecSpec(**common,
+                                     accept_all=self.spec_accept_all)
+        else:
+            spec = spec_mod.SpecSampleSpec(**common, **self.sample)
+            gen = torch.Generator(device=dev)
+        params = self.params
+        draft = spec_mod.draft_of(
+            params["llama"], cfg.llama, d,
+            None if self_draft else params.get("spec_draft_head"),
+            None if self_draft else params.get("spec_adapter"))
+        loop = spec_mod.alloc_spec(spec, B, cfg.llama.vocab_size, S, dev)
+        packed = torch.zeros((self.pool * (3 + G) + 4,), dtype=torch.int32,
+                             device=dev)
+        x, ngram = self._in, stream.no_repeat_ngram_size
+        me = weakref.proxy(self)
+
+        def prefill():  # A
+            last, prompt_lens = me._prologue()
+            spec_mod.start_spec(loop, spec, last.to(torch.float32), x["ids"],
+                                prompt_lens, x["row_active"] != 0,
+                                x["row_max_new"])
+
+        def round_():  # R
+            spec_mod.spec_round(loop, spec, me.params["llama"], cfg.llama,
+                                me.dec_state, draft, x["hist"],
+                                x["hist_len"], gen, ngram, me._suppress)
+
+        def finish():  # F
+            rows = par.gather_rows(torch.cat(
+                [loop.n_out[:, None], loop.drafted[:, None],
+                 loop.accepted[:, None], loop.tokens], dim=1))
+            stats = torch.stack([loop.rounds, rows[:, 1].sum(),
+                                 rows[:, 2].sum(), rows[:, 0].sum()])
+            packed.copy_(torch.cat([rows.reshape(-1), stats]).to(
+                torch.int32))
+
+        prog = graphs.DeviceProgram(
+            dict(A=prefill, R=round_, F=finish), self._pool(),
+            {"R": [gen]} if gen is not None else None)
+        prog.loop, prog.packed, prog.generator = loop, packed, gen
+        return prog
+
+    def _tick_kind(self) -> str:
+        """The program of this tick: "beam" or "greedy" (beam 1, and the
+        speculative greedy pool after its guard trips), or a speculative
+        one (``_spec_program``)."""
+        if not self.speculative:
+            return "beam" if self.beam > 1 else "greedy"
+        if self.do_sample:
+            return "spec_sample_self" if self._spec_fallback \
+                else "spec_sample"
+        return "greedy" if self._spec_fallback else "spec"
+
     def _program(self, kind: str) -> graphs.DeviceProgram:
         if kind not in self._programs:
-            self._programs[kind] = (self._beam_program() if kind == "beam"
-                                    else self._greedy_program())
+            if kind == "beam":
+                prog = self._beam_program()
+            elif kind == "greedy":
+                prog = self._greedy_program()
+            else:
+                prog = self._spec_program(kind)
+            self._programs[kind] = prog
         return self._programs[kind]
 
-    def _step(self, arrays: Dict[str, np.ndarray], generator=None):
+    def _step(self, arrays: Dict[str, np.ndarray], tick_index: int):
         """One tick on the device over this rank's rows of ``arrays`` (the
-        whole pool's host arrays).  Returns (tokens (P, max_new) np, n
-        (P,) np, token forwards), the whole pool's; a speculative step
-        leaves the pool's statistics in ``_step_stats``.  The deferred
-        trim is cleared once it is applied."""
-        if self.speculative and not (self._spec_fallback
-                                     and not self.do_sample):
-            self._upload(arrays)
-            last, _ = self._prologue()
-            self._pending_evict = None
-            self._mid_tick = True
-            rs = self._rows
-            prompt_lens = arrays["valid"][rs].sum(-1).astype(np.int64)
-            toks, n_tok = self._spec_step(
-                last, self._in["ids"], prompt_lens, self._in["hist"],
-                arrays["hist_len"][rs], arrays["row_active"][rs] != 0,
-                arrays["row_max_new"][rs], generator)
-            return toks, n_tok, 0
-        prog = self._program("beam" if self.beam > 1 else "greedy")
+        whole pool's host arrays); a sampling tick draws from its
+        program's generator seeded with ``logits.chunk_seed(sample_seed,
+        tick_index)``.  Returns (tokens (P, max_new) np, n (P,) np, token
+        forwards), the whole pool's; a speculative step leaves the pool's
+        statistics in ``_step_stats``.  The deferred trim is cleared once
+        it is applied."""
+        kind = self._tick_kind()
+        prog = self._program(kind)
         n_fwd = 0
         with prog.step():
             self._upload(arrays)
+            if getattr(prog, "generator", None) is not None:
+                prog.generator.manual_seed(lp.chunk_seed(self.sample_seed,
+                                                         tick_index))
             prog.run("A")
             self._pending_evict = None
             self._mid_tick = True
-            if self.beam > 1:
+            if kind == "beam":
                 prog.run("B")
                 while not beam_mod.read_done(prog.loop):
                     prog.run("C")
                     n_fwd += 1
                     prog.run("B")
-            else:
+            elif kind == "greedy":
                 for _ in range(self.max_new):
                     prog.run("S")
                     if not graphs.read(prog.go):
                         break
                     prog.run("D")
                     n_fwd += 1
+            else:
+                while graphs.read(prog.loop.go):  # one round a read
+                    prog.run("R")
             prog.run("F")
-            packed = np.asarray(graphs.read(self._packed), np.int64)
-        return packed[:, 1:], packed[:, 0], n_fwd
-
-    def _spec_step(self, last, ids_t, prompt_lens, hist_t, hist_len,
-                   row_active, row_max_new, generator):
-        """The pooled speculative decode of a tick, eager, on the state in
-        place: greedy, or sampling (after a guard trip, the d = L
-        self-draft with no draft head or adapter).  Returns the whole
-        pool's (tokens, counts) on the host."""
-        cfg, stream = self.cfg, self.stream
-        fallback = self._spec_fallback
-        params = self.params
-        common = dict(
-            max_new_tokens=self.max_new, eos_id=cfg.tokens.eos,
-            pad_id=cfg.tokens.pad,
-            draft_layers=(cfg.llama.num_layers if fallback
-                          else self.spec_draft_layers),
-            draft_k=self.spec_k,
-            no_repeat_ngram_size=stream.no_repeat_ngram_size,
-            repetition_penalty=stream.repetition_penalty)
-        kw = dict(
-            row_active=row_active, row_max_new=row_max_new,
-            encoder_ngram_size=stream.no_repeat_ngram_size,
-            suppress_mask=self._suppress,
-            draft_head=None if fallback else params.get("spec_draft_head"),
-            exit_adapter=None if fallback else params.get("spec_adapter"))
-        args = (params["llama"], cfg.llama, self.dec_state, last, ids_t,
-                prompt_lens, hist_t, hist_len)
-        if self.do_sample:
-            sp = spec_mod.SpecSampleSpec(**common, **self.sample)
-            out = spec_mod.batched_speculative_sample(*args, sp, generator,
-                                                      **kw)
-        else:
-            sp = spec_mod.SpecSpec(**common,
-                                   accept_all=self.spec_accept_all)
-            out = spec_mod.batched_speculative_greedy(*args, sp, **kw)
-        toks, n_tok, _, dec, rounds, drafted, accepted = out
-        _put(self.dec_state, dec)
-        n_tok = self._whole(n_tok)
-        self._step_stats = (rounds, int(self._whole(drafted).sum()),
-                            int(self._whole(accepted).sum()),
-                            int(n_tok.sum()))
-        return self._whole(toks), n_tok
+            packed = np.asarray(graphs.read(prog.packed), np.int64)
+        if kind in ("beam", "greedy"):
+            return packed[:, 1:], packed[:, 0], n_fwd
+        rows = packed[:-4].reshape(self.pool, 3 + self.max_new)
+        self._step_stats = tuple(int(v) for v in packed[-4:])
+        return rows[:, 3:], rows[:, 0], 0
 
     def _guard(self, stats):
         """The speculative statistics of a tick and the pool-wide guard."""
@@ -823,10 +859,7 @@ class ServingEngine:
             patch_starts[i] = pr.patch_start
 
         self.last_ticked = tuple(i for i, _ in prompts)
-        gen = None
-        if self.do_sample:  # fresh draws a tick, the same per (seed, tick)
-            gen = lp.chunk_generator(self.sample_seed, self._tick_counter,
-                                     self.device)
+        tick_index = self._tick_counter
         self._tick_counter += 1
         self._step_stats = None
         # the deferred trim, or the identity on every row
@@ -836,7 +869,8 @@ class ServingEngine:
             chunks=chunks, ids=ids, valid=valid, patch_starts=patch_starts,
             row_active=row_active, hist=hist, hist_len=hist_len,
             row_frames=row_frames, row_patches=row_patches,
-            row_max_new=row_max_new, ev_keep=ev_keep, ev_sys=ev_sys), gen)
+            row_max_new=row_max_new, ev_keep=ev_keep, ev_sys=ev_sys),
+            tick_index)
         self.forwards["prefill"] += 1
         self.forwards["token"] += n_fwd
         if self._step_stats is not None:

@@ -306,10 +306,13 @@ def test_speculative_sampling_falls_back_to_the_program(seed):
                             spec_guard_patience=2, **FILTERS)
     out, trip = run_stream(agent)
     assert trip == 1 and out == RECORDED_SPEC_CHUNKS[seed]
-    # the chunks after the trip ran the sampling program, one key a
-    # (m, n_units, first) as the stream met them
+    # the chunks up to the trip ran the speculative sampling program, the
+    # chunks after it the sampling program, one key a (m, n_units, first)
+    # as the stream met them
     prog = agent._programs[(1, 1, False, "sample")]
-    assert list(agent._programs) == [(1, 1, False, "sample")]
+    assert list(agent._programs) == [(1, 1, True, "spec_sample"),
+                                     (1, 1, False, "spec_sample"),
+                                     (1, 1, False, "sample")]
     assert prog.loop.t.item() == agent.last_result.steps
 
 
