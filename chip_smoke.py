@@ -291,19 +291,34 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  step.  The run directory is removed.
      train flagship stage 2 -- Trainer.fit on the same rows at stage 2
                  (the adapter and the 8B LLM trained, the encoder frozen),
-                 bfloat16, remat, 3 steps, no checkpoint: finite losses,
+                 bfloat16, remat, 3 steps, captured, no checkpoint: finite losses,
                  every w2v2 leaf bitwise unchanged, the adapter and every
                  LLM matrix moved, no kernel launched; the step walls, the
                  peak memory and the bytes of the parameters, gradients
                  and AdamW moments, counted from the leaves.
+     train graph -- the train step as a captured program
+                 (``TrainProgram``) against its uncaptured twin
+                 (``_graphs_on = False``) from the same state, with
+                 deterministic algorithms: the flagship stage 1 at
+                 TRAIN_FLAGSHIP_LAYERS layers, bf16, remat, dropout 0.1,
+                 TRAIN_GRAPH_STEPS steps, then [train tiny]'s three cases
+                 on the dryrun preset (stage 1 with dropout 0.1): loss,
+                 norm, every parameter and moment bitwise after every
+                 step; replays under ``graphs.strict_syncs``, the packed
+                 [loss, norm] read at every TRAIN_GRAPH_LOG-th step only;
+                 a replayed flagship step's device kernels by name, its
+                 copies and memsets equal the uncaptured step's (plus the
+                 generator's replay prologue), both dispatches, the
+                 replay under the profiler (idle share).
      train main -- ``python -m infinisst_tpu_torch.train.main
                  --model_preset dryrun --max_steps 3`` on the card in
                  this process: metrics.jsonl and the checkpoint.
      train bench -- ``python -m infinisst_tpu_torch.bench --mode train``
                  and ``--mode train-io`` in this process: their JSON lines
                  (bench.py's keys), values finite and positive; then the
-                 bench's step in this process: synced walls, the host's
-                 dispatch time, one step under the profiler.
+                 bench's step in this process, captured (and uncaptured,
+                 on the same state): synced walls, the host's dispatch
+                 time, one replayed step under the profiler.
  13. the tools:
      fidelity -- ``tools.quant_fidelity.main --steps 600`` in this process:
                  the probe's Llama (D=256, L=4, V=512) trained on the card,
@@ -4228,14 +4243,16 @@ def _tree_bytes(tree) -> int:
 TRAIN_FLAGSHIP_LAYERS = 8
 
 
-def _flagship_trainer(dev, d, max_steps, stage=1, run="run", n_layers=None):
+def _flagship_trainer(dev, d, max_steps, stage=1, run="run", n_layers=None,
+                      graphs_on=True):
     """A Trainer on the flagship preset (random bfloat16 weights, as
     bench.py's bench_train builds them; the first ``n_layers`` Llama
     layers if given), ``stage`` (1 by default), remat,
     encoder dropout 0.1 (applied at stage 1 only), over the TSV in ``d``:
     collator 4 at m = 1, two 28.8 s rows a batch, log_step 1, save_step
     0, under ``d/run``.  Its steps and saves are timed (the step
-    synchronised)."""
+    synchronised; its last host batch kept as ``last_batch``).  ``graphs_on=False`` runs its program uncaptured (the
+    private hook, set before the program is made)."""
     import torch
 
     from infinisst_tpu_torch.core.presets import flagship_config
@@ -4257,6 +4274,7 @@ def _flagship_trainer(dev, d, max_steps, stage=1, run="run", n_layers=None):
     t = Trainer(args, cfg, PromptBuilder(StubTokenizer(cfg.llama.vocab_size),
                                          cfg.tokens),
                 random_params(cfg, dev, torch.bfloat16), device=dev)
+    t._graphs_on = graphs_on
     step_fn, save_fn = t._get_step_fn(1), t._save
     t.walls, t.save_walls = [], []
 
@@ -4265,6 +4283,7 @@ def _flagship_trainer(dev, d, max_steps, stage=1, run="run", n_layers=None):
         out = step_fn(state, batch)
         torch.cuda.synchronize()
         t.walls.append(time.perf_counter() - t0)
+        t.last_batch = batch
         return out
 
     def timed_save(step):
@@ -4396,11 +4415,16 @@ def check_train_flagship_stage2(dev, d):
     get no gradient), no kernel launched; the step walls, the peak
     memory, and the bytes of the parameters, the gradients (one a
     trainable leaf) and the moments (mu, nu), counted from the leaves.
-    Nothing is saved, and the run directory is removed afterwards."""
+    Then one step at a second key (the next text bucket), whose warm-up
+    and capture share the graphs' pool with the first key's graph: a
+    finite loss and norm, and its peak.  Nothing is saved, and the run
+    directory is removed afterwards."""
     import gc
 
     import torch
 
+    from infinisst_tpu_torch.core import graphs
+    from infinisst_tpu_torch.data.template import IGNORE_INDEX
     from infinisst_tpu_torch.train import step as tstep
 
     run = os.path.join(d, "run2")
@@ -4479,9 +4503,334 @@ def check_train_flagship_stage2(dev, d):
               f"every w2v2 leaf bitwise unchanged, the adapter and the LLM "
               f"moved (unmoved at their first 4096 entries: {still}); "
               f"launches {counts}", flush=True)
-        del t, params, enc, sample
+        # a second key: the last batch with 128 more text columns, fully
+        # masked (the next padded bucket); its warm-up and capture run in
+        # the graphs' pool, beside the first key's graph
+        b = t.last_batch
+
+        def wider(x, fill):
+            return torch.cat([x, torch.full((x.shape[0], 128), fill,
+                                            dtype=x.dtype)], 1).pin_memory()
+
+        b2 = tstep.Batch(b.speech, b.frame_lengths,
+                         wider(b.input_ids, t.cfg.tokens.pad),
+                         wider(b.labels, IGNORE_INDEX),
+                         wider(b.attention_mask, 0),
+                         wider(b.patch_mask, False))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t.state, met = t._step_fns[1](t.state, b2)
+        loss2, norm2 = graphs.read(met["packed"])
+        peak2 = torch.cuda.max_memory_allocated(dev)
+        keys = t._program.keys.values()
+        if len(keys) != 2 or not all(k.program.captured for k in keys):
+            fail(f"[train flagship stage 2] the second key: "
+                 f"{len(keys)} programs, captured "
+                 f"{[k.program.captured for k in keys]}")
+        if not (math.isfinite(loss2) and math.isfinite(norm2)):
+            fail(f"[train flagship stage 2] the second key: loss {loss2}, "
+                 f"norm {norm2}")
+        print(f"[train flagship stage 2] a second key (text "
+              f"{tuple(b2.input_ids.shape)}, the first's "
+              f"{tuple(b.input_ids.shape)}): warm-up and capture inside "
+              f"the graphs' pool, loss {loss2:.4f}, grad norm "
+              f"{norm2:.4g}, step wall {t.walls[-1]:.3f} s; peak "
+              f"{peak2 / gib:.2f} GiB (max_memory_allocated over that "
+              f"step), of which {copy_bytes / gib:.2f} GiB this check's "
+              f"copies: {(peak2 - copy_bytes) / gib:.2f} GiB for the "
+              f"training", flush=True)
+        del t, params, enc, sample, met
     finally:
         shutil.rmtree(run, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# [train graph]: the train step as a captured program (TrainProgram)
+# against its uncaptured twin (``captured=False``, the trainer's
+# ``_graphs_on = False``), from the same state, in lockstep; the host
+# reads the packed [loss, norm] at every TRAIN_GRAPH_LOG-th step only
+TRAIN_GRAPH_LOG = 2
+TRAIN_GRAPH_STEPS = 5  # the flagship's: warm-up + capture, then replays
+
+
+def _train_graph_step(label, i, cap, unc, batch, m=1):
+    """Step i of the captured program ``cap`` = (prog, state) under
+    ``graphs.strict_syncs`` (reading its packed pair at a log step only),
+    then of the uncaptured ``unc``; both stepped.  Returns the new pairs,
+    the captured step's wall (host, to its return) and its host reads."""
+    from infinisst_tpu_torch.core import graphs
+
+    (cp, cs), (up, us) = cap, unc
+    reads = graphs.host_reads
+    with graphs.strict_syncs():
+        t0 = time.perf_counter()
+        cs, cm = cp(cs, batch, m)
+        wall = time.perf_counter() - t0
+        if (i + 1) % TRAIN_GRAPH_LOG == 0:
+            graphs.read(cm["packed"])
+    reads = graphs.host_reads - reads
+    want = 1 if (i + 1) % TRAIN_GRAPH_LOG == 0 else 0
+    if reads != want:
+        fail(f"[train graph] {label} step {i}: {reads} host reads, "
+             f"{want} expected")
+    us, um = up(us, batch, m)
+    return (cp, cs), (up, us), cm, um, wall, reads
+
+
+def _states_equal(label, i, cap, unc, cm, um):
+    """Captured and uncaptured bitwise: the packed [loss, norm], every
+    parameter and every optimizer tensor."""
+    import torch
+
+    from infinisst_tpu_torch.train import step as tstep
+
+    cs, us = cap[1], unc[1]
+    if not torch.equal(cm["packed"], um["packed"]):
+        fail(f"[train graph] {label} step {i}: loss and norm "
+             f"{cm['packed'].tolist()} captured, {um['packed'].tolist()} "
+             "uncaptured")
+    for name, a, b in (("params", cs.params, us.params),
+                       ("moments", cs.opt_state, us.opt_state)):
+        la = [x for x in tstep.tree_leaves(a) if isinstance(x, torch.Tensor)]
+        lb = [x for x in tstep.tree_leaves(b) if isinstance(x, torch.Tensor)]
+        bad = [j for j, (x, y) in enumerate(zip(la, lb))
+               if not torch.equal(x, y)]
+        if len(la) != len(lb) or bad:
+            fail(f"[train graph] {label} step {i}: {name} differ at leaves "
+                 f"{bad[:8]} of {len(la)}")
+
+
+# the profiler can miss the first kernels of a window: on the card the
+# flagship step's first kernels, the optimizer's three scalar fills, went
+# missing from some windows; ``_device_ops`` opens a window with this many
+# spin kernels (left out of its counts) and a synchronise
+PROFILE_SENTINELS = 32
+
+
+def _device_ops(dev, step) -> tuple:
+    """``step()`` under torch.profiler (the device's activity only): its
+    kernels counted by name, then its device-to-device copies and its
+    memsets, counted alike whether they ran as copies (eagerly) or as the
+    driver's copy and memset kernels of a graph's nodes ("memcpy...",
+    "memset..."); the host's uploads and reads are left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(PROFILE_SENTINELS):
+            torch.cuda._sleep(100)
+        _sync(dev)
+        step()
+        _sync(dev)
+        time.sleep(PROFILE_MARGIN_S)
+    names, copies, sets = {}, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        k = e.key
+        if "spin_kernel" in k:  # the sentinels
+            continue
+        if k.startswith("memcpy") or (k.startswith("Memcpy") and "DtoD" in k):
+            copies += e.count
+        elif k.startswith(("memset", "Memset")):
+            sets += e.count
+        elif not k.startswith("Memcpy"):
+            names[k] = names.get(k, 0) + e.count
+    return names, copies, sets
+
+
+def check_train_graph_tiny(dev):
+    """[train tiny]'s three cases (stage 1, here with encoder dropout 0.1;
+    stage 2 with grad_acc_steps 2; stage 0 with cpo_beta 0.5) on the
+    dryrun preset in float32, 4 steps over [train tiny]'s batches, as
+    ``TrainProgram`` captured on the card against the same program
+    uncaptured, from the same parameters, deterministic algorithms on:
+    loss, norm, every parameter and every moment bitwise after every
+    step; the replays under ``graphs.strict_syncs`` with host reads only
+    at the log steps; no kernel launched."""
+    import torch
+
+    from infinisst_tpu_torch.core.presets import dryrun_config
+    from infinisst_tpu_torch.parallel.mesh_check import deterministic
+    from infinisst_tpu_torch.train import step as tstep
+    from infinisst_tpu_torch.train.main import random_params
+    from infinisst_tpu_torch.train.trainer import BATCH_KEYS
+
+    cfg = dryrun_config()
+    host = [tstep.Batch(**{k: torch.from_numpy(b[k]).pin_memory()
+                           for k in BATCH_KEYS})
+            for b in train_tiny_batches(cfg)]
+    base = random_params(cfg, "cpu", torch.float32)
+    reset_counts()
+
+    def make(fz, acc, cpo, sched, rate, captured):
+        params = tstep.tree_map(lambda t: t.clone().to(dev), base)
+        freeze = _freeze(fz)
+        tx = tstep.make_optimizer(tstep.OptimConfig(
+            learning_rate=TRAIN_LR, warmup_steps=2, total_steps=6,
+            scheduler=sched), params, freeze)
+        if acc > 1:
+            tx = tstep.MultiSteps(tx, acc)
+        prog = tstep.TrainProgram(cfg, tx, 48, 96, dev, cpo_beta=cpo,
+                                  freeze=freeze, remat=True,
+                                  encoder_dropout=rate, dropout_seed=7,
+                                  captured=captured)
+        return prog, tstep.init_train_state(params, tx)
+
+    with deterministic():
+        for label, fz, acc, cpo, sched in TRAIN_TINY_CASES:
+            rate = 0.1 if fz == "stage1" else 0.0
+            cap, unc = (make(fz, acc, cpo, sched, rate, c)
+                        for c in (True, False))
+            walls, losses = [], []
+            for i, b in enumerate(host):
+                cap, unc, cm, um, wall, _ = _train_graph_step(
+                    label, i, cap, unc, b)
+                _states_equal(label, i, cap, unc, cm, um)
+                walls.append(wall)
+                losses.append(cm["packed"].tolist())
+            prog = cap[0]
+            progs = [k.program for k in prog.keys.values()] + (
+                [prog._apply] if prog._apply is not None else [])
+            if not all(p.captured and p.replays for p in progs):
+                fail(f"[train graph] {label}: a program did not replay: "
+                     f"{[(p.captured, p.replays) for p in progs]}")
+            print(f"[train graph] dryrun {label}"
+                  f"{', dropout 0.1' if rate else ''}: captured = "
+                  f"uncaptured bitwise every step (loss, norm, parameters, "
+                  f"moments); [loss, norm] {losses}; programs "
+                  f"{len(progs)}, replays {[p.replays for p in progs]}; "
+                  f"captured step walls (host, to return) "
+                  f"{[round(w * 1e3, 2) for w in walls]} ms", flush=True)
+            del cap, unc, prog, progs
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"[train graph] kernels launched on the training path: "
+             f"{counts}")
+
+
+def check_train_graph_flagship(dev, d):
+    """The flagship stage 1 (``_flagship_trainer``: bf16, remat, encoder
+    dropout 0.1, the Llama at TRAIN_FLAGSHIP_LAYERS layers) in two
+    Trainers on the same random weights, one captured and one with
+    ``_graphs_on = False``, TRAIN_GRAPH_STEPS steps in lockstep over the
+    TSV rows in ``d``, deterministic algorithms on: loss, norm, every
+    parameter, mu and nu bitwise after every step, replays under
+    ``graphs.strict_syncs`` with host reads only at the log steps.  Then
+    one more step of each under the profiler: the device kernels of the
+    replayed step, counted by name, equal the uncaptured step's; the
+    host's dispatch (its time to return) of a replayed and of an
+    uncaptured step, and the replay's idle share."""
+    import gc
+
+    import torch
+
+    from infinisst_tpu_torch.parallel.mesh_check import deterministic
+
+    label = f"flagship stage 1 at {TRAIN_FLAGSHIP_LAYERS} Llama layers"
+    ts = [_flagship_trainer(dev, d, 0, n_layers=TRAIN_FLAGSHIP_LAYERS,
+                            run=f"graph{i}", graphs_on=i == 0)
+          for i in range(2)]
+    try:
+        if ts[1]._get_program().pool is not None:
+            fail("[train graph] the uncaptured twin has a graph pool")
+        ds, sampler, coll = ts[0]._make_loader("tr", 1900, shuffle=False)
+        sampler.set_epoch(0)
+        batches = [ts[0]._to_batch(coll([ds[j] for j in idx]), 1)
+                   for idx in list(sampler)[:2]]
+        # the programs themselves: the trainers' step functions are
+        # _flagship_trainer's timed wrappers, which synchronise
+        cap = (ts[0]._get_program(), ts[0].state)
+        unc = (ts[1]._get_program(), ts[1].state)
+        walls = []
+        with deterministic():
+            for i in range(TRAIN_GRAPH_STEPS):
+                b = batches[i % len(batches)]
+                cap, unc, cm, um, wall, _ = _train_graph_step(
+                    label, i, cap, unc, b)
+                torch.cuda.synchronize()
+                _states_equal(label, i, cap, unc, cm, um)
+                walls.append(wall)
+            prog = ts[0]._program
+            # one replayed step and one uncaptured step under the profiler
+            b = batches[0]
+            got = {}
+
+            def replayed():
+                got["cap"] = cap[0](cap[1], b)
+
+            def uncaptured():
+                got["unc"] = unc[0](unc[1], b)
+
+            seen_cap, copies_cap, sets_cap = _device_ops(dev, replayed)
+            seen_unc, copies_unc, sets_unc = _device_ops(dev, uncaptured)
+            if (copies_cap, sets_cap) != (copies_unc, sets_unc):
+                fail(f"[train graph] {label}: the replayed step ran "
+                     f"{copies_cap} device copies and {sets_cap} memsets, "
+                     f"the uncaptured step {copies_unc} and {sets_unc}")
+            cap = (cap[0], got["cap"][0])
+            unc = (unc[0], got["unc"][0])
+            torch.cuda.synchronize()
+            _states_equal(label, TRAIN_GRAPH_STEPS, cap, unc,
+                          got["cap"][1], got["unc"][1])
+            # a replay of a graph with a registered generator first fills
+            # the generator's seed and offset tensors (two int64 fills,
+            # CUDAGraph.replay's prologue); the uncaptured draws pass them
+            # as kernel arguments
+            n_gen = sum(len(k.program.generators.get("step", ()))
+                        for k in prog.keys.values())
+            prologue = {k: 2 * n_gen for k in seen_cap
+                        if "FillFunctor<long>" in k}
+            want = dict(seen_unc)
+            for k, n in prologue.items():
+                want[k] = want.get(k, 0) + n
+            if seen_cap != want or len(prologue) != (n_gen > 0):
+                diff = {k: (seen_cap.get(k, 0), seen_unc.get(k, 0))
+                        for k in set(seen_cap) | set(seen_unc)
+                        if seen_cap.get(k, 0) != seen_unc.get(k, 0)}
+                fail(f"[train graph] {label}: the replayed step's kernels "
+                     f"by name (captured, uncaptured) differ beyond the "
+                     f"generator's replay prologue ({2 * n_gen} int64 "
+                     f"fills): {diff}")
+            # dispatch: the host's time to return, without a synchronise
+            disp = {}
+            for name, (fn, st) in (("captured", cap), ("uncaptured", unc)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = fn(st, b)
+                disp[name] = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                disp[name + " wall"] = time.perf_counter() - t0
+                if name == "captured":
+                    cap = (fn, st)
+                else:
+                    unc = (fn, st)
+        med = statistics.median(walls[1:])
+        print(f"[train graph] {label}: captured = uncaptured bitwise every "
+              f"step of {TRAIN_GRAPH_STEPS} (loss, norm, parameters, mu, "
+              f"nu), replays under strict syncs, host reads at the log "
+              f"steps only; keys {sorted(prog.keys)}, replays "
+              f"{[k.program.replays for k in prog.keys.values()]}; the "
+              f"replayed step's device kernels equal the uncaptured "
+              f"step's by name ({sum(seen_unc.values())} kernels, "
+              f"{len(seen_unc)} names) and its {copies_unc} device "
+              f"copies and {sets_unc} memsets, plus the generator's replay "
+              f"prologue ({sum(prologue.values())} int64 fills); captured "
+              f"step walls (host, to "
+              f"return) {[round(w, 4) for w in walls]} s; dispatch of one "
+              f"step: captured {disp['captured'] * 1e3:.2f} ms (wall "
+              f"{disp['captured wall'] * 1e3:.2f} ms), uncaptured "
+              f"{disp['uncaptured'] * 1e3:.2f} ms (wall "
+              f"{disp['uncaptured wall'] * 1e3:.2f} ms); graph pool "
+              f"{graph_pool_bytes(prog.pool) / 2**30:.2f} GiB", flush=True)
+        profile_run(dev, lambda: cap[0](cap[1], b), TRAIN_STAGES,
+                    "train graph profile", disp["captured wall"] * 1e3,
+                    "replayed step")
+    finally:
+        del ts, cap, unc
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4567,12 +4916,16 @@ def check_mesh_step(dev, mesh):
     parameter bitwise equal (at world size 1 no reduction is reordered).
     Deterministic algorithms are on for the check (the embedding's and
     the convolutions' backward passes otherwise accumulate in any
-    order); a second run without the mesh shows the card repeats
-    itself."""
+    order; ``mesh_check.deterministic``); a second run without the mesh
+    shows the card repeats itself.  The sharded step as
+    ``TrainProgram``, captured as CUDA
+    graphs (the mesh's collectives inside them), equals it too."""
     import torch
 
+    from infinisst_tpu_torch.core import graphs
     from infinisst_tpu_torch.core.presets import dryrun_config
     from infinisst_tpu_torch.parallel import mesh as pmesh
+    from infinisst_tpu_torch.parallel.mesh_check import deterministic
     from infinisst_tpu_torch.train import step as tstep
     from infinisst_tpu_torch.train.main import random_params
     from infinisst_tpu_torch.train.trainer import BATCH_KEYS
@@ -4582,7 +4935,7 @@ def check_mesh_step(dev, mesh):
     base = random_params(cfg, "cpu", torch.float32)
     freeze = tstep.FreezeConfig.stage2()
 
-    def run(with_mesh):
+    def run(with_mesh, program=False):
         params = tstep.tree_map(lambda t: t.clone().to(dev), base)
         plan = None
         if with_mesh:  # zero's (FSDP's) spec tree, as Trainer's default
@@ -4594,28 +4947,34 @@ def check_mesh_step(dev, mesh):
             learning_rate=TRAIN_LR, warmup_steps=1, total_steps=6),
             params, freeze)
         state = tstep.init_train_state(params, tx)
-        step = tstep.make_train_step(cfg, tx, 48, 96, freeze=freeze,
-                                     remat=True, plan=plan)
+        kw = dict(freeze=freeze, remat=True, plan=plan)
         metrics = []
+        if program:
+            prog = tstep.TrainProgram(cfg, tx, 48, 96, dev, **kw)
+            for b in host:
+                state, m = prog(state, tstep.Batch(**{
+                    k: torch.from_numpy(b[k]).pin_memory()
+                    for k in BATCH_KEYS}))
+                metrics.append(tuple(graphs.read(m["packed"])))
+            if not all(k.program.replays for k in prog.keys.values()):
+                fail("[mesh] the sharded step's program did not replay")
+            return metrics, tstep.tree_leaves(state.params)
+        step = tstep.make_train_step(cfg, tx, 48, 96, **kw)
         for b in host:
             state, m = step(state, tstep.Batch(**{
                 k: torch.from_numpy(b[k]).to(dev) for k in BATCH_KEYS}))
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
         return metrics, tstep.tree_leaves(state.params)
 
-    prev = torch.are_deterministic_algorithms_enabled()
-    prev_cudnn = torch.backends.cudnn.deterministic
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic():
         plain = run(False)
         sharded = run(True)
+        captured = run(True, program=True)
         again = run(False)
-    finally:
-        torch.use_deterministic_algorithms(prev)
-        torch.backends.cudnn.deterministic = prev_cudnn
     for label, other in (("the plain step run again", again),
-                         ("the sharded step at (1, 1)", sharded)):
+                         ("the sharded step at (1, 1)", sharded),
+                         ("the captured sharded step at (1, 1)",
+                          captured)):
         if other[0] != plain[0] or not all(
                 torch.equal(a, b) for a, b in zip(other[1], plain[1])):
             fail(f"[mesh] {label} is not bitwise the plain step: metrics "
@@ -4623,7 +4982,8 @@ def check_mesh_step(dev, mesh):
     print(f"[mesh] sharded train step at (1, 1) (zero's spec tree, FSDP's "
           f"code path; one rank splits nothing), dryrun float32 stage 2, 3 "
           f"steps: losses and grad norms {plain[0]} and every parameter "
-          f"bitwise those of make_train_step without a mesh", flush=True)
+          f"bitwise those of make_train_step without a mesh, also as "
+          f"TrainProgram captured as CUDA graphs", flush=True)
 
 
 def start_mesh_runs(d) -> dict:
@@ -4884,9 +5244,12 @@ def check_train_bench():
 
 def profile_train_bench(dev):
     """The bench's stage-1 step (the 1.5B preset, bf16, B = 2 x 28.8 s,
-    remat) in this process: the synced walls of 4 steps after a warm-up,
-    the host's time to return from a step without a synchronise (its
-    dispatch), and one step under the profiler."""
+    remat) in this process, as the bench runs it (``TrainProgram``,
+    captured): the synced walls of 4 replays after the warm-up and
+    capture, the host's time to return from a replayed step without a
+    synchronise (its dispatch), the same of the step uncaptured (a second
+    program, ``captured=False``, on the same state), and one replayed
+    step under the profiler (the device's idle share)."""
     import numpy as np
     import torch
 
@@ -4898,26 +5261,36 @@ def profile_train_bench(dev):
     params, freeze, tx = train_params(cfg, dev)
     state = tstep.init_train_state(params, tx)
     batch = train_batch(2, 30, dev, np.random.RandomState(0))
-    step = tstep.make_train_step(cfg, tx, 48, 576, freeze=freeze, remat=True)
-    walls = []
-    for i in range(5):
-        torch.cuda.synchronize()
+    progs = {c: tstep.TrainProgram(cfg, tx, 48, 576, dev, freeze=freeze,
+                                   remat=True, captured=c)
+             for c in (True, False)}
+    out = {}
+    for captured, prog in progs.items():
+        walls = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = prog(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
+        state, _ = prog(state, batch)
+        dispatch = time.perf_counter() - t0
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    state, _ = step(state, batch)
-    dispatch = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    med = statistics.median(walls[1:])
-    print(f"[train bench profile] 1.5B stage-1 step: synced walls "
-          f"{[round(w, 3) for w in walls]} s (the first warms up); the "
-          f"host returns from a step after {dispatch:.3f} s without a "
-          f"synchronise ({dispatch / med:.2f} of the median wall)",
-          flush=True)
-    profile_run(dev, lambda: step(state, batch), TRAIN_STAGES,
-                "train bench profile", med * 1e3, "step")
+        out[captured] = (walls, dispatch, statistics.median(walls[1:]))
+    (walls, dispatch, med), (u_walls, u_dispatch, u_med) = (out[True],
+                                                            out[False])
+    print(f"[train bench profile] 1.5B stage-1 step, captured: synced "
+          f"walls {[round(w, 3) for w in walls]} s (the first warms up and "
+          f"captures); the host returns from a replayed step after "
+          f"{dispatch * 1e3:.2f} ms without a synchronise ({dispatch / med:.3f}"
+          f" of the median wall {med * 1e3:.2f} ms); uncaptured: walls "
+          f"{[round(w, 3) for w in u_walls]} s, dispatch "
+          f"{u_dispatch * 1e3:.2f} ms ({u_dispatch / u_med:.3f} of "
+          f"{u_med * 1e3:.2f} ms)", flush=True)
+    prog = progs[True]
+    profile_run(dev, lambda: prog(state, batch), TRAIN_STAGES,
+                "train bench profile", med * 1e3, "replayed step")
 
 
 # ---------------------------------------------------------------------------
@@ -5754,8 +6127,8 @@ def check_demos(dev, paths):
 
 
 def train_phases(dev, paths):
-    """[train flagship], [train flagship stage 2] and [train tiny]: the
-    training path, which runs no kernel of the port (run beside the
+    """[train flagship], [train flagship stage 2], [train graph] and [train
+    tiny]: the training path, which runs no kernel of the port (run beside the
     build; the flagship's first: the card's work, where the build's
     compilers take the host's cores from [train tiny]'s CPU twin)."""
     import numpy as np
@@ -5771,6 +6144,11 @@ def train_phases(dev, paths):
             check_train_flagship(dev, paths, train_dir)
         with phase("train flagship stage 2"):
             check_train_flagship_stage2(dev, train_dir)
+        with phase("train graph"):
+            print("[train graph] the train step as a captured program "
+                  "against its uncaptured twin on the card", flush=True)
+            check_train_graph_flagship(dev, train_dir)
+            check_train_graph_tiny(dev)
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
     with phase("train tiny"):

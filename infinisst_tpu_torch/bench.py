@@ -90,10 +90,13 @@ the kernel launches.
 stage 1 (the LLM frozen, the encoder and adapter trained; remat on,
 encoder dropout 0) on the ~1.5B ``bench`` preset in bfloat16 with 28.8 s
 windows (1440 frames, 360 speech tokens + 240 target tokens a row).
-``train`` times 12 steps of ``train.step.make_train_step`` (2 untimed) at
-``--batch`` rows (2), each batch uploaded before its step and the step
-synchronised: metric train_stage1_speech_s_per_s_1chip_1.5b, speech
-seconds trained per second.  ``train-io`` runs the real input pipeline
+``train`` times 12 steps of ``train.step.TrainProgram`` (2 untimed; the
+step captured as CUDA graphs at its first, replayed after) at
+``--batch`` rows (2), each batch made in pinned host memory before its
+step, copied into the program's static batch by the step (~3.7 MB at
+B = 2), and the step synchronised: metric
+train_stage1_speech_s_per_s_1chip_1.5b, speech seconds trained per
+second.  ``train-io`` runs the real input pipeline
 (TSV + wav files written under a temporary directory -> SpeechSampler ->
 collator 4 at m = 1 -> ``Trainer._prefetch(depth=2)`` -> steps): 2 synced
 warmup steps, 2 synced probe steps, then 12 steps dispatched back to back
@@ -851,7 +854,8 @@ def train_params(cfg, dev):
 def train_batch(B, units, dev, rng):
     """bench.py's synthetic stage-1 batch: B rows of ``units`` x 960 ms of
     seeded noise, 12 patch tokens a unit (id 1008, as bench.py) and
-    TRAIN_TARGET_TOKENS target tokens a row."""
+    TRAIN_TARGET_TOKENS target tokens a row, on the host (pinned when
+    ``dev`` is a card), as ``TrainProgram`` takes it."""
     from infinisst_tpu_torch.train import step as tstep
 
     n_frames = 48 * units
@@ -861,21 +865,25 @@ def train_batch(B, units, dev, rng):
     ids[:, 2: 2 + sp] = 1008
     labels = np.where(np.arange(S)[None] >= sp + 4, ids, -100)
     speech = rng.randn(B, 399 + n_frames * 320).astype(np.float32) * 0.1
-    return tstep.Batch(
-        speech=torch.from_numpy(speech).to(dev),
-        frame_lengths=torch.full((B,), n_frames, dtype=torch.int64,
-                                 device=dev),
-        input_ids=torch.from_numpy(ids).to(dev),
-        labels=torch.from_numpy(labels).to(dev),
-        attention_mask=torch.ones((B, S), dtype=torch.int64, device=dev),
-        patch_mask=torch.from_numpy(ids == 1008).to(dev),
+    batch = tstep.Batch(
+        speech=torch.from_numpy(speech),
+        frame_lengths=torch.full((B,), n_frames, dtype=torch.int64),
+        input_ids=torch.from_numpy(ids),
+        labels=torch.from_numpy(labels),
+        attention_mask=torch.ones((B, S), dtype=torch.int64),
+        patch_mask=torch.from_numpy(ids == 1008),
     )
+    if torch.device(dev).type == "cuda":
+        batch = tstep.Batch(*(x.pin_memory() for x in batch))
+    return batch
 
 
 def main_train(args, cfg=None, units=TRAIN_UNITS, n_steps=TRAIN_STEPS):
     """The stage-1 step on synthetic batches (bench.py's bench_train):
     ``--batch`` rows of ``units`` x 960 ms, 360 patch tokens (id 1008, as
-    bench.py) and 240 target tokens a row at 28.8 s."""
+    bench.py) and 240 target tokens a row at 28.8 s, through
+    ``TrainProgram`` (captured on a card)."""
+    from infinisst_tpu_torch.core import graphs
     from infinisst_tpu_torch.core.config import StreamConfig
     from infinisst_tpu_torch.core.device import resolve_device
     from infinisst_tpu_torch.core.presets import bench_1chip_config
@@ -888,22 +896,22 @@ def main_train(args, cfg=None, units=TRAIN_UNITS, n_steps=TRAIN_STEPS):
     B = args.batch
     n_frames = 48 * units
     rng = np.random.RandomState(0)
-    step_fn = tstep.make_train_step(
-        cfg, tx, 48, StreamConfig().max_cache_frames,
-        multiplier=args.multiplier, freeze=freeze, remat=True)
+    prog = tstep.TrainProgram(cfg, tx, 48, StreamConfig().max_cache_frames,
+                              dev, freeze=freeze, remat=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for i in range(n_steps):
-        # the upload completes before the timer starts, as in bench.py
+        # the batch is made on the host before the timer starts; the step
+        # copies it into the program's static batch
         batch = train_batch(B, units, dev, rng)
         _train_sync(dev)
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        state, metrics = prog(state, batch, args.multiplier)
         _train_sync(dev)
         dt = time.perf_counter() - t0
-        print(f"step {i}: {dt:.3f}s loss={float(metrics['loss']):.3f} "
-              f"grad_norm={float(metrics['grad_norm']):.3e}",
+        loss, gnorm = graphs.read(metrics["packed"])
+        print(f"step {i}: {dt:.3f}s loss={loss:.3f} grad_norm={gnorm:.3e}",
               file=sys.stderr, flush=True)
         if i >= TRAIN_WARMUP:
             times.append(dt)
@@ -994,11 +1002,13 @@ def main_train_io(args, cfg=None, units=TRAIN_UNITS, n_steps=TRAIN_STEPS):
 
 
 def _run_train_io(t, ds, sampler, collator, n_steps, dev):
+    from infinisst_tpu_torch.core import graphs
+
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     state = t.state
-    synced, synced_speech, losses = [], [], []
-    timed_frames = []  # device tensors: summed after the final sync
+    synced, synced_speech = [], []
+    timed_frames = []  # of the host batches
     t_start = None
     n_timed = 0
     t_prev = time.perf_counter()
@@ -1013,15 +1023,14 @@ def _run_train_io(t, ds, sampler, collator, n_steps, dev):
             print(f"step {i} (synced): {dt:.3f}s speech="
                   f"{tuple(batch.speech.shape)} S="
                   f"{tuple(batch.input_ids.shape)} audio_s={sec:.1f} "
-                  f"loss={float(metrics['loss']):.3f}", file=sys.stderr,
-                  flush=True)
+                  f"loss={graphs.read(metrics['loss']):.3f}",
+                  file=sys.stderr, flush=True)
             if i >= TRAIN_WARMUP:
                 synced.append(dt)
                 synced_speech.append(sec)
             if i == TRAIN_WARMUP + TRAIN_PROBE - 1:
                 t_start = time.perf_counter()
         else:
-            losses.append(metrics["loss"])
             timed_frames.append(batch.frame_lengths.sum())
             n_timed += 1
             if n_timed >= n_steps:
@@ -1032,7 +1041,7 @@ def _run_train_io(t, ds, sampler, collator, n_steps, dev):
         raise RuntimeError(f"the data gave {n_timed} timed steps of "
                            f"{n_steps}")
     timed_speech = float(torch.stack(timed_frames).sum()) * 0.02
-    final_loss = float(losses[-1])
+    final_loss = graphs.read(metrics["loss"])  # the last step's
     print(f"pipelined: {n_timed} steps in {total:.2f}s "
           f"({timed_speech:.1f} audio_s) final_loss={final_loss:.3f}",
           file=sys.stderr, flush=True)

@@ -11,7 +11,15 @@ tables are made there, before any capture), then each piece is captured
 as one ``torch.cuda.CUDAGraph``; later passes replay them.  The graphs of
 every program an owner makes share one memory pool: only temporaries live
 there (everything that crosses pieces lives in the static buffers), and
-the pieces replay one after another on one stream.  On the CPU, where
+the pieces replay one after another on one stream.  A pool made with
+``warm_inside`` also takes its programs' warm-ups, whose temporaries then
+reuse the blocks where the graphs captured before keep theirs (a train
+step's warm-up is a whole step's activations and gradients, which beside
+the pool would not fit a card at stage 2); a warm-up there must leave
+nothing allocated once the pool holds a graph, or a replay of that graph
+would overwrite it, and it raises if it does.  The decoders' pools keep
+their warm-ups outside: a warm-up there makes lasting tables (a kernel's
+split-K counters for a new shape).  On the CPU, where
 CUDA graphs do not exist, the same pieces run as they are.
 
 A failed capture or replay raises; nothing runs eagerly in its place.
@@ -37,6 +45,7 @@ with ``torch.cuda.set_sync_debug_mode("error")``, lifted only inside
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -120,12 +129,49 @@ def put(dst, src):
 
 class GraphPool:
     """One memory pool and one capture stream for the programs of one
-    owner (an agent, a serving engine) on one card."""
+    owner (an agent, a serving engine, a trainer) on one card;
+    ``warm_inside``: the programs' warm-ups allocate in the pool too (the
+    module note)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, warm_inside: bool = False):
         self.device = device
         self.handle = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
+        self.warm_inside = warm_inside
+        self.holds_graphs = False
+
+    def _index(self) -> int:
+        i = self.device.index
+        return torch.cuda.current_device() if i is None else i
+
+    def route_begin(self) -> Optional[int]:
+        """With ``warm_inside``: from now on every allocation on the card
+        (the autograd engine's thread's too) is made in the pool, which
+        this holds a reference to until ``unref``; returns the bytes
+        allocated before.  None otherwise."""
+        if not self.warm_inside:
+            return None
+        # while allocations are routed, one that fails cannot give cached
+        # blocks back and retry: give them back first
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(self._index())
+        torch._C._cuda_beginAllocateToPool(self._index(), self.handle)
+        return before
+
+    def route_end(self, before: Optional[int]) -> int:
+        """Stop ``route_begin``'s routing; returns the bytes allocated since
+        it that are still alive."""
+        if before is None:
+            return 0
+        torch._C._cuda_endAllocateToPool(self._index(), self.handle)
+        gc.collect()  # what only a cycle keeps will not be read again
+        return torch.cuda.memory_allocated(self._index()) - before
+
+    def unref(self, before: Optional[int]):
+        """Drop ``route_begin``'s reference to the pool (after a capture
+        took its own)."""
+        if before is not None:
+            torch._C._cuda_releasePool(self._index(), self.handle)
 
 
 class DeviceProgram:
@@ -174,17 +220,31 @@ class DeviceProgram:
             # the warm-up pass runs on the capture stream
             s = self.pool.stream
             s.wait_stream(torch.cuda.current_stream(self.pool.device))
-            with torch.cuda.stream(s):
-                yield
-                for name, fn in self.pieces.items():
-                    if name not in self._ran:
-                        # its warm-up: only scratch is written, and the
-                        # pass's counts stay those of the pieces it ran
-                        snap = _snapshot()
-                        fn()
-                        _restore(snap)
-            torch.cuda.current_stream(self.pool.device).wait_stream(s)
-            self._capture()
+            before = self.pool.route_begin()
+            try:
+                try:
+                    with torch.cuda.stream(s):
+                        yield
+                        for name, fn in self.pieces.items():
+                            if name not in self._ran:
+                                # its warm-up: only scratch is written, and
+                                # the pass's counts stay those of the
+                                # pieces it ran
+                                snap = _snapshot()
+                                fn()
+                                _restore(snap)
+                finally:
+                    kept = self.pool.route_end(before)
+                torch.cuda.current_stream(self.pool.device).wait_stream(s)
+                if kept > 0 and self.pool.holds_graphs:
+                    raise RuntimeError(
+                        f"a warm-up inside the graph pool left {kept} bytes "
+                        "allocated, where a captured graph keeps its "
+                        "temporaries")
+                self._capture()
+            finally:
+                self.pool.unref(before)
+            self.pool.holds_graphs = True
 
     def run(self, name: str):
         if self.captured:

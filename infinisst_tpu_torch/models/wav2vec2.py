@@ -125,14 +125,20 @@ def conv_out_length(cfg: W2V2Config, length):
     return length
 
 
+def dropout_seed_of(seed: int, step: int) -> int:
+    """The seed of one training step's dropout generator, from (seed,
+    step)."""
+    s = np.random.SeedSequence([seed % 2**64, step % 2**64])
+    return int(s.generate_state(1, np.uint64)[0]) >> 1
+
+
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of one training step's dropout masks: seeded from
     (seed, step) as the JAX step folds ``step`` into ``PRNGKey(seed)``, so
     every step draws new masks and a (seed, step) pair always the same
     ones (the draws themselves are not JAX's)."""
-    s = np.random.SeedSequence([seed % 2**64, step % 2**64])
     return torch.Generator(device=device).manual_seed(
-        int(s.generate_state(1, np.uint64)[0]) >> 1)
+        dropout_seed_of(seed, step))
 
 
 @functools.lru_cache(maxsize=None)

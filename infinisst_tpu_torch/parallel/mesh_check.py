@@ -16,7 +16,10 @@ On the dryrun preset in float32, on the mesh ``(--data, --model)``
   ``cpo_beta`` 0.5, stage 2 with ``grad_acc_steps`` 2, on a batch of
   max(4, 2 n_data) rows with ragged lengths: loss and grad norm within
   rtol 1e-5 of the one-device step's every step, the parameters by
-  ``check_params``;
+  ``check_params``; in ``PROGRAM_CASES`` the sharded step as
+  ``TrainProgram`` (captured on a card, the NCCL collectives inside its
+  graphs) equal to the eager sharded step bitwise, with deterministic
+  algorithms on;
 - the TP prefill logits (``speech_llm.prefill_chunk``) within 1e-5 x
   max|logits|, at the dryrun vocabulary and at 1023 (which divides by
   no axis: the lm_head is split on D);
@@ -49,7 +52,9 @@ a second against that pool's; it prints ``flagship pool OK: ...``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import os
 
 import numpy as np
@@ -63,6 +68,41 @@ CASES = {  # freeze, grad_acc_steps, cpo_beta, schedule, encoder dropout
     "stage0_cpo": ("stage0", 1, 0.5, "constant", 0.0),
     "stage2_acc2": ("stage2", 2, 0.0, "constant", 0.0),
 }
+# the cases whose sharded step also runs as ``TrainProgram``, held
+# bitwise to the eager sharded step
+PROGRAM_CASES = ("stage1_dropout", "stage2_acc2")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (and cuDNN's) within: the convolutions'
+    and the embedding's backward passes otherwise accumulate in any
+    order on a card, and two runs of one step differ in the last bits.
+    Uninitialised memory is not filled (the mode's default), so that a
+    step launches the kernels it launches outside the mode."""
+    import torch.utils.deterministic as det
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    prev_cudnn = torch.backends.cudnn.deterministic
+    prev_fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        torch.backends.cudnn.deterministic = prev_cudnn
+        det.fill_uninitialized_memory = prev_fill
+
+
+def same_run(a, b) -> bool:
+    """Two ``train_run`` results bitwise equal: metrics and parameters."""
+    from infinisst_tpu_torch.train.step import tree_leaves
+
+    return a[0] == b[0] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a[1]),
+                                          tree_leaves(b[1])))
 
 
 def freeze_of(name):
@@ -79,12 +119,14 @@ def _to(tree, device):
 
 
 def train_run(cfg, params, batches, case, device, mesh=None, zero=False,
-              n_steps=3):
+              n_steps=3, program=False):
     """``n_steps`` of ``make_train_step`` (sharded with ``mesh``, FSDP
     with ``zero`` where n_data > 1) from ``params`` (whole) on
     ``batches`` (whole ``Batch``es, cycled); returns the per-step (loss,
     grad norm) and the whole parameters after the last step, on the
-    CPU."""
+    CPU.  With ``program`` the steps run as ``TrainProgram`` (captured
+    on a card)."""
+    from infinisst_tpu_torch.core import graphs
     from infinisst_tpu_torch.parallel import mesh as pmesh
     from infinisst_tpu_torch.train import step as TT
 
@@ -103,15 +145,21 @@ def train_run(cfg, params, batches, case, device, mesh=None, zero=False,
     if acc > 1:
         tx = TT.MultiSteps(tx, acc)
     state = TT.init_train_state(params, tx)
-    step = TT.make_train_step(cfg, tx, BLOCK, CACHE, cpo_beta=cpo,
-                              freeze=freeze, remat=True,
-                              encoder_dropout=rate, dropout_seed=7,
-                              plan=plan)
+    kw = dict(cpo_beta=cpo, freeze=freeze, remat=True, encoder_dropout=rate,
+              dropout_seed=7, plan=plan)
+    if program:
+        prog = TT.TrainProgram(cfg, tx, BLOCK, CACHE, device, **kw)
+    else:
+        step = TT.make_train_step(cfg, tx, BLOCK, CACHE, **kw)
     metrics = []
     for i in range(n_steps):
-        b = batches[i % len(batches)]
-        state, m = step(state, TT.Batch(*(x.to(device) for x in b)))
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        b = TT.Batch(*(x.to(device) for x in batches[i % len(batches)]))
+        if program:
+            state, m = prog(state, b)
+            metrics.append(tuple(graphs.read(m["packed"])))
+        else:
+            state, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
     whole = state.params
     if plan is not None:
         tidx = [i for i, m in enumerate(tx.mask) if m]
@@ -450,13 +498,24 @@ def check(device, data_ax=None, model_ax=None) -> str:
     params = random_params(cfg, "cpu", torch.float32)
     batch = train_batch(cfg, rows=max(4, 2 * data_ax))  # CPO pairs split
     for name, case in CASES.items():
-        got = train_run(cfg, params, [batch], case, dev, mesh, zero=True)
+        with deterministic():
+            got = train_run(cfg, params, [batch], case, dev, mesh, zero=True)
+            if name in PROGRAM_CASES and not same_run(got, train_run(
+                    cfg, params, [batch], case, dev, mesh, zero=True,
+                    program=True)):
+                raise AssertionError(f"{name}: the sharded step as a "
+                                     "program differs from the eager one")
         if rank0:
             want = train_run(cfg, params, [batch], case, dev)
             check_metrics(got[0], want[0], name)
             mask = TT.tree_leaves(TT.trainable_mask(params,
                                                     freeze_of(case[0])))
             check_params(got[1], want[1], mask, params)
+    steps = (f"mesh=({data_ax}x{model_ax}) on {dev.type}: the sharded step "
+             f"equals one device's in {len(CASES)} cases (FSDP "
+             f"{'on' if data_ax > 1 else 'off'}), and as a program"
+             f"{' captured as CUDA graphs' if dev.type == 'cuda' else ''} "
+             f"the eager sharded step's bitwise in {len(PROGRAM_CASES)}")
     pr = PromptBuilder(StubTokenizer(cfg.llama.vocab_size, lo=10, hi=900),
                        cfg.tokens).chunk_prompt(1, first=True)
     window = torch.from_numpy((np.random.RandomState(3).randn(
@@ -490,9 +549,7 @@ def check(device, data_ax=None, model_ax=None) -> str:
                 raise AssertionError(f"split pool {mode}: {pg} against "
                                      f"{pw}")
             n_pool += sum(map(len, pg[-1][1]))
-    line = (f"mesh_check OK: mesh=({data_ax}x{model_ax}) on {dev.type}: the "
-            f"sharded step equals one device's in {len(CASES)} cases "
-            f"(FSDP {'on' if data_ax > 1 else 'off'}), the TP prefill "
+    line = (f"mesh_check OK: {steps}, the TP prefill "
             f"within {worst:.2e} x max|logits| at vocabularies "
             f"{cfg.llama.vocab_size} and 1023, the TP agent's "
             f"{len(got[0][-1])} target ids equal chunk by chunk"
@@ -557,6 +614,8 @@ def main(argv=None):
                       f"pool's peak {split_peak:.2f} GiB on rank 0's card",
                       flush=True)
     finally:
+        # graphs that hold the group's communicators go before the group
+        gc.collect()
         dist.destroy_process_group()
 
 

@@ -18,7 +18,8 @@ beam 4 a rank).  A row gives:
 - the heavy leaves' sanitised specs (JAX's ``heavy_leaf_specs``);
 - under ``torchrun`` with ``--measure`` (one process a card), each
   rank's measured peak (``torch.cuda.max_memory_allocated``) and step
-  walls for real steps at ``plan_mesh``'s defaults (2 rows a rank of
+  walls for real steps (the captured ``TrainProgram``, as ``Trainer``
+  runs it) at ``plan_mesh``'s defaults (2 rows a rank of
   ``--audio-s`` 20 s, ``--seq-len`` 384, ``--multiplier`` 4, remat;
   bf16 parameters on seeded random weights), and for the pool one
   tick's peak and wall.
@@ -223,9 +224,12 @@ def measure_step(cfg, whole_host, d, m, stage, device, *, rows_per_rank,
                  audio_s, seq_len, multiplier, block_frames=48,
                  max_cache_frames=576, n_steps=3):
     """``n_steps`` real sharded steps at (d, m) (a collective: every rank
-    of the process group calls it): this rank's peak and step walls."""
+    of the process group calls it), run as ``Trainer`` runs them: the
+    ``TrainProgram``, captured on a card (its first step the warm-up and
+    the capture).  This rank's peak and step walls."""
     import gc
 
+    from infinisst_tpu_torch.core import graphs
     from infinisst_tpu_torch.parallel import mesh as pmesh
     from infinisst_tpu_torch.train import step as tstep
 
@@ -238,19 +242,19 @@ def measure_step(cfg, whole_host, d, m, stage, device, *, rows_per_rank,
     tx = tstep.make_optimizer(tstep.OptimConfig(
         total_steps=100_000, warmup_steps=1000), params, freeze)
     state = tstep.init_train_state(params, tx)
-    step = tstep.make_train_step(
-        cfg, tx, block_frames, max_cache_frames, multiplier, freeze=freeze,
+    program = tstep.TrainProgram(
+        cfg, tx, block_frames, max_cache_frames, device, freeze=freeze,
         remat=True, plan=tstep.MeshPlan(mesh, lay))
     batch = _batch(cfg, rows_per_rank * d, audio_s, seq_len, device)
     _peak_reset(device)
     walls, losses = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
-        state, met = step(state, batch)
-        losses.append(float(met["loss"]))  # a sync
+        state, met = program(state, batch, multiplier)
+        losses.append(graphs.read(met["packed"])[0])  # a sync
         walls.append(time.perf_counter() - t0)
     peak = _peak(device)
-    del state, params, step, tx
+    del state, params, program, tx, met
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()

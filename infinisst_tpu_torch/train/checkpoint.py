@@ -19,7 +19,11 @@ from typing import Optional
 
 import torch
 
-from infinisst_tpu_torch.train.step import TrainState, tree_leaves
+from infinisst_tpu_torch.train.step import (
+    TrainState,
+    tree_leaves,
+    with_counts,
+)
 
 STATE_FILE = "state.pt"
 
@@ -77,17 +81,8 @@ def restore(directory: str, like: TrainState, shard=None) -> TrainState:
                                      f"{tuple(s.shape)}, the state's "
                                      f"{tuple(d.shape)}")
                 d.copy_(s)
-    opt_state = _with_counts(like.opt_state, saved["opt_state"])
+    opt_state = with_counts(like.opt_state, saved["opt_state"])
     return TrainState(like.params, opt_state, int(saved["step"]))
-
-
-def _with_counts(like, saved):
-    """``like`` with the saved host ints (the optimizer's counts)."""
-    if isinstance(like, dict):
-        return {k: _with_counts(v, saved[k]) for k, v in like.items()}
-    if isinstance(like, list):
-        return [_with_counts(v, s) for v, s in zip(like, saved)]
-    return like if isinstance(like, torch.Tensor) else saved
 
 
 def _t(x) -> torch.Tensor:

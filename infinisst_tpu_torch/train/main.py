@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import glob
 import os
 
@@ -184,6 +185,10 @@ def main(argv=None):
     print(f"training done at step {final_step}; checkpoints in "
           f"{os.path.join(targs.save_dir, 'ckpt')}")
     if distributed:
+        # the trainer's graphs hold the group's communicators: they go
+        # first (NCCL's teardown waits on them otherwise)
+        del trainer
+        gc.collect()
         torch.distributed.destroy_process_group()
     return final_step
 

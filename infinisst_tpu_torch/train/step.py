@@ -35,9 +35,13 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
+from infinisst_tpu_torch.core import graphs
 from infinisst_tpu_torch.core.config import ModelConfig
 from infinisst_tpu_torch.models import speech_llm
-from infinisst_tpu_torch.models.wav2vec2 import dropout_generator
+from infinisst_tpu_torch.models.wav2vec2 import (
+    dropout_generator,
+    dropout_seed_of,
+)
 from infinisst_tpu_torch.parallel.collectives import tensor_parallel
 from infinisst_tpu_torch.train.objective import IGNORE_INDEX, lm_loss
 
@@ -169,14 +173,24 @@ class AdamW:
     (``tree_leaves`` order).  State: {'count', 'mu', 'nu'} with one moment
     per trainable leaf, in its dtype.  ``norm_fn`` maps the trainable
     gradients to their global norm (``global_norm``; the sharded step
-    sums each leaf's squares once over the mesh)."""
+    sums each leaf's squares once over the mesh).
+
+    An update is three parts, so that a captured graph can hold the
+    tensor work: ``prepare`` (the host writes the pass's scalars into
+    0-dim float32 tensors on the device: ``lr`` = -schedule(count),
+    ``bc1``/``bc2`` = 1 - b1/b2 ** (count + 1), computed in float64 and
+    rounded once), ``apply`` (the tensor work, reading only those
+    tensors) and ``advance`` (the host's count).  ``update`` runs all
+    three."""
 
     def __init__(self, cfg: OptimConfig, mask: List[bool],
                  norm_fn: Callable = global_norm):
         self.cfg = cfg
         self.mask = list(mask)
+        self.idx = [i for i, m in enumerate(self.mask) if m]
         self.schedule = make_schedule(cfg)
         self.norm_fn = norm_fn
+        self.lr = self.bc1 = self.bc2 = None  # made on first ``prepare``
 
     def init(self, leaves) -> Dict[str, Any]:
         train = [p for p, m in zip(leaves, self.mask) if m]
@@ -184,29 +198,43 @@ class AdamW:
                 "mu": [torch.zeros_like(p) for p in train],
                 "nu": [torch.zeros_like(p) for p in train]}
 
+    def make_scalars(self, device):
+        if self.lr is None:
+            self.lr, self.bc1, self.bc2 = (
+                torch.zeros((), dtype=torch.float32, device=device)
+                for _ in range(3))
+
+    def prepare(self, state, device):
+        """Write the scalars of the update from ``state`` (fills: no
+        upload, no synchronisation)."""
+        if not self.idx:
+            return
+        c = self.cfg
+        self.make_scalars(device)
+        count = state["count"] + 1
+        self.lr.fill_(-self.schedule(state["count"]))
+        self.bc1.fill_(1 - c.b1 ** count)
+        self.bc2.fill_(1 - c.b2 ** count)
+
     @torch.no_grad()
-    def update(self, leaves, grads, state) -> Dict[str, Any]:
-        """Apply one update in place: ``grads`` aligned with ``leaves``,
-        None where no gradient was taken (a zero gradient).  A list's
-        entries are released as they are used, so that the gradients of
-        the leaves already updated are freed before the next leaf's
-        temporaries are made: per leaf, two of its size (the clipped
-        gradient and one scratch), each step of optax's arithmetic
+    def apply(self, leaves, grads, state):
+        """The update's tensor work, in place: ``grads`` aligned with
+        ``leaves``, None where no gradient was taken (a zero gradient).  A
+        list's entries are released as they are used, so that the
+        gradients of the leaves already updated are freed before the next
+        leaf's temporaries are made: per leaf, two of its size (the
+        clipped gradient and one scratch), each step of optax's arithmetic
         written in place in the same order (the same roundings)."""
         c = self.cfg
         grads = grads if isinstance(grads, list) else list(grads)
-        idx = [i for i, m in enumerate(self.mask) if m]
-        if not idx:
-            return state
-        for i in idx:
+        if not self.idx:
+            return
+        for i in self.idx:
             if grads[i] is None:
                 grads[i] = torch.zeros_like(leaves[i])
-        norm = self.norm_fn([grads[i] for i in idx])
+        norm = self.norm_fn([grads[i] for i in self.idx])
         keep = norm < c.clip_norm
-        count = state["count"] + 1
-        bc1, bc2 = 1 - c.b1 ** count, 1 - c.b2 ** count
-        lr = -self.schedule(state["count"])
-        for i, mu, nu in zip(idx, state["mu"], state["nu"]):
+        for i, mu, nu in zip(self.idx, state["mu"], state["nu"]):
             p, g = leaves[i], grads[i]
             grads[i] = None
             # g = g if norm < clip else g / norm * clip
@@ -221,17 +249,31 @@ class AdamW:
             a.mul_(1 - c.b2)
             nu.mul_(c.b2).add_(a)
             # u = (mu / bc1) / (sqrt(nu / bc2) + eps) + wd p;  p += lr u
-            torch.div(nu, bc2, out=gc)
+            torch.div(nu, self.bc2, out=gc)
             gc.sqrt_()
             gc.add_(c.eps)
-            torch.div(mu, bc1, out=a)
+            torch.div(mu, self.bc1, out=a)
             a.div_(gc)
             torch.mul(p, c.weight_decay, out=gc)
             a.add_(gc)
-            a.mul_(lr)
+            a.mul_(self.lr)
             p.add_(a)
             del gc, a
-        return {"count": count, "mu": state["mu"], "nu": state["nu"]}
+
+    def advance(self, state) -> Dict[str, Any]:
+        """The state after an update (the host's count)."""
+        if not self.idx:
+            return state
+        return {"count": state["count"] + 1, "mu": state["mu"],
+                "nu": state["nu"]}
+
+    def update(self, leaves, grads, state) -> Dict[str, Any]:
+        """Apply one update in place (``prepare``, ``apply``,
+        ``advance``)."""
+        if self.idx:
+            self.prepare(state, leaves[self.idx[0]].device)
+        self.apply(leaves, grads, state)
+        return self.advance(state)
 
 
 def adam(lr: float, n_leaves: int) -> AdamW:
@@ -246,12 +288,20 @@ def adam(lr: float, n_leaves: int) -> AdamW:
 class MultiSteps:
     """optax.MultiSteps(inner, every_k) with the gradient mean: the running
     mean of the mini-steps' gradients goes to ``inner`` on every k-th one;
-    the others leave the parameters as they are."""
+    the others leave the parameters as they are.
+
+    The host decides from its own count (``applies``) whether a mini-step
+    applies the update, as optax's ``lax.cond`` does on the device:
+    ``accumulate`` (the running mean, divided by the device scalar ``div``
+    = n + 1 that ``prepare`` writes) and, on the k-th, ``apply`` (the
+    inner update of the mean, then the mean zeroed) are the tensor
+    work."""
 
     def __init__(self, inner: AdamW, every_k: int):
         self.inner = inner
         self.k = every_k
         self.mask = inner.mask
+        self.div = None  # made on first ``prepare``
 
     def init(self, leaves) -> Dict[str, Any]:
         return {"mini_step": 0, "gradient_step": 0,
@@ -259,25 +309,48 @@ class MultiSteps:
                         if m],
                 "inner": self.inner.init(leaves)}
 
+    def applies(self, state) -> bool:
+        return state["mini_step"] >= self.k - 1
+
+    def prepare(self, state, device):
+        if self.div is None:
+            self.div = torch.zeros((), dtype=torch.float32, device=device)
+            self.inner.make_scalars(device)
+        self.div.fill_(state["mini_step"] + 1)
+        if self.applies(state):
+            self.inner.prepare(state["inner"], device)
+
     @torch.no_grad()
-    def update(self, leaves, grads, state) -> Dict[str, Any]:
-        n = state["mini_step"]
+    def accumulate(self, grads, state):
         acc = state["acc"]
         grads_t = [g for g, m in zip(grads, self.mask) if m]
         for a, g in zip(acc, grads_t):
             if g is not None:
-                a.copy_(a + (g - a) / (n + 1))
+                a.copy_(a + (g - a) / self.div)
             else:
-                a.copy_(a + (0 - a) / (n + 1))
-        if n < self.k - 1:
-            return {**state, "mini_step": n + 1}
-        it = iter(acc)
+                a.copy_(a + (0 - a) / self.div)
+
+    @torch.no_grad()
+    def apply(self, leaves, state):
+        it = iter(state["acc"])
         full = [next(it) if m else None for m in self.mask]
-        inner = self.inner.update(leaves, full, state["inner"])
-        for a in acc:
+        self.inner.apply(leaves, full, state["inner"])
+        for a in state["acc"]:
             a.zero_()
+
+    def advance(self, state) -> Dict[str, Any]:
+        if not self.applies(state):
+            return {**state, "mini_step": state["mini_step"] + 1}
         return {"mini_step": 0, "gradient_step": state["gradient_step"] + 1,
-                "acc": acc, "inner": inner}
+                "acc": state["acc"],
+                "inner": self.inner.advance(state["inner"])}
+
+    def update(self, leaves, grads, state) -> Dict[str, Any]:
+        self.prepare(state, leaves[0].device)
+        self.accumulate(grads, state)
+        if self.applies(state):
+            self.apply(leaves, state)
+        return self.advance(state)
 
 
 def make_optimizer(cfg: OptimConfig, params, freeze: FreezeConfig) -> AdamW:
@@ -409,16 +482,17 @@ class MeshPlan:
         import torch.distributed as dist
 
         def norm(xs):
-            sq = sum(torch.sum(x * x) for i, x in zip(indices, xs)
-                     if self._owned(i))
-            if self.world > 1:
-                # the leaves' promoted dtype on every rank, also on one
-                # that owns none of them
-                dt = functools.reduce(torch.promote_types,
-                                      (x.dtype for x in xs))
-                sq = torch.as_tensor(sq, dtype=dt,
-                                     device=xs[0].device).clone()
-                dist.all_reduce(sq)
+            owned = [torch.sum(x * x) for i, x in zip(indices, xs)
+                     if self._owned(i)]
+            if self.world == 1:
+                return torch.sqrt(sum(owned))
+            # the leaves' promoted dtype on every rank; a rank that owns
+            # none of them makes its zero on the device (no upload)
+            dt = functools.reduce(torch.promote_types,
+                                  (x.dtype for x in xs))
+            sq = (sum(owned).to(dt).clone() if owned else
+                  torch.zeros((), dtype=dt, device=xs[0].device))
+            dist.all_reduce(sq)
             return torch.sqrt(sq)
 
         return norm
@@ -486,6 +560,91 @@ class MeshPlan:
                 "step": saved["step"]}
 
 
+class _StepCore:
+    """One step's device work, which ``make_train_step`` and
+    ``TrainProgram`` both run (one implementation of a step): the forward
+    (with remat), ``autograd.grad``, the gradients' sync over the mesh and
+    their global norm, then the optimizer's tensor work (``tx.apply``; a
+    ``MultiSteps`` accumulates, and applies where told).  It reads no
+    host value of the state: the caller writes the optimizer's scalars
+    first (``tx.prepare``) and advances its counts after."""
+
+    def __init__(self, cfg, tx, block_frames, max_cache_frames, multiplier,
+                 cpo_beta, freeze, remat, encoder_dropout, plan):
+        self.cfg, self.tx, self.plan = cfg, tx, plan
+        self.block_frames = block_frames * multiplier
+        self.max_cache_frames = max_cache_frames
+        self.cpo_beta, self.freeze, self.remat = cpo_beta, freeze, remat
+        self.rate = encoder_dropout
+        if plan is not None:
+            inner = tx.inner if isinstance(tx, MultiSteps) else tx
+            inner.norm_fn = plan.norm_fn(inner.idx)
+
+    def rows(self, B: int, device) -> Optional[torch.Tensor]:
+        """The rows of a batch of B this data rank keeps (an index tensor:
+        an upload), or None off a data-split mesh."""
+        plan = self.plan
+        if plan is None or plan.n_data == 1:
+            return None
+        return torch.tensor(
+            data_rows(B, plan.n_data, plan.r_data, self.cpo_beta > 0),
+            dtype=torch.int64, device=device)
+
+    def __call__(self, params, opt_state, batch: Batch, gen, rows,
+                 apply: bool):
+        """Returns (loss, grad norm) on the device; the parameters and the
+        optimizer state's tensors are updated in place."""
+        plan, tx = self.plan, self.tx
+        leaves = tree_leaves(params)
+        take = (tree_leaves(trainable_mask(params, self.freeze))
+                if self.freeze is not None else [True] * len(leaves))
+        idx = [i for i, t in enumerate(take) if t]
+        local, totals, drows = batch, {}, None
+        if rows is not None:
+            B = batch.input_ids.shape[0]
+            local = Batch(*(x.index_select(0, rows) for x in batch))
+            tgt = batch.labels[:, 1:] != IGNORE_INDEX
+            totals = (dict(total_count=tgt[:B // 2].sum(),
+                           total_pairs=B // 2) if self.cpo_beta > 0
+                      else dict(total_count=tgt.sum()))
+            drows = (B, rows)
+        try:
+            with torch.enable_grad(), tensor_parallel(
+                    None if plan is None else plan.mesh):
+                for p, t in zip(leaves, take):
+                    p.requires_grad_(t)
+                logits = _forward(self.cfg, params, local, self.block_frames,
+                                  self.max_cache_frames, self.remat, gen,
+                                  self.rate, drows)
+                loss = lm_loss(logits, local.labels, self.cpo_beta, **totals)
+                del logits
+                wrt = [p for p, t in zip(leaves, take) if t]
+                got = torch.autograd.grad(loss, wrt)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        it = iter(got)
+        grads = [next(it) if t else None for t in take]
+        del got, it  # the optimizer releases each gradient once it is used
+        norm = global_norm
+        if plan is not None:
+            grads = [None if g is None else plan.sync_grad(i, g)
+                     for i, g in enumerate(grads)]
+            norm = plan.norm_fn(idx)
+        gnorm = norm([grads[i] for i in idx]).detach()
+        if isinstance(tx, MultiSteps):
+            tx.accumulate(grads, opt_state)
+            del grads
+            if apply:
+                tx.apply(leaves, opt_state)
+        else:
+            tx.apply(leaves, grads, opt_state)
+        loss = loss.detach()
+        if plan is not None:
+            loss = plan.loss_sum(loss)
+        return loss, gnorm
+
+
 def make_train_step(
     cfg: ModelConfig,
     tx,
@@ -517,63 +676,24 @@ def make_train_step(
     backward), clips by the mesh-wide norm and updates its shards; the
     forwards run under ``tensor_parallel``.  It computes what the
     one-card step computes (to the order of float32 sums; at world size
-    1 the same operations)."""
-    if plan is not None:
-        inner = tx.inner if isinstance(tx, MultiSteps) else tx
-        inner.norm_fn = plan.norm_fn(
-            [i for i, m in enumerate(inner.mask) if m])
+    1 the same operations).
+
+    The step runs eagerly; ``TrainProgram`` runs the same work as
+    captured device programs."""
+    core = _StepCore(cfg, tx, block_frames, max_cache_frames, multiplier,
+                     cpo_beta, freeze, remat, encoder_dropout, plan)
 
     def train_step(state: TrainState, batch: Batch):
-        leaves = tree_leaves(state.params)
-        take = (tree_leaves(trainable_mask(state.params, freeze))
-                if freeze is not None else [True] * len(leaves))
-        idx = [i for i, t in enumerate(take) if t]
         dev = batch.speech.device
-        local, totals, drows = batch, {}, None
-        if plan is not None and plan.n_data > 1:
-            B = batch.input_ids.shape[0]
-            rows = torch.tensor(
-                data_rows(B, plan.n_data, plan.r_data, cpo_beta > 0),
-                dtype=torch.int64, device=dev)
-            local = Batch(*(x.index_select(0, rows) for x in batch))
-            tgt = batch.labels[:, 1:] != IGNORE_INDEX
-            totals = (dict(total_count=tgt[:B // 2].sum(),
-                           total_pairs=B // 2) if cpo_beta > 0
-                      else dict(total_count=tgt.sum()))
-            drows = (B, rows)
         gen = None
         if encoder_dropout > 0:
             gen = dropout_generator(dropout_seed, state.step, dev)
-        try:
-            with torch.enable_grad(), tensor_parallel(
-                    None if plan is None else plan.mesh):
-                for p, t in zip(leaves, take):
-                    p.requires_grad_(t)
-                logits = _forward(cfg, state.params, local,
-                                  block_frames * multiplier,
-                                  max_cache_frames, remat, gen,
-                                  encoder_dropout, drows)
-                loss = lm_loss(logits, local.labels, cpo_beta, **totals)
-                del logits
-                wrt = [p for p, t in zip(leaves, take) if t]
-                got = torch.autograd.grad(loss, wrt)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        it = iter(got)
-        grads = [next(it) if t else None for t in take]
-        del got, it  # the optimizer releases each gradient once it is used
-        norm = global_norm
-        if plan is not None:
-            grads = [None if g is None else plan.sync_grad(i, g)
-                     for i, g in enumerate(grads)]
-            norm = plan.norm_fn(idx)
-        gnorm = norm([grads[i] for i in idx]).detach()
-        opt_state = tx.update(leaves, grads, state.opt_state)
-        loss = loss.detach()
-        if plan is not None:
-            loss = plan.loss_sum(loss)
-        return (TrainState(state.params, opt_state, state.step + 1),
+        tx.prepare(state.opt_state, dev)
+        apply = not isinstance(tx, MultiSteps) or tx.applies(state.opt_state)
+        loss, gnorm = core(state.params, state.opt_state, batch, gen,
+                           core.rows(batch.input_ids.shape[0], dev), apply)
+        return (TrainState(state.params, tx.advance(state.opt_state),
+                           state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
 
     return train_step
@@ -590,3 +710,204 @@ def eval_step_fn(
         return lm_loss(logits, batch.labels)
 
     return eval_step
+
+
+# -- the step as device programs ----------------------------------------------
+
+def with_counts(like, saved):
+    """``like`` with the host ints (the optimizer's counts) of ``saved``,
+    a state of the same structure; ``like``'s tensors."""
+    if isinstance(like, dict):
+        return {k: with_counts(v, saved[k]) for k, v in like.items()}
+    if isinstance(like, list):
+        return [with_counts(v, s) for v, s in zip(like, saved)]
+    return like if isinstance(like, torch.Tensor) else saved
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+class _Key:
+    """The static buffers of one key of a ``TrainProgram``: the batch
+    (filled from the caller's with non-blocking copies, from pinned host
+    memory on a card), the data rank's rows, the dropout generator, the
+    outputs, and the key's ``DeviceProgram``."""
+
+    def __init__(self, batch: Batch, device, rows=None, generator=None):
+        self.batch = Batch(*(torch.empty(x.shape, dtype=x.dtype,
+                                         device=device) for x in batch))
+        self.rows, self.generator = rows, generator
+        self.program: Optional[graphs.DeviceProgram] = None
+
+    def load(self, batch: Batch):
+        for d, s in zip(self.batch, batch):
+            d.copy_(s, non_blocking=True)
+
+
+class TrainProgram:
+    """``make_train_step``'s step and ``eval_step_fn``'s as device programs
+    (``core/graphs.py``), the counterpart of the JAX trainer's
+    ``jax.jit(train_step, donate_argnums=(0,))`` and jitted eval step:
+
+    - the state is static: the first call's parameters and optimizer
+      tensors are the buffers the graphs hold; they are updated in place,
+      and a state with other tensors is written into them
+      (``graphs.put``), never rebound.  The host keeps the counts;
+    - one ``DeviceProgram`` per key, as ``jax.jit`` retraces per shape:
+      (m, the padded batch's shapes) for the step, the same with "eval"
+      for the eval step; one ``GraphPool`` for them all.  A key holds its
+      static batch, its data rows (built once), a packed [loss, grad
+      norm] (float32; the eval step's loss alone) and, with encoder
+      dropout, one generator, registered with the graph and reseeded
+      each step from ``dropout_seed_of(seed, step)``, so that a step
+      draws ``dropout_generator``'s masks;
+    - the step's piece is the whole step (``_StepCore``): forward with
+      remat, the gradients, the sync and norm, the clip and the update.
+      Under ``MultiSteps`` it accumulates, and on the k-th mini-step a
+      second program (one for all keys) applies the update: the host
+      takes optax's ``lax.cond`` from its own count;
+    - the host writes the optimizer's scalars before a pass and never
+      reads a value: the caller reads the packed outputs through
+      ``graphs.read``.  They are overwritten by the key's next pass.
+
+    With ``captured`` on a card each program is captured as CUDA graphs
+    at its first pass (its warm-up, which is that step itself, run inside
+    the graphs' pool: a later key's warm-up reuses the blocks the keys
+    captured before keep their temporaries in, instead of needing a
+    step's activations and gradients beside them); otherwise, and on the
+    CPU, the same pieces run as they are.  A failed capture or replay
+    raises."""
+
+    def __init__(self, cfg: ModelConfig, tx, block_frames: int,
+                 max_cache_frames: int, device, cpo_beta: float = 0.0,
+                 freeze: Optional[FreezeConfig] = None, remat: bool = False,
+                 encoder_dropout: float = 0.0, dropout_seed: int = 0,
+                 plan: Optional[MeshPlan] = None, captured: bool = True):
+        self.cfg, self.tx, self.plan = cfg, tx, plan
+        self.block_frames, self.max_cache_frames = (block_frames,
+                                                    max_cache_frames)
+        self.device = torch.device(device)
+        self.cpo_beta, self.freeze, self.remat = cpo_beta, freeze, remat
+        self.encoder_dropout, self.dropout_seed = encoder_dropout, dropout_seed
+        self.pool = (graphs.GraphPool(self.device, warm_inside=True)
+                     if captured and self.device.type == "cuda" else None)
+        self.keys: Dict[tuple, _Key] = {}
+        self._cores: Dict[int, _StepCore] = {}
+        self._params = self._opt = None  # the static state (first call's)
+        self._apply: Optional[graphs.DeviceProgram] = None
+
+    # -- the static state ----------------------------------------------
+    def _bind_params(self, params):
+        if self._params is None:
+            self._params = params
+        else:
+            graphs.put(_tensors(self._params), _tensors(params))
+        return self._params
+
+    def _bind(self, state: TrainState) -> TrainState:
+        params = self._bind_params(state.params)
+        if self._opt is None:
+            self._opt = state.opt_state
+        else:
+            graphs.put(_tensors(self._opt), _tensors(state.opt_state))
+        return TrainState(params, with_counts(self._opt, state.opt_state),
+                          state.step)
+
+    # -- the programs ----------------------------------------------------
+    def _core(self, m: int) -> _StepCore:
+        if m not in self._cores:
+            self._cores[m] = _StepCore(
+                self.cfg, self.tx, self.block_frames, self.max_cache_frames,
+                m, self.cpo_beta, self.freeze, self.remat,
+                self.encoder_dropout, self.plan)
+        return self._cores[m]
+
+    def _step_key(self, batch: Batch, m: int) -> _Key:
+        key = (m,) + tuple(batch.speech.shape) + tuple(batch.input_ids.shape)
+        if key in self.keys:
+            return self.keys[key]
+        core = self._core(m)
+        gen = (torch.Generator(device=self.device)
+               if self.encoder_dropout > 0 else None)
+        k = _Key(batch, self.device,
+                 core.rows(batch.input_ids.shape[0], self.device), gen)
+        k.packed = torch.zeros((2,), dtype=torch.float32, device=self.device)
+        k.metrics = {"loss": k.packed[0], "grad_norm": k.packed[1],
+                     "packed": k.packed}
+        params, opt = self._params, self._opt
+        apply = not isinstance(self.tx, MultiSteps)
+        # the piece holds the key's tensors, not the key: a cycle through
+        # the key would keep the graphs, and the process group's
+        # communicators they hold, alive until a collection
+        batch_, rows, packed = k.batch, k.rows, k.packed
+
+        def step():
+            loss, gnorm = core(params, opt, batch_, gen, rows, apply)
+            packed[0].copy_(loss)
+            packed[1].copy_(gnorm)
+
+        k.program = graphs.DeviceProgram(
+            {"step": step}, self.pool,
+            {"step": [gen]} if gen is not None else None)
+        self.keys[key] = k
+        return k
+
+    def _apply_program(self) -> graphs.DeviceProgram:
+        if self._apply is None:
+            tx, leaves, opt = self.tx, tree_leaves(self._params), self._opt
+            self._apply = graphs.DeviceProgram(
+                {"apply": lambda: tx.apply(leaves, opt)}, self.pool)
+        return self._apply
+
+    # -- passes ----------------------------------------------------------
+    def __call__(self, state: TrainState, batch: Batch,
+                 multiplier: int = 1):
+        """One train step: (the state after it, metrics).  ``batch`` may
+        lie on the host (pinned on a card) or on the device.  The metrics
+        are the key's static outputs: "loss", "grad_norm" and "packed"
+        (the two, for one ``graphs.read``)."""
+        state = self._bind(state)
+        tx = self.tx
+        k = self._step_key(batch, multiplier)
+        applies = isinstance(tx, MultiSteps) and tx.applies(state.opt_state)
+        tx.prepare(state.opt_state, self.device)
+        if k.generator is not None:
+            k.generator.manual_seed(dropout_seed_of(self.dropout_seed,
+                                                    state.step))
+        with k.program.step():
+            k.load(batch)
+            k.program.run("step")
+        if applies:
+            prog = self._apply_program()
+            with prog.step():
+                prog.run("apply")
+        return (TrainState(state.params, tx.advance(state.opt_state),
+                           state.step + 1), k.metrics)
+
+    def evaluate(self, params, batch: Batch,
+                 multiplier: int = 1) -> torch.Tensor:
+        """``eval_step_fn``'s loss of ``batch`` (the key's static 0-dim
+        output: read it through ``graphs.read``)."""
+        params = self._bind_params(params)
+        key = ("eval", multiplier) + tuple(batch.speech.shape) + tuple(
+            batch.input_ids.shape)
+        k = self.keys.get(key)
+        if k is None:
+            k = _Key(batch, self.device)
+            k.loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            fn = eval_step_fn(self.cfg, self.block_frames,
+                              self.max_cache_frames, multiplier)
+            mesh = None if self.plan is None else self.plan.mesh
+            batch_, loss = k.batch, k.loss  # not the key (``_step_key``)
+
+            def evaluate():
+                with tensor_parallel(mesh):
+                    loss.copy_(fn(params, batch_))
+
+            k.program = graphs.DeviceProgram({"eval": evaluate}, self.pool)
+            self.keys[key] = k
+        with k.program.step():
+            k.load(batch)
+            k.program.run("eval")
+        return k.loss

@@ -20,9 +20,16 @@
   this rank's slices on restore, so a checkpoint crosses world sizes.
 
 The batches are read, collated and padded in a worker thread
-(``_prefetch``), into pinned host memory on a card; the consuming thread
-copies each to the card (``non_blocking``) just before its step, on the
-step's own stream, so an upload never races the step that reads it.
+(``_prefetch``), into pinned host memory on a card.  The train and eval
+steps are device programs (``step.TrainProgram``, the counterpart of the
+JAX trainer's jitted steps): one per (m, padded batch shape), captured
+as CUDA graphs on a card at its first step, on static state updated in
+place; a step copies its batch into the key's static batch
+(``non_blocking``, on the step's own stream, so an upload never races the
+step that reads it).  The host reads the loss and the norm only at a log
+step (one ``graphs.read`` of the packed pair) and an eval batch's loss
+once.  ``_graphs_on = False`` (a private hook, set before the first step)
+runs the same programs uncaptured, for checks.
 """
 
 from __future__ import annotations
@@ -36,13 +43,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from infinisst_tpu_torch.core import graphs
 from infinisst_tpu_torch.core.config import ModelConfig
 from infinisst_tpu_torch.core.device import resolve_device
 from infinisst_tpu_torch.data.collators import COLLATORS
 from infinisst_tpu_torch.data.dataset import SpeechToTextDataset
 from infinisst_tpu_torch.data.sampler import SpeechSampler
 from infinisst_tpu_torch.data.template import IGNORE_INDEX, PromptBuilder
-from infinisst_tpu_torch.parallel.collectives import tensor_parallel
 from infinisst_tpu_torch.train import checkpoint as ckpt
 from infinisst_tpu_torch.train import step as tstep
 
@@ -218,7 +225,10 @@ class Trainer:
         self.logger = MetricsLogger(args.save_dir) if self.rank0 else None
 
         self._step_fns: Dict[int, callable] = {}
-        self._eval_fns: Dict[int, callable] = {}
+        # the train and eval steps' programs (made at the first step; a
+        # private hook: ``_graphs_on = False`` runs them uncaptured)
+        self._program: Optional[tstep.TrainProgram] = None
+        self._graphs_on = self.device.type == "cuda"
 
     # -- data ---------------------------------------------------------------
     def _make_loader(self, split: str, budget: int, shuffle: bool):
@@ -247,14 +257,14 @@ class Trainer:
         )
         return ds, sampler, collator
 
-    def _get_step_fn(self, m: int):
-        if m not in self._step_fns:
-            self._step_fns[m] = tstep.make_train_step(
+    def _get_program(self) -> tstep.TrainProgram:
+        if self._program is None:
+            self._program = tstep.TrainProgram(
                 self.cfg,
                 self.tx,
                 self.args.block_size,
                 self.args.max_cache_size,
-                multiplier=m,
+                self.device,
                 cpo_beta=self.args.cpo_beta,
                 freeze=self.freeze,
                 remat=self.args.remat,
@@ -263,25 +273,30 @@ class Trainer:
                 ),
                 dropout_seed=self.args.seed,
                 plan=self.plan,
+                captured=self._graphs_on,
             )
+        return self._program
+
+    def _get_step_fn(self, m: int):
+        """step(state, host batch) -> (state, metrics) at multiplier m."""
+        if m not in self._step_fns:
+            prog = self._get_program()
+
+            def step(state, batch):
+                return prog(state, batch, m)
+
+            self._step_fns[m] = step
         return self._step_fns[m]
 
-    def _host_batch(self, raw: Dict, m: int) -> Dict[str, torch.Tensor]:
-        """The padded batch as host tensors, pinned when the card will
-        read them."""
+    def _to_batch(self, raw: Dict, m: int) -> tstep.Batch:
+        """The padded batch as host tensors, as the programs take it:
+        pinned when the card will read them."""
         padded = pad_to_buckets(raw, m, self.cfg.tokens.pad,
                                 row_multiple=self.args.n_data)
         out = {k: torch.from_numpy(padded[k]) for k in BATCH_KEYS}
         if self.device.type == "cuda":
             out = {k: v.pin_memory() for k, v in out.items()}
-        return out
-
-    def _upload(self, host: Dict[str, torch.Tensor]) -> tstep.Batch:
-        return tstep.Batch(**{k: v.to(self.device, non_blocking=True)
-                              for k, v in host.items()})
-
-    def _to_batch(self, raw: Dict, m: int) -> tstep.Batch:
-        return self._upload(self._host_batch(raw, m))
+        return tstep.Batch(**out)
 
     # -- loops --------------------------------------------------------------
     def _prefetch(self, sampler, ds, collator, depth: int = 2):
@@ -289,9 +304,9 @@ class Trainer:
         collate and bucket-pad run in a worker thread while the card runs
         the current step (the reference DataLoader's worker prefetch, ref
         train/main.py num_workers).  The bounded queue caps host staging
-        at ``depth`` batches; each batch is uploaded here, in the
-        consuming thread.  Exceptions propagate at the consuming step;
-        abandoning the generator stops the worker."""
+        at ``depth`` batches; the consuming step uploads each into its
+        program's static batch.  Exceptions propagate at the consuming
+        step; abandoning the generator stops the worker."""
         import queue as _queue
         import threading
 
@@ -316,7 +331,7 @@ class Trainer:
                     samples = [ds[i] for i in idx_batch]
                     raw = collator(samples)
                     m = raw.get("multiplier", 1)
-                    if not _put((m, self._host_batch(raw, m))):
+                    if not _put((m, self._to_batch(raw, m))):
                         return
                 _put(DONE)
             except BaseException as e:  # noqa: BLE001 -- re-raised below
@@ -331,8 +346,7 @@ class Trainer:
                     return
                 if isinstance(item, tuple) and item[0] is ERR:
                     raise item[1]
-                m, host = item
-                yield m, self._upload(host)
+                yield item
         finally:
             stop.set()
             t.join(timeout=5.0)
@@ -378,12 +392,12 @@ class Trainer:
                 self.state, metrics = self._get_step_fn(m)(self.state, batch)
                 step += 1
                 if step % args.log_step == 0:
-                    loss = float(metrics["loss"])
+                    loss, gnorm = graphs.read(metrics["packed"])
                     self._log(
                         {
                             "train_loss": loss,
                             f"train_loss_m{m}": loss,
-                            "grad_norm": float(metrics["grad_norm"]),
+                            "grad_norm": gnorm,
                             "lr": float(self._schedule(step)),
                             "epoch": epoch,
                             "sec_per_step": (time.time() - t0) / max(step, 1),
@@ -416,15 +430,10 @@ class Trainer:
             samples = [ds[i] for i in idx_batch]
             raw = collator(samples)
             m = raw.get("multiplier", 1)
-            if m not in self._eval_fns:
-                self._eval_fns[m] = tstep.eval_step_fn(
-                    self.cfg, args.block_size, args.max_cache_size, m
-                )
-            batch = self._to_batch(raw, m)
             # every rank evaluates the whole batch (its model slice)
-            with tensor_parallel(self.mesh):
-                losses.append(float(self._eval_fns[m](self.state.params,
-                                                      batch)))
+            loss = self._get_program().evaluate(
+                self.state.params, self._to_batch(raw, m), m)
+            losses.append(graphs.read(loss))
             if args.debug_mode:
                 break
         if losses:

@@ -15,7 +15,10 @@ functions of ``tests/torch_mesh_workers.py``):
   leaf's largest value but for at most 1e-3 of the entries, all within
   10 x lr x 1e-2 (Adam's updates of float32 noise, ``_check_params``);
   frozen leaves bitwise.  The (2, 2) FSDP stage 2
-  run is also held against JAX's one-device ``make_train_step``;
+  run is also held against JAX's one-device ``make_train_step``.  At
+  (2, 1) with FSDP the steps of ``mesh_check.PROGRAM_CASES`` also run as
+  ``TrainProgram``, held to the one-card step as above and to the eager
+  sharded step bitwise;
 - the TP prefill logits at (1, 2) and (1, 4), with a vocabulary that
   divides (the lm_head split on V) and one that does not (1023: moved
   onto D, row-parallel), within 1e-5 x max|logits|;
@@ -64,8 +67,9 @@ torch.set_num_threads(1)
 CASES = MC.CASES  # freeze, grad_acc_steps, cpo_beta, schedule, dropout
 MESHES = [(2, 1), (1, 2), (2, 2)]
 # zero splits over 'data' only: at (1, 2) it is off
-STEP_RUNS = [(m, c, z) for m in MESHES for c in CASES
-             for z in ((True, False) if m[0] > 1 else (False,))]
+STEP_RUNS = [(m, c, z, False) for m in MESHES for c in CASES
+             for z in ((True, False) if m[0] > 1 else (False,))] + [
+    ((2, 1), c, True, True) for c in MC.PROGRAM_CASES]
 TP_MESHES = [(1, 2), (1, 4)]
 VOCABS = (1024, 1023)
 TIMEOUT = 240  # seconds a spawn may take before its ranks are killed
@@ -116,10 +120,10 @@ def runs(tmp_path_factory):
     shutil.copytree(d / "w1", d / "w1_again")
 
     def train_jobs(mesh):
-        return [(f"{c}/zero{z}", "train_run",
+        return [(_job(c, z, p), "train_run",
                  dict(cfg=CFG, params_np=params, batches=[batch],
-                      case=CASES[c], zero=z))
-                for m, c, z in STEP_RUNS if m == mesh]
+                      case=CASES[c], zero=z, program=p))
+                for m, c, z, p in STEP_RUNS if m == mesh]
 
     jobs = {
         (2, 2): train_jobs((2, 2)) + [("dryrun", "dryrun", {})],
@@ -181,14 +185,24 @@ def _check_params(got, want, mask, initial):
     MC.check_params(got, want, mask, initial)
 
 
-@pytest.mark.parametrize("mesh,case,zero", STEP_RUNS,
+def _job(case, zero, program):
+    return f"{case}/zero{zero}" + ("/program" if program else "")
+
+
+@pytest.mark.parametrize("mesh,case,zero,program", STEP_RUNS,
                          ids=[f"{m[0]}x{m[1]}-{c}-zero{int(z)}"
-                              for m, c, z in STEP_RUNS])
-def test_sharded_step_matches_one_card(runs, mesh, case, zero):
+                              + ("-program" if p else "")
+                              for m, c, z, p in STEP_RUNS])
+def test_sharded_step_matches_one_card(runs, mesh, case, zero, program):
     ref_metrics, ref_params = runs["ref"][case]
     per_rank = runs["got"][mesh]
     for rank, out in enumerate(per_rank):
-        metrics, params = out[f"{case}/zero{zero}"]
+        metrics, params = out[_job(case, zero, program)]
+        if program:  # the program: bitwise the eager sharded step
+            eager = out[_job(case, zero, False)]
+            assert metrics == eager[0], rank
+            for a, b in zip(_leaves(params), _leaves(eager[1])):
+                np.testing.assert_array_equal(a, b)
         for i, ((l, g), (rl, rg)) in enumerate(zip(metrics, ref_metrics)):
             np.testing.assert_allclose(l, rl, rtol=1e-5,
                                        err_msg=f"rank {rank} step {i} loss")

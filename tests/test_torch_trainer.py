@@ -289,7 +289,7 @@ def _recording_step(trainer, ids):
     def step(state, batch):
         ids.append(np.asarray(batch.input_ids).copy())
         return (state._replace(step=state.step + 1),
-                {"loss": 0.0, "grad_norm": 0.0})
+                {"loss": 0.0, "grad_norm": 0.0, "packed": torch.zeros(2)})
 
     trainer._get_step_fn = lambda m: step
 

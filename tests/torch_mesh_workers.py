@@ -53,15 +53,17 @@ def to_numpy(tree):
     return tree.detach().cpu().numpy().copy()
 
 
-def train_run(cfg, params_np, batches, case, mesh=None, zero=False):
+def train_run(cfg, params_np, batches, case, mesh=None, zero=False,
+              program=False):
     """``mesh_check.train_run`` on the CPU from numpy inputs: the per-step
-    (loss, grad norm) and the whole parameters after 3 steps (numpy)."""
+    (loss, grad norm) and the whole parameters after 3 steps (numpy);
+    with ``program`` the steps run as ``TrainProgram``."""
     from infinisst_tpu_torch.train.step import Batch
 
     metrics, params = MC.train_run(
         cfg, to_torch(params_np),
         [Batch(**{k: torch.from_numpy(b[k]) for k in KEYS})
-         for b in batches], case, "cpu", mesh, zero)
+         for b in batches], case, "cpu", mesh, zero, program=program)
     return metrics, to_numpy(params)
 
 
