@@ -337,11 +337,30 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  corpus, 8 prompts rolled out, an adapter distilled at
                  d = 1; speculative greedy with and without it in float32
                  and W8A8: KL and agreement, tokens unchanged, float32
-                 acceptance doubled, w8a8_gemm launched.
+                 acceptance doubled, w8a8_gemm launched; then the
+                 distillation's programs captured against uncaptured on
+                 that model (``distill_graph``, below).
+     distill graph -- ``distill_graph`` on a float32 Llama at the
+                 flagship's width and depth (random, D 4096, V 128256,
+                 rank 2048, d = 8): ``train/draft.py``'s programs
+                 captured against the same programs uncaptured, from the
+                 same weights and inputs, deterministic algorithms on:
+                 greedy rollouts on two keys (tokens equal, no host
+                 read), a beam rollout (records equal, one read),
+                 ``distill`` over the two keys' rollouts with a cache of
+                 one (teacher passes replayed), ``distill_on_features``
+                 and ``beam_selection_distill``: adapter, moments and
+                 history bitwise, a host read a log step, every program
+                 replayed, under ``graphs.strict_syncs``; a replayed
+                 step's device kernels, copies and memsets those of the
+                 uncaptured step; rollout tokens/s, a step's wall and
+                 host dispatch, captured and uncaptured, and a replayed
+                 step's idle share (printed, no claim).
      distill flagship -- ``python -m infinisst_tpu_torch.tools.
                  distill_adapter --model-preset flagship`` (8B float32,
-                 rank 2048, d = 8, 20 steps) in this process: the KL falls,
-                 the .npz loads at d = 8 only; then the flagship W8A8
+                 rank 2048, d = 8, 20 steps) in this process, its split
+                 (rollout, teacher pass, mean step) from its stderr: the
+                 KL falls, the .npz loads at d = 8 only; then the flagship W8A8
                  agent, speculative d = 8 with the guard off, 4 chunks with
                  and without the adapter: the same tokens, the int8
                  kernels launched, both acceptance rates.
@@ -4089,6 +4108,9 @@ TRAIN_TINY_CASES = (  # label, freeze, grad_acc_steps, cpo_beta, schedule
     ("stage 2, grad_acc_steps 2", "stage2", 2, 0.0, "constant"),
     ("stage 0, cpo_beta 0.5", "stage0", 1, 0.5, "cosine"),
 )
+# new pinned host allocations another thread makes inside each open
+# capture of ``check_capture_beside_loader``
+PIN_DURING_CAPTURE = 64
 TRAIN_METRIC = "train_stage1_speech_s_per_s_1chip_1.5b"
 TRAIN_IO_METRIC = "train_stage1_speech_s_per_s_realio_1chip_1.5b"
 TRAIN_KEYS = ("metric", "value", "unit", "vs_baseline")
@@ -4626,20 +4648,64 @@ def _device_ops(dev, step) -> tuple:
         step()
         _sync(dev)
         time.sleep(PROFILE_MARGIN_S)
+    return _count_ops((e.key, e.count) for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+
+
+def _count_ops(pairs) -> tuple:
+    """(kernels by name, device copies, memsets) of (name, count) pairs of
+    device activities, the sentinels and the host's uploads and reads
+    left out (``_device_ops``)."""
     names, copies, sets = {}, 0, 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        k = e.key
+    for k, n in pairs:
         if "spin_kernel" in k:  # the sentinels
             continue
         if k.startswith("memcpy") or (k.startswith("Memcpy") and "DtoD" in k):
-            copies += e.count
+            copies += n
         elif k.startswith(("memset", "Memset")):
-            sets += e.count
+            sets += n
         elif not k.startswith("Memcpy"):
-            names[k] = names.get(k, 0) + e.count
+            names[k] = names.get(k, 0) + n
     return names, copies, sets
+
+
+def _device_ops_last(dev, step) -> tuple:
+    """``_device_ops`` of the second of two calls of ``step()`` in one
+    profiler window, a spin kernel and a synchronise between them: the
+    device activities that start after that spin kernel, and their
+    device milliseconds by name.  The first call stands where a window
+    loses its first activities: in a whole-script run on the H100 the
+    window of a replayed 0.3 ms distill step lost its first 16, after the
+    sentinels, and ``profile_run``'s window of a flagship distill step
+    its first GEMM."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(PROFILE_SENTINELS):
+            torch.cuda._sleep(100)
+        _sync(dev)
+        step()
+        _sync(dev)
+        torch.cuda._sleep(100)  # the separator
+        _sync(dev)
+        step()
+        _sync(dev)
+        time.sleep(PROFILE_MARGIN_S)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if not spins:
+        fail("the profiler saw no spin kernel in its window")
+    last = events[spins[-1] + 1:]
+    ms = {}
+    for e in last:
+        ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return (*_count_ops((e.name, 1) for e in last), ms)
 
 
 def check_train_graph_tiny(dev):
@@ -4706,10 +4772,74 @@ def check_train_graph_tiny(dev):
                   f"captured step walls (host, to return) "
                   f"{[round(w * 1e3, 2) for w in walls]} ms", flush=True)
             del cap, unc, prog, progs
+        check_capture_beside_loader(dev, host, make)
     counts = launch_counts()
     if any(counts.values()):
         fail(f"[train graph] kernels launched on the training path: "
              f"{counts}")
+
+
+def check_capture_beside_loader(dev, host, make):
+    """The stage 1 case's program captured and replayed while another
+    thread pins new host memory, as ``Trainer``'s loader pins its next
+    batches during a step: every capture, once open, waits until the
+    other thread has made PIN_DURING_CAPTURE new pinned allocations.  A
+    capture that held every thread to its rules would be voided."""
+    import threading
+
+    import torch
+
+    stop, want, done = (threading.Event() for _ in range(3))
+    made = [0, 0]  # pinned allocations, captures they ran inside
+    errors = []
+
+    def pin():
+        keep = []  # never freed: every allocation is a new one
+        while not stop.is_set():
+            if want.wait(0.01):
+                want.clear()
+                try:
+                    for _ in range(PIN_DURING_CAPTURE):
+                        keep.append(torch.empty(1 << 14, pin_memory=True))
+                except Exception as e:  # noqa: BLE001 -- reported below
+                    errors.append(e)
+                made[0] += PIN_DURING_CAPTURE
+                made[1] += 1
+                done.set()
+
+    enter = torch.cuda.graph.__enter__
+
+    def entered(self):
+        enter(self)
+        done.clear()
+        want.set()
+        if not done.wait(60):
+            fail("[train graph] the pinning thread did not run")
+        if errors:
+            fail(f"[train graph] a pinned allocation in another thread "
+                 f"during a capture: {str(errors[0]).splitlines()[0]}")
+
+    _, fz, acc, cpo, sched = TRAIN_TINY_CASES[0]
+    prog, state = make(fz, acc, cpo, sched, 0.1, True)
+    t = threading.Thread(target=pin, daemon=True)
+    t.start()
+    torch.cuda.graph.__enter__ = entered
+    try:
+        for b in host[:3]:
+            state, _ = prog(state, b)
+        torch.cuda.synchronize(dev)
+    finally:
+        torch.cuda.graph.__enter__ = enter
+        stop.set()
+        t.join()
+    progs = [k.program for k in prog.keys.values()]
+    if not made[1] or not all(p.captured and p.replays for p in progs):
+        fail(f"[train graph] beside a pinning thread: a program did not "
+             f"capture or replay: {[(p.captured, p.replays) for p in progs]}"
+             f", captures {made[1]}")
+    print(f"[train graph] dryrun {TRAIN_TINY_CASES[0][0]}: captured and "
+          f"replayed while another thread made {made[0]} pinned host "
+          f"allocations inside {made[1]} open capture(s)", flush=True)
 
 
 def check_train_graph_flagship(dev, d):
@@ -5650,12 +5780,332 @@ def check_distill_tiny(dev, paths):
     paths["distill tiny"] = (
         "quant_fidelity.train, draft.rollout_corpus and distill, "
         "speculative_greedy float32 and W8A8", launch_counts())
+    distill_graph(dev, "distill tiny", params, cfg, d=1, rank=None,
+                  prompts=prompts, gen_len=32, beam_len=10, steps=6,
+                  batch=8)
+
+
+DISTILL_GRAPH_LOG = 2  # the checks' log interval: a host read each
+# profile_run's ranges: the pieces of a rollout
+ROLLOUT_STAGES = (("graph", "prefill", "prefill"),
+                  ("graph", "step", "one-token step"))
+
+
+@contextlib.contextmanager
+def kept_instances(mod, name):
+    """Within: the instances of ``mod.<name>`` made are kept in the yielded
+    list (a subclass stands in for the class)."""
+    cls = getattr(mod, name)
+    made = []
+
+    class Kept(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    setattr(mod, name, Kept)
+    try:
+        yield made
+    finally:
+        setattr(mod, name, cls)
+
+
+def _logged(steps: int) -> int:
+    """The log steps of a distillation (every DISTILL_GRAPH_LOG and the
+    last): its host reads."""
+    return sum(1 for i in range(steps)
+               if i % DISTILL_GRAPH_LOG == 0 or i == steps - 1)
+
+
+def _strict(captured: bool):
+    from infinisst_tpu_torch.core import graphs
+
+    return graphs.strict_syncs() if captured else contextlib.nullcontext()
+
+
+def _host_reads() -> int:
+    from infinisst_tpu_torch.core import graphs
+
+    return graphs.host_reads
+
+
+def _reads(label, what, before, want):
+    got = _host_reads() - before
+    if got != want:
+        fail(f"[{label}] {what}: {got} host reads, {want} expected")
+
+
+def _fit_tensors(fit):
+    return fit.leaves + fit.state["mu"] + fit.state["nu"]
+
+
+def _fits_equal(label, what, a, b):
+    import torch
+
+    bad = [i for i, (x, y) in enumerate(zip(_fit_tensors(a),
+                                            _fit_tensors(b)))
+           if not torch.equal(x, y)]
+    if bad:
+        fail(f"[{label}] {what}: the adapter or the moments differ, "
+             f"tensors {bad} of [ln, w1, w2, mu x 3, nu x 3]")
+
+
+def _distill_rollouts(dev, label, params, cfg, prompts, gen_len, beam_len):
+    """``Rollouts`` captured against uncaptured: each greedy key called
+    twice, then one beam rollout.  Returns (the captured greedy tokens,
+    the captured beam records)."""
+    import numpy as np
+    import torch
+
+    from infinisst_tpu_torch.train import draft as DR
+
+    B, P = prompts.shape
+    calls = [(prompts, gen_len),
+             (prompts[:1, :P // 2].contiguous(), gen_len // 2)]
+    rolled, walls = {}, {}
+    for captured in (True, False):
+        ro = DR.Rollouts(params, cfg, captured=captured)
+        toks, w = [], []
+        for _ in range(2):
+            for p, g in calls:
+                _sync(dev)
+                reads = _host_reads()
+                t0 = time.perf_counter()
+                with _strict(captured):
+                    toks.append(ro.greedy(p, g))
+                _sync(dev)
+                w.append(time.perf_counter() - t0)
+                _reads(label, "a greedy rollout", reads, 0)
+        reads = _host_reads()
+        with _strict(captured):
+            recs = ro.beam(prompts[0], beam_len)
+        _reads(label, "a beam rollout", reads, 1)
+        progs = [k.program for k in ro.keys.values()]
+        if captured and not all(q.captured and q.replays for q in progs):
+            fail(f"[{label}] a rollout program did not replay: "
+                 f"{[(q.captured, q.replays) for q in progs]}")
+        if captured:  # where a replayed greedy rollout's time goes
+            profile_run(dev, lambda: ro.greedy(*calls[0]), ROLLOUT_STAGES,
+                        f"{label} rollout profile", w[2] * 1e3,
+                        "replayed greedy rollout")
+        rolled[captured], walls[captured] = (toks, recs), w
+        del ro, progs
+    (ct, cr), (ut, ur) = rolled[True], rolled[False]
+    if not all(torch.equal(a, b) for a, b in zip(ct, ut)):
+        fail(f"[{label}] greedy rollouts: captured and uncaptured tokens "
+             "differ")
+    for t, (a, b) in enumerate(zip(cr, ur)):
+        if a["len"] != b["len"] or not all(
+                np.array_equal(a[k], b[k]) for k in (
+                    "buf", "beam_scores", "sel_beam", "sel_tok")):
+            fail(f"[{label}] beam rollout: step {t}'s records differ")
+    tps = {c: B * gen_len / walls[c][2] for c in (True, False)}
+    print(f"[{label}] rollouts: captured = uncaptured (greedy tokens on 2 "
+          f"keys x 2 calls, {beam_len} beam-4 records), no host read a "
+          f"greedy rollout, one a beam rollout; greedy ({B} x {P} + "
+          f"{gen_len}, the second call) {tps[True]:.1f} tokens/s captured, "
+          f"{tps[False]:.1f} uncaptured (walls, synchronised: captured "
+          f"{[round(x * 1e3, 2) for x in walls[True]]} ms, uncaptured "
+          f"{[round(x * 1e3, 2) for x in walls[False]]} ms)", flush=True)
+    return ct[:2], cr
+
+
+def _distill_fits(dev, label, params, cfg, d, rank, batches, feats, recs,
+                  steps, batch):
+    """The three distillers captured against uncaptured; returns the
+    ``distill_on_features`` fits (captured, uncaptured)."""
+    import torch
+
+    from infinisst_tpu_torch.train import draft as DR
+
+    seed = torch.Generator(device=dev)
+    runs, fits, teachers = {}, {}, {}
+    for captured in (True, False):
+        with kept_instances(DR, "_Fit") as f, \
+                kept_instances(DR, "_TeacherPass") as t:
+            out = []
+            for name, fn in (
+                    ("distill", lambda k: DR.distill(
+                        params, cfg, d, batches, steps=steps, rank=rank,
+                        key=k, log_every=DISTILL_GRAPH_LOG,
+                        max_cached_batches=1, captured=captured)),
+                    ("distill_on_features", lambda k: DR.distill_on_features(
+                        params, cfg, feats, steps=steps, rank=rank, key=k,
+                        log_every=DISTILL_GRAPH_LOG, captured=captured)),
+                    ("beam_selection_distill", lambda k: (
+                        DR.beam_selection_distill(
+                            params, cfg, d, recs, steps=steps, rank=rank,
+                            key=k, batch=batch, log_every=DISTILL_GRAPH_LOG,
+                            captured=captured)))):
+                reads = _host_reads()
+                with _strict(captured):
+                    out.append(fn(seed.manual_seed(5)))
+                _reads(label, name, reads, _logged(steps))
+        runs[captured], fits[captured], teachers[captured] = out, f, t
+    names = ("distill", "distill_on_features", "beam_selection_distill")
+    for name, (_, ch), (_, uh), cf, uf in zip(
+            names, runs[True], runs[False], fits[True], fits[False]):
+        if ch != uh:
+            fail(f"[{label}] {name}: history {ch} captured, {uh} uncaptured")
+        _fits_equal(label, name, cf, uf)
+    progs = [k.program for x in fits[True] + teachers[True]
+             for k in x.keys.values()]
+    if not all(q.captured and q.replays for q in progs):
+        fail(f"[{label}] a distillation program did not replay: "
+             f"{[(q.captured, q.replays) for q in progs]}")
+    print(f"[{label}] distill (cache of 1: a teacher pass a step), "
+          f"distill_on_features, beam_selection_distill, {steps} steps "
+          f"each: captured = uncaptured bitwise (history, adapter, mu, nu), "
+          f"{_logged(steps)} host reads each (the log steps), programs "
+          f"{len(progs)}, replays {[q.replays for q in progs]}; histories "
+          f"{[h for _, h in runs[True]]}", flush=True)
+    return fits[True][1], fits[False][1]
+
+
+def _distill_step_profile(dev, label, cap, unc, inputs):
+    """Three timed steps of each of the fits ``cap`` (captured) and
+    ``unc`` (host dispatch, synchronised wall); then two steps of each
+    under the profiler (``_device_ops_last``): the second's kernels by
+    name, copies and memsets the same, the states bitwise; each step's
+    device idle share against its median unprofiled wall, and the
+    replayed step's top kernels."""
+    disp = {}
+    for name, fit in (("captured", cap), ("uncaptured", unc)):
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fit.step(inputs)
+            d0 = time.perf_counter() - t0
+            _sync(dev)
+            disp.setdefault(name, []).append(
+                (d0 * 1e3, (time.perf_counter() - t0) * 1e3))
+    _fits_equal(label, "the timed steps", cap, unc)
+    *ops_cap, ms_cap = _device_ops_last(dev, lambda: cap.step(inputs))
+    *ops_unc, ms_unc = _device_ops_last(dev, lambda: unc.step(inputs))
+    (seen_cap, copies_cap, sets_cap), (seen_unc, copies_unc, sets_unc) = (
+        ops_cap, ops_unc)
+    if ops_cap != ops_unc:
+        diff = {k: (seen_cap.get(k, 0), seen_unc.get(k, 0))
+                for k in set(seen_cap) | set(seen_unc)
+                if seen_cap.get(k, 0) != seen_unc.get(k, 0)}
+        fail(f"[{label}] the replayed step's kernels by name (captured, "
+             f"uncaptured) differ: {diff}; copies {copies_cap} / "
+             f"{copies_unc}, memsets {sets_cap} / {sets_unc}")
+    _sync(dev)
+    _fits_equal(label, "the profiled steps", cap, unc)
+    idle = {}
+    for name, ms in (("captured", ms_cap), ("uncaptured", ms_unc)):
+        med = statistics.median(b for _, b in disp[name])
+        idle[name] = (sum(ms.values()), 1.0 - sum(ms.values()) / med)
+    print(f"[{label}] a replayed distill_on_features step ran the "
+          f"uncaptured step's device kernels by name "
+          f"({sum(seen_unc.values())} kernels, {len(seen_unc)} names), "
+          f"{copies_unc} device copies and {sets_unc} memsets; a step's "
+          f"(host dispatch, synchronised wall) ms: captured "
+          f"{[(round(a, 3), round(b, 3)) for a, b in disp['captured']]}, "
+          f"uncaptured "
+          f"{[(round(a, 3), round(b, 3)) for a, b in disp['uncaptured']]}; "
+          f"device ms and idle share against the median wall: captured "
+          f"{idle['captured'][0]:.3f} ms, {idle['captured'][1]:.4f}; "
+          f"uncaptured {idle['uncaptured'][0]:.3f} ms, "
+          f"{idle['uncaptured'][1]:.4f}", flush=True)
+    for k, t in sorted(ms_cap.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[{label} step profile]   {t:9.3f} ms  {k[:90]}", flush=True)
+
+
+def distill_graph(dev, label, params, cfg, d, rank, prompts, gen_len,
+                  beam_len, steps, batch):
+    """``train/draft.py``'s programs captured against the same programs
+    uncaptured (``captured=False``), from the same weights, seeds and
+    inputs, the captured calls under ``graphs.strict_syncs`` (no
+    deterministic mode: nothing on these paths accumulates in an order
+    the card chooses):
+
+    - ``Rollouts.greedy`` on two keys (``prompts``; its first row at half
+      the prompt and half ``gen_len``), each called twice (the second
+      replays every step): tokens equal, no host read; then
+      ``Rollouts.beam`` from the first prompt, ``beam_len`` steps: every
+      record equal, one host read; a replayed greedy call of the first
+      key under the profiler (``profile_run``);
+    - ``distill`` over the two keys' rollouts with a cache of one batch
+      (each step a teacher pass: the teacher programs replay),
+      ``distill_on_features`` over their teacher features and
+      ``beam_selection_distill`` over the beam records, ``steps`` each:
+      the history, the adapter and Adam's moments bitwise, one host read
+      a log step, every program captured and replayed;
+    - two more steps of each ``distill_on_features`` fit under the
+      profiler: the second replayed step's device kernels by name, its
+      copies and memsets, equal the second uncaptured step's; the states
+      bitwise after them.
+
+    Printed (no claim): rollout tokens/s captured and uncaptured (the
+    first key's second call, synchronised), a step's host dispatch (its
+    time to return) and wall (synchronised), captured and uncaptured,
+    each step's device idle share (``_distill_step_profile``), and the
+    walls of the three parts."""
+    import gc
+
+    import torch
+
+    from infinisst_tpu_torch.train import draft as DR
+
+    t0 = time.perf_counter()
+    batches, recs = _distill_rollouts(dev, label, params, cfg, prompts,
+                                      gen_len, beam_len)
+    t1 = time.perf_counter()
+    feats = []
+    for ids in batches:
+        mask = torch.ones(ids.shape, dtype=torch.float32, device=dev)
+        feats.append((*DR.collect_targets(params, cfg, ids, d, mask), mask))
+    cap, unc = _distill_fits(dev, label, params, cfg, d, rank, batches,
+                             feats, recs, steps, batch)
+    t2 = time.perf_counter()
+    _distill_step_profile(dev, label, cap, unc, feats[0])
+    t3 = time.perf_counter()
+    print(f"[{label}] walls: rollouts {t1 - t0:.1f} s, distillers "
+          f"{t2 - t1:.1f} s, the step's profile {t3 - t2:.1f} s",
+          flush=True)
+    del cap, unc, feats, batches, recs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_distill_graph(dev):
+    """``distill_graph`` on a float32 Llama at the flagship's full width
+    and depth (random weights from seed 0; D 4096, V 128256, 32 layers),
+    rank 2048, d = 8: greedy rollouts of 2 prompts of 16 tokens by 16
+    (the [distill flagship] tool's shape), a beam-4 rollout of 6 steps,
+    6 steps of each distiller, batches of 4 records."""
+    import gc
+
+    import torch
+
+    from infinisst_tpu_torch.core.presets import flagship_config
+    from infinisst_tpu_torch.models import llama as L
+
+    cfg = flagship_config().llama
+    params = L.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev, torch.float32)
+    prompts = torch.randint(5, 128000, (2, 16), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    print(f"[distill graph] float32 Llama, D {cfg.hidden_size}, V "
+          f"{cfg.vocab_size}, {cfg.num_layers} layers, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; rank 2048, "
+          "d = 8", flush=True)
+    distill_graph(dev, "distill graph", params, cfg, d=8, rank=2048,
+                  prompts=prompts, gen_len=16, beam_len=6, steps=6, batch=4)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check_distill_flagship(dev, paths):
     """``tools.distill_adapter`` at the flagship's full width (8B float32,
-    V = 128256, rank 2048, d = 8; ``run_main``): the logged KL falls,
-    the .npz loads at d = 8 and is refused at 4.  Then the flagship W8A8
+    V = 128256, rank 2048, d = 8; ``run_main``): its split (rollout,
+    teacher pass, mean step) from its stderr, its three programs
+    captured and replayed, the logged KL falls, the .npz loads at d = 8
+    and is refused at 4.  Then the flagship W8A8
     agent, speculative at d = 8 with the guard off, DISTILL_CHUNKS chunks
     with and without the adapter: the same tokens, w8a8_gemm and
     row_quant_int8 launched.  The weights are random (the tool's and the
@@ -5692,17 +6142,37 @@ def check_distill_flagship(dev, paths):
                 "2", "--draft-layers", "8", "--rank", "2048", "--steps",
                 "20", "--out", out]
         t0 = time.perf_counter()
-        r = run_main("infinisst_tpu_torch.tools.distill_adapter", argv)
+        with kept_instances(DR, "Rollouts") as ros, \
+                kept_instances(DR, "_TeacherPass") as teachers, \
+                kept_instances(DR, "_Fit") as fits:
+            r = run_main("infinisst_tpu_torch.tools.distill_adapter", argv)
         wall = time.perf_counter() - t0
+        # the tool ran the programs: each captured and replayed
+        progs = [k.program for x in ros + teachers + fits
+                 for k in x.keys.values()]
+        replays = [(q.captured, q.replays) for q in progs]
+        del ros, teachers, fits, progs  # they hold the tool's weights
+        gc.collect()
+        torch.cuda.empty_cache()
         print(r.stderr[-3000:], flush=True)
         if r.returncode != 0:
             fail(f"[distill flagship] the tool exited {r.returncode}")
         kls = [float(m.group(1)) for m in re.finditer(
             r"^step \d+: kl (\S+) top1-agree", r.stderr, re.M)]
         peak = re.search(r"^peak memory (\S+) GiB", r.stderr, re.M)
-        print(f"[distill flagship] tool wall {wall:.1f} s, peak memory "
+        split = [m.group(0) for m in re.finditer(
+            r"^(rollout: .*|teacher: .*|step: .*)$", r.stderr, re.M)]
+        print(f"[distill flagship] the tool's split: {'; '.join(split)}; "
+              f"its wall with the weights' draw {wall:.1f} s, peak memory "
               f"{peak.group(1) if peak else '?'} GiB, kl {kls}; "
               f"{r.stdout.strip()}", flush=True)
+        if len(split) != 3:
+            fail(f"[distill flagship] the tool printed no split: {split}")
+        print(f"[distill flagship] the tool's programs (rollout, teacher "
+              f"pass, step): (captured, replays) {replays}", flush=True)
+        if len(replays) != 3 or not all(c and n for c, n in replays):
+            fail(f"[distill flagship] the tool did not replay its programs: "
+                 f"{replays}")
         if len(kls) < 2 or not kls[-1] < kls[0]:
             fail(f"[distill flagship] the logged KL did not fall: {kls}")
         adapter = DR.load_adapter(out, expect_d=8)
@@ -6308,6 +6778,8 @@ def main():
         fidelity_params = check_fidelity(dev, notes, paths)
     with phase("distill tiny"):
         check_distill_tiny(dev, paths)
+    with phase("distill graph"):
+        check_distill_graph(dev)
     with phase("distill flagship"):
         check_distill_flagship(dev, paths)
     with phase("profiling"):

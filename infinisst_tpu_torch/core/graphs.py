@@ -23,6 +23,11 @@ split-K counters for a new shape).  On the CPU, where
 CUDA graphs do not exist, the same pieces run as they are.
 
 A failed capture or replay raises; nothing runs eagerly in its place.
+A capture holds only its own thread to CUDA's rules for capture
+(``capture_error_mode="thread_local"``): under the default "global" mode a
+host allocation that another thread makes meanwhile (the trainer's loader
+pins its batches in a thread of its own) voids the capture, depending on
+timing.
 
 A piece that draws random numbers names its generator (``generators``):
 the generator is registered with that piece's graph, so that a replay
@@ -262,8 +267,12 @@ class DeviceProgram:
             for gen in self.generators.get(name, ()):
                 g.register_generator_state(gen)
             try:
+                # "thread_local": the capturing thread may make no unsafe
+                # call, and another thread of the process (a trainer's
+                # loader pinning its next batch) does not void the capture
                 with torch.cuda.graph(g, pool=self.pool.handle,
-                                      stream=self.pool.stream):
+                                      stream=self.pool.stream,
+                                      capture_error_mode="thread_local"):
                     fn()
                 deltas[name] = _delta(snap)
             finally:

@@ -2,11 +2,14 @@
 of the root ``tools_distill_adapter.py``.
 
 The target model decodes in-domain prompts itself
-(``train/draft.rollout_corpus``), the adapter is distilled on those
-rollouts (``train/draft.distill``; teacher-forced corpus text does not
-transfer, the exposure bias of ``train/draft.py``), and an ``.npz`` in
-the JAX package's format is saved for ``--spec-adapter`` on the agent
-CLI and the serving server of either package.
+(``train/draft.Rollouts``), the adapter is distilled on those rollouts
+(``train/draft.distill``; teacher-forced corpus text does not transfer,
+the exposure bias of ``train/draft.py``), and an ``.npz`` in the JAX
+package's format is saved for ``--spec-adapter`` on the agent CLI and
+the serving server of either package.  Both run as device programs,
+captured on a card.  On stderr: the rollout's wall and tokens/s, the
+teacher passes' and the steps' mean milliseconds (device time on a
+card), the logged KL and agreement, the peak memory.
 
 Usage (``--device`` defaults to ``cuda``):
     python -m infinisst_tpu_torch.tools.distill_adapter \\
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 
 def main(argv=None):
@@ -115,22 +119,35 @@ def main(argv=None):
 
     # self-generated distillation corpus: greedy continuations from the
     # target model over the in-domain prompts (the draft is only queried
-    # at contexts the target itself produced -- train/draft.py)
+    # at contexts the target itself produced -- train/draft.py); one
+    # Rollouts for every batch, so that a shape's programs replay
     B = args.batch_size
     batches = []
+    rollouts = DR.Rollouts(params, cfg.llama)
+    t0 = time.perf_counter()
     for i in range(0, len(rows), B):
-        out = DR.rollout_corpus(params, cfg.llama, prompts[i : i + B],
-                                args.gen_len)
+        out = rollouts.greedy(prompts[i : i + B], args.gen_len)
         batches.append(out.cpu().numpy())
         print(f"rollout batch {i // B + 1}/{-(-len(rows) // B)}",
               file=sys.stderr)
+    wall = time.perf_counter() - t0
+    del rollouts
+    n_tok = len(rows) * args.gen_len
+    print(f"rollout: {len(batches)} batches, {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.1f} tokens/s)", file=sys.stderr)
 
+    timings = {}
     adapter, hist = DR.distill(
         params, cfg.llama, args.draft_layers, batches,
         steps=args.steps, lr=args.lr, rank=args.rank or None,
         key=torch.Generator(device=dev).manual_seed(args.seed),
-        log_every=max(1, args.steps // 10),
+        log_every=max(1, args.steps // 10), timings=timings,
     )
+    for name in ("teacher", "step"):
+        ms = timings.get(f"{name}_ms", [])
+        if ms:
+            print(f"{name}: {len(ms)} x, mean {sum(ms) / len(ms):.3f} ms, "
+                  f"first {ms[0]:.3f} ms", file=sys.stderr)
     for step, kl, agree in hist:
         print(f"step {step}: kl {kl:.4f} top1-agree {agree:.4f}",
               file=sys.stderr)

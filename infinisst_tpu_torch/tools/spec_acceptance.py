@@ -236,9 +236,10 @@ def main(argv=None):
 
     # the beam-aware listwise adapter: beam states rolled out with the
     # target, the adapter distilled on the selection spec_beam verifies
+    rollouts = DR.Rollouts(params, CFG)  # a shape's programs replay
     roll_beam = []
     for p in list(teach) + list(held):
-        roll_beam.extend(DR.beam_rollout_states(params, CFG, p, G, beam=4))
+        roll_beam.extend(rollouts.beam(p, G, beam=4))
     S_max = max(s["buf"].shape[1] for s in roll_beam)
     for s in roll_beam:
         pad = S_max - s["buf"].shape[1]
@@ -277,10 +278,11 @@ def main(argv=None):
 
     # the distilled exit adapter in three regimes (draft only: exactness
     # untouched in all of them)
-    roll_in = [DR.rollout_corpus(params, CFG, torch.stack(teach), G),
-               DR.rollout_corpus(params, CFG, torch.stack(held), G)]
+    roll_in = [rollouts.greedy(torch.stack(teach), G),
+               rollouts.greedy(torch.stack(held), G)]
     xfer = torch.stack(prompts(300, 12, 8))
-    roll_x = [DR.rollout_corpus(params, CFG, xfer, G)]
+    roll_x = [rollouts.greedy(xfer, G)]
+    del rollouts
 
     for d in (1, 2):
         hv = CFG.vocab_size // 4
