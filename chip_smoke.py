@@ -46,16 +46,22 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  w8a8_gemm only, with the _int_mm yardstick.  The offline
                  phases fail if a call's prompt bucket is not held here.
   4. attention -- decode_attention against its plain version at the beam
-                 step's two blocks, at decode_attention_batched's pooled
-                 shapes, at the serving pool's two blocks (its prefix:
-                 8 caches, each read by its slot's 4 beams) and at an
-                 AlignAtt call with 64 target ids (a prefix of 447 valid
-                 in 512 slots; the per-beam block of 64 slots at key
-                 offset 447, valid 1-64), output and lse within ATT_RTOL;
-                 times as in phase 3, with F.scaled_dot_product_attention
-                 (enable_gqa) over keys rotated beforehand as the library
-                 yardstick.  Then the AlignAtt probe (llama.span_probe
-                 over the 360 speech keys) from the two launches' lse
+                 step's two blocks apart, at decode_attention_batched's
+                 pooled shapes, at the serving pool's two blocks (its
+                 prefix: 8 caches, each read by its slot's 4 beams) and at
+                 an AlignAtt call with 64 target ids (a prefix of 447
+                 valid in 512 slots; the per-beam block of 64 slots at key
+                 offset 447, valid 1-64); beam_attention (the two blocks
+                 in one launch, the beam step's kernel) against
+                 beam_attention_plain at the stream's, the pool's,
+                 AlignAtt's, StreamAtt's (183 of 256) and beam 1's two
+                 blocks; output and lse within ATT_RTOL, bf16 and
+                 float32; times as in phase 3, with
+                 F.scaled_dot_product_attention (enable_gqa) over keys
+                 rotated beforehand as the library yardstick (for
+                 beam_attention each row's prefix and per-beam keys
+                 concatenated).  Then the AlignAtt probe (llama.span_probe
+                 over the 360 speech keys) from beam_attention's lse
                  equal to the probe from the plain version's, at three
                  gen_lens.  The shapes the offline benches' calls really
                  run are held where those run (hold_offline_attention in
@@ -107,7 +113,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  idle share, a beam step's wall against its device time.
                  Then [multiplier]: update_multiplier(2) and (4) on the
                  same stream, one chunk at each (encoder frames +96, +192;
-                 decode_attention launches = beam forwards x L x 2).
+                 beam_attention launches = beam forwards x L).
                  Then [serve profile]: the same weights in a ServingEngine
                  (pool 8, beam 4, m=1): tick walls, one tick with a
                  synchronise around each stage and one under
@@ -152,7 +158,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  agent through shard_params (zero's spec tree, FSDP's
                  code path) and tensor_parallel at (1, 1), 4 chunks, its
                  target ids those of the agent without a mesh after every
-                 chunk, w8a8_gemm, row_quant_int8 and decode_attention
+                 chunk, w8a8_gemm, row_quant_int8 and beam_attention
                  launched; the flagship W8A8 pool of 8 at beam 4 through
                  the split engine's path at (1, 1), 2 ticks, every slot's
                  tokens those of the pool without a mesh (one data rank:
@@ -176,7 +182,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  [alignatt]; after every push the kept source equal to the
                  attended-frame rule's (StreamAttRule), recomputed from the
                  agent's target and most-attended samples, and a cut by
-                 that rule at least once; then decode_attention and the
+                 that rule at least once; then beam_attention and the
                  probe held at each (prompt length, cache slots) its calls
                  ran (hold_offline_attention, untimed).
   7. weight-only -- four chunks of the 8B model (the first and the
@@ -197,18 +203,18 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  (pool 8, beam 4, m=1, 12 timed ticks) in this process
                  (``run_main``: its ``main`` with its output captured):
                  exit 0, metric serve_decode_tok_per_s_pool8_beam4_m1_8b_int8,
-                 launches decode_attention = token forwards x L x 2 (half
-                 at B=32 Bc=8, the pool prefix), w8a8_gemm = forwards x
+                 launches beam_attention = token forwards x L (at B=32
+                 over Bc=8 prefix caches), w8a8_gemm = forwards x
                  (7L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
      alignatt -- ``python -m infinisst_tpu_torch.bench --mode alignatt``
                  (12 chunks, 3 untimed) and ``--early-stop``: exit 0, the
                  JSON line, each chunk's wall, beam steps, prompt bucket
                  and prompt length; launches w8a8_gemm = steps x (7L + 1),
-                 row_quant_int8 = steps x (4L + 1), decode_attention =
-                 (steps - calls) x 2L, summed over the calls, each > 0 in
+                 row_quant_int8 = steps x (4L + 1), beam_attention =
+                 (steps - calls) x L, summed over the calls, each > 0 in
                  parity (the early stop may stop every call at its first
                  step, with no beam forward; its RTF then times a prefill
-                 a call).  decode_attention (prefix of pbucket + 64 slots
+                 a call).  beam_attention (prefix of pbucket + 64 slots
                  with the prompt length valid, per-beam block of 64 slots
                  at that key offset) and the probe held at every shape the
                  parity calls ran, timed at the one with the most beam
@@ -225,7 +231,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  non-empty instances file.
  11. cli flagship -- ``agents.cli.main`` at the flagship preset, m=2, with
                  no paths (random bf16 weights on the card, plain
-                 torch.matmul projections, decode_attention in the beam
+                 torch.matmul projections, beam_attention in the beam
                  step) and the stub tokenizer over the same two files:
                  finite RTF and StreamLAAL, the scores printed.
      alignatt tiny -- (after serve tiny) the tiny AlignAtt (parity and
@@ -250,8 +256,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  --do-sample at the flagship W8A8, 8 chunks each, in
                  this process; each run's launches held to its model
                  forwards (w8a8_gemm 7n + 1, row_quant_int8 4n + 1 a
-                 forward of n layers, decode_attention 2n a beam step and
-                 n a tree verify, none in a decode_step).
+                 forward of n layers, beam_attention n a beam step,
+                 decode_attention n a tree verify, none in a decode_step).
      spec serve -- the bench's --mode serve --speculative and
                  --speculative --do-sample (pool 8, beam 1), launches held
                  to the forwards as in spec bench.
@@ -326,13 +332,13 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  winner changes beside docs/quant_fidelity.json (the JAX
                  tool's); each variant's kernels launched (w8:
                  w8_bf16_gemm; w8a8: row_quant_int8 + w8a8_gemm; grouped:
-                 group_quant_int8 + w8a8_grouped_gemm; decode_attention in
+                 group_quant_int8 + w8a8_grouped_gemm; beam_attention in
                  every beam step; the two groups-of-8 variants through
                  the grouped pair's simple route); then every int8 kernel
                  bitwise against its plain version on the trained weights
                  at the prefill's 512 rows and a beam step's 4
                  (w8_bf16_gemm within 1e-5), timed at the prefill's shape,
-                 and decode_attention at the beam step's two blocks.
+                 and beam_attention at the beam step's two blocks.
      distill tiny -- the probe's Llama trained 150 steps on the 64 x 64
                  corpus, 8 prompts rolled out, an adapter distilled at
                  d = 1; speculative greedy with and without it in float32
@@ -377,16 +383,17 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  tokens equal; the AlignAtt probe's share in the
                  zero-padded audio bucket, push by push; spec_acceptance's
                  ``run_spec``/``run_beam`` rows card against CPU on the
-                 fidelity probe's trained Llama; decode_attention held at
+                 fidelity probe's trained Llama; beam_attention held at
                  every shape these paths launched, on their own inputs.
      demos    -- ``examples.stream_demo`` (3 chunks) and
                  ``examples.serve_demo`` (3 ticks, a pool of 4 caches at
-                 beam 2: decode_attention over Bc > 1, kernel row 5) on
-                 the card; decode_attention held at their shapes.
+                 beam 2: beam_attention over Bc > 1, kernel row 5) on
+                 the card; beam_attention held at their shapes.
  14. one JSON ``kernels`` line (the launches of one replayed chunk of the
      captured program under ``graph``; the speculative paths' launches and times
-     under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8 and
-     decode_attention; the training path's launches, 0, under
+     under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8,
+     beam_attention (beam 1) and decode_attention (the tree verify's
+     prefix); the training path's launches, 0, under
      ``train``; the mesh path's, by the agent and the dryrun, under
      ``mesh``; the tools' launches by phase and the times at the
      probe's shapes under ``tools``, the grouped GEMM's simple route at
@@ -1051,26 +1058,30 @@ def check_spec_tiny(dev, f32_params):
           "unseeded mode; seeded sampling = its repeat", flush=True)
 
 
-# per forward by function: decode_attention launches a layer (the beam
-# step's two blocks, the tree verify's prefix; a decode_step attends in
-# plain torch)
-ATT_PER_LAYER = {"decode_step": 0, "beam_token_step": 2, "beam_tree_step": 1}
+# per forward by function: attention launches a layer (the beam step's two
+# blocks in one beam_attention, the tree verify's prefix through
+# decode_attention; a decode_step attends in plain torch), and which
+ATT_PER_LAYER = {"decode_step": 0, "beam_token_step": 1, "beam_tree_step": 1}
+ATT_KERNEL = {"beam_token_step": "beam_attention",
+              "beam_tree_step": "decode_attention"}
 
 
 def expected_launches(forwards) -> dict:
     """The kernel launches the bench's model forwards ({"fn L=n": count})
     must make at the flagship W8A8 with an int8 (full or shortlist) head:
     7n + 1 w8a8_gemm and 4n + 1 row_quant_int8 a forward of n layers,
-    decode_attention by ATT_PER_LAYER, no other kernel."""
+    beam_attention and decode_attention by ATT_PER_LAYER and ATT_KERNEL,
+    no other kernel."""
     want = dict.fromkeys(("w8a8_gemm", "row_quant_int8", "decode_attention",
-                          "w8_bf16_gemm", "group_quant_int8",
-                          "w8a8_grouped_gemm"), 0)
+                          "beam_attention", "w8_bf16_gemm",
+                          "group_quant_int8", "w8a8_grouped_gemm"), 0)
     for key, n in forwards.items():
         fn, L = key.split(" L=")
         L = int(L)
         want["w8a8_gemm"] += n * (7 * L + 1)
         want["row_quant_int8"] += n * (4 * L + 1)
-        want["decode_attention"] += n * L * ATT_PER_LAYER[fn]
+        if ATT_PER_LAYER[fn]:
+            want[ATT_KERNEL[fn]] += n * L * ATT_PER_LAYER[fn]
     return want
 
 
@@ -1236,7 +1247,6 @@ def check_spec_serve(paths):
 # per-beam block of 32 rows), then decode_attention_batched at the pooled
 # shapes of tools_ab_attention.py (valid_len spread over [C/2, C)).
 ATT_HEADS = (32, 8, 128)  # H, KV, Dh
-POOL_PREFIX = ("pool prefix", 32, 1280)  # its Notes shape key
 
 
 def _att_cases():
@@ -1346,6 +1356,119 @@ def att_case(dev, gen, notes, label, B, Bc, C, valid, off, lse, dtype, timed,
                label=f"{label:21s} B={B:2d} Bc={Bc:2d} C={C:5d}")
 
 
+# (label, B, P, C, plen (P,), G, g_valid (B,)): beam_attention, the beam
+# step's two blocks in one launch, at its paths' shapes: the stream (a
+# chunk's prefix of 1000 in 1280 slots, the per-beam block of 10 slots at
+# gen_len 3, key j at plen + j), the serving pool (8 slots of 4 beams),
+# an AlignAtt call with 64 target ids (447 of 512, the per-beam block of
+# 64 slots at gen lens 1-64), a StreamAtt call (183 of 256), beam 1 (the
+# sampler's and the greedy fallback's step)
+BEAM_CASES = [
+    ("stream", 4, 1, 1280, [1000], 10, [4] * 4),
+    ("pool", 32, 8, 1280, [1000] * 8, 10, [4] * 32),
+    ("alignatt 64-target", 4, 1, 512, [447], DECODE_BUF_TOKENS,
+     [1, 22, 43, 64]),
+    ("streamatt", 4, 1, 256, [183], DECODE_BUF_TOKENS, [1, 22, 43, 64]),
+    ("beam 1", 1, 1, 1280, [1000], 10, [4]),
+]
+BEAM_REPORT = ("stream", 4, 1280)  # the kernels line's shape (Notes key)
+BEAM_POOL = ("pool", 32, 1280)
+
+
+def beam_case(dev, gen, notes, label, B, P, C, plen, G, g_valid, dtype,
+              timed, q_pos=None, heads=ATT_HEADS):
+    """beam_attention at one shape against beam_attention_plain: output
+    and lse within ATT_RTOL; timed, with the SDPA yardstick (over every
+    row's prefix and per-beam keys concatenated, rotated beforehand) and
+    the bound, into ``notes`` under (label, B, C).  Row b's query sits at
+    ``q_pos`` (default: its newest per-beam key's position)."""
+    import torch
+    import torch.nn.functional as F
+
+    from infinisst_tpu_torch.core import rope as R
+    from infinisst_tpu_torch.kernels import decode_attention as A
+
+    H, KV, Dh = heads
+    inv = torch.tensor(R.llama_rope_freqs(Dh), dtype=torch.float32,
+                       device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    es = torch.empty((), dtype=dtype).element_size()
+    kv_bytes = 2 * (P * C + B * G) * KV * Dh * es
+    n_c = max(1, math.ceil(120e6 / kv_bytes)) if timed else 1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q = rnd(B, H, Dh)
+    pk, pv = [rnd(P, C, KV, Dh) for _ in range(n_c)], \
+        [rnd(P, C, KV, Dh) for _ in range(n_c)]
+    gk, gv = [rnd(B, G, KV, Dh) for _ in range(n_c)], \
+        [rnd(B, G, KV, Dh) for _ in range(n_c)]
+    pl = torch.tensor(plen, **i32)
+    gvl = torch.tensor(g_valid, **i32)
+    goff = pl.repeat_interleave(B // P).contiguous()
+    qp = (goff + torch.clamp(gvl - 1, min=0)).contiguous() if q_pos is None \
+        else torch.tensor([q_pos] * B, **i32)
+
+    def kernel(i):
+        k = i % n_c
+        return A.beam_attention(q, pk[k], pv[k], pl, gk[k], gv[k], gvl, goff,
+                                qp, inv)
+
+    def plain(i):
+        k = i % n_c
+        return A.beam_attention_plain(q, pk[k], pv[k], pl, gk[k], gv[k], gvl,
+                                      goff, qp, inv)
+
+    got, ref = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    rtol = ATT_RTOL["bf16" if dtype == torch.bfloat16 else "f32"]
+    err = 0.0
+    for n, (g, r) in enumerate(zip(got, ref)):
+        e = (g.float() - r.float()).abs().max().item()
+        lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
+            r.float().abs().max().item()
+        if not (e <= lim and torch.isfinite(g).all()):
+            fail(f"beam_attention {label} {dtype}: "
+                 f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
+        err = max(err, e)
+    if not timed:
+        print(f"  beam_attention    {label} {dtype}: max_abs_err {err:.3e} "
+              f"(within {rtol} x max|plain|)", flush=True)
+        return
+    ms = cuda_time_ms(kernel, 20)
+    pms = cuda_time_ms(plain, 3, warmup=1)
+    # library yardstick: SDPA over each row's prefix and per-beam keys
+    # concatenated and rotated beforehand (not timed), the valid lengths
+    # as a boolean mask
+    rows = torch.arange(B, device=dev)
+    slot = rows // (B // P)
+    pos = torch.cat([torch.arange(C, device=dev)[None].expand(B, C),
+                     goff[:, None].long() + torch.arange(G, device=dev)[None]],
+                    1)
+    sks, svs = [], []
+    for k in range(n_c):
+        kk = torch.cat([pk[k][slot], gk[k]], 1).transpose(1, 2)
+        sks.append(R.apply_llama_rope(kk, pos[:, None], inv).contiguous())
+        svs.append(torch.cat([pv[k][slot], gv[k]], 1).transpose(1, 2)
+                   .contiguous())
+    sq = R.apply_llama_rope(q[:, :, None], qp.long()[:, None, None], inv)
+    j = torch.arange(C + G, device=dev)[None]
+    mask = torch.where(j < C, j < pl[slot][:, None],
+                       j - C < gvl[:, None])[:, None, None, :]
+    lib = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        sq, sks[i % n_c], svs[i % n_c], attn_mask=mask, enable_gqa=True), 20)
+    c_eff = [min(v, C) if v > 0 else C for v in plen]
+    g_eff = [min(v, G) if v > 0 else G for v in g_valid]
+    nbytes = ((sum(c_eff) + sum(g_eff)) * 2 * KV * Dh * es
+              + 2 * q.numel() * es + (P + 3 * B) * 4 + B * H * 4)
+    ops = (sum(4.0 * (B // P) * H * c * Dh for c in c_eff)
+           + sum(4.0 * H * g * Dh for g in g_eff))
+    bms, by = bound_ms(nbytes, ops, BF16_FLOPS_PER_S)
+    notes.note("beam_attention", (label, B, C), err, ms, pms, lib, bms, by,
+               label=f"{label:21s} B={B:2d} P={P:2d} C={C:5d} G={G:3d}")
+
+
 def check_attention(dev, notes):
     import torch
 
@@ -1354,15 +1477,20 @@ def check_attention(dev, notes):
     gen = torch.Generator(device=dev).manual_seed(2)
     for case in _att_cases():
         att_case(dev, gen, notes, *case, dtype=torch.bfloat16, timed=True)
+    for case in BEAM_CASES:
+        beam_case(dev, gen, notes, *case, dtype=torch.bfloat16, timed=True)
     # float32 (the tiny model's and the tests' dtype), the beam step's,
-    # the pool's and AlignAtt's blocks
+    # the pool's and AlignAtt's blocks, apart and in one launch
     for case in _att_cases()[:6]:
         att_case(dev, gen, notes, *case, dtype=torch.float32, timed=False)
+    for case in BEAM_CASES:
+        beam_case(dev, gen, notes, *case, dtype=torch.float32, timed=False)
     a0, a1 = alignatt_span(flagship_config(), 360)
     check_probe(dev, "alignatt 64-target", 512, 447, a0, a1, (0, 20, 63))
     print("  library_ms: F.scaled_dot_product_attention(enable_gqa=True) over "
-          "keys rotated beforehand -- it leaves out the rotation the kernel "
-          "does", flush=True)
+          "keys rotated beforehand (beam_attention: each row's prefix and "
+          "per-beam keys concatenated) -- it leaves out the rotation the "
+          "kernel does", flush=True)
 
 
 def alignatt_span(cfg, n_speech):
@@ -1377,11 +1505,11 @@ def alignatt_span(cfg, n_speech):
 
 def check_probe(dev, label, cap, plen, a0, a1, gen_lens):
     """The AlignAtt probe of a beam step (bf16, the flagship's heads, 4
-    beams): ``span_probe`` over the speech keys a0..a1-1 from the kernels'
-    log-sum-exps (the prefix, ``plen`` valid of ``cap`` slots, and the
-    per-beam block of 64 slots at key offset ``plen``, two launches)
-    equals the probe from the plain version's, at each generation length
-    of ``gen_lens``."""
+    beams): ``span_probe`` over the speech keys a0..a1-1 from
+    beam_attention's log-sum-exp (the prefix, ``plen`` valid of ``cap``
+    slots, and the per-beam block of 64 slots at key offset ``plen``, one
+    launch) equals the probe from beam_attention_plain's, at each
+    generation length of ``gen_lens``."""
     import torch
 
     from infinisst_tpu_torch.core import rope as R
@@ -1409,15 +1537,13 @@ def check_probe(dev, label, cap, plen, a0, a1, gen_lens):
         gvl = torch.tensor([g + 1] * 4, **i32)
         off = torch.tensor([plen] * 4, **i32)
         probes = {}
-        for kind, fn in (("kernel", A.decode_attention),
-                         ("plain", A.decode_attention_plain)):
-            _, lp = fn(q, pk, pv, pl, qp, inv, None, True)
-            _, lg = fn(q, gk, gv, gvl, qp, inv, off, True)
-            probes[kind] = L.span_probe(q, pk, a0, a1, qp, inv,
-                                        torch.logaddexp(lp, lg)).tolist()
+        for kind, fn in (("kernel", A.beam_attention),
+                         ("plain", A.beam_attention_plain)):
+            _, lse = fn(q, pk, pv, pl, gk, gv, gvl, off, qp, inv)
+            probes[kind] = L.span_probe(q, pk, a0, a1, qp, inv, lse).tolist()
         if probes["kernel"] != probes["plain"]:
             fail(f"the {label} probe (span {a0}..{a1}, {plen} valid of "
-                 f"{cap}) from decode_attention's lse differs from the "
+                 f"{cap}) from beam_attention's lse differs from the "
                  f"plain version's at gen_len {g}: {probes['kernel']} "
                  f"against {probes['plain']}")
         seen.append((g, probes["kernel"]))
@@ -1439,16 +1565,16 @@ def offline_shapes(calls):
 
 
 def hold_offline_attention(dev, notes, label, calls, timed, where=None):
-    """decode_attention at the shapes the offline calls ``calls`` ran: for
-    each (prompt bucket, prompt length) with a beam forward, the prefix
-    (4 beams over one cache of pbucket + G slots, prompt length valid)
-    and the per-beam block (G slots at key offset prompt length, valid
-    1..steps - 1), output and lse within ATT_RTOL, and the probe over the
-    call's speech span at gen_len 0, the middle and the last; with
-    ``timed``, the shape with the most beam forwards timed into ``notes``.
-    Returns that shape's (prefix, per-beam) Notes keys, or None when no
-    call ran a beam forward.  ``where`` names the phase in the printout
-    (default ``label``)."""
+    """beam_attention at the shapes the offline calls ``calls`` ran: for
+    each (prompt bucket, prompt length) with a beam forward, the beam
+    step's two blocks (4 beams over one cache of pbucket + G slots, prompt
+    length valid; the per-beam block of G slots at key offset prompt
+    length, valid 1..steps - 1), output and lse within ATT_RTOL, and the
+    probe over the call's speech span at gen_len 0, the middle and the
+    last; with ``timed``, the shape with the most beam forwards timed into
+    ``notes``.  Returns that shape's Notes key, or None when no call ran a
+    beam forward.  ``where`` names the phase in the printout (default
+    ``label``)."""
     import torch
 
     from infinisst_tpu_torch.core.presets import flagship_config
@@ -1460,7 +1586,7 @@ def hold_offline_attention(dev, notes, label, calls, timed, where=None):
     run = {k: v for k, v in shapes.items() if v[0] > 1}
     where = where or label
     if not run:
-        print(f"[{where}] no call ran a beam forward: no decode_attention "
+        print(f"[{where}] no call ran a beam forward: no beam_attention "
               f"shape to hold", flush=True)
         return None
     top = max(run, key=lambda k: run[k][1])
@@ -1472,21 +1598,17 @@ def hold_offline_attention(dev, notes, label, calls, timed, where=None):
         spread += [last + 1] * (4 - len(spread))
         tag = f"{label} {plen}/{cap}"  # valid / slots
         is_top = timed and key == top
-        att_case(dev, gen, notes, f"{tag} prefix", 4, 1, cap, [plen], None,
-                 True, torch.bfloat16, is_top, q_pos=plen + last)
-        att_case(dev, gen, notes, f"{tag} per-beam", 4, 4, G, spread,
-                 [plen] * 4, True, torch.bfloat16, is_top,
-                 q_pos=plen + last)
+        beam_case(dev, gen, notes, tag, 4, 1, cap, [plen], G, spread,
+                  torch.bfloat16, is_top, q_pos=plen + last)
         a0, a1 = alignatt_span(cfg, 12 * units)
         check_probe(dev, tag, cap, plen, a0, a1,
                     sorted({0, last // 2, last}))
-    print(f"[{where}] decode_attention held at the {len(run)} (prompt "
+    print(f"[{where}] beam_attention held at the {len(run)} (prompt "
           f"length, cache slots) pairs its calls ran: "
           f"{[(k[1], k[0] + G) for k in sorted(run)]}"
           + (f"; timed at {top[1]} valid of {top[0] + G}" if timed else ""),
           flush=True)
-    tag = f"{label} {top[1]}/{top[0] + G}"
-    return ((f"{tag} prefix", 4, top[0] + G), (f"{tag} per-beam", 4, G))
+    return (f"{label} {top[1]}/{top[0] + G}", 4, top[0] + G)
 
 
 # ---------------------------------------------------------------------------
@@ -1696,14 +1818,15 @@ def check_serve_tiny(dev, f32_params, w8a8_params):
     counts = launch_counts()
     print(f"  [serve tiny] tokens {card.slots[0].target_ids[:12]}..., "
           f"evictions {card.evictions}, forwards {card.forwards}; launches "
-          f"{counts}, decode_attention by shape "
+          f"{counts}, attention by shape "
           f"{dict(_kernel_modules()[1].launch_shapes)}", flush=True)
     if not (card.evictions and all(s.done for s in card.slots)):
         fail("[serve tiny] the streams did not trim and finish")
     if not card._programs["beam"].replays:
         fail("[serve tiny] the card's pool did not replay its tick")
-    if _kernel_modules()[1].launch_shapes.get("B=4 Bc=2", 0) <= 0:
-        fail("[serve tiny] the pool prefix did not launch decode_attention")
+    if _kernel_modules()[1].launch_shapes.get("beam B=4 Bc=2", 0) <= 0:
+        fail("[serve tiny] the pool's beam step did not launch "
+             "beam_attention over its 2 prefix caches")
     differ = None
     for t, (_, state, last) in enumerate(
             _tiny_pool(dev, w8a8_params, captured=False)[0]):
@@ -1809,8 +1932,8 @@ def check_alignatt_tiny(dev, f32_params, w8a8_params):
                      "an attended frame")
     counts = launch_counts()
     print(f"  [alignatt tiny] launches on the card {counts}", flush=True)
-    if counts["decode_attention"] <= 0:
-        fail("[alignatt tiny] the beam step did not launch decode_attention")
+    if counts["beam_attention"] <= 0:
+        fail("[alignatt tiny] the beam step did not launch beam_attention")
     for label, (kind, kw) in OFFLINE_TINY.items():
         a = _offline_tiny_run("cpu", w8a8_params, kind, kw)
         b = _offline_tiny_run(dev, w8a8_params, kind, kw)
@@ -2043,7 +2166,8 @@ def profile_chunk(dev, r, label="profile"):
 # first name its kernel's contains (the grouped names before their
 # substrings); the same names as the wrappers' launch counts
 KERNEL_GROUPS = ("w8a8_grouped_gemm", "group_quant_int8", "w8a8_gemm",
-                 "row_quant_int8", "w8_bf16_gemm", "decode_attention")
+                 "row_quant_int8", "w8_bf16_gemm", "decode_attention",
+                 "beam_attention")
 
 
 # idle host time inside a profiler's window before and after the step: the
@@ -2136,7 +2260,7 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False,
               flush=True)
     groups = {"w8a8_grouped_gemm": 0.0, "group_quant_int8": 0.0,
               "w8a8_gemm": 0.0, "row_quant_int8": 0.0, "w8_bf16_gemm": 0.0,
-              "decode_attention": 0.0, "other": 0.0}
+              "decode_attention": 0.0, "beam_attention": 0.0, "other": 0.0}
     for k, t in by_name.items():
         g = next((g for g in groups if g in k), "other")
         groups[g] += t
@@ -2169,13 +2293,15 @@ def check_flagship(dev, paths):
         if r["counts"][name] != r["forwards"] * n:
             fail(f"[flagship] {name} launched {r['counts'][name]} times, "
                  f"expected {r['forwards']} forwards x {n}")
-    # each beam forward launches decode_attention twice per layer: the
-    # shared prefix block and the per-beam block, merged by their lse
+    # each beam forward launches beam_attention once a layer: the shared
+    # prefix block and the per-beam block in one softmax
     beam_fwd = r["forwards"] - r["chunks"]
-    if r["counts"]["decode_attention"] != beam_fwd * L * 2:
-        fail(f"[flagship] decode_attention launched "
-             f"{r['counts']['decode_attention']} times, expected "
-             f"{beam_fwd} beam forwards x {L} layers x 2 blocks")
+    if (r["counts"]["beam_attention"] != beam_fwd * L
+            or r["counts"]["decode_attention"]):
+        fail(f"[flagship] beam_attention launched "
+             f"{r['counts']['beam_attention']} times (decode_attention "
+             f"{r['counts']['decode_attention']}), expected {beam_fwd} beam "
+             f"forwards x {L} layers (and none)")
     unused = ("w8_bf16_gemm", "group_quant_int8", "w8a8_grouped_gemm")
     if any(r["counts"][k] for k in unused):
         fail(f"[flagship] {unused} ran on the per-channel W8A8 path")
@@ -2187,16 +2313,16 @@ def check_flagship(dev, paths):
           f"{r['forwards']} ({beam_fwd} beam forwards); launches "
           f"{r['counts']} = forwards x {per_fwd['w8a8_gemm']} w8a8_gemm, "
           f"forwards x {per_fwd['row_quant_int8']} row_quant_int8 (one per "
-          f"shared input) and beam forwards x {L} layers x 2 "
-          f"decode_attention launches (the prefix block and the per-beam "
-          f"block, two launches per layer)", flush=True)
+          f"shared input) and beam forwards x {L} layers beam_attention "
+          f"launches (the prefix block and the per-beam block, one launch "
+          f"a layer)", flush=True)
     print(f"[flagship] RTF over chunks 1..{n} (bring-up reading, not a "
           f"benchmark): median {rtf[n // 2]:.4f}, "
           f"{100 * (n - 10) // n}th percentile {rtf[n - 11]:.4f} "
           f"(10 chunks above it), mean {sum(rtf) / n:.4f}, min "
           f"{rtf[0]:.4f}, max {rtf[-1]:.4f}; chunk 0 "
           f"{r['times'][0] / r['chunk_sec']:.4f}", flush=True)
-    for name in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+    for name in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
         paths[name] = ("flagship W8A8 stream", r["counts"])
     stage_chunk(dev, r)
     profile_chunk(dev, r)
@@ -3451,8 +3577,8 @@ def check_group128(dev, paths, speech):
 
 def check_multiplier(dev, r):
     """On the flagship stream: update_multiplier(2), then (4), one chunk
-    at each.  The encoder takes 96, then 192 frames; decode_attention is
-    launched twice per layer per beam forward, the GEMMs 7L + 1 times a
+    at each.  The encoder takes 96, then 192 frames; beam_attention is
+    launched once per layer per beam forward, the GEMMs 7L + 1 times a
     forward."""
     import numpy as np
 
@@ -3482,10 +3608,10 @@ def check_multiplier(dev, r):
         if got != 48 * m:
             fail(f"[multiplier] m={m}: the encoder took {got} frames, "
                  f"expected {48 * m}")
-        if counts["decode_attention"] != (steps - 1) * L * 2:
-            fail(f"[multiplier] m={m}: decode_attention launched "
-                 f"{counts['decode_attention']} times, expected "
-                 f"{steps - 1} beam forwards x {L} layers x 2")
+        if counts["beam_attention"] != (steps - 1) * L:
+            fail(f"[multiplier] m={m}: beam_attention launched "
+                 f"{counts['beam_attention']} times, expected "
+                 f"{steps - 1} beam forwards x {L} layers")
         if counts["w8a8_gemm"] != steps * (7 * L + 1):
             fail(f"[multiplier] m={m}: w8a8_gemm launched "
                  f"{counts['w8a8_gemm']} times, expected {steps} forwards "
@@ -3516,7 +3642,7 @@ def check_bench():
     launches = [json.loads(line[len("kernel launches "):]) for line in
                 out.stderr.splitlines() if line.startswith("kernel launches ")]
     if not launches or not all(launches[-1].get(k, 0) > 0 for k in (
-            "w8a8_gemm", "row_quant_int8", "decode_attention")):
+            "w8a8_gemm", "row_quant_int8", "beam_attention")):
         fail(f"[bench] the flagship kernels were not launched: {launches}")
     if not (math.isfinite(result["value"]) and result["value"] > 0):
         fail(f"[bench] RTF {result['value']}")
@@ -3534,8 +3660,8 @@ def run_serve_bench(extra, metric, n_layers=32):
     """``python -m infinisst_tpu_torch.bench --mode serve`` + ``extra``
     (``run_main``): exit 0, its last stdout line the serve JSON line with
     ``metric``, and its launches on stderr those of the forwards it ran:
-    decode_attention token forwards x L x 2 (the prefix at B=32 Bc=8 and
-    the per-beam block at B=32 Bc=32, L each), w8a8_gemm and
+    beam_attention token forwards x L (all at B=32 over Bc=8 prefix
+    caches, each read by its slot's 4 beams), w8a8_gemm and
     row_quant_int8 (7L + 1) and (4L + 1) a forward, no other kernel.
     Returns (result, launches, launches by shape, forwards)."""
     argv = ["--mode", "serve"] + extra
@@ -3556,7 +3682,7 @@ def run_serve_bench(extra, metric, n_layers=32):
     if not (math.isfinite(result["value"]) and result["value"] > 0):
         fail(f"[serve] {result['value']} tok/s")
     counts = _stderr_json(out.stderr, "kernel launches ")
-    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
+    shapes = _stderr_json(out.stderr, "attention launches by shape ")
     fwd = _stderr_json(out.stderr, "engine forwards ")
     progs = _stderr_json(out.stderr, "pool programs ")
     if counts is None or shapes is None or fwd is None:
@@ -3576,18 +3702,19 @@ def run_serve_bench(extra, metric, n_layers=32):
           f"reads a tick {reads} for steps {steps}", flush=True)
     tok, total = fwd["token"], fwd["prefill"] + fwd["token"]
     L = n_layers
-    want = {"decode_attention": tok * L * 2, "w8a8_gemm": total * (7 * L + 1),
+    want = {"beam_attention": tok * L, "decode_attention": 0,
+            "w8a8_gemm": total * (7 * L + 1),
             "row_quant_int8": total * (4 * L + 1), "w8_bf16_gemm": 0,
             "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
     got = {k: counts.get(k, 0) for k in want}
-    want_shapes = {"B=32 Bc=8": tok * L, "B=32 Bc=32": tok * L}
+    want_shapes = {"beam B=32 Bc=8": tok * L}
     if got != want or shapes != want_shapes or tok <= 0:
         fail(f"[serve] launches {got} by shape {shapes} for forwards {fwd}; "
              f"expected {want} and {want_shapes}")
     print(f"[serve] {json.dumps(result)}", flush=True)
-    print(f"[serve] forwards {fwd}: launches {got}, decode_attention by "
-          f"shape {shapes} (the pool prefix at B=32 Bc=8: 8 caches, each "
-          "read by its slot's 4 beams)", flush=True)
+    print(f"[serve] forwards {fwd}: launches {got}, beam_attention by "
+          f"shape {shapes} (B=32 over Bc=8 prefix caches, each read by its "
+          "slot's 4 beams, and each row's per-beam block)", flush=True)
     return result, counts, shapes, fwd
 
 
@@ -3596,8 +3723,8 @@ def check_serve(paths):
     12 timed ticks), then a mixed (1, 2) pool of 2 chunks; row 5's path
     is the first run's pool prefix."""
     _, counts, shapes, _ = run_serve_bench([], SERVE_METRIC)
-    paths["decode_attention_pool"] = ("serve bench (pool 8, beam 4)", {
-        "decode_attention": shapes["B=32 Bc=8"]})
+    paths["beam_attention_pool"] = ("serve bench (pool 8, beam 4)", {
+        "beam_attention": shapes["beam B=32 Bc=8"]})
     run_serve_bench(["--multipliers", "1,2", "--chunks", "2"],
                     SERVE_MIXED_METRIC)
 
@@ -3623,7 +3750,7 @@ def check_offline_launches(label, counts, calls, n_layers=32,
                            beam_forwards=True):
     """The launches of offline calls (bench.run_offline records): a call
     runs one prefill and steps - 1 beam forwards, so w8a8_gemm (7L + 1)
-    and row_quant_int8 (4L + 1) a forward, decode_attention 2L a beam
+    and row_quant_int8 (4L + 1) a forward, beam_attention L a beam
     forward, and no other kernel; each of the three launched unless
     ``beam_forwards`` is false (calls may then all stop at their first
     step).  Every prompt bucket (the prefill's rows) must be among the
@@ -3632,12 +3759,12 @@ def check_offline_launches(label, counts, calls, n_layers=32,
     steps = sum(c[1] for c in calls)
     want = {"w8a8_gemm": steps * (7 * L + 1),
             "row_quant_int8": steps * (4 * L + 1),
-            "decode_attention": (steps - len(calls)) * L * 2,
-            "w8_bf16_gemm": 0, "group_quant_int8": 0,
+            "beam_attention": (steps - len(calls)) * L,
+            "decode_attention": 0, "w8_bf16_gemm": 0, "group_quant_int8": 0,
             "w8a8_grouped_gemm": 0}
     got = {k: counts.get(k, 0) for k in want}
     launched = ("w8a8_gemm", "row_quant_int8") + (
-        ("decode_attention",) if beam_forwards else ())
+        ("beam_attention",) if beam_forwards else ())
     if got != want or not all(got[k] > 0 for k in launched):
         fail(f"[{label}] launches {got} for {len(calls)} calls of {steps} "
              f"beam steps in all; expected {want}")
@@ -3649,7 +3776,7 @@ def check_offline_launches(label, counts, calls, n_layers=32,
     print(f"[{label}] {len(calls)} calls, {steps} beam steps "
           f"({steps / len(calls):.1f} a call), prompt buckets {buckets} "
           f"(prefill rows held in [kernels]); launches {got} = steps x "
-          f"{7 * L + 1}, steps x {4 * L + 1} and (steps - calls) x {2 * L}",
+          f"{7 * L + 1}, steps x {4 * L + 1} and (steps - calls) x {L}",
           flush=True)
     return got
 
@@ -3669,7 +3796,7 @@ def run_offline_bench(extra, metric, label, beam_forwards=True):
             chunks.append((float(m[2]),) + tuple(int(m[k]) for k in
                                                  range(3, 10)))
         if m or line.startswith(("chunks=", "kernel launches",
-                                 "decode_attention launches", "alignatt",
+                                 "attention launches", "alignatt",
                                  "streamatt")):
             print(f"[{label}]   {line}", flush=True)
     if out.returncode != 0:
@@ -3699,22 +3826,22 @@ def run_offline_bench(extra, metric, label, beam_forwards=True):
 def offline_path(paths, mode, counts, chunks, keys):
     """Record the bench's offline mode as the path of the three kernels
     it launches, with the shapes to report: the modal prompt bucket's
-    prefill and the decode_attention shapes ``keys`` times."""
+    prefill and the beam_attention shape ``keys`` times."""
     bucket = statistics.mode(c[3] for c in chunks)
     shapes = {"w8a8_gemm": (bucket, REPORT_SHAPE[1], REPORT_SHAPE[2]),
               "row_quant_int8": (bucket, REPORT_SHAPE[1], 0),
-              "decode_attention": keys}
+              "beam_attention": keys}
     for name, shape in shapes.items():
         paths[f"{mode} {name}"] = (f"bench --mode {mode}", counts, shape)
 
 
 def check_alignatt(dev, notes, paths):
     """The port bench's AlignAtt mode (12 chunks, 3 untimed), in parity
-    and with --early-stop; decode_attention and the probe held at the
+    and with --early-stop; beam_attention and the probe held at the
     shapes the parity calls ran (hold_offline_attention), timed at the
     one with the most beam forwards.  The early stop may end every call at
     its first step (the prefill's probe already in the stop zone), with no
-    beam forward: its decode_attention launches may then be 0, and its
+    beam forward: its beam_attention launches may then be 0, and its
     RTF times one prefill a call."""
     for early in (False, True):
         extra = ["--mode", "alignatt"] + (["--early-stop"] if early else [])
@@ -3735,7 +3862,7 @@ def check_alignatt(dev, notes, paths):
 
 def check_streamatt_bench(dev, notes, paths):
     """The port bench's StreamAtt mode (40 chunks, timed from 32;
-    ``run_main``); decode_attention and the probe held at the shapes its
+    ``run_main``); beam_attention and the probe held at the shapes its
     calls ran, timed at the one with the most beam forwards."""
     _, counts, chunks = run_offline_bench(["--mode", "streamatt"],
                                           STREAMATT_METRIC, "streamatt bench")
@@ -3797,7 +3924,7 @@ def check_streamatt(dev, cfg, params):
     call; after every push, the kept source equal to the rule's: the
     source before the cut, from min(the earliest attended sample of the
     kept target, its length less min_speech_duration) on, then its last
-    max_speech_duration; a cut by that rule at least once; decode_attention
+    max_speech_duration; a cut by that rule at least once; beam_attention
     and the probe held at the shapes the calls ran."""
     import numpy as np
     import torch
@@ -4030,8 +4157,8 @@ def check_cli_ckpt(d, talks):
         logs[device] = _instances(out)
         print(f"[cli ckpt] {device}: {time.perf_counter() - t0:.1f} s, "
               f"scores {json.dumps(scores)}, launches {counts}", flush=True)
-        if device == "cuda" and counts["decode_attention"] <= 0:
-            fail("[cli ckpt] the beam step did not launch decode_attention")
+        if device == "cuda" and counts["beam_attention"] <= 0:
+            fail("[cli ckpt] the beam step did not launch beam_attention")
     for g, c in zip(logs["cuda"], logs["cpu"]):
         print(f"[cli ckpt] talk {g['index']}: cuda {g['prediction'][:96]!r}"
               f" ({len(g['delays'])} writes)", flush=True)
@@ -4062,9 +4189,9 @@ def check_cli_ckpt(d, talks):
               flush=True)
     if len(recs) != len(CLI_TALKS) or not any(r["prediction"] for r in recs):
         fail("[cli ckpt] --agent streamatt left an empty instances file")
-    if counts["decode_attention"] <= 0:
+    if counts["beam_attention"] <= 0:
         fail("[cli ckpt] the StreamAtt beam step did not launch "
-             "decode_attention")
+             "beam_attention")
 
 
 def check_cli_flagship(d, talks):
@@ -4094,8 +4221,8 @@ def check_cli_flagship(d, talks):
     for key in ("rtf", "stream_laal"):
         if not math.isfinite(scores[key]):
             fail(f"[cli flagship] {key} is {scores[key]}")
-    if counts["decode_attention"] <= 0:
-        fail("[cli flagship] the beam step did not launch decode_attention")
+    if counts["beam_attention"] <= 0:
+        fail("[cli flagship] the beam step did not launch beam_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -5183,7 +5310,7 @@ def check_mesh(dev, cfg, params, runs, paths):
        (``[flagship]``'s weights) through the mesh path (``shard_params``
        at (1, 1) with zero's spec tree, ``tensor_parallel``), 4 chunks:
        the target ids of the agent without a mesh after every chunk, and
-       w8a8_gemm, row_quant_int8 and decode_attention launched;
+       w8a8_gemm, row_quant_int8 and beam_attention launched;
     2. the split-pool engine's code path: the flagship W8A8 pool of 8 at
        beam 4 built and ticked under ``tensor_parallel`` of the (1, 1)
        mesh, 2 ticks, every slot's tokens those of the pool without a
@@ -5218,12 +5345,12 @@ def check_mesh(dev, cfg, params, runs, paths):
     if out.returncode != 0 or not summary:
         fail(f"[mesh] the dryrun exited {out.returncode} without its summary")
     dry = _stderr_json(out.stderr, "kernel launches ")
-    if dry.get("decode_attention", 0) <= 0:
-        fail(f"[mesh] the dryrun's pool ticks launched no decode_attention: "
+    if dry.get("beam_attention", 0) <= 0:
+        fail(f"[mesh] the dryrun's pool ticks launched no beam_attention: "
              f"{dry}")
-    shapes = _stderr_json(out.stderr, "decode_attention launches by shape ")
+    shapes = _stderr_json(out.stderr, "attention launches by shape ")
     print(f"[mesh] dryrun under torchrun (NCCL, world 1): exit 0, launches "
-          f"{dry}, decode_attention by shape {shapes}", flush=True)
+          f"{dry}, attention by shape {shapes}", flush=True)
 
     out = outs["train.main"]
     for line in (out.stdout + out.stderr).strip().splitlines()[-2:]:
@@ -5271,7 +5398,7 @@ def _mesh_in_process(dev, cfg, params):
             if g != w:
                 fail(f"[mesh] chunk {i}: target ids {g} through the mesh "
                      f"path, {w} without it")
-        for k in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
             if counts[k] <= 0:
                 fail(f"[mesh] {k} was not launched on the mesh path")
         print(f"[mesh] flagship W8A8 agent through the mesh path at (1, 1): "
@@ -5285,7 +5412,7 @@ def _mesh_in_process(dev, cfg, params):
             if g != w:
                 fail(f"[mesh] pool tick {i}: slot tokens {g} through the "
                      f"split engine's path, {w} without a mesh")
-        for k in ("w8a8_gemm", "row_quant_int8", "decode_attention"):
+        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
             if pool_counts[k] <= 0:
                 fail(f"[mesh] {k} was not launched by the split engine")
         print(f"[mesh] flagship W8A8 pool of 8 at beam 4 through the split "
@@ -5429,35 +5556,33 @@ def profile_train_bench(dev):
 FIDELITY_STEPS = 600  # the JAX tool's default
 FIDELITY_DOC = "docs/quant_fidelity.json"  # the JAX tool's table
 # the kernels each variant's probe must launch (the float32 reference and
-# every variant run decode_attention in their beam steps)
+# every variant run beam_attention in their beam steps)
 FIDELITY_KERNELS = {
-    "bf16": ("decode_attention",),
-    "w8": ("w8_bf16_gemm", "decode_attention"),
-    "w8a8": ("row_quant_int8", "w8a8_gemm", "decode_attention"),
+    "bf16": ("beam_attention",),
+    "w8": ("w8_bf16_gemm", "beam_attention"),
+    "w8a8": ("row_quant_int8", "w8a8_gemm", "beam_attention"),
     "w8a8_g128": ("group_quant_int8", "w8a8_grouped_gemm",
-                  "decode_attention"),
+                  "beam_attention"),
     "w8a8_g128_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
                            "row_quant_int8", "w8a8_gemm",
-                           "decode_attention"),
+                           "beam_attention"),
     "w8a8_8groups_like_g512": ("group_quant_int8", "w8a8_grouped_gemm",
-                               "decode_attention"),
+                               "beam_attention"),
     # groups of 8: the grouped GEMM's simple route
     "w8a8_32groups_like_g128": ("group_quant_int8", "w8a8_grouped_gemm",
-                                "decode_attention"),
+                                "beam_attention"),
     "w8a8_32groups_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
                                "row_quant_int8", "w8a8_gemm",
-                               "decode_attention"),
+                               "beam_attention"),
 }
 FIDELITY_COLS = ("train_flip_rate", "held_flip_rate", "held_dlogit_p99",
                  "greedy_match_32", "beam4_winner_changed")
 # the probe's prefill (8 x 64 rows into wq): the kernels line's tools shape
 TOOL_SHAPE = (512, 256, 256)
-# its beam step's decode_attention: 4 beams over the 8-token prompt's cache
+# its beam step's beam_attention: 4 beams over the 8-token prompt's cache
 # (32 slots) and their own block of 24 slots, 12 tokens in
-TOOL_ATT_CASES = (("fidelity beam prefix", 4, 1, 32, [20], None, True),
-                  ("fidelity per-beam block", 4, 4, 24, [12] * 4, [20] * 4,
-                   True))
-TOOL_ATT_SHAPE = ("fidelity beam prefix", 4, 32)
+TOOL_ATT_CASES = (("fidelity beam step", 4, 1, 32, [20], 24, [12] * 4),)
+TOOL_ATT_SHAPE = ("fidelity beam step", 4, 32)
 DISTILL_TINY_TRAIN = 150  # tests/test_draft_adapter.py's lift test
 DISTILL_CHUNKS = 4
 
@@ -5540,7 +5665,7 @@ def hold_tool_kernels(dev, params):
 def time_tool_kernels(dev, notes, var, y):
     """Each kernel's time at the probe's prefill (TOOL_SHAPE, float32, as
     the tool runs them), beside its plain version, the library call and
-    the bound; decode_attention at the probe's beam step (within
+    the bound; beam_attention at the probe's beam step (within
     ATT_RTOL)."""
     import torch
 
@@ -5626,8 +5751,8 @@ def time_tool_kernels(dev, notes, var, y):
     gen = torch.Generator(device=dev).manual_seed(17)
     H, KV, Dh = 4, 4, 64  # the probe's Llama
     for case in TOOL_ATT_CASES:
-        att_case(dev, gen, notes, *case, dtype=torch.float32, timed=True,
-                 heads=(H, KV, Dh))
+        beam_case(dev, gen, notes, *case, dtype=torch.float32, timed=True,
+                  heads=(H, KV, Dh))
 
 
 def check_fidelity(dev, notes, paths):
@@ -6229,7 +6354,8 @@ def check_distill_flagship(dev, paths):
 
 PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_tc_kernel",
                      "w8_bf16_gemm_tc_kernel", "group_quant_int8_kernel",
-                     "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel")
+                     "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel",
+                     "beam_attention_kernel")
 
 
 def check_profiling(dev, params):
@@ -6309,54 +6435,76 @@ SPEC_ACCEPT_BEAM = (1, 2)  # (d, k) of one spec_beam_search row
 
 
 def record_attention():
-    """Wrap ``models.llama``'s decode_attention so that the first inputs
-    of every (B, Bc, C, H, KV, Dh, dtype, lse) it launches at are kept.
-    Returns (the record, a function that unwraps it)."""
+    """Wrap ``models.llama``'s beam_attention (the beam steps) and
+    decode_attention (the tree verify's prefix) so that the first inputs
+    of every (entry, B, caches, C, G, H, KV, Dh, dtype) they launch at are
+    kept.  Returns (the record, a function that unwraps them)."""
     from infinisst_tpu_torch.models import llama as L
 
-    orig = L.decode_attention
+    orig = {"decode_attention": L.decode_attention,
+            "beam_attention": L.beam_attention}
     seen = {}
 
-    def rec(q, k, v, valid_len, q_pos, inv_freq, key_offset=None,
-            return_lse=False):
-        key = (q.shape[0], k.shape[0], k.shape[1], q.shape[1], k.shape[2],
-               q.shape[2], str(q.dtype).split(".")[-1], bool(return_lse))
+    def keep(key, q, tensors, extra=()):
         if key not in seen and q.is_cuda:
-            seen[key] = [None if t is None else t.clone() for t in (
-                q, k, v, valid_len, q_pos, inv_freq, key_offset)] + [
-                return_lse]
-        return orig(q, k, v, valid_len, q_pos, inv_freq,
-                    key_offset=key_offset, return_lse=return_lse)
+            seen[key] = [None if t is None else t.clone()
+                         for t in tensors] + list(extra)
 
-    L.decode_attention = rec
-    return seen, lambda: setattr(L, "decode_attention", orig)
+    def rec_decode(q, k, v, valid_len, q_pos, inv_freq, key_offset=None,
+                   return_lse=False):
+        keep(("decode_attention", q.shape[0], k.shape[0], k.shape[1], 0,
+              q.shape[1], k.shape[2], q.shape[2], str(q.dtype)[6:]), q,
+             (q, k, v, valid_len, q_pos, inv_freq, key_offset), (return_lse,))
+        return orig["decode_attention"](q, k, v, valid_len, q_pos, inv_freq,
+                                        key_offset=key_offset,
+                                        return_lse=return_lse)
+
+    def rec_beam(q, pk, pv, plen, gk, gv, g_valid, g_off, q_pos, inv_freq):
+        args = (q, pk, pv, plen, gk, gv, g_valid, g_off, q_pos, inv_freq)
+        keep(("beam_attention", q.shape[0], pk.shape[0], pk.shape[1],
+              gk.shape[1], q.shape[1], pk.shape[2], q.shape[2],
+              str(q.dtype)[6:]), q, args)
+        return orig["beam_attention"](*args)
+
+    L.decode_attention, L.beam_attention = rec_decode, rec_beam
+
+    def unwrap():
+        L.decode_attention = orig["decode_attention"]
+        L.beam_attention = orig["beam_attention"]
+
+    return seen, unwrap
 
 
 def hold_recorded_attention(seen, label):
-    """decode_attention at every recorded shape, on the inputs the path
-    gave it, against its plain version: output and lse within ATT_RTOL."""
+    """beam_attention and decode_attention at every recorded shape, on the
+    inputs the path gave them, against their plain versions: output and
+    lse within ATT_RTOL."""
     import torch
 
     _, A = _kernel_modules()
     for key, args in seen.items():
-        got = A.decode_attention(*args[:6], key_offset=args[6],
-                                 return_lse=args[7])
-        ref = A.decode_attention_plain(*args)
+        if key[0] == "beam_attention":
+            got, ref = A.beam_attention(*args), A.beam_attention_plain(*args)
+            pairs = list(zip(got, ref))
+        else:
+            got = A.decode_attention(*args[:6], key_offset=args[6],
+                                     return_lse=args[7])
+            ref = A.decode_attention_plain(*args)
+            pairs = list(zip(got, ref)) if args[7] else [(got, ref)]
         torch.cuda.synchronize()
-        pairs = list(zip(got, ref)) if args[7] else [(got, ref)]
-        rtol = ATT_RTOL["bf16" if key[6] == "bfloat16" else "f32"]
+        rtol = ATT_RTOL["bf16" if key[-1] == "bfloat16" else "f32"]
         for n, (g, r) in enumerate(pairs):
             e = (g.float() - r.float()).abs().max().item()
             lim = (rtol if n == 0 else ATT_RTOL["f32"]) * \
                 r.float().abs().max().item()
             if not (e <= lim and torch.isfinite(g).all()):
-                fail(f"[{label}] decode_attention at {key}: "
+                fail(f"[{label}] {key[0]} at {key[1:]}: "
                      f"{'lse' if n else 'out'} max_abs_err {e} > {lim}")
-    shapes = [dict(zip(("B", "Bc", "C", "H", "KV", "Dh", "dtype", "lse"), k))
-              for k in sorted(seen)]
-    print(f"[{label}] decode_attention within ATT_RTOL of its plain version "
-          f"at the {len(seen)} shapes the path launched: "
-          f"{json.dumps(shapes)}", flush=True)
+    shapes = [dict(zip(("entry", "B", "caches", "C", "G", "H", "KV", "Dh",
+                        "dtype"), k)) for k in sorted(seen)]
+    print(f"[{label}] attention within ATT_RTOL of its plain versions at "
+          f"the {len(seen)} shapes the path launched: {json.dumps(shapes)}",
+          flush=True)
 
 
 def padded_share(agent, utts):
@@ -6400,8 +6548,8 @@ def check_trained_tools(dev, paths, fidelity_params):
     the CPU (the plain versions) from the same trained weights, tokens
     equal; the AlignAtt probe's share in the zero-padded bucket, push by
     push; spec_acceptance's ``run_spec``/``run_beam`` rows card against
-    CPU on [fidelity]'s trained Llama; decode_attention held at every
-    shape these paths launched."""
+    CPU on [fidelity]'s trained Llama; beam_attention (and any
+    decode_attention) held at every shape these paths launched."""
     import numpy as np
     import torch
 
@@ -6453,8 +6601,8 @@ def check_trained_tools(dev, paths, fidelity_params):
         walls = {k: round(v, 1) for k, v in walls.items()}
         print(f"[trained tools] walls {json.dumps(walls)} s; launches "
               f"{json.dumps(counts)}", flush=True)
-        if counts["decode_attention"] <= 0:
-            fail("[trained tools] decode_attention was not launched")
+        if counts["beam_attention"] <= 0:
+            fail("[trained tools] beam_attention was not launched")
 
         # each trained model beats its random twin on held-out TER
         ter = {
@@ -6565,8 +6713,8 @@ def check_trained_tools(dev, paths, fidelity_params):
 def check_demos(dev, paths):
     """``examples.stream_demo`` and ``examples.serve_demo`` on the card
     for a few chunks and ticks: the final action finishes, the pool's
-    decode_attention launches include a cache per slot (Bc > 1, kernel
-    row 5); decode_attention held at every shape they launched."""
+    beam_attention launches include a cache per slot (Bc > 1, kernel
+    row 5); beam_attention held at every shape they launched."""
     from infinisst_tpu_torch.examples import serve_demo, stream_demo
 
     seen, unwrap = record_attention()
@@ -6582,16 +6730,18 @@ def check_demos(dev, paths):
     finally:
         unwrap()
     counts = launch_counts()
-    counts["decode_attention"] += stream_counts["decode_attention"]
+    for k in ("decode_attention", "beam_attention"):
+        counts[k] += stream_counts[k]
     paths["demos"] = ("examples.stream_demo --chunks 3, examples.serve_demo "
                       "--ticks 3", counts)
     print(f"[demos] launches {json.dumps(counts)}; the pool's "
-          f"decode_attention by shape {json.dumps(serve_shapes)}", flush=True)
-    if stream_counts["decode_attention"] <= 0 or not any(outs):
-        fail("[demos] the stream demo launched no decode_attention or the "
+          f"beam_attention by shape {json.dumps(serve_shapes)}", flush=True)
+    if stream_counts["beam_attention"] <= 0 or not any(outs):
+        fail("[demos] the stream demo launched no beam_attention or the "
              "pool emitted nothing")
-    if not any(int(k.split("Bc=")[1]) > 1 for k in serve_shapes):
-        fail("[demos] the pool launched no decode_attention over Bc > 1 "
+    if not any(k.startswith("beam ") and int(k.split("Bc=")[1]) > 1
+               for k in serve_shapes):
+        fail("[demos] the pool launched no beam_attention over Bc > 1 "
              "caches")
     hold_recorded_attention(seen, "demos")
 
@@ -6676,8 +6826,8 @@ def main():
               flush=True)
         check_kernels(dev, notes)
     with phase("attention"):
-        print("[attention] decode_attention against its plain version on "
-              "the card", flush=True)
+        print("[attention] decode_attention and beam_attention against "
+              "their plain versions on the card", flush=True)
         check_attention(dev, notes)
     with phase("spec kernels"):
         print("[spec kernels] the speculative stack's shapes: against the "
@@ -6807,11 +6957,19 @@ def main():
             (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
         "w8a8_grouped_gemm": (
             g_src, "infinisst_tpu/kernels/quant_matmul.py:191", REPORT_SHAPE),
+        # the beam step's two blocks in one launch: JAX's two einsums and
+        # one softmax (llama.py:400-409), which the port ran as two
+        # launches of the Pallas body's port (decode_attention.py:57)
+        "beam_attention": (
+            "infinisst_tpu_torch/csrc/decode_attention.cu",
+            "infinisst_tpu/models/llama.py:400", BEAM_REPORT),
+        # the same kernel with one block: the tree verify's prefix
         "decode_attention": (
             "infinisst_tpu_torch/csrc/decode_attention.cu",
-            "infinisst_tpu/kernels/decode_attention.py:57",
-            ("beam prefix", 4, 1280)),
+            "infinisst_tpu/kernels/decode_attention.py:57", SPEC_ATT_SHAPE),
     }
+    # decode_attention's path: the speculative beam's tree verify
+    paths["decode_attention"] = paths["spec"]
     entries = []
     for name, (source, replaces, shape) in kernels.items():
         t = notes.rows[name]["shapes"][shape]
@@ -6844,7 +7002,7 @@ def main():
         if pg_counts.get(name):
             entries[-1]["pool_graph"] = {"launches_a_tick": pg_counts[name],
                                          "path": pg_path}
-            if name == "decode_attention":
+            if name == "beam_attention":
                 entries[-1]["pool_graph"]["by_shape"] = pg_shapes
         # the captured speculative programs: launches of a replayed chunk
         # (greedy, sampling, spec beam) and of a replayed pool tick
@@ -6868,49 +7026,43 @@ def main():
         entries[-1]["mesh"] = {
             "launches": {k: c.get(name, 0) for k, c in mesh_counts.items()},
             "path": mesh_path}
-    # decode_attention_batched (decode_attention.py:287), the same kernel:
-    # the serving pool's prefix, 8 caches each read by its slot's 4 beams
-    t = notes.rows["decode_attention"]["shapes"][POOL_PREFIX]
-    path, counts = paths["decode_attention_pool"]
-    entry = next(e for e in entries if e["name"] == "decode_attention")
-    entry["pool_prefix"] = {
+    # decode_attention_batched (decode_attention.py:287, body :228) on the
+    # path: the serving pool's beam step, 8 prefix caches each read by its
+    # slot's 4 beams, through the same kernel
+    t = notes.rows["beam_attention"]["shapes"][BEAM_POOL]
+    path, counts = paths["beam_attention_pool"]
+    entry = next(e for e in entries if e["name"] == "beam_attention")
+    entry["pool"] = {
         "replaces": "infinisst_tpu/kernels/decode_attention.py:228",
-        "launches": counts["decode_attention"], "path": path,
+        "launches": counts["beam_attention"], "path": path,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "shape": {"B": POOL_PREFIX[1], "Bc": 8, "C": POOL_PREFIX[2]}}
-    if counts["decode_attention"] <= 0:
-        fail("decode_attention was not launched at the pool prefix")
+        "shape": {"B": BEAM_POOL[1], "Bc": 8, "C": BEAM_POOL[2], "G": 10}}
+    if counts["beam_attention"] <= 0:
+        fail("beam_attention was not launched by the serving pool")
     # the offline paths (bench --mode alignatt and streamatt): their
     # launches, and the kernels' times at their shapes (the modal prompt
-    # bucket's prefill; decode_attention's prefix and per-beam block at the
-    # (prompt length, cache slots) with the most beam forwards)
+    # bucket's prefill; beam_attention at the (prompt length, cache slots)
+    # with the most beam forwards)
     for mode in ("alignatt", "streamatt"):
         for e in entries:
             key = f"{mode} {e['name']}"
             if key not in paths:
                 continue
             path, counts, shape = paths[key]
-            if e["name"] == "decode_attention":
-                shape, beam_key = shape
             t = notes.rows[e["name"]]["shapes"][shape]
             e[mode] = {
                 "launches": counts[e["name"]], "path": path,
                 "shape": [x for x in shape if x != 0],
                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}}
-            if e["name"] == "decode_attention":
-                t = notes.rows[e["name"]]["shapes"][beam_key]
-                e[mode]["per_beam_block"] = {
-                    "shape": list(beam_key), **{k: t[k] for k in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}}
     # the speculative stack (bench --speculative, --spec-beam, --do-sample
     # and the speculative pool): its launches, and the times at its shapes
     # (a verify's gate/up, its row quantization, the tree verify's prefix)
     spec_shapes = {"w8a8_gemm": SPEC_SHAPE,
                    "row_quant_int8": (SPEC_SHAPE[0], SPEC_SHAPE[1], 0),
-                   "decode_attention": SPEC_ATT_SHAPE}
+                   "decode_attention": SPEC_ATT_SHAPE,
+                   "beam_attention": ("beam 1", 1, 1280)}
     for e in entries:
         shape = spec_shapes.get(e["name"])
         if shape is None:
@@ -6927,13 +7079,18 @@ def main():
             fail(f"{e['name']} was not launched on the speculative paths")
     # the tools: launches on the fidelity probe and the two distillation
     # phases, and the times at the probe's shapes (its prefill into wq,
-    # float32; decode_attention at its beam step's prefix)
+    # float32; beam_attention at its beam step)
     tool_shapes = {"row_quant_int8": ("tools", TOOL_SHAPE[0], TOOL_SHAPE[1],
                                       0),
                    "group_quant_int8": ("tools", TOOL_SHAPE[0],
                                         TOOL_SHAPE[1], 0),
-                   "decode_attention": TOOL_ATT_SHAPE}
+                   "beam_attention": TOOL_ATT_SHAPE}
     for e in entries:
+        if e["name"] == "decode_attention":  # no tree verify on the tools
+            e["tools"] = {"launches": {
+                k.replace(" ", "_"): paths[k][1][e["name"]]
+                for k in ("fidelity", "distill tiny", "distill flagship")}}
+            continue
         shape = tool_shapes.get(e["name"], ("tools",) + TOOL_SHAPE)
         t = notes.rows[e["name"]]["shapes"][shape]
         e["tools"] = {

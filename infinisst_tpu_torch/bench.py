@@ -258,18 +258,19 @@ def metric_name(args) -> str:
 
 
 def flagship_params(device, act_int8=True, speech=None, group_size=0,
-                    lm_head_int8=True, head_group_size=0):
+                    lm_head_int8=True, head_group_size=0, cfg=None):
     """(config, parameters) of the flagship: wav2vec2-large and the
     adapter in bf16, Llama-3.1-8B with int8 projections (W8A8, or
     weight-only without ``act_int8``) and a W8A8 (or bf16) lm_head, drawn
     on ``device`` from one generator seeded 0.  ``speech`` reuses the
-    encoder and adapter of an earlier call."""
+    encoder and adapter of an earlier call; ``cfg`` draws the same recipe
+    at another preset's widths."""
     from infinisst_tpu_torch.core.presets import flagship_config
     from infinisst_tpu_torch.models import adapter as A
     from infinisst_tpu_torch.models import wav2vec2 as W
     from infinisst_tpu_torch.models.quant import init_quantized_llama
 
-    cfg = flagship_config()
+    cfg = cfg or flagship_config()
     gen = torch.Generator(device=device).manual_seed(0)
     if speech is None:
         speech = {
@@ -667,7 +668,7 @@ def launch_report(log):
     counts = dict(quant_matmul.launch_counts)
     counts.update(decode_attention.launch_counts)
     print("kernel launches " + json.dumps(counts), file=log, flush=True)
-    print("decode_attention launches by shape "
+    print("attention launches by shape "
           + json.dumps(decode_attention.launch_shapes), file=log, flush=True)
 
 

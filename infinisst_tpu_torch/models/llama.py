@@ -7,7 +7,7 @@ KV cache is updated in place where the JAX package donates its buffers.
 
 Prefill attention (``decode_step``) is written out as matmul, additive
 mask and f32 softmax, as the JAX einsums are; the beam step's two-block
-attention goes through the rotate-on-read ``decode_attention`` kernel.
+attention is one launch of the rotate-on-read ``beam_attention`` kernel.
 Both take the AlignAtt attention probe ``attn_probe = (layer, a0, a1)``:
 the argmax over keys a0..a1-1 of the head-averaged softmax weights at one
 layer (``span_probe`` for the beam step, whose kernel keeps no weights).
@@ -61,6 +61,7 @@ from infinisst_tpu_torch.core import rope as R
 from infinisst_tpu_torch.core.config import LlamaConfig
 from infinisst_tpu_torch.core.graphs import counter
 from infinisst_tpu_torch.kernels.decode_attention import (
+    beam_attention,
     decode_attention,
     merge_blocks,
 )
@@ -398,17 +399,17 @@ def beam_token_step(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for all beams of P slots (the single stream is
     P = 1; pooled serving vmaps the JAX step over slots) over two
-    attention blocks: the slot's prefix (one cache a slot, shared by its
-    beams, never copied per beam) and the per-beam generation buffer,
-    each through ``decode_attention`` and merged by their log-sum-exp
-    into the one softmax of the JAX step.  A row's query sits at its
+    attention blocks, the slot's prefix (one cache a slot, shared by its
+    beams, never copied per beam) and the per-beam generation buffer, in
+    the one softmax of the JAX step: one ``beam_attention`` launch a
+    layer.  A row's query sits at its
     slot's prefix length + gen_len and its per-beam key j at that prefix
     length + j.  This step's K/V are written IN PLACE into ``gen_k`` /
     ``gen_v`` at slot ``gen_len`` (on the stream the kernel then reads
     them from).  Returns (logits (P * beam, V), gen_k, gen_v, attn_idx
     (P * beam,)): with ``attn_probe = (layer, a0, a1)`` (keys a0..a1-1 of
-    the prefix) ``span_probe`` at that layer, from the two launches'
-    log-sum-exps, without a second pass over the keys; -1 without."""
+    the prefix) ``span_probe`` at that layer, from the launch's
+    log-sum-exp, without a second pass over the keys; -1 without."""
     rows, S, D = x_embed.shape
     assert S == 1
     beam = rows // prefix.k.shape[1]
@@ -443,19 +444,13 @@ def beam_token_step(
         gen_k[li].index_copy_(1, at, k_new.to(gen_k.dtype)[:, None])
         gen_v[li].index_copy_(1, at, v_new.to(gen_v.dtype)[:, None])
 
-        o_p, lse_p = decode_attention(
-            q, prefix.k[li], prefix.v[li], plen, q_pos, inv_freq,
-            return_lse=True,
-        )
-        o_g, lse_g = decode_attention(
-            q, gen_k[li], gen_v[li], g_valid, q_pos, inv_freq,
-            key_offset=g_off, return_lse=True,
+        attn, lse = beam_attention(
+            q, prefix.k[li], prefix.v[li], plen, gen_k[li], gen_v[li],
+            g_valid, g_off, q_pos, inv_freq,
         )
         if li == probe_layer:
             attn_idx = span_probe(q, prefix.k[li], attn_probe[1],
-                                  attn_probe[2], q_pos, inv_freq,
-                                  torch.logaddexp(lse_p, lse_g))
-        attn = merge_blocks(o_p, lse_p, o_g, lse_g)
+                                  attn_probe[2], q_pos, inv_freq, lse)
         h = h + par.reduce_from_model(
             mm(attn.reshape(rows, 1, H * Dh), lp["wo"]))
         h = _mlp(h, lp, cfg.rms_norm_eps)

@@ -221,7 +221,7 @@ def dryrun_multichip(device="cuda", data_ax=None, model_ax=None) -> str:
         print("kernel launches "
               + json.dumps({**KQ.launch_counts, **KA.launch_counts}),
               file=sys.stderr, flush=True)
-        print("decode_attention launches by shape "
+        print("attention launches by shape "
               + json.dumps(dict(KA.launch_shapes)), file=sys.stderr,
               flush=True)
     return line

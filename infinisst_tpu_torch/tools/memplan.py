@@ -264,9 +264,9 @@ def measure_step(cfg, whole_host, d, m, stage, device, *, rows_per_rank,
 
 
 def measure_serve(cfg, d, pool_per_rank, beam, stream, device):
-    """One warm and one measured tick of the W8A8 pool split over d
-    data ranks (every slot streaming seeded noise), from FSDP-sharded
-    float leaves: this rank's peak and the tick's wall."""
+    """One warm and one measured tick of the W8A8 pool of ``cfg`` split
+    over d data ranks (every slot streaming seeded noise), from
+    FSDP-sharded float leaves: this rank's peak and the tick's wall."""
     import gc
 
     from infinisst_tpu_torch.bench import flagship_params
@@ -276,7 +276,7 @@ def measure_serve(cfg, d, pool_per_rank, beam, stream, device):
     from infinisst_tpu_torch.serve.engine import ServingEngine
 
     mesh = pmesh.make_mesh(d, 1, device)
-    _, params = flagship_params(device)
+    _, params = flagship_params(device, cfg=cfg)
     params, _ = pmesh.shard_params(params, mesh,
                                    pmesh.model_param_specs(cfg, zero=d > 1))
     builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)

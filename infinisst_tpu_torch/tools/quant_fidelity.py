@@ -12,7 +12,7 @@ versions on the CPU):
     held-out (model-generated) text, with logit-error quantiles;
   - the first step where free-running greedy rollouts differ;
   - the beam-4 winner change rate (``decode/beam.beam_search``, whose
-    steps run ``decode_attention``).
+    steps run ``beam_attention``).
 
 Variants: ``bf16`` (a cast), ``w8`` (weight-only int8, ``w8_bf16_gemm``),
 ``w8a8`` (``row_quant_int8`` + ``w8a8_gemm``, int8 lm_head), and the

@@ -160,30 +160,141 @@ PLAN_SHAPES = [(4, 1, 1280, 32, 8), (4, 4, 10, 32, 8), (4, 4, 1280, 32, 8),
 
 @pytest.mark.parametrize("sms", [132, 8])
 def test_plan_and_split_range_cover_every_key_once(sms):
-    """The host plan and the key splits the kernel cuts from valid_len:
-    every key of [0, c_eff) in exactly one split, split 0 never empty,
-    splits of at least MIN_SPLIT keys that start on SPLIT_ALIGN, and
-    every query row that reads a (cache, KV head) -- B / Bc of the query
-    batch times H / KV heads -- in one of the row tiles."""
+    """The host plan and the work units the kernel cuts from the valid
+    lengths: every unit of a (cache, KV head, row tile) -- the prefix's
+    c_eff keys and each per-beam buffer's, UNIT keys a unit -- in exactly
+    one split, so every key once; at most MAX_SPLIT splits (one cluster);
+    and every query row that reads a (cache, KV head) -- B / Bc of the
+    query batch times H / KV heads -- in one of the row tiles."""
     for B, Bc, C, H, KV in PLAN_SHAPES:
         Gq = H // KV
-        p = TA.plan(B, Bc, C, KV, Gq, sms)
-        r_total = (B // Bc) * Gq
-        assert (p.n_rtiles - 1) * TA.ROWS < r_total <= p.n_rtiles * TA.ROWS
-        assert p.groups == Bc * KV * p.n_rtiles
-        if B // Bc * Gq == 16:  # the beam prefix, and a pool slot's
-            assert p.n_rtiles == 1
-        assert 1 <= p.n_split <= max(1, -(-C // TA.MIN_SPLIT))
-        if sms >= 2 * p.groups and C >= 2 * TA.MIN_SPLIT:
-            assert p.n_split > 1, (B, Bc, C, p)
-        for c_eff in sorted({1, 10, 63, 64, 65, 1000, C // 2, C - 1, C}):
-            if not 1 <= c_eff <= C:
-                continue
-            cover = np.zeros(c_eff, np.int64)
-            for s in range(p.n_split):
-                b, e = TA.split_range(c_eff, p.n_split, s)
-                assert b % TA.SPLIT_ALIGN == 0 and e >= b
-                if s == 0:
-                    assert e > 0
-                cover[b:e] += 1
-            assert (cover == 1).all(), (B, Bc, C, c_eff, p)
+        for G in (0, 10, 64):
+            p = TA.plan(B, Bc, C, KV, Gq, sms, G)
+            r_total = (B // Bc) * Gq
+            assert (p.n_rtiles - 1) * TA.ROWS < r_total <= \
+                p.n_rtiles * TA.ROWS
+            assert p.groups == Bc * KV * p.n_rtiles
+            if B // Bc * Gq == 16:  # the beam prefix, and a pool slot's
+                assert p.n_rtiles == 1
+            assert 1 <= p.n_split <= TA.MAX_SPLIT
+            if sms >= 2 * p.groups and C >= 2 * TA.MIN_UNITS * TA.UNIT:
+                assert p.n_split > 1, (B, Bc, C, p)
+            beams = min(B // Bc, -(-TA.ROWS // Gq))
+            for c_eff in sorted({1, 10, 63, 64, 65, 1000, C // 2, C - 1, C}):
+                if not 1 <= c_eff <= C:
+                    continue
+                g_eff = [min(G, 1 + 21 * i) for i in range(beams)] if G \
+                    else []
+                units = TA.units_of(c_eff, g_eff)
+                assert units * TA.UNIT >= c_eff + sum(g_eff)
+                cover = np.zeros(units, np.int64)
+                for s in range(p.n_split):
+                    b, e = TA.split_range(units, p.n_split, s)
+                    assert e >= b
+                    if s == 0:
+                        assert e > 0
+                    cover[b:e] += 1
+                assert (cover == 1).all(), (B, Bc, C, c_eff, G, p)
+
+
+def _two_blocks(B, P, C, G, H, KV, Dh, plen, g_valid, seed):
+    """The beam step's two blocks: P prefix caches of C keys (valid
+    ``plen``), each of the B rows' per-beam buffer of G keys (valid
+    ``g_valid``, key j at the row's prefix length + j), queries at the
+    row's prefix length + its newest per-beam key."""
+    q, pk, pv, inv = _inputs(B, P, C, H, KV, Dh, seed)
+    _, gk, gv, _ = _inputs(B, B, G, H, KV, Dh, seed + 1)
+    plen = np.asarray(plen, np.int32)
+    g_valid = np.asarray(g_valid, np.int32)
+    g_off = np.repeat(plen, B // P).astype(np.int32)
+    qp = (g_off + np.maximum(g_valid - 1, 0)).astype(np.int32)
+    return q, pk, pv, plen, gk, gv, g_valid, g_off, qp, inv
+
+
+# (B, P, C, G, H, KV, plen (P,), g_valid (B,)): beam 4 and beam 1, one
+# cache and a pool of two, GQA and not, one per-beam key and the full
+# buffer, an empty prefix
+TWO_BLOCK_CASES = [
+    (4, 1, 24, 6, 8, 2, [17], [1, 1, 1, 1]),
+    (4, 1, 24, 6, 8, 2, [24], [6, 6, 6, 6]),
+    (1, 1, 24, 6, 8, 2, [9], [3]),
+    (8, 2, 20, 5, 8, 8, [11, 20], [1, 2, 3, 4, 5, 5, 1, 2]),
+    (4, 1, 16, 6, 4, 1, [0], [1, 6, 2, 4]),
+    (2, 2, 16, 4, 8, 2, [0, 7], [4, 1]),
+]
+
+
+@pytest.mark.parametrize("case", TWO_BLOCK_CASES,
+                         ids=[f"B{c[0]}P{c[1]}KV{c[5]}plen{c[6][0]}"
+                              f"gv{c[7][0]}" for c in TWO_BLOCK_CASES])
+def test_beam_attention_plain_vs_jax_reference(case):
+    """``beam_attention_plain`` against JAX's ``decode_attention_reference``
+    run on the two blocks concatenated at their positions: row b's cache
+    is its prefix's plen valid keys (positions 0..plen-1) then its own
+    g_valid per-beam keys (plen..), the masked keys of both blocks left
+    out (they weigh exactly 0 beside a valid key); the lse against the
+    float64 softmax over both blocks with every key in place."""
+    B, P, C, G, H, KV, plen, g_valid = case
+    Dh = 16
+    q, pk, pv, plen, gk, gv, g_valid, g_off, qp, inv = _two_blocks(
+        B, P, C, G, H, KV, Dh, plen, g_valid, seed=len(plen) * 10 + B)
+    slot = np.arange(B) // (B // P)
+    n = plen[slot] + g_valid
+    cat_k = np.zeros((B, C + G, KV, Dh), np.float32)
+    cat_v = np.zeros((B, C + G, KV, Dh), np.float32)
+    for b in range(B):
+        pl = plen[slot[b]]
+        cat_k[b, :pl], cat_v[b, :pl] = pk[slot[b], :pl], pv[slot[b], :pl]
+        cat_k[b, pl:n[b]] = gk[b, :g_valid[b]]
+        cat_v[b, pl:n[b]] = gv[b, :g_valid[b]]
+    want = JA.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(cat_k), jnp.asarray(cat_v),
+        jnp.asarray(n.astype(np.int32)), jnp.asarray(qp), jnp.asarray(inv))
+    got, lse = TA.beam_attention(*_t(q, pk, pv, plen, gk, gv, g_valid, g_off,
+                                     qp, inv))
+    _close(got.numpy(), want)
+    blocks = [(pk[slot], pv[slot], plen[slot], np.zeros(B, np.int32)),
+              (gk, gv, g_valid, g_off)]
+    want_out, want_lse = _direct(q, blocks, qp, inv)
+    _close(got.numpy(), want_out)
+    _close(lse.numpy(), want_lse)
+
+
+@pytest.mark.parametrize("gen_valid", [1, 4, 0])
+def test_beam_attention_plain_is_the_merged_blocks(gen_valid):
+    """The one softmax of ``beam_attention_plain`` equals the two blocks
+    through ``decode_attention`` merged by their lse (the beam step before
+    the two blocks shared a launch); gen_valid 0 masks the whole
+    per-beam block, which then weighs 0."""
+    beam, C, G, H, KV, Dh = 4, 20, 6, 8, 2, 16
+    q, pk, pv, plen, gk, gv, g_valid, g_off, qp, inv = _two_blocks(
+        beam, 1, C, G, H, KV, Dh, [13], [gen_valid] * beam, seed=14)
+    got, lse = TA.beam_attention(*_t(q, pk, pv, plen, gk, gv, g_valid, g_off,
+                                     qp, inv))
+    o_p, lse_p = TA.decode_attention(*_t(q, pk, pv, plen, qp, inv),
+                                     return_lse=True)
+    o_g, lse_g = TA.decode_attention(*_t(q, gk, gv, g_valid, qp, inv),
+                                     key_offset=torch.from_numpy(g_off),
+                                     return_lse=True)
+    _close(got.numpy(), TA.merge_blocks(o_p, lse_p, o_g, lse_g).numpy())
+    _close(lse.numpy(), torch.logaddexp(lse_p, lse_g).numpy())
+
+
+def test_rope_table_is_the_rotation_and_lives_with_its_tensor():
+    """The kernel's cos/sin table: the rotation's float32 cos and sin of
+    f32(pos) * inv_freq, interleaved by frequency, made once for an
+    inv_freq tensor (grown, never shrunk), made again for a new tensor or
+    after an in-place change."""
+    inv = torch.from_numpy(llama_rope_freqs(16, 500000.0, scaling=False)
+                           .astype(np.float32))
+    t = TA.rope_table(inv, 100)
+    assert t.shape == (TA.TABLE_MIN, 16) and t.dtype == torch.float32
+    f = torch.arange(TA.TABLE_MIN, dtype=torch.float32)[:, None] * inv
+    assert torch.equal(t[:, 0::2], torch.cos(f))
+    assert torch.equal(t[:, 1::2], torch.sin(f))
+    assert TA.rope_table(inv, TA.TABLE_MIN) is t
+    big = TA.rope_table(inv, TA.TABLE_MIN + 1)
+    assert big.shape[0] == TA.TABLE_MIN + 1024
+    assert TA.rope_table(inv, 10) is big
+    inv.mul_(1.0)
+    assert TA.rope_table(inv, 10) is not big

@@ -122,6 +122,10 @@ def test_kernel_wrappers_never_fall_back(no_card):
     with pytest.raises(ValueError, match="unsupported device"):
         A.decode_attention(q, cache, cache, ints[:1], ints,
                            torch.empty((8,), device="meta"))
+    gen = torch.empty((2, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        A.beam_attention(q, cache, cache, ints[:1], gen, gen, ints, ints,
+                         ints, torch.empty((8,), device="meta"))
     assert sum(K.launch_counts.values()) == 0
     assert sum(A.launch_counts.values()) == 0
     # a CPU tensor takes the plain version

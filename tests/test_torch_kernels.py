@@ -538,11 +538,15 @@ def test_launch_counters_stay_zero_on_cpu():
     cache = torch.ones((1, 8, 2, 16))
     TA.decode_attention(q, cache, cache, torch.tensor([3]),
                         torch.tensor([3, 3]), torch.ones((8,)))
+    gen = torch.ones((2, 4, 2, 16))
+    TA.beam_attention(q, cache, cache, torch.tensor([3]), gen, gen,
+                      torch.tensor([1, 1]), torch.tensor([3, 3]),
+                      torch.tensor([3, 3]), torch.ones((8,)))
     assert TK.launch_counts == {
         "row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
         "group_quant_int8": 0, "w8a8_grouped_gemm": 0,
     }
-    assert TA.launch_counts == {"decode_attention": 0}
+    assert TA.launch_counts == {"decode_attention": 0, "beam_attention": 0}
     assert TK.internal_counts == {"w8a8_gemm_split_k": 0,
                                   "w8_bf16_gemm_split_k": 0,
                                   "w8a8_grouped_gemm_split_k": 0,

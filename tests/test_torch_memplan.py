@@ -79,3 +79,33 @@ def test_plan_rows_cover_every_mesh():
         srow["pool_state_bytes_per_rank"]
     assert srow["param_bytes_per_rank"] < one["param_bytes_per_rank"]
     assert memplan.meshes_of(4) == [(4, 1), (2, 2), (1, 4)]
+
+
+def test_measure_serve_runs_the_given_config(monkeypatch):
+    """The serving row measured on the dryrun preset on the CPU, in a
+    world-1 gloo group: the pool ticks on the dryrun's parameters (the
+    flagship's 8B draw is what the row measured whatever ``cfg`` it was
+    given)."""
+    import torch.distributed as dist
+
+    from infinisst_tpu_torch.serve import engine as E
+    from tests.torch_mesh_workers import free_port
+
+    cfg = dryrun_config()
+    seen = []
+    orig = E.ServingEngine.__init__
+
+    def init(self, params, *args, **kw):
+        seen.append(tuple(params["llama"]["embed"].shape))
+        orig(self, params, *args, **kw)
+
+    monkeypatch.setattr(E.ServingEngine, "__init__", init)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        got = memplan.measure_serve(cfg, 1, 1, 2, StreamConfig(),
+                                    torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert seen == [(cfg.llama.vocab_size, cfg.llama.hidden_size)]
+    assert got["peak_bytes"] is None and got["tick_s"] > 0
