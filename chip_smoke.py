@@ -22,9 +22,14 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  W8_BF16_RTOL * max|plain| in bf16 and 1e-5 * max|plain|
                  in float32; kernel, plain and library times (median of 3
                  timed replays, with the kernel's min-max) and the bound;
-                 the split-K plan both tensor-core GEMMs take beside their
-                 times (one row tile at every M), the grouped GEMM's plan
-                 and w8a8_gemm's time on the same bytes beside its own;
+                 w8a8_gemm's plan (row tiles, persistent blocks, ring,
+                 split tiles) and w8_bf16_gemm's split-K plan (one row
+                 tile at every M) beside their times, the grouped GEMM's
+                 plan and w8a8_gemm's time on the same bytes beside its
+                 own; w8a8_gemm_many (one launch) bitwise at q|k|v and
+                 gate|up for M = 1, 4, 32, 79, 384 (MANY_M), timed beside
+                 the same weights one launch each and torch._int_mm +
+                 epilogue over the concatenated weight;
                  row_quant_int8 and group_quant_int8 beside an empty
                  kernel of their launch geometry (the launch floor).
                  The library yardsticks,
@@ -84,8 +89,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  lm_head, m=1, beam 4: streams until the encoder ring has
                  wrapped and the LLM cache was evicted; per-chunk wall
                  time, RTF and valid_len; launch counts checked per
-                 forward pass (w8a8_gemm 7L + 1, row_quant_int8 4L + 1:
-                 q/k/v and gate/up share one quantized input; a captured
+                 forward pass (w8a8_gemm 4L + 1, row_quant_int8 4L + 1:
+                 q/k/v and gate/up share one quantized input and one
+                 w8a8_gemm launch; a captured
                  replay counts what its graph holds), printed beside what
                  the wrappers did besides launching (split-K calls, fills
                  of the kernels' tile counters); then one chunk with a
@@ -205,11 +211,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  exit 0, metric serve_decode_tok_per_s_pool8_beam4_m1_8b_int8,
                  launches beam_attention = token forwards x L (at B=32
                  over Bc=8 prefix caches), w8a8_gemm = forwards x
-                 (7L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
+                 (4L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
      alignatt -- ``python -m infinisst_tpu_torch.bench --mode alignatt``
                  (12 chunks, 3 untimed) and ``--early-stop``: exit 0, the
                  JSON line, each chunk's wall, beam steps, prompt bucket
-                 and prompt length; launches w8a8_gemm = steps x (7L + 1),
+                 and prompt length; launches w8a8_gemm = steps x (4L + 1),
                  row_quant_int8 = steps x (4L + 1), beam_attention =
                  (steps - calls) x L, summed over the calls, each > 0 in
                  parity (the early stop may stop every call at its first
@@ -255,7 +261,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  --speculative --spec-beam, --do-sample and --speculative
                  --do-sample at the flagship W8A8, 8 chunks each, in
                  this process; each run's launches held to its model
-                 forwards (w8a8_gemm 7n + 1, row_quant_int8 4n + 1 a
+                 forwards (w8a8_gemm 4n + 1, row_quant_int8 4n + 1 a
                  forward of n layers, beam_attention n a beam step,
                  decode_attention n a tree verify, none in a decode_step).
      spec serve -- the bench's --mode serve --speculative and
@@ -459,6 +465,9 @@ ATT_RTOL = {"bf16": 2.0 ** -7, "f32": 1e-5}
 # float32 weights, 1.3e-6 with W8A8); TF32 is off (see main)
 TINY_RTOL = 1e-4
 TIMED_TRIALS = 3
+# w8a8_gemm launches a Llama layer makes: q|k|v and gate|up one launch each
+# (w8a8_gemm_many), o and down one each; a forward adds the head's
+GEMMS_PER_LAYER = 4
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -563,14 +572,16 @@ def bound_ms(nbytes: float, ops: float, rate: float):
                                        else "operations")
 
 
-def plan_line(K, M, D, O, sms):
-    """Print and return the split-K plan both tensor-core GEMMs take."""
-    plan = K.gemm_plan(M, D, O, sms)
-    print(f"  {'':17s} plan: {plan.rows} rows a tile x {plan.n_mtiles} row "
-          f"tile(s), {plan.n_split} split(s) of {plan.k_split} values of D, "
-          f"{plan.n_mtiles * plan.n_otiles * plan.n_split} blocks",
+def plan_line(K, M, D, Os, sms):
+    """Print and return w8a8_gemm's plan for weights of (O, D), O in
+    ``Os``, in one launch."""
+    p = K.w8a8_plan(M, D, tuple(Os), sms)
+    print(f"  {'':17s} plan: {p.rows} rows a tile x {p.n_mtiles} row "
+          f"tile(s), {p.tile0[-1]} tiles x {p.n_k} stages over {p.blocks} "
+          f"persistent blocks ({p.n_iters / p.blocks:.2f} stages each), "
+          f"{p.stages}-stage ring, {p.split_tiles} tile(s) split",
           flush=True)
-    return plan
+    return p
 
 
 def _kernel_modules():
@@ -765,7 +776,7 @@ def check_kernels(dev, notes):
             bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by)
-            plan = plan_line(K, M, D, O, sms)
+            plan_line(K, M, D, (O,), sms)
             print(f"  {'':17s} kernel / (torch._int_mm + epilogue"
                   f"{'' if M > 16 else ', 17 padded rows'}) "
                   f"{statistics.median(ms) / statistics.median(lib):.3f}",
@@ -799,8 +810,11 @@ def check_kernels(dev, notes):
             bms, by = bound_ms(M * D * 2 + D * O + O * 4 + M * O * 2,
                                2.0 * M * D * O, BF16_FLOPS_PER_S)
             note("w8_bf16_gemm", (M, D, O), err, ms, pms, lib, bms, by)
-            print(f"  {'':17s} the same plan as w8a8_gemm; kernel / "
-                  f"_weight_int8pack_mm "
+            plan = K.gemm_plan(M, D, O, sms)
+            print(f"  {'':17s} plan: {plan.rows} rows a tile, "
+                  f"{plan.n_split} split(s) of {plan.k_split} values of D, "
+                  f"{plan.n_mtiles * plan.n_otiles * plan.n_split} blocks; "
+                  f"kernel / _weight_int8pack_mm "
                   f"{statistics.median(ms) / statistics.median(lib):.3f}",
                   flush=True)
             if plan.n_mtiles != 1:
@@ -849,6 +863,8 @@ def check_kernels(dev, notes):
         del ws, wts
         torch.cuda.empty_cache()
 
+    check_many(dev, gen, notes, sms)
+
     # float32 inputs/outputs once per kernel (the tests' dtype)
     y = torch.randn((61, 4096), generator=gen, device=dev)
     w = torch.randint(-127, 128, (4096, 1024), generator=gen, device=dev,
@@ -877,6 +893,70 @@ def check_kernels(dev, notes):
     check_grouped_simple(dev, gen)
     print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions (w8_bf16_gemm at every shape above)", flush=True)
+
+
+# the weights that share an input at the flagship (one w8a8_gemm_many
+# launch each) and the rows they are held and timed at
+MANY_WEIGHTS = (("q|k|v", 4096, (4096, 1024, 1024)),
+                ("gate|up", 4096, (14336, 14336)))
+MANY_M = [1, 4, 32, 79, 384]
+
+
+def check_many(dev, gen, notes, sms):
+    """w8a8_gemm_many (one launch) bitwise against w8a8_gemm_many_plain in
+    bf16 and float32 at q|k|v and gate|up for MANY_M rows; timed beside
+    the same weights one w8a8_gemm launch each and beside torch._int_mm +
+    the scale epilogue over the concatenated (D, sum O) weight (the
+    activations zero-padded to 17 rows at M <= 16)."""
+    import torch
+
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+
+    for label, D, Os in MANY_WEIGHTS:
+        O = sum(Os)
+        n_w = max(2, math.ceil(120e6 / (D * O)))
+        cat = [torch.randint(-127, 128, (D, O), generator=gen, device=dev,
+                             dtype=torch.int8) for _ in range(n_w)]
+        # the K-major leaves, packed once, as the model holds them
+        edge = [sum(Os[:j]) for j in range(len(Os) + 1)]
+        wts = [[c[:, edge[j]:edge[j + 1]].t().contiguous()
+                for j in range(len(Os))] for c in cat]
+        ss = [torch.rand((o,), generator=gen, device=dev) * 1e-3 + 1e-4
+              for o in Os]
+        s_cat = torch.cat(ss)
+        for M in MANY_M:
+            y = (torch.randn((M, D), generator=gen, device=dev) * 2.0
+                 ).to(torch.bfloat16)
+            yq, ys = K.row_quant_int8(y)
+            for dt in (torch.bfloat16, torch.float32):
+                got = K.w8a8_gemm_many(yq, ys, wts[0], ss, dt)
+                want = K.w8a8_gemm_many_plain(yq, ys, wts[0], ss, dt)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"w8a8_gemm_many differs from its plain version at "
+                         f"{label} M={M} {dt}")
+            ms = cuda_time_ms(lambda i: K.w8a8_gemm_many(
+                yq, ys, wts[i % n_w], ss, torch.bfloat16), 20)
+            sep = cuda_time_ms(lambda i: [
+                K.w8a8_gemm(yq, ys, w, s, torch.bfloat16)
+                for w, s in zip(wts[i % n_w], ss)], 20)
+            pms = cuda_time_ms(lambda i: K.w8a8_gemm_many_plain(
+                yq, ys, wts[i % n_w], ss, torch.bfloat16), 3, warmup=1)
+            lib = int_mm_ms(yq, ys, cat, s_cat)
+            bms, by = bound_ms(M * D + M * 4 + D * O + O * 4 + M * O * 2,
+                               2.0 * M * D * O, INT8_OPS_PER_S)
+            notes.note("w8a8_gemm", (M, D, O), 0.0, ms, pms, lib, bms, by,
+                       label=f"M={M:3d} {label:7s} D={D} O={O}")
+            plan_line(K, M, D, Os, sms)
+            print(f"  {'':17s} one launch / {len(Os)} launches "
+                  f"{statistics.median(ms) / statistics.median(sep):.3f} "
+                  f"({statistics.median(sep):.5f} ms); kernel / "
+                  f"(torch._int_mm + epilogue"
+                  f"{'' if M > 16 else ', 17 padded rows'}) "
+                  f"{statistics.median(ms) / statistics.median(lib):.3f}",
+                  flush=True)
+        del cat, wts
+        torch.cuda.empty_cache()
 
 
 def check_grouped_simple(dev, gen):
@@ -1069,7 +1149,7 @@ ATT_KERNEL = {"beam_token_step": "beam_attention",
 def expected_launches(forwards) -> dict:
     """The kernel launches the bench's model forwards ({"fn L=n": count})
     must make at the flagship W8A8 with an int8 (full or shortlist) head:
-    7n + 1 w8a8_gemm and 4n + 1 row_quant_int8 a forward of n layers,
+    4n + 1 w8a8_gemm and 4n + 1 row_quant_int8 a forward of n layers,
     beam_attention and decode_attention by ATT_PER_LAYER and ATT_KERNEL,
     no other kernel."""
     want = dict.fromkeys(("w8a8_gemm", "row_quant_int8", "decode_attention",
@@ -1078,7 +1158,7 @@ def expected_launches(forwards) -> dict:
     for key, n in forwards.items():
         fn, L = key.split(" L=")
         L = int(L)
-        want["w8a8_gemm"] += n * (7 * L + 1)
+        want["w8a8_gemm"] += n * (GEMMS_PER_LAYER * L + 1)
         want["row_quant_int8"] += n * (4 * L + 1)
         if ATT_PER_LAYER[fn]:
             want[ATT_KERNEL[fn]] += n * L * ATT_PER_LAYER[fn]
@@ -1160,7 +1240,7 @@ def run_bench_line(extra, label, metric, keys):
     if got != want:
         fail(f"[{label}] launches {got} for forwards {fwd}; expected {want}")
     print(f"[{label}] {json.dumps(result)}", flush=True)
-    print(f"[{label}] forwards {fwd}: launches {got} (7n + 1 w8a8_gemm, "
+    print(f"[{label}] forwards {fwd}: launches {got} (4n + 1 w8a8_gemm, "
           "4n + 1 row_quant_int8 a forward of n layers)", flush=True)
     return result, got, fwd
 
@@ -2288,7 +2368,8 @@ def check_flagship(dev, paths):
     L = r["n_layers"]
     # one GEMM per projection and the head; one row quantization per
     # distinct input (q/k/v share one, gate/up another)
-    per_fwd = {"w8a8_gemm": 7 * L + 1, "row_quant_int8": 4 * L + 1}
+    per_fwd = {"w8a8_gemm": GEMMS_PER_LAYER * L + 1,
+               "row_quant_int8": 4 * L + 1}
     for name, n in per_fwd.items():
         if r["counts"][name] != r["forwards"] * n:
             fail(f"[flagship] {name} launched {r['counts'][name]} times, "
@@ -3578,7 +3659,7 @@ def check_group128(dev, paths, speech):
 def check_multiplier(dev, r):
     """On the flagship stream: update_multiplier(2), then (4), one chunk
     at each.  The encoder takes 96, then 192 frames; beam_attention is
-    launched once per layer per beam forward, the GEMMs 7L + 1 times a
+    launched once per layer per beam forward, the GEMMs 4L + 1 times a
     forward."""
     import numpy as np
 
@@ -3612,10 +3693,10 @@ def check_multiplier(dev, r):
             fail(f"[multiplier] m={m}: beam_attention launched "
                  f"{counts['beam_attention']} times, expected "
                  f"{steps - 1} beam forwards x {L} layers")
-        if counts["w8a8_gemm"] != steps * (7 * L + 1):
+        if counts["w8a8_gemm"] != steps * (GEMMS_PER_LAYER * L + 1):
             fail(f"[multiplier] m={m}: w8a8_gemm launched "
                  f"{counts['w8a8_gemm']} times, expected {steps} forwards "
-                 f"x {7 * L + 1}")
+                 f"x {GEMMS_PER_LAYER * L + 1}")
 
 
 def check_bench():
@@ -3662,7 +3743,7 @@ def run_serve_bench(extra, metric, n_layers=32):
     ``metric``, and its launches on stderr those of the forwards it ran:
     beam_attention token forwards x L (all at B=32 over Bc=8 prefix
     caches, each read by its slot's 4 beams), w8a8_gemm and
-    row_quant_int8 (7L + 1) and (4L + 1) a forward, no other kernel.
+    row_quant_int8 (4L + 1) and (4L + 1) a forward, no other kernel.
     Returns (result, launches, launches by shape, forwards)."""
     argv = ["--mode", "serve"] + extra
     out = run_main("infinisst_tpu_torch.bench", argv)
@@ -3703,7 +3784,7 @@ def run_serve_bench(extra, metric, n_layers=32):
     tok, total = fwd["token"], fwd["prefill"] + fwd["token"]
     L = n_layers
     want = {"beam_attention": tok * L, "decode_attention": 0,
-            "w8a8_gemm": total * (7 * L + 1),
+            "w8a8_gemm": total * (GEMMS_PER_LAYER * L + 1),
             "row_quant_int8": total * (4 * L + 1), "w8_bf16_gemm": 0,
             "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
     got = {k: counts.get(k, 0) for k in want}
@@ -3749,7 +3830,7 @@ CHUNK_LINE = re.compile(
 def check_offline_launches(label, counts, calls, n_layers=32,
                            beam_forwards=True):
     """The launches of offline calls (bench.run_offline records): a call
-    runs one prefill and steps - 1 beam forwards, so w8a8_gemm (7L + 1)
+    runs one prefill and steps - 1 beam forwards, so w8a8_gemm (4L + 1)
     and row_quant_int8 (4L + 1) a forward, beam_attention L a beam
     forward, and no other kernel; each of the three launched unless
     ``beam_forwards`` is false (calls may then all stop at their first
@@ -3757,7 +3838,7 @@ def check_offline_launches(label, counts, calls, n_layers=32,
     rows [kernels] held.  Returns the launches."""
     L = n_layers
     steps = sum(c[1] for c in calls)
-    want = {"w8a8_gemm": steps * (7 * L + 1),
+    want = {"w8a8_gemm": steps * (GEMMS_PER_LAYER * L + 1),
             "row_quant_int8": steps * (4 * L + 1),
             "beam_attention": (steps - len(calls)) * L,
             "decode_attention": 0, "w8_bf16_gemm": 0, "group_quant_int8": 0,
@@ -3776,7 +3857,8 @@ def check_offline_launches(label, counts, calls, n_layers=32,
     print(f"[{label}] {len(calls)} calls, {steps} beam steps "
           f"({steps / len(calls):.1f} a call), prompt buckets {buckets} "
           f"(prefill rows held in [kernels]); launches {got} = steps x "
-          f"{7 * L + 1}, steps x {4 * L + 1} and (steps - calls) x {L}",
+          f"{GEMMS_PER_LAYER * L + 1}, steps x {4 * L + 1} and "
+          f"(steps - calls) x {L}",
           flush=True)
     return got
 
@@ -6352,7 +6434,7 @@ def check_distill_flagship(dev, paths):
     torch.cuda.empty_cache()
 
 
-PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_tc_kernel",
+PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_kernel",
                      "w8_bf16_gemm_tc_kernel", "group_quant_int8_kernel",
                      "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel",
                      "beam_attention_kernel")
@@ -6410,7 +6492,7 @@ def check_profiling(dev, params):
         print(f"[profiling] device_trace of one W8A8 prefill of the probe's "
               f"model: {len(names)} event names, port kernels {seen}, "
               f"device us {json.dumps(dev_us)}", flush=True)
-        if not {"row_quant_int8_kernel", "w8a8_gemm_tc_kernel"} <= set(seen):
+        if not {"row_quant_int8_kernel", "w8a8_gemm_kernel"} <= set(seen):
             fail("[profiling] the trace names no port kernel")
     finally:
         shutil.rmtree(d, ignore_errors=True)

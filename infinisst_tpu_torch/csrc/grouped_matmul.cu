@@ -14,12 +14,13 @@
 // like row_quant_int8, by the launch and one round trip to memory.
 //
 // w8a8_grouped_gemm (redesigned for Hopper) reads the same K-major (O, D)
-// weight on the same int8 MMAs, ring and split-K counters, in blocks of
-// 64 or 128 channels.  The fold is one chain per output over the groups,
-// o = fma(f32(acc_g) * ys[m, g], s[g, o], o) in g order, so the int32
-// sums are folded (in registers) and reset after the MMAs of each group;
-// the scales of the groups that end in a stage ride with it through the
-// ring.  Groups of whole stages (gs = 128) take w8a8_gemm's reads and k
+// weight on the int8 mma.sync tiles, cp.async ring and split-K counters
+// of quant_common.cuh (the design w8a8_gemm had before its wgmma
+// redesign), in blocks of 64 or 128 channels.  The fold is one chain per
+// output over the groups, o = fma(f32(acc_g) * ys[m, g], s[g, o], o) in
+// g order, so the int32 sums are folded (in registers) and reset after
+// the MMAs of each group; the scales of the groups that end in a stage
+// ride with it through the ring.  Groups of whole stages (gs = 128) take that design's reads and k
 // order, and, where registers allow, a second accumulator set: group g's
 // fold runs while group g + 1's MMAs do.  Other group sizes (multiples of
 // 32) take one contiguous 32-byte run of D per k32 MMA (8-byte reads) so
@@ -122,9 +123,9 @@ __global__ void group_quant_int8_kernel(const void* __restrict__ y,
 // version's does): the arithmetic of _qmm_i8_grouped_kernel's
 // o += acc * ys * s as XLA compiles it (one fused multiply-add).
 // __fmul_rn / __fmaf_rn pin the roundings.  The weight is K-major (O, D);
-// the MMAs and the ring are w8a8_gemm's, with MT m16 tiles of channels per
-// warp (a block owns 64 MT channels).  Requires gs % 32 == 0, O % 4 == 0
-// (checked by the wrapper and the launcher).
+// the MMAs and the ring are quant_common.cuh's, with MT m16 tiles of
+// channels per warp (a block owns 64 MT channels).  Requires gs % 32 == 0,
+// O % 4 == 0 (checked by the wrapper and the launcher).
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -201,7 +202,7 @@ __device__ __forceinline__ void grouped_seg(int (&acc)[MT][NT][4],
 }
 
 // The MMAs of a whole stage that lies inside one group (chunk_at layout):
-// w8a8_gemm_tc_kernel's 16-byte reads and k order.
+// the mma.sync design's 16-byte reads and k order (chunk_at).
 template <int MT, int NT>
 __device__ __forceinline__ void grouped_stage16(int (&acc)[MT][NT][4],
                                                 const unsigned char* st,

@@ -5,48 +5,67 @@
 //
 //   row_quant_int8  <- quantize_activation (quant_matmul.py:106)
 //   w8a8_gemm       <- _qmm_i8_kernel (quant_matmul.py:94), the body of
-//                      quantized_matmul_w8a8 (:117)
+//                      quantized_matmul_w8a8 (:117, its pallas_call :165),
+//                      for one weight or for up to three that share their
+//                      input (q|k|v, gate|up) in one launch
 //   w8_bf16_gemm    <- _qmm_kernel (quant_matmul.py:26), the body of
 //                      quantized_matmul (:34)
 //
 // The grouped pair (group_quant_int8, w8a8_grouped_gemm) is in
-// grouped_matmul.cu; the helpers both files use, in quant_common.cuh.
+// grouped_matmul.cu; the helpers the files share, in quant_common.cuh and
+// (TMA, mbarriers, the tensor-map encoder) tma_common.cuh.
 //
-// What bounds them on the H100: at the main path's M (4 beam rows, 61/79
-// prefill rows) the GEMMs are bound by streaming the int8 weight from
-// device memory (D*O bytes against 2*M*D*O operations, far below the
-// ~590 int8 or ~295 bf16 operations per byte where the tensor cores would
-// bind).  row_quant_int8 reads M*D activations and writes M*D bytes, a
-// few microseconds of work: at M = 4 a launch costs more than the bytes,
-// so it is bound by latency (the launch, one round trip to memory, one
+// What bounds them on the H100.  w8a8_gemm streams D*O weight bytes for
+// 2*M*D*O operations: below about 300 activation rows the bytes bind
+// (3.35 TB/s against 1979 int8 TOP/s: ~590 operations a byte), above them
+// the tensor cores.  The decoder's rows are 1-80 (beam steps, drafts,
+// verifies, the stream's prefill), the pool's and the offline prefills'
+// 192-768.  w8_bf16_gemm is bound by its weight bytes too.
+// row_quant_int8 reads M*D activations and writes M*D bytes, a few
+// microseconds of work: at M = 4 a launch costs more than the bytes, so
+// it is bound by latency (the launch, one round trip to memory, one
 // reduction).
 //
-// w8a8_gemm and w8_bf16_gemm (both redesigned for Hopper) read their
-// weight K-major, (O, D) int8, packed once where the leaves are made
-// (models/quant.py:pack_kmajor), so that each output channel's D bytes
-// are contiguous: tensor-core A operands are K-major.  Swap AB: the
-// weight is the 16-row A operand of mma.sync (m16n8k32 s8 x s8 -> s32,
-// or m16n8k16 bf16 x bf16 -> f32 on weight bytes widened to bf16 in
-// registers, which is exact) and the activation rows are its 8-wide N
-// side, so one block tile holds all M <= 80 rows of a call and the
-// weight crosses device memory once per call at M in {1, 4, 61, 79}.
-// A block owns 128 output channels (4 warps x two m16 tiles) and one
-// contiguous K range; a 4-stage cp.async ring (16 bytes a thread) streams
-// 128-byte-deep weight tiles (whole L2 lines) and the matching activation
-// tiles through shared memory.  In each 64 bytes of a weight stage each
-// thread reads 16 contiguous bytes of a row and feeds them to two int8
-// MMAs or four bf16 MMAs; A and B take the same byte-to-k assignment (a
-// permutation of k inside each MMA, which an integer sum does not see
-// and an f32 sum sees only as another order).  Narrow O gets split-K
-// across blocks (host plans: about two blocks per SM at M <= 16); each
-// block stores its partial (plain stores, no zeroed workspace) and the
-// last block of an output tile, found with an atomic counter that it
-// resets, sums the partials in split order and applies the epilogue:
-// (f32(acc) * ys[m]) * s[o], bitwise that of the plain version, or
-// acc * s[o], which differs from the plain version only by the order of
-// the f32 sums (and is the same from run to run).
+// w8a8_gemm's design.  The phase split of the mma.sync split-K kernel it
+// replaced (tools/gemm_phases.py, PERF.md) showed, at four beam rows, a
+// block's loop bound by the instructions of its copies and products (the
+// cp.async ring and the MMA fragments, 13.7 of 23.4 us a block against
+// gate or up), 1.09-1.27 waves of blocks, and at k or v a 32-way serial
+// combine (8.6 us); at 384 rows each wave streamed the weight again.
+// - wgmma.mma_async s8 x s8 -> s32 with the weight as the 64-row A
+//   operand (swap AB) and up to 256 activation rows as the N side, both
+//   K-major in shared memory: one tile holds every row of a call up to
+//   256, so the weight crosses memory once; above 256 the row tiles of an
+//   output tile run next to each other and its second read hits L2.
+// - TMA into a ring of stages on full/empty mbarriers, one producer warp
+//   and two consumer warpgroups: no instruction a thread spends on the
+//   copies.  TMA's zero fill replaces the masks of the ragged D, O and M
+//   edges.  A weight read once (one row tile) is loaded evict-first, so
+//   it does not push the activation and the partials out of L2.
+// - Persistent blocks, one an SM, each an equal contiguous run of the
+//   (tile, stage) iterations (stream-K): no partial wave; a tile split
+//   across blocks is summed exactly in int32 by its owner from at most a
+//   few partials that its contributors stored at the start of their runs
+//   (below), no serial combine.  The owner waits for blocks of higher
+//   index, so the launch is cooperative: every block is resident at once,
+//   or the launch fails (a card whose SMs are partly taken, say by MPS)
+//   instead of hanging.
+// - Up to three weights of one activation in one launch (one work list):
+//   a Llama layer launches 4 GEMMs, not 7.
+// The parameters are __grid_constant__: indexed by weight at run time,
+// a by-value copy would live in local memory.  The epilogue
+// (f32(acc) * ys[m]) * s[o] is applied once per output, so the result is
+// bitwise that of the plain version at every shape.
+//
+// w8_bf16_gemm keeps its mma.sync design: m16n8k16 on weight bytes
+// widened to bf16 in registers (exact), swap AB with the activation rows
+// as the 8-wide N side, a 4-stage cp.async ring of 128-byte-deep weight
+// tiles, split-K across blocks (gemm_plan: about two blocks per SM) whose
+// last block sums the partials in split order; acc * s[o] differs from
+// the plain version only by the order of the f32 sums.
 
 #include "quant_common.cuh"
+#include "tma_common.cuh"
 
 namespace {
 
@@ -129,13 +148,787 @@ __global__ void row_quant_int8_kernel(const void* __restrict__ y,
 __global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------------
-// w8a8_gemm: out[m, o] = (f32(sum_k yq[m,k] * wt[o,k]) * ys[m]) * s[o], with
-// the weight K-major (O, D).  int8 x int8 products accumulate exactly in
-// int32 on the tensor cores (mma.sync m16n8k32).  Requires D % 16 == 0
-// (checked by the wrapper); ragged M and O edges are zero-filled and masked.
+// w8a8_gemm: out_w[m, o] = (f32(sum_k yq[m,k] * wt_w[o,k]) * ys[m]) * s_w[o]
+// for up to kMaxW K-major (O_w, D) weights w of one activation (q|k|v and
+// gate|up share theirs), each output channel computed exactly as alone.
+//
+// Work.  A tile is (weight, 128 output channels, N activation rows); the
+// tiles are listed weight by weight, output tile by output tile, with the
+// row tiles of an output tile next to each other (above 256 rows they run
+// together, so a weight tile's second read comes from L2).  An iteration
+// is one tile's 128-byte stage of D; the n_tiles * n_k iterations are cut
+// into gridDim.x contiguous runs of equal length within one (block b:
+// [b * I / B, (b + 1) * I / B)), one persistent block an SM.  A tile whose
+// iterations fall to one block is written by it.  A tile split across
+// blocks b_first < ... < b_last is summed exactly in int32 (the same bits
+// in any order): its owner b_first runs the tile's first iterations at the
+// end of its run, while the later contributors ran theirs at the start of
+// their runs, each storing its partial into its own workspace slot and
+// counting itself at the owner's counter (all threads store, one barrier,
+// one thread's release).  The owner finds the count complete (it spins on
+// an acquire load, in practice not at all), adds the partials to its
+// registers, resets the counter for the next launch and writes the tile.
+// Each block owns at most one split tile and stores at most one partial,
+// so the slots and counters are one a block.
+// kernels/quant_matmul.py:w8a8_block_work lists the same runs on the host.
+//
+// Block.  kCWarps consumer warps (two warpgroups: output channels 0-63 and
+// 64-127 of the tile) and one producer warp.  The producer's lane 0 keeps
+// a ring of `stages` stages full with TMA (cp.async.bulk.tensor, 128-byte
+// swizzle): each stage holds the tile's 128 weight rows and its N
+// activation rows of one 128-byte depth of D, completing on the stage's
+// full mbarrier; rows and bytes past O, M and D arrive as zeros, which
+// add nothing.  Each consumer warpgroup runs four wgmma.mma_async
+// m64nNk32 s8 x s8 -> s32 a stage (swap AB: its 64 weight rows are the A
+// operand, the activation rows the N side, both K-major from shared
+// memory), keeps one group in flight and frees the stage before on its
+// empty mbarrier (one arrival a consumer warp).  A consumer thread holds
+// channels o = 16 * warp + g (+8) and rows m = 8j + 2t (+1) of its 64 x N
+// accumulator, N / 2 registers.
+//
+// phases: setup: barriers and the run; first stage's arrival; later stages' waits; products (issue and wait); epilogue of a whole tile; partial store + count (a later contributor); the owner's wait; the owner's combine + epilogue
 
-// Split-K across blocks.  Every block stores its partial sums (plain
-// stores into ws: one T per (tile, split, register, thread)); the last
+#ifndef GQ_PHASES
+#define GQ_PHASE_INIT()
+#define GQ_PHASE(i)
+#define GQ_BYTES(n)
+#define GQ_PHASE_END()
+#endif
+
+constexpr int kMaxW = 3;        // weights a launch
+constexpr int kTileO = 128;     // output channels a tile
+constexpr int kStageK = 128;    // bytes of D a stage
+constexpr int kWStage = kTileO * kStageK;  // a stage's weight bytes
+constexpr int kCWarps = 8;      // two consumer warpgroups
+constexpr int kGemmThreads = 32 * (kCWarps + 1);
+constexpr int kMaxStages = 12;
+constexpr int kMaxSmem = 232448;  // the opt-in limit of a block
+
+struct GemmMaps {
+  CUtensorMap act;           // (M, D) int8, boxes (N, 128)
+  CUtensorMap w[kMaxW];      // (O_w, D) int8, boxes (128, 128)
+};
+
+struct GemmParams {
+  const float* ys;           // (M,)
+  const float* s[kMaxW];     // (O_w,)
+  void* out[kMaxW];          // (M, O_w)
+  int* ws;                   // int32 partials: slots of 128 * N
+  int* counters;             // one a slot, zero between launches
+  int O[kMaxW];
+  int tile0[kMaxW + 1];      // each weight's first tile, then all tiles
+  int M, n_k, n_mtiles, stages, out_bf16;
+  long long n_iters;
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int K>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+
+// A K-major operand in shared memory as TMA's 128-byte swizzle leaves it:
+// rows of 128 bytes, 8-row groups 1024 bytes apart; its address moves by
+// 32 bytes for each k32 step inside the swizzle atom.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |           // LBO (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |   // SBO
+         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
+}
+
+constexpr int kConsumers = 32 * kCWarps;
+
+__device__ __forceinline__ void red_release(int* p, int v) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+      "r"(v)
+      : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A weight tile through TMA with an L2 cache policy.
+__device__ __forceinline__ void load_weight(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// the block holding iteration i of I cut into B runs
+__device__ __forceinline__ int block_of(long long i, long long I, int B) {
+  return static_cast<int>(((i + 1) * B - 1) / I);
+}
+
+__device__ __forceinline__ void tile_of(const GemmParams& p, int t, int& w,
+                                        int& ot, int& mt) {
+  w = 0;
+  while (w + 1 < kMaxW && t >= p.tile0[w + 1]) ++w;
+  const int local = t - p.tile0[w];
+  ot = local / p.n_mtiles;
+  mt = local - ot * p.n_mtiles;
+}
+
+// c (64 x N, s32) += a (64 x 32 s8, K-major) * b (N x 32 s8, K-major),
+// both from shared memory through their descriptors; c is not read when
+// accumulate is 0.  One specialisation per N the kernel is compiled for.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&c)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&c)[4], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<16>(int (&c)[8], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&c)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<48>(int (&c)[24], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&c)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<80>(int (&c)[40], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39"
+      "}, %40, %41, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<96>(int (&c)[48], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&c)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
+        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
+        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<160>(int (&c)[80], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
+        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
+        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
+        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
+        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
+        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<192>(int (&c)[96], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
+        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
+        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
+        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
+        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
+        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
+        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
+        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
+        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
+        "+r"(c[95])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<224>(int (&c)[112], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111"
+      "}, %112, %113, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
+        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
+        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
+        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
+        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
+        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
+        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
+        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
+        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
+        "+r"(c[95]), "+r"(c[96]), "+r"(c[97]), "+r"(c[98]), "+r"(c[99]),
+        "+r"(c[100]), "+r"(c[101]), "+r"(c[102]), "+r"(c[103]), "+r"(c[104]),
+        "+r"(c[105]), "+r"(c[106]), "+r"(c[107]), "+r"(c[108]), "+r"(c[109]),
+        "+r"(c[110]), "+r"(c[111])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&c)[128], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
+        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
+        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
+        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
+        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
+        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
+        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
+        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
+        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
+        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
+        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
+        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
+        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
+        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
+        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
+        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
+        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
+        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
+        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
+        "+r"(c[95]), "+r"(c[96]), "+r"(c[97]), "+r"(c[98]), "+r"(c[99]),
+        "+r"(c[100]), "+r"(c[101]), "+r"(c[102]), "+r"(c[103]), "+r"(c[104]),
+        "+r"(c[105]), "+r"(c[106]), "+r"(c[107]), "+r"(c[108]), "+r"(c[109]),
+        "+r"(c[110]), "+r"(c[111]), "+r"(c[112]), "+r"(c[113]), "+r"(c[114]),
+        "+r"(c[115]), "+r"(c[116]), "+r"(c[117]), "+r"(c[118]), "+r"(c[119]),
+        "+r"(c[120]), "+r"(c[121]), "+r"(c[122]), "+r"(c[123]), "+r"(c[124]),
+        "+r"(c[125]), "+r"(c[126]), "+r"(c[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The epilogue of a tile from consumer thread tid's registers: register
+// 4j + e -> channel 128 ot + 64 wg + 16 (warp % 4) + g + 8 (e >> 1), row
+// N mt + 8j + 2t + (e & 1).  The row scales are loaded before any store.
+template <int N, typename T>
+__device__ __forceinline__ void write_rows(const int (&acc)[N / 2],
+                                           const GemmParams& p, int w,
+                                           int ot, int mt, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int O = p.O[w];
+  const int o0 = ot * kTileO + (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  const float* __restrict__ sc = p.s[w];
+  const float s_lo = o0 < O ? __ldg(sc + o0) : 0.f;
+  const float s_hi = o0 + 8 < O ? __ldg(sc + o0 + 8) : 0.f;
+  const int m0 = mt * N + 2 * t4;
+  float ys[N / 4];  // rows m0 + 8j + h at 2j + h
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const int m = m0 + (i >> 1) * 8 + (i & 1);
+    ys[i] = m < p.M ? __ldg(p.ys + m) : 0.f;
+  }
+  T* out = static_cast<T*>(p.out[w]);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = o0 + (e >> 1) * 8;
+      const int m = m0 + j * 8 + (e & 1);
+      if (o < O && m < p.M) {
+        const float v = __fmul_rn(
+            __fmul_rn(static_cast<float>(acc[4 * j + e]), ys[2 * j + (e & 1)]),
+            e >> 1 ? s_hi : s_lo);
+        if constexpr (sizeof(T) == 2) {
+          out[static_cast<int64_t>(m) * O + o] = __float2bfloat16_rn(v);
+        } else {
+          out[static_cast<int64_t>(m) * O + o] = v;
+        }
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void write_tile(const int (&acc)[N / 2],
+                                           const GemmParams& p, int w,
+                                           int ot, int mt, int tid) {
+  if (p.out_bf16) {
+    write_rows<N, __nv_bfloat16>(acc, p, w, ot, mt, tid);
+  } else {
+    write_rows<N, float>(acc, p, w, ot, mt, tid);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    w8a8_gemm_kernel(const __grid_constant__ GemmMaps maps,
+                     const __grid_constant__ GemmParams p) {
+  constexpr int kRegs = N / 2;
+  constexpr int kPart = kRegs * kConsumers;  // ints of a block's partial
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // a stage: the tile's 128 weight rows and its N activation rows
+  constexpr int kStage = kWStage + N * kStageK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kStage);
+  uint64_t* empty = full + p.stages;
+
+  GQ_PHASE_INIT();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int B = gridDim.x;
+  const long long it0 = p.n_iters * blockIdx.x / B;
+  const long long it1 = p.n_iters * (blockIdx.x + 1) / B;
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kCWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  GQ_PHASE(0);
+
+  if (warp == kCWarps) {  // the producer
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.act) : "memory");
+      // a weight read once (one row tile) goes first out of L2, so the
+      // activation, the partials and the next kernel's inputs stay
+      uint64_t policy;
+      if (p.n_mtiles == 1) {
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                     : "=l"(policy));
+      } else {
+        asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                     : "=l"(policy));
+      }
+      int stage = 0;
+      unsigned phase = 0;
+      for (long long it = it0; it < it1; ++it) {
+        const int t = static_cast<int>(it / p.n_k);
+        const int k = static_cast<int>(it - static_cast<long long>(t) * p.n_k);
+        int w, ot, mt;
+        tile_of(p, t, w, ot, mt);
+        mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * kStage;
+        mbar_expect_tx(&full[stage], kStage);
+        load_weight(st, &maps.w[w], &full[stage], k * kStageK, ot * kTileO,
+                    policy);
+        tma_load_2d(st + kWStage, &maps.act, &full[stage], k * kStageK,
+                    mt * N);
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const int wg = warp >> 2;
+  int acc[kRegs];
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) acc[i] = 0;
+  int stage = 0;
+  unsigned phase = 0;
+  bool first_wait = true;
+  long long it = it0;
+  while (it < it1) {
+    const int t = static_cast<int>(it / p.n_k);
+    const long long ts = static_cast<long long>(t) * p.n_k;
+    const long long te = ts + p.n_k;
+    const long long seg_end = te < it1 ? te : it1;
+    const bool whole = ts >= it0 && te <= it1;
+    int held = -1;  // the stage the last wgmma group may still read
+    for (long long i = it; i < seg_end; ++i) {
+      mbar_wait(&full[stage], phase);
+      if (first_wait) {
+        GQ_PHASE(1);
+        first_wait = false;
+      } else {
+        GQ_PHASE(2);
+      }
+      GQ_BYTES(kWStage);
+      const uint32_t sw = smem_u32(ring + stage * kStage) + wg * 64 * kStageK;
+      const uint32_t sa = smem_u32(ring + stage * kStage) + kWStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStageK / 32; ++kk) {
+        wgmma_s8<N>(acc, sw128_desc(sw + kk * 32), sw128_desc(sa + kk * 32),
+                    i != it || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (held >= 0 && lane == 0) mbar_arrive(&empty[held]);
+      held = stage;
+      if (++stage == p.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      GQ_PHASE(3);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[held]);
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+    it = seg_end;
+
+    int w, ot, mt;
+    tile_of(p, t, w, ot, mt);
+    if (whole) {
+      write_tile<N>(acc, p, w, ot, mt, tid);
+      GQ_PHASE(4);
+    } else if (ts < it0) {
+      // a later contributor (the tile began in an earlier run): its
+      // partial into its block's slot, counted at the owner's counter
+      int4* part = reinterpret_cast<int4*>(p.ws + blockIdx.x * kPart) + tid;
+#pragma unroll
+      for (int i = 0; i < kRegs / 4; ++i) {
+        part[i * kConsumers] = make_int4(acc[4 * i], acc[4 * i + 1],
+                                         acc[4 * i + 2], acc[4 * i + 3]);
+      }
+      named_sync_consumers();
+      if (tid == 0) red_release(&p.counters[block_of(ts, p.n_iters, B)], 1);
+      GQ_PHASE(5);
+    } else {
+      // the owner: its run holds the tile's first iteration, at its end;
+      // the later contributors ran the tile's rest at the start of theirs
+      const int b_last = block_of(te - 1, p.n_iters, B);
+      if (tid == 0) {
+        int* cnt = &p.counters[blockIdx.x];
+        while (ld_acquire(cnt) != b_last - static_cast<int>(blockIdx.x)) {
+        }
+        *cnt = 0;
+      }
+      named_sync_consumers();
+      GQ_PHASE(6);
+      for (int b = blockIdx.x + 1; b <= b_last; ++b) {
+        const int4* part =
+            reinterpret_cast<const int4*>(p.ws + b * kPart) + tid;
+#pragma unroll
+        for (int i = 0; i < kRegs / 4; ++i) {
+          const int4 v = __ldcg(part + i * kConsumers);
+          acc[4 * i] += v.x;
+          acc[4 * i + 1] += v.y;
+          acc[4 * i + 2] += v.z;
+          acc[4 * i + 3] += v.w;
+        }
+      }
+      write_tile<N>(acc, p, w, ot, mt, tid);
+      GQ_PHASE(7);
+    }
+  }
+  GQ_PHASE_END();
+}
+
+// The tensor map of a K-major (rows, D) int8 matrix, boxes (box_rows,
+// 128): the 128-byte swizzle the wgmma descriptors read; rows and bytes
+// past the matrix arrive as zeros.
+int kmajor_map(CUtensorMap* map, const void* base, int rows, int D,
+               int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = encoder()(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+size_t gemm_smem(int N, int stages) {
+  return 1024 + static_cast<size_t>(stages) * (kWStage + N * kStageK) +
+         16 * static_cast<size_t>(stages);
+}
+
+template <int N>
+int launch_w8a8(const GemmMaps& maps, const GemmParams& p, int blocks,
+                cudaStream_t stream) {
+  static bool smem_set = false;
+  int err = set_smem_once(w8a8_gemm_kernel<N>, kMaxSmem, smem_set);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kGemmThreads);
+  cfg.dynamicSmemBytes = gemm_smem(N, p.stages);
+  cfg.stream = stream;
+  // cooperative: all blocks resident at once, as the owners' waits need
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = static_cast<int>(
+      cudaLaunchKernelEx(&cfg, w8a8_gemm_kernel<N>, maps, p));
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// w8_bf16_gemm: out[m, o] = (sum_k bf16(y[m,k]) * bf16(wt[o,k])) * s[o],
+// f32 accumulation, cast to the output dtype, with the weight K-major
+// (O, D).  The activation comes in rounded to bf16, as _qmm_kernel rounds
+// it; an int8 weight is exact in bf16 (|w| <= 128 < 2^8), and each
+// bf16 x bf16 product is exact in the tensor cores' f32 sums, so only the
+// order of the f32 sums differs from the plain version.  Tensor cores:
+// mma.sync m16n8k16 (bf16 x bf16 -> f32), the weight as the 16-row A side
+// (widened in registers), the activation rows as the 8-wide N side.  Its
+// tiles (quant_common.cuh, namespace tc), 4-stage cp.async ring and
+// split-K are the mma.sync design w8a8_gemm had before its Hopper
+// redesign; a stage holds 128 bytes of each weight row and the matching
+// 128 bf16 (256 bytes) of each activation row.  Requires D % 16 == 0
+// (checked by the wrapper).
+
+// Byte offset of 16-byte chunk c of activation row r in a stage of
+// 256-byte rows.  Odd rows swap neighbouring chunks, so the 8 lanes of a
+// quarter warp (rows g, g + 1, chunks 2t or 2t + 1) read 8 distinct bank
+// groups.
+__device__ __forceinline__ int ychunk_at(int r, int c) {
+  return r * 2 * tc::kTK + ((c ^ (r & 1)) << 4);
+}
+
+// The 4 int8 of w (bytes 0..3) as two bf16 pairs, exactly: lo = (b0, b1),
+// hi = (b2, b3), the first of each pair in the low half.  Each byte,
+// biased by 128, becomes the low mantissa byte of 2^23 + u; subtracting
+// 2^23 + 128 leaves the integer in f32, whose upper half is its bf16.
+__device__ __forceinline__ void int8x4_to_bf16x2(int w, unsigned& lo,
+                                                 unsigned& hi) {
+  const unsigned u = static_cast<unsigned>(w) ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | i)) -
+           8388736.f;
+  }
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w8_bf16_gemm's split-K across blocks.  Every block stores its partial
+// sums (plain stores into ws: one T per (tile, split, register, thread));
+// the last
 // block of an output tile, found with an atomic counter that it resets to
 // zero, loads every split's partial of the registers each thread owns and
 // sums them in split order, so the result does not depend on which block
@@ -186,182 +979,10 @@ __device__ __forceinline__ bool reduce_splits(T (&acc)[MT][NT][4],
   return true;
 }
 
-// Grid: x = output tile of kTO channels, y = split of D (k_split bytes
+// Grid: x = output tile of kTO channels, y = split of D (k_split values
 // each, the last one short), z = tile of NT * 8 activation rows.
-// ws (split-K only): one int32 partial per (tile, split, register, thread);
+// ws (split-K only): one f32 partial per (tile, split, register, thread);
 // counters: one per (row tile, output tile), zero on entry and on exit.
-template <int NT>
-__global__ void __launch_bounds__(tc::kThreads)
-w8a8_gemm_tc_kernel(const int8_t* __restrict__ yq,
-                    const float* __restrict__ ys,
-                    const int8_t* __restrict__ wt,
-                    const float* __restrict__ s, void* __restrict__ out,
-                    int out_bf16, int M, int D, int O, int k_split,
-                    int prefetch, int* __restrict__ ws,
-                    int* __restrict__ counters) {
-  constexpr int kRows = NT * 8;
-  constexpr int kWBytes = tc::kTO * tc::kTK;
-  constexpr int kStageBytes = kWBytes + kRows * tc::kTK;
-  constexpr int kChunks = tc::kTK / 16;          // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ot = blockIdx.x, split = blockIdx.y;
-  const int n_split = gridDim.y;
-  const int o0 = ot * tc::kTO, m0 = blockIdx.z * kRows;
-  const int k0 = split * k_split;
-  const int k1 = min(D, k0 + k_split);
-  const int n_k = (k1 - k0 + tc::kTK - 1) / tc::kTK;
-
-  // one stage: kTO weight rows and kRows activation rows of kTK bytes
-  // (whole L2 lines), chunks of 16 bytes; chunks past O, M or the
-  // split's end are zero-filled
-  auto load_stage = [&](int slot, int kt) {
-    unsigned char* st = smem + slot * kStageBytes;
-    const int kb = k0 + kt * tc::kTK;
-#pragma unroll
-    for (int i = tid; i < tc::kTO * kChunks; i += tc::kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const int o = o0 + r, k = kb + c * 16;
-      const bool ok = o < O && k < k1;
-      cp_async16(st + chunk_at(r, c), ok ? wt + (int64_t)o * D + k : wt, ok,
-                 prefetch);
-    }
-    unsigned char* at = st + kWBytes;
-    for (int i = tid; i < kRows * kChunks; i += tc::kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const int m = m0 + r, k = kb + c * 16;
-      const bool ok = m < M && k < k1;
-      cp_async16(at + chunk_at(r, c), ok ? yq + (int64_t)m * D + k : yq, ok);
-    }
-  };
-
-  int acc[tc::kMTiles][NT][4];
-#pragma unroll
-  for (int i = 0; i < tc::kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-#pragma unroll
-  for (int p = 0; p < tc::kStages - 1; ++p) {
-    if (p < n_k) load_stage(p, p);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<tc::kStages - 2>();
-    __syncthreads();  // stage kt landed; slot (kt - 1) % kStages is free
-    if (kt + tc::kStages - 1 < n_k) {
-      load_stage((kt + tc::kStages - 1) % tc::kStages, kt + tc::kStages - 1);
-    }
-    cp_async_commit();
-    const unsigned char* st = smem + (kt % tc::kStages) * kStageBytes;
-    const unsigned char* at = st + kWBytes;
-    // in each 64-byte half, thread (g, t) takes bytes [16t, 16t + 16) of
-    // its rows: words x, y feed one MMA (k slots t*4.. and 16 + t*4..),
-    // words z, w the next
-#pragma unroll
-    for (int h = 0; h < tc::kTK / 64; ++h) {
-      const int c = h * 4 + t;
-      int4 a[tc::kMTiles][2];
-#pragma unroll
-      for (int i = 0; i < tc::kMTiles; ++i) {
-        const int r = warp * tc::kWarpO + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const int4*>(st + chunk_at(r, c));
-        a[i][1] = *reinterpret_cast<const int4*>(st + chunk_at(r + 8, c));
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int4 b =
-            *reinterpret_cast<const int4*>(at + chunk_at(j * 8 + g, c));
-#pragma unroll
-        for (int i = 0; i < tc::kMTiles; ++i) {
-          mma_s8(acc[i][j], a[i][0].x, a[i][1].x, a[i][0].y, a[i][1].y, b.x,
-                 b.y);
-          mma_s8(acc[i][j], a[i][0].z, a[i][1].z, a[i][0].w, a[i][1].w, b.z,
-                 b.w);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // int32 partials: the same bits in any order
-  if (n_split > 1 && !reduce_splits(acc, ws, counters,
-                                    blockIdx.z * gridDim.x + ot, split,
-                                    n_split)) {
-    return;
-  }
-
-  // epilogue: c0, c1 -> channel g, rows 2t, 2t + 1; c2, c3 -> channel g + 8
-#pragma unroll
-  for (int i = 0; i < tc::kMTiles; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int o = o0 + warp * tc::kWarpO + i * 16 + g + (e >> 1) * 8;
-        const int m = m0 + j * 8 + 2 * t + (e & 1);
-        if (o < O && m < M) {
-          const float v = __fmul_rn(
-              __fmul_rn(static_cast<float>(acc[i][j][e]), ys[m]), s[o]);
-          store_out(out, out_bf16, (int64_t)m * O + o, v);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// w8_bf16_gemm: out[m, o] = (sum_k bf16(y[m,k]) * bf16(wt[o,k])) * s[o],
-// f32 accumulation, cast to the output dtype, with the weight K-major
-// (O, D).  The activation comes in rounded to bf16, as _qmm_kernel rounds
-// it; an int8 weight is exact in bf16 (|w| <= 128 < 2^8), and each
-// bf16 x bf16 product is exact in the tensor cores' f32 sums, so only the
-// order of the f32 sums differs from the plain version.  Tensor cores:
-// mma.sync m16n8k16 (bf16 x bf16 -> f32), the weight as the 16-row A side
-// (widened in registers), the activation rows as the 8-wide N side.  The
-// tiles, the ring and split-K are w8a8_gemm's; a stage holds 128 bytes of
-// each weight row and the matching 128 bf16 (256 bytes) of each
-// activation row.  Requires D % 16 == 0 (checked by the wrapper).
-
-// Byte offset of 16-byte chunk c of activation row r in a stage of
-// 256-byte rows.  Odd rows swap neighbouring chunks, so the 8 lanes of a
-// quarter warp (rows g, g + 1, chunks 2t or 2t + 1) read 8 distinct bank
-// groups.
-__device__ __forceinline__ int ychunk_at(int r, int c) {
-  return r * 2 * tc::kTK + ((c ^ (r & 1)) << 4);
-}
-
-// The 4 int8 of w (bytes 0..3) as two bf16 pairs, exactly: lo = (b0, b1),
-// hi = (b2, b3), the first of each pair in the low half.  Each byte,
-// biased by 128, becomes the low mantissa byte of 2^23 + u; subtracting
-// 2^23 + 128 leaves the integer in f32, whose upper half is its bf16.
-__device__ __forceinline__ void int8x4_to_bf16x2(int w, unsigned& lo,
-                                                 unsigned& hi) {
-  const unsigned u = static_cast<unsigned>(w) ^ 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | i)) -
-           8388736.f;
-  }
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Grid and workspace as w8a8_gemm_tc_kernel's (ws holds f32 partials).
 template <int NT>
 __global__ void __launch_bounds__(tc::kThreads)
 w8_bf16_gemm_tc_kernel(const __nv_bfloat16* __restrict__ y,
@@ -498,24 +1119,6 @@ w8_bf16_gemm_tc_kernel(const __nv_bfloat16* __restrict__ y,
 }
 
 template <int NT>
-int launch_w8a8(const void* yq, const void* ys, const void* wt,
-                const void* s, void* out, int out_bf16, int M, int D, int O,
-                int k_split, int n_split, void* ws, void* counters,
-                cudaStream_t stream) {
-  const size_t smem = (size_t)tc::kStages * (tc::kTO + NT * 8) * tc::kTK;
-  static bool smem_set = false;
-  int err = set_smem_once(w8a8_gemm_tc_kernel<NT>, smem, smem_set);
-  if (err) return err;
-  const TcGrid g(NT, M, O, k_split, n_split);
-  w8a8_gemm_tc_kernel<NT><<<g.grid, tc::kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(yq), static_cast<const float*>(ys),
-      static_cast<const int8_t*>(wt), static_cast<const float*>(s), out,
-      out_bf16, M, D, O, k_split, g.prefetch, static_cast<int*>(ws),
-      static_cast<int*>(counters));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NT>
 int launch_w8_bf16(const void* y, const void* wt, const void* s, void* out,
                    int out_bf16, int M, int D, int O, int k_split,
                    int n_split, void* ws, void* counters,
@@ -596,38 +1199,89 @@ int gemm_tile_o() { return tc::kTO; }
 
 int gemm_tile_k() { return tc::kTK; }
 
-// wt is K-major (O, D).  rows (activation rows per block: 8, 16, 32, 64 or
-// 80), k_split and n_split come from the wrapper's plan
-// (kernels/quant_matmul.py:gemm_plan); ws and counters are used only when
-// n_split > 1.
-#define TC_GEMM_DISPATCH(LAUNCH)                                            \
-  switch (rows) {                                                           \
-    case 8: return LAUNCH(1);                                               \
-    case 16: return LAUNCH(2);                                              \
-    case 32: return LAUNCH(4);                                              \
-    case 64: return LAUNCH(8);                                              \
-    case 80: return LAUNCH(10);                                             \
-    default: return static_cast<int>(cudaErrorInvalidValue);                \
-  }
-
-int w8a8_gemm(const void* yq, const void* ys, const void* wt, const void* s,
-              void* out, int out_bf16, int M, int D, int O, int rows,
-              int k_split, int n_split, void* ws, void* counters,
-              void* stream) {
-  if (M == 0 || O == 0) return 0;
-  if (bad_plan(D, k_split, n_split)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define W8A8_LAUNCH(NT_)                                                   \
-  launch_w8a8<NT_>(yq, ys, wt, s, out, out_bf16, M, D, O, k_split,         \
-                   n_split, ws, counters, st)
-  TC_GEMM_DISPATCH(W8A8_LAUNCH)
-#undef W8A8_LAUNCH
+// The dynamic shared memory of a w8a8_gemm block of `rows` activation rows
+// and `stages` stages (the wrapper's plan sizes its ring with the same
+// sum).
+int w8a8_gemm_smem(int rows, int stages) {
+  return static_cast<int>(gemm_smem(rows, stages));
 }
 
-// y is bf16 (M, D); the output is bf16 or float32.  The rest as w8a8_gemm
-// (ws holds float32 partials).
+// n_w (1 to 3) K-major (O_w, D) int8 weights wt_w with their (O_w,) f32
+// scales s_w and (M, O_w) outputs out_w, all against one (M, D) int8
+// activation yq and its (M,) f32 row scales ys.  rows (activation rows a
+// tile: 8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 224 or 256), n_mtiles,
+// blocks and stages come from the wrapper's plan
+// (kernels/quant_matmul.py:w8a8_plan); ws holds `blocks` slots of
+// 128 * rows int32 and counters `blocks` ints, all zero, and the launch
+// leaves them zero.  Returns the cudaError_t of the launch, or 10000 +
+// the CUresult of a failed tensor-map encode.
+int w8a8_gemm(const void* yq, const void* ys, int M, int D, int n_w,
+              const void* wt0, const void* wt1, const void* wt2,
+              const void* s0, const void* s1, const void* s2, void* out0,
+              void* out1, void* out2, int O0, int O1, int O2, int out_bf16,
+              int rows, int n_mtiles, int blocks, int stages,
+              void* ws, void* counters, void* stream) {
+  if (M == 0) return 0;
+  if (n_w < 1 || n_w > kMaxW || D < 16 || D % 16 || stages < 2 ||
+      stages > kMaxStages || rows < 8 || rows > 256 ||
+      gemm_smem(rows, stages) > static_cast<size_t>(kMaxSmem) ||
+      n_mtiles != (M + rows - 1) / rows || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!encoder()) return static_cast<int>(cudaErrorNotSupported);
+  const void* wts[kMaxW] = {wt0, wt1, wt2};
+  const void* ss[kMaxW] = {s0, s1, s2};
+  void* outs[kMaxW] = {out0, out1, out2};
+  const int Os[kMaxW] = {O0, O1, O2};
+  GemmMaps maps = {};
+  GemmParams p = {};
+  int err = kmajor_map(&maps.act, yq, M, D, rows);
+  for (int w = 0; w < n_w && !err; ++w) {
+    if (Os[w] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    err = kmajor_map(&maps.w[w], wts[w], Os[w], D, kTileO);
+    p.s[w] = static_cast<const float*>(ss[w]);
+    p.out[w] = outs[w];
+    p.O[w] = Os[w];
+    p.tile0[w + 1] = p.tile0[w] + (Os[w] + kTileO - 1) / kTileO * n_mtiles;
+  }
+  if (err) return err;
+  for (int w = n_w; w < kMaxW; ++w) p.tile0[w + 1] = p.tile0[n_w];
+  p.ys = static_cast<const float*>(ys);
+  p.ws = static_cast<int*>(ws);
+  p.counters = static_cast<int*>(counters);
+  p.M = M;
+  p.n_k = (D + kStageK - 1) / kStageK;
+  p.n_mtiles = n_mtiles;
+  p.stages = stages;
+  p.out_bf16 = out_bf16;
+  p.n_iters = static_cast<long long>(p.tile0[kMaxW]) * p.n_k;
+  if (blocks > p.n_iters) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+#define W8A8_CASE(N_) \
+  case N_:            \
+    return launch_w8a8<N_>(maps, p, blocks, st);
+    W8A8_CASE(8)
+    W8A8_CASE(16)
+    W8A8_CASE(32)
+    W8A8_CASE(48)
+    W8A8_CASE(64)
+    W8A8_CASE(80)
+    W8A8_CASE(96)
+    W8A8_CASE(128)
+    W8A8_CASE(160)
+    W8A8_CASE(192)
+    W8A8_CASE(224)
+    W8A8_CASE(256)
+#undef W8A8_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// y is bf16 (M, D), wt K-major (O, D); the output is bf16 or float32.
+// rows (activation rows per block: 8, 16, 32, 64 or 80), k_split and
+// n_split come from the wrapper's plan (kernels/quant_matmul.py:gemm_plan);
+// ws (float32 partials) and counters are used only when n_split > 1.
 int w8_bf16_gemm(const void* y, const void* wt, const void* s, void* out,
                  int out_bf16, int M, int D, int O, int rows, int k_split,
                  int n_split, void* ws, void* counters, void* stream) {
@@ -639,10 +1293,15 @@ int w8_bf16_gemm(const void* y, const void* wt, const void* s, void* out,
 #define W8_BF16_LAUNCH(NT_)                                                \
   launch_w8_bf16<NT_>(y, wt, s, out, out_bf16, M, D, O, k_split, n_split,  \
                       ws, counters, st)
-  TC_GEMM_DISPATCH(W8_BF16_LAUNCH)
+  switch (rows) {
+    case 8: return W8_BF16_LAUNCH(1);
+    case 16: return W8_BF16_LAUNCH(2);
+    case 32: return W8_BF16_LAUNCH(4);
+    case 64: return W8_BF16_LAUNCH(8);
+    case 80: return W8_BF16_LAUNCH(10);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef W8_BF16_LAUNCH
 }
-
-#undef TC_GEMM_DISPATCH
 
 }  // extern "C"

@@ -12,8 +12,10 @@ parallel), with ``csrc/quant_common.cuh`` between them:
   and one round trip to memory.
 - ``w8a8_gemm`` replaces ``_qmm_i8_kernel`` (:94) in
   ``quantized_matmul_w8a8`` (:117): int8 x int8 -> int32, epilogue
-  ``(f32(acc) * y_s) * s``.  At the main path's M it is bound by reading
-  the int8 weight once (D*O bytes).
+  ``(f32(acc) * y_s) * s``; ``w8a8_gemm_many`` runs up to three weights
+  that share their activation (q|k|v, gate|up) in one launch.  Below
+  about 300 rows it is bound by reading the int8 weight once (D*O
+  bytes), above by the int8 tensor cores.
 - ``w8_bf16_gemm`` replaces ``_qmm_kernel`` (:26) in ``quantized_matmul``
   (:34): bf16 activation times the int8 weight widened to bf16 in
   registers, f32 accumulation, per-out-channel scale.  Bound by the
@@ -36,21 +38,24 @@ the same arithmetic.
 
 All five are Hopper redesigns.  The three GEMMs take their weight K-major,
 (O, D) (``models/quant.pack_kmajor`` packs it once, where leaves are
-made), and run on the int8 or bf16 tensor cores with split-K across
-blocks, planned by ``gemm_plan`` and, for the grouped GEMM, whose splits
-must keep the one fused multiply-add chain over the groups,
-``grouped_gemm_plan``.
+made).  ``w8a8_gemm`` runs on ``wgmma`` with a TMA ring on mbarriers and
+persistent blocks that share the (tile, stage) iterations evenly
+(``w8a8_plan``); ``w8_bf16_gemm`` and the grouped GEMM run on
+``mma.sync`` with split-K across blocks, planned by ``gemm_plan`` and,
+for the grouped GEMM, whose splits must keep the one fused multiply-add
+chain over the groups, ``grouped_gemm_plan``.
 
 Every wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
 adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
-wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``,
-``w8_bf16_gemm_split_k`` and ``w8a8_grouped_gemm_split_k``, the calls
-that split D across blocks (still one launch each),
-``group_quant_int8_simple`` and ``w8a8_grouped_gemm_simple``, the calls
-that took the grouped pair's simple route (still one launch each),
-``counter_zeroing``, the fills of the split-K tile counters (one per
-kernel, device and size; the kernels leave them zero), and
+wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``, the
+launches whose plan splits a tile across blocks, ``w8_bf16_gemm_split_k``
+and ``w8a8_grouped_gemm_split_k``, the calls that split D across blocks
+(still one launch each), ``group_quant_int8_simple`` and
+``w8a8_grouped_gemm_simple``, the calls that took the grouped pair's
+simple route (still one launch each), ``counter_zeroing``, the fills of
+the tile counters (one per kernel, device and size; the kernels leave
+them zero), and
 ``w8_bf16_gemm_f32_cast``, the float32 activations rounded to bf16 by
 PyTorch before the launch (the bf16 main path has none).
 """
@@ -93,13 +98,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.row_quant_int8.argtypes = [vp, ci, vp, vp] + [ci] * 4 + [vp]
     lib.empty_kernel_launch.argtypes = [ci, ci, vp]
-    lib.w8a8_gemm.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 3
+    lib.w8a8_gemm.argtypes = ([vp, vp, ci, ci, ci] + [vp] * 9 + [ci] * 8
+                              + [vp] * 3)
     lib.w8_bf16_gemm.argtypes = [vp] * 4 + [ci] * 7 + [vp] * 3
+    lib.w8a8_gemm_smem.argtypes = [ci, ci]
     for fn in (lib.row_quant_int8, lib.empty_kernel_launch, lib.w8a8_gemm,
-               lib.w8_bf16_gemm, lib.gemm_tile_o, lib.gemm_tile_k):
+               lib.w8_bf16_gemm, lib.gemm_tile_o, lib.gemm_tile_k,
+               lib.w8a8_gemm_smem):
         fn.restype = ci
     if (lib.gemm_tile_o(), lib.gemm_tile_k()) != (GEMM_TILE_O, GEMM_TILE_K):
         raise RuntimeError("gemm_plan's tiles differ from the kernels'")
+    if any(lib.w8a8_gemm_smem(r, st) != w8a8_smem(r, st)
+           for r in (W8A8_ROWS[0], W8A8_ROWS[-1]) for st in (2, 5)):
+        raise RuntimeError("w8a8_plan's ring differs from the kernel's")
     return lib
 
 
@@ -266,10 +277,10 @@ def row_quant_int8(y: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core GEMMs' plan
+# the mma.sync GEMMs' plan (w8_bf16_gemm; the grouped GEMM's tiles)
 
 
-# Tiles of the tensor-core kernels (csrc/quant_matmul.cu, namespace tc):
+# Tiles of the mma.sync kernels (csrc/quant_common.cuh, namespace tc):
 # output channels per block, weight bytes (values of D) per pipeline
 # stage, and the activation row tiles they are compiled for (NT n8 tiles
 # of 8 rows)
@@ -293,7 +304,7 @@ def _cdiv(a, b):
 
 @functools.lru_cache(maxsize=None)
 def gemm_plan(M: int, D: int, O: int, sms: int) -> GemmPlan:
-    """The grid of ``w8a8_gemm`` and ``w8_bf16_gemm`` for an (M, D) x
+    """The grid of ``w8_bf16_gemm`` for an (M, D) x
     (D, O) product on a card with ``sms`` SMs (a pure function of the
     shapes).  One row tile holds all M <= 80 rows, so the weight is read
     once; D is split across blocks until there are about
@@ -334,7 +345,7 @@ def _ptr(t):
 
 
 # ---------------------------------------------------------------------------
-# w8a8_gemm
+# w8a8_gemm and w8a8_gemm_many
 
 
 def w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
@@ -346,43 +357,169 @@ def w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
     return (acc * y_s * scale[None, :]).to(out_dtype)
 
 
-def w8a8_gemm(y_q, y_s, w_t, scale, out_dtype):
-    """y_q (M, D) int8, y_s (M, 1) f32, w_t (O, D) int8 K-major, scale (O,)
-    f32 -> (M, O) out_dtype."""
+def w8a8_gemm_many_plain(y_q, y_s, w_ts, scales, out_dtype):
+    """``w8a8_gemm_plain`` of each weight of one activation."""
+    return tuple(w8a8_gemm_plain(y_q, y_s, w_t, s, out_dtype)
+                 for w_t, s in zip(w_ts, scales))
+
+
+# The Hopper kernel's tiles (csrc/quant_matmul.cu): output channels a tile,
+# bytes of D a stage, the activation rows a tile is compiled for (the
+# wgmma N sides), weights a launch, and its ring: at most
+# W8A8_MAX_STAGES stages of W8A8_TILE_O weight rows and `rows`
+# activation rows, in the SM's W8A8_SMEM bytes of shared memory
+W8A8_TILE_O = 128
+W8A8_STAGE_K = 128
+W8A8_ROWS = (8, 16, 32, 48, 64, 80, 96, 128, 160, 192, 224, 256)
+W8A8_MAX_WEIGHTS = 3
+W8A8_MAX_STAGES = 12
+W8A8_SMEM = 232448
+
+
+def w8a8_smem(rows: int, stages: int) -> int:
+    """Dynamic shared memory of a block: the ring, its full and empty
+    mbarriers, and 1024 bytes to align the ring for TMA's swizzle."""
+    return 1024 + stages * (W8A8_TILE_O + rows) * W8A8_STAGE_K + 16 * stages
+
+
+class W8A8Plan(NamedTuple):
+    """One launch: tiles of (weight, W8A8_TILE_O channels, ``rows``
+    activation rows), weight by weight, output tile by output tile, row
+    tiles innermost; iteration ``t * n_k + k`` is stage k of D of tile t,
+    and block b runs iterations [b * n_iters // blocks, (b + 1) * n_iters
+    // blocks)."""
+    rows: int  # activation rows a tile, one of W8A8_ROWS
+    n_mtiles: int
+    n_k: int  # stages of D a tile
+    tile0: tuple  # each weight's first tile, then the number of tiles
+    n_iters: int
+    blocks: int  # persistent blocks, at most one an SM
+    stages: int  # depth of the TMA ring
+    split_tiles: int  # tiles whose iterations fall to more than one block
+
+
+def _block_start(b, n_iters, blocks):
+    return b * n_iters // blocks
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(M: int, D: int, Os: tuple, sms: int) -> W8A8Plan:
+    """The launch of ``w8a8_gemm_many`` for an (M, D) activation against
+    K-major weights of (O, D) for O in ``Os`` on a card with ``sms`` SMs
+    (a pure function of the shapes).  Up to 256 rows one row tile holds
+    them all, so each weight crosses memory once; above, as few tiles as
+    hold 256 rows each, of the fewest compiled rows that cover an even
+    share.  The (tile, stage) iterations are cut into one equal run an SM
+    (lengths differ by at most one stage)."""
+    n_mtiles = _cdiv(M, W8A8_ROWS[-1])
+    rows = next(r for r in W8A8_ROWS if r >= _cdiv(M, n_mtiles))
+    n_k = _cdiv(D, W8A8_STAGE_K)
+    tile0 = [0]
+    for O in Os:
+        tile0.append(tile0[-1] + _cdiv(O, W8A8_TILE_O) * n_mtiles)
+    n_iters = tile0[-1] * n_k
+    blocks = max(1, min(sms, n_iters))
+    stages = W8A8_MAX_STAGES
+    while w8a8_smem(rows, stages) > W8A8_SMEM:
+        stages -= 1
+    split = len({_block_start(b, n_iters, blocks) // n_k
+                 for b in range(1, blocks)
+                 if _block_start(b, n_iters, blocks) % n_k})
+    return W8A8Plan(rows, n_mtiles, n_k, tuple(tile0), n_iters, blocks,
+                    stages, split)
+
+
+def w8a8_block_work(plan: W8A8Plan, b: int):
+    """Block b's iterations as the kernel walks them: (weight, output
+    tile, row tile, stage of D), in order."""
+    out = []
+    for it in range(_block_start(b, plan.n_iters, plan.blocks),
+                    _block_start(b + 1, plan.n_iters, plan.blocks)):
+        t, k = divmod(it, plan.n_k)
+        w = max(i for i in range(len(plan.tile0) - 1) if plan.tile0[i] <= t)
+        ot, mt = divmod(t - plan.tile0[w], plan.n_mtiles)
+        out.append((w, ot, mt, k))
+    return out
+
+
+_w8a8_ws = {}
+
+
+def _w8a8_buffers(dev, sms):
+    """The split tiles' int32 workspace (a partial of 128 * rows a block,
+    sized for the widest row tile; every slot read is written in the same
+    launch, so it is never filled) and the owners' counters, zero between
+    launches (the kernel resets each one it counts on)."""
+    ws = _w8a8_ws.get(dev)
+    if ws is None:
+        ws = torch.empty((sms * W8A8_TILE_O * W8A8_ROWS[-1],),
+                         dtype=torch.int32, device=dev)
+        _w8a8_ws[dev] = ws
+    return ws, zeroed_counters("w8a8_gemm", dev, sms)
+
+
+def w8a8_gemm_many(y_q, y_s, w_ts, scales, out_dtype):
+    """y_q (M, D) int8, y_s (M, 1) f32, up to W8A8_MAX_WEIGHTS K-major
+    weights w_ts [(O_i, D) int8] with scales [(O_i,) f32] -> a tuple of
+    (M, O_i) out_dtype, each bitwise what ``w8a8_gemm`` gives for its
+    weight alone, in one launch of the kernel."""
     if y_q.device.type == "cpu":
-        return w8a8_gemm_plain(y_q, y_s, w_t, scale, out_dtype)
+        return w8a8_gemm_many_plain(y_q, y_s, w_ts, scales, out_dtype)
     if y_q.device.type != "cuda":
         raise ValueError(f"w8a8_gemm: unsupported device {y_q.device}")
     dev = y_q.device
     _check("y_q", y_q, (torch.int8,), 2, dev)
     _check("y_s", y_s, (torch.float32,), 2, dev)
-    _check("w_t", w_t, (torch.int8,), 2, dev)
-    _check("scale", scale, (torch.float32,), 1, dev)
     if out_dtype not in _FLOATS:
         raise TypeError(f"w8a8_gemm: out_dtype {out_dtype}")
+    if len(w_ts) != len(scales) or not 1 <= len(w_ts) <= W8A8_MAX_WEIGHTS:
+        raise ValueError(f"w8a8_gemm: 1 to {W8A8_MAX_WEIGHTS} weights, one "
+                         "scale a weight")
     M, D = y_q.shape
-    O, D2 = w_t.shape
-    if D2 != D or scale.shape[0] != O or y_s.shape != (M, 1):
-        raise ValueError(
-            f"w8a8_gemm: shapes y_q {tuple(y_q.shape)} y_s "
-            f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
-        )
-    if D % 16 or y_q.data_ptr() % 16 or w_t.data_ptr() % 16:
+    if y_s.shape != (M, 1):
+        raise ValueError(f"w8a8_gemm: y_s {tuple(y_s.shape)} for M={M}")
+    for w_t, s in zip(w_ts, scales):
+        _check("w_t", w_t, (torch.int8,), 2, dev)
+        _check("scale", s, (torch.float32,), 1, dev)
+        if w_t.shape[1] != D or s.shape[0] != w_t.shape[0]:
+            raise ValueError(
+                f"w8a8_gemm: shapes y_q {tuple(y_q.shape)} w_t "
+                f"{tuple(w_t.shape)} s {tuple(s.shape)}")
+        if w_t.data_ptr() % 16:
+            raise ValueError("w8a8_gemm: the weights must be 16-byte aligned")
+    if D % 16 or y_q.data_ptr() % 16:
         raise ValueError(f"w8a8_gemm: D={D} must be a multiple of 16 and the "
                          "int8 operands 16-byte aligned")
-    out = torch.empty((M, O), dtype=out_dtype, device=dev)
-    if M == 0 or O == 0:
-        return out
-    plan = gemm_plan(M, D, O, sm_count(dev))
-    ws, counters = _split_k_buffers("w8a8_gemm", plan, torch.int32, dev)
+    Os = tuple(w_t.shape[0] for w_t in w_ts)
+    outs = tuple(torch.empty((M, O), dtype=out_dtype, device=dev)
+                 for O in Os)
+    if M == 0 or not any(Os):
+        return outs
+    if not all(Os):
+        raise ValueError(f"w8a8_gemm: a zero-width weight among {Os}")
+    sms = sm_count(dev)
+    ws, counters = _w8a8_buffers(dev, sms)
+    plan = w8a8_plan(M, D, Os, sms)
+    pad = [None] * (W8A8_MAX_WEIGHTS - len(Os))
     err = _library().w8a8_gemm(
-        y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, plan.rows,
-        plan.k_split, plan.n_split, _ptr(ws), _ptr(counters), _stream(y_q),
-    )
+        y_q.data_ptr(), y_s.data_ptr(), M, D, len(Os),
+        *[w_t.data_ptr() for w_t in w_ts], *pad,
+        *[s.data_ptr() for s in scales], *pad,
+        *[o.data_ptr() for o in outs], *pad,
+        *Os, *[0] * len(pad), int(out_dtype == torch.bfloat16), plan.rows,
+        plan.n_mtiles, plan.blocks, plan.stages, ws.data_ptr(),
+        counters.data_ptr(), _stream(y_q))
     _raise_on(err, "w8a8_gemm")
+    if plan.split_tiles:
+        internal_counts["w8a8_gemm_split_k"] += 1
     launch_counts["w8a8_gemm"] += 1
-    return out
+    return outs
+
+
+def w8a8_gemm(y_q, y_s, w_t, scale, out_dtype):
+    """y_q (M, D) int8, y_s (M, 1) f32, w_t (O, D) int8 K-major, scale (O,)
+    f32 -> (M, O) out_dtype: ``w8a8_gemm_many`` with one weight."""
+    return w8a8_gemm_many(y_q, y_s, (w_t,), (scale,), out_dtype)[0]
 
 
 def quantized_matmul_w8a8(y, w_q, scale, out_dtype=None):

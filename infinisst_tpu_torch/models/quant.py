@@ -7,7 +7,8 @@ package, plus one key of the port's own):
                          (..., out, in) -> ``w8_bf16_gemm``;
   {'q_kmajor', 'scale_a8' (..., out)}
                          per-out-channel W8A8, the weight K-major
-                         (..., out, in) -> row quant + ``w8a8_gemm``;
+                         (..., out, in) -> row quant +
+                         ``w8a8_gemm_many``;
   {'q_kmajor', 'scale_a8' (..., G, out)}
                          W8A8 with a per-(input group, out-channel) scale
                          (the ``--group128`` belt), the weight K-major
@@ -20,8 +21,9 @@ packed K-major once, where leaves are made (``pack_kmajor``: ``from_jax``,
 shape cannot tell a square weight from its transpose, hence the key.
 
 ``mm_many`` multiplies one activation by several weights and quantizes
-it once per activation layout (q/k/v and gate/up share their input);
-``mm`` is its one-weight case.  ``quantize_llama_params`` turns float
+it once per activation layout (q/k/v and gate/up share their input),
+its per-channel W8A8 products in one ``w8a8_gemm_many`` launch; ``mm``
+is its one-weight case.  ``quantize_llama_params`` turns float
 parameters into any of the int8 layouts; ``init_quantized_llama`` makes
 random ones directly in int8.
 """
@@ -36,7 +38,7 @@ from infinisst_tpu_torch.kernels.quant_matmul import (
     group_quant_int8,
     row_quant_int8,
     w8_bf16_gemm,
-    w8a8_gemm,
+    w8a8_gemm_many,
     w8a8_grouped_gemm,
 )
 
@@ -101,17 +103,19 @@ def mm(y: torch.Tensor, w) -> torch.Tensor:
 def mm_many(y: torch.Tensor, ws) -> tuple:
     """(y @ w for w in ws), each as ``mm`` computes it, with y quantized
     once per activation layout: one ``row_quant_int8`` for all
-    per-channel W8A8 leaves, one ``group_quant_int8`` per group size.  The
-    quantization is a pure function of y, so the results are bitwise
-    those of separate ``mm`` calls."""
+    per-channel W8A8 leaves, whose products then run in one
+    ``w8a8_gemm_many`` launch (up to three weights: q|k|v, gate|up), one
+    ``group_quant_int8`` per group size.  The quantization is a pure
+    function of y and each output channel is computed as alone, so the
+    results are bitwise those of separate ``mm`` calls."""
     shape = y.shape
-    y2, row_q, group_q, outs = None, None, {}, []
-    for w in ws:
+    y2, group_q, outs, a8 = None, {}, [None] * len(ws), []
+    for i, w in enumerate(ws):
         if isinstance(w, dict) and "a" in w:
-            outs.append(mm(mm(y, w["a"]), w["b"]))
+            outs[i] = mm(mm(y, w["a"]), w["b"])
             continue
         if not is_quantized(w):
-            outs.append(y @ w)
+            outs[i] = y @ w
             continue
         if is_unpacked(w):
             raise ValueError("mm: an int8 leaf in the (in, out) layout; "
@@ -125,12 +129,17 @@ def mm_many(y: torch.Tensor, ws) -> tuple:
             out = w8a8_grouped_gemm(*group_q[gs], w[KMAJOR], w["scale_a8"],
                                     y.dtype)
         elif "scale_a8" in w:
-            if row_q is None:
-                row_q = row_quant_int8(y2)
-            out = w8a8_gemm(*row_q, w[KMAJOR], w["scale_a8"], y.dtype)
+            a8.append(i)
+            continue
         else:
             out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
-        outs.append(out.reshape(*shape[:-1], out.shape[-1]))
+        outs[i] = out.reshape(*shape[:-1], out.shape[-1])
+    if a8:
+        res = w8a8_gemm_many(*row_quant_int8(y2),
+                             [ws[i][KMAJOR] for i in a8],
+                             [ws[i]["scale_a8"] for i in a8], y.dtype)
+        for i, out in zip(a8, res):
+            outs[i] = out.reshape(*shape[:-1], out.shape[-1])
     return tuple(outs)
 
 

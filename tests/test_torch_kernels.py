@@ -116,8 +116,8 @@ TINY_DO = [(64, 64), (64, 32), (64, 128), (128, 64), (64, 512)]
 
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_w8a8_plan_covers_every_row_of_d_once(sms):
-    """The host plan of the split-K GEMMs (``w8a8_gemm`` and
-    ``w8_bf16_gemm``): every D byte in exactly one split, whole stages per
+    """The host plan of the split-K GEMM (``w8_bf16_gemm``; the grouped
+    GEMM shares its tiles): every D byte in exactly one split, whole stages per
     split but the last, every row and channel in one tile; at M <= 16 the
     flagship shapes launch about two blocks per SM."""
     for D, O in FLAGSHIP_DO + TINY_DO:
@@ -135,6 +135,109 @@ def test_w8a8_plan_covers_every_row_of_d_once(sms):
             blocks = p.n_mtiles * p.n_otiles * p.n_split
             if M <= 16 and (D, O) in FLAGSHIP_DO:
                 assert blocks >= 1.9 * sms, (M, D, O, p)
+
+
+# weights that share an input (q|k|v, gate|up): the tiny model's (ragged:
+# 32 channels, a quarter of a tile) and the flagship's at an eighth of
+# its width
+SHARED_WIDTHS = {"tiny q|k|v": (64, (64, 32, 32)),
+                 "tiny gate|up": (64, (128, 128)),
+                 "flagship/8 q|k|v": (512, (512, 128, 128)),
+                 "flagship/8 gate|up": (512, (1792, 1792))}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("M", [1, 4, 61, 200])
+@pytest.mark.parametrize("widths", list(SHARED_WIDTHS))
+def test_w8a8_gemm_many_plain_bitwise_vs_jax_mm(widths, M, dtype):
+    """``w8a8_gemm_many_plain`` on the row-quantized activation and the
+    packed weights equals JAX ``mm`` of each weight alone, bitwise, and
+    ``mm_many`` on the packed leaves equals it too."""
+    jd, td = DTYPES[dtype]
+    D, Os = SHARED_WIDTHS[widths]
+    rng = np.random.RandomState(M * 31 + D + len(Os))
+    y = (rng.randn(M, D) * rng.uniform(0.5, 3.0, (M, 1))).astype(np.float32)
+    ws = [rng.randint(-127, 128, (D, O)).astype(np.int8) for O in Os]
+    ss = [(rng.rand(O) * 1e-2 + 1e-4).astype(np.float32) for O in Os]
+    yj = jnp.asarray(y).astype(jd)
+    want = [JQ.mm(yj, {"q": jnp.asarray(w), "scale_a8": jnp.asarray(s)})
+            for w, s in zip(ws, ss)]
+    y_q, y_s = TK.row_quant_int8(_port(y, td))
+    leaves = [_packed(w, s) for w, s in zip(ws, ss)]
+    got = TK.w8a8_gemm_many_plain(y_q, y_s, [lf[TQ.KMAJOR] for lf in leaves],
+                                  [lf["scale_a8"] for lf in leaves], td)
+    assert len(got) == len(Os)
+    for g, wnt, O in zip(got, want, Os):
+        assert g.dtype == td and tuple(g.shape) == (M, O)
+        np.testing.assert_array_equal(_as_f32(g), _as_f32(wnt))
+    for g, wnt in zip(TQ.mm_many(_port(y, td), leaves), want):
+        np.testing.assert_array_equal(_as_f32(g), _as_f32(wnt))
+
+
+# (M, D, Os) of the Hopper W8A8 kernel's launches: the flagship's q|k|v,
+# o, gate|up, down and padded head at the decoder's and the prefills' rows,
+# and the tiny model's ragged widths
+W8A8_LAUNCHES = (
+    [(M, 4096, (4096, 1024, 1024)) for M in (1, 4, 5, 20, 61, 79, 384, 448)]
+    + [(M, 4096, (4096,)) for M in (4, 32, 40, 768)]
+    + [(M, 4096, (14336, 14336)) for M in (1, 4, 8, 79, 320, 640)]
+    + [(M, 14336, (4096,)) for M in (4, 61, 512)]
+    + [(4, 4096, (128512,)), (1, 4096, (16384,))]
+    + [(M, 64, (64, 32, 32)) for M in (1, 4, 61, 200)]
+    + [(M, 128, (64,)) for M in (3, 257)] + [(7, 96, (40, 200))])
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_w8a8_plan_covers_every_channel_and_byte_once(sms):
+    """``w8a8_plan`` and the runs its blocks walk (``w8a8_block_work``):
+    every (output channel, K byte, row) of every weight in exactly one
+    iteration of one block; each block's run within one stage of an even
+    share; at most one block an SM; a row tile of every M up to 256 rows,
+    of compiled rows; a ring of at least two stages that fits the SM; and
+    for each tile split across blocks an owner (its first block, where the
+    tile is the run's last) and later contributors (where it is the run's
+    first), so that a block owns at most one tile and stores at most one
+    partial."""
+    for M, D, Os in W8A8_LAUNCHES:
+        p = TK.w8a8_plan(M, D, Os, sms)
+        assert p.rows in TK.W8A8_ROWS and p.n_mtiles * p.rows >= M
+        assert (p.n_mtiles - 1) * p.rows < M
+        if M <= TK.W8A8_ROWS[-1]:
+            assert p.n_mtiles == 1
+        assert 2 <= p.stages <= TK.W8A8_MAX_STAGES
+        assert TK.w8a8_smem(p.rows, p.stages) <= TK.W8A8_SMEM
+        assert p.blocks == min(sms, p.n_iters)
+        n_k = -(-D // TK.W8A8_STAGE_K)
+        cover = [np.zeros((-(-O // TK.W8A8_TILE_O), p.n_mtiles, n_k),
+                          np.int64) for O in Os]
+        owner = {}
+        lengths = []
+        for b in range(p.blocks):
+            work = TK.w8a8_block_work(p, b)
+            lengths.append(len(work))
+            for w, ot, mt, k in work:
+                cover[w][ot, mt, k] += 1
+                owner.setdefault((w, ot, mt), []).append(b)
+        assert all((c == 1).all() for c in cover), (M, D, Os, p)
+        assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+        assert sum(lengths) == p.n_iters
+        split = [sorted(set(bs)) for bs in owner.values()
+                 if bs[0] != bs[-1]]
+        assert len(split) == p.split_tiles
+        owners = [bs[0] for bs in split]
+        later = [b for bs in split for b in bs[1:]]
+        assert len(owners) == len(set(owners))
+        assert len(later) == len(set(later))
+        for bs in split:
+            assert TK.w8a8_block_work(p, bs[0])[-1][:3] == \
+                TK.w8a8_block_work(p, bs[1])[0][:3]
+            assert all(TK.w8a8_block_work(p, b)[0][3] > 0 for b in bs[1:])
+        # the channels and K bytes the tiles cover: every one, none twice
+        for O, c in zip(Os, cover):
+            assert c.shape[0] * TK.W8A8_TILE_O >= O
+            assert (c.shape[0] - 1) * TK.W8A8_TILE_O < O
+            assert c.shape[2] * TK.W8A8_STAGE_K >= D
+            assert (c.shape[2] - 1) * TK.W8A8_STAGE_K < D
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -142,11 +142,13 @@ def test_beam_token_step(kind, gen_len):
 def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
     """q/k/v and gate/up share their input, so a forward quantizes 4
     activations per layer and the lm_head's: ``row_quant_int8`` 4L + 1
-    times with per-channel W8A8 leaves; ``group_quant_int8`` 4L times
-    (and ``row_quant_int8`` once, for the per-channel head) with grouped
-    projections.  The GEMMs still run once per projection."""
-    calls = {"row_quant_int8": 0, "group_quant_int8": 0, "w8a8_gemm": 0,
-             "w8a8_grouped_gemm": 0}
+    times with per-channel W8A8 leaves, and their GEMMs run as 4L + 1
+    ``w8a8_gemm_many`` calls (q|k|v and gate|up one launch each);
+    ``group_quant_int8`` 4L times (and ``row_quant_int8`` once, for the
+    per-channel head) with grouped projections, whose GEMMs still run
+    once per projection."""
+    calls = {"row_quant_int8": 0, "group_quant_int8": 0,
+             "w8a8_gemm_many": 0, "w8a8_grouped_gemm": 0}
     for name in calls:
         fn = getattr(TQ, name)
 
@@ -160,10 +162,11 @@ def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
         embed_dtype=torch.float32, act_int8=True, lm_head_int8=True,
         group_size=group_size)
     L = CFG.num_layers
-    want = ({"row_quant_int8": 1, "group_quant_int8": 4 * L, "w8a8_gemm": 1,
-             "w8a8_grouped_gemm": 7 * L} if group_size else
+    want = ({"row_quant_int8": 1, "group_quant_int8": 4 * L,
+             "w8a8_gemm_many": 1, "w8a8_grouped_gemm": 7 * L}
+            if group_size else
             {"row_quant_int8": 4 * L + 1, "group_quant_int8": 0,
-             "w8a8_gemm": 7 * L + 1, "w8a8_grouped_gemm": 0})
+             "w8a8_gemm_many": 4 * L + 1, "w8a8_grouped_gemm": 0})
     rng = np.random.RandomState(8)
     _, ts = _state(2, [7, 3])
     TL.decode_step(p, CFG, ts, torch.from_numpy(

@@ -290,3 +290,34 @@ def test_fidelity_tool_runs_every_variant():
                 if not TQF.K.grouped_gemm_on_mma(D, G, O):
                     simple.add(name)
     assert simple == {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
+
+
+def test_gemm_phases_source_transform_keeps_the_kernel():
+    """``tools/gemm_phases``: the Hopper W8A8 source carries every phase
+    mark its ``// phases:`` line names, compiled away unless GQ_PHASES is
+    defined, and the instrumented build is that source with the
+    instrumentation around it, the text otherwise unchanged; no module of
+    the package but the tool itself names it."""
+    from infinisst_tpu_torch.tools import gemm_phases as G
+
+    pkg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "infinisst_tpu_torch")
+    with open(os.path.join(pkg, "csrc", "quant_matmul.cu")) as f:
+        src = f.read()
+    out, names = G.instrumented_source(src)
+    assert out == G._PRELUDE + src + G._EPILOGUE
+    assert 7 <= len(names) <= G.PHASE_BINS
+    marks = sorted(set(int(i) for i in re.findall(r"GQ_PHASE\((\d+)\)",
+                                                  src)))
+    assert marks == list(range(len(names)))
+    for m in ("GQ_PHASE_INIT()", "GQ_PHASE_END()", "GQ_BYTES("):
+        assert m in src
+    assert "#ifndef GQ_PHASES" in src and "#define GQ_PHASE(i)\n" in src
+    users = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py") and name != "gemm_phases.py":
+                with open(os.path.join(root, name)) as f:
+                    if "gemm_phases" in f.read():
+                        users.append(name)
+    assert users == []
