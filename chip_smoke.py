@@ -32,6 +32,16 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  epilogue over the concatenated weight;
                  row_quant_int8 and group_quant_int8 beside an empty
                  kernel of their launch geometry (the launch floor).
+                 rms_norm_quant_int8 (the residual add, RMSNorm and the
+                 quantizer, D = 4096: with and without the residual,
+                 bf16 and float32 rows and scales) and silu_mul_quant_int8
+                 (the SwiGLU product and the quantizer, D = 14336) against
+                 their plain versions at every path shape (FUSED_M), one
+                 scale a row and in groups of 128, under every plan of
+                 blocks a row: bitwise (any difference fails, with the
+                 count of what differs); timed beside an empty kernel
+                 of their geometry, the eager composition they replaced
+                 and the standalone quantizer.
                  The library yardsticks,
                  timed here and never called by the port: torch._int_mm
                  and the scale epilogue in PyTorch ops (with the kernel /
@@ -89,9 +99,12 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  lm_head, m=1, beam 4: streams until the encoder ring has
                  wrapped and the LLM cache was evicted; per-chunk wall
                  time, RTF and valid_len; launch counts checked per
-                 forward pass (w8a8_gemm 4L + 1, row_quant_int8 4L + 1:
-                 q/k/v and gate/up share one quantized input and one
-                 w8a8_gemm launch; a captured
+                 forward pass (a8_forward_launches: w8a8_gemm 4L + 1,
+                 rms_norm_quant_int8 2L + 1, silu_mul_quant_int8 L,
+                 row_quant_int8 L: q/k/v and gate/up share one quantized
+                 input and one w8a8_gemm launch, three of a layer's four
+                 quantizations fused into the kernel that makes the
+                 input; a captured
                  replay counts what its graph holds), printed beside what
                  the wrappers did besides launching (split-K calls, fills
                  of the kernels' tile counters); then one chunk with a
@@ -99,9 +112,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  chunk program (A prologue, B beam select, C beam
                  forward, F finish: wall ms per piece, a beam step's B +
                  C) and one under torch.profiler (device time by kernel
-                 and by piece, idle share; the kernels of each row the
-                 profiler saw run, counted by name, equal the launches
-                 the replayed graphs recorded at capture).
+                 and by piece, idle share; the other device ops by op,
+                 with no mean reduction beyond the encoder step's own,
+                 counted on an eager pass of it; the kernels of
+                 each row the profiler saw run, counted by name, equal
+                 the launches the replayed graphs recorded at capture).
                  Then [graph], on the same weights: the chunk program
                  captured as CUDA graphs against the same functions
                  uncaptured on the card (the agent's private
@@ -164,8 +179,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  agent through shard_params (zero's spec tree, FSDP's
                  code path) and tensor_parallel at (1, 1), 4 chunks, its
                  target ids those of the agent without a mesh after every
-                 chunk, w8a8_gemm, row_quant_int8 and beam_attention
-                 launched; the flagship W8A8 pool of 8 at beam 4 through
+                 chunk, w8a8_gemm, row_quant_int8, rms_norm_quant_int8,
+                 silu_mul_quant_int8 and beam_attention launched; the
+                 flagship W8A8 pool of 8 at beam 4 through
                  the split engine's path at (1, 1), 2 ticks, every slot's
                  tokens those of the pool without a mesh (one data rank:
                  NCCL refuses two ranks on one card, so the split itself
@@ -197,9 +213,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  then one chunk under torch.profiler.
   8. group128 -- four chunks of the 8B model as ``bench.py --group128``
                  makes it: grouped (128-wide) W8A8 projections, packed
-                 K-major, through w8a8_grouped_gemm (group_quant_int8 4L
-                 per forward), per-channel W8A8 lm_head; then one chunk
-                 under torch.profiler.
+                 K-major, through w8a8_grouped_gemm (a8_forward_launches
+                 grouped: rms_norm_quant_int8 2L + 1 and
+                 silu_mul_quant_int8 L grouped by 128 but the head's norm,
+                 group_quant_int8 L before o), per-channel W8A8 lm_head;
+                 then one chunk under torch.profiler.
   9. bench    -- ``python -m infinisst_tpu_torch.bench`` (flagship W8A8,
                  m=1, beam 4, 12 chunks, 3 untimed) in this process
                  (``run_main``), which holds no other 8B weights then:
@@ -210,13 +228,14 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  (``run_main``: its ``main`` with its output captured):
                  exit 0, metric serve_decode_tok_per_s_pool8_beam4_m1_8b_int8,
                  launches beam_attention = token forwards x L (at B=32
-                 over Bc=8 prefix caches), w8a8_gemm = forwards x
-                 (4L + 1); then a mixed --multipliers 1,2 pool of 2 chunks.
+                 over Bc=8 prefix caches), the GEMMs and quantizers
+                 forwards x a8_forward_launches(L); then a mixed
+                 --multipliers 1,2 pool of 2 chunks.
      alignatt -- ``python -m infinisst_tpu_torch.bench --mode alignatt``
                  (12 chunks, 3 untimed) and ``--early-stop``: exit 0, the
                  JSON line, each chunk's wall, beam steps, prompt bucket
-                 and prompt length; launches w8a8_gemm = steps x (4L + 1),
-                 row_quant_int8 = steps x (4L + 1), beam_attention =
+                 and prompt length; launches of the GEMMs and quantizers
+                 = steps x a8_forward_launches(L), beam_attention =
                  (steps - calls) x L, summed over the calls, each > 0 in
                  parity (the early stop may stop every call at its first
                  step, with no beam forward; its RTF then times a prefill
@@ -261,8 +280,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  --speculative --spec-beam, --do-sample and --speculative
                  --do-sample at the flagship W8A8, 8 chunks each, in
                  this process; each run's launches held to its model
-                 forwards (w8a8_gemm 4n + 1, row_quant_int8 4n + 1 a
-                 forward of n layers, beam_attention n a beam step,
+                 forwards (a8_forward_launches(n) a forward of n layers,
+                 beam_attention n a beam step,
                  decode_attention n a tree verify, none in a decode_step).
      spec serve -- the bench's --mode serve --speculative and
                  --speculative --do-sample (pool 8, beam 1), launches held
@@ -337,13 +356,16 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  every variant's flip rates, greedy divergence and beam-4
                  winner changes beside docs/quant_fidelity.json (the JAX
                  tool's); each variant's kernels launched (w8:
-                 w8_bf16_gemm; w8a8: row_quant_int8 + w8a8_gemm; grouped:
-                 group_quant_int8 + w8a8_grouped_gemm; beam_attention in
+                 w8_bf16_gemm; w8a8: rms_norm_quant_int8,
+                 silu_mul_quant_int8, row_quant_int8 + w8a8_gemm; grouped:
+                 the fused pair, group_quant_int8 + w8a8_grouped_gemm;
+                 beam_attention in
                  every beam step; the two groups-of-8 variants through
                  the grouped pair's simple route); then every int8 kernel
                  bitwise against its plain version on the trained weights
                  at the prefill's 512 rows and a beam step's 4
-                 (w8_bf16_gemm within 1e-5), timed at the prefill's shape,
+                 (w8_bf16_gemm within 1e-5; the fused quantizers at groups
+                 of 256 / 512, 128, 32 and 8), timed at the prefill's shape,
                  and beam_attention at the beam step's two blocks.
      distill tiny -- the probe's Llama trained 150 steps on the 64 x 64
                  corpus, 8 prompts rolled out, an adapter distilled at
@@ -398,8 +420,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
  14. one JSON ``kernels`` line (the launches of one replayed chunk of the
      captured program under ``graph``; the speculative paths' launches and times
      under ``spec`` and ``spec_serve`` of w8a8_gemm, row_quant_int8,
-     beam_attention (beam 1) and decode_attention (the tree verify's
-     prefix); the training path's launches, 0, under
+     rms_norm_quant_int8, silu_mul_quant_int8, beam_attention (beam 1)
+     and decode_attention (the tree verify's prefix); the fused
+     kernels' grouped form under ``group128``; the training path's
+     launches, 0, under
      ``train``; the mesh path's, by the agent and the dryrun, under
      ``mesh``; the tools' launches by phase and the times at the
      probe's shapes under ``tools``, the grouped GEMM's simple route at
@@ -468,6 +492,27 @@ TIMED_TRIALS = 3
 # w8a8_gemm launches a Llama layer makes: q|k|v and gate|up one launch each
 # (w8a8_gemm_many), o and down one each; a forward adds the head's
 GEMMS_PER_LAYER = 4
+
+
+def a8_forward_launches(n: int, grouped: bool = False) -> dict:
+    """The quantizer and GEMM launches of one W8A8 forward of n layers
+    with a per-channel W8A8 head: rms_norm_quant_int8 after each layer's
+    two residual adds and before the head (2n + 1), silu_mul_quant_int8
+    before each down projection (n), the attention output's own quantizer
+    before each o projection (n: row_quant_int8, or group_quant_int8 with
+    ``grouped`` projections); w8a8_gemm 4n + 1 (the grouped projections:
+    w8a8_grouped_gemm 7n, w8a8_gemm the head's 1)."""
+    fused = {"rms_norm_quant_int8": 2 * n + 1, "silu_mul_quant_int8": n}
+    if grouped:
+        return {"w8a8_grouped_gemm": 7 * n, "group_quant_int8": n,
+                "w8a8_gemm": 1, "row_quant_int8": 0, **fused}
+    return {"w8a8_gemm": GEMMS_PER_LAYER * n + 1, "row_quant_int8": n,
+            "group_quant_int8": 0, "w8a8_grouped_gemm": 0, **fused}
+
+
+# a8_forward_launches(n) as text
+A8_TEXT = ("w8a8_gemm 4n + 1, rms_norm_quant_int8 2n + 1, "
+           "silu_mul_quant_int8 n, row_quant_int8 n")
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -893,6 +938,169 @@ def check_kernels(dev, notes):
     check_grouped_simple(dev, gen)
     print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions (w8_bf16_gemm at every shape above)", flush=True)
+    check_fused(dev, notes)
+
+
+# the rows the fused quantizers are held and timed at: every path shape
+# (a stream's draft and sampling steps 1, the beam step 4, a verify 5, the
+# pool's draft 8, spec beam's tree 20, the pool's beam step 32 and verify
+# 40, the stream's prefills 61 and 79, StreamAtt's prompt buckets 192 and
+# 320, the pool's and AlignAtt's prefills 384 and 448); the norm's width
+# (the hidden size) and the SwiGLU product's (the intermediate size)
+FUSED_M = [1, 4, 5, 8, 20, 32, 40, 61, 79, 192, 320, 384, 448]
+NORM_D, SILU_D = 4096, 14336
+NORM_EPS = 1e-5  # Llama-3.1's rms_norm_eps
+# the blocks a row of the other plan whose bits are held to the plain
+# version's (``_plan_for_test``): a row of D = 4096 over a cluster of 2
+# blocks (the path's plan is one block), one of D = 14336 over 2 (the
+# path's is 8)
+FUSED_OTHER_BLOCKS = 2
+
+
+def fused_plans(K, D):
+    """The path's plan of the fused kernels for rows of D values and the
+    other plan checked beside it."""
+    return {K.norm_quant_plan(D), K._plan_for_test(D, FUSED_OTHER_BLOCKS)}
+
+
+def hold_fused(label, got, ref):
+    """A fused kernel's outputs against its plain version's, bitwise: h +
+    delta (where given), y_q and y_s.  Any difference fails, after the
+    count of the codes and scales that differ is printed."""
+    import torch
+
+    *gh, gq, gs_ = got
+    *rh, rq, rs = ref
+    if gh and not torch.equal(gh[0], rh[0]):
+        fail(f"{label}: h + delta differs from the plain version's")
+    if torch.equal(gq, rq) and torch.equal(gs_, rs):
+        return
+    dq = (gq.int() - rq.int()).abs()
+    rel = ((gs_ - rs).abs() / rs.abs()).max().item()
+    nq, ns = int((dq != 0).sum()), int((gs_ != rs).sum())
+    fail(f"{label}: not bitwise the plain version's: {nq} of {dq.numel()} "
+         f"codes (max {int(dq.max())}) and {ns} of {rs.numel()} scales (max "
+         f"relative {rel:.3e}) differ")
+
+
+def check_fused(dev, notes):
+    """rms_norm_quant_int8 (D = NORM_D: with and without the residual
+    delta, bf16 and float32 rows, bf16 and float32 norm scales) and
+    silu_mul_quant_int8 (D = SILU_D, bf16 and float32) against their plain
+    versions at FUSED_M rows, one scale a row and in groups of GROUP:
+    bitwise (hold_fused), under the path's plan of the blocks a row and
+    one other (fused_plans: a row's result does not depend on the
+    launch).  Timed on the path's
+    inputs (bf16 rows, the residual, bf16 scales) beside an empty kernel of
+    the same geometry (the launch floor), the eager composition the kernel
+    replaced (the residual add, llama._rms_norm's or torch's SwiGLU
+    product's launches, then the quantizer) and the standalone quantizer
+    at the same D."""
+    import torch
+
+    from infinisst_tpu_torch.kernels import quant_matmul as K
+    from infinisst_tpu_torch.models import llama
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    med = statistics.median
+    n = 0
+    bf = torch.bfloat16
+
+    def randn(M, D, dt, scale=1.0):
+        return (torch.randn((M, D), generator=gen, device=dev) * scale
+                ).to(dt)
+
+    for M in FUSED_M:
+        for dt in (bf, torch.float32):
+            h, d = randn(M, NORM_D, dt, 3.0), randn(M, NORM_D, dt)
+            g, u = randn(M, SILU_D, dt, 3.0), randn(M, SILU_D, dt)
+            for sdt in (bf, torch.float32):
+                sc = (torch.rand((NORM_D,), generator=gen, device=dev)
+                      + 0.5).to(sdt)
+                for delta in (d, None):
+                    for gs in (NORM_D, GROUP):
+                        ref = K.rms_norm_quant_int8_plain(h, delta, sc,
+                                                          NORM_EPS, gs)
+                        for plan in fused_plans(K, NORM_D):
+                            got = K.rms_norm_quant_int8(h, delta, sc,
+                                                        NORM_EPS, gs,
+                                                        _plan=plan)
+                            hold_fused(
+                                f"rms_norm_quant_int8 M={M} {dt} scale "
+                                f"{sdt} delta={delta is not None} gs={gs} "
+                                f"blocks={plan.blocks}", got, ref)
+                            n += 1
+            for gs in (SILU_D, GROUP):
+                ref = K.silu_mul_quant_int8_plain(g, u, gs)
+                for plan in fused_plans(K, SILU_D):
+                    got = K.silu_mul_quant_int8(g, u, gs, _plan=plan)
+                    hold_fused(f"silu_mul_quant_int8 M={M} {dt} gs={gs} "
+                               f"blocks={plan.blocks}", got, ref)
+                    n += 1
+    torch.cuda.synchronize()
+    print(f"  rms_norm_quant_int8 and silu_mul_quant_int8: {n} calls at "
+          f"M = {FUSED_M}, both plans, all bitwise their plain versions",
+          flush=True)
+
+    # times on the path's inputs
+    for M in FUSED_M:
+        h, d = randn(M, NORM_D, bf, 3.0), randn(M, NORM_D, bf)
+        sc = (torch.rand((NORM_D,), generator=gen, device=dev) + 0.5).to(bf)
+        g, u = randn(M, SILU_D, bf, 3.0), randn(M, SILU_D, bf)
+        for gs in (NORM_D, GROUP):
+            quant = (K.row_quant_int8 if gs == NORM_D else
+                     lambda y: K.group_quant_int8(y, GROUP))
+            plan = K.norm_quant_plan(NORM_D)
+            G = NORM_D // gs
+            ms = cuda_time_ms(lambda i: K.rms_norm_quant_int8(
+                h, d, sc, NORM_EPS, gs), 50)
+            pms = cuda_time_ms(lambda i: K.rms_norm_quant_int8_plain(
+                h, d, sc, NORM_EPS, gs), 20)
+            fms = cuda_time_ms(lambda i: K.launch_empty_rows(dev, plan, M),
+                               50)
+            eager = cuda_time_ms(lambda i: quant(llama._rms_norm(
+                h + d, sc, NORM_EPS)), 20)
+            qms = cuda_time_ms(lambda i: quant(h), 50)
+            bms, by = bound_ms(3 * M * NORM_D * 2 + NORM_D * 2 + M * NORM_D
+                               + M * G * 4, 0, 1.0)
+            key = (M, NORM_D, 0) if gs == NORM_D else ("g128", M, NORM_D, 0)
+            _note_fused(notes, "rms_norm_quant_int8", key, ms, pms, bms, by,
+                        fms, eager, qms, M, NORM_D, gs, plan)
+        for gs in (SILU_D, GROUP):
+            quant = (K.row_quant_int8 if gs == SILU_D else
+                     lambda y: K.group_quant_int8(y, GROUP))
+            plan = K.norm_quant_plan(SILU_D)
+            G = SILU_D // gs
+            ms = cuda_time_ms(lambda i: K.silu_mul_quant_int8(g, u, gs), 50)
+            pms = cuda_time_ms(lambda i: K.silu_mul_quant_int8_plain(
+                g, u, gs), 20)
+            fms = cuda_time_ms(lambda i: K.launch_empty_rows(dev, plan, M),
+                               50)
+            eager = cuda_time_ms(lambda i: quant(
+                torch.nn.functional.silu(g) * u), 20)
+            qms = cuda_time_ms(lambda i: quant(g), 50)
+            bms, by = bound_ms(2 * M * SILU_D * 2 + M * SILU_D + M * G * 4,
+                               0, 1.0)
+            key = (M, SILU_D, 0) if gs == SILU_D else ("g128", M, SILU_D, 0)
+            _note_fused(notes, "silu_mul_quant_int8", key, ms, pms, bms, by,
+                        fms, eager, qms, M, SILU_D, gs, plan)
+
+
+def _note_fused(notes, name, key, ms, pms, bms, by, fms, eager, qms, M, D,
+                gs, plan):
+    """Note a fused kernel's times with its launch floor, and print them
+    beside the eager composition it replaced and the standalone
+    quantizer (kept in the note as ``eager_ms`` and ``quantizer_ms``)."""
+    med = statistics.median
+    notes.note(name, key, 0.0, ms, pms, None, bms, by,
+               label=f"M={M:3d} D={D:5d} gs={gs:5d}", floor_ms=fms)
+    notes.rows[name]["shapes"][key].update(eager_ms=med(eager),
+                                           quantizer_ms=med(qms))
+    print(f"  {'':17s} {plan.blocks} block(s) of {plan.threads} threads a "
+          f"row; the eager composition it replaced {med(eager):.5f} ms "
+          f"(kernel / eager {med(ms) / med(eager):.3f}); the quantizer "
+          f"alone {med(qms):.5f} ms (kernel / quantizer "
+          f"{med(ms) / med(qms):.3f})", flush=True)
 
 
 # the weights that share an input at the flagship (one w8a8_gemm_many
@@ -1149,17 +1357,19 @@ ATT_KERNEL = {"beam_token_step": "beam_attention",
 def expected_launches(forwards) -> dict:
     """The kernel launches the bench's model forwards ({"fn L=n": count})
     must make at the flagship W8A8 with an int8 (full or shortlist) head:
-    4n + 1 w8a8_gemm and 4n + 1 row_quant_int8 a forward of n layers,
+    ``a8_forward_launches(n)`` a forward of n layers (w8a8_gemm 4n + 1,
+    rms_norm_quant_int8 2n + 1, silu_mul_quant_int8 n, row_quant_int8 n),
     beam_attention and decode_attention by ATT_PER_LAYER and ATT_KERNEL,
     no other kernel."""
     want = dict.fromkeys(("w8a8_gemm", "row_quant_int8", "decode_attention",
                           "beam_attention", "w8_bf16_gemm",
-                          "group_quant_int8", "w8a8_grouped_gemm"), 0)
+                          "group_quant_int8", "w8a8_grouped_gemm",
+                          "rms_norm_quant_int8", "silu_mul_quant_int8"), 0)
     for key, n in forwards.items():
         fn, L = key.split(" L=")
         L = int(L)
-        want["w8a8_gemm"] += n * (GEMMS_PER_LAYER * L + 1)
-        want["row_quant_int8"] += n * (4 * L + 1)
+        for k, v in a8_forward_launches(L).items():
+            want[k] += n * v
         if ATT_PER_LAYER[fn]:
             want[ATT_KERNEL[fn]] += n * L * ATT_PER_LAYER[fn]
     return want
@@ -1240,8 +1450,8 @@ def run_bench_line(extra, label, metric, keys):
     if got != want:
         fail(f"[{label}] launches {got} for forwards {fwd}; expected {want}")
     print(f"[{label}] {json.dumps(result)}", flush=True)
-    print(f"[{label}] forwards {fwd}: launches {got} (4n + 1 w8a8_gemm, "
-          "4n + 1 row_quant_int8 a forward of n layers)", flush=True)
+    print(f"[{label}] forwards {fwd}: launches {got} (a forward of n "
+          f"layers: {A8_TEXT})", flush=True)
     return result, got, fwd
 
 
@@ -2226,7 +2436,7 @@ def stage_chunk(dev, r):
     return spent, wall
 
 
-def profile_chunk(dev, r, label="profile"):
+def profile_chunk(dev, r, label="profile", keep=None):
     """One more chunk under torch.profiler: wall time, device kernel time
     by kernel name and by stage, and the device's idle share, both against
     the profiled wall and against the median unprofiled chunk wall; each
@@ -2236,18 +2446,11 @@ def profile_chunk(dev, r, label="profile"):
     programs = r["agent"]._programs.values()
     replays = sum(p.replays for p in programs)
     out = profile_run(dev, lambda: r["agent"].push(audio, finished=False),
-                      PIECES, label, med, "chunk", hold_launches=True)
+                      PIECES, label, med, "chunk", hold_launches=True,
+                      keep=keep)
     if sum(p.replays for p in programs) != replays + 1:
         fail(f"[{label}] the profiled chunk did not replay its program")
     return out
-
-
-# the kernel groups of the profiler's device events, each matched by the
-# first name its kernel's contains (the grouped names before their
-# substrings); the same names as the wrappers' launch counts
-KERNEL_GROUPS = ("w8a8_grouped_gemm", "group_quant_int8", "w8a8_gemm",
-                 "row_quant_int8", "w8_bf16_gemm", "decode_attention",
-                 "beam_attention")
 
 
 # idle host time inside a profiler's window before and after the step: the
@@ -2268,6 +2471,10 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False,
     ``keep`` (a dict) receives the profile under "prof"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from infinisst_tpu_torch.tools.op_split import (
+        PORT_KERNELS, port_kernel, tally,
+    )
 
     def wrap(name, fn):
         def ranged(*args, **kw):
@@ -2293,7 +2500,7 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False,
         seen = dict.fromkeys(recorded, 0)
         for e in averages:
             if e.device_type == DeviceType.CUDA:
-                g = next((g for g in KERNEL_GROUPS if g in e.key), None)
+                g = port_kernel(e.key)
                 if g is not None:
                     seen[g] += e.count
         if seen != recorded:
@@ -2338,14 +2545,16 @@ def profile_run(dev, step, stages, label, med, what, hold_launches=False,
         print(f"[{label}]   stage {name:16s} ranges {len(ss):2d}  device span "
               f"{span_ms:9.2f} ms  device kernels {dev_ms:9.2f} ms",
               flush=True)
-    groups = {"w8a8_grouped_gemm": 0.0, "group_quant_int8": 0.0,
-              "w8a8_gemm": 0.0, "row_quant_int8": 0.0, "w8_bf16_gemm": 0.0,
-              "decode_attention": 0.0, "beam_attention": 0.0, "other": 0.0}
-    for k, t in by_name.items():
-        g = next((g for g in groups if g in k), "other")
-        groups[g] += t
+    port, ops = tally(averages)  # ops: the "other" kernels by op
+    groups = {g: port.get(g, (0.0, 0))[0] for g in PORT_KERNELS}
+    groups["other"] = sum(t for t, _ in ops.values())
     print(f"[{label}] device ms by kernel group: "
           f"{ {k: round(v, 3) for k, v in groups.items()} }", flush=True)
+    if keep is not None:
+        keep["ops"] = ops
+    print(f"[{label}] other device ops by op (ms, launches): " + json.dumps(
+        {k: [round(v[0], 3), v[1]] for k, v in
+         sorted(ops.items(), key=lambda kv: -kv[1][0])}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for k, t in top:
         print(f"[{label}]   {t:9.3f} ms  {k[:90]}", flush=True)
@@ -2366,10 +2575,11 @@ def check_flagship(dev, paths):
     r = stream_8b(dev, cfg, params, min_chunks=13, max_chunks=60,
                   need_evict=True, label="w8a8")
     L = r["n_layers"]
-    # one GEMM per projection and the head; one row quantization per
-    # distinct input (q/k/v share one, gate/up another)
-    per_fwd = {"w8a8_gemm": GEMMS_PER_LAYER * L + 1,
-               "row_quant_int8": 4 * L + 1}
+    # one GEMM per projection and the head (q|k|v and gate|up one launch
+    # each); one quantization per distinct input (q/k/v share one, gate/up
+    # another), three of the four a layer fused into the kernel that makes
+    # the input
+    per_fwd = a8_forward_launches(L)
     for name, n in per_fwd.items():
         if r["counts"][name] != r["forwards"] * n:
             fail(f"[flagship] {name} launched {r['counts'][name]} times, "
@@ -2386,33 +2596,76 @@ def check_flagship(dev, paths):
     unused = ("w8_bf16_gemm", "group_quant_int8", "w8a8_grouped_gemm")
     if any(r["counts"][k] for k in unused):
         fail(f"[flagship] {unused} ran on the per-channel W8A8 path")
+    # the quantizations fused into the norm before them
+    fused_away = r["counts"]["rms_norm_quant_int8"]
     # chunk 0 carries one-time set-up (cuBLAS handles, allocator)
     rtf = sorted(t / r["chunk_sec"] for t in r["times"][1:])
     n = len(rtf)
     print(f"[flagship] chunks {r['chunks']} (ring wrap after 12, first "
           f"eviction decided after chunk {r['evicted_at']}); forwards "
           f"{r['forwards']} ({beam_fwd} beam forwards); launches "
-          f"{r['counts']} = forwards x {per_fwd['w8a8_gemm']} w8a8_gemm, "
-          f"forwards x {per_fwd['row_quant_int8']} row_quant_int8 (one per "
-          f"shared input) and beam forwards x {L} layers beam_attention "
-          f"launches (the prefix block and the per-beam block, one launch "
-          f"a layer)", flush=True)
+          f"{r['counts']} = forwards x ({', '.join(f'{v} {k}' for k, v in per_fwd.items() if v)}) "
+          f"(one quantization per shared input, {fused_away} of them fused "
+          f"into the norm before it) and beam forwards x {L} layers "
+          f"beam_attention launches (the prefix block and the per-beam "
+          f"block, one launch a layer)", flush=True)
     print(f"[flagship] RTF over chunks 1..{n} (bring-up reading, not a "
           f"benchmark): median {rtf[n // 2]:.4f}, "
           f"{100 * (n - 10) // n}th percentile {rtf[n - 11]:.4f} "
           f"(10 chunks above it), mean {sum(rtf) / n:.4f}, min "
           f"{rtf[0]:.4f}, max {rtf[-1]:.4f}; chunk 0 "
           f"{r['times'][0] / r['chunk_sec']:.4f}", flush=True)
-    for name in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
+    for name in ("w8a8_gemm", "row_quant_int8", "beam_attention",
+                 "rms_norm_quant_int8", "silu_mul_quant_int8"):
         paths[name] = ("flagship W8A8 stream", r["counts"])
     stage_chunk(dev, r)
-    profile_chunk(dev, r)
+    keep = {}
+    profile_chunk(dev, r, keep=keep)
+    # the norms' float32 means went into rms_norm_quant_int8: the chunk's
+    # mean reductions are the encoder's and the adapter's layer norms'
+    # alone, counted on an eager pass of the same encoder step
+    steps = r["agent"].last_result.steps
+    mean_ms, n_mean = keep["ops"].get("mean reduce", (0.0, 0))
+    n_enc = encoder_means(r["agent"])
+    print(f"[profile] mean reductions in the replayed chunk: {n_mean} "
+          f"({mean_ms:.3f} ms) for {steps} forwards; the encoder step's "
+          f"own: {n_enc}", flush=True)
+    if n_mean > n_enc:
+        fail(f"[profile] a replayed W8A8 chunk of {steps} forwards ran "
+             f"{n_mean} mean reductions, the encoder step {n_enc}: the "
+             f"norms' are not all fused")
     check_multiplier(dev, r)
     del r
     torch.cuda.empty_cache()
     check_serve_profile(dev, cfg, params)
     check_alignatt_profile(dev, cfg, params)
     return cfg, params
+
+
+def encoder_means(agent) -> int:
+    """The mean reductions of one steady chunk's encoder and adapter
+    (wav2vec2's and the adapter's layer norms): the aten.mean calls of an
+    eager ``speech_llm.encode_chunk`` on the agent's state, counted by a
+    dispatch mode.  The agent's state is not changed: the step returns
+    the new one."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from infinisst_tpu_torch.models import speech_llm
+
+    n = [0]
+
+    class CountMeans(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n[0] += func.overloadpacket is torch.ops.aten.mean
+            return func(*args, **(kwargs or {}))
+
+    c = agent._geometry(agent.opts.latency_multiplier, False)
+    with torch.no_grad(), CountMeans():
+        speech_llm.encode_chunk(agent.params, agent.cfg, agent.enc_state,
+                                agent.window[:, -c.conv_width:],
+                                c.chunk_frames, agent.stream.max_cache_frames)
+    return n[0]
 
 
 GRAPH_CHUNKS = 14  # m=1: the first key, the steady key, one eviction
@@ -2647,10 +2900,12 @@ def _nbytes(tensors) -> int:
 
 def _by_group(names: dict) -> dict:
     """Kernel counts by name (``device_kernel_names``) summed into the
-    port's kernels (KERNEL_GROUPS, the launch counters' names)."""
-    out = dict.fromkeys(KERNEL_GROUPS, 0)
+    port's kernels (op_split.PORT_KERNELS, the launch counters' names)."""
+    from infinisst_tpu_torch.tools.op_split import PORT_KERNELS, port_kernel
+
+    out = dict.fromkeys(PORT_KERNELS, 0)
     for key, n in names.items():
-        g = next((g for g in KERNEL_GROUPS if g in key), None)
+        g = port_kernel(key)
         if g is not None:
             out[g] += n
     return out
@@ -3155,6 +3410,7 @@ def check_spec_profile(dev, cfg, params):
     from infinisst_tpu_torch.bench import scale_residuals
     from infinisst_tpu_torch.core.config import StreamConfig
     from infinisst_tpu_torch.data.template import PromptBuilder, StubTokenizer
+    from infinisst_tpu_torch.tools.op_split import port_kernel
 
     ident = scale_residuals(params, SPEC_GRAPH_D, 0.0)
     builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
@@ -3183,9 +3439,8 @@ def check_spec_profile(dev, cfg, params):
         fail("[spec profile] the profiled chunk did not replay its program")
     rounds = agent.last_result.rounds
     # within R: the draft's port kernels come first (k forwards of d
-    # layers, 7d + 1 w8a8_gemm and 4d + 1 row_quant_int8 each), then the
-    # verify's
-    n_draft = SPEC_GRAPH_K * (11 * SPEC_GRAPH_D + 2)
+    # layers, a8_forward_launches(d) each), then the verify's
+    n_draft = SPEC_GRAPH_K * sum(a8_forward_launches(SPEC_GRAPH_D).values())
     spans, events = [], []
     for e in keep["prof"].events():
         if e.device_type != DeviceType.CUDA:
@@ -3193,7 +3448,7 @@ def check_spec_profile(dev, cfg, params):
         if e.name == "stage::R round":
             spans.append((e.time_range.start, e.time_range.end))
         else:
-            port = any(g in e.name for g in KERNEL_GROUPS)
+            port = port_kernel(e.name) is not None
             events.append((e.time_range.start, e.time_range.elapsed_us(),
                            port))
     events.sort()
@@ -3610,10 +3865,13 @@ def check_weight_only(dev, paths, speech):
                   need_evict=False, label="w8")
     want = r["forwards"] * 7 * r["n_layers"]
     c = r["counts"]
+    # the W8A8 head's quantizer fused into final_ln: one each a forward
     if not (c["w8_bf16_gemm"] == want
-            and c["w8a8_gemm"] == c["row_quant_int8"] == r["forwards"]):
+            and c["w8a8_gemm"] == c["rms_norm_quant_int8"] == r["forwards"]
+            and c["row_quant_int8"] == c["silu_mul_quant_int8"] == 0):
         fail(f"[weight_only] launches {c}, expected w8_bf16_gemm {want} "
-             f"and the W8A8 head {r['forwards']}")
+             f"and the W8A8 head's w8a8_gemm and rms_norm_quant_int8 "
+             f"{r['forwards']}")
     if internal_counts()["w8_bf16_gemm_f32_cast"]:
         fail("[weight_only] the bf16 stream rounded float32 activations")
     rtf = [t / r["chunk_sec"] for t in r["times"][1:]]
@@ -3638,19 +3896,22 @@ def check_group128(dev, paths, speech):
     r = stream_8b(dev, cfg, params, min_chunks=4, max_chunks=4,
                   need_evict=False, label="g128")
     L, c = r["n_layers"], r["counts"]
-    if not (c["w8a8_grouped_gemm"] == r["forwards"] * 7 * L
-            and c["group_quant_int8"] == r["forwards"] * 4 * L
-            and c["w8a8_gemm"] == c["row_quant_int8"] == r["forwards"]
-            and c["w8_bf16_gemm"] == 0):
-        fail(f"[group128] launches {c}, expected w8a8_grouped_gemm "
-             f"forwards x {7 * L}, group_quant_int8 forwards x {4 * L} (one "
-             f"per shared input) and the per-channel head {r['forwards']}")
+    # a8_forward_launches(L, grouped): the grouped norms and SwiGLU
+    # products fused, group_quant_int8 before o, the per-channel head's
+    # norm quantized per row
+    want = {k: r["forwards"] * n
+            for k, n in a8_forward_launches(L, grouped=True).items()}
+    want["w8_bf16_gemm"] = 0
+    if any(c[k] != n for k, n in want.items()):
+        fail(f"[group128] launches {c}, expected {want} for "
+             f"{r['forwards']} forwards")
     rtf = [t / r["chunk_sec"] for t in r["times"][1:]]
     print(f"[group128] chunks {r['chunks']}; forwards {r['forwards']}; "
           f"launches {c}; RTF chunks 1..: {[round(x, 4) for x in rtf]} "
           "(bring-up reading)", flush=True)
     for name in ("w8a8_grouped_gemm", "group_quant_int8"):
         paths[name] = ("group128 stream", c)
+    paths["group128"] = ("group128 stream", c)
     profile_chunk(dev, r, label="g128 profile")
     del params, r
     torch.cuda.empty_cache()
@@ -3659,8 +3920,8 @@ def check_group128(dev, paths, speech):
 def check_multiplier(dev, r):
     """On the flagship stream: update_multiplier(2), then (4), one chunk
     at each.  The encoder takes 96, then 192 frames; beam_attention is
-    launched once per layer per beam forward, the GEMMs 4L + 1 times a
-    forward."""
+    launched once per layer per beam forward, the GEMMs and quantizers as
+    ``a8_forward_launches`` says a forward."""
     import numpy as np
 
     agent = r["agent"]
@@ -3693,10 +3954,10 @@ def check_multiplier(dev, r):
             fail(f"[multiplier] m={m}: beam_attention launched "
                  f"{counts['beam_attention']} times, expected "
                  f"{steps - 1} beam forwards x {L} layers")
-        if counts["w8a8_gemm"] != steps * (GEMMS_PER_LAYER * L + 1):
-            fail(f"[multiplier] m={m}: w8a8_gemm launched "
-                 f"{counts['w8a8_gemm']} times, expected {steps} forwards "
-                 f"x {GEMMS_PER_LAYER * L + 1}")
+        for k, n in a8_forward_launches(L).items():
+            if counts[k] != steps * n:
+                fail(f"[multiplier] m={m}: {k} launched {counts[k]} times, "
+                     f"expected {steps} forwards x {n}")
 
 
 def check_bench():
@@ -3723,7 +3984,8 @@ def check_bench():
     launches = [json.loads(line[len("kernel launches "):]) for line in
                 out.stderr.splitlines() if line.startswith("kernel launches ")]
     if not launches or not all(launches[-1].get(k, 0) > 0 for k in (
-            "w8a8_gemm", "row_quant_int8", "beam_attention")):
+            "w8a8_gemm", "row_quant_int8", "beam_attention",
+            "rms_norm_quant_int8", "silu_mul_quant_int8")):
         fail(f"[bench] the flagship kernels were not launched: {launches}")
     if not (math.isfinite(result["value"]) and result["value"] > 0):
         fail(f"[bench] RTF {result['value']}")
@@ -3742,8 +4004,8 @@ def run_serve_bench(extra, metric, n_layers=32):
     (``run_main``): exit 0, its last stdout line the serve JSON line with
     ``metric``, and its launches on stderr those of the forwards it ran:
     beam_attention token forwards x L (all at B=32 over Bc=8 prefix
-    caches, each read by its slot's 4 beams), w8a8_gemm and
-    row_quant_int8 (4L + 1) and (4L + 1) a forward, no other kernel.
+    caches, each read by its slot's 4 beams), the GEMMs and quantizers
+    ``a8_forward_launches(L)`` a forward, no other kernel.
     Returns (result, launches, launches by shape, forwards)."""
     argv = ["--mode", "serve"] + extra
     out = run_main("infinisst_tpu_torch.bench", argv)
@@ -3784,9 +4046,8 @@ def run_serve_bench(extra, metric, n_layers=32):
     tok, total = fwd["token"], fwd["prefill"] + fwd["token"]
     L = n_layers
     want = {"beam_attention": tok * L, "decode_attention": 0,
-            "w8a8_gemm": total * (GEMMS_PER_LAYER * L + 1),
-            "row_quant_int8": total * (4 * L + 1), "w8_bf16_gemm": 0,
-            "group_quant_int8": 0, "w8a8_grouped_gemm": 0}
+            "w8_bf16_gemm": 0,
+            **{k: total * n for k, n in a8_forward_launches(L).items()}}
     got = {k: counts.get(k, 0) for k in want}
     want_shapes = {"beam B=32 Bc=8": tok * L}
     if got != want or shapes != want_shapes or tok <= 0:
@@ -3830,21 +4091,20 @@ CHUNK_LINE = re.compile(
 def check_offline_launches(label, counts, calls, n_layers=32,
                            beam_forwards=True):
     """The launches of offline calls (bench.run_offline records): a call
-    runs one prefill and steps - 1 beam forwards, so w8a8_gemm (4L + 1)
-    and row_quant_int8 (4L + 1) a forward, beam_attention L a beam
-    forward, and no other kernel; each of the three launched unless
+    runs one prefill and steps - 1 beam forwards, so the GEMMs and
+    quantizers ``a8_forward_launches(L)`` a forward, beam_attention L a
+    beam forward, and no other kernel; each launched unless
     ``beam_forwards`` is false (calls may then all stop at their first
     step).  Every prompt bucket (the prefill's rows) must be among the
     rows [kernels] held.  Returns the launches."""
     L = n_layers
     steps = sum(c[1] for c in calls)
-    want = {"w8a8_gemm": steps * (GEMMS_PER_LAYER * L + 1),
-            "row_quant_int8": steps * (4 * L + 1),
-            "beam_attention": (steps - len(calls)) * L,
-            "decode_attention": 0, "w8_bf16_gemm": 0, "group_quant_int8": 0,
-            "w8a8_grouped_gemm": 0}
+    want = {"beam_attention": (steps - len(calls)) * L,
+            "decode_attention": 0, "w8_bf16_gemm": 0,
+            **{k: steps * n for k, n in a8_forward_launches(L).items()}}
     got = {k: counts.get(k, 0) for k in want}
-    launched = ("w8a8_gemm", "row_quant_int8") + (
+    launched = ("w8a8_gemm", "row_quant_int8", "rms_norm_quant_int8",
+                "silu_mul_quant_int8") + (
         ("beam_attention",) if beam_forwards else ())
     if got != want or not all(got[k] > 0 for k in launched):
         fail(f"[{label}] launches {got} for {len(calls)} calls of {steps} "
@@ -3857,9 +4117,8 @@ def check_offline_launches(label, counts, calls, n_layers=32,
     print(f"[{label}] {len(calls)} calls, {steps} beam steps "
           f"({steps / len(calls):.1f} a call), prompt buckets {buckets} "
           f"(prefill rows held in [kernels]); launches {got} = steps x "
-          f"{GEMMS_PER_LAYER * L + 1}, steps x {4 * L + 1} and "
-          f"(steps - calls) x {L}",
-          flush=True)
+          f"({A8_TEXT} at n = {L}) and (steps - calls) x {L} "
+          f"beam_attention", flush=True)
     return got
 
 
@@ -3912,6 +4171,8 @@ def offline_path(paths, mode, counts, chunks, keys):
     bucket = statistics.mode(c[3] for c in chunks)
     shapes = {"w8a8_gemm": (bucket, REPORT_SHAPE[1], REPORT_SHAPE[2]),
               "row_quant_int8": (bucket, REPORT_SHAPE[1], 0),
+              "rms_norm_quant_int8": (bucket, NORM_D, 0),
+              "silu_mul_quant_int8": (bucket, SILU_D, 0),
               "beam_attention": keys}
     for name, shape in shapes.items():
         paths[f"{mode} {name}"] = (f"bench --mode {mode}", counts, shape)
@@ -5480,7 +5741,8 @@ def _mesh_in_process(dev, cfg, params):
             if g != w:
                 fail(f"[mesh] chunk {i}: target ids {g} through the mesh "
                      f"path, {w} without it")
-        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
+        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention",
+                  "rms_norm_quant_int8", "silu_mul_quant_int8"):
             if counts[k] <= 0:
                 fail(f"[mesh] {k} was not launched on the mesh path")
         print(f"[mesh] flagship W8A8 agent through the mesh path at (1, 1): "
@@ -5494,7 +5756,8 @@ def _mesh_in_process(dev, cfg, params):
             if g != w:
                 fail(f"[mesh] pool tick {i}: slot tokens {g} through the "
                      f"split engine's path, {w} without a mesh")
-        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention"):
+        for k in ("w8a8_gemm", "row_quant_int8", "beam_attention",
+                  "rms_norm_quant_int8", "silu_mul_quant_int8"):
             if pool_counts[k] <= 0:
                 fail(f"[mesh] {k} was not launched by the split engine")
         print(f"[mesh] flagship W8A8 pool of 8 at beam 4 through the split "
@@ -5639,23 +5902,28 @@ FIDELITY_STEPS = 600  # the JAX tool's default
 FIDELITY_DOC = "docs/quant_fidelity.json"  # the JAX tool's table
 # the kernels each variant's probe must launch (the float32 reference and
 # every variant run beam_attention in their beam steps)
+# (every W8A8 variant: the norms and the SwiGLU product quantized by the
+# fused kernels, the attention output by its own quantizer; a per-channel
+# head's by the final norm's fused kernel)
+FUSED = ("rms_norm_quant_int8", "silu_mul_quant_int8")
 FIDELITY_KERNELS = {
     "bf16": ("beam_attention",),
     "w8": ("w8_bf16_gemm", "beam_attention"),
-    "w8a8": ("row_quant_int8", "w8a8_gemm", "beam_attention"),
-    "w8a8_g128": ("group_quant_int8", "w8a8_grouped_gemm",
-                  "beam_attention"),
-    "w8a8_g128_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
-                           "row_quant_int8", "w8a8_gemm",
-                           "beam_attention"),
-    "w8a8_8groups_like_g512": ("group_quant_int8", "w8a8_grouped_gemm",
-                               "beam_attention"),
+    "w8a8": FUSED + ("row_quant_int8", "w8a8_gemm", "beam_attention"),
+    "w8a8_g128": FUSED + ("group_quant_int8", "w8a8_grouped_gemm",
+                          "beam_attention"),
+    "w8a8_g128_projonly": FUSED + ("group_quant_int8", "w8a8_grouped_gemm",
+                                   "w8a8_gemm", "beam_attention"),
+    "w8a8_8groups_like_g512": FUSED + ("group_quant_int8",
+                                       "w8a8_grouped_gemm",
+                                       "beam_attention"),
     # groups of 8: the grouped GEMM's simple route
-    "w8a8_32groups_like_g128": ("group_quant_int8", "w8a8_grouped_gemm",
-                                "beam_attention"),
-    "w8a8_32groups_projonly": ("group_quant_int8", "w8a8_grouped_gemm",
-                               "row_quant_int8", "w8a8_gemm",
-                               "beam_attention"),
+    "w8a8_32groups_like_g128": FUSED + ("group_quant_int8",
+                                        "w8a8_grouped_gemm",
+                                        "beam_attention"),
+    "w8a8_32groups_projonly": FUSED + ("group_quant_int8",
+                                       "w8a8_grouped_gemm", "w8a8_gemm",
+                                       "beam_attention"),
 }
 FIDELITY_COLS = ("train_flip_rate", "held_flip_rate", "held_dlogit_p99",
                  "greedy_match_32", "beam4_winner_changed")
@@ -5738,6 +6006,25 @@ def hold_tool_kernels(dev, params):
                               f"[fidelity] {label} gs={gs}",
                               (torch.float32,))
                 n += 2
+    # the fused quantizers at the probe's widths (its norm D=256 over the
+    # embedding and the layer's input as the residual, the SwiGLU product
+    # I=512), one scale a row and in groups of 128, 32 and 8
+    with torch.no_grad():
+        h = L.embed(params, ids).reshape(-1, cfg.hidden_size)
+        gate, up = y @ lp["w_gate"], y @ lp["w_up"]
+    for M in (512, 4):
+        for gs in (cfg.hidden_size, 128, 32, 8):
+            args = (h[:M].contiguous(), y[:M].contiguous(), lp["post_ln"],
+                    cfg.rms_norm_eps, gs)
+            hold_fused(f"[fidelity] rms_norm_quant_int8 M={M} gs={gs}",
+                       K.rms_norm_quant_int8(*args),
+                       K.rms_norm_quant_int8_plain(*args))
+            gs = cfg.intermediate_size if gs == cfg.hidden_size else gs
+            args = (gate[:M].contiguous(), up[:M].contiguous(), gs)
+            hold_fused(f"[fidelity] silu_mul_quant_int8 M={M} gs={gs}",
+                       K.silu_mul_quant_int8(*args),
+                       K.silu_mul_quant_int8_plain(*args))
+            n += 2
     torch.cuda.synchronize()
     print(f"  {n} kernel calls at the probe's shapes agree with their "
           "plain versions (bitwise but w8_bf16_gemm)", flush=True)
@@ -5767,6 +6054,31 @@ def time_tool_kernels(dev, notes, var, y):
                bms, by, label=f"tools M={M} D={D}",
                floor_ms=cuda_time_ms(
                    lambda i: K.launch_empty(dev, rp.vpt * M, rp.threads), 50))
+    # the fused quantizers at the probe's prefill: the norm (D) after the
+    # residual add, the SwiGLU product (the intermediate width)
+    lp = {k: v[0] for k, v in var["w8a8"]["layers"].items()
+          if not isinstance(v, dict)}
+    plan = K.norm_quant_plan(D)
+    bms, by = bound_ms(3 * M * D * 4 + D * 4 + M * D + M * 4, 0, 1.0)
+    notes.note("rms_norm_quant_int8", qkey, 0.0,
+               cuda_time_ms(lambda i: K.rms_norm_quant_int8(
+                   x, x, lp["post_ln"], 1e-5, D), 50),
+               cuda_time_ms(lambda i: K.rms_norm_quant_int8_plain(
+                   x, x, lp["post_ln"], 1e-5, D), 20), None, bms, by,
+               label=f"tools M={M} D={D}", floor_ms=cuda_time_ms(
+                   lambda i: K.launch_empty_rows(dev, plan, M), 50))
+    wg = _leaf(var["w8a8"], "w_gate")
+    Iw = wg["q_kmajor"].shape[0]
+    gate = torch.randn((M, Iw), device=dev)
+    plan = K.norm_quant_plan(Iw)
+    bms, by = bound_ms(2 * M * Iw * 4 + M * Iw + M * 4, 0, 1.0)
+    notes.note("silu_mul_quant_int8", ("tools", M, Iw, 0), 0.0,
+               cuda_time_ms(lambda i: K.silu_mul_quant_int8(
+                   gate, gate, Iw), 50),
+               cuda_time_ms(lambda i: K.silu_mul_quant_int8_plain(
+                   gate, gate, Iw), 20), None, bms, by,
+               label=f"tools M={M} I={Iw}", floor_ms=cuda_time_ms(
+                   lambda i: K.launch_empty_rows(dev, plan, M), 50))
     yq, ys = K.row_quant_int8(x)
     w = _leaf(var["w8a8"], "wq")
     wt, s = w["q_kmajor"], w["scale_a8"]
@@ -6437,7 +6749,8 @@ def check_distill_flagship(dev, paths):
 PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_kernel",
                      "w8_bf16_gemm_tc_kernel", "group_quant_int8_kernel",
                      "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel",
-                     "beam_attention_kernel")
+                     "beam_attention_kernel", "rms_norm_quant_int8_kernel",
+                     "silu_mul_quant_int8_kernel")
 
 
 def check_profiling(dev, params):
@@ -6492,7 +6805,9 @@ def check_profiling(dev, params):
         print(f"[profiling] device_trace of one W8A8 prefill of the probe's "
               f"model: {len(names)} event names, port kernels {seen}, "
               f"device us {json.dumps(dev_us)}", flush=True)
-        if not {"row_quant_int8_kernel", "w8a8_gemm_kernel"} <= set(seen):
+        if not {"row_quant_int8_kernel", "w8a8_gemm_kernel",
+                "rms_norm_quant_int8_kernel",
+                "silu_mul_quant_int8_kernel"} <= set(seen):
             fail("[profiling] the trace names no port kernel")
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -7037,6 +7352,17 @@ def main():
         "group_quant_int8": (
             g_src, "infinisst_tpu/kernels/quant_matmul.py:226",
             (REPORT_SHAPE[0], REPORT_SHAPE[1], 0)),
+        # the row quantizer fused into the kernels that make its input:
+        # llama._rms_norm (llama.py:47) with the residual add before it,
+        # and the SwiGLU product (llama.py:174), then quantize_activation
+        "rms_norm_quant_int8": (
+            "infinisst_tpu_torch/csrc/norm_quant.cu",
+            "infinisst_tpu/kernels/quant_matmul.py:106",
+            (REPORT_SHAPE[0], NORM_D, 0)),
+        "silu_mul_quant_int8": (
+            "infinisst_tpu_torch/csrc/norm_quant.cu",
+            "infinisst_tpu/kernels/quant_matmul.py:106",
+            (REPORT_SHAPE[0], SILU_D, 0)),
         "w8a8_grouped_gemm": (
             g_src, "infinisst_tpu/kernels/quant_matmul.py:191", REPORT_SHAPE),
         # the beam step's two blocks in one launch: JAX's two einsums and
@@ -7067,8 +7393,22 @@ def main():
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": [x for x in shape if x != 0], "path": path,
         })
-        if "launch_floor_ms" in t:  # the yardstick of a latency-bound kernel
-            entries[-1]["launch_floor_ms"] = t["launch_floor_ms"]
+        for k in ("launch_floor_ms", "eager_ms", "quantizer_ms"):
+            # the yardsticks of a latency-bound kernel: an empty kernel of
+            # its geometry; for a fused one, the eager composition it
+            # replaced and the quantizer alone
+            if k in t:
+                entries[-1][k] = t[k]
+        if name in ("rms_norm_quant_int8", "silu_mul_quant_int8"):
+            # the fused kernels' grouped form: the --group128 stream
+            gt = notes.rows[name]["shapes"][("g128",) + shape]
+            entries[-1]["group128"] = {
+                "launches": paths["group128"][1][name],
+                "path": paths["group128"][0], "gs": GROUP,
+                **{k: gt[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "launch_floor_ms", "eager_ms",
+                                      "quantizer_ms")}}
         # the training path runs no kernel (JAX's offline forward calls no
         # Pallas kernel): its launches, 0, checked in [train flagship]
         train_path, train_counts = paths["train"]
@@ -7143,6 +7483,8 @@ def main():
     # (a verify's gate/up, its row quantization, the tree verify's prefix)
     spec_shapes = {"w8a8_gemm": SPEC_SHAPE,
                    "row_quant_int8": (SPEC_SHAPE[0], SPEC_SHAPE[1], 0),
+                   "rms_norm_quant_int8": (SPEC_SHAPE[0], NORM_D, 0),
+                   "silu_mul_quant_int8": (SPEC_SHAPE[0], SILU_D, 0),
                    "decode_attention": SPEC_ATT_SHAPE,
                    "beam_attention": ("beam 1", 1, 1280)}
     for e in entries:
@@ -7166,6 +7508,10 @@ def main():
                                       0),
                    "group_quant_int8": ("tools", TOOL_SHAPE[0],
                                         TOOL_SHAPE[1], 0),
+                   "rms_norm_quant_int8": ("tools", TOOL_SHAPE[0],
+                                           TOOL_SHAPE[1], 0),
+                   "silu_mul_quant_int8": ("tools", TOOL_SHAPE[0],
+                                           2 * TOOL_SHAPE[1], 0),
                    "beam_attention": TOOL_ATT_SHAPE}
     for e in entries:
         if e["name"] == "decode_attention":  # no tree verify on the tools

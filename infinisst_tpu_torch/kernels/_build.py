@@ -17,7 +17,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 # every kernel source of the package
-SOURCES = ("quant_matmul", "grouped_matmul", "decode_attention")
+SOURCES = ("quant_matmul", "grouped_matmul", "decode_attention", "norm_quant")
 
 _libs = {}
 

@@ -1,9 +1,10 @@
 """Int8 matmul kernels for Hopper, with their plain PyTorch versions.
 
 Ports of the Pallas kernels in ``infinisst_tpu/kernels/quant_matmul.py``;
-the CUDA sources are ``infinisst_tpu_torch/csrc/quant_matmul.cu`` and,
-for the grouped pair, ``csrc/grouped_matmul.cu`` (built apart, in
-parallel), with ``csrc/quant_common.cuh`` between them:
+the CUDA sources are ``infinisst_tpu_torch/csrc/quant_matmul.cu``,
+for the grouped pair ``csrc/grouped_matmul.cu`` and for the fused
+quantizers ``csrc/norm_quant.cu`` (built apart, in parallel), with
+``csrc/quant_common.cuh`` between them:
 
 - ``row_quant_int8`` replaces ``quantize_activation`` (:106): per-row
   symmetric int8 quantization in one pass, the row held in registers
@@ -30,13 +31,25 @@ parallel), with ``csrc/quant_common.cuh`` between them:
   f32 in group order (one fused multiply-add per group).  Bound by the
   int8 weight and its (G, O) scales.
 
+- ``rms_norm_quant_int8`` and ``silu_mul_quant_int8``
+  (``csrc/norm_quant.cu``): the quantizer as the last step of the
+  kernel that makes its input, ``llama._rms_norm`` (:47 of the JAX
+  model) after the residual add, or ``jax.nn.silu(gate) * up``, then
+  ``quantize_activation`` or ``quantize_activation_grouped``; the row
+  is held in registers, a long one over a thread-block cluster that
+  exchanges its partials through distributed shared memory.  The sum
+  of squares runs in an order fixed by D (``norm_lanes``), which the
+  plain version computes with elementwise adds
+  (``sum_squares_plain``), so both are bitwise their plain versions
+  at any M.  Bound by the launch and one round trip to memory.
+
 The grouped pair takes every group size that divides D, as JAX's grouped
 path does: groups that the vector and tensor-core routes cannot hold
 (not whole 16-byte vectors, not a multiple of ``GROUPED_MMA_GROUP``, or
 O not a multiple of 4) take a simple route in the same source, bitwise
 the same arithmetic.
 
-All five are Hopper redesigns.  The three GEMMs take their weight K-major,
+All seven are Hopper redesigns.  The three GEMMs take their weight K-major,
 (O, D) (``models/quant.pack_kmajor`` packs it once, where leaves are
 made).  ``w8a8_gemm`` runs on ``wgmma`` with a TMA ring on mbarriers and
 persistent blocks that share the (tile, stage) iterations evenly
@@ -74,7 +87,8 @@ from infinisst_tpu_torch.core.graphs import counter
 # them what its capture recorded
 launch_counts = counter({"row_quant_int8": 0, "w8a8_gemm": 0,
                          "w8_bf16_gemm": 0, "group_quant_int8": 0,
-                         "w8a8_grouped_gemm": 0})
+                         "w8a8_grouped_gemm": 0, "rms_norm_quant_int8": 0,
+                         "silu_mul_quant_int8": 0})
 internal_counts = counter({"w8a8_gemm_split_k": 0, "w8_bf16_gemm_split_k": 0,
                            "w8a8_grouped_gemm_split_k": 0,
                            "group_quant_int8_simple": 0,
@@ -91,6 +105,7 @@ def reset_launch_counts():
 
 _lib = None
 _glib = None
+_nlib = None
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -127,6 +142,19 @@ def _bind_grouped(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_norm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``norm_quant`` library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rms_norm_quant_int8.argtypes = ([vp] * 6 + [ci] * 4
+                                        + [ctypes.c_float] + [ci] * 4 + [vp])
+    lib.silu_mul_quant_int8.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+    lib.empty_cluster_launch.argtypes = [ci] * 3 + [vp]
+    for fn in (lib.rms_norm_quant_int8, lib.silu_mul_quant_int8,
+               lib.empty_cluster_launch):
+        fn.restype = ci
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -143,6 +171,15 @@ def _grouped_library():
 
         _glib = _bind_grouped(load_library("grouped_matmul"))
     return _glib
+
+
+def _norm_library():
+    global _nlib
+    if _nlib is None:
+        from infinisst_tpu_torch.kernels._build import load_library
+
+        _nlib = _bind_norm(load_library("norm_quant"))
+    return _nlib
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -274,6 +311,237 @@ def row_quant_int8(y: torch.Tensor):
     _raise_on(err, "row_quant_int8")
     launch_counts["row_quant_int8"] += 1
     return y_q, y_s
+
+
+# ---------------------------------------------------------------------------
+# rms_norm_quant_int8 and silu_mul_quant_int8 (csrc/norm_quant.cu): the
+# quantizer as the last step of the kernel that makes its input
+
+
+NQ_CHUNK = 8  # values a lane's chunk (16 bytes of bf16, 32 of float32)
+NQ_MAX_LANES = 2048  # lanes a row: 64 warps over at most 8 blocks
+NQ_JS = (1, 2, 4)  # chunks a lane holds, compiled for
+NQ_CLUSTERS = (1, 2, 4, 8)  # blocks a row (a thread-block cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def norm_lanes(D: int):
+    """(J, lanes) of a row of D values: lane t holds chunks t, t + lanes,
+    ... (J of them).  A function of D only: it fixes the order of the
+    sum of squares, so a row's bits do not depend on M or on the launch.
+    Up to 8 warps a row, as many as cover it; above that a multiple of 8
+    warps (so that 2, 4 or 8 blocks can share them), with the fewest J
+    that keeps the lanes within NQ_MAX_LANES."""
+    n_c = _cdiv(D, NQ_CHUNK)
+    for J in NQ_JS:
+        w = _cdiv(n_c, 32 * J)
+        if w > 8:
+            w = 8 * _cdiv(w, 8)
+        if 32 * w <= NQ_MAX_LANES:
+            return J, 32 * w
+    raise ValueError(f"norm_quant: rows of {D} values are too long")
+
+
+def fused_quant_ok(D: int, gs: int) -> bool:
+    """Whether the fused kernels take rows of D values quantized in groups
+    of gs (gs == D: one scale a row): whole chunks of 8 values, rows the
+    kernels can hold, and a group a power of two of chunks within a warp.
+    A layout they refuse keeps the separate norm or product and
+    quantizer."""
+    if D < NQ_CHUNK or D % NQ_CHUNK or gs < 1 or D % gs:
+        return False
+    if D > NQ_MAX_LANES * NQ_JS[-1] * NQ_CHUNK:
+        return False
+    if gs == D:
+        return True
+    lanes = gs // NQ_CHUNK
+    return gs % NQ_CHUNK == 0 and lanes <= 32 and lanes & (lanes - 1) == 0
+
+
+class NormQuantPlan(NamedTuple):
+    """Lane t of a row holds chunks t, t + lanes, ... (J of them); the
+    row's lanes are cut into ``blocks`` blocks of one cluster."""
+    J: int
+    lanes: int
+    blocks: int  # one of NQ_CLUSTERS, dividing the row's warps
+
+    @property
+    def threads(self) -> int:
+        return self.lanes // self.blocks
+
+
+@functools.lru_cache(maxsize=None)
+def norm_quant_plan(D: int) -> NormQuantPlan:
+    """The launch of the fused kernels for rows of D values: a row of up
+    to 512 lanes (``norm_lanes``) in one block, a longer one over the
+    fewest blocks of at most 256 threads that divide its warps (the best
+    of the plans timed on the H100 at the path shapes, PERF.md)."""
+    J, lanes = norm_lanes(D)
+    return _plan_for_test(D, next(
+        K for K in NQ_CLUSTERS
+        if (lanes // 32) % K == 0 and lanes // K <= (
+            512 if lanes <= 512 else 256)))
+
+
+def _plan_for_test(D: int, blocks: int) -> NormQuantPlan:
+    """The fused kernels' launch for rows of D values over ``blocks``
+    blocks a row: the hook with which a test holds another plan's bits to
+    the plain version's (the kernels' results do not depend on it)."""
+    J, lanes = norm_lanes(D)
+    if (blocks not in NQ_CLUSTERS or (lanes // 32) % blocks
+            or lanes // blocks > 1024):
+        raise ValueError(f"norm_quant: {lanes} lanes do not split over "
+                         f"{blocks} blocks")
+    return NormQuantPlan(J, lanes, blocks)
+
+
+def sum_squares_plain(x: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of each row of the float32 (M, D) x, as the
+    fused kernel adds them (csrc/norm_quant.cu): each lane's squares in
+    chunk order, then value order, from 0; each warp's 32 lanes by an xor
+    butterfly over lane bits 16, 8, 4, 2, 1; the warps' sums in order.
+    Every add is an elementwise tensor add, so the CPU and the card give
+    the same bits.  Returns (M, 1)."""
+    M, D = x.shape
+    J, lanes = norm_lanes(D)
+    sq = x * x
+    sq = torch.nn.functional.pad(sq, (0, J * lanes * NQ_CHUNK - D))
+    sq = sq.reshape(M, J, lanes, NQ_CHUNK)
+    acc = torch.zeros((M, lanes), dtype=torch.float32, device=x.device)
+    for j in range(J):
+        for e in range(NQ_CHUNK):
+            acc = acc + sq[:, j, :, e]
+    acc = acc.reshape(M, lanes // 32, 32)
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    tot = acc[:, 0, 0]
+    for w in range(1, lanes // 32):
+        tot = tot + acc[:, w, 0]
+    return tot[:, None]
+
+
+def _quantize_plain(y: torch.Tensor, gs: int):
+    return (row_quant_int8_plain(y) if gs == y.shape[-1]
+            else group_quant_int8_plain(y, gs))
+
+
+def rms_norm_quant_int8_plain(h, delta, scale, eps: float, gs: int):
+    """h' = h + delta (in h's dtype; h itself without delta), then
+    ``y = dtype(f32(h') * rsqrt(mean(f32(h')**2) + eps) * f32(scale))``
+    with the sum of squares in the kernel's order (``sum_squares_plain``)
+    and an IEEE division by D, then ``row_quant_int8_plain`` (gs == D) or
+    ``group_quant_int8_plain`` on y.  Returns (h', y_q, y_s)."""
+    if delta is not None:
+        h = h + delta
+    x = h.to(torch.float32)
+    ss = sum_squares_plain(x)
+    # a tensor divisor: the IEEE quotient, as the kernel divides
+    var = ss / ss.new_full((), float(h.shape[-1]))
+    y = (x * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(h.dtype)
+    return (h,) + _quantize_plain(y, gs)
+
+
+def _check_rows(name, t, shape, dtype, device):
+    _check(name, t, (dtype,), 2, device)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _fused_outputs(name, M, D, gs, dev):
+    if not fused_quant_ok(D, gs):
+        raise ValueError(f"{name}: rows of D={D} in groups of {gs} are not "
+                         "a layout the kernel takes (fused_quant_ok)")
+    y_q = torch.empty((M, D), dtype=torch.int8, device=dev)
+    y_s = torch.empty((M, 1 if gs == D else D // gs), dtype=torch.float32,
+                      device=dev)
+    return y_q, y_s
+
+
+def rms_norm_quant_int8(h, delta, scale, eps: float, gs: int, *,
+                        _plan: NormQuantPlan = None):
+    """h (M, D) bf16 or f32, delta (M, D) of h's dtype or None, scale
+    (D,) bf16 or f32 -> (h', y_q int8 (M, D), y_s f32 (M, 1) or (M, D //
+    gs)): the residual add, RMSNorm and the quantizer in one launch; y
+    itself is never written.  h' is h without delta.  ``_plan`` (a test's,
+    from ``_plan_for_test``; default ``norm_quant_plan(D)``) sets only the
+    blocks a row."""
+    if h.device.type == "cpu":
+        return rms_norm_quant_int8_plain(h, delta, scale, eps, gs)
+    if h.device.type != "cuda":
+        raise ValueError(f"rms_norm_quant_int8: unsupported device "
+                         f"{h.device}")
+    dev = h.device
+    _check("h", h, _FLOATS, 2, dev)
+    M, D = h.shape
+    _check_rows("h", h, (M, D), h.dtype, dev)
+    if delta is not None:
+        _check_rows("delta", delta, (M, D), h.dtype, dev)
+    _check("scale", scale, _FLOATS, 1, dev)
+    if scale.shape[0] != D or scale.data_ptr() % 16:
+        raise ValueError(f"rms_norm_quant_int8: scale {tuple(scale.shape)} "
+                         f"for D={D}, 16-byte aligned")
+    y_q, y_s = _fused_outputs("rms_norm_quant_int8", M, D, gs, dev)
+    h_out = h if delta is None else torch.empty_like(h)
+    if M == 0:
+        return h_out, y_q, y_s
+    plan = _plan or norm_quant_plan(D)
+    err = _norm_library().rms_norm_quant_int8(
+        h.data_ptr(), _ptr(delta), scale.data_ptr(),
+        None if delta is None else h_out.data_ptr(), y_q.data_ptr(),
+        y_s.data_ptr(), int(h.dtype == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16), M, D, eps, gs, plan.lanes,
+        plan.J, plan.blocks, _stream(h))
+    _raise_on(err, "rms_norm_quant_int8")
+    launch_counts["rms_norm_quant_int8"] += 1
+    return h_out, y_q, y_s
+
+
+def silu_mul_quant_int8_plain(gate, up, gs: int):
+    """``silu(gate) * up`` as torch computes it (silu rounded to the
+    dtype, then the product), then ``row_quant_int8_plain`` (gs == D) or
+    ``group_quant_int8_plain``.  Returns (y_q, y_s)."""
+    return _quantize_plain(torch.nn.functional.silu(gate) * up, gs)
+
+
+def silu_mul_quant_int8(gate, up, gs: int, *,
+                        _plan: NormQuantPlan = None):
+    """gate, up (M, D) bf16 or f32 -> (y_q int8 (M, D), y_s f32 (M, 1) or
+    (M, D // gs)): the SwiGLU product and the quantizer in one launch;
+    the product is never written.  ``_plan`` as for
+    ``rms_norm_quant_int8``."""
+    if gate.device.type == "cpu":
+        return silu_mul_quant_int8_plain(gate, up, gs)
+    if gate.device.type != "cuda":
+        raise ValueError(f"silu_mul_quant_int8: unsupported device "
+                         f"{gate.device}")
+    dev = gate.device
+    _check("gate", gate, _FLOATS, 2, dev)
+    M, D = gate.shape
+    _check_rows("gate", gate, (M, D), gate.dtype, dev)
+    _check_rows("up", up, (M, D), gate.dtype, dev)
+    y_q, y_s = _fused_outputs("silu_mul_quant_int8", M, D, gs, dev)
+    if M == 0:
+        return y_q, y_s
+    plan = _plan or norm_quant_plan(D)
+    err = _norm_library().silu_mul_quant_int8(
+        gate.data_ptr(), up.data_ptr(), y_q.data_ptr(), y_s.data_ptr(),
+        int(gate.dtype == torch.bfloat16), M, D, gs, plan.lanes, plan.J,
+        plan.blocks, _stream(gate))
+    _raise_on(err, "silu_mul_quant_int8")
+    launch_counts["silu_mul_quant_int8"] += 1
+    return y_q, y_s
+
+
+def launch_empty_rows(device, plan: NormQuantPlan, M: int):
+    """Launch an empty kernel (not counted) of the fused kernels' geometry
+    for M rows under ``plan`` (clusters of ``plan.blocks``): their launch
+    floor."""
+    _raise_on(_norm_library().empty_cluster_launch(
+        plan.blocks, M, plan.threads,
+        torch.cuda.current_stream(device).cuda_stream), "empty_cluster")
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,17 @@ the argmax over keys a0..a1-1 of the head-averaged softmax weights at one
 layer (``span_probe`` for the beam step, whose kernel keeps no weights).
 Projections and the lm_head go through ``quant.mm``; q/k/v and gate/up,
 which share their input, through ``quant.mm_many``, which quantizes that
-input once (4 activation quantizations per layer, not 7).
+input once.  Where those weights are W8A8 of one layout
+(``quant.a8_group_size``), the residual add moves into the next norm and
+the quantizer into the kernel that makes its input: the o and down
+projections' outputs are the ``delta`` of the norm after them, which
+``rms_norm_quant_int8`` adds, normalises and quantizes in one launch
+(``_norm_mm``), and the SwiGLU product is ``silu_mul_quant_int8``'s
+(``_silu_mm``); only the attention output keeps a quantizer of its own.
+A W8A8 forward of L layers then launches ``rms_norm_quant_int8`` 2L + 1
+times, ``silu_mul_quant_int8`` L times and ``row_quant_int8`` (or
+``group_quant_int8``) L times.  Other layouts keep ``_rms_norm`` and
+``mm_many`` with the same adds in the same order.
 
 The training forward (``offline_forward``, ``offline_hidden``) is plain
 causal attention over the whole sequence, no cache, with plain matrix
@@ -65,6 +75,7 @@ from infinisst_tpu_torch.kernels.decode_attention import (
     decode_attention,
     merge_blocks,
 )
+from infinisst_tpu_torch.models import quant as Q
 from infinisst_tpu_torch.models.quant import mm, mm_many, out_features
 from infinisst_tpu_torch.parallel import collectives as par
 from infinisst_tpu_torch.streaming.state import DecoderState
@@ -99,14 +110,57 @@ def apply_exit_adapter(adapter: Params, h: torch.Tensor, eps: float):
     return h + mm(y, adapter["w2"]).to(h.dtype)
 
 
-def _final_logits(params: Params, cfg: LlamaConfig, h):
-    """The exit adapter (only on a draft's parameters, which carry
-    ``exit_adapter``), ``final_ln`` and the lm_head."""
+def _norm_mm(h, delta, scale, eps, ws):
+    """h' = h + delta (delta None: h), then y @ w for w in ``ws`` with
+    y = rmsnorm(h') by ``scale``: in one ``rms_norm_quant_int8`` launch
+    and the products on its quantized rows where every leaf is W8A8 of
+    one layout, else ``_rms_norm`` and ``mm_many``.  Returns (h',
+    outputs)."""
+    D = h.shape[-1]
+    gs = Q.a8_group_size(ws, D)
+    if delta is not None and (gs is None or delta.dtype != h.dtype):
+        h, delta = h + delta, None
+    if gs is None:
+        return h, mm_many(par.copy_to_model(_rms_norm(h, scale, eps)), ws)
+    h2, y_q, y_s = Q.rms_norm_quant_int8(
+        h.reshape(-1, D).contiguous(),
+        None if delta is None else delta.reshape(-1, D).contiguous(),
+        scale, eps, gs)
+    return (h2.reshape(h.shape),
+            Q.mm_many_quantized(y_q, y_s, ws, h.dtype, h.shape[:-1]))
+
+
+def _silu_mm(gate, up, w):
+    """silu(gate) * up @ w: one ``silu_mul_quant_int8`` launch and the
+    product on its quantized rows where ``w`` is W8A8, else the product in
+    torch and ``mm``."""
+    D = gate.shape[-1]
+    gs = Q.a8_group_size((w,), D)
+    if gs is None or up.dtype != gate.dtype:
+        return mm(torch.nn.functional.silu(gate) * up, w)
+    y_q, y_s = Q.silu_mul_quant_int8(gate.reshape(-1, D).contiguous(),
+                                     up.reshape(-1, D).contiguous(), gs)
+    return Q.mm_many_quantized(y_q, y_s, (w,), gate.dtype,
+                               gate.shape[:-1])[0]
+
+
+def _final_logits(params: Params, cfg: LlamaConfig, h, delta=None):
+    """The last residual add (``delta``), the exit adapter (only on a
+    draft's parameters, which carry ``exit_adapter``), ``final_ln`` and
+    the lm_head: ``final_ln`` and a W8A8 head in one
+    ``rms_norm_quant_int8`` launch and the head's product."""
+    eps = cfg.rms_norm_eps
     if "exit_adapter" in params:
-        h = apply_exit_adapter(params["exit_adapter"], h, cfg.rms_norm_eps)
-    h = _rms_norm(h, par.unshard(params["final_ln"]), cfg.rms_norm_eps)
-    return par.head_logits(h, par.unshard(params["lm_head"]),
-                           cfg.vocab_size, mm)
+        if delta is not None:
+            h, delta = h + delta, None
+        h = apply_exit_adapter(params["exit_adapter"], h, eps)
+    head = par.unshard(params["lm_head"])
+    ln = par.unshard(params["final_ln"])
+    if Q.a8_group_size((head,), h.shape[-1]) is not None:
+        return _norm_mm(h, delta, ln, eps, (head,))[1][0]
+    if delta is not None:
+        h = h + delta
+    return par.head_logits(_rms_norm(h, ln, eps), head, cfg.vocab_size, mm)
 
 
 def local_heads(layers: Params, cfg: LlamaConfig) -> Tuple[int, int]:
@@ -156,11 +210,13 @@ def layer_params(layers: Params, i: int, gather: bool = True) -> Params:
     }
 
 
-def _mlp(h, lp, eps):
-    y = par.copy_to_model(_rms_norm(h, lp["post_ln"], eps))
-    gate, up = mm_many(y, (lp["w_gate"], lp["w_up"]))
-    return h + par.reduce_from_model(
-        mm(torch.nn.functional.silu(gate) * up, lp["w_down"]))
+def _mlp(h, delta, lp, eps):
+    """The attention's residual add (``delta``), ``post_ln`` and the
+    SwiGLU MLP: returns (h + delta, the MLP's output), which the next
+    norm adds."""
+    h, (gate, up) = _norm_mm(h, delta, lp["post_ln"], eps,
+                             (lp["w_gate"], lp["w_up"]))
+    return h, par.reduce_from_model(_silu_mm(gate, up, lp["w_down"]))
 
 
 def decode_step(
@@ -222,11 +278,12 @@ def decode_step(
         attn_probe[0] % cfg.num_layers
     _count_forward("decode_step", cfg.num_layers)
 
-    h = x_embed
+    h, delta = x_embed, None
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
-        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        h, (q, k_new, v_new) = _norm_mm(h, delta, lp["input_ln"],
+                                        cfg.rms_norm_eps,
+                                        (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(B, S, H, Dh)
         k_new = k_new.reshape(B, S, KV, Dh)
         v_new = v_new.reshape(B, S, KV, Dh)
@@ -249,14 +306,14 @@ def decode_step(
             probe = torch.argmax(span, dim=-1)  # (B, S), first maximum
         attn = torch.einsum("bkgst,bktd->bkgsd", w, vt)
         attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
-        h = h + par.reduce_from_model(mm(attn, lp["wo"]))
-        h = _mlp(h, lp, cfg.rms_norm_eps)
+        h, delta = _mlp(h, par.reduce_from_model(mm(attn, lp["wo"])), lp,
+                        cfg.rms_norm_eps)
 
         # in-place append of this layer's new K/V (the donated cache)
         state.k[li].index_put_(rows_at, k_new.to(state.k.dtype))
         state.v[li].index_put_(rows_at, v_new.to(state.v.dtype))
 
-    logits = _final_logits(params, cfg, h)[..., : cfg.vocab_size]
+    logits = _final_logits(params, cfg, h, delta)[..., : cfg.vocab_size]
     n_append = (
         valid_mask.sum(-1).to(torch.int64) if valid_mask is not None
         else torch.full((B,), S, dtype=torch.int64, device=dev)
@@ -432,11 +489,12 @@ def beam_token_step(
     attn_idx = None
     _count_forward("beam_token_step", cfg.num_layers)
 
-    h = x_embed
+    h, delta = x_embed, None
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
-        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        h, (q, k_new, v_new) = _norm_mm(h, delta, lp["input_ln"],
+                                        cfg.rms_norm_eps,
+                                        (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(rows, H, Dh)
         k_new = k_new.reshape(rows, KV, Dh)
         v_new = v_new.reshape(rows, KV, Dh)
@@ -451,11 +509,11 @@ def beam_token_step(
         if li == probe_layer:
             attn_idx = span_probe(q, prefix.k[li], attn_probe[1],
                                   attn_probe[2], q_pos, inv_freq, lse)
-        h = h + par.reduce_from_model(
-            mm(attn.reshape(rows, 1, H * Dh), lp["wo"]))
-        h = _mlp(h, lp, cfg.rms_norm_eps)
+        h, delta = _mlp(h, par.reduce_from_model(
+            mm(attn.reshape(rows, 1, H * Dh), lp["wo"])), lp,
+            cfg.rms_norm_eps)
 
-    logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]
+    logits = _final_logits(params, cfg, h, delta)[:, 0, : cfg.vocab_size]
     if attn_idx is None:
         attn_idx = torch.full((rows,), -1, dtype=torch.int64, device=dev)
     return logits, gen_k, gen_v, attn_idx
@@ -502,11 +560,12 @@ def beam_tree_step(
     ks, vs = [], []
     _count_forward("beam_tree_step", cfg.num_layers)
 
-    h = x_embed[:, None]
+    h, delta = x_embed[:, None], None
     for li in range(cfg.num_layers):
         lp = layer_params(params["layers"], li)
-        y = par.copy_to_model(_rms_norm(h, lp["input_ln"], cfg.rms_norm_eps))
-        q, k_new, v_new = mm_many(y, (lp["wq"], lp["wk"], lp["wv"]))
+        h, (q, k_new, v_new) = _norm_mm(h, delta, lp["input_ln"],
+                                        cfg.rms_norm_eps,
+                                        (lp["wq"], lp["wk"], lp["wv"]))
         q = q.reshape(N, H, Dh)
         k_new = k_new.reshape(N, KV, Dh)
         v_new = v_new.reshape(N, KV, Dh)
@@ -539,11 +598,10 @@ def beam_tree_step(
                             v_new.to(f32).transpose(0, 1)))
         attn = merge_blocks(o_p, lse_p, o.reshape(N, H, Dh),
                             lse.reshape(N, H))
-        h = h + par.reduce_from_model(
-            mm(attn.reshape(N, 1, H * Dh), lp["wo"]))
-        h = _mlp(h, lp, cfg.rms_norm_eps)
+        h, delta = _mlp(h, par.reduce_from_model(
+            mm(attn.reshape(N, 1, H * Dh), lp["wo"])), lp, cfg.rms_norm_eps)
 
-    logits = _final_logits(params, cfg, h)[:, 0, : cfg.vocab_size]
+    logits = _final_logits(params, cfg, h, delta)[:, 0, : cfg.vocab_size]
     return logits, torch.stack(ks), torch.stack(vs)
 
 

@@ -26,6 +26,19 @@ its per-channel W8A8 products in one ``w8a8_gemm_many`` launch; ``mm``
 is its one-weight case.  ``quantize_llama_params`` turns float
 parameters into any of the int8 layouts; ``init_quantized_llama`` makes
 random ones directly in int8.
+
+One route is taken by weight layout, never by a failure: where every
+leaf a product reads is W8A8 of one layout (``a8_group_size``: all
+per-channel, or all grouped with one group size) and the fused kernels
+take its rows (``fused_quant_ok``), the activation is quantized by the
+kernel that makes it (``rms_norm_quant_int8`` after the residual add,
+``silu_mul_quant_int8`` after the SwiGLU product; ``models/llama.py``)
+and ``mm_many_quantized`` runs the products on the already-quantized
+``(y_q, y_s)``.  Float, low-rank and weight-only leaves, mixed layouts
+and the training forward keep the separate norm (or product) and
+``mm_many``.  Tensor parallelism refuses quantized trees (``parallel/
+mesh.py``), so the fused route always runs at n_model = 1, where
+``copy_to_model`` and ``reduce_from_model`` are the identity.
 """
 
 from __future__ import annotations
@@ -35,8 +48,11 @@ import math
 import torch
 
 from infinisst_tpu_torch.kernels.quant_matmul import (
+    fused_quant_ok,
     group_quant_int8,
+    rms_norm_quant_int8,
     row_quant_int8,
+    silu_mul_quant_int8,
     w8_bf16_gemm,
     w8a8_gemm_many,
     w8a8_grouped_gemm,
@@ -95,6 +111,38 @@ def out_features(w) -> int:
     return (w["b"] if "b" in w else w["q"]).shape[-1]
 
 
+def a8_group_size(ws, D: int):
+    """The activation layout every leaf of ``ws`` reads from an input of
+    D values, where all are packed W8A8 leaves of one layout and the
+    fused kernels take it: D (one scale a row) for per-channel leaves,
+    the group size for grouped leaves of one group size; else None."""
+    gs = None
+    for w in ws:
+        if not (isinstance(w, dict) and KMAJOR in w and "scale_a8" in w):
+            return None
+        g = D // w["scale_a8"].shape[-2] if is_grouped(w) else D
+        if gs not in (None, g):
+            return None
+        gs = g
+    return gs if gs is not None and fused_quant_ok(D, gs) else None
+
+
+def mm_many_quantized(y_q, y_s, ws, out_dtype, lead_shape) -> tuple:
+    """The products of ``mm_many`` from an activation already quantized
+    for the W8A8 leaves ``ws`` (all of one layout, ``a8_group_size``):
+    y_q (M, D) int8 and y_s (M, 1) or (M, G) f32.  Per-channel leaves run
+    in one ``w8a8_gemm_many`` launch, grouped ones in one
+    ``w8a8_grouped_gemm`` each.  Each output (M, O) is reshaped to
+    ``lead_shape`` + (O,)."""
+    if is_grouped(ws[0]):
+        outs = [w8a8_grouped_gemm(y_q, y_s, w[KMAJOR], w["scale_a8"],
+                                  out_dtype) for w in ws]
+    else:
+        outs = w8a8_gemm_many(y_q, y_s, [w[KMAJOR] for w in ws],
+                              [w["scale_a8"] for w in ws], out_dtype)
+    return tuple(o.reshape(*lead_shape, o.shape[-1]) for o in outs)
+
+
 def mm(y: torch.Tensor, w) -> torch.Tensor:
     """y @ w for plain, low-rank or quantized weights; y (..., D)."""
     return mm_many(y, (w,))[0]
@@ -126,20 +174,18 @@ def mm_many(y: torch.Tensor, ws) -> tuple:
             gs = shape[-1] // w["scale_a8"].shape[0]
             if gs not in group_q:
                 group_q[gs] = group_quant_int8(y2, gs)
-            out = w8a8_grouped_gemm(*group_q[gs], w[KMAJOR], w["scale_a8"],
-                                    y.dtype)
+            outs[i], = mm_many_quantized(*group_q[gs], (w,), y.dtype,
+                                         shape[:-1])
         elif "scale_a8" in w:
             a8.append(i)
-            continue
         else:
             out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
-        outs[i] = out.reshape(*shape[:-1], out.shape[-1])
-    if a8:
-        res = w8a8_gemm_many(*row_quant_int8(y2),
-                             [ws[i][KMAJOR] for i in a8],
-                             [ws[i]["scale_a8"] for i in a8], y.dtype)
-        for i, out in zip(a8, res):
             outs[i] = out.reshape(*shape[:-1], out.shape[-1])
+    if a8:
+        res = mm_many_quantized(*row_quant_int8(y2), [ws[i] for i in a8],
+                                y.dtype, shape[:-1])
+        for i, out in zip(a8, res):
+            outs[i] = out
     return tuple(outs)
 
 

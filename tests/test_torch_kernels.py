@@ -637,6 +637,9 @@ def test_launch_counters_stay_zero_on_cpu():
     TQ.mm(torch.from_numpy(y), _packed(w, s))
     TQ.mm(torch.from_numpy(y), _packed(w, s, "scale"))
     TQ.mm(torch.from_numpy(y), _packed(w, np.ones((2, 32), np.float32)))
+    yt = torch.from_numpy(y)
+    TK.rms_norm_quant_int8(yt, yt, torch.ones((64,)), 1e-5, 64)
+    TK.silu_mul_quant_int8(yt, yt, 32)
     q = torch.ones((2, 4, 16))
     cache = torch.ones((1, 8, 2, 16))
     TA.decode_attention(q, cache, cache, torch.tensor([3]),
@@ -648,6 +651,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert TK.launch_counts == {
         "row_quant_int8": 0, "w8a8_gemm": 0, "w8_bf16_gemm": 0,
         "group_quant_int8": 0, "w8a8_grouped_gemm": 0,
+        "rms_norm_quant_int8": 0, "silu_mul_quant_int8": 0,
     }
     assert TA.launch_counts == {"decode_attention": 0, "beam_attention": 0}
     assert TK.internal_counts == {"w8a8_gemm_split_k": 0,

@@ -141,13 +141,17 @@ def test_beam_token_step(kind, gen_len):
 @pytest.mark.parametrize("group_size", [0, 32], ids=["w8a8", "grouped"])
 def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
     """q/k/v and gate/up share their input, so a forward quantizes 4
-    activations per layer and the lm_head's: ``row_quant_int8`` 4L + 1
-    times with per-channel W8A8 leaves, and their GEMMs run as 4L + 1
-    ``w8a8_gemm_many`` calls (q|k|v and gate|up one launch each);
-    ``group_quant_int8`` 4L times (and ``row_quant_int8`` once, for the
-    per-channel head) with grouped projections, whose GEMMs still run
-    once per projection."""
+    activations per layer and the lm_head's, each once, three of them in
+    the kernel that makes them: ``rms_norm_quant_int8`` 2L + 1 times
+    (q|k|v, gate|up and the head after their norms),
+    ``silu_mul_quant_int8`` L times (down) and ``row_quant_int8`` L
+    times (o) with per-channel W8A8 leaves, whose GEMMs run as 4L + 1
+    ``w8a8_gemm_many`` calls (q|k|v and gate|up one launch each); with
+    grouped projections ``group_quant_int8`` L times (o) and the norms
+    and the SwiGLU product grouped (the per-channel head's norm per row),
+    their GEMMs still once per projection."""
     calls = {"row_quant_int8": 0, "group_quant_int8": 0,
+             "rms_norm_quant_int8": 0, "silu_mul_quant_int8": 0,
              "w8a8_gemm_many": 0, "w8a8_grouped_gemm": 0}
     for name in calls:
         fn = getattr(TQ, name)
@@ -162,11 +166,12 @@ def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
         embed_dtype=torch.float32, act_int8=True, lm_head_int8=True,
         group_size=group_size)
     L = CFG.num_layers
-    want = ({"row_quant_int8": 1, "group_quant_int8": 4 * L,
-             "w8a8_gemm_many": 1, "w8a8_grouped_gemm": 7 * L}
+    fused = {"rms_norm_quant_int8": 2 * L + 1, "silu_mul_quant_int8": L}
+    want = ({"row_quant_int8": 0, "group_quant_int8": L,
+             "w8a8_gemm_many": 1, "w8a8_grouped_gemm": 7 * L, **fused}
             if group_size else
-            {"row_quant_int8": 4 * L + 1, "group_quant_int8": 0,
-             "w8a8_gemm_many": 4 * L + 1, "w8a8_grouped_gemm": 0})
+            {"row_quant_int8": L, "group_quant_int8": 0,
+             "w8a8_gemm_many": 4 * L + 1, "w8a8_grouped_gemm": 0, **fused})
     rng = np.random.RandomState(8)
     _, ts = _state(2, [7, 3])
     TL.decode_step(p, CFG, ts, torch.from_numpy(

@@ -321,3 +321,24 @@ def test_gemm_phases_source_transform_keeps_the_kernel():
                     if "gemm_phases" in f.read():
                         users.append(name)
     assert users == []
+
+
+@pytest.mark.parametrize("name,op", [
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, "
+     "at::native::MeanOps<float, float, float, float>, unsigned int, float, "
+     "4> >(X)", "mean reduce"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "BinaryFunctor<float, float, float, at::native::binary_internal::"
+     "MulFunctor<float> >, at::detail::Array<char*, 3> >(int, X)", "mul"),
+    ("void at::native::vectorized_elementwise_kernel<8, at::native::"
+     "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#2}",
+     "bfloat16_copy_kernel_cuda"),
+    ("nvjet_tst_64x24_64x16_4x2_h_bz_NNT", "nvjet_tst_64x24_64x16_4x2_h_bz_NNT"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize64x64x8", "library GEMM"),
+])
+def test_op_split_names_the_op(name, op):
+    """``tools/op_split.op_family``: the op of a device kernel's name, by
+    the functor or ATen kernel its template names, else the name."""
+    from infinisst_tpu_torch.tools.op_split import op_family
+
+    assert op_family(name) == op
