@@ -29,7 +29,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
                  own; w8a8_gemm_many (one launch) bitwise at q|k|v and
                  gate|up for M = 1, 4, 32, 79, 384 (MANY_M), timed beside
                  the same weights one launch each and torch._int_mm +
-                 epilogue over the concatenated weight;
+                 epilogue over the concatenated weight, and
+                 w8a8_grouped_gemm_many likewise on the same weights
+                 grouped by 128 (bf16 and float32), beside one grouped
+                 launch a weight;
                  row_quant_int8 and group_quant_int8 beside an empty
                  kernel of their launch geometry (the launch floor).
                  rms_norm_quant_int8 (the residual add, RMSNorm and the
@@ -214,7 +217,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
   8. group128 -- four chunks of the 8B model as ``bench.py --group128``
                  makes it: grouped (128-wide) W8A8 projections, packed
                  K-major, through w8a8_grouped_gemm (a8_forward_launches
-                 grouped: rms_norm_quant_int8 2L + 1 and
+                 grouped: w8a8_grouped_gemm 4L, q|k|v and gate|up one
+                 launch each, rms_norm_quant_int8 2L + 1 and
                  silu_mul_quant_int8 L grouped by 128 but the head's norm,
                  group_quant_int8 L before o), per-channel W8A8 lm_head;
                  then one chunk under torch.profiler.
@@ -501,10 +505,12 @@ def a8_forward_launches(n: int, grouped: bool = False) -> dict:
     before each down projection (n), the attention output's own quantizer
     before each o projection (n: row_quant_int8, or group_quant_int8 with
     ``grouped`` projections); w8a8_gemm 4n + 1 (the grouped projections:
-    w8a8_grouped_gemm 7n, w8a8_gemm the head's 1)."""
+    w8a8_grouped_gemm 4n, q|k|v and gate|up one launch each as for
+    w8a8_gemm, w8a8_gemm the head's 1)."""
     fused = {"rms_norm_quant_int8": 2 * n + 1, "silu_mul_quant_int8": n}
     if grouped:
-        return {"w8a8_grouped_gemm": 7 * n, "group_quant_int8": n,
+        return {"w8a8_grouped_gemm": GEMMS_PER_LAYER * n,
+                "group_quant_int8": n,
                 "w8a8_gemm": 1, "row_quant_int8": 0, **fused}
     return {"w8a8_gemm": GEMMS_PER_LAYER * n + 1, "row_quant_int8": n,
             "group_quant_int8": 0, "w8a8_grouped_gemm": 0, **fused}
@@ -629,6 +635,19 @@ def plan_line(K, M, D, Os, sms):
     return p
 
 
+def grouped_plan_line(K, M, D, Os, sms):
+    """Print and return the grouped GEMM's plan for weights of (O, D), O
+    in ``Os``, in groups of GROUP, in one launch."""
+    p = K.grouped_plan(M, D, D // GROUP, tuple(Os), sms)
+    how = (f"stream-K, {p.split_tiles} tile(s) split, {p.parked_bytes} "
+           f"bytes parked" if p.cut == 1 else "whole tiles a block")
+    print(f"  {'':17s} grouped plan: {p.rows} rows a tile x {p.n_mtiles} "
+          f"row tile(s), {p.tile0[-1]} tiles x {p.n_k} stages over "
+          f"{p.blocks} persistent blocks ({how}), {p.stages}-stage ring",
+          flush=True)
+    return p
+
+
 def _kernel_modules():
     from infinisst_tpu_torch.kernels import decode_attention as A
     from infinisst_tpu_torch.kernels import quant_matmul as K
@@ -724,7 +743,8 @@ class Notes:
 # (M, D, O, gs) checked besides the main-path shapes, in bf16 and float32:
 # split-K (M <= gs / 32) and not, gs 32, 64 and 96, O not a multiple of 128
 GROUPED_EXTRA = [(3, 256, 200, 32), (1, 4096, 1024, 32), (2, 4096, 4096, 64),
-                 (79, 4096, 1024, 64), (1, 3072, 512, 96), (61, 768, 256, 96)]
+                 (79, 4096, 1024, 64), (1, 3072, 512, 96), (61, 768, 256, 96),
+                 (5, 4096, 1024, 256), (8, 4096, 4096, 128)]
 # the simple route's shapes: groups of 8 and 16 (the fidelity probe's 32
 # groups of its 256- and 512-wide inputs), 12 (__dp4a) and 6 (scalar), bf16
 # groups of 4 and 12 (not whole 16-byte vectors), O not a multiple of 4
@@ -898,13 +918,10 @@ def check_kernels(dev, notes):
             bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4
                                + M * O * 2, 2.0 * M * D * O, INT8_OPS_PER_S)
             note("w8a8_grouped_gemm", (M, D, O), 0.0, ms, pms, None, bms, by)
-            gp = K.grouped_gemm_plan(M, D, O, G, sms)
-            print(f"  {'':17s} plan: {gp.rows} rows x {gp.tile_o} channels "
-                  f"a tile, {gp.n_split} split(s) of {gp.k_split // GROUP} "
-                  f"groups, {gp.n_mtiles * gp.n_otiles * gp.n_split} blocks; "
-                  f"w8a8_gemm on the same bytes {w8_ms:.5f} ms (grouped / "
-                  f"w8a8_gemm {statistics.median(ms) / w8_ms:.3f})",
-                  flush=True)
+            grouped_plan_line(K, M, D, (O,), sms)
+            print(f"  {'':17s} w8a8_gemm on the same bytes {w8_ms:.5f} ms "
+                  f"(grouped / w8a8_gemm "
+                  f"{statistics.median(ms) / w8_ms:.3f})", flush=True)
         del ws, wts
         torch.cuda.empty_cache()
 
@@ -925,9 +942,14 @@ def check_kernels(dev, notes):
         fail("w8a8_gemm differs from its plain version in float32")
     sg = torch.rand((4096 // GROUP, 1024), generator=gen, device=dev) * 1e-3
     check_grouped(K, y, wt, sg, GROUP, "float32", (torch.float32,))
-    # other group sizes (whole 32-byte MMA runs: 32, 64, and 96, whose
-    # groups straddle the 128-byte stages), ragged O and M, split and not
+    # other group sizes (whole k32 products: 32, 64, 96, whose groups
+    # straddle the 128-byte stages, and 256, two stages a group), ragged
+    # O and M, split and not, all on the wgmma route
+    before = internal_counts()
+    kinds = set()
     for M, D, O, gs in GROUPED_EXTRA:
+        gp = K.grouped_plan(M, D, D // gs, (O,), sms)
+        kinds.add("split" if gp.split_tiles else "whole")
         w = torch.randint(-127, 128, (O, D), generator=gen, device=dev,
                           dtype=torch.int8)
         sg = torch.rand((D // gs, O), generator=gen, device=dev) * 1e-3
@@ -935,6 +957,13 @@ def check_kernels(dev, notes):
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(dt)
             check_grouped(K, y, w, sg, gs, f"M={M} D={D} O={O} gs={gs} {dt}",
                           {dt, torch.float32})
+    if internal_counts()["w8a8_grouped_gemm_simple"] != \
+            before["w8a8_grouped_gemm_simple"] or kinds != {"split", "whole"}:
+        fail(f"GROUPED_EXTRA left the wgmma route or did not run both a "
+             f"split and a whole-tile plan: {sorted(kinds)}")
+    print(f"  the grouped GEMM's wgmma route bitwise at GROUPED_EXTRA "
+          f"{GROUPED_EXTRA} (M, D, O, gs), split and whole-tile plans",
+          flush=True)
     check_grouped_simple(dev, gen)
     print("  float32 inputs: all five matmul kernels agree with their plain "
           "versions (w8_bf16_gemm at every shape above)", flush=True)
@@ -1115,7 +1144,9 @@ def check_many(dev, gen, notes, sms):
     bf16 and float32 at q|k|v and gate|up for MANY_M rows; timed beside
     the same weights one w8a8_gemm launch each and beside torch._int_mm +
     the scale epilogue over the concatenated (D, sum O) weight (the
-    activations zero-padded to 17 rows at M <= 16)."""
+    activations zero-padded to 17 rows at M <= 16).  The same for
+    w8a8_grouped_gemm_many on the weights grouped by GROUP, timed beside
+    one w8a8_grouped_gemm launch a weight."""
     import torch
 
     from infinisst_tpu_torch.kernels import quant_matmul as K
@@ -1163,6 +1194,36 @@ def check_many(dev, gen, notes, sms):
                   f"{'' if M > 16 else ', 17 padded rows'}) "
                   f"{statistics.median(ms) / statistics.median(lib):.3f}",
                   flush=True)
+            # the same weights grouped by GROUP, one w8a8_grouped_gemm_many
+            # launch (the --group128 stream's q|k|v and gate|up)
+            sgs = [torch.rand((D // GROUP, o), generator=gen, device=dev)
+                   * 1e-3 + 1e-4 for o in Os]
+            gq, gs_ = K.group_quant_int8(y, GROUP)
+            for dt in (torch.bfloat16, torch.float32):
+                got = K.w8a8_grouped_gemm_many(gq, gs_, wts[0], sgs, dt)
+                want = K.w8a8_grouped_gemm_many_plain(gq, gs_, wts[0], sgs,
+                                                      dt)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    fail(f"w8a8_grouped_gemm_many differs from its plain "
+                         f"version at {label} M={M} {dt}")
+            gms = cuda_time_ms(lambda i: K.w8a8_grouped_gemm_many(
+                gq, gs_, wts[i % n_w], sgs, torch.bfloat16), 20)
+            gsep = cuda_time_ms(lambda i: [
+                K.w8a8_grouped_gemm(gq, gs_, w, sg, torch.bfloat16)
+                for w, sg in zip(wts[i % n_w], sgs)], 20)
+            G = D // GROUP
+            bms, by = bound_ms(M * D + M * G * 4 + D * O + G * O * 4
+                               + M * O * 2, 2.0 * M * D * O, INT8_OPS_PER_S)
+            notes.note("w8a8_grouped_gemm", (M, D, O), 0.0, gms, None, None,
+                       bms, by, label=f"M={M:3d} {label:7s} D={D} O={O}")
+            grouped_plan_line(K, M, D, Os, sms)
+            print(f"  {'':17s} grouped: one launch / {len(Os)} launches "
+                  f"{statistics.median(gms) / statistics.median(gsep):.3f} "
+                  f"({statistics.median(gsep):.5f} ms); grouped / "
+                  f"w8a8_gemm_many "
+                  f"{statistics.median(gms) / statistics.median(ms):.3f}",
+                  flush=True)
         del cat, wts
         torch.cuda.empty_cache()
 
@@ -1179,8 +1240,8 @@ def check_grouped_simple(dev, gen):
         w = torch.randint(-127, 128, (O, D), generator=gen, device=dev,
                           dtype=torch.int8)
         sg = torch.rand((D // gs, O), generator=gen, device=dev) * 1e-3
-        if K.grouped_gemm_on_mma(D, D // gs, O):
-            fail(f"gs={gs} O={O} is on the tensor-core route")
+        if K.grouped_on_wgmma(D, D // gs, O):
+            fail(f"gs={gs} O={O} is on the wgmma route")
         for dt in (torch.bfloat16, torch.float32):
             y = (torch.randn((M, D), generator=gen, device=dev) * 2.0).to(dt)
             check_grouped(K, y, w, sg, gs, f"M={M} D={D} O={O} gs={gs} {dt}",
@@ -6748,7 +6809,7 @@ def check_distill_flagship(dev, paths):
 
 PORT_KERNEL_NAMES = ("row_quant_int8_kernel", "w8a8_gemm_kernel",
                      "w8_bf16_gemm_tc_kernel", "group_quant_int8_kernel",
-                     "w8a8_grouped_gemm_tc_kernel", "decode_attention_kernel",
+                     "w8a8_grouped_gemm_kernel", "decode_attention_kernel",
                      "beam_attention_kernel", "rms_norm_quant_int8_kernel",
                      "silu_mul_quant_int8_kernel")
 
@@ -7399,6 +7460,18 @@ def main():
             # replaced and the quantizer alone
             if k in t:
                 entries[-1][k] = t[k]
+        if name == "w8a8_grouped_gemm":
+            # every --group128 path shape (TABLE_M rows against each
+            # projection, the grouped head, q|k|v and gate|up in one
+            # launch) beside its bound and w8a8_gemm on the same bytes
+            w8 = notes.rows["w8a8_gemm"]["shapes"]
+            entries[-1]["path_shapes"] = [
+                {"M": k[0], "D": k[1], "O": k[2], "ms": v["ms"],
+                 "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                 "plain_ms": v["plain_ms"],
+                 "w8a8_gemm_ms": w8[k]["ms"] if k in w8 else None}
+                for k, v in notes.rows[name]["shapes"].items()
+                if len(k) == 3 and k[0] in TABLE_M + MANY_M]
         if name in ("rms_norm_quant_int8", "silu_mul_quant_int8"):
             # the fused kernels' grouped form: the --group128 stream
             gt = notes.rows[name]["shapes"][("g128",) + shape]

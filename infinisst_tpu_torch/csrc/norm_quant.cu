@@ -318,14 +318,25 @@ __global__ void __launch_bounds__(1024)
     load_chunk<BF16>(grow, c, g[j]);
     load_chunk<BF16>(urow, c, u[j]);
   }
-  // silu as torch computes it on the card: x / (1 + exp(-x)) in float32,
-  // rounded to the dtype, then the product rounded to the dtype
+  // silu as the plain version computes it (quant_matmul.py:silu): on
+  // bf16 rows jax.nn.silu as XLA computes it, x * (1 / (1 + exp(-x)))
+  // with every step rounded to bf16 (the negation is exact; exp is expf,
+  // which torch.exp in the plain version runs on the card, never
+  // __expf); on float32 rows torch's x / (1 + exp(-x)); then the product
+  // with up rounded to the dtype
 #pragma unroll
   for (int j = 0; j < J; ++j) {
 #pragma unroll
     for (int e = 0; e < kChunk; ++e) {
-      const float sg = to_dtype<BF16>(
-          __fdiv_rn(g[j][e], __fadd_rn(1.0f, expf(-g[j][e]))));
+      float sg;
+      if constexpr (BF16) {
+        const float ex = to_dtype<BF16>(expf(-g[j][e]));
+        const float den = to_dtype<BF16>(__fadd_rn(1.0f, ex));
+        const float sig = to_dtype<BF16>(__fdiv_rn(1.0f, den));
+        sg = to_dtype<BF16>(__fmul_rn(g[j][e], sig));
+      } else {
+        sg = __fdiv_rn(g[j][e], __fadd_rn(1.0f, expf(-g[j][e])));
+      }
       g[j][e] = to_dtype<BF16>(__fmul_rn(sg, u[j][e]));
     }
   }

@@ -1,8 +1,9 @@
-// Device helpers shared by quant_matmul.cu and grouped_matmul.cu (each
-// includes this header in its own translation unit, so the two build in
-// parallel): output stores, int8 packing, 16-byte vector values, the
-// tensor-core tile constants, cp.async, the int8 MMA, the stage layout,
-// the shared-memory opt-in and the launch geometry.
+// Device helpers shared by quant_matmul.cu, grouped_matmul.cu and
+// norm_quant.cu (each includes this header in its own translation unit,
+// so they build in parallel): output stores, int8 packing, 16-byte vector
+// values, cp.async and the shared-memory opt-in; and for w8_bf16_gemm's
+// mma.sync design (quant_matmul.cu), its tile constants, the stage layout
+// and the launch geometry.
 
 #pragma once
 
@@ -44,7 +45,8 @@ __device__ __forceinline__ float vec_value(const int4& r, int e) {
   }
 }
 
-// w8a8_gemm's tiles, which the other tensor-core GEMMs share
+// w8_bf16_gemm's tiles (the mma.sync design w8a8_gemm had before its
+// wgmma redesign)
 namespace tc {
 
 constexpr int kTK = 128;       // bytes of D per pipeline stage
@@ -83,15 +85,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
-                                       int a3, int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // Byte offset of 16-byte chunk c of row r in a stage of 128-byte rows.
 // Odd rows swap their 64-byte halves, so the 8 lanes of a quarter warp
 // (rows g, g + 1, chunks t) read 8 distinct bank groups.
@@ -112,7 +105,7 @@ int set_smem_once(Kernel kernel, size_t smem, bool& done) {
   return err;
 }
 
-// The launch geometry the tensor-core GEMMs share.  A block that streams
+// The launch geometry of w8_bf16_gemm.  A block that streams
 // long weight rows past few activation rows gains from fetching the next
 // 128 bytes of each row into L2 early; with more rows, or short splits,
 // the extra traffic cost more than it gave (measured on the H100 with

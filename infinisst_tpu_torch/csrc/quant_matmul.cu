@@ -65,7 +65,7 @@
 // the plain version only by the order of the f32 sums.
 
 #include "quant_common.cuh"
-#include "tma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -197,7 +197,7 @@ __global__ void empty_kernel() {}
 
 constexpr int kMaxW = 3;        // weights a launch
 constexpr int kTileO = 128;     // output channels a tile
-constexpr int kStageK = 128;    // bytes of D a stage
+constexpr int kStageK = kWgmmaStageK;  // bytes of D a stage
 constexpr int kWStage = kTileO * kStageK;  // a stage's weight bytes
 constexpr int kCWarps = 8;      // two consumer warpgroups
 constexpr int kGemmThreads = 32 * (kCWarps + 1);
@@ -221,64 +221,7 @@ struct GemmParams {
   long long n_iters;
 };
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int K>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
-}
-
-// A K-major operand in shared memory as TMA's 128-byte swizzle leaves it:
-// rows of 128 bytes, 8-row groups 1024 bytes apart; its address moves by
-// 32 bytes for each k32 step inside the swizzle atom.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |           // LBO (unused)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |   // SBO
-         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
-}
-
 constexpr int kConsumers = 32 * kCWarps;
-
-__device__ __forceinline__ void red_release(int* p, int v) {
-  asm volatile(
-      "fence.acq_rel.gpu;\n"
-      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
-      "r"(v)
-      : "memory");
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// A weight tile through TMA with an L2 cache policy.
-__device__ __forceinline__ void load_weight(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
-      ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync_consumers() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
 
 // the block holding iteration i of I cut into B runs
 __device__ __forceinline__ int block_of(long long i, long long I, int B) {
@@ -297,324 +240,6 @@ __device__ __forceinline__ void tile_of(const GemmParams& p, int t, int& w,
 // c (64 x N, s32) += a (64 x 32 s8, K-major) * b (N x 32 s8, K-major),
 // both from shared memory through their descriptors; c is not read when
 // accumulate is 0.  One specialisation per N the kernel is compiled for.
-template <int N>
-__device__ __forceinline__ void wgmma_s8(int (&c)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate);
-
-template <>
-__device__ __forceinline__ void wgmma_s8<8>(int (&c)[4], uint64_t a,
-                                            uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
-      "%0, %1, %2, %3"
-      "}, %4, %5, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<16>(int (&c)[8], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<32>(int (&c)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %16, %17, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<48>(int (&c)[24], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
-      "}, %24, %25, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<64>(int (&c)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<80>(int (&c)[40], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39"
-      "}, %40, %41, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<96>(int (&c)[48], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<128>(int (&c)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
-        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
-        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
-        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<160>(int (&c)[80], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79"
-      "}, %80, %81, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
-        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
-        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
-        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
-        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
-        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
-        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<192>(int (&c)[96], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
-        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
-        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
-        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
-        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
-        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
-        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
-        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
-        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
-        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
-        "+r"(c[95])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<224>(int (&c)[112], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n224k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111"
-      "}, %112, %113, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
-        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
-        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
-        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
-        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
-        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
-        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
-        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
-        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
-        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
-        "+r"(c[95]), "+r"(c[96]), "+r"(c[97]), "+r"(c[98]), "+r"(c[99]),
-        "+r"(c[100]), "+r"(c[101]), "+r"(c[102]), "+r"(c[103]), "+r"(c[104]),
-        "+r"(c[105]), "+r"(c[106]), "+r"(c[107]), "+r"(c[108]), "+r"(c[109]),
-        "+r"(c[110]), "+r"(c[111])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<256>(int (&c)[128], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n}\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3]), "+r"(c[4]),
-        "+r"(c[5]), "+r"(c[6]), "+r"(c[7]), "+r"(c[8]), "+r"(c[9]),
-        "+r"(c[10]), "+r"(c[11]), "+r"(c[12]), "+r"(c[13]), "+r"(c[14]),
-        "+r"(c[15]), "+r"(c[16]), "+r"(c[17]), "+r"(c[18]), "+r"(c[19]),
-        "+r"(c[20]), "+r"(c[21]), "+r"(c[22]), "+r"(c[23]), "+r"(c[24]),
-        "+r"(c[25]), "+r"(c[26]), "+r"(c[27]), "+r"(c[28]), "+r"(c[29]),
-        "+r"(c[30]), "+r"(c[31]), "+r"(c[32]), "+r"(c[33]), "+r"(c[34]),
-        "+r"(c[35]), "+r"(c[36]), "+r"(c[37]), "+r"(c[38]), "+r"(c[39]),
-        "+r"(c[40]), "+r"(c[41]), "+r"(c[42]), "+r"(c[43]), "+r"(c[44]),
-        "+r"(c[45]), "+r"(c[46]), "+r"(c[47]), "+r"(c[48]), "+r"(c[49]),
-        "+r"(c[50]), "+r"(c[51]), "+r"(c[52]), "+r"(c[53]), "+r"(c[54]),
-        "+r"(c[55]), "+r"(c[56]), "+r"(c[57]), "+r"(c[58]), "+r"(c[59]),
-        "+r"(c[60]), "+r"(c[61]), "+r"(c[62]), "+r"(c[63]), "+r"(c[64]),
-        "+r"(c[65]), "+r"(c[66]), "+r"(c[67]), "+r"(c[68]), "+r"(c[69]),
-        "+r"(c[70]), "+r"(c[71]), "+r"(c[72]), "+r"(c[73]), "+r"(c[74]),
-        "+r"(c[75]), "+r"(c[76]), "+r"(c[77]), "+r"(c[78]), "+r"(c[79]),
-        "+r"(c[80]), "+r"(c[81]), "+r"(c[82]), "+r"(c[83]), "+r"(c[84]),
-        "+r"(c[85]), "+r"(c[86]), "+r"(c[87]), "+r"(c[88]), "+r"(c[89]),
-        "+r"(c[90]), "+r"(c[91]), "+r"(c[92]), "+r"(c[93]), "+r"(c[94]),
-        "+r"(c[95]), "+r"(c[96]), "+r"(c[97]), "+r"(c[98]), "+r"(c[99]),
-        "+r"(c[100]), "+r"(c[101]), "+r"(c[102]), "+r"(c[103]), "+r"(c[104]),
-        "+r"(c[105]), "+r"(c[106]), "+r"(c[107]), "+r"(c[108]), "+r"(c[109]),
-        "+r"(c[110]), "+r"(c[111]), "+r"(c[112]), "+r"(c[113]), "+r"(c[114]),
-        "+r"(c[115]), "+r"(c[116]), "+r"(c[117]), "+r"(c[118]), "+r"(c[119]),
-        "+r"(c[120]), "+r"(c[121]), "+r"(c[122]), "+r"(c[123]), "+r"(c[124]),
-        "+r"(c[125]), "+r"(c[126]), "+r"(c[127])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // The epilogue of a tile from consumer thread tid's registers: register
 // 4j + e -> channel 128 ot + 64 wg + 16 (warp % 4) + g + 8 (e >> 1), row
 // N mt + 8j + 2t + (e & 1).  The row scales are loaded before any store.
@@ -778,8 +403,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&empty[held]);
-#pragma unroll
-    for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+    fence_regs(acc);
     it = seg_end;
 
     int w, ot, mt;
@@ -796,7 +420,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         part[i * kConsumers] = make_int4(acc[4 * i], acc[4 * i + 1],
                                          acc[4 * i + 2], acc[4 * i + 3]);
       }
-      named_sync_consumers();
+      named_sync<kConsumers>();
       if (tid == 0) red_release(&p.counters[block_of(ts, p.n_iters, B)], 1);
       GQ_PHASE(5);
     } else {
@@ -809,7 +433,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         }
         *cnt = 0;
       }
-      named_sync_consumers();
+      named_sync<kConsumers>();
       GQ_PHASE(6);
       for (int b = blockIdx.x + 1; b <= b_last; ++b) {
         const int4* part =
@@ -828,25 +452,6 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     }
   }
   GQ_PHASE_END();
-}
-
-// The tensor map of a K-major (rows, D) int8 matrix, boxes (box_rows,
-// 128): the 128-byte swizzle the wgmma descriptors read; rows and bytes
-// past the matrix arrive as zeros.
-int kmajor_map(CUtensorMap* map, const void* base, int rows, int D,
-               int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encoder()(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
 
 size_t gemm_smem(int N, int stages) {

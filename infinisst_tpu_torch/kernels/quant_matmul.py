@@ -28,8 +28,10 @@ quantizers ``csrc/norm_quant.cu`` (built apart, in parallel), with
 - ``w8a8_grouped_gemm`` replaces ``_qmm_i8_grouped_kernel`` (:191) in
   ``quantized_matmul_w8a8_grouped`` (:239): one int8 dot per input group,
   rescaled by the (row, group) and (group, out) scales and accumulated in
-  f32 in group order (one fused multiply-add per group).  Bound by the
-  int8 weight and its (G, O) scales.
+  f32 in group order (one fused multiply-add per group);
+  ``w8a8_grouped_gemm_many`` runs up to three weights that share their
+  activation in one launch.  Bound by the int8 weight and its (G, O)
+  scales.
 
 - ``rms_norm_quant_int8`` and ``silu_mul_quant_int8``
   (``csrc/norm_quant.cu``): the quantizer as the last step of the
@@ -44,26 +46,27 @@ quantizers ``csrc/norm_quant.cu`` (built apart, in parallel), with
   at any M.  Bound by the launch and one round trip to memory.
 
 The grouped pair takes every group size that divides D, as JAX's grouped
-path does: groups that the vector and tensor-core routes cannot hold
-(not whole 16-byte vectors, not a multiple of ``GROUPED_MMA_GROUP``, or
-O not a multiple of 4) take a simple route in the same source, bitwise
-the same arithmetic.
+path does: groups that the vector and wgmma routes cannot hold (not
+whole 16-byte vectors, not a multiple of ``GROUPED_MMA_GROUP``, or O not
+a multiple of 4; ``grouped_on_wgmma``) take a simple route in the same
+source, bitwise the same arithmetic.
 
 All seven are Hopper redesigns.  The three GEMMs take their weight K-major,
 (O, D) (``models/quant.pack_kmajor`` packs it once, where leaves are
-made).  ``w8a8_gemm`` runs on ``wgmma`` with a TMA ring on mbarriers and
-persistent blocks that share the (tile, stage) iterations evenly
-(``w8a8_plan``); ``w8_bf16_gemm`` and the grouped GEMM run on
-``mma.sync`` with split-K across blocks, planned by ``gemm_plan`` and,
-for the grouped GEMM, whose splits must keep the one fused multiply-add
-chain over the groups, ``grouped_gemm_plan``.
+made).  ``w8a8_gemm`` and the grouped GEMM run on ``wgmma`` with a TMA
+ring on mbarriers and persistent blocks that share the (tile, stage)
+iterations evenly (``w8a8_plan``; ``grouped_plan``, whose splits keep the
+one fused multiply-add chain over the groups in g order);
+``w8_bf16_gemm`` runs on ``mma.sync`` with split-K across blocks, planned
+by ``gemm_plan``.
 
 Every wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; nothing falls back.  Each launch
 adds one to ``launch_counts[name]``.  ``internal_counts`` counts what a
 wrapper does besides its one kernel launch: ``w8a8_gemm_split_k``, the
-launches whose plan splits a tile across blocks, ``w8_bf16_gemm_split_k``
-and ``w8a8_grouped_gemm_split_k``, the calls that split D across blocks
+launches whose plan splits a tile across blocks, ``w8_bf16_gemm_split_k``,
+the calls that split D across blocks, and ``w8a8_grouped_gemm_split_k``,
+the launches whose contributors park products for a split tile's owner
 (still one launch each), ``group_quant_int8_simple`` and
 ``w8a8_grouped_gemm_simple``, the calls that took the grouped pair's
 simple route (still one launch each), ``counter_zeroing``, the fills of
@@ -77,6 +80,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -133,12 +137,19 @@ def _bind_grouped(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a built ``grouped_matmul`` library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.group_quant_int8.argtypes = [vp, ci, vp, vp] + [ci] * 7 + [vp]
-    lib.w8a8_grouped_gemm.argtypes = [vp] * 5 + [ci] * 9 + [vp] * 3
+    lib.w8a8_grouped_gemm.argtypes = ([vp, vp] + [ci] * 4 + [vp] * 9
+                                      + [ci] * 11 + [vp] * 3)
+    lib.w8a8_grouped_gemm_smem.argtypes = [ci] * 4
     lib.group_quant_int8_simple.argtypes = [vp, ci, vp, vp] + [ci] * 3 + [vp]
     lib.w8a8_grouped_gemm_simple.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     for fn in (lib.group_quant_int8, lib.w8a8_grouped_gemm,
-               lib.group_quant_int8_simple, lib.w8a8_grouped_gemm_simple):
+               lib.w8a8_grouped_gemm_smem, lib.group_quant_int8_simple,
+               lib.w8a8_grouped_gemm_simple):
         fn.restype = ci
+    if any(lib.w8a8_grouped_gemm_smem(r, G, e, st) != grouped_smem(r, G, e, st)
+           for r in (GROUPED_ROWS[0], GROUPED_ROWS[-1]) for G, e in
+           ((32, 1), (448, 4)) for st in (2, 5)):
+        raise RuntimeError("grouped_plan's ring differs from the kernel's")
     return lib
 
 
@@ -499,11 +510,63 @@ def rms_norm_quant_int8(h, delta, scale, eps: float, gs: int, *,
     return h_out, y_q, y_s
 
 
+def _rounded(x: torch.Tensor, dt) -> torch.Tensor:
+    """float32 x rounded to dt and back: one elementwise step of XLA's
+    bf16 arithmetic."""
+    return x.to(dt).to(torch.float32)
+
+
+class _Silu(torch.autograd.Function):
+    """``jax.nn.silu`` on bf16 (or f16) rows as XLA computes it, ``x *
+    (1 / (1 + exp(-x)))`` with every step rounded to x's dtype, and the
+    gradient ``jax.grad`` takes of it: the product rule over ``x *
+    logistic(x)`` with ``lax.logistic``'s JVP ``s * (1 - s)``, ``ct * s +
+    (x * ct) * (s * (1 - s))``, each step rounded to the dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        dt = x.dtype
+        xf = x.to(torch.float32)
+        e = _rounded(torch.exp(-xf), dt)
+        # a tensor reciprocal: the IEEE quotient 1 / d on the CPU and CUDA
+        s = _rounded(torch.reciprocal(_rounded(e + 1.0, dt)), dt)
+        ctx.save_for_backward(x, s.to(dt))
+        return (xf * s).to(dt)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        dt = x.dtype
+        xf, sf, cf = (t.to(torch.float32) for t in (x, s, ct))
+        ds = _rounded(sf * _rounded(1.0 - sf, dt), dt)
+        through_s = _rounded(_rounded(xf * cf, dt) * ds, dt)
+        return (_rounded(cf * sf, dt) + through_s).to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the port mirrors it.  On bf16 rows XLA rounds
+    every step of ``x * (1 / (1 + exp(-x)))`` to bf16 (exp of the bf16
+    value in float32, then the sum, the reciprocal and the product), where
+    torch's silu computes ``x / (1 + exp(-x))`` in float32 and rounds
+    once: up to two bf16 steps apart, so reduced-precision rows take
+    ``_Silu``, which rounds where XLA does and differentiates as
+    ``jax.grad`` does.  Float32 rows keep torch's silu: there the two
+    agree to an ulp, and XLA's exp (its own approximation) keeps even the
+    expanded form an ulp off JAX on some values, while its gradient moved
+    the 5-step float32 training that ``tests/test_torch_tools.py`` holds
+    to JAX within 1e-5 past that tolerance.  Every port site that mirrors
+    a ``jax.nn.silu`` calls it; ``silu_mul_quant_int8``'s kernel computes
+    the same per dtype."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return _Silu.apply(x)
+
+
 def silu_mul_quant_int8_plain(gate, up, gs: int):
-    """``silu(gate) * up`` as torch computes it (silu rounded to the
-    dtype, then the product), then ``row_quant_int8_plain`` (gs == D) or
-    ``group_quant_int8_plain``.  Returns (y_q, y_s)."""
-    return _quantize_plain(torch.nn.functional.silu(gate) * up, gs)
+    """``silu(gate) * up`` as the port mirrors JAX's (``silu``, then the
+    product rounded to the dtype), then ``row_quant_int8_plain`` (gs ==
+    D) or ``group_quant_int8_plain``.  Returns (y_q, y_s)."""
+    return _quantize_plain(silu(gate) * up, gs)
 
 
 def silu_mul_quant_int8(gate, up, gs: int, *,
@@ -545,10 +608,10 @@ def launch_empty_rows(device, plan: NormQuantPlan, M: int):
 
 
 # ---------------------------------------------------------------------------
-# the mma.sync GEMMs' plan (w8_bf16_gemm; the grouped GEMM's tiles)
+# the mma.sync GEMM's plan (w8_bf16_gemm)
 
 
-# Tiles of the mma.sync kernels (csrc/quant_common.cuh, namespace tc):
+# Tiles of the mma.sync kernel (csrc/quant_common.cuh, namespace tc):
 # output channels per block, weight bytes (values of D) per pipeline
 # stage, and the activation row tiles they are compiled for (NT n8 tiles
 # of 8 rows)
@@ -594,16 +657,15 @@ def gemm_plan(M: int, D: int, O: int, sms: int) -> GemmPlan:
     return GemmPlan(rows, n_mtiles, n_otiles, k_split, _cdiv(D, k_split))
 
 
-def _split_k_buffers(name, plan, dtype, dev, slabs=None,
-                     tile_o=GEMM_TILE_O):
-    """The workspace (one (rows, tile_o) slab per tile and split, or per
-    tile and each of ``slabs``) and the tile counters of a split-K
-    launch; (None, None) without a split."""
+def _split_k_buffers(name, plan, dtype, dev):
+    """The workspace (one (rows, GEMM_TILE_O) slab per tile and split) and
+    the tile counters of a split-K launch; (None, None) without a
+    split."""
     if plan.n_split == 1:
         return None, None
     n_tiles = plan.n_mtiles * plan.n_otiles
-    ws = torch.empty((n_tiles * (slabs or plan.n_split) * plan.rows,
-                      tile_o), dtype=dtype, device=dev)
+    ws = torch.empty((n_tiles * plan.n_split * plan.rows, GEMM_TILE_O),
+                     dtype=dtype, device=dev)
     internal_counts[f"{name}_split_k"] += 1
     return ws, zeroed_counters(name, dev, n_tiles)
 
@@ -978,121 +1040,250 @@ def w8a8_grouped_gemm_plain(y_q, y_s, w_t, scale, out_dtype):
     return out.to(out_dtype)
 
 
-# output channels a block (csrc/grouped_matmul.cu: four warps of one or
-# two m16 tiles): the narrow tile, but for weights wide enough that the wide
-# one alone gives GROUPED_WIDE_WAVES blocks per SM (the lm_head shape)
-GROUPED_TILE_OS = (64, 128)
-GROUPED_WIDE_WAVES = 4
-# split-K's workspace (one f32 product per valid row, group and channel)
-# at most the weight bytes over this
-GROUPED_WS_CAP = 8
-# without a split, a grid of less than half a wave takes narrower row
-# tiles (the weight then crosses L2, not device memory, once more per row
-# tile), down to GROUPED_MIN_ROWS rows
-GROUPED_MIN_ROWS = 16
-
-
-class GroupedGemmPlan(NamedTuple):
-    rows: int  # activation rows per block (one of GEMM_ROW_TILES)
-    tile_o: int  # output channels per block (one of GROUPED_TILE_OS)
-    n_mtiles: int
-    n_otiles: int
-    k_split: int  # values of D per split: whole groups
-    n_split: int  # ceil(D / k_split)
-
-
-@functools.lru_cache(maxsize=None)
-def grouped_gemm_plan(M: int, D: int, O: int, G: int, sms: int
-                      ) -> GroupedGemmPlan:
-    """The grid of ``w8a8_grouped_gemm`` for an (M, D) x (D, O) product in
-    G groups on a card with ``sms`` SMs (a pure function of the shapes;
-    the rules and constants are the best of the launches timed on the H100
-    at the main path's shapes, PERF.md).  One row tile holds all M <= 80
-    rows, so the weight is read once.  A grid short of one wave (a block
-    per SM) splits D, in whole groups, toward GEMM_BLOCKS_PER_SM blocks
-    per SM as ``gemm_plan`` does, but only where the products the splits
-    hand to the last block of each tile (M x G x O f32) stay within
-    1 / GROUPED_WS_CAP of the weight bytes (at gs = 128: M <= 4); without
-    a split, a grid short of half a wave takes narrower row tiles."""
-    gs = D // G
-    rows = next(r for r in GEMM_ROW_TILES if r >= min(M, GEMM_ROW_TILES[-1]))
-    tile_o, wide = GROUPED_TILE_OS
-    if _cdiv(O, wide) * _cdiv(M, rows) >= GROUPED_WIDE_WAVES * sms:
-        tile_o = wide
-    n_otiles = _cdiv(O, tile_o)
-    tiles = n_otiles * _cdiv(M, rows)
-    per = G
-    if tiles < sms and GROUPED_WS_CAP * 4 * M * G <= D:
-        split = max(1, min(_cdiv(GEMM_BLOCKS_PER_SM * sms, tiles), G))
-        per = min((_cdiv(G, split), max(1, G // split)),
-                  key=lambda p: (abs(_cdiv(G, p) - split), -p))
-    if per == G:
-        while 2 * n_otiles * _cdiv(M, rows) < sms and rows > GROUPED_MIN_ROWS:
-            rows = GEMM_ROW_TILES[GEMM_ROW_TILES.index(rows) - 1]
-    return GroupedGemmPlan(rows, tile_o, _cdiv(M, rows), n_otiles, per * gs,
-                           _cdiv(G, per))
-
-
-# the tensor-core route's MMA takes whole runs of this many int8 values of
-# a group, and its scale loads 4 channels at a time; other shapes take
-# the simple route
+# The wgmma route's row tiles (csrc/grouped_matmul.cu: two int32 sets and
+# the f32 results of N / 2 registers each a thread), its ring's depth,
+# and its output tiles, stages and weights a launch are w8a8_gemm's
+GROUPED_ROWS = (8, 16, 32, 48, 64, 80)
+GROUPED_MAX_STAGES = 12
+# a plan splits tiles across blocks only while the products its
+# contributors park (rows x 128 channels of f32 a group, which stay in L2
+# until the owner reads them) stay within the weight bytes over this
+GROUPED_WS_CAP = 4
+# without a split, a launch of fewer than half a wave of tiles takes
+# narrower row tiles (the weight then crosses L2, not device memory, once
+# more per row tile), down to this many rows
+GROUPED_NARROW_ROWS = 16
+# the wgmma route takes groups of whole k32 products
 GROUPED_MMA_GROUP = 32
 
 
-def grouped_gemm_on_mma(D: int, G: int, O: int) -> bool:
+def _lcm(a, b):
+    return a * b // math.gcd(a, b)
+
+
+def grouped_ends(D: int, G: int) -> int:
+    """Scale rows a stage of the ring carries: the most groups that can
+    end in one 128-byte stage, at most G."""
+    return min(G, _cdiv(W8A8_STAGE_K, D // G))
+
+
+def grouped_smem(rows: int, G: int, ends: int, stages: int) -> int:
+    """Dynamic shared memory of a block: the ring (each stage's weight,
+    activation and scale boxes, rounded up to 1024 bytes), its
+    mbarriers, a tile's rows x G activation scales, and 1024 bytes to
+    align the ring."""
+    stage = W8A8_TILE_O * W8A8_STAGE_K + rows * W8A8_STAGE_K \
+        + ends * W8A8_TILE_O * 4
+    stage = _cdiv(stage, 1024) * 1024
+    return 1024 + stages * stage + 16 * stages + 4 * rows * G
+
+
+def grouped_on_wgmma(D: int, G: int, O: int) -> bool:
     """Whether ``w8a8_grouped_gemm`` runs a (D, O) weight in G groups on
-    its tensor-core route (else on its simple route)."""
-    return (D // G) % GROUPED_MMA_GROUP == 0 and O % 4 == 0
+    its wgmma route (else on its simple route): groups of whole k32
+    products, 16-byte rows of scales, and a ring of two stages at the
+    narrowest row tile beside the tile's activation scales."""
+    if G < 1 or D % G or (D // G) % GROUPED_MMA_GROUP or O % 4:
+        return False
+    return grouped_smem(GROUPED_ROWS[0], G, grouped_ends(D, G), 2) \
+        <= W8A8_SMEM
 
 
-def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
-    """y_q (M, D) int8, y_s (M, G) f32, w_t (O, D) int8 K-major, scale
-    (G, O) f32 -> (M, O) out_dtype."""
+class GroupedPlan(NamedTuple):
+    """One launch of the wgmma route: tiles of (weight, W8A8_TILE_O
+    channels, ``rows`` activation rows), weight by weight, output tile by
+    output tile, row tiles innermost; a tile's ``n_k`` stages of D in
+    units of ``unit`` stages (whole groups; ``upt`` units a tile), unit
+    ``t * upt + j`` the tile's j-th; block b runs units [start(b),
+    start(b + 1)), start(b) = (n_units // cut) * b // blocks * cut."""
+    rows: int  # activation rows a tile, one of GROUPED_ROWS
+    n_mtiles: int
+    gs: int
+    n_k: int
+    unit: int  # stages a unit: lcm(gs, 128) / 128
+    upt: int  # units a tile
+    tile0: tuple  # each weight's first tile, then the number of tiles
+    n_units: int
+    cut: int  # units a piece: 1 (stream-K) or upt (whole tiles a block)
+    blocks: int  # persistent blocks, at most one an SM
+    stages: int  # depth of the TMA ring
+    ends: int  # scale rows a stage carries
+    park: int  # groups a block's workspace slot holds (0: no split)
+    parked_bytes: int  # the f32 products contributors park
+    split_tiles: int  # tiles whose units fall to more than one block
+
+
+def grouped_start(plan: GroupedPlan, b: int) -> int:
+    """The first unit of block b's run (b = blocks: the end of the
+    last)."""
+    return plan.n_units // plan.cut * b // plan.blocks * plan.cut
+
+
+def _grouped_split(M, D, Os, rows, cut_whole, blocks, gs):
+    """(n_mtiles, unit, upt, tile0, n_units, cut, blocks, park,
+    parked_bytes, split_tiles) of a launch with ``rows`` rows a tile over
+    ``blocks`` blocks (at most the pieces), whole tiles a block or not."""
+    n_mtiles = _cdiv(M, rows)
+    n_k = _cdiv(D, W8A8_STAGE_K)
+    unit = _lcm(gs, W8A8_STAGE_K) // W8A8_STAGE_K
+    upt = _cdiv(n_k, unit)
+    tile0 = [0]
+    for O in Os:
+        tile0.append(tile0[-1] + _cdiv(O, W8A8_TILE_O) * n_mtiles)
+    n_units = tile0[-1] * upt
+    cut = upt if cut_whole else 1
+    blocks = max(1, min(blocks, n_units // cut))
+    starts = [n_units // cut * b // blocks * cut for b in range(blocks + 1)]
+    park = parked = 0
+    split = set()
+    for b in range(blocks):
+        u0, u1 = starts[b], starts[b + 1]
+        if u0 % upt:  # a contributor: the tile began in an earlier run
+            t = u0 // upt
+            split.add(t)
+            k0 = (u0 - t * upt) * unit
+            k1 = min((min(u1, (t + 1) * upt) - t * upt) * unit, n_k)
+            groups = (min(k1 * W8A8_STAGE_K, D) - k0 * W8A8_STAGE_K) // gs
+            park = max(park, groups)
+            parked += groups * rows * W8A8_TILE_O * 4
+    return (n_mtiles, unit, upt, tuple(tile0), n_units, cut, blocks, park,
+            parked, len(split))
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_plan(M: int, D: int, G: int, Os: tuple, sms: int) -> GroupedPlan:
+    """The launch of the wgmma route of ``w8a8_grouped_gemm_many`` for an
+    (M, D) activation in G groups against K-major weights of (O, D) for O
+    in ``Os`` on a card with ``sms`` SMs (a pure function of the shapes).
+    Up to 80 rows one row tile holds them all (each weight crosses memory
+    once); above, as few tiles as hold 80 rows each.  The units are cut
+    into one equal run an SM (stream-K), where the products the split
+    tiles' contributors park stay within 1 / GROUPED_WS_CAP of the weight
+    bytes (at gs = 128: one row tile of 8 rows).  Above that cap each
+    block takes whole tiles, and a launch of fewer than half a wave of
+    tiles takes narrower row tiles, down to GROUPED_NARROW_ROWS."""
+    gs = D // G
+
+    def rows_of(n):  # the fewest compiled rows that cut M into n tiles
+        return next(r for r in GROUPED_ROWS if r >= _cdiv(M, n))
+
+    n = _cdiv(M, GROUPED_ROWS[-1])
+    rows = rows_of(n)
+    wbytes = D * sum(Os)
+    sp = _grouped_split(M, D, Os, rows, False, sms, gs)
+    if sp[8] * GROUPED_WS_CAP > wbytes:
+        otiles = sum(_cdiv(O, W8A8_TILE_O) for O in Os)
+        while 2 * otiles * _cdiv(M, rows) < sms and rows > GROUPED_NARROW_ROWS:
+            n += 1
+            rows = rows_of(n)
+        sp = _grouped_split(M, D, Os, rows, True, sms, gs)
+    n_mtiles, unit, upt, tile0, n_units, cut, blocks, park, parked, nsplit \
+        = sp
+    ends = grouped_ends(D, G)
+    stages = GROUPED_MAX_STAGES
+    while stages > 2 and grouped_smem(rows, G, ends, stages) > W8A8_SMEM:
+        stages -= 1
+    return GroupedPlan(rows, n_mtiles, gs, _cdiv(D, W8A8_STAGE_K), unit, upt,
+                       tile0, n_units, cut, blocks, stages, ends, park,
+                       parked, nsplit)
+
+
+def grouped_block_work(plan: GroupedPlan, b: int):
+    """Block b's stages as the kernel walks them: (weight, output tile, row
+    tile, stage of D), in order."""
+    out = []
+    for u in range(grouped_start(plan, b), grouped_start(plan, b + 1)):
+        t, j = divmod(u, plan.upt)
+        w = max(i for i in range(len(plan.tile0) - 1) if plan.tile0[i] <= t)
+        ot, mt = divmod(t - plan.tile0[w], plan.n_mtiles)
+        for k in range(j * plan.unit, min((j + 1) * plan.unit, plan.n_k)):
+            out.append((w, ot, mt, k))
+    return out
+
+
+def w8a8_grouped_gemm_many_plain(y_q, y_s, w_ts, scales, out_dtype):
+    """``w8a8_grouped_gemm_plain`` of each weight of one activation."""
+    return tuple(w8a8_grouped_gemm_plain(y_q, y_s, w_t, s, out_dtype)
+                 for w_t, s in zip(w_ts, scales))
+
+
+def w8a8_grouped_gemm_many(y_q, y_s, w_ts, scales, out_dtype):
+    """y_q (M, D) int8, y_s (M, G) f32, up to W8A8_MAX_WEIGHTS K-major
+    weights w_ts [(O_i, D) int8] with scales [(G, O_i) f32] -> a tuple of
+    (M, O_i) out_dtype, each bitwise ``w8a8_grouped_gemm_plain`` of its
+    weight: one launch of the wgmma route, or, for shapes it does not take
+    (``grouped_on_wgmma``), one launch of the simple route a weight."""
     if y_q.device.type == "cpu":
-        return w8a8_grouped_gemm_plain(y_q, y_s, w_t, scale, out_dtype)
+        return w8a8_grouped_gemm_many_plain(y_q, y_s, w_ts, scales,
+                                            out_dtype)
     if y_q.device.type != "cuda":
         raise ValueError(f"w8a8_grouped_gemm: unsupported device {y_q.device}")
     dev = y_q.device
     _check("y_q", y_q, (torch.int8,), 2, dev)
     _check("y_s", y_s, (torch.float32,), 2, dev)
-    _check("w_t", w_t, (torch.int8,), 2, dev)
-    _check("scale", scale, (torch.float32,), 2, dev)
     if out_dtype not in _FLOATS:
         raise TypeError(f"w8a8_grouped_gemm: out_dtype {out_dtype}")
+    if len(w_ts) != len(scales) or not 1 <= len(w_ts) <= W8A8_MAX_WEIGHTS:
+        raise ValueError(f"w8a8_grouped_gemm: 1 to {W8A8_MAX_WEIGHTS} "
+                         "weights, one scale a weight")
     M, D = y_q.shape
-    O, D2 = w_t.shape
-    G = scale.shape[0]
-    if (D2 != D or scale.shape[1] != O or G < 1 or D % G
-            or y_s.shape != (M, G)):
-        raise ValueError(
-            f"w8a8_grouped_gemm: shapes y_q {tuple(y_q.shape)} y_s "
-            f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s {tuple(scale.shape)}"
-        )
-    if y_q.data_ptr() % 16 or w_t.data_ptr() % 16 or scale.data_ptr() % 16:
-        raise ValueError("w8a8_grouped_gemm: y_q, w_t and scale must be "
-                         "16-byte aligned")
-    out = torch.empty((M, O), dtype=out_dtype, device=dev)
-    if M == 0 or O == 0:
-        return out
-    if not grouped_gemm_on_mma(D, G, O):
-        err = _grouped_library().w8a8_grouped_gemm_simple(
-            y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, G,
-            _stream(y_q))
-        _raise_on(err, "w8a8_grouped_gemm")
-        internal_counts["w8a8_grouped_gemm_simple"] += 1
-        launch_counts["w8a8_grouped_gemm"] += 1
-        return out
-    plan = grouped_gemm_plan(M, D, O, G, sm_count(dev))
-    # one slab of products per group
-    ws, counters = _split_k_buffers("w8a8_grouped_gemm", plan, torch.float32,
-                                    dev, slabs=G, tile_o=plan.tile_o)
+    G = scales[0].shape[0] if scales[0].ndim == 2 else 0
+    for w_t, s in zip(w_ts, scales):
+        _check("w_t", w_t, (torch.int8,), 2, dev)
+        _check("scale", s, (torch.float32,), 2, dev)
+        if (w_t.shape[1] != D or s.shape != (G, w_t.shape[0]) or G < 1
+                or D % G or y_s.shape != (M, G)):
+            raise ValueError(
+                f"w8a8_grouped_gemm: shapes y_q {tuple(y_q.shape)} y_s "
+                f"{tuple(y_s.shape)} w_t {tuple(w_t.shape)} s "
+                f"{tuple(s.shape)}")
+        if w_t.data_ptr() % 16 or s.data_ptr() % 16:
+            raise ValueError("w8a8_grouped_gemm: w_t and scale must be "
+                             "16-byte aligned")
+    if y_q.data_ptr() % 16:
+        raise ValueError("w8a8_grouped_gemm: y_q must be 16-byte aligned")
+    Os = tuple(w_t.shape[0] for w_t in w_ts)
+    outs = tuple(torch.empty((M, O), dtype=out_dtype, device=dev)
+                 for O in Os)
+    if M == 0:
+        return outs
+    bf16 = int(out_dtype == torch.bfloat16)
+    if not all(grouped_on_wgmma(D, G, O) for O in Os):
+        for w_t, s, out in zip(w_ts, scales, outs):
+            if out.shape[1] == 0:
+                continue
+            err = _grouped_library().w8a8_grouped_gemm_simple(
+                y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), s.data_ptr(),
+                out.data_ptr(), bf16, M, D, out.shape[1], G, _stream(y_q))
+            _raise_on(err, "w8a8_grouped_gemm")
+            internal_counts["w8a8_grouped_gemm_simple"] += 1
+            launch_counts["w8a8_grouped_gemm"] += 1
+        return outs
+    plan = grouped_plan(M, D, G, Os, sm_count(dev))
+    ws = None
+    if plan.park:
+        # each block's slot of parked products: every slot read is written
+        # in the same launch, so it is never filled
+        ws = torch.empty((plan.blocks * plan.park * plan.rows * W8A8_TILE_O,),
+                         dtype=torch.float32, device=dev)
+        internal_counts["w8a8_grouped_gemm_split_k"] += 1
+    counters = zeroed_counters("w8a8_grouped_gemm", dev, plan.blocks)
+    pad = [None] * (W8A8_MAX_WEIGHTS - len(Os))
     err = _grouped_library().w8a8_grouped_gemm(
-        y_q.data_ptr(), y_s.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, D, O, G,
-        plan.rows, plan.tile_o, plan.k_split, plan.n_split, _ptr(ws),
-        _ptr(counters), _stream(y_q),
-    )
+        y_q.data_ptr(), y_s.data_ptr(), M, D, G, len(Os),
+        *[w_t.data_ptr() for w_t in w_ts], *pad,
+        *[s.data_ptr() for s in scales], *pad,
+        *[o.data_ptr() for o in outs], *pad,
+        *Os, *[0] * len(pad), bf16, plan.rows, plan.n_mtiles, plan.unit,
+        plan.cut, plan.blocks, plan.stages, plan.park, _ptr(ws),
+        counters.data_ptr(), _stream(y_q))
     _raise_on(err, "w8a8_grouped_gemm")
     launch_counts["w8a8_grouped_gemm"] += 1
-    return out
+    return outs
+
+
+def w8a8_grouped_gemm(y_q, y_s, w_t, scale, out_dtype):
+    """y_q (M, D) int8, y_s (M, G) f32, w_t (O, D) int8 K-major, scale
+    (G, O) f32 -> (M, O) out_dtype: ``w8a8_grouped_gemm_many`` with one
+    weight."""
+    return w8a8_grouped_gemm_many(y_q, y_s, (w_t,), (scale,), out_dtype)[0]

@@ -106,7 +106,7 @@ def apply_exit_adapter(adapter: Params, h: torch.Tensor, eps: float):
     untrained adapter is the identity.  {'ln': (D,), 'w1': (D, r),
     'w2': (r, D)}."""
     y = _rms_norm(h, adapter["ln"], eps)
-    y = torch.nn.functional.silu(mm(y, adapter["w1"]))
+    y = Q.silu(mm(y, adapter["w1"]))
     return h + mm(y, adapter["w2"]).to(h.dtype)
 
 
@@ -137,7 +137,7 @@ def _silu_mm(gate, up, w):
     D = gate.shape[-1]
     gs = Q.a8_group_size((w,), D)
     if gs is None or up.dtype != gate.dtype:
-        return mm(torch.nn.functional.silu(gate) * up, w)
+        return mm(Q.silu(gate) * up, w)
     y_q, y_s = Q.silu_mul_quant_int8(gate.reshape(-1, D).contiguous(),
                                      up.reshape(-1, D).contiguous(), gs)
     return Q.mm_many_quantized(y_q, y_s, (w,), gate.dtype,
@@ -367,6 +367,12 @@ def offline_forward(
                            cfg.vocab_size, torch.matmul)
 
 
+def _swiglu(y, w_gate, w_up):
+    """The training forward's SwiGLU product on float leaves, as the JAX
+    offline layer writes it: ``jax.nn.silu(y @ w_gate) * (y @ w_up)``."""
+    return Q.silu(y @ w_gate) * (y @ w_up)
+
+
 def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
     lp = par.unshard_tree(lp)
     B, S, _ = h.shape
@@ -389,7 +395,7 @@ def _offline_layer(lp, cfg: LlamaConfig, h, bias, pos, inv_freq):
     attn = attn.reshape(B, H, S, Dh).transpose(1, 2).reshape(B, S, H * Dh)
     h = h + par.reduce_from_model(attn @ lp["wo"])
     y = par.copy_to_model(_rms_norm(h, lp["post_ln"], cfg.rms_norm_eps))
-    y = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
+    y = _swiglu(y, lp["w_gate"], lp["w_up"])
     return h + par.reduce_from_model(y @ lp["w_down"])
 
 

@@ -13,7 +13,7 @@ package, plus one key of the port's own):
                          W8A8 with a per-(input group, out-channel) scale
                          (the ``--group128`` belt), the weight K-major
                          (..., out, in) -> group quant +
-                         ``w8a8_grouped_gemm``;
+                         ``w8a8_grouped_gemm_many``;
   {'a', 'b'}             low-rank factors, two chained ``mm`` calls.
 The JAX package's {'q' (..., in, out), 'scale' or 'scale_a8'} leaves are
 packed K-major once, where leaves are made (``pack_kmajor``: ``from_jax``,
@@ -52,10 +52,12 @@ from infinisst_tpu_torch.kernels.quant_matmul import (
     group_quant_int8,
     rms_norm_quant_int8,
     row_quant_int8,
+    silu,
     silu_mul_quant_int8,
     w8_bf16_gemm,
+    W8A8_MAX_WEIGHTS,
     w8a8_gemm_many,
-    w8a8_grouped_gemm,
+    w8a8_grouped_gemm_many,
 )
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -131,15 +133,16 @@ def mm_many_quantized(y_q, y_s, ws, out_dtype, lead_shape) -> tuple:
     """The products of ``mm_many`` from an activation already quantized
     for the W8A8 leaves ``ws`` (all of one layout, ``a8_group_size``):
     y_q (M, D) int8 and y_s (M, 1) or (M, G) f32.  Per-channel leaves run
-    in one ``w8a8_gemm_many`` launch, grouped ones in one
-    ``w8a8_grouped_gemm`` each.  Each output (M, O) is reshaped to
+    in ``w8a8_gemm_many`` launches, grouped ones in
+    ``w8a8_grouped_gemm_many`` launches, up to W8A8_MAX_WEIGHTS leaves a
+    launch (q|k|v and gate|up: one).  Each output (M, O) is reshaped to
     ``lead_shape`` + (O,)."""
-    if is_grouped(ws[0]):
-        outs = [w8a8_grouped_gemm(y_q, y_s, w[KMAJOR], w["scale_a8"],
-                                  out_dtype) for w in ws]
-    else:
-        outs = w8a8_gemm_many(y_q, y_s, [w[KMAJOR] for w in ws],
-                              [w["scale_a8"] for w in ws], out_dtype)
+    many = w8a8_grouped_gemm_many if is_grouped(ws[0]) else w8a8_gemm_many
+    outs = []
+    for i in range(0, len(ws), W8A8_MAX_WEIGHTS):
+        part = ws[i:i + W8A8_MAX_WEIGHTS]
+        outs += many(y_q, y_s, [w[KMAJOR] for w in part],
+                     [w["scale_a8"] for w in part], out_dtype)
     return tuple(o.reshape(*lead_shape, o.shape[-1]) for o in outs)
 
 
@@ -153,11 +156,12 @@ def mm_many(y: torch.Tensor, ws) -> tuple:
     once per activation layout: one ``row_quant_int8`` for all
     per-channel W8A8 leaves, whose products then run in one
     ``w8a8_gemm_many`` launch (up to three weights: q|k|v, gate|up), one
-    ``group_quant_int8`` per group size.  The quantization is a pure
-    function of y and each output channel is computed as alone, so the
-    results are bitwise those of separate ``mm`` calls."""
+    ``group_quant_int8`` per group size, whose leaves run in one
+    ``w8a8_grouped_gemm_many`` launch the same way.  The quantization is
+    a pure function of y and each output channel is computed as alone, so
+    the results are bitwise those of separate ``mm`` calls."""
     shape = y.shape
-    y2, group_q, outs, a8 = None, {}, [None] * len(ws), []
+    y2, outs, a8, grouped = None, [None] * len(ws), [], {}
     for i, w in enumerate(ws):
         if isinstance(w, dict) and "a" in w:
             outs[i] = mm(mm(y, w["a"]), w["b"])
@@ -171,20 +175,20 @@ def mm_many(y: torch.Tensor, ws) -> tuple:
         if y2 is None:
             y2 = y.reshape(-1, shape[-1]).contiguous()
         if is_grouped(w):  # scale_a8 (G, out)
-            gs = shape[-1] // w["scale_a8"].shape[0]
-            if gs not in group_q:
-                group_q[gs] = group_quant_int8(y2, gs)
-            outs[i], = mm_many_quantized(*group_q[gs], (w,), y.dtype,
-                                         shape[:-1])
+            grouped.setdefault(shape[-1] // w["scale_a8"].shape[0],
+                               []).append(i)
         elif "scale_a8" in w:
             a8.append(i)
         else:
             out = w8_bf16_gemm(y2, w[KMAJOR], w["scale"])
             outs[i] = out.reshape(*shape[:-1], out.shape[-1])
-    if a8:
-        res = mm_many_quantized(*row_quant_int8(y2), [ws[i] for i in a8],
-                                y.dtype, shape[:-1])
-        for i, out in zip(a8, res):
+    layouts = [(row_quant_int8(y2), a8)] if a8 else []
+    layouts += [(group_quant_int8(y2, gs), idx)
+                for gs, idx in grouped.items()]
+    for yq, idx in layouts:
+        res = mm_many_quantized(*yq, [ws[i] for i in idx], y.dtype,
+                                shape[:-1])
+        for i, out in zip(idx, res):
             outs[i] = out
     return tuple(outs)
 

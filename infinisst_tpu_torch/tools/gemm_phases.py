@@ -1,6 +1,8 @@
-"""Where a ``w8a8_gemm`` block spends its time, phase by phase.
+"""Where a ``w8a8_gemm`` (or grouped GEMM) block spends its time, phase
+by phase, and the grouped GEMM against an older checkout's.
 
     python -m infinisst_tpu_torch.tools.gemm_phases [--out f.json]
+        [--path-shapes | --grouped [--parent DIR] | --grouped-phases]
 
 Run from the root of a checkout, on one CUDA card.  Builds an
 instrumented copy of that checkout's ``csrc/quant_matmul.cu`` into
@@ -23,6 +25,20 @@ against gate or up):
   build), the median of replays of a CUDA graph over enough weight
   copies to exceed the 50 MB L2; also q|k|v and gate|up in one launch
   beside the same weights one launch each.
+
+With ``--grouped-phases``: the same phase split of the grouped GEMM
+(``csrc/grouped_matmul.cu``, groups of 128) at the ``--group128``
+stream's shapes (GROUPED_PHASE_SHAPES), beside its device time.
+
+With ``--grouped [--parent DIR]``: the grouped GEMM's device time at every
+``--group128`` path shape (M = 1, 4, 61, 79 against q|k|v, o, gate|up and
+down, the grouped head at M <= 4), beside its bytes bound, from the
+checkout in DIR (default ``build/parent``, unpacked with ``git archive``)
+and from this one, in turns: parent, this, this, parent, each in a
+process of its own that imports that checkout's package and builds its
+kernels (a tree without ``w8a8_grouped_gemm_many`` runs q|k|v and gate|up
+one launch a weight).  Prints each tree's reading, both trees' medians
+and this tree over the parent.
 
 With ``--path-shapes`` instead: the uninstrumented kernel's device time
 at every shape the decoder's paths run it (M = 1, 4, 5, 8, 20, 32, 40,
@@ -75,6 +91,19 @@ PATH_WEIGHTS = (("q or o", 4096, (4096,)), ("k or v", 4096, (1024,)),
                 ("gate or up", 4096, (14336,)), ("down", 14336, (4096,)),
                 ("head", 4096, (128512,))) + MANY
 HEAD_MAX_M = 40
+# --grouped: the --group128 stream's rows (beam steps 1 and 4, the
+# prefill 61 and 79) against its projections, q|k|v and gate|up in one
+# launch, and the grouped head (--group-head) at its beam-step rows
+GROUP = 128
+GROUPED_M = (1, 4, 61, 79)
+GROUPED_WEIGHTS = (("q|k|v", 4096, (4096, 1024, 1024)), ("o", 4096, (4096,)),
+                   ("gate|up", 4096, (14336, 14336)), ("down", 14336, (4096,)),
+                   ("head", 4096, (128512,)))
+# --grouped-phases: (M, D, Os) of a beam step's q|k|v, o, gate|up and
+# down, and the prefill's gate|up and down
+GROUPED_PHASE_SHAPES = ((4, 4096, (4096, 1024, 1024)), (4, 4096, (4096,)),
+                        (4, 4096, (14336, 14336)), (4, 14336, (4096,)),
+                        (61, 4096, (14336, 14336)), (61, 14336, (4096,)))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
@@ -164,15 +193,15 @@ def instrumented_source(src: str):
     return _PRELUDE + src + _EPILOGUE, names
 
 
-def build(root: str):
+def build(root: str, source: str = "quant_matmul"):
     src_path = os.path.join(root, "infinisst_tpu_torch", "csrc",
-                            "quant_matmul.cu")
+                            f"{source}.cu")
     with open(src_path) as f:
         src, names = instrumented_source(f.read())
     out_dir = os.path.join(root, "build", "gemm_phases")
     os.makedirs(out_dir, exist_ok=True)
-    cu = os.path.join(out_dir, "quant_matmul_phases.cu")
-    so = os.path.join(out_dir, "libquant_matmul_phases.so")
+    cu = os.path.join(out_dir, f"{source}_phases.cu")
+    so = os.path.join(out_dir, f"lib{source}_phases.so")
     with open(cu, "w") as f:
         f.write(src)
     subprocess.run([NVCC, "-O3", "-gencode=arch=compute_90a,code=sm_90a",
@@ -241,6 +270,90 @@ class Case:
 
     def separate(self, K, i):
         return [self.one(K, i, j) for j in range(len(self.Os))]
+
+
+class GroupedCase:
+    """M activation rows, quantized in groups of GROUP, against
+    ``len(Os)`` grouped weights of (D, O) each, in ``n_c`` copies, so
+    that a timed run reads the weights cold."""
+
+    def __init__(self, K, dev, gen, M, D, Os):
+        self.M, self.D, self.Os = M, D, Os
+        self.n_c = max(2, math.ceil(2.4 * L2_BYTES / (D * sum(Os))))
+        y = torch.randn((M, D), generator=gen, device=dev).to(torch.bfloat16)
+        self.yq, self.ys = K.group_quant_int8(y, GROUP)
+        self.wts = [[torch.randint(-127, 128, (O, D), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for O in Os] for _ in range(self.n_c)]
+        self.s = [torch.rand((D // GROUP, O), generator=gen, device=dev)
+                  * 1e-3 + 1e-4 for O in Os]
+
+    def run(self, K, i):
+        """One launch for all weights where the tree has
+        ``w8a8_grouped_gemm_many``, else one a weight."""
+        ws = self.wts[i % self.n_c]
+        many = getattr(K, "w8a8_grouped_gemm_many", None)
+        if many is not None:
+            return many(self.yq, self.ys, ws, self.s, torch.bfloat16)
+        return [K.w8a8_grouped_gemm(self.yq, self.ys, w, s, torch.bfloat16)
+                for w, s in zip(ws, self.s)]
+
+    def bound_ms(self):
+        M, D, O, G = self.M, self.D, sum(self.Os), self.D // GROUP
+        return (M * D + M * G * 4 + D * O + G * O * 4 + M * O * 2) \
+            / HBM_BYTES_PER_S * 1e3
+
+
+def grouped_times(K, dev, gen):
+    """{"label M": ms} at GROUPED_WEIGHTS x GROUPED_M (the head at
+    M <= 4)."""
+    out = {}
+    for label, D, Os in GROUPED_WEIGHTS:
+        for M in GROUPED_M:
+            if label == "head" and M > 4:
+                continue
+            c = GroupedCase(K, dev, gen, M, D, Os)
+            out[f"{label} M={M}"] = {"ms": graph_ms(lambda i: c.run(K, i)),
+                                     "bound_ms": c.bound_ms()}
+            del c
+            torch.cuda.empty_cache()
+    return out
+
+
+def grouped_ab(parent: str, out_path):
+    """Parent, this tree, this tree, parent: each a process running
+    ``--grouped-times`` on its checkout; prints and returns the readings
+    and the medians."""
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    runs = []
+    for name, tree in (("parent", parent), ("this", here), ("this", here),
+                       ("parent", parent)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--grouped-times",
+             "--tree", os.path.abspath(tree)], cwd=os.path.abspath(tree),
+            capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"--grouped-times on {tree} failed: "
+                               f"{res.stderr[-4000:]}")
+        reading = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append((name, reading))
+        print(f"[grouped] {name} ({tree}): " + ", ".join(
+            f"{k} {v['ms']:.5f}" for k, v in reading.items()), flush=True)
+    table = {}
+    for key in runs[0][1]:
+        p = statistics.median([r[key]["ms"] for n, r in runs
+                               if n == "parent"])
+        t = statistics.median([r[key]["ms"] for n, r in runs if n == "this"])
+        b = runs[1][1][key]["bound_ms"]
+        table[key] = {"parent_ms": p, "ms": t, "bound_ms": b}
+        print(f"[grouped] {key:14s} parent {p:.5f} ms -> {t:.5f} ms "
+              f"({t / p:.3f}); bound {b:.5f} ms ({b / t:.3f} of it)",
+              flush=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"runs": runs, "table": table}, f)
+    return table
 
 
 def phase_split(lib, names, fn, n_c, sms):
@@ -343,7 +456,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--path-shapes", action="store_true")
+    ap.add_argument("--grouped", action="store_true")
+    ap.add_argument("--parent", default="build/parent")
+    ap.add_argument("--grouped-phases", action="store_true")
+    ap.add_argument("--grouped-times", action="store_true")
+    ap.add_argument("--tree", default=None)
     args = ap.parse_args(argv)
+    if args.grouped_times:
+        # a child of --grouped: the package of --tree, nothing else
+        sys.path.insert(0, args.tree)
+        from infinisst_tpu_torch.kernels import quant_matmul as K
+
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        print(json.dumps(grouped_times(K, dev, gen)))
+        return
     if not torch.cuda.is_available():
         sys.exit("gemm_phases: needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -353,6 +480,40 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    if args.grouped:
+        grouped_ab(args.parent, args.out)
+        print(smi)
+        return
+    if args.grouped_phases:
+        lib, names = build(os.getcwd(), "grouped_matmul")
+        own = K._grouped_library()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        report = {}
+        for M, D, Os in GROUPED_PHASE_SHAPES:
+            c = GroupedCase(K, dev, gen, M, D, Os)
+            K._glib = K._bind_grouped(lib)
+            try:
+                split = phase_split(lib, names, lambda i: c.run(K, i), c.n_c,
+                                    sms)
+            finally:
+                K._glib = own
+            ms = graph_ms(lambda i: c.run(K, i))
+            label = f"M={M} D={D} Os={'|'.join(map(str, Os))}"
+            report[label] = {"ms": ms, "bound_ms": c.bound_ms(),
+                             "phases": split}
+            print(f"[phases] grouped {label}: {ms:.5f} ms, bound "
+                  f"{c.bound_ms():.5f}", flush=True)
+            _print_split(f"grouped {label}", split)
+            del c
+            torch.cuda.empty_cache()
+        report["device"] = smi
+        text = json.dumps(report)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(text)
+        print(text)
+        print(smi)
+        return
     if args.path_shapes:
         K._library()
         times = path_times(K, dev, gen)

@@ -3,6 +3,7 @@ time goes, kernel by kernel: the port's kernels by name and every other
 device op by its op (``op_family``), with launches and the idle share.
 
     python infinisst_tpu_torch/tools/op_split.py [--tree DIR] [--out PATH]
+        [--group128]
 
 (run as a file, not with -m, so that --tree's package is the one imported)
 
@@ -13,7 +14,10 @@ in one call: a stream agent (m = 1, beam 4) for four chunks, then one
 replayed chunk under torch.profiler; a ServingEngine of 8 slots at beam 4
 for five ticks, then one under the profiler; the bench's AlignAtt agent
 for three calls of one 960 ms unit, then one replayed under the profiler.
-Prints one JSON line a program (``--out`` also gets them) and the card's
+With ``--group128``: the stream chunk alone, on ``bench.py --group128``'s
+weights (grouped W8A8 projections, groups of 128; the pool and the
+offline agents run per-channel W8A8 under that flag).  Prints one JSON
+line a program (``--out`` also gets them) and the card's
 name and power limit.  Needs one CUDA card.
 """
 
@@ -147,6 +151,7 @@ def main(argv=None):
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--group128", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     # the checkout's package first; not this file's directory, which a
@@ -172,7 +177,8 @@ def main(argv=None):
                          f"the package of {tree}")
     dev = torch.device("cuda")
     _build.load_all()
-    cfg, params = bench.flagship_params(dev, act_int8=True)
+    cfg, params = bench.flagship_params(
+        dev, act_int8=True, group_size=128 if args.group128 else 0)
     builder = PromptBuilder(StubTokenizer(cfg.llama.vocab_size), cfg.tokens)
     out = []
 
@@ -193,39 +199,43 @@ def main(argv=None):
     for _ in range(4):
         chunk()
     rec = profiled(dev, chunk)
-    emit("stream chunk", {**rec, "beam_steps": agent.last_result.steps})
+    emit("group128 stream chunk" if args.group128 else "stream chunk",
+         {**rec, "beam_steps": agent.last_result.steps})
     del agent
     torch.cuda.empty_cache()
+    # the pool and the offline agents run per-channel W8A8 (bench.py)
+    if not args.group128:
+        eng = ServingEngine(params, cfg, StreamConfig(),
+                            {("English", "German"): builder}, pool_size=8,
+                            beam=4, dtype=torch.bfloat16, device=dev)
+        slots = [eng.open_stream(f"c{i}") for i in range(eng.pool)]
 
-    eng = ServingEngine(params, cfg, StreamConfig(),
-                        {("English", "German"): builder}, pool_size=8,
-                        beam=4, dtype=torch.bfloat16, device=dev)
-    slots = [eng.open_stream(f"c{i}") for i in range(eng.pool)]
+        def tick():
+            for s in slots:
+                eng.push_audio(s, rng.randn(eng.chunk_samples).astype(
+                    np.float32) * 0.1)
+            eng.tick()
 
-    def tick():
-        for s in slots:
-            eng.push_audio(s, rng.randn(eng.chunk_samples).astype(
-                np.float32) * 0.1)
-        eng.tick()
+        for _ in range(5):
+            tick()
+        fwd = eng.forwards["token"]
+        rec = profiled(dev, tick)
+        emit("pool tick",
+             {**rec, "token_forwards": eng.forwards["token"] - fwd})
+        del eng
+        torch.cuda.empty_cache()
 
-    for _ in range(5):
-        tick()
-    fwd = eng.forwards["token"]
-    rec = profiled(dev, tick)
-    emit("pool tick", {**rec, "token_forwards": eng.forwards["token"] - fwd})
-    del eng
-    torch.cuda.empty_cache()
+        agent = bench.offline_agent("alignatt", False, cfg, params, dev)
 
-    agent = bench.offline_agent("alignatt", False, cfg, params, dev)
+        def call():
+            agent.push(rng.randn(15360).astype(np.float32) * 0.1,
+                       finished=False)
 
-    def call():
-        agent.push(rng.randn(15360).astype(np.float32) * 0.1, finished=False)
-
-    for _ in range(3):
-        call()
-    rec = profiled(dev, call)
-    emit("alignatt call", {**rec, "beam_steps": agent.last_result.steps,
-                           "graph": agent.last_graph})
+        for _ in range(3):
+            call()
+        rec = profiled(dev, call)
+        emit("alignatt call", {**rec, "beam_steps": agent.last_result.steps,
+                               "graph": agent.last_graph})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

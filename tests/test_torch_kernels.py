@@ -7,6 +7,8 @@ BITWISE equal: both sides compute exact integer products and the same
 float32 epilogue in the same order.
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -532,50 +534,118 @@ def test_mm_refuses_the_unpacked_grouped_leaf():
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+def _grouped_segments(p, b):
+    """Block b's run under the grouped plan p as the kernel walks it: a
+    list of ((weight, output tile, row tile), [stages]) segments."""
+    segs = []
+    for w, ot, mt, k in TK.grouped_block_work(p, b):
+        if segs and segs[-1][0] == (w, ot, mt):
+            segs[-1][1].append(k)
+        else:
+            segs.append(((w, ot, mt), [k]))
+    return segs
+
+
 @pytest.mark.parametrize("gs", [32, 64, 128])
 @pytest.mark.parametrize("sms", [132, 114, 8])
-def test_grouped_gemm_plan_covers_every_group_once(sms, gs):
-    """``w8a8_grouped_gemm``'s plan: every group of D in exactly one split,
-    whole groups per split, every row and channel in one tile; a split
-    only for a grid short of a wave and where the products handed to the
-    last block (M x G x O f32) stay within 1 / GROUPED_WS_CAP of the
-    weight bytes; more than one row tile only without a split, for a grid
-    that one row tile would leave short of half a wave; the wide output
-    tile only where it alone fills GROUPED_WIDE_WAVES waves."""
-    cdiv = TK._cdiv
-    for D, O in FLAGSHIP_DO + TINY_DO + [(4032, 4096)]:
+def test_grouped_plan_covers_every_group_once(sms, gs):
+    """``grouped_plan`` and the runs its blocks walk
+    (``grouped_block_work``): every (weight, channel tile, row tile,
+    group) exactly once; each block's part of a tile a contiguous run of
+    whole groups; a tile split across blocks has its first group with
+    its owner, at the end of the owner's run, and its later groups with
+    contributors, at the start of theirs; the contributors' parked
+    products (the tile's rows, f32) are what the plan counts, fit the slots
+    it sizes and stay within 1 / GROUPED_WS_CAP of the weight bytes; a
+    plan that splits no tile gives each block whole tiles, narrower row
+    tiles only for a launch short of half a wave; the ring fits."""
+    cdiv, K = TK._cdiv, TK.W8A8_STAGE_K
+    cases = [(D, (O,)) for D, O in FLAGSHIP_DO + TINY_DO + [(4032, 4096)]]
+    cases += [(4096, (4096, 1024, 1024)), (4096, (14336, 14336)),
+              (64, (64, 32, 32)), (3072, (512, 768))]
+    for D, Os in cases:
         if D % gs:
             continue
         G = D // gs
-        for M in (1, 4, 61, 79):
-            p = TK.grouped_gemm_plan(M, D, O, G, sms)
-            assert p.rows in TK.GEMM_ROW_TILES
-            assert p.tile_o in TK.GROUPED_TILE_OS
+        for M in (1, 4, 5, 8, 61, 79, 384):
+            p = TK.grouped_plan(M, D, G, Os, sms)
+            assert p.rows in TK.GROUPED_ROWS and p.gs == gs
             assert p.n_mtiles * p.rows >= M > (p.n_mtiles - 1) * p.rows
-            assert p.n_otiles * p.tile_o >= O > (p.n_otiles - 1) * p.tile_o
-            assert p.k_split % gs == 0 and p.n_split == cdiv(D, p.k_split)
-            cover = np.zeros(G, np.int64)
-            for sp in range(p.n_split):
-                cover[sp * p.k_split // gs:
-                      min(D, (sp + 1) * p.k_split) // gs] += 1
-            assert (cover == 1).all(), (M, D, O, p)
-            if p.n_split > 1:
-                assert TK.GROUPED_WS_CAP * M * G * O * 4 <= D * O, (M, p)
-                assert p.n_otiles * p.n_mtiles < sms and p.n_mtiles == 1
-            if p.n_mtiles > 1:
-                assert p.n_split == 1 and p.rows >= TK.GROUPED_MIN_ROWS
-                wider = TK.GEMM_ROW_TILES[TK.GEMM_ROW_TILES.index(p.rows) + 1]
-                assert 2 * p.n_otiles * cdiv(M, wider) < sms, (M, D, O, p)
-            if p.tile_o != TK.GROUPED_TILE_OS[0]:  # M <= 80: one row tile
-                assert cdiv(O, p.tile_o) >= TK.GROUPED_WIDE_WAVES * sms
-    # the --group128 beam step splits its narrow projections (M = 4 at
-    # gs = 128 is the workspace cap), not gate/up (a wave of tiles); its
-    # prefill splits none
+            assert 1 <= p.blocks <= sms and 2 <= p.stages
+            assert TK.grouped_smem(p.rows, G, p.ends, p.stages) <= \
+                TK.W8A8_SMEM
+            assert p.unit * K % gs == 0 and p.cut in (1, p.upt)
+            seen = collections.Counter()
+            parked, park, split = 0, 0, set()
+            for b in range(p.blocks):
+                segs = _grouped_segments(p, b)
+                assert segs
+                for i, ((w, ot, mt), ks) in enumerate(segs):
+                    assert ks == list(range(ks[0], ks[-1] + 1))
+                    k0, k1 = ks[0] * K, min((ks[-1] + 1) * K, D)
+                    assert k0 % gs == 0 and k1 % gs == 0, (M, D, p)
+                    groups = range(k0 // gs, k1 // gs)
+                    seen.update((w, ot, mt, g) for g in groups)
+                    if ks[0] > 0:  # a contributor: its run's first part
+                        assert i == 0 and p.cut == 1
+                        split.add((w, ot, mt))
+                        park = max(park, len(groups))
+                        parked += len(groups) * p.rows * TK.W8A8_TILE_O * 4
+                    elif k1 < D:  # the owner: its run's last part
+                        assert i == len(segs) - 1 and p.cut == 1
+                        assert ks[0] == 0
+            want = {(w, ot, mt, g) for w, O in enumerate(Os)
+                    for ot in range(cdiv(O, TK.W8A8_TILE_O))
+                    for mt in range(p.n_mtiles) for g in range(G)}
+            assert set(seen) == want and set(seen.values()) == {1}, (M, D, p)
+            assert (parked, park, len(split)) == (
+                p.parked_bytes, p.park, p.split_tiles), (M, D, p)
+            if p.cut == 1:
+                assert parked * TK.GROUPED_WS_CAP <= D * sum(Os), (M, D, p)
+            else:
+                assert not split and p.park == 0
+                otiles = p.tile0[-1] // p.n_mtiles
+                if p.n_mtiles > cdiv(M, TK.GROUPED_ROWS[-1]):
+                    # narrower row tiles: the widest left half a wave
+                    assert 2 * otiles * cdiv(M, TK.GROUPED_ROWS[-1]) < sms
+                    assert p.rows >= TK.GROUPED_NARROW_ROWS, (M, D, p)
+    # the --group128 beam step runs every projection stream-K, q|k|v and
+    # gate|up in one launch each; its prefill splits none
     if sms > 100 and gs == 128:
-        assert TK.grouped_gemm_plan(4, 4096, 4096, 32, sms).n_split > 1
-        assert TK.grouped_gemm_plan(4, 14336, 4096, 112, sms).n_split > 1
-        assert TK.grouped_gemm_plan(4, 4096, 14336, 32, sms).n_split == 1
-    assert TK.grouped_gemm_plan(61, 4096, 4096, 32, sms).n_split == 1
+        for D, Os in ((4096, (4096, 1024, 1024)), (4096, (4096,)),
+                      (4096, (14336, 14336)), (14336, (4096,))):
+            for M in (1, 4):
+                p = TK.grouped_plan(M, D, D // gs, Os, sms)
+                assert p.cut == 1 and p.blocks == sms and p.split_tiles
+            assert TK.grouped_plan(61, D, D // gs, Os, sms).split_tiles == 0
+
+
+def test_mm_many_quantized_grouped_is_one_gemm_a_weight(monkeypatch):
+    """Grouped leaves of one activation go to ``w8a8_grouped_gemm_many``
+    in one call of up to three (q|k|v: one, four leaves: two), and each
+    output is bitwise ``w8a8_grouped_gemm`` of its weight alone."""
+    calls = []
+    many = TK.w8a8_grouped_gemm_many
+
+    def counted(y_q, y_s, w_ts, scales, out_dtype):
+        calls.append(len(w_ts))
+        return many(y_q, y_s, w_ts, scales, out_dtype)
+
+    monkeypatch.setattr(TQ, "w8a8_grouped_gemm_many", counted)
+    y, _, _ = _grouped_inputs(5, 128, 96, 32, seed=21)
+    yq, ys = TK.group_quant_int8(torch.from_numpy(y), 32)
+    rng = np.random.RandomState(22)
+    leaves = [_packed(rng.randint(-127, 128, (128, O)).astype(np.int8),
+                      (rng.rand(4, O) * 1e-2 + 1e-4).astype(np.float32))
+              for O in (96, 32, 32, 64)]
+    for ws, want_calls in ((leaves[:3], [3]), (leaves, [3, 1])):
+        calls.clear()
+        got = TQ.mm_many_quantized(yq, ys, ws, torch.float32, (5,))
+        assert calls == want_calls
+        for g, w in zip(got, ws):
+            want = TK.w8a8_grouped_gemm(yq, ys, w[TQ.KMAJOR], w["scale_a8"],
+                                        torch.float32)
+            assert torch.equal(g, want)
 
 
 @pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bfloat16", "float32"])

@@ -149,10 +149,11 @@ def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
     ``w8a8_gemm_many`` calls (q|k|v and gate|up one launch each); with
     grouped projections ``group_quant_int8`` L times (o) and the norms
     and the SwiGLU product grouped (the per-channel head's norm per row),
-    their GEMMs still once per projection."""
+    their GEMMs as 4L ``w8a8_grouped_gemm_many`` calls, q|k|v and gate|up
+    one launch each as the per-channel ones."""
     calls = {"row_quant_int8": 0, "group_quant_int8": 0,
              "rms_norm_quant_int8": 0, "silu_mul_quant_int8": 0,
-             "w8a8_gemm_many": 0, "w8a8_grouped_gemm": 0}
+             "w8a8_gemm_many": 0, "w8a8_grouped_gemm_many": 0}
     for name in calls:
         fn = getattr(TQ, name)
 
@@ -168,10 +169,11 @@ def test_activation_quantized_once_per_shared_input(monkeypatch, group_size):
     L = CFG.num_layers
     fused = {"rms_norm_quant_int8": 2 * L + 1, "silu_mul_quant_int8": L}
     want = ({"row_quant_int8": 0, "group_quant_int8": L,
-             "w8a8_gemm_many": 1, "w8a8_grouped_gemm": 7 * L, **fused}
+             "w8a8_gemm_many": 1, "w8a8_grouped_gemm_many": 4 * L, **fused}
             if group_size else
             {"row_quant_int8": L, "group_quant_int8": 0,
-             "w8a8_gemm_many": 4 * L + 1, "w8a8_grouped_gemm": 0, **fused})
+             "w8a8_gemm_many": 4 * L + 1, "w8a8_grouped_gemm_many": 0,
+             **fused})
     rng = np.random.RandomState(8)
     _, ts = _state(2, [7, 3])
     TL.decode_step(p, CFG, ts, torch.from_numpy(

@@ -2,13 +2,15 @@
 ``silu_mul_quant_int8_plain``) against the JAX functions they replace,
 ``_rms_norm`` or ``jax.nn.silu(g) * u`` followed by ``quantize_activation``
 or ``quantize_activation_grouped``, at tiny widths; a row's bits at M = 1
-and M = 61; and the route in ``models/llama.py`` that takes the fused
-kernels only where every leaf is W8A8 of one layout.
+and M = 61; the port's bf16 silu at every site, and its gradient,
+against ``jax.nn.silu``'s; and the route in ``models/llama.py`` that
+takes the fused kernels only where every leaf is W8A8 of one layout.
 
 Tolerance against JAX: the norm's sum of squares runs in the kernel's
-order, not XLA's, and jax.nn.silu is x * sigmoid(x), not x / (1 +
-exp(-x)), so y may differ by an ulp; a value within an ulp of a rounding
-boundary then quantizes one int8 step apart.  So y_s agrees within 2**-8
+order, not XLA's, and on float32 rows torch's silu and XLA's differ by an
+ulp, so y may differ by an ulp; a value within an ulp of a rounding
+boundary then quantizes one int8 step apart.  On bf16 rows the port's
+silu rounds where XLA's does, so the SwiGLU product is bitwise.  So y_s agrees within 2**-8
 relative, the codes within 1, and equal on at least 99.9 % of entries."""
 
 import jax
@@ -89,17 +91,98 @@ def test_rms_norm_quant_matches_jax(M, kind, with_delta, gs):
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("gs", [I, GS], ids=["per_row", "grouped"])
 def test_silu_mul_quant_matches_jax(M, kind, gs):
-    """jax.nn.silu on a bf16 array rounds the sigmoid and the product to
-    bf16 apart; torch's silu (the port's, before and after the fusion)
-    computes it in float32 and rounds once, so on bf16 rows JAX's silu is
-    taken in float32 and rounded to the dtype, as torch's is: the two
-    frameworks' silu differ by up to two bf16 steps otherwise, before any
-    kernel (ROADMAP §3)."""
+    """Against ``jax.nn.silu(g) * u`` itself, which XLA computes with every
+    step of the sigmoid and the product rounded to the dtype, as the
+    port's ``silu`` does on bf16 rows: there the product and its
+    quantization are bitwise JAX's; on float32 rows (torch's silu, an ulp
+    from XLA's) within the module's tolerance."""
     tg, jg = _pair(_rows(M, I, 4, scale=3.0), kind)
     tu, ju = _pair(_rows(M, I, 5), kind)
     got = TK.silu_mul_quant_int8_plain(tg, tu, gs)
-    silu = jax.nn.silu(jg.astype(jnp.float32)).astype(jg.dtype)
-    _agree(got, _jax_quant(silu * ju, gs))
+    want = _jax_quant(jax.nn.silu(jg) * ju, gs)
+    if kind == "bf16":
+        np.testing.assert_array_equal(
+            (TK.silu(tg) * tu).to(torch.float32).numpy(),
+            np.asarray((jax.nn.silu(jg) * ju).astype(jnp.float32)))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _agree(got, want)
+
+
+def _exact_weight(n, seed, scale):
+    """A permutation matrix times a power of two: every product through it
+    is exact, so torch and XLA give the same bits whatever their order."""
+    w = np.zeros((n, n), np.float32)
+    w[np.arange(n), np.random.RandomState(seed).permutation(n)] = scale
+    return w
+
+
+@pytest.mark.parametrize("site", ["exit_adapter", "silu_mm", "offline_mlp"])
+def test_silu_sites_bitwise_jax_on_bf16(site):
+    """Each port site that mirrors a ``jax.nn.silu`` gives JAX's bits on
+    bf16 rows: the exit adapter (``apply_exit_adapter``), ``_silu_mm``'s
+    route for float weights (JAX's ``jax.nn.silu(mm(y, w_gate)) * mm(y,
+    w_up)`` before w_down) and the training forward's MLP
+    (``_swiglu``).  The weights are exact (``_exact_weight``), so only
+    the silu's rounding can tell the frameworks apart."""
+    td, jd = torch.bfloat16, jnp.bfloat16
+    x = _rows(6, D, 13, scale=3.0)
+    tx, jx = _pair(x, "bf16")
+    if site == "exit_adapter":
+        ln = np.random.RandomState(14).uniform(0.5, 1.5, D).astype(np.float32)
+        w1, w2 = _exact_weight(D, 15, 2.0), _exact_weight(D, 16, 0.25)
+        ta = {"ln": torch.from_numpy(ln).to(td),
+              "w1": torch.from_numpy(w1).to(td),
+              "w2": torch.from_numpy(w2).to(td)}
+        ja = {k: jnp.asarray(v).astype(jd)
+              for k, v in (("ln", ln), ("w1", w1), ("w2", w2))}
+        got = TL.apply_exit_adapter(ta, tx, EPS)
+        want = JL.apply_exit_adapter(ja, jx, EPS)
+    else:
+        tu, ju = _pair(_rows(6, D, 17), "bf16")
+        wg = _exact_weight(D, 18, 2.0)
+        tw, jw = torch.from_numpy(wg).to(td), jnp.asarray(wg).astype(jd)
+        if site == "silu_mm":
+            eye = np.eye(D, dtype=np.float32)
+            got = TL._silu_mm(tx, tu, torch.from_numpy(eye).to(td))
+            want = (jax.nn.silu(jx) * ju) @ jnp.asarray(eye).astype(jd)
+        else:
+            got = TL._swiglu(tu, tw, torch.from_numpy(
+                _exact_weight(D, 19, 0.5)).to(td))
+            want = jax.nn.silu(ju @ jw) * (ju @ jnp.asarray(
+                _exact_weight(D, 19, 0.5)).astype(jd))
+    assert got.dtype == td
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("site", ["silu", "swiglu"])
+def test_silu_grad_bitwise_jax_on_bf16(site):
+    """The gradient the port's ``silu`` takes on bf16 rows is JAX's bit for
+    bit: ``torch.autograd.grad`` of ``TK.silu`` against ``jax.vjp`` of
+    ``jax.nn.silu``, and the input's gradient through the training MLP
+    (``_swiglu``) against ``jax.vjp`` of ``jax.nn.silu(y @ wg) * (y @
+    wu)``, the path a frozen LLM's layers pass the adapter's gradient
+    back on.  The weights are exact (``_exact_weight``), so only the
+    silu's rounding can tell the frameworks apart."""
+    td, jd = torch.bfloat16, jnp.bfloat16
+    tx, jx = _pair(_rows(6, D, 21, scale=3.0), "bf16")
+    tc, jc = _pair(_rows(6, D, 22), "bf16")
+    tx.requires_grad_()
+    if site == "silu":
+        out = TK.silu(tx)
+        _, vjp = jax.vjp(jax.nn.silu, jx)
+    else:
+        wg, wu = _exact_weight(D, 23, 2.0), _exact_weight(D, 24, 0.5)
+        tg, tu = (torch.from_numpy(w).to(td) for w in (wg, wu))
+        jg, ju = (jnp.asarray(w).astype(jd) for w in (wg, wu))
+        out = TL._swiglu(tx, tg, tu)
+        _, vjp = jax.vjp(lambda y: jax.nn.silu(y @ jg) * (y @ ju), jx)
+    got, = torch.autograd.grad(out, tx, tc)
+    want, = vjp(jc)
+    assert got.dtype == td
+    np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])

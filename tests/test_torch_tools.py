@@ -287,22 +287,24 @@ def test_fidelity_tool_runs_every_variant():
                 O, D = w[TQF.Q.KMAJOR].shape[-2:]
                 G = w["scale_a8"].shape[-2]
                 assert D % G == 0
-                if not TQF.K.grouped_gemm_on_mma(D, G, O):
+                if not TQF.K.grouped_on_wgmma(D, G, O):
                     simple.add(name)
     assert simple == {"w8a8_32groups_like_g128", "w8a8_32groups_projonly"}
 
 
-def test_gemm_phases_source_transform_keeps_the_kernel():
-    """``tools/gemm_phases``: the Hopper W8A8 source carries every phase
-    mark its ``// phases:`` line names, compiled away unless GQ_PHASES is
-    defined, and the instrumented build is that source with the
-    instrumentation around it, the text otherwise unchanged; no module of
-    the package but the tool itself names it."""
+@pytest.mark.parametrize("source", ["quant_matmul", "grouped_matmul"])
+def test_gemm_phases_source_transform_keeps_the_kernel(source):
+    """``tools/gemm_phases``: each Hopper W8A8 source (``w8a8_gemm``'s and
+    the grouped GEMM's) carries every phase mark its ``// phases:`` line
+    names, compiled away unless GQ_PHASES is defined, and the
+    instrumented build is that source with the instrumentation around it,
+    the text otherwise unchanged; no module of the package but the tool
+    itself names it."""
     from infinisst_tpu_torch.tools import gemm_phases as G
 
     pkg = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "infinisst_tpu_torch")
-    with open(os.path.join(pkg, "csrc", "quant_matmul.cu")) as f:
+    with open(os.path.join(pkg, "csrc", f"{source}.cu")) as f:
         src = f.read()
     out, names = G.instrumented_source(src)
     assert out == G._PRELUDE + src + G._EPILOGUE
